@@ -1,22 +1,28 @@
 """blocksparse_tpu_torch: the PyTorch and CUDA port of blocksparse_tpu.
 
-It serves the flagship ``SparseTransformerLM`` on an NVIDIA H100 through
-two kernels written by hand for Hopper (``csrc/``): the block-sparse
-matmul forward and the fused block-sparse attention forward.  Each has a
-plain PyTorch version beside it, which is what runs on the CPU.  The JAX
+It serves and trains the flagship ``SparseTransformerLM`` on an NVIDIA
+H100 through kernels written by hand for Hopper (``csrc/``): the
+block-sparse matmul (fprop, bprop, updat) and the fused block-sparse
+attention (serving and training forward, dq, dk/dv).  Each has a plain
+PyTorch version beside it, which is what runs on the CPU.  The JAX
 package ``blocksparse_tpu`` is the reference it is held against; this
 package imports torch and never jax.
 """
 from blocksparse_tpu_torch.ops import (
     BlocksparseMatMul, BlocksparseTransformer, layer_norm, swish, fast_gelu,
-    float_cast, embedding_lookup,
+    float_cast, embedding_lookup, softmax_cross_entropy,
+    clip_by_global_norm, global_norm, AdamOptimizer,
 )
 from blocksparse_tpu_torch.models import (
     SparseTransformerLM, TransformerConfig, generate_cached,
 )
-from blocksparse_tpu_torch.convert import params_from_jax, random_jax_params
+from blocksparse_tpu_torch.convert import (
+    params_from_jax, params_to_jax, opt_state_from_jax, random_jax_params,
+)
 
 __all__ = ["BlocksparseMatMul", "BlocksparseTransformer", "layer_norm",
            "swish", "fast_gelu", "float_cast", "embedding_lookup",
-           "SparseTransformerLM", "TransformerConfig", "generate_cached",
-           "params_from_jax", "random_jax_params"]
+           "softmax_cross_entropy", "clip_by_global_norm", "global_norm",
+           "AdamOptimizer", "SparseTransformerLM", "TransformerConfig",
+           "generate_cached", "params_from_jax", "params_to_jax",
+           "opt_state_from_jax", "random_jax_params"]

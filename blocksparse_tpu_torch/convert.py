@@ -5,8 +5,11 @@ The JAX ``SparseTransformerLM`` keeps its parameters in a flat dict
 or one stacked ``hs`` dict with a leading layer dim), with a leading
 tensor-parallel dim of size ``tp`` on block-sparse ``w_fc``/``w_proj``.
 ``params_from_jax`` turns such a dict of NumPy arrays into the port's
-``state_dict``; ``random_jax_params`` makes one from a seed, with the
-JAX initialiser's shapes and scales, for runs that need no checkpoint.
+``state_dict`` and ``params_to_jax`` turns the port's parameters back;
+``opt_state_from_jax`` turns a JAX ``AdamOptimizer`` state
+(``{"mean", "var", "t"}``) into the port's.  ``random_jax_params`` makes
+a param dict from a seed, with the JAX initialiser's shapes and scales,
+for runs that need no checkpoint.
 """
 from __future__ import annotations
 
@@ -56,6 +59,37 @@ def params_from_jax(np_params, model=None):
                 raise ValueError(f"{k}: {tuple(t.shape)} vs model "
                                  f"{tuple(own[k].shape)}")
     return sd
+
+
+def params_to_jax(model):
+    """The port's parameters as a JAX param dict of NumPy f32 arrays (flat
+    ``h{l}`` layers), with the leading tp dim of 1 on block-sparse
+    ``w_fc``/``w_proj``."""
+    out = {}
+    for name, p in model.state_dict().items():
+        a = p.detach().float().cpu().numpy()
+        if name.startswith("h."):
+            _, l, k = name.split(".")
+            if k in ("w_fc", "w_proj") and model.bsmm1 is not None:
+                a = a[None]
+            out.setdefault(f"h{l}", {})[k] = a
+        else:
+            out[name] = a
+    return out
+
+
+def opt_state_from_jax(np_state, model):
+    """A JAX ``AdamOptimizer`` state of NumPy arrays (``{"mean": params,
+    "var": params, "t": int}``, f32 slots) -> the port's optimizer state on
+    the model's device: mean and var keyed by the model's parameter
+    names, t an int32 scalar tensor."""
+    dev = model.wte.device
+    return {"mean": {k: t.to(dev) for k, t in
+                     params_from_jax(np_state["mean"], model).items()},
+            "var": {k: t.to(dev) for k, t in
+                    params_from_jax(np_state["var"], model).items()},
+            "t": torch.tensor(int(np_state["t"]), dtype=torch.int32,
+                              device=dev)}
 
 
 def random_jax_params(model, seed=0):

@@ -1,40 +1,47 @@
-// Block-sparse matmul forward in the NC orientation (feature_axis=1):
-//   y (N, K) = x (N, C) . W, over the layout's blocks.
+// Block-sparse matmul xprop in the NC orientation (feature_axis=1):
+//   fprop  y  (N, K) = x  (N, C) . W,    over the layout's blocks;
+//   bprop  dx (N, C) = dy (N, K) . W^T,  over the same blocks (trans_w).
 //
-// Replaces the fprop direction of the TPU kernels xprop_pallas_dense_tile,
+// Replaces both directions of the TPU kernels xprop_pallas_dense_tile,
 // xprop_pallas_grouped(_panels) and xprop_pallas
 // (blocksparse_tpu/kernels/bsmm.py).  All three compute this product; the
 // TPU picks among them for its MXU tiling.
 //
-// LUT: a CSR over output block-columns k.  Entries row_ptr[k]..row_ptr[k+1]
-// hold (ent_c, ent_w): input block-column c and weight block w, sorted as
-// BlocksparseMatMul sorts fprop_list, so the f32 sum runs in a fixed order.
+// LUT: a CSR over output block-columns o.  Entries row_ptr[o]..row_ptr[o+1]
+// hold (ent_in, ent_w): input block-column and weight block, sorted as
+// BlocksparseMatMul sorts fprop_list (fprop: o = k, in = c) or bprop_list
+// (bprop: o = c, in = k), so the f32 sum runs in a fixed order.
 //
-// Design: one thread block owns one (N-tile of TM rows, k).  It walks k's
-// entries; for each it stages x[n-tile, c*B:(c+1)*B] (transposed) and W[w]
-// in shared memory, KC contraction rows at a time, converted to f32, and
-// accumulates a register tile of RM x RN outputs per thread.  It writes
-// y[n-tile, k*B:(k+1)*B] once.  No atomics; an empty output row writes zeros.
-// f32 inputs run in full fp32 on the CUDA cores (no TF32), bf16 inputs
-// accumulate in f32 and round once on the store.
+// Design: one thread block owns one (N-tile of TM rows, o).  It walks o's
+// entries; for each it stages x[n-tile, in*B:(in+1)*B] (transposed) and W[w]
+// (or W[w]^T) in shared memory, KC contraction rows at a time, converted to
+// f32, and accumulates a register tile of RM x RN outputs per thread.  It
+// writes y[n-tile, o*B:(o+1)*B] once.  No atomics; an empty output row
+// writes zeros.  f32 inputs run in full fp32 on the CUDA cores (no TF32),
+// bf16 and f16 inputs accumulate in f32 and round once on the store.
 //
-// Bound on the H100: at prefill (N = 8*2048) each call is ~2*N*blocks*B^2
-// = 18 GFLOP against ~100 MB of traffic, so it is bound by operations; this
-// first version uses the CUDA cores, not the tensor cores (wgmma is later
-// work).  At decode (N = batch) it is bound by the bytes of W, which it
-// reads exactly once per call.
+// Bound on the H100: at the training shapes (N = 8*2048) each call is
+// ~2*N*blocks*B^2 = 18 GFLOP against ~100 MB of traffic, so it is bound by
+// operations; this first version uses the CUDA cores, not the tensor cores
+// (wgmma is later work).  At decode (N = batch) it is bound by the bytes of
+// W, which it reads exactly once per call.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
+}
+template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
+  return __float2half_rn(v);
 }
 
 // Output tile per block: TM rows of N by the B columns of one block-column;
@@ -50,10 +57,12 @@ template <int B> struct Threads {
   static constexpr int value = (Tile<B>::TM / Tile<B>::RM) * (B / Tile<B>::RN);
 };
 
-template <typename T, int B>
+// TRANS (bprop) stages W[w]^T; its W tile is padded (a multiple of 4 keeps
+// the float4 reads aligned) so the transposing stores spread over banks.
+template <typename T, int B, bool TRANS>
 __global__ void __launch_bounds__(Threads<B>::value)
-bsmm_fprop_nc_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                     const int* __restrict__ row_ptr, const int* __restrict__ ent_c,
+bsmm_xprop_nc_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                     const int* __restrict__ row_ptr, const int* __restrict__ ent_in,
                      const int* __restrict__ ent_w, T* __restrict__ y,
                      int N, int C, int K) {
   constexpr int TM = Tile<B>::TM, RM = Tile<B>::RM, RN = Tile<B>::RN;
@@ -61,13 +70,14 @@ bsmm_fprop_nc_kernel(const T* __restrict__ x, const T* __restrict__ w,
   constexpr int THREADS = Threads<B>::value;
   constexpr int KC = B < 32 ? B : 32;  // contraction rows staged at a time
   constexpr int XP = TM + 4;           // padded row of the transposed x tile
+  constexpr int WP = TRANS ? B + 4 : B;  // W row
   __shared__ __align__(16) float xs[KC][XP];
-  __shared__ __align__(16) float ws[KC][B];
+  __shared__ __align__(16) float ws[KC][WP];
 
   const int tid = threadIdx.x;
   const int tr = tid / TC, tc = tid % TC;
   const int n0 = blockIdx.x * TM;
-  const int k = blockIdx.y;
+  const int o = blockIdx.y;
 
   float acc[RM][RN];
 #pragma unroll
@@ -75,9 +85,9 @@ bsmm_fprop_nc_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < RN; ++j) acc[r][j] = 0.f;
 
-  const int e_end = row_ptr[k + 1];
-  for (int e = row_ptr[k]; e < e_end; ++e) {
-    const T* xb = x + (size_t)ent_c[e] * B;
+  const int e_end = row_ptr[o + 1];
+  for (int e = row_ptr[o]; e < e_end; ++e) {
+    const T* xb = x + (size_t)ent_in[e] * B;
     const T* wb = w + (size_t)ent_w[e] * B * B;
     for (int i0 = 0; i0 < B; i0 += KC) {
       for (int l = tid; l < TM * KC; l += THREADS) {
@@ -85,8 +95,16 @@ bsmm_fprop_nc_kernel(const T* __restrict__ x, const T* __restrict__ w,
         const int n = n0 + m;
         xs[ii][m] = n < N ? to_f32(xb[(size_t)n * C + i0 + ii]) : 0.f;
       }
-      for (int l = tid; l < KC * B; l += THREADS)
-        ws[l / B][l % B] = to_f32(wb[(size_t)i0 * B + l]);
+      if constexpr (TRANS) {
+        // ws[ii][j] = W[j][i0 + ii]: read along W's rows (coalesced)
+        for (int l = tid; l < KC * B; l += THREADS) {
+          const int j = l / KC, ii = l % KC;
+          ws[ii][j] = to_f32(wb[(size_t)j * B + i0 + ii]);
+        }
+      } else {
+        for (int l = tid; l < KC * B; l += THREADS)
+          ws[l / B][l % B] = to_f32(wb[(size_t)i0 * B + l]);
+      }
       __syncthreads();
 #pragma unroll 8
       for (int ii = 0; ii < KC; ++ii) {
@@ -119,7 +137,7 @@ bsmm_fprop_nc_kernel(const T* __restrict__ x, const T* __restrict__ w,
   for (int r = 0; r < RM; ++r) {
     const int n = n0 + tr * RM + r;
     if (n < N) {
-      T* yr = y + (size_t)n * K + (size_t)k * B + tc * RN;
+      T* yr = y + (size_t)n * K + (size_t)o * B + tc * RN;
 #pragma unroll
       for (int j = 0; j < RN; ++j) yr[j] = from_f32<T>(acc[r][j]);
     }
@@ -127,40 +145,46 @@ bsmm_fprop_nc_kernel(const T* __restrict__ x, const T* __restrict__ w,
 }
 
 template <typename T, int B>
-cudaError_t launch(const void* x, const void* w, const int* row_ptr, const int* ent_c,
-                   const int* ent_w, void* y, int N, int C, int K, cudaStream_t stream) {
+cudaError_t launch(const void* x, const void* w, const int* row_ptr, const int* ent_in,
+                   const int* ent_w, void* y, int N, int C, int K, int trans_w,
+                   cudaStream_t stream) {
   constexpr int TM = Tile<B>::TM;
   dim3 grid((N + TM - 1) / TM, K / B);
-  bsmm_fprop_nc_kernel<T, B><<<grid, Threads<B>::value, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), row_ptr, ent_c, ent_w,
+  auto kernel = trans_w ? bsmm_xprop_nc_kernel<T, B, true>
+                        : bsmm_xprop_nc_kernel<T, B, false>;
+  kernel<<<grid, Threads<B>::value, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), row_ptr, ent_in, ent_w,
       static_cast<T*>(y), N, C, K);
   return cudaGetLastError();
 }
 
+#define XPROP_ARGS x, w, row_ptr, ent_in, ent_w, y, N, C, K, trans_w, s
+
 template <typename T>
 cudaError_t dispatch(int bsize, const void* x, const void* w, const int* row_ptr,
-                     const int* ent_c, const int* ent_w, void* y, int N, int C, int K,
-                     cudaStream_t s) {
+                     const int* ent_in, const int* ent_w, void* y, int N, int C, int K,
+                     int trans_w, cudaStream_t s) {
   switch (bsize) {
-    case 8: return launch<T, 8>(x, w, row_ptr, ent_c, ent_w, y, N, C, K, s);
-    case 16: return launch<T, 16>(x, w, row_ptr, ent_c, ent_w, y, N, C, K, s);
-    case 32: return launch<T, 32>(x, w, row_ptr, ent_c, ent_w, y, N, C, K, s);
-    case 64: return launch<T, 64>(x, w, row_ptr, ent_c, ent_w, y, N, C, K, s);
-    case 128: return launch<T, 128>(x, w, row_ptr, ent_c, ent_w, y, N, C, K, s);
+    case 8: return launch<T, 8>(XPROP_ARGS);
+    case 16: return launch<T, 16>(XPROP_ARGS);
+    case 32: return launch<T, 32>(XPROP_ARGS);
+    case 64: return launch<T, 64>(XPROP_ARGS);
+    case 128: return launch<T, 128>(XPROP_ARGS);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched).
-extern "C" int bsmm_fprop_nc(int dtype, int bsize, const void* x, const void* w,
-                             const int* row_ptr, const int* ent_c, const int* ent_w,
-                             void* y, int N, int C, int K, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  x is (N, C), y (N, K);
+// trans_w = 0 for fprop (W[w] is (in, out)), 1 for bprop (W[w]^T).
+// Returns a cudaError_t (0 = launched).
+extern "C" int bsmm_xprop_nc(int dtype, int bsize, int trans_w, const void* x,
+                             const void* w, const int* row_ptr, const int* ent_in,
+                             const int* ent_w, void* y, int N, int C, int K, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch<float>(bsize, x, w, row_ptr, ent_c, ent_w, y, N, C, K, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(bsize, x, w, row_ptr, ent_c, ent_w, y, N, C, K, s);
+  if (dtype == 0) return dispatch<float>(bsize, XPROP_ARGS);
+  if (dtype == 1) return dispatch<__nv_bfloat16>(bsize, XPROP_ARGS);
+  if (dtype == 2) return dispatch<__half>(bsize, XPROP_ARGS);
   return cudaErrorInvalidValue;
 }

@@ -1,9 +1,11 @@
 // Fused block-sparse attention forward:
 //   out = softmax(scale * q k^T + mask) v over a block layout,
 // with an online (flash-style) softmax, so the score tensor never reaches
-// device memory.
+// device memory; optionally also the per-row log-sum-exp
+//   lse = m + log(l)  (f32), which the training backward reads.
 //
-// Replaces the TPU kernel fused_attention_fwd / _attn_kernel
+// Replaces the TPU kernels fused_attention_fwd / _attn_kernel (lse == null)
+// and fused_attention_fwd_lse / _attn_fwd_lse_kernel
 // (blocksparse_tpu/kernels/bst_attn.py).  The TPU's q-row pairing, lane
 // folding, K/V residency-vs-streaming choice and schedule packing are TPU
 // mechanics and are not carried over.
@@ -18,15 +20,17 @@
 // Layout: q, k, v are (batch, ctx, heads*HS) with the last dim contiguous;
 // the kernel takes each tensor's batch and row strides itself, so q/k/v can
 // be the column slices of one packed qkv tensor with no copy.  out is a
-// contiguous (batch, ctx, heads*HS).
+// contiguous (batch, ctx, heads*HS); lse, when given, a contiguous
+// (batch, heads, ctx) f32.
 //
 // Design: one thread block (256 threads) owns one (query block-row,
 // batch*head).  It keeps the q block in shared memory and streams the row's
 // k/v blocks: S = scale * q k^T in f32, the mask, then a per-row online
 // softmax update (running max m, sum l, rescale alpha) by one warp per row,
 // and acc = acc * alpha + p v in f32 registers.  It writes acc / l once.
-// bf16 inputs round p to bf16 before p v, as the TPU kernel does.
-// A query row that sees no key (fully masked) is defined to output zeros.
+// bf16 and f16 inputs round p to the input type before p v, as the TPU
+// kernel does.  A query row that sees no key (fully masked) is defined to
+// output zeros, with lse = -inf.
 //
 // Bound on the H100: per (row, key block) it moves 2*BS*HS elements for
 // 4*BS*BS*HS flops, about 64 flops a byte at BS 64 in bf16, so K/V traffic
@@ -35,6 +39,7 @@
 // products on the CUDA cores, not the tensor cores (mma/wgmma and a
 // double-buffered K/V ring are later work).
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -42,11 +47,15 @@ namespace {
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
+}
+template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
+  return __float2half_rn(v);
 }
 
 // p as the p v product sees it: rounded to the input type.
@@ -67,7 +76,7 @@ template <typename T, int BS, int HS>
 __global__ void __launch_bounds__(THREADS)
 bst_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, T* __restrict__ out,
-                    long long qb, long long qr, long long kb, long long kr,
+                    float* __restrict__ lse, long long qb, long long qr, long long kb, long long kr,
                     long long vb, long long vr,
                     const int* __restrict__ row_ptr, const int* __restrict__ ent_k,
                     const int* __restrict__ ent_code, const signed char* __restrict__ uniq,
@@ -218,11 +227,15 @@ bst_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int d = 0; d < DB; ++d)
       op[(size_t)r * state + tj + 16 * d] = from_f32<T>(acc[i][d] * inv);
   }
+  if (lse != nullptr)
+    for (int r = tid; r < BS; r += THREADS)
+      lse[(size_t)bh * ctx_q + (size_t)row * BS + r] =
+          l_s[r] > 0.f ? m_s[r] + logf(l_s[r]) : -INFINITY;
 }
 
 template <typename T, int BS, int HS>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   const long long* strides, const int* row_ptr, const int* ent_k,
+                   float* lse, const long long* strides, const int* row_ptr, const int* ent_k,
                    const int* ent_code, const signed char* uniq, int batch, int heads,
                    int lut_heads, int ctx_blks_q, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<BS, HS>();
@@ -233,17 +246,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const long long grid = (long long)batch * heads * ctx_blks_q;
   kern<<<(unsigned)grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), strides[0], strides[1], strides[2], strides[3], strides[4],
+      static_cast<T*>(out), lse, strides[0], strides[1], strides[2], strides[3], strides[4],
       strides[5], row_ptr, ent_k, ent_code, uniq, heads, lut_heads, ctx_blks_q, scale);
   return cudaGetLastError();
 }
 
-#define BST_ARGS q, k, v, out, strides, row_ptr, ent_k, ent_code, uniq, batch, heads, \
+#define BST_ARGS q, k, v, out, lse, strides, row_ptr, ent_k, ent_code, uniq, batch, heads, \
                  lut_heads, ctx_blks_q, scale, s
 
 template <typename T, int BS>
 cudaError_t dispatch_hs(int hs, const void* q, const void* k, const void* v, void* out,
-                        const long long* strides, const int* row_ptr, const int* ent_k,
+                        float* lse, const long long* strides, const int* row_ptr, const int* ent_k,
                         const int* ent_code, const signed char* uniq, int batch, int heads,
                         int lut_heads, int ctx_blks_q, float scale, cudaStream_t s) {
   switch (hs) {
@@ -257,7 +270,7 @@ cudaError_t dispatch_hs(int hs, const void* q, const void* k, const void* v, voi
 
 template <typename T>
 cudaError_t dispatch(int bs, int hs, const void* q, const void* k, const void* v, void* out,
-                     const long long* strides, const int* row_ptr, const int* ent_k,
+                     float* lse, const long long* strides, const int* row_ptr, const int* ent_k,
                      const int* ent_code, const signed char* uniq, int batch, int heads,
                      int lut_heads, int ctx_blks_q, float scale, cudaStream_t s) {
   switch (bs) {
@@ -270,16 +283,20 @@ cudaError_t dispatch(int bs, int hs, const void* q, const void* k, const void* v
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  strides: batch and row strides, in
-// elements, of q, k and v (qb, qr, kb, kr, vb, vr).  Returns a cudaError_t
-// (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  strides: batch and row
+// strides, in elements, of q, k and v (qb, qr, kb, kr, vb, vr).  lse: null
+// (serving forward) or a (batch, heads, ctx_q) f32 output (training
+// forward).  Returns a cudaError_t (0 = launched).
 extern "C" int bst_attn_fwd(int dtype, int bs, int hs, const void* q, const void* k,
-                            const void* v, void* out, const long long* strides,
+                            const void* v, void* out, void* lse_out,
+                            const long long* strides,
                             const int* row_ptr, const int* ent_k, const int* ent_code,
                             const signed char* uniq, int batch, int heads, int lut_heads,
                             int ctx_blks_q, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   if (dtype == 0) return dispatch<float>(bs, hs, BST_ARGS);
   if (dtype == 1) return dispatch<__nv_bfloat16>(bs, hs, BST_ARGS);
+  if (dtype == 2) return dispatch<__half>(bs, hs, BST_ARGS);
   return cudaErrorInvalidValue;
 }

@@ -68,3 +68,13 @@ def build(name: str) -> Path:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built at first use."""
     return ctypes.CDLL(str(build(name)))
+
+
+def function(name: str, fn_name: str, argtypes) -> ctypes._CFuncPtr:
+    """The C function ``fn_name`` of ``csrc/<name>.cu`` with its argument
+    types set (each returns a cudaError_t as an int)."""
+    fn = getattr(load(name), fn_name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn

@@ -1,22 +1,34 @@
-"""Fused block-sparse attention forward: the CUDA kernel and its plain version.
+"""Fused block-sparse attention, forward and backward: the CUDA kernels
+and their plain versions.
 
 ``attention_fwd`` replaces the TPU kernel ``fused_attention_fwd``
 (``blocksparse_tpu/kernels/bst_attn.py``, body ``_attn_kernel``):
 softmax(scale·QKᵀ + mask)·V over each query block-row's key blocks, with
-an online softmax so the score tensor never reaches device memory.  The
-kernel is ``csrc/bst_attn_fwd.cu``: one thread block per (query
-block-row, batch·head), the q block held in shared memory, the row's
-k/v blocks streamed one at a time.  It reads q/k/v in the public
-(batch, ctx, heads·hs) layout through their strides, so the column
-slices of a packed qkv tensor go in without a copy.  On the H100 it is
-bound by the CUDA-core FMA rate and the K/V reads; see the source.
+an online softmax so the score tensor never reaches device memory.
+``attention_fwd_lse`` (for ``fused_attention_fwd_lse``) also returns the
+per-row log-sum-exp in f32, which the backward reads.  Both run
+``csrc/bst_attn_fwd.cu``: one thread block per (query block-row,
+batch·head), the q block held in shared memory, the row's k/v blocks
+streamed one at a time.
 
-The TPU kernel's q-row pairing, lane folding and stream-vs-resident
-choice are TPU mechanics and are not carried over.
+``attention_dq`` and ``attention_dkv`` replace ``fused_attention_dq`` and
+``fused_attention_dkv``; both run ``csrc/bst_attn_bwd.cu``.  dq walks the
+query-row (nn) CSR of the forward; dk/dv walk the key-row (tn) CSR whose
+mask codes are classified on the transposed mask blocks, and come out in
+f32.  D = rowsum(dO∘O) is plain torch, as in ``fused_attention_bwd``.
 
-``attention_fwd_plain`` is the plain PyTorch version: a masked
-per-block reference that materialises the blocked scores.  Both define
-the output of a query row that sees no key as zeros.
+All kernels read q/k/v/dO in the public (batch, ctx, heads·hs) layout
+through their strides, so the column slices of a packed qkv tensor go in
+without a copy; lse and D are (batch, heads, ctx_q) f32.  On the H100
+they are bound by the CUDA-core FMA rate and the K/V reads; see the
+sources.  The TPU kernels' q-row pairing, lane folding and
+stream-vs-resident choice are TPU mechanics and are not carried over.
+
+``attention_fwd_plain``, ``attention_fwd_lse_plain`` and
+``attention_bwd_plain`` are the plain PyTorch versions: masked per-block
+references that materialise the blocked scores.  All define the output
+of a query row that sees no key as zeros, its lse as -inf and its
+gradients as zeros.
 """
 from __future__ import annotations
 
@@ -25,6 +37,8 @@ import ctypes
 import numpy as np
 import torch
 
+from blocksparse_tpu_torch.kernels import _build
+
 # Per-entry mask codes (same values as the JAX package).
 MASK_ABSENT = 0   # padding slot: fully masked
 MASK_FULL = 1     # all-visible block
@@ -32,7 +46,7 @@ MASK_TRIL = 2     # q >= k within the block (causal diagonal)
 MASK_TRIU = 3     # q <= k
 MASK_UNIQ0 = 4    # >=4: index code-4 into the unique-block table
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 BLOCK_SIZES = (16, 32, 64)
 HEAD_SIZES = (16, 32, 64, 128)
 
@@ -87,15 +101,9 @@ def build_attn_csr(nn_list_per_head, codes):
             np.asarray(ent_code, np.int32))
 
 
-def attention_fwd_plain(q, k, v, q_blk, k_blk, mask, heads, bs, scale):
-    """Masked per-block reference of the fused forward.
-
-    q: (batch, ctx_q, heads*hs); k, v: (batch, ctx_k, heads*hs).
-    q_blk, k_blk: (lut_heads, blocks) int64 tensors, the layout's blocks
-    in row order (nt_list); mask: (lut_heads, blocks, bs, bs) bool tensor
-    or None.  Scores and sums in f32; p is rounded to v's dtype before
-    p·v, as the fused kernels do.  A query row that sees no key gives
-    zeros."""
+def _blocked(q, k, v, q_blk, k_blk, heads, bs):
+    """Gather each layout block's q/k rows: (batch, heads, blocks, bs, hs)
+    f32 q and k, and v in its own dtype; plus the block index tensors."""
     f32 = torch.float32
     batch, ctx_q, state = q.shape
     hs = state // heads
@@ -110,6 +118,39 @@ def attention_fwd_plain(q, k, v, q_blk, k_blk, mask, heads, bs, scale):
     qg = split(q, cq)[:, hidx, qb].to(f32)         # (n, h, blocks, bs, hs)
     kg = split(k, ck)[:, hidx, kb].to(f32)
     vg = split(v, ck)[:, hidx, kb]
+    return qg, kg, vg, hidx, qb, kb
+
+
+def _scatter_rows(blocks, idx, n_rows):
+    """Sum (n, h, blocks, bs, hs) block rows into (n, h, n_rows, bs, hs) at
+    the block indices idx (heads, blocks), in f32."""
+    n, h, nb, bs, hs = blocks.shape
+    out = torch.zeros((n, h, n_rows, bs, hs), dtype=torch.float32,
+                      device=blocks.device)
+    ix = idx[None, :, :, None, None].expand(n, h, nb, bs, hs)
+    return out.scatter_add(2, ix, blocks)
+
+
+def _merge(a5):
+    """(n, h, ctx_blks, bs, hs) -> (n, ctx, h*hs)."""
+    n, h, cb, bs, hs = a5.shape
+    return a5.permute(0, 2, 3, 1, 4).reshape(n, cb * bs, h * hs)
+
+
+def attention_fwd_lse_plain(q, k, v, q_blk, k_blk, mask, heads, bs, scale):
+    """Masked per-block reference of the fused forward, returning
+    (out, lse).
+
+    q: (batch, ctx_q, heads*hs); k, v: (batch, ctx_k, heads*hs).
+    q_blk, k_blk: (lut_heads, blocks) int64 tensors, the layout's blocks
+    in row order (nt_list); mask: (lut_heads, blocks, bs, bs) bool tensor
+    or None.  Scores and sums in f32; p is rounded to v's dtype before
+    p·v, as the fused kernels do.  lse: (batch, heads, ctx_q) f32.  A
+    query row that sees no key gives zeros and lse = -inf."""
+    f32 = torch.float32
+    batch, ctx_q, state = q.shape
+    cq = ctx_q // bs
+    qg, kg, vg, _, qb, _ = _blocked(q, k, v, q_blk, k_blk, heads, bs)
     s = torch.einsum("nhbqd,nhbkd->nhbqk", qg, kg) * scale
     if mask is not None:
         s = s.masked_fill(~mask[None], float("-inf"))
@@ -124,50 +165,87 @@ def attention_fwd_plain(q, k, v, q_blk, k_blk, mask, heads, bs, scale):
     l = torch.zeros_like(m).scatter_add(2, idx, p.sum(-1))
     pv = torch.einsum("nhbqk,nhbkd->nhbqd", p.to(v.dtype).to(f32),
                       vg.to(f32))
-    acc = torch.zeros((batch, heads, cq, bs, hs), dtype=f32, device=q.device)
-    acc = acc.scatter_add(2, idx[..., None].expand(-1, -1, -1, -1, hs), pv)
+    acc = _scatter_rows(pv, qb, cq)
     out = torch.where(l[..., None] > 0, acc / l.clamp_min(1e-30)[..., None],
                       torch.zeros_like(acc))
-    return out.permute(0, 2, 3, 1, 4).reshape(batch, ctx_q, state) \
-        .to(q.dtype)
+    lse = torch.where(l > 0, m + torch.log(l.clamp_min(1e-30)),
+                      torch.full_like(l, float("-inf")))
+    return _merge(out).to(q.dtype), lse.reshape(batch, heads, ctx_q)
 
 
-def _lib():
-    from blocksparse_tpu_torch.kernels import _build
-    lib = _build.load("bst_attn_fwd")
-    fn = lib.bst_attn_fwd
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, i, i, p, p, p, p, p, p, p, p, p, i, i, i, i,
-                       ctypes.c_float, p]
-        fn.restype = ctypes.c_int
-    return fn
+def attention_fwd_plain(q, k, v, q_blk, k_blk, mask, heads, bs, scale):
+    """The forward of ``attention_fwd_lse_plain`` without the lse."""
+    return attention_fwd_lse_plain(q, k, v, q_blk, k_blk, mask, heads, bs,
+                                   scale)[0]
 
 
-def attention_fwd(q, k, v, row_ptr, ent_k, ent_code, uniq, heads, bs,
-                  scale):
-    """The fused forward on the card.
+def attention_bwd_plain(q, k, v, do, lse, dvec, q_blk, k_blk, mask, heads,
+                        bs, scale):
+    """Masked per-block reference of the fused backward.
 
-    q: (batch, ctx_q, heads*hs), k, v: (batch, ctx_k, heads*hs), f32 or
-    bf16, one dtype, last dim contiguous (other strides are free).
-    row_ptr/ent_k/ent_code: int32 CUDA tensors from ``build_attn_csr``;
-    uniq: int8 (n_uniq*bs, bs) CUDA tensor.  Returns a contiguous
-    (batch, ctx_q, heads*hs).  Raises on anything it does not take."""
+    q, k, v as in ``attention_fwd_lse_plain``; do: the output's gradient,
+    shaped like q; lse, dvec: (batch, heads, ctx_q) f32, the forward's lse
+    and D = rowsum(do·out).  P = exp(scale·qkᵀ - lse) (0 where masked);
+    dS = P·(do·vᵀ - D)·scale.  dq = round(dS)·k (dS rounded to k's dtype),
+    dv = round(P)ᵀ·do, dk = round(dS)ᵀ·q, as the fused kernels round.
+    Returns dq in q's dtype and dk, dv in f32."""
+    f32 = torch.float32
+    batch, ctx_q, state = q.shape
+    hs = state // heads
+    cq, ck = ctx_q // bs, k.shape[1] // bs
+    qg, kg, vg, hidx, qb, kb = _blocked(q, k, v, q_blk, k_blk, heads, bs)
+    dog = do.reshape(batch, cq, bs, heads, hs).permute(0, 3, 1, 2, 4)[
+        :, hidx, qb].to(f32)
+    lse_g = lse.reshape(batch, heads, cq, bs)[:, hidx, qb]
+    d_g = dvec.reshape(batch, heads, cq, bs)[:, hidx, qb]
+    s = torch.einsum("nhbqd,nhbkd->nhbqk", qg, kg) * scale
+    p = torch.exp(s - lse_g[..., None])
+    vis = torch.ones_like(p, dtype=torch.bool) if mask is None \
+        else mask[None].expand_as(p)
+    p = torch.where(vis, p, torch.zeros_like(p))
+    dp = torch.einsum("nhbqd,nhbkd->nhbqk", dog, vg.to(f32))
+    ds = p * (dp - d_g[..., None]) * scale
+
+    def rnd(a, like):
+        return a.to(like.dtype).to(f32)
+    dq = _scatter_rows(torch.einsum("nhbqk,nhbkd->nhbqd", rnd(ds, k), kg),
+                       qb, cq)
+    dk = _scatter_rows(torch.einsum("nhbqk,nhbqd->nhbkd", rnd(ds, q), qg),
+                       kb, ck)
+    dv = _scatter_rows(torch.einsum("nhbqk,nhbqd->nhbkd", rnd(p, do), dog),
+                       kb, ck)
+    return _merge(dq).to(q.dtype), _merge(dk), _merge(dv)
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_FWD_ARGS = [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+             _I, ctypes.c_float, _P]
+_BWD_ARGS = [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+             _P, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+
+
+def _check(fn, q, k, v, tables, heads, bs, do=None, key_rows=False):
+    """Checks shared by the wrappers; ``key_rows``: the CSR runs over key
+    block-rows.  Returns (batch, ctx_q, state, hs, lut_heads)."""
     if not q.is_cuda:
-        raise ValueError("attention_fwd launches a CUDA kernel: q must be on "
-                         "a CUDA device")
-    dev = q.device
-    for name, t in (("k", k), ("v", v), ("row_ptr", row_ptr),
-                    ("ent_k", ent_k), ("ent_code", ent_code), ("uniq", uniq)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, q on {dev}")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"attention_fwd takes f32 or bf16 q/k/v of one "
-                        f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+        raise ValueError(f"{fn} launches a CUDA kernel: q must be on a CUDA "
+                         f"device")
+    row_ptr, ent, ent_code, uniq = tables
+    acts = (("q", q), ("k", k), ("v", v)) + (() if do is None else
+                                              (("do", do),))
+    for name, t in acts[1:] + (("row_ptr", row_ptr), ("ent", ent),
+                               ("ent_code", ent_code), ("uniq", uniq)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype
+                                         for _, t in acts):
+        raise TypeError(f"{fn} takes f32, bf16 or f16 q/k/v/do of one "
+                        f"dtype, got {[t.dtype for _, t in acts]}")
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape \
-            or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
-        raise ValueError(f"bad q/k/v shapes {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+            or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2] \
+            or (do is not None and do.shape != q.shape):
+        raise ValueError(f"bad q/k/v/do shapes "
+                         f"{[tuple(t.shape) for _, t in acts]}")
     batch, ctx_q, state = q.shape
     if bs not in BLOCK_SIZES:
         raise ValueError(f"unsupported block size {bs}")
@@ -176,37 +254,135 @@ def attention_fwd(q, k, v, row_ptr, ent_k, ent_code, uniq, heads, bs,
                          f"{state / heads}")
     if ctx_q % bs or k.shape[1] % bs:
         raise ValueError("ctx must be a multiple of the block size")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in acts:
         if t.stride(2) != 1:
             raise ValueError(f"{name}'s last dim must be contiguous")
     for name, t, dt in (("row_ptr", row_ptr, torch.int32),
-                        ("ent_k", ent_k, torch.int32),
+                        ("ent", ent, torch.int32),
                         ("ent_code", ent_code, torch.int32),
                         ("uniq", uniq, torch.int8)):
         if t.dtype != dt or not t.is_contiguous():
             raise TypeError(f"{name} must be a contiguous {dt} tensor")
-    cq = ctx_q // bs
-    if row_ptr.numel() % (cq + 1):
-        raise ValueError("row_ptr does not match the query block-rows")
-    lut_heads = row_ptr.numel() // (cq + 1)
+    rows = (k.shape[1] if key_rows else ctx_q) // bs
+    if row_ptr.numel() % (rows + 1):
+        raise ValueError("row_ptr does not match the block-rows")
+    lut_heads = row_ptr.numel() // (rows + 1)
     if lut_heads not in (1, heads):
         raise ValueError(f"{lut_heads} layout heads for {heads} heads")
-    out = torch.empty((batch, ctx_q, state), dtype=q.dtype, device=dev)
+    return batch, ctx_q, state, state // heads, lut_heads
+
+
+def _fwd(fn, q, k, v, tables, heads, bs, scale, with_lse):
+    batch, ctx_q, state, hs, lut_heads = _check(fn, q, k, v, tables, heads,
+                                                bs)
+    out = torch.empty((batch, ctx_q, state), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((batch, heads, ctx_q), dtype=torch.float32,
+                       device=q.device) if with_lse else None)
     if batch == 0:
-        return out
+        return out, lse
+    row_ptr, ent_k, ent_code, uniq = tables
     strides = (ctypes.c_longlong * 6)(q.stride(0), q.stride(1), k.stride(0),
                                       k.stride(1), v.stride(0), v.stride(1))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib()(_DTYPE_CODE[q.dtype], bs, state // heads, q.data_ptr(),
-                     k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     ctypes.addressof(strides), row_ptr.data_ptr(),
-                     ent_k.data_ptr(), ent_code.data_ptr(), uniq.data_ptr(),
-                     batch, heads, lut_heads, cq, float(scale), stream)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _build.function("bst_attn_fwd", "bst_attn_fwd", _FWD_ARGS)(
+            _DTYPE_CODE[q.dtype], bs, hs, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
+            ctypes.addressof(strides), row_ptr.data_ptr(), ent_k.data_ptr(),
+            ent_code.data_ptr(), uniq.data_ptr(), batch, heads, lut_heads,
+            ctx_q // bs, float(scale), stream)
     if err != 0:
-        raise RuntimeError(f"attention_fwd launch failed: cudaError {err}")
+        raise RuntimeError(f"{fn} launch failed: cudaError {err}")
+    return out, lse
+
+
+def attention_fwd(q, k, v, row_ptr, ent_k, ent_code, uniq, heads, bs,
+                  scale):
+    """The fused forward on the card (serving: no lse).
+
+    q: (batch, ctx_q, heads*hs), k, v: (batch, ctx_k, heads*hs), f32, bf16
+    or f16, one dtype, last dim contiguous (other strides are free).
+    row_ptr/ent_k/ent_code: int32 CUDA tensors from ``build_attn_csr``;
+    uniq: int8 (n_uniq*bs, bs) CUDA tensor.  Returns a contiguous
+    (batch, ctx_q, heads*hs).  Raises on anything it does not take."""
+    out, _ = _fwd("attention_fwd", q, k, v, (row_ptr, ent_k, ent_code, uniq),
+                  heads, bs, scale, with_lse=False)
     attention_fwd.launches += 1
     return out
 
 
+def attention_fwd_lse(q, k, v, row_ptr, ent_k, ent_code, uniq, heads, bs,
+                      scale):
+    """The fused training forward on the card: (out, lse), lse a
+    contiguous (batch, heads, ctx_q) f32 (-inf where a row sees no key).
+    Takes what ``attention_fwd`` takes."""
+    out, lse = _fwd("attention_fwd_lse", q, k, v,
+                    (row_ptr, ent_k, ent_code, uniq), heads, bs, scale,
+                    with_lse=True)
+    attention_fwd_lse.launches += 1
+    return out, lse
+
+
+def _bwd(fn, which, q, k, v, do, lse, dvec, tables, heads, bs, scale):
+    batch, ctx_q, state, hs, lut_heads = _check(
+        fn, q, k, v, tables, heads, bs, do=do, key_rows=which == 1)
+    for name, t in (("lse", lse), ("dvec", dvec)):
+        if t.device != q.device or t.dtype != torch.float32 \
+                or not t.is_contiguous() \
+                or tuple(t.shape) != (batch, heads, ctx_q):
+            raise TypeError(f"{name} must be a contiguous f32 "
+                            f"(batch, heads, ctx_q) tensor on {q.device}")
+    ctx_k = k.shape[1]
+    if which == 0:
+        outs = (torch.empty((batch, ctx_q, state), dtype=q.dtype,
+                            device=q.device),)
+    else:
+        outs = tuple(torch.empty((batch, ctx_k, state), dtype=torch.float32,
+                                 device=q.device) for _ in range(2))
+    if batch == 0:
+        return outs
+    row_ptr, ent, ent_code, uniq = tables
+    strides = (ctypes.c_longlong * 8)(q.stride(0), q.stride(1), k.stride(0),
+                                      k.stride(1), v.stride(0), v.stride(1),
+                                      do.stride(0), do.stride(1))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _build.function("bst_attn_bwd", "bst_attn_bwd", _BWD_ARGS)(
+            _DTYPE_CODE[q.dtype], which, bs, hs, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), lse.data_ptr(), dvec.data_ptr(),
+            outs[0].data_ptr(), outs[-1].data_ptr() if which else None,
+            ctypes.addressof(strides), row_ptr.data_ptr(), ent.data_ptr(),
+            ent_code.data_ptr(), uniq.data_ptr(), batch, heads, lut_heads,
+            ctx_q // bs, ctx_k // bs, float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} launch failed: cudaError {err}")
+    return outs
+
+
+def attention_dq(q, k, v, do, lse, dvec, row_ptr, ent_k, ent_code, uniq,
+                 heads, bs, scale):
+    """dq on the card, over the forward's nn CSR.  q, k, v, do: as for
+    ``attention_fwd`` (do shaped and typed like q); lse, dvec: contiguous
+    (batch, heads, ctx_q) f32.  Returns dq, contiguous, in q's dtype."""
+    dq, = _bwd("attention_dq", 0, q, k, v, do, lse, dvec,
+               (row_ptr, ent_k, ent_code, uniq), heads, bs, scale)
+    attention_dq.launches += 1
+    return dq
+
+
+def attention_dkv(q, k, v, do, lse, dvec, row_ptr_t, ent_q, ent_code_t,
+                  uniq_t, heads, bs, scale):
+    """(dk, dv) on the card, in f32, over the key-row (tn) CSR:
+    row_ptr_t/ent_q/ent_code_t from ``build_attn_csr`` on the tn list with
+    the codes and table of the transposed mask blocks (uniq_t)."""
+    dk, dv = _bwd("attention_dkv", 1, q, k, v, do, lse, dvec,
+                  (row_ptr_t, ent_q, ent_code_t, uniq_t), heads, bs, scale)
+    attention_dkv.launches += 1
+    return dk, dv
+
+
 attention_fwd.launches = 0
+attention_fwd_lse.launches = 0
+attention_dq.launches = 0
+attention_dkv.launches = 0

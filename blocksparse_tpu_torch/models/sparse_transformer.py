@@ -1,17 +1,18 @@
-"""Sparse Transformer language model: the serving path.
+"""Sparse Transformer language model: serving and single-device training.
 
 Counterpart of ``blocksparse_tpu/models/sparse_transformer.py`` for a
 single device: layout-driven block-sparse attention (fixed/strided/dense
 patterns with a causal sub-block mask), an optionally block-sparse MLP,
 layer norm and fast-gelu, with ``forward``, ``prefill``,
-``decode_forward`` and ``generate_cached``.  Parameters carry the JAX
-package's names and shapes (``convert.params_from_jax`` loads a JAX
-param dict), so both packages compute the same thing from the same
-weights.
+``decode_forward`` and ``generate_cached`` for serving and ``loss`` and
+``make_train_step`` (clip by global norm, Adam, dynamic loss scaling,
+per-block recompute) for training.  Parameters carry the JAX package's
+names and shapes (``convert.params_from_jax`` loads a JAX param dict,
+``convert.params_to_jax`` writes one), so both packages compute the same
+thing from the same weights.
 
-Forward only: training (loss, train step, the kernels' backward) is a
-later slice of the port, and so are tensor, sequence and pipeline
-parallelism and MoE, which raise ``NotImplementedError`` here.
+Tensor, sequence and pipeline parallelism, MoE and dropout are later
+slices of the port and raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -20,12 +21,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from blocksparse_tpu_torch.ops import optimize as opt
 from blocksparse_tpu_torch.ops.embed import embedding_lookup
 from blocksparse_tpu_torch.ops.ewops import fast_gelu, float_cast
 from blocksparse_tpu_torch.ops.matmul import BlocksparseMatMul
 from blocksparse_tpu_torch.ops.norms import layer_norm
-from blocksparse_tpu_torch.ops.transformer import BlocksparseTransformer
+from blocksparse_tpu_torch.ops.transformer import (BlocksparseTransformer,
+                                                   softmax_cross_entropy)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -79,9 +83,10 @@ _LAYOUTS = {
 
 @dataclass
 class TransformerConfig:
-    """The JAX package's config, field for field.  ``recompute`` and
-    ``stack_layers`` shape only training and parameter storage and change
-    no forward result; the parallel, MoE and dropout fields must stay at
+    """The JAX package's config, field for field.  ``recompute`` reruns
+    each block's forward in the backward (``torch.utils.checkpoint``);
+    ``stack_layers`` shapes only the JAX parameter storage.  Neither
+    changes a result.  The parallel, MoE and dropout fields must stay at
     their defaults here."""
     n_vocab: int = 256
     n_embd: int = 512
@@ -124,8 +129,8 @@ def _check_supported(c: TransformerConfig):
 
 
 def _param(*shape, fill=0.0):
-    """A forward-only f32 parameter."""
-    return nn.Parameter(torch.full(shape, fill), requires_grad=False)
+    """A trainable f32 master parameter."""
+    return nn.Parameter(torch.full(shape, fill))
 
 
 class _Layer(nn.Module):
@@ -149,7 +154,8 @@ class _Layer(nn.Module):
 
 
 class SparseTransformerLM(nn.Module):
-    """The flagship LM, forward and KV-cached decode on one device.
+    """The flagship LM on one device: forward, KV-cached decode, loss and
+    the train step.
 
     Parameters start as zeros (gains as ones); load real ones with
     ``load_state_dict(convert.params_from_jax(...))``.  They hold f32
@@ -245,16 +251,27 @@ class SparseTransformerLM(nn.Module):
     def _embed(self, tokens, wpe):
         return (embedding_lookup(self.wte, tokens) + wpe).float()
 
+    def _block(self, layer, x, caches=None):
+        """One transformer block; appends its K/V to ``caches`` when
+        given."""
+        q, k, v = self._qkv(layer, x)
+        if caches is not None:
+            caches.append({"k": k.contiguous(), "v": v.contiguous()})
+        x = x + self._out(layer, self._attend(q, k, v)).to(x.dtype)
+        return x + self._mlp(layer, x).to(x.dtype)
+
     def _full_context(self, tokens, caches=None):
         """Logits over all positions; appends each layer's K/V to
-        ``caches`` when given."""
+        ``caches`` when given.  With ``config.recompute`` and a gradient
+        to take, each block's activations are recomputed in the backward
+        (the JAX ``jax.checkpoint`` per block)."""
         x = self._embed(tokens, self.wpe[None, :tokens.shape[1]])
+        recompute = self.config.recompute and torch.is_grad_enabled()
         for layer in self.h:
-            q, k, v = self._qkv(layer, x)
-            if caches is not None:
-                caches.append({"k": k.contiguous(), "v": v.contiguous()})
-            x = x + self._out(layer, self._attend(q, k, v)).to(x.dtype)
-            x = x + self._mlp(layer, x).to(x.dtype)
+            if recompute and caches is None:
+                x = checkpoint(self._block, layer, x, use_reentrant=False)
+            else:
+                x = self._block(layer, x, caches)
         return self._logits(x)
 
     # ---------------- forward ----------------
@@ -263,6 +280,52 @@ class SparseTransformerLM(nn.Module):
     def forward(self, tokens):
         """tokens (batch, L) int -> logits (batch, L, n_vocab) f32."""
         return self._full_context(tokens)
+
+    # ---------------- training ----------------
+
+    def loss(self, tokens, targets):
+        """Mean softmax cross entropy of the next-token logits against
+        ``targets`` (batch, L), differentiable in the parameters."""
+        return softmax_cross_entropy(self._full_context(tokens),
+                                     targets).mean()
+
+    def make_train_step(self, optimizer: opt.AdamOptimizer, clip_norm=1.0):
+        """Returns train_step(opt_state, tokens, targets, loss_scale) ->
+        (opt_state, metrics, loss_scale), the single-device branch of the
+        JAX ``make_train_step``.
+
+        It takes the gradient of loss·loss_scale, clips by the global norm
+        of the unscaled gradient, applies ``optimizer`` and writes the new
+        parameters into this module in place.  A non-finite norm gives
+        norm_scale 0: the update is skipped and the scale halved (not
+        below 1); otherwise the scale grows by 2^(1/2000) (not above
+        2^24).  metrics holds loss, grad_norm and norm_scale.  Everything
+        stays on the device: no value is read back to the host."""
+        names, params = zip(*self.named_parameters())
+
+        def train_step(opt_state, tokens, targets, loss_scale):
+            ls = torch.as_tensor(loss_scale, dtype=torch.float32,
+                                 device=params[0].device)
+            scaled = self.loss(tokens, targets) * ls
+            grads = dict(zip(names, torch.autograd.grad(scaled, params)))
+            gs = 1.0 / ls
+            gn, norm_scale = opt.clip_by_global_norm(
+                grads, clip_norm=clip_norm, grad_scale=gs, zero_infs=False,
+                zero_nans=False)
+            new, opt_state = optimizer.apply(
+                grads, {n: p.detach() for n, p in zip(names, params)},
+                opt_state, norm_scale=norm_scale, grad_scale=gs)
+            with torch.no_grad():
+                for n, p in zip(names, params):
+                    p.copy_(new[n])
+            new_scale = torch.where(
+                norm_scale > 0.0,
+                torch.clamp(ls * 2.0 ** (1 / 2000), max=2.0 ** 24),
+                torch.clamp(ls * 0.5, min=1.0))
+            metrics = {"loss": scaled.detach() / ls, "grad_norm": gn,
+                       "norm_scale": norm_scale}
+            return opt_state, metrics, new_scale
+        return train_step
 
     # ---------------- KV-cached decode ----------------
 

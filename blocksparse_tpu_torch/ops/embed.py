@@ -1,5 +1,6 @@
-"""Embedding lookup (forward): counterpart of
-``blocksparse_tpu/ops/embed.py``.  Plain PyTorch."""
+"""Embedding lookup: counterpart of ``blocksparse_tpu/ops/embed.py``.
+Plain PyTorch; the gradient is autograd's (``index_select``'s backward,
+which on CUDA sums rows with atomics, in no fixed order)."""
 from __future__ import annotations
 
 

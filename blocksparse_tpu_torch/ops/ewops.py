@@ -1,4 +1,4 @@
-"""Elementwise ops of the serving path (forward).
+"""Elementwise ops of the model's path.
 
 Counterparts of ``blocksparse_tpu/ops/ewops.py`` ``swish``,
 ``fast_gelu`` and ``float_cast``.  Plain PyTorch, as the JAX package
@@ -20,9 +20,25 @@ def fast_gelu(x):
     return swish(x, alpha=1.702)
 
 
-def float_cast(x, dtype):
-    """Cast to a float dtype (the forward of the JAX ``float_cast``; its
-    independent backward-cast dtype belongs to the training port)."""
+def float_cast(x, dtype, dx_dtype=None):
+    """Cast to a float dtype, with an independently chosen dtype for the
+    gradient on the way back (default: x's), as the JAX ``float_cast``."""
     if dtype not in _FLOATS:
         raise ValueError("Only float32/float16/bfloat16 supported.")
-    return x if x.dtype == dtype else x.to(dtype)
+    if x.dtype == dtype:
+        return x
+    if dx_dtype is None or dx_dtype == x.dtype:
+        return x.to(dtype)
+    return _FloatCast.apply(x, dtype, dx_dtype)
+
+
+class _FloatCast(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, dtype, dx_dtype):
+        ctx.dx_dtype = dx_dtype
+        return x.to(dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy.to(ctx.dx_dtype), None, None

@@ -1,13 +1,14 @@
-"""Layout-driven block-sparse matrix multiply (forward).
+"""Layout-driven block-sparse matrix multiply, forward and backward.
 
 Counterpart of ``blocksparse_tpu/ops/matmul.py``: the same constructor
-arguments, block-id order (z-order), LUTs, weight shape and NumPy golden,
+arguments, block-id order (z-order), LUTs, weight shape and NumPy goldens,
 so a layout and its weights move between the two packages unchanged.
 
-On a CUDA tensor the product runs the hand-written kernel
+The op is a ``torch.autograd.Function`` (the JAX ``_bsmm`` custom_vjp):
+forward = fprop, backward = (bprop, updat), with dw cast to W's dtype.
+On a CUDA tensor each direction runs its hand-written kernel
 (``kernels/bsmm.py``); on a CPU tensor, or with ``impl="xla"``, it runs
-the plain PyTorch version.  The backward (bprop, updat) belongs to the
-training port and is not here yet.
+the plain PyTorch version.
 """
 from __future__ import annotations
 
@@ -88,12 +89,17 @@ class BlocksparseMatMul:
         self.fprop_list = [(k, lut) for k, lut in enumerate(fprop_rows)]
         self.bprop_list = [(c, lut) for c, lut in enumerate(bprop_rows)]
 
-        ents = [(i, w, r) for r, lut in enumerate(fprop_rows)
-                for (i, w) in lut]
-        ib, wb, ob = (np.array(a, np.int32) for a in zip(*ents))
-        self._fprop_flat = (ib, wb, ob)
-        self._fprop_row_ptr = np.concatenate(
-            [[0], np.cumsum([len(r) for r in fprop_rows])]).astype(np.int32)
+        def flat(rows):
+            """(in, w, out) entry arrays sorted by output row, and the
+            CSR row pointer over output rows."""
+            ents = [(i, w, r) for r, lut in enumerate(rows) for (i, w) in lut]
+            arrays = tuple(np.array(a, np.int32) for a in zip(*ents))
+            row_ptr = np.concatenate(
+                [[0], np.cumsum([len(r) for r in rows])]).astype(np.int32)
+            return arrays, row_ptr
+
+        self._fprop_flat, self._fprop_row_ptr = flat(fprop_rows)
+        self._bprop_flat, self._bprop_row_ptr = flat(bprop_rows)
         self._luts = {}
 
         self.name = name or "BlocksparseMatMul"
@@ -143,46 +149,102 @@ class BlocksparseMatMul:
                 O[k, :, :] += np.dot(W[w].T, I[c, :, :])
         return O.reshape(-1, N)
 
+    def bprop_test(self, E, W):
+        """NumPy golden of dx = E · Wᵀ (the JAX package's, ungated)."""
+        bsize = self.bsize
+        if self.axis:
+            B = np.zeros((E.shape[0], self.CB, bsize))
+            E = E.reshape((-1, self.KB, bsize))
+            for c, lut in self.bprop_list:
+                for k, w in lut:
+                    B[:, c, :] += np.dot(E[:, k, :], W[w].T)
+            return B.reshape(E.shape[0], -1)
+        N = E[0].size
+        B = np.zeros((self.CB, bsize, N))
+        E = E.reshape((self.KB, bsize, N))
+        for c, lut in self.bprop_list:
+            for k, w in lut:
+                B[c, :, :] += np.dot(W[w], E[k, :, :])
+        return B.reshape(-1, N)
+
+    def updat_test(self, I, E):
+        """NumPy golden of dw, canonical (blocks, b, b) (ungated)."""
+        U = np.zeros((self.blocks, self.bsize, self.bsize))
+        bsize = self.bsize
+        if self.axis:
+            I = I.reshape((-1, self.CB, bsize))
+            E = E.reshape((-1, self.KB, bsize))
+            for w, (c, k) in enumerate(self.updat_list):
+                U[w] = np.dot(I[:, c, :].T, E[:, k, :])
+        else:
+            I = I.reshape((self.CB, bsize, -1))
+            E = E.reshape((self.KB, bsize, -1))
+            for w, (c, k) in enumerate(self.updat_list):
+                U[w] = np.dot(I[c], E[k].T)
+        return U
+
     # ---------------- device op ----------------
 
     def _lut(self, device):
-        """The fprop LUT on ``device``, uploaded once: the kernel's CSR
-        (row_ptr, ent_c, ent_w as int32) and the plain version's flat
-        index arrays (int64)."""
+        """The LUTs on ``device``, uploaded once: the kernels' CSRs (row_ptr,
+        entries as int32) and the plain versions' flat index arrays
+        (int64), for fprop, bprop and updat."""
         lut = self._luts.get(device)
         if lut is None:
-            ib, wb, ob = self._fprop_flat
-
             def t(a, dt):
                 return torch.as_tensor(a, dtype=dt, device=device)
-            lut = {"row_ptr": t(self._fprop_row_ptr, torch.int32),
-                   "ent_c": t(ib, torch.int32), "ent_w": t(wb, torch.int32),
-                   "in": t(ib, torch.int64), "w": t(wb, torch.int64),
-                   "out": t(ob, torch.int64)}
+            lut = {}
+            for d, (ib, wb, ob), row_ptr in (
+                    ("f", self._fprop_flat, self._fprop_row_ptr),
+                    ("b", self._bprop_flat, self._bprop_row_ptr)):
+                lut.update({f"{d}_row_ptr": t(row_ptr, torch.int32),
+                            f"{d}_ent_in": t(ib, torch.int32),
+                            f"{d}_ent_w": t(wb, torch.int32),
+                            f"{d}_in": t(ib, torch.int64),
+                            f"{d}_w": t(wb, torch.int64),
+                            f"{d}_out": t(ob, torch.int64)})
+            for i, name in enumerate(("u_c", "u_k")):
+                lut[name + "32"] = t(self.updat_lut[:, i], torch.int32)
+                lut[name] = t(self.updat_lut[:, i], torch.int64)
             self._luts[device] = lut
         return lut
 
-    def _fprop(self, x, w):
+    def _plain(self, x):
+        return self.impl == "xla" or not x.is_cuda
+
+    def _nc(self, a):
+        """A 2-D activation in the kernels' (N, features) orientation."""
+        return (a if self.axis else a.t()).contiguous()
+
+    def _xprop(self, x, w, d):
+        """fprop (d="f") or bprop (d="b") of a 2-D activation."""
         lut = self._lut(x.device)
-        if self.impl == "xla" or not x.is_cuda:
+        n_out = self.KB if d == "f" else self.CB
+        if self._plain(x):
             return bsmm_kernels.xprop_plain(
-                x, w, lut["in"], lut["w"], lut["out"], self.KB, self.bsize,
-                self.axis, out_dtype=x.dtype)
-        xnc = x if self.axis else x.t()
-        y = bsmm_kernels.bsmm_fprop(
-            xnc.contiguous(), w.contiguous(), lut["row_ptr"], lut["ent_c"],
-            lut["ent_w"], self.bsize, self.KB)
+                x, w, lut[f"{d}_in"], lut[f"{d}_w"], lut[f"{d}_out"], n_out,
+                self.bsize, self.axis, trans_w=d == "b", out_dtype=x.dtype)
+        kernel = bsmm_kernels.bsmm_fprop if d == "f" \
+            else bsmm_kernels.bsmm_bprop
+        y = kernel(self._nc(x), w.contiguous(), lut[f"{d}_row_ptr"],
+                   lut[f"{d}_ent_in"], lut[f"{d}_ent_w"], self.bsize, n_out)
         return y if self.axis else y.t().contiguous()
+
+    def _updat(self, x, dy):
+        """dw (blocks, b, b) in f32 from 2-D x and dy."""
+        lut = self._lut(x.device)
+        if self._plain(x):
+            return bsmm_kernels.updat_plain(x, dy, lut["u_c"], lut["u_k"],
+                                            self.bsize, self.axis)
+        return bsmm_kernels.bsmm_updat(self._nc(x), self._nc(dy),
+                                       lut["u_c32"], lut["u_k32"], self.bsize)
 
     def __call__(self, I, W, gate=None):
         """y = I · W over the layout; I is (..., C) for feature_axis=1,
-        (C, ...) for feature_axis=0.  Forward only."""
+        (C, ...) for feature_axis=0.  Differentiable in I and W."""
         if gate is not None:
             raise NotImplementedError("gated block-sparse matmul is not "
                                       "ported yet")
-        if torch.is_grad_enabled() and (I.requires_grad or W.requires_grad):
-            raise NotImplementedError("the block-sparse matmul backward is "
-                                      "not ported yet; run under no_grad")
         if tuple(W.shape) != self.w_shape:
             raise ValueError(f"W must be {self.w_shape}, got "
                              f"{tuple(W.shape)}")
@@ -190,9 +252,36 @@ class BlocksparseMatMul:
         if self.axis == 0:
             if shape[0] != self.C:
                 raise ValueError(f"I must be ({self.C}, ...), got {shape}")
-            y = self._fprop(I.reshape(self.C, -1), W)
-            return y.reshape((self.K,) + tuple(shape[1:]))
-        if shape[-1] != self.C:
-            raise ValueError(f"I must be (..., {self.C}), got {shape}")
-        y = self._fprop(I.reshape(-1, self.C), W)
-        return y.reshape(tuple(shape[:-1]) + (self.K,))
+            x, out_shape = I.reshape(self.C, -1), (self.K,) + tuple(shape[1:])
+        else:
+            if shape[-1] != self.C:
+                raise ValueError(f"I must be (..., {self.C}), got {shape}")
+            x, out_shape = I.reshape(-1, self.C), tuple(shape[:-1]) + (self.K,)
+        if torch.is_grad_enabled() and (I.requires_grad or W.requires_grad):
+            y = _BsmmFunction.apply(x, W, self)
+        else:
+            y = self._xprop(x, W, "f")
+        return y.reshape(out_shape)
+
+
+class _BsmmFunction(torch.autograd.Function):
+    """The JAX ``_bsmm`` custom_vjp: forward = fprop; backward = bprop for
+    dx (cast to x's dtype) and updat for dw (f32, cast to W's dtype, as
+    ``ops/matmul.py:1156`` of the JAX package does)."""
+
+    @staticmethod
+    def forward(ctx, x, w, op):
+        ctx.save_for_backward(x, w)
+        ctx.op = op
+        return op._xprop(x, w, "f")
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        op = ctx.op
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = op._xprop(dy, w, "b").to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = op._updat(x, dy).to(w.dtype)
+        return dx, dw, None

@@ -1,8 +1,8 @@
-"""Layer norm (forward).
+"""Layer norm.
 
 Counterpart of ``blocksparse_tpu/ops/norms.py:layer_norm``.  Plain
-PyTorch, as the JAX package leaves it to XLA.  Statistics are always
-computed in float32.
+PyTorch, as the JAX package leaves it to XLA; its gradient is autograd's.
+Statistics are always computed in float32.
 """
 from __future__ import annotations
 

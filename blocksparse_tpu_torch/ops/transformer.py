@@ -1,15 +1,20 @@
-"""Block-sparse transformer attention (forward and KV-cached decode).
+"""Block-sparse transformer attention (training, serving and KV-cached
+decode) and the softmax cross-entropy loss.
 
 Counterpart of ``blocksparse_tpu/ops/transformer.py``: the same layout
 LUTs (``nt_list``/``nn_list``/``tn_list``), bit-packed and dense masks,
 and the public (batch, ctx, heads·hs) layout at ``attention`` and
 ``decode_step``.
 
-``attention`` runs the fused CUDA kernel (``kernels/bst_attn.py``) on
-CUDA tensors and the plain masked per-block version on CPU tensors or
-with ``use_fused=False``.  ``decode_step`` is plain PyTorch, as the JAX
-package leaves it to XLA.  The unfused nt/nn/tn ops and the backward
-belong to later slices of the port.
+``attention`` runs the fused CUDA kernels (``kernels/bst_attn.py``) on
+CUDA tensors and their plain masked per-block versions on CPU tensors or
+with ``use_fused=False``.  With a gradient to take it is a
+``torch.autograd.Function``, the counterpart of ``_attention_fused`` with
+``flash_bwd=True``: the training forward saves the log-sum-exp, and the
+backward runs dq over the query-row CSR and dk/dv over the key-row CSR.
+Without one it runs the serving forward.  ``decode_step`` and
+``softmax_cross_entropy`` are plain PyTorch, as the JAX package leaves
+them to XLA.  The unfused nt/nn/tn ops belong to a later slice.
 """
 from __future__ import annotations
 
@@ -140,12 +145,18 @@ class BlocksparseTransformer:
             self.softmax_mask_np, [0, 2, 1]).copy()
         self._mask_blocks = np.array(dense, dtype=bool)
 
-    def mask_codes(self):
-        """(codes (lut_heads, blocks), uniq table) of the fused kernel's
-        per-entry masks; codes are None when there is no mask."""
+    def mask_codes(self, transposed=False):
+        """(codes (lut_heads, blocks), uniq table) of the fused kernels'
+        per-entry masks; codes are None when there is no mask.  With
+        ``transposed`` the codes and table of the transposed mask blocks,
+        which the key-row (dk/dv) kernel reads: TRIL and TRIU swap and
+        each unique block is transposed (``build_attn_schedule_tn``)."""
         if self._mask_blocks is None:
             return None, np.zeros(self.blk_shape, np.int8)
-        return bst_attn.classify_mask_blocks(self._mask_blocks, self.blk_size)
+        mb = self._mask_blocks
+        if transposed:
+            mb = np.ascontiguousarray(np.transpose(mb, (0, 1, 3, 2)))
+        return bst_attn.classify_mask_blocks(mb, self.blk_size)
 
     # ------------- shape plumbing ----------------
 
@@ -160,15 +171,19 @@ class BlocksparseTransformer:
             .permute(0, 3, 1, 2, 4)
 
     def _tables(self, device):
-        """The layout's tables on ``device``, uploaded once: the kernel's
-        CSR and mask codes, the plain version's block indices and dense
-        masks, and the decode tables (so a decode step copies nothing
-        from the host, which would stall the stream)."""
+        """The layout's tables on ``device``, uploaded once: the kernels'
+        query-row (nn) CSR with its mask codes and the key-row (tn) CSR
+        with the transposed codes, the plain versions' block indices and
+        dense masks, and the decode tables (so a decode step copies
+        nothing from the host, which would stall the stream)."""
         tab = self._dev_tables.get(device)
         if tab is None:
             codes, uniq = self.mask_codes()
             row_ptr, ent_k, ent_code = bst_attn.build_attn_csr(
                 self.nn_list, codes)
+            codes_t, uniq_t = self.mask_codes(transposed=True)
+            row_ptr_t, ent_q, ent_code_t = bst_attn.build_attn_csr(
+                self.tn_list, codes_t)
             kblk, bid, cnt = self.decode_tables
             in_row = np.arange(kblk.shape[2])[None, None] < cnt[:, :, None]
 
@@ -178,6 +193,10 @@ class BlocksparseTransformer:
                    "ent_k": t(ent_k, torch.int32),
                    "ent_code": t(ent_code, torch.int32),
                    "uniq": t(uniq, torch.int8),
+                   "row_ptr_t": t(row_ptr_t, torch.int32),
+                   "ent_q": t(ent_q, torch.int32),
+                   "ent_code_t": t(ent_code_t, torch.int32),
+                   "uniq_t": t(uniq_t, torch.int8),
                    "q_blk": t(self._q_blk, torch.int64),
                    "k_blk": t(self._k_blk, torch.int64),
                    "mask": (None if self._mask_blocks is None
@@ -197,15 +216,17 @@ class BlocksparseTransformer:
         """softmax(scale·QKᵀ + mask)·V over this object's layout.
 
         q: (batch, ctx_q, heads·hs); k, v: (batch, ctx_k, heads·hs).
-        On CUDA tensors the fused kernel runs unless use_fused=False,
-        which selects the plain version (on any device).  A query row
-        that sees no key gives zeros.  Forward only."""
+        On CUDA tensors the fused kernels run unless use_fused=False,
+        which selects the plain versions (on any device).  Differentiable
+        in q, k and v: with a gradient to take, the training forward
+        (which keeps the lse) runs, else the serving forward.  A query
+        row that sees no key gives zeros, and zero gradients."""
+        fused = q.is_cuda and use_fused is not False
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in (q, k, v)):
-            raise NotImplementedError("the attention backward is not "
-                                      "ported yet; run under no_grad")
+            return _AttentionFunction.apply(q, k, v, self, scale, fused)
         tab = self._tables(q.device)
-        if q.is_cuda and use_fused is not False:
+        if fused:
             return bst_attn.attention_fwd(
                 q, k, v, tab["row_ptr"], tab["ent_k"], tab["ent_code"],
                 tab["uniq"], self.heads, self.blk_size, scale)
@@ -273,3 +294,83 @@ class BlocksparseTransformer:
         out = torch.einsum("nhk,nhkc->nhc", p,
                            vg.reshape(batch, self.heads, E * bs, hs))
         return out.reshape(batch, 1, state).to(q.dtype)
+
+
+class _AttentionFunction(torch.autograd.Function):
+    """The JAX ``_attention_fused`` custom_vjp with ``flash_bwd=True``:
+    the forward keeps (q, k, v, out, lse); the backward forms
+    D = rowsum(dO·out) in plain torch and runs dq and dk/dv, casting each
+    to its input's dtype (dk and dv come out of their kernel in f32)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bst, scale, fused):
+        tab = bst._tables(q.device)
+        if fused:
+            out, lse = bst_attn.attention_fwd_lse(
+                q, k, v, tab["row_ptr"], tab["ent_k"], tab["ent_code"],
+                tab["uniq"], bst.heads, bst.blk_size, scale)
+        else:
+            out, lse = bst_attn.attention_fwd_lse_plain(
+                q, k, v, tab["q_blk"], tab["k_blk"], tab["mask"], bst.heads,
+                bst.blk_size, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.bst, ctx.scale, ctx.fused = bst, scale, fused
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        bst, scale = ctx.bst, ctx.scale
+        heads, bs = bst.heads, bst.blk_size
+        tab = bst._tables(q.device)
+        batch, ctx_q, state = q.shape
+        do = do.to(q.dtype)
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        dvec = (do.float() * out.float()).reshape(
+            batch, ctx_q, heads, state // heads).sum(-1)
+        dvec = dvec.transpose(1, 2).contiguous()       # (batch, heads, ctx_q)
+        if ctx.fused:
+            dq = bst_attn.attention_dq(
+                q, k, v, do, lse, dvec, tab["row_ptr"], tab["ent_k"],
+                tab["ent_code"], tab["uniq"], heads, bs, scale)
+            dk, dv = bst_attn.attention_dkv(
+                q, k, v, do, lse, dvec, tab["row_ptr_t"], tab["ent_q"],
+                tab["ent_code_t"], tab["uniq_t"], heads, bs, scale)
+        else:
+            dq, dk, dv = bst_attn.attention_bwd_plain(
+                q, k, v, do, lse, dvec, tab["q_blk"], tab["k_blk"],
+                tab["mask"], heads, bs, scale)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None)
+
+
+def softmax_cross_entropy(logits, labels):
+    """Per-row cross entropy of ``logits`` (..., vocab) against integer
+    ``labels`` (...), in f32, with the fused gradient
+    (softmax - onehot)·dy cast to the logits' dtype (JAX
+    ``ops/transformer.py:863``)."""
+    if logits.shape[-1] > 65536:
+        raise ValueError("use a sharded cross entropy if feature dim is "
+                         "greater than 64k")
+    return _SoftmaxCrossEntropy.apply(logits, labels)
+
+
+class _SoftmaxCrossEntropy(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        labels = labels.long()
+        ctx.save_for_backward(logits, labels)
+        ls = logits.float()
+        m = ls.amax(-1, keepdim=True)
+        lse = torch.log(torch.exp(ls - m).sum(-1)) + m[..., 0]
+        return lse - ls.gather(-1, labels[..., None])[..., 0]
+
+    @staticmethod
+    def backward(ctx, dy):
+        logits, labels = ctx.saved_tensors
+        dx = torch.softmax(logits.float(), dim=-1)
+        dx.scatter_add_(-1, labels[..., None],
+                        torch.full_like(dx[..., :1], -1.0))
+        return (dx * dy[..., None].float()).to(logits.dtype), None

@@ -1,39 +1,67 @@
 #!/usr/bin/env python3
 """Smoke run of blocksparse_tpu_torch, the PyTorch port, on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile-out PATH]
 
-Builds the port's two CUDA kernels from ``blocksparse_tpu_torch/csrc``,
-holds each against its plain PyTorch version at the serving path's
-shapes, then serves the repo's enwik8 Sparse Transformer at full width
-(512-d, 6 layers, 8 heads, ctx 2048, 64-blocks, fixed layout, block-sparse
-b32 d0.5 MLP, bf16, weights drawn from a seed): one full-context forward
-at batch 8, and ``generate_cached`` of 64 tokens after 4 prompts of 1024
-random bytes.  It counts the kernels' launches on that path and checks
-the outputs against the same model run with the plain versions.
+Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` (one
+nvcc per source, all at once) and holds each against its plain PyTorch
+version in f32, bf16 and f16: the serving kernels at the serving path's
+shapes, the training kernels (block-sparse matmul bprop and updat,
+attention training forward, dq and dk/dv) at the training step's.  Then
+it drives the repo's enwik8 Sparse Transformer at full width (512-d, 6
+layers, 8 heads, ctx 2048, 64-blocks, fixed layout, block-sparse b32
+d0.5 MLP, bf16 compute, f32 masters, recompute, weights drawn from a
+seed) down two paths, each with the kernels' launch counts set to 0 just
+before and read just after:
 
-Prints the card's name and power limit, the build time, every check with
-its tolerance, the timings, a ``{"kernels": [...]}`` line, and last
+- serving: one full-context forward at batch 8, and ``generate_cached``
+  of 64 tokens after 4 prompts of 1024 random bytes;
+- training: one train step (loss, backward, global-norm clip, Adam,
+  dynamic loss scale) on 8 x 2048 random bytes, held against the same
+  step of the model run on the plain versions, then eight steps that
+  must lower the loss.
+
+Prints the card's name and power limit, the build times, every check
+with its tolerance, the timings, a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
-non-zero; so does a host without CUDA.  Imports no JAX.
+non-zero; so does a host without CUDA.  Imports no JAX.  One train
+step also runs under ``torch.profiler``: its device time by kernel is
+printed, and with ``--profile-out`` the full table is written to PATH.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
 
 SEED = 0
 BATCH, PROMPTS, PROMPT_LEN, NEW_TOKENS = 8, 4, 1024, 64
-# |kernel - plain| <= TOL * max(1, max|plain|)
-TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
-ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+TRAIN_STEPS, TIMED_STEPS = 8, 5
+LR, CLIP, LOSS_SCALE = 3e-4, 1.0, 2.0 ** 15
+SOURCES = ("bsmm_fprop", "bsmm_updat", "bst_attn_fwd", "bst_attn_bwd")
+DTYPES = (torch.bfloat16, torch.float32, torch.float16)
+# |kernel - plain| <= TOL * max(1, max|plain|); f16 held at bf16 level
+TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 1e-2}
+ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 2e-2}
+UPDAT_TOL = 1e-4       # dw is f32 from the same inputs on both sides
+LSE_TOL = 1e-4         # f32 log-sum-exp, absolute
 MODEL_TOL = 2e-2       # bf16 logits, kernel model against plain model
 DECODE_TOL = 5e-2      # bf16 logits, cached decode against full forward
+# Train step, kernel model against plain model (bf16 compute, f32
+# masters): loss 1e-2 relative; each gradient 5e-2 of its tensor's
+# max|plain grad| (bf16 activations round differently on the two paths,
+# and the tied wte's embedding gradient sums rows with atomics on the
+# card, in no fixed order); each parameter update the same, where
+# |plain grad| > 5e-2 max (elsewhere the gradient is within the noise
+# and its sign, hence Adam's first step of ~lr, may flip: |diff| <= 2 lr).
+STEP_LOSS_TOL, GRAD_TOL = 1e-2, 5e-2
 
 
 class CheckFailed(RuntimeError):
@@ -76,94 +104,156 @@ def compare(name, got, ref, tol):
     return err
 
 
-def kernel_checks(model, plain, dev, g):
-    """Each kernel against its plain version at the path's shapes."""
-    rows = {}
+def timed(rows, key, err, fn, plain_fn, iters):
+    ms = time_ms(fn, iters)
+    plain_ms = time_ms(plain_fn, max(iters // 4, 5))
+    print(f"      kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+    rows[key] = (err, ms, plain_ms)
+
+
+def serving_kernel_checks(model, plain, dev, g, rows):
+    """The serving kernels against their plain versions at the serving
+    path's shapes."""
     for name, op, ref_op in (("bsmm1", model.bsmm1, plain.bsmm1),
                              ("bsmm2", model.bsmm2, plain.bsmm2)):
         for N in (BATCH * model.config.ctx, PROMPTS):
-            for dtype in (torch.bfloat16, torch.float32):
+            for dtype in DTYPES:
                 x = torch.randn((N, op.C), device=dev, generator=g).to(dtype)
                 w = (torch.randn(op.w_shape, device=dev, generator=g)
                      * 0.02).to(dtype)
                 err = compare(f"bsmm_fprop {name} N={N} C={op.C} K={op.K} "
                               f"{dtype}", op(x, w), ref_op(x, w), TOL[dtype])
-                iters = 20 if N > 1000 else 200
-                ms = time_ms(lambda: op(x, w), iters)
-                plain_ms = time_ms(lambda: ref_op(x, w), max(iters // 4, 5))
-                print(f"      kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
-                      flush=True)
-                rows[(name, N, dtype)] = (err, ms, plain_ms)
+                timed(rows, ("fprop", name, N, dtype), err,
+                      lambda: op(x, w), lambda: ref_op(x, w),
+                      20 if N > 1000 else 200)
     c = model.config
     bst = model.bst
-    for dtype in (torch.bfloat16, torch.float32):
+    scale = 1.0 / np.sqrt(model.hs)
+    for dtype in DTYPES:
         qkv = torch.randn((BATCH, c.ctx, 3 * c.n_embd), device=dev,
                           generator=g).to(dtype)
         q, k, v = qkv.split(c.n_embd, dim=-1)
-        scale = 1.0 / np.sqrt(model.hs)
         err = compare(f"bst_attn_fwd batch {BATCH} ctx {c.ctx} heads "
                       f"{c.n_head} hs {model.hs} {dtype}",
                       bst.attention(q, k, v, scale=scale),
                       bst.attention(q, k, v, scale=scale, use_fused=False),
                       ATTN_TOL[dtype])
-        ms = time_ms(lambda: bst.attention(q, k, v, scale=scale), 20)
-        plain_ms = time_ms(lambda: bst.attention(q, k, v, scale=scale,
-                                                 use_fused=False), 5)
-        print(f"      kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-        rows[("attn", dtype)] = (err, ms, plain_ms)
+        timed(rows, ("attn_fwd", dtype), err,
+              lambda: bst.attention(q, k, v, scale=scale),
+              lambda: bst.attention(q, k, v, scale=scale, use_fused=False), 20)
         del qkv, q, k, v
-    return rows
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this smoke run needs a GPU",
-              file=sys.stderr)
-        return 1
-    import blocksparse_tpu_torch as bt
-    from blocksparse_tpu_torch.kernels import _build
-    from blocksparse_tpu_torch.kernels import bsmm as bsmm_kernels
+def training_kernel_checks(model, plain, dev, g, rows):
+    """The training kernels against their plain versions at the train
+    step's shapes: bprop and updat of both MLP layouts at N = 8 x 2048,
+    the attention training forward (out and lse), dq and dk/dv."""
     from blocksparse_tpu_torch.kernels import bst_attn
+    N = BATCH * model.config.ctx
+    for name, op, ref_op in (("bsmm1", model.bsmm1, plain.bsmm1),
+                             ("bsmm2", model.bsmm2, plain.bsmm2)):
+        for dtype in DTYPES:
+            x = torch.randn((N, op.C), device=dev, generator=g).to(dtype)
+            dy = torch.randn((N, op.K), device=dev, generator=g).to(dtype)
+            w = (torch.randn(op.w_shape, device=dev, generator=g)
+                 * 0.02).to(dtype)
+            err = compare(f"bsmm_bprop {name} N={N} K={op.K} -> C={op.C} "
+                          f"{dtype}", op._xprop(dy, w, "b"),
+                          ref_op._xprop(dy, w, "b"), TOL[dtype])
+            timed(rows, ("bprop", name, dtype), err,
+                  lambda: op._xprop(dy, w, "b"),
+                  lambda: ref_op._xprop(dy, w, "b"), 20)
+            err = compare(f"bsmm_updat {name} N={N} {op.blocks} blocks "
+                          f"{dtype}", op._updat(x, dy), ref_op._updat(x, dy),
+                          UPDAT_TOL)
+            timed(rows, ("updat", name, dtype), err,
+                  lambda: op._updat(x, dy), lambda: ref_op._updat(x, dy), 20)
+            del x, dy, w
+    c = model.config
+    bst = model.bst
+    heads, bs = bst.heads, bst.blk_size
+    scale = 1.0 / np.sqrt(model.hs)
+    tab = bst._tables(dev)
+    plain_args = (tab["q_blk"], tab["k_blk"], tab["mask"], heads, bs, scale)
+    what = f"batch {BATCH} ctx {c.ctx} heads {heads} hs {model.hs}"
+    for dtype in DTYPES:
+        qkv = torch.randn((BATCH, c.ctx, 3 * c.n_embd), device=dev,
+                          generator=g).to(dtype)
+        q, k, v = qkv.split(c.n_embd, dim=-1)
+        do = torch.randn((BATCH, c.ctx, c.n_embd), device=dev,
+                         generator=g).to(dtype)
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    card_line = card()
-    print(f"card: {card_line}", flush=True)
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.get_device_name(0)}", flush=True)
+        def fwd_lse():
+            return bst_attn.attention_fwd_lse(
+                q, k, v, tab["row_ptr"], tab["ent_k"], tab["ent_code"],
+                tab["uniq"], heads, bs, scale)
 
-    # 1. build
-    t0 = time.perf_counter()
-    for name in ("bsmm_fprop", "bst_attn_fwd"):
-        t = time.perf_counter()
-        lib = _build.build(name)
-        print(f"build {name}: {time.perf_counter() - t:.1f} s -> {lib.name}",
-              flush=True)
-    print(f"build total: {time.perf_counter() - t0:.1f} s", flush=True)
+        def fwd_lse_plain():
+            return bst_attn.attention_fwd_lse_plain(q, k, v, *plain_args)
+        (out, lse), (out_ref, lse_ref) = fwd_lse(), fwd_lse_plain()
+        err = compare(f"bst_attn_fwd_lse out {what} {dtype}", out, out_ref,
+                      ATTN_TOL[dtype])
+        lse_err = (lse - lse_ref).abs().max().item()
+        check(bool(torch.isfinite(lse).all()) and lse_err <= LSE_TOL,
+              f"bst_attn_fwd_lse lse: max_abs_err {lse_err:.3e} (tol "
+              f"{LSE_TOL:g})")
+        timed(rows, ("fwd_lse", dtype), max(err, lse_err), fwd_lse,
+              fwd_lse_plain, 20)
+        dvec = (do.float() * out_ref.float()).reshape(
+            BATCH, c.ctx, heads, -1).sum(-1).transpose(1, 2).contiguous()
 
-    # 2. the model, full width, and the same model on the plain versions
-    cfg = bt.TransformerConfig(
-        n_vocab=256, n_embd=512, n_layer=6, n_head=8, ctx=2048, blk_size=64,
-        attn_layout="fixed", local_blocks=8, mlp_ratio=4, mlp_block_size=32,
-        mlp_density=0.5, dtype="bfloat16")
-    model = bt.SparseTransformerLM(cfg, device=dev)
-    plain = bt.SparseTransformerLM(cfg, device=dev, impl="xla")
-    sd = bt.params_from_jax(bt.random_jax_params(model, seed=SEED), model)
-    model.load_state_dict(sd)
-    plain.load_state_dict(sd)
+        def dq():
+            return bst_attn.attention_dq(
+                q, k, v, do, lse_ref, dvec, tab["row_ptr"], tab["ent_k"],
+                tab["ent_code"], tab["uniq"], heads, bs, scale)
+
+        def dkv():
+            return bst_attn.attention_dkv(
+                q, k, v, do, lse_ref, dvec, tab["row_ptr_t"], tab["ent_q"],
+                tab["ent_code_t"], tab["uniq_t"], heads, bs, scale)
+
+        def bwd_plain():
+            return bst_attn.attention_bwd_plain(q, k, v, do, lse_ref, dvec,
+                                                *plain_args)
+        dq_ref, dk_ref, dv_ref = bwd_plain()
+        err = compare(f"bst_attn_dq {what} {dtype}", dq(), dq_ref,
+                      ATTN_TOL[dtype])
+        timed(rows, ("dq", dtype), err, dq, bwd_plain, 20)
+        dk, dv = dkv()
+        err = max(compare(f"bst_attn_dkv dk {what} {dtype}", dk, dk_ref,
+                          ATTN_TOL[dtype]),
+                  compare(f"bst_attn_dkv dv {what} {dtype}", dv, dv_ref,
+                          ATTN_TOL[dtype]))
+        # the plain backward computes dq, dk and dv in one call: its time
+        # stands beside both kernels
+        timed(rows, ("dkv", dtype), err, dkv, bwd_plain, 20)
+        del qkv, q, k, v, do, out, lse, out_ref, lse_ref, dvec
+        del dq_ref, dk_ref, dv_ref, dk, dv
+        torch.cuda.empty_cache()
+
+
+def counters():
+    from blocksparse_tpu_torch.kernels import bsmm, bst_attn
+    return {"bsmm_fprop": bsmm.bsmm_fprop, "bsmm_bprop": bsmm.bsmm_bprop,
+            "bsmm_updat": bsmm.bsmm_updat,
+            "bst_attn_fwd": bst_attn.attention_fwd,
+            "bst_attn_fwd_lse": bst_attn.attention_fwd_lse,
+            "bst_attn_dq": bst_attn.attention_dq,
+            "bst_attn_dkv": bst_attn.attention_dkv}
+
+
+def reset_counts():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def serving_path(bt, model, plain, cfg, dev, card_line):
+    """Forward and generate_cached, counted; returns the launch counts."""
     L = cfg.n_layer
-    print(f"model: {L} layers x {cfg.n_embd}d, {cfg.n_head} heads, ctx "
-          f"{cfg.ctx}, attention blocks {model.bst.blocks} of "
-          f"{model.bst.ctx_blks_q ** 2}, MLP blocks {model.bsmm1.blocks} of "
-          f"{model.bsmm1.CB * model.bsmm1.KB} (b{model.bsmm1.bsize}), "
-          f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f} M params",
-          flush=True)
-
-    # 3. kernels against plain versions
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    rows = kernel_checks(model, plain, dev, g)
-
     rng = np.random.RandomState(SEED)
     tokens = torch.from_numpy(
         rng.randint(0, cfg.n_vocab, (BATCH, cfg.ctx))).to(dev)
@@ -174,9 +264,7 @@ def main():
     bt.generate_cached(model, prompts[:, :64], 2)
     torch.cuda.synchronize()
 
-    # 4.+5. the main path, counted: full forward, then serving
-    bsmm_kernels.bsmm_fprop.launches = 0
-    bst_attn.attention_fwd.launches = 0
+    reset_counts()
     t = time.perf_counter()
     logits = model(tokens)
     torch.cuda.synchronize()
@@ -186,17 +274,19 @@ def main():
     out = bt.generate_cached(model, prompts, NEW_TOKENS, generator=gen)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t
-    launches = {"bsmm_fprop": bsmm_kernels.bsmm_fprop.launches,
-                "bst_attn_fwd": bst_attn.attention_fwd.launches}
+    launches = read_counts()
 
     print(f"forward batch {BATCH} x {cfg.ctx}, counted run: "
           f"{fwd_s * 1e3:.2f} ms", flush=True)
     # forward + prefill: 2 bsmm and 1 attention a layer each; every decode
-    # step: 2 bsmm a layer (decode attention is plain torch by design)
-    want = {"bsmm_fprop": 2 * L + 2 * L + NEW_TOKENS * 2 * L,
-            "bst_attn_fwd": L + L}
-    check(launches == want and min(launches.values()) > 0,
-          f"launches on the main path {launches}, expected {want}")
+    # step: 2 bsmm a layer (decode attention is plain torch by design); no
+    # training kernel
+    want = dict.fromkeys(launches, 0)
+    want.update({"bsmm_fprop": 2 * L + 2 * L + NEW_TOKENS * 2 * L,
+                 "bst_attn_fwd": L + L})
+    check(launches == want,
+          f"serving launches {launches}, expected {want} (bsmm_fprop "
+          f"2L + 2L + {NEW_TOKENS} x 2L, bst_attn_fwd 2L, L = {L})")
     check(tuple(logits.shape) == (BATCH, cfg.ctx, cfg.n_vocab)
           and bool(torch.isfinite(logits).all()),
           f"forward logits {tuple(logits.shape)} finite")
@@ -241,21 +331,271 @@ def main():
           f"decode_forward logits against the full forward at position "
           f"{PROMPT_LEN}: max_abs_diff {err:.3e} (tol {DECODE_TOL:g} x "
           f"max(1, max|forward|))")
+    del caches, logits, ref_logits
+    torch.cuda.empty_cache()
+    return launches
 
-    e_b, ms_b, pms_b = rows[("bsmm1", BATCH * cfg.ctx, torch.bfloat16)]
-    e_a, ms_a, pms_a = rows[("attn", torch.bfloat16)]
+
+def compare_tensors(what, got, ref, tol, live=None, flip_bound=None):
+    """Per-tensor check: |got - ref| <= tol * max|ref| (only where ``live``,
+    if given; there every element must also be within ``flip_bound``).
+    Returns the worst ratio of error to tolerance."""
+    worst, worst_flip = 0.0, 0.0
+    for k in ref:
+        scale = ref[k].abs().max().item()
+        diff = (got[k].float() - ref[k].float()).abs()
+        if live is not None:
+            flip = diff.max().item()
+            worst_flip = max(worst_flip, flip)
+            if flip > flip_bound:
+                check(False, f"{what} {k}: max|diff| {flip:.3e} > "
+                             f"{flip_bound:.1e}")
+            diff = diff[live[k]]
+        err = diff.max().item() if diff.numel() else 0.0
+        ratio = err / max(tol * scale, 1e-30)
+        worst = max(worst, ratio)
+        if ratio > 1.0:
+            check(False, f"{what} {k}: max_abs_err {err:.3e} > tol {tol:g} "
+                         f"x max|plain| {scale:.3e}")
+    extra = ("" if live is None else
+             f"; elsewhere max|diff| {worst_flip:.2e} <= {flip_bound:.1e}")
+    check(True, f"{what}: {len(ref)} tensors, each within {tol:g} x its "
+                f"max|plain| (worst at {worst:.3f} of its tolerance){extra}")
+    return worst
+
+
+def training_path(bt, model, plain, cfg, dev, card_line, profile_out):
+    """Grads and one step against the plain model, the counted step, eight
+    steps with falling loss, and the step time."""
+    L = cfg.n_layer
+    rng = np.random.RandomState(SEED)
+    seq = torch.from_numpy(rng.randint(0, cfg.n_vocab,
+                                       (BATCH, cfg.ctx + 1))).to(dev)
+    tokens, targets = seq[:, :-1], seq[:, 1:]
+    ls = torch.tensor(LOSS_SCALE, device=dev)
+
+    # (a) loss and every gradient, kernel model against plain model
+    grads, losses = [], []
+    for m in (model, plain):
+        names, params = zip(*m.named_parameters())
+        loss = m.loss(tokens, targets)
+        grads.append(dict(zip(names, (g / ls for g in torch.autograd.grad(
+            loss * ls, params)))))
+        losses.append(loss.item())
+    rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    check(np.isfinite(losses[0]) and rel <= STEP_LOSS_TOL,
+          f"train loss {losses[0]:.6f} vs plain {losses[1]:.6f} (rel diff "
+          f"{rel:.2e}, tol {STEP_LOSS_TOL:g})")
+    grad_worst = compare_tensors("gradients against the plain model",
+                                 grads[0], grads[1], GRAD_TOL)
+    gn = [bt.global_norm(g).item() for g in grads]
+    check(abs(gn[0] - gn[1]) <= GRAD_TOL * gn[1],
+          f"grad_norm {gn[0]:.6f} vs plain {gn[1]:.6f} (tol {GRAD_TOL:g} "
+          f"relative)")
+    live = {k: g.abs() > GRAD_TOL * g.abs().max() for k, g in
+            grads[1].items()}
+    del grads
+    torch.cuda.empty_cache()
+
+    # (b) + (d): the first step, counted on the kernel model, and the same
+    # step on the plain model from the same weights and state
+    opt = bt.AdamOptimizer(learning_rate=LR, zero_nans=True, zero_infs=True)
+    results = []
+    for m in (model, plain):
+        before = {k: v.clone() for k, v in m.state_dict().items()}
+        step = m.make_train_step(opt, clip_norm=CLIP)
+        state = opt.init(dict(m.named_parameters()))
+        torch.cuda.synchronize()
+        if m is model:
+            reset_counts()
+        state, metrics, scale = step(state, tokens, targets, ls)
+        torch.cuda.synchronize()
+        if m is model:
+            launches = read_counts()
+        delta = {k: v - before[k] for k, v in m.state_dict().items()}
+        results.append((step, state, metrics, scale, delta))
+    want = {"bsmm_fprop": 4 * L, "bsmm_bprop": 2 * L, "bsmm_updat": 2 * L,
+            "bst_attn_fwd": 0, "bst_attn_fwd_lse": 2 * L, "bst_attn_dq": L,
+            "bst_attn_dkv": L}
+    check(launches == want,
+          f"train step launches {launches}, expected {want} (recompute: "
+          f"bsmm_fprop 4L, bsmm_bprop 2L, bsmm_updat 2L, bst_attn_fwd_lse "
+          f"2L, bst_attn_dq L, bst_attn_dkv L, L = {L})")
+    (step, state, m0, scale, d0), (_, _, m1, _, d1) = results
+    for k in ("loss", "grad_norm"):
+        a, b = m0[k].item(), m1[k].item()
+        check(abs(a - b) <= STEP_LOSS_TOL * abs(b),
+              f"step 1 {k} {a:.6f} vs plain {b:.6f} (tol "
+              f"{STEP_LOSS_TOL:g} relative)")
+    check(m0["norm_scale"].item() > 0 and scale.item() > LOSS_SCALE,
+          f"step 1 norm_scale {m0['norm_scale'].item():.4f} > 0, loss scale "
+          f"{LOSS_SCALE:g} -> {scale.item():.2f}")
+    compare_tensors("parameter updates of step 1 against the plain model",
+                    d0, d1, GRAD_TOL, live=live, flip_bound=2 * LR + 1e-6)
+    del results, d0, d1, live
+    torch.cuda.empty_cache()
+
+    # (c) more steps on the fixed batch: finite, falling loss
+    losses, norm_scales = [m0["loss"].item()], [m0["norm_scale"].item()]
+    for _ in range(TRAIN_STEPS - 1):
+        state, metrics, scale = step(state, tokens, targets, scale)
+        losses.append(metrics["loss"].item())
+        norm_scales.append(metrics["norm_scale"].item())
+    check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0]
+          and min(norm_scales) > 0,
+          f"{TRAIN_STEPS} train steps on one batch: loss "
+          f"{' '.join(f'{x:.4f}' for x in losses)} (finite, falling), "
+          f"norm_scale > 0 in every step (min {min(norm_scales):.4f})")
+
+    # step time
+    holder = {"state": state, "scale": scale}
+
+    def one_step():
+        holder["state"], _, holder["scale"] = step(
+            holder["state"], tokens, targets, holder["scale"])
+    ms = time_ms(one_step, TIMED_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"train step [{card_line}]: batch {BATCH} x {cfg.ctx}, "
+          f"{ms:.2f} ms (mean of {TIMED_STEPS}, CUDA events) = "
+          f"{BATCH * cfg.ctx / ms * 1e3:.0f} tokens/s; peak device memory "
+          f"{peak:.2f} GiB", flush=True)
+    profile_step(one_step, ms, profile_out)
+    return launches
+
+
+PORT_KERNELS = ("bsmm_xprop_nc_kernel", "bsmm_updat_nc_kernel",
+                "bst_attn_fwd_kernel", "bst_attn_dq_kernel",
+                "bst_attn_dkv_kernel")
+
+
+def profile_step(one_step, step_ms, table_path):
+    """One train step under torch.profiler: device time in all and by port
+    kernel, against the unprofiled step time; the full table goes to
+    ``table_path`` when one is given."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        one_step()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    # device events only: a host op that launched a kernel through ctypes
+    # carries that kernel's time as its own "self" device time too
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    by_kernel = {}
+    for name in PORT_KERNELS:
+        hits = [e for e in kernels if name in e.key]
+        by_kernel[name] = (sum(e.self_device_time_total for e in hits) / 1e3,
+                           sum(e.count for e in hits))
+    ours = sum(ms for ms, _ in by_kernel.values())
+    print(f"train step profile: {total:.2f} ms of device time in one "
+          f"profiled step, {total / step_ms:.0%} of the unprofiled "
+          f"{step_ms:.2f} ms; port kernels {ours:.2f} ms "
+          f"({ours / total:.0%}): " + ", ".join(
+              f"{name} {ms:.2f} ms ({n})"
+              for name, (ms, n) in by_kernel.items()), flush=True)
+    if table_path:
+        out = Path(table_path)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(events.table(sort_by="self_cuda_time_total",
+                                    row_limit=40))
+
+
+def build_all():
+    from blocksparse_tpu_torch.kernels import _build
+
+    def one(name):
+        t = time.perf_counter()
+        lib = _build.build(name)
+        return name, time.perf_counter() - t, lib
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        for name, s, lib in pool.map(one, SOURCES):
+            print(f"build {name}: {s:.1f} s -> {lib.name}", flush=True)
+    print(f"build total (parallel): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile-out", metavar="PATH",
+                    help="write the profiled train step's table here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke run needs a GPU",
+              file=sys.stderr)
+        return 1
+    import blocksparse_tpu_torch as bt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card_line = card()
+    print(f"card: {card_line}", flush=True)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+
+    # 1. build
+    build_all()
+
+    # 2. the model, full width, and the same model on the plain versions
+    cfg = bt.TransformerConfig(
+        n_vocab=256, n_embd=512, n_layer=6, n_head=8, ctx=2048, blk_size=64,
+        attn_layout="fixed", local_blocks=8, mlp_ratio=4, mlp_block_size=32,
+        mlp_density=0.5, dtype="bfloat16", recompute=True)
+    model = bt.SparseTransformerLM(cfg, device=dev)
+    plain = bt.SparseTransformerLM(cfg, device=dev, impl="xla")
+    sd = bt.params_from_jax(bt.random_jax_params(model, seed=SEED), model)
+    model.load_state_dict(sd)
+    plain.load_state_dict(sd)
+    print(f"model: {cfg.n_layer} layers x {cfg.n_embd}d, {cfg.n_head} heads, "
+          f"ctx {cfg.ctx}, attention blocks {model.bst.blocks} of "
+          f"{model.bst.ctx_blks_q ** 2}, MLP blocks {model.bsmm1.blocks} of "
+          f"{model.bsmm1.CB * model.bsmm1.KB} (b{model.bsmm1.bsize}), "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f} M params",
+          flush=True)
+
+    # 3. kernels against plain versions
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rows = {}
+    serving_kernel_checks(model, plain, dev, g, rows)
+    training_kernel_checks(model, plain, dev, g, rows)
+
+    # 4. the serving path, counted
+    serve_launches = serving_path(bt, model, plain, cfg, dev, card_line)
+
+    # 5. the training path, counted
+    train_launches = training_path(bt, model, plain, cfg, dev, card_line,
+                                   args.profile_out)
+    print(f"launches: serving path {serve_launches}; training path (one "
+          f"step) {train_launches}", flush=True)
+
+    N, bf = BATCH * cfg.ctx, torch.bfloat16
+    kernels = [  # (name, source, TPU kernel, path's launches, row)
+        ("bsmm_fprop", "bsmm_fprop.cu", "bsmm.py:1422",
+         serve_launches["bsmm_fprop"], rows[("fprop", "bsmm1", N, bf)]),
+        ("bsmm_bprop", "bsmm_fprop.cu", "bsmm.py:1422",
+         train_launches["bsmm_bprop"], rows[("bprop", "bsmm1", bf)]),
+        ("bsmm_updat", "bsmm_updat.cu", "bsmm.py:1972",
+         train_launches["bsmm_updat"], rows[("updat", "bsmm1", bf)]),
+        ("bst_attn_fwd", "bst_attn_fwd.cu", "bst_attn.py:677",
+         serve_launches["bst_attn_fwd"], rows[("attn_fwd", bf)]),
+        ("bst_attn_fwd_lse", "bst_attn_fwd.cu", "bst_attn.py:832",
+         train_launches["bst_attn_fwd_lse"], rows[("fwd_lse", bf)]),
+        ("bst_attn_dq", "bst_attn_bwd.cu", "bst_attn.py:1084",
+         train_launches["bst_attn_dq"], rows[("dq", bf)]),
+        ("bst_attn_dkv", "bst_attn_bwd.cu", "bst_attn.py:1141",
+         train_launches["bst_attn_dkv"], rows[("dkv", bf)]),
+    ]
+    check(all(n > 0 for _, _, _, n, _ in kernels),
+          "every kernel launched on its path")
     print(json.dumps({"kernels": [
-        {"name": "bsmm_fprop", "route": "cuda",
-         "source": "blocksparse_tpu_torch/csrc/bsmm_fprop.cu",
-         "replaces": "blocksparse_tpu/kernels/bsmm.py:1422",
-         "launches": launches["bsmm_fprop"], "max_abs_err": e_b,
-         "ms": ms_b, "plain_ms": pms_b},
-        {"name": "bst_attn_fwd", "route": "cuda",
-         "source": "blocksparse_tpu_torch/csrc/bst_attn_fwd.cu",
-         "replaces": "blocksparse_tpu/kernels/bst_attn.py:677",
-         "launches": launches["bst_attn_fwd"], "max_abs_err": e_a,
-         "ms": ms_a, "plain_ms": pms_a},
-    ]}), flush=True)
+        {"name": name, "route": "cuda",
+         "source": f"blocksparse_tpu_torch/csrc/{src}",
+         "replaces": f"blocksparse_tpu/kernels/{tpu}",
+         "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": pms}
+        for name, src, tpu, n, (err, ms, pms) in kernels]}), flush=True)
     print(card(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

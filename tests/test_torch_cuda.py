@@ -8,15 +8,18 @@ without the JAX-importing conftest):
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
 Tolerances: f32 1e-5 relative to the output's scale (full fp32 on both
-sides, other summation orders); bf16 1e-2 for the matmul (one bf16
-rounding of the output, 2^-8) and 2e-2 absolute for attention (p is
-rounded to bf16 before p·v on both sides, outputs are O(1)).
+sides, other summation orders); bf16 and f16 1e-2 for the matmul (one
+rounding of the output, 2^-8 for bf16, finer for f16) and 2e-2 absolute
+for attention (p and dS are rounded to the input type before their
+products on both sides, outputs are O(1)).  The weight gradient is f32
+from the same inputs on both sides: 1e-4 relative in every dtype.
 """
 import numpy as np
 import pytest
 import torch
 
-from blocksparse_tpu_torch import (BlocksparseMatMul, BlocksparseTransformer,
+from blocksparse_tpu_torch import (AdamOptimizer, BlocksparseMatMul,
+                                   BlocksparseTransformer,
                                    SparseTransformerLM, TransformerConfig,
                                    params_from_jax, random_jax_params)
 from blocksparse_tpu_torch.kernels import bsmm as bsmm_kernels
@@ -27,6 +30,8 @@ from blocksparse_tpu_torch.models.sparse_transformer import (
 F32_TOL = 1e-5
 BSMM_BF16_TOL = 1e-2
 ATTN_BF16_TOL = 2e-2
+UPDAT_TOL = 1e-4
+HALF = (torch.bfloat16, torch.float16)
 
 
 @pytest.fixture
@@ -45,7 +50,8 @@ def random_layout(CB, KB, density, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("bsize", [8, 16, 32, 64, 128])
 def test_bsmm_kernel_matches_plain(cuda, bsize, dtype):
     layout = random_layout(4, 6, 0.5, seed=bsize)
@@ -89,7 +95,10 @@ def test_bsmm_kernel_rejects_cpu_and_mixed_dtypes(cuda):
     with pytest.raises(TypeError):
         port(x, torch.randn(port.w_shape, device=cuda).bfloat16())
     with pytest.raises(TypeError):
-        port(x.half(), torch.randn(port.w_shape, device=cuda).half())
+        port(x.double(), torch.randn(port.w_shape, device=cuda).double())
+    with pytest.raises(ValueError):
+        bsmm_kernels.bsmm_fprop(x.cpu(), torch.ones(port.w_shape), None,
+                                None, None, 16, 2)
 
 
 def _fixed_case(device, dtype, batch=2, ctx=256, bs=64, heads=2, hs=64):
@@ -103,7 +112,8 @@ def _fixed_case(device, dtype, batch=2, ctx=256, bs=64, heads=2, hs=64):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("bs,hs", [(16, 16), (32, 128), (64, 64), (64, 32)])
 def test_attention_kernel_matches_plain(cuda, bs, hs, dtype):
     port, (q, k, v) = _fixed_case(cuda, dtype, bs=bs, hs=hs)
@@ -176,3 +186,264 @@ def test_model_kernels_match_plain_model(cuda):
     assert bsmm_kernels.bsmm_fprop.launches - before[0] == 2 * 2
     assert bst_attn.attention_fwd.launches - before[1] == 2
     torch.testing.assert_close(got, plain(tokens), rtol=1e-4, atol=1e-4)
+
+
+def _tol(dtype, half_tol, scale):
+    return (F32_TOL if dtype == torch.float32 else half_tol) * max(1.0, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, *HALF])
+@pytest.mark.parametrize("bsize", [8, 16, 32, 64, 128])
+def test_bsmm_bprop_kernel_matches_plain(cuda, bsize, dtype):
+    layout = random_layout(5, 4, 0.5, seed=bsize + 1)
+    layout[2, :] = 0                       # an empty input block-row
+    port = BlocksparseMatMul(layout, block_size=bsize, feature_axis=1)
+    plain = BlocksparseMatMul(layout, block_size=bsize, feature_axis=1,
+                              impl="xla")
+    g = torch.Generator(device=cuda).manual_seed(1)
+    w = torch.randn(port.w_shape, device=cuda, generator=g).to(dtype)
+    for N in (1, 5, 300):
+        dy = torch.randn((N, port.K), device=cuda, generator=g).to(dtype)
+        before = bsmm_kernels.bsmm_bprop.launches
+        dx = port._xprop(dy, w, "b")
+        torch.cuda.synchronize()
+        assert bsmm_kernels.bsmm_bprop.launches == before + 1
+        ref = plain._xprop(dy, w, "b").float()
+        torch.testing.assert_close(
+            dx.float(), ref, rtol=0,
+            atol=_tol(dtype, BSMM_BF16_TOL, ref.abs().max().item()))
+        assert (dx[:, 2 * bsize:3 * bsize] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, *HALF])
+@pytest.mark.parametrize("bsize", [8, 16, 32, 64, 128])
+def test_bsmm_updat_kernel_matches_plain(cuda, bsize, dtype):
+    """At N 1, 77 and 1500: one thread block per layout block walks N in
+    tiles, the last one partial."""
+    layout = random_layout(4, 6, 0.5, seed=bsize + 2)
+    port = BlocksparseMatMul(layout, block_size=bsize, feature_axis=1)
+    plain = BlocksparseMatMul(layout, block_size=bsize, feature_axis=1,
+                              impl="xla")
+    g = torch.Generator(device=cuda).manual_seed(2)
+    lut = port._lut(cuda)
+    for N in (1, 77, 1500):
+        x = torch.randn((N, port.C), device=cuda, generator=g).to(dtype)
+        dy = torch.randn((N, port.K), device=cuda, generator=g).to(dtype)
+        before = bsmm_kernels.bsmm_updat.launches
+        dw = bsmm_kernels.bsmm_updat(x, dy, lut["u_c32"], lut["u_k32"],
+                                     bsize)
+        torch.cuda.synchronize()
+        assert bsmm_kernels.bsmm_updat.launches == before + 1
+        ref = plain._updat(x, dy)
+        assert dw.dtype == torch.float32 and dw.shape == port.w_shape
+        torch.testing.assert_close(
+            dw, ref, rtol=0, atol=UPDAT_TOL * max(1.0, ref.abs().max().item()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", [1, 0])
+def test_bsmm_autograd_runs_the_three_kernels(cuda, axis):
+    layout = random_layout(4, 6, 0.5, seed=5)
+    port = BlocksparseMatMul(layout, block_size=32, feature_axis=axis)
+    plain = BlocksparseMatMul(layout, block_size=32, feature_axis=axis,
+                              impl="xla")
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x0 = torch.randn(port.i_shape(200), device=cuda, generator=g)
+    w0 = torch.randn(port.w_shape, device=cuda, generator=g)
+    dy = torch.randn(port.o_shape(200), device=cuda, generator=g)
+    grads = []
+    for op in (port, plain):
+        x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+        counts = [k.launches for k in (bsmm_kernels.bsmm_fprop,
+                                       bsmm_kernels.bsmm_bprop,
+                                       bsmm_kernels.bsmm_updat)]
+        op(x, w).backward(dy)
+        torch.cuda.synchronize()
+        moved = [k.launches - c for k, c in zip(
+            (bsmm_kernels.bsmm_fprop, bsmm_kernels.bsmm_bprop,
+             bsmm_kernels.bsmm_updat), counts)]
+        assert moved == ([1, 1, 1] if op is port else [0, 0, 0])
+        grads.append((x.grad, w.grad))
+    for got, ref in zip(*grads):
+        torch.testing.assert_close(got, ref, rtol=0,
+                                   atol=1e-4 * ref.abs().max().item())
+
+
+def _case(device, dtype, bs, hs, layout=None, mask_callback=None, heads=2,
+          batch=2, seed=0):
+    layout = fixed_layout(4, local_blocks=2) if layout is None else layout
+    ctx = layout.shape[-1] * bs
+    port = BlocksparseTransformer(layout, block_size=bs, heads=heads,
+                                  mask_callback=mask_callback
+                                  or causal_subblock_mask)
+    g = torch.Generator(device=device).manual_seed(seed)
+    qkv = torch.randn((batch, ctx, 3 * heads * hs), device=device,
+                      generator=g).to(dtype)
+    do = torch.randn((batch, ctx, heads * hs), device=device,
+                     generator=g).to(dtype)
+    return port, qkv.split(heads * hs, dim=-1), do
+
+
+def _plain_fwd_bwd(port, q, k, v, do, scale):
+    tab = port._tables(q.device)
+    args = (tab["q_blk"], tab["k_blk"], tab["mask"], port.heads,
+            port.blk_size, scale)
+    out, lse = bst_attn.attention_fwd_lse_plain(q, k, v, *args)
+    batch, ctx, state = q.shape
+    dvec = (do.float() * out.float()).reshape(
+        batch, ctx, port.heads, -1).sum(-1).transpose(1, 2).contiguous()
+    return out, lse, dvec, bst_attn.attention_bwd_plain(q, k, v, do, lse,
+                                                        dvec, *args)
+
+
+def _kernel_bwd(port, q, k, v, do, lse, dvec, scale):
+    tab = port._tables(q.device)
+    dq = bst_attn.attention_dq(q, k, v, do, lse, dvec, tab["row_ptr"],
+                               tab["ent_k"], tab["ent_code"], tab["uniq"],
+                               port.heads, port.blk_size, scale)
+    dk, dv = bst_attn.attention_dkv(q, k, v, do, lse, dvec,
+                                    tab["row_ptr_t"], tab["ent_q"],
+                                    tab["ent_code_t"], tab["uniq_t"],
+                                    port.heads, port.blk_size, scale)
+    return dq, dk, dv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, *HALF])
+@pytest.mark.parametrize("bs,hs", [(16, 16), (32, 128), (64, 64), (64, 32)])
+def test_attention_train_kernels_match_plain(cuda, bs, hs, dtype):
+    """fwd_lse (out and lse), dq and dk/dv against the plain versions on the
+    same dO, lse and D; q/k/v are strided column slices of one qkv."""
+    port, (q, k, v), do = _case(cuda, dtype, bs, hs)
+    scale = 1.0 / np.sqrt(hs)
+    tab = port._tables(cuda)
+    out_ref, lse_ref, dvec, (dq_ref, dk_ref, dv_ref) = _plain_fwd_bwd(
+        port, q, k, v, do, scale)
+    out, lse = bst_attn.attention_fwd_lse(
+        q, k, v, tab["row_ptr"], tab["ent_k"], tab["ent_code"], tab["uniq"],
+        port.heads, bs, scale)
+    dq, dk, dv = _kernel_bwd(port, q, k, v, do, lse_ref, dvec, scale)
+    torch.cuda.synchronize()
+    assert lse.dtype == torch.float32 and dk.dtype == dv.dtype == torch.float32
+    assert dq.dtype == dtype
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-4)
+    for got, ref in ((out, out_ref), (dq, dq_ref), (dk, dk_ref),
+                     (dv, dv_ref)):
+        ref = ref.float()
+        torch.testing.assert_close(
+            got.float(), ref, rtol=0,
+            atol=_tol(dtype, ATTN_BF16_TOL, ref.abs().max().item()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["per_head", "f1", "dense"])
+def test_attention_train_kernels_masks(cuda, kind):
+    """Per-head layouts, a fully masked query row (zero out, lse -inf, zero
+    dq, no dk/dv contribution) and a dense causal layout with the causal
+    sub-block mask (TRIL on the query rows, TRIU on the key rows)."""
+    lay = fixed_layout(4, local_blocks=2)
+    layout, mask, heads = lay, None, 2
+    if kind == "per_head":
+        layout, heads = np.stack([lay, lay[:, ::-1], lay, np.flipud(lay)]), 4
+    elif kind == "f1":
+        layout, mask = np.tril(np.ones((4, 4), np.int32)), _f1_mask
+    elif kind == "dense":
+        layout = np.tril(np.ones((6, 6), np.int32))
+    port, (q, k, v), do = _case(cuda, torch.float32, 16, 32, layout=layout,
+                                mask_callback=mask, heads=heads, seed=4)
+    out_ref, lse_ref, dvec, refs = _plain_fwd_bwd(port, q, k, v, do, 0.3)
+    tab = port._tables(cuda)
+    out, lse = bst_attn.attention_fwd_lse(
+        q, k, v, tab["row_ptr"], tab["ent_k"], tab["ent_code"], tab["uniq"],
+        heads, 16, 0.3)
+    got = _kernel_bwd(port, q, k, v, do, lse, dvec, 0.3)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, out_ref, rtol=0, atol=F32_TOL)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-5)
+    for g, r in zip(got, refs):
+        torch.testing.assert_close(
+            g, r, rtol=0, atol=F32_TOL * max(1.0, r.abs().max().item()))
+    if kind == "f1":
+        dead = 16 + 3
+        assert (out[:, dead] == 0).all() and (got[0][:, dead] == 0).all()
+        assert torch.isinf(lse[:, :, dead]).all()
+        do0 = do.clone()
+        do0[:, dead] = 0
+        dvec0 = dvec.clone()
+        dvec0[:, :, dead] = 0
+        _, dk0, dv0 = _kernel_bwd(port, q, k, v, do0, lse, dvec0, 0.3)
+        torch.testing.assert_close(dk0, got[1], rtol=0, atol=0)
+        torch.testing.assert_close(dv0, got[2], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_attention_autograd_runs_train_kernels(cuda):
+    port, (q0, k0, v0), do = _case(cuda, torch.bfloat16, 64, 64)
+    counters = (bst_attn.attention_fwd, bst_attn.attention_fwd_lse,
+                bst_attn.attention_dq, bst_attn.attention_dkv)
+    grads = []
+    for fused in (None, False):
+        q, k, v = (t.detach().clone().requires_grad_() for t in (q0, k0, v0))
+        before = [c.launches for c in counters]
+        port.attention(q, k, v, scale=0.125, use_fused=fused).backward(do)
+        torch.cuda.synchronize()
+        moved = [c.launches - b for c, b in zip(counters, before)]
+        assert moved == ([0, 1, 1, 1] if fused is None else [0, 0, 0, 0])
+        grads.append((q.grad, k.grad, v.grad))
+    for got, ref in zip(*grads):
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(
+            got.float(), ref.float(), rtol=0,
+            atol=ATTN_BF16_TOL * max(1.0, ref.float().abs().max().item()))
+    with torch.no_grad():
+        before = bst_attn.attention_fwd.launches
+        port.attention(q0, k0, v0, scale=0.125)
+        assert bst_attn.attention_fwd.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("recompute", [True, False])
+def test_train_step_kernels_match_plain_model(cuda, recompute):
+    """One f32 train step of the tiny model on the kernels against the same
+    step on the plain versions, and the launch count of every kernel."""
+    cfg = TransformerConfig(
+        n_vocab=64, n_embd=64, n_layer=2, n_head=4, ctx=64, blk_size=16,
+        attn_layout="fixed", local_blocks=2, mlp_ratio=4, mlp_block_size=16,
+        mlp_density=0.5, dtype="float32", recompute=recompute)
+    models = [SparseTransformerLM(cfg, device=cuda),
+              SparseTransformerLM(cfg, device=cuda, impl="xla")]
+    sd = params_from_jax(random_jax_params(models[0], seed=5), models[0])
+    g = torch.Generator(device=cuda).manual_seed(6)
+    tokens, targets = (torch.randint(0, 64, (2, 64), device=cuda,
+                                     generator=g) for _ in range(2))
+    counters = {"fprop": bsmm_kernels.bsmm_fprop,
+                "bprop": bsmm_kernels.bsmm_bprop,
+                "updat": bsmm_kernels.bsmm_updat,
+                "fwd": bst_attn.attention_fwd,
+                "fwd_lse": bst_attn.attention_fwd_lse,
+                "dq": bst_attn.attention_dq, "dkv": bst_attn.attention_dkv}
+    L, r = cfg.n_layer, 2 if recompute else 1
+    want = {"fprop": 2 * r * L, "bprop": 2 * L, "updat": 2 * L, "fwd": 0,
+            "fwd_lse": r * L, "dq": L, "dkv": L}
+    out = []
+    for m in models:
+        m.load_state_dict(sd)
+        opt = AdamOptimizer(learning_rate=1e-3)
+        before = {n: c.launches for n, c in counters.items()}
+        state, metrics, scale = m.make_train_step(opt)(
+            opt.init(dict(m.named_parameters())), tokens, targets, 1024.0)
+        torch.cuda.synchronize()
+        moved = {n: c.launches - before[n] for n, c in counters.items()}
+        assert moved == (want if m.impl is None else dict.fromkeys(want, 0))
+        out.append((metrics, state, m.state_dict()))
+    (m0, s0, p0), (m1, s1, p1) = out
+    for k in m0:
+        torch.testing.assert_close(m0[k], m1[k], rtol=1e-4, atol=0)
+    for k in s0["mean"]:
+        ref = s1["mean"][k]
+        torch.testing.assert_close(s0["mean"][k], ref, rtol=0,
+                                   atol=1e-3 * ref.abs().max().item())
+        live = ref.abs() > 1e-2 * ref.abs().max()
+        assert (p0[k] - p1[k]).abs()[live].max() <= 1e-5

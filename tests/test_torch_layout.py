@@ -1,9 +1,10 @@
 """The port's host-side LUTs equal the JAX package's exactly.
 
-Block-sparse matmul: block ids (z-order), updat/fprop/bprop lists and
-shapes.  Attention: nt/nn/tn lists and LUTs, masks, mask codes, and the
-fused kernel's CSR against the JAX fused kernel's schedule.  Also: the
-port imports no JAX module.
+Block-sparse matmul: block ids (z-order), updat/fprop/bprop lists, the
+flat fprop/bprop entry arrays and shapes.  Attention: nt/nn/tn lists and
+LUTs, masks, mask codes, and the fused kernels' query-row and key-row
+CSRs against the JAX fused kernels' schedules.  Also: the port imports
+no JAX module.
 """
 import os
 import subprocess
@@ -53,7 +54,8 @@ def test_bsmm_luts(bsize, z_order):
     assert port.o_shape(5) == ref.o_shape(5)
     assert (port.blocks, port.C, port.K, port.sparsity) == \
         (ref.blocks, ref.C, ref.K, ref.sparsity)
-    for a, b in zip(port._fprop_flat, ref._fprop_flat):
+    for a, b in zip(port._fprop_flat + port._bprop_flat,
+                    ref._fprop_flat + ref._bprop_flat):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(
         port.identity_init()(), ref.identity_init()())
@@ -115,6 +117,40 @@ def test_attention_luts(name, bs, layout):
             np.testing.assert_array_equal(ent_k[lo:hi], kk[:n])
             np.testing.assert_array_equal(ent_code[lo:hi], mc[:n])
             assert (mc[n:] == jax_bst_attn.MASK_ABSENT).all()
+
+
+@pytest.mark.parametrize("name,bs,layout", _layouts(),
+                         ids=[f"{c[0]}-b{c[1]}" for c in _layouts()])
+def test_attention_tn_csr(name, bs, layout):
+    """The dk/dv kernel's key-row CSR walks each key row's query blocks in
+    the JAX tn schedule's order, with the mask codes and unique table of
+    the transposed mask blocks (``build_attn_schedule_tn``)."""
+    heads = 2
+    ref = JaxBST(layout, block_size=bs, heads=heads,
+                 mask_callback=causal_subblock_mask)
+    port = BlocksparseTransformer(layout, block_size=bs, heads=heads,
+                                  mask_callback=causal_subblock_mask)
+    codes_t, uniq_t = port.mask_codes(transposed=True)
+    row_ptr, ent_q, ent_code = bst_attn.build_attn_csr(port.tn_list, codes_t)
+    sched = ref.attn_schedule_tn
+    np.testing.assert_array_equal(uniq_t, sched.muniq)
+    rows = ref.ctx_blks_k
+    for h in range(ref.lut_heads):
+        for r in range(rows):
+            steps = np.nonzero(sched.row == r)[0]
+            kk = sched.k_idx[h, steps].reshape(-1)
+            mc = sched.mcode[h, steps].reshape(-1)
+            n = len(ref.tn_list[h][r])
+            lo, hi = row_ptr[h * (rows + 1) + r], row_ptr[h * (rows + 1) + r + 1]
+            assert hi - lo == n
+            np.testing.assert_array_equal(ent_q[lo:hi], kk[:n])
+            np.testing.assert_array_equal(ent_code[lo:hi], mc[:n])
+            assert (mc[n:] == jax_bst_attn.MASK_ABSENT).all()
+    # the causal diagonal is TRIL on the query rows, TRIU on the key rows
+    diag = [b for b, (q, k) in enumerate(port.nt_list[0]) if q == k]
+    codes, _ = port.mask_codes()
+    assert (codes[0, diag] == bst_attn.MASK_TRIL).all()
+    assert (codes_t[0, diag] == bst_attn.MASK_TRIU).all()
 
 
 def test_model_layouts_equal():

@@ -63,6 +63,22 @@ def test_forward_logits_match_jax(mlp_block_size):
     np.testing.assert_allclose(got.numpy(), ref, rtol=TOL, atol=TOL)
 
 
+@pytest.mark.parametrize("mlp_block_size", [16, 0])
+def test_f16_forward_matches_jax(mlp_block_size):
+    """dtype="float16": the port runs f16 natively; the JAX fused attention
+    (and its Pallas bsmm) runs f16 inputs as bf16 and emits f16.  So the
+    tolerance is bf16 level: 1e-2 of max(1, max|logits|), a few bf16 ulps
+    (2^-8) through two layers."""
+    jax_model, params, port = _models(dtype="float16",
+                                      mlp_block_size=mlp_block_size)
+    tokens = _tokens(2, 64, seed=6)
+    ref = np.asarray(jax_model.forward(params, jnp.asarray(tokens)))
+    got = port(torch.from_numpy(tokens).long())
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                               atol=1e-2 * max(1.0, np.abs(ref).max()))
+
+
 def test_prefill_and_teacher_forced_decode_match_jax():
     jax_model, params, port = _models()
     n, steps = 24, 6
