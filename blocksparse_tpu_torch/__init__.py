@@ -3,14 +3,16 @@
 It serves and trains the flagship ``SparseTransformerLM`` on an NVIDIA
 H100 through kernels written by hand for Hopper (``csrc/``): the
 block-sparse matmul (fprop, bprop, updat) and the fused block-sparse
-attention (serving and training forward, dq, dk/dv).  Each has a plain
-PyTorch version beside it, which is what runs on the CPU.  The JAX
+attention (serving and training forward, dq, dk/dv).  It also runs the
+block-sparse conv ``BlocksparseConv(impl="bsmm")``, forward and backward,
+through im2col, col2im and the same matmul kernels.  Each kernel has a
+plain PyTorch version beside it, which is what runs on the CPU.  The JAX
 package ``blocksparse_tpu`` is the reference it is held against; this
 package imports torch and never jax.
 """
 from blocksparse_tpu_torch.ops import (
-    BlocksparseMatMul, BlocksparseTransformer, layer_norm, swish, fast_gelu,
-    float_cast, embedding_lookup, softmax_cross_entropy,
+    BlocksparseMatMul, BlocksparseConv, BlocksparseTransformer, layer_norm,
+    swish, fast_gelu, float_cast, embedding_lookup, softmax_cross_entropy,
     clip_by_global_norm, global_norm, AdamOptimizer,
 )
 from blocksparse_tpu_torch.models import (
@@ -18,11 +20,13 @@ from blocksparse_tpu_torch.models import (
 )
 from blocksparse_tpu_torch.convert import (
     params_from_jax, params_to_jax, opt_state_from_jax, random_jax_params,
+    conv_filter_from_jax, random_jax_conv_filter,
 )
 
-__all__ = ["BlocksparseMatMul", "BlocksparseTransformer", "layer_norm",
-           "swish", "fast_gelu", "float_cast", "embedding_lookup",
+__all__ = ["BlocksparseMatMul", "BlocksparseConv", "BlocksparseTransformer",
+           "layer_norm", "swish", "fast_gelu", "float_cast", "embedding_lookup",
            "softmax_cross_entropy", "clip_by_global_norm", "global_norm",
            "AdamOptimizer", "SparseTransformerLM", "TransformerConfig",
            "generate_cached", "params_from_jax", "params_to_jax",
-           "opt_state_from_jax", "random_jax_params"]
+           "opt_state_from_jax", "random_jax_params", "conv_filter_from_jax",
+           "random_jax_conv_filter"]

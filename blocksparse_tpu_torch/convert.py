@@ -10,6 +10,10 @@ tensor-parallel dim of size ``tp`` on block-sparse ``w_fc``/``w_proj``.
 (``{"mean", "var", "t"}``) into the port's.  ``random_jax_params`` makes
 a param dict from a seed, with the JAX initialiser's shapes and scales,
 for runs that need no checkpoint.
+
+For the block-sparse conv, ``conv_filter_from_jax`` moves a JAX
+``BlocksparseConv`` filter onto a device and ``random_jax_conv_filter``
+draws one from a seed.
 """
 from __future__ import annotations
 
@@ -130,3 +134,22 @@ def random_jax_params(model, seed=0):
             "b_proj": np.zeros(c.n_embd, np.float32),
         }
     return params
+
+
+def conv_filter_from_jax(F, conv, device):
+    """A JAX ``BlocksparseConv`` filter (a NumPy array of ``conv.f_shape()``,
+    f32, f16 or bf16) as a tensor of the same dtype on ``device``."""
+    a = np.asarray(F)
+    if list(a.shape) != list(conv.f_shape()):
+        raise ValueError(f"filter shape {list(a.shape)} is not the conv's "
+                         f"f_shape() {list(conv.f_shape())}")
+    if a.dtype.name == "bfloat16":        # NumPy holds JAX bf16 as ml_dtypes
+        return torch.tensor(a.astype(np.float32), device=device).bfloat16()
+    return torch.tensor(a, device=device)
+
+
+def random_jax_conv_filter(conv, seed=0):
+    """A filter of ``conv.f_shape()`` as NumPy f32, uniform in [-0.1, 0.1)
+    from ``seed`` (the range of the repo's conv benchmark)."""
+    rng = np.random.RandomState(seed)
+    return rng.uniform(-0.1, 0.1, conv.f_shape()).astype(np.float32)

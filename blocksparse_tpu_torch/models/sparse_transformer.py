@@ -160,9 +160,11 @@ class SparseTransformerLM(nn.Module):
     Parameters start as zeros (gains as ones); load real ones with
     ``load_state_dict(convert.params_from_jax(...))``.  They hold f32
     masters and are cast to ``config.dtype`` at use, as in the JAX
-    package.  impl=None runs the CUDA kernels on a CUDA device (the plain
-    versions on the CPU); impl="xla" runs the plain versions everywhere,
-    the reference the kernels are held against on the card."""
+    package.  The model lives on ``device``: by default the CUDA card
+    (a host without one raises), ``device="cpu"`` for the CPU.
+    impl=None runs the CUDA kernels on a CUDA device (the plain versions
+    on the CPU); impl="xla" runs the plain versions everywhere, the
+    reference the kernels are held against on the card."""
 
     def __init__(self, config: TransformerConfig, device=None, impl=None):
         super().__init__()
@@ -206,8 +208,14 @@ class SparseTransformerLM(nn.Module):
         self.h = nn.ModuleList(
             _Layer(c, self.hidden, w_fc_shape, w_proj_shape)
             for _ in range(c.n_layer))
-        if device is not None:
-            self.to(device)
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "SparseTransformerLM runs on the CUDA card by default and "
+                    "this host has none: pass device=\"cpu\" to run it on "
+                    "the CPU")
+            device = torch.device("cuda")
+        self.to(device)
 
     @property
     def nd(self):

@@ -213,7 +213,8 @@ class BlocksparseMatMul:
         return self.impl == "xla" or not x.is_cuda
 
     def _nc(self, a):
-        """A 2-D activation in the kernels' (N, features) orientation."""
+        """A 2-D activation in the kernels' (N, features) orientation (no
+        copy when ``a`` is the transposed view of such an array)."""
         return (a if self.axis else a.t()).contiguous()
 
     def _xprop(self, x, w, d):
@@ -228,7 +229,9 @@ class BlocksparseMatMul:
             else bsmm_kernels.bsmm_bprop
         y = kernel(self._nc(x), w.contiguous(), lut[f"{d}_row_ptr"],
                    lut[f"{d}_ent_in"], lut[f"{d}_ent_w"], self.bsize, n_out)
-        return y if self.axis else y.t().contiguous()
+        # feature_axis 0: the (features, N) view of the kernel's (N,
+        # features) output; a consumer in that orientation copies nothing
+        return y if self.axis else y.t()
 
     def _updat(self, x, dy):
         """dw (blocks, b, b) in f32 from 2-D x and dy."""

@@ -1,13 +1,20 @@
 """Host-side helpers for building the LUTs.
 
-Counterpart of ``blocksparse_tpu/utils.py`` (the part the serving path
-needs).  Pure Python: nothing here touches a tensor.
+Counterpart of ``blocksparse_tpu/utils.py`` (the part the ported paths
+need).  Pure Python: nothing here touches a tensor.
 """
 from __future__ import annotations
+
+from functools import reduce
+from operator import mul
 
 
 def ceil_div(x: int, y: int) -> int:
     return -(-x // y)
+
+
+def reduce_mul(vals, init=1):
+    return reduce(mul, vals, init)
 
 
 def z_order_2d(x: int, y: int) -> int:

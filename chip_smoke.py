@@ -21,8 +21,19 @@ before and read just after:
   step of the model run on the plain versions, then eight steps that
   must lower the loss.
 
+Then the block-sparse conv, ``BlocksparseConv(impl="bsmm")``, at the
+repo's conv benchmark configuration (``benchmarks/conv_bench.py``: 3x3
+SAME filters, 32x32 channel blocks, NCHW 32x32 images, batch 32, bf16,
+C = K in {512, 1024, 2048}, block densities 0.25 and 0.0625, the loss
+sum(square(y))): im2col and col2im held against their plain versions at
+C=512 in f32, bf16 and f16; the C=512 forward and both gradients held
+against the plain path, counted; every configuration's forward held
+against a dense cuDNN conv of the scattered filter and timed beside it.
+
 Prints the card's name and power limit, the build times, every check
-with its tolerance, the timings, a ``{"kernels": [...]}`` line, and last
+with its tolerance, the timings, a ``{"kernels": [...]}`` line (each
+kernel with its bound on this card and the time of a library call that
+computes the same function, where there is one), and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; so does a host without CUDA.  Imports no JAX.  One train
 step also runs under ``torch.profiler``: its device time by kernel is
@@ -40,12 +51,14 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as nnf
 
 SEED = 0
 BATCH, PROMPTS, PROMPT_LEN, NEW_TOKENS = 8, 4, 1024, 64
 TRAIN_STEPS, TIMED_STEPS = 8, 5
 LR, CLIP, LOSS_SCALE = 3e-4, 1.0, 2.0 ** 15
-SOURCES = ("bsmm_fprop", "bsmm_updat", "bst_attn_fwd", "bst_attn_bwd")
+SOURCES = ("bsmm_fprop", "bsmm_updat", "bst_attn_fwd", "bst_attn_bwd",
+           "im2col")
 DTYPES = (torch.bfloat16, torch.float32, torch.float16)
 # |kernel - plain| <= TOL * max(1, max|plain|); f16 held at bf16 level
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 1e-2}
@@ -62,6 +75,19 @@ DECODE_TOL = 5e-2      # bf16 logits, cached decode against full forward
 # |plain grad| > 5e-2 max (elsewhere the gradient is within the noise
 # and its sign, hence Adam's first step of ~lr, may flip: |diff| <= 2 lr).
 STEP_LOSS_TOL, GRAD_TOL = 1e-2, 5e-2
+# The conv benchmark's configuration (benchmarks/conv_bench.py:65-73,
+# 91-133) and the dense control's tolerance: both sides bf16 operands,
+# f32 sums of C*9 terms in other orders, one rounding of the output.
+CONV_BATCH, CONV_HW, CONV_BLOCK = 32, 32, 32
+CONV_CHANNELS, CONV_DENSITIES = (512, 1024, 2048), (0.25, 0.0625)
+CONV_TIMED = 5
+DENSE_TOL = 2e-2
+# The least time the card could take for a kernel's work: the larger of
+# its operations over the peak rate for their type and its bytes (each
+# input read once, each output written once) over the memory rate.
+# NVIDIA H100 SXM data sheet: dense bf16 tensor-core rate (every row of
+# the kernels line is bf16) and HBM3 rate.
+PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 
 
 class CheckFailed(RuntimeError):
@@ -232,14 +258,332 @@ def training_kernel_checks(model, plain, dev, g, rows):
         torch.cuda.empty_cache()
 
 
+def bound(flops, nbytes):
+    """(ms, "operations" or "bytes"): the least time this bf16 work could
+    take on the card, and which limit sets it."""
+    ops_ms = flops / PEAK_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else \
+        (bytes_ms, "bytes")
+
+
+def dense_weight(op, w):
+    """A (blocks, b, b) block-sparse weight scattered into the dense (C, K)
+    matrix of the same product (feature_axis 1: y = x . W)."""
+    b = op.bsize
+    cs, ks = (torch.as_tensor(op.updat_lut[:, i], device=w.device)
+              for i in (0, 1))
+    wd = torch.zeros((op.CB, op.KB, b, b), dtype=w.dtype, device=w.device)
+    wd[cs, ks] = w
+    return wd.permute(0, 2, 1, 3).reshape(op.C, op.K)
+
+
+def dense_attention_mask(bst, dev):
+    """The layout and its sub-block masks expanded to one (ctx, ctx) boolean
+    mask of the elements a query may see (head 0: the layout is shared)."""
+    bs = bst.blk_size
+    mask = np.zeros((bst.ctx_blks_q * bs, bst.ctx_blks_k * bs), bool)
+    for i, (q, k) in enumerate(bst.nt_list[0]):
+        mask[q * bs:(q + 1) * bs, k * bs:(k + 1) * bs] = bst._mask_blocks[0, i]
+    return torch.as_tensor(mask, device=dev)
+
+
+def yardsticks(model, dev, g):
+    """Bound and library-call time of each serving and training kernel at
+    the shapes of its row in the kernels line (bf16; bsmm1 at N = 8 x
+    2048; attention at batch 8 x 2048).  Library calls: a dense
+    ``torch.matmul`` with the layout scattered into W for fprop and bprop,
+    ``scaled_dot_product_attention`` with the layout expanded to an element
+    mask for the attention forward; none computes updat, dq or dk/dv."""
+    bf, c, op, bst = torch.bfloat16, model.config, model.bsmm1, model.bst
+    N, b2 = BATCH * c.ctx, op.bsize ** 2
+    x = torch.randn((N, op.C), device=dev, generator=g).to(bf)
+    dy = torch.randn((N, op.K), device=dev, generator=g).to(bf)
+    wd = dense_weight(op, (torch.randn(op.w_shape, device=dev, generator=g)
+                           * 0.02).to(bf))
+    lib_f = time_ms(lambda: x @ wd, 20)
+    lib_b = time_ms(lambda: dy @ wd.t(), 20)
+    del x, dy, wd
+    flops = 2 * N * op.blocks * b2
+    xprop_bytes = 2 * (N * op.C + op.blocks * b2 + N * op.K)
+    out = {"bsmm_fprop": (*bound(flops, xprop_bytes), lib_f),
+           "bsmm_bprop": (*bound(flops, xprop_bytes), lib_b),
+           "bsmm_updat": (*bound(flops, 2 * N * (op.C + op.K)
+                                 + 4 * op.blocks * b2), None)}
+
+    B, T, H, hs, bs = BATCH, c.ctx, c.n_head, model.hs, bst.blk_size
+    mask = dense_attention_mask(bst, dev)
+    check(bool(mask.any(dim=1).all()),
+          "attention mask: every query row sees a key (no fully masked "
+          "row to exclude from the library call)")
+    q, k, v = (torch.randn((B, H, T, hs), device=dev, generator=g).to(bf)
+               for _ in range(3))
+    lib_attn = time_ms(lambda: nnf.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=1.0 / np.sqrt(hs)), 20)
+    del q, k, v, mask
+    e = bst.blocks * B * H * bs * bs * hs      # one product over the blocks
+    one, lse = B * T * H * hs * 2, B * H * T * 4   # a (B, T, H*hs) bf16; lse
+    out.update({
+        "bst_attn_fwd": (*bound(4 * e, 4 * one), lib_attn),
+        "bst_attn_fwd_lse": (*bound(4 * e, 4 * one + lse), lib_attn),
+        # q, k, v, dO, lse, D in; dq (bf16) out
+        "bst_attn_dq": (*bound(6 * e, 5 * one + 2 * lse), None),
+        # q, k, v, dO, lse, D in; dk, dv (f32) out
+        "bst_attn_dkv": (*bound(8 * e, 4 * one + 2 * lse + 4 * one), None)})
+    for name, (ms, by, lib) in out.items():
+        print(f"{name}: bound {ms:.4f} ms ({by}); library call "
+              f"{'none' if lib is None else f'{lib:.4f} ms'}", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def make_bck(nb_c, nb_k, bC, bK, density, rng):
+    """Random block-sparse channel connectivity, diagonal guaranteed (the
+    conv benchmark's draw, benchmarks/conv_bench.py:51-59)."""
+    BCK = []
+    for kb in range(nb_k):
+        for cb in range(nb_c):
+            if cb == kb % nb_c or rng.rand() < density:
+                BCK.append((tuple(range(cb * bC, (cb + 1) * bC)),
+                            tuple(range(kb * bK, (kb + 1) * bK))))
+    return BCK
+
+
+def conv_configs():
+    """The benchmark's (C, density, BCK) in its order, all drawn from one
+    RandomState(0) as it draws them."""
+    rng = np.random.RandomState(0)
+    b = CONV_BLOCK
+    return [(ck, d, make_bck(ck // b, ck // b, b, b, d, rng))
+            for ck in CONV_CHANNELS for d in CONV_DENSITIES]
+
+
+def conv_kernel_checks(dev, g, rows):
+    """im2col and col2im against their plain versions at the C=512 conv's
+    shapes (N 32, 32x32, b32, 3x3 SAME): im2col exactly (a copy), col2im
+    exactly in f32 and within one output rounding in bf16 and f16; with
+    F.unfold / F.fold (the same taps in another row order) timed beside."""
+    from blocksparse_tpu_torch.kernels import im2col as ic
+    C, N, H, W, b = CONV_CHANNELS[0], CONV_BATCH, CONV_HW, CONV_HW, CONV_BLOCK
+    NP, args = N * H * W, (H, W, 3, 3, 1, 1, b)
+    what = f"C={C} N={N} {H}x{W} 3x3 b{b}"
+    for dtype in DTYPES:
+        xc = torch.randn((C, NP), device=dev, generator=g).to(dtype)
+        err = compare(f"im2col {what} {dtype}", ic.im2col(xc, *args),
+                      ic.im2col_plain(xc, *args), 0.0)
+        timed(rows, ("im2col", dtype), err, lambda: ic.im2col(xc, *args),
+              lambda: ic.im2col_plain(xc, *args), 20)
+        # dX as bsmm_bprop gives it: the (C*9, N*H*W) view of an NC array
+        dX = torch.randn((NP, C * 9), device=dev, generator=g).to(dtype).t()
+        tol = 0.0 if dtype == torch.float32 else torch.finfo(dtype).eps
+        err = compare(f"col2im {what} {dtype} (one rounding: eps "
+                      f"{tol:g})", ic.col2im(dX, *args),
+                      ic.col2im_plain(dX, *args), tol)
+        timed(rows, ("col2im", dtype), err, lambda: ic.col2im(dX, *args),
+              lambda: ic.col2im_plain(dX, *args), 20)
+        if dtype == torch.bfloat16:
+            x4 = xc.reshape(C, N, H, W).transpose(0, 1).contiguous()
+            cols = dX.reshape(C * 9, N, H * W).transpose(0, 1).contiguous()
+            rows["unfold"] = time_ms(
+                lambda: nnf.unfold(x4, 3, padding=1), 20)
+            rows["fold"] = time_ms(
+                lambda: nnf.fold(cols, (H, W), 3, padding=1), 20)
+            print(f"      F.unfold {rows['unfold']:.4f} ms, F.fold "
+                  f"{rows['fold']:.4f} ms (another row order)", flush=True)
+            del x4, cols
+        del xc, dX
+    torch.cuda.empty_cache()
+
+
+def conv_inputs(bt, conv, dev, g):
+    """The bench's operands in bf16: the filter uniform in [-0.1, 0.1) from
+    the seed (drawn with NumPy, as the CPU tests draw it), the images
+    uniform in [-1, 1) on the card."""
+    F = bt.conv_filter_from_jax(bt.random_jax_conv_filter(conv, seed=SEED),
+                                conv, dev).to(torch.bfloat16)
+    x = torch.rand((CONV_BATCH, conv.C, CONV_HW, CONV_HW), device=dev,
+                   generator=g)
+    return F, (x * 2 - 1).to(torch.bfloat16)
+
+
+def conv_fwd_bwd(conv, F, x):
+    """y, and dI and dF of the bench's loss sum(square(y)) in f32."""
+    Fr = F.detach().requires_grad_()
+    xr = x.detach().requires_grad_()
+    y = conv(Fr, xr)
+    dI, dF = torch.autograd.grad(y.float().square().sum(), (xr, Fr))
+    return y.detach(), dI, dF
+
+
+def dense_filter(conv, F):
+    """The block filter scattered into the dense (K, C, 3, 3) weight of the
+    same conv: the bench's dense control, holding this conv's blocks."""
+    b = CONV_BLOCK
+    cb = torch.as_tensor(conv._lutC[:, 0] // b, device=F.device)
+    kb = torch.as_tensor(conv._lutK[:, 0] // b, device=F.device)
+    wd = torch.zeros((conv.K // b, conv.C // b, b, b, 3, 3), dtype=F.dtype,
+                     device=F.device)
+    wd[kb, cb] = F.reshape(conv.blocks, b, b, 3, 3)
+    return wd.permute(0, 2, 1, 3, 4, 5).reshape(conv.K, conv.C, 3, 3)
+
+
+CONV_PARTS = (("im2col", ("im2col_kernel",)),
+              ("bsmm fprop", ("bsmm_xprop_nc_kernel", "false")),
+              ("bsmm bprop", ("bsmm_xprop_nc_kernel", "true")),
+              ("bsmm updat", ("bsmm_updat_nc_kernel",)),
+              ("col2im", ("col2im_kernel",)))
+
+
+def profile_conv(fn, ms, label):
+    """One conv forward + backward under torch.profiler: device time by
+    port kernel (fprop and bprop told apart by the kernel's template
+    flag), then the largest other kernels (copies, casts, the loss)."""
+    _, kernels = device_events(fn)
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    rest, parts = list(kernels), []
+    for name, keys in CONV_PARTS:
+        hits = [e for e in rest if all(k in e.key for k in keys)]
+        rest = [e for e in rest if e not in hits]
+        parts.append(f"{name} {sum(e.self_device_time_total for e in hits) / 1e3:.3f} ms "
+                     f"({sum(e.count for e in hits)})")
+    rest.sort(key=lambda e: -e.self_device_time_total)
+    parts += [f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms "
+              f"({e.count})" for e in rest[:5]]
+    print(f"{label} profile: {total:.3f} ms of device time, "
+          f"{total / ms:.0%} of the unprofiled {ms:.3f} ms: "
+          + "; ".join(parts), flush=True)
+
+
+def conv_path(bt, dev, g, card_line, rows):
+    """The block-sparse conv at the bench's configurations.  C=512 d=0.25:
+    kernels against plain path (forward, dI, dF), the forward + backward
+    counted.  Every configuration: the forward against the dense conv of
+    the scattered filter, a counted forward, and the times.  Returns the
+    counted forward + backward's launches."""
+    bf = torch.bfloat16
+    configs = conv_configs()
+    launches = None
+    for i, (ck, d, BCK) in enumerate(configs):
+        torch.cuda.reset_peak_memory_stats()
+        conv = bt.BlocksparseConv(BCK, (3, 3), (CONV_HW, CONV_HW),
+                                  padding="SAME", impl="bsmm")
+        F, x = conv_inputs(bt, conv, dev, g)
+        what = (f"conv C=K={ck} d={d} ({conv.blocks} blocks of "
+                f"{(ck // CONV_BLOCK) ** 2}, {conv._bsmm_op.blocks} tiled) "
+                f"N={CONV_BATCH} {CONV_HW}x{CONV_HW} bf16")
+        conv_fwd_bwd(conv, F, x)                 # warm-up: LUT upload
+        torch.cuda.synchronize()
+        if i == 0:
+            reset_counts()
+            y, dI, dF = conv_fwd_bwd(conv, F, x)
+            torch.cuda.synchronize()
+            launches = read_counts()
+            want = dict.fromkeys(launches, 0)
+            want.update({"im2col": 1, "bsmm_fprop": 1, "bsmm_bprop": 1,
+                         "bsmm_updat": 1, "col2im": 1})
+            check(launches == want, f"{what}: forward + backward launches "
+                                    f"{launches}, expected {want}")
+            plain = bt.BlocksparseConv(BCK, (3, 3), (CONV_HW, CONV_HW),
+                                       padding="SAME", impl="bsmm",
+                                       bsmm_impl="xla")
+            for name, got, ref in zip(("y", "dI", "dF"), (y, dI, dF),
+                                      conv_fwd_bwd(plain, F, x)):
+                check(got.dtype == ref.dtype == bf, f"{name} is bf16")
+                compare(f"{what}: {name} against the plain path", got, ref,
+                        TOL[bf])
+            del y, dI, dF
+            conv_bsmm_checks(conv, plain, x, dev, g, rows)
+            plain_ms = time_ms(lambda: conv_fwd_bwd(plain, F, x), 3)
+            print(f"      plain path forward + backward {plain_ms:.3f} ms",
+                  flush=True)
+            del plain
+            torch.cuda.empty_cache()
+        with torch.no_grad():
+            reset_counts()
+            y = conv(F, x)
+            torch.cuda.synchronize()
+            fwd_launches = read_counts()
+            want = dict.fromkeys(fwd_launches, 0)
+            want.update({"im2col": 1, "bsmm_fprop": 1})
+            check(fwd_launches == want, f"{what}: forward (no grad) "
+                                        f"launches im2col 1, bsmm_fprop 1")
+            wd = dense_filter(conv, F)
+            ref = nnf.conv2d(x, wd, padding=1)
+            check(tuple(y.shape) == (CONV_BATCH, ck, 1, CONV_HW, CONV_HW),
+                  f"{what}: output {tuple(y.shape)}")
+            compare(f"{what}: forward against the dense conv of the "
+                    f"scattered filter", y.reshape(ref.shape), ref, DENSE_TOL)
+            del y, ref
+            fwd_ms = time_ms(lambda: conv(F, x), CONV_TIMED)
+            dense_ms = time_ms(lambda: nnf.conv2d(x, wd, padding=1),
+                               CONV_TIMED)
+        fb_ms = time_ms(lambda: conv_fwd_bwd(conv, F, x), CONV_TIMED)
+
+        def dense_fb():
+            xr, wr = x.detach().requires_grad_(), wd.detach().requires_grad_()
+            y = nnf.conv2d(xr, wr, padding=1)
+            return torch.autograd.grad(y.float().square().sum(), (xr, wr))
+        dense_fb_ms = time_ms(dense_fb, CONV_TIMED)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"{what} [{card_line}]: forward {fwd_ms:.3f} ms, forward + "
+              f"backward {fb_ms:.3f} ms; dense cuDNN conv forward "
+              f"{dense_ms:.3f} ms, forward + backward {dense_fb_ms:.3f} ms "
+              f"(mean of {CONV_TIMED}, CUDA events); {conv.flops * CONV_BATCH / fwd_ms / 1e9:.2f} "
+              f"TFLOP/s forward; peak device memory {peak:.2f} GiB",
+              flush=True)
+        if d == CONV_DENSITIES[0] and ck in (CONV_CHANNELS[0],
+                                            CONV_CHANNELS[-1]):
+            profile_conv(lambda: conv_fwd_bwd(conv, F, x), fb_ms,
+                         f"conv C={ck} d={d} forward + backward")
+        del conv, F, x, wd
+        torch.cuda.empty_cache()
+    return launches
+
+
+def conv_bsmm_checks(conv, plain, x, dev, g, rows):
+    """The conv's three bsmm directions against their plain versions at the
+    C=512 conv's shapes (X of C*9 rows by N*1024 pixels, feature_axis 0),
+    and the time a copy of X into the kernels' NC orientation would take."""
+    from blocksparse_tpu_torch.kernels import im2col as ic
+    bf = torch.bfloat16
+    op, ref = conv._bsmm_op, plain._bsmm_op
+    X = ic.im2col(x.transpose(0, 1).reshape(conv.C, -1), CONV_HW, CONV_HW,
+                  3, 3, 1, 1, CONV_BLOCK)
+    w = (torch.randn(op.w_shape, device=dev, generator=g) * 0.1).to(bf)
+    dy = torch.randn((op.K, X.shape[1]), device=dev, generator=g).to(bf)
+    what = f"C*9={op.C} -> K={op.K}, N={X.shape[1]}, {op.blocks} blocks bf16"
+    for d, a in (("f", X), ("b", dy)):
+        name = {"f": "bsmm_fprop", "b": "bsmm_bprop"}[d]
+        err = compare(f"{name} at the conv's shapes {what}",
+                      op._xprop(a, w, d), ref._xprop(a, w, d), TOL[bf])
+        timed(rows, ("conv", name), err, lambda: op._xprop(a, w, d),
+              lambda: ref._xprop(a, w, d), 10)
+    err = compare(f"bsmm_updat at the conv's shapes {what}",
+                  op._updat(X, dy), ref._updat(X, dy), UPDAT_TOL)
+    timed(rows, ("conv", "bsmm_updat"), err, lambda: op._updat(X, dy),
+          lambda: ref._updat(X, dy), 10)
+    # what the NC orientation saves: the copy a channel-major X would need
+    Xc = ic.im2col_plain(x.transpose(0, 1).reshape(conv.C, -1), CONV_HW,
+                         CONV_HW, 3, 3, 1, 1, CONV_BLOCK)
+    check(X.t().is_contiguous() and Xc.is_contiguous(),
+          "im2col writes X in the NC orientation (the plain version "
+          "channel-major)")
+    copy_ms = time_ms(lambda: Xc.t().contiguous(), 10)
+    print(f"      a channel-major X's copy into the NC orientation (which "
+          f"the kernel path does not make) {copy_ms:.4f} ms", flush=True)
+    del X, Xc, w, dy
+    torch.cuda.empty_cache()
+
+
 def counters():
-    from blocksparse_tpu_torch.kernels import bsmm, bst_attn
+    from blocksparse_tpu_torch.kernels import bsmm, bst_attn, im2col
     return {"bsmm_fprop": bsmm.bsmm_fprop, "bsmm_bprop": bsmm.bsmm_bprop,
             "bsmm_updat": bsmm.bsmm_updat,
             "bst_attn_fwd": bst_attn.attention_fwd,
             "bst_attn_fwd_lse": bst_attn.attention_fwd_lse,
             "bst_attn_dq": bst_attn.attention_dq,
-            "bst_attn_dkv": bst_attn.attention_dkv}
+            "bst_attn_dkv": bst_attn.attention_dkv,
+            "im2col": im2col.im2col, "col2im": im2col.col2im}
 
 
 def reset_counts():
@@ -414,9 +758,10 @@ def training_path(bt, model, plain, cfg, dev, card_line, profile_out):
             launches = read_counts()
         delta = {k: v - before[k] for k, v in m.state_dict().items()}
         results.append((step, state, metrics, scale, delta))
-    want = {"bsmm_fprop": 4 * L, "bsmm_bprop": 2 * L, "bsmm_updat": 2 * L,
-            "bst_attn_fwd": 0, "bst_attn_fwd_lse": 2 * L, "bst_attn_dq": L,
-            "bst_attn_dkv": L}
+    want = dict.fromkeys(launches, 0)
+    want.update({"bsmm_fprop": 4 * L, "bsmm_bprop": 2 * L,
+                 "bsmm_updat": 2 * L, "bst_attn_fwd_lse": 2 * L,
+                 "bst_attn_dq": L, "bst_attn_dkv": L})
     check(launches == want,
           f"train step launches {launches}, expected {want} (recompute: "
           f"bsmm_fprop 4L, bsmm_bprop 2L, bsmm_updat 2L, bst_attn_fwd_lse "
@@ -468,20 +813,26 @@ PORT_KERNELS = ("bsmm_xprop_nc_kernel", "bsmm_updat_nc_kernel",
                 "bst_attn_dkv_kernel")
 
 
-def profile_step(one_step, step_ms, table_path):
-    """One train step under torch.profiler: device time in all and by port
-    kernel, against the unprofiled step time; the full table goes to
-    ``table_path`` when one is given."""
+def device_events(fn):
+    """fn() once under torch.profiler: (all events, the device events).
+    Device events only are summed: a host op that launched a kernel
+    through ctypes carries that kernel's time as its own "self" device
+    time too."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        one_step()
+        fn()
         torch.cuda.synchronize()
     events = prof.key_averages()
-    # device events only: a host op that launched a kernel through ctypes
-    # carries that kernel's time as its own "self" device time too
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    return events, [e for e in events if e.device_type == DeviceType.CUDA]
+
+
+def profile_step(one_step, step_ms, table_path):
+    """One train step under torch.profiler: device time in all and by port
+    kernel, against the unprofiled step time; the full table goes to
+    ``table_path`` when one is given."""
+    events, kernels = device_events(one_step)
     total = sum(e.self_device_time_total for e in kernels) / 1e3
     by_kernel = {}
     for name in PORT_KERNELS:
@@ -571,6 +922,20 @@ def main():
     print(f"launches: serving path {serve_launches}; training path (one "
           f"step) {train_launches}", flush=True)
 
+    # 6. the block-sparse conv: kernels against plain versions, then the
+    # conv path, counted
+    conv_kernel_checks(dev, g, rows)
+    conv_launches = conv_path(bt, dev, g, card_line, rows)
+    print(f"launches: conv path (one forward + backward) {conv_launches}",
+          flush=True)
+
+    # 7. each kernel's bound and library call
+    marks = yardsticks(model, dev, g)
+    C, NP, b2 = CONV_CHANNELS[0], CONV_BATCH * CONV_HW ** 2, 2
+    im2col_bytes = (1 + 9) * C * NP * b2
+    marks["im2col"] = (*bound(0, im2col_bytes), rows["unfold"])
+    marks["col2im"] = (*bound(0, im2col_bytes), rows["fold"])
+
     N, bf = BATCH * cfg.ctx, torch.bfloat16
     kernels = [  # (name, source, TPU kernel, path's launches, row)
         ("bsmm_fprop", "bsmm_fprop.cu", "bsmm.py:1422",
@@ -587,14 +952,20 @@ def main():
          train_launches["bst_attn_dq"], rows[("dq", bf)]),
         ("bst_attn_dkv", "bst_attn_bwd.cu", "bst_attn.py:1141",
          train_launches["bst_attn_dkv"], rows[("dkv", bf)]),
+        ("im2col", "im2col.cu", "im2col.py:97", conv_launches["im2col"],
+         rows[("im2col", bf)]),
+        ("col2im", "im2col.cu", "im2col.py:125", conv_launches["col2im"],
+         rows[("col2im", bf)]),
     ]
     check(all(n > 0 for _, _, _, n, _ in kernels),
-          "every kernel launched on its path")
+          f"every kernel launched on its path ({len(kernels)} kernels)")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"blocksparse_tpu_torch/csrc/{src}",
          "replaces": f"blocksparse_tpu/kernels/{tpu}",
-         "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": pms}
+         "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": pms,
+         "bound_ms": marks[name][0], "bound_by": marks[name][1],
+         "library_ms": marks[name][2]}
         for name, src, tpu, n, (err, ms, pms) in kernels]}), flush=True)
     print(card(), flush=True)
     print(json.dumps({"ok": True, "device": {

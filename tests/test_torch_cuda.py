@@ -13,17 +13,23 @@ rounding of the output, 2^-8 for bf16, finer for f16) and 2e-2 absolute
 for attention (p and dS are rounded to the input type before their
 products on both sides, outputs are O(1)).  The weight gradient is f32
 from the same inputs on both sides: 1e-4 relative in every dtype.
+im2col is a copy: exact.  col2im sums the same f32 values in the same
+order as its plain version: exact in f32, within one rounding of the
+output (the dtype's eps relative to the largest output) in bf16 and f16.
+The conv path against its plain path: the matmul's tolerances.
 """
 import numpy as np
 import pytest
 import torch
 
-from blocksparse_tpu_torch import (AdamOptimizer, BlocksparseMatMul,
-                                   BlocksparseTransformer,
+from blocksparse_tpu_torch import (AdamOptimizer, BlocksparseConv,
+                                   BlocksparseMatMul, BlocksparseTransformer,
                                    SparseTransformerLM, TransformerConfig,
-                                   params_from_jax, random_jax_params)
+                                   params_from_jax, random_jax_conv_filter,
+                                   random_jax_params)
 from blocksparse_tpu_torch.kernels import bsmm as bsmm_kernels
 from blocksparse_tpu_torch.kernels import bst_attn
+from blocksparse_tpu_torch.kernels import im2col as im2col_kernels
 from blocksparse_tpu_torch.models.sparse_transformer import (
     causal_subblock_mask, fixed_layout)
 
@@ -447,3 +453,133 @@ def test_train_step_kernels_match_plain_model(cuda, recompute):
                                    atol=1e-3 * ref.abs().max().item())
         live = ref.abs() > 1e-2 * ref.abs().max()
         assert (p0[k] - p1[k]).abs()[live].max() <= 1e-5
+
+
+# ---------------- the block-sparse conv: im2col, col2im and the path ----
+
+# (N, C, bC, H, W, R, S, pt, pl): N = 1, C = bC, N·H·W not a multiple of
+# 32, H = 1, pads 0 and R - 1, asymmetric filters, every block size
+_IM2COL_CASES = [(1, 8, 8, 5, 5, 3, 3, 1, 1), (3, 32, 16, 1, 37, 1, 3, 0, 2),
+                 (2, 64, 32, 7, 9, 3, 3, 2, 0), (2, 128, 64, 6, 5, 3, 1, 0, 0),
+                 (1, 256, 128, 4, 6, 5, 5, 4, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, *HALF])
+@pytest.mark.parametrize("case", _IM2COL_CASES,
+                         ids=[f"N{c[0]}-C{c[1]}-b{c[2]}-{c[3]}x{c[4]}-"
+                              f"{c[5]}x{c[6]}-p{c[7]}{c[8]}"
+                              for c in _IM2COL_CASES])
+def test_im2col_col2im_kernels_match_plain(cuda, case, dtype):
+    """im2col equals its plain version exactly; col2im exactly in f32 and
+    within one output rounding in bf16/f16.  X comes back as the transposed
+    view of an NC array, and col2im reads such a view in place."""
+    N, C, bC, H, W, R, S, pt, pl = case
+    args = (H, W, R, S, pt, pl, bC)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    xc = torch.randn((C, N * H * W), device=cuda, generator=g).to(dtype)
+    before = (im2col_kernels.im2col.launches, im2col_kernels.col2im.launches)
+    X = im2col_kernels.im2col(xc, *args)
+    dx = im2col_kernels.col2im(X, *args)
+    torch.cuda.synchronize()
+    assert (im2col_kernels.im2col.launches,
+            im2col_kernels.col2im.launches) == (before[0] + 1, before[1] + 1)
+    assert X.shape == (C * R * S, N * H * W) and X.t().is_contiguous()
+    assert torch.equal(X, im2col_kernels.im2col_plain(xc, *args))
+    ref = im2col_kernels.col2im_plain(X, *args)
+    eps = 0.0 if dtype == torch.float32 else torch.finfo(dtype).eps
+    torch.testing.assert_close(
+        dx.float(), ref.float(), rtol=0,
+        atol=eps * max(1.0, ref.float().abs().max().item()))
+    dX = torch.randn((C * R * S, N * H * W), device=cuda, generator=g).to(dtype)
+    ref = im2col_kernels.col2im_plain(dX, *args)
+    torch.testing.assert_close(
+        im2col_kernels.col2im(dX, *args).float(), ref.float(), rtol=0,
+        atol=eps * max(1.0, ref.float().abs().max().item()))
+
+
+def _conv_case(device, dtype, stride=1, C=64, b=16, hw=(8, 12), N=3):
+    pairs = [(0, 0), (0, 1), (1, 1), (2, 2), (3, 0), (3, 3), (2, 1)]
+    BCK = [(tuple(range(cb * b, (cb + 1) * b)),
+            tuple(range(kb * b, (kb + 1) * b))) for cb, kb in pairs
+           if cb < C // b and kb < C // b]
+    kw = dict(strides=(stride, stride), padding="SAME", impl="bsmm")
+    port = BlocksparseConv(BCK, (3, 3), hw, **kw)
+    plain = BlocksparseConv(BCK, (3, 3), hw, bsmm_impl="xla", **kw)
+    F = torch.tensor(random_jax_conv_filter(port, seed=1) * 10,
+                     device=device).to(dtype)
+    g = torch.Generator(device=device).manual_seed(8)
+    x = (torch.rand((N, port.C) + hw, device=device, generator=g) * 2
+         - 1).to(dtype)
+    return port, plain, F, x
+
+
+def _conv_fwd_grads(conv, F, x):
+    Fr, xr = F.detach().requires_grad_(), x.detach().requires_grad_()
+    y = conv(Fr, xr)
+    dI, dF = torch.autograd.grad(y.float().square().sum(), (xr, Fr))
+    return y, dI, dF
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_conv_kernel_path_matches_plain_path(cuda, dtype, stride):
+    """BlocksparseConv(impl="bsmm") on the kernels against bsmm_impl="xla":
+    forward, dI and dF of sum(square(y)); one launch of each kernel a
+    forward + backward (a strided conv builds X from plain tap slices, so
+    it launches no im2col/col2im)."""
+    port, plain, F, x = _conv_case(cuda, dtype, stride)
+    counters = {"im2col": im2col_kernels.im2col,
+                "col2im": im2col_kernels.col2im,
+                "fprop": bsmm_kernels.bsmm_fprop,
+                "bprop": bsmm_kernels.bsmm_bprop,
+                "updat": bsmm_kernels.bsmm_updat}
+    before = {n: c.launches for n, c in counters.items()}
+    got = _conv_fwd_grads(port, F, x)
+    torch.cuda.synchronize()
+    moved = {n: c.launches - before[n] for n, c in counters.items()}
+    k = int(stride == 1)
+    assert moved == {"im2col": k, "col2im": k, "fprop": 1, "bprop": 1,
+                     "updat": 1}
+    before = {n: c.launches for n, c in counters.items()}
+    refs = _conv_fwd_grads(plain, F, x)
+    assert all(c.launches == before[n] for n, c in counters.items())
+    tol = F32_TOL if dtype == torch.float32 else BSMM_BF16_TOL
+    for a, r in zip(got, refs):
+        assert a.dtype == r.dtype == dtype and a.shape == r.shape
+        r = r.float()
+        torch.testing.assert_close(a.float(), r, rtol=0,
+                                   atol=tol * max(1.0, r.abs().max().item()))
+    with torch.no_grad():
+        before = {n: c.launches for n, c in counters.items()}
+        port(F, x)
+        moved = {n: c.launches - before[n] for n, c in counters.items()}
+        assert moved == {"im2col": k, "col2im": 0, "fprop": 1, "bprop": 0,
+                         "updat": 0}
+
+
+@pytest.mark.cuda
+def test_im2col_raises_and_never_falls_back(cuda, monkeypatch):
+    """A CUDA tensor launches the kernel or raises: a failed build or a
+    refused launch raises, and the plain version does not step in."""
+    from blocksparse_tpu_torch.kernels import _build
+    xc = torch.randn((16, 2 * 6 * 6), device=cuda)
+    args = (6, 6, 3, 3, 1, 1, 8)
+    with pytest.raises(ValueError):
+        im2col_kernels.im2col(xc, 6, 6, 3, 3, 1, 1, 12)   # bC not 8-128
+    with pytest.raises(ValueError):
+        im2col_kernels._launch("im2col_fwd", xc.cpu(), xc.cpu(), 16, 72,
+                               *args)
+    before = (im2col_kernels.im2col.launches, im2col_kernels.col2im.launches)
+
+    def no_build(*a, **k):
+        raise RuntimeError("nvcc failed for im2col.cu")
+    monkeypatch.setattr(_build, "function", no_build)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        im2col_kernels.im2col(xc, *args)
+    monkeypatch.setattr(_build, "function", lambda *a, **k: lambda *b: 1)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        im2col_kernels.col2im(torch.randn((144, 72), device=cuda), *args)
+    assert (im2col_kernels.im2col.launches,
+            im2col_kernels.col2im.launches) == before

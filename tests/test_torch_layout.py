@@ -170,7 +170,9 @@ def test_model_layouts_equal():
 def test_import_pulls_no_jax():
     """Importing the port with jax blocked works and loads no jax module."""
     code = ("import sys; sys.modules['jax'] = None; "
-            "import blocksparse_tpu_torch, blocksparse_tpu_torch.convert; "
+            "import blocksparse_tpu_torch, blocksparse_tpu_torch.convert, "
+            "blocksparse_tpu_torch.ops.conv, "
+            "blocksparse_tpu_torch.kernels.im2col; "
             "bad = [m for m, mod in sys.modules.items() if mod is not None "
             "and (m.startswith(('jax', 'blocksparse_tpu.')) "
             "or m == 'blocksparse_tpu')]; "

@@ -43,7 +43,7 @@ def _models(**kw):
             return (a + 0.1 * rng.standard_normal(a.shape)).astype(a.dtype)
         return a
     params = jax.tree_util.tree_map_with_path(perturb, params)
-    port = SparseTransformerLM(TransformerConfig(**cfg))
+    port = SparseTransformerLM(TransformerConfig(**cfg), device="cpu")
     port.load_state_dict(params_from_jax(params, port))
     return jax_model, params, port
 
@@ -128,7 +128,7 @@ def test_stacked_jax_params_convert():
     jax_model = JaxLM(JaxConfig(**cfg))
     params = jax.tree_util.tree_map(np.asarray,
                                     jax_model.init(jax.random.PRNGKey(1)))
-    port = SparseTransformerLM(TransformerConfig(**cfg))
+    port = SparseTransformerLM(TransformerConfig(**cfg), device="cpu")
     port.load_state_dict(params_from_jax(params, port))
     tokens = _tokens(1, 64, seed=5)
     ref = np.asarray(jax_model.forward(params, jnp.asarray(tokens)))
@@ -137,7 +137,7 @@ def test_stacked_jax_params_convert():
 
 
 def test_generate_cached_is_seeded_and_in_range():
-    port = SparseTransformerLM(TransformerConfig(**TINY))
+    port = SparseTransformerLM(TransformerConfig(**TINY), device="cpu")
     port.load_state_dict(params_from_jax(random_jax_params(port, seed=3),
                                          port))
     prompt = torch.from_numpy(_tokens(3, 10, seed=2)).long()
@@ -150,6 +150,18 @@ def test_generate_cached_is_seeded_and_in_range():
     assert ((outs[0] >= 0) & (outs[0] < 64)).all()
 
 
+def test_model_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """With no device the model goes to the CUDA card; a host without one
+    raises and names device="cpu" instead of carrying on on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        SparseTransformerLM(TransformerConfig(**TINY))
+    port = SparseTransformerLM(TransformerConfig(**TINY), device="cpu")
+    assert all(p.device.type == "cpu" for p in port.parameters())
+    logits = port(torch.zeros((1, 64), dtype=torch.long))
+    assert logits.shape == (1, 64, 64) and bool(torch.isfinite(logits).all())
+
+
 def test_cpu_path_launches_no_kernel_and_rejects_unported_options():
     before = (bsmm_kernels.bsmm_fprop.launches,
               bst_attn.attention_fwd.launches)
@@ -159,4 +171,5 @@ def test_cpu_path_launches_no_kernel_and_rejects_unported_options():
             bst_attn.attention_fwd.launches) == before
     for kw in (dict(tp=2), dict(moe_experts=2), dict(resid_pdrop=0.1)):
         with pytest.raises(NotImplementedError):
-            SparseTransformerLM(TransformerConfig(**dict(TINY, **kw)))
+            SparseTransformerLM(TransformerConfig(**dict(TINY, **kw)),
+                                device="cpu")

@@ -157,7 +157,7 @@ def _jax_setup(recompute):
             return (a + 0.1 * rng.standard_normal(a.shape)).astype(a.dtype)
         return a
     params = jax.tree_util.tree_map_with_path(perturb, params)
-    port = SparseTransformerLM(TransformerConfig(**cfg))
+    port = SparseTransformerLM(TransformerConfig(**cfg), device="cpu")
     port.load_state_dict(params_from_jax(params, port))
     return jax_model, params, port
 
