@@ -20,6 +20,12 @@
 // writes zeros.  f32 inputs run in full fp32 on the CUDA cores (no TF32),
 // bf16 and f16 inputs accumulate in f32 and round once on the store.
 //
+// Split route (PARTIAL, a template flag like TRANS, so the unflagged kernels
+// are unchanged): row_ptr is then the CSR over partial tiles, each a run of
+// consecutive entries of one output block-column, and the kernel writes each
+// tile's f32 sum unrounded into a (N, tiles * B) f32 array.  bsmm_merge.cu
+// adds a column's tiles in phase order and rounds once.
+//
 // Bound on the H100: at the training shapes (N = 8*2048) each call is
 // ~2*N*blocks*B^2 = 18 GFLOP against ~100 MB of traffic, so it is bound by
 // operations; this first version uses the CUDA cores, not the tensor cores
@@ -28,6 +34,8 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -59,11 +67,13 @@ template <int B> struct Threads {
 
 // TRANS (bprop) stages W[w]^T; its W tile is padded (a multiple of 4 keeps
 // the float4 reads aligned) so the transposing stores spread over banks.
-template <typename T, int B, bool TRANS>
+// PARTIAL writes the f32 sums (TO = float) instead of rounding to T.
+template <typename T, int B, bool TRANS, bool PARTIAL,
+          typename TO = std::conditional_t<PARTIAL, float, T>>
 __global__ void __launch_bounds__(Threads<B>::value)
 bsmm_xprop_nc_kernel(const T* __restrict__ x, const T* __restrict__ w,
                      const int* __restrict__ row_ptr, const int* __restrict__ ent_in,
-                     const int* __restrict__ ent_w, T* __restrict__ y,
+                     const int* __restrict__ ent_w, TO* __restrict__ y,
                      int N, int C, int K) {
   constexpr int TM = Tile<B>::TM, RM = Tile<B>::RM, RN = Tile<B>::RN;
   constexpr int TC = B / RN;
@@ -137,41 +147,56 @@ bsmm_xprop_nc_kernel(const T* __restrict__ x, const T* __restrict__ w,
   for (int r = 0; r < RM; ++r) {
     const int n = n0 + tr * RM + r;
     if (n < N) {
-      T* yr = y + (size_t)n * K + (size_t)o * B + tc * RN;
+      TO* yr = y + (size_t)n * K + (size_t)o * B + tc * RN;
 #pragma unroll
-      for (int j = 0; j < RN; ++j) yr[j] = from_f32<T>(acc[r][j]);
+      for (int j = 0; j < RN; ++j) {
+        if constexpr (PARTIAL) yr[j] = acc[r][j];
+        else yr[j] = from_f32<T>(acc[r][j]);
+      }
     }
   }
 }
 
-template <typename T, int B>
+template <typename T, int B, bool PARTIAL>
 cudaError_t launch(const void* x, const void* w, const int* row_ptr, const int* ent_in,
                    const int* ent_w, void* y, int N, int C, int K, int trans_w,
                    cudaStream_t stream) {
+  using TO = std::conditional_t<PARTIAL, float, T>;
   constexpr int TM = Tile<B>::TM;
   dim3 grid((N + TM - 1) / TM, K / B);
-  auto kernel = trans_w ? bsmm_xprop_nc_kernel<T, B, true>
-                        : bsmm_xprop_nc_kernel<T, B, false>;
+  auto kernel = trans_w ? bsmm_xprop_nc_kernel<T, B, true, PARTIAL>
+                        : bsmm_xprop_nc_kernel<T, B, false, PARTIAL>;
   kernel<<<grid, Threads<B>::value, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), row_ptr, ent_in, ent_w,
-      static_cast<T*>(y), N, C, K);
+      static_cast<TO*>(y), N, C, K);
   return cudaGetLastError();
 }
 
 #define XPROP_ARGS x, w, row_ptr, ent_in, ent_w, y, N, C, K, trans_w, s
 
-template <typename T>
+template <typename T, bool PARTIAL>
 cudaError_t dispatch(int bsize, const void* x, const void* w, const int* row_ptr,
                      const int* ent_in, const int* ent_w, void* y, int N, int C, int K,
                      int trans_w, cudaStream_t s) {
   switch (bsize) {
-    case 8: return launch<T, 8>(XPROP_ARGS);
-    case 16: return launch<T, 16>(XPROP_ARGS);
-    case 32: return launch<T, 32>(XPROP_ARGS);
-    case 64: return launch<T, 64>(XPROP_ARGS);
-    case 128: return launch<T, 128>(XPROP_ARGS);
+    case 8: return launch<T, 8, PARTIAL>(XPROP_ARGS);
+    case 16: return launch<T, 16, PARTIAL>(XPROP_ARGS);
+    case 32: return launch<T, 32, PARTIAL>(XPROP_ARGS);
+    case 64: return launch<T, 64, PARTIAL>(XPROP_ARGS);
+    case 128: return launch<T, 128, PARTIAL>(XPROP_ARGS);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <bool PARTIAL>
+int xprop_nc(int dtype, int bsize, int trans_w, const void* x, const void* w,
+             const int* row_ptr, const int* ent_in, const int* ent_w, void* y, int N,
+             int C, int K, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dispatch<float, PARTIAL>(bsize, XPROP_ARGS);
+  if (dtype == 1) return dispatch<__nv_bfloat16, PARTIAL>(bsize, XPROP_ARGS);
+  if (dtype == 2) return dispatch<__half, PARTIAL>(bsize, XPROP_ARGS);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -182,9 +207,16 @@ cudaError_t dispatch(int bsize, const void* x, const void* w, const int* row_ptr
 extern "C" int bsmm_xprop_nc(int dtype, int bsize, int trans_w, const void* x,
                              const void* w, const int* row_ptr, const int* ent_in,
                              const int* ent_w, void* y, int N, int C, int K, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(bsize, XPROP_ARGS);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(bsize, XPROP_ARGS);
-  if (dtype == 2) return dispatch<__half>(bsize, XPROP_ARGS);
-  return cudaErrorInvalidValue;
+  return xprop_nc<false>(dtype, bsize, trans_w, x, w, row_ptr, ent_in, ent_w, y, N, C,
+                         K, stream);
+}
+
+// The split route's partial tiles: the same product over the tile CSR
+// (tile_ptr), y an f32 (N, tiles * bsize) array whatever the input dtype.
+extern "C" int bsmm_xprop_nc_partials(int dtype, int bsize, int trans_w, const void* x,
+                                      const void* w, const int* tile_ptr,
+                                      const int* ent_in, const int* ent_w, void* y,
+                                      int N, int C, int K, void* stream) {
+  return xprop_nc<true>(dtype, bsize, trans_w, x, w, tile_ptr, ent_in, ent_w, y, N, C,
+                        K, stream);
 }

@@ -20,17 +20,48 @@ training shapes; see the sources for what the designs do about it.
 ports of ``xprop_xla`` and ``updat_xla`` (gather, einsum, ``index_add_``).
 They are what runs for tensors on the CPU and what the kernels are held
 against on the card.
+
+Three more schedules of the same product, each with its host-side plan
+built here in NumPy from the LUT's CSR:
+
+- ``bsmm_fine`` (``csrc/bsmm_fine.cu``, b 8-32; replaces
+  ``xprop_pallas_fine``): an output column's entries in chunks of
+  128/b, one 128-deep slab a barrier pair (``fine_plan``).
+- ``bsmm_window`` (``csrc/bsmm_window.cu``, b 8-128; replaces
+  ``xprop_pallas_window``): x staged once per window slab for a
+  super-group of output columns whose accumulators stay in registers
+  (``window_plan``).
+- the split route: ``bsmm_partials`` (``bsmm_fprop.cu`` with its f32
+  partials flag) over runs of each column's entries, then ``bsmm_merge``
+  (``csrc/bsmm_merge.cu``; replaces ``merge_phased_tiles``) adds each
+  column's partial tiles in phase order and rounds once (``split_plan``,
+  ``split_phases``).  ``merge_plain`` is the merge's plain version; the
+  fine and window kernels compute ``xprop_plain``'s function.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from blocksparse_tpu_torch.kernels import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 BLOCK_SIZES = (8, 16, 32, 64, 128)
+# rows of N a thread block of bsmm_fprop.cu owns (its Tile<B>::TM)
+XPROP_TM = {8: 64, 16: 128, 32: 128, 64: 128, 128: 64}
+# bsmm_fine.cu: block sizes, and contraction rows a chunk stages
+FINE_BLOCK_SIZES = (8, 16, 32)
+FINE_DEPTH = 128
+# bsmm_window.cu: x columns a window stages (WB = WINDOW_SLAB // b
+# block-rows) and output block-columns a super-group keeps resident
+WINDOW_SLAB = 256
+WINDOW_SG = {8: 16, 16: 8, 32: 8, 64: 4, 128: 2}
+# split route: at most SPLIT_MAX_PHASES runs a column, each of at least
+# SPLIT_MIN_PHASE entries
+SPLIT_MAX_PHASES = 8
+SPLIT_MIN_PHASE = 4
 
 
 def xprop_plain(x, w, in_blk, w_blk, out_blk, n_out_blocks, bsize, axis,
@@ -75,32 +106,148 @@ def updat_plain(x, dy, ent_c, ent_k, bsize, axis):
     return torch.einsum("nec,nek->eck", xb, yb)
 
 
+def merge_plain(tiles, idx, bsize, out_dtype=None):
+    """Plain version of ``bsmm_merge``: y[:, o] = Σ_p tiles[:, idx[o, p]]
+    over the (N, T·bsize) f32 partial tiles, summed in f32 in phase order
+    (p = 0, 1, ...) and cast once to ``out_dtype`` (default f32).  idx:
+    (n_out, P) int64 on the tiles' device."""
+    N = tiles.shape[0]
+    t = tiles.float().reshape(N, -1, bsize)[:, idx]      # (N, n_out, P, b)
+    acc = t[:, :, 0]
+    for p in range(1, idx.shape[1]):
+        acc = acc + t[:, :, p]
+    return acc.reshape(N, -1).to(out_dtype or torch.float32)
+
+
+# ---------------- host-side plans (NumPy, from the LUT's CSR) ----------------
+
+def _entry_rows(row_ptr):
+    """(entries of each row, row of each entry) of a CSR row pointer."""
+    lens = np.diff(np.asarray(row_ptr, np.int64))
+    return lens, np.repeat(np.arange(len(lens)), lens)
+
+
+def fine_plan(row_ptr, ent_in, ent_w, bsize):
+    """The fine kernel's plan: each output column's entries, in order, cut
+    into chunks of Gf = 128 / bsize.  chunk_ptr (n_out + 1,): the chunks
+    of column o are chunk_ptr[o]..chunk_ptr[o + 1]; slot_in, slot_w
+    (chunks, Gf): each slot's input block and weight block, -1 after the
+    column's last entry.  All int32."""
+    gf = FINE_DEPTH // bsize
+    row_ptr = np.asarray(row_ptr, np.int64)
+    lens, row = _entry_rows(row_ptr)
+    chunk_ptr = np.concatenate([[0], np.cumsum(-(-lens // gf))])
+    pos = np.arange(len(row)) - row_ptr[row]
+    chunk, slot = chunk_ptr[row] + pos // gf, pos % gf
+    slot_in = np.full((int(chunk_ptr[-1]), gf), -1, np.int32)
+    slot_w = slot_in.copy()
+    slot_in[chunk, slot] = ent_in
+    slot_w[chunk, slot] = ent_w
+    return {"chunk_ptr": chunk_ptr.astype(np.int32), "slot_in": slot_in,
+            "slot_w": slot_w}
+
+
+def window_plan(row_ptr, ent_in, ent_w, n_in_blocks, bsize):
+    """The window kernel's plan: a CSR over (super-group sg of SG output
+    columns, window win of WB input blocks, local column lo).  Entries
+    ptr[(sg·nwin + win)·SG + lo] .. of the next give (lo, slot within
+    the window, weight block) of output column sg·SG + lo in window win,
+    in LUT (ascending input) order.  SG = ``WINDOW_SG[bsize]``, WB =
+    ``WINDOW_SLAB // bsize``, as ``csrc/bsmm_window.cu`` takes them."""
+    wb, sg = WINDOW_SLAB // bsize, WINDOW_SG[bsize]
+    lens, row = _entry_rows(row_ptr)
+    nwin, n_sg = -(-n_in_blocks // wb), -(-len(lens) // sg)
+    ent_in = np.asarray(ent_in, np.int64)
+    key = ((row // sg) * nwin + ent_in // wb) * sg + row % sg
+    order = np.argsort(key, kind="stable")       # keeps the LUT order
+    ptr = np.concatenate(
+        [[0], np.cumsum(np.bincount(key, minlength=n_sg * nwin * sg))])
+    return {"ptr": ptr.astype(np.int32),
+            "ent_lo": (row % sg)[order].astype(np.int32),
+            "ent_slot": (ent_in % wb)[order].astype(np.int32),
+            "ent_w": np.asarray(ent_w)[order].astype(np.int32),
+            "WB": wb, "SG": sg, "nwin": nwin}
+
+
+def split_phases(N, bsize, row_ptr, sm_count):
+    """The split rule: the number P of runs to cut the longest output
+    column into for a product of N rows, or 0 to run unsplit.  It splits
+    when the unsplit grid, ceil(N / TM) · n_out thread blocks (TM =
+    ``XPROP_TM[bsize]``), is smaller than the card's ``sm_count`` and the
+    longest column holds at least 2 · SPLIT_MIN_PHASE entries; then P =
+    min(SPLIT_MAX_PHASES, ceil(sm_count / grid), longest //
+    SPLIT_MIN_PHASE).  Shapes and the SM count only."""
+    lens = np.diff(np.asarray(row_ptr, np.int64))
+    grid = -(-N // XPROP_TM[bsize]) * len(lens)
+    longest = int(lens.max()) if len(lens) else 0
+    if N <= 0 or grid >= sm_count or longest < 2 * SPLIT_MIN_PHASE:
+        return 0
+    return min(SPLIT_MAX_PHASES, -(-sm_count // grid),
+               longest // SPLIT_MIN_PHASE)
+
+
+def split_plan(row_ptr, phases):
+    """The split route's plan: each output column of L entries cut into p =
+    min(phases, L // SPLIT_MIN_PHASE) (at least 1; 0 for an empty column)
+    runs of consecutive entries, near-equal.  tile_ptr (T + 2,): the CSR
+    over the T runs, then one empty tile (the sentinel, written as zeros);
+    the entries stay those of the LUT.  merge_idx (n_out, P): each
+    column's tile ids in phase order, then the sentinel T.  int32."""
+    row_ptr = np.asarray(row_ptr, np.int64)
+    lens, _ = _entry_rows(row_ptr)
+    p = np.where(lens > 0,
+                 np.clip(lens // SPLIT_MIN_PHASE, 1, phases), 0)
+    tile_row = np.repeat(np.arange(len(lens)), p)
+    first = np.cumsum(p) - p
+    q = np.arange(len(tile_row)) - first[tile_row]
+    start = row_ptr[tile_row] + q * lens[tile_row] // p[tile_row]
+    T = len(tile_row)
+    tile_ptr = np.concatenate([start, [row_ptr[-1], row_ptr[-1]]])
+    P = max(1, int(p.max()))
+    cols = np.arange(P)[None, :]
+    idx = np.where(cols < p[:, None], first[:, None] + cols, T)
+    return {"tile_ptr": tile_ptr.astype(np.int32),
+            "merge_idx": idx.astype(np.int32), "tiles": T + 1}
+
+
+# ---------------- the kernels' wrappers ----------------
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _XPROP_ARGS = [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
 _UPDAT_ARGS = [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+_MERGE_ARGS = [_I, _I, _P, _P, _P, _I, _I, _I, _I, _P]
 
 
-def _check_common(fn, x, others, bsize):
-    """Device, dtype and block-size checks shared by the three wrappers."""
+def _check_common(fn, x, others, bsize, ints=()):
+    """Device, dtype and block-size checks shared by the wrappers; ``ints``
+    are the int32 index tensors."""
     if not x.is_cuda:
         raise ValueError(f"{fn} launches a CUDA kernel: its input must be on "
                          f"a CUDA device")
-    for name, t in others:
+    for name, t in (*others, *ints):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, input on {x.device}")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"{fn} takes f32, bf16 or f16, got {x.dtype}")
     if bsize not in BLOCK_SIZES:
         raise ValueError(f"unsupported block size {bsize}")
-    for name, t in others:
-        if name.startswith(("row_ptr", "ent_")) and (
-                t.dtype != torch.int32 or not t.is_contiguous()):
+    for name, t in ints:
+        if t.dtype != torch.int32 or not t.is_contiguous():
             raise TypeError(f"{name} must be a contiguous int32 tensor")
 
 
-def _xprop(fn, x, w, row_ptr, ent_in, ent_w, bsize, n_out_blocks, trans_w):
-    _check_common(fn, x, (("w", w), ("row_ptr", row_ptr), ("ent_in", ent_in),
-                          ("ent_w", ent_w)), bsize)
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _xprop(fn, source, cfn, x, w, ints, n_ptr, bsize, n_out_blocks, trans_w,
+           out_dtype=None):
+    """Checks and launches one of the xprop kernels, which share a C
+    signature: (dtype, bsize, trans_w, x, w, three int32 index arrays, y,
+    N, C, K, stream).  ints: the (name, tensor) index arrays, the first a
+    pointer array of ``n_ptr`` entries.  y: (N, n_out_blocks·bsize) of
+    ``out_dtype`` (default x's)."""
+    _check_common(fn, x, (("w", w),), bsize, ints)
     if w.dtype != x.dtype:
         raise TypeError(f"{fn} takes x and w of one dtype, got {x.dtype} and "
                         f"{w.dtype}")
@@ -110,21 +257,21 @@ def _xprop(fn, x, w, row_ptr, ent_in, ent_w, bsize, n_out_blocks, trans_w):
     if w.dim() != 3 or tuple(w.shape[1:]) != (bsize, bsize):
         raise ValueError(f"w must be (blocks, {bsize}, {bsize}), "
                          f"got {tuple(w.shape)}")
-    if row_ptr.numel() != n_out_blocks + 1:
-        raise ValueError("row_ptr must have n_out_blocks + 1 entries")
+    if ints[0][1].numel() != n_ptr:
+        raise ValueError(f"{ints[0][0]} must have {n_ptr} entries, got "
+                         f"{ints[0][1].numel()}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("x and w must be contiguous")
     N, C = x.shape
     K = n_out_blocks * bsize
-    y = torch.empty((N, K), dtype=x.dtype, device=x.device)
+    y = torch.empty((N, K), dtype=out_dtype or x.dtype, device=x.device)
     if N == 0:
         return y
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _build.function("bsmm_fprop", "bsmm_xprop_nc", _XPROP_ARGS)(
+        err = _build.function(source, cfn, _XPROP_ARGS)(
             _DTYPE_CODE[x.dtype], bsize, int(trans_w), x.data_ptr(),
-            w.data_ptr(), row_ptr.data_ptr(), ent_in.data_ptr(),
-            ent_w.data_ptr(), y.data_ptr(), N, C, K, stream)
+            w.data_ptr(), *(t.data_ptr() for _, t in ints), y.data_ptr(), N,
+            C, K, _stream(x))
     if err != 0:
         raise RuntimeError(f"{fn} launch failed: cudaError {err}")
     return y
@@ -137,8 +284,9 @@ def bsmm_fprop(x, w, row_ptr, ent_c, ent_w, bsize, n_out_blocks):
     LUT entries of each output block-column in accumulation order.
     w: (blocks, bsize, bsize).  x and w: f32, bf16 or f16, same dtype,
     contiguous, on one CUDA device.  Raises on anything else."""
-    y = _xprop("bsmm_fprop", x, w, row_ptr, ent_c, ent_w, bsize,
-               n_out_blocks, trans_w=False)
+    y = _xprop("bsmm_fprop", "bsmm_fprop", "bsmm_xprop_nc", x, w,
+               (("row_ptr", row_ptr), ("ent_c", ent_c), ("ent_w", ent_w)),
+               n_out_blocks + 1, bsize, n_out_blocks, trans_w=False)
     bsmm_fprop.launches += 1
     return y
 
@@ -147,10 +295,96 @@ def bsmm_bprop(dy, w, row_ptr, ent_k, ent_w, bsize, n_out_blocks):
     """dx (N, n_out_blocks*bsize) = dy (N, K) · Wᵀ over the bprop CSR (one
     row per input block-column c, entries (k, w) in accumulation order),
     on the card.  Same types and checks as ``bsmm_fprop``."""
-    dx = _xprop("bsmm_bprop", dy, w, row_ptr, ent_k, ent_w, bsize,
-                n_out_blocks, trans_w=True)
+    dx = _xprop("bsmm_bprop", "bsmm_fprop", "bsmm_xprop_nc", dy, w,
+                (("row_ptr", row_ptr), ("ent_k", ent_k), ("ent_w", ent_w)),
+                n_out_blocks + 1, bsize, n_out_blocks, trans_w=True)
     bsmm_bprop.launches += 1
     return dx
+
+
+def bsmm_partials(x, w, tile_ptr, ent_in, ent_w, bsize, n_tiles,
+                  trans_w=False):
+    """The split route's partial tiles, on the card: (N, n_tiles·bsize) f32,
+    tile t the unrounded f32 sum of x · W (Wᵀ with ``trans_w``) over the
+    entries tile_ptr[t]..tile_ptr[t+1] (``split_plan``), by
+    ``bsmm_fprop.cu``'s kernel with its partials flag.  A launch counts as
+    one of ``bsmm_fprop`` (or of ``bsmm_bprop`` with ``trans_w``), whose
+    kernel it is.  Same types and checks as ``bsmm_fprop``."""
+    fn = bsmm_bprop if trans_w else bsmm_fprop
+    parts = _xprop("bsmm_partials", "bsmm_fprop", "bsmm_xprop_nc_partials",
+                   x, w, (("tile_ptr", tile_ptr), ("ent_in", ent_in),
+                          ("ent_w", ent_w)),
+                   n_tiles + 1, bsize, n_tiles, trans_w,
+                   out_dtype=torch.float32)
+    fn.launches += 1
+    return parts
+
+
+def bsmm_fine(x, w, chunk_ptr, slot_in, slot_w, bsize, n_out_blocks,
+              trans_w=False):
+    """y (N, n_out_blocks·bsize) = x · W (Wᵀ with ``trans_w``) on the card,
+    in 128-deep chunks of each output column's entries (``fine_plan``:
+    chunk_ptr (n_out_blocks+1,), slot_in/slot_w (chunks, 128/bsize)
+    int32).  bsize 8, 16 or 32; otherwise the types and checks of
+    ``bsmm_fprop``.  Its f32 result equals ``bsmm_fprop``'s bit for bit."""
+    if bsize not in FINE_BLOCK_SIZES:
+        raise ValueError(f"bsmm_fine takes block sizes {FINE_BLOCK_SIZES}, "
+                         f"got {bsize}")
+    y = _xprop("bsmm_fine", "bsmm_fine", "bsmm_fine_nc", x, w,
+               (("chunk_ptr", chunk_ptr), ("slot_in", slot_in),
+                ("slot_w", slot_w)),
+               n_out_blocks + 1, bsize, n_out_blocks, trans_w)
+    bsmm_fine.launches += 1
+    return y
+
+
+def bsmm_window(x, w, ptr, ent_slot, ent_w, bsize, n_out_blocks,
+                trans_w=False):
+    """y (N, n_out_blocks·bsize) = x · W (Wᵀ with ``trans_w``) on the card,
+    x staged once per window slab for each super-group of output columns
+    (``window_plan``: ptr, ent_slot, ent_w int32).  Types and checks of
+    ``bsmm_fprop``.  Its f32 result equals ``bsmm_fprop``'s bit for bit."""
+    if bsize not in WINDOW_SG:
+        raise ValueError(f"unsupported block size {bsize}")
+    sg, wb = WINDOW_SG[bsize], WINDOW_SLAB // bsize
+    n_ptr = -(-n_out_blocks // sg) * -(-(x.shape[-1] // bsize) // wb) * sg + 1
+    y = _xprop("bsmm_window", "bsmm_window", "bsmm_window_nc", x, w,
+               (("ptr", ptr), ("ent_slot", ent_slot), ("ent_w", ent_w)),
+               n_ptr, bsize, n_out_blocks, trans_w)
+    bsmm_window.launches += 1
+    return y
+
+
+def bsmm_merge(tiles, idx, bsize, out_dtype):
+    """y (N, n_out·bsize) of ``out_dtype`` = Σ_p tiles[:, idx[o, p]] in f32,
+    in phase order, rounded once, on the card.  tiles: (N, T·bsize)
+    contiguous f32 partial tiles (``bsmm_partials``); idx: (n_out, P)
+    contiguous int32 tile ids < T (``split_plan``'s merge_idx).  Raises on
+    a CPU tensor, on other dtypes and on a failed launch."""
+    _check_common("bsmm_merge", tiles, (), bsize, (("idx", idx),))
+    if tiles.dtype != torch.float32:
+        raise TypeError(f"bsmm_merge sums f32 tiles, got {tiles.dtype}")
+    if out_dtype not in _DTYPE_CODE:
+        raise TypeError(f"bsmm_merge writes f32, bf16 or f16, got "
+                        f"{out_dtype}")
+    if tiles.dim() != 2 or tiles.shape[1] % bsize or not tiles.is_contiguous():
+        raise ValueError(f"tiles must be a contiguous (N, T·{bsize}) array, "
+                         f"got {tuple(tiles.shape)}")
+    if idx.dim() != 2 or idx.shape[1] < 1:
+        raise ValueError(f"idx must be (n_out, P >= 1), got {tuple(idx.shape)}")
+    N, n_all = tiles.shape[0], tiles.shape[1] // bsize
+    n_out, P = idx.shape
+    y = torch.empty((N, n_out * bsize), dtype=out_dtype, device=tiles.device)
+    if N == 0:
+        return y
+    with torch.cuda.device(tiles.device):
+        err = _build.function("bsmm_merge", "bsmm_merge_nc", _MERGE_ARGS)(
+            _DTYPE_CODE[out_dtype], bsize, tiles.data_ptr(), idx.data_ptr(),
+            y.data_ptr(), N, n_out, P, n_all, _stream(tiles))
+    if err != 0:
+        raise RuntimeError(f"bsmm_merge launch failed: cudaError {err}")
+    bsmm_merge.launches += 1
+    return y
 
 
 def bsmm_updat(x, dy, ent_c, ent_k, bsize):
@@ -158,8 +392,8 @@ def bsmm_updat(x, dy, ent_c, ent_k, bsize):
     over N, on the card.  x (N, C), dy (N, K): contiguous, one dtype (f32,
     bf16 or f16); ent_c, ent_k: (blocks,) int32, the updat list.  One
     thread block per layout block sums all of N in a fixed order."""
-    _check_common("bsmm_updat", x, (("dy", dy), ("ent_c", ent_c),
-                                    ("ent_k", ent_k)), bsize)
+    _check_common("bsmm_updat", x, (("dy", dy),), bsize,
+                  (("ent_c", ent_c), ("ent_k", ent_k)))
     if dy.dtype != x.dtype:
         raise TypeError(f"bsmm_updat takes x and dy of one dtype, got "
                         f"{x.dtype} and {dy.dtype}")
@@ -176,11 +410,10 @@ def bsmm_updat(x, dy, ent_c, ent_k, bsize):
     dw = torch.empty((blocks, bsize, bsize), dtype=torch.float32,
                      device=x.device)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _build.function("bsmm_updat", "bsmm_updat_nc", _UPDAT_ARGS)(
             _DTYPE_CODE[x.dtype], bsize, x.data_ptr(), dy.data_ptr(),
             ent_c.data_ptr(), ent_k.data_ptr(), dw.data_ptr(), N, C, K, blocks,
-            stream)
+            _stream(x))
     if err != 0:
         raise RuntimeError(f"bsmm_updat launch failed: cudaError {err}")
     bsmm_updat.launches += 1
@@ -190,3 +423,6 @@ def bsmm_updat(x, dy, ent_c, ent_k, bsize):
 bsmm_fprop.launches = 0
 bsmm_bprop.launches = 0
 bsmm_updat.launches = 0
+bsmm_fine.launches = 0
+bsmm_window.launches = 0
+bsmm_merge.launches = 0

@@ -6,11 +6,14 @@ so a layout and its weights move between the two packages unchanged.
 
 The op is a ``torch.autograd.Function`` (the JAX ``_bsmm`` custom_vjp):
 forward = fprop, backward = (bprop, updat), with dw cast to W's dtype.
-On a CUDA tensor each direction runs its hand-written kernel
-(``kernels/bsmm.py``); on a CPU tensor, or with ``impl="xla"``, it runs
-the plain PyTorch version.
+On a CUDA tensor each direction runs a hand-written kernel
+(``kernels/bsmm.py``), chosen by ``mode`` as the JAX op chooses among its
+TPU schedules; on a CPU tensor, or with ``impl="xla"``, it runs the plain
+PyTorch version.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -21,6 +24,18 @@ from blocksparse_tpu_torch.utils import z_order_2d
 _MODES = ("auto", "grouped", "dense_tile", "window", "resident", "fine")
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def device_sm_count(device=None):
+    """Streaming multiprocessors of a CUDA device (default the current
+    one): the count the split rule reads."""
+    index = None if device is None else torch.device(device).index
+    return _sm_count(torch.cuda.current_device() if index is None else index)
+
+
 class BlocksparseMatMul:
     """Block-sparse matmul op object.
 
@@ -28,11 +43,28 @@ class BlocksparseMatMul:
     block_size: 8, 16, 32, 64 or 128.
     feature_axis: 0 => activations are (C, N); 1 => (N, C), the
         orientation the kernel runs natively.
-    impl: None or "pallas" run the CUDA kernel on CUDA tensors; "xla"
+    impl: None or "pallas" run the CUDA kernels on CUDA tensors; "xla"
         runs the plain PyTorch version on any device.  Tensors on the CPU
         always take the plain version.
-    tile_n, mode, dense_tile_G, dense_tile_R: TPU schedule knobs, accepted
-        for the same call signature; they do not change results.
+    mode: which kernel fprop and bprop run on a CUDA tensor (the
+        function is the same; updat always runs ``bsmm_updat``):
+        - "fine" with block_size <= 32: ``bsmm_fine`` (the JAX fine
+          schedule), 128-deep chunks of each output column's entries;
+          with a larger block it acts as "auto";
+        - "window": ``bsmm_window`` (the JAX window-slab schedule), x
+          staged once per window for a super-group of columns;
+        - "grouped": ``bsmm_fprop``/``bsmm_bprop`` unsplit, always (the
+          pin for A/B runs: JAX "grouped" never takes a phased cover);
+        - "auto", "dense_tile", "resident": the split route (partial
+          tiles of runs of each column's entries, then ``bsmm_merge``)
+          when the unsplit grid, ceil(N / TM) * n_out thread blocks, is
+          smaller than the card's SM count and the longest column holds
+          at least 8 entries; P = min(8, ceil(SMs / grid), longest // 4)
+          runs at most, each of at least 4 entries
+          (``kernels.bsmm.split_phases``).  Otherwise unsplit.
+        ``dispatch_mode(N)`` names the route.
+    tile_n, dense_tile_G, dense_tile_R: TPU schedule knobs, accepted for
+        the same call signature; they change nothing.
     w_layout: only "blocks" (canonical (blocks, b, b) weights).
     """
 
@@ -55,6 +87,7 @@ class BlocksparseMatMul:
         self.bsize = block_size
         self.z_order = z_order
         self.impl = impl
+        self.mode = mode
 
         layout = np.asarray(layout)
         if layout.ndim != 2:
@@ -101,6 +134,9 @@ class BlocksparseMatMul:
         self._fprop_flat, self._fprop_row_ptr = flat(fprop_rows)
         self._bprop_flat, self._bprop_row_ptr = flat(bprop_rows)
         self._luts = {}
+        self._plans = {}          # (kind, d, phases) -> NumPy plan
+        self._plan_luts = {}      # (device, kind, d, phases) -> tensors
+        self._split_runs = {}     # (N, d, SMs) -> phases of the split rule
 
         self.name = name or "BlocksparseMatMul"
         self.blocks = blocks
@@ -212,6 +248,95 @@ class BlocksparseMatMul:
     def _plain(self, x):
         return self.impl == "xla" or not x.is_cuda
 
+    # ---------------- kernel routes ----------------
+
+    def _csr(self, d):
+        """(row_ptr, (in, w, out) entries, n_out, n_in) of direction d."""
+        if d == "f":
+            return self._fprop_row_ptr, self._fprop_flat, self.KB, self.CB
+        return self._bprop_row_ptr, self._bprop_flat, self.CB, self.KB
+
+    def _phases(self, N, d, sms):
+        """Runs of the split rule for N rows on a card of ``sms`` SMs (0 =
+        unsplit)."""
+        key = (N, d, sms)
+        if key not in self._split_runs:
+            self._split_runs[key] = bsmm_kernels.split_phases(
+                N, self.bsize, self._csr(d)[0], sms)
+        return self._split_runs[key]
+
+    def _route(self, N, d, sms):
+        """The kernel direction d takes for N rows on a card of ``sms``
+        SMs: "fine", "window", "phased" (split) or "grouped" (unsplit)."""
+        if self.mode == "fine" and \
+                self.bsize in bsmm_kernels.FINE_BLOCK_SIZES:
+            return "fine"
+        if self.mode == "window":
+            return "window"
+        if self.mode != "grouped" and self._phases(N, d, sms):
+            return "phased"
+        return "grouped"
+
+    def dispatch_mode(self, N, itemsize=2, sm_count=None):
+        """The kernel the fprop of a CUDA tensor of N rows runs, as the JAX
+        op's ``dispatch_mode`` names it: "fine", "window", "phased" (the
+        split route, partial tiles and their merge) or "grouped" (the
+        unsplit ``bsmm_fprop``).  sm_count: the card's SMs, by default
+        the current CUDA device's.  itemsize is accepted for the JAX
+        signature; the routes do not depend on it."""
+        return self._route(N, "f", sm_count if sm_count is not None
+                           else device_sm_count())
+
+    def _plan(self, kind, d, phases=0):
+        """The host-side plan (NumPy) of a route, built once."""
+        key = (kind, d, phases)
+        plan = self._plans.get(key)
+        if plan is None:
+            row_ptr, (ib, wb, _), _, n_in = self._csr(d)
+            if kind == "fine":
+                plan = bsmm_kernels.fine_plan(row_ptr, ib, wb, self.bsize)
+            elif kind == "window":
+                plan = bsmm_kernels.window_plan(row_ptr, ib, wb, n_in,
+                                                self.bsize)
+            else:
+                plan = bsmm_kernels.split_plan(row_ptr, phases)
+            self._plans[key] = plan
+        return plan
+
+    def _plan_tensors(self, device, kind, d, phases=0):
+        """A plan's index arrays on ``device``, uploaded once (int32)."""
+        key = (device, kind, d, phases)
+        out = self._plan_luts.get(key)
+        if out is None:
+            out = {k: torch.as_tensor(v, device=device)
+                   for k, v in self._plan(kind, d, phases).items()
+                   if isinstance(v, np.ndarray)}
+            self._plan_luts[key] = out
+        return out
+
+    def xprop_split_plain(self, x, w, d, sm_count):
+        """The split route on the plain versions: the partial tiles of the
+        split rule's runs for a card of ``sm_count`` SMs through
+        ``xprop_plain`` in f32, then ``merge_plain``.  2-D x; d "f"
+        (fprop) or "b" (bprop).  Raises where the rule does not split."""
+        xn = x if self.axis else x.t()
+        phases = self._phases(xn.shape[0], d, sm_count)
+        if not phases:
+            raise ValueError(f"the split rule does not split {xn.shape[0]} "
+                             f"rows on {sm_count} SMs")
+        plan = self._plan("split", d, phases)
+        _, (ib, wb, _), _, _ = self._csr(d)
+        tile_of = np.repeat(np.arange(plan["tiles"]),
+                            np.diff(plan["tile_ptr"]))
+        t = functools.partial(torch.as_tensor, dtype=torch.int64,
+                              device=x.device)
+        parts = bsmm_kernels.xprop_plain(
+            xn, w, t(ib), t(wb), t(tile_of), plan["tiles"], self.bsize, 1,
+            trans_w=d == "b", out_dtype=torch.float32)
+        y = bsmm_kernels.merge_plain(parts, t(plan["merge_idx"]),
+                                     self.bsize, out_dtype=x.dtype)
+        return y if self.axis else y.t()
+
     def _nc(self, a):
         """A 2-D activation in the kernels' (N, features) orientation (no
         copy when ``a`` is the transposed view of such an array)."""
@@ -225,10 +350,29 @@ class BlocksparseMatMul:
             return bsmm_kernels.xprop_plain(
                 x, w, lut[f"{d}_in"], lut[f"{d}_w"], lut[f"{d}_out"], n_out,
                 self.bsize, self.axis, trans_w=d == "b", out_dtype=x.dtype)
-        kernel = bsmm_kernels.bsmm_fprop if d == "f" \
-            else bsmm_kernels.bsmm_bprop
-        y = kernel(self._nc(x), w.contiguous(), lut[f"{d}_row_ptr"],
-                   lut[f"{d}_ent_in"], lut[f"{d}_ent_w"], self.bsize, n_out)
+        xn, wc, b, trans = self._nc(x), w.contiguous(), self.bsize, d == "b"
+        sms = device_sm_count(x.device)
+        route = self._route(xn.shape[0], d, sms)
+        if route == "fine":
+            p = self._plan_tensors(x.device, "fine", d)
+            y = bsmm_kernels.bsmm_fine(xn, wc, p["chunk_ptr"], p["slot_in"],
+                                       p["slot_w"], b, n_out, trans)
+        elif route == "window":
+            p = self._plan_tensors(x.device, "window", d)
+            y = bsmm_kernels.bsmm_window(xn, wc, p["ptr"], p["ent_slot"],
+                                         p["ent_w"], b, n_out, trans)
+        elif route == "phased":
+            phases = self._phases(xn.shape[0], d, sms)
+            p = self._plan_tensors(x.device, "split", d, phases)
+            parts = bsmm_kernels.bsmm_partials(
+                xn, wc, p["tile_ptr"], lut[f"{d}_ent_in"], lut[f"{d}_ent_w"],
+                b, p["tile_ptr"].numel() - 1, trans)
+            y = bsmm_kernels.bsmm_merge(parts, p["merge_idx"], b, x.dtype)
+        else:
+            kernel = bsmm_kernels.bsmm_bprop if trans \
+                else bsmm_kernels.bsmm_fprop
+            y = kernel(xn, wc, lut[f"{d}_row_ptr"], lut[f"{d}_ent_in"],
+                       lut[f"{d}_ent_w"], b, n_out)
         # feature_axis 0: the (features, N) view of the kernel's (N,
         # features) output; a consumer in that orientation copies nothing
         return y if self.axis else y.t()

@@ -21,6 +21,13 @@ before and read just after:
   step of the model run on the plain versions, then eight steps that
   must lower the loss.
 
+With the MLP's products at decode below the card's SM count, the
+serving path's ``generate_cached`` runs them on the split route (partial
+tiles, then ``bsmm_merge``); its decode logits are held step by step
+against the plain model on the same tokens, and decode tokens/s is timed
+with the MLP on ``mode="auto"`` and pinned to ``mode="grouped"``, in
+turns.
+
 Then the block-sparse conv, ``BlocksparseConv(impl="bsmm")``, at the
 repo's conv benchmark configuration (``benchmarks/conv_bench.py``: 3x3
 SAME filters, 32x32 channel blocks, NCHW 32x32 images, batch 32, bf16,
@@ -29,6 +36,19 @@ sum(square(y))): im2col and col2im held against their plain versions at
 C=512 in f32, bf16 and f16; the C=512 forward and both gradients held
 against the plain path, counted; every configuration's forward held
 against a dense cuDNN conv of the scattered filter and timed beside it.
+
+Then ``BlocksparseMatMul``'s schedule modes.  ``bsmm_fine``,
+``bsmm_window`` and ``bsmm_merge`` against their plain versions in f32,
+bf16 and f16 (fine and window also against the unsplit kernel, bit for
+bit in f32), then, counted: the canonical small-block bench row
+(``benchmarks/canonical_bench.py``: hidden 7680 at 11.25% with
+Barabasi-Albert layouts from the port's ``make_mask`` at b8, b16 and b32,
+and hidden 2560 dense at b32; N = 64, bf16, feature_axis 0; depth-8
+chains y = bsmm(y, w), forward and forward + backward) in modes "fine",
+"window" and "auto", each held against the same chain on
+``impl="xla"`` and timed per application beside a dense ``torch.matmul``
+control; and the window's own regime (``bench.py``'s random 8192^2, b32,
+d 0.25 layout at N 256 and 2048), window against grouped.
 
 Prints the card's name and power limit, the build times, every check
 with its tolerance, the timings, a ``{"kernels": [...]}`` line (each
@@ -58,7 +78,7 @@ BATCH, PROMPTS, PROMPT_LEN, NEW_TOKENS = 8, 4, 1024, 64
 TRAIN_STEPS, TIMED_STEPS = 8, 5
 LR, CLIP, LOSS_SCALE = 3e-4, 1.0, 2.0 ** 15
 SOURCES = ("bsmm_fprop", "bsmm_updat", "bst_attn_fwd", "bst_attn_bwd",
-           "im2col")
+           "im2col", "bsmm_fine", "bsmm_window", "bsmm_merge")
 DTYPES = (torch.bfloat16, torch.float32, torch.float16)
 # |kernel - plain| <= TOL * max(1, max|plain|); f16 held at bf16 level
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 1e-2}
@@ -86,8 +106,23 @@ DENSE_TOL = 2e-2
 # its operations over the peak rate for their type and its bytes (each
 # input read once, each output written once) over the memory rate.
 # NVIDIA H100 SXM data sheet: dense bf16 tensor-core rate (every row of
-# the kernels line is bf16) and HBM3 rate.
-PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+# the kernels line is bf16), f32 rate outside the tensor cores (the
+# merge's adds) and HBM3 rate.
+PEAK_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# The canonical bsmm bench (benchmarks/canonical_bench.py:42-65): (hidden
+# multiplier k of 2560, target density %, block sizes); N 64, bf16,
+# feature_axis 0, depth-8 chains; the modes run on each row.
+CANON_UNIT, CANON_ROWS = 2560, ((3, 11.25, (8, 16, 32)), (1, 100.0, (32,)))
+CANON_N, CANON_DEPTH, CANON_TIMED = 64, 8, 10
+CANON_MODES = ("fine", "window", "auto", "grouped")
+# Chains of the kernel op against the plain op, bf16: each application
+# rounds its output once on both sides, in other summation orders, and
+# eight of them (then eight back) compound: 3e-2 of max|plain|.
+CHAIN_TOL = 3e-2
+# The window's regime: bench.py's headline layout (make_layout("random",
+# 256, 0.25) from RandomState(0), feature_axis 0, W in +-0.1), at N 256
+# and 2048 (benchmarks/results_window.json's two shapes).
+WIN_HIDDEN, WIN_BSIZE, WIN_DENSITY, WIN_NS = 8192, 32, 0.25, (256, 2048)
 
 
 class CheckFailed(RuntimeError):
@@ -130,10 +165,11 @@ def compare(name, got, ref, tol):
     return err
 
 
-def timed(rows, key, err, fn, plain_fn, iters):
+def timed(rows, key, err, fn, plain_fn, iters, card_line=None):
     ms = time_ms(fn, iters)
     plain_ms = time_ms(plain_fn, max(iters // 4, 5))
-    print(f"      kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+    print(f"      kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+          + (f" [{card_line}]" if card_line else ""), flush=True)
     rows[key] = (err, ms, plain_ms)
 
 
@@ -258,10 +294,11 @@ def training_kernel_checks(model, plain, dev, g, rows):
         torch.cuda.empty_cache()
 
 
-def bound(flops, nbytes):
-    """(ms, "operations" or "bytes"): the least time this bf16 work could
-    take on the card, and which limit sets it."""
-    ops_ms = flops / PEAK_FLOPS * 1e3
+def bound(flops, nbytes, peak_flops=PEAK_FLOPS):
+    """(ms, "operations" or "bytes"): the least time this work could take
+    on the card (bf16 operations unless another peak is given), and which
+    limit sets it."""
+    ops_ms = flops / peak_flops * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else \
         (bytes_ms, "bytes")
@@ -427,9 +464,11 @@ def dense_filter(conv, F):
     return wd.permute(0, 2, 1, 3, 4, 5).reshape(conv.K, conv.C, 3, 3)
 
 
+# bsmm_xprop_nc_kernel<T, B, TRANS, PARTIAL, ...>: fprop and bprop told
+# apart by TRANS
 CONV_PARTS = (("im2col", ("im2col_kernel",)),
-              ("bsmm fprop", ("bsmm_xprop_nc_kernel", "false")),
-              ("bsmm bprop", ("bsmm_xprop_nc_kernel", "true")),
+              ("bsmm fprop", ("bsmm_xprop_nc_kernel", ", false, false")),
+              ("bsmm bprop", ("bsmm_xprop_nc_kernel", ", true, false")),
               ("bsmm updat", ("bsmm_updat_nc_kernel",)),
               ("col2im", ("col2im_kernel",)))
 
@@ -578,7 +617,8 @@ def conv_bsmm_checks(conv, plain, x, dev, g, rows):
 def counters():
     from blocksparse_tpu_torch.kernels import bsmm, bst_attn, im2col
     return {"bsmm_fprop": bsmm.bsmm_fprop, "bsmm_bprop": bsmm.bsmm_bprop,
-            "bsmm_updat": bsmm.bsmm_updat,
+            "bsmm_updat": bsmm.bsmm_updat, "bsmm_fine": bsmm.bsmm_fine,
+            "bsmm_window": bsmm.bsmm_window, "bsmm_merge": bsmm.bsmm_merge,
             "bst_attn_fwd": bst_attn.attention_fwd,
             "bst_attn_fwd_lse": bst_attn.attention_fwd_lse,
             "bst_attn_dq": bst_attn.attention_dq,
@@ -623,14 +663,25 @@ def serving_path(bt, model, plain, cfg, dev, card_line):
     print(f"forward batch {BATCH} x {cfg.ctx}, counted run: "
           f"{fwd_s * 1e3:.2f} ms", flush=True)
     # forward + prefill: 2 bsmm and 1 attention a layer each; every decode
-    # step: 2 bsmm a layer (decode attention is plain torch by design); no
-    # training kernel
+    # step: 2 bsmm a layer (decode attention is plain torch by design),
+    # each MLP product on the split route at batch PROMPTS adding a merge
+    # to its partials; no training kernel
+    def n_split(N):
+        return [op.dispatch_mode(N) for op in (model.bsmm1, model.bsmm2)
+                ].count("phased")
+    routes = [op.dispatch_mode(PROMPTS) for op in (model.bsmm1, model.bsmm2)]
+    print(f"decode MLP routes at N = {PROMPTS}: bsmm1 {routes[0]}, bsmm2 "
+          f"{routes[1]}", flush=True)
     want = dict.fromkeys(launches, 0)
     want.update({"bsmm_fprop": 2 * L + 2 * L + NEW_TOKENS * 2 * L,
+                 "bsmm_merge": L * (n_split(BATCH * cfg.ctx)
+                                    + n_split(PROMPTS * cfg.ctx)
+                                    + NEW_TOKENS * n_split(PROMPTS)),
                  "bst_attn_fwd": L + L})
-    check(launches == want,
+    check(launches == want and launches["bsmm_merge"] > 0,
           f"serving launches {launches}, expected {want} (bsmm_fprop "
-          f"2L + 2L + {NEW_TOKENS} x 2L, bst_attn_fwd 2L, L = {L})")
+          f"2L + 2L + {NEW_TOKENS} x 2L, bsmm_merge > 0: one a product on "
+          f"the split route, bst_attn_fwd 2L, L = {L})")
     check(tuple(logits.shape) == (BATCH, cfg.ctx, cfg.n_vocab)
           and bool(torch.isfinite(logits).all()),
           f"forward logits {tuple(logits.shape)} finite")
@@ -677,7 +728,59 @@ def serving_path(bt, model, plain, cfg, dev, card_line):
           f"max(1, max|forward|))")
     del caches, logits, ref_logits
     torch.cuda.empty_cache()
+    decode_split(bt, model, plain, cfg, dev, card_line, prompts, out)
     return launches
+
+
+def decode_split(bt, model, plain, cfg, dev, card_line, prompts, out):
+    """The decode that ran on the split route, held step by step against
+    the plain model on the same tokens, and its tokens/s with the MLP on
+    mode "auto" and pinned to "grouped", in turns (auto, grouped,
+    grouped, auto, three times: the host-bound loop's times spread)."""
+    full = torch.zeros((PROMPTS, cfg.ctx), dtype=torch.int64, device=dev)
+    full[:, :PROMPT_LEN] = prompts
+    worst = 0.0
+    (_, c0), (_, c1) = model.prefill(full), plain.prefill(full)
+    for i in range(NEW_TOKENS):
+        tok = out[:, PROMPT_LEN + i]
+        got, _ = model.decode_forward(tok, c0, PROMPT_LEN + i)
+        ref, _ = plain.decode_forward(tok, c1, PROMPT_LEN + i)
+        worst = max(worst, (got - ref).abs().max().item()
+                    / (MODEL_TOL * max(1.0, ref.abs().max().item())))
+    check(worst <= 1.0,
+          f"decode logits on the split route against the plain model, fed "
+          f"the generated tokens, {NEW_TOKENS} steps: worst step at "
+          f"{worst:.3f} of its tolerance ({MODEL_TOL:g} x max(1, "
+          f"max|plain|))")
+    del c0, c1
+    t = time.perf_counter()
+    model.prefill(full)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    ops = (model.bsmm1, model.bsmm2)
+    rates = {"auto": [], "grouped": []}
+    for mode in ("auto", "grouped", "grouped", "auto") * 3:
+        for op in ops:
+            op.mode = mode
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        reset_counts()
+        t = time.perf_counter()
+        bt.generate_cached(model, prompts, NEW_TOKENS, generator=gen)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t
+        merges = read_counts()["bsmm_merge"]
+        rates[mode].append(PROMPTS * NEW_TOKENS / (gen_s - prefill_s))
+        print(f"      decode, MLP mode {mode}: {rates[mode][-1]:.1f} "
+              f"tokens/s ({merges} merges)", flush=True)
+    for op in ops:
+        op.mode = "auto"
+    print(f"decode tokens/s [{card_line}]: MLP on the split route (auto) "
+          f"median {np.median(rates['auto']):.1f} of "
+          f"{' '.join(f'{r:.1f}' for r in rates['auto'])}; pinned to "
+          f"grouped median {np.median(rates['grouped']):.1f} of "
+          f"{' '.join(f'{r:.1f}' for r in rates['grouped'])} (prefill "
+          f"{prefill_s * 1e3:.2f} ms subtracted)", flush=True)
+    torch.cuda.empty_cache()
 
 
 def compare_tensors(what, got, ref, tol, live=None, flip_bound=None):
@@ -853,6 +956,349 @@ def profile_step(one_step, step_ms, table_path):
                                     row_limit=40))
 
 
+def pick_m(n, target_pct):
+    """The canonical bench's Barabasi-Albert bandwidth m for a target
+    density (benchmarks/canonical_bench.py:46-57, mask "ba")."""
+    if target_pct >= 100.0:
+        return n
+    for m in range(1, n // 2):
+        if 100 * (2 * m * (n - m) + m * m + n - m) / n ** 2 >= target_pct:
+            return m
+    return n // 2
+
+
+def chain(op, x, w):
+    """The bench's depth-8 chain y = bsmm(y, w)."""
+    for _ in range(CANON_DEPTH):
+        x = op(x, w)
+    return x
+
+
+def chain_grads(op, x0, w0):
+    """The chain and its gradients in x and w for the cotangent y, as the
+    bench's fb_step takes them (jax.vjp of the chain at y)."""
+    x, w = x0.detach().requires_grad_(), w0.detach().requires_grad_()
+    y = chain(op, x, w)
+    dx, dw = torch.autograd.grad(y, (x, w), y.detach())
+    return y.detach(), dx, dw
+
+
+def route_launches(op, N, sms, times):
+    """Launches of one fprop (times[0] of them) and one bprop (times[1])
+    on the routes op takes for N rows, with one updat a bprop."""
+    want = dict.fromkeys(counters(), 0)
+    for d, n in zip("fb", times):
+        direct = "bsmm_fprop" if d == "f" else "bsmm_bprop"
+        for name in {"fine": ("bsmm_fine",), "window": ("bsmm_window",),
+                     "phased": (direct, "bsmm_merge"),
+                     "grouped": (direct,)}[op._route(N, d, sms)]:
+            want[name] += n
+    want["bsmm_updat"] += times[1]
+    return want
+
+
+def add_counts(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def canonical_rows(bt, dev):
+    """The canonical bench's rows: per (hidden, b), the op of each mode,
+    the plain op and the W scale; with the plans' host times printed."""
+    from blocksparse_tpu_torch.models.sparse_lstm import make_mask
+    out = {}
+    for k, target, bsizes in CANON_ROWS:
+        hidden = k * CANON_UNIT
+        for b in bsizes:
+            n = hidden // b
+            m = pick_m(n, target)
+            t = time.perf_counter()
+            lay = np.ones((n, n), np.int32) if m >= n else \
+                make_mask(n, f"ba_{m}", seed=SEED)
+            mask_s = time.perf_counter() - t
+            ops, build = {}, []
+            for mode in CANON_MODES:
+                t = time.perf_counter()
+                ops[mode] = bt.BlocksparseMatMul(lay, block_size=b,
+                                                 feature_axis=0, mode=mode)
+                build.append(time.perf_counter() - t)
+            plain = bt.BlocksparseMatMul(lay, block_size=b, feature_axis=0,
+                                         impl="xla")
+            op = ops["auto"]
+            t = time.perf_counter()
+            for d in "fb":
+                for kind in ("fine", "window"):
+                    op._plan(kind, d)
+                op._plan("split", d, 8)
+            plan_s = time.perf_counter() - t
+            print(f"canonical hidden {hidden} b{b}: BA m={m}, {op.blocks} "
+                  f"blocks ({100 * op.blocks / n ** 2:.2f}%); host: layout "
+                  f"{mask_s:.2f} s, op {max(build):.2f} s, fine + window + "
+                  f"split plans (fprop and bprop, NumPy) {plan_s:.3f} s",
+                  flush=True)
+            e = op.blocks / n                    # entries of an output column
+            out[(hidden, b)] = (ops, plain, float(np.sqrt(3.0 / (b * e))))
+    return out
+
+
+def mode_kernel_checks(rows_in, win_op, dev, g, card_line, rows):
+    """bsmm_fine, bsmm_window and bsmm_merge against their plain versions
+    (f32, bf16, f16; fprop and bprop) at the path's shapes: fine at the
+    canonical hidden-7680 rows, window at its regime (N 256), merge on the
+    canonical hidden-2560 split (its device time also from the profiler:
+    at 1 MB the event time is the launch rate).  In f32 fine and window
+    also against the unsplit kernel, bit for bit."""
+    from blocksparse_tpu_torch.kernels import bsmm as bk
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def xprop_cases(op, N, kind):
+        lut = op._lut(dev)
+        for d in "fb":
+            n_out, n_in = (op.KB, op.C) if d == "f" else (op.CB, op.K)
+            p = op._plan_tensors(dev, kind, d)
+            args = ((p["chunk_ptr"], p["slot_in"], p["slot_w"]) if
+                    kind == "fine" else (p["ptr"], p["ent_slot"], p["ent_w"]))
+            kern = bk.bsmm_fine if kind == "fine" else bk.bsmm_window
+            unsplit = bk.bsmm_bprop if d == "b" else bk.bsmm_fprop
+            for dtype in DTYPES:
+                x = torch.randn((N, n_in), device=dev, generator=g).to(dtype)
+                w = (torch.randn(op.w_shape, device=dev, generator=g)
+                     * 0.1).to(dtype)
+
+                def run():
+                    return kern(x, w, *args, op.bsize, n_out, d == "b")
+
+                def plain():
+                    return bk.xprop_plain(
+                        x, w, lut[f"{d}_in"], lut[f"{d}_w"], lut[f"{d}_out"],
+                        n_out, op.bsize, 1, trans_w=d == "b")
+                what = (f"bsmm_{kind} {'fprop' if d == 'f' else 'bprop'} "
+                        f"b{op.bsize} N={N} {n_in} -> {n_out * op.bsize} "
+                        f"{op.blocks} blocks {dtype}")
+                y = run()
+                err = compare(what, y, plain(), TOL[dtype])
+                same = torch.equal(y, unsplit(
+                    x, w, lut[f"{d}_row_ptr"], lut[f"{d}_ent_in"],
+                    lut[f"{d}_ent_w"], op.bsize, n_out))
+                if dtype == torch.float32:
+                    check(same, f"{what}: equal to the unsplit kernel bit "
+                                f"for bit")
+                else:
+                    print(f"      equal to the unsplit kernel: {same}",
+                          flush=True)
+                if d == "f":
+                    timed(rows, (kind, op.bsize, N, dtype), err, run, plain,
+                          50, card_line)
+                del x, w, y
+
+    small, dense = (CANON_ROWS[0][0] * CANON_UNIT, CANON_ROWS[1][0]
+                    * CANON_UNIT)
+    for b in CANON_ROWS[0][2]:
+        xprop_cases(rows_in[(small, b)][0]["fine"], CANON_N, "fine")
+    xprop_cases(win_op, WIN_NS[0], "window")
+
+    op = rows_in[(dense, 32)][0]["auto"]
+    lut = op._lut(dev)
+    phases = op._phases(CANON_N, "f", sms)
+    check(phases > 1, f"hidden {dense} b32 N={CANON_N} takes the split route "
+                      f"({phases} runs) on {sms} SMs")
+    p = op._plan_tensors(dev, "split", "f", phases)
+    idx = p["merge_idx"]
+    n_tiles = p["tile_ptr"].numel() - 1
+    for dtype in DTYPES:
+        x = torch.randn((CANON_N, op.C), device=dev, generator=g).to(dtype)
+        w = (torch.randn(op.w_shape, device=dev, generator=g) * 0.1).to(dtype)
+        tiles = bk.bsmm_partials(x, w, p["tile_ptr"], lut["f_ent_in"],
+                                 lut["f_ent_w"], 32, n_tiles)
+        what = (f"bsmm_merge hidden {dense} b32 N={CANON_N}, {n_tiles - 1} "
+                f"tiles of {op.KB} columns, P={idx.shape[1]}, out {dtype}")
+        y = bk.bsmm_merge(tiles, idx, 32, dtype)
+        err = compare(what + " (exact)", y,
+                      bk.merge_plain(tiles, idx.long(), 32, dtype), 0.0)
+        compare(f"split route (partials + merge) {dtype} against "
+                f"xprop_plain", y, bk.xprop_plain(
+                    x, w, lut["f_in"], lut["f_w"], lut["f_out"], op.KB, 32,
+                    1), TOL[dtype])
+        timed(rows, ("merge", dtype), err,
+              lambda: bk.bsmm_merge(tiles, idx, 32, dtype),
+              lambda: bk.merge_plain(tiles, idx.long(), 32, dtype), 200,
+              card_line)
+        if dtype == torch.bfloat16:
+            # one library call of the same sums: index_add_ of every tile
+            # into its column (f32, another order, no cast)
+            tile_col = torch.repeat_interleave(
+                torch.arange(op.KB, device=dev),
+                (idx != n_tiles - 1).sum(1))
+            t3 = tiles.view(CANON_N, n_tiles, 32)[:, :n_tiles - 1]
+            buf = torch.empty((CANON_N, op.KB, 32), device=dev)
+            rows["merge_lib"] = time_ms(
+                lambda: buf.zero_().index_add_(1, tile_col, t3), 200)
+            rows["merge_shape"] = (n_tiles - 1, idx.shape[1])
+            _, kernels = device_events(lambda: [
+                bk.bsmm_merge(tiles, idx, 32, dtype) for _ in range(20)])
+            dev_ms = sum(e.self_device_time_total for e in kernels
+                         if "bsmm_merge_kernel" in e.key) / 1e3 / 20
+            print(f"      index_add_ of the tiles {rows['merge_lib']:.4f} ms; "
+                  f"merge device time (profiler, mean of 20) {dev_ms:.4f} ms "
+                  f"[{card_line}]", flush=True)
+        del x, w, tiles, y
+    torch.cuda.empty_cache()
+
+
+def canonical_path(rows_in, dev, g, card_line, rows):
+    """The canonical rows' chains in each mode, counted, held against the
+    plain chain and timed per application beside the dense control.
+    Returns the launches."""
+    bf = torch.bfloat16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    total = {}
+    for (hidden, b), (ops, plain, scale) in rows_in.items():
+        rng = np.random.RandomState(7)
+        x0 = torch.as_tensor(rng.uniform(-1, 1, (hidden, CANON_N)),
+                             device=dev).to(bf)
+        w0 = ((torch.rand(plain.w_shape, device=dev, generator=g) * 2 - 1)
+              * scale).to(bf)
+        with torch.no_grad():
+            y_ref = chain(plain, x0, w0)
+        refs = chain_grads(plain, x0, w0)
+        wd = dense_weight(plain, w0).t().contiguous()     # y = wd . x
+        with torch.no_grad():
+            dense_ms = time_ms(lambda: chain(lambda a, _: wd @ a, x0, None),
+                               CANON_TIMED) / CANON_DEPTH
+        for mode, op in ops.items():
+            what = (f"canonical hidden {hidden} b{b} N={CANON_N} mode "
+                    f"{mode} ({op.dispatch_mode(CANON_N)})")
+            with torch.no_grad():
+                chain(op, x0, w0)                      # warm-up: LUTs, plans
+            chain_grads(op, x0, w0)
+            torch.cuda.synchronize()
+            reset_counts()
+            with torch.no_grad():
+                y = chain(op, x0, w0)
+            got = chain_grads(op, x0, w0)
+            torch.cuda.synchronize()
+            launches = read_counts()
+            want = route_launches(op, CANON_N, sms,
+                                  (2 * CANON_DEPTH, CANON_DEPTH))
+            check(launches == want, f"{what}: chain fwd + fwd/bwd launches "
+                                    f"{launches}, expected {want}")
+            add_counts(total, launches)
+            compare(f"{what}: chain output against impl=xla", y, y_ref,
+                    CHAIN_TOL)
+            for name, a, r in zip(("y", "dx", "dw"), got, refs):
+                compare(f"{what}: fwd/bwd {name} against impl=xla", a, r,
+                        CHAIN_TOL)
+            with torch.no_grad():
+                fwd_ms = time_ms(lambda: chain(op, x0, w0),
+                                 CANON_TIMED) / CANON_DEPTH
+            fb_ms = time_ms(lambda: chain_grads(op, x0, w0),
+                            CANON_TIMED) / CANON_DEPTH
+            flops = 2 * CANON_N * op.blocks * b * b
+            print(f"{what} [{card_line}]: {fwd_ms:.4f} ms forward "
+                  f"({flops / fwd_ms / 1e9:.2f} TFLOP/s), {fb_ms:.4f} ms "
+                  f"forward + backward a application; dense torch.matmul "
+                  f"{hidden}^2 x {CANON_N} {dense_ms:.4f} ms", flush=True)
+            del y, got
+        del x0, w0, y_ref, refs, wd
+        torch.cuda.empty_cache()
+    return total
+
+
+def window_op(bt):
+    """bench.py's headline layout: random 8192^2, b32, d 0.25, the
+    diagonal set, from RandomState(0); W uniform in +-0.1."""
+    nb = WIN_HIDDEN // WIN_BSIZE
+    rng = np.random.RandomState(0)
+    lay = (rng.rand(nb, nb) < WIN_DENSITY).astype(np.int32)
+    lay[np.arange(nb), np.arange(nb)] = 1
+    W = rng.uniform(-0.1, 0.1, (int(lay.sum()), WIN_BSIZE, WIN_BSIZE))
+    ops = {m: bt.BlocksparseMatMul(lay, block_size=WIN_BSIZE, feature_axis=0,
+                                   mode=m) for m in ("window", "grouped")}
+    ops["plain"] = bt.BlocksparseMatMul(lay, block_size=WIN_BSIZE,
+                                        feature_axis=0, impl="xla")
+    return ops, W.astype(np.float32)
+
+
+def window_path(ops, W, dev, g, card_line):
+    """Window against grouped at N 256 and 2048, fprop and bprop, counted,
+    window equal to grouped (the same sums in the same order), both within
+    TOL of the plain op; times in turns.  Returns the launches."""
+    bf = torch.bfloat16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    w = torch.as_tensor(W, device=dev).to(bf)
+    total = {}
+    for N in WIN_NS:
+        x = (torch.rand((WIN_HIDDEN, N), device=dev, generator=g) * 2
+             - 1).to(bf)
+        for m in ("window", "grouped"):
+            ops[m]._xprop(x, w, "f")                     # warm-up
+        torch.cuda.synchronize()
+        outs = {}
+        for m in ("window", "grouped"):
+            reset_counts()
+            outs[m] = (ops[m]._xprop(x, w, "f"), ops[m]._xprop(x, w, "b"))
+            torch.cuda.synchronize()
+            launches = read_counts()
+            want = route_launches(ops[m], N, sms, (1, 1))
+            want["bsmm_updat"] = 0
+            if m == "window":
+                check(launches == want,
+                      f"window regime N={N}: window launches {launches}")
+                add_counts(total, launches)
+        for i, d in enumerate("fb"):
+            ref = ops["plain"]._xprop(x, w, d)
+            check(torch.equal(outs["window"][i], outs["grouped"][i]),
+                  f"window regime N={N} {d}prop: window equal to grouped")
+            compare(f"window regime N={N} {d}prop against impl=xla",
+                    outs["window"][i], ref, TOL[bf])
+        times = {"window": [], "grouped": []}
+        for m in ("window", "grouped", "grouped", "window"):
+            times[m].append((time_ms(lambda: ops[m]._xprop(x, w, "f"), 10),
+                             time_ms(lambda: ops[m]._xprop(x, w, "b"), 10)))
+        flops = 2 * N * ops["plain"].blocks * WIN_BSIZE ** 2
+        print(f"window regime {WIN_HIDDEN}^2 b{WIN_BSIZE} d{WIN_DENSITY} "
+              f"N={N} [{card_line}]: "
+              + "; ".join(f"{m} fprop " + " ".join(f"{f:.4f}" for f, _ in t)
+                          + " ms, bprop " + " ".join(f"{b:.4f}" for _, b in t)
+                          + f" ms ({flops / min(f for f, _ in t) / 1e9:.2f} "
+                          f"TFLOP/s fprop)" for m, t in times.items())
+              + " (turns window, grouped, grouped, window)", flush=True)
+        del x, outs
+    torch.cuda.empty_cache()
+    return total
+
+
+def mode_yardsticks(rows_in, win, dev, g, card_line, rows):
+    """Bound and library call of the three mode kernels at their kernels-
+    line shapes (bf16): fine at canonical b8 N 64, window at its regime
+    N 256 (a dense torch.matmul of the scattered layout for both), merge
+    at the canonical hidden-2560 split (index_add_ of the tiles)."""
+    bf = torch.bfloat16
+    out = {}
+    small, dense = (CANON_ROWS[0][0] * CANON_UNIT, CANON_ROWS[1][0]
+                    * CANON_UNIT)
+    for name, op, N in (("bsmm_fine", rows_in[(small, 8)][1], CANON_N),
+                        ("bsmm_window", win, WIN_NS[0])):
+        b2 = op.bsize ** 2
+        x = torch.randn((N, op.C), device=dev, generator=g).to(bf)
+        wd = dense_weight(op, (torch.randn(op.w_shape, device=dev,
+                                           generator=g) * 0.1).to(bf))
+        lib = time_ms(lambda: x @ wd, 20)
+        out[name] = (*bound(2 * N * op.blocks * b2,
+                            2 * (N * op.C + op.blocks * b2 + N * op.K)), lib)
+        del x, wd
+    n_real, P = rows["merge_shape"]
+    K = rows_in[(dense, 32)][1].K
+    out["bsmm_merge"] = (*bound(CANON_N * 32 * (n_real - K // 32),
+                                4 * CANON_N * 32 * n_real + 2 * CANON_N * K,
+                                PEAK_F32_FLOPS), rows["merge_lib"])
+    for name, (ms, by, lib) in out.items():
+        print(f"{name}: bound {ms:.4f} ms ({by}); library call "
+              f"{lib:.4f} ms [{card_line}]", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def build_all():
     from blocksparse_tpu_torch.kernels import _build
 
@@ -929,8 +1375,21 @@ def main():
     print(f"launches: conv path (one forward + backward) {conv_launches}",
           flush=True)
 
-    # 7. each kernel's bound and library call
+    # 7. BlocksparseMatMul's schedule modes: the three mode kernels against
+    # their plain versions, then the canonical bench rows in each mode and
+    # the window's regime, counted
+    canon = canonical_rows(bt, dev)
+    win_ops, win_W = window_op(bt)
+    mode_kernel_checks(canon, win_ops["window"], dev, g, card_line, rows)
+    mode_launches = canonical_path(canon, dev, g, card_line, rows)
+    add_counts(mode_launches, window_path(win_ops, win_W, dev, g, card_line))
+    print(f"launches: modes path (canonical chains, window regime) "
+          f"{mode_launches}", flush=True)
+
+    # 8. each kernel's bound and library call
     marks = yardsticks(model, dev, g)
+    marks.update(mode_yardsticks(canon, win_ops["plain"], dev, g, card_line,
+                                 rows))
     C, NP, b2 = CONV_CHANNELS[0], CONV_BATCH * CONV_HW ** 2, 2
     im2col_bytes = (1 + 9) * C * NP * b2
     marks["im2col"] = (*bound(0, im2col_bytes), rows["unfold"])
@@ -956,6 +1415,13 @@ def main():
          rows[("im2col", bf)]),
         ("col2im", "im2col.cu", "im2col.py:125", conv_launches["col2im"],
          rows[("col2im", bf)]),
+        ("bsmm_fine", "bsmm_fine.cu", "bsmm.py:2294",
+         mode_launches["bsmm_fine"], rows[("fine", 8, CANON_N, bf)]),
+        ("bsmm_window", "bsmm_window.cu", "bsmm.py:1800",
+         mode_launches["bsmm_window"], rows[("window", 32, WIN_NS[0], bf)]),
+        ("bsmm_merge", "bsmm_merge.cu", "bsmm.py:1562",
+         mode_launches["bsmm_merge"] + serve_launches["bsmm_merge"],
+         rows[("merge", bf)]),
     ]
     check(all(n > 0 for _, _, _, n, _ in kernels),
           f"every kernel launched on its path ({len(kernels)} kernels)")

@@ -16,7 +16,11 @@ from the same inputs on both sides: 1e-4 relative in every dtype.
 im2col is a copy: exact.  col2im sums the same f32 values in the same
 order as its plain version: exact in f32, within one rounding of the
 output (the dtype's eps relative to the largest output) in bf16 and f16.
-The conv path against its plain path: the matmul's tolerances.
+The conv path against its plain path: the matmul's tolerances.  The
+fine and window kernels sum each output in the LUT's order with the
+unsplit kernel's fmaf chain: equal to it bit for bit in every dtype, and
+to the plain version within the matmul's tolerances.  The merge adds the
+same f32 tiles in the same order as its plain version: exact.
 """
 import numpy as np
 import pytest
@@ -583,3 +587,205 @@ def test_im2col_raises_and_never_falls_back(cuda, monkeypatch):
         im2col_kernels.col2im(torch.randn((144, 72), device=cuda), *args)
     assert (im2col_kernels.im2col.launches,
             im2col_kernels.col2im.launches) == before
+
+
+# ---------------- the schedule modes: fine, window, split + merge ----------
+
+def _mode_ops(layout, bsize, **kw):
+    return {m: BlocksparseMatMul(layout, block_size=bsize, feature_axis=1,
+                                 mode=m, **kw)
+            for m in ("fine", "window", "grouped", "auto")}
+
+
+def _counts():
+    return {n: getattr(bsmm_kernels, n).launches for n in (
+        "bsmm_fprop", "bsmm_bprop", "bsmm_fine", "bsmm_window", "bsmm_merge")}
+
+
+def _moved(before):
+    return {n: c - before[n] for n, c in _counts().items() if c != before[n]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, *HALF])
+@pytest.mark.parametrize("bsize", [8, 16, 32, 64, 128])
+def test_fine_and_window_kernels_match_plain_and_unsplit(cuda, bsize, dtype):
+    """fprop and bprop of mode="fine" (b8-b32) and mode="window" against
+    the plain version, and bit for bit against the unsplit kernel, with an
+    empty output column, an empty input row, a window count that does not
+    divide C and N of 1, 5 and 300."""
+    CB = 2 * 256 // bsize + 3                # 2 windows and a partial one
+    layout = random_layout(CB, 6, 0.4, seed=bsize + 3)
+    layout[:, 2] = 0
+    layout[1, :] = 0
+    ops = _mode_ops(layout, bsize)
+    plain = BlocksparseMatMul(layout, block_size=bsize, feature_axis=1,
+                              impl="xla")
+    modes = ("fine", "window") if bsize <= 32 else ("window",)
+    g = torch.Generator(device=cuda).manual_seed(bsize)
+    w = torch.randn(plain.w_shape, device=cuda, generator=g).to(dtype)
+    for N in (1, 5, 300):
+        for d, width in (("f", plain.C), ("b", plain.K)):
+            x = torch.randn((N, width), device=cuda, generator=g).to(dtype)
+            ref = plain._xprop(x, w, d).float()
+            unsplit = ops["grouped"]._xprop(x, w, d)
+            for m in modes:
+                before = _counts()
+                y = ops[m]._xprop(x, w, d)
+                torch.cuda.synchronize()
+                assert _moved(before) == {f"bsmm_{m}": 1}
+                assert torch.equal(y, unsplit), (m, d, N)
+                torch.testing.assert_close(
+                    y.float(), ref, rtol=0,
+                    atol=_tol(dtype, BSMM_BF16_TOL, ref.abs().max().item()))
+            empty = slice(2 * bsize, 3 * bsize) if d == "f" \
+                else slice(bsize, 2 * bsize)
+            assert (y[:, empty] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, *HALF])
+@pytest.mark.parametrize("bsize", [8, 16, 32, 64, 128])
+def test_merge_kernel_matches_plain(cuda, bsize, dtype):
+    """Random f32 tiles merged through a split plan's index (columns of 0,
+    1 and up to 8 runs; the sentinel tile zero): exact against
+    merge_plain in every output dtype."""
+    layout = random_layout(40, 9, 0.5, seed=bsize)
+    layout[:, 3] = 0
+    op = BlocksparseMatMul(layout, block_size=bsize, feature_axis=1)
+    plan = op._plan("split", "f", 8)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    for N in (1, 7, 130):
+        tiles = torch.randn((N, plan["tiles"] * bsize), device=cuda,
+                            generator=g)
+        tiles[:, -bsize:] = 0
+        idx = torch.as_tensor(plan["merge_idx"], device=cuda)
+        before = bsmm_kernels.bsmm_merge.launches
+        y = bsmm_kernels.bsmm_merge(tiles, idx, bsize, dtype)
+        torch.cuda.synchronize()
+        assert bsmm_kernels.bsmm_merge.launches == before + 1
+        ref = bsmm_kernels.merge_plain(tiles, idx.long(), bsize, dtype)
+        assert y.dtype == dtype and torch.equal(y, ref)
+        assert (y[:, 3 * bsize:4 * bsize] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, *HALF])
+@pytest.mark.parametrize("bsize", [8, 32, 128])
+def test_split_route_matches_plain(cuda, bsize, dtype):
+    """Below the SM count auto runs partial tiles (counted as bsmm_fprop /
+    bsmm_bprop, whose kernel it is) and one merge; grouped runs unsplit.
+    Both against the plain version, the partials against the plain split
+    route in f32."""
+    layout = random_layout(48, 5, 0.5, seed=bsize + 1)
+    layout[:, 2] = 0
+    ops = _mode_ops(layout, bsize)
+    plain = BlocksparseMatMul(layout, block_size=bsize, feature_axis=1,
+                              impl="xla")
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    g = torch.Generator(device=cuda).manual_seed(4)
+    w = torch.randn(plain.w_shape, device=cuda, generator=g).to(dtype)
+    for N, d in ((3, "f"), (70, "f"), (5, "b")):
+        width = plain.C if d == "f" else plain.K
+        x = torch.randn((N, width), device=cuda, generator=g).to(dtype)
+        direct = "bsmm_fprop" if d == "f" else "bsmm_bprop"
+        split = ops["auto"]._phases(N, d, sms) > 0
+        assert split == (d == "f")           # the bprop columns are short
+        before = _counts()
+        y = ops["auto"]._xprop(x, w, d)
+        torch.cuda.synchronize()
+        assert _moved(before) == ({direct: 1, "bsmm_merge": 1} if split
+                                  else {direct: 1})
+        before = _counts()
+        y_unsplit = ops["grouped"]._xprop(x, w, d)
+        assert _moved(before) == {direct: 1}
+        ref = plain._xprop(x, w, d).float()
+        for got in (y, y_unsplit):
+            torch.testing.assert_close(
+                got.float(), ref, rtol=0,
+                atol=_tol(dtype, BSMM_BF16_TOL, ref.abs().max().item()))
+        if split and dtype == torch.float32:
+            torch.testing.assert_close(
+                y, plain.xprop_split_plain(x, w, d, sms), rtol=0,
+                atol=F32_TOL * max(1.0, ref.abs().max().item()))
+
+
+@pytest.mark.cuda
+def test_modes_route_fprop_bprop_and_dispatch_mode(cuda):
+    """Autograd through each mode: the launches name the route that
+    dispatch_mode gives, updat runs in every mode, and the gradients
+    match the plain op."""
+    layout = random_layout(24, 12, 0.5, seed=2)
+    ops = _mode_ops(layout, 16)
+    plain = BlocksparseMatMul(layout, block_size=16, feature_axis=1,
+                              impl="xla")
+    g = torch.Generator(device=cuda).manual_seed(5)
+    N = 6
+    x0 = torch.randn((N, plain.C), device=cuda, generator=g)
+    w0 = torch.randn(plain.w_shape, device=cuda, generator=g)
+    dy = torch.randn((N, plain.K), device=cuda, generator=g)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    split_b = int(ops["auto"]._phases(N, "b", sms) > 0)
+    want = {"fine": {"bsmm_fine": 2}, "window": {"bsmm_window": 2},
+            "grouped": {"bsmm_fprop": 1, "bsmm_bprop": 1},
+            "phased": {"bsmm_fprop": 1, "bsmm_bprop": 1,
+                       "bsmm_merge": 1 + split_b}}
+    refs = None
+    for m, op in ops.items():
+        route = op.dispatch_mode(N)
+        assert route == (m if m != "auto" else "phased")
+        x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+        before = _counts()
+        updat = bsmm_kernels.bsmm_updat.launches
+        op(x, w).backward(dy)
+        torch.cuda.synchronize()
+        assert _moved(before) == want[route]
+        assert bsmm_kernels.bsmm_updat.launches == updat + 1
+        if refs is None:
+            xr, wr = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+            plain(xr, wr).backward(dy)
+            refs = (xr.grad, wr.grad)
+        for got, ref in zip((x.grad, w.grad), refs):
+            torch.testing.assert_close(got, ref, rtol=0,
+                                       atol=1e-4 * ref.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_mode_kernels_raise_on_cpu_and_wrong_types(cuda):
+    layout = random_layout(4, 4, 1.0, seed=0)
+    op = BlocksparseMatMul(layout, block_size=16, feature_axis=1)
+    x = torch.randn((4, op.C), device=cuda)
+    w = torch.randn(op.w_shape, device=cuda)
+    fine = op._plan_tensors(cuda, "fine", "f")
+    win = op._plan_tensors(cuda, "window", "f")
+    split = op._plan_tensors(cuda, "split", "f", 2)
+    lut = op._lut(cuda)
+    calls = {
+        "fine": lambda a, b: bsmm_kernels.bsmm_fine(
+            a, b, fine["chunk_ptr"], fine["slot_in"], fine["slot_w"], 16, 4),
+        "window": lambda a, b: bsmm_kernels.bsmm_window(
+            a, b, win["ptr"], win["ent_slot"], win["ent_w"], 16, 4),
+        "partials": lambda a, b: bsmm_kernels.bsmm_partials(
+            a, b, split["tile_ptr"], lut["f_ent_in"], lut["f_ent_w"], 16,
+            split["tile_ptr"].numel() - 1)}
+    for name, call in calls.items():
+        with pytest.raises(ValueError):
+            call(x.cpu(), w.cpu())
+        with pytest.raises(TypeError):
+            call(x.double(), w.double())
+        with pytest.raises(TypeError):
+            call(x, w.half())
+    with pytest.raises(ValueError):
+        bsmm_kernels.bsmm_fine(x.reshape(2, -1), w.reshape(-1, 32, 32)[:1],
+                               fine["chunk_ptr"], fine["slot_in"],
+                               fine["slot_w"], 64, 1)
+    tiles = torch.zeros((4, 3 * 16), device=cuda)
+    idx = torch.zeros((4, 1), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        bsmm_kernels.bsmm_merge(tiles.cpu(), idx.cpu(), 16, torch.float32)
+    with pytest.raises(TypeError):
+        bsmm_kernels.bsmm_merge(tiles.bfloat16(), idx, 16, torch.float32)
+    with pytest.raises(TypeError):
+        bsmm_kernels.bsmm_merge(tiles, idx.long(), 16, torch.float32)
+    with pytest.raises(TypeError):
+        bsmm_kernels.bsmm_merge(tiles, idx, 16, torch.float64)

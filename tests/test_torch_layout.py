@@ -168,11 +168,16 @@ def test_model_layouts_equal():
 
 
 def test_import_pulls_no_jax():
-    """Importing the port with jax blocked works and loads no jax module."""
+    """Importing the port with jax and networkx blocked works and loads no
+    jax module; no file of the port, nor chip_smoke.py, imports jax,
+    networkx or the JAX package."""
     code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['networkx'] = None; "
             "import blocksparse_tpu_torch, blocksparse_tpu_torch.convert, "
             "blocksparse_tpu_torch.ops.conv, "
-            "blocksparse_tpu_torch.kernels.im2col; "
+            "blocksparse_tpu_torch.kernels.im2col, "
+            "blocksparse_tpu_torch.models.sparse_lstm; "
+            "blocksparse_tpu_torch.models.sparse_lstm.make_mask(40, 'ba_3'); "
             "bad = [m for m, mod in sys.modules.items() if mod is not None "
             "and (m.startswith(('jax', 'blocksparse_tpu.')) "
             "or m == 'blocksparse_tpu')]; "
@@ -180,11 +185,12 @@ def test_import_pulls_no_jax():
     env = dict(os.environ, PYTHONPATH=str(REPO))
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
                    cwd=str(REPO), timeout=120)
-    for path in (REPO / "blocksparse_tpu_torch").rglob("*.py"):
+    for path in [*(REPO / "blocksparse_tpu_torch").rglob("*.py"),
+                 REPO / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
             words = line.split()
             assert not (words[:1] in (["import"], ["from"])
                         and len(words) > 1
-                        and words[1].split(".")[0] in ("jax", "jaxlib",
-                                                       "blocksparse_tpu")), \
+                        and words[1].split(".")[0] in (
+                            "jax", "jaxlib", "networkx", "blocksparse_tpu")), \
                 (path, line)
