@@ -21,8 +21,9 @@
 // that is 8 FMAs a thread between barriers, here 128 x RM x RN.  Empty
 // slots stage zeros (0 * 0 leaves a sum unchanged, bit for bit).  Each
 // output's f32 sum runs over the entries in LUT order, as bsmm_fprop's
-// does, with the same fmaf chain from 0: the f32 result equals bsmm_fprop's
-// bit for bit, and every dtype rounds that same sum once on the store.  No
+// does, with the same fmaf chain from 0: the result equals bsmm_fprop.cu's
+// bit for bit in f32 (bf16 and f16 go to bsmm_xprop_mma.cu's tensor cores,
+// which sum in another order: equal within the dtype's rounding).  No
 // atomics; an empty output block-column writes zeros.
 //
 // Bound on the H100: at the canonical small-block bench row (hidden 7680,

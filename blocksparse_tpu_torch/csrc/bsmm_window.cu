@@ -26,9 +26,10 @@
 // them from the staged slab.  Loads past C (a last window that does not
 // divide C) and past N are guarded, not padded.  Each output's f32 sum
 // runs over its entries in LUT order with the same fmaf chain from 0 as
-// bsmm_fprop.cu's, so the f32 result equals bsmm_fprop's bit for bit, and
-// each output is written once, with no atomics; an empty column writes
-// zeros.
+// bsmm_fprop.cu's, so the result equals bsmm_fprop's bit for bit in f32
+// (bf16 and f16 go to bsmm_xprop_mma.cu, whose tensor-core sums run in
+// another order), and each output is written once, with no atomics; an
+// empty column writes zeros.
 //
 // Sizes for the H100 (227 KB of shared memory a block, 228 KB an SM):
 //   TN = 64 rows, SLAB = 256 columns (WB = 256 / B block-rows), EB * B =

@@ -5,16 +5,19 @@ directions of the TPU kernels ``xprop_pallas_dense_tile``,
 ``xprop_pallas_grouped`` / ``xprop_pallas_grouped_panels`` and
 ``xprop_pallas`` (``blocksparse_tpu/kernels/bsmm.py``), which all compute
 the product over the layout's LUT and differ only in how they tile the
-TPU's MXU.  Both run ``csrc/bsmm_fprop.cu``, written natively for the NC
-orientation (``feature_axis=1``, x of shape (N, C)): one thread block per
-(N-tile, output block-column), a fixed-order f32 sum over the
-block-column's LUT entries, no atomics; bprop reads each W block
-transposed and walks the CSR of input block-columns.  ``bsmm_updat``
+TPU's MXU.  Both are written natively for the NC orientation
+(``feature_axis=1``, x of shape (N, C)): one thread block per (N-tile,
+output block-column), a fixed-order f32 sum over the block-column's LUT
+entries, no atomics; bprop reads each W block transposed and walks the
+CSR of input block-columns.  bf16 and f16 run ``csrc/bsmm_xprop_mma.cu``
+on the tensor cores (``mma.sync`` fed by ``ldmatrix`` from a ``cp.async``
+ring); f32 runs ``csrc/bsmm_fprop.cu`` in full fp32 on the CUDA cores (no
+TF32: the reference's f32 dots are exact).  ``bsmm_updat``
 (dw[e] = x_cᵀ·dy_k summed over N, in f32) replaces
 ``updat_pallas_dense_tile`` and, for canonical weights,
 ``updat_pallas_grouped`` and ``updat_pallas``; it runs
-``csrc/bsmm_updat.cu``.  On the H100 all three are bound by operations at
-training shapes; see the sources for what the designs do about it.
+``csrc/bsmm_updat.cu``.  See the sources for what bounds each on the
+H100 and what the designs do about it.
 
 ``xprop_plain`` and ``updat_plain`` are the plain PyTorch versions, the
 ports of ``xprop_xla`` and ``updat_xla`` (gather, einsum, ``index_add_``).
@@ -31,7 +34,7 @@ built here in NumPy from the LUT's CSR:
   ``xprop_pallas_window``): x staged once per window slab for a
   super-group of output columns whose accumulators stay in registers
   (``window_plan``).
-- the split route: ``bsmm_partials`` (``bsmm_fprop.cu`` with its f32
+- the split route: ``bsmm_partials`` (the unsplit kernel with its f32
   partials flag) over runs of each column's entries, then ``bsmm_merge``
   (``csrc/bsmm_merge.cu``; replaces ``merge_phased_tiles``) adds each
   column's partial tiles in phase order and rounds once (``split_plan``,
@@ -49,7 +52,8 @@ from blocksparse_tpu_torch.kernels import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 BLOCK_SIZES = (8, 16, 32, 64, 128)
-# rows of N a thread block of bsmm_fprop.cu owns (its Tile<B>::TM)
+# rows of N a thread block of the unsplit kernel owns (Tile<B>::TM of both
+# bsmm_fprop.cu and bsmm_xprop_mma.cu)
 XPROP_TM = {8: 64, 16: 128, 32: 128, 64: 128, 128: 64}
 # bsmm_fine.cu: block sizes, and contraction rows a chunk stages
 FINE_BLOCK_SIZES = (8, 16, 32)
@@ -277,6 +281,24 @@ def _xprop(fn, source, cfn, x, w, ints, n_ptr, bsize, n_out_blocks, trans_w,
     return y
 
 
+def _unsplit(fn, x, w, ints, n_ptr, bsize, n_out_blocks, trans_w,
+             partial=False):
+    """The unsplit xprop kernel for x's dtype: ``csrc/bsmm_fprop.cu`` (fp32
+    on the CUDA cores) for f32, ``csrc/bsmm_xprop_mma.cu`` (tensor cores)
+    for bf16 and f16.  The latter copies 16 bytes a thread, so an x or w
+    that is a view starting off a 16-byte boundary is first copied to a
+    fresh (aligned) tensor."""
+    suffix = "_partials" if partial else ""
+    if x.dtype == torch.float32:
+        source, cfn = "bsmm_fprop", "bsmm_xprop_nc" + suffix
+    else:
+        source, cfn = "bsmm_xprop_mma", "bsmm_xprop_mma_nc" + suffix
+        x, w = (t.clone() if t.is_contiguous() and t.data_ptr() % 16 else t
+                for t in (x, w))
+    return _xprop(fn, source, cfn, x, w, ints, n_ptr, bsize, n_out_blocks,
+                  trans_w, out_dtype=torch.float32 if partial else None)
+
+
 def bsmm_fprop(x, w, row_ptr, ent_c, ent_w, bsize, n_out_blocks):
     """y (N, n_out_blocks*bsize) = x (N, C) · W over a CSR LUT, on the card.
 
@@ -284,9 +306,9 @@ def bsmm_fprop(x, w, row_ptr, ent_c, ent_w, bsize, n_out_blocks):
     LUT entries of each output block-column in accumulation order.
     w: (blocks, bsize, bsize).  x and w: f32, bf16 or f16, same dtype,
     contiguous, on one CUDA device.  Raises on anything else."""
-    y = _xprop("bsmm_fprop", "bsmm_fprop", "bsmm_xprop_nc", x, w,
-               (("row_ptr", row_ptr), ("ent_c", ent_c), ("ent_w", ent_w)),
-               n_out_blocks + 1, bsize, n_out_blocks, trans_w=False)
+    y = _unsplit("bsmm_fprop", x, w,
+                 (("row_ptr", row_ptr), ("ent_c", ent_c), ("ent_w", ent_w)),
+                 n_out_blocks + 1, bsize, n_out_blocks, trans_w=False)
     bsmm_fprop.launches += 1
     return y
 
@@ -295,9 +317,9 @@ def bsmm_bprop(dy, w, row_ptr, ent_k, ent_w, bsize, n_out_blocks):
     """dx (N, n_out_blocks*bsize) = dy (N, K) · Wᵀ over the bprop CSR (one
     row per input block-column c, entries (k, w) in accumulation order),
     on the card.  Same types and checks as ``bsmm_fprop``."""
-    dx = _xprop("bsmm_bprop", "bsmm_fprop", "bsmm_xprop_nc", dy, w,
-                (("row_ptr", row_ptr), ("ent_k", ent_k), ("ent_w", ent_w)),
-                n_out_blocks + 1, bsize, n_out_blocks, trans_w=True)
+    dx = _unsplit("bsmm_bprop", dy, w,
+                  (("row_ptr", row_ptr), ("ent_k", ent_k), ("ent_w", ent_w)),
+                  n_out_blocks + 1, bsize, n_out_blocks, trans_w=True)
     bsmm_bprop.launches += 1
     return dx
 
@@ -306,16 +328,15 @@ def bsmm_partials(x, w, tile_ptr, ent_in, ent_w, bsize, n_tiles,
                   trans_w=False):
     """The split route's partial tiles, on the card: (N, n_tiles·bsize) f32,
     tile t the unrounded f32 sum of x · W (Wᵀ with ``trans_w``) over the
-    entries tile_ptr[t]..tile_ptr[t+1] (``split_plan``), by
-    ``bsmm_fprop.cu``'s kernel with its partials flag.  A launch counts as
-    one of ``bsmm_fprop`` (or of ``bsmm_bprop`` with ``trans_w``), whose
-    kernel it is.  Same types and checks as ``bsmm_fprop``."""
+    entries tile_ptr[t]..tile_ptr[t+1] (``split_plan``), by the unsplit
+    kernel with its partials flag.  A launch counts as one of
+    ``bsmm_fprop`` (or of ``bsmm_bprop`` with ``trans_w``), whose kernel it
+    is.  Same types and checks as ``bsmm_fprop``."""
     fn = bsmm_bprop if trans_w else bsmm_fprop
-    parts = _xprop("bsmm_partials", "bsmm_fprop", "bsmm_xprop_nc_partials",
-                   x, w, (("tile_ptr", tile_ptr), ("ent_in", ent_in),
-                          ("ent_w", ent_w)),
-                   n_tiles + 1, bsize, n_tiles, trans_w,
-                   out_dtype=torch.float32)
+    parts = _unsplit("bsmm_partials", x, w,
+                     (("tile_ptr", tile_ptr), ("ent_in", ent_in),
+                      ("ent_w", ent_w)),
+                     n_tiles + 1, bsize, n_tiles, trans_w, partial=True)
     fn.launches += 1
     return parts
 
@@ -326,7 +347,7 @@ def bsmm_fine(x, w, chunk_ptr, slot_in, slot_w, bsize, n_out_blocks,
     in 128-deep chunks of each output column's entries (``fine_plan``:
     chunk_ptr (n_out_blocks+1,), slot_in/slot_w (chunks, 128/bsize)
     int32).  bsize 8, 16 or 32; otherwise the types and checks of
-    ``bsmm_fprop``.  Its f32 result equals ``bsmm_fprop``'s bit for bit."""
+    ``bsmm_fprop``.  In f32 its result equals ``bsmm_fprop``'s bit for bit."""
     if bsize not in FINE_BLOCK_SIZES:
         raise ValueError(f"bsmm_fine takes block sizes {FINE_BLOCK_SIZES}, "
                          f"got {bsize}")
@@ -343,7 +364,7 @@ def bsmm_window(x, w, ptr, ent_slot, ent_w, bsize, n_out_blocks,
     """y (N, n_out_blocks·bsize) = x · W (Wᵀ with ``trans_w``) on the card,
     x staged once per window slab for each super-group of output columns
     (``window_plan``: ptr, ent_slot, ent_w int32).  Types and checks of
-    ``bsmm_fprop``.  Its f32 result equals ``bsmm_fprop``'s bit for bit."""
+    ``bsmm_fprop``.  In f32 its result equals ``bsmm_fprop``'s bit for bit."""
     if bsize not in WINDOW_SG:
         raise ValueError(f"unsupported block size {bsize}")
     sg, wb = WINDOW_SG[bsize], WINDOW_SLAB // bsize

@@ -7,7 +7,12 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` (one
 nvcc per source, all at once) and holds each against its plain PyTorch
 version in f32, bf16 and f16: the serving kernels at the serving path's
 shapes, the training kernels (block-sparse matmul bprop and updat,
-attention training forward, dq and dk/dv) at the training step's.  Then
+attention training forward, dq and dk/dv) at the training step's.  The
+block-sparse matmul's fprop and bprop run ``bsmm_xprop_mma.cu`` on the
+tensor cores in bf16 and f16 (two runs must agree bit for bit; it is
+also held against its plain version at every block size 8-128, for
+fprop, bprop and the split route's partial tiles) and ``bsmm_fprop.cu``
+in f32; their times come with TFLOP/s.  Then
 it drives the repo's enwik8 Sparse Transformer at full width (512-d, 6
 layers, 8 heads, ctx 2048, 64-blocks, fixed layout, block-sparse b32
 d0.5 MLP, bf16 compute, f32 masters, recompute, weights drawn from a
@@ -56,8 +61,9 @@ kernel with its bound on this card and the time of a library call that
 computes the same function, where there is one), and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; so does a host without CUDA.  Imports no JAX.  One train
-step also runs under ``torch.profiler``: its device time by kernel is
-printed, and with ``--profile-out`` the full table is written to PATH.
+step and one full-context forward also run under ``torch.profiler``:
+their device time by kernel is printed, and with ``--profile-out`` the
+train step's full table is written to PATH.
 """
 from __future__ import annotations
 
@@ -77,8 +83,9 @@ SEED = 0
 BATCH, PROMPTS, PROMPT_LEN, NEW_TOKENS = 8, 4, 1024, 64
 TRAIN_STEPS, TIMED_STEPS = 8, 5
 LR, CLIP, LOSS_SCALE = 3e-4, 1.0, 2.0 ** 15
-SOURCES = ("bsmm_fprop", "bsmm_updat", "bst_attn_fwd", "bst_attn_bwd",
-           "im2col", "bsmm_fine", "bsmm_window", "bsmm_merge")
+SOURCES = ("bsmm_xprop_mma", "bsmm_fprop", "bsmm_updat", "bst_attn_fwd",
+           "bst_attn_bwd", "im2col", "bsmm_fine", "bsmm_window",
+           "bsmm_merge")
 DTYPES = (torch.bfloat16, torch.float32, torch.float16)
 # |kernel - plain| <= TOL * max(1, max|plain|); f16 held at bf16 level
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 1e-2}
@@ -119,6 +126,9 @@ CANON_MODES = ("fine", "window", "auto", "grouped")
 # rounds its output once on both sides, in other summation orders, and
 # eight of them (then eight back) compound: 3e-2 of max|plain|.
 CHAIN_TOL = 3e-2
+# The tensor-core xprop kernel at every block size: a random hidden² layout
+# at this density (diagonal set), N rows (not a multiple of any TM).
+XPROP_HIDDEN, XPROP_DENSITY, XPROP_N = 1024, 0.3, 1000
 # The window's regime: bench.py's headline layout (make_layout("random",
 # 256, 0.25) from RandomState(0), feature_axis 0, W in +-0.1), at N 256
 # and 2048 (benchmarks/results_window.json's two shapes).
@@ -165,12 +175,24 @@ def compare(name, got, ref, tol):
     return err
 
 
-def timed(rows, key, err, fn, plain_fn, iters, card_line=None):
+def timed(rows, key, err, fn, plain_fn, iters, card_line=None, flops=None):
     ms = time_ms(fn, iters)
     plain_ms = time_ms(plain_fn, max(iters // 4, 5))
-    print(f"      kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+    print(f"      kernel {ms:.4f} ms"
+          + (f" ({flops / ms / 1e9:.2f} TFLOP/s)" if flops else "")
+          + f", plain {plain_ms:.4f} ms"
           + (f" [{card_line}]" if card_line else ""), flush=True)
     rows[key] = (err, ms, plain_ms)
+
+
+def same_bits(what, fn):
+    """Two runs of fn() give identical bits (fixed-order sums, no
+    atomics)."""
+    check(torch.equal(fn(), fn()), f"{what}: two runs equal bit for bit")
+
+
+def xprop_flops(op, N):
+    return 2 * N * op.blocks * op.bsize ** 2
 
 
 def serving_kernel_checks(model, plain, dev, g, rows):
@@ -183,11 +205,12 @@ def serving_kernel_checks(model, plain, dev, g, rows):
                 x = torch.randn((N, op.C), device=dev, generator=g).to(dtype)
                 w = (torch.randn(op.w_shape, device=dev, generator=g)
                      * 0.02).to(dtype)
-                err = compare(f"bsmm_fprop {name} N={N} C={op.C} K={op.K} "
-                              f"{dtype}", op(x, w), ref_op(x, w), TOL[dtype])
+                what = f"bsmm_fprop {name} N={N} C={op.C} K={op.K} {dtype}"
+                err = compare(what, op(x, w), ref_op(x, w), TOL[dtype])
+                same_bits(what, lambda: op(x, w))
                 timed(rows, ("fprop", name, N, dtype), err,
                       lambda: op(x, w), lambda: ref_op(x, w),
-                      20 if N > 1000 else 200)
+                      20 if N > 1000 else 200, flops=xprop_flops(op, N))
     c = model.config
     bst = model.bst
     scale = 1.0 / np.sqrt(model.hs)
@@ -219,12 +242,14 @@ def training_kernel_checks(model, plain, dev, g, rows):
             dy = torch.randn((N, op.K), device=dev, generator=g).to(dtype)
             w = (torch.randn(op.w_shape, device=dev, generator=g)
                  * 0.02).to(dtype)
-            err = compare(f"bsmm_bprop {name} N={N} K={op.K} -> C={op.C} "
-                          f"{dtype}", op._xprop(dy, w, "b"),
+            what = f"bsmm_bprop {name} N={N} K={op.K} -> C={op.C} {dtype}"
+            err = compare(what, op._xprop(dy, w, "b"),
                           ref_op._xprop(dy, w, "b"), TOL[dtype])
+            same_bits(what, lambda: op._xprop(dy, w, "b"))
             timed(rows, ("bprop", name, dtype), err,
                   lambda: op._xprop(dy, w, "b"),
-                  lambda: ref_op._xprop(dy, w, "b"), 20)
+                  lambda: ref_op._xprop(dy, w, "b"), 20,
+                  flops=xprop_flops(op, N))
             err = compare(f"bsmm_updat {name} N={N} {op.blocks} blocks "
                           f"{dtype}", op._updat(x, dy), ref_op._updat(x, dy),
                           UPDAT_TOL)
@@ -292,6 +317,47 @@ def training_kernel_checks(model, plain, dev, g, rows):
         del qkv, q, k, v, do, out, lse, out_ref, lse_ref, dvec
         del dq_ref, dk_ref, dv_ref, dk, dv
         torch.cuda.empty_cache()
+
+
+def xprop_block_size_checks(bt, dev, g):
+    """bsmm_xprop_mma.cu against its plain version at every block size,
+    in bf16 and f16, for fprop, bprop and the split route's partial tiles
+    (merged by merge_plain), each also run twice for equal bits."""
+    from blocksparse_tpu_torch.kernels import bsmm as bk
+    rng = np.random.RandomState(SEED)
+    for b in bk.BLOCK_SIZES:
+        n = XPROP_HIDDEN // b
+        lay = (rng.rand(n, n) < XPROP_DENSITY).astype(np.int32)
+        lay[np.arange(n), np.arange(n)] = 1
+        op = bt.BlocksparseMatMul(lay, block_size=b, feature_axis=1,
+                                  mode="grouped")
+        plain = bt.BlocksparseMatMul(lay, block_size=b, feature_axis=1,
+                                     impl="xla")
+        lut = op._lut(dev)
+        for dtype in (torch.bfloat16, torch.float16):
+            w = (torch.randn(op.w_shape, device=dev, generator=g)
+                 * 0.1).to(dtype)
+            for d in "fb":
+                x = torch.randn((XPROP_N, op.C if d == "f" else op.K),
+                                device=dev, generator=g).to(dtype)
+                ref = plain._xprop(x, w, d)
+                split = op._plan_tensors(dev, "split", d, bk.SPLIT_MAX_PHASES)
+                runs = {
+                    "unsplit": lambda: op._xprop(x, w, d),
+                    "partials": lambda: bk.bsmm_partials(
+                        x, w, split["tile_ptr"], lut[f"{d}_ent_in"],
+                        lut[f"{d}_ent_w"], b, split["tile_ptr"].numel() - 1,
+                        d == "b")}
+                for route, fn in runs.items():
+                    what = (f"bsmm_xprop_mma b{b} {d}prop {route} "
+                            f"N={XPROP_N} {op.blocks} blocks {dtype}")
+                    same_bits(what, fn)
+                    y = fn()
+                    if route == "partials":
+                        y = bk.merge_plain(y, split["merge_idx"].long(), b,
+                                           dtype)
+                    compare(what, y, ref, TOL[dtype])
+    torch.cuda.empty_cache()
 
 
 def bound(flops, nbytes, peak_flops=PEAK_FLOPS):
@@ -464,11 +530,11 @@ def dense_filter(conv, F):
     return wd.permute(0, 2, 1, 3, 4, 5).reshape(conv.K, conv.C, 3, 3)
 
 
-# bsmm_xprop_nc_kernel<T, B, TRANS, PARTIAL, ...>: fprop and bprop told
-# apart by TRANS
+# bsmm_xprop_mma_kernel<T, B, TRANS, PARTIAL, ...> (bf16, f16) and
+# bsmm_xprop_nc_kernel<...> (f32): fprop and bprop told apart by TRANS
 CONV_PARTS = (("im2col", ("im2col_kernel",)),
-              ("bsmm fprop", ("bsmm_xprop_nc_kernel", ", false, false")),
-              ("bsmm bprop", ("bsmm_xprop_nc_kernel", ", true, false")),
+              ("bsmm fprop", ("bsmm_xprop", ", false, false")),
+              ("bsmm bprop", ("bsmm_xprop", ", true, false")),
               ("bsmm updat", ("bsmm_updat_nc_kernel",)),
               ("col2im", ("col2im_kernel",)))
 
@@ -596,7 +662,8 @@ def conv_bsmm_checks(conv, plain, x, dev, g, rows):
         err = compare(f"{name} at the conv's shapes {what}",
                       op._xprop(a, w, d), ref._xprop(a, w, d), TOL[bf])
         timed(rows, ("conv", name), err, lambda: op._xprop(a, w, d),
-              lambda: ref._xprop(a, w, d), 10)
+              lambda: ref._xprop(a, w, d), 10,
+              flops=xprop_flops(op, X.shape[1]))
     err = compare(f"bsmm_updat at the conv's shapes {what}",
                   op._updat(X, dy), ref._updat(X, dy), UPDAT_TOL)
     timed(rows, ("conv", "bsmm_updat"), err, lambda: op._updat(X, dy),
@@ -729,6 +796,9 @@ def serving_path(bt, model, plain, cfg, dev, card_line):
     del caches, logits, ref_logits
     torch.cuda.empty_cache()
     decode_split(bt, model, plain, cfg, dev, card_line, prompts, out)
+    # the profiler last: the decode turns are timed without it, as before
+    profile_port_kernels(f"forward batch {BATCH} x {cfg.ctx}",
+                         lambda: model(tokens), fwd_ms)
     return launches
 
 
@@ -780,7 +850,38 @@ def decode_split(bt, model, plain, cfg, dev, card_line, prompts, out):
           f"grouped median {np.median(rates['grouped']):.1f} of "
           f"{' '.join(f'{r:.1f}' for r in rates['grouped'])} (prefill "
           f"{prefill_s * 1e3:.2f} ms subtracted)", flush=True)
+    decode_step_split(model, full, out, card_line)
     torch.cuda.empty_cache()
+
+
+def decode_step_split(model, full, out, card_line, steps=10):
+    """Where a decode step's time goes (MLP on the split route): the
+    host's time to enqueue one ``decode_forward`` against the device time
+    of its kernels (profiler), and the partial and merge kernels' device
+    time a launch."""
+    tok = out[:, PROMPT_LEN]
+    _, caches = model.prefill(full)
+    model.decode_forward(tok, caches, PROMPT_LEN)            # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(steps):
+        model.decode_forward(tok, caches, PROMPT_LEN + 1 + i)
+    host_ms = (time.perf_counter() - t) / steps * 1e3
+    torch.cuda.synchronize()
+    _, kernels = device_events(lambda: [
+        model.decode_forward(tok, caches, PROMPT_LEN + 1 + steps + i)
+        for i in range(steps)])
+    dev_ms = sum(e.self_device_time_total for e in kernels) / steps / 1e3
+    per_launch = []
+    for name in ("bsmm_xprop", "bsmm_merge"):
+        hits = [e for e in kernels if name in e.key]
+        n = sum(e.count for e in hits)
+        us = sum(e.self_device_time_total for e in hits) / max(n, 1)
+        per_launch.append(f"{name} {us:.2f} us a launch ({n // steps} a "
+                          f"step)")
+    print(f"decode step [{card_line}]: host enqueue {host_ms:.2f} ms, "
+          f"device {dev_ms:.3f} ms ({dev_ms / host_ms:.0%} of it; mean of "
+          f"{steps}, profiler); " + ", ".join(per_launch), flush=True)
 
 
 def compare_tensors(what, got, ref, tol, live=None, flip_bound=None):
@@ -907,13 +1008,14 @@ def training_path(bt, model, plain, cfg, dev, card_line, profile_out):
           f"{ms:.2f} ms (mean of {TIMED_STEPS}, CUDA events) = "
           f"{BATCH * cfg.ctx / ms * 1e3:.0f} tokens/s; peak device memory "
           f"{peak:.2f} GiB", flush=True)
-    profile_step(one_step, ms, profile_out)
+    profile_port_kernels("train step", one_step, ms, profile_out)
     return launches
 
 
-PORT_KERNELS = ("bsmm_xprop_nc_kernel", "bsmm_updat_nc_kernel",
-                "bst_attn_fwd_kernel", "bst_attn_dq_kernel",
-                "bst_attn_dkv_kernel")
+# name fragments of the port's kernels; "bsmm_xprop" matches both xprop
+# kernels (bsmm_xprop_mma_kernel in bf16/f16, bsmm_xprop_nc_kernel in f32)
+PORT_KERNELS = ("bsmm_xprop", "bsmm_updat_nc_kernel", "bst_attn_fwd_kernel",
+                "bst_attn_dq_kernel", "bst_attn_dkv_kernel")
 
 
 def device_events(fn):
@@ -931,11 +1033,11 @@ def device_events(fn):
     return events, [e for e in events if e.device_type == DeviceType.CUDA]
 
 
-def profile_step(one_step, step_ms, table_path):
-    """One train step under torch.profiler: device time in all and by port
-    kernel, against the unprofiled step time; the full table goes to
-    ``table_path`` when one is given."""
-    events, kernels = device_events(one_step)
+def profile_port_kernels(label, fn, wall_ms, table_path=None):
+    """One fn() (a train step, a forward) under torch.profiler: device time
+    in all and by port kernel, against its unprofiled time; the full table
+    goes to ``table_path`` when one is given."""
+    events, kernels = device_events(fn)
     total = sum(e.self_device_time_total for e in kernels) / 1e3
     by_kernel = {}
     for name in PORT_KERNELS:
@@ -943,9 +1045,9 @@ def profile_step(one_step, step_ms, table_path):
         by_kernel[name] = (sum(e.self_device_time_total for e in hits) / 1e3,
                            sum(e.count for e in hits))
     ours = sum(ms for ms, _ in by_kernel.values())
-    print(f"train step profile: {total:.2f} ms of device time in one "
-          f"profiled step, {total / step_ms:.0%} of the unprofiled "
-          f"{step_ms:.2f} ms; port kernels {ours:.2f} ms "
+    print(f"{label} profile: {total:.2f} ms of device time in one "
+          f"profiled run, {total / wall_ms:.0%} of the unprofiled "
+          f"{wall_ms:.2f} ms; port kernels {ours:.2f} ms "
           f"({ours / total:.0%}): " + ", ".join(
               f"{name} {ms:.2f} ms ({n})"
               for name, (ms, n) in by_kernel.items()), flush=True)
@@ -1221,8 +1323,9 @@ def window_op(bt):
 
 def window_path(ops, W, dev, g, card_line):
     """Window against grouped at N 256 and 2048, fprop and bprop, counted,
-    window equal to grouped (the same sums in the same order), both within
-    TOL of the plain op; times in turns.  Returns the launches."""
+    each within TOL of the plain op (in bf16 grouped sums on the tensor
+    cores, in another order than window); times in turns.  Returns the
+    launches."""
     bf = torch.bfloat16
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     w = torch.as_tensor(W, device=dev).to(bf)
@@ -1247,10 +1350,9 @@ def window_path(ops, W, dev, g, card_line):
                 add_counts(total, launches)
         for i, d in enumerate("fb"):
             ref = ops["plain"]._xprop(x, w, d)
-            check(torch.equal(outs["window"][i], outs["grouped"][i]),
-                  f"window regime N={N} {d}prop: window equal to grouped")
-            compare(f"window regime N={N} {d}prop against impl=xla",
-                    outs["window"][i], ref, TOL[bf])
+            for m in ("window", "grouped"):
+                compare(f"window regime N={N} {d}prop {m} against impl=xla",
+                        outs[m][i], ref, TOL[bf])
         times = {"window": [], "grouped": []}
         for m in ("window", "grouped", "grouped", "window"):
             times[m].append((time_ms(lambda: ops[m]._xprop(x, w, "f"), 10),
@@ -1358,6 +1460,7 @@ def main():
     rows = {}
     serving_kernel_checks(model, plain, dev, g, rows)
     training_kernel_checks(model, plain, dev, g, rows)
+    xprop_block_size_checks(bt, dev, g)
 
     # 4. the serving path, counted
     serve_launches = serving_path(bt, model, plain, cfg, dev, card_line)
@@ -1397,9 +1500,9 @@ def main():
 
     N, bf = BATCH * cfg.ctx, torch.bfloat16
     kernels = [  # (name, source, TPU kernel, path's launches, row)
-        ("bsmm_fprop", "bsmm_fprop.cu", "bsmm.py:1422",
+        ("bsmm_fprop", "bsmm_xprop_mma.cu", "bsmm.py:1422",
          serve_launches["bsmm_fprop"], rows[("fprop", "bsmm1", N, bf)]),
-        ("bsmm_bprop", "bsmm_fprop.cu", "bsmm.py:1422",
+        ("bsmm_bprop", "bsmm_xprop_mma.cu", "bsmm.py:1422",
          train_launches["bsmm_bprop"], rows[("bprop", "bsmm1", bf)]),
         ("bsmm_updat", "bsmm_updat.cu", "bsmm.py:1972",
          train_launches["bsmm_updat"], rows[("updat", "bsmm1", bf)]),

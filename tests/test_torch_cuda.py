@@ -17,10 +17,14 @@ im2col is a copy: exact.  col2im sums the same f32 values in the same
 order as its plain version: exact in f32, within one rounding of the
 output (the dtype's eps relative to the largest output) in bf16 and f16.
 The conv path against its plain path: the matmul's tolerances.  The
-fine and window kernels sum each output in the LUT's order with the
-unsplit kernel's fmaf chain: equal to it bit for bit in every dtype, and
-to the plain version within the matmul's tolerances.  The merge adds the
-same f32 tiles in the same order as its plain version: exact.
+unsplit xprop kernel runs f32 on the CUDA cores (csrc/bsmm_fprop.cu) and
+bf16/f16 on the tensor cores (csrc/bsmm_xprop_mma.cu), each in a fixed
+order: two runs agree bit for bit.  The fine and window kernels sum each
+output in the LUT's order with bsmm_fprop.cu's fmaf chain: equal to the
+unsplit kernel bit for bit in f32; in bf16 and f16 (another order there)
+each is held against the plain version within the matmul's tolerances.
+The merge adds the same f32 tiles in the same order as its plain
+version: exact.
 """
 import numpy as np
 import pytest
@@ -59,30 +63,115 @@ def random_layout(CB, KB, density, seed):
     return layout
 
 
+def _xprop_layout(bsize, seed):
+    """A square layout whose output column 0, in fprop and in bprop, holds
+    3·KC/b + 1 entries (KC = max(b, 64) contraction rows a stage of
+    bsmm_xprop_mma.cu's ring: more than three stages, and an odd count, so
+    b8's last entry pair is padded), with output column 2 and input
+    block-row 2 empty."""
+    n = 3 * max(bsize, 64) // bsize + 2
+    layout = random_layout(n, n, 0.5, seed=seed)
+    layout[:, 0] = 1
+    layout[0, :] = 1
+    layout[:, 2] = 0
+    layout[2, :] = 0
+    return layout
+
+
+def _check_xprop_kernel(device, bsize, dtype, d, route):
+    """fprop (d "f") or bprop ("b") of the unsplit kernel (route "unsplit",
+    mode="grouped") or its partial tiles (route "partials", merged by
+    merge_plain) against the plain version at N 1, 5, 300 and TM + 1: one
+    launch a call on the direction's counter, two runs equal bit for bit,
+    the empty column (and the partials' sentinel tile) exactly zero."""
+    layout = _xprop_layout(bsize, seed=bsize + (d == "b"))
+    op = BlocksparseMatMul(layout, block_size=bsize, feature_axis=1,
+                           mode="grouped")
+    plain = BlocksparseMatMul(layout, block_size=bsize, feature_axis=1,
+                              impl="xla")
+    lut = op._lut(device)
+    counter = bsmm_kernels.bsmm_bprop if d == "b" else bsmm_kernels.bsmm_fprop
+    split = op._plan_tensors(device, "split", d, 8)
+    n_tiles = split["tile_ptr"].numel() - 1
+    g = torch.Generator(device=device).manual_seed(bsize)
+    w = torch.randn(op.w_shape, device=device, generator=g).to(dtype)
+    width = op.C if d == "f" else op.K
+    for N in (1, 5, 300, bsmm_kernels.XPROP_TM[bsize] + 1):
+        x = torch.randn((N, width), device=device, generator=g).to(dtype)
+
+        def run():
+            if route == "unsplit":
+                return op._xprop(x, w, d)
+            return bsmm_kernels.bsmm_partials(
+                x, w, split["tile_ptr"], lut[f"{d}_ent_in"], lut[f"{d}_ent_w"],
+                bsize, n_tiles, d == "b")
+        before = counter.launches
+        y, again = run(), run()
+        torch.cuda.synchronize()
+        assert counter.launches == before + 2
+        assert torch.equal(y, again)
+        if route == "partials":
+            assert y.dtype == torch.float32 and (y[:, -bsize:] == 0).all()
+            y = bsmm_kernels.merge_plain(y, split["merge_idx"].long(), bsize,
+                                         dtype)
+        assert y.dtype == dtype and y.shape == (N, width)
+        ref = plain._xprop(x, w, d).float()
+        torch.testing.assert_close(
+            y.float(), ref, rtol=0,
+            atol=_tol(dtype, BSMM_BF16_TOL, ref.abs().max().item()))
+        assert (y[:, 2 * bsize:3 * bsize] == 0).all()
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", ["unsplit", "partials"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("bsize", [8, 16, 32, 64, 128])
-def test_bsmm_kernel_matches_plain(cuda, bsize, dtype):
-    layout = random_layout(4, 6, 0.5, seed=bsize)
-    layout[:, 2] = 0                       # an empty output block-column
-    layout[0, 0] = 1
-    port = BlocksparseMatMul(layout, block_size=bsize, feature_axis=1)
-    plain = BlocksparseMatMul(layout, block_size=bsize, feature_axis=1,
-                              impl="xla")
-    g = torch.Generator(device=cuda).manual_seed(0)
-    for N in (1, 5, 300):
-        x = torch.randn((N, port.C), device=cuda, generator=g).to(dtype)
-        w = torch.randn(port.w_shape, device=cuda, generator=g).to(dtype)
-        before = bsmm_kernels.bsmm_fprop.launches
-        y = port(x, w)
-        torch.cuda.synchronize()
-        assert bsmm_kernels.bsmm_fprop.launches == before + 1
-        ref = plain(x, w).float()
-        tol = (F32_TOL if dtype == torch.float32 else BSMM_BF16_TOL) \
-            * max(1.0, ref.abs().max().item())
-        torch.testing.assert_close(y.float(), ref, rtol=0, atol=tol)
-        assert (y[:, 2 * bsize:3 * bsize] == 0).all()
+def test_bsmm_kernel_matches_plain(cuda, bsize, dtype, route):
+    _check_xprop_kernel(cuda, bsize, dtype, "f", route)
+
+
+@pytest.mark.cuda
+def test_xprop_kernel_by_dtype(cuda, monkeypatch):
+    """f32 launches bsmm_fprop.cu's kernel, bf16 and f16 bsmm_xprop_mma.cu's
+    (fprop, bprop and partials alike); the latter refuses f32 itself, and an
+    x that starts off a 16-byte boundary gives the same result."""
+    from blocksparse_tpu_torch.kernels import _build
+    layout = random_layout(4, 4, 0.5, seed=3)
+    op = BlocksparseMatMul(layout, block_size=16, feature_axis=1,
+                           mode="grouped")
+    lut = op._lut(cuda)
+    split = op._plan_tensors(cuda, "split", "f", 2)
+    used = []
+    build_fn = _build.function
+
+    def spy(name, fn_name, argtypes):
+        used.append((name, fn_name))
+        return build_fn(name, fn_name, argtypes)
+    monkeypatch.setattr(_build, "function", spy)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for dtype in (torch.float32, *HALF):
+        x = torch.randn((40, op.C), device=cuda, generator=g).to(dtype)
+        w = torch.randn(op.w_shape, device=cuda, generator=g).to(dtype)
+        used.clear()
+        y = op._xprop(x, w, "f")
+        op._xprop(torch.randn((40, op.K), device=cuda, generator=g).to(dtype),
+                  w, "b")
+        bsmm_kernels.bsmm_partials(x, w, split["tile_ptr"], lut["f_ent_in"],
+                                   lut["f_ent_w"], 16,
+                                   split["tile_ptr"].numel() - 1)
+        lib, fn = ("bsmm_fprop", "bsmm_xprop_nc") if dtype == torch.float32 \
+            else ("bsmm_xprop_mma", "bsmm_xprop_mma_nc")
+        assert used == [(lib, fn), (lib, fn), (lib, fn + "_partials")]
+        off = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)[1:]
+        off = off.view_as(x).copy_(x)
+        assert off.data_ptr() % 16 and torch.equal(op._xprop(off, w, "f"), y)
+    refused = build_fn("bsmm_xprop_mma", "bsmm_xprop_mma_nc",
+                       bsmm_kernels._XPROP_ARGS)(
+        0, 16, 0, x.data_ptr(), w.data_ptr(), lut["f_row_ptr"].data_ptr(),
+        lut["f_ent_in"].data_ptr(), lut["f_ent_w"].data_ptr(), y.data_ptr(),
+        40, op.C, op.K, bsmm_kernels._stream(x))
+    assert refused == 1                      # cudaErrorInvalidValue
 
 
 @pytest.mark.cuda
@@ -203,27 +292,11 @@ def _tol(dtype, half_tol, scale):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", ["unsplit", "partials"])
 @pytest.mark.parametrize("dtype", [torch.float32, *HALF])
 @pytest.mark.parametrize("bsize", [8, 16, 32, 64, 128])
-def test_bsmm_bprop_kernel_matches_plain(cuda, bsize, dtype):
-    layout = random_layout(5, 4, 0.5, seed=bsize + 1)
-    layout[2, :] = 0                       # an empty input block-row
-    port = BlocksparseMatMul(layout, block_size=bsize, feature_axis=1)
-    plain = BlocksparseMatMul(layout, block_size=bsize, feature_axis=1,
-                              impl="xla")
-    g = torch.Generator(device=cuda).manual_seed(1)
-    w = torch.randn(port.w_shape, device=cuda, generator=g).to(dtype)
-    for N in (1, 5, 300):
-        dy = torch.randn((N, port.K), device=cuda, generator=g).to(dtype)
-        before = bsmm_kernels.bsmm_bprop.launches
-        dx = port._xprop(dy, w, "b")
-        torch.cuda.synchronize()
-        assert bsmm_kernels.bsmm_bprop.launches == before + 1
-        ref = plain._xprop(dy, w, "b").float()
-        torch.testing.assert_close(
-            dx.float(), ref, rtol=0,
-            atol=_tol(dtype, BSMM_BF16_TOL, ref.abs().max().item()))
-        assert (dx[:, 2 * bsize:3 * bsize] == 0).all()
+def test_bsmm_bprop_kernel_matches_plain(cuda, bsize, dtype, route):
+    _check_xprop_kernel(cuda, bsize, dtype, "b", route)
 
 
 @pytest.mark.cuda
@@ -611,9 +684,11 @@ def _moved(before):
 @pytest.mark.parametrize("bsize", [8, 16, 32, 64, 128])
 def test_fine_and_window_kernels_match_plain_and_unsplit(cuda, bsize, dtype):
     """fprop and bprop of mode="fine" (b8-b32) and mode="window" against
-    the plain version, and bit for bit against the unsplit kernel, with an
-    empty output column, an empty input row, a window count that does not
-    divide C and N of 1, 5 and 300."""
+    the plain version, and in f32 bit for bit against the unsplit kernel
+    (in bf16 and f16 that kernel sums on the tensor cores, in another
+    order, and is itself held against the plain version), with an empty
+    output column, an empty input row, a window count that does not divide
+    C and N of 1, 5 and 300."""
     CB = 2 * 256 // bsize + 3                # 2 windows and a partial one
     layout = random_layout(CB, 6, 0.4, seed=bsize + 3)
     layout[:, 2] = 0
@@ -628,16 +703,18 @@ def test_fine_and_window_kernels_match_plain_and_unsplit(cuda, bsize, dtype):
         for d, width in (("f", plain.C), ("b", plain.K)):
             x = torch.randn((N, width), device=cuda, generator=g).to(dtype)
             ref = plain._xprop(x, w, d).float()
+            atol = _tol(dtype, BSMM_BF16_TOL, ref.abs().max().item())
             unsplit = ops["grouped"]._xprop(x, w, d)
+            torch.testing.assert_close(unsplit.float(), ref, rtol=0,
+                                       atol=atol)
             for m in modes:
                 before = _counts()
                 y = ops[m]._xprop(x, w, d)
                 torch.cuda.synchronize()
                 assert _moved(before) == {f"bsmm_{m}": 1}
-                assert torch.equal(y, unsplit), (m, d, N)
-                torch.testing.assert_close(
-                    y.float(), ref, rtol=0,
-                    atol=_tol(dtype, BSMM_BF16_TOL, ref.abs().max().item()))
+                if dtype == torch.float32:
+                    assert torch.equal(y, unsplit), (m, d, N)
+                torch.testing.assert_close(y.float(), ref, rtol=0, atol=atol)
             empty = slice(2 * bsize, 3 * bsize) if d == "f" \
                 else slice(bsize, 2 * bsize)
             assert (y[:, empty] == 0).all()
