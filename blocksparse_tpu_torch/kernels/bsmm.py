@@ -15,14 +15,18 @@ ring); f32 runs ``csrc/bsmm_fprop.cu`` in full fp32 on the CUDA cores (no
 TF32: the reference's f32 dots are exact).  ``bsmm_updat``
 (dw[e] = x_cᵀ·dy_k summed over N, in f32) replaces
 ``updat_pallas_dense_tile`` and, for canonical weights,
-``updat_pallas_grouped`` and ``updat_pallas``; it runs
-``csrc/bsmm_updat.cu``.  See the sources for what bounds each on the
-H100 and what the designs do about it.
+``updat_pallas_grouped`` and ``updat_pallas``.  bf16 and f16 run
+``csrc/bsmm_updat_mma.cu`` on the tensor cores: the layout's blocks in
+groups that share one staged x (or dy) tile (``updat_plan``), N cut into
+runs where the groups alone would leave SMs idle (``updat_splits``), the
+runs' f32 partials summed in order by ``bsmm_updat_reduce``.  f32 runs
+``csrc/bsmm_updat.cu`` on the CUDA cores.  See the sources for what
+bounds each on the H100 and what the designs do about it.
 
 ``xprop_plain`` and ``updat_plain`` are the plain PyTorch versions, the
 ports of ``xprop_xla`` and ``updat_xla`` (gather, einsum, ``index_add_``).
 They are what runs for tensors on the CPU and what the kernels are held
-against on the card.
+against on the card; ``updat_reduce_plain`` is the split's second pass.
 
 Three more schedules of the same product, each with its host-side plan
 built here in NumPy from the LUT's CSR:
@@ -66,6 +70,17 @@ WINDOW_SG = {8: 16, 16: 8, 32: 8, 64: 4, 128: 2}
 # SPLIT_MIN_PHASE entries
 SPLIT_MAX_PHASES = 8
 SPLIT_MIN_PHASE = 4
+# bsmm_updat_mma.cu: slots a thread block stages, UPDAT_ROWS // b layout
+# blocks of b columns; token rows a ring stage; its thread blocks resident
+# on one SM
+UPDAT_ROWS = 256
+UPDAT_TN = 32
+UPDAT_RESIDENT = {8: 2, 16: 2, 32: 2, 64: 2, 128: 1}
+# the updat's N split: aim for UPDAT_WAVES waves of resident thread blocks,
+# in at most UPDAT_MAX_SPLIT runs of at least UPDAT_MIN_RUN rows
+UPDAT_WAVES = 2
+UPDAT_MAX_SPLIT = 16
+UPDAT_MIN_RUN = 512
 
 
 def xprop_plain(x, w, in_blk, w_blk, out_blk, n_out_blocks, bsize, axis,
@@ -108,6 +123,15 @@ def updat_plain(x, dy, ent_c, ent_k, bsize, axis):
     xb = x.reshape(N, C // bsize, bsize)[:, ent_c].to(f32)
     yb = dy.reshape(N, -1, bsize)[:, ent_k].to(f32)
     return torch.einsum("nec,nek->eck", xb, yb)
+
+
+def updat_reduce_plain(parts):
+    """Plain version of ``bsmm_updat_reduce``: parts[0] + parts[1] + ... in
+    that order, in f32."""
+    acc = parts[0].float()
+    for s in range(1, parts.shape[0]):
+        acc = acc + parts[s]
+    return acc
 
 
 def merge_plain(tiles, idx, bsize, out_dtype=None):
@@ -214,12 +238,73 @@ def split_plan(row_ptr, phases):
             "merge_idx": idx.astype(np.int32), "tiles": T + 1}
 
 
+def updat_plan(ent_c, ent_k, bsize):
+    """The tensor-core updat's plan: the layout's blocks (the updat list
+    ent_c, ent_k) cut into groups of at most G = UPDAT_ROWS // bsize that
+    share one operand tile.  "by_c": the groups are x block-rows (a thread
+    block stages x[:, c] once and the blocks' dy column tiles in its
+    slots); else dy block-columns (dy[:, k] shared, x tiles in the slots):
+    whichever axis gives fewer groups, x block-rows on a tie.  grp_q
+    (groups,): the shared block; slot_p, slot_e (groups, G): each slot's
+    block of the other operand and its block id, -1 after the group's last
+    entry (slots fill from 0); a shared block's entries go in ascending
+    order of the other block, G to a group.  Arrays int32."""
+    ent_c, ent_k = (np.asarray(a, np.int64) for a in (ent_c, ent_k))
+    G = UPDAT_ROWS // bsize
+
+    def cut(shared, other):
+        order = np.lexsort((other, shared))
+        s = shared[order]
+        starts = np.flatnonzero(np.r_[True, s[1:] != s[:-1]])
+        lens = np.diff(np.r_[starts, len(s)])
+        n_grp = -(-lens // G)
+        row = np.repeat(np.arange(len(starts)), lens)
+        pos = np.arange(len(s)) - starts[row]
+        grp = (np.cumsum(n_grp) - n_grp)[row] + pos // G
+        slot_p = np.full((int(n_grp.sum()), G), -1, np.int32)
+        slot_e = slot_p.copy()
+        slot_p[grp, pos % G] = other[order]
+        slot_e[grp, pos % G] = order
+        return {"grp_q": np.repeat(s[starts], n_grp).astype(np.int32),
+                "slot_p": slot_p, "slot_e": slot_e}
+
+    by_c, by_k = cut(ent_c, ent_k), cut(ent_k, ent_c)
+    if len(by_c["grp_q"]) <= len(by_k["grp_q"]):
+        return {**by_c, "by_c": True}
+    return {**by_k, "by_c": False}
+
+
+def updat_splits(N, groups, bsize, sm_count):
+    """The updat's N split: the number S of runs to cut N rows into (1 =
+    unsplit).  It splits when the plan's ``groups`` thread blocks are fewer
+    than UPDAT_WAVES waves of the card's resident ones, target =
+    UPDAT_WAVES · UPDAT_RESIDENT[bsize] · sm_count, and N holds two runs of
+    UPDAT_MIN_RUN rows; then S = min(UPDAT_MAX_SPLIT, ceil(target /
+    groups), N // UPDAT_MIN_RUN).  Shapes and the SM count only."""
+    target = UPDAT_WAVES * UPDAT_RESIDENT[bsize] * sm_count
+    if groups >= target or N < 2 * UPDAT_MIN_RUN:
+        return 1
+    return min(UPDAT_MAX_SPLIT, -(-target // groups), N // UPDAT_MIN_RUN)
+
+
+def updat_run_rows(N, splits):
+    """Token rows a run of the split holds: ceil(N / splits) rounded up to
+    a ring stage (UPDAT_TN); all of N unsplit."""
+    if splits <= 1:
+        return N
+    per_run = -(-N // splits)
+    return -(-per_run // UPDAT_TN) * UPDAT_TN
+
+
 # ---------------- the kernels' wrappers ----------------
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _XPROP_ARGS = [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
 _UPDAT_ARGS = [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
 _MERGE_ARGS = [_I, _I, _P, _P, _P, _I, _I, _I, _I, _P]
+_UPDAT_MMA_ARGS = [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                   _I, _I, _P]
+_REDUCE_ARGS = [_P, _P, _I, _I, _P]
 
 
 def _check_common(fn, x, others, bsize, ints=()):
@@ -242,6 +327,13 @@ def _check_common(fn, x, others, bsize, ints=()):
 
 def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _aligned(t):
+    """t, or a fresh (16-byte aligned) copy of a contiguous view that starts
+    off a 16-byte boundary: the tensor-core kernels copy 16 bytes a
+    thread."""
+    return t.clone() if t.is_contiguous() and t.data_ptr() % 16 else t
 
 
 def _xprop(fn, source, cfn, x, w, ints, n_ptr, bsize, n_out_blocks, trans_w,
@@ -285,16 +377,13 @@ def _unsplit(fn, x, w, ints, n_ptr, bsize, n_out_blocks, trans_w,
              partial=False):
     """The unsplit xprop kernel for x's dtype: ``csrc/bsmm_fprop.cu`` (fp32
     on the CUDA cores) for f32, ``csrc/bsmm_xprop_mma.cu`` (tensor cores)
-    for bf16 and f16.  The latter copies 16 bytes a thread, so an x or w
-    that is a view starting off a 16-byte boundary is first copied to a
-    fresh (aligned) tensor."""
+    for bf16 and f16 (x and w 16-byte aligned, ``_aligned``)."""
     suffix = "_partials" if partial else ""
     if x.dtype == torch.float32:
         source, cfn = "bsmm_fprop", "bsmm_xprop_nc" + suffix
     else:
         source, cfn = "bsmm_xprop_mma", "bsmm_xprop_mma_nc" + suffix
-        x, w = (t.clone() if t.is_contiguous() and t.data_ptr() % 16 else t
-                for t in (x, w))
+        x, w = _aligned(x), _aligned(w)
     return _xprop(fn, source, cfn, x, w, ints, n_ptr, bsize, n_out_blocks,
                   trans_w, out_dtype=torch.float32 if partial else None)
 
@@ -408,11 +497,19 @@ def bsmm_merge(tiles, idx, bsize, out_dtype):
     return y
 
 
-def bsmm_updat(x, dy, ent_c, ent_k, bsize):
+def bsmm_updat(x, dy, ent_c, ent_k, bsize, plan=None, splits=1):
     """dw (blocks, bsize, bsize) f32 = x_cᵀ · dy_k per layout block, summed
     over N, on the card.  x (N, C), dy (N, K): contiguous, one dtype (f32,
-    bf16 or f16); ent_c, ent_k: (blocks,) int32, the updat list.  One
-    thread block per layout block sums all of N in a fixed order."""
+    bf16 or f16); ent_c, ent_k: (blocks,) int32, the updat list.
+
+    f32 runs ``csrc/bsmm_updat.cu`` (one thread block per layout block
+    sums all of N; ``plan`` and ``splits`` are not read).  bf16 and f16
+    run ``csrc/bsmm_updat_mma.cu`` on the tensor cores over ``plan``
+    (``updat_plan``: grp_q, slot_p, slot_e as int32 tensors on x's
+    device, and by_c); with ``splits`` > 1 in runs of
+    ``updat_run_rows(N, splits)`` rows, whose f32 partials
+    ``bsmm_updat_reduce`` sums in order.  Each sum runs in a fixed
+    order."""
     _check_common("bsmm_updat", x, (("dy", dy),), bsize,
                   (("ent_c", ent_c), ("ent_k", ent_k)))
     if dy.dtype != x.dtype:
@@ -428,22 +525,76 @@ def bsmm_updat(x, dy, ent_c, ent_k, bsize):
     if ent_c.numel() != ent_k.numel():
         raise ValueError("ent_c and ent_k must have one entry per block")
     (N, C), K, blocks = x.shape, dy.shape[1], ent_c.numel()
-    dw = torch.empty((blocks, bsize, bsize), dtype=torch.float32,
-                     device=x.device)
-    with torch.cuda.device(x.device):
-        err = _build.function("bsmm_updat", "bsmm_updat_nc", _UPDAT_ARGS)(
-            _DTYPE_CODE[x.dtype], bsize, x.data_ptr(), dy.data_ptr(),
-            ent_c.data_ptr(), ent_k.data_ptr(), dw.data_ptr(), N, C, K, blocks,
-            _stream(x))
+    if x.dtype == torch.float32:
+        dw = torch.empty((blocks, bsize, bsize), dtype=torch.float32,
+                         device=x.device)
+        with torch.cuda.device(x.device):
+            err = _build.function("bsmm_updat", "bsmm_updat_nc", _UPDAT_ARGS)(
+                _DTYPE_CODE[x.dtype], bsize, x.data_ptr(), dy.data_ptr(),
+                ent_c.data_ptr(), ent_k.data_ptr(), dw.data_ptr(), N, C, K,
+                blocks, _stream(x))
+    else:
+        if plan is None:
+            raise ValueError("bsmm_updat in bf16/f16 runs over updat_plan's "
+                             "groups: pass plan")
+        ints = tuple((k, plan[k]) for k in ("grp_q", "slot_p", "slot_e"))
+        _check_common("bsmm_updat", x, (), bsize, ints)
+        groups, G = plan["grp_q"].numel(), UPDAT_ROWS // bsize
+        if tuple(plan["slot_p"].shape) != (groups, G) or \
+                tuple(plan["slot_e"].shape) != (groups, G):
+            raise ValueError(f"slot_p and slot_e must be ({groups}, {G})")
+        rows = updat_run_rows(N, splits)
+        runs = -(-N // rows) if splits > 1 else 1
+        x, dy = _aligned(x), _aligned(dy)
+        p, q, ldp, ldq = (dy, x, K, C) if plan["by_c"] else (x, dy, C, K)
+        out = torch.empty((runs, blocks, bsize, bsize), dtype=torch.float32,
+                          device=x.device)
+        with torch.cuda.device(x.device):
+            err = _build.function("bsmm_updat_mma", "bsmm_updat_mma_nc",
+                                  _UPDAT_MMA_ARGS)(
+                _DTYPE_CODE[x.dtype], bsize, int(plan["by_c"]), p.data_ptr(),
+                q.data_ptr(), *(t.data_ptr() for _, t in ints),
+                out.data_ptr(), N, ldp, ldq, groups, runs, rows, blocks,
+                _stream(x))
     if err != 0:
         raise RuntimeError(f"bsmm_updat launch failed: cudaError {err}")
     bsmm_updat.launches += 1
+    if x.dtype == torch.float32:
+        return dw
+    return out[0] if runs == 1 else bsmm_updat_reduce(out)
+
+
+def bsmm_updat_reduce(parts):
+    """The updat split's second pass on the card: parts[0] + parts[1] + ...
+    in that order, in f32 (equal bit for bit to ``updat_reduce_plain``).
+    parts: (S, ...) contiguous f32 on a CUDA device, a partial's size a
+    multiple of 4.  Raises on anything else."""
+    if not parts.is_cuda:
+        raise ValueError("bsmm_updat_reduce launches a CUDA kernel: its "
+                         "input must be on a CUDA device")
+    if parts.dtype != torch.float32 or not parts.is_contiguous() \
+            or parts.dim() < 2 or parts[0].numel() % 4:
+        raise ValueError(f"parts must be a contiguous f32 (S, ...) array "
+                         f"with a partial's size a multiple of 4, got "
+                         f"{parts.dtype} {tuple(parts.shape)}")
+    dw = torch.empty(parts.shape[1:], dtype=torch.float32,
+                     device=parts.device)
+    with torch.cuda.device(parts.device):
+        err = _build.function("bsmm_updat_mma", "bsmm_updat_reduce_nc",
+                              _REDUCE_ARGS)(
+            parts.data_ptr(), dw.data_ptr(), parts.shape[0],
+            parts[0].numel() // 4, _stream(parts))
+    if err != 0:
+        raise RuntimeError(f"bsmm_updat_reduce launch failed: cudaError "
+                           f"{err}")
+    bsmm_updat_reduce.launches += 1
     return dw
 
 
 bsmm_fprop.launches = 0
 bsmm_bprop.launches = 0
 bsmm_updat.launches = 0
+bsmm_updat_reduce.launches = 0
 bsmm_fine.launches = 0
 bsmm_window.launches = 0
 bsmm_merge.launches = 0

@@ -297,10 +297,12 @@ class SparseTransformerLM(nn.Module):
         return softmax_cross_entropy(self._full_context(tokens),
                                      targets).mean()
 
-    def make_train_step(self, optimizer: opt.AdamOptimizer, clip_norm=1.0):
+    def make_train_step(self, optimizer: opt.AdamOptimizer, mesh=None,
+                        clip_norm=1.0):
         """Returns train_step(opt_state, tokens, targets, loss_scale) ->
         (opt_state, metrics, loss_scale), the single-device branch of the
-        JAX ``make_train_step``.
+        JAX ``make_train_step``: a ``mesh`` other than None (its sharded
+        branch) is not ported and raises.
 
         It takes the gradient of loss·loss_scale, clips by the global norm
         of the unscaled gradient, applies ``optimizer`` and writes the new
@@ -309,6 +311,10 @@ class SparseTransformerLM(nn.Module):
         below 1); otherwise the scale grows by 2^(1/2000) (not above
         2^24).  metrics holds loss, grad_norm and norm_scale.  Everything
         stays on the device: no value is read back to the host."""
+        if mesh is not None:
+            raise NotImplementedError("make_train_step(mesh=...) (the "
+                                      "sharded train step) is not ported "
+                                      "yet")
         names, params = zip(*self.named_parameters())
 
         def train_step(opt_state, tokens, targets, loss_scale):

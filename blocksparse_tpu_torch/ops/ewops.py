@@ -11,18 +11,19 @@ import torch
 _FLOATS = (torch.float32, torch.float16, torch.bfloat16)
 
 
-def swish(x, alpha=1.0):
+def swish(x, alpha=1.0, name=None):
     return x * torch.sigmoid(alpha * x)
 
 
-def fast_gelu(x):
+def fast_gelu(x, name=None):
     """sigmoid-approx gelu == swish(1.702)."""
     return swish(x, alpha=1.702)
 
 
-def float_cast(x, dtype, dx_dtype=None):
+def float_cast(x, dtype, dx_dtype=None, name=None):
     """Cast to a float dtype, with an independently chosen dtype for the
-    gradient on the way back (default: x's), as the JAX ``float_cast``."""
+    gradient on the way back (default: x's), as the JAX ``float_cast``.
+    ``name`` (here and above) is accepted and ignored."""
     if dtype not in _FLOATS:
         raise ValueError("Only float32/float16/bfloat16 supported.")
     if x.dtype == dtype:

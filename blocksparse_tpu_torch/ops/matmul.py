@@ -47,7 +47,9 @@ class BlocksparseMatMul:
         runs the plain PyTorch version on any device.  Tensors on the CPU
         always take the plain version.
     mode: which kernel fprop and bprop run on a CUDA tensor (the
-        function is the same; updat always runs ``bsmm_updat``):
+        function is the same; updat always runs ``bsmm_updat``, in bf16
+        and f16 over ``updat_plan``'s groups, N split by
+        ``updat_splits``):
         - "fine" with block_size <= 32: ``bsmm_fine`` (the JAX fine
           schedule), 128-deep chunks of each output column's entries;
           with a larger block it acts as "auto";
@@ -137,6 +139,7 @@ class BlocksparseMatMul:
         self._plans = {}          # (kind, d, phases) -> NumPy plan
         self._plan_luts = {}      # (device, kind, d, phases) -> tensors
         self._split_runs = {}     # (N, d, SMs) -> phases of the split rule
+        self._updat_runs = {}     # (N, SMs) -> runs of the updat's N split
 
         self.name = name or "BlocksparseMatMul"
         self.blocks = blocks
@@ -287,13 +290,31 @@ class BlocksparseMatMul:
         return self._route(N, "f", sm_count if sm_count is not None
                            else device_sm_count())
 
+    def updat_splits(self, N, dtype=torch.bfloat16, sm_count=None):
+        """Runs of N the updat of N rows takes on a card of ``sm_count`` SMs
+        (default the current CUDA device's): 1 (unsplit) in f32, whose
+        kernel walks all of N; in bf16 and f16 the split rule
+        (``kernels.bsmm.updat_splits``) over this layout's groups."""
+        if dtype == torch.float32:
+            return 1
+        sms = sm_count if sm_count is not None else device_sm_count()
+        key = (N, sms)
+        if key not in self._updat_runs:
+            self._updat_runs[key] = bsmm_kernels.updat_splits(
+                N, len(self._plan("updat", "u")["grp_q"]), self.bsize, sms)
+        return self._updat_runs[key]
+
     def _plan(self, kind, d, phases=0):
-        """The host-side plan (NumPy) of a route, built once."""
+        """The host-side plan (NumPy) of a route, built once (kind "updat":
+        the tensor-core updat's groups, d "u")."""
         key = (kind, d, phases)
         plan = self._plans.get(key)
         if plan is None:
             row_ptr, (ib, wb, _), _, n_in = self._csr(d)
-            if kind == "fine":
+            if kind == "updat":
+                plan = bsmm_kernels.updat_plan(
+                    self.updat_lut[:, 0], self.updat_lut[:, 1], self.bsize)
+            elif kind == "fine":
                 plan = bsmm_kernels.fine_plan(row_ptr, ib, wb, self.bsize)
             elif kind == "window":
                 plan = bsmm_kernels.window_plan(row_ptr, ib, wb, n_in,
@@ -304,13 +325,14 @@ class BlocksparseMatMul:
         return plan
 
     def _plan_tensors(self, device, kind, d, phases=0):
-        """A plan's index arrays on ``device``, uploaded once (int32)."""
+        """A plan with its index arrays on ``device``, uploaded once (int32);
+        its other entries as they are."""
         key = (device, kind, d, phases)
         out = self._plan_luts.get(key)
         if out is None:
             out = {k: torch.as_tensor(v, device=device)
-                   for k, v in self._plan(kind, d, phases).items()
-                   if isinstance(v, np.ndarray)}
+                   if isinstance(v, np.ndarray) else v
+                   for k, v in self._plan(kind, d, phases).items()}
             self._plan_luts[key] = out
         return out
 
@@ -383,15 +405,24 @@ class BlocksparseMatMul:
         if self._plain(x):
             return bsmm_kernels.updat_plain(x, dy, lut["u_c"], lut["u_k"],
                                             self.bsize, self.axis)
-        return bsmm_kernels.bsmm_updat(self._nc(x), self._nc(dy),
-                                       lut["u_c32"], lut["u_k32"], self.bsize)
+        xn, dyn = self._nc(x), self._nc(dy)
+        splits = self.updat_splits(xn.shape[0], x.dtype,
+                                   device_sm_count(x.device))
+        return bsmm_kernels.bsmm_updat(
+            xn, dyn, lut["u_c32"], lut["u_k32"], self.bsize,
+            self._plan_tensors(x.device, "updat", "u"), splits)
 
-    def __call__(self, I, W, gate=None):
+    def __call__(self, I, W, gate=None, gate_grad=False, dw_gated=False,
+                 name=None, bench=0):
         """y = I · W over the layout; I is (..., C) for feature_axis=1,
-        (C, ...) for feature_axis=0.  Differentiable in I and W."""
-        if gate is not None:
-            raise NotImplementedError("gated block-sparse matmul is not "
-                                      "ported yet")
+        (C, ...) for feature_axis=0.  Differentiable in I and W.  The JAX
+        op's gates (``gate``, ``gate_grad``, ``dw_gated``) are not ported
+        and raise; ``name`` and ``bench`` are accepted and change
+        nothing."""
+        if gate is not None or gate_grad or dw_gated:
+            raise NotImplementedError("gated block-sparse matmul (gate, "
+                                      "gate_grad, dw_gated) is not ported "
+                                      "yet")
         if tuple(W.shape) != self.w_shape:
             raise ValueError(f"W must be {self.w_shape}, got "
                              f"{tuple(W.shape)}")

@@ -9,9 +9,12 @@ from __future__ import annotations
 import torch
 
 
-def layer_norm(x, g, b, axis=1, segments=1, epsilon=1e-6, relu=False):
+def layer_norm(x, g, b, axis=1, segments=1, epsilon=1e-6, relu=False,
+               atomics=True, bench=0, use_tf=False):
     """Layer norm over the feature axis (0 = feature-major "CN", else the
-    last axis), with optional independent segments and fused relu."""
+    last axis), with optional independent segments and fused relu.
+    ``atomics``, ``bench`` and ``use_tf`` are the reference's knobs,
+    accepted and ignored."""
     x_shape = x.shape
     if axis < 0:
         axis += x.dim()

@@ -15,7 +15,8 @@ stays a tensor on the parameters' device, so a step needs no host sync.
 * ``AdamOptimizer`` folds the bias correction into the learning rate.
 
 Only f32 optimizer state is ported: bfloat16 and packed16 slots, gates
-and quantize specs raise ``NotImplementedError``.
+(``adam_apply``'s ``gate``, ``AdamOptimizer(gated=True)``) and quantize
+specs raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -67,9 +68,12 @@ def global_norm(grads, grad_scale=1.0, saturate=0.0, zero_infs=False,
 
 def adam_apply(grad, param, m, v, lr, decay_mean=0.9, decay_var=0.999,
                epsilon=1e-8, grad_scale=1.0, clip_sigma=0.0, norm_scale=None,
-               saturate=0.0, zero_infs=False, zero_nans=False):
+               gate=None, saturate=0.0, zero_infs=False, zero_nans=False):
     """One fused Adam step; returns new (param, m, v), each in its input's
-    dtype.  All update math runs in f32."""
+    dtype.  All update math runs in f32.  A ``gate`` is not ported and
+    raises."""
+    if gate is not None:
+        raise NotImplementedError("gated Adam (gate) is not ported yet")
     ns = _scalar(1.0 if norm_scale is None else norm_scale, param)
     g = _scrub(grad, saturate, zero_infs, zero_nans)
     g = g * (_scalar(grad_scale, param) * ns)
@@ -150,5 +154,6 @@ class AdamOptimizer:
             new_params[k], mean[k], var[k] = adam_apply(
                 grads[k], p, state["mean"][k], state["var"][k], lr,
                 self.beta1, self.beta2, self.epsilon, gs, self.clip_sigma,
-                ns, self.saturate, self.zero_infs, self.zero_nans)
+                ns, saturate=self.saturate, zero_infs=self.zero_infs,
+                zero_nans=self.zero_nans)
         return new_params, {"mean": mean, "var": var, "t": t}

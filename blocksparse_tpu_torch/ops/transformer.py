@@ -212,7 +212,7 @@ class BlocksparseTransformer:
 
     # ------------- attention ----------------
 
-    def attention(self, q, k, v, scale=1.0, use_fused=None):
+    def attention(self, q, k, v, scale=1.0, use_fused=None, flash_bwd=True):
         """softmax(scale·QKᵀ + mask)·V over this object's layout.
 
         q: (batch, ctx_q, heads·hs); k, v: (batch, ctx_k, heads·hs).
@@ -220,7 +220,13 @@ class BlocksparseTransformer:
         which selects the plain versions (on any device).  Differentiable
         in q, k and v: with a gradient to take, the training forward
         (which keeps the lse) runs, else the serving forward.  A query
-        row that sees no key gives zeros, and zero gradients."""
+        row that sees no key gives zeros, and zero gradients.  The backward
+        is always the flash one: ``flash_bwd=False`` (the reference's
+        unfused backward) is not ported and raises."""
+        if not flash_bwd:
+            raise NotImplementedError("flash_bwd=False (the unfused "
+                                      "attention backward) is not ported "
+                                      "yet")
         fused = q.is_cuda and use_fused is not False
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in (q, k, v)):

@@ -12,7 +12,15 @@ block-sparse matmul's fprop and bprop run ``bsmm_xprop_mma.cu`` on the
 tensor cores in bf16 and f16 (two runs must agree bit for bit; it is
 also held against its plain version at every block size 8-128, for
 fprop, bprop and the split route's partial tiles) and ``bsmm_fprop.cu``
-in f32; their times come with TFLOP/s.  Then
+in f32; their times come with TFLOP/s.  The weight gradient (updat) runs
+``bsmm_updat_mma.cu`` on the tensor cores in bf16 and f16, over the
+layout's blocks in groups that share a staged tile, with N split into
+runs where the groups alone would leave SMs idle and the runs' partials
+summed in order by its second kernel (``bsmm_updat_reduce``); it is held
+against its plain version at every block size 8-128, split and unsplit,
+two runs equal bit for bit, and ``bsmm_updat.cu`` in f32.  The embedding
+backward (a sorted segment sum) runs twice at the LM's shape for equal
+bits.  Then
 it drives the repo's enwik8 Sparse Transformer at full width (512-d, 6
 layers, 8 heads, ctx 2048, 64-blocks, fixed layout, block-sparse b32
 d0.5 MLP, bf16 compute, f32 masters, recompute, weights drawn from a
@@ -83,22 +91,23 @@ SEED = 0
 BATCH, PROMPTS, PROMPT_LEN, NEW_TOKENS = 8, 4, 1024, 64
 TRAIN_STEPS, TIMED_STEPS = 8, 5
 LR, CLIP, LOSS_SCALE = 3e-4, 1.0, 2.0 ** 15
-SOURCES = ("bsmm_xprop_mma", "bsmm_fprop", "bsmm_updat", "bst_attn_fwd",
-           "bst_attn_bwd", "im2col", "bsmm_fine", "bsmm_window",
-           "bsmm_merge")
+SOURCES = ("bsmm_xprop_mma", "bsmm_fprop", "bsmm_updat_mma", "bsmm_updat",
+           "bst_attn_fwd", "bst_attn_bwd", "im2col", "bsmm_fine",
+           "bsmm_window", "bsmm_merge")
 DTYPES = (torch.bfloat16, torch.float32, torch.float16)
 # |kernel - plain| <= TOL * max(1, max|plain|); f16 held at bf16 level
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 1e-2}
 ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 2e-2}
-UPDAT_TOL = 1e-4       # dw is f32 from the same inputs on both sides
+# dw is f32 from the same inputs on both sides (bf16/f16 products exact in
+# f32 on the tensor cores too): only the order of the sums differs
+UPDAT_TOL = 1e-4
 LSE_TOL = 1e-4         # f32 log-sum-exp, absolute
 MODEL_TOL = 2e-2       # bf16 logits, kernel model against plain model
 DECODE_TOL = 5e-2      # bf16 logits, cached decode against full forward
 # Train step, kernel model against plain model (bf16 compute, f32
 # masters): loss 1e-2 relative; each gradient 5e-2 of its tensor's
-# max|plain grad| (bf16 activations round differently on the two paths,
-# and the tied wte's embedding gradient sums rows with atomics on the
-# card, in no fixed order); each parameter update the same, where
+# max|plain grad| (bf16 activations round differently on the two paths);
+# each parameter update the same, where
 # |plain grad| > 5e-2 max (elsewhere the gradient is within the noise
 # and its sign, hence Adam's first step of ~lr, may flip: |diff| <= 2 lr).
 STEP_LOSS_TOL, GRAD_TOL = 1e-2, 5e-2
@@ -129,6 +138,9 @@ CHAIN_TOL = 3e-2
 # The tensor-core xprop kernel at every block size: a random hidden² layout
 # at this density (diagonal set), N rows (not a multiple of any TM).
 XPROP_HIDDEN, XPROP_DENSITY, XPROP_N = 1024, 0.3, 1000
+# The tensor-core updat at every block size, on that layout: N rows
+# unsplit (XPROP_N, below two runs of the split) and split (UPDAT_SPLIT_N).
+UPDAT_SPLIT_N = 8192
 # The window's regime: bench.py's headline layout (make_layout("random",
 # 256, 0.25) from RandomState(0), feature_axis 0, W in +-0.1), at N 256
 # and 2048 (benchmarks/results_window.json's two shapes).
@@ -250,13 +262,32 @@ def training_kernel_checks(model, plain, dev, g, rows):
                   lambda: op._xprop(dy, w, "b"),
                   lambda: ref_op._xprop(dy, w, "b"), 20,
                   flops=xprop_flops(op, N))
-            err = compare(f"bsmm_updat {name} N={N} {op.blocks} blocks "
-                          f"{dtype}", op._updat(x, dy), ref_op._updat(x, dy),
+            what = (f"bsmm_updat {name} N={N} {op.blocks} blocks {dtype} "
+                    f"({op.updat_splits(N, dtype)} runs of N)")
+            err = compare(what, op._updat(x, dy), ref_op._updat(x, dy),
                           UPDAT_TOL)
+            same_bits(what, lambda: op._updat(x, dy))
             timed(rows, ("updat", name, dtype), err,
-                  lambda: op._updat(x, dy), lambda: ref_op._updat(x, dy), 20)
+                  lambda: op._updat(x, dy), lambda: ref_op._updat(x, dy), 20,
+                  flops=xprop_flops(op, N))
             del x, dy, w
+    updat_reduce_checks(model.bsmm1, N, dev, g, rows)
     c = model.config
+    # the embedding gradient at the LM's shape: a sorted segment sum
+    from blocksparse_tpu_torch import embedding_lookup
+    ids = torch.randint(0, c.n_vocab, (BATCH, c.ctx), device=dev, generator=g)
+    d_emb = torch.randn((BATCH, c.ctx, c.n_embd), device=dev,
+                        generator=g).to(torch.bfloat16)
+    emb = torch.randn((c.n_vocab, c.n_embd), device=dev,
+                      generator=g).to(torch.bfloat16)
+
+    def emb_grad():
+        e = emb.clone().requires_grad_()
+        embedding_lookup(e, ids).backward(d_emb)
+        return e.grad
+    same_bits(f"embedding_lookup backward, {BATCH} x {c.ctx} ids into "
+              f"{c.n_vocab} x {c.n_embd} bf16", emb_grad)
+    del ids, d_emb, emb
     bst = model.bst
     heads, bs = bst.heads, bst.blk_size
     scale = 1.0 / np.sqrt(model.hs)
@@ -360,6 +391,59 @@ def xprop_block_size_checks(bt, dev, g):
     torch.cuda.empty_cache()
 
 
+def updat_block_size_checks(bt, dev, g):
+    """bsmm_updat_mma.cu against its plain version at every block size, in
+    bf16 and f16, unsplit and split, on the layout of the xprop sweep and
+    its transpose (groups by x block-row and by dy block-column), each run
+    twice for equal bits."""
+    rng = np.random.RandomState(SEED + 1)
+    for b in (8, 16, 32, 64, 128):
+        n = XPROP_HIDDEN // b
+        lay = (rng.rand(n, n // 2) < XPROP_DENSITY).astype(np.int32)
+        lay[np.arange(n // 2), np.arange(n // 2)] = 1
+        for layout in (lay, lay.T.copy()):
+            op = bt.BlocksparseMatMul(layout, block_size=b, feature_axis=1)
+            plain = bt.BlocksparseMatMul(layout, block_size=b,
+                                         feature_axis=1, impl="xla")
+            plan = op._plan("updat", "u")
+            for dtype in (torch.bfloat16, torch.float16):
+                for N in (XPROP_N, UPDAT_SPLIT_N):
+                    runs = op.updat_splits(N, dtype)
+                    check((runs > 1) == (N == UPDAT_SPLIT_N),
+                          f"updat b{b} N={N}: {runs} runs of N (split only "
+                          f"at N={UPDAT_SPLIT_N})")
+                    x = torch.randn((N, op.C), device=dev,
+                                    generator=g).to(dtype)
+                    dy = torch.randn((N, op.K), device=dev,
+                                     generator=g).to(dtype)
+                    what = (f"bsmm_updat_mma b{b} {op.C} -> {op.K} "
+                            f"{op.blocks} blocks, {len(plan['grp_q'])} "
+                            f"groups by {'x' if plan['by_c'] else 'dy'} "
+                            f"block, N={N} in {runs} runs {dtype}")
+                    same_bits(what, lambda: op._updat(x, dy))
+                    compare(what, op._updat(x, dy), plain._updat(x, dy),
+                            UPDAT_TOL)
+                    del x, dy
+    torch.cuda.empty_cache()
+
+
+def updat_reduce_checks(op, N, dev, g, rows):
+    """The updat split's second pass at the train step's bsmm1 split: equal
+    to its plain version bit for bit, and timed."""
+    from blocksparse_tpu_torch.kernels import bsmm as bk
+    runs = op.updat_splits(N)
+    check(runs > 1, f"bsmm1's updat at N={N} takes the split ({runs} runs)")
+    parts = torch.randn((runs,) + op.w_shape, device=dev, generator=g)
+    err = compare(f"bsmm_updat_reduce {runs} partials of {op.blocks} blocks "
+                  f"(exact)", bk.bsmm_updat_reduce(parts),
+                  bk.updat_reduce_plain(parts), 0.0)
+    timed(rows, "reduce", err, lambda: bk.bsmm_updat_reduce(parts),
+          lambda: bk.updat_reduce_plain(parts), 50)
+    rows["reduce_lib"] = time_ms(lambda: parts.sum(0), 50)
+    rows["reduce_shape"] = tuple(parts.shape)
+    del parts
+
+
 def bound(flops, nbytes, peak_flops=PEAK_FLOPS):
     """(ms, "operations" or "bytes"): the least time this work could take
     on the card (bf16 operations unless another peak is given), and which
@@ -391,13 +475,17 @@ def dense_attention_mask(bst, dev):
     return torch.as_tensor(mask, device=dev)
 
 
-def yardsticks(model, dev, g):
+def yardsticks(model, dev, g, rows):
     """Bound and library-call time of each serving and training kernel at
     the shapes of its row in the kernels line (bf16; bsmm1 at N = 8 x
     2048; attention at batch 8 x 2048).  Library calls: a dense
-    ``torch.matmul`` with the layout scattered into W for fprop and bprop,
-    ``scaled_dot_product_attention`` with the layout expanded to an element
-    mask for the attention forward; none computes updat, dq or dk/dv."""
+    ``torch.matmul`` with the layout scattered into W for fprop and bprop;
+    for updat the dense cuBLAS product xᵀ·dy (the gather of the layout's
+    blocks out of it timed beside); ``scaled_dot_product_attention`` with
+    the layout expanded to an element mask for the attention forward, and
+    its backward (``torch.autograd.grad`` of that forward: dq, dk and dv in
+    one call) for dq and dk/dv; ``sum`` over the runs for the updat
+    split's reduce."""
     bf, c, op, bst = torch.bfloat16, model.config, model.bsmm1, model.bst
     N, b2 = BATCH * c.ctx, op.bsize ** 2
     x = torch.randn((N, op.C), device=dev, generator=g).to(bf)
@@ -406,13 +494,27 @@ def yardsticks(model, dev, g):
                            * 0.02).to(bf))
     lib_f = time_ms(lambda: x @ wd, 20)
     lib_b = time_ms(lambda: dy @ wd.t(), 20)
-    del x, dy, wd
+    lib_u = time_ms(lambda: x.t() @ dy, 20)
+    dense = x.t() @ dy
+    cs, ks = (torch.as_tensor(op.updat_lut[:, i], device=dev) for i in (0, 1))
+    gather_ms = time_ms(lambda: dense.view(op.CB, op.bsize, op.KB, op.bsize)
+                        .permute(0, 2, 1, 3)[cs, ks], 20)
+    print(f"bsmm_updat library: cuBLAS x^T . dy {lib_u:.4f} ms "
+          f"({2 * N * op.C * op.K / lib_u / 1e9:.2f} TFLOP/s dense), the "
+          f"layout's {op.blocks} blocks gathered out of it {gather_ms:.4f} ms",
+          flush=True)
+    del x, dy, wd, dense
     flops = 2 * N * op.blocks * b2
     xprop_bytes = 2 * (N * op.C + op.blocks * b2 + N * op.K)
+    runs = rows["reduce_shape"][0]
+    parts = int(np.prod(rows["reduce_shape"][1:]))
     out = {"bsmm_fprop": (*bound(flops, xprop_bytes), lib_f),
            "bsmm_bprop": (*bound(flops, xprop_bytes), lib_b),
            "bsmm_updat": (*bound(flops, 2 * N * (op.C + op.K)
-                                 + 4 * op.blocks * b2), None)}
+                                 + 4 * op.blocks * b2), lib_u),
+           "bsmm_updat_reduce": (*bound((runs - 1) * parts,
+                                        4 * (runs + 1) * parts,
+                                        PEAK_F32_FLOPS), rows["reduce_lib"])}
 
     B, T, H, hs, bs = BATCH, c.ctx, c.n_head, model.hs, bst.blk_size
     mask = dense_attention_mask(bst, dev)
@@ -423,19 +525,28 @@ def yardsticks(model, dev, g):
                for _ in range(3))
     lib_attn = time_ms(lambda: nnf.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, scale=1.0 / np.sqrt(hs)), 20)
-    del q, k, v, mask
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    o = nnf.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                         scale=1.0 / np.sqrt(hs))
+    do = torch.randn(o.shape, device=dev, generator=g).to(bf)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(o, (q, k, v), do,
+                                                  retain_graph=True), 20)
+    print(f"scaled_dot_product_attention forward {lib_attn:.4f} ms, its "
+          f"backward (dq, dk, dv) {lib_bwd:.4f} ms", flush=True)
+    del q, k, v, mask, o, do
     e = bst.blocks * B * H * bs * bs * hs      # one product over the blocks
     one, lse = B * T * H * hs * 2, B * H * T * 4   # a (B, T, H*hs) bf16; lse
     out.update({
         "bst_attn_fwd": (*bound(4 * e, 4 * one), lib_attn),
         "bst_attn_fwd_lse": (*bound(4 * e, 4 * one + lse), lib_attn),
         # q, k, v, dO, lse, D in; dq (bf16) out
-        "bst_attn_dq": (*bound(6 * e, 5 * one + 2 * lse), None),
+        "bst_attn_dq": (*bound(6 * e, 5 * one + 2 * lse), lib_bwd),
         # q, k, v, dO, lse, D in; dk, dv (f32) out
-        "bst_attn_dkv": (*bound(8 * e, 4 * one + 2 * lse + 4 * one), None)})
+        "bst_attn_dkv": (*bound(8 * e, 4 * one + 2 * lse + 4 * one),
+                         lib_bwd)})
     for name, (ms, by, lib) in out.items():
         print(f"{name}: bound {ms:.4f} ms ({by}); library call "
-              f"{'none' if lib is None else f'{lib:.4f} ms'}", flush=True)
+              f"{lib:.4f} ms", flush=True)
     torch.cuda.empty_cache()
     return out
 
@@ -535,7 +646,8 @@ def dense_filter(conv, F):
 CONV_PARTS = (("im2col", ("im2col_kernel",)),
               ("bsmm fprop", ("bsmm_xprop", ", false, false")),
               ("bsmm bprop", ("bsmm_xprop", ", true, false")),
-              ("bsmm updat", ("bsmm_updat_nc_kernel",)),
+              ("bsmm updat", ("bsmm_updat_mma_kernel",)),
+              ("updat reduce", ("bsmm_updat_reduce_kernel",)),
               ("col2im", ("col2im_kernel",)))
 
 
@@ -585,7 +697,9 @@ def conv_path(bt, dev, g, card_line, rows):
             launches = read_counts()
             want = dict.fromkeys(launches, 0)
             want.update({"im2col": 1, "bsmm_fprop": 1, "bsmm_bprop": 1,
-                         "bsmm_updat": 1, "col2im": 1})
+                         "bsmm_updat": 1, "col2im": 1,
+                         "bsmm_updat_reduce": int(conv._bsmm_op.updat_splits(
+                             CONV_BATCH * CONV_HW ** 2) > 1)})
             check(launches == want, f"{what}: forward + backward launches "
                                     f"{launches}, expected {want}")
             plain = bt.BlocksparseConv(BCK, (3, 3), (CONV_HW, CONV_HW),
@@ -684,7 +798,9 @@ def conv_bsmm_checks(conv, plain, x, dev, g, rows):
 def counters():
     from blocksparse_tpu_torch.kernels import bsmm, bst_attn, im2col
     return {"bsmm_fprop": bsmm.bsmm_fprop, "bsmm_bprop": bsmm.bsmm_bprop,
-            "bsmm_updat": bsmm.bsmm_updat, "bsmm_fine": bsmm.bsmm_fine,
+            "bsmm_updat": bsmm.bsmm_updat,
+            "bsmm_updat_reduce": bsmm.bsmm_updat_reduce,
+            "bsmm_fine": bsmm.bsmm_fine,
             "bsmm_window": bsmm.bsmm_window, "bsmm_merge": bsmm.bsmm_merge,
             "bst_attn_fwd": bst_attn.attention_fwd,
             "bst_attn_fwd_lse": bst_attn.attention_fwd_lse,
@@ -963,13 +1079,17 @@ def training_path(bt, model, plain, cfg, dev, card_line, profile_out):
         delta = {k: v - before[k] for k, v in m.state_dict().items()}
         results.append((step, state, metrics, scale, delta))
     want = dict.fromkeys(launches, 0)
+    split = [op.updat_splits(tokens.numel()) > 1
+             for op in (model.bsmm1, model.bsmm2)]
     want.update({"bsmm_fprop": 4 * L, "bsmm_bprop": 2 * L,
-                 "bsmm_updat": 2 * L, "bst_attn_fwd_lse": 2 * L,
-                 "bst_attn_dq": L, "bst_attn_dkv": L})
-    check(launches == want,
+                 "bsmm_updat": 2 * L, "bsmm_updat_reduce": L * sum(split),
+                 "bst_attn_fwd_lse": 2 * L, "bst_attn_dq": L,
+                 "bst_attn_dkv": L})
+    check(launches == want and launches["bsmm_updat_reduce"] > 0,
           f"train step launches {launches}, expected {want} (recompute: "
-          f"bsmm_fprop 4L, bsmm_bprop 2L, bsmm_updat 2L, bst_attn_fwd_lse "
-          f"2L, bst_attn_dq L, bst_attn_dkv L, L = {L})")
+          f"bsmm_fprop 4L, bsmm_bprop 2L, bsmm_updat 2L, bsmm_updat_reduce "
+          f"> 0: one an updat on the split, bst_attn_fwd_lse 2L, "
+          f"bst_attn_dq L, bst_attn_dkv L, L = {L})")
     (step, state, m0, scale, d0), (_, _, m1, _, d1) = results
     for k in ("loss", "grad_norm"):
         a, b = m0[k].item(), m1[k].item()
@@ -1013,8 +1133,11 @@ def training_path(bt, model, plain, cfg, dev, card_line, profile_out):
 
 
 # name fragments of the port's kernels; "bsmm_xprop" matches both xprop
-# kernels (bsmm_xprop_mma_kernel in bf16/f16, bsmm_xprop_nc_kernel in f32)
-PORT_KERNELS = ("bsmm_xprop", "bsmm_updat_nc_kernel", "bst_attn_fwd_kernel",
+# kernels (bsmm_xprop_mma_kernel in bf16/f16, bsmm_xprop_nc_kernel in f32);
+# the updat's are told apart: bsmm_updat_mma_kernel (bf16/f16),
+# bsmm_updat_nc_kernel (f32) and the split's bsmm_updat_reduce_kernel
+PORT_KERNELS = ("bsmm_xprop", "bsmm_updat_mma", "bsmm_updat_nc",
+                "bsmm_updat_reduce", "bst_attn_fwd_kernel",
                 "bst_attn_dq_kernel", "bst_attn_dkv_kernel")
 
 
@@ -1087,7 +1210,8 @@ def chain_grads(op, x0, w0):
 
 def route_launches(op, N, sms, times):
     """Launches of one fprop (times[0] of them) and one bprop (times[1])
-    on the routes op takes for N rows, with one updat a bprop."""
+    on the routes op takes for N rows, with one updat a bprop (bf16, with
+    its reduce where it splits)."""
     want = dict.fromkeys(counters(), 0)
     for d, n in zip("fb", times):
         direct = "bsmm_fprop" if d == "f" else "bsmm_bprop"
@@ -1096,6 +1220,7 @@ def route_launches(op, N, sms, times):
                      "grouped": (direct,)}[op._route(N, d, sms)]:
             want[name] += n
     want["bsmm_updat"] += times[1]
+    want["bsmm_updat_reduce"] += times[1] * (op.updat_splits(N) > 1)
     return want
 
 
@@ -1343,7 +1468,7 @@ def window_path(ops, W, dev, g, card_line):
             torch.cuda.synchronize()
             launches = read_counts()
             want = route_launches(ops[m], N, sms, (1, 1))
-            want["bsmm_updat"] = 0
+            want["bsmm_updat"] = want["bsmm_updat_reduce"] = 0
             if m == "window":
                 check(launches == want,
                       f"window regime N={N}: window launches {launches}")
@@ -1461,6 +1586,7 @@ def main():
     serving_kernel_checks(model, plain, dev, g, rows)
     training_kernel_checks(model, plain, dev, g, rows)
     xprop_block_size_checks(bt, dev, g)
+    updat_block_size_checks(bt, dev, g)
 
     # 4. the serving path, counted
     serve_launches = serving_path(bt, model, plain, cfg, dev, card_line)
@@ -1490,7 +1616,7 @@ def main():
           f"{mode_launches}", flush=True)
 
     # 8. each kernel's bound and library call
-    marks = yardsticks(model, dev, g)
+    marks = yardsticks(model, dev, g, rows)
     marks.update(mode_yardsticks(canon, win_ops["plain"], dev, g, card_line,
                                  rows))
     C, NP, b2 = CONV_CHANNELS[0], CONV_BATCH * CONV_HW ** 2, 2
@@ -1504,8 +1630,10 @@ def main():
          serve_launches["bsmm_fprop"], rows[("fprop", "bsmm1", N, bf)]),
         ("bsmm_bprop", "bsmm_xprop_mma.cu", "bsmm.py:1422",
          train_launches["bsmm_bprop"], rows[("bprop", "bsmm1", bf)]),
-        ("bsmm_updat", "bsmm_updat.cu", "bsmm.py:1972",
+        ("bsmm_updat", "bsmm_updat_mma.cu", "bsmm.py:1972",
          train_launches["bsmm_updat"], rows[("updat", "bsmm1", bf)]),
+        ("bsmm_updat_reduce", "bsmm_updat_mma.cu", "bsmm.py:1972",
+         train_launches["bsmm_updat_reduce"], rows["reduce"]),
         ("bst_attn_fwd", "bst_attn_fwd.cu", "bst_attn.py:677",
          serve_launches["bst_attn_fwd"], rows[("attn_fwd", bf)]),
         ("bst_attn_fwd_lse", "bst_attn_fwd.cu", "bst_attn.py:832",

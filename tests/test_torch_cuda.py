@@ -12,7 +12,8 @@ sides, other summation orders); bf16 and f16 1e-2 for the matmul (one
 rounding of the output, 2^-8 for bf16, finer for f16) and 2e-2 absolute
 for attention (p and dS are rounded to the input type before their
 products on both sides, outputs are O(1)).  The weight gradient is f32
-from the same inputs on both sides: 1e-4 relative in every dtype.
+from the same inputs on both sides: 1e-4 relative in every dtype (bf16
+and f16 products are exact in f32 on the tensor cores too).
 im2col is a copy: exact.  col2im sums the same f32 values in the same
 order as its plain version: exact in f32, within one rounding of the
 output (the dtype's eps relative to the largest output) in bf16 and f16.
@@ -300,29 +301,90 @@ def test_bsmm_bprop_kernel_matches_plain(cuda, bsize, dtype, route):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("by_c", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, *HALF])
 @pytest.mark.parametrize("bsize", [8, 16, 32, 64, 128])
-def test_bsmm_updat_kernel_matches_plain(cuda, bsize, dtype):
-    """At N 1, 77 and 1500: one thread block per layout block walks N in
-    tiles, the last one partial."""
-    layout = random_layout(4, 6, 0.5, seed=bsize + 2)
+def test_bsmm_updat_kernel_matches_plain(cuda, bsize, dtype, by_c):
+    """At N 1, 77, 1500 and 4096.  f32 runs bsmm_updat.cu (CUDA cores,
+    unsplit).  bf16/f16 run bsmm_updat_mma.cu over the plan's groups: a
+    4-row layout whose row 0 holds more than one group's G = 256 / b
+    blocks, grouped by x block-row, or its transpose, grouped by dy
+    block-column; N split where the rule says (1500 and 4096 here: N //
+    512 runs bind before the SM count), the runs' partials summed by
+    bsmm_updat_reduce.  Two runs equal bit for bit."""
+    G = bsmm_kernels.UPDAT_ROWS // bsize
+    layout = random_layout(4, G + 3, 0.3, seed=bsize)
+    layout[0, :] = 1
+    if not by_c:
+        layout = layout.T.copy()
     port = BlocksparseMatMul(layout, block_size=bsize, feature_axis=1)
     plain = BlocksparseMatMul(layout, block_size=bsize, feature_axis=1,
                               impl="xla")
+    assert port._plan("updat", "u")["by_c"] == by_c
     g = torch.Generator(device=cuda).manual_seed(2)
-    lut = port._lut(cuda)
-    for N in (1, 77, 1500):
+    counters = (bsmm_kernels.bsmm_updat, bsmm_kernels.bsmm_updat_reduce)
+    for N in (1, 77, 1500, 4096):
+        splits = port.updat_splits(N, dtype)
+        half = dtype != torch.float32
+        assert splits == ({1500: 2, 4096: 8}.get(N, 1) if half else 1)
         x = torch.randn((N, port.C), device=cuda, generator=g).to(dtype)
         dy = torch.randn((N, port.K), device=cuda, generator=g).to(dtype)
-        before = bsmm_kernels.bsmm_updat.launches
-        dw = bsmm_kernels.bsmm_updat(x, dy, lut["u_c32"], lut["u_k32"],
-                                     bsize)
+        before = [c.launches for c in counters]
+        dw, again = port._updat(x, dy), port._updat(x, dy)
         torch.cuda.synchronize()
-        assert bsmm_kernels.bsmm_updat.launches == before + 1
+        assert [c.launches - b for c, b in zip(counters, before)] == \
+            [2, 2 if splits > 1 else 0]
+        assert torch.equal(dw, again)
         ref = plain._updat(x, dy)
         assert dw.dtype == torch.float32 and dw.shape == port.w_shape
         torch.testing.assert_close(
             dw, ref, rtol=0, atol=UPDAT_TOL * max(1.0, ref.abs().max().item()))
+
+
+@pytest.mark.cuda
+def test_updat_reduce_kernel_equals_plain_and_raises(cuda):
+    """The split's second pass adds the partials in run order: equal to
+    updat_reduce_plain bit for bit; a CPU tensor, another dtype or a
+    partial size not a multiple of 4 raises."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    parts = torch.randn((7, 5, 32, 32), device=cuda, generator=g) * 1e3
+    before = bsmm_kernels.bsmm_updat_reduce.launches
+    dw = bsmm_kernels.bsmm_updat_reduce(parts)
+    torch.cuda.synchronize()
+    assert bsmm_kernels.bsmm_updat_reduce.launches == before + 1
+    assert torch.equal(dw, bsmm_kernels.updat_reduce_plain(parts))
+    for bad in (parts.cpu(), parts.double(), parts[:, :, :1, :3].contiguous()):
+        with pytest.raises(ValueError):
+            bsmm_kernels.bsmm_updat_reduce(bad)
+    layout = random_layout(2, 2, 1.0, seed=0)
+    op = BlocksparseMatMul(layout, block_size=16, feature_axis=1)
+    lut = op._lut(cuda)
+    x = torch.randn((8, op.C), device=cuda).bfloat16()
+    with pytest.raises(ValueError):          # bf16 needs the plan
+        bsmm_kernels.bsmm_updat(x, x, lut["u_c32"], lut["u_k32"], 16)
+
+
+@pytest.mark.cuda
+def test_embedding_backward_is_bit_equal_on_the_card(cuda):
+    """The LM's shape: 8 x 2048 ids into a 256 x 512 bf16 table.  Two
+    backward runs give the same bits (the sorted segment sum, no
+    atomics), in bf16, within one bf16 rounding of an f32 sum."""
+    from blocksparse_tpu_torch import embedding_lookup
+    g = torch.Generator(device=cuda).manual_seed(9)
+    ids = torch.randint(0, 256, (8, 2048), device=cuda, generator=g)
+    dy = torch.randn((8, 2048, 512), device=cuda, generator=g).bfloat16()
+    emb = torch.randn((256, 512), device=cuda, generator=g).bfloat16()
+    grads = []
+    for _ in range(2):
+        e = emb.clone().requires_grad_()
+        embedding_lookup(e, ids).backward(dy)
+        grads.append(e.grad)
+    assert grads[0].dtype == torch.bfloat16
+    assert torch.equal(grads[0], grads[1])
+    ref = torch.zeros((256, 512), device=cuda).index_add_(
+        0, ids.reshape(-1), dy.reshape(-1, 512).float())
+    torch.testing.assert_close(grads[0].float(), ref, rtol=2.0 ** -8,
+                               atol=1e-6)
 
 
 @pytest.mark.cuda
