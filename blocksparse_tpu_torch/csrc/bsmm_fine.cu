@@ -1,10 +1,11 @@
-// Block-sparse matmul xprop for small blocks (b 8, 16, 32), NC orientation
-// (feature_axis=1), in 128-deep chunks:
+// Block-sparse matmul xprop for small blocks (b 8, 16, 32), f32, NC
+// orientation (feature_axis=1), in 128-deep chunks:
 //   fprop  y  (N, K) = x  (N, C) . W,    over the layout's blocks;
 //   bprop  dx (N, C) = dy (N, K) . W^T,  over the same blocks (TRANS).
 //
-// Replaces the TPU kernel xprop_pallas_fine (blocksparse_tpu/kernels/bsmm.py,
-// body _xprop_fine_kernel), which gathers Gf = 128/b LUT entries of one
+// Replaces, for f32 inputs, the TPU kernel xprop_pallas_fine
+// (blocksparse_tpu/kernels/bsmm.py, body _xprop_fine_kernel; bf16 and f16
+// run bsmm_fine_mma.cu on the tensor cores), which gathers Gf = 128/b LUT entries of one
 // output block-row into one 128-deep MXU contraction.
 //
 // Plan (kernels/bsmm.py fine_plan): each output block-column's LUT entries,
@@ -22,14 +23,11 @@
 // slots stage zeros (0 * 0 leaves a sum unchanged, bit for bit).  Each
 // output's f32 sum runs over the entries in LUT order, as bsmm_fprop's
 // does, with the same fmaf chain from 0: the result equals bsmm_fprop.cu's
-// bit for bit in f32 (bf16 and f16 go to bsmm_xprop_mma.cu's tensor cores,
-// which sum in another order: equal within the dtype's rounding).  No
-// atomics; an empty output block-column writes zeros.
+// bit for bit.  No atomics; an empty output block-column writes zeros.
 //
 // Bound on the H100: at the canonical small-block bench row (hidden 7680,
 // b8, 105,178 blocks, N = 64) a call is 2 * N * blocks * 64 = 0.86 GFLOP
-// against 14 MB (W read once): bound by bytes (~4 us) if the FMAs ran at
-// the tensor cores' rate; on the CUDA cores (this first version) by
+// against 14 MB (W read once); in f32 on the CUDA cores, bound by
 // operations.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -203,7 +201,8 @@ cudaError_t dispatch(int bsize, int trans_w, const void* x, const void* w,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  x is (N, C), y (N, K);
+// dtype 0 (float32) only: bf16 and f16 run on the tensor cores (bsmm_fine_mma.cu);
+// any other dtype returns cudaErrorInvalidValue.  x is (N, C), y (N, K);
 // trans_w = 0 for fprop (W[w] is (in, out)), 1 for bprop (W[w]^T).
 // bsize 8, 16 or 32.  Returns a cudaError_t (0 = launched).
 extern "C" int bsmm_fine_nc(int dtype, int bsize, int trans_w, const void* x,
@@ -212,7 +211,5 @@ extern "C" int bsmm_fine_nc(int dtype, int bsize, int trans_w, const void* x,
                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(bsize, trans_w, FINE_ARGS);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(bsize, trans_w, FINE_ARGS);
-  if (dtype == 2) return dispatch<__half>(bsize, trans_w, FINE_ARGS);
   return cudaErrorInvalidValue;
 }

@@ -56,11 +56,7 @@
 // design reads P's tiles once per block and Q's once per group, N * B * 2 *
 // (blocks + groups) bytes from L2 (0.66 GB there), which is what it spends
 // beyond the bound.
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "mma_sm90.cuh"
 
 namespace {
 
@@ -85,51 +81,6 @@ template <int B> struct Ring {
   static constexpr int P_ELEMS = TN * PLD;
   static constexpr int ELEMS = P_ELEMS + TN * QLD;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zeros when !valid (no global read)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int PENDING> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr));
-}
-
-// d += a . b, m16n8k16, f32 accumulators
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2],
-                                    __nv_bfloat16) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2],
-                                    __half) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 template <typename T, int B>
 constexpr size_t smem_bytes() {
@@ -296,19 +247,9 @@ cudaError_t launch(const void* p, const void* q, const int* grp_q, const int* sl
                    int rows, int blocks, cudaStream_t stream) {
   auto kernel = bsmm_updat_mma_kernel<T, B, TRANS_OUT>;
   constexpr size_t bytes = smem_bytes<T, B>();
-  if constexpr (bytes > 48 * 1024) {
-    // above 48 KB only as opted-in dynamic shared memory, once per device
-    static unsigned ready = 0;
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    if (dev >= 32 || !(ready >> dev & 1u)) {
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(bytes));
-      if (err != cudaSuccess) return err;
-      if (dev < 32) ready |= 1u << dev;
-    }
-  }
+  static unsigned ready = 0;
+  cudaError_t err = opt_in_smem(kernel, bytes, ready);
+  if (err != cudaSuccess) return err;
   const unsigned grid = static_cast<unsigned>(groups) * static_cast<unsigned>(splits);
   kernel<<<grid, THREADS, bytes, stream>>>(static_cast<const T*>(p), static_cast<const T*>(q),
                                            grp_q, slot_p, slot_e, out, N, ldp, ldq, groups, rows,

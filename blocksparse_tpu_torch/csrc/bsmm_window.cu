@@ -1,10 +1,11 @@
-// Block-sparse matmul xprop with x streamed once per window slab, NC
+// Block-sparse matmul xprop with x streamed once per window slab, f32, NC
 // orientation (feature_axis=1), b 8-128:
 //   fprop  y  (N, K) = x  (N, C) . W,    over the layout's blocks;
 //   bprop  dx (N, C) = dy (N, K) . W^T,  over the same blocks (TRANS).
 //
-// Replaces the TPU kernel xprop_pallas_window (blocksparse_tpu/kernels/
-// bsmm.py, body _xprop_window_kernel): a super-group of SG output groups
+// Replaces, for f32 inputs, the TPU kernel xprop_pallas_window
+// (blocksparse_tpu/kernels/bsmm.py, body _xprop_window_kernel; bf16 and f16
+// run bsmm_window_mma.cu on the tensor cores): a super-group of SG output groups
 // keeps its f32 accumulators resident while x is streamed once per
 // column window of WB block-rows.
 //
@@ -26,10 +27,9 @@
 // them from the staged slab.  Loads past C (a last window that does not
 // divide C) and past N are guarded, not padded.  Each output's f32 sum
 // runs over its entries in LUT order with the same fmaf chain from 0 as
-// bsmm_fprop.cu's, so the result equals bsmm_fprop's bit for bit in f32
-// (bf16 and f16 go to bsmm_xprop_mma.cu, whose tensor-core sums run in
-// another order), and each output is written once, with no atomics; an
-// empty column writes zeros.
+// bsmm_fprop.cu's, so the result equals bsmm_fprop's bit for bit, and
+// each output is written once, with no atomics; an empty column writes
+// zeros.
 //
 // Sizes for the H100 (227 KB of shared memory a block, 228 KB an SM):
 //   TN = 64 rows, SLAB = 256 columns (WB = 256 / B block-rows), EB * B =
@@ -244,7 +244,8 @@ cudaError_t dispatch(int bsize, int trans_w, const void* x, const void* w, const
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  x is (N, C), y (N, K);
+// dtype 0 (float32) only: bf16 and f16 run on the tensor cores (bsmm_window_mma.cu);
+// any other dtype returns cudaErrorInvalidValue.  x is (N, C), y (N, K);
 // trans_w = 0 for fprop (W[w] is (in, out)), 1 for bprop (W[w]^T).  ptr
 // holds ceil(K / bsize / SG) * ceil(C / 256) * SG + 1 offsets (SG of this
 // bsize, as above).  Returns a cudaError_t (0 = launched).
@@ -254,7 +255,5 @@ extern "C" int bsmm_window_nc(int dtype, int bsize, int trans_w, const void* x,
                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(bsize, trans_w, WIN_ARGS);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(bsize, trans_w, WIN_ARGS);
-  if (dtype == 2) return dispatch<__half>(bsize, trans_w, WIN_ARGS);
   return cudaErrorInvalidValue;
 }

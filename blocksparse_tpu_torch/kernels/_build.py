@@ -4,9 +4,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface.  At first use it is
 compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library
 under ``build/blocksparse_tpu_torch/`` at the root of the checkout and
 loaded with ``ctypes``.  The library's file name carries a hash of its
-source, so an edited source is rebuilt and a stale library is never
-loaded.  No PyTorch headers are included, which keeps a build to
-seconds.
+source and of the shared headers (``csrc/*.cuh``), so an edited source
+is rebuilt and a stale library is never loaded.  No PyTorch headers are
+included, which keeps a build to seconds.
 
 Nothing here runs at import: the CPU-only test hosts import every
 module and have no ``nvcc``.
@@ -39,9 +39,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+    """Where the library built from ``csrc/<name>.cu`` lives: the name
+    carries a hash of the source and of the headers in ``csrc/``."""
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -31,13 +31,16 @@ against on the card; ``updat_reduce_plain`` is the split's second pass.
 Three more schedules of the same product, each with its host-side plan
 built here in NumPy from the LUT's CSR:
 
-- ``bsmm_fine`` (``csrc/bsmm_fine.cu``, b 8-32; replaces
-  ``xprop_pallas_fine``): an output column's entries in chunks of
-  128/b, one 128-deep slab a barrier pair (``fine_plan``).
-- ``bsmm_window`` (``csrc/bsmm_window.cu``, b 8-128; replaces
-  ``xprop_pallas_window``): x staged once per window slab for a
-  super-group of output columns whose accumulators stay in registers
-  (``window_plan``).
+- ``bsmm_fine`` (b 8-32; replaces ``xprop_pallas_fine``): an output
+  column's entries in chunks of 128/b, one 128-deep contraction a chunk
+  (``fine_plan``); bf16 and f16 on the tensor cores
+  (``csrc/bsmm_fine_mma.cu``, a ``cp.async`` ring of chunks), f32 on the
+  CUDA cores (``csrc/bsmm_fine.cu``).
+- ``bsmm_window`` (b 8-128; replaces ``xprop_pallas_window``): x staged
+  once per window slab for a super-group of output columns whose
+  accumulators stay in registers (``window_plan``); bf16 and f16 on the
+  tensor cores (``csrc/bsmm_window_mma.cu``, N-tile ``window_tn``), f32
+  on the CUDA cores (``csrc/bsmm_window.cu``).
 - the split route: ``bsmm_partials`` (the unsplit kernel with its f32
   partials flag) over runs of each column's entries, then ``bsmm_merge``
   (``csrc/bsmm_merge.cu``; replaces ``merge_phased_tiles``) adds each
@@ -48,6 +51,7 @@ built here in NumPy from the LUT's CSR:
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -66,6 +70,9 @@ FINE_DEPTH = 128
 # block-rows) and output block-columns a super-group keeps resident
 WINDOW_SLAB = 256
 WINDOW_SG = {8: 16, 16: 8, 32: 8, 64: 4, 128: 2}
+# bsmm_window_mma.cu: the N-tiles (rows of N a thread block owns) it is
+# built for, largest first
+WINDOW_TNS = (128, 64, 32, 16)
 # split route: at most SPLIT_MAX_PHASES runs a column, each of at least
 # SPLIT_MIN_PHASE entries
 SPLIT_MAX_PHASES = 8
@@ -197,6 +204,19 @@ def window_plan(row_ptr, ent_in, ent_w, n_in_blocks, bsize):
             "WB": wb, "SG": sg, "nwin": nwin}
 
 
+def window_tn(N, n_sg, sm_count):
+    """The tensor-core window kernel's N-tile for a product of N rows over
+    ``n_sg`` super-groups: the largest of ``WINDOW_TNS`` whose grid,
+    ceil(N / TN) · n_sg thread blocks, is at least the card's
+    ``sm_count`` (the smallest if none is).  A larger tile reads each W
+    block fewer times; a full grid keeps every SM busy.  Shapes and the
+    SM count only."""
+    for tn in WINDOW_TNS:
+        if -(-N // tn) * n_sg >= sm_count:
+            return tn
+    return WINDOW_TNS[-1]
+
+
 def split_phases(N, bsize, row_ptr, sm_count):
     """The split rule: the number P of runs to cut the longest output
     column into for a product of N rows, or 0 to run unsplit.  It splits
@@ -325,6 +345,18 @@ def _check_common(fn, x, others, bsize, ints=()):
             raise TypeError(f"{name} must be a contiguous int32 tensor")
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def device_sm_count(device=None):
+    """Streaming multiprocessors of a CUDA device (default the current
+    one): the count the split rule and ``window_tn`` read."""
+    index = None if device is None else torch.device(device).index
+    return _sm_count(torch.cuda.current_device() if index is None else index)
+
+
 def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
@@ -337,11 +369,12 @@ def _aligned(t):
 
 
 def _xprop(fn, source, cfn, x, w, ints, n_ptr, bsize, n_out_blocks, trans_w,
-           out_dtype=None):
+           out_dtype=None, extra=()):
     """Checks and launches one of the xprop kernels, which share a C
     signature: (dtype, bsize, trans_w, x, w, three int32 index arrays, y,
-    N, C, K, stream).  ints: the (name, tensor) index arrays, the first a
-    pointer array of ``n_ptr`` entries.  y: (N, n_out_blocks·bsize) of
+    N, C, K, stream), with the ints ``extra`` before the stream where
+    given.  ints: the (name, tensor) index arrays, the first a pointer
+    array of ``n_ptr`` entries.  y: (N, n_out_blocks·bsize) of
     ``out_dtype`` (default x's)."""
     _check_common(fn, x, (("w", w),), bsize, ints)
     if w.dtype != x.dtype:
@@ -364,10 +397,11 @@ def _xprop(fn, source, cfn, x, w, ints, n_ptr, bsize, n_out_blocks, trans_w,
     if N == 0:
         return y
     with torch.cuda.device(x.device):
-        err = _build.function(source, cfn, _XPROP_ARGS)(
+        err = _build.function(source, cfn,
+                              _XPROP_ARGS[:-1] + [_I] * len(extra) + [_P])(
             _DTYPE_CODE[x.dtype], bsize, int(trans_w), x.data_ptr(),
             w.data_ptr(), *(t.data_ptr() for _, t in ints), y.data_ptr(), N,
-            C, K, _stream(x))
+            C, K, *extra, _stream(x))
     if err != 0:
         raise RuntimeError(f"{fn} launch failed: cudaError {err}")
     return y
@@ -430,17 +464,30 @@ def bsmm_partials(x, w, tile_ptr, ent_in, ent_w, bsize, n_tiles,
     return parts
 
 
+def _mode_source(name, x, w):
+    """(source, x, w) of a schedule mode's kernel for x's dtype:
+    ``csrc/<name>.cu`` (fp32 on the CUDA cores, equal to ``bsmm_fprop``'s
+    result bit for bit) for f32, ``csrc/<name>_mma.cu`` (tensor cores)
+    for bf16 and f16, with x and w 16-byte aligned (``_aligned``)."""
+    if x.dtype == torch.float32:
+        return name, x, w
+    return f"{name}_mma", _aligned(x), _aligned(w)
+
+
 def bsmm_fine(x, w, chunk_ptr, slot_in, slot_w, bsize, n_out_blocks,
               trans_w=False):
     """y (N, n_out_blocks·bsize) = x · W (Wᵀ with ``trans_w``) on the card,
     in 128-deep chunks of each output column's entries (``fine_plan``:
     chunk_ptr (n_out_blocks+1,), slot_in/slot_w (chunks, 128/bsize)
     int32).  bsize 8, 16 or 32; otherwise the types and checks of
-    ``bsmm_fprop``.  In f32 its result equals ``bsmm_fprop``'s bit for bit."""
+    ``bsmm_fprop``.  bf16 and f16 run ``csrc/bsmm_fine_mma.cu`` on the
+    tensor cores; f32 runs ``csrc/bsmm_fine.cu``, whose result equals
+    ``bsmm_fprop``'s bit for bit."""
     if bsize not in FINE_BLOCK_SIZES:
         raise ValueError(f"bsmm_fine takes block sizes {FINE_BLOCK_SIZES}, "
                          f"got {bsize}")
-    y = _xprop("bsmm_fine", "bsmm_fine", "bsmm_fine_nc", x, w,
+    source, x, w = _mode_source("bsmm_fine", x, w)
+    y = _xprop("bsmm_fine", source, f"{source}_nc", x, w,
                (("chunk_ptr", chunk_ptr), ("slot_in", slot_in),
                 ("slot_w", slot_w)),
                n_out_blocks + 1, bsize, n_out_blocks, trans_w)
@@ -453,14 +500,22 @@ def bsmm_window(x, w, ptr, ent_slot, ent_w, bsize, n_out_blocks,
     """y (N, n_out_blocks·bsize) = x · W (Wᵀ with ``trans_w``) on the card,
     x staged once per window slab for each super-group of output columns
     (``window_plan``: ptr, ent_slot, ent_w int32).  Types and checks of
-    ``bsmm_fprop``.  In f32 its result equals ``bsmm_fprop``'s bit for bit."""
+    ``bsmm_fprop``.  bf16 and f16 run ``csrc/bsmm_window_mma.cu`` on the
+    tensor cores, in N-tiles of ``window_tn`` rows; f32 runs
+    ``csrc/bsmm_window.cu``, whose result equals ``bsmm_fprop``'s bit for
+    bit."""
     if bsize not in WINDOW_SG:
         raise ValueError(f"unsupported block size {bsize}")
     sg, wb = WINDOW_SG[bsize], WINDOW_SLAB // bsize
-    n_ptr = -(-n_out_blocks // sg) * -(-(x.shape[-1] // bsize) // wb) * sg + 1
-    y = _xprop("bsmm_window", "bsmm_window", "bsmm_window_nc", x, w,
+    n_sg = -(-n_out_blocks // sg)
+    n_ptr = n_sg * -(-(x.shape[-1] // bsize) // wb) * sg + 1
+    source, x, w = _mode_source("bsmm_window", x, w)
+    extra = ()
+    if source == "bsmm_window_mma" and x.is_cuda:
+        extra = (window_tn(x.shape[0], n_sg, device_sm_count(x.device)),)
+    y = _xprop("bsmm_window", source, f"{source}_nc", x, w,
                (("ptr", ptr), ("ent_slot", ent_slot), ("ent_w", ent_w)),
-               n_ptr, bsize, n_out_blocks, trans_w)
+               n_ptr, bsize, n_out_blocks, trans_w, extra=extra)
     bsmm_window.launches += 1
     return y
 

@@ -19,21 +19,10 @@ import numpy as np
 import torch
 
 from blocksparse_tpu_torch.kernels import bsmm as bsmm_kernels
+from blocksparse_tpu_torch.kernels.bsmm import device_sm_count
 from blocksparse_tpu_torch.utils import z_order_2d
 
 _MODES = ("auto", "grouped", "dense_tile", "window", "resident", "fine")
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index):
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def device_sm_count(device=None):
-    """Streaming multiprocessors of a CUDA device (default the current
-    one): the count the split rule reads."""
-    index = None if device is None else torch.device(device).index
-    return _sm_count(torch.cuda.current_device() if index is None else index)
 
 
 class BlocksparseMatMul:

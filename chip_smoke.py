@@ -50,10 +50,15 @@ C=512 in f32, bf16 and f16; the C=512 forward and both gradients held
 against the plain path, counted; every configuration's forward held
 against a dense cuDNN conv of the scattered filter and timed beside it.
 
-Then ``BlocksparseMatMul``'s schedule modes.  ``bsmm_fine``,
+Then ``BlocksparseMatMul``'s schedule modes.  ``bsmm_fine`` and
+``bsmm_window`` run ``bsmm_fine_mma.cu`` and ``bsmm_window_mma.cu`` on
+the tensor cores in bf16 and f16 (held against their plain versions at
+every block size, fprop and bprop, two runs equal bit for bit) and
+``bsmm_fine.cu`` and ``bsmm_window.cu`` in f32.  ``bsmm_fine``,
 ``bsmm_window`` and ``bsmm_merge`` against their plain versions in f32,
-bf16 and f16 (fine and window also against the unsplit kernel, bit for
-bit in f32), then, counted: the canonical small-block bench row
+bf16 and f16 at the path's shapes (fine and window also against the
+unsplit kernel, bit for bit in f32; their device time and the unsplit
+kernel's from the profiler), then, counted: the canonical small-block bench row
 (``benchmarks/canonical_bench.py``: hidden 7680 at 11.25% with
 Barabasi-Albert layouts from the port's ``make_mask`` at b8, b16 and b32,
 and hidden 2560 dense at b32; N = 64, bf16, feature_axis 0; depth-8
@@ -61,7 +66,8 @@ chains y = bsmm(y, w), forward and forward + backward) in modes "fine",
 "window" and "auto", each held against the same chain on
 ``impl="xla"`` and timed per application beside a dense ``torch.matmul``
 control; and the window's own regime (``bench.py``'s random 8192^2, b32,
-d 0.25 layout at N 256 and 2048), window against grouped.
+d 0.25 layout at N 256 and 2048), window against grouped in turns, by
+CUDA events and by the profiler's device time.
 
 Prints the card's name and power limit, the build times, every check
 with its tolerance, the timings, a ``{"kernels": [...]}`` line (each
@@ -92,8 +98,8 @@ BATCH, PROMPTS, PROMPT_LEN, NEW_TOKENS = 8, 4, 1024, 64
 TRAIN_STEPS, TIMED_STEPS = 8, 5
 LR, CLIP, LOSS_SCALE = 3e-4, 1.0, 2.0 ** 15
 SOURCES = ("bsmm_xprop_mma", "bsmm_fprop", "bsmm_updat_mma", "bsmm_updat",
-           "bst_attn_fwd", "bst_attn_bwd", "im2col", "bsmm_fine",
-           "bsmm_window", "bsmm_merge")
+           "bst_attn_fwd", "bst_attn_bwd", "im2col", "bsmm_fine_mma",
+           "bsmm_fine", "bsmm_window_mma", "bsmm_window", "bsmm_merge")
 DTYPES = (torch.bfloat16, torch.float32, torch.float16)
 # |kernel - plain| <= TOL * max(1, max|plain|); f16 held at bf16 level
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 1e-2}
@@ -425,6 +431,61 @@ def updat_block_size_checks(bt, dev, g):
                             UPDAT_TOL)
                     del x, dy
     torch.cuda.empty_cache()
+
+
+def mode_block_size_checks(bt, dev, g):
+    """bsmm_fine_mma.cu (b8-b32) and bsmm_window_mma.cu (b8-b128) against
+    their plain versions at every block size, in bf16 and f16, fprop and
+    bprop, on a random layout of the xprop sweep's size and density with
+    an empty output column, at N = XPROP_N and CANON_N (window_tn picks
+    another N-tile for each at b8-b64), each run twice for equal bits."""
+    from blocksparse_tpu_torch.kernels import bsmm as bk
+    rng = np.random.RandomState(SEED + 2)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for b in bk.BLOCK_SIZES:
+        n = XPROP_HIDDEN // b
+        lay = (rng.rand(n, n) < XPROP_DENSITY).astype(np.int32)
+        lay[np.arange(n), np.arange(n)] = 1
+        lay[:, 1] = 0
+        plain = bt.BlocksparseMatMul(lay, block_size=b, feature_axis=1,
+                                     impl="xla")
+        kinds = ("fine", "window") if b in bk.FINE_BLOCK_SIZES \
+            else ("window",)
+        for kind in kinds:
+            op = bt.BlocksparseMatMul(lay, block_size=b, feature_axis=1,
+                                      mode=kind)
+            for dtype in (torch.bfloat16, torch.float16):
+                w = (torch.randn(op.w_shape, device=dev, generator=g)
+                     * 0.1).to(dtype)
+                for d in "fb":
+                    for N in (XPROP_N, CANON_N):
+                        x = torch.randn((N, op.C if d == "f" else op.K),
+                                        device=dev, generator=g).to(dtype)
+                        tn = bk.window_tn(N, -(-n // bk.WINDOW_SG[b]), sms)
+                        tile = f" TN {tn}" if kind == "window" else ""
+                        what = (f"bsmm_{kind}_mma b{b} {d}prop N={N}{tile} "
+                                f"{op.blocks} blocks {dtype}")
+                        same_bits(what, lambda: op._xprop(x, w, d))
+                        compare(what, op._xprop(x, w, d),
+                                plain._xprop(x, w, d), TOL[dtype])
+                        del x
+    torch.cuda.empty_cache()
+
+
+def kernel_device_ms(fn, key, n=20):
+    """Mean device time a launch of the kernel whose name holds ``key``,
+    over n calls of fn() under the profiler (the launches it recorded):
+    the kernel's own time where the host's enqueue of a launch takes
+    longer."""
+    _, kernels = device_events(lambda: [fn() for _ in range(n)])
+    hits = [e for e in kernels if key in e.key]
+    count = sum(e.count for e in hits)
+    if count == 0:
+        check(False, f"profiler: no launch of {key} recorded")
+    if count != n:
+        print(f"      profiler: {count} launches of {key} recorded for "
+              f"{n} calls", flush=True)
+    return sum(e.self_device_time_total for e in hits) / count / 1e3
 
 
 def updat_reduce_checks(op, N, dev, g, rows):
@@ -1316,6 +1377,21 @@ def mode_kernel_checks(rows_in, win_op, dev, g, card_line, rows):
                 if d == "f":
                     timed(rows, (kind, op.bsize, N, dtype), err, run, plain,
                           50, card_line)
+                if d == "f" and dtype == torch.bfloat16:
+                    # the kernel's own time: at these shapes the host's
+                    # enqueue of a launch can take longer than the kernel
+                    ms = kernel_device_ms(run, f"bsmm_{kind}_mma_kernel")
+                    grp = kernel_device_ms(lambda: unsplit(
+                        x, w, lut[f"{d}_row_ptr"], lut[f"{d}_ent_in"],
+                        lut[f"{d}_ent_w"], op.bsize, n_out),
+                        "bsmm_xprop_mma_kernel")
+                    key = (kind, op.bsize, N, dtype)
+                    rows[key] = (rows[key][0], ms, rows[key][2])
+                    print(f"      device time (profiler, mean of 20): "
+                          f"bsmm_{kind}_mma {ms:.4f} ms "
+                          f"({xprop_flops(op, N) / ms / 1e9:.2f} TFLOP/s), "
+                          f"unsplit (grouped) {grp:.4f} ms [{card_line}]",
+                          flush=True)
                 del x, w, y
 
     small, dense = (CANON_ROWS[0][0] * CANON_UNIT, CANON_ROWS[1][0]
@@ -1372,6 +1448,12 @@ def mode_kernel_checks(rows_in, win_op, dev, g, card_line, rows):
     torch.cuda.empty_cache()
 
 
+# name fragments of the kernels each route of a fprop launches
+ROUTE_KERNELS = {"fine": ("bsmm_fine",), "window": ("bsmm_window",),
+                 "grouped": ("bsmm_xprop",),
+                 "phased": ("bsmm_xprop", "bsmm_merge")}
+
+
 def canonical_path(rows_in, dev, g, card_line, rows):
     """The canonical rows' chains in each mode, counted, held against the
     plain chain and timed per application beside the dense control.
@@ -1420,9 +1502,17 @@ def canonical_path(rows_in, dev, g, card_line, rows):
                                  CANON_TIMED) / CANON_DEPTH
             fb_ms = time_ms(lambda: chain_grads(op, x0, w0),
                             CANON_TIMED) / CANON_DEPTH
+            # the route's kernels' own time: below ~0.1 ms an application
+            # the chain's time is the host's enqueue
+            keys = ROUTE_KERNELS[op.dispatch_mode(CANON_N)]
+            with torch.no_grad():
+                _, kernels = device_events(lambda: chain(op, x0, w0))
+            dev_ms = sum(e.self_device_time_total for e in kernels
+                         if any(k in e.key for k in keys)) / CANON_DEPTH / 1e3
             flops = 2 * CANON_N * op.blocks * b * b
             print(f"{what} [{card_line}]: {fwd_ms:.4f} ms forward "
-                  f"({flops / fwd_ms / 1e9:.2f} TFLOP/s), {fb_ms:.4f} ms "
+                  f"({flops / fwd_ms / 1e9:.2f} TFLOP/s; kernels' device "
+                  f"time {dev_ms:.4f} ms, profiler), {fb_ms:.4f} ms "
                   f"forward + backward a application; dense torch.matmul "
                   f"{hidden}^2 x {CANON_N} {dense_ms:.4f} ms", flush=True)
             del y, got
@@ -1483,6 +1573,18 @@ def window_path(ops, W, dev, g, card_line):
             times[m].append((time_ms(lambda: ops[m]._xprop(x, w, "f"), 10),
                              time_ms(lambda: ops[m]._xprop(x, w, "b"), 10)))
         flops = 2 * N * ops["plain"].blocks * WIN_BSIZE ** 2
+        kern = {"window": "bsmm_window_mma_kernel",
+                "grouped": "bsmm_xprop_mma_kernel"}
+        dev_ms = {"window": [], "grouped": []}
+        for m in ("window", "grouped", "grouped", "window"):
+            dev_ms[m].append(kernel_device_ms(
+                lambda: ops[m]._xprop(x, w, "f"), kern[m], 10))
+        print(f"window regime N={N} fprop device time (profiler, mean of "
+              f"10; turns window, grouped, grouped, window) [{card_line}]: "
+              + "; ".join(f"{m} " + " ".join(f"{t:.4f}" for t in v)
+                          + f" ms ({flops / min(v) / 1e9:.2f} TFLOP/s)"
+                          for m, v in dev_ms.items()), flush=True)
+        window_tile_sweep(ops, x, w, N, flops, card_line)
         print(f"window regime {WIN_HIDDEN}^2 b{WIN_BSIZE} d{WIN_DENSITY} "
               f"N={N} [{card_line}]: "
               + "; ".join(f"{m} fprop " + " ".join(f"{f:.4f}" for f, _ in t)
@@ -1493,6 +1595,33 @@ def window_path(ops, W, dev, g, card_line):
         del x, outs
     torch.cuda.empty_cache()
     return total
+
+
+def window_tile_sweep(ops, x, w, N, flops, card_line):
+    """The tensor-core window kernel's fprop at each N-tile it is built
+    for (window_tn replaced for the sweep), each within TOL of the plain
+    op, with its device time: what the N-tile rule trades (W re-read per
+    N-tile against thread blocks to fill the SMs)."""
+    from blocksparse_tpu_torch.kernels import bsmm as bk
+    bf, op = torch.bfloat16, ops["window"]
+    n_sg = -(-op.KB // bk.WINDOW_SG[op.bsize])
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    ref = ops["plain"]._xprop(x, w, "f")
+    rule, times = bk.window_tn, {}
+    try:
+        for tn in bk.WINDOW_TNS:
+            bk.window_tn = lambda *_: tn
+            compare(f"window regime N={N} fprop, N-tile {tn}",
+                    op._xprop(x, w, "f"), ref, TOL[bf])
+            times[tn] = kernel_device_ms(lambda: op._xprop(x, w, "f"),
+                                         "bsmm_window_mma_kernel", 10)
+    finally:
+        bk.window_tn = rule
+    print(f"window regime N={N} fprop device time by N-tile [{card_line}]: "
+          + ", ".join(f"TN {tn} ({-(-N // tn) * n_sg} thread blocks) "
+                      f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s)"
+                      for tn, ms in times.items())
+          + f"; window_tn picks {rule(N, n_sg, sms)}", flush=True)
 
 
 def mode_yardsticks(rows_in, win, dev, g, card_line, rows):
@@ -1587,6 +1716,7 @@ def main():
     training_kernel_checks(model, plain, dev, g, rows)
     xprop_block_size_checks(bt, dev, g)
     updat_block_size_checks(bt, dev, g)
+    mode_block_size_checks(bt, dev, g)
 
     # 4. the serving path, counted
     serve_launches = serving_path(bt, model, plain, cfg, dev, card_line)
@@ -1646,9 +1776,9 @@ def main():
          rows[("im2col", bf)]),
         ("col2im", "im2col.cu", "im2col.py:125", conv_launches["col2im"],
          rows[("col2im", bf)]),
-        ("bsmm_fine", "bsmm_fine.cu", "bsmm.py:2294",
+        ("bsmm_fine", "bsmm_fine_mma.cu", "bsmm.py:2294",
          mode_launches["bsmm_fine"], rows[("fine", 8, CANON_N, bf)]),
-        ("bsmm_window", "bsmm_window.cu", "bsmm.py:1800",
+        ("bsmm_window", "bsmm_window_mma.cu", "bsmm.py:1800",
          mode_launches["bsmm_window"], rows[("window", 32, WIN_NS[0], bf)]),
         ("bsmm_merge", "bsmm_merge.cu", "bsmm.py:1562",
          mode_launches["bsmm_merge"] + serve_launches["bsmm_merge"],

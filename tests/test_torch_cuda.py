@@ -22,8 +22,10 @@ unsplit xprop kernel runs f32 on the CUDA cores (csrc/bsmm_fprop.cu) and
 bf16/f16 on the tensor cores (csrc/bsmm_xprop_mma.cu), each in a fixed
 order: two runs agree bit for bit.  The fine and window kernels sum each
 output in the LUT's order with bsmm_fprop.cu's fmaf chain: equal to the
-unsplit kernel bit for bit in f32; in bf16 and f16 (another order there)
-each is held against the plain version within the matmul's tolerances.
+unsplit kernel bit for bit in f32; in bf16 and f16 they run on the tensor
+cores (csrc/bsmm_fine_mma.cu, csrc/bsmm_window_mma.cu), each in its own
+fixed order, and are held against the plain version within the matmul's
+tolerances, two runs bit for bit.
 The merge adds the same f32 tiles in the same order as its plain
 version: exact.
 """
@@ -744,42 +746,97 @@ def _moved(before):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, *HALF])
 @pytest.mark.parametrize("bsize", [8, 16, 32, 64, 128])
-def test_fine_and_window_kernels_match_plain_and_unsplit(cuda, bsize, dtype):
+def test_fine_and_window_kernels_match_plain_and_unsplit(cuda, bsize, dtype,
+                                                         monkeypatch):
     """fprop and bprop of mode="fine" (b8-b32) and mode="window" against
-    the plain version, and in f32 bit for bit against the unsplit kernel
-    (in bf16 and f16 that kernel sums on the tensor cores, in another
-    order, and is itself held against the plain version), with an empty
-    output column, an empty input row, a window count that does not divide
-    C and N of 1, 5 and 300."""
+    the plain version, two runs equal bit for bit, and in f32 bit for bit
+    against the unsplit kernel (in bf16 and f16 that kernel sums on the
+    tensor cores, in another order, and is itself held against the plain
+    version).  bf16 and f16 run the tensor-core sources
+    (bsmm_fine_mma.cu, bsmm_window_mma.cu), f32 the CUDA-core ones.  Two
+    layouts: a sparse one with an empty output column, an empty input row
+    and a window count that does not divide C; a dense one whose windows
+    hold more entries than one W stage of the tensor-core window kernel.
+    N of 1, 63, 64, 65, 300 and 4224, where window_tn's N-tile changes."""
+    from blocksparse_tpu_torch.kernels import _build
+    used = []
+    build_fn = _build.function
+
+    def spy(name, fn_name, argtypes):
+        used.append(name)
+        return build_fn(name, fn_name, argtypes)
+    monkeypatch.setattr(_build, "function", spy)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     CB = 2 * 256 // bsize + 3                # 2 windows and a partial one
-    layout = random_layout(CB, 6, 0.4, seed=bsize + 3)
-    layout[:, 2] = 0
-    layout[1, :] = 0
-    ops = _mode_ops(layout, bsize)
-    plain = BlocksparseMatMul(layout, block_size=bsize, feature_axis=1,
-                              impl="xla")
+    sparse = random_layout(CB, 6, 0.4, seed=bsize + 3)
+    sparse[:, 2] = 0
+    sparse[1, :] = 0
+    dense = np.ones((256 // bsize, 24), np.int32)
     modes = ("fine", "window") if bsize <= 32 else ("window",)
+    suffix = "" if dtype == torch.float32 else "_mma"
+    sg = bsmm_kernels.WINDOW_SG[bsize]
     g = torch.Generator(device=cuda).manual_seed(bsize)
-    w = torch.randn(plain.w_shape, device=cuda, generator=g).to(dtype)
-    for N in (1, 5, 300):
-        for d, width in (("f", plain.C), ("b", plain.K)):
-            x = torch.randn((N, width), device=cuda, generator=g).to(dtype)
-            ref = plain._xprop(x, w, d).float()
-            atol = _tol(dtype, BSMM_BF16_TOL, ref.abs().max().item())
-            unsplit = ops["grouped"]._xprop(x, w, d)
-            torch.testing.assert_close(unsplit.float(), ref, rtol=0,
-                                       atol=atol)
-            for m in modes:
-                before = _counts()
-                y = ops[m]._xprop(x, w, d)
-                torch.cuda.synchronize()
-                assert _moved(before) == {f"bsmm_{m}": 1}
-                if dtype == torch.float32:
-                    assert torch.equal(y, unsplit), (m, d, N)
-                torch.testing.assert_close(y.float(), ref, rtol=0, atol=atol)
-            empty = slice(2 * bsize, 3 * bsize) if d == "f" \
-                else slice(bsize, 2 * bsize)
-            assert (y[:, empty] == 0).all()
+    tiles = set()
+    for layout in (sparse, dense):
+        ops = _mode_ops(layout, bsize)
+        plain = BlocksparseMatMul(layout, block_size=bsize, feature_axis=1,
+                                  impl="xla")
+        w = torch.randn(plain.w_shape, device=cuda, generator=g).to(dtype)
+        for N in (1, 63, 64, 65, 300, 4224):
+            for d, width, n_out in (("f", plain.C, plain.KB),
+                                    ("b", plain.K, plain.CB)):
+                x = torch.randn((N, width), device=cuda, generator=g).to(dtype)
+                ref = plain._xprop(x, w, d).float()
+                atol = _tol(dtype, BSMM_BF16_TOL, ref.abs().max().item())
+                unsplit = ops["grouped"]._xprop(x, w, d)
+                torch.testing.assert_close(unsplit.float(), ref, rtol=0,
+                                           atol=atol)
+                tiles.add(bsmm_kernels.window_tn(N, -(-n_out // sg), sms))
+                for m in modes:
+                    before = _counts()
+                    used.clear()
+                    y, again = ops[m]._xprop(x, w, d), ops[m]._xprop(x, w, d)
+                    torch.cuda.synchronize()
+                    assert _moved(before) == {f"bsmm_{m}": 2}
+                    assert used == [f"bsmm_{m}{suffix}"] * 2
+                    assert torch.equal(y, again), (m, d, N)
+                    if dtype == torch.float32:
+                        assert torch.equal(y, unsplit), (m, d, N)
+                    torch.testing.assert_close(y.float(), ref, rtol=0,
+                                               atol=atol)
+                    if layout is sparse:
+                        empty = slice(2 * bsize, 3 * bsize) if d == "f" \
+                            else slice(bsize, 2 * bsize)
+                        assert (y[:, empty] == 0).all()
+    assert len(tiles) > 1
+
+
+@pytest.mark.cuda
+def test_mode_sources_refuse_other_dtypes(cuda):
+    """The tensor-core fine and window sources refuse f32 (dtype 0), the
+    CUDA-core ones bf16 and f16 (dtypes 1 and 2): cudaErrorInvalidValue."""
+    from blocksparse_tpu_torch.kernels import _build
+    layout = random_layout(4, 4, 1.0, seed=0)
+    op = BlocksparseMatMul(layout, block_size=16, feature_axis=1)
+    x = torch.randn((4, op.C), device=cuda)
+    w = torch.randn(op.w_shape, device=cuda)
+    y = torch.empty((4, op.K), device=cuda)
+    fine = op._plan_tensors(cuda, "fine", "f")
+    win = op._plan_tensors(cuda, "window", "f")
+    args = {"bsmm_fine": (fine["chunk_ptr"], fine["slot_in"], fine["slot_w"]),
+            "bsmm_window": (win["ptr"], win["ent_slot"], win["ent_w"])}
+    for name, ints in args.items():
+        ptrs = [t.data_ptr() for t in ints]
+        for source, dtypes in ((name, (1, 2)), (name + "_mma", (0,))):
+            extra = [16] if source == "bsmm_window_mma" else []
+            fn = _build.function(
+                source, source + "_nc",
+                bsmm_kernels._XPROP_ARGS[:-1]
+                + [bsmm_kernels._I] * len(extra) + [bsmm_kernels._P])
+            for code in dtypes:
+                assert fn(code, 16, 0, x.data_ptr(), w.data_ptr(), *ptrs,
+                          y.data_ptr(), 4, op.C, op.K, *extra,
+                          bsmm_kernels._stream(x)) == 1, (source, code)
 
 
 @pytest.mark.cuda

@@ -10,7 +10,8 @@ card:
   JAX package's networkx-built one;
 - the fine, window and split plans cover every LUT entry once, in LUT
   order within each output column, and the merge index runs in phase
-  order, then the sentinel;
+  order, then the sentinel; the tensor-core window kernel's N-tile rule
+  (``window_tn``) by value;
 - ``merge_plain`` equals JAX ``merge_phased_tiles`` (Pallas interpret)
   on a phased cover from ``build_dense_tile_schedule_phased``: exactly in
   f32 (both add the same f32 tiles in the same order);
@@ -118,6 +119,27 @@ def test_window_plan_covers_the_lut_in_order(bsize, CB, d):
                 got.append((win * wb + int(plan["ent_slot"][e]),
                             int(plan["ent_w"][e])))
         assert got == lut
+    # a super-group's entries run window by window, in each window column
+    # by column: the tensor-core kernel walks them as one run in stages
+    lo = plan["ent_lo"]
+    for k in range(0, len(ptr) - 1, sg):
+        assert (np.diff(lo[ptr[k]:ptr[k + sg]]) >= 0).all()
+
+
+@pytest.mark.parametrize("N,n_sg,sms,tn", [
+    (2048, 32, 132, 128),    # window regime N 2048: 16 x 32 blocks
+    (256, 32, 132, 32),      # N 256: 4 x 32 = 128 < 132 at TN 64
+    (64, 60, 132, 16),       # canonical hidden 7680 b8: 4 x 60 blocks
+    (64, 30, 132, 16),       # canonical b32: no tile fills, the smallest
+    (4224, 1, 132, 32),      # ceil(4224 / 32) = 132
+    (300, 132, 132, 128),
+    (1, 200, 132, 128),
+    (256, 32, 30, 128)])     # fewer SMs: a larger tile fills them
+def test_window_tn_rule(N, n_sg, sms, tn):
+    """The tensor-core window kernel's N-tile: the largest of 128, 64, 32
+    and 16 whose grid ceil(N / TN) x n_sg fills the SMs, else 16."""
+    assert bsmm_kernels.WINDOW_TNS == (128, 64, 32, 16)
+    assert bsmm_kernels.window_tn(N, n_sg, sms) == tn
 
 
 @pytest.mark.parametrize("d", ["f", "b"])
