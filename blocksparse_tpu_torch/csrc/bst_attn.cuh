@@ -1,0 +1,68 @@
+// What the block-sparse attention backward's two sources share
+// (bst_attn_bwd.cu, f32 on the CUDA cores; bst_attn_bwd_mma.cu, bf16/f16 on
+// the tensor cores): the per-entry mask codes, the strides and tables of the
+// C interface, and the launch order of the dk/dv kernel's key block-rows.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int MASK_FULL = 1, MASK_TRIL = 2, MASK_TRIU = 3, MASK_UNIQ0 = 4;
+
+// Whether row r of a block sees column c under the entry's mask code: all,
+// the lower or upper triangle, or a row-major (BS, BS) int8 block of the
+// unique table.  A select, never a multiply: a query row that sees no key
+// has lse = -inf, and exp(s - lse) is then +inf.
+template <int BS>
+__device__ __forceinline__ bool visible(int code, int r, int c,
+                                        const signed char* __restrict__ uniq) {
+  if (code == MASK_FULL) return true;
+  if (code == MASK_TRIL) return r >= c;
+  if (code == MASK_TRIU) return r <= c;
+  return uniq[((size_t)(code - MASK_UNIQ0) * BS + r) * BS + c] != 0;
+}
+
+struct Strides {
+  long long qb, qr, kb, kr, vb, vr, ob, orow;  // q, k, v, dO: batch and row
+};
+
+struct Args {
+  const void *q, *k, *v, *dout;
+  const float *lse, *dvec;
+  Strides st;
+  const int *row_ptr, *ent, *ent_code, *order;
+  const signed char* uniq;
+  int batch, heads, lut_heads, ctx_blks_q, ctx_blks_k;
+  float scale;
+};
+
+// The (key block-row, batch*head) a dk/dv thread block owns.  Without an
+// order the key row runs fastest (CSR order); with one, blocks go out by
+// rank, batch*head fastest, and order[lut_head][rank] names the key row, so
+// the rows with the most entries start first and the last wave is short.
+__device__ __forceinline__ void dkv_block(const int* __restrict__ order, int batch, int heads,
+                                          int lut_heads, int rows, int& krow, int& bh) {
+  if (order == nullptr) {
+    krow = blockIdx.x % rows;
+    bh = blockIdx.x / rows;
+  } else {
+    const int n_bh = batch * heads;
+    bh = blockIdx.x % n_bh;
+    const int lh = lut_heads == 1 ? 0 : bh % heads;
+    krow = order[(size_t)lh * rows + blockIdx.x / n_bh];
+  }
+}
+
+inline Args make_args(const void* q, const void* k, const void* v, const void* dout,
+                      const void* lse, const void* dvec, const long long* s,
+                      const int* row_ptr, const int* ent, const int* ent_code,
+                      const int* order, const signed char* uniq, int batch, int heads,
+                      int lut_heads, int ctx_blks_q, int ctx_blks_k, float scale) {
+  return Args{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(dvec),
+              Strides{s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7]},
+              row_ptr, ent, ent_code, order, uniq, batch, heads, lut_heads, ctx_blks_q,
+              ctx_blks_k, scale};
+}
+
+}  // namespace

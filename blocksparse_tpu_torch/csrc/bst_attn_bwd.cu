@@ -1,11 +1,16 @@
-// Fused block-sparse attention backward, flash style: dq, and dk/dv, from
-// q, k, v, dO, the forward's per-row log-sum-exp lse and D = rowsum(dO o O),
-// recomputing each block's probabilities P = exp(scale * q k^T - lse) so no
-// score tensor reaches device memory.
+// Fused block-sparse attention backward in f32, flash style: dq, and dk/dv,
+// from q, k, v, dO, the forward's per-row log-sum-exp lse and
+// D = rowsum(dO o O), recomputing each block's probabilities
+// P = exp(scale * q k^T - lse) so no score tensor reaches device memory.
 //
-// Replaces the TPU kernels fused_attention_dq / _attn_dq_kernel and
-// fused_attention_dkv / _attn_dkv_kernel (blocksparse_tpu/kernels/bst_attn.py).
-// D is computed outside, in plain torch, as fused_attention_bwd does.
+// Replaces, for f32 inputs, the TPU kernels fused_attention_dq /
+// _attn_dq_kernel and fused_attention_dkv / _attn_dkv_kernel
+// (blocksparse_tpu/kernels/bst_attn.py).  bf16 and f16 run
+// bst_attn_bwd_mma.cu on the tensor cores, through the same C interface;
+// f32 stays here in full fp32 on the CUDA cores (the reference's f32 dots
+// are Precision.HIGHEST, which the tensor cores would round to TF32), and
+// this source refuses any other dtype.  D is computed outside, in plain
+// torch, as fused_attention_bwd does.
 //
 // dq: one thread block (256 threads) per (query block-row, batch*head),
 // walking the row's key blocks in the nn CSR of the forward:
@@ -17,9 +22,10 @@
 // row's query blocks in the tn CSR, whose mask codes were classified on the
 // TRANSPOSED mask blocks (TRIL and TRIU swap, unique blocks transposed):
 //   P^T, dP^T = v dO^T;  dv += round(P^T) dO;  dk += round(dS^T) q,
-// with P rounded to dO's type and dS to q's, as _attn_dkv_kernel does.  dk
-// and dv accumulate in f32 registers and are stored once in f32; the caller
-// casts them.
+// with P rounded to dO's type and dS to q's, as _attn_dkv_kernel does (in
+// f32 a no-op).  dk and dv accumulate in f32 registers and are stored once
+// in f32.  The key rows go out in CSR order, or in the caller's order
+// (dkv_block, bst_attn.cuh).
 //
 // Every sum runs in a fixed order (the CSR order), with no atomics.  A
 // query row that sees no key (lse = -inf, F1) gets P = 0: zero dq and no
@@ -31,28 +37,17 @@
 // the input type, dk and dv contiguous (batch, ctx_k, heads*HS) f32.
 //
 // Bound on the H100: per (row, block) each kernel does 4 products of
-// BS*BS*HS FMAs against 2*BS*HS elements read (mostly from L2), so, like
-// the forward, the CUDA-core FMA rate bounds it; tensor cores (mma/wgmma)
-// and a K/V ring are later work.
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
+// BS*BS*HS FMAs against 2*BS*HS elements read (mostly from L2), so the
+// CUDA-core f32 FMA rate bounds it.
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "bst_attn.cuh"
 
 namespace {
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
-  return __float2half_rn(v);
-}
+template <typename T> __device__ __forceinline__ T from_f32(float v) { return v; }
 
 // v as a product with an operand of type T sees it: rounded to T.
 template <typename T> __device__ __forceinline__ float round_to(float v) {
@@ -60,16 +55,6 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
 }
 
 constexpr int THREADS = 256;
-constexpr int MASK_FULL = 1, MASK_TRIL = 2, MASK_TRIU = 3, MASK_UNIQ0 = 4;
-
-template <int BS>
-__device__ __forceinline__ bool visible(int code, int r, int c,
-                                        const signed char* __restrict__ uniq) {
-  if (code == MASK_FULL) return true;
-  if (code == MASK_TRIL) return r >= c;
-  if (code == MASK_TRIU) return r <= c;
-  return uniq[((size_t)(code - MASK_UNIQ0) * BS + r) * BS + c] != 0;
-}
 
 // Stage a (BS, HS) block of a (batch, ctx, heads*HS) tensor in f32.
 template <typename T, int BS, int HS>
@@ -78,10 +63,6 @@ __device__ __forceinline__ void stage(float (*dst)[HS + 1], const T* __restrict_
   for (int l = threadIdx.x; l < BS * HS; l += THREADS)
     dst[l / HS][l % HS] = to_f32(src[(l / HS) * row_stride + l % HS]);
 }
-
-struct Strides {
-  long long qb, qr, kb, kr, vb, vr, ob, orow;  // q, k, v, dO: batch and row
-};
 
 template <int BS, int HS>
 constexpr size_t dq_smem() {
@@ -207,8 +188,9 @@ bst_attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     const float* __restrict__ dvec, float* __restrict__ dk,
                     float* __restrict__ dv, Strides st, const int* __restrict__ row_ptr,
                     const int* __restrict__ ent_q, const int* __restrict__ ent_code,
-                    const signed char* __restrict__ uniq, int heads, int lut_heads,
-                    int ctx_blks_q, int ctx_blks_k, float scale) {
+                    const signed char* __restrict__ uniq, const int* __restrict__ order,
+                    int batch, int heads, int lut_heads, int ctx_blks_q, int ctx_blks_k,
+                    float scale) {
   constexpr int RB = BS / 16, DB = HS / 16;
   extern __shared__ __align__(16) float smem[];
   float(*ks)[HS + 1] = reinterpret_cast<float(*)[HS + 1]>(smem);
@@ -223,8 +205,8 @@ bst_attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
   const int tid = threadIdx.x;
   const int ti = tid / 16, tj = tid % 16;
-  const int krow = blockIdx.x % ctx_blks_k;
-  const int bh = blockIdx.x / ctx_blks_k;
+  int krow, bh;
+  dkv_block(order, batch, heads, lut_heads, ctx_blks_k, krow, bh);
   const int b = bh / heads, h = bh % heads;
   const int* rp = row_ptr + (size_t)(lut_heads == 1 ? 0 : h) * (ctx_blks_k + 1);
   const int ctx_q = ctx_blks_q * BS;
@@ -325,16 +307,6 @@ bst_attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     }
 }
 
-struct Args {
-  const void *q, *k, *v, *dout;
-  const float *lse, *dvec;
-  Strides st;
-  const int *row_ptr, *ent, *ent_code;
-  const signed char* uniq;
-  int batch, heads, lut_heads, ctx_blks_q, ctx_blks_k;
-  float scale;
-};
-
 template <typename T, int BS, int HS>
 cudaError_t launch_dq(const Args& a, void* dq, cudaStream_t stream) {
   constexpr size_t smem = dq_smem<BS, HS>();
@@ -361,7 +333,8 @@ cudaError_t launch_dkv(const Args& a, float* dk, float* dv, cudaStream_t stream)
   kern<<<(unsigned)grid, THREADS, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), a.lse, a.dvec, dk, dv, a.st, a.row_ptr, a.ent,
-      a.ent_code, a.uniq, a.heads, a.lut_heads, a.ctx_blks_q, a.ctx_blks_k, a.scale);
+      a.ent_code, a.uniq, a.order, a.batch, a.heads, a.lut_heads, a.ctx_blks_q,
+      a.ctx_blks_k, a.scale);
   return cudaGetLastError();
 }
 
@@ -397,28 +370,25 @@ cudaError_t dispatch(int bs, int hs, int which, const Args& a, void* o0, void* o
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v, dO alike).
+// dtype: 0 = float32 (bf16 and f16 run bst_attn_bwd_mma.cu, with this
+// interface; here they return cudaErrorInvalidValue).
 // which: 0 = dq (row_ptr/ent/ent_code: the nn CSR over query block-rows;
 // out0: dq, input type); 1 = dk/dv (the tn CSR over key block-rows with
 // transposed mask codes and table; out0, out1: dk, dv in f32).
 // strides: batch and row strides, in elements, of q, k, v and dO.
+// order: null (CSR order) or, for dk/dv, (lut_heads, ctx_blks_k) int32, the
+// key block-rows in launch order (dkv_block).
 // Returns a cudaError_t (0 = launched).
 extern "C" int bst_attn_bwd(int dtype, int which, int bs, int hs, const void* q,
                             const void* k, const void* v, const void* dout,
                             const void* lse, const void* dvec, void* out0, void* out1,
                             const long long* strides, const int* row_ptr, const int* ent,
-                            const int* ent_code, const signed char* uniq, int batch,
-                            int heads, int lut_heads, int ctx_blks_q, int ctx_blks_k,
-                            float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(dvec),
-         Strides{strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
-                 strides[6], strides[7]},
-         row_ptr, ent, ent_code, uniq, batch, heads, lut_heads, ctx_blks_q, ctx_blks_k,
-         scale};
-  if (which != 0 && which != 1) return cudaErrorInvalidValue;
-  if (dtype == 0) return dispatch<float>(bs, hs, which, a, out0, out1, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(bs, hs, which, a, out0, out1, s);
-  if (dtype == 2) return dispatch<__half>(bs, hs, which, a, out0, out1, s);
-  return cudaErrorInvalidValue;
+                            const int* ent_code, const signed char* uniq,
+                            const int* order, int batch, int heads, int lut_heads,
+                            int ctx_blks_q, int ctx_blks_k, float scale, void* stream) {
+  if (dtype != 0 || (which != 0 && which != 1)) return cudaErrorInvalidValue;
+  const Args a = make_args(q, k, v, dout, lse, dvec, strides, row_ptr, ent, ent_code,
+                           order, uniq, batch, heads, lut_heads, ctx_blks_q, ctx_blks_k,
+                           scale);
+  return dispatch<float>(bs, hs, which, a, out0, out1, static_cast<cudaStream_t>(stream));
 }

@@ -1,8 +1,9 @@
-// The tensor-core building blocks the bf16/f16 block-sparse matmul kernels
-// share (bsmm_xprop_mma.cu, bsmm_updat_mma.cu, bsmm_fine_mma.cu,
-// bsmm_window_mma.cu): 16-byte cp.async copies with zero-fill, ldmatrix
-// (plain and transposed), mma.sync.m16n8k16 with f32 accumulators, and a
-// two-element store rounded once to the output type.
+// The tensor-core building blocks the bf16/f16 kernels share
+// (bsmm_xprop_mma.cu, bsmm_updat_mma.cu, bsmm_fine_mma.cu,
+// bsmm_window_mma.cu, bst_attn_bwd_mma.cu): 16-byte cp.async copies with
+// zero-fill, ldmatrix (plain and transposed), mma.sync.m16n8k16 with f32
+// accumulators, f32 pairs packed into an operand, and a two-element store
+// rounded once to the output type.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -70,6 +71,17 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], const
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// two f32 values rounded once to T, packed as an mma fragment register holds
+// them (the first in the low half): f32 accumulators become an A operand
+__device__ __forceinline__ uint32_t pack2(float a, float b, __nv_bfloat16) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ uint32_t pack2(float a, float b, __half) {
+  const __half2 v = __floats2half2_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // two neighbouring outputs, rounded once to the output type

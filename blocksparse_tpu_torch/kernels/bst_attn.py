@@ -12,17 +12,24 @@ batch·head), the q block held in shared memory, the row's k/v blocks
 streamed one at a time.
 
 ``attention_dq`` and ``attention_dkv`` replace ``fused_attention_dq`` and
-``fused_attention_dkv``; both run ``csrc/bst_attn_bwd.cu``.  dq walks the
-query-row (nn) CSR of the forward; dk/dv walk the key-row (tn) CSR whose
-mask codes are classified on the transposed mask blocks, and come out in
-f32.  D = rowsum(dO∘O) is plain torch, as in ``fused_attention_bwd``.
+``fused_attention_dkv``: bf16 and f16 run ``csrc/bst_attn_bwd_mma.cu`` on
+the tensor cores (``mma.sync``, P and dS in registers, a ``cp.async``
+ring of k/v or q/dO blocks), f32 runs ``csrc/bst_attn_bwd.cu``, exact on
+the CUDA cores; both have one C interface.  dq walks the query-row (nn)
+CSR of the forward; dk/dv walk the key-row (tn) CSR whose mask codes are
+classified on the transposed mask blocks, and come out in f32, their key
+rows launched in CSR order or in a given order (``launch_order``: the
+rows with the most entries first).  D = rowsum(dO∘O) is plain torch, as
+in ``fused_attention_bwd``.
 
 All kernels read q/k/v/dO in the public (batch, ctx, heads·hs) layout
 through their strides, so the column slices of a packed qkv tensor go in
-without a copy; lse and D are (batch, heads, ctx_q) f32.  On the H100
-they are bound by the CUDA-core FMA rate and the K/V reads; see the
-sources.  The TPU kernels' q-row pairing, lane folding and
-stream-vs-resident choice are TPU mechanics and are not carried over.
+without a copy (the tensor-core kernels copy 16 bytes a thread: a view
+whose start or batch or row stride is off 16 bytes goes in as a copy,
+``_aligned16``); lse and D are (batch, heads, ctx_q) f32.  The forward is
+bound by the CUDA-core FMA rate; see the sources.  The TPU kernels' q-row
+pairing, lane folding and stream-vs-resident choice are TPU mechanics and
+are not carried over.
 
 ``attention_fwd_plain``, ``attention_fwd_lse_plain`` and
 ``attention_bwd_plain`` are the plain PyTorch versions: masked per-block
@@ -99,6 +106,16 @@ def build_attn_csr(nn_list_per_head, codes):
         row_ptr.append(len(ent_k))
     return (np.asarray(row_ptr, np.int32), np.asarray(ent_k, np.int32),
             np.asarray(ent_code, np.int32))
+
+
+def launch_order(row_ptr, rows):
+    """The key block-rows of each layout head by entry count, most first
+    (stable: ties keep their order): a (lut_heads, rows) int32 array from
+    a CSR's row_ptr (``build_attn_csr``), the order in which the dk/dv
+    kernel launches its thread blocks, so the longest walks start in the
+    first wave."""
+    counts = np.diff(np.asarray(row_ptr).reshape(-1, rows + 1), axis=1)
+    return np.argsort(-counts, axis=1, kind="stable").astype(np.int32)
 
 
 def _blocked(q, k, v, q_blk, k_blk, heads, bs):
@@ -221,7 +238,18 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _FWD_ARGS = [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
              _I, ctypes.c_float, _P]
 _BWD_ARGS = [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-             _P, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+             _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+
+
+def _aligned16(t):
+    """t, or a contiguous copy of it where its start or its batch or row
+    stride is off 16 bytes: the tensor-core kernels copy 16 bytes a
+    thread.  The column slices of a packed qkv go in as they are."""
+    es = t.element_size()
+    if t.data_ptr() % 16 or any(t.stride(d) * es % 16
+                                for d in range(t.dim() - 1)):
+        return t.clone(memory_format=torch.contiguous_format)
+    return t
 
 
 def _check(fn, q, k, v, tables, heads, bs, do=None, key_rows=False):
@@ -324,7 +352,11 @@ def attention_fwd_lse(q, k, v, row_ptr, ent_k, ent_code, uniq, heads, bs,
     return out, lse
 
 
-def _bwd(fn, which, q, k, v, do, lse, dvec, tables, heads, bs, scale):
+def _bwd(fn, which, q, k, v, do, lse, dvec, tables, heads, bs, scale,
+         order=None):
+    """Checks and launches dq (which 0) or dk/dv (1): bf16 and f16 on
+    ``csrc/bst_attn_bwd_mma.cu`` (16-byte aligned views, ``_aligned16``),
+    f32 on ``csrc/bst_attn_bwd.cu``; one C signature."""
     batch, ctx_q, state, hs, lut_heads = _check(
         fn, q, k, v, tables, heads, bs, do=do, key_rows=which == 1)
     for name, t in (("lse", lse), ("dvec", dvec)):
@@ -334,6 +366,17 @@ def _bwd(fn, which, q, k, v, do, lse, dvec, tables, heads, bs, scale):
             raise TypeError(f"{name} must be a contiguous f32 "
                             f"(batch, heads, ctx_q) tensor on {q.device}")
     ctx_k = k.shape[1]
+    if order is not None and (
+            order.device != q.device or order.dtype != torch.int32
+            or not order.is_contiguous()
+            or tuple(order.shape) != (lut_heads, ctx_k // bs)):
+        raise TypeError(f"order must be a contiguous int32 (lut_heads, "
+                        f"ctx_k // bs) tensor on {q.device}")
+    if q.dtype == torch.float32:
+        source = "bst_attn_bwd"
+    else:
+        source = "bst_attn_bwd_mma"
+        q, k, v, do, lse, dvec = map(_aligned16, (q, k, v, do, lse, dvec))
     if which == 0:
         outs = (torch.empty((batch, ctx_q, state), dtype=q.dtype,
                             device=q.device),)
@@ -348,13 +391,14 @@ def _bwd(fn, which, q, k, v, do, lse, dvec, tables, heads, bs, scale):
                                       do.stride(0), do.stride(1))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _build.function("bst_attn_bwd", "bst_attn_bwd", _BWD_ARGS)(
+        err = _build.function(source, source, _BWD_ARGS)(
             _DTYPE_CODE[q.dtype], which, bs, hs, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), do.data_ptr(), lse.data_ptr(), dvec.data_ptr(),
             outs[0].data_ptr(), outs[-1].data_ptr() if which else None,
             ctypes.addressof(strides), row_ptr.data_ptr(), ent.data_ptr(),
-            ent_code.data_ptr(), uniq.data_ptr(), batch, heads, lut_heads,
-            ctx_q // bs, ctx_k // bs, float(scale), stream)
+            ent_code.data_ptr(), uniq.data_ptr(),
+            None if order is None else order.data_ptr(), batch, heads,
+            lut_heads, ctx_q // bs, ctx_k // bs, float(scale), stream)
     if err != 0:
         raise RuntimeError(f"{fn} launch failed: cudaError {err}")
     return outs
@@ -372,12 +416,15 @@ def attention_dq(q, k, v, do, lse, dvec, row_ptr, ent_k, ent_code, uniq,
 
 
 def attention_dkv(q, k, v, do, lse, dvec, row_ptr_t, ent_q, ent_code_t,
-                  uniq_t, heads, bs, scale):
+                  uniq_t, heads, bs, scale, order=None):
     """(dk, dv) on the card, in f32, over the key-row (tn) CSR:
     row_ptr_t/ent_q/ent_code_t from ``build_attn_csr`` on the tn list with
-    the codes and table of the transposed mask blocks (uniq_t)."""
+    the codes and table of the transposed mask blocks (uniq_t).  order:
+    None (key rows launched in CSR order) or the int32 CUDA tensor of
+    ``launch_order(row_ptr_t)``; the order changes no sum."""
     dk, dv = _bwd("attention_dkv", 1, q, k, v, do, lse, dvec,
-                  (row_ptr_t, ent_q, ent_code_t, uniq_t), heads, bs, scale)
+                  (row_ptr_t, ent_q, ent_code_t, uniq_t), heads, bs, scale,
+                  order)
     attention_dkv.launches += 1
     return dk, dv
 

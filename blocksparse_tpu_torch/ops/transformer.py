@@ -173,9 +173,10 @@ class BlocksparseTransformer:
     def _tables(self, device):
         """The layout's tables on ``device``, uploaded once: the kernels'
         query-row (nn) CSR with its mask codes and the key-row (tn) CSR
-        with the transposed codes, the plain versions' block indices and
-        dense masks, and the decode tables (so a decode step copies
-        nothing from the host, which would stall the stream)."""
+        with the transposed codes and the dk/dv kernel's launch order of
+        its key rows (``launch_order``), the plain versions' block
+        indices and dense masks, and the decode tables (so a decode step
+        copies nothing from the host, which would stall the stream)."""
         tab = self._dev_tables.get(device)
         if tab is None:
             codes, uniq = self.mask_codes()
@@ -197,6 +198,8 @@ class BlocksparseTransformer:
                    "ent_q": t(ent_q, torch.int32),
                    "ent_code_t": t(ent_code_t, torch.int32),
                    "uniq_t": t(uniq_t, torch.int8),
+                   "order_t": t(bst_attn.launch_order(
+                       row_ptr_t, self.ctx_blks_k), torch.int32),
                    "q_blk": t(self._q_blk, torch.int64),
                    "k_blk": t(self._k_blk, torch.int64),
                    "mask": (None if self._mask_blocks is None
@@ -342,7 +345,8 @@ class _AttentionFunction(torch.autograd.Function):
                 tab["ent_code"], tab["uniq"], heads, bs, scale)
             dk, dv = bst_attn.attention_dkv(
                 q, k, v, do, lse, dvec, tab["row_ptr_t"], tab["ent_q"],
-                tab["ent_code_t"], tab["uniq_t"], heads, bs, scale)
+                tab["ent_code_t"], tab["uniq_t"], heads, bs, scale,
+                order=tab["order_t"])
         else:
             dq, dk, dv = bst_attn.attention_bwd_plain(
                 q, k, v, do, lse, dvec, tab["q_blk"], tab["k_blk"],

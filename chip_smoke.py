@@ -18,9 +18,15 @@ layout's blocks in groups that share a staged tile, with N split into
 runs where the groups alone would leave SMs idle and the runs' partials
 summed in order by its second kernel (``bsmm_updat_reduce``); it is held
 against its plain version at every block size 8-128, split and unsplit,
-two runs equal bit for bit, and ``bsmm_updat.cu`` in f32.  The embedding
-backward (a sorted segment sum) runs twice at the LM's shape for equal
-bits.  Then
+two runs equal bit for bit, and ``bsmm_updat.cu`` in f32.  The attention
+backward (dq and dk/dv) runs ``bst_attn_bwd_mma.cu`` on the tensor cores
+in bf16 and f16 (two runs equal bit for bit at the LM's shape, dk/dv's
+key rows launched by entry count and in CSR order with equal bits; held
+against its plain version at every (bs, hs) and on a layout with a fully
+masked query row; its device time, TFLOP/s, registers and spills printed
+beside its bound and SDPA's backward, dk/dv in both launch orders) and
+``bst_attn_bwd.cu`` in f32.  The embedding backward (a sorted segment
+sum) runs twice at the LM's shape for equal bits.  Then
 it drives the repo's enwik8 Sparse Transformer at full width (512-d, 6
 layers, 8 heads, ctx 2048, 64-blocks, fixed layout, block-sparse b32
 d0.5 MLP, bf16 compute, f32 masters, recompute, weights drawn from a
@@ -83,6 +89,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -98,8 +105,9 @@ BATCH, PROMPTS, PROMPT_LEN, NEW_TOKENS = 8, 4, 1024, 64
 TRAIN_STEPS, TIMED_STEPS = 8, 5
 LR, CLIP, LOSS_SCALE = 3e-4, 1.0, 2.0 ** 15
 SOURCES = ("bsmm_xprop_mma", "bsmm_fprop", "bsmm_updat_mma", "bsmm_updat",
-           "bst_attn_fwd", "bst_attn_bwd", "im2col", "bsmm_fine_mma",
-           "bsmm_fine", "bsmm_window_mma", "bsmm_window", "bsmm_merge")
+           "bst_attn_fwd", "bst_attn_bwd_mma", "bst_attn_bwd", "im2col",
+           "bsmm_fine_mma", "bsmm_fine", "bsmm_window_mma", "bsmm_window",
+           "bsmm_merge")
 DTYPES = (torch.bfloat16, torch.float32, torch.float16)
 # |kernel - plain| <= TOL * max(1, max|plain|); f16 held at bf16 level
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 1e-2}
@@ -331,10 +339,11 @@ def training_kernel_checks(model, plain, dev, g, rows):
                 q, k, v, do, lse_ref, dvec, tab["row_ptr"], tab["ent_k"],
                 tab["ent_code"], tab["uniq"], heads, bs, scale)
 
-        def dkv():
+        def dkv(order=tab["order_t"]):
             return bst_attn.attention_dkv(
                 q, k, v, do, lse_ref, dvec, tab["row_ptr_t"], tab["ent_q"],
-                tab["ent_code_t"], tab["uniq_t"], heads, bs, scale)
+                tab["ent_code_t"], tab["uniq_t"], heads, bs, scale,
+                order=order)
 
         def bwd_plain():
             return bst_attn.attention_bwd_plain(q, k, v, do, lse_ref, dvec,
@@ -348,12 +357,167 @@ def training_kernel_checks(model, plain, dev, g, rows):
                           ATTN_TOL[dtype]),
                   compare(f"bst_attn_dkv dv {what} {dtype}", dv, dv_ref,
                           ATTN_TOL[dtype]))
+        if dtype != torch.float32:
+            same_bits(f"bst_attn_dq {what} {dtype}", dq)
+            same_bits(f"bst_attn_dkv {what} {dtype} (dk, dv)",
+                      lambda: torch.stack(dkv()))
+            check(torch.equal(torch.stack(dkv()), torch.stack(dkv(None))),
+                  f"bst_attn_dkv {what} {dtype}: launched by entry count "
+                  f"and in CSR order, equal bit for bit")
         # the plain backward computes dq, dk and dv in one call: its time
         # stands beside both kernels
         timed(rows, ("dkv", dtype), err, dkv, bwd_plain, 20)
+        if dtype == torch.bfloat16:
+            attn_bwd_device_times(dq, dkv, rows)
         del qkv, q, k, v, do, out, lse, out_ref, lse_ref, dvec
         del dq_ref, dk_ref, dv_ref, dk, dv
         torch.cuda.empty_cache()
+
+
+def attn_bwd_device_times(dq, dkv, rows):
+    """The tensor-core dq and dk/dv kernels' device time at the LM's shape
+    (bf16; the profiler, mean of 20 launches), dk/dv in both launch orders
+    of its key rows, in turns: CSR order, by entry count, by entry count,
+    CSR order."""
+    rows["dq_dev"] = kernel_device_ms(dq, "bst_attn_dq_mma_kernel")
+    rows["dkv_dev"] = {"csr": [], "order": []}
+    for key in ("csr", "order", "order", "csr"):
+        rows["dkv_dev"][key].append(kernel_device_ms(
+            (lambda: dkv(None)) if key == "csr" else dkv,
+            "bst_attn_dkv_mma_kernel"))
+
+
+def f1_mask(blk_shape, head, qry, key, blk):
+    """The causal sub-block mask, except that query row 3 of block-row 1
+    sees no key at all (a fully masked row: F1)."""
+    from blocksparse_tpu_torch.models.sparse_transformer import (
+        causal_subblock_mask)
+    mask = causal_subblock_mask(blk_shape, head, qry, key, blk)
+    if qry == 1:
+        mask[3, :] = False
+    return mask
+
+
+def attn_bwd_block_size_checks(bt, dev, g):
+    """bst_attn_bwd_mma.cu against attention_bwd_plain at every (bs, hs) it
+    takes, in bf16 and f16, on a small case (the fixed layout of 4
+    block-rows and 2 local blocks, the causal sub-block mask, batch 2, 2
+    heads; q, k, v column slices of one qkv), each run twice for equal
+    bits; and a causal layout with a fully masked query row (F1): zero dq
+    there, no NaN anywhere."""
+    from blocksparse_tpu_torch.kernels import bst_attn
+    from blocksparse_tpu_torch.models.sparse_transformer import (
+        causal_subblock_mask, fixed_layout)
+
+    def case(layout, bs, hs, dtype, mask_callback, what, heads=2, batch=2):
+        op = bt.BlocksparseTransformer(layout, block_size=bs, heads=heads,
+                                       mask_callback=mask_callback)
+        ctx = layout.shape[-1] * bs
+        qkv = torch.randn((batch, ctx, 3 * heads * hs), device=dev,
+                          generator=g).to(dtype)
+        q, k, v = qkv.split(heads * hs, dim=-1)
+        do = torch.randn((batch, ctx, heads * hs), device=dev,
+                         generator=g).to(dtype)
+        tab, scale = op._tables(dev), 1.0 / np.sqrt(hs)
+        args = (tab["q_blk"], tab["k_blk"], tab["mask"], heads, bs, scale)
+        out, lse = bst_attn.attention_fwd_lse_plain(q, k, v, *args)
+        dvec = (do.float() * out.float()).reshape(
+            batch, ctx, heads, hs).sum(-1).transpose(1, 2).contiguous()
+        refs = bst_attn.attention_bwd_plain(q, k, v, do, lse, dvec, *args)
+
+        def run():
+            return (bst_attn.attention_dq(
+                q, k, v, do, lse, dvec, tab["row_ptr"], tab["ent_k"],
+                tab["ent_code"], tab["uniq"], heads, bs, scale),
+                *bst_attn.attention_dkv(
+                    q, k, v, do, lse, dvec, tab["row_ptr_t"], tab["ent_q"],
+                    tab["ent_code_t"], tab["uniq_t"], heads, bs, scale,
+                    order=tab["order_t"]))
+        got = run()
+        for name, a, r in zip(("dq", "dk", "dv"), got, refs):
+            compare(f"{what} {name}", a, r, ATTN_TOL[dtype])
+        same_bits(f"{what} dq, dk, dv", lambda: torch.cat(
+            [t.float().flatten() for t in run()]))
+        return got
+
+    for dtype in (torch.bfloat16, torch.float16):
+        for bs in bst_attn.BLOCK_SIZES:
+            for hs in bst_attn.HEAD_SIZES:
+                case(fixed_layout(4, local_blocks=2), bs, hs, dtype,
+                     causal_subblock_mask,
+                     f"bst_attn_bwd_mma b{bs} hs{hs} {dtype}")
+        dq, dk, dv = case(np.tril(np.ones((4, 4), np.int32)), 16, 32, dtype,
+                          f1_mask, f"bst_attn_bwd_mma F1 layout {dtype}")
+        dead = 16 + 3
+        check(bool((dq[:, dead] == 0).all()) and all(
+            bool(torch.isfinite(t).all()) for t in (dq, dk, dv)),
+              f"bst_attn_bwd_mma {dtype}: the fully masked query row's dq "
+              f"is zero, no NaN in dq, dk, dv")
+    torch.cuda.empty_cache()
+
+
+# the attention backward kernels' mangled names (after the anonymous
+# namespace's file prefix): kernel, dtype, BS, HS
+_PTXAS_NAME = re.compile(r"(bst_attn_d(?:q|kv)(?:_mma)?_kernel)I"
+                         r"(13__nv_bfloat16|6__half|f)Li(\d+)ELi(\d+)E")
+
+
+def ptxas_resources(source):
+    """{(kernel, dtype, bs, hs): (registers, spill store bytes, spill load
+    bytes)} of the kernels of ``csrc/<source>.cu``, from the ``-Xptxas -v``
+    log that the build left beside the library."""
+    from blocksparse_tpu_torch.kernels import _build
+    lib = _build.library_path(source)
+    out, name, spill = {}, None, (0, 0)
+    for line in lib.with_name(lib.name + ".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = _PTXAS_NAME.search(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = tuple(int(x) for x in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            kernel, dt, bs, hs = name.groups()
+            dt = {"13__nv_bfloat16": "bf16", "6__half": "f16"}.get(dt, "f32")
+            out[(kernel, dt, int(bs), int(hs))] = (int(m.group(1)), *spill)
+            name = None
+    return out
+
+
+def attn_bwd_report(model, rows, marks, card_line):
+    """The tensor-core backward kernels at the LM's shape (bf16): device
+    time and TFLOP/s against the bound, SDPA's backward, the target and
+    the CUDA-core kernels' times of the last measurement; dk/dv in both
+    launch orders; each instantiation's registers and spills (ptxas)."""
+    c, bst = model.config, model.bst
+    e = bst.blocks * BATCH * c.n_head * bst.blk_size ** 2 * model.hs
+    res = ptxas_resources("bst_attn_bwd_mma")
+    dkv = rows["dkv_dev"]
+    lm = {name: res[(f"{name}_mma_kernel", "bf16", bst.blk_size, model.hs)]
+          for name in ("bst_attn_dq", "bst_attn_dkv")}
+    for name, ms, flops, target in (
+            ("bst_attn_dq", rows["dq_dev"], 6 * e, 0.34),
+            ("bst_attn_dkv", float(np.mean(dkv["order"])), 8 * e, 0.49)):
+        regs, st, ld = lm[name]
+        print(f"{name} (bst_attn_bwd_mma.cu, bf16, batch {BATCH} x {c.ctx}) "
+              f"[{card_line}]: device {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s), events "
+              f"{rows[(name[9:], torch.bfloat16)][1]:.4f} ms; bound "
+              f"{marks[name][0]:.4f} ms ({marks[name][1]}); SDPA backward "
+              f"(dq, dk, dv) {marks[name][2]:.4f} ms; target <= {target} ms; "
+              f"{regs} registers, spills {st}/{ld} bytes", flush=True)
+    print(f"bst_attn_dkv launch order (device ms, in turns): CSR "
+          f"{dkv['csr'][0]:.4f} / {dkv['csr'][1]:.4f}, by entry count "
+          f"{dkv['order'][0]:.4f} / {dkv['order'][1]:.4f}", flush=True)
+    spills = {k: v for k, v in res.items() if v[1] or v[2]}
+    regs = [v[0] for v in res.values()]
+    print(f"bst_attn_bwd_mma.cu: {len(res)} kernels, {min(regs)}-{max(regs)} "
+          f"registers, spills in {len(spills)}: " + (", ".join(
+              f"{k[0][9:]}<{k[1]},{k[2]},{k[3]}> {v[0]} registers, "
+              f"{v[1]}/{v[2]} bytes" for k, v in sorted(spills.items()))
+              or "none"), flush=True)
 
 
 def xprop_block_size_checks(bt, dev, g):
@@ -477,11 +641,17 @@ def kernel_device_ms(fn, key, n=20):
     over n calls of fn() under the profiler (the launches it recorded):
     the kernel's own time where the host's enqueue of a launch takes
     longer."""
-    _, kernels = device_events(lambda: [fn() for _ in range(n)])
-    hits = [e for e in kernels if key in e.key]
-    count = sum(e.count for e in hits)
-    if count == 0:
-        check(False, f"profiler: no launch of {key} recorded")
+    for _ in range(3):  # CUPTI now and then records none of a window
+        _, kernels = device_events(lambda: [fn() for _ in range(n)])
+        hits = [e for e in kernels if key in e.key]
+        count = sum(e.count for e in hits)
+        if count:
+            break
+        print(f"      profiler: no launch of {key} recorded; profiling "
+              f"again", flush=True)
+    else:
+        check(False, f"profiler: no launch of {key} recorded in three "
+                     f"profiled windows")
     if count != n:
         print(f"      profiler: {count} launches of {key} recorded for "
               f"{n} calls", flush=True)
@@ -1197,9 +1367,11 @@ def training_path(bt, model, plain, cfg, dev, card_line, profile_out):
 # kernels (bsmm_xprop_mma_kernel in bf16/f16, bsmm_xprop_nc_kernel in f32);
 # the updat's are told apart: bsmm_updat_mma_kernel (bf16/f16),
 # bsmm_updat_nc_kernel (f32) and the split's bsmm_updat_reduce_kernel
+# "bst_attn_dq" and "bst_attn_dkv" match the backward kernels of both
+# sources (bst_attn_d*_mma_kernel in bf16/f16, bst_attn_d*_kernel in f32)
 PORT_KERNELS = ("bsmm_xprop", "bsmm_updat_mma", "bsmm_updat_nc",
-                "bsmm_updat_reduce", "bst_attn_fwd_kernel",
-                "bst_attn_dq_kernel", "bst_attn_dkv_kernel")
+                "bsmm_updat_reduce", "bst_attn_fwd_kernel", "bst_attn_dq",
+                "bst_attn_dkv")
 
 
 def device_events(fn):
@@ -1717,6 +1889,7 @@ def main():
     xprop_block_size_checks(bt, dev, g)
     updat_block_size_checks(bt, dev, g)
     mode_block_size_checks(bt, dev, g)
+    attn_bwd_block_size_checks(bt, dev, g)
 
     # 4. the serving path, counted
     serve_launches = serving_path(bt, model, plain, cfg, dev, card_line)
@@ -1753,6 +1926,12 @@ def main():
     im2col_bytes = (1 + 9) * C * NP * b2
     marks["im2col"] = (*bound(0, im2col_bytes), rows["unfold"])
     marks["col2im"] = (*bound(0, im2col_bytes), rows["fold"])
+    attn_bwd_report(model, rows, marks, card_line)
+    # the backward kernels' row: their device time, as fine's and window's
+    for key, ms in ((("dq", torch.bfloat16), rows["dq_dev"]),
+                    (("dkv", torch.bfloat16),
+                     float(np.mean(rows["dkv_dev"]["order"])))):
+        rows[key] = (rows[key][0], ms, rows[key][2])
 
     N, bf = BATCH * cfg.ctx, torch.bfloat16
     kernels = [  # (name, source, TPU kernel, path's launches, row)
@@ -1768,9 +1947,9 @@ def main():
          serve_launches["bst_attn_fwd"], rows[("attn_fwd", bf)]),
         ("bst_attn_fwd_lse", "bst_attn_fwd.cu", "bst_attn.py:832",
          train_launches["bst_attn_fwd_lse"], rows[("fwd_lse", bf)]),
-        ("bst_attn_dq", "bst_attn_bwd.cu", "bst_attn.py:1084",
+        ("bst_attn_dq", "bst_attn_bwd_mma.cu", "bst_attn.py:1084",
          train_launches["bst_attn_dq"], rows[("dq", bf)]),
-        ("bst_attn_dkv", "bst_attn_bwd.cu", "bst_attn.py:1141",
+        ("bst_attn_dkv", "bst_attn_bwd_mma.cu", "bst_attn.py:1141",
          train_launches["bst_attn_dkv"], rows[("dkv", bf)]),
         ("im2col", "im2col.cu", "im2col.py:97", conv_launches["im2col"],
          rows[("im2col", bf)]),

@@ -29,6 +29,8 @@ tolerances, two runs bit for bit.
 The merge adds the same f32 tiles in the same order as its plain
 version: exact.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -445,7 +447,9 @@ def _plain_fwd_bwd(port, q, k, v, do, scale):
                                                         dvec, *args)
 
 
-def _kernel_bwd(port, q, k, v, do, lse, dvec, scale):
+def _kernel_bwd(port, q, k, v, do, lse, dvec, scale, ordered=True):
+    """dq and (dk, dv) on the kernels; dk/dv with the op's launch order of
+    the key rows, or in CSR order (``ordered=False``)."""
     tab = port._tables(q.device)
     dq = bst_attn.attention_dq(q, k, v, do, lse, dvec, tab["row_ptr"],
                                tab["ent_k"], tab["ent_code"], tab["uniq"],
@@ -453,17 +457,31 @@ def _kernel_bwd(port, q, k, v, do, lse, dvec, scale):
     dk, dv = bst_attn.attention_dkv(q, k, v, do, lse, dvec,
                                     tab["row_ptr_t"], tab["ent_q"],
                                     tab["ent_code_t"], tab["uniq_t"],
-                                    port.heads, port.blk_size, scale)
+                                    port.heads, port.blk_size, scale,
+                                    order=tab["order_t"] if ordered else None)
     return dq, dk, dv
 
 
+# (bs, hs, dtype, block-rows of the fixed layout, its local blocks): f32 at
+# four shapes (bst_attn_bwd.cu), bf16 and f16 at every (bs, hs) the kernels
+# take (bst_attn_bwd_mma.cu), and the LM's (64, 64) on its 32-block-row
+# layout, whose summary key rows hold up to 32 entries.
+ATTN_TRAIN_CASES = (
+    [(bs, hs, torch.float32, 4, 2)
+     for bs, hs in ((16, 16), (32, 128), (64, 64), (64, 32))]
+    + [(bs, hs, dtype, 4, 2) for dtype in HALF
+       for bs in bst_attn.BLOCK_SIZES for hs in bst_attn.HEAD_SIZES]
+    + [(64, 64, dtype, 32, 8) for dtype in HALF])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, *HALF])
-@pytest.mark.parametrize("bs,hs", [(16, 16), (32, 128), (64, 64), (64, 32)])
-def test_attention_train_kernels_match_plain(cuda, bs, hs, dtype):
+@pytest.mark.parametrize("bs,hs,dtype,blocks,local", ATTN_TRAIN_CASES)
+def test_attention_train_kernels_match_plain(cuda, bs, hs, dtype, blocks,
+                                             local):
     """fwd_lse (out and lse), dq and dk/dv against the plain versions on the
     same dO, lse and D; q/k/v are strided column slices of one qkv."""
-    port, (q, k, v), do = _case(cuda, dtype, bs, hs)
+    port, (q, k, v), do = _case(
+        cuda, dtype, bs, hs, layout=fixed_layout(blocks, local_blocks=local))
     scale = 1.0 / np.sqrt(hs)
     tab = port._tables(cuda)
     out_ref, lse_ref, dvec, (dq_ref, dk_ref, dv_ref) = _plain_fwd_bwd(
@@ -485,11 +503,13 @@ def test_attention_train_kernels_match_plain(cuda, bs, hs, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, *HALF])
 @pytest.mark.parametrize("kind", ["per_head", "f1", "dense"])
-def test_attention_train_kernels_masks(cuda, kind):
+def test_attention_train_kernels_masks(cuda, kind, dtype):
     """Per-head layouts, a fully masked query row (zero out, lse -inf, zero
-    dq, no dk/dv contribution) and a dense causal layout with the causal
-    sub-block mask (TRIL on the query rows, TRIU on the key rows)."""
+    dq, no dk/dv contribution, no NaN) and a dense causal layout with the
+    causal sub-block mask (TRIL on the query rows, TRIU on the key rows),
+    in f32 (CUDA cores) and in bf16 and f16 (tensor cores)."""
     lay = fixed_layout(4, local_blocks=2)
     layout, mask, heads = lay, None, 2
     if kind == "per_head":
@@ -498,7 +518,7 @@ def test_attention_train_kernels_masks(cuda, kind):
         layout, mask = np.tril(np.ones((4, 4), np.int32)), _f1_mask
     elif kind == "dense":
         layout = np.tril(np.ones((6, 6), np.int32))
-    port, (q, k, v), do = _case(cuda, torch.float32, 16, 32, layout=layout,
+    port, (q, k, v), do = _case(cuda, dtype, 16, 32, layout=layout,
                                 mask_callback=mask, heads=heads, seed=4)
     out_ref, lse_ref, dvec, refs = _plain_fwd_bwd(port, q, k, v, do, 0.3)
     tab = port._tables(cuda)
@@ -507,11 +527,17 @@ def test_attention_train_kernels_masks(cuda, kind):
         heads, 16, 0.3)
     got = _kernel_bwd(port, q, k, v, do, lse, dvec, 0.3)
     torch.cuda.synchronize()
-    torch.testing.assert_close(out, out_ref, rtol=0, atol=F32_TOL)
-    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-5)
+    torch.testing.assert_close(
+        out.float(), out_ref.float(), rtol=0,
+        atol=F32_TOL if dtype == torch.float32 else
+        ATTN_BF16_TOL * max(1.0, out_ref.float().abs().max().item()))
+    torch.testing.assert_close(lse, lse_ref, rtol=0,
+                               atol=1e-5 if dtype == torch.float32 else 1e-4)
     for g, r in zip(got, refs):
+        assert bool(torch.isfinite(g).all())
         torch.testing.assert_close(
-            g, r, rtol=0, atol=F32_TOL * max(1.0, r.abs().max().item()))
+            g.float(), r.float(), rtol=0,
+            atol=_tol(dtype, ATTN_BF16_TOL, r.float().abs().max().item()))
     if kind == "f1":
         dead = 16 + 3
         assert (out[:, dead] == 0).all() and (got[0][:, dead] == 0).all()
@@ -523,6 +549,92 @@ def test_attention_train_kernels_masks(cuda, kind):
         _, dk0, dv0 = _kernel_bwd(port, q, k, v, do0, lse, dvec0, 0.3)
         torch.testing.assert_close(dk0, got[1], rtol=0, atol=0)
         torch.testing.assert_close(dv0, got[2], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, *HALF])
+def test_attention_bwd_kernels_bit_equal(cuda, dtype):
+    """Two runs of dq and of dk/dv give the same bits (every sum in the CSR
+    order, no atomics), on the CUDA cores (f32) and on the tensor cores
+    (bf16, f16), and the launch order of the key rows changes none of
+    them; at the LM's bs 64 / hs 64 on a 16-block-row fixed layout."""
+    port, (q, k, v), do = _case(cuda, dtype, 64, 64,
+                                layout=fixed_layout(16, local_blocks=4))
+    _, lse, dvec, _ = _plain_fwd_bwd(port, q, k, v, do, 0.125)
+    first = _kernel_bwd(port, q, k, v, do, lse, dvec, 0.125)
+    again = _kernel_bwd(port, q, k, v, do, lse, dvec, 0.125)
+    csr = _kernel_bwd(port, q, k, v, do, lse, dvec, 0.125, ordered=False)
+    torch.cuda.synchronize()
+    for a, b, c in zip(first, again, csr):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_attention_bwd_source_by_dtype(cuda, monkeypatch):
+    """f32 launches bst_attn_bwd.cu, bf16 and f16 bst_attn_bwd_mma.cu; each
+    source refuses the other's dtypes (cudaErrorInvalidValue)."""
+    from blocksparse_tpu_torch.kernels import _build
+    used = []
+    build_fn = _build.function
+
+    def spy(name, fn_name, argtypes):
+        used.append((name, fn_name))
+        return build_fn(name, fn_name, argtypes)
+    monkeypatch.setattr(_build, "function", spy)
+    for dtype in (torch.float32, *HALF):
+        port, (q, k, v), do = _case(cuda, dtype, 16, 32)
+        _, lse, dvec, _ = _plain_fwd_bwd(port, q, k, v, do, 0.3)
+        used.clear()
+        _kernel_bwd(port, q, k, v, do, lse, dvec, 0.3)
+        lib = "bst_attn_bwd" if dtype == torch.float32 else "bst_attn_bwd_mma"
+        assert used == [(lib, lib)] * 2
+    tab = port._tables(cuda)
+    out = torch.empty(q.shape, dtype=torch.float32, device=cuda)
+    strides = (ctypes.c_longlong * 8)(*(
+        s for t in (q, k, v, do) for s in t.stride()[:2]))
+    for lib, codes in (("bst_attn_bwd", (1, 2)), ("bst_attn_bwd_mma", (0,))):
+        fn = build_fn(lib, lib, bst_attn._BWD_ARGS)
+        for code in codes:
+            for which in (0, 1):
+                assert fn(code, which, 16, 32, q.data_ptr(), k.data_ptr(),
+                          v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                          dvec.data_ptr(), out.data_ptr(), out.data_ptr(),
+                          ctypes.addressof(strides),
+                          tab["row_ptr"].data_ptr(), tab["ent_k"].data_ptr(),
+                          tab["ent_code"].data_ptr(), tab["uniq"].data_ptr(),
+                          None, 2, port.heads, 1, 4, 4, 0.3,
+                          torch.cuda.current_stream().cuda_stream) == 1, \
+                    (lib, code, which)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HALF)
+def test_attention_bwd_unaligned_views(cuda, dtype):
+    """q, k, v and dO that start off a 16-byte boundary, or whose row
+    stride is off 16 bytes, give the same dq, dk and dv as their
+    contiguous copies (the wrapper hands the tensor-core kernels an
+    aligned copy)."""
+    port, (q, k, v), do = _case(cuda, dtype, 32, 16)
+    _, lse, dvec, _ = _plain_fwd_bwd(port, q, k, v, do, 0.25)
+    want = _kernel_bwd(port, *(t.contiguous() for t in (q, k, v, do)), lse,
+                       dvec, 0.25)
+
+    def shifted(t):      # starts 2 bytes past a 16-byte boundary
+        buf = torch.empty(t.numel() + 1, dtype=dtype, device=cuda)[1:]
+        return buf.view_as(t).copy_(t)
+
+    def padded(t):       # rows 2 elements wider than the data: 4 bytes off
+        buf = torch.zeros(t.shape[:-1] + (t.shape[-1] + 2,), dtype=dtype,
+                          device=cuda)
+        return buf[..., :t.shape[-1]].copy_(t)
+    for move in (shifted, padded):
+        views = [move(t) for t in (q, k, v, do)]
+        assert all(t.data_ptr() % 16 or t.stride(1) * t.element_size() % 16
+                   for t in views)
+        got = _kernel_bwd(port, *views, lse, dvec, 0.25)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), move.__name__
 
 
 @pytest.mark.cuda
