@@ -1,7 +1,9 @@
-// What the block-sparse attention backward's two sources share
-// (bst_attn_bwd.cu, f32 on the CUDA cores; bst_attn_bwd_mma.cu, bf16/f16 on
-// the tensor cores): the per-entry mask codes, the strides and tables of the
-// C interface, and the launch order of the dk/dv kernel's key block-rows.
+// What the block-sparse attention's sources share: the forward's
+// (bst_attn_fwd.cu, f32 on the CUDA cores; bst_attn_fwd_mma.cu, bf16/f16 on
+// the tensor cores) and the backward's (bst_attn_bwd.cu, f32;
+// bst_attn_bwd_mma.cu, bf16/f16): the per-entry mask codes, the backward's
+// strides and tables of the C interface, and the launch order of a
+// kernel's block-rows.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -37,20 +39,22 @@ struct Args {
   float scale;
 };
 
-// The (key block-row, batch*head) a dk/dv thread block owns.  Without an
-// order the key row runs fastest (CSR order); with one, blocks go out by
-// rank, batch*head fastest, and order[lut_head][rank] names the key row, so
-// the rows with the most entries start first and the last wave is short.
-__device__ __forceinline__ void dkv_block(const int* __restrict__ order, int batch, int heads,
-                                          int lut_heads, int rows, int& krow, int& bh) {
+// The (block-row, batch*head) a thread block owns: the query block-rows of
+// the forward, the key block-rows of dk/dv.  Without an order the row runs
+// fastest (CSR order); with one, blocks go out by rank, batch*head fastest,
+// and order[lut_head][rank] names the row, so the rows with the most
+// entries start first and the last wave is short.
+__device__ __forceinline__ void launch_block(const int* __restrict__ order, int batch,
+                                             int heads, int lut_heads, int rows, int& row,
+                                             int& bh) {
   if (order == nullptr) {
-    krow = blockIdx.x % rows;
+    row = blockIdx.x % rows;
     bh = blockIdx.x / rows;
   } else {
     const int n_bh = batch * heads;
     bh = blockIdx.x % n_bh;
     const int lh = lut_heads == 1 ? 0 : bh % heads;
-    krow = order[(size_t)lh * rows + blockIdx.x / n_bh];
+    row = order[(size_t)lh * rows + blockIdx.x / n_bh];
   }
 }
 

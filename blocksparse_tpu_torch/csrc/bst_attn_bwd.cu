@@ -25,7 +25,7 @@
 // with P rounded to dO's type and dS to q's, as _attn_dkv_kernel does (in
 // f32 a no-op).  dk and dv accumulate in f32 registers and are stored once
 // in f32.  The key rows go out in CSR order, or in the caller's order
-// (dkv_block, bst_attn.cuh).
+// (launch_block, bst_attn.cuh).
 //
 // Every sum runs in a fixed order (the CSR order), with no atomics.  A
 // query row that sees no key (lse = -inf, F1) gets P = 0: zero dq and no
@@ -206,7 +206,7 @@ bst_attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int tid = threadIdx.x;
   const int ti = tid / 16, tj = tid % 16;
   int krow, bh;
-  dkv_block(order, batch, heads, lut_heads, ctx_blks_k, krow, bh);
+  launch_block(order, batch, heads, lut_heads, ctx_blks_k, krow, bh);
   const int b = bh / heads, h = bh % heads;
   const int* rp = row_ptr + (size_t)(lut_heads == 1 ? 0 : h) * (ctx_blks_k + 1);
   const int ctx_q = ctx_blks_q * BS;
@@ -377,7 +377,7 @@ cudaError_t dispatch(int bs, int hs, int which, const Args& a, void* o0, void* o
 // transposed mask codes and table; out0, out1: dk, dv in f32).
 // strides: batch and row strides, in elements, of q, k, v and dO.
 // order: null (CSR order) or, for dk/dv, (lut_heads, ctx_blks_k) int32, the
-// key block-rows in launch order (dkv_block).
+// key block-rows in launch order (launch_block).
 // Returns a cudaError_t (0 = launched).
 extern "C" int bst_attn_bwd(int dtype, int which, int bs, int hs, const void* q,
                             const void* k, const void* v, const void* dout,

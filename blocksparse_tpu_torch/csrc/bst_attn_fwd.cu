@@ -1,21 +1,25 @@
-// Fused block-sparse attention forward:
+// Fused block-sparse attention forward in f32, on the CUDA cores:
 //   out = softmax(scale * q k^T + mask) v over a block layout,
 // with an online (flash-style) softmax, so the score tensor never reaches
 // device memory; optionally also the per-row log-sum-exp
 //   lse = m + log(l)  (f32), which the training backward reads.
 //
-// Replaces the TPU kernels fused_attention_fwd / _attn_kernel (lse == null)
-// and fused_attention_fwd_lse / _attn_fwd_lse_kernel
-// (blocksparse_tpu/kernels/bst_attn.py).  The TPU's q-row pairing, lane
-// folding, K/V residency-vs-streaming choice and schedule packing are TPU
-// mechanics and are not carried over.
+// Replaces, for f32 inputs, the TPU kernels fused_attention_fwd /
+// _attn_kernel (lse == null) and fused_attention_fwd_lse /
+// _attn_fwd_lse_kernel (blocksparse_tpu/kernels/bst_attn.py).  bf16 and
+// f16 inputs run bst_attn_fwd_mma.cu on the tensor cores, through this
+// interface; here they return cudaErrorInvalidValue.  f32 stays in full
+// fp32 on the CUDA cores: the reference's f32 dots are Precision.HIGHEST,
+// and the tensor cores would round them to TF32.  The TPU's q-row pairing,
+// lane folding, K/V residency-vs-streaming choice and schedule packing are
+// TPU mechanics and are not carried over.
 //
 // LUT, per layout head: a CSR over query block-rows.  Entries
 // row_ptr[r]..row_ptr[r+1] (offsets into the flat entry arrays) hold the
-// key block ent_k and its mask code ent_code: 1 FULL, 2 TRIL (q >= k inside
-// the block), 3 TRIU (q <= k), >= 4 an index code-4 into the table `uniq`
-// of (BS, BS) int8 blocks.  Codes and order are those of
-// classify_mask_blocks and nn_list.
+// key block ent_k and its mask code ent_code (bst_attn.cuh): 1 FULL, 2
+// TRIL (q >= k inside the block), 3 TRIU (q <= k), >= 4 an index code-4
+// into the table `uniq` of (BS, BS) int8 blocks.  Codes and order are
+// those of classify_mask_blocks and nn_list.
 //
 // Layout: q, k, v are (batch, ctx, heads*HS) with the last dim contiguous;
 // the kernel takes each tensor's batch and row strides itself, so q/k/v can
@@ -24,63 +28,41 @@
 // (batch, heads, ctx) f32.
 //
 // Design: one thread block (256 threads) owns one (query block-row,
-// batch*head).  It keeps the q block in shared memory and streams the row's
-// k/v blocks: S = scale * q k^T in f32, the mask, then a per-row online
-// softmax update (running max m, sum l, rescale alpha) by one warp per row,
-// and acc = acc * alpha + p v in f32 registers.  It writes acc / l once.
-// bf16 and f16 inputs round p to the input type before p v, as the TPU
-// kernel does.  A query row that sees no key (fully masked) is defined to
+// batch*head); the block-rows go out in CSR order or in the caller's order
+// (launch_block, bst_attn.cuh).  It keeps the q block in shared memory and
+// streams the row's k/v blocks: S = scale * q k^T, the mask, then a
+// per-row online softmax update (running max m, sum l, rescale alpha) by
+// one warp per row, and acc = acc * alpha + p v in registers.  It writes
+// acc / l once.  A query row that sees no key (fully masked) is defined to
 // output zeros, with lse = -inf.
 //
 // Bound on the H100: per (row, key block) it moves 2*BS*HS elements for
-// 4*BS*BS*HS flops, about 64 flops a byte at BS 64 in bf16, so K/V traffic
-// (served largely from L2: every row of a head rereads the same keys) and
-// the CUDA-core FMA rate both matter; this first version runs the two
-// products on the CUDA cores, not the tensor cores (mma/wgmma and a
-// double-buffered K/V ring are later work).
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
+// 4*BS*BS*HS flops, so K/V traffic (served largely from L2: every row of a
+// head rereads the same keys) and the f32 FMA rate both matter.
 #include <math.h>
+
+#include "bst_attn.cuh"
 
 namespace {
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
-  return __float2half_rn(v);
-}
-
-// p as the p v product sees it: rounded to the input type.
-template <typename T> __device__ __forceinline__ float round_p(float p) {
-  return to_f32(from_f32<T>(p));
-}
-
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int MASK_FULL = 1, MASK_TRIL = 2, MASK_TRIU = 3, MASK_UNIQ0 = 4;
 
 template <int BS, int HS>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (2 * BS * (HS + 1) + BS * HS + BS * (BS + 1) + 3 * BS);
 }
 
-template <typename T, int BS, int HS>
+template <int BS, int HS>
 __global__ void __launch_bounds__(THREADS)
-bst_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, T* __restrict__ out,
+bst_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ out,
                     float* __restrict__ lse, long long qb, long long qr, long long kb, long long kr,
                     long long vb, long long vr,
                     const int* __restrict__ row_ptr, const int* __restrict__ ent_k,
                     const int* __restrict__ ent_code, const signed char* __restrict__ uniq,
-                    int heads, int lut_heads, int ctx_blks_q, float scale) {
+                    const int* __restrict__ order, int batch, int heads, int lut_heads,
+                    int ctx_blks_q, float scale) {
   constexpr int RB = BS / 16;  // rows (and score columns) per thread
   constexpr int DB = HS / 16;  // head dims per thread
   extern __shared__ __align__(16) float smem[];
@@ -95,15 +77,14 @@ bst_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int ti = tid / 16, tj = tid % 16;
   const int warp = tid / 32, lane = tid % 32;
-  const int row = blockIdx.x % ctx_blks_q;
-  const int bh = blockIdx.x / ctx_blks_q;
+  int row, bh;
+  launch_block(order, batch, heads, lut_heads, ctx_blks_q, row, bh);
   const int b = bh / heads, h = bh % heads;
   const int lh = lut_heads == 1 ? 0 : h;
   const int* rp = row_ptr + (size_t)lh * (ctx_blks_q + 1);
 
-  const T* qp = q + b * qb + (long long)row * BS * qr + h * HS;
-  for (int l = tid; l < BS * HS; l += THREADS)
-    qs[l / HS][l % HS] = to_f32(qp[(l / HS) * qr + l % HS]);
+  const float* qp = q + b * qb + (long long)row * BS * qr + h * HS;
+  for (int l = tid; l < BS * HS; l += THREADS) qs[l / HS][l % HS] = qp[(l / HS) * qr + l % HS];
   for (int r = tid; r < BS; r += THREADS) {
     m_s[r] = -INFINITY;
     l_s[r] = 0.f;
@@ -118,11 +99,11 @@ bst_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int e = rp[row]; e < e_end; ++e) {
     const int kblk = ent_k[e];
     const int code = ent_code[e];
-    const T* kp = k + b * kb + (long long)kblk * BS * kr + h * HS;
-    const T* vp = v + b * vb + (long long)kblk * BS * vr + h * HS;
+    const float* kp = k + b * kb + (long long)kblk * BS * kr + h * HS;
+    const float* vp = v + b * vb + (long long)kblk * BS * vr + h * HS;
     for (int l = tid; l < BS * HS; l += THREADS) {
-      ks[l / HS][l % HS] = to_f32(kp[(l / HS) * kr + l % HS]);
-      vs[l / HS][l % HS] = to_f32(vp[(l / HS) * vr + l % HS]);
+      ks[l / HS][l % HS] = kp[(l / HS) * kr + l % HS];
+      vs[l / HS][l % HS] = vp[(l / HS) * vr + l % HS];
     }
     __syncthreads();
 
@@ -151,12 +132,7 @@ bst_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < RB; ++j) {
           const int c = tj + 16 * j;
-          bool vis;
-          if (code == MASK_FULL) vis = true;
-          else if (code == MASK_TRIL) vis = r >= c;
-          else if (code == MASK_TRIU) vis = r <= c;
-          else vis = uniq[((size_t)(code - MASK_UNIQ0) * BS + r) * BS + c] != 0;
-          ss[r][c] = vis ? s[i][j] * scale : -INFINITY;
+          ss[r][c] = visible<BS>(code, r, c, uniq) ? s[i][j] * scale : -INFINITY;
         }
       }
     }
@@ -179,7 +155,7 @@ bst_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int c = lane; c < BS; c += 32) {
           const float p = expf(ss[r][c] - m_new);
           sum += p;
-          ss[r][c] = round_p<T>(p);
+          ss[r][c] = p;
         }
       }
 #pragma unroll
@@ -217,7 +193,7 @@ bst_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int ctx_q = ctx_blks_q * BS;
   const int state = heads * HS;
-  T* op = out + ((size_t)b * ctx_q + (size_t)row * BS) * state + h * HS;
+  float* op = out + ((size_t)b * ctx_q + (size_t)row * BS) * state + h * HS;
 #pragma unroll
   for (int i = 0; i < RB; ++i) {
     const int r = ti + 16 * i;
@@ -225,7 +201,7 @@ bst_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = l > 0.f ? 1.f / l : 0.f;
 #pragma unroll
     for (int d = 0; d < DB; ++d)
-      op[(size_t)r * state + tj + 16 * d] = from_f32<T>(acc[i][d] * inv);
+      op[(size_t)r * state + tj + 16 * d] = acc[i][d] * inv;
   }
   if (lse != nullptr)
     for (int r = tid; r < BS; r += THREADS)
@@ -233,70 +209,68 @@ bst_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           l_s[r] > 0.f ? m_s[r] + logf(l_s[r]) : -INFINITY;
 }
 
-template <typename T, int BS, int HS>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   float* lse, const long long* strides, const int* row_ptr, const int* ent_k,
-                   const int* ent_code, const signed char* uniq, int batch, int heads,
-                   int lut_heads, int ctx_blks_q, float scale, cudaStream_t stream) {
+template <int BS, int HS>
+cudaError_t launch(const float* q, const float* k, const float* v, float* out, float* lse,
+                   const long long* strides, const int* row_ptr, const int* ent_k,
+                   const int* ent_code, const signed char* uniq, const int* order, int batch,
+                   int heads, int lut_heads, int ctx_blks_q, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<BS, HS>();
-  auto kern = bst_attn_fwd_kernel<T, BS, HS>;
+  auto kern = bst_attn_fwd_kernel<BS, HS>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const long long grid = (long long)batch * heads * ctx_blks_q;
   kern<<<(unsigned)grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), lse, strides[0], strides[1], strides[2], strides[3], strides[4],
-      strides[5], row_ptr, ent_k, ent_code, uniq, heads, lut_heads, ctx_blks_q, scale);
+      q, k, v, out, lse, strides[0], strides[1], strides[2], strides[3], strides[4],
+      strides[5], row_ptr, ent_k, ent_code, uniq, order, batch, heads, lut_heads, ctx_blks_q,
+      scale);
   return cudaGetLastError();
 }
 
-#define BST_ARGS q, k, v, out, lse, strides, row_ptr, ent_k, ent_code, uniq, batch, heads, \
-                 lut_heads, ctx_blks_q, scale, s
+#define BST_ARGS q, k, v, out, lse, strides, row_ptr, ent_k, ent_code, uniq, order, batch, \
+                 heads, lut_heads, ctx_blks_q, scale, s
 
-template <typename T, int BS>
-cudaError_t dispatch_hs(int hs, const void* q, const void* k, const void* v, void* out,
-                        float* lse, const long long* strides, const int* row_ptr, const int* ent_k,
-                        const int* ent_code, const signed char* uniq, int batch, int heads,
-                        int lut_heads, int ctx_blks_q, float scale, cudaStream_t s) {
+template <int BS>
+cudaError_t dispatch_hs(int hs, const float* q, const float* k, const float* v, float* out,
+                        float* lse, const long long* strides, const int* row_ptr,
+                        const int* ent_k, const int* ent_code, const signed char* uniq,
+                        const int* order, int batch, int heads, int lut_heads,
+                        int ctx_blks_q, float scale, cudaStream_t s) {
   switch (hs) {
-    case 16: return launch<T, BS, 16>(BST_ARGS);
-    case 32: return launch<T, BS, 32>(BST_ARGS);
-    case 64: return launch<T, BS, 64>(BST_ARGS);
-    case 128: return launch<T, BS, 128>(BST_ARGS);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
-cudaError_t dispatch(int bs, int hs, const void* q, const void* k, const void* v, void* out,
-                     float* lse, const long long* strides, const int* row_ptr, const int* ent_k,
-                     const int* ent_code, const signed char* uniq, int batch, int heads,
-                     int lut_heads, int ctx_blks_q, float scale, cudaStream_t s) {
-  switch (bs) {
-    case 16: return dispatch_hs<T, 16>(hs, BST_ARGS);
-    case 32: return dispatch_hs<T, 32>(hs, BST_ARGS);
-    case 64: return dispatch_hs<T, 64>(hs, BST_ARGS);
+    case 16: return launch<BS, 16>(BST_ARGS);
+    case 32: return launch<BS, 32>(BST_ARGS);
+    case 64: return launch<BS, 64>(BST_ARGS);
+    case 128: return launch<BS, 128>(BST_ARGS);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  strides: batch and row
-// strides, in elements, of q, k and v (qb, qr, kb, kr, vb, vr).  lse: null
-// (serving forward) or a (batch, heads, ctx_q) f32 output (training
-// forward).  Returns a cudaError_t (0 = launched).
-extern "C" int bst_attn_fwd(int dtype, int bs, int hs, const void* q, const void* k,
-                            const void* v, void* out, void* lse_out,
-                            const long long* strides,
-                            const int* row_ptr, const int* ent_k, const int* ent_code,
-                            const signed char* uniq, int batch, int heads, int lut_heads,
-                            int ctx_blks_q, float scale, void* stream) {
+// dtype: 0 = float32 (bf16 and f16 run bst_attn_fwd_mma.cu, with this
+// interface; here they return cudaErrorInvalidValue).  strides: batch and
+// row strides, in elements, of q, k and v (qb, qr, kb, kr, vb, vr).  lse:
+// null (serving forward) or a (batch, heads, ctx_q) f32 output (training
+// forward).  order: null (CSR order) or (lut_heads, ctx_blks_q) int32, the
+// query block-rows in launch order (launch_block).  Returns a cudaError_t
+// (0 = launched).
+extern "C" int bst_attn_fwd(int dtype, int bs, int hs, const void* q_in, const void* k_in,
+                            const void* v_in, void* out_in, void* lse_out,
+                            const long long* strides, const int* row_ptr, const int* ent_k,
+                            const int* ent_code, const signed char* uniq, const int* order,
+                            int batch, int heads, int lut_heads, int ctx_blks_q, float scale,
+                            void* stream) {
+  if (dtype != 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* q = static_cast<const float*>(q_in);
+  const float* k = static_cast<const float*>(k_in);
+  const float* v = static_cast<const float*>(v_in);
+  float* out = static_cast<float*>(out_in);
   float* lse = static_cast<float*>(lse_out);
-  if (dtype == 0) return dispatch<float>(bs, hs, BST_ARGS);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(bs, hs, BST_ARGS);
-  if (dtype == 2) return dispatch<__half>(bs, hs, BST_ARGS);
-  return cudaErrorInvalidValue;
+  switch (bs) {
+    case 16: return dispatch_hs<16>(hs, BST_ARGS);
+    case 32: return dispatch_hs<32>(hs, BST_ARGS);
+    case 64: return dispatch_hs<64>(hs, BST_ARGS);
+    default: return cudaErrorInvalidValue;
+  }
 }

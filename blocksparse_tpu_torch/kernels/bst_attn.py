@@ -6,10 +6,12 @@ and their plain versions.
 softmax(scale·QKᵀ + mask)·V over each query block-row's key blocks, with
 an online softmax so the score tensor never reaches device memory.
 ``attention_fwd_lse`` (for ``fused_attention_fwd_lse``) also returns the
-per-row log-sum-exp in f32, which the backward reads.  Both run
-``csrc/bst_attn_fwd.cu``: one thread block per (query block-row,
-batch·head), the q block held in shared memory, the row's k/v blocks
-streamed one at a time.
+per-row log-sum-exp in f32, which the backward reads.  One thread block
+per (query block-row, batch·head): bf16 and f16 run
+``csrc/bst_attn_fwd_mma.cu`` on the tensor cores (``mma.sync``, S and P
+in registers, the online softmax on the accumulator fragments, a
+``cp.async`` ring of k/v blocks), f32 runs ``csrc/bst_attn_fwd.cu``,
+exact on the CUDA cores; both have one C interface.
 
 ``attention_dq`` and ``attention_dkv`` replace ``fused_attention_dq`` and
 ``fused_attention_dkv``: bf16 and f16 run ``csrc/bst_attn_bwd_mma.cu`` on
@@ -26,10 +28,9 @@ All kernels read q/k/v/dO in the public (batch, ctx, heads·hs) layout
 through their strides, so the column slices of a packed qkv tensor go in
 without a copy (the tensor-core kernels copy 16 bytes a thread: a view
 whose start or batch or row stride is off 16 bytes goes in as a copy,
-``_aligned16``); lse and D are (batch, heads, ctx_q) f32.  The forward is
-bound by the CUDA-core FMA rate; see the sources.  The TPU kernels' q-row
-pairing, lane folding and stream-vs-resident choice are TPU mechanics and
-are not carried over.
+``_aligned16``); lse and D are (batch, heads, ctx_q) f32.  The TPU
+kernels' q-row pairing, lane folding and stream-vs-resident choice are
+TPU mechanics and are not carried over.
 
 ``attention_fwd_plain``, ``attention_fwd_lse_plain`` and
 ``attention_bwd_plain`` are the plain PyTorch versions: masked per-block
@@ -109,11 +110,11 @@ def build_attn_csr(nn_list_per_head, codes):
 
 
 def launch_order(row_ptr, rows):
-    """The key block-rows of each layout head by entry count, most first
+    """The block-rows of each layout head by entry count, most first
     (stable: ties keep their order): a (lut_heads, rows) int32 array from
-    a CSR's row_ptr (``build_attn_csr``), the order in which the dk/dv
-    kernel launches its thread blocks, so the longest walks start in the
-    first wave."""
+    a CSR's row_ptr (``build_attn_csr``), the order in which a kernel
+    launches its thread blocks (the forward's query rows, dk/dv's key
+    rows), so the longest walks start in the first wave."""
     counts = np.diff(np.asarray(row_ptr).reshape(-1, rows + 1), axis=1)
     return np.argsort(-counts, axis=1, kind="stable").astype(np.int32)
 
@@ -235,8 +236,8 @@ def attention_bwd_plain(q, k, v, do, lse, dvec, q_blk, k_blk, mask, heads,
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_FWD_ARGS = [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-             _I, ctypes.c_float, _P]
+_FWD_ARGS = [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+             _I, _I, ctypes.c_float, _P]
 _BWD_ARGS = [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
              _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P]
 
@@ -300,9 +301,27 @@ def _check(fn, q, k, v, tables, heads, bs, do=None, key_rows=False):
     return batch, ctx_q, state, state // heads, lut_heads
 
 
-def _fwd(fn, q, k, v, tables, heads, bs, scale, with_lse):
+def _check_order(order, q, lut_heads, rows):
+    if order is not None and (
+            order.device != q.device or order.dtype != torch.int32
+            or not order.is_contiguous()
+            or tuple(order.shape) != (lut_heads, rows)):
+        raise TypeError(f"order must be a contiguous int32 (lut_heads, "
+                        f"{rows}) tensor on {q.device}")
+
+
+def _fwd(fn, q, k, v, tables, heads, bs, scale, with_lse, order):
+    """Checks and launches the forward: bf16 and f16 on
+    ``csrc/bst_attn_fwd_mma.cu`` (16-byte aligned views, ``_aligned16``),
+    f32 on ``csrc/bst_attn_fwd.cu``; one C signature."""
     batch, ctx_q, state, hs, lut_heads = _check(fn, q, k, v, tables, heads,
                                                 bs)
+    _check_order(order, q, lut_heads, ctx_q // bs)
+    if q.dtype == torch.float32:
+        source = "bst_attn_fwd"
+    else:
+        source = "bst_attn_fwd_mma"
+        q, k, v = map(_aligned16, (q, k, v))
     out = torch.empty((batch, ctx_q, state), dtype=q.dtype, device=q.device)
     lse = (torch.empty((batch, heads, ctx_q), dtype=torch.float32,
                        device=q.device) if with_lse else None)
@@ -313,41 +332,45 @@ def _fwd(fn, q, k, v, tables, heads, bs, scale, with_lse):
                                       k.stride(1), v.stride(0), v.stride(1))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _build.function("bst_attn_fwd", "bst_attn_fwd", _FWD_ARGS)(
+        err = _build.function(source, source, _FWD_ARGS)(
             _DTYPE_CODE[q.dtype], bs, hs, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
             ctypes.addressof(strides), row_ptr.data_ptr(), ent_k.data_ptr(),
-            ent_code.data_ptr(), uniq.data_ptr(), batch, heads, lut_heads,
-            ctx_q // bs, float(scale), stream)
+            ent_code.data_ptr(), uniq.data_ptr(),
+            None if order is None else order.data_ptr(), batch, heads,
+            lut_heads, ctx_q // bs, float(scale), stream)
     if err != 0:
         raise RuntimeError(f"{fn} launch failed: cudaError {err}")
     return out, lse
 
 
 def attention_fwd(q, k, v, row_ptr, ent_k, ent_code, uniq, heads, bs,
-                  scale):
+                  scale, order=None):
     """The fused forward on the card (serving: no lse).
 
     q: (batch, ctx_q, heads*hs), k, v: (batch, ctx_k, heads*hs), f32, bf16
     or f16, one dtype, last dim contiguous (other strides are free).
     row_ptr/ent_k/ent_code: int32 CUDA tensors from ``build_attn_csr``;
-    uniq: int8 (n_uniq*bs, bs) CUDA tensor.  Returns a contiguous
-    (batch, ctx_q, heads*hs).  Raises on anything it does not take."""
+    uniq: int8 (n_uniq*bs, bs) CUDA tensor.  order: None (query rows
+    launched in CSR order) or the int32 CUDA tensor of
+    ``launch_order(row_ptr)``; the order changes no bit.  Returns a
+    contiguous (batch, ctx_q, heads*hs).  Raises on anything it does not
+    take."""
     out, _ = _fwd("attention_fwd", q, k, v, (row_ptr, ent_k, ent_code, uniq),
-                  heads, bs, scale, with_lse=False)
+                  heads, bs, scale, with_lse=False, order=order)
     attention_fwd.launches += 1
     return out
 
 
 def attention_fwd_lse(q, k, v, row_ptr, ent_k, ent_code, uniq, heads, bs,
-                      scale):
+                      scale, order=None):
     """The fused training forward on the card: (out, lse), lse a
     contiguous (batch, heads, ctx_q) f32 (-inf where a row sees no key).
     Takes what ``attention_fwd`` takes."""
     out, lse = _fwd("attention_fwd_lse", q, k, v,
                     (row_ptr, ent_k, ent_code, uniq), heads, bs, scale,
-                    with_lse=True)
+                    with_lse=True, order=order)
     attention_fwd_lse.launches += 1
     return out, lse
 
@@ -366,12 +389,7 @@ def _bwd(fn, which, q, k, v, do, lse, dvec, tables, heads, bs, scale,
             raise TypeError(f"{name} must be a contiguous f32 "
                             f"(batch, heads, ctx_q) tensor on {q.device}")
     ctx_k = k.shape[1]
-    if order is not None and (
-            order.device != q.device or order.dtype != torch.int32
-            or not order.is_contiguous()
-            or tuple(order.shape) != (lut_heads, ctx_k // bs)):
-        raise TypeError(f"order must be a contiguous int32 (lut_heads, "
-                        f"ctx_k // bs) tensor on {q.device}")
+    _check_order(order, q, lut_heads, ctx_k // bs)
     if q.dtype == torch.float32:
         source = "bst_attn_bwd"
     else:

@@ -172,10 +172,11 @@ class BlocksparseTransformer:
 
     def _tables(self, device):
         """The layout's tables on ``device``, uploaded once: the kernels'
-        query-row (nn) CSR with its mask codes and the key-row (tn) CSR
-        with the transposed codes and the dk/dv kernel's launch order of
-        its key rows (``launch_order``), the plain versions' block
-        indices and dense masks, and the decode tables (so a decode step
+        query-row (nn) CSR with its mask codes and the forward's launch
+        order of its query rows, the key-row (tn) CSR with the transposed
+        codes and the dk/dv kernel's launch order of its key rows (both
+        ``launch_order``), the plain versions' block indices and dense
+        masks, and the decode tables (so a decode step
         copies nothing from the host, which would stall the stream)."""
         tab = self._dev_tables.get(device)
         if tab is None:
@@ -194,6 +195,8 @@ class BlocksparseTransformer:
                    "ent_k": t(ent_k, torch.int32),
                    "ent_code": t(ent_code, torch.int32),
                    "uniq": t(uniq, torch.int8),
+                   "order": t(bst_attn.launch_order(
+                       row_ptr, self.ctx_blks_q), torch.int32),
                    "row_ptr_t": t(row_ptr_t, torch.int32),
                    "ent_q": t(ent_q, torch.int32),
                    "ent_code_t": t(ent_code_t, torch.int32),
@@ -238,7 +241,8 @@ class BlocksparseTransformer:
         if fused:
             return bst_attn.attention_fwd(
                 q, k, v, tab["row_ptr"], tab["ent_k"], tab["ent_code"],
-                tab["uniq"], self.heads, self.blk_size, scale)
+                tab["uniq"], self.heads, self.blk_size, scale,
+                order=tab["order"])
         return bst_attn.attention_fwd_plain(
             q, k, v, tab["q_blk"], tab["k_blk"], tab["mask"], self.heads,
             self.blk_size, scale)
@@ -317,7 +321,8 @@ class _AttentionFunction(torch.autograd.Function):
         if fused:
             out, lse = bst_attn.attention_fwd_lse(
                 q, k, v, tab["row_ptr"], tab["ent_k"], tab["ent_code"],
-                tab["uniq"], bst.heads, bst.blk_size, scale)
+                tab["uniq"], bst.heads, bst.blk_size, scale,
+                order=tab["order"])
         else:
             out, lse = bst_attn.attention_fwd_lse_plain(
                 q, k, v, tab["q_blk"], tab["k_blk"], tab["mask"], bst.heads,

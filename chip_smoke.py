@@ -18,16 +18,23 @@ layout's blocks in groups that share a staged tile, with N split into
 runs where the groups alone would leave SMs idle and the runs' partials
 summed in order by its second kernel (``bsmm_updat_reduce``); it is held
 against its plain version at every block size 8-128, split and unsplit,
-two runs equal bit for bit, and ``bsmm_updat.cu`` in f32.  The attention
-backward (dq and dk/dv) runs ``bst_attn_bwd_mma.cu`` on the tensor cores
-in bf16 and f16 (two runs equal bit for bit at the LM's shape, dk/dv's
-key rows launched by entry count and in CSR order with equal bits; held
-against its plain version at every (bs, hs) and on a layout with a fully
-masked query row; its device time, TFLOP/s, registers and spills printed
-beside its bound and SDPA's backward, dk/dv in both launch orders) and
-``bst_attn_bwd.cu`` in f32.  The embedding backward (a sorted segment
-sum) runs twice at the LM's shape for equal bits.  Then
-it drives the repo's enwik8 Sparse Transformer at full width (512-d, 6
+two runs equal bit for bit, and ``bsmm_updat.cu`` in f32.  The
+attention forward (serving, and training with the lse) runs
+``bst_attn_fwd_mma.cu`` on the tensor cores in bf16 and f16 (two runs
+equal bit for bit at the LM's shape, the query rows launched by entry
+count and in CSR order with equal bits; held against its plain version
+at every (bs, hs) and on a layout with a fully masked query row; its
+device time, TFLOP/s, registers and spills printed beside its bound and
+SDPA's forward, in both launch orders) and ``bst_attn_fwd.cu`` in f32.
+The attention backward (dq and dk/dv) runs ``bst_attn_bwd_mma.cu`` on
+the tensor cores in bf16 and f16 (two runs equal bit for bit at the LM's
+shape, dk/dv's key rows launched by entry count and in CSR order with
+equal bits; held against its plain version at every (bs, hs) and on a
+layout with a fully masked query row; its device time, TFLOP/s,
+registers and spills printed beside its bound and SDPA's backward, dk/dv
+in both launch orders) and ``bst_attn_bwd.cu`` in f32.  The embedding
+backward (a sorted segment sum) runs twice at the LM's shape for equal
+bits.  Then it drives the repo's enwik8 Sparse Transformer at full width (512-d, 6
 layers, 8 heads, ctx 2048, 64-blocks, fixed layout, block-sparse b32
 d0.5 MLP, bf16 compute, f32 masters, recompute, weights drawn from a
 seed) down two paths, each with the kernels' launch counts set to 0 just
@@ -105,7 +112,8 @@ BATCH, PROMPTS, PROMPT_LEN, NEW_TOKENS = 8, 4, 1024, 64
 TRAIN_STEPS, TIMED_STEPS = 8, 5
 LR, CLIP, LOSS_SCALE = 3e-4, 1.0, 2.0 ** 15
 SOURCES = ("bsmm_xprop_mma", "bsmm_fprop", "bsmm_updat_mma", "bsmm_updat",
-           "bst_attn_fwd", "bst_attn_bwd_mma", "bst_attn_bwd", "im2col",
+           "bst_attn_fwd", "bst_attn_fwd_mma", "bst_attn_bwd_mma",
+           "bst_attn_bwd", "im2col",
            "bsmm_fine_mma", "bsmm_fine", "bsmm_window_mma", "bsmm_window",
            "bsmm_merge")
 DTYPES = (torch.bfloat16, torch.float32, torch.float16)
@@ -116,6 +124,10 @@ ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 2e-2}
 # f32 on the tensor cores too): only the order of the sums differs
 UPDAT_TOL = 1e-4
 LSE_TOL = 1e-4         # f32 log-sum-exp, absolute
+# The attention forward's out, beside its f32 lse: |kernel - plain| <=
+# ATTN_TOL absolute (no max|plain| scaling: a typical |out| is far below
+# max|out|), and ||kernel - plain|| / ||plain|| <= ATTN_NORM_TOL
+ATTN_NORM_TOL = 1e-2
 MODEL_TOL = 2e-2       # bf16 logits, kernel model against plain model
 DECODE_TOL = 5e-2      # bf16 logits, cached decode against full forward
 # Train step, kernel model against plain model (bf16 compute, f32
@@ -201,6 +213,21 @@ def compare(name, got, ref, tol):
     return err
 
 
+def compare_fwd(name, got, ref, dtype):
+    """The attention forward's out against its plain version: the max
+    error absolute, and the error's norm relative to the plain out's."""
+    diff, ref = got.float() - ref.float(), ref.float()
+    err = diff.abs().max().item()
+    rel = diff.norm().item() / max(ref.norm().item(), 1e-30)
+    check(bool(torch.isfinite(got).all()) and err <= ATTN_TOL[dtype]
+          and rel <= ATTN_NORM_TOL,
+          f"{name}: max_abs_err {err:.3e} (tol {ATTN_TOL[dtype]:g}), "
+          f"||err|| / ||plain|| {rel:.3e} (tol {ATTN_NORM_TOL:g}); "
+          f"mean|plain| {ref.abs().mean().item():.3e}, max|plain| "
+          f"{ref.abs().max().item():.3e}")
+    return err
+
+
 def timed(rows, key, err, fn, plain_fn, iters, card_line=None, flops=None):
     ms = time_ms(fn, iters)
     plain_ms = time_ms(plain_fn, max(iters // 4, 5))
@@ -244,11 +271,14 @@ def serving_kernel_checks(model, plain, dev, g, rows):
         qkv = torch.randn((BATCH, c.ctx, 3 * c.n_embd), device=dev,
                           generator=g).to(dtype)
         q, k, v = qkv.split(c.n_embd, dim=-1)
-        err = compare(f"bst_attn_fwd batch {BATCH} ctx {c.ctx} heads "
-                      f"{c.n_head} hs {model.hs} {dtype}",
-                      bst.attention(q, k, v, scale=scale),
-                      bst.attention(q, k, v, scale=scale, use_fused=False),
-                      ATTN_TOL[dtype])
+        err = compare_fwd(f"bst_attn_fwd batch {BATCH} ctx {c.ctx} heads "
+                          f"{c.n_head} hs {model.hs} {dtype}",
+                          bst.attention(q, k, v, scale=scale),
+                          bst.attention(q, k, v, scale=scale,
+                                        use_fused=False), dtype)
+        if dtype != torch.float32:
+            same_bits(f"bst_attn_fwd batch {BATCH} ctx {c.ctx} {dtype}",
+                      lambda: bst.attention(q, k, v, scale=scale))
         timed(rows, ("attn_fwd", dtype), err,
               lambda: bst.attention(q, k, v, scale=scale),
               lambda: bst.attention(q, k, v, scale=scale, use_fused=False), 20)
@@ -315,22 +345,42 @@ def training_kernel_checks(model, plain, dev, g, rows):
         do = torch.randn((BATCH, c.ctx, c.n_embd), device=dev,
                          generator=g).to(dtype)
 
-        def fwd_lse():
+        def fwd_lse(order=tab["order"]):
             return bst_attn.attention_fwd_lse(
                 q, k, v, tab["row_ptr"], tab["ent_k"], tab["ent_code"],
-                tab["uniq"], heads, bs, scale)
+                tab["uniq"], heads, bs, scale, order=order)
+
+        def fwd(order=tab["order"]):
+            return bst_attn.attention_fwd(
+                q, k, v, tab["row_ptr"], tab["ent_k"], tab["ent_code"],
+                tab["uniq"], heads, bs, scale, order=order)
 
         def fwd_lse_plain():
             return bst_attn.attention_fwd_lse_plain(q, k, v, *plain_args)
         (out, lse), (out_ref, lse_ref) = fwd_lse(), fwd_lse_plain()
-        err = compare(f"bst_attn_fwd_lse out {what} {dtype}", out, out_ref,
-                      ATTN_TOL[dtype])
+        err = compare_fwd(f"bst_attn_fwd_lse out {what} {dtype}", out,
+                          out_ref, dtype)
         lse_err = (lse - lse_ref).abs().max().item()
         check(bool(torch.isfinite(lse).all()) and lse_err <= LSE_TOL,
               f"bst_attn_fwd_lse lse: max_abs_err {lse_err:.3e} (tol "
               f"{LSE_TOL:g})")
         timed(rows, ("fwd_lse", dtype), max(err, lse_err), fwd_lse,
               fwd_lse_plain, 20)
+        if dtype != torch.float32:
+            same_bits(f"bst_attn_fwd_lse {what} {dtype} (out, lse)",
+                      lambda: torch.cat([t.float().flatten()
+                                         for t in fwd_lse()]))
+            check(torch.equal(torch.cat([t.float().flatten()
+                                         for t in fwd_lse()]),
+                              torch.cat([t.float().flatten()
+                                         for t in fwd_lse(None)]))
+                  and torch.equal(fwd(), fwd(None))
+                  and torch.equal(fwd(), out),
+                  f"bst_attn_fwd(_lse) {what} {dtype}: query rows launched "
+                  f"by entry count and in CSR order, equal bit for bit; "
+                  f"serving out equal to training out")
+        if dtype == torch.bfloat16:
+            attn_fwd_device_times(fwd, fwd_lse, rows)
         dvec = (do.float() * out_ref.float()).reshape(
             BATCH, c.ctx, heads, -1).sum(-1).transpose(1, 2).contiguous()
 
@@ -374,6 +424,19 @@ def training_kernel_checks(model, plain, dev, g, rows):
         torch.cuda.empty_cache()
 
 
+def attn_fwd_device_times(fwd, fwd_lse, rows):
+    """The tensor-core forward's device time at the LM's shape (bf16; the
+    profiler, mean of 20 launches), both entry points in both launch
+    orders of the query rows, in turns: CSR order, by entry count, by
+    entry count, CSR order."""
+    for name, fn in (("fwd_dev", fwd), ("fwd_lse_dev", fwd_lse)):
+        rows[name] = {"csr": [], "order": []}
+        for key in ("csr", "order", "order", "csr"):
+            rows[name][key].append(kernel_device_ms(
+                (lambda: fn(None)) if key == "csr" else fn,
+                "bst_attn_fwd_mma_kernel"))
+
+
 def attn_bwd_device_times(dq, dkv, rows):
     """The tensor-core dq and dk/dv kernels' device time at the LM's shape
     (bf16; the profiler, mean of 20 launches), dk/dv in both launch orders
@@ -398,13 +461,14 @@ def f1_mask(blk_shape, head, qry, key, blk):
     return mask
 
 
-def attn_bwd_block_size_checks(bt, dev, g):
-    """bst_attn_bwd_mma.cu against attention_bwd_plain at every (bs, hs) it
-    takes, in bf16 and f16, on a small case (the fixed layout of 4
-    block-rows and 2 local blocks, the causal sub-block mask, batch 2, 2
-    heads; q, k, v column slices of one qkv), each run twice for equal
-    bits; and a causal layout with a fully masked query row (F1): zero dq
-    there, no NaN anywhere."""
+def attn_block_size_checks(bt, dev, g):
+    """bst_attn_fwd_mma.cu against attention_fwd_lse_plain (out and lse,
+    both entry points) and bst_attn_bwd_mma.cu against attention_bwd_plain
+    at every (bs, hs) they take, in bf16 and f16, on a small case (the
+    fixed layout of 4 block-rows and 2 local blocks, the causal sub-block
+    mask, batch 2, 2 heads; q, k, v column slices of one qkv), each run
+    twice for equal bits; and a causal layout with a fully masked query
+    row (F1): zero out and dq there, lse -inf, no NaN anywhere."""
     from blocksparse_tpu_torch.kernels import bst_attn
     from blocksparse_tpu_torch.models.sparse_transformer import (
         causal_subblock_mask, fixed_layout)
@@ -424,6 +488,24 @@ def attn_bwd_block_size_checks(bt, dev, g):
         dvec = (do.float() * out.float()).reshape(
             batch, ctx, heads, hs).sum(-1).transpose(1, 2).contiguous()
         refs = bst_attn.attention_bwd_plain(q, k, v, do, lse, dvec, *args)
+        fargs = (tab["row_ptr"], tab["ent_k"], tab["ent_code"], tab["uniq"],
+                 heads, bs, scale)
+
+        def run_fwd():
+            return (bst_attn.attention_fwd(q, k, v, *fargs,
+                                           order=tab["order"]),
+                    *bst_attn.attention_fwd_lse(q, k, v, *fargs,
+                                                order=tab["order"]))
+        fo, fo_lse, flse = run_fwd()
+        for name, a in (("out", fo), ("out (lse entry)", fo_lse)):
+            compare_fwd(f"{what} forward {name}", a, out, dtype)
+        live = torch.isfinite(lse)
+        lse_err = (flse[live] - lse[live]).abs().max().item()
+        check(torch.equal(live, torch.isfinite(flse)) and lse_err <= LSE_TOL,
+              f"{what} forward lse: max_abs_err {lse_err:.3e} (tol "
+              f"{LSE_TOL:g}), -inf where the plain lse is")
+        same_bits(f"{what} forward out, lse", lambda: torch.cat(
+            [t.float().flatten() for t in run_fwd()]))
 
         def run():
             return (bst_attn.attention_dq(
@@ -438,27 +520,30 @@ def attn_bwd_block_size_checks(bt, dev, g):
             compare(f"{what} {name}", a, r, ATTN_TOL[dtype])
         same_bits(f"{what} dq, dk, dv", lambda: torch.cat(
             [t.float().flatten() for t in run()]))
-        return got
+        return (fo, flse) + got
 
     for dtype in (torch.bfloat16, torch.float16):
         for bs in bst_attn.BLOCK_SIZES:
             for hs in bst_attn.HEAD_SIZES:
                 case(fixed_layout(4, local_blocks=2), bs, hs, dtype,
                      causal_subblock_mask,
-                     f"bst_attn_bwd_mma b{bs} hs{hs} {dtype}")
-        dq, dk, dv = case(np.tril(np.ones((4, 4), np.int32)), 16, 32, dtype,
-                          f1_mask, f"bst_attn_bwd_mma F1 layout {dtype}")
+                     f"bst_attn_(fwd|bwd)_mma b{bs} hs{hs} {dtype}")
+        out, lse, dq, dk, dv = case(
+            np.tril(np.ones((4, 4), np.int32)), 16, 32, dtype, f1_mask,
+            f"bst_attn_(fwd|bwd)_mma F1 layout {dtype}")
         dead = 16 + 3
-        check(bool((dq[:, dead] == 0).all()) and all(
-            bool(torch.isfinite(t).all()) for t in (dq, dk, dv)),
-              f"bst_attn_bwd_mma {dtype}: the fully masked query row's dq "
-              f"is zero, no NaN in dq, dk, dv")
+        check(bool((out[:, dead] == 0).all() and (dq[:, dead] == 0).all()
+                   and torch.isneginf(lse[:, :, dead]).all()) and all(
+            bool(torch.isfinite(t).all()) for t in (out, dq, dk, dv)),
+              f"bst_attn_(fwd|bwd)_mma {dtype}: the fully masked query row's "
+              f"out and dq are zero and its lse -inf, no NaN in out, dq, "
+              f"dk, dv")
     torch.cuda.empty_cache()
 
 
-# the attention backward kernels' mangled names (after the anonymous
-# namespace's file prefix): kernel, dtype, BS, HS
-_PTXAS_NAME = re.compile(r"(bst_attn_d(?:q|kv)(?:_mma)?_kernel)I"
+# the attention kernels' mangled names (after the anonymous namespace's
+# file prefix): kernel, dtype, BS, HS
+_PTXAS_NAME = re.compile(r"(bst_attn_(?:fwd|dq|dkv)(?:_mma)?_kernel)I"
                          r"(13__nv_bfloat16|6__half|f)Li(\d+)ELi(\d+)E")
 
 
@@ -486,38 +571,51 @@ def ptxas_resources(source):
     return out
 
 
-def attn_bwd_report(model, rows, marks, card_line):
-    """The tensor-core backward kernels at the LM's shape (bf16): device
-    time and TFLOP/s against the bound, SDPA's backward, the target and
-    the CUDA-core kernels' times of the last measurement; dk/dv in both
-    launch orders; each instantiation's registers and spills (ptxas)."""
+def attn_report(model, rows, marks, card_line):
+    """The tensor-core attention kernels at the LM's shape (bf16): device
+    time and TFLOP/s against the bound, SDPA's forward or backward and
+    the target; the forward in both launch orders of its query rows,
+    dk/dv in both of its key rows; each instantiation's registers and
+    spills (ptxas)."""
     c, bst = model.config, model.bst
     e = bst.blocks * BATCH * c.n_head * bst.blk_size ** 2 * model.hs
-    res = ptxas_resources("bst_attn_bwd_mma")
-    dkv = rows["dkv_dev"]
-    lm = {name: res[(f"{name}_mma_kernel", "bf16", bst.blk_size, model.hs)]
-          for name in ("bst_attn_dq", "bst_attn_dkv")}
-    for name, ms, flops, target in (
-            ("bst_attn_dq", rows["dq_dev"], 6 * e, 0.34),
-            ("bst_attn_dkv", float(np.mean(dkv["order"])), 8 * e, 0.49)):
-        regs, st, ld = lm[name]
-        print(f"{name} (bst_attn_bwd_mma.cu, bf16, batch {BATCH} x {c.ctx}) "
-              f"[{card_line}]: device {ms:.4f} ms "
-              f"({flops / ms / 1e9:.1f} TFLOP/s), events "
-              f"{rows[(name[9:], torch.bfloat16)][1]:.4f} ms; bound "
-              f"{marks[name][0]:.4f} ms ({marks[name][1]}); SDPA backward "
-              f"(dq, dk, dv) {marks[name][2]:.4f} ms; target <= {target} ms; "
-              f"{regs} registers, spills {st}/{ld} bytes", flush=True)
-    print(f"bst_attn_dkv launch order (device ms, in turns): CSR "
-          f"{dkv['csr'][0]:.4f} / {dkv['csr'][1]:.4f}, by entry count "
-          f"{dkv['order'][0]:.4f} / {dkv['order'][1]:.4f}", flush=True)
-    spills = {k: v for k, v in res.items() if v[1] or v[2]}
-    regs = [v[0] for v in res.values()]
-    print(f"bst_attn_bwd_mma.cu: {len(res)} kernels, {min(regs)}-{max(regs)} "
-          f"registers, spills in {len(spills)}: " + (", ".join(
-              f"{k[0][9:]}<{k[1]},{k[2]},{k[3]}> {v[0]} registers, "
-              f"{v[1]}/{v[2]} bytes" for k, v in sorted(spills.items()))
-              or "none"), flush=True)
+    by_source = {src: ptxas_resources(src)
+                 for src in ("bst_attn_fwd_mma", "bst_attn_bwd_mma")}
+    res = {k: v for mine in by_source.values() for k, v in mine.items()}
+    orders = {"bst_attn_fwd": rows["fwd_dev"],
+              "bst_attn_fwd_lse": rows["fwd_lse_dev"],
+              "bst_attn_dkv": rows["dkv_dev"]}
+    for name, src, key, ms, flops, target in (
+            ("bst_attn_fwd", "fwd", "attn_fwd",
+             float(np.mean(rows["fwd_dev"]["order"])), 4 * e, 0.20),
+            ("bst_attn_fwd_lse", "fwd", "fwd_lse",
+             float(np.mean(rows["fwd_lse_dev"]["order"])), 4 * e, 0.20),
+            ("bst_attn_dq", "dq", "dq", rows["dq_dev"], 6 * e, 0.34),
+            ("bst_attn_dkv", "dkv", "dkv",
+             float(np.mean(rows["dkv_dev"]["order"])), 8 * e, 0.49)):
+        regs, st, ld = res[(f"bst_attn_{src}_mma_kernel", "bf16",
+                            bst.blk_size, model.hs)]
+        lib = "SDPA forward" if src == "fwd" else "SDPA backward (dq, dk, dv)"
+        print(f"{name} (bst_attn_{'fwd' if src == 'fwd' else 'bwd'}_mma.cu, "
+              f"bf16, batch {BATCH} x {c.ctx}) [{card_line}]: device "
+              f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), events "
+              f"{rows[(key, torch.bfloat16)][1]:.4f} ms; bound "
+              f"{marks[name][0]:.4f} ms ({marks[name][1]}); {lib} "
+              f"{marks[name][2]:.4f} ms; target <= {target} ms; {regs} "
+              f"registers, spills {st}/{ld} bytes", flush=True)
+    for name, dev_ms in orders.items():
+        print(f"{name} launch order (device ms, in turns): CSR "
+              f"{dev_ms['csr'][0]:.4f} / {dev_ms['csr'][1]:.4f}, by entry "
+              f"count {dev_ms['order'][0]:.4f} / {dev_ms['order'][1]:.4f}",
+              flush=True)
+    for source, mine in by_source.items():
+        spills = {k: v for k, v in mine.items() if v[1] or v[2]}
+        regs = [v[0] for v in mine.values()]
+        print(f"{source}.cu: {len(mine)} kernels, {min(regs)}-{max(regs)} "
+              f"registers, spills in {len(spills)}: " + (", ".join(
+                  f"{k[0][9:]}<{k[1]},{k[2]},{k[3]}> {v[0]} registers, "
+                  f"{v[1]}/{v[2]} bytes" for k, v in sorted(spills.items()))
+                  or "none"), flush=True)
 
 
 def xprop_block_size_checks(bt, dev, g):
@@ -1367,10 +1465,11 @@ def training_path(bt, model, plain, cfg, dev, card_line, profile_out):
 # kernels (bsmm_xprop_mma_kernel in bf16/f16, bsmm_xprop_nc_kernel in f32);
 # the updat's are told apart: bsmm_updat_mma_kernel (bf16/f16),
 # bsmm_updat_nc_kernel (f32) and the split's bsmm_updat_reduce_kernel
-# "bst_attn_dq" and "bst_attn_dkv" match the backward kernels of both
-# sources (bst_attn_d*_mma_kernel in bf16/f16, bst_attn_d*_kernel in f32)
+# "bst_attn_fwd", "bst_attn_dq" and "bst_attn_dkv" match the attention
+# kernels of both sources (bst_attn_*_mma_kernel in bf16/f16,
+# bst_attn_*_kernel in f32)
 PORT_KERNELS = ("bsmm_xprop", "bsmm_updat_mma", "bsmm_updat_nc",
-                "bsmm_updat_reduce", "bst_attn_fwd_kernel", "bst_attn_dq",
+                "bsmm_updat_reduce", "bst_attn_fwd", "bst_attn_dq",
                 "bst_attn_dkv")
 
 
@@ -1889,7 +1988,7 @@ def main():
     xprop_block_size_checks(bt, dev, g)
     updat_block_size_checks(bt, dev, g)
     mode_block_size_checks(bt, dev, g)
-    attn_bwd_block_size_checks(bt, dev, g)
+    attn_block_size_checks(bt, dev, g)
 
     # 4. the serving path, counted
     serve_launches = serving_path(bt, model, plain, cfg, dev, card_line)
@@ -1926,9 +2025,13 @@ def main():
     im2col_bytes = (1 + 9) * C * NP * b2
     marks["im2col"] = (*bound(0, im2col_bytes), rows["unfold"])
     marks["col2im"] = (*bound(0, im2col_bytes), rows["fold"])
-    attn_bwd_report(model, rows, marks, card_line)
-    # the backward kernels' row: their device time, as fine's and window's
-    for key, ms in ((("dq", torch.bfloat16), rows["dq_dev"]),
+    attn_report(model, rows, marks, card_line)
+    # the attention kernels' rows: their device time, as fine's and window's
+    for key, ms in ((("attn_fwd", torch.bfloat16),
+                     float(np.mean(rows["fwd_dev"]["order"]))),
+                    (("fwd_lse", torch.bfloat16),
+                     float(np.mean(rows["fwd_lse_dev"]["order"]))),
+                    (("dq", torch.bfloat16), rows["dq_dev"]),
                     (("dkv", torch.bfloat16),
                      float(np.mean(rows["dkv_dev"]["order"])))):
         rows[key] = (rows[key][0], ms, rows[key][2])
@@ -1943,9 +2046,9 @@ def main():
          train_launches["bsmm_updat"], rows[("updat", "bsmm1", bf)]),
         ("bsmm_updat_reduce", "bsmm_updat_mma.cu", "bsmm.py:1972",
          train_launches["bsmm_updat_reduce"], rows["reduce"]),
-        ("bst_attn_fwd", "bst_attn_fwd.cu", "bst_attn.py:677",
+        ("bst_attn_fwd", "bst_attn_fwd_mma.cu", "bst_attn.py:677",
          serve_launches["bst_attn_fwd"], rows[("attn_fwd", bf)]),
-        ("bst_attn_fwd_lse", "bst_attn_fwd.cu", "bst_attn.py:832",
+        ("bst_attn_fwd_lse", "bst_attn_fwd_mma.cu", "bst_attn.py:832",
          train_launches["bst_attn_fwd_lse"], rows[("fwd_lse", bf)]),
         ("bst_attn_dq", "bst_attn_bwd_mma.cu", "bst_attn.py:1084",
          train_launches["bst_attn_dq"], rows[("dq", bf)]),

@@ -27,7 +27,10 @@ cores (csrc/bsmm_fine_mma.cu, csrc/bsmm_window_mma.cu), each in its own
 fixed order, and are held against the plain version within the matmul's
 tolerances, two runs bit for bit.
 The merge adds the same f32 tiles in the same order as its plain
-version: exact.
+version: exact.  The attention forward runs f32 on the CUDA cores
+(csrc/bst_attn_fwd.cu) and bf16/f16 on the tensor cores
+(csrc/bst_attn_fwd_mma.cu), each in a fixed order: two runs, and the two
+launch orders of the query rows, agree bit for bit.
 """
 import ctypes
 
@@ -205,8 +208,9 @@ def test_bsmm_kernel_rejects_cpu_and_mixed_dtypes(cuda):
                                 None, None, 16, 2)
 
 
-def _fixed_case(device, dtype, batch=2, ctx=256, bs=64, heads=2, hs=64):
-    layout = fixed_layout(ctx // bs, local_blocks=2)
+def _fixed_case(device, dtype, batch=2, ctx=256, bs=64, heads=2, hs=64,
+                local=2):
+    layout = fixed_layout(ctx // bs, local_blocks=local)
     port = BlocksparseTransformer(layout, block_size=bs, heads=heads,
                                   mask_callback=causal_subblock_mask)
     g = torch.Generator(device=device).manual_seed(0)
@@ -218,9 +222,12 @@ def _fixed_case(device, dtype, batch=2, ctx=256, bs=64, heads=2, hs=64):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
-@pytest.mark.parametrize("bs,hs", [(16, 16), (32, 128), (64, 64), (64, 32)])
-def test_attention_kernel_matches_plain(cuda, bs, hs, dtype):
-    port, (q, k, v) = _fixed_case(cuda, dtype, bs=bs, hs=hs)
+@pytest.mark.parametrize("bs,hs,blocks,local", [
+    (16, 16, 16, 2), (32, 128, 8, 2), (64, 64, 4, 2), (64, 32, 4, 2),
+    (64, 64, 32, 8)])     # the last: the LM's layout, 1-14 entries a row
+def test_attention_kernel_matches_plain(cuda, bs, hs, blocks, local, dtype):
+    port, (q, k, v) = _fixed_case(cuda, dtype, ctx=blocks * bs, bs=bs, hs=hs,
+                                  local=local)
     before = bst_attn.attention_fwd.launches
     y = port.attention(q, k, v, scale=1.0 / np.sqrt(hs))   # strided q/k/v
     torch.cuda.synchronize()
@@ -239,35 +246,158 @@ def _f1_mask(blk_shape, head, qry, key, blk):
     return mask
 
 
+def _fwd_tol(dtype, ref):
+    """F32_TOL absolute in f32; in bf16/f16 ATTN_BF16_TOL of
+    max(1, max|ref|)."""
+    if dtype == torch.float32:
+        return F32_TOL
+    return ATTN_BF16_TOL * max(1.0, ref.float().abs().max().item())
+
+
 @pytest.mark.cuda
-def test_attention_kernel_fully_masked_row_is_zero(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, *HALF])
+def test_attention_kernel_fully_masked_row_is_zero(cuda, dtype):
     heads = 2
     layout = np.tril(np.ones((4, 4), np.int32))
     port = BlocksparseTransformer(layout, block_size=16, heads=heads,
                                   mask_callback=_f1_mask)
     g = torch.Generator(device=cuda).manual_seed(1)
-    q, k, v = (torch.randn((2, 64, heads * 16), device=cuda, generator=g)
-               for _ in range(3))
+    q, k, v = (torch.randn((2, 64, heads * 16), device=cuda,
+                           generator=g).to(dtype) for _ in range(3))
     y = port.attention(q, k, v, scale=0.25)
     ref = port.attention(q, k, v, scale=0.25, use_fused=False)
     dead = 16 + 3
     assert (y[:, dead] == 0).all() and (ref[:, dead] == 0).all()
-    torch.testing.assert_close(y, ref, rtol=0, atol=F32_TOL)
+    assert bool(torch.isfinite(y).all())
+    torch.testing.assert_close(y.float(), ref.float(), rtol=0,
+                               atol=_fwd_tol(dtype, ref))
 
 
 @pytest.mark.cuda
-def test_attention_kernel_per_head_layouts(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, *HALF])
+def test_attention_kernel_per_head_layouts(cuda, dtype):
     lay = fixed_layout(4, local_blocks=2)
     layout = np.stack([lay, lay[:, ::-1], lay, np.flipud(lay)])
     port = BlocksparseTransformer(layout, block_size=16, heads=4,
                                   mask_callback=causal_subblock_mask)
     g = torch.Generator(device=cuda).manual_seed(2)
-    q, k, v = (torch.randn((3, 64, 4 * 32), device=cuda, generator=g)
-               for _ in range(3))
-    torch.testing.assert_close(
-        port.attention(q, k, v, scale=0.3),
-        port.attention(q, k, v, scale=0.3, use_fused=False),
-        rtol=0, atol=F32_TOL)
+    q, k, v = (torch.randn((3, 64, 4 * 32), device=cuda,
+                           generator=g).to(dtype) for _ in range(3))
+    ref = port.attention(q, k, v, scale=0.3, use_fused=False)
+    torch.testing.assert_close(port.attention(q, k, v, scale=0.3).float(),
+                               ref.float(), rtol=0, atol=_fwd_tol(dtype, ref))
+
+
+def _kernel_fwd(port, q, k, v, scale, ordered=True):
+    """(out of attention_fwd, (out, lse) of attention_fwd_lse), the query
+    rows launched in the op's order or in CSR order (``ordered=False``)."""
+    tab = port._tables(q.device)
+    args = (tab["row_ptr"], tab["ent_k"], tab["ent_code"], tab["uniq"],
+            port.heads, port.blk_size, scale)
+    order = tab["order"] if ordered else None
+    return (bst_attn.attention_fwd(q, k, v, *args, order=order),
+            *bst_attn.attention_fwd_lse(q, k, v, *args, order=order))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, *HALF])
+def test_attention_fwd_kernels_bit_equal(cuda, dtype):
+    """Two runs of attention_fwd and of attention_fwd_lse give the same
+    bits (every sum in the CSR order, no atomics), the two entry points
+    the same out, and the launch order of the query rows changes none of
+    them; at the LM's bs 64 / hs 64 on a 16-block-row fixed layout."""
+    port, (q, k, v) = _fixed_case(cuda, dtype, ctx=1024, local=4)
+    first = _kernel_fwd(port, q, k, v, 0.125)
+    again = _kernel_fwd(port, q, k, v, 0.125)
+    csr = _kernel_fwd(port, q, k, v, 0.125, ordered=False)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], first[1])
+    for a, b, c in zip(first, again, csr):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, *HALF])
+@pytest.mark.parametrize("scale", [-0.3, 0.0])
+def test_attention_fwd_negative_and_zero_scale(cuda, scale, dtype):
+    """A negative scale (the tensor-core kernel flips q's sign, so its
+    running max stays a max) and a zero scale (every visible key weighs
+    the same; masked keys stay out) match the plain version, out and
+    lse."""
+    port, (q, k, v) = _fixed_case(cuda, dtype, bs=32, hs=32)
+    tab = port._tables(cuda)
+    out, lse = _kernel_fwd(port, q, k, v, scale)[1:]
+    ref, lse_ref = bst_attn.attention_fwd_lse_plain(
+        q, k, v, tab["q_blk"], tab["k_blk"], tab["mask"], port.heads, 32,
+        scale)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=_fwd_tol(dtype, ref))
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_attention_fwd_source_by_dtype(cuda, monkeypatch):
+    """f32 launches bst_attn_fwd.cu, bf16 and f16 bst_attn_fwd_mma.cu; each
+    source refuses the other's dtypes (cudaErrorInvalidValue)."""
+    from blocksparse_tpu_torch.kernels import _build
+    used = []
+    build_fn = _build.function
+
+    def spy(name, fn_name, argtypes):
+        used.append((name, fn_name))
+        return build_fn(name, fn_name, argtypes)
+    monkeypatch.setattr(_build, "function", spy)
+    for dtype in (torch.float32, *HALF):
+        port, (q, k, v) = _fixed_case(cuda, dtype, bs=16, hs=32)
+        used.clear()
+        _kernel_fwd(port, q, k, v, 0.3)
+        lib = "bst_attn_fwd" if dtype == torch.float32 else "bst_attn_fwd_mma"
+        assert used == [(lib, lib)] * 2
+    tab = port._tables(cuda)
+    out = torch.empty(q.shape, dtype=torch.float32, device=cuda)
+    lse = torch.empty((2, port.heads, q.shape[1]), device=cuda)
+    strides = (ctypes.c_longlong * 6)(*(
+        s for t in (q, k, v) for s in t.stride()[:2]))
+    for lib, codes in (("bst_attn_fwd", (1, 2)), ("bst_attn_fwd_mma", (0,))):
+        fn = build_fn(lib, lib, bst_attn._FWD_ARGS)
+        for code in codes:
+            for lse_ptr in (None, lse.data_ptr()):
+                assert fn(code, 16, 32, q.data_ptr(), k.data_ptr(),
+                          v.data_ptr(), out.data_ptr(), lse_ptr,
+                          ctypes.addressof(strides),
+                          tab["row_ptr"].data_ptr(), tab["ent_k"].data_ptr(),
+                          tab["ent_code"].data_ptr(), tab["uniq"].data_ptr(),
+                          None, 2, port.heads, 1, q.shape[1] // 16, 0.3,
+                          torch.cuda.current_stream().cuda_stream) == 1, \
+                    (lib, code)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HALF)
+def test_attention_fwd_unaligned_views(cuda, dtype):
+    """q, k and v that start off a 16-byte boundary, or whose row stride is
+    off 16 bytes, give the same out and lse as their contiguous copies (the
+    wrapper hands the tensor-core kernel an aligned copy)."""
+    port, (q, k, v) = _fixed_case(cuda, dtype, bs=32, hs=16)
+    want = _kernel_fwd(port, *(t.contiguous() for t in (q, k, v)), 0.25)
+
+    def shifted(t):      # starts 2 bytes past a 16-byte boundary
+        buf = torch.empty(t.numel() + 1, dtype=dtype, device=cuda)[1:]
+        return buf.view_as(t).copy_(t)
+
+    def padded(t):       # rows 2 elements wider than the data: 4 bytes off
+        buf = torch.zeros(t.shape[:-1] + (t.shape[-1] + 2,), dtype=dtype,
+                          device=cuda)
+        return buf[..., :t.shape[-1]].copy_(t)
+    for move in (shifted, padded):
+        views = [move(t) for t in (q, k, v)]
+        assert all(t.data_ptr() % 16 or t.stride(1) * t.element_size() % 16
+                   for t in views)
+        got = _kernel_fwd(port, *views, 0.25)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), move.__name__
 
 
 @pytest.mark.cuda
