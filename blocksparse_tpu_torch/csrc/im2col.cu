@@ -1,39 +1,33 @@
-// im2col and its adjoint col2im for the block-sparse conv (impl="bsmm"):
+// im2col for the block-sparse conv (impl="bsmm"):
 //   im2col  xc (C, N*H*W) -> X (C*R*S, N*H*W), X row (cb*trs + t)*bC + ci,
 //           tap t = r*S + s, X[row, (n, h, w)] = x[c, (n, h + r - pt, w + s - pl)]
-//           and 0 where that pixel lies outside the image;
-//   col2im  dX (C*R*S, N*H*W) -> dx (C, N*H*W), each dx[c, (n, h, w)] the sum
-//           over taps t of dX[row(c, t), (n, h - r + pt, w - s + pl)] where that
-//           pixel lies inside the image, in f32, in tap order, cast once.
-// X and dX are stored in the NC orientation the block-sparse matmul kernels
-// read and write: element (row, p) at p * C*R*S + row.  So X reaches bsmm_fprop
-// and bsmm_updat, and dX comes from bsmm_bprop, with no transposing copy.
+//           and 0 where that pixel lies outside the image.
+// X is stored in the NC orientation the block-sparse matmul kernels read:
+// element (row, p) at p * C*R*S + row.  So X reaches bsmm_fprop and
+// bsmm_updat with no transposing copy.  Its adjoint, col2im, is
+// col2im_tma.cu.
 //
-// Replaces the TPU kernels im2col / _im2col_fwd_impl and col2im
+// Replaces the TPU kernel im2col / _im2col_fwd_impl
 // (blocksparse_tpu/kernels/im2col.py).  On the TPU each grid step loads a
 // channel-block tile and emits every tap as a lane roll plus a boundary mask.
 // Here one thread block owns one channel block cb and TP consecutive pixels p,
 // and stages as many taps at once as 48 KB of shared memory holds (all nine
-// of a 3x3 filter up to bC = 32).  im2col: it reads each tap's bC x TP shifted
+// of a 3x3 filter up to bC = 32).  It reads each tap's bC x TP shifted
 // (masked) input tile along p, coalesced, and writes each pixel's taps x bC
-// elements, one contiguous run of X (576 bytes for 3x3, b32, bf16).  col2im:
-// it reads each pixel's runs of dX (one a tap), and every thread adds its own
-// (ci, p) elements in registers, taps in order; the sum is written once along
-// p.  A copy this thin is bound by its index math unless that is done once a
-// pixel: each thread keeps one pixel on the pixel side, each warp one pixel at
-// a time on the NC side, and the taps' offsets sit in a shared table.  A gather, not a scatter: no atomics, one fixed sum
-// order (tap 0 first), so the f32 result equals the plain version's bit for
-// bit and the bf16/f16 result rounds that same f32 once.  Values pass through
-// shared memory as f32, which holds every bf16 and f16 value exactly: im2col
-// stays a bit-exact copy.
+// elements, one contiguous run of X (576 bytes for 3x3, b32, bf16).  A copy
+// this thin is bound by its index math unless that is done once a pixel:
+// each thread keeps one pixel on the pixel side, each warp one pixel at a
+// time on the NC side, and the taps' offsets sit in a shared table.  Values
+// pass through shared memory as f32, which holds every bf16 and f16 value
+// exactly: im2col stays a bit-exact copy.
 //
 // Scope (the TPU kernel's, im2col_supported): 2-D, stride 1, dilation 1,
 // output dims = input dims, 0 <= pt < R, 0 <= pl < S, bC in {8, 16, 32, 64,
 // 128} dividing C, any N*H*W.  Element offsets are 64-bit: C*trs*N*H*W passes
 // 2^31 at real sizes.
 //
-// Bound on the H100: both are copies with index math, bound by bytes:
-// (trs + 1) * C * N*H*W elements moved, each read or written once at least.
+// Bound on the H100: a copy with index math, bound by bytes: (trs + 1) * C *
+// N*H*W elements moved, each read or written once at least.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -60,8 +54,6 @@ constexpr int SMEM_FLOATS = 12032;    // 47 KB: under the 48 KB a block takes un
 // Taps a thread block stages at once: as many as fit in SMEM_FLOATS.
 template <int BC> struct Group {
   static constexpr int im2col = SMEM_FLOATS / (BC * (TP + 1));
-  static constexpr int col2im = SMEM_FLOATS / (TP * (BC + 1));
-  static constexpr int most = im2col > col2im ? im2col : col2im;
 };
 
 constexpr int WARPS = THREADS / 32;
@@ -79,18 +71,18 @@ __device__ __forceinline__ void tap_table(int* dh, int* dw, int t0, int g, int S
   __syncthreads();
 }
 
-// The pixel side of both kernels, (C, N*H*W) channel-major, is walked by
-// threads with a fixed pixel p (coalesced along p); the NC side, (N*H*W,
-// C*R*S), by warps that each take one pixel and walk its taps x bC run
-// (coalesced along the run).  The index math is done once per pixel, not
-// per element.  smem: g x bC x (TP + 1) floats, g = min(trs, G) taps.
+// The pixel side, (C, N*H*W) channel-major, is walked by threads with a fixed
+// pixel p (coalesced along p); the NC side, (N*H*W, C*R*S), by warps that
+// each take one pixel and walk its taps x bC run (coalesced along the run).
+// The index math is done once per pixel, not per element.  smem: g x bC x
+// (TP + 1) floats, g = min(trs, G) taps.
 template <typename T, int BC>
 __global__ void __launch_bounds__(THREADS)
 im2col_kernel(const T* __restrict__ x, T* __restrict__ out, int C, int NP, int H, int W,
               int R, int S, int pt, int pl) {
   extern __shared__ float tile[];       // [tap][ci][pixel]
   constexpr int G = Group<BC>::im2col;
-  __shared__ int dh[Group<BC>::most], dw[Group<BC>::most];
+  __shared__ int dh[G], dw[G];
   const int p0 = blockIdx.x * TP, cb = blockIdx.y;
   const int trs = R * S;
   const long long CT = (long long)C * trs;
@@ -119,79 +111,22 @@ im2col_kernel(const T* __restrict__ x, T* __restrict__ out, int C, int NP, int H
   }
 }
 
-// smem: g x TP x (bC + 1) floats, g = min(trs, G) taps.
 template <typename T, int BC>
-__global__ void __launch_bounds__(THREADS)
-col2im_kernel(const T* __restrict__ dX, T* __restrict__ out, int C, int NP, int H, int W,
-              int R, int S, int pt, int pl) {
-  extern __shared__ float tile[];       // [tap][pixel][ci]
-  constexpr int G = Group<BC>::col2im;
-  constexpr int PER = BC / LANES;       // outputs a thread owns
-  static_assert(BC % LANES == 0, "the tile must split evenly");
-  __shared__ int dh[Group<BC>::most], dw[Group<BC>::most];
-  const int p0 = blockIdx.x * TP, cb = blockIdx.y;
-  const int npix = H * W, trs = R * S;
-  const long long CT = (long long)C * trs;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float acc[PER];
-#pragma unroll
-  for (int k = 0; k < PER; ++k) acc[k] = 0.f;
-  for (int t0 = 0; t0 < trs; t0 += G) {
-    const int g = trs - t0 < G ? trs - t0 : G;
-    tap_table(dh, dw, t0, g, S, pt, pl);
-    // each warp reads one pixel's g taps x bC run of dX at a time
-    const T* gb = dX + (long long)(cb * trs + t0) * BC;
-    for (int q = warp; q < TP; q += WARPS) {
-      const int p = p0 + q;
-      const int pix = p % npix, h = pix / W, w = pix % W;
-      for (int tc = lane; tc < g * BC; tc += 32) {
-        const int tt = tc / BC;
-        const int hh = h - dh[tt], ww = w - dw[tt];
-        float v = 0.f;
-        if (p < NP && hh >= 0 && hh < H && ww >= 0 && ww < W)
-          v = to_f32(gb[(long long)(p - dh[tt] * W - dw[tt]) * CT + tc]);
-        tile[(tt * TP + q) * (BC + 1) + tc % BC] = v;
-      }
-    }
-    __syncthreads();
-    // each thread adds its own (ci, pixel) elements, taps in order
-    for (int tt = 0; tt < g; ++tt) {
-#pragma unroll
-      for (int k = 0; k < PER; ++k)
-        acc[k] += tile[(tt * TP + threadIdx.x % TP) * (BC + 1) + threadIdx.x / TP + k * LANES];
-    }
-    __syncthreads();
-  }
-  const int p = p0 + threadIdx.x % TP;
-  if (p < NP) {
-#pragma unroll
-    for (int k = 0; k < PER; ++k)
-      out[(long long)(cb * BC + threadIdx.x / TP + k * LANES) * NP + p] = from_f32<T>(acc[k]);
-  }
-}
-
-template <typename T, int BC>
-cudaError_t launch(bool adjoint, const void* in, void* out, int C, int NP, int H, int W,
-                   int R, int S, int pt, int pl, cudaStream_t stream) {
+cudaError_t launch(const void* in, void* out, int C, int NP, int H, int W, int R, int S,
+                   int pt, int pl, cudaStream_t stream) {
   const dim3 grid((NP + TP - 1) / TP, C / BC);
   const int trs = R * S;
-  if (adjoint) {
-    const int g = trs < Group<BC>::col2im ? trs : Group<BC>::col2im;
-    col2im_kernel<T, BC><<<grid, THREADS, g * TP * (BC + 1) * sizeof(float), stream>>>(
-        static_cast<const T*>(in), static_cast<T*>(out), C, NP, H, W, R, S, pt, pl);
-  } else {
-    const int g = trs < Group<BC>::im2col ? trs : Group<BC>::im2col;
-    im2col_kernel<T, BC><<<grid, THREADS, g * BC * (TP + 1) * sizeof(float), stream>>>(
-        static_cast<const T*>(in), static_cast<T*>(out), C, NP, H, W, R, S, pt, pl);
-  }
+  const int g = trs < Group<BC>::im2col ? trs : Group<BC>::im2col;
+  im2col_kernel<T, BC><<<grid, THREADS, g * BC * (TP + 1) * sizeof(float), stream>>>(
+      static_cast<const T*>(in), static_cast<T*>(out), C, NP, H, W, R, S, pt, pl);
   return cudaGetLastError();
 }
 
-#define IM2COL_ARGS adjoint, in, out, C, NP, H, W, R, S, pt, pl, s
+#define IM2COL_ARGS in, out, C, NP, H, W, R, S, pt, pl, s
 
 template <typename T>
-cudaError_t dispatch(int bC, bool adjoint, const void* in, void* out, int C, int NP, int H,
-                     int W, int R, int S, int pt, int pl, cudaStream_t s) {
+cudaError_t dispatch(int bC, const void* in, void* out, int C, int NP, int H, int W, int R,
+                     int S, int pt, int pl, cudaStream_t s) {
   switch (bC) {
     case 8: return launch<T, 8>(IM2COL_ARGS);
     case 16: return launch<T, 16>(IM2COL_ARGS);
@@ -202,8 +137,8 @@ cudaError_t dispatch(int bC, bool adjoint, const void* in, void* out, int C, int
   }
 }
 
-int run(bool adjoint, int dtype, const void* in, void* out, int C, int N, int H, int W,
-        int R, int S, int pt, int pl, int bC, void* stream) {
+int run(int dtype, const void* in, void* out, int C, int N, int H, int W, int R, int S,
+        int pt, int pl, int bC, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long NPL = (long long)N * H * W;
   if (C <= 0 || N <= 0 || H <= 0 || W <= 0 || bC <= 0 || C % bC || C / bC > 65535 ||
@@ -225,12 +160,5 @@ int run(bool adjoint, int dtype, const void* in, void* out, int C, int N, int H,
 // Returns a cudaError_t (0 = launched).
 extern "C" int im2col_fwd(int dtype, const void* xc, void* X, int C, int N, int H, int W,
                           int R, int S, int pt, int pl, int bC, void* stream) {
-  return run(false, dtype, xc, X, C, N, H, W, R, S, pt, pl, bC, stream);
-}
-
-// The adjoint: dX (C*R*S, N*H*W) stored NC (a contiguous (N*H*W, C*R*S)
-// array) in, dx (C, N*H*W) contiguous out.
-extern "C" int col2im_fwd(int dtype, const void* dX, void* dx, int C, int N, int H, int W,
-                          int R, int S, int pt, int pl, int bC, void* stream) {
-  return run(true, dtype, dX, dx, C, N, H, W, R, S, pt, pl, bC, stream);
+  return run(dtype, xc, X, C, N, H, W, R, S, pt, pl, bC, stream);
 }

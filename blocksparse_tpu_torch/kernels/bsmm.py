@@ -41,12 +41,17 @@ built here in NumPy from the LUT's CSR:
   accumulators stay in registers (``window_plan``); bf16 and f16 on the
   tensor cores (``csrc/bsmm_window_mma.cu``, N-tile ``window_tn``), f32
   on the CUDA cores (``csrc/bsmm_window.cu``).
-- the split route: ``bsmm_partials`` (the unsplit kernel with its f32
-  partials flag) over runs of each column's entries, then ``bsmm_merge``
-  (``csrc/bsmm_merge.cu``; replaces ``merge_phased_tiles``) adds each
-  column's partial tiles in phase order and rounds once (``split_plan``,
-  ``split_phases``).  ``merge_plain`` is the merge's plain version; the
-  fine and window kernels compute ``xprop_plain``'s function.
+- the split route (``split_plan``, ``split_phases``): each column's
+  entries cut into runs, whose f32 partial tiles are added in phase order
+  and rounded once.  bf16 and f16 run it in one launch, ``bsmm_split``
+  (the unsplit kernel's split flag: the runs of a column are the thread
+  blocks of one cluster, which sum their tiles through distributed
+  shared memory; replaces ``merge_phased_tiles``).  f32 runs
+  ``bsmm_partials`` (the unsplit kernel with its f32 partials flag), then
+  ``bsmm_merge`` (``csrc/bsmm_merge.cu``; replaces ``merge_phased_tiles``
+  too), which bf16 and f16 also take as the fused route's reference on
+  the card.  ``merge_plain`` is the merge's plain version; the fine and
+  window kernels compute ``xprop_plain``'s function.
 """
 from __future__ import annotations
 
@@ -319,7 +324,16 @@ def updat_run_rows(N, splits):
 # ---------------- the kernels' wrappers ----------------
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_XPROP_ARGS = [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
+
+
+def _xprop_args(n_ints, n_extra=0):
+    """ctypes argument types of an xprop kernel's C function: (dtype,
+    bsize, trans_w, x, w, n_ints index arrays, y, N, C, K, n_extra ints,
+    stream)."""
+    return [_I] * 3 + [_P] * (3 + n_ints) + [_I] * (3 + n_extra) + [_P]
+
+
+_XPROP_ARGS = _xprop_args(3)
 _UPDAT_ARGS = [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
 _MERGE_ARGS = [_I, _I, _P, _P, _P, _I, _I, _I, _I, _P]
 _UPDAT_MMA_ARGS = [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -371,7 +385,7 @@ def _aligned(t):
 def _xprop(fn, source, cfn, x, w, ints, n_ptr, bsize, n_out_blocks, trans_w,
            out_dtype=None, extra=()):
     """Checks and launches one of the xprop kernels, which share a C
-    signature: (dtype, bsize, trans_w, x, w, three int32 index arrays, y,
+    signature: (dtype, bsize, trans_w, x, w, the int32 index arrays, y,
     N, C, K, stream), with the ints ``extra`` before the stream where
     given.  ints: the (name, tensor) index arrays, the first a pointer
     array of ``n_ptr`` entries.  y: (N, n_out_blocks·bsize) of
@@ -398,7 +412,7 @@ def _xprop(fn, source, cfn, x, w, ints, n_ptr, bsize, n_out_blocks, trans_w,
         return y
     with torch.cuda.device(x.device):
         err = _build.function(source, cfn,
-                              _XPROP_ARGS[:-1] + [_I] * len(extra) + [_P])(
+                              _xprop_args(len(ints), len(extra)))(
             _DTYPE_CODE[x.dtype], bsize, int(trans_w), x.data_ptr(),
             w.data_ptr(), *(t.data_ptr() for _, t in ints), y.data_ptr(), N,
             C, K, *extra, _stream(x))
@@ -462,6 +476,36 @@ def bsmm_partials(x, w, tile_ptr, ent_in, ent_w, bsize, n_tiles,
                      n_tiles + 1, bsize, n_tiles, trans_w, partial=True)
     fn.launches += 1
     return parts
+
+
+def bsmm_split(x, w, tile_ptr, ent_in, ent_w, merge_idx, bsize, n_out_blocks,
+               trans_w=False):
+    """The split route in one launch, on the card, bf16 or f16: y (N,
+    n_out_blocks·bsize) of x's dtype, column o the sum in phase order of
+    the f32 partial tiles of its runs merge_idx[o, :] (``split_plan``:
+    tile_ptr, merge_idx (n_out_blocks, P ≤ ``SPLIT_MAX_PHASES``) int32;
+    ent_in, ent_w the LUT's entries), rounded once.  The P thread blocks of
+    one (N-tile, column) form a cluster and sum their tiles through
+    distributed shared memory (``csrc/bsmm_xprop_mma.cu``, OUT_SPLIT): the
+    result equals ``bsmm_merge(bsmm_partials(...))`` bit for bit.  f32
+    runs ``bsmm_partials`` + ``bsmm_merge`` and raises here; otherwise the
+    types and checks of ``bsmm_fprop``."""
+    if x.dtype == torch.float32:
+        raise TypeError("bsmm_split runs bf16 and f16; f32 takes "
+                        "bsmm_partials and bsmm_merge")
+    if merge_idx.dim() != 2 or merge_idx.shape[0] != n_out_blocks \
+            or not 1 <= merge_idx.shape[1] <= SPLIT_MAX_PHASES:
+        raise ValueError(f"merge_idx must be ({n_out_blocks}, P) with 1 <= "
+                         f"P <= {SPLIT_MAX_PHASES}, got "
+                         f"{tuple(merge_idx.shape)}")
+    y = _xprop("bsmm_split", "bsmm_xprop_mma", "bsmm_xprop_mma_nc_split",
+               _aligned(x), _aligned(w),
+               (("tile_ptr", tile_ptr), ("ent_in", ent_in),
+                ("ent_w", ent_w), ("merge_idx", merge_idx)),
+               tile_ptr.numel(), bsize, n_out_blocks, trans_w,
+               extra=(merge_idx.shape[1],))
+    bsmm_split.launches += 1
+    return y
 
 
 def _mode_source(name, x, w):
@@ -653,3 +697,4 @@ bsmm_updat_reduce.launches = 0
 bsmm_fine.launches = 0
 bsmm_window.launches = 0
 bsmm_merge.launches = 0
+bsmm_split.launches = 0

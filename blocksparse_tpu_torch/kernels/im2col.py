@@ -2,8 +2,10 @@
 plain versions.
 
 ``im2col`` replaces the TPU kernel ``im2col`` / ``_im2col_fwd_impl`` and
-``col2im`` the TPU kernel ``col2im`` (``blocksparse_tpu/kernels/im2col.py``);
-both run ``csrc/im2col.cu``.  im2col maps xc (C, N·H·W), channel-major, to
+runs ``csrc/im2col.cu``; ``col2im`` replaces the TPU kernel ``col2im``
+(``blocksparse_tpu/kernels/im2col.py``) and runs ``csrc/col2im_tma.cu``,
+which reads dX by TMA tile loads in tiles of ``col2im_tile``'s shape.
+im2col maps xc (C, N·H·W), channel-major, to
 X (C·R·S, N·H·W) with row (cb·trs + tap)·bC + ci, where tap t = r·S + s
 reads pixel (h + r − pt, w + s − pl), zero outside the image.  col2im is
 its adjoint: each output element sums the trs taps that land on it, in
@@ -75,13 +77,38 @@ def col2im_plain(dX, H, W, R, S, pt, pl_, bC):
     return acc[:, :, :, pt:pt + H, pl_:pl_ + W].reshape(C, NP).to(dX.dtype)
 
 
+# col2im_tma.cu: a tap's TMA box holds at most COL2IM_BOX bytes (four
+# 16-byte runs for each of its 256 threads) and at most TMA_BOX_DIM
+# elements along each dimension; COL2IM_STAGES ring slots (two thread
+# blocks resident an SM)
+COL2IM_BOX = 16384
+COL2IM_STAGES = 6
+TMA_BOX_DIM = 256
+
+
+def col2im_tile(bC, dtype, H, W):
+    """col2im_tma.cu's tile for channel blocks of bC in ``dtype`` on H x W
+    images: (TH, TW, stages).  A tile is TH x TW output pixels of one
+    image and one channel block; each tap's box {bC, TW, TH} of dX holds
+    at most COL2IM_BOX bytes.  TW covers W rounded up to the pixels of one
+    16-byte store (VEC = 16 / itemsize), within TMA's 256 and the box;
+    TH takes the rows the box has left, at most H.  Shapes only."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    vec = 16 // elem
+    pixels = COL2IM_BOX // (bC * elem)
+    TW = min(-(-W // vec) * vec, TMA_BOX_DIM, pixels)
+    TH = max(1, min(pixels // TW, H, TMA_BOX_DIM))
+    return TH, TW, COL2IM_STAGES
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = [_I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 
 
-def _launch(fn, src, out, C, NP, H, W, R, S, pt, pl_, bC):
-    """Check the arguments and launch ``fn`` of ``csrc/im2col.cu`` from the
-    contiguous ``src`` into ``out``; NP = N·H·W."""
+def _launch(fn, src, out, C, NP, H, W, R, S, pt, pl_, bC, source="im2col",
+            extra=()):
+    """Check the arguments and launch ``fn`` of ``csrc/<source>.cu`` from
+    the contiguous ``src`` into ``out``; NP = N·H·W; the ints ``extra``
+    after bC."""
     if not src.is_cuda:
         raise ValueError(f"{fn} launches a CUDA kernel: its input must be on "
                          f"a CUDA device")
@@ -95,9 +122,10 @@ def _launch(fn, src, out, C, NP, H, W, R, S, pt, pl_, bC):
                          f"R={R}, S={S})")
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream
-        err = _build.function("im2col", fn, _ARGS)(
+        err = _build.function(source, fn,
+                              [_I, _P, _P] + [_I] * (9 + len(extra)) + [_P])(
             _DTYPE_CODE[src.dtype], src.data_ptr(), out.data_ptr(), C,
-            NP // (H * W), H, W, R, S, pt, pl_, bC, stream)
+            NP // (H * W), H, W, R, S, pt, pl_, bC, *extra, stream)
     if err != 0:
         raise RuntimeError(f"{fn} launch failed: cudaError {err}")
     return out
@@ -119,9 +147,10 @@ def _im2col(xc, H, W, R, S, pt, pl_, bC, plain):
 def col2im(dX, H, W, R, S, pt, pl_, bC, plain=False):
     """dX (C·R·S, N·H·W) -> (C, N·H·W): the adjoint of ``im2col``, on the
     card for a CUDA tensor (``plain=False``), else the plain version.  The
-    kernel reads dX in the NC orientation: a dX that is the transposed view
-    of a contiguous (N·H·W, C·R·S) array, as bsmm bprop gives it, is read
-    in place."""
+    kernel reads dX in the NC orientation by TMA: a dX that is the
+    transposed view of a contiguous (N·H·W, C·R·S) array, as bsmm bprop
+    gives it, is read in place; that array must start on a 16-byte
+    boundary (raises otherwise)."""
     if plain or not dX.is_cuda:
         return col2im_plain(dX, H, W, R, S, pt, pl_, bC)
     Ctrs, NP = dX.shape
@@ -129,9 +158,13 @@ def col2im(dX, H, W, R, S, pt, pl_, bC, plain=False):
         raise ValueError(f"col2im: dX has {Ctrs} rows, not a multiple of "
                          f"R·S={R * S}")
     C = Ctrs // (R * S)
+    src = dX.t().contiguous()
+    if src.data_ptr() % 16:
+        raise ValueError("col2im reads dX by TMA: its NC array must start "
+                         "on a 16-byte boundary")
     out = torch.empty((C, NP), dtype=dX.dtype, device=dX.device)
-    _launch("col2im_fwd", dX.t().contiguous(), out, C, NP, H, W, R, S, pt,
-            pl_, bC)
+    _launch("col2im_fwd", src, out, C, NP, H, W, R, S, pt, pl_, bC,
+            source="col2im_tma", extra=col2im_tile(bC, dX.dtype, H, W))
     col2im.launches += 1
     return out
 

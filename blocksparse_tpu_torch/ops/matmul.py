@@ -46,12 +46,14 @@ class BlocksparseMatMul:
           staged once per window for a super-group of columns;
         - "grouped": ``bsmm_fprop``/``bsmm_bprop`` unsplit, always (the
           pin for A/B runs: JAX "grouped" never takes a phased cover);
-        - "auto", "dense_tile", "resident": the split route (partial
-          tiles of runs of each column's entries, then ``bsmm_merge``)
-          when the unsplit grid, ceil(N / TM) * n_out thread blocks, is
-          smaller than the card's SM count and the longest column holds
-          at least 8 entries; P = min(8, ceil(SMs / grid), longest // 4)
-          runs at most, each of at least 4 entries
+        - "auto", "dense_tile", "resident": the split route (runs of
+          each column's entries, whose partial tiles are summed in phase
+          order: in bf16/f16 one ``bsmm_split`` launch, the runs of a
+          column a thread-block cluster; in f32 ``bsmm_partials`` then
+          ``bsmm_merge``) when the unsplit grid, ceil(N / TM) * n_out
+          thread blocks, is smaller than the card's SM count and the
+          longest column holds at least 8 entries; P = min(8, ceil(SMs /
+          grid), longest // 4) runs at most, each of at least 4 entries
           (``kernels.bsmm.split_phases``).  Otherwise unsplit.
         ``dispatch_mode(N)`` names the route.
     tile_n, dense_tile_G, dense_tile_R: TPU schedule knobs, accepted for
@@ -272,10 +274,10 @@ class BlocksparseMatMul:
     def dispatch_mode(self, N, itemsize=2, sm_count=None):
         """The kernel the fprop of a CUDA tensor of N rows runs, as the JAX
         op's ``dispatch_mode`` names it: "fine", "window", "phased" (the
-        split route, partial tiles and their merge) or "grouped" (the
-        unsplit ``bsmm_fprop``).  sm_count: the card's SMs, by default
-        the current CUDA device's.  itemsize is accepted for the JAX
-        signature; the routes do not depend on it."""
+        split route, its runs' partial tiles summed in phase order) or
+        "grouped" (the unsplit ``bsmm_fprop``).  sm_count: the card's
+        SMs, by default the current CUDA device's.  itemsize is accepted
+        for the JAX signature; the routes do not depend on it."""
         return self._route(N, "f", sm_count if sm_count is not None
                            else device_sm_count())
 
@@ -375,10 +377,15 @@ class BlocksparseMatMul:
         elif route == "phased":
             phases = self._phases(xn.shape[0], d, sms)
             p = self._plan_tensors(x.device, "split", d, phases)
-            parts = bsmm_kernels.bsmm_partials(
-                xn, wc, p["tile_ptr"], lut[f"{d}_ent_in"], lut[f"{d}_ent_w"],
-                b, p["tile_ptr"].numel() - 1, trans)
-            y = bsmm_kernels.bsmm_merge(parts, p["merge_idx"], b, x.dtype)
+            ents = (lut[f"{d}_ent_in"], lut[f"{d}_ent_w"])
+            if x.dtype == torch.float32:
+                parts = bsmm_kernels.bsmm_partials(
+                    xn, wc, p["tile_ptr"], *ents, b,
+                    p["tile_ptr"].numel() - 1, trans)
+                y = bsmm_kernels.bsmm_merge(parts, p["merge_idx"], b, x.dtype)
+            else:
+                y = bsmm_kernels.bsmm_split(xn, wc, p["tile_ptr"], *ents,
+                                            p["merge_idx"], b, n_out, trans)
         else:
             kernel = bsmm_kernels.bsmm_bprop if trans \
                 else bsmm_kernels.bsmm_fprop

@@ -48,18 +48,25 @@ before and read just after:
   must lower the loss.
 
 With the MLP's products at decode below the card's SM count, the
-serving path's ``generate_cached`` runs them on the split route (partial
-tiles, then ``bsmm_merge``); its decode logits are held step by step
-against the plain model on the same tokens, and decode tokens/s is timed
-with the MLP on ``mode="auto"`` and pinned to ``mode="grouped"``, in
-turns.
+serving path's ``generate_cached`` runs them on the split route, one
+fused ``bsmm_split`` launch a product (``bsmm_xprop_mma.cu``'s split
+flag: the runs of an output column are the thread blocks of one cluster,
+which sum their f32 tiles through distributed shared memory; no
+``bsmm_merge``); its decode logits are held step by step against the
+plain model on the same tokens, and decode tokens/s is timed with the
+MLP on ``mode="auto"`` and pinned to ``mode="grouped"``, in turns.
+Before the paths the fused split is held at the decode's shapes and at
+every block size bit for bit against the parent route (``bsmm_partials``
+then ``bsmm_merge``), and timed against it in turns.
 
 Then the block-sparse conv, ``BlocksparseConv(impl="bsmm")``, at the
 repo's conv benchmark configuration (``benchmarks/conv_bench.py``: 3x3
 SAME filters, 32x32 channel blocks, NCHW 32x32 images, batch 32, bf16,
 C = K in {512, 1024, 2048}, block densities 0.25 and 0.0625, the loss
-sum(square(y))): im2col and col2im held against their plain versions at
-C=512 in f32, bf16 and f16; the C=512 forward and both gradients held
+sum(square(y))): im2col and col2im (``col2im_tma.cu``, dX read by TMA
+tile loads) held against their plain versions at C=512 in f32, bf16 and
+f16, col2im also timed in bf16 at C 1024 and 2048 beside ``F.fold`` and
+its bound; the C=512 forward and both gradients held
 against the plain path, counted; every configuration's forward held
 against a dense cuDNN conv of the scattered filter and timed beside it.
 
@@ -71,16 +78,20 @@ every block size, fprop and bprop, two runs equal bit for bit) and
 ``bsmm_window`` and ``bsmm_merge`` against their plain versions in f32,
 bf16 and f16 at the path's shapes (fine and window also against the
 unsplit kernel, bit for bit in f32; their device time and the unsplit
-kernel's from the profiler), then, counted: the canonical small-block bench row
+kernel's from the profiler; the fused split bit for bit against partials
+and merge at the canonical hidden-2560 split, and timed against them),
+then, counted: the canonical small-block bench row
 (``benchmarks/canonical_bench.py``: hidden 7680 at 11.25% with
 Barabasi-Albert layouts from the port's ``make_mask`` at b8, b16 and b32,
 and hidden 2560 dense at b32; N = 64, bf16, feature_axis 0; depth-8
 chains y = bsmm(y, w), forward and forward + backward) in modes "fine",
 "window" and "auto", each held against the same chain on
 ``impl="xla"`` and timed per application beside a dense ``torch.matmul``
-control; and the window's own regime (``bench.py``'s random 8192^2, b32,
-d 0.25 layout at N 256 and 2048), window against grouped in turns, by
-CUDA events and by the profiler's device time.
+control (the hidden-2560 row's auto chains also in f32, where the
+split route is partial tiles and ``bsmm_merge``); and the window's own
+regime (``bench.py``'s random 8192^2, b32, d 0.25 layout at N 256 and
+2048), window against grouped in turns, by CUDA events and by the
+profiler's device time.
 
 Prints the card's name and power limit, the build times, every check
 with its tolerance, the timings, a ``{"kernels": [...]}`` line (each
@@ -113,7 +124,7 @@ TRAIN_STEPS, TIMED_STEPS = 8, 5
 LR, CLIP, LOSS_SCALE = 3e-4, 1.0, 2.0 ** 15
 SOURCES = ("bsmm_xprop_mma", "bsmm_fprop", "bsmm_updat_mma", "bsmm_updat",
            "bst_attn_fwd", "bst_attn_fwd_mma", "bst_attn_bwd_mma",
-           "bst_attn_bwd", "im2col",
+           "bst_attn_bwd", "im2col", "col2im_tma",
            "bsmm_fine_mma", "bsmm_fine", "bsmm_window_mma", "bsmm_window",
            "bsmm_merge")
 DTYPES = (torch.bfloat16, torch.float32, torch.float16)
@@ -159,8 +170,18 @@ CANON_N, CANON_DEPTH, CANON_TIMED = 64, 8, 10
 CANON_MODES = ("fine", "window", "auto", "grouped")
 # Chains of the kernel op against the plain op, bf16: each application
 # rounds its output once on both sides, in other summation orders, and
-# eight of them (then eight back) compound: 3e-2 of max|plain|.
-CHAIN_TOL = 3e-2
+# eight of them (then eight back) compound: 3e-2 of max|plain|.  In f32
+# (the split route's f32 form) the same sums in other orders, unrounded:
+# 1e-4 of max|plain|.
+CHAIN_TOL, F32_CHAIN_TOL = 3e-2, 1e-4
+# col2im's target at the conv's C=512 shape (bf16), ms on the H100
+COL2IM_TARGET = 0.20
+# the xprop kernel's template flag OUT (bsmm_xprop_mma.cu): the fused split
+# (OUT_SPLIT = 2) and the partial tiles (OUT_PARTIAL = 1), in the
+# profiler's demangled names and in ptxas' mangled ones
+SPLIT_KERNEL = re.compile(r"bsmm_xprop_mma_kernel<.*, (?:true|false), 2, ")
+PARTIAL_KERNEL = re.compile(r"bsmm_xprop_mma_kernel<.*, (?:true|false), 1, ")
+SPLIT_MANGLED = re.compile(r"bsmm_xprop_mma_kernel.*Lb[01]ELi2E")
 # The tensor-core xprop kernel at every block size: a random hidden² layout
 # at this density (diagonal set), N rows (not a multiple of any TM).
 XPROP_HIDDEN, XPROP_DENSITY, XPROP_N = 1024, 0.3, 1000
@@ -547,8 +568,8 @@ _PTXAS_NAME = re.compile(r"(bst_attn_(?:fwd|dq|dkv)(?:_mma)?_kernel)I"
                          r"(13__nv_bfloat16|6__half|f)Li(\d+)ELi(\d+)E")
 
 
-def ptxas_resources(source):
-    """{(kernel, dtype, bs, hs): (registers, spill store bytes, spill load
+def ptxas_entries(source):
+    """{mangled kernel name: (registers, spill store bytes, spill load
     bytes)} of the kernels of ``csrc/<source>.cu``, from the ``-Xptxas -v``
     log that the build left beside the library."""
     from blocksparse_tpu_torch.kernels import _build
@@ -557,18 +578,41 @@ def ptxas_resources(source):
     for line in lib.with_name(lib.name + ".log").read_text().splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = _PTXAS_NAME.search(m.group(1))
+            name = m.group(1)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
             spill = tuple(int(x) for x in m.groups())
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            kernel, dt, bs, hs = name.groups()
-            dt = {"13__nv_bfloat16": "bf16", "6__half": "f16"}.get(dt, "f32")
-            out[(kernel, dt, int(bs), int(hs))] = (int(m.group(1)), *spill)
+            out[name] = (int(m.group(1)), *spill)
             name = None
     return out
+
+
+def ptxas_resources(source):
+    """{(kernel, dtype, bs, hs): (registers, spill store bytes, spill load
+    bytes)} of the attention kernels of ``csrc/<source>.cu``."""
+    out = {}
+    for entry, res in ptxas_entries(source).items():
+        name = _PTXAS_NAME.search(entry)
+        if name:
+            kernel, dt, bs, hs = name.groups()
+            dt = {"13__nv_bfloat16": "bf16", "6__half": "f16"}.get(dt, "f32")
+            out[(kernel, dt, int(bs), int(hs))] = res
+    return out
+
+
+def ptxas_report(source, label, pattern):
+    """Registers and spills of the kernels of ``csrc/<source>.cu`` whose
+    mangled names match ``pattern``; fails if there are none."""
+    mine = {k: v for k, v in ptxas_entries(source).items()
+            if pattern.search(k)}
+    check(bool(mine), f"{source}.cu: {label} kernels built")
+    regs = [v[0] for v in mine.values()]
+    spills = sum(1 for v in mine.values() if v[1] or v[2])
+    print(f"{source}.cu, {label}: {len(mine)} kernels, {min(regs)}-"
+          f"{max(regs)} registers, spills in {spills}", flush=True)
 
 
 def attn_report(model, rows, marks, card_line):
@@ -620,8 +664,10 @@ def attn_report(model, rows, marks, card_line):
 
 def xprop_block_size_checks(bt, dev, g):
     """bsmm_xprop_mma.cu against its plain version at every block size,
-    in bf16 and f16, for fprop, bprop and the split route's partial tiles
-    (merged by merge_plain), each also run twice for equal bits."""
+    in bf16 and f16, for fprop, bprop, the split route's partial tiles
+    (merged by merge_plain) and the fused split (bsmm_split, clusters of
+    8 blocks; also bit for bit against bsmm_merge over the partials), each
+    also run twice for equal bits."""
     from blocksparse_tpu_torch.kernels import bsmm as bk
     rng = np.random.RandomState(SEED)
     for b in bk.BLOCK_SIZES:
@@ -641,12 +687,16 @@ def xprop_block_size_checks(bt, dev, g):
                                 device=dev, generator=g).to(dtype)
                 ref = plain._xprop(x, w, d)
                 split = op._plan_tensors(dev, "split", d, bk.SPLIT_MAX_PHASES)
+                ents = (lut[f"{d}_ent_in"], lut[f"{d}_ent_w"])
+                n_out = op.KB if d == "f" else op.CB
                 runs = {
                     "unsplit": lambda: op._xprop(x, w, d),
                     "partials": lambda: bk.bsmm_partials(
-                        x, w, split["tile_ptr"], lut[f"{d}_ent_in"],
-                        lut[f"{d}_ent_w"], b, split["tile_ptr"].numel() - 1,
-                        d == "b")}
+                        x, w, split["tile_ptr"], *ents, b,
+                        split["tile_ptr"].numel() - 1, d == "b"),
+                    "split": lambda: bk.bsmm_split(
+                        x, w, split["tile_ptr"], *ents, split["merge_idx"], b,
+                        n_out, d == "b")}
                 for route, fn in runs.items():
                     what = (f"bsmm_xprop_mma b{b} {d}prop {route} "
                             f"N={XPROP_N} {op.blocks} blocks {dtype}")
@@ -655,6 +705,12 @@ def xprop_block_size_checks(bt, dev, g):
                     if route == "partials":
                         y = bk.merge_plain(y, split["merge_idx"].long(), b,
                                            dtype)
+                        merged = bk.bsmm_merge(runs["partials"](),
+                                               split["merge_idx"], b, dtype)
+                    if route == "split":
+                        check(torch.equal(y, merged), f"{what}: equal bit "
+                              f"for bit to bsmm_partials + bsmm_merge (P "
+                              f"{split['merge_idx'].shape[1]})")
                     compare(what, y, ref, TOL[dtype])
     torch.cuda.empty_cache()
 
@@ -754,6 +810,96 @@ def kernel_device_ms(fn, key, n=20):
         print(f"      profiler: {count} launches of {key} recorded for "
               f"{n} calls", flush=True)
     return sum(e.self_device_time_total for e in hits) / count / 1e3
+
+
+def device_ms_per_call(fn, match, n=20):
+    """Mean device time a call of fn() spends in the kernels whose names
+    ``match`` accepts, over n calls under the profiler."""
+    for _ in range(3):  # CUPTI now and then records none of a window
+        _, kernels = device_events(lambda: [fn() for _ in range(n)])
+        hits = [e for e in kernels if match(e.key)]
+        if hits:
+            return sum(e.self_device_time_total for e in hits) / n / 1e3
+        print("      profiler: no launch recorded; profiling again",
+              flush=True)
+    check(False, "profiler: no launch recorded in three profiled windows")
+
+
+def in_turns(fns, times):
+    """{name: [values]}: times(fn) for each fn in turns (a, b, b, a)."""
+    names = list(fns)
+    out = {k: [] for k in names}
+    for k in names + names[::-1]:
+        out[k].append(times(fns[k]))
+    return out
+
+
+def split_checks(model, dev, g, card_line, rows):
+    """The fused split (bsmm_split: bsmm_xprop_mma.cu's OUT_SPLIT, the runs
+    of a column a thread-block cluster) at the decode's shapes, the LM's
+    two MLP products at N = PROMPTS, in bf16 and f16: two runs bit-equal,
+    bit for bit against the parent's route (bsmm_partials, then
+    bsmm_merge), within TOL of the plain split route.  In bf16 its device
+    time a product (profiler) and by CUDA events against the parent
+    route's, in turns, beside the plain version, the bound and a dense
+    torch.matmul of the scattered layout."""
+    from blocksparse_tpu_torch.kernels import bsmm as bk
+    sms = bk.device_sm_count(dev)
+    for name, op in (("bsmm1", model.bsmm1), ("bsmm2", model.bsmm2)):
+        N, b = PROMPTS, op.bsize
+        phases = op._phases(N, "f", sms)
+        check(phases > 0, f"{name} at decode (N={N}) takes the split route "
+                          f"({phases} runs) on {sms} SMs")
+        p = op._plan_tensors(dev, "split", "f", phases)
+        lut = op._lut(dev)
+        ents = (lut["f_ent_in"], lut["f_ent_w"])
+        P, n_tiles = p["merge_idx"].shape[1], p["tile_ptr"].numel() - 1
+        for dtype in (torch.bfloat16, torch.float16):
+            x = torch.randn((N, op.C), device=dev, generator=g).to(dtype)
+            w = (torch.randn(op.w_shape, device=dev, generator=g)
+                 * 0.02).to(dtype)
+
+            def fused():
+                return bk.bsmm_split(x, w, p["tile_ptr"], *ents,
+                                     p["merge_idx"], b, op.KB)
+
+            def parent():
+                return bk.bsmm_merge(bk.bsmm_partials(
+                    x, w, p["tile_ptr"], *ents, b, n_tiles),
+                    p["merge_idx"], b, dtype)
+            what = (f"bsmm_split {name} decode N={N} {op.C} -> {op.K} "
+                    f"{op.blocks} blocks, clusters of P={P} {dtype}")
+            same_bits(what, fused)
+            check(torch.equal(fused(), parent()), f"{what}: equal bit for "
+                  f"bit to bsmm_partials + bsmm_merge")
+            err = compare(f"{what} against the plain split route", fused(),
+                          op.xprop_split_plain(x, w, "f", sms), TOL[dtype])
+            if dtype != torch.bfloat16:
+                continue
+            routes = {"fused": fused, "parent": parent}
+            dev_ms = in_turns(routes, lambda fn: device_ms_per_call(
+                fn, lambda k: "bsmm_xprop" in k or "bsmm_merge" in k))
+            ev_ms = in_turns(routes, lambda fn: time_ms(fn, 200))
+            plain_ms = time_ms(lambda: op.xprop_split_plain(x, w, "f", sms),
+                               50)
+            wd = dense_weight(op, w)
+            lib = time_ms(lambda: x @ wd, 200)
+            mark = bound(2 * N * op.blocks * b * b,
+                         2 * (N * op.C + op.blocks * b * b + N * op.K))
+            rows[("split", name)] = (err, float(np.mean(dev_ms["fused"])),
+                                     plain_ms)
+            rows[("split_mark", name)] = (*mark, lib)
+            print(f"{name} split at decode [{card_line}]: fused device "
+                  f"{' / '.join(f'{v:.4f}' for v in dev_ms['fused'])} ms a "
+                  f"product (profiler, mean of 20), parent partials + merge "
+                  f"{' / '.join(f'{v:.4f}' for v in dev_ms['parent'])}; by "
+                  f"events fused {' / '.join(f'{v:.4f}' for v in ev_ms['fused'])}"
+                  f", parent {' / '.join(f'{v:.4f}' for v in ev_ms['parent'])}"
+                  f" (in turns); plain {plain_ms:.4f} ms; bound "
+                  f"{mark[0]:.5f} ms ({mark[1]}); dense torch.matmul "
+                  f"{lib:.4f} ms", flush=True)
+            del wd
+    torch.cuda.empty_cache()
 
 
 def updat_reduce_checks(op, N, dev, g, rows):
@@ -904,8 +1050,11 @@ def conv_configs():
 def conv_kernel_checks(dev, g, rows):
     """im2col and col2im against their plain versions at the C=512 conv's
     shapes (N 32, 32x32, b32, 3x3 SAME): im2col exactly (a copy), col2im
-    exactly in f32 and within one output rounding in bf16 and f16; with
-    F.unfold / F.fold (the same taps in another row order) timed beside."""
+    (csrc/col2im_tma.cu) exactly in f32 and within one output rounding in
+    bf16 and f16; with F.unfold / F.fold (the same taps in another row
+    order) timed beside.  Then col2im in bf16 at C = 1024 and 2048, held
+    and timed the same way, each beside its bound and F.fold; C=512's
+    against its target."""
     from blocksparse_tpu_torch.kernels import im2col as ic
     C, N, H, W, b = CONV_CHANNELS[0], CONV_BATCH, CONV_HW, CONV_HW, CONV_BLOCK
     NP, args = N * H * W, (H, W, 3, 3, 1, 1, b)
@@ -936,6 +1085,29 @@ def conv_kernel_checks(dev, g, rows):
             del x4, cols
         del xc, dX
     torch.cuda.empty_cache()
+    bf = torch.bfloat16
+    rows[("col2im_c", C)] = (rows[("col2im", bf)][1], rows["fold"])
+    for c in CONV_CHANNELS[1:]:
+        dX = torch.randn((NP, c * 9), device=dev, generator=g).to(bf).t()
+        compare(f"col2im C={c} N={N} {H}x{W} 3x3 b{b} {bf} (one rounding: "
+                f"eps {torch.finfo(bf).eps:g})", ic.col2im(dX, *args),
+                ic.col2im_plain(dX, *args), torch.finfo(bf).eps)
+        ms = time_ms(lambda: ic.col2im(dX, *args), 20)
+        cols = dX.reshape(c * 9, N, H * W).transpose(0, 1).contiguous()
+        fold = time_ms(lambda: nnf.fold(cols, (H, W), 3, padding=1), 20)
+        rows[("col2im_c", c)] = (ms, fold)
+        del dX, cols
+        torch.cuda.empty_cache()
+    for c in CONV_CHANNELS:
+        ms, fold = rows[("col2im_c", c)]
+        mark = bound(0, (1 + 9) * c * NP * 2)
+        print(f"col2im (col2im_tma.cu) C={c} N={N} {H}x{W} 3x3 b{b} bf16 "
+              f"[{card()}]: {ms:.4f} ms (CUDA events, mean of 20), bound "
+              f"{mark[0]:.4f} ms ({mark[1]}, {mark[0] / ms:.0%} of it), "
+              f"F.fold {fold:.4f} ms" + (
+                  f"; target <= {COL2IM_TARGET} ms: "
+                  f"{'met' if ms <= COL2IM_TARGET else 'missed'}"
+                  if c == C else ""), flush=True)
 
 
 def conv_inputs(bt, conv, dev, g):
@@ -970,14 +1142,14 @@ def dense_filter(conv, F):
     return wd.permute(0, 2, 1, 3, 4, 5).reshape(conv.K, conv.C, 3, 3)
 
 
-# bsmm_xprop_mma_kernel<T, B, TRANS, PARTIAL, ...> (bf16, f16) and
-# bsmm_xprop_nc_kernel<...> (f32): fprop and bprop told apart by TRANS
+# bsmm_xprop_mma_kernel<T, B, TRANS, OUT, ...> (bf16, f16): fprop and
+# bprop told apart by TRANS, the rounded output by OUT = 0
 CONV_PARTS = (("im2col", ("im2col_kernel",)),
-              ("bsmm fprop", ("bsmm_xprop", ", false, false")),
-              ("bsmm bprop", ("bsmm_xprop", ", true, false")),
+              ("bsmm fprop", ("bsmm_xprop", ", false, 0, ")),
+              ("bsmm bprop", ("bsmm_xprop", ", true, 0, ")),
               ("bsmm updat", ("bsmm_updat_mma_kernel",)),
               ("updat reduce", ("bsmm_updat_reduce_kernel",)),
-              ("col2im", ("col2im_kernel",)))
+              ("col2im", ("col2im_tma_kernel",)))
 
 
 def profile_conv(fn, ms, label):
@@ -1131,6 +1303,7 @@ def counters():
             "bsmm_updat_reduce": bsmm.bsmm_updat_reduce,
             "bsmm_fine": bsmm.bsmm_fine,
             "bsmm_window": bsmm.bsmm_window, "bsmm_merge": bsmm.bsmm_merge,
+            "bsmm_split": bsmm.bsmm_split,
             "bst_attn_fwd": bst_attn.attention_fwd,
             "bst_attn_fwd_lse": bst_attn.attention_fwd_lse,
             "bst_attn_dq": bst_attn.attention_dq,
@@ -1176,8 +1349,8 @@ def serving_path(bt, model, plain, cfg, dev, card_line):
           f"{fwd_s * 1e3:.2f} ms", flush=True)
     # forward + prefill: 2 bsmm and 1 attention a layer each; every decode
     # step: 2 bsmm a layer (decode attention is plain torch by design),
-    # each MLP product on the split route at batch PROMPTS adding a merge
-    # to its partials; no training kernel
+    # each MLP product on the split route at batch PROMPTS one fused
+    # bsmm_split launch (no partials, no merge); no training kernel
     def n_split(N):
         return [op.dispatch_mode(N) for op in (model.bsmm1, model.bsmm2)
                 ].count("phased")
@@ -1185,15 +1358,16 @@ def serving_path(bt, model, plain, cfg, dev, card_line):
     print(f"decode MLP routes at N = {PROMPTS}: bsmm1 {routes[0]}, bsmm2 "
           f"{routes[1]}", flush=True)
     want = dict.fromkeys(launches, 0)
-    want.update({"bsmm_fprop": 2 * L + 2 * L + NEW_TOKENS * 2 * L,
-                 "bsmm_merge": L * (n_split(BATCH * cfg.ctx)
-                                    + n_split(PROMPTS * cfg.ctx)
-                                    + NEW_TOKENS * n_split(PROMPTS)),
-                 "bst_attn_fwd": L + L})
-    check(launches == want and launches["bsmm_merge"] > 0,
-          f"serving launches {launches}, expected {want} (bsmm_fprop "
-          f"2L + 2L + {NEW_TOKENS} x 2L, bsmm_merge > 0: one a product on "
-          f"the split route, bst_attn_fwd 2L, L = {L})")
+    splits = L * (n_split(BATCH * cfg.ctx) + n_split(PROMPTS * cfg.ctx)
+                  + NEW_TOKENS * n_split(PROMPTS))
+    want.update({"bsmm_fprop": 2 * L + 2 * L + NEW_TOKENS * 2 * L - splits,
+                 "bsmm_split": splits, "bst_attn_fwd": L + L})
+    check(launches == want and launches["bsmm_split"] > 0
+          and launches["bsmm_merge"] == 0,
+          f"serving launches {launches}, expected {want} (bsmm_fprop + "
+          f"bsmm_split 2L + 2L + {NEW_TOKENS} x 2L, bsmm_split > 0: one a "
+          f"product on the split route, bsmm_merge 0 in bf16, "
+          f"bst_attn_fwd 2L, L = {L})")
     check(tuple(logits.shape) == (BATCH, cfg.ctx, cfg.n_vocab)
           and bool(torch.isfinite(logits).all()),
           f"forward logits {tuple(logits.shape)} finite")
@@ -1248,10 +1422,11 @@ def serving_path(bt, model, plain, cfg, dev, card_line):
 
 
 def decode_split(bt, model, plain, cfg, dev, card_line, prompts, out):
-    """The decode that ran on the split route, held step by step against
-    the plain model on the same tokens, and its tokens/s with the MLP on
-    mode "auto" and pinned to "grouped", in turns (auto, grouped,
-    grouped, auto, three times: the host-bound loop's times spread)."""
+    """The decode that ran on the split route (one fused bsmm_split
+    launch a product), held step by step against the plain model on the
+    same tokens, and its tokens/s with the MLP on mode "auto" and pinned
+    to "grouped", in turns (auto, grouped, grouped, auto, three times: the
+    host-bound loop's times spread)."""
     full = torch.zeros((PROMPTS, cfg.ctx), dtype=torch.int64, device=dev)
     full[:, :PROMPT_LEN] = prompts
     worst = 0.0
@@ -1283,10 +1458,11 @@ def decode_split(bt, model, plain, cfg, dev, card_line, prompts, out):
         bt.generate_cached(model, prompts, NEW_TOKENS, generator=gen)
         torch.cuda.synchronize()
         gen_s = time.perf_counter() - t
-        merges = read_counts()["bsmm_merge"]
+        n = read_counts()
         rates[mode].append(PROMPTS * NEW_TOKENS / (gen_s - prefill_s))
         print(f"      decode, MLP mode {mode}: {rates[mode][-1]:.1f} "
-              f"tokens/s ({merges} merges)", flush=True)
+              f"tokens/s ({n['bsmm_split']} fused split launches, "
+              f"{n['bsmm_merge']} merges)", flush=True)
     for op in ops:
         op.mode = "auto"
     print(f"decode tokens/s [{card_line}]: MLP on the split route (auto) "
@@ -1302,8 +1478,9 @@ def decode_split(bt, model, plain, cfg, dev, card_line, prompts, out):
 def decode_step_split(model, full, out, card_line, steps=10):
     """Where a decode step's time goes (MLP on the split route): the
     host's time to enqueue one ``decode_forward`` against the device time
-    of its kernels (profiler), and the partial and merge kernels' device
-    time a launch."""
+    of its kernels (profiler), and the device time a launch of the fused
+    split (bsmm_xprop_mma.cu's OUT_SPLIT), of any unsplit xprop, and of
+    the merge (none in bf16)."""
     tok = out[:, PROMPT_LEN]
     _, caches = model.prefill(full)
     model.decode_forward(tok, caches, PROMPT_LEN)            # warm-up
@@ -1318,8 +1495,12 @@ def decode_step_split(model, full, out, card_line, steps=10):
         for i in range(steps)])
     dev_ms = sum(e.self_device_time_total for e in kernels) / steps / 1e3
     per_launch = []
-    for name in ("bsmm_xprop", "bsmm_merge"):
-        hits = [e for e in kernels if name in e.key]
+    for name, match in (
+            ("fused split", lambda k: bool(SPLIT_KERNEL.search(k))),
+            ("unsplit xprop", lambda k: "bsmm_xprop" in k
+             and not SPLIT_KERNEL.search(k)),
+            ("bsmm_merge", lambda k: "bsmm_merge" in k)):
+        hits = [e for e in kernels if match(e.key)]
         n = sum(e.count for e in hits)
         us = sum(e.self_device_time_total for e in hits) / max(n, 1)
         per_launch.append(f"{name} {us:.2f} us a launch ({n // steps} a "
@@ -1540,19 +1721,22 @@ def chain_grads(op, x0, w0):
     return y.detach(), dx, dw
 
 
-def route_launches(op, N, sms, times):
+def route_launches(op, N, sms, times, dtype=torch.bfloat16):
     """Launches of one fprop (times[0] of them) and one bprop (times[1])
-    on the routes op takes for N rows, with one updat a bprop (bf16, with
-    its reduce where it splits)."""
+    on the routes op takes for N rows in ``dtype``, with one updat a bprop
+    (with its reduce where it splits).  The split route is one fused
+    bsmm_split in bf16/f16, partial tiles and a merge in f32."""
     want = dict.fromkeys(counters(), 0)
     for d, n in zip("fb", times):
         direct = "bsmm_fprop" if d == "f" else "bsmm_bprop"
+        split = ("bsmm_split",) if dtype != torch.float32 else \
+            (direct, "bsmm_merge")
         for name in {"fine": ("bsmm_fine",), "window": ("bsmm_window",),
-                     "phased": (direct, "bsmm_merge"),
+                     "phased": split,
                      "grouped": (direct,)}[op._route(N, d, sms)]:
             want[name] += n
     want["bsmm_updat"] += times[1]
-    want["bsmm_updat_reduce"] += times[1] * (op.updat_splits(N) > 1)
+    want["bsmm_updat_reduce"] += times[1] * (op.updat_splits(N, dtype) > 1)
     return want
 
 
@@ -1600,13 +1784,63 @@ def canonical_rows(bt, dev):
     return out
 
 
+def canonical_split_checks(op, x, w, dev, g, card_line, rows):
+    """The fused split at the canonical hidden-2560 row's split (N 64, b32,
+    bf16 or f16 x and w): fprop and bprop two runs bit-equal and bit for
+    bit against bsmm_partials + bsmm_merge; in bf16 the fprop's time
+    against theirs, in turns, by the profiler and by CUDA events."""
+    from blocksparse_tpu_torch.kernels import bsmm as bk
+    sms = bk.device_sm_count(dev)
+    lut = op._lut(dev)
+    for d in "fb":
+        a = x if d == "f" else torch.randn(
+            (CANON_N, op.K), device=dev, generator=g).to(x.dtype)
+        n_out = op.KB if d == "f" else op.CB
+        phases = op._phases(CANON_N, d, sms)
+        check(phases > 1, f"hidden {op.C} b32 N={CANON_N} {d}prop takes the "
+                          f"split route ({phases} runs)")
+        p = op._plan_tensors(dev, "split", d, phases)
+        ents = (lut[f"{d}_ent_in"], lut[f"{d}_ent_w"])
+
+        def fused():
+            return bk.bsmm_split(a, w, p["tile_ptr"], *ents, p["merge_idx"],
+                                 32, n_out, d == "b")
+
+        def parent():
+            return bk.bsmm_merge(bk.bsmm_partials(
+                a, w, p["tile_ptr"], *ents, 32, p["tile_ptr"].numel() - 1,
+                d == "b"), p["merge_idx"], 32, x.dtype)
+        what = (f"bsmm_split hidden {op.C} b32 N={CANON_N} {d}prop, clusters "
+                f"of P={p['merge_idx'].shape[1]} {x.dtype}")
+        same_bits(what, fused)
+        check(torch.equal(fused(), parent()), f"{what}: equal bit for bit "
+                                              f"to bsmm_partials + bsmm_merge")
+        if x.dtype != torch.bfloat16 or d != "f":
+            continue
+        routes = {"fused": fused, "parent": parent}
+        dev_ms = in_turns(routes, lambda fn: device_ms_per_call(
+            fn, lambda k: "bsmm_xprop" in k or "bsmm_merge" in k))
+        ev_ms = in_turns(routes, lambda fn: time_ms(fn, 200))
+        rows["canon_split"] = (dev_ms, ev_ms)
+        print(f"{what} [{card_line}]: fused device "
+              f"{' / '.join(f'{v:.4f}' for v in dev_ms['fused'])} ms "
+              f"(profiler, mean of 20), parent partials + merge "
+              f"{' / '.join(f'{v:.4f}' for v in dev_ms['parent'])}; by events "
+              f"fused {' / '.join(f'{v:.4f}' for v in ev_ms['fused'])}, parent "
+              f"{' / '.join(f'{v:.4f}' for v in ev_ms['parent'])} (in turns)",
+              flush=True)
+
+
 def mode_kernel_checks(rows_in, win_op, dev, g, card_line, rows):
     """bsmm_fine, bsmm_window and bsmm_merge against their plain versions
     (f32, bf16, f16; fprop and bprop) at the path's shapes: fine at the
     canonical hidden-7680 rows, window at its regime (N 256), merge on the
     canonical hidden-2560 split (its device time also from the profiler:
     at 1 MB the event time is the launch rate).  In f32 fine and window
-    also against the unsplit kernel, bit for bit."""
+    also against the unsplit kernel, bit for bit.  On the same split, in
+    bf16 and f16, the fused route (bsmm_split) fprop and bprop bit for bit
+    against partials + merge, and in bf16 its time against theirs, in
+    turns, by the profiler and by CUDA events."""
     from blocksparse_tpu_torch.kernels import bsmm as bk
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
@@ -1684,6 +1918,8 @@ def mode_kernel_checks(rows_in, win_op, dev, g, card_line, rows):
         w = (torch.randn(op.w_shape, device=dev, generator=g) * 0.1).to(dtype)
         tiles = bk.bsmm_partials(x, w, p["tile_ptr"], lut["f_ent_in"],
                                  lut["f_ent_w"], 32, n_tiles)
+        if dtype != torch.float32:
+            canonical_split_checks(op, x, w, dev, g, card_line, rows)
         what = (f"bsmm_merge hidden {dense} b32 N={CANON_N}, {n_tiles - 1} "
                 f"tiles of {op.KB} columns, P={idx.shape[1]}, out {dtype}")
         y = bk.bsmm_merge(tiles, idx, 32, dtype)
@@ -1708,13 +1944,16 @@ def mode_kernel_checks(rows_in, win_op, dev, g, card_line, rows):
             rows["merge_lib"] = time_ms(
                 lambda: buf.zero_().index_add_(1, tile_col, t3), 200)
             rows["merge_shape"] = (n_tiles - 1, idx.shape[1])
-            _, kernels = device_events(lambda: [
-                bk.bsmm_merge(tiles, idx, 32, dtype) for _ in range(20)])
-            dev_ms = sum(e.self_device_time_total for e in kernels
-                         if "bsmm_merge_kernel" in e.key) / 1e3 / 20
-            print(f"      index_add_ of the tiles {rows['merge_lib']:.4f} ms; "
-                  f"merge device time (profiler, mean of 20) {dev_ms:.4f} ms "
-                  f"[{card_line}]", flush=True)
+            dev_ms = device_ms_per_call(
+                lambda: bk.bsmm_merge(tiles, idx, 32, dtype),
+                lambda k: "bsmm_merge_kernel" in k)
+            lib_dev = device_ms_per_call(
+                lambda: buf.zero_().index_add_(1, tile_col, t3),
+                lambda k: True)
+            print(f"      index_add_ of the tiles {rows['merge_lib']:.4f} ms "
+                  f"by events, {lib_dev:.4f} ms device (profiler, mean of "
+                  f"20; its fill and add kernels); merge device time "
+                  f"{dev_ms:.4f} ms [{card_line}]", flush=True)
         del x, w, tiles, y
     torch.cuda.empty_cache()
 
@@ -1789,7 +2028,48 @@ def canonical_path(rows_in, dev, g, card_line, rows):
             del y, got
         del x0, w0, y_ref, refs, wd
         torch.cuda.empty_cache()
+    add_counts(total, canonical_f32_split(rows_in, dev, g, card_line))
     return total
+
+
+def canonical_f32_split(rows_in, dev, g, card_line):
+    """The canonical hidden-2560 row's chains in f32, mode "auto": the
+    split route's f32 form (bsmm_partials, then bsmm_merge, exact on the
+    CUDA cores), counted, held against the same chains on impl="xla" in
+    f32.  Returns the launches."""
+    hidden = CANON_ROWS[1][0] * CANON_UNIT
+    ops, plain, scale = rows_in[(hidden, 32)]
+    op = ops["auto"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rng = np.random.RandomState(7)
+    x0 = torch.as_tensor(rng.uniform(-1, 1, (hidden, CANON_N)), device=dev,
+                         dtype=torch.float32)
+    w0 = (torch.rand(plain.w_shape, device=dev, generator=g) * 2 - 1) * scale
+    what = (f"canonical hidden {hidden} b32 N={CANON_N} mode auto "
+            f"({op.dispatch_mode(CANON_N)}) f32")
+    with torch.no_grad():
+        y_ref = chain(plain, x0, w0)
+        chain(op, x0, w0)                              # warm-up
+    refs = chain_grads(plain, x0, w0)
+    chain_grads(op, x0, w0)
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.no_grad():
+        y = chain(op, x0, w0)
+    got = chain_grads(op, x0, w0)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    want = route_launches(op, CANON_N, sms, (2 * CANON_DEPTH, CANON_DEPTH),
+                          torch.float32)
+    check(launches == want and launches["bsmm_merge"] > 0,
+          f"{what}: chain fwd + fwd/bwd launches {launches}, expected {want}")
+    compare(f"{what}: chain output against impl=xla", y, y_ref, F32_CHAIN_TOL)
+    for name, a, r in zip(("y", "dx", "dw"), got, refs):
+        compare(f"{what}: fwd/bwd {name} against impl=xla", a, r,
+                F32_CHAIN_TOL)
+    del x0, w0, y_ref, refs, y, got
+    torch.cuda.empty_cache()
+    return launches
 
 
 def window_op(bt):
@@ -1897,9 +2177,10 @@ def window_tile_sweep(ops, x, w, N, flops, card_line):
 
 def mode_yardsticks(rows_in, win, dev, g, card_line, rows):
     """Bound and library call of the three mode kernels at their kernels-
-    line shapes (bf16): fine at canonical b8 N 64, window at its regime
-    N 256 (a dense torch.matmul of the scattered layout for both), merge
-    at the canonical hidden-2560 split (index_add_ of the tiles)."""
+    line shapes: fine at canonical b8 N 64, window at its regime N 256
+    (bf16; a dense torch.matmul of the scattered layout for both), merge
+    at the canonical hidden-2560 split (f32 out; index_add_ of the
+    tiles)."""
     bf = torch.bfloat16
     out = {}
     small, dense = (CANON_ROWS[0][0] * CANON_UNIT, CANON_ROWS[1][0]
@@ -1914,10 +2195,11 @@ def mode_yardsticks(rows_in, win, dev, g, card_line, rows):
         out[name] = (*bound(2 * N * op.blocks * b2,
                             2 * (N * op.C + op.blocks * b2 + N * op.K)), lib)
         del x, wd
+    # the merge's row is its f32 form (the fused split took over bf16/f16)
     n_real, P = rows["merge_shape"]
     K = rows_in[(dense, 32)][1].K
     out["bsmm_merge"] = (*bound(CANON_N * 32 * (n_real - K // 32),
-                                4 * CANON_N * 32 * n_real + 2 * CANON_N * K,
+                                4 * CANON_N * 32 * n_real + 4 * CANON_N * K,
                                 PEAK_F32_FLOPS), rows["merge_lib"])
     for name, (ms, by, lib) in out.items():
         print(f"{name}: bound {ms:.4f} ms ({by}); library call "
@@ -1986,6 +2268,7 @@ def main():
     serving_kernel_checks(model, plain, dev, g, rows)
     training_kernel_checks(model, plain, dev, g, rows)
     xprop_block_size_checks(bt, dev, g)
+    split_checks(model, dev, g, card_line, rows)
     updat_block_size_checks(bt, dev, g)
     mode_block_size_checks(bt, dev, g)
     attn_block_size_checks(bt, dev, g)
@@ -2025,7 +2308,11 @@ def main():
     im2col_bytes = (1 + 9) * C * NP * b2
     marks["im2col"] = (*bound(0, im2col_bytes), rows["unfold"])
     marks["col2im"] = (*bound(0, im2col_bytes), rows["fold"])
+    marks["bsmm_split"] = rows[("split_mark", "bsmm2")]
     attn_report(model, rows, marks, card_line)
+    ptxas_report("bsmm_xprop_mma", "the fused split (OUT_SPLIT)",
+                 SPLIT_MANGLED)
+    ptxas_report("col2im_tma", "col2im", re.compile("col2im_tma_kernel"))
     # the attention kernels' rows: their device time, as fine's and window's
     for key, ms in ((("attn_fwd", torch.bfloat16),
                      float(np.mean(rows["fwd_dev"]["order"]))),
@@ -2056,15 +2343,17 @@ def main():
          train_launches["bst_attn_dkv"], rows[("dkv", bf)]),
         ("im2col", "im2col.cu", "im2col.py:97", conv_launches["im2col"],
          rows[("im2col", bf)]),
-        ("col2im", "im2col.cu", "im2col.py:125", conv_launches["col2im"],
+        ("col2im", "col2im_tma.cu", "im2col.py:125", conv_launches["col2im"],
          rows[("col2im", bf)]),
         ("bsmm_fine", "bsmm_fine_mma.cu", "bsmm.py:2294",
          mode_launches["bsmm_fine"], rows[("fine", 8, CANON_N, bf)]),
         ("bsmm_window", "bsmm_window_mma.cu", "bsmm.py:1800",
          mode_launches["bsmm_window"], rows[("window", 32, WIN_NS[0], bf)]),
+        ("bsmm_split", "bsmm_xprop_mma.cu", "bsmm.py:1562",
+         serve_launches["bsmm_split"] + mode_launches["bsmm_split"],
+         rows[("split", "bsmm2")]),
         ("bsmm_merge", "bsmm_merge.cu", "bsmm.py:1562",
-         mode_launches["bsmm_merge"] + serve_launches["bsmm_merge"],
-         rows[("merge", bf)]),
+         mode_launches["bsmm_merge"], rows[("merge", torch.float32)]),
     ]
     check(all(n > 0 for _, _, _, n, _ in kernels),
           f"every kernel launched on its path ({len(kernels)} kernels)")

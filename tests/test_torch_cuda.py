@@ -27,10 +27,12 @@ cores (csrc/bsmm_fine_mma.cu, csrc/bsmm_window_mma.cu), each in its own
 fixed order, and are held against the plain version within the matmul's
 tolerances, two runs bit for bit.
 The merge adds the same f32 tiles in the same order as its plain
-version: exact.  The attention forward runs f32 on the CUDA cores
-(csrc/bst_attn_fwd.cu) and bf16/f16 on the tensor cores
-(csrc/bst_attn_fwd_mma.cu), each in a fixed order: two runs, and the two
-launch orders of the query rows, agree bit for bit.
+version: exact.  The fused split (bsmm_split, bf16/f16) computes the
+partial kernel's accumulators and adds them in the merge's order: equal
+to bsmm_merge over bsmm_partials bit for bit.  The attention forward
+runs f32 on the CUDA cores (csrc/bst_attn_fwd.cu) and bf16/f16 on the
+tensor cores (csrc/bst_attn_fwd_mma.cu), each in a fixed order: two
+runs, and the two launch orders of the query rows, agree bit for bit.
 """
 import ctypes
 
@@ -911,20 +913,28 @@ def test_conv_kernel_path_matches_plain_path(cuda, dtype, stride):
     """BlocksparseConv(impl="bsmm") on the kernels against bsmm_impl="xla":
     forward, dI and dF of sum(square(y)); one launch of each kernel a
     forward + backward (a strided conv builds X from plain tap slices, so
-    it launches no im2col/col2im)."""
+    it launches no im2col/col2im; a product on the split route is one
+    fused bsmm_split launch in bf16, partial tiles counted as fprop or
+    bprop in f32)."""
     port, plain, F, x = _conv_case(cuda, dtype, stride)
     counters = {"im2col": im2col_kernels.im2col,
                 "col2im": im2col_kernels.col2im,
                 "fprop": bsmm_kernels.bsmm_fprop,
                 "bprop": bsmm_kernels.bsmm_bprop,
+                "split": bsmm_kernels.bsmm_split,
                 "updat": bsmm_kernels.bsmm_updat}
     before = {n: c.launches for n, c in counters.items()}
     got = _conv_fwd_grads(port, F, x)
     torch.cuda.synchronize()
     moved = {n: c.launches - before[n] for n, c in counters.items()}
     k = int(stride == 1)
-    assert moved == {"im2col": k, "col2im": k, "fprop": 1, "bprop": 1,
-                     "updat": 1}
+    op, sms = port._bsmm_op, bsmm_kernels.device_sm_count(cuda)
+    rows = x.shape[0] * int(np.prod(port.MPQ))        # the matmul's N
+    fused = {d: dtype != torch.float32
+             and op._route(rows, d, sms) == "phased" for d in "fb"}
+    assert moved == {"im2col": k, "col2im": k, "fprop": 1 - fused["f"],
+                     "bprop": 1 - fused["b"],
+                     "split": fused["f"] + fused["b"], "updat": 1}
     before = {n: c.launches for n, c in counters.items()}
     refs = _conv_fwd_grads(plain, F, x)
     assert all(c.launches == before[n] for n, c in counters.items())
@@ -938,8 +948,8 @@ def test_conv_kernel_path_matches_plain_path(cuda, dtype, stride):
         before = {n: c.launches for n, c in counters.items()}
         port(F, x)
         moved = {n: c.launches - before[n] for n, c in counters.items()}
-        assert moved == {"im2col": k, "col2im": 0, "fprop": 1, "bprop": 0,
-                         "updat": 0}
+        assert moved == {"im2col": k, "col2im": 0, "fprop": 1 - fused["f"],
+                         "bprop": 0, "split": int(fused["f"]), "updat": 0}
 
 
 @pytest.mark.cuda
@@ -968,6 +978,54 @@ def test_im2col_raises_and_never_falls_back(cuda, monkeypatch):
             im2col_kernels.col2im.launches) == before
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, *HALF])
+@pytest.mark.parametrize("bC", [8, 16, 32, 64, 128])
+def test_col2im_tma_kernel_matches_plain(cuda, bC, dtype):
+    """col2im_tma.cu at every channel block and dtype, on images of 7 x 9
+    (W not a multiple of a 16-byte run), 32 x 32 and 3 x 300 (W past TMA's
+    256-pixel box), 3x3 filters at pads (0, 0), (1, 1) and (2, 2) and a
+    1x3 one: equal to col2im_plain bit for bit in f32, within one rounding
+    in bf16/f16; two runs bit-equal; one launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(bC)
+    eps = 0.0 if dtype == torch.float32 else torch.finfo(dtype).eps
+    C = 2 * bC
+    for N, H, W in ((2, 7, 9), (2, 32, 32), (1, 3, 300)):
+        for R, S, pt, pl in ((3, 3, 0, 0), (3, 3, 1, 1), (3, 3, 2, 2),
+                             (1, 3, 0, 2)):
+            args = (H, W, R, S, pt, pl, bC)
+            dX = torch.randn((N * H * W, C * R * S), device=cuda,
+                             generator=g).to(dtype).t()
+            before = im2col_kernels.col2im.launches
+            dx, again = (im2col_kernels.col2im(dX, *args) for _ in range(2))
+            torch.cuda.synchronize()
+            assert im2col_kernels.col2im.launches == before + 2
+            assert torch.equal(dx, again)
+            ref = im2col_kernels.col2im_plain(dX, *args)
+            assert dx.dtype == dtype and dx.shape == ref.shape
+            torch.testing.assert_close(
+                dx.float(), ref.float(), rtol=0,
+                atol=eps * max(1.0, ref.float().abs().max().item()))
+            if dtype == torch.float32:
+                assert torch.equal(dx, ref), (N, H, W, R, S, pt, pl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_col2im_refuses_an_unaligned_view(cuda, dtype):
+    """TMA reads a 16-byte aligned tensor: an NC array that starts off a
+    16-byte boundary raises, with no launch and no plain fallback."""
+    H, W, bC = 6, 8, 8
+    NP, CT = 2 * H * W, 16 * 9
+    flat = torch.randn(NP * CT + 1, device=cuda).to(dtype)
+    dX = flat[1:].view(NP, CT).t()
+    assert dX.t().is_contiguous() and dX.t().data_ptr() % 16
+    before = im2col_kernels.col2im.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        im2col_kernels.col2im(dX, H, W, 3, 3, 1, 1, bC)
+    assert im2col_kernels.col2im.launches == before
+
+
 # ---------------- the schedule modes: fine, window, split + merge ----------
 
 def _mode_ops(layout, bsize, **kw):
@@ -978,7 +1036,8 @@ def _mode_ops(layout, bsize, **kw):
 
 def _counts():
     return {n: getattr(bsmm_kernels, n).launches for n in (
-        "bsmm_fprop", "bsmm_bprop", "bsmm_fine", "bsmm_window", "bsmm_merge")}
+        "bsmm_fprop", "bsmm_bprop", "bsmm_fine", "bsmm_window", "bsmm_merge",
+        "bsmm_split")}
 
 
 def _moved(before):
@@ -1111,9 +1170,10 @@ def test_merge_kernel_matches_plain(cuda, bsize, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, *HALF])
 @pytest.mark.parametrize("bsize", [8, 32, 128])
 def test_split_route_matches_plain(cuda, bsize, dtype):
-    """Below the SM count auto runs partial tiles (counted as bsmm_fprop /
-    bsmm_bprop, whose kernel it is) and one merge; grouped runs unsplit.
-    Both against the plain version, the partials against the plain split
+    """Below the SM count auto runs the split route: in f32 partial tiles
+    (counted as bsmm_fprop / bsmm_bprop, whose kernel it is) and one merge,
+    in bf16/f16 one fused bsmm_split launch; grouped runs unsplit.  Both
+    against the plain version, the split route against the plain split
     route in f32."""
     layout = random_layout(48, 5, 0.5, seed=bsize + 1)
     layout[:, 2] = 0
@@ -1132,8 +1192,9 @@ def test_split_route_matches_plain(cuda, bsize, dtype):
         before = _counts()
         y = ops["auto"]._xprop(x, w, d)
         torch.cuda.synchronize()
-        assert _moved(before) == ({direct: 1, "bsmm_merge": 1} if split
-                                  else {direct: 1})
+        fused = {"bsmm_split": 1} if dtype != torch.float32 else \
+            {direct: 1, "bsmm_merge": 1}
+        assert _moved(before) == (fused if split else {direct: 1})
         before = _counts()
         y_unsplit = ops["grouped"]._xprop(x, w, d)
         assert _moved(before) == {direct: 1}
@@ -1146,6 +1207,90 @@ def test_split_route_matches_plain(cuda, bsize, dtype):
             torch.testing.assert_close(
                 y, plain.xprop_split_plain(x, w, d, sms), rtol=0,
                 atol=F32_TOL * max(1.0, ref.abs().max().item()))
+
+
+def _split_layout(bsize, seed):
+    """A square layout whose output column 0 and input row 0 are full (40
+    entries: 8 runs of the split in fprop and bprop), with output column
+    2 and input row 2 empty."""
+    layout = random_layout(40, 40, 0.6, seed=seed)
+    layout[:, 0] = 1
+    layout[0, :] = 1
+    layout[:, 2] = 0
+    layout[2, :] = 0
+    return BlocksparseMatMul(layout, block_size=bsize, feature_axis=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("bsize", [8, 16, 32, 64, 128])
+def test_split_kernel_equals_partials_and_merge(cuda, bsize, dtype):
+    """bsmm_split, one launch of clusters of P blocks, equals bsmm_merge
+    over bsmm_partials bit for bit, fprop and bprop, P 2 to 8, N 1, 5 and
+    300, an empty column zero; two runs bit-equal; within the matmul's
+    tolerance of the plain version."""
+    op = _split_layout(bsize, seed=bsize)
+    plain = BlocksparseMatMul(op.layout.astype(np.int32), block_size=bsize,
+                              feature_axis=1, impl="xla")
+    lut = op._lut(cuda)
+    g = torch.Generator(device=cuda).manual_seed(bsize + 1)
+    w = torch.randn(op.w_shape, device=cuda, generator=g).to(dtype)
+    for d in "fb":
+        ents = (lut[f"{d}_ent_in"], lut[f"{d}_ent_w"])
+        for P in (2, 3, 5, 8):
+            p = op._plan_tensors(cuda, "split", d, P)
+            assert p["merge_idx"].shape[1] == P
+            n_tiles = p["tile_ptr"].numel() - 1
+            n_out, width = (op.KB, op.C) if d == "f" else (op.CB, op.K)
+            for N in (1, 5, 300):
+                x = torch.randn((N, width), device=cuda,
+                                generator=g).to(dtype)
+
+                def fused():
+                    return bsmm_kernels.bsmm_split(
+                        x, w, p["tile_ptr"], *ents, p["merge_idx"], bsize,
+                        n_out, d == "b")
+                before = _counts()
+                y, again = fused(), fused()
+                torch.cuda.synchronize()
+                assert _moved(before) == {"bsmm_split": 2}
+                assert y.dtype == dtype and y.shape == (N, n_out * bsize)
+                assert torch.equal(y, again)
+                parts = bsmm_kernels.bsmm_partials(x, w, p["tile_ptr"], *ents,
+                                                   bsize, n_tiles, d == "b")
+                ref = bsmm_kernels.bsmm_merge(parts, p["merge_idx"], bsize,
+                                              dtype)
+                assert torch.equal(y, ref), (d, P, N)
+                assert (y[:, 2 * bsize:3 * bsize] == 0).all()
+                want = plain._xprop(x, w, d).float()
+                torch.testing.assert_close(
+                    y.float(), want, rtol=0,
+                    atol=_tol(dtype, BSMM_BF16_TOL, want.abs().max().item()))
+
+
+@pytest.mark.cuda
+def test_split_kernel_raises_and_never_falls_back(cuda, monkeypatch):
+    """bsmm_split refuses a CPU tensor and f32, and a refused launch
+    raises: no launch is counted and no plain version steps in."""
+    from blocksparse_tpu_torch.kernels import _build
+    op = _split_layout(16, seed=0)
+    p = op._plan_tensors(cuda, "split", "f", 8)
+    lut = op._lut(cuda)
+    w = torch.randn(op.w_shape, device=cuda).bfloat16()
+    x = torch.randn((3, op.C), device=cuda).bfloat16()
+    args = (p["tile_ptr"], lut["f_ent_in"], lut["f_ent_w"], p["merge_idx"],
+            16, op.KB)
+    before = bsmm_kernels.bsmm_split.launches
+    with pytest.raises(ValueError):
+        bsmm_kernels.bsmm_split(x.cpu(), w.cpu(), *args)
+    with pytest.raises(TypeError):
+        bsmm_kernels.bsmm_split(x.float(), w.float(), *args)
+    with pytest.raises(TypeError):
+        bsmm_kernels.bsmm_split(x, w, args[0], args[1].long(), *args[2:])
+    monkeypatch.setattr(_build, "function", lambda *a, **k: lambda *b: 1)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        bsmm_kernels.bsmm_split(x, w, *args)
+    assert bsmm_kernels.bsmm_split.launches == before
 
 
 @pytest.mark.cuda

@@ -2,9 +2,10 @@
 
 On the CPU the port runs the plain versions whatever the mode; the card
 runs ``bsmm_fine`` (``mode="fine"``), ``bsmm_window`` (``mode="window"``)
-or the split route (partial tiles, then ``bsmm_merge``) from host-side
-plans built here.  These tests hold on the CPU what does not need the
-card:
+or the split route (in bf16/f16 one ``bsmm_split`` launch whose
+thread-block clusters sum a column's runs; in f32 partial tiles, then
+``bsmm_merge``) from host-side plans built here.  These tests hold on
+the CPU what does not need the card:
 
 - ``make_mask`` (the canonical bench's small-world layouts) equals the
   JAX package's networkx-built one;
@@ -12,6 +13,11 @@ card:
   order within each output column, and the merge index runs in phase
   order, then the sentinel; the tensor-core window kernel's N-tile rule
   (``window_tn``) by value;
+- the fused split's cluster mapping at the LM's decode and the canonical
+  bench's shapes, at every block size: rank r of column o's cluster
+  names the column's r-th run, in phase order, or the sentinel's empty
+  run, and a cluster holds at most ``SPLIT_MAX_PHASES`` blocks; its
+  wrapper refuses CPU tensors and f32;
 - ``merge_plain`` equals JAX ``merge_phased_tiles`` (Pallas interpret)
   on a phased cover from ``build_dense_tile_schedule_phased``: exactly in
   f32 (both add the same f32 tiles in the same order);
@@ -263,6 +269,82 @@ def test_split_route_plain_matches_xprop_plain(d, axis):
         1.0, want.abs().max().item()))
     with pytest.raises(ValueError):
         op.xprop_split_plain(x, w, d, sm_count=1)
+
+
+def _lm_mlp_layout(bsize, n_embd=512, ratio=4, density=0.5):
+    """The LM's MLP layout (``SparseTransformerLM``: RandomState(0), no
+    empty row or column) for its 512 -> 2048 product at ``bsize``."""
+    CB, KB = n_embd // bsize, ratio * n_embd // bsize
+    lay = (np.random.RandomState(0).rand(CB, KB) < density).astype(np.int32)
+    lay[np.arange(CB), np.arange(CB) % KB] = 1
+    lay[np.arange(KB) % CB, np.arange(KB)] = 1
+    return lay
+
+
+# (name, layout at a block size, N): the LM's MLP products at decode
+# (batch 4) and the canonical bench's hidden-2560 dense row (N 64)
+_SPLIT_SHAPES = {
+    "bsmm1": (lambda b: _lm_mlp_layout(b), 4),
+    "bsmm2": (lambda b: _lm_mlp_layout(b).T.copy(), 4),
+    "canonical2560": (lambda b: np.ones((2560 // b, 2560 // b), np.int32), 64)}
+
+
+@pytest.mark.parametrize("bsize", bsmm_kernels.BLOCK_SIZES)
+@pytest.mark.parametrize("shape", list(_SPLIT_SHAPES))
+def test_split_cluster_mapping(shape, bsize):
+    """bsmm_split launches a cluster of P thread blocks a (N-tile, output
+    column o), rank r running run merge_idx[o, r]: for r below the
+    column's run count the column's r-th run (consecutive runs covering
+    its LUT entries in order), past it the sentinel's empty run; P <= 8
+    (a portable cluster) on an H100's 132 SMs, fprop and bprop."""
+    make, N = _SPLIT_SHAPES[shape]
+    op = BlocksparseMatMul(make(bsize), block_size=bsize, feature_axis=1)
+    for d in "fb":
+        phases = op._phases(N, d, 132)
+        if not phases:
+            continue
+        plan = op._plan("split", d, phases)
+        row_ptr = op._csr(d)[0]
+        tp, idx, T = plan["tile_ptr"], plan["merge_idx"], plan["tiles"] - 1
+        P = idx.shape[1]
+        assert 1 <= P <= phases <= bsmm_kernels.SPLIT_MAX_PHASES == 8
+        assert tp[T] == tp[T + 1]                  # the sentinel: no entries
+        for o in range(len(row_ptr) - 1):
+            n_runs = int((idx[o] != T).sum())
+            assert (idx[o, n_runs:] == T).all()
+            runs = [np.arange(tp[t], tp[t + 1]) for t in idx[o, :n_runs]]
+            got = np.concatenate(runs) if runs else np.zeros(0, np.int64)
+            np.testing.assert_array_equal(
+                got, np.arange(row_ptr[o], row_ptr[o + 1]))
+            assert all(len(r) > 0 for r in runs)
+    if shape == "bsmm2" and bsize == 32:
+        # the LM's decode: bsmm2 (64 entries a column, 16 columns) in 8 runs
+        assert op._phases(N, "f", 132) == 8
+        assert op._plan("split", "f", 8)["merge_idx"].shape[1] == 8
+
+
+def test_split_wrapper_refuses_cpu_and_f32():
+    """bsmm_split launches a CUDA kernel or raises: a CPU tensor, f32 (the
+    f32 split route is bsmm_partials + bsmm_merge) and a cluster of more
+    than 8 blocks are refused before any launch."""
+    op = BlocksparseMatMul(np.ones((16, 2), np.int32), block_size=16,
+                           feature_axis=1)
+    plan = {k: torch.as_tensor(v) for k, v in
+            op._plan("split", "f", 4).items() if isinstance(v, np.ndarray)}
+    lut = op._lut(torch.device("cpu"))
+    w = torch.zeros(op.w_shape, dtype=torch.bfloat16)
+    x = torch.zeros((4, op.C), dtype=torch.bfloat16)
+    args = (plan["tile_ptr"], lut["f_ent_in"], lut["f_ent_w"])
+    before = bsmm_kernels.bsmm_split.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        bsmm_kernels.bsmm_split(x, w, *args, plan["merge_idx"], 16, 2)
+    with pytest.raises(TypeError, match="f32"):
+        bsmm_kernels.bsmm_split(x.float(), w.float(), *args,
+                                plan["merge_idx"], 16, 2)
+    with pytest.raises(ValueError, match="P <= 8"):
+        bsmm_kernels.bsmm_split(x, w, *args, plan["merge_idx"].repeat(1, 5),
+                                16, 2)
+    assert bsmm_kernels.bsmm_split.launches == before
 
 
 def _mode_pair(layout, bsize, mode, seed, N):
