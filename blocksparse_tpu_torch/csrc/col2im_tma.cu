@@ -1,11 +1,15 @@
 // col2im, the adjoint of im2col, for the block-sparse conv (impl="bsmm"), its
 // reads of dX made by the Tensor Memory Accelerator (TMA):
-//   dX (C*R*S, N*H*W) -> dx (C, N*H*W), each dx[c, (n, h, w)] the sum over
+//   dX (C*R*S, N*H*W) -> dx, each dx[n, c, h, w] the sum over
 //   taps t = r*S + s of dX[(cb*trs + t)*bC + ci, (n, h - r + pt, w - s + pl)]
 //   (c = cb*bC + ci), 0 where that pixel lies outside the image, in f32, in
 //   tap order starting from 0.f, rounded once to dX's dtype.
 // dX is stored in the NC orientation bsmm_bprop writes: element (row, p) at
 // p * C*R*S + row, a contiguous (N*H*W, C*R*S) array, read here in place.
+// dx is written through its strides: element (n, c, h, w) at n*sn + c*sc +
+// h*W + w, so an NCHW image (sc = H*W, sn = C*H*W), the conv's dI, and a
+// channel-major (C, N*H*W) array (sc = N*H*W, sn = H*W) come out alike,
+// with no transposing copy.
 //
 // Replaces the TPU kernel col2im (blocksparse_tpu/kernels/im2col.py), which
 // folds each tap back with a lane roll and a boundary mask.
@@ -24,7 +28,12 @@
 // s - pl: element [py][px][ci] is the tap's term for output (h0 + py, w0 +
 // px).  TMA fills the coordinates outside the tensor, negative ones
 // included, with zeros: exactly the padding the previous kernel masked by
-// hand.  Completion is counted on one mbarrier a ring slot.  The thread
+// hand.  Completion is counted on one mbarrier a ring slot.  A slot is
+// refilled only after every thread's reads of it (the generic proxy) are
+// ordered before the TMA write (the async proxy), by fence.proxy.async and
+// a barrier: without the fence a refill now and then overwrote a box still
+// being read (a few calls in a hundred at the conv bench's f32 shape).  The
+// thread
 // blocks are persistent (two resident an SM): each walks its tiles, and one
 // thread keeps `stages` boxes of its (tile, tap) sequence in flight, across
 // tile boundaries; at b128 in f32 a tile's nine boxes would not fit at once,
@@ -34,7 +43,7 @@
 // taps into f32 registers in tap order from 0.f (the zero-filled taps
 // included, as col2im_plain's sum over the padded image is), then rounds
 // once and stores each run with one 16-byte store along the pixels of dx (a
-// scalar store a pixel where W is not a multiple of VEC).  So the result
+// scalar store a pixel where W or dx's strides are not a multiple of VEC).  So the result
 // equals col2im_plain's bit for bit: in f32 exactly, in bf16/f16 the same f32
 // sum rounded once.  No atomics.  Lanes take consecutive channels: from bC 32
 // a warp reads one pixel's run of channels, free of bank conflicts without a
@@ -139,9 +148,9 @@ size_t smem_bytes(int stages, size_t box_bytes) {
 
 template <typename T, int BC>
 __global__ void __launch_bounds__(THREADS)
-col2im_tma_kernel(const __grid_constant__ CUtensorMap dX, T* __restrict__ out, int NP, int H,
-                  int W, int S, int trs, int pt, int pl, int TH, int TW, int ncb, int ntw,
-                  int nth, int tiles, int stages) {
+col2im_tma_kernel(const __grid_constant__ CUtensorMap dX, T* __restrict__ out, long long sc,
+                  long long sn, int H, int W, int S, int trs, int pt, int pl, int TH, int TW,
+                  int ncb, int ntw, int nth, int tiles, int stages, int vec) {
   constexpr int VEC = 16 / sizeof(T);     // pixels of one 16-byte store
   constexpr bool ROT = BC < 32;           // a warp spans several runs
   extern __shared__ unsigned char smem_raw[];
@@ -208,7 +217,10 @@ col2im_tma_kernel(const __grid_constant__ CUtensorMap dX, T* __restrict__ out, i
           acc[i][j] += to_f32(b[off[i] + jj * BC]);
         }
       }
-    __syncthreads();  // every thread is done with the slot
+    // every thread is done with the slot: its reads (the generic proxy)
+    // ordered before the TMA (the async proxy) that refills it
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
     if (tid == 0 && q + stages < total) issue(q + stages);
     if (q % trs != trs - 1) continue;
 
@@ -236,8 +248,8 @@ col2im_tma_kernel(const __grid_constant__ CUtensorMap dX, T* __restrict__ out, i
       const int lp = item / BC * VEC;
       const int h = th * TH + lp / TW, w = tw * TW + lp % TW;
       if (h >= H) continue;
-      T* o = out + (size_t)(cb * BC + item % BC) * NP + (size_t)n * H * W + (size_t)h * W + w;
-      if (W % VEC == 0) {
+      T* o = out + (long long)(cb * BC + item % BC) * sc + (long long)n * sn + (long long)h * W + w;
+      if (vec) {
         if (w < W) store16(o, v);
       } else {
 #pragma unroll
@@ -280,7 +292,8 @@ template <> CUtensorMapDataType map_type<__half>() { return CU_TENSOR_MAP_DATA_T
 
 template <typename T, int BC>
 cudaError_t launch(const void* dX, void* dx, int C, int N, int H, int W, int R, int S, int pt,
-                   int pl, int TH, int TW, int stages, cudaStream_t stream) {
+                   int pl, int TH, int TW, int stages, long long sc, long long sn,
+                   cudaStream_t stream) {
   constexpr int VEC = 16 / sizeof(T);
   const size_t box_bytes = (size_t)BC * TH * TW * sizeof(T);
   if (TH < 1 || TH > MAX_BOX_DIM || TW < VEC || TW > MAX_BOX_DIM || TW % VEC ||
@@ -322,17 +335,20 @@ cudaError_t launch(const void* dX, void* dx, int C, int N, int H, int W, int R, 
   const long long tiles = (long long)ncb * ntw * nth * N;
   if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
   const long long grid = tiles < (long long)sms * resident ? tiles : (long long)sms * resident;
-  kernel<<<(unsigned)grid, THREADS, bytes, stream>>>(map, static_cast<T*>(dx), N * H * W, H, W,
-                                                     S, trs, pt, pl, TH, TW, ncb, ntw, nth,
-                                                     (int)tiles, stages);
+  const int vec = W % VEC == 0 && sc % VEC == 0 && sn % VEC == 0 &&
+                  reinterpret_cast<uintptr_t>(dx) % 16 == 0;
+  kernel<<<(unsigned)grid, THREADS, bytes, stream>>>(map, static_cast<T*>(dx), sc, sn, H, W, S,
+                                                     trs, pt, pl, TH, TW, ncb, ntw, nth,
+                                                     (int)tiles, stages, vec);
   return cudaGetLastError();
 }
 
-#define COL2IM_ARGS dX, dx, C, N, H, W, R, S, pt, pl, TH, TW, stages, s
+#define COL2IM_ARGS dX, dx, C, N, H, W, R, S, pt, pl, TH, TW, stages, sc, sn, s
 
 template <typename T>
 cudaError_t dispatch(int bC, const void* dX, void* dx, int C, int N, int H, int W, int R, int S,
-                     int pt, int pl, int TH, int TW, int stages, cudaStream_t s) {
+                     int pt, int pl, int TH, int TW, int stages, long long sc, long long sn,
+                     cudaStream_t s) {
   switch (bC) {
     case 8: return launch<T, 8>(COL2IM_ARGS);
     case 16: return launch<T, 16>(COL2IM_ARGS);
@@ -346,17 +362,18 @@ cudaError_t dispatch(int bC, const void* dX, void* dx, int C, int N, int H, int 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16.  dX (C*R*S, N*H*W) stored NC
-// (a contiguous (N*H*W, C*R*S) array, 16-byte aligned) in; dx (C, N*H*W)
-// contiguous out.  TH x TW output pixels a tile and `stages` ring slots, as
+// (a contiguous (N*H*W, C*R*S) array, 16-byte aligned) in; dx out, element
+// (n, c, h, w) at n*sn + c*sc + h*W + w (elements).  TH x TW output pixels a
+// tile and `stages` ring slots, as
 // col2im_tile (kernels/im2col.py) picks them.  Scope: stride 1, dilation 1,
 // output dims = input dims, 0 <= pt < R, 0 <= pl < S, bC in {8, 16, 32, 64,
 // 128} dividing C.  Returns a cudaError_t (0 = launched).
 extern "C" int col2im_fwd(int dtype, const void* dX, void* dx, int C, int N, int H, int W, int R,
-                          int S, int pt, int pl, int bC, int TH, int TW, int stages,
-                          void* stream) {
+                          int S, int pt, int pl, int bC, int TH, int TW, int stages, long long sc,
+                          long long sn, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C <= 0 || N <= 0 || H <= 0 || W <= 0 || bC <= 0 || C % bC || pt < 0 || pt >= R ||
-      pl < 0 || pl >= S || (long long)N * H * W > 0x7fffffffLL ||
+      pl < 0 || pl >= S || (long long)N * H * W > 0x7fffffffLL || sc < 0 || sn < 0 ||
       reinterpret_cast<uintptr_t>(dX) % 16)
     return cudaErrorInvalidValue;
   if (dtype == 0) return dispatch<float>(bC, COL2IM_ARGS);

@@ -32,6 +32,13 @@ whose start or batch or row stride is off 16 bytes goes in as a copy,
 kernels' q-row pairing, lane folding and stream-vs-resident choice are
 TPU mechanics and are not carried over.
 
+The kernels are built for block sizes 16-64 and head sizes 16, 32, 64
+and 128.  ``kernel_view`` and ``kernel_head_size`` carry every other
+size the reference fuses onto them (block size 8 as a view of the
+layout at 16, a head size up to 128 zero-padded), and
+``kernel_tables`` builds the view's tables; ``BlocksparseTransformer``
+runs its attention through them.
+
 ``attention_fwd_plain``, ``attention_fwd_lse_plain`` and
 ``attention_bwd_plain`` are the plain PyTorch versions: masked per-block
 references that materialise the blocked scores.  All define the output
@@ -55,8 +62,102 @@ MASK_TRIU = 3     # q <= k
 MASK_UNIQ0 = 4    # >=4: index code-4 into the unique-block table
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# The sizes the kernels are built for.  The op runs every other size the
+# reference fuses through them: block size 8 as a view of the layout at
+# block size 16 (``kernel_view``), a head size up to 128 zero-padded to
+# the next of HEAD_SIZES (``kernel_head_size``).
 BLOCK_SIZES = (16, 32, 64)
 HEAD_SIZES = (16, 32, 64, 128)
+
+
+def kernel_head_size(hs):
+    """The head size the kernels run a head of ``hs`` at: the least of
+    HEAD_SIZES that holds it.  q, k, v and dO are zero-padded to it: zero
+    columns of q and k change no score, zero columns of v give output
+    columns that are dropped, and so are dq, dk and dv there.  Raises
+    past the largest, where the reference takes its unfused ops."""
+    for h in HEAD_SIZES:
+        if hs <= h:
+            return h
+    raise NotImplementedError(
+        f"head size {hs} > {HEAD_SIZES[-1]}: the reference runs its unfused "
+        f"nt/nn/tn ops there, which the port has not got yet")
+
+
+def kernel_view(nt_lists, mask_blocks, bs, ctx_blks_q, ctx_blks_k):
+    """The layout as the kernels see it: (nt_lists, masks, bs, ctx_blks_q,
+    ctx_blks_k) at a block size the kernels take.
+
+    nt_lists: per layout head, the (q_blk, k_blk) blocks in row order;
+    mask_blocks: (lut_heads, blocks, bs, bs) bool in that order, or None.
+    From block size 16 up the layout is returned as it is (masks a
+    list of each head's (blocks, bs, bs) array, or None).  At block size 8
+    a 16 x 16 block is present where any of its four 8 x 8 sub-blocks is,
+    and its element mask is the union of theirs, an absent sub-block all
+    False.  An odd ctx_blks gains one 8-row (8-column) of query (key)
+    positions that the masks hide; the caller pads q (k, v) with it and
+    drops it from the results.  The heads' block counts may differ."""
+    if bs >= BLOCK_SIZES[0]:
+        masks = None if mask_blocks is None else list(mask_blocks)
+        return list(nt_lists), masks, bs, ctx_blks_q, ctx_blks_k
+    kbs = BLOCK_SIZES[0]
+    f = kbs // bs
+    lists, masks = [], []
+    for h, nt in enumerate(nt_lists):
+        blocks = {}
+        for b, (qb, kb) in enumerate(nt):
+            m = blocks.setdefault((qb // f, kb // f),
+                                  np.zeros((kbs, kbs), bool))
+            r, c = qb % f * bs, kb % f * bs
+            m[r:r + bs, c:c + bs] = (True if mask_blocks is None
+                                     else mask_blocks[h, b])
+        keys = sorted(blocks)
+        lists.append(keys)
+        masks.append(np.array([blocks[key] for key in keys], bool)
+                     .reshape(len(keys), kbs, kbs))
+    return lists, masks, kbs, -(-ctx_blks_q // f), -(-ctx_blks_k // f)
+
+
+def kernel_tables(nt_lists, masks, bs, ctx_blks_q, ctx_blks_k):
+    """The kernels' tables of a layout (``kernel_view``'s output), as
+    NumPy arrays: the query-row (nn) CSR with its mask codes and table
+    and the launch order of its rows (``row_ptr``, ``ent_k``,
+    ``ent_code``, ``uniq``, ``order``); the key-row (tn) CSR with the
+    transposed codes (``row_ptr_t``, ``ent_q``, ``ent_code_t``,
+    ``uniq_t``, ``order_t``); and the plain versions' (lut_heads, blocks)
+    block indices ``q_blk``, ``k_blk`` and ``mask`` (None without masks).
+    Where the heads' block counts differ, the plain versions' arrays are
+    filled out with block (0, 0) under an all-False mask, which adds
+    nothing; the CSRs hold only real blocks."""
+    lut_heads = len(nt_lists)
+    n = max(len(nt) for nt in nt_lists)
+    q_blk = np.zeros((lut_heads, n), np.int64)
+    k_blk = np.zeros((lut_heads, n), np.int64)
+    rows_q = [[[] for _ in range(ctx_blks_q)] for _ in nt_lists]
+    rows_k = [[[] for _ in range(ctx_blks_k)] for _ in nt_lists]
+    for h, nt in enumerate(nt_lists):
+        for b, (qb, kb) in enumerate(nt):
+            q_blk[h, b], k_blk[h, b] = qb, kb
+            rows_q[h][qb].append((b, kb))
+            rows_k[h][kb].append((b, qb))
+    if masks is None:
+        mask = None
+        codes = codes_t = None
+        uniq = uniq_t = np.zeros((bs, bs), np.int8)
+    else:
+        mask = np.zeros((lut_heads, n, bs, bs), bool)
+        for h, m in enumerate(masks):
+            mask[h, :len(m)] = m
+        codes, uniq = classify_mask_blocks(mask, bs)
+        codes_t, uniq_t = classify_mask_blocks(
+            np.ascontiguousarray(np.transpose(mask, (0, 1, 3, 2))), bs)
+    row_ptr, ent_k, ent_code = build_attn_csr(rows_q, codes)
+    row_ptr_t, ent_q, ent_code_t = build_attn_csr(rows_k, codes_t)
+    return {"row_ptr": row_ptr, "ent_k": ent_k, "ent_code": ent_code,
+            "uniq": uniq, "order": launch_order(row_ptr, ctx_blks_q),
+            "row_ptr_t": row_ptr_t, "ent_q": ent_q, "ent_code_t": ent_code_t,
+            "uniq_t": uniq_t, "order_t": launch_order(row_ptr_t, ctx_blks_k),
+            "q_blk": q_blk, "k_blk": k_blk, "mask": mask}
 
 
 def classify_mask_blocks(mask_blocks, bs):
@@ -277,10 +378,13 @@ def _check(fn, q, k, v, tables, heads, bs, do=None, key_rows=False):
                          f"{[tuple(t.shape) for _, t in acts]}")
     batch, ctx_q, state = q.shape
     if bs not in BLOCK_SIZES:
-        raise ValueError(f"unsupported block size {bs}")
+        raise ValueError(f"the kernels take block sizes {BLOCK_SIZES}, got "
+                         f"{bs} (BlocksparseTransformer runs 8 through "
+                         f"kernel_view)")
     if state % heads or state // heads not in HEAD_SIZES:
-        raise ValueError(f"head size must be one of {HEAD_SIZES}, got "
-                         f"{state / heads}")
+        raise ValueError(f"the kernels take head sizes {HEAD_SIZES}, got "
+                         f"{state / heads} (BlocksparseTransformer pads "
+                         f"others up to 128 to kernel_head_size)")
     if ctx_q % bs or k.shape[1] % bs:
         raise ValueError("ctx must be a multiple of the block size")
     for name, t in acts:

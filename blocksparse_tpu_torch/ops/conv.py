@@ -9,7 +9,8 @@ NC[DHW].
 
 Two lowerings, chosen by ``impl`` as in the JAX package:
 
-- ``impl="bsmm"``: ``im2col`` lifts the image to X (C·trs, N·MPQ), and
+- ``impl="bsmm"``: ``im2col`` lifts the image to X (C·trs, N·MPQ),
+  reading the NCHW image in place (``im2col_image``), and
   ONE tap-tiled ``BlocksparseMatMul`` (feature_axis 0) does every FLOP.
   Its backward is bprop -> ``col2im`` for dI and updat for dF.  On CUDA
   tensors these are the hand-written kernels (``kernels/im2col.py``,
@@ -32,7 +33,8 @@ import numpy as np
 import torch
 import torch.nn.functional as nnf
 
-from blocksparse_tpu_torch.kernels.im2col import im2col, im2col_supported
+from blocksparse_tpu_torch.kernels.im2col import (im2col_image,
+                                                  im2col_supported)
 from blocksparse_tpu_torch.ops.matmul import BlocksparseMatMul
 from blocksparse_tpu_torch.utils import ceil_div, reduce_mul
 
@@ -350,21 +352,24 @@ class BlocksparseConv:
 
         X's rows are (cb, tap, ci), matching the tiled layout of
         :meth:`_build_bsmm`.  2-D SAME-family convs build X with the
-        im2col kernel (its backward is col2im); the rest stack strided,
-        dilated tap slices of the padded input in plain torch."""
+        im2col kernel from the image in place (its backward, col2im,
+        writes dI in NCHW); the rest stack strided, dilated tap slices of
+        the padded input in plain torch."""
         N = I.shape[0]
         bC = self._bsmm_op.bsize
         T, R, S = self.TRS
         M, P, Q = self.MPQ
         st, dil, pd = self.strides, self.dilates, self.padding
         npix = M * P * Q
-        Ic = I.transpose(0, 1)                   # (C, N, D, H, W)
         if im2col_supported(self.TRS, self.DHW, self.MPQ, list(st),
                             list(dil), list(pd), self.C, bC):
-            xc = Ic.reshape(self.C, N * self.DHW[1] * self.DHW[2])
-            X = im2col(xc, self.DHW[1], self.DHW[2], R, S, int(pd[1]),
-                       int(pd[2]), bC, plain=self.bsmm_impl == "xla")
+            # the image itself, read in place (its backward writes dI in
+            # NCHW): no channel-major copy either way; squeeze, a view
+            # both ways (a select's backward would copy dI into zeros)
+            X = im2col_image(I.squeeze(2), R, S, int(pd[1]), int(pd[2]), bC,
+                             plain=self.bsmm_impl == "xla")
         else:
+            Ic = I.transpose(0, 1)               # (C, N, D, H, W)
             # pad so every tap's strided window stays in bounds
             pads = []
             for i in (2, 1, 0):

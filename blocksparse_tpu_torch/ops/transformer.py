@@ -7,8 +7,10 @@ and the public (batch, ctx, heads·hs) layout at ``attention`` and
 ``decode_step``.
 
 ``attention`` runs the fused CUDA kernels (``kernels/bst_attn.py``) on
-CUDA tensors and their plain masked per-block versions on CPU tensors or
-with ``use_fused=False``.  With a gradient to take it is a
+CUDA tensors and their plain masked per-block versions on CPU tensors,
+both on the kernels' view of the layout (block size 8 seen at 16, head
+sizes zero-padded up to 128); ``use_fused=False`` selects the plain
+versions at the op's own block size.  With a gradient to take it is a
 ``torch.autograd.Function``, the counterpart of ``_attention_fused`` with
 ``flash_bwd=True``: the training forward saves the log-sum-exp, and the
 backward runs dq over the query-row CSR and dk/dv over the key-row CSR.
@@ -171,48 +173,44 @@ class BlocksparseTransformer:
             .permute(0, 3, 1, 2, 4)
 
     def _tables(self, device):
-        """The layout's tables on ``device``, uploaded once: the kernels'
-        query-row (nn) CSR with its mask codes and the forward's launch
-        order of its query rows, the key-row (tn) CSR with the transposed
-        codes and the dk/dv kernel's launch order of its key rows (both
-        ``launch_order``), the plain versions' block indices and dense
-        masks, and the decode tables (so a decode step
-        copies nothing from the host, which would stall the stream)."""
+        """The layout's tables on ``device``, uploaded once: those of the
+        kernels' view of the layout (``bst_attn.kernel_view``: block size
+        8 seen at 16, other sizes as they are) from
+        ``bst_attn.kernel_tables``, its block size and padded contexts
+        (``kbs``, ``kctx_q``, ``kctx_k``; the view's plain-version block
+        indices and masks as ``kq_blk``, ``kk_blk``, ``kmask``); the plain
+        versions' block indices and dense masks at this op's own block
+        size; and the decode tables (so a decode step copies nothing from
+        the host, which would stall the stream)."""
         tab = self._dev_tables.get(device)
         if tab is None:
-            codes, uniq = self.mask_codes()
-            row_ptr, ent_k, ent_code = bst_attn.build_attn_csr(
-                self.nn_list, codes)
-            codes_t, uniq_t = self.mask_codes(transposed=True)
-            row_ptr_t, ent_q, ent_code_t = bst_attn.build_attn_csr(
-                self.tn_list, codes_t)
+            nt, masks, kbs, kcq, kck = bst_attn.kernel_view(
+                self.nt_list, self._mask_blocks, self.blk_size,
+                self.ctx_blks_q, self.ctx_blks_k)
+            kt = bst_attn.kernel_tables(nt, masks, kbs, kcq, kck)
             kblk, bid, cnt = self.decode_tables
             in_row = np.arange(kblk.shape[2])[None, None] < cnt[:, :, None]
 
             def t(a, dt):
-                return torch.as_tensor(a, dtype=dt, device=device)
-            tab = {"row_ptr": t(row_ptr, torch.int32),
-                   "ent_k": t(ent_k, torch.int32),
-                   "ent_code": t(ent_code, torch.int32),
-                   "uniq": t(uniq, torch.int8),
-                   "order": t(bst_attn.launch_order(
-                       row_ptr, self.ctx_blks_q), torch.int32),
-                   "row_ptr_t": t(row_ptr_t, torch.int32),
-                   "ent_q": t(ent_q, torch.int32),
-                   "ent_code_t": t(ent_code_t, torch.int32),
-                   "uniq_t": t(uniq_t, torch.int8),
-                   "order_t": t(bst_attn.launch_order(
-                       row_ptr_t, self.ctx_blks_k), torch.int32),
-                   "q_blk": t(self._q_blk, torch.int64),
-                   "k_blk": t(self._k_blk, torch.int64),
-                   "mask": (None if self._mask_blocks is None
-                            else t(self._mask_blocks, torch.bool)),
-                   "dec_kblk": t(kblk, torch.int64),
-                   "dec_bid": t(bid, torch.int64),
-                   "dec_in_row": t(in_row, torch.bool),
-                   "arange_bs": t(np.arange(self.blk_size), torch.int64),
-                   "heads_lut": t(np.arange(self.lut_heads)[:, None],
-                                  torch.int64)}
+                return None if a is None else torch.as_tensor(
+                    a, dtype=dt, device=device)
+            i32, i8, i64 = torch.int32, torch.int8, torch.int64
+            tab = {name: t(kt[name], dt) for name, dt in (
+                ("row_ptr", i32), ("ent_k", i32), ("ent_code", i32),
+                ("uniq", i8), ("order", i32), ("row_ptr_t", i32),
+                ("ent_q", i32), ("ent_code_t", i32), ("uniq_t", i8),
+                ("order_t", i32))}
+            tab.update({
+                "kbs": kbs, "kctx_q": kcq * kbs, "kctx_k": kck * kbs,
+                "kq_blk": t(kt["q_blk"], i64), "kk_blk": t(kt["k_blk"], i64),
+                "kmask": t(kt["mask"], torch.bool),
+                "q_blk": t(self._q_blk, i64), "k_blk": t(self._k_blk, i64),
+                "mask": t(self._mask_blocks, torch.bool),
+                "dec_kblk": t(kblk, i64),
+                "dec_bid": t(bid, i64),
+                "dec_in_row": t(in_row, torch.bool),
+                "arange_bs": t(np.arange(self.blk_size), i64),
+                "heads_lut": t(np.arange(self.lut_heads)[:, None], i64)})
             self._dev_tables[device] = tab
         return tab
 
@@ -222,30 +220,103 @@ class BlocksparseTransformer:
         """softmax(scale·QKᵀ + mask)·V over this object's layout.
 
         q: (batch, ctx_q, heads·hs); k, v: (batch, ctx_k, heads·hs).
-        On CUDA tensors the fused kernels run unless use_fused=False,
-        which selects the plain versions (on any device).  Differentiable
-        in q, k and v: with a gradient to take, the training forward
-        (which keeps the lse) runs, else the serving forward.  A query
-        row that sees no key gives zeros, and zero gradients.  The backward
-        is always the flash one: ``flash_bwd=False`` (the reference's
-        unfused backward) is not ported and raises."""
+        Unless use_fused=False, the fused kernels' route runs: on CUDA
+        tensors the kernels, on CPU tensors their plain versions, both on
+        the kernels' view of the layout (block size 8 seen at 16) with hs
+        zero-padded to a size the kernels take (``_kernel_fwd``).  A head
+        size past 128 raises there on the card (the reference's unfused
+        ops are not ported) and takes the plain versions on the CPU.
+        use_fused=False selects the plain versions at this op's own block
+        size, on any device.  Differentiable in q, k and v: with a
+        gradient to take, the training forward (which keeps the lse) runs,
+        else the serving forward.  A query row that sees no key gives
+        zeros, and zero gradients.  The backward is always the flash one:
+        ``flash_bwd=False`` (the reference's unfused backward) is not
+        ported and raises."""
         if not flash_bwd:
             raise NotImplementedError("flash_bwd=False (the unfused "
                                       "attention backward) is not ported "
                                       "yet")
-        fused = q.is_cuda and use_fused is not False
+        fused = use_fused is not False and (
+            q.is_cuda or q.shape[-1] // self.heads <= bst_attn.HEAD_SIZES[-1])
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in (q, k, v)):
             return _AttentionFunction.apply(q, k, v, self, scale, fused)
-        tab = self._tables(q.device)
         if fused:
-            return bst_attn.attention_fwd(
-                q, k, v, tab["row_ptr"], tab["ent_k"], tab["ent_code"],
-                tab["uniq"], self.heads, self.blk_size, scale,
-                order=tab["order"])
+            return self._kernel_fwd(q, k, v, scale, with_lse=False)[0]
+        tab = self._tables(q.device)
         return bst_attn.attention_fwd_plain(
             q, k, v, tab["q_blk"], tab["k_blk"], tab["mask"], self.heads,
             self.blk_size, scale)
+
+    def _kernel_fwd(self, q, k, v, scale, with_lse):
+        """The fused forward on the kernels' view: (out, lse or None).
+        q, k and v are zero-padded to the view's contexts and to
+        ``kernel_head_size`` (no copy where nothing is padded), run
+        through the kernels on a CUDA tensor or their plain versions on a
+        CPU one, and out and lse are cropped back."""
+        tab = self._tables(q.device)
+        heads, kbs = self.heads, tab["kbs"]
+        _, ctx_q, state = q.shape
+        hs = state // heads
+        khs = bst_attn.kernel_head_size(hs)
+        qp = _pad(q, tab["kctx_q"], heads, khs)
+        kp = _pad(k, tab["kctx_k"], heads, khs)
+        vp = _pad(v, tab["kctx_k"], heads, khs)
+        lse = None
+        if not q.is_cuda:
+            out, lse = bst_attn.attention_fwd_lse_plain(
+                qp, kp, vp, tab["kq_blk"], tab["kk_blk"], tab["kmask"], heads,
+                kbs, scale)
+        elif with_lse:
+            out, lse = bst_attn.attention_fwd_lse(
+                qp, kp, vp, tab["row_ptr"], tab["ent_k"], tab["ent_code"],
+                tab["uniq"], heads, kbs, scale, order=tab["order"])
+        else:
+            out = bst_attn.attention_fwd(
+                qp, kp, vp, tab["row_ptr"], tab["ent_k"], tab["ent_code"],
+                tab["uniq"], heads, kbs, scale, order=tab["order"])
+        if with_lse and lse.shape[-1] != ctx_q:
+            lse = lse[..., :ctx_q].contiguous()
+        return _crop(out, ctx_q, heads, hs), lse if with_lse else None
+
+    def _kernel_bwd(self, q, k, v, do, out, lse, scale):
+        """dq, dk, dv of the fused attention on the kernels' view: D =
+        rowsum(dO·out) from the unpadded dO and out; q, k, v and dO padded
+        as in ``_kernel_fwd``, lse padded with -inf and D with 0 (the
+        padded query rows see no key); dq and dk/dv by the kernels on a
+        CUDA tensor or the plain backward on a CPU one, cropped back.  dq
+        in q's dtype, dk and dv in f32."""
+        tab = self._tables(q.device)
+        heads, kbs = self.heads, tab["kbs"]
+        _, ctx_q, state = q.shape
+        hs = state // heads
+        khs = bst_attn.kernel_head_size(hs)
+        dvec = _rowsum(do, out, heads)
+        pad_q = tab["kctx_q"] - ctx_q
+        if pad_q:
+            lse = torch.nn.functional.pad(lse, (0, pad_q),
+                                          value=float("-inf"))
+            dvec = torch.nn.functional.pad(dvec, (0, pad_q))
+        qp = _pad(q, tab["kctx_q"], heads, khs)
+        dop = _pad(do, tab["kctx_q"], heads, khs)
+        kp = _pad(k, tab["kctx_k"], heads, khs)
+        vp = _pad(v, tab["kctx_k"], heads, khs)
+        if q.is_cuda:
+            dq = bst_attn.attention_dq(
+                qp, kp, vp, dop, lse, dvec, tab["row_ptr"], tab["ent_k"],
+                tab["ent_code"], tab["uniq"], heads, kbs, scale)
+            dk, dv = bst_attn.attention_dkv(
+                qp, kp, vp, dop, lse, dvec, tab["row_ptr_t"], tab["ent_q"],
+                tab["ent_code_t"], tab["uniq_t"], heads, kbs, scale,
+                order=tab["order_t"])
+        else:
+            dq, dk, dv = bst_attn.attention_bwd_plain(
+                qp, kp, vp, dop, lse, dvec, tab["kq_blk"], tab["kk_blk"],
+                tab["kmask"], heads, kbs, scale)
+        ctx_k = k.shape[1]
+        return (_crop(dq, ctx_q, heads, hs), _crop(dk, ctx_k, heads, hs),
+                _crop(dv, ctx_k, heads, hs))
 
     # ------------- KV-cached decode ----------------
 
@@ -309,21 +380,52 @@ class BlocksparseTransformer:
         return out.reshape(batch, 1, state).to(q.dtype)
 
 
+def _rowsum(do, out, heads):
+    """D = rowsum(dO·out) a head, in f32: (batch, heads, ctx_q)."""
+    batch, ctx_q, state = do.shape
+    d = (do.float() * out.float()).reshape(batch, ctx_q, heads,
+                                           state // heads).sum(-1)
+    return d.transpose(1, 2).contiguous()
+
+
+def _pad(a, ctx, heads, hs):
+    """(batch, c, heads·h) -> (batch, ctx, heads·hs), zero-filled past c
+    positions and h columns a head; ``a`` itself where nothing is
+    padded."""
+    batch, c, state = a.shape
+    h = state // heads
+    if c == ctx and h == hs:
+        return a
+    out = a.new_zeros((batch, ctx, heads, hs))
+    out[:, :c, :, :h] = a.reshape(batch, c, heads, h)
+    return out.reshape(batch, ctx, heads * hs)
+
+
+def _crop(a, ctx, heads, hs):
+    """The inverse of ``_pad``: the first ctx positions and hs columns of
+    each head of a (batch, c, heads·h) tensor, contiguous."""
+    batch, c, state = a.shape
+    h = state // heads
+    if c == ctx and h == hs:
+        return a
+    return a.reshape(batch, c, heads, h)[:, :ctx, :, :hs].reshape(
+        batch, ctx, heads * hs)
+
+
 class _AttentionFunction(torch.autograd.Function):
     """The JAX ``_attention_fused`` custom_vjp with ``flash_bwd=True``:
     the forward keeps (q, k, v, out, lse); the backward forms
     D = rowsum(dO·out) in plain torch and runs dq and dk/dv, casting each
-    to its input's dtype (dk and dv come out of their kernel in f32)."""
+    to its input's dtype (dk and dv come out of their kernel in f32).
+    ``fused``: the kernels' route (``_kernel_fwd``/``_kernel_bwd``), else
+    the plain versions at the op's own block size."""
 
     @staticmethod
     def forward(ctx, q, k, v, bst, scale, fused):
-        tab = bst._tables(q.device)
         if fused:
-            out, lse = bst_attn.attention_fwd_lse(
-                q, k, v, tab["row_ptr"], tab["ent_k"], tab["ent_code"],
-                tab["uniq"], bst.heads, bst.blk_size, scale,
-                order=tab["order"])
+            out, lse = bst._kernel_fwd(q, k, v, scale, with_lse=True)
         else:
+            tab = bst._tables(q.device)
             out, lse = bst_attn.attention_fwd_lse_plain(
                 q, k, v, tab["q_blk"], tab["k_blk"], tab["mask"], bst.heads,
                 bst.blk_size, scale)
@@ -335,27 +437,16 @@ class _AttentionFunction(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         bst, scale = ctx.bst, ctx.scale
-        heads, bs = bst.heads, bst.blk_size
-        tab = bst._tables(q.device)
-        batch, ctx_q, state = q.shape
         do = do.to(q.dtype)
         if do.stride(-1) != 1:
             do = do.contiguous()
-        dvec = (do.float() * out.float()).reshape(
-            batch, ctx_q, heads, state // heads).sum(-1)
-        dvec = dvec.transpose(1, 2).contiguous()       # (batch, heads, ctx_q)
         if ctx.fused:
-            dq = bst_attn.attention_dq(
-                q, k, v, do, lse, dvec, tab["row_ptr"], tab["ent_k"],
-                tab["ent_code"], tab["uniq"], heads, bs, scale)
-            dk, dv = bst_attn.attention_dkv(
-                q, k, v, do, lse, dvec, tab["row_ptr_t"], tab["ent_q"],
-                tab["ent_code_t"], tab["uniq_t"], heads, bs, scale,
-                order=tab["order_t"])
+            dq, dk, dv = bst._kernel_bwd(q, k, v, do, out, lse, scale)
         else:
+            tab = bst._tables(q.device)
             dq, dk, dv = bst_attn.attention_bwd_plain(
-                q, k, v, do, lse, dvec, tab["q_blk"], tab["k_blk"],
-                tab["mask"], heads, bs, scale)
+                q, k, v, do, lse, _rowsum(do, out, bst.heads), tab["q_blk"],
+                tab["k_blk"], tab["mask"], bst.heads, bst.blk_size, scale)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
                 None)
 

@@ -32,7 +32,13 @@ shape, dk/dv's key rows launched by entry count and in CSR order with
 equal bits; held against its plain version at every (bs, hs) and on a
 layout with a fully masked query row; its device time, TFLOP/s,
 registers and spills printed beside its bound and SDPA's backward, dk/dv
-in both launch orders) and ``bst_attn_bwd.cu`` in f32.  The embedding
+in both launch orders) and ``bst_attn_bwd.cu`` in f32.  The sizes the
+reference fuses beyond the kernels' own go through the op's route to the
+kernels: block size 8 as the kernels' bs-16 view of the layout, head
+sizes 8, 48 and 96 zero-padded to 16, 64 and 128; forward, lse, dq and
+dk/dv held against the plain versions at the op's own sizes in bf16, f16
+and f32 (two runs equal bit for bit, a fully masked row at bs 8), and
+the padding's cost timed at the LM's shape with 8 heads of 48.  The embedding
 backward (a sorted segment sum) runs twice at the LM's shape for equal
 bits.  Then it drives the repo's enwik8 Sparse Transformer at full width (512-d, 6
 layers, 8 heads, ctx 2048, 64-blocks, fixed layout, block-sparse b32
@@ -46,6 +52,11 @@ before and read just after:
   dynamic loss scale) on 8 x 2048 random bytes, held against the same
   step of the model run on the plain versions, then eight steps that
   must lower the loss.
+
+Then two cut-down LMs that reach the attention kernels only through
+the view and the padding, blk_size 8 and 8 heads of 48, each down its
+serving forward and one train step, counted, against its plain-version
+model.
 
 With the MLP's products at decode below the card's SM count, the
 serving path's ``generate_cached`` runs them on the split route, one
@@ -63,12 +74,16 @@ Then the block-sparse conv, ``BlocksparseConv(impl="bsmm")``, at the
 repo's conv benchmark configuration (``benchmarks/conv_bench.py``: 3x3
 SAME filters, 32x32 channel blocks, NCHW 32x32 images, batch 32, bf16,
 C = K in {512, 1024, 2048}, block densities 0.25 and 0.0625, the loss
-sum(square(y))): im2col and col2im (``col2im_tma.cu``, dX read by TMA
-tile loads) held against their plain versions at C=512 in f32, bf16 and
-f16, col2im also timed in bf16 at C 1024 and 2048 beside ``F.fold`` and
-its bound; the C=512 forward and both gradients held
-against the plain path, counted; every configuration's forward held
-against a dense cuDNN conv of the scattered filter and timed beside it.
+sum(square(y))): im2col (``im2col.cu``, reading the NCHW image in place)
+and col2im (``col2im_tma.cu``, dX read by TMA tile loads, written into
+the channel-major array and into the NCHW image) held against their
+plain versions at C=512 in f32, bf16 and f16, both also in bf16 at C
+1024 and 2048, and timed beside ``F.unfold`` / ``F.fold`` and their
+bound; the C=512 forward and both gradients held against the plain
+path, counted, with no copy of the image's size in the kernel path's
+forward or backward (the profiler's op records); every configuration's
+forward held against a dense cuDNN conv of the scattered filter and
+timed beside it.
 
 Then ``BlocksparseMatMul``'s schedule modes.  ``bsmm_fine`` and
 ``bsmm_window`` run ``bsmm_fine_mma.cu`` and ``bsmm_window_mma.cu`` on
@@ -174,8 +189,13 @@ CANON_MODES = ("fine", "window", "auto", "grouped")
 # (the split route's f32 form) the same sums in other orders, unrounded:
 # 1e-4 of max|plain|.
 CHAIN_TOL, F32_CHAIN_TOL = 3e-2, 1e-4
-# col2im's target at the conv's C=512 shape (bf16), ms on the H100
-COL2IM_TARGET = 0.20
+# col2im's and im2col's targets at the conv's C=512 shape (bf16), ms on
+# the H100 (im2col's: 60% of its bound), and the previous im2col kernel's
+# time there (CUDA events, mean of 20, two runs), measured by this script
+# before the kernel was redesigned
+COL2IM_TARGET, IM2COL_TARGET = 0.20, 0.167
+IM2COL_PREV_MS = {512: (0.2372, 0.2356)}
+IM2COL_PREV_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 # the xprop kernel's template flag OUT (bsmm_xprop_mma.cu): the fused split
 # (OUT_SPLIT = 2) and the partial tiles (OUT_PARTIAL = 1), in the
 # profiler's demangled names and in ptxas' mangled ones
@@ -483,16 +503,23 @@ def f1_mask(blk_shape, head, qry, key, blk):
 
 
 def attn_block_size_checks(bt, dev, g):
-    """bst_attn_fwd_mma.cu against attention_fwd_lse_plain (out and lse,
-    both entry points) and bst_attn_bwd_mma.cu against attention_bwd_plain
-    at every (bs, hs) they take, in bf16 and f16, on a small case (the
-    fixed layout of 4 block-rows and 2 local blocks, the causal sub-block
-    mask, batch 2, 2 heads; q, k, v column slices of one qkv), each run
-    twice for equal bits; and a causal layout with a fully masked query
-    row (F1): zero out and dq there, lse -inf, no NaN anywhere."""
+    """The attention kernels at every size the op takes, through its route
+    to them (``_kernel_fwd``, ``_kernel_bwd``), on a small case (the fixed
+    layout with 2 local blocks, the causal sub-block mask, batch 2, 2
+    heads; q, k, v column slices of one qkv): in bf16 and f16 every (bs,
+    hs) the kernels are built for, and in bf16, f16 and f32 the sizes the
+    op carries onto them, block size 8 (the kernels' bs-16 view; ctx 40
+    pads one hidden 8-row) and head sizes 8, 48 and 96 (zero-padded to 16,
+    64 and 128).  The serving forward, the training forward's out and lse,
+    dq, dk and dv against the plain versions at the op's own sizes, each
+    kernel launched once a run, two runs equal bit for bit; and layouts
+    with a fully masked query row (F1) at b16 and b8: zero out and dq
+    there, lse -inf, no NaN anywhere."""
     from blocksparse_tpu_torch.kernels import bst_attn
     from blocksparse_tpu_torch.models.sparse_transformer import (
         causal_subblock_mask, fixed_layout)
+    names = ("bst_attn_fwd", "bst_attn_fwd_lse", "bst_attn_dq",
+             "bst_attn_dkv")
 
     def case(layout, bs, hs, dtype, mask_callback, what, heads=2, batch=2):
         op = bt.BlocksparseTransformer(layout, block_size=bs, heads=heads,
@@ -509,56 +536,52 @@ def attn_block_size_checks(bt, dev, g):
         dvec = (do.float() * out.float()).reshape(
             batch, ctx, heads, hs).sum(-1).transpose(1, 2).contiguous()
         refs = bst_attn.attention_bwd_plain(q, k, v, do, lse, dvec, *args)
-        fargs = (tab["row_ptr"], tab["ent_k"], tab["ent_code"], tab["uniq"],
-                 heads, bs, scale)
 
-        def run_fwd():
-            return (bst_attn.attention_fwd(q, k, v, *fargs,
-                                           order=tab["order"]),
-                    *bst_attn.attention_fwd_lse(q, k, v, *fargs,
-                                                order=tab["order"]))
-        fo, fo_lse, flse = run_fwd()
-        for name, a in (("out", fo), ("out (lse entry)", fo_lse)):
-            compare_fwd(f"{what} forward {name}", a, out, dtype)
+        def run():
+            before = read_counts()
+            got = (op._kernel_fwd(q, k, v, scale, with_lse=False)[0],
+                   *op._kernel_fwd(q, k, v, scale, with_lse=True),
+                   *op._kernel_bwd(q, k, v, do, out, lse, scale))
+            after = read_counts()
+            check(all(after[n] == before[n] + 1 for n in names),
+                  f"{what}: each attention kernel launched once")
+            return got
+        serve, fo, flse, *grads = run()
+        for name, a in (("serving out", serve), ("training out", fo)):
+            compare_fwd(f"{what} {name}", a, out, dtype)
         live = torch.isfinite(lse)
         lse_err = (flse[live] - lse[live]).abs().max().item()
         check(torch.equal(live, torch.isfinite(flse)) and lse_err <= LSE_TOL,
-              f"{what} forward lse: max_abs_err {lse_err:.3e} (tol "
-              f"{LSE_TOL:g}), -inf where the plain lse is")
-        same_bits(f"{what} forward out, lse", lambda: torch.cat(
-            [t.float().flatten() for t in run_fwd()]))
-
-        def run():
-            return (bst_attn.attention_dq(
-                q, k, v, do, lse, dvec, tab["row_ptr"], tab["ent_k"],
-                tab["ent_code"], tab["uniq"], heads, bs, scale),
-                *bst_attn.attention_dkv(
-                    q, k, v, do, lse, dvec, tab["row_ptr_t"], tab["ent_q"],
-                    tab["ent_code_t"], tab["uniq_t"], heads, bs, scale,
-                    order=tab["order_t"]))
-        got = run()
-        for name, a, r in zip(("dq", "dk", "dv"), got, refs):
+              f"{what} lse: max_abs_err {lse_err:.3e} (tol {LSE_TOL:g}), "
+              f"-inf where the plain lse is")
+        for name, a, r in zip(("dq", "dk", "dv"), grads, refs):
             compare(f"{what} {name}", a, r, ATTN_TOL[dtype])
-        same_bits(f"{what} dq, dk, dv", lambda: torch.cat(
+        same_bits(f"{what} out, lse, dq, dk, dv", lambda: torch.cat(
             [t.float().flatten() for t in run()]))
-        return (fo, flse) + got
+        return (fo, flse) + tuple(grads)
 
-    for dtype in (torch.bfloat16, torch.float16):
-        for bs in bst_attn.BLOCK_SIZES:
-            for hs in bst_attn.HEAD_SIZES:
-                case(fixed_layout(4, local_blocks=2), bs, hs, dtype,
-                     causal_subblock_mask,
-                     f"bst_attn_(fwd|bwd)_mma b{bs} hs{hs} {dtype}")
-        out, lse, dq, dk, dv = case(
-            np.tril(np.ones((4, 4), np.int32)), 16, 32, dtype, f1_mask,
-            f"bst_attn_(fwd|bwd)_mma F1 layout {dtype}")
-        dead = 16 + 3
-        check(bool((out[:, dead] == 0).all() and (dq[:, dead] == 0).all()
-                   and torch.isneginf(lse[:, :, dead]).all()) and all(
-            bool(torch.isfinite(t).all()) for t in (out, dq, dk, dv)),
-              f"bst_attn_(fwd|bwd)_mma {dtype}: the fully masked query row's "
-              f"out and dq are zero and its lse -inf, no NaN in out, dq, "
-              f"dk, dv")
+    built = [(bs, hs, 4) for bs in bst_attn.BLOCK_SIZES
+             for hs in bst_attn.HEAD_SIZES]
+    carried = [(8, 16, 5), (8, 64, 8), (16, 8, 4), (16, 48, 4), (64, 48, 4),
+               (32, 96, 4)]
+    for dtype in DTYPES:
+        for bs, hs, blks in (carried if dtype == torch.float32
+                             else built + carried):
+            case(fixed_layout(blks, local_blocks=2), bs, hs, dtype,
+                 causal_subblock_mask,
+                 f"attention b{bs} hs{hs} ctx {blks * bs} (kernels at "
+                 f"b{max(bs, 16)} hs{bst_attn.kernel_head_size(hs)}) {dtype}")
+        for bs, hs, blks in ((16, 32, 4), (8, 48, 5)):
+            out, lse, dq, dk, dv = case(
+                np.tril(np.ones((blks, blks), np.int32)), bs, hs, dtype,
+                f1_mask, f"attention b{bs} hs{hs} F1 layout {dtype}")
+            dead = bs + 3
+            check(bool((out[:, dead] == 0).all() and (dq[:, dead] == 0).all()
+                       and torch.isneginf(lse[:, :, dead]).all()) and all(
+                bool(torch.isfinite(t).all()) for t in (out, dq, dk, dv)),
+                  f"attention b{bs} {dtype}: the fully masked query row's "
+                  f"out and dq are zero and its lse -inf, no NaN in out, dq, "
+                  f"dk, dv")
     torch.cuda.empty_cache()
 
 
@@ -794,18 +817,13 @@ def kernel_device_ms(fn, key, n=20):
     """Mean device time a launch of the kernel whose name holds ``key``,
     over n calls of fn() under the profiler (the launches it recorded):
     the kernel's own time where the host's enqueue of a launch takes
-    longer."""
-    for _ in range(3):  # CUPTI now and then records none of a window
-        _, kernels = device_events(lambda: [fn() for _ in range(n)])
-        hits = [e for e in kernels if key in e.key]
-        count = sum(e.count for e in hits)
-        if count:
-            break
-        print(f"      profiler: no launch of {key} recorded; profiling "
-              f"again", flush=True)
-    else:
-        check(False, f"profiler: no launch of {key} recorded in three "
-                     f"profiled windows")
+    longer.  CUDA events' time of a call where no window recorded one."""
+    _, kernels = device_events(lambda: [fn() for _ in range(n)],
+                               lambda ks: any(key in e.key for e in ks))
+    hits = [e for e in kernels if key in e.key]
+    count = sum(e.count for e in hits)
+    if not count:
+        return events_instead(fn, n, key)
     if count != n:
         print(f"      profiler: {count} launches of {key} recorded for "
               f"{n} calls", flush=True)
@@ -814,15 +832,14 @@ def kernel_device_ms(fn, key, n=20):
 
 def device_ms_per_call(fn, match, n=20):
     """Mean device time a call of fn() spends in the kernels whose names
-    ``match`` accepts, over n calls under the profiler."""
-    for _ in range(3):  # CUPTI now and then records none of a window
-        _, kernels = device_events(lambda: [fn() for _ in range(n)])
-        hits = [e for e in kernels if match(e.key)]
-        if hits:
-            return sum(e.self_device_time_total for e in hits) / n / 1e3
-        print("      profiler: no launch recorded; profiling again",
-              flush=True)
-    check(False, "profiler: no launch recorded in three profiled windows")
+    ``match`` accepts, over n calls under the profiler; CUDA events' time
+    of a call where no window recorded one."""
+    _, kernels = device_events(lambda: [fn() for _ in range(n)],
+                               lambda ks: any(match(e.key) for e in ks))
+    hits = [e for e in kernels if match(e.key)]
+    if not hits:
+        return events_instead(fn, n, "the call's kernels")
+    return sum(e.self_device_time_total for e in hits) / n / 1e3
 
 
 def in_turns(fns, times):
@@ -1049,65 +1066,131 @@ def conv_configs():
 
 def conv_kernel_checks(dev, g, rows):
     """im2col and col2im against their plain versions at the C=512 conv's
-    shapes (N 32, 32x32, b32, 3x3 SAME): im2col exactly (a copy), col2im
-    (csrc/col2im_tma.cu) exactly in f32 and within one output rounding in
-    bf16 and f16; with F.unfold / F.fold (the same taps in another row
-    order) timed beside.  Then col2im in bf16 at C = 1024 and 2048, held
-    and timed the same way, each beside its bound and F.fold; C=512's
-    against its target."""
+    shapes (N 32, 32x32, b32, 3x3 SAME): im2col from the NCHW image, as
+    the conv calls it (``im2col_image``), bit for bit (a copy); col2im
+    into the channel-major (C, N*H*W) exactly in f32 and within one output
+    rounding in bf16 and f16, and into the NCHW image (``col2im_image``,
+    as the conv's backward calls it) bit for bit; F.unfold / F.fold (the
+    same taps in another row order) timed beside.  Then both in bf16 at
+    C = 1024 and 2048, held and timed the same way, each beside its bound
+    and F.unfold / F.fold; C=512's against its target, im2col's also
+    beside the previous kernel's time."""
     from blocksparse_tpu_torch.kernels import im2col as ic
     C, N, H, W, b = CONV_CHANNELS[0], CONV_BATCH, CONV_HW, CONV_HW, CONV_BLOCK
-    NP, args = N * H * W, (H, W, 3, 3, 1, 1, b)
+    NP, args, taps = N * H * W, (H, W, 3, 3, 1, 1, b), (3, 3, 1, 1, b)
     what = f"C={C} N={N} {H}x{W} 3x3 b{b}"
     for dtype in DTYPES:
-        xc = torch.randn((C, NP), device=dev, generator=g).to(dtype)
-        err = compare(f"im2col {what} {dtype}", ic.im2col(xc, *args),
-                      ic.im2col_plain(xc, *args), 0.0)
-        timed(rows, ("im2col", dtype), err, lambda: ic.im2col(xc, *args),
+        x = torch.randn((N, C, H, W), device=dev, generator=g).to(dtype)
+        xc = x.transpose(0, 1).reshape(C, NP)
+        X, ref = ic.im2col_image(x, *taps), ic.im2col_plain(xc, *args)
+        err = compare(f"im2col {what} {dtype} (from the NCHW image)", X, ref,
+                      0.0)
+        check(torch.equal(X, ref), f"im2col {what} {dtype}: equal to "
+                                   f"im2col_plain bit for bit")
+        del X, ref
+        timed(rows, ("im2col", dtype), err, lambda: ic.im2col_image(x, *taps),
               lambda: ic.im2col_plain(xc, *args), 20)
         # dX as bsmm_bprop gives it: the (C*9, N*H*W) view of an NC array
         dX = torch.randn((NP, C * 9), device=dev, generator=g).to(dtype).t()
         tol = 0.0 if dtype == torch.float32 else torch.finfo(dtype).eps
+        ref = ic.col2im_plain(dX, *args)
         err = compare(f"col2im {what} {dtype} (one rounding: eps "
-                      f"{tol:g})", ic.col2im(dX, *args),
-                      ic.col2im_plain(dX, *args), tol)
+                      f"{tol:g})", ic.col2im(dX, *args), ref, tol)
+        check(torch.equal(ic.col2im_image(dX, N, *args),
+                          ref.reshape(C, N, H, W).transpose(0, 1)),
+              f"col2im {what} {dtype} into the NCHW image: equal to "
+              f"col2im_plain bit for bit")
+        del ref
         timed(rows, ("col2im", dtype), err, lambda: ic.col2im(dX, *args),
               lambda: ic.col2im_plain(dX, *args), 20)
         if dtype == torch.bfloat16:
-            x4 = xc.reshape(C, N, H, W).transpose(0, 1).contiguous()
             cols = dX.reshape(C * 9, N, H * W).transpose(0, 1).contiguous()
-            rows["unfold"] = time_ms(
-                lambda: nnf.unfold(x4, 3, padding=1), 20)
+            rows["unfold"] = time_ms(lambda: nnf.unfold(x, 3, padding=1), 20)
+            rows[("cm_copy", C)] = time_ms(
+                lambda: x.transpose(0, 1).reshape(C, NP), 20)
             rows["fold"] = time_ms(
                 lambda: nnf.fold(cols, (H, W), 3, padding=1), 20)
             print(f"      F.unfold {rows['unfold']:.4f} ms, F.fold "
                   f"{rows['fold']:.4f} ms (another row order)", flush=True)
-            del x4, cols
-        del xc, dX
+            del cols
+        del x, xc, dX
     torch.cuda.empty_cache()
     bf = torch.bfloat16
+    rows[("im2col_c", C)] = (rows[("im2col", bf)][1], rows["unfold"])
     rows[("col2im_c", C)] = (rows[("col2im", bf)][1], rows["fold"])
     for c in CONV_CHANNELS[1:]:
+        what = f"C={c} N={N} {H}x{W} 3x3 b{b} {bf}"
+        x = torch.randn((N, c, H, W), device=dev, generator=g).to(bf)
+        xc = x.transpose(0, 1).reshape(c, NP)
+        check(torch.equal(ic.im2col_image(x, *taps),
+                          ic.im2col_plain(xc, *args)),
+              f"im2col {what} (from the NCHW image): equal to im2col_plain "
+              f"bit for bit")
+        rows[("im2col_c", c)] = (
+            time_ms(lambda: ic.im2col_image(x, *taps), 20),
+            time_ms(lambda: nnf.unfold(x, 3, padding=1), 20))
+        rows[("cm_copy", c)] = time_ms(
+            lambda: x.transpose(0, 1).reshape(c, NP), 20)
+        del x, xc
+        torch.cuda.empty_cache()
         dX = torch.randn((NP, c * 9), device=dev, generator=g).to(bf).t()
-        compare(f"col2im C={c} N={N} {H}x{W} 3x3 b{b} {bf} (one rounding: "
-                f"eps {torch.finfo(bf).eps:g})", ic.col2im(dX, *args),
-                ic.col2im_plain(dX, *args), torch.finfo(bf).eps)
+        compare(f"col2im {what} (one rounding: eps {torch.finfo(bf).eps:g})",
+                ic.col2im(dX, *args), ic.col2im_plain(dX, *args),
+                torch.finfo(bf).eps)
         ms = time_ms(lambda: ic.col2im(dX, *args), 20)
         cols = dX.reshape(c * 9, N, H * W).transpose(0, 1).contiguous()
         fold = time_ms(lambda: nnf.fold(cols, (H, W), 3, padding=1), 20)
         rows[("col2im_c", c)] = (ms, fold)
         del dX, cols
         torch.cuda.empty_cache()
-    for c in CONV_CHANNELS:
-        ms, fold = rows[("col2im_c", c)]
-        mark = bound(0, (1 + 9) * c * NP * 2)
-        print(f"col2im (col2im_tma.cu) C={c} N={N} {H}x{W} 3x3 b{b} bf16 "
-              f"[{card()}]: {ms:.4f} ms (CUDA events, mean of 20), bound "
-              f"{mark[0]:.4f} ms ({mark[1]}, {mark[0] / ms:.0%} of it), "
-              f"F.fold {fold:.4f} ms" + (
-                  f"; target <= {COL2IM_TARGET} ms: "
-                  f"{'met' if ms <= COL2IM_TARGET else 'missed'}"
-                  if c == C else ""), flush=True)
+    for name, src, key, lib, target in (
+            ("im2col", "im2col.cu", "im2col_c", "F.unfold", IM2COL_TARGET),
+            ("col2im", "col2im_tma.cu", "col2im_c", "F.fold", COL2IM_TARGET)):
+        for c in CONV_CHANNELS:
+            ms, lib_ms = rows[(key, c)]
+            mark = bound(0, (1 + 9) * c * NP * 2)
+            prev = ""
+            if name == "im2col":
+                prev = "; the previous kernel " + (
+                    " / ".join(f"{t:.4f}" for t in IM2COL_PREV_MS[c])
+                    + f" ms ({IM2COL_PREV_CARD})" if c in IM2COL_PREV_MS
+                    else "not measured") + (
+                    f", after the channel-major copy of the image it "
+                    f"read, which the conv no longer makes: "
+                    f"{rows[('cm_copy', c)]:.4f} ms")
+            print(f"{name} ({src}) C={c} N={N} {H}x{W} 3x3 b{b} bf16 "
+                  f"[{card()}]: {ms:.4f} ms (CUDA events, mean of 20), bound "
+                  f"{mark[0]:.4f} ms ({mark[1]}, {mark[0] / ms:.0%} of it), "
+                  f"{lib} {lib_ms:.4f} ms{prev}" + (
+                      f"; target <= {target} ms: "
+                      f"{'met' if ms <= target else 'missed'}"
+                      if c == C else ""), flush=True)
+
+
+def image_copies(conv, F, x):
+    """The copies (``aten::copy_``) of at least as many elements as the
+    image x in the conv's forward (no gradient) and in its backward from a
+    gradient laid out as the forward's output: [(phase, input shapes)],
+    from torch.profiler's op records."""
+    from torch.profiler import ProfilerActivity, profile
+    n = x.numel()
+
+    def copies(fn, phase):
+        with profile(activities=[ProfilerActivity.CPU],
+                     record_shapes=True) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return [(phase, e.input_shapes) for e in prof.events()
+                if e.name == "aten::copy_" and any(
+                    int(np.prod(sh)) >= n for sh in e.input_shapes if sh)]
+    with torch.no_grad():
+        found = copies(lambda: conv(F, x), "forward")
+    Fr, xr = F.detach().requires_grad_(), x.detach().requires_grad_()
+    y = conv(Fr, xr)
+    dy = torch.randn_like(y)
+    found += copies(lambda: torch.autograd.grad(y, (xr, Fr), dy),
+                    "backward")
+    return found
 
 
 def conv_inputs(bt, conv, dev, g):
@@ -1155,15 +1238,25 @@ CONV_PARTS = (("im2col", ("im2col_kernel",)),
 def profile_conv(fn, ms, label):
     """One conv forward + backward under torch.profiler: device time by
     port kernel (fprop and bprop told apart by the kernel's template
-    flag), then the largest other kernels (copies, casts, the loss)."""
-    _, kernels = device_events(fn)
-    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    flag), then the largest other kernels (copies, casts, the loss).
+    CUPTI now and then drops a kernel's record: a window that lacks one of
+    the kernels every forward + backward launches is profiled again, and
+    a part still without a record is printed as not measured."""
+    def missing(kernels):
+        return [name for name, keys in CONV_PARTS
+                if name != "updat reduce" and not any(
+                    all(k in e.key for k in keys) for e in kernels)]
+    _, kernels = device_events(fn, lambda ks: not missing(ks))
     rest, parts = list(kernels), []
     for name, keys in CONV_PARTS:
         hits = [e for e in rest if all(k in e.key for k in keys)]
         rest = [e for e in rest if e not in hits]
+        n = sum(e.count for e in hits)
         parts.append(f"{name} {sum(e.self_device_time_total for e in hits) / 1e3:.3f} ms "
-                     f"({sum(e.count for e in hits)})")
+                     f"({n})" if n or name == "updat reduce" else
+                     f"{name} not measured (no record in {PROFILE_TRIES} "
+                     f"windows)")
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
     rest.sort(key=lambda e: -e.self_device_time_total)
     parts += [f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms "
               f"({e.count})" for e in rest[:5]]
@@ -1213,6 +1306,14 @@ def conv_path(bt, dev, g, card_line, rows):
                         TOL[bf])
             del y, dI, dF
             conv_bsmm_checks(conv, plain, x, dev, g, rows)
+            found = image_copies(conv, F, x)
+            check(not found, f"{what}: the kernel path copies nothing of the "
+                             f"image's size (no channel-major copy before "
+                             f"im2col, none of dI after col2im): {found}")
+            control = [p for p, _ in image_copies(plain, F, x)]
+            print(f"      image-sized copies: kernel path none; the plain "
+                  f"path (channel-major, for comparison) {len(control)} "
+                  f"({', '.join(control)})", flush=True)
             plain_ms = time_ms(lambda: conv_fwd_bwd(plain, F, x), 3)
             print(f"      plain path forward + backward {plain_ms:.3f} ms",
                   flush=True)
@@ -1267,8 +1368,7 @@ def conv_bsmm_checks(conv, plain, x, dev, g, rows):
     from blocksparse_tpu_torch.kernels import im2col as ic
     bf = torch.bfloat16
     op, ref = conv._bsmm_op, plain._bsmm_op
-    X = ic.im2col(x.transpose(0, 1).reshape(conv.C, -1), CONV_HW, CONV_HW,
-                  3, 3, 1, 1, CONV_BLOCK)
+    X = ic.im2col_image(x, 3, 3, 1, 1, CONV_BLOCK)
     w = (torch.randn(op.w_shape, device=dev, generator=g) * 0.1).to(bf)
     dy = torch.randn((op.K, X.shape[1]), device=dev, generator=g).to(bf)
     what = f"C*9={op.C} -> K={op.K}, N={X.shape[1]}, {op.blocks} blocks bf16"
@@ -1492,7 +1592,8 @@ def decode_step_split(model, full, out, card_line, steps=10):
     torch.cuda.synchronize()
     _, kernels = device_events(lambda: [
         model.decode_forward(tok, caches, PROMPT_LEN + 1 + steps + i)
-        for i in range(steps)])
+        for i in range(steps)], lambda ks: any(
+            SPLIT_KERNEL.search(e.key) for e in ks))
     dev_ms = sum(e.self_device_time_total for e in kernels) / steps / 1e3
     per_launch = []
     for name, match in (
@@ -1508,6 +1609,146 @@ def decode_step_split(model, full, out, card_line, steps=10):
     print(f"decode step [{card_line}]: host enqueue {host_ms:.2f} ms, "
           f"device {dev_ms:.3f} ms ({dev_ms / host_ms:.0%} of it; mean of "
           f"{steps}, profiler); " + ", ".join(per_launch), flush=True)
+
+
+# The LMs the kernels serve through the view and the padding: the enwik8
+# LM's layout, MLP and dtype cut to VIEW_LM_LAYERS layers, ctx
+# VIEW_LM_CTX and batch VIEW_LM_BATCH, at block size 8 (the kernels run
+# its bs-16 view) and with 8 heads of 48 (n_embd 384; the kernels run hs
+# 64), each against the same model on the plain versions.
+VIEW_LMS = (("LM blk_size 8", dict(blk_size=8)),
+            ("LM n_embd 384, 8 heads of 48", dict(n_embd=384)))
+VIEW_LM_LAYERS, VIEW_LM_CTX, VIEW_LM_BATCH = 2, 1024, 2
+
+
+def view_lm_paths(bt, dev):
+    """Each of VIEW_LMS down its two paths, counted: the serving forward
+    (bst_attn_fwd once a layer) and one train step (bst_attn_fwd_lse, dq
+    and dk/dv once a layer; no recompute), held against the plain-version
+    model: logits within MODEL_TOL, the step's loss and grad norm within
+    STEP_LOSS_TOL.  Returns {name: (serving launches, step launches)}."""
+    out = {}
+    for what, kw in VIEW_LMS:
+        fields = dict(n_vocab=256, n_embd=512, n_layer=VIEW_LM_LAYERS,
+                      n_head=8, ctx=VIEW_LM_CTX, blk_size=64,
+                      attn_layout="fixed", local_blocks=8, mlp_ratio=4,
+                      mlp_block_size=32, mlp_density=0.5, dtype="bfloat16",
+                      recompute=False)
+        fields.update(kw)
+        cfg = bt.TransformerConfig(**fields)
+        model = bt.SparseTransformerLM(cfg, device=dev)
+        plain = bt.SparseTransformerLM(cfg, device=dev, impl="xla")
+        sd = bt.params_from_jax(bt.random_jax_params(model, seed=SEED),
+                                model)
+        model.load_state_dict(sd)
+        plain.load_state_dict(sd)
+        L = cfg.n_layer
+        rng = np.random.RandomState(SEED)
+        seq = torch.from_numpy(rng.randint(
+            0, cfg.n_vocab, (VIEW_LM_BATCH, cfg.ctx + 1))).to(dev)
+        tokens, targets = seq[:, :-1], seq[:, 1:]
+        what = (f"{what} ({L} layers, ctx {cfg.ctx}, batch {VIEW_LM_BATCH}, "
+                f"bf16)")
+        model(tokens[:1])                        # warm-up: tables, handles
+        torch.cuda.synchronize()
+        reset_counts()
+        logits = model(tokens)
+        torch.cuda.synchronize()
+        serve = read_counts()
+        check(serve["bst_attn_fwd"] == L and serve["bst_attn_fwd_lse"] == 0
+              and serve["bst_attn_dq"] == serve["bst_attn_dkv"] == 0,
+              f"{what}: serving forward launches bst_attn_fwd {L} "
+              f"({serve})")
+        compare(f"{what}: forward logits against the plain model", logits,
+                plain(tokens), MODEL_TOL)
+        opt = bt.AdamOptimizer(learning_rate=LR, zero_nans=True,
+                               zero_infs=True)
+        ls = torch.tensor(LOSS_SCALE, device=dev)
+        steps = []
+        for m in (model, plain):
+            step = m.make_train_step(opt, clip_norm=CLIP)
+            state = opt.init(dict(m.named_parameters()))
+            torch.cuda.synchronize()
+            reset_counts()
+            _, metrics, _ = step(state, tokens, targets, ls)
+            torch.cuda.synchronize()
+            steps.append((read_counts(), metrics))
+        (train, m0), (train_plain, m1) = steps
+        check(train["bst_attn_fwd_lse"] == train["bst_attn_dq"]
+              == train["bst_attn_dkv"] == L and train["bst_attn_fwd"] == 0
+              and not any(train_plain.values()),
+              f"{what}: train step launches bst_attn_fwd_lse, dq, dk/dv "
+              f"{L} each ({train}); the plain model none")
+        for k in ("loss", "grad_norm"):
+            a, b = m0[k].item(), m1[k].item()
+            check(np.isfinite(a) and abs(a - b) <= STEP_LOSS_TOL * abs(b),
+                  f"{what}: train step {k} {a:.6f} vs plain {b:.6f} (tol "
+                  f"{STEP_LOSS_TOL:g} relative)")
+        out[what] = (serve, train)
+        del model, plain, logits, steps
+        torch.cuda.empty_cache()
+    return out
+
+
+def pad_cost(bt, dev, g, card_line):
+    """What the head-size padding costs at the LM's shape with 8 heads of
+    48 (batch 8 x 2048, n_embd 384, the LM's fixed layout at b64, bf16):
+    the op's route (pad q, k, v (and dO) to hs 64, run the kernels, crop)
+    against the kernels alone on inputs padded beforehand, serving
+    forward and training (forward with lse, dq, dk/dv), in turns by CUDA
+    events, and by the device time of all their kernels (the profiler)."""
+    from blocksparse_tpu_torch.kernels import bst_attn
+    from blocksparse_tpu_torch.models.sparse_transformer import (
+        causal_subblock_mask, fixed_layout)
+    from blocksparse_tpu_torch.ops.transformer import _pad
+    heads, hs, bs, ctx = 8, 48, 64, 2048
+    op = bt.BlocksparseTransformer(fixed_layout(ctx // bs, local_blocks=8),
+                                   block_size=bs, heads=heads,
+                                   mask_callback=causal_subblock_mask)
+    qkv = torch.randn((BATCH, ctx, 3 * heads * hs), device=dev,
+                      generator=g).to(torch.bfloat16)
+    q, k, v = qkv.split(heads * hs, dim=-1)
+    do = torch.randn((BATCH, ctx, heads * hs), device=dev,
+                     generator=g).to(torch.bfloat16)
+    scale = 1.0 / np.sqrt(hs)
+    tab = op._tables(dev)
+    qp, kp, vp, dop = (_pad(t, ctx, heads, 64) for t in (q, k, v, do))
+    out, lse = op._kernel_fwd(q, k, v, scale, with_lse=True)
+    dvec = (do.float() * out.float()).reshape(
+        BATCH, ctx, heads, hs).sum(-1).transpose(1, 2).contiguous()
+    fwd_args = (tab["row_ptr"], tab["ent_k"], tab["ent_code"], tab["uniq"],
+                heads, bs, scale)
+    fns = {
+        "serving route": lambda: op._kernel_fwd(q, k, v, scale, False),
+        "serving kernel": lambda: bst_attn.attention_fwd(
+            qp, kp, vp, *fwd_args, order=tab["order"]),
+        "training route": lambda: (
+            op._kernel_fwd(q, k, v, scale, True),
+            op._kernel_bwd(q, k, v, do, out, lse, scale)),
+        "training kernels": lambda: (
+            bst_attn.attention_fwd_lse(qp, kp, vp, *fwd_args,
+                                       order=tab["order"]),
+            bst_attn.attention_dq(qp, kp, vp, dop, lse, dvec, *fwd_args),
+            bst_attn.attention_dkv(
+                qp, kp, vp, dop, lse, dvec, tab["row_ptr_t"], tab["ent_q"],
+                tab["ent_code_t"], tab["uniq_t"], heads, bs, scale,
+                order=tab["order_t"]))}
+    for route, kern in (("serving route", "serving kernel"),
+                        ("training route", "training kernels")):
+        t = in_turns({route: fns[route], kern: fns[kern]},
+                     lambda fn: time_ms(fn, 20))
+        r, kk = t[route], t[kern]
+        dev_r, dev_k = (device_ms_per_call(fns[n], lambda key: True)
+                        for n in (route, kern))
+        print(f"attention hs 48 padded to 64, batch {BATCH} x {ctx}, 8 heads, "
+              f"b{bs}, bf16 [{card_line}]: {route} {r[0]:.4f} / {r[1]:.4f} "
+              f"ms, the kernels alone on padded inputs {kk[0]:.4f} / "
+              f"{kk[1]:.4f} ms (CUDA events, mean of 20, in turns): the "
+              f"padding costs {np.mean(r) - np.mean(kk):.4f} ms; device "
+              f"time (profiler, mean of 20) {dev_r:.4f} against "
+              f"{dev_k:.4f} ms: {dev_r - dev_k:.4f} ms", flush=True)
+    del qkv, q, k, v, do, qp, kp, vp, dop, out, lse, dvec
+    torch.cuda.empty_cache()
 
 
 def compare_tensors(what, got, ref, tol, live=None, flip_bound=None):
@@ -1649,32 +1890,69 @@ def training_path(bt, model, plain, cfg, dev, card_line, profile_out):
 # "bst_attn_fwd", "bst_attn_dq" and "bst_attn_dkv" match the attention
 # kernels of both sources (bst_attn_*_mma_kernel in bf16/f16,
 # bst_attn_*_kernel in f32)
+# the spin kernels (torch.cuda._sleep) that open a profiled window
+PROFILE_SPINS, PROFILE_SPIN_CYCLES = 8, 100000
+# windows a profiled measurement takes before it gives up on CUPTI
+PROFILE_TRIES = 6
 PORT_KERNELS = ("bsmm_xprop", "bsmm_updat_mma", "bsmm_updat_nc",
                 "bsmm_updat_reduce", "bst_attn_fwd", "bst_attn_dq",
                 "bst_attn_dkv")
 
 
-def device_events(fn):
-    """fn() once under torch.profiler: (all events, the device events).
+def device_events(fn, need=bool):
+    """fn() under torch.profiler: (all events, the device events).
     Device events only are summed: a host op that launched a kernel
     through ctypes carries that kernel's time as its own "self" device
-    time too."""
+    time too.  A window's first kernel records go missing (after the
+    process's first window, the first one or two kernels were never
+    recorded), so PROFILE_SPINS spin kernels and a synchronize open the
+    window, and their records are left out.  CUPTI now and then records
+    none, or not all, of a window's kernels: a window whose device events
+    ``need`` refuses is profiled again, up to PROFILE_TRIES windows, and
+    the last one is returned either way."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    return events, [e for e in events if e.device_type == DeviceType.CUDA]
+    for i in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_SPINS):
+                torch.cuda._sleep(PROFILE_SPIN_CYCLES)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA
+                   and "spin_kernel" not in e.key]
+        if need(kernels):
+            break
+        print(f"      profiler: window {i + 1} lacks kernel records; "
+              f"profiling again" if i + 1 < PROFILE_TRIES else
+              f"      profiler: {PROFILE_TRIES} windows lacked kernel "
+              f"records", flush=True)
+    return events, kernels
+
+
+def events_instead(fn, n, what):
+    """CUDA events' mean time of fn() over n calls, where the profiler
+    recorded no launch of ``what``: the call's time on the device's clock,
+    the host's enqueue included where it is the longer."""
+    ms = time_ms(fn, n)
+    print(f"      profiler: no launch of {what} recorded in {PROFILE_TRIES} "
+          f"windows; {ms:.4f} ms a call by CUDA events instead", flush=True)
+    return ms
 
 
 def profile_port_kernels(label, fn, wall_ms, table_path=None):
     """One fn() (a train step, a forward) under torch.profiler: device time
     in all and by port kernel, against its unprofiled time; the full table
     goes to ``table_path`` when one is given."""
-    events, kernels = device_events(fn)
+    events, kernels = device_events(fn, lambda ks: any(
+        name in e.key for name in PORT_KERNELS for e in ks))
     total = sum(e.self_device_time_total for e in kernels) / 1e3
+    if not total:
+        print(f"{label} profile: not measured (no kernel record in "
+              f"{PROFILE_TRIES} windows)", flush=True)
+        return
     by_kernel = {}
     for name in PORT_KERNELS:
         hits = [e for e in kernels if name in e.key]
@@ -2016,7 +2294,9 @@ def canonical_path(rows_in, dev, g, card_line, rows):
             # the chain's time is the host's enqueue
             keys = ROUTE_KERNELS[op.dispatch_mode(CANON_N)]
             with torch.no_grad():
-                _, kernels = device_events(lambda: chain(op, x0, w0))
+                _, kernels = device_events(
+                    lambda: chain(op, x0, w0), lambda ks: any(
+                        k in e.key for k in keys for e in ks))
             dev_ms = sum(e.self_device_time_total for e in kernels
                          if any(k in e.key for k in keys)) / CANON_DEPTH / 1e3
             flops = 2 * CANON_N * op.blocks * b * b
@@ -2272,6 +2552,7 @@ def main():
     updat_block_size_checks(bt, dev, g)
     mode_block_size_checks(bt, dev, g)
     attn_block_size_checks(bt, dev, g)
+    pad_cost(bt, dev, g, card_line)
 
     # 4. the serving path, counted
     serve_launches = serving_path(bt, model, plain, cfg, dev, card_line)
@@ -2281,6 +2562,13 @@ def main():
                                    args.profile_out)
     print(f"launches: serving path {serve_launches}; training path (one "
           f"step) {train_launches}", flush=True)
+
+    # 5b. the LMs that reach the attention kernels through the bs-16 view
+    # (blk_size 8) and the head-size padding (hs 48): serving and a train
+    # step each, counted
+    for what, (serve, train) in view_lm_paths(bt, dev).items():
+        print(f"launches: {what}: serving {serve}; train step {train}",
+              flush=True)
 
     # 6. the block-sparse conv: kernels against plain versions, then the
     # conv path, counted

@@ -795,6 +795,97 @@ def test_attention_autograd_runs_train_kernels(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, *HALF])
+@pytest.mark.parametrize("ctx,bs,hs,kind", [
+    (40, 8, 16, "fixed"), (64, 8, 32, "fixed"), (64, 16, 8, "fixed"),
+    (64, 16, 48, "fixed"), (64, 32, 96, "fixed"), (40, 8, 48, "f1")])
+def test_attention_every_fused_size_runs_the_kernels(cuda, ctx, bs, hs, kind,
+                                                      dtype):
+    """Block size 8 (the kernels' bs-16 view; ctx 40 pads one hidden
+    8-row) and head sizes 8, 48 and 96 (zero-padded to 16, 64 and 128):
+    the serving forward, the training forward's out and lse, dq, dk and dv
+    run the kernels (each counter moves) and match the plain versions at
+    the op's own sizes; two runs equal bit for bit.  "f1": a causal
+    layout whose query row 11 sees no key: zero out and dq, lse -inf."""
+    heads, blks = 2, ctx // bs
+    if kind == "f1":
+        port = BlocksparseTransformer(np.tril(np.ones((blks, blks),
+                                                      np.int32)),
+                                      block_size=bs, heads=heads,
+                                      mask_callback=_f1_mask)
+    else:
+        port = BlocksparseTransformer(fixed_layout(blks, local_blocks=2),
+                                      block_size=bs, heads=heads,
+                                      mask_callback=causal_subblock_mask)
+    g = torch.Generator(device=cuda).manual_seed(ctx + bs + hs)
+    qkv = torch.randn((2, ctx, 3 * heads * hs), device=cuda,
+                      generator=g).to(dtype)
+    q, k, v = qkv.split(heads * hs, dim=-1)
+    do = torch.randn((2, ctx, heads * hs), device=cuda, generator=g).to(dtype)
+    scale = 1.0 / np.sqrt(hs)
+    tab = port._tables(cuda)
+    counters = (bst_attn.attention_fwd, bst_attn.attention_fwd_lse,
+                bst_attn.attention_dq, bst_attn.attention_dkv)
+
+    def run(fused):
+        qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+        out = port.attention(qr, kr, vr, scale=scale, use_fused=fused)
+        out.backward(do)
+        with torch.no_grad():
+            serve = port.attention(q, k, v, scale=scale, use_fused=fused)
+        if fused is None:
+            lse = port._kernel_fwd(q, k, v, scale, with_lse=True)[1]
+        else:
+            lse = bst_attn.attention_fwd_lse_plain(
+                q, k, v, tab["q_blk"], tab["k_blk"], tab["mask"], heads, bs,
+                scale)[1]
+        return [serve, out.detach(), lse, qr.grad, kr.grad, vr.grad]
+
+    before = [c.launches for c in counters]
+    got = run(None)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 2, 1, 1]
+    again = run(None)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    before = [c.launches for c in counters]
+    ref = run(False)
+    assert [c.launches for c in counters] == before
+    tol = F32_TOL if dtype == torch.float32 else ATTN_BF16_TOL
+    for name, a, r in zip(("serve", "out", "lse", "dq", "dk", "dv"), got, ref):
+        assert a.shape == r.shape and a.dtype == r.dtype, name
+        if name == "lse":
+            live = torch.isfinite(r)
+            assert torch.equal(live, torch.isfinite(a))
+            assert (a[live] - r[live]).abs().max().item() <= 1e-4, name
+            continue
+        r = r.float()
+        torch.testing.assert_close(a.float(), r, rtol=0, atol=tol * max(
+            1.0, r.abs().max().item()), msg=name)
+    if kind == "f1":
+        dead = 1 * bs + 3
+        out, lse, dq = got[1], got[2], got[3]
+        assert (out[:, dead] == 0).all() and (dq[:, dead] == 0).all()
+        assert torch.isneginf(lse[:, :, dead]).all()
+        assert all(bool(torch.isfinite(t).all()) for t in got[3:])
+
+
+@pytest.mark.cuda
+def test_attention_head_size_past_128_raises_on_the_card(cuda):
+    """hs > 128: the reference runs its unfused ops, which the port has
+    not got; the card raises rather than run the plain versions."""
+    port = BlocksparseTransformer(fixed_layout(2, local_blocks=2),
+                                  block_size=16, heads=1,
+                                  mask_callback=causal_subblock_mask)
+    q = torch.randn((1, 32, 136), device=cuda)
+    before = bst_attn.attention_fwd.launches
+    with pytest.raises(NotImplementedError, match="unfused"):
+        port.attention(q, q, q)
+    assert bst_attn.attention_fwd.launches == before
+    assert port.attention(q, q, q, use_fused=False).shape == q.shape
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("recompute", [True, False])
 def test_train_step_kernels_match_plain_model(cuda, recompute):
     """One f32 train step of the tiny model on the kernels against the same
@@ -962,8 +1053,7 @@ def test_im2col_raises_and_never_falls_back(cuda, monkeypatch):
     with pytest.raises(ValueError):
         im2col_kernels.im2col(xc, 6, 6, 3, 3, 1, 1, 12)   # bC not 8-128
     with pytest.raises(ValueError):
-        im2col_kernels._launch("im2col_fwd", xc.cpu(), xc.cpu(), 16, 72,
-                               *args)
+        im2col_kernels._im2col_cuda(xc.cpu(), 16, 2, 6, 6, 72, 36, *args[2:])
     before = (im2col_kernels.im2col.launches, im2col_kernels.col2im.launches)
 
     def no_build(*a, **k):
@@ -976,6 +1066,48 @@ def test_im2col_raises_and_never_falls_back(cuda, monkeypatch):
         im2col_kernels.col2im(torch.randn((144, 72), device=cuda), *args)
     assert (im2col_kernels.im2col.launches,
             im2col_kernels.col2im.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, *HALF])
+@pytest.mark.parametrize("bC", [8, 16, 32, 64, 128])
+def test_im2col_image_kernel_matches_plain(cuda, bC, dtype):
+    """im2col.cu reading the image in place, at every channel block and
+    dtype, on NCHW images of 32 x 32, 7 x 9 (W off a 16-byte run), 5 x 16
+    and 3 x 300, 3x3 filters at pads (0, 0) and (1, 1) and a 1x3 one:
+    equal to im2col_plain of the channel-major copy bit for bit, and so is
+    X from the channel-major array seen as an image (channel stride
+    N·H·W), read in place too; two runs bit-equal, one launch a call.  The
+    backward, col2im_image, writes the NCHW gradient, equal to
+    col2im_plain's bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(bC + 1)
+    C = 2 * bC
+    for N, H, W in ((2, 32, 32), (2, 7, 9), (3, 5, 16), (1, 3, 300)):
+        for R, S, pt, pl in ((3, 3, 0, 0), (3, 3, 1, 1), (1, 3, 0, 2)):
+            args = (R, S, pt, pl, bC)
+            x = torch.randn((N, C, H, W), device=cuda, generator=g).to(dtype)
+            xc = x.transpose(0, 1).reshape(C, N * H * W)
+            want = im2col_kernels.im2col_plain(xc, H, W, *args)
+            before = im2col_kernels.im2col.launches
+            X, again = (im2col_kernels.im2col_image(x, *args)
+                        for _ in range(2))
+            Xv = im2col_kernels.im2col_image(
+                xc.reshape(C, N, H, W).transpose(0, 1), *args)
+            torch.cuda.synchronize()
+            assert im2col_kernels.im2col.launches == before + 3
+            assert X.shape == want.shape and X.t().is_contiguous()
+            assert torch.equal(X, want) and torch.equal(again, X)
+            assert torch.equal(Xv, want), (N, H, W, R, S, pt, pl)
+            dX = torch.randn((N * H * W, C * R * S), device=cuda,
+                             generator=g).to(dtype).t()
+            before = im2col_kernels.col2im.launches
+            dI = im2col_kernels.col2im_image(dX, N, H, W, *args)
+            torch.cuda.synchronize()
+            assert im2col_kernels.col2im.launches == before + 1
+            ref = im2col_kernels.col2im_plain(dX, H, W, *args).reshape(
+                C, N, H, W).transpose(0, 1)
+            assert dI.shape == (N, C, H, W) and dI.is_contiguous()
+            assert torch.equal(dI, ref), (N, H, W, R, S, pt, pl)
 
 
 @pytest.mark.cuda
@@ -1008,6 +1140,30 @@ def test_col2im_tma_kernel_matches_plain(cuda, bC, dtype):
                 atol=eps * max(1.0, ref.float().abs().max().item()))
             if dtype == torch.float32:
                 assert torch.equal(dx, ref), (N, H, W, R, S, pt, pl)
+
+
+@pytest.mark.cuda
+def test_col2im_repeated_calls_bit_equal(cuda):
+    """col2im_tma.cu refills a ring slot by TMA only after every thread's
+    reads of it are ordered before the refill (fence.proxy.async): without
+    that fence, repeated calls at the conv bench's shape (C 512, N 32, 32
+    x 32, b32), bf16 and f32 in turns on fresh dX, now and then summed a
+    box that the next TMA load was overwriting.  Every call here equals
+    col2im_plain bit for bit, into (C, N·H·W) and into NCHW."""
+    C, N, H, W, bC = 512, 32, 32, 32, 32
+    args = (H, W, 3, 3, 1, 1, bC)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    for _ in range(4):
+        for dtype in (torch.bfloat16, torch.float32):
+            dX = torch.randn((N * H * W, C * 9), device=cuda,
+                             generator=g).to(dtype).t()
+            ref = im2col_kernels.col2im_plain(dX, *args)
+            ref_i = ref.reshape(C, N, H, W).transpose(0, 1)
+            for _ in range(4):
+                assert torch.equal(im2col_kernels.col2im(dX, *args), ref)
+                assert torch.equal(
+                    im2col_kernels.col2im_image(dX, N, *args), ref_i)
+            del dX, ref, ref_i
 
 
 @pytest.mark.cuda
