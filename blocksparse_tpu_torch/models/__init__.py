@@ -1,8 +1,9 @@
 from blocksparse_tpu_torch.models.sparse_transformer import (
-    SparseTransformerLM, TransformerConfig, generate_cached,
-    causal_subblock_mask, fixed_layout, strided_layout, dense_causal_layout,
+    SparseTransformerLM, TransformerConfig, generate, generate_cached,
+    generate_cached_scan, causal_subblock_mask, fixed_layout, strided_layout,
+    dense_causal_layout,
 )
 
-__all__ = ["SparseTransformerLM", "TransformerConfig", "generate_cached",
-           "causal_subblock_mask", "fixed_layout", "strided_layout",
-           "dense_causal_layout"]
+__all__ = ["SparseTransformerLM", "TransformerConfig", "generate",
+           "generate_cached", "generate_cached_scan", "causal_subblock_mask",
+           "fixed_layout", "strided_layout", "dense_causal_layout"]

@@ -4,9 +4,13 @@ Counterpart of ``blocksparse_tpu/models/sparse_transformer.py`` for a
 single device: layout-driven block-sparse attention (fixed/strided/dense
 patterns with a causal sub-block mask), an optionally block-sparse MLP,
 layer norm and fast-gelu, with ``forward``, ``prefill``,
-``decode_forward`` and ``generate_cached`` for serving and ``loss`` and
-``make_train_step`` (clip by global norm, Adam, dynamic loss scaling,
-per-block recompute) for training.  Parameters carry the JAX package's
+``decode_forward``, ``generate``, ``generate_cached`` and
+``generate_cached_scan`` for serving and ``loss`` and ``make_train_step``
+(clip by global norm, Adam, dynamic loss scaling, per-block recompute)
+for training.  On the card the loops leave the host: the decode step of
+``generate_cached_scan`` is one CUDA graph replayed a token, and the
+train step one CUDA graph replayed a step (the counterparts of the JAX
+package's ``lax.scan`` and ``jax.jit``).  Parameters carry the JAX package's
 names and shapes (``convert.params_from_jax`` loads a JAX param dict,
 ``convert.params_to_jax`` writes one), so both packages compute the same
 thing from the same weights.
@@ -16,6 +20,7 @@ slices of the port and raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -29,6 +34,7 @@ from blocksparse_tpu_torch.ops.ewops import fast_gelu, float_cast
 from blocksparse_tpu_torch.ops.matmul import BlocksparseMatMul
 from blocksparse_tpu_torch.ops.norms import layer_norm
 from blocksparse_tpu_torch.ops.transformer import (BlocksparseTransformer,
+                                                   position_tensor,
                                                    softmax_cross_entropy)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -208,6 +214,7 @@ class SparseTransformerLM(nn.Module):
         self.h = nn.ModuleList(
             _Layer(c, self.hidden, w_fc_shape, w_proj_shape)
             for _ in range(c.n_layer))
+        self._decode_graphs = {}      # generate_cached_scan's, by key
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -277,7 +284,11 @@ class SparseTransformerLM(nn.Module):
         recompute = self.config.recompute and torch.is_grad_enabled()
         for layer in self.h:
             if recompute and caches is None:
-                x = checkpoint(self._block, layer, x, use_reentrant=False)
+                # no randomness in a block (resid_pdrop raises): saving
+                # the CUDA RNG state, which a graph capture forbids, is
+                # not needed
+                x = checkpoint(self._block, layer, x, use_reentrant=False,
+                               preserve_rng_state=False)
             else:
                 x = self._block(layer, x, caches)
         return self._logits(x)
@@ -310,36 +321,27 @@ class SparseTransformerLM(nn.Module):
         norm_scale 0: the update is skipped and the scale halved (not
         below 1); otherwise the scale grows by 2^(1/2000) (not above
         2^24).  metrics holds loss, grad_norm and norm_scale.  Everything
-        stays on the device: no value is read back to the host."""
+        stays on the device: no value is read back to the host.
+        loss_scale: a float or a 0-d tensor.
+
+        On the CPU the step runs eagerly.  On a CUDA model it is one CUDA
+        graph (the counterpart of the JAX step's ``jax.jit``), captured
+        at the first call for each batch shape and MLP route and replayed
+        afterwards; see ``_TrainStep``."""
         if mesh is not None:
             raise NotImplementedError("make_train_step(mesh=...) (the "
                                       "sharded train step) is not ported "
                                       "yet")
-        names, params = zip(*self.named_parameters())
+        return _TrainStep(self, optimizer, clip_norm)
 
-        def train_step(opt_state, tokens, targets, loss_scale):
-            ls = torch.as_tensor(loss_scale, dtype=torch.float32,
-                                 device=params[0].device)
-            scaled = self.loss(tokens, targets) * ls
-            grads = dict(zip(names, torch.autograd.grad(scaled, params)))
-            gs = 1.0 / ls
-            gn, norm_scale = opt.clip_by_global_norm(
-                grads, clip_norm=clip_norm, grad_scale=gs, zero_infs=False,
-                zero_nans=False)
-            new, opt_state = optimizer.apply(
-                grads, {n: p.detach() for n, p in zip(names, params)},
-                opt_state, norm_scale=norm_scale, grad_scale=gs)
-            with torch.no_grad():
-                for n, p in zip(names, params):
-                    p.copy_(new[n])
-            new_scale = torch.where(
-                norm_scale > 0.0,
-                torch.clamp(ls * 2.0 ** (1 / 2000), max=2.0 ** 24),
-                torch.clamp(ls * 0.5, min=1.0))
-            metrics = {"loss": scaled.detach() / ls, "grad_norm": gn,
-                       "norm_scale": norm_scale}
-            return opt_state, metrics, new_scale
-        return train_step
+    def _mlp_routes(self, N):
+        """What the MLP's products launch for N rows: each op's ``mode``
+        and route (``dispatch_mode``).  A graph captured under one replays
+        only that one, so the graphs are keyed on it."""
+        if self.bsmm1 is None:
+            return ()
+        return tuple((op.mode, op.dispatch_mode(N))
+                     for op in (self.bsmm1, self.bsmm2))
 
     # ---------------- KV-cached decode ----------------
 
@@ -367,44 +369,345 @@ class SparseTransformerLM(nn.Module):
     def decode_forward(self, tok, caches, pos):
         """One-token forward at position ``pos`` against the K/V caches.
 
-        tok: (batch,) int; pos: int.  Writes this position's K/V into the
-        caches in place (saving a copy of every cache per token) and
-        returns (logits (batch, n_vocab) f32, caches)."""
-        pos = int(pos)
-        x = self._embed(tok[:, None], self.wpe[None, pos:pos + 1])
+        tok: (batch,) int; pos: an int or an int64 device tensor of one
+        element, read on the device (one code path: an int becomes such a
+        tensor), so the step can be captured in a CUDA graph.  Writes this
+        position's K/V into the caches in place (saving a copy of every
+        cache per token) and returns (logits (batch, n_vocab) f32,
+        caches)."""
+        pos = position_tensor(pos, self.wte.device)
+        x = self._embed(tok[:, None], self.wpe.index_select(0, pos)[None])
         for layer, cache in zip(self.h, caches):
             q, k, v = self._qkv(layer, x)            # (batch, 1, embd)
-            cache["k"][:, pos:pos + 1] = k
-            cache["v"][:, pos:pos + 1] = v
+            cache["k"].index_copy_(1, pos, k)
+            cache["v"].index_copy_(1, pos, v)
             a = self.bst.decode_step(q, cache["k"], cache["v"], pos,
                                      scale=1.0 / np.sqrt(self.hs))
             x = x + self._out(layer, a).to(x.dtype)
             x = x + self._mlp(layer, x).to(x.dtype)
         return self._logits(x)[:, 0], caches
 
+    def _decode_graph(self, batch, temperature):
+        """The CUDA graph of one decode token for this batch and
+        temperature, captured at first use (``_DecodeGraph``) and kept,
+        keyed on everything that changes what the step launches."""
+        key = (batch, self.nd, float(temperature), self._mlp_routes(batch))
+        if key not in self._decode_graphs:
+            self._decode_graphs[key] = _DecodeGraph(self, batch, temperature)
+        return self._decode_graphs[key]
+
+
+class _TrainStep:
+    """The step ``make_train_step`` returns.
+
+    On the CPU it runs ``_eager``.  On a CUDA model the step is one CUDA
+    graph, captured at the first call for each (tokens shape, targets
+    shape, MLP route) and replayed by every call:
+
+    - the graph reads static buffers: tokens, targets, the loss scale and
+      the optimizer state, and writes the parameters in place;
+    - the state it returns is its own static state: passed back, it is
+      used in place (the next call overwrites it); any other state is
+      copied in first.  metrics and the new scale are copies;
+    - before the capture one eager step runs on a side stream (the
+      warm-up: it builds the kernels, the LUTs, the plans and cuBLAS'
+      workspace, which a capture cannot), and the parameters and state
+      are restored after it, so the first call gives one step;
+    - a capture that fails raises: nothing falls back to the eager step
+      on the card.
+
+    ``captures`` holds each graph's warm-up and capture seconds."""
+
+    def __init__(self, model, optimizer, clip_norm):
+        self.model, self.optimizer, self.clip_norm = model, optimizer, \
+            clip_norm
+        self.names, self.params = zip(*model.named_parameters())
+        self._graphs = {}
+        self.captures = []
+
+    def __call__(self, opt_state, tokens, targets, loss_scale):
+        if not self.params[0].is_cuda:
+            return self._eager(opt_state, tokens, targets, loss_scale)
+        key = (tuple(tokens.shape), tuple(targets.shape),
+               self.model._mlp_routes(tokens.numel()))
+        g = self._graphs.get(key)
+        if g is None:
+            g = self._graphs[key] = self._capture(opt_state, tokens,
+                                                  targets, loss_scale)
+        self._load(g, opt_state, tokens, targets, loss_scale)
+        g["graph"].replay()
+        return (g["state"], {k: v.clone() for k, v in g["metrics"].items()},
+                g["new_scale"].clone())
+
+    def _eager(self, opt_state, tokens, targets, loss_scale):
+        """One step, op by op: what the graph captures."""
+        names, params = self.names, self.params
+        dev = params[0].device
+        if isinstance(loss_scale, torch.Tensor):
+            ls = loss_scale.to(device=dev, dtype=torch.float32)
+        else:
+            ls = torch.full((), float(loss_scale), dtype=torch.float32,
+                            device=dev)
+        scaled = self.model.loss(tokens, targets) * ls
+        grads = dict(zip(names, torch.autograd.grad(scaled, params)))
+        gs = 1.0 / ls
+        gn, norm_scale = opt.clip_by_global_norm(
+            grads, clip_norm=self.clip_norm, grad_scale=gs, zero_infs=False,
+            zero_nans=False)
+        new, opt_state = self.optimizer.apply(
+            grads, {n: p.detach() for n, p in zip(names, params)},
+            opt_state, norm_scale=norm_scale, grad_scale=gs)
+        with torch.no_grad():
+            for n, p in zip(names, params):
+                p.copy_(new[n])
+        new_scale = torch.where(
+            norm_scale > 0.0,
+            torch.clamp(ls * 2.0 ** (1 / 2000), max=2.0 ** 24),
+            torch.clamp(ls * 0.5, min=1.0))
+        metrics = {"loss": scaled.detach() / ls, "grad_norm": gn,
+                   "norm_scale": norm_scale}
+        return opt_state, metrics, new_scale
+
+    def _body(self, g):
+        """The eager step on the graph's static buffers; its new state is
+        copied into the static state."""
+        state, g["metrics"], g["new_scale"] = self._eager(
+            g["state"], g["tokens"], g["targets"], g["scale"])
+        _copy_tree(g["state"], state)
+
+    @staticmethod
+    def _load(g, opt_state, tokens, targets, loss_scale):
+        g["tokens"].copy_(tokens)
+        g["targets"].copy_(targets)
+        if isinstance(loss_scale, torch.Tensor):
+            g["scale"].copy_(loss_scale)
+        else:
+            g["scale"].fill_(float(loss_scale))
+        _copy_tree(g["state"], opt_state)
+
+    def _capture(self, opt_state, tokens, targets, loss_scale):
+        dev = self.params[0].device
+        g = {"tokens": tokens.clone(memory_format=torch.contiguous_format),
+             "targets": targets.clone(
+                 memory_format=torch.contiguous_format),
+             "scale": torch.empty((), dtype=torch.float32, device=dev),
+             "state": _clone_tree(opt_state)}
+        self._load(g, opt_state, tokens, targets, loss_scale)
+        snapshot = [p.detach().clone() for p in self.params]
+        t0 = time.perf_counter()
+        side = _warm_up(dev, lambda: self._body(g))
+        torch.cuda.synchronize(dev)
+        with torch.no_grad():
+            for p, saved in zip(self.params, snapshot):
+                p.copy_(saved)
+        del snapshot
+        _copy_tree(g["state"], opt_state)
+        t1 = time.perf_counter()
+        g["graph"] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g["graph"], stream=side):
+            self._body(g)
+        self.captures.append((t1 - t0, time.perf_counter() - t1))
+        return g
+
+
+def _warm_up(device, fn):
+    """Runs fn() once on a new side stream, ordered after the current
+    stream's work and before its later work, and returns the stream (the
+    capture's)."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    return side
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def _copy_tree(dst, src):
+    """Copies each tensor of ``src`` into ``dst``'s, where they differ."""
+    if isinstance(dst, dict):
+        for k, d in dst.items():
+            _copy_tree(d, src[k])
+    elif dst is not src:
+        dst.copy_(src)
+
+
+# ---------------- sampling and the token loops ----------------
+
+def sample_noise(shape, generator=None, device=None):
+    """Exp(1) noise for ``sample_tokens`` (f32), drawn from ``generator``
+    (a ``torch.Generator`` on ``device``; default the device's)."""
+    return torch.empty(shape, dtype=torch.float32, device=device) \
+        .exponential_(generator=generator)
+
+
+def sample_tokens(logits, temperature, noise):
+    """One token a row of ``logits`` (batch, n_vocab) from
+    softmax(logits / temperature), by the exponential race:
+    argmax(softmax(logits / T) / E) with E ~ Exp(1) (``noise``, the shape
+    of logits).  ``torch.multinomial`` draws a single sample so too; here
+    the noise comes in, so nothing is read back to the host and a CUDA
+    graph can capture the draw."""
+    probs = torch.softmax(logits / temperature, dim=-1)
+    return torch.argmax(probs / noise, dim=-1)
+
+
+def _prompt_state(model, prompt, steps, generator):
+    """The token loop's state after the prefill of ``prompt``: tokens
+    (batch, ctx) int64 with the prompt in front, the K/V caches, the
+    prompt's last logits, Exp(1) noise for every step (steps, batch,
+    n_vocab), the position ``pos`` and the step ``step`` as (1,) int64
+    device counters."""
+    c = model.config
+    batch, n = prompt.shape
+    if n < 1 or n + steps > c.ctx:
+        raise ValueError("need 1 <= n and n + steps <= ctx")
+    dev = prompt.device
+    tokens = torch.zeros((batch, c.ctx), dtype=torch.int64, device=dev)
+    tokens[:, :n] = prompt
+    logits_all, caches = model.prefill(tokens)
+    return {"tokens": tokens, "caches": caches,
+            "logits": logits_all[:, n - 1].clone(),
+            "noise": sample_noise((steps, batch, c.n_vocab), generator, dev),
+            "pos": torch.full((1,), n, dtype=torch.int64, device=dev),
+            "step": torch.zeros((1,), dtype=torch.int64, device=dev)}
+
+
+def _token_step(model, s, temperature):
+    """One token of the cached decode on the loop's state ``s``: sample
+    from s["logits"] with the noise of s["step"], write the token into
+    s["tokens"] at s["pos"], run ``decode_forward`` there, keep its
+    logits and advance both counters.  Nothing leaves the device."""
+    pos = s["pos"]
+    tok = sample_tokens(s["logits"], temperature,
+                        s["noise"].index_select(0, s["step"])[0])
+    s["tokens"].index_copy_(1, pos, tok[:, None])
+    logits, _ = model.decode_forward(tok, s["caches"], pos)
+    s["logits"].copy_(logits)
+    pos += 1
+    s["step"] += 1
+
+
+class _DecodeGraph:
+    """``_token_step`` captured in one CUDA graph over static state: the
+    tokens (batch, ctx), the K/V caches, the last logits, noise for up to
+    ctx - 1 steps and the two counters.  Built on first use: one step runs
+    eagerly on a side stream from a zero state (the warm-up: the kernels,
+    LUTs, plans and cuBLAS' workspace, which a capture cannot build), then
+    one is captured.  ``run`` copies a prefilled state in and replays the
+    graph once a token.  A capture that fails raises.  The graph reads
+    the model's parameters in place: load new weights with
+    ``load_state_dict``, not by replacing a parameter."""
+
+    def __init__(self, model, batch, temperature):
+        c = model.config
+        dev = model.wte.device
+        self.state = {
+            "tokens": torch.zeros((batch, c.ctx), dtype=torch.int64,
+                                  device=dev),
+            "caches": model.init_kv_cache(batch),
+            "logits": torch.zeros((batch, c.n_vocab), dtype=torch.float32,
+                                  device=dev),
+            "noise": torch.ones((c.ctx - 1, batch, c.n_vocab),
+                                dtype=torch.float32, device=dev),
+            "pos": torch.zeros((1,), dtype=torch.int64, device=dev),
+            "step": torch.zeros((1,), dtype=torch.int64, device=dev)}
+
+        def step():
+            _token_step(model, self.state, temperature)
+        t0 = time.perf_counter()
+        side = _warm_up(dev, step)
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=side):
+            step()
+        self.warmup_s, self.capture_s = t1 - t0, time.perf_counter() - t1
+
+    def run(self, s, steps):
+        """Copies the prefilled state ``s`` in, replays the graph
+        ``steps`` times and returns the static token buffer (batch, ctx),
+        which the next run overwrites."""
+        st = self.state
+        for k in ("tokens", "logits", "pos", "step"):
+            st[k].copy_(s[k])
+        st["noise"][:s["noise"].shape[0]].copy_(s["noise"])
+        for dst, src in zip(st["caches"], s["caches"]):
+            dst["k"].copy_(src["k"])
+            dst["v"].copy_(src["v"])
+        for _ in range(steps):
+            self.graph.replay()
+        return st["tokens"]
+
+
+@torch.no_grad()
+def generate(model: SparseTransformerLM, prompt, steps, temperature=1.0,
+             generator=None):
+    """Autoregressive sampling by a full-context forward per token
+    (O(ctx^2) a sequence; ``generate_cached`` is the KV-cached path), the
+    counterpart of the JAX ``generate``: a Python loop whose token buffer
+    and position stay on the device.  Same sampler and noise as
+    ``generate_cached``, so for one seed the two emit the same tokens
+    wherever their logits pick the same winner.
+
+    prompt: (batch, n) int tensor on the model's device, 1 <= n, n + steps
+    <= ctx.  generator: a ``torch.Generator`` on that device, for
+    reproducible draws.  Returns (batch, n + steps) int64."""
+    c = model.config
+    batch, n = prompt.shape
+    if n < 1 or n + steps > c.ctx:
+        raise ValueError("need 1 <= n and n + steps <= ctx")
+    dev = prompt.device
+    tokens = torch.zeros((batch, c.ctx), dtype=torch.int64, device=dev)
+    tokens[:, :n] = prompt
+    noise = sample_noise((steps, batch, c.n_vocab), generator, dev)
+    pos = torch.full((1,), n, dtype=torch.int64, device=dev)
+    for i in range(steps):
+        last = model(tokens).index_select(1, pos - 1)[:, 0]
+        tok = sample_tokens(last, temperature, noise[i])
+        tokens.index_copy_(1, pos, tok[:, None])
+        pos += 1
+    return tokens[:, :n + steps].clone()
+
 
 @torch.no_grad()
 def generate_cached(model: SparseTransformerLM, prompt, steps,
                     temperature=1.0, generator=None):
     """KV-cached autoregressive sampling: one prefill over the prompt,
-    then one single-token decode per generated token.
+    then one single-token decode per generated token, a Python loop
+    (``_token_step``) with the position as a device counter.
 
-    prompt: (batch, n) int tensor on the model's device, n + steps <= ctx.
-    generator: a ``torch.Generator`` on that device, for reproducible
-    draws.  Returns (batch, n + steps) int64."""
-    c = model.config
-    batch, n = prompt.shape
-    if n + steps > c.ctx:
-        raise ValueError("n + steps must not exceed ctx")
-    tokens_full = torch.zeros((batch, c.ctx), dtype=torch.int64,
-                              device=prompt.device)
-    tokens_full[:, :n] = prompt
-    logits_all, caches = model.prefill(tokens_full)
-    last_logits = logits_all[:, n - 1]
-    out = [prompt.to(torch.int64)]
-    for i in range(steps):
-        probs = torch.softmax(last_logits / temperature, dim=-1)
-        tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
-        last_logits, caches = model.decode_forward(tok, caches, n + i)
-        out.append(tok[:, None])
-    return torch.cat(out, dim=1)
+    prompt: (batch, n) int tensor on the model's device, 1 <= n, n + steps
+    <= ctx.  generator: a ``torch.Generator`` on that device, for
+    reproducible draws: the noise of every step is drawn from it up front
+    (``sample_noise``).  Returns (batch, n + steps) int64."""
+    s = _prompt_state(model, prompt, steps, generator)
+    for _ in range(steps):
+        _token_step(model, s, temperature)
+    return s["tokens"][:, :prompt.shape[1] + steps].clone()
+
+
+@torch.no_grad()
+def generate_cached_scan(model: SparseTransformerLM, prompt, steps,
+                         temperature=1.0, generator=None):
+    """``generate_cached`` with the decode loop off the host, the
+    counterpart of the JAX ``generate_cached_scan`` (one ``lax.scan``):
+    the prefill runs eagerly, then on a CUDA model one token step
+    (sample, ``decode_forward`` against static K/V caches, the token
+    written into a static buffer, the position advanced on the device) is
+    a CUDA graph, captured at first use (``SparseTransformerLM``
+    keeps it, keyed on batch, dtype, temperature and the MLP's mode and
+    route) and replayed ``steps`` times.  On a CPU model it is
+    ``generate_cached``: the same step, eagerly in a loop.  Emits the same
+    tokens as ``generate_cached`` for the same seed.  A capture that fails
+    raises."""
+    if not model.wte.is_cuda:
+        return generate_cached(model, prompt, steps, temperature, generator)
+    s = _prompt_state(model, prompt, steps, generator)
+    tokens = model._decode_graph(prompt.shape[0], temperature).run(s, steps)
+    return tokens[:, :prompt.shape[1] + steps].clone()

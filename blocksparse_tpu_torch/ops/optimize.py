@@ -5,7 +5,9 @@ Counterpart of ``blocksparse_tpu/ops/optimize.py:29-311``.  Plain
 PyTorch, as the JAX package leaves these to XLA.  Gradients, parameters
 and state are dicts of tensors keyed by parameter name (the JAX package's
 pytrees); every scalar (norm, norm_scale, grad_scale, the step count)
-stays a tensor on the parameters' device, so a step needs no host sync.
+stays a tensor on the parameters' device, and Python numbers become
+tensors there by a fill (``_scalar``), so a step needs no host sync and a
+CUDA graph can capture it.
 
 * ``clip_by_global_norm`` returns (global_norm, norm_scale), and
   norm_scale is 0 when the norm is not finite;
@@ -26,7 +28,13 @@ _F32 = torch.float32
 
 
 def _scalar(x, like):
-    return torch.as_tensor(x, dtype=_F32, device=like.device)
+    """``x`` as an f32 scalar tensor on ``like``'s device: a tensor as it
+    is (cast to f32), a Python number by a fill on the device.  Nothing is
+    copied from the host, which would wait for the stream and which a
+    CUDA graph capture forbids; the value is the same f32 either way."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=like.device, dtype=_F32)
+    return torch.full((), x, dtype=_F32, device=like.device)
 
 
 def _scrub(g, saturate=0.0, zero_infs=False, zero_nans=False):

@@ -345,26 +345,31 @@ class BlocksparseTransformer:
         """KV-cached single-position sparse attention.
 
         q: (batch, 1, state); k_cache / v_cache: (batch, ctx_k, state)
-        with positions > pos allowed to hold anything; pos: int.
-        Returns (batch, 1, state).  Only the layout row of ``pos`` is
-        gathered, so a token costs O(visible blocks).  Semantics match
-        the masked softmax at query row ``pos`` with keys past ``pos``
-        hidden."""
+        with positions > pos allowed to hold anything; pos: an int or an
+        int64 device tensor of one element (``position_tensor``), read on
+        the device: no value goes to the host, so a CUDA graph can
+        capture the step and replay it at any position.  Returns (batch,
+        1, state).  Only the layout row of ``pos`` is gathered, so a token
+        costs O(visible blocks).  Semantics match the masked softmax at
+        query row ``pos`` with keys past ``pos`` hidden."""
         bs = self.blk_size
         batch, one, state = q.shape
         if one != 1:
             raise ValueError("decode_step takes one position")
         hs = state // self.heads
-        pos = int(pos)
-        r, qoff = divmod(pos, bs)
         dev = q.device
+        pos = position_tensor(pos, dev)                      # (1,)
+        r = torch.div(pos, bs, rounding_mode="floor")
         tab = self._tables(dev)
-        idx = tab["dec_kblk"][:, r]                          # (lh, E)
+        idx = tab["dec_kblk"].index_select(1, r)[:, 0]       # (lh, E)
         E = idx.shape[1]
         kpos = idx[:, :, None] * bs + tab["arange_bs"]       # (lh, E, bs)
-        vis = (kpos <= pos) & tab["dec_in_row"][:, r, :, None]
+        vis = (kpos <= pos) & \
+            tab["dec_in_row"].index_select(1, r)[:, 0, :, None]
         if tab["mask"] is not None:
-            vis &= tab["mask"][tab["heads_lut"], tab["dec_bid"][:, r], qoff]
+            bid = tab["dec_bid"].index_select(1, r)[:, 0]    # (lh, E)
+            rows = tab["mask"].index_select(2, torch.remainder(pos, bs))
+            vis &= rows[tab["heads_lut"], bid, 0]
 
         ctx_blks = k_cache.shape[1] // bs
         hidx = torch.arange(self.heads, device=dev)[:, None]
@@ -378,6 +383,16 @@ class BlocksparseTransformer:
         out = torch.einsum("nhk,nhkc->nhc", p,
                            vg.reshape(batch, self.heads, E * bs, hs))
         return out.reshape(batch, 1, state).to(q.dtype)
+
+
+def position_tensor(pos, device):
+    """A decode position as a (1,) int64 tensor on ``device``: a tensor of
+    one element as it is (cast to int64), an int by a fill on the device,
+    which copies nothing from the host (such a copy waits for the
+    stream)."""
+    if isinstance(pos, torch.Tensor):
+        return pos.reshape(1).to(device=device, dtype=torch.int64)
+    return torch.full((1,), int(pos), dtype=torch.int64, device=device)
 
 
 def _rowsum(do, out, heads):

@@ -49,9 +49,21 @@ before and read just after:
 - serving: one full-context forward at batch 8, and ``generate_cached``
   of 64 tokens after 4 prompts of 1024 random bytes;
 - training: one train step (loss, backward, global-norm clip, Adam,
-  dynamic loss scale) on 8 x 2048 random bytes, held against the same
-  step of the model run on the plain versions, then eight steps that
-  must lower the loss.
+  dynamic loss scale) on 8 x 2048 random bytes, the step that
+  ``make_train_step`` returns, captured as one CUDA graph at its first
+  call (counted there: the warm-up's eager step and the captured step),
+  held against the eager step of the same model and against the same
+  step of the model run on the plain versions, then eight steps, graph
+  replays, that must lower the loss; the replay's step time against the
+  eager step's, in turns.
+
+The serving path's decode also runs off the host: ``generate_cached_scan``
+(one CUDA graph a token, replayed) at the same 4 x (1024 + 64), its
+capture counted, its tokens equal to ``generate_cached``'s for the same
+seed, a replayed token equal to the eager step bit for bit, and its
+decode tokens/s, host time a token and the card's busy share against the
+loop's, in turns; ``generate`` (a full-context forward a token) emits
+``generate_cached``'s tokens on the plain model in f32.
 
 Then two cut-down LMs that reach the attention kernels only through
 the view and the padding, blk_size 8 and 8 heads of 48, each down its
@@ -114,9 +126,10 @@ kernel with its bound on this card and the time of a library call that
 computes the same function, where there is one), and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; so does a host without CUDA.  Imports no JAX.  One train
-step and one full-context forward also run under ``torch.profiler``:
+step (a replay of its graph, then the eager step), the decode's graph
+replays and one full-context forward also run under ``torch.profiler``:
 their device time by kernel is printed, and with ``--profile-out`` the
-train step's full table is written to PATH.
+replayed train step's full table is written to PATH.
 """
 from __future__ import annotations
 
@@ -135,6 +148,7 @@ import torch.nn.functional as nnf
 
 SEED = 0
 BATCH, PROMPTS, PROMPT_LEN, NEW_TOKENS = 8, 4, 1024, 64
+GENERATE_TOKENS = 4
 TRAIN_STEPS, TIMED_STEPS = 8, 5
 LR, CLIP, LOSS_SCALE = 3e-4, 1.0, 2.0 ** 15
 SOURCES = ("bsmm_xprop_mma", "bsmm_fprop", "bsmm_updat_mma", "bsmm_updat",
@@ -1515,6 +1529,8 @@ def serving_path(bt, model, plain, cfg, dev, card_line):
     del caches, logits, ref_logits
     torch.cuda.empty_cache()
     decode_split(bt, model, plain, cfg, dev, card_line, prompts, out)
+    decode_scan(bt, model, cfg, dev, card_line, prompts, out)
+    generate_full(bt, model, cfg, dev, prompts)
     # the profiler last: the decode turns are timed without it, as before
     profile_port_kernels(f"forward batch {BATCH} x {cfg.ctx}",
                          lambda: model(tokens), fwd_ms)
@@ -1611,6 +1627,230 @@ def decode_step_split(model, full, out, card_line, steps=10):
           f"{steps}, profiler); " + ", ".join(per_launch), flush=True)
 
 
+def decode_scan(bt, model, cfg, dev, card_line, prompts, out):
+    """``generate_cached_scan``: its capture counted (the prefill, then the
+    warm-up's eager step and the captured step, one token each; a later
+    call's replays launch through no wrapper), its tokens equal to
+    ``generate_cached``'s for the same seed, one replayed step equal to
+    the eager step bit for bit; then decode tokens/s of the graph against
+    the loop in turns (loop, scan, scan, loop, three times; the decode
+    alone, after its prefill), host time a token, the device time a
+    token by the profiler over the replays and the card's busy share, the
+    MLP on "auto" against "grouped" (one capture each), and peak memory."""
+    from blocksparse_tpu_torch.models import sparse_transformer as lm
+    L = cfg.n_layer
+    full = torch.zeros((PROMPTS, cfg.ctx), dtype=torch.int64, device=dev)
+    full[:, :PROMPT_LEN] = prompts
+    model._decode_graphs.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held0 = torch.cuda.memory_reserved()
+    reset_counts()
+    model.prefill(full)
+    torch.cuda.synchronize()
+    prefill = read_counts()
+    reset_counts()
+    t = time.perf_counter()
+    scan = bt.generate_cached_scan(model, prompts, NEW_TOKENS,
+                                   generator=torch.Generator(
+                                       device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    captured = read_counts()
+    graph = model._decode_graph(PROMPTS, 1.0)
+    torch.cuda.empty_cache()
+    held = (torch.cuda.memory_reserved() - held0) / 2 ** 30
+    n_split = L * [op.dispatch_mode(PROMPTS) for op in (
+        model.bsmm1, model.bsmm2)].count("phased")
+    want = {k: prefill[k] + 2 * {"bsmm_split": n_split,
+                                 "bsmm_fprop": 2 * L - n_split}.get(k, 0)
+            for k in prefill}
+    check(captured == want and captured["bsmm_split"] > 0,
+          f"generate_cached_scan's first call launches {captured}, expected "
+          f"{want} (the prefill's, then 2L MLP products a token, bsmm_split "
+          f"on the split route, for the warm-up's step and the captured "
+          f"step; the {NEW_TOKENS} replays through no wrapper)")
+    check(torch.equal(scan, out),
+          f"generate_cached_scan tokens {tuple(scan.shape)} equal "
+          f"generate_cached's for seed {SEED}")
+    reset_counts()
+    again = bt.generate_cached_scan(model, prompts, NEW_TOKENS,
+                                    generator=torch.Generator(
+                                        device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    replayed = read_counts()
+    check(torch.equal(again, out) and replayed == prefill
+          and len(model._decode_graphs) == 1,
+          f"a second generate_cached_scan replays the kept graph: the same "
+          f"tokens, launches {replayed} = the prefill's")
+    print(f"decode graph [{card_line}]: first call {first_s:.3f} s "
+          f"(prefill, warm-up {graph.warmup_s:.3f} s, capture "
+          f"{graph.capture_s:.3f} s, {NEW_TOKENS} replays); the graph holds "
+          f"{held:.3f} GiB after it (static state and private pool)",
+          flush=True)
+
+    # one replayed token against the eager step, bit for bit
+    s = lm._prompt_state(model, prompts, NEW_TOKENS,
+                         torch.Generator(device=dev).manual_seed(SEED + 1))
+    ref = {k: [{kk: vv.clone() for kk, vv in c.items()} for c in v]
+           if k == "caches" else v.clone() for k, v in s.items()}
+    graph.run(s, 1)
+    lm._token_step(model, ref, 1.0)
+    torch.cuda.synchronize()
+    check(all(torch.equal(graph.state[k], ref[k])
+              for k in ("tokens", "logits", "pos", "step"))
+          and all(torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"])
+                  for a, b in zip(graph.state["caches"], ref["caches"])),
+          f"a replayed decode token equals the eager step bit for bit "
+          f"(token, logits, position, every K/V cache)")
+    del s, ref
+
+    def decode(kind):
+        s = lm._prompt_state(model, prompts, NEW_TOKENS,
+                             torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if kind == "scan":
+            model._decode_graph(PROMPTS, 1.0).run(s, NEW_TOKENS)
+        else:
+            for _ in range(NEW_TOKENS):
+                lm._token_step(model, s, 1.0)
+        host = time.perf_counter() - t
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        return PROMPTS * NEW_TOKENS / wall, host / NEW_TOKENS * 1e3, \
+            wall / NEW_TOKENS * 1e3
+    turns = {"loop": [], "scan": []}
+    for kind in ("loop", "scan", "scan", "loop") * 3:
+        turns[kind].append(decode(kind))
+    for kind, runs in turns.items():
+        print(f"      decode, {kind}: " + "; ".join(
+            f"{r:.1f} tokens/s (host {h:.3f} ms a token, wall {w:.3f})"
+            for r, h, w in runs), flush=True)
+    med = {k: [float(np.median([r[i] for r in v])) for i in range(3)]
+           for k, v in turns.items()}
+
+    # the device time a token, over the replays
+    s = lm._prompt_state(model, prompts, NEW_TOKENS,
+                         torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    _, kernels = device_events(lambda: graph.run(s, NEW_TOKENS),
+                               lambda ks: any(SPLIT_KERNEL.search(e.key)
+                                              for e in ks))
+    found = any(SPLIT_KERNEL.search(e.key) for e in kernels)
+    if found:
+        dev_ms = sum(e.self_device_time_total for e in kernels) \
+            / NEW_TOKENS / 1e3
+        split_n = sum(e.count for e in kernels if SPLIT_KERNEL.search(e.key))
+        busy = (f"device {dev_ms:.3f} ms a token (profiler over the "
+                f"replays, {split_n // NEW_TOKENS} fused split launches a "
+                f"token recorded), busy {dev_ms / med['scan'][2]:.0%} of "
+                f"the wall time")
+        n_kernels = sum(e.count for e in kernels) / NEW_TOKENS
+        print(f"      decode token's device time by kernel [{card_line}] "
+              f"({n_kernels:.0f} kernels a token; us a token, launches a "
+              f"token): {by_kernel(kernels, NEW_TOKENS)}", flush=True)
+    else:
+        busy = (f"device time not measured: the profiler recorded no "
+                f"kernel inside the replays in {PROFILE_TRIES} windows")
+    del s
+    print(f"decode tokens/s [{card_line}]: generate_cached_scan (one CUDA "
+          f"graph a token) median {med['scan'][0]:.1f}, host "
+          f"{med['scan'][1]:.3f} ms a token, wall {med['scan'][2]:.3f} ms a "
+          f"token; generate_cached (the loop) median {med['loop'][0]:.1f}, "
+          f"host {med['loop'][1]:.3f} ms a token, wall {med['loop'][2]:.3f} "
+          f"ms; {med['scan'][0] / med['loop'][0]:.2f}x; scan {busy} "
+          f"({PROMPTS} x {NEW_TOKENS} tokens after {PROMPT_LEN}, turns of "
+          f"loop, scan, scan, loop x 3)", flush=True)
+
+    # the MLP pinned to grouped: a second capture, its own graph
+    ops = (model.bsmm1, model.bsmm2)
+    rates = {"auto": [], "grouped": []}
+    for mode in ("auto", "grouped", "grouped", "auto") * 2:
+        for op in ops:
+            op.mode = mode
+        if mode == "grouped" and len(model._decode_graphs) == 1:
+            reset_counts()
+            model._decode_graph(PROMPTS, 1.0)
+            n = read_counts()
+            check(n["bsmm_split"] == 0 and n["bsmm_fprop"] == 2 * 2 * L
+                  and len(model._decode_graphs) == 2,
+                  f"mode grouped recaptures the decode step: warm-up and "
+                  f"capture launch bsmm_fprop 2L each, no split ({n})")
+        rates[mode].append(decode("scan")[0])
+    for op in ops:
+        op.mode = "auto"
+    print(f"decode tokens/s, scan [{card_line}]: MLP on the split route "
+          f"(auto) median {np.median(rates['auto']):.1f} of "
+          f"{' '.join(f'{r:.1f}' for r in rates['auto'])}; pinned to "
+          f"grouped median {np.median(rates['grouped']):.1f} of "
+          f"{' '.join(f'{r:.1f}' for r in rates['grouped'])}", flush=True)
+
+    # peak memory of one call each
+    peaks = {}
+    for kind, fn in (("loop", bt.generate_cached),
+                     ("scan", bt.generate_cached_scan)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn(model, prompts, NEW_TOKENS,
+           generator=torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        peaks[kind] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"serving peak device memory [{card_line}]: generate_cached "
+          f"{peaks['loop']:.2f} GiB, generate_cached_scan {peaks['scan']:.2f} "
+          f"GiB (its two graphs' static state held)", flush=True)
+    torch.cuda.empty_cache()
+
+
+def kernel_name(key):
+    """A profiler kernel record's function name: template arguments,
+    parameters and the return type dropped."""
+    if key.startswith(("Memcpy", "Memset")):
+        return key
+    out, depth = [], 0
+    for ch in key:
+        if ch == "<":
+            depth += 1
+        elif ch == ">" and depth:
+            depth -= 1
+        elif not depth:
+            out.append(ch)
+    name = "".join(out).replace("(anonymous namespace)::", "")
+    return name.split("(")[0].split()[-1]
+
+
+def by_kernel(kernels, n, top=10):
+    """The device time of n calls' kernel records summed by function name,
+    largest first: us a call and launches a call."""
+    agg = {}
+    for e in kernels:
+        name = kernel_name(e.key)
+        t, c = agg.get(name, (0.0, 0))
+        agg[name] = (t + e.self_device_time_total, c + e.count)
+    ranked = sorted(agg.items(), key=lambda kv: -kv[1][0])[:top]
+    return ", ".join(f"{k} {t / n:.1f} ({c / n:.0f})"
+                     for k, (t, c) in ranked)
+
+
+def generate_full(bt, model, cfg, dev, prompts):
+    """``generate`` (a full-context forward a token) against
+    ``generate_cached`` on the plain-version model in f32, the same
+    weights and seed: the same tokens."""
+    import dataclasses
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    plain32 = bt.SparseTransformerLM(c32, device=dev, impl="xla")
+    plain32.load_state_dict(model.state_dict())
+    outs = [fn(plain32, prompts, GENERATE_TOKENS,
+               generator=torch.Generator(device=dev).manual_seed(SEED))
+            for fn in (bt.generate, bt.generate_cached)]
+    check(torch.equal(outs[0], outs[1])
+          and tuple(outs[0].shape) == (PROMPTS, PROMPT_LEN + GENERATE_TOKENS),
+          f"generate ({GENERATE_TOKENS} tokens, a full forward each) equals "
+          f"generate_cached on the plain model in f32, seed {SEED}")
+    del plain32, outs
+    torch.cuda.empty_cache()
+
+
 # The LMs the kernels serve through the view and the padding: the enwik8
 # LM's layout, MLP and dtype cut to VIEW_LM_LAYERS layers, ctx
 # VIEW_LM_CTX and batch VIEW_LM_BATCH, at block size 8 (the kernels run
@@ -1670,15 +1910,21 @@ def view_lm_paths(bt, dev):
             state = opt.init(dict(m.named_parameters()))
             torch.cuda.synchronize()
             reset_counts()
-            _, metrics, _ = step(state, tokens, targets, ls)
+            # the kernel model's step is captured (its first call: the
+            # warm-up's eager step, the capture, one replay); the plain
+            # model's runs eagerly, as the reference
+            _, metrics, _ = (step if m is model else step._eager)(
+                state, tokens, targets, ls)
             torch.cuda.synchronize()
             steps.append((read_counts(), metrics))
         (train, m0), (train_plain, m1) = steps
         check(train["bst_attn_fwd_lse"] == train["bst_attn_dq"]
-              == train["bst_attn_dkv"] == L and train["bst_attn_fwd"] == 0
+              == train["bst_attn_dkv"] == 2 * L and train["bst_attn_fwd"] == 0
               and not any(train_plain.values()),
-              f"{what}: train step launches bst_attn_fwd_lse, dq, dk/dv "
-              f"{L} each ({train}); the plain model none")
+              f"{what}: captured train step's first call launches "
+              f"bst_attn_fwd_lse, dq, dk/dv 2L each, L = {L} (the warm-up "
+              f"and the capture, one step each) ({train}); the plain model "
+              f"none")
         for k in ("loss", "grad_norm"):
             a, b = m0[k].item(), m1[k].item()
             check(np.isfinite(a) and abs(a - b) <= STEP_LOSS_TOL * abs(b),
@@ -1812,23 +2058,47 @@ def training_path(bt, model, plain, cfg, dev, card_line, profile_out):
     del grads
     torch.cuda.empty_cache()
 
-    # (b) + (d): the first step, counted on the kernel model, and the same
-    # step on the plain model from the same weights and state
+    # (b) + (d): the first step of the kernel model, eagerly and captured
+    # (its first call: the warm-up, one eager step on a side stream whose
+    # effects are undone, then the capture, then one replay), counted,
+    # from the same weights and state; and the same step on the plain
+    # model, eager as before
     opt = bt.AdamOptimizer(learning_rate=LR, zero_nans=True, zero_infs=True)
-    results = []
-    for m in (model, plain):
-        before = {k: v.clone() for k, v in m.state_dict().items()}
-        step = m.make_train_step(opt, clip_norm=CLIP)
-        state = opt.init(dict(m.named_parameters()))
-        torch.cuda.synchronize()
-        if m is model:
-            reset_counts()
-        state, metrics, scale = step(state, tokens, targets, ls)
-        torch.cuda.synchronize()
-        if m is model:
-            launches = read_counts()
-        delta = {k: v - before[k] for k, v in m.state_dict().items()}
-        results.append((step, state, metrics, scale, delta))
+    step = model.make_train_step(opt, clip_norm=CLIP)
+    eager = step._eager
+    before = snapshot(model)
+    _, m_eager, sc_eager = eager(opt.init(dict(model.named_parameters())),
+                                 tokens, targets, ls)
+    d_eager = {k: v - before[k] for k, v in model.state_dict().items()}
+    restore(model, before)
+    state0 = opt.init(dict(model.named_parameters()))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held0 = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t = time.perf_counter()
+    state, m0, scale = step(state0, tokens, targets, ls)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    launches = read_counts()
+    peak_first = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.empty_cache()
+    held = (torch.cuda.memory_reserved() - held0) / 2 ** 30
+    d0 = {k: v - before[k] for k, v in model.state_dict().items()}
+    del before, state0
+    warm_s, capture_s = step.captures[0]
+    print(f"train step graph [{card_line}]: first call {first_s:.3f} s "
+          f"(warm-up {warm_s:.3f} s, capture {capture_s:.3f} s, then one "
+          f"replay); its peak device memory {peak_first:.2f} GiB; the "
+          f"graph holds {held:.2f} GiB after it (its private pool and "
+          f"static buffers, which a replay's peak does not count)",
+          flush=True)
+    before = snapshot(plain)
+    _, m1, _ = plain.make_train_step(opt, clip_norm=CLIP)._eager(
+        opt.init(dict(plain.named_parameters())), tokens, targets, ls)
+    d1 = {k: v - before[k] for k, v in plain.state_dict().items()}
+    del before
     want = dict.fromkeys(launches, 0)
     split = [op.updat_splits(tokens.numel()) > 1
              for op in (model.bsmm1, model.bsmm2)]
@@ -1836,12 +2106,26 @@ def training_path(bt, model, plain, cfg, dev, card_line, profile_out):
                  "bsmm_updat": 2 * L, "bsmm_updat_reduce": L * sum(split),
                  "bst_attn_fwd_lse": 2 * L, "bst_attn_dq": L,
                  "bst_attn_dkv": L})
+    want = {k: 2 * n for k, n in want.items()}
     check(launches == want and launches["bsmm_updat_reduce"] > 0,
-          f"train step launches {launches}, expected {want} (recompute: "
-          f"bsmm_fprop 4L, bsmm_bprop 2L, bsmm_updat 2L, bsmm_updat_reduce "
-          f"> 0: one an updat on the split, bst_attn_fwd_lse 2L, "
-          f"bst_attn_dq L, bst_attn_dkv L, L = {L})")
-    (step, state, m0, scale, d0), (_, _, m1, _, d1) = results
+          f"train step's first call launches {launches}, expected {want} "
+          f"(the warm-up's eager step and the captured step, each: "
+          f"recompute: bsmm_fprop 4L, bsmm_bprop 2L, bsmm_updat 2L, "
+          f"bsmm_updat_reduce > 0: one an updat on the split, "
+          f"bst_attn_fwd_lse 2L, bst_attn_dq L, bst_attn_dkv L, L = {L}; "
+          f"the replay through no wrapper)")
+    bits = all(torch.equal(m0[k], m_eager[k]) for k in m0) and \
+        torch.equal(scale, sc_eager) and \
+        all(torch.equal(d0[k], d_eager[k]) for k in d0)
+    for k in ("loss", "grad_norm"):
+        a, b = m0[k].item(), m_eager[k].item()
+        check(abs(a - b) <= STEP_LOSS_TOL * abs(b),
+              f"step 1 {k}: captured {a:.6f} vs eager {b:.6f} (tol "
+              f"{STEP_LOSS_TOL:g} relative)")
+    compare_tensors("parameter updates of step 1, captured against eager",
+                    d0, d_eager, GRAD_TOL)
+    print(f"      captured step 1 equals the eager step bit for bit "
+          f"(metrics, scale, every parameter update): {bits}", flush=True)
     for k in ("loss", "grad_norm"):
         a, b = m0[k].item(), m1[k].item()
         check(abs(a - b) <= STEP_LOSS_TOL * abs(b),
@@ -1852,35 +2136,79 @@ def training_path(bt, model, plain, cfg, dev, card_line, profile_out):
           f"{LOSS_SCALE:g} -> {scale.item():.2f}")
     compare_tensors("parameter updates of step 1 against the plain model",
                     d0, d1, GRAD_TOL, live=live, flip_bound=2 * LR + 1e-6)
-    del results, d0, d1, live
+    del d0, d1, d_eager, live
     torch.cuda.empty_cache()
 
-    # (c) more steps on the fixed batch: finite, falling loss
+    # (c) more steps on the fixed batch, replays of the graph (no wrapper
+    # call): finite, falling loss
     losses, norm_scales = [m0["loss"].item()], [m0["norm_scale"].item()]
+    reset_counts()
     for _ in range(TRAIN_STEPS - 1):
         state, metrics, scale = step(state, tokens, targets, scale)
         losses.append(metrics["loss"].item())
         norm_scales.append(metrics["norm_scale"].item())
+    replayed = read_counts()
+    check(not any(replayed.values()),
+          f"{TRAIN_STEPS - 1} replays of the captured step launch through "
+          f"no wrapper ({replayed})")
     check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0]
           and min(norm_scales) > 0,
-          f"{TRAIN_STEPS} train steps on one batch: loss "
+          f"{TRAIN_STEPS} train steps on one batch (captured): loss "
           f"{' '.join(f'{x:.4f}' for x in losses)} (finite, falling), "
           f"norm_scale > 0 in every step (min {min(norm_scales):.4f})")
 
-    # step time
+    # step time: the graph's replay against the eager step, in turns
     holder = {"state": state, "scale": scale}
 
-    def one_step():
-        holder["state"], _, holder["scale"] = step(
+    def one_step(fn):
+        holder["state"], _, holder["scale"] = fn(
             holder["state"], tokens, targets, holder["scale"])
-    ms = time_ms(one_step, TIMED_STEPS)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"train step [{card_line}]: batch {BATCH} x {cfg.ctx}, "
-          f"{ms:.2f} ms (mean of {TIMED_STEPS}, CUDA events) = "
-          f"{BATCH * cfg.ctx / ms * 1e3:.0f} tokens/s; peak device memory "
-          f"{peak:.2f} GiB", flush=True)
-    profile_port_kernels("train step", one_step, ms, profile_out)
+
+    def timing(fn):
+        one_step(fn)                  # the other side's state copied in
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        one_step(fn)
+        host_ms = (time.perf_counter() - t) * 1e3
+        torch.cuda.synchronize()
+        ms = time_ms(lambda: one_step(fn), TIMED_STEPS)
+        return ms, host_ms, torch.cuda.max_memory_allocated() / 2 ** 30
+    turns = {"graph": [], "eager": []}
+    for _ in range(2):
+        for side, runs in in_turns({"graph": step, "eager": eager},
+                                   timing).items():
+            turns[side] += runs
+    for side, runs in turns.items():
+        print(f"      train step, {side}: "
+              + "; ".join(f"{ms:.2f} ms (host {h:.2f} ms to return, peak "
+                          f"{gib:.2f} GiB)" for ms, h, gib in runs),
+              flush=True)
+    ms = {k: float(np.median([r[0] for r in v])) for k, v in turns.items()}
+    print(f"train step [{card_line}]: batch {BATCH} x {cfg.ctx}, captured "
+          f"{ms['graph']:.2f} ms (median of 4 turns, each the mean of "
+          f"{TIMED_STEPS} steps by CUDA events) = "
+          f"{BATCH * cfg.ctx / ms['graph'] * 1e3:.0f} tokens/s; eager "
+          f"{ms['eager']:.2f} ms = {BATCH * cfg.ctx / ms['eager'] * 1e3:.0f} "
+          f"tokens/s; peak device memory graph "
+          f"{max(r[2] for r in turns['graph']):.2f} GiB, eager "
+          f"{max(r[2] for r in turns['eager']):.2f} GiB; reserved "
+          f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB", flush=True)
+    profile_port_kernels("train step (graph replay)", lambda: one_step(step),
+                         ms["graph"], profile_out)
+    profile_port_kernels("train step (eager)", lambda: one_step(eager),
+                         ms["eager"])
     return launches
+
+
+def snapshot(m):
+    return {k: v.clone() for k, v in m.state_dict().items()}
+
+
+def restore(m, saved):
+    with torch.no_grad():
+        for k, v in m.state_dict().items():
+            v.copy_(saved[k])
 
 
 # name fragments of the port's kernels; "bsmm_xprop" matches both xprop
@@ -1953,18 +2281,21 @@ def profile_port_kernels(label, fn, wall_ms, table_path=None):
         print(f"{label} profile: not measured (no kernel record in "
               f"{PROFILE_TRIES} windows)", flush=True)
         return
-    by_kernel = {}
+    ports = {}
     for name in PORT_KERNELS:
         hits = [e for e in kernels if name in e.key]
-        by_kernel[name] = (sum(e.self_device_time_total for e in hits) / 1e3,
-                           sum(e.count for e in hits))
-    ours = sum(ms for ms, _ in by_kernel.values())
+        ports[name] = (sum(e.self_device_time_total for e in hits) / 1e3,
+                       sum(e.count for e in hits))
+    ours = sum(ms for ms, _ in ports.values())
     print(f"{label} profile: {total:.2f} ms of device time in one "
           f"profiled run, {total / wall_ms:.0%} of the unprofiled "
           f"{wall_ms:.2f} ms; port kernels {ours:.2f} ms "
           f"({ours / total:.0%}): " + ", ".join(
               f"{name} {ms:.2f} ms ({n})"
-              for name, (ms, n) in by_kernel.items()), flush=True)
+              for name, (ms, n) in ports.items()), flush=True)
+    print(f"      {label}, every kernel by name ("
+          f"{sum(e.count for e in kernels)} launches; us, launches): "
+          f"{by_kernel(kernels, 1)}", flush=True)
     if table_path:
         out = Path(table_path)
         out.parent.mkdir(parents=True, exist_ok=True)

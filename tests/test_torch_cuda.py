@@ -33,6 +33,9 @@ to bsmm_merge over bsmm_partials bit for bit.  The attention forward
 runs f32 on the CUDA cores (csrc/bst_attn_fwd.cu) and bf16/f16 on the
 tensor cores (csrc/bst_attn_fwd_mma.cu), each in a fixed order: two
 runs, and the two launch orders of the query rows, agree bit for bit.
+The LM's CUDA graphs replay the launches of the eager step they captured,
+in the same order on the same buffers: a replayed decode token or train
+step equals the eager one bit for bit.
 """
 import ctypes
 
@@ -43,11 +46,13 @@ import torch
 from blocksparse_tpu_torch import (AdamOptimizer, BlocksparseConv,
                                    BlocksparseMatMul, BlocksparseTransformer,
                                    SparseTransformerLM, TransformerConfig,
+                                   generate_cached, generate_cached_scan,
                                    params_from_jax, random_jax_conv_filter,
                                    random_jax_params)
 from blocksparse_tpu_torch.kernels import bsmm as bsmm_kernels
 from blocksparse_tpu_torch.kernels import bst_attn
 from blocksparse_tpu_torch.kernels import im2col as im2col_kernels
+from blocksparse_tpu_torch.models import sparse_transformer as lm
 from blocksparse_tpu_torch.models.sparse_transformer import (
     causal_subblock_mask, fixed_layout)
 
@@ -907,8 +912,10 @@ def test_train_step_kernels_match_plain_model(cuda, recompute):
                 "fwd_lse": bst_attn.attention_fwd_lse,
                 "dq": bst_attn.attention_dq, "dkv": bst_attn.attention_dkv}
     L, r = cfg.n_layer, 2 if recompute else 1
-    want = {"fprop": 2 * r * L, "bprop": 2 * L, "updat": 2 * L, "fwd": 0,
-            "fwd_lse": r * L, "dq": L, "dkv": L}
+    # the step is a CUDA graph: its first call runs one eager step (the
+    # warm-up) and captures one, so each kernel launches twice a step's
+    want = {"fprop": 4 * r * L, "bprop": 4 * L, "updat": 4 * L, "fwd": 0,
+            "fwd_lse": 2 * r * L, "dq": 2 * L, "dkv": 2 * L}
     out = []
     for m in models:
         m.load_state_dict(sd)
@@ -1528,3 +1535,231 @@ def test_mode_kernels_raise_on_cpu_and_wrong_types(cuda):
         bsmm_kernels.bsmm_merge(tiles, idx.long(), 16, torch.float32)
     with pytest.raises(TypeError):
         bsmm_kernels.bsmm_merge(tiles, idx, 16, torch.float64)
+
+
+# ---------------- the LM's CUDA graphs ----------------
+
+# An LM whose decode MLP products reach the split route (bf16: one fused
+# bsmm_split launch a product) at batch 3
+GRAPH_LM = dict(n_vocab=64, n_embd=256, n_layer=2, n_head=4, ctx=128,
+                blk_size=16, attn_layout="fixed", local_blocks=2,
+                mlp_ratio=4, mlp_block_size=16, mlp_density=0.6,
+                dtype="bfloat16")
+
+
+def _graph_lm(device, **kw):
+    port = SparseTransformerLM(TransformerConfig(**dict(GRAPH_LM, **kw)),
+                               device=device)
+    port.load_state_dict(params_from_jax(random_jax_params(port, seed=6),
+                                         port))
+    return port
+
+
+def _gen(device, seed):
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def _prompt(device, batch=3, n=20):
+    return torch.randint(0, 64, (batch, n), device=device,
+                         generator=_gen(device, 2))
+
+
+def _lm_counts():
+    fns = (bsmm_kernels.bsmm_fprop, bsmm_kernels.bsmm_split,
+           bsmm_kernels.bsmm_bprop, bsmm_kernels.bsmm_updat,
+           bst_attn.attention_fwd, bst_attn.attention_fwd_lse,
+           bst_attn.attention_dq, bst_attn.attention_dkv)
+    return np.array([f.launches for f in fns])
+
+
+def _clone_state(s):
+    return {k: [{kk: vv.clone() for kk, vv in c.items()} for c in v]
+            if k == "caches" else v.clone() for k, v in s.items()}
+
+
+@pytest.mark.cuda
+def test_decode_graph_replay_equals_eager_step(cuda):
+    port = _graph_lm(cuda)
+    graph = port._decode_graph(3, 1.0)
+    s = lm._prompt_state(port, _prompt(cuda), 4, _gen(cuda, 1))
+    ref = _clone_state(s)
+    for _ in range(2):
+        st = graph.run(s, 1)
+        lm._token_step(port, ref, 1.0)
+        s = _clone_state(ref)
+    torch.cuda.synchronize()
+    assert int(graph.state["pos"]) == int(ref["pos"]) == 22
+    for k in ("tokens", "logits", "pos", "step"):
+        assert torch.equal(graph.state[k], ref[k]), k
+    assert st is graph.state["tokens"]
+    for a, b in zip(graph.state["caches"], ref["caches"]):
+        assert torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_scan_tokens_equal_loop_tokens_on_the_card(cuda, dtype):
+    """Same seed, same tokens; the first scan captures (its warm-up and
+    its capture each launch the step's kernels once), a later one only
+    replays: its wrappers count the prefill's launches and no more."""
+    port = _graph_lm(cuda, dtype=dtype)
+    prompt = _prompt(cuda)
+    loop = generate_cached(port, prompt, 12, 0.9, _gen(cuda, 5))
+    scan = generate_cached_scan(port, prompt, 12, 0.9, _gen(cuda, 5))
+    assert torch.equal(scan, loop) and len(port._decode_graphs) == 1
+    full = torch.zeros((3, 128), dtype=torch.int64, device=cuda)
+    full[:, :20] = prompt
+    c0 = _lm_counts()
+    port.prefill(full)
+    c1 = _lm_counts()
+    again = generate_cached_scan(port, prompt, 12, 0.9, _gen(cuda, 5))
+    c2 = _lm_counts()
+    assert torch.equal(again, loop)
+    np.testing.assert_array_equal(c2 - c1, c1 - c0)
+    assert len(port._decode_graphs) == 1
+
+
+@pytest.mark.cuda
+def test_mode_change_recaptures_the_decode_graph(cuda):
+    port = _graph_lm(cuda)
+    prompt = _prompt(cuda)
+    routes = port._mlp_routes(3)
+    generate_cached_scan(port, prompt, 6, generator=_gen(cuda, 8))
+    for op in (port.bsmm1, port.bsmm2):
+        op.mode = "grouped"
+    split = bsmm_kernels.bsmm_split.launches
+    grouped = generate_cached_scan(port, prompt, 6, generator=_gen(cuda, 8))
+    assert len(port._decode_graphs) == 2
+    assert port._mlp_routes(3) != routes
+    assert bsmm_kernels.bsmm_split.launches == split    # no split route
+    assert torch.equal(grouped, generate_cached(port, prompt, 6,
+                                                generator=_gen(cuda, 8)))
+
+
+# The plain-version model's step against itself, captured and eager: its
+# products sum through index_add_'s atomics, in no fixed order, so the
+# two differ by f32 rounding, and where a gradient is rounding noise its
+# sign, hence Adam's move of the element, may flip: chip_smoke.py's
+# tolerances for the plain model, STEP_LOSS_TOL relative on loss, grad
+# norm and scale, GRAD_TOL of each slot's max on Adam's slots, and on a
+# parameter Adam's largest two moves (lr at t = 1, 1.41 lr at t = 2:
+# 0.19 / sqrt(0.001) times lr·sqrt(1 - 0.999^2) / (1 - 0.9^2)) from each
+# side: 5 lr.
+STEP_LOSS_TOL, GRAD_TOL = 1e-2, 5e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", [None, "xla"])
+def test_captured_train_step_equals_eager_step(cuda, impl):
+    """Two steps of the captured step (loss scale first as a float, then
+    the returned tensor; the returned state passed back in place) against
+    two eager steps of the same model from the same weights: on the
+    kernels, metrics, scale, state and parameters equal bit for bit (the
+    first call's warm-up leaves no trace); on the plain versions within
+    the tolerances above."""
+    kw = dict(GRAPH_LM, recompute=True)
+    models = []
+    for _ in range(2):
+        m = SparseTransformerLM(TransformerConfig(**kw), device=cuda,
+                                impl=impl)
+        m.load_state_dict(params_from_jax(random_jax_params(m, seed=7), m))
+        models.append(m)
+    seq = torch.randint(0, 64, (2, 129), device=cuda,
+                        generator=_gen(cuda, 3))
+    tokens, targets = seq[:, :-1], seq[:, 1:]
+    lr = 1e-3
+    adam = AdamOptimizer(learning_rate=lr, zero_nans=True, zero_infs=True)
+    runs = []
+    for m, graph in zip(models, (True, False)):
+        step = m.make_train_step(adam)
+        fn = step if graph else step._eager
+        state, scale, metrics = adam.init(dict(m.named_parameters())), \
+            1024.0, []
+        for _ in range(2):
+            state, mt, scale = fn(state, tokens, targets, scale)
+            metrics.append(mt)
+        torch.cuda.synchronize()
+        runs.append((state, metrics, scale, m.state_dict()))
+        if graph:
+            assert len(step._graphs) == 1 and len(step.captures) == 1
+            (g,) = step._graphs.values()
+            assert state is g["state"]
+    (s0, m0, sc0, p0), (s1, m1, sc1, p1) = runs
+    assert int(s0["t"]) == int(s1["t"]) == 2 and float(sc0) > 1024.0
+    if impl is None:
+        for a, b in zip(m0, m1):
+            for k in ("loss", "grad_norm", "norm_scale"):
+                assert torch.equal(a[k], b[k]), k
+        assert torch.equal(sc0, sc1)
+        assert all(torch.equal(p0[k], p1[k]) for k in p0)
+        for slot in ("mean", "var"):
+            assert all(torch.equal(s0[slot][k], s1[slot][k])
+                       for k in s1[slot])
+        return
+    close = dict(rtol=STEP_LOSS_TOL, atol=0)
+    for a, b in zip(m0, m1):
+        for k in ("loss", "grad_norm", "norm_scale"):
+            torch.testing.assert_close(a[k], b[k], **close)
+    torch.testing.assert_close(sc0, sc1, **close)
+    for k in p0:
+        assert (p0[k] - p1[k]).abs().max().item() <= 5 * lr, k
+    for slot in ("mean", "var"):
+        for k in s1[slot]:
+            torch.testing.assert_close(
+                s0[slot][k], s1[slot][k], rtol=0,
+                atol=GRAD_TOL * s1[slot][k].abs().max().item())
+
+
+@pytest.mark.cuda
+def test_eager_decode_and_train_step_make_no_host_sync(cuda):
+    """The steps the graphs capture read nothing back to the host (the
+    embedding's sorted backward included): sync debug mode "error" raises
+    on any synchronising call."""
+    port = _graph_lm(cuda)
+    prompt = _prompt(cuda)
+    s = lm._prompt_state(port, prompt, 2, _gen(cuda, 4))
+    seq = torch.randint(0, 64, (2, 129), device=cuda,
+                        generator=_gen(cuda, 3))
+    adam = AdamOptimizer(learning_rate=1e-3)
+    step = port.make_train_step(adam)._eager
+    state = adam.init(dict(port.named_parameters()))
+    lm._token_step(port, s, 1.0)                         # warm-up
+    step(state, seq[:, :-1], seq[:, 1:], 1024.0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lm._token_step(port, s, 1.0)
+        port.decode_forward(s["logits"].argmax(-1), s["caches"], 22)
+        step(state, seq[:, :-1], seq[:, 1:], 1024.0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises_and_keeps_no_graph(cuda, monkeypatch):
+    """A step that reads a value back to the host cannot be captured: the
+    capture raises, no graph is kept, and nothing runs the loop or the
+    step eagerly instead."""
+    port = _graph_lm(cuda)
+    logits = port._logits
+
+    def reads_back(x):
+        out = logits(x)
+        float(out.sum())
+        return out
+    monkeypatch.setattr(port, "_logits", reads_back)
+    with pytest.raises(RuntimeError):
+        generate_cached_scan(port, _prompt(cuda), 2, generator=_gen(cuda, 1))
+    assert not port._decode_graphs
+    seq = torch.randint(0, 64, (2, 129), device=cuda,
+                        generator=_gen(cuda, 3))
+    adam = AdamOptimizer(learning_rate=1e-3)
+    step = port.make_train_step(adam)
+    before = {k: v.clone() for k, v in port.state_dict().items()}
+    with pytest.raises(RuntimeError):
+        step(adam.init(dict(port.named_parameters())), seq[:, :-1],
+             seq[:, 1:], 1024.0)
+    assert not step._graphs
+    torch.cuda.synchronize()
+    assert all(torch.equal(v, before[k]) for k, v in port.state_dict().items())
