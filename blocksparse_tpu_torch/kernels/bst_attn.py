@@ -75,13 +75,14 @@ def kernel_head_size(hs):
     HEAD_SIZES that holds it.  q, k, v and dO are zero-padded to it: zero
     columns of q and k change no score, zero columns of v give output
     columns that are dropped, and so are dq, dk and dv there.  Raises
-    past the largest, where the reference takes its unfused ops."""
+    past the largest: there ``BlocksparseTransformer.attention`` runs the
+    unfused ops (``kernels/bst_trio.py``), as the reference does."""
     for h in HEAD_SIZES:
         if hs <= h:
             return h
     raise NotImplementedError(
-        f"head size {hs} > {HEAD_SIZES[-1]}: the reference runs its unfused "
-        f"nt/nn/tn ops there, which the port has not got yet")
+        f"head size {hs} > {HEAD_SIZES[-1]}: the fused kernels stop there; "
+        f"attention runs the unfused nt/nn/tn ops past it")
 
 
 def kernel_view(nt_lists, mask_blocks, bs, ctx_blks_q, ctx_blks_k):

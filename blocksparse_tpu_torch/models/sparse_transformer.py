@@ -186,7 +186,7 @@ class SparseTransformerLM(nn.Module):
                          else {"local_blocks": c.local_blocks}))
         self.bst = BlocksparseTransformer(
             layout, block_size=c.blk_size, heads=c.n_head,
-            mask_callback=causal_subblock_mask)
+            mask_callback=causal_subblock_mask, impl=impl)
 
         self.hidden = c.mlp_ratio * c.n_embd
         if c.mlp_block_size:
@@ -237,8 +237,9 @@ class SparseTransformerLM(nn.Module):
         return qkv.split(self.config.n_embd, dim=-1)
 
     def _attend(self, q, k, v):
-        return self.bst.attention(q, k, v, scale=1.0 / np.sqrt(self.hs),
-                                  use_fused=self.impl != "xla")
+        # the fused kernels up to hs 128, the unfused ops past it, as the
+        # JAX model; impl="xla" keeps both routes on their plain versions
+        return self.bst.attention(q, k, v, scale=1.0 / np.sqrt(self.hs))
 
     def _mlp(self, layer, x):
         nd = self.nd

@@ -1,44 +1,97 @@
 """Block-sparse transformer attention (training, serving and KV-cached
-decode) and the softmax cross-entropy loss.
+decode), the unfused block-sparse ops, the dense softmax family and the
+softmax cross-entropy loss.
 
 Counterpart of ``blocksparse_tpu/ops/transformer.py``: the same layout
 LUTs (``nt_list``/``nn_list``/``tn_list``), bit-packed and dense masks,
-and the public (batch, ctx, heads·hs) layout at ``attention`` and
-``decode_step``.
+NumPy goldens and pickling, and the public (batch, ctx, heads·hs) layout
+at ``attention`` and ``decode_step``.
 
-``attention`` runs the fused CUDA kernels (``kernels/bst_attn.py``) on
+``attention`` takes the fused route where the head size is at most 128
+(``use_fused=None``, as the JAX package's ``_can_fuse``) or where
+``use_fused=True``: the fused CUDA kernels (``kernels/bst_attn.py``) on
 CUDA tensors and their plain masked per-block versions on CPU tensors,
 both on the kernels' view of the layout (block size 8 seen at 16, head
-sizes zero-padded up to 128); ``use_fused=False`` selects the plain
-versions at the op's own block size.  With a gradient to take it is a
-``torch.autograd.Function``, the counterpart of ``_attention_fused`` with
-``flash_bwd=True``: the training forward saves the log-sum-exp, and the
-backward runs dq over the query-row CSR and dk/dv over the key-row CSR.
-Without one it runs the serving forward.  ``decode_step`` and
-``softmax_cross_entropy`` are plain PyTorch, as the JAX package leaves
-them to XLA.  The unfused nt/nn/tn ops belong to a later slice.
+sizes zero-padded up to 128).  With a gradient to take it is a
+``torch.autograd.Function``, the counterpart of ``_attention_fused``:
+with ``flash_bwd=True`` the training forward saves the log-sum-exp and
+the backward runs dq over the query-row CSR and dk/dv over the key-row
+CSR; with ``flash_bwd=False`` the backward is that of the unfused ops.
+Without a gradient it runs the serving forward.  Past a head size of 128
+(or with ``use_fused=False``) it runs the unfused ops, as the JAX package
+does: ``nt_op`` (the scores), the blocked ``masked_softmax`` and
+``nn_op``.  ``nt_op``, ``nn_op`` and ``tn_op`` are autograd functions
+wired as the reference's (each one's backward is the other two) over the
+CUDA kernels of ``kernels/bst_trio.py`` on CUDA tensors and their plain
+versions on CPU tensors.  ``impl="xla"`` makes an op plain on every
+device: the trio's plain versions and, on the fused route, the plain
+version at the op's own block size.  The blocked softmaxes,
+``decode_step``, the dense softmax family and ``softmax_cross_entropy``
+are plain PyTorch, as the JAX package leaves them to XLA.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from blocksparse_tpu_torch.kernels import bst_attn
+from blocksparse_tpu_torch.kernels import bst_attn, bst_trio
 
 _NEG_MAX = -np.finfo(np.float32).max
+_IMPLS = (None, "xla", "pallas")
+
+
+def sparse_coo_to_dense(coords, nq, nk):
+    a = np.zeros((nq, nk), np.int32)
+    for (q, k) in coords:
+        a[q, k] = 1
+    return a
+
+
+def _can_fuse(hs):
+    """The fused kernels take head sizes up to 128 (the JAX package's
+    ``_can_fuse``); past it ``attention`` runs the unfused ops."""
+    return hs <= bst_attn.HEAD_SIZES[-1]
 
 
 class BlocksparseTransformer:
+
+    def __getstate__(self):
+        # the layouts and masks determine the state; device tables are
+        # rebuilt at first use
+        return {"layout": np.stack([sparse_coo_to_dense(
+                    self.nt_list[h], self.ctx_blks_q, self.ctx_blks_k)
+                    for h in range(self.lut_heads)]),
+                "block_size": self.blk_size,
+                "heads": self.heads,
+                "mask_blocks": self._mask_blocks,
+                "name": self.name,
+                "impl": self.impl,
+                "q_mult": self.q_mult}
+
+    def __setstate__(self, state):
+        mask_blocks = state["mask_blocks"]
+        cb = None
+        if mask_blocks is not None:
+            def cb(blk_shape, head, qry, key, blk):
+                return np.asarray(mask_blocks[head][blk])
+        self.__init__(state["layout"], state["block_size"], state["heads"],
+                      cb, state["name"], state.get("impl"),
+                      state.get("q_mult"))
 
     def __init__(self, layout, block_size=64, heads=None, mask_callback=None,
                  name=None, impl=None, q_mult=None):
         """layout: (ctx_blks_q, ctx_blks_k) shared by all heads (then
         ``heads`` is required) or (lut_heads, ctx_blks_q, ctx_blks_k).
         mask_callback(blk_shape, head, qry, key, blk) -> bool block.
-        impl selects the JAX package's unfused nt/nn/tn ops, which the
-        port has not got yet; q_mult is the TPU kernel's row pairing.
-        Both are accepted for the same call signature and change no
-        result."""
+        impl: None (or "pallas") runs the CUDA kernels on CUDA tensors and
+        their plain versions on CPU tensors; "xla" runs the plain versions
+        on every device, the reference the kernels are held against.
+        q_mult is the TPU kernel's row pairing, accepted for the same
+        call signature; it changes no result."""
+        if impl not in _IMPLS:
+            raise ValueError(f"impl must be one of {_IMPLS}, got {impl!r}")
+        self.impl = impl
+        self.q_mult = q_mult
         layout = np.asarray(layout)
         if layout.ndim == 2:
             if heads is None:
@@ -147,6 +200,9 @@ class BlocksparseTransformer:
             self.softmax_mask_np, [0, 2, 1]).copy()
         self._mask_blocks = np.array(dense, dtype=bool)
 
+    def block_coord(self, block, head=0):
+        return self.nt_list[head][block]
+
     def mask_codes(self, transposed=False):
         """(codes (lut_heads, blocks), uniq table) of the fused kernels'
         per-entry masks; codes are None when there is no mask.  With
@@ -180,8 +236,10 @@ class BlocksparseTransformer:
         (``kbs``, ``kctx_q``, ``kctx_k``; the view's plain-version block
         indices and masks as ``kq_blk``, ``kk_blk``, ``kmask``); the plain
         versions' block indices and dense masks at this op's own block
-        size; and the decode tables (so a decode step copies nothing from
-        the host, which would stall the stream)."""
+        size; the unfused ops' CSRs (``bst_trio.trio_tables``, as
+        ``tri_<name>``); and the decode tables (so a decode step copies
+        nothing from the host, which would stall the stream, and a CUDA
+        graph can capture the ops)."""
         tab = self._dev_tables.get(device)
         if tab is None:
             nt, masks, kbs, kcq, kck = bst_attn.kernel_view(
@@ -211,8 +269,213 @@ class BlocksparseTransformer:
                 "dec_in_row": t(in_row, torch.bool),
                 "arange_bs": t(np.arange(self.blk_size), i64),
                 "heads_lut": t(np.arange(self.lut_heads)[:, None], i64)})
+            tri = bst_trio.trio_tables(self.nt_list, self.ctx_blks_q,
+                                       self.ctx_blks_k)
+            tab.update({f"tri_{name}": t(a, i32) for name, a in tri.items()})
             self._dev_tables[device] = tab
         return tab
+
+    # ------------- the unfused ops ----------------
+
+    def nt_op(self, a, b, name=None, bench=0):
+        """scores[n, h, blk] = a_blk · b_blkᵀ (dense x dense -> sparse):
+        (batch, heads, blocks, bs, bs) in a's dtype, from a (batch, ctx_q,
+        heads·hs) and b (batch, ctx_k, heads·hs).  Differentiable: db =
+        tn(dw, a), da = nn(dw, b)."""
+        return _NT.apply(a, b, self)
+
+    query_key_op = nt_op
+
+    def nn_op(self, a, b, name=None, bench=0):
+        """y = Σ over each query row's blocks of w_blk · v_blk (sparse x
+        dense -> dense): a (batch, heads, blocks, bs, bs), b (batch, ctx_k,
+        heads·hs) -> (batch, ctx_q, heads·hs) in b's dtype.
+        Differentiable: db = tn(a, dy), da = nt(dy, b)."""
+        return _NN.apply(a, b, self)
+
+    weight_value_op = nn_op
+
+    def tn_op(self, a, b, name=None, bench=0):
+        """y = Σ over each key row's blocks of w_blkᵀ · x_blk (the
+        gradient op): a (batch, heads, blocks, bs, bs), b (batch, ctx_q,
+        heads·hs) -> (batch, ctx_k, heads·hs) in b's dtype.
+        Differentiable: db = nn(a, dy), da = nt(b, dy)."""
+        return _TN.apply(a, b, self)
+
+    # ------------- blocked softmax ----------------
+
+    def _softmax_imp(self, x, scale, mask):
+        """x: (batch, heads, blocks, bs, bs) -> the softmax over each query
+        row's visible keys (all blocks of its block-row, in-block columns),
+        in f32, cast to x's dtype.  Hidden scores take -finfo(f32).max, so
+        a row that sees no key spreads evenly over its blocks.  Plain
+        torch, differentiable through autograd; the row max is a constant
+        of the gradient, as the shift cancels."""
+        tab = self._tables(x.device)
+        batch, heads, blocks, bs, _ = x.shape
+        xs = x.float() * scale
+        if mask is not None:
+            xs = torch.where(mask, xs, _NEG_MAX)
+        idx = tab["q_blk"].expand(heads, -1)[None, :, :, None].expand(
+            batch, heads, blocks, bs)
+        rows = (batch, heads, self.ctx_blks_q, bs)
+        m = torch.full(rows, float("-inf"), device=x.device).scatter_reduce(
+            2, idx, xs.detach().amax(-1), "amax")
+        e = torch.exp(xs - m.gather(2, idx)[..., None])
+        s = torch.zeros(rows, device=x.device).scatter_add(2, idx, e.sum(-1))
+        return (e / s.gather(2, idx)[..., None]).to(x.dtype)
+
+    def masked_softmax(self, x, scale=1.0, autoregress_at_key=None,
+                       dtype=None):
+        """The blocked softmax of the scores x (batch, heads, blocks, bs,
+        bs) under the op's masks, scaled by ``scale``.  With
+        ``autoregress_at_key`` (an int or a device tensor of one element)
+        a key k of query q stays visible only if k < max(key, q + 1)
+        (the reference's bst_partial_autoregressive_mask).  Without masks
+        it is ``softmax``."""
+        if self.softmax_mask_np is None:
+            if autoregress_at_key is not None:
+                raise ValueError("autoregress_at_key only applies to ops "
+                                 "with mask_callback defined.")
+            return self.softmax(x, scale, dtype)
+        tab = self._tables(x.device)
+        mask = tab["mask"][None]            # (1, lut_heads, blocks, bs, bs)
+        if autoregress_at_key is not None:
+            bs, ar = self.blk_size, tab["arange_bs"]
+            q_glob = tab["q_blk"][:, :, None, None] * bs + ar[:, None]
+            k_glob = tab["k_blk"][:, :, None, None] * bs + ar
+            if isinstance(autoregress_at_key, torch.Tensor):
+                front = torch.maximum(q_glob + 1, autoregress_at_key.to(
+                    device=x.device, dtype=torch.int64).reshape(()))
+            else:
+                front = torch.clamp(q_glob + 1, min=int(autoregress_at_key))
+            mask = mask & (k_glob < front)[None]
+        out = self._softmax_imp(x, scale, mask)
+        return out if dtype is None else out.to(dtype)
+
+    def softmax(self, x, scale=1.0, dtype=None):
+        out = self._softmax_imp(x, scale, None)
+        return out if dtype is None else out.to(dtype)
+
+    # ------------- NumPy goldens ----------------
+
+    def nt_test(self, A, B):
+        shapeA = list(A.shape)
+        shapeB = list(B.shape)
+        shapeA[1:] = [self.ctx_blks_q, self.blk_size, self.heads,
+                      shapeA[2] // self.heads]
+        shapeB[1:] = [self.ctx_blks_k, self.blk_size, self.heads,
+                      shapeB[2] // self.heads]
+        batch_size = shapeA[0]
+        A = A.reshape(shapeA)
+        B = B.reshape(shapeB)
+        C = np.empty([batch_size, self.heads, self.blocks, self.blk_size,
+                      self.blk_size], dtype=np.float32)
+        for n in range(batch_size):
+            for h in range(self.heads):
+                lut_head = h if self.lut_heads > 1 else 0
+                for b, (y, x) in enumerate(self.nt_list[lut_head]):
+                    C[n, h, b] = np.dot(A[n, y, :, h, :], B[n, x, :, h, :].T)
+        return C
+
+    def nn_test(self, A, B):
+        shapeB = list(B.shape)
+        state_size = shapeB[2]
+        shapeB[1:] = [self.ctx_blks_k, self.blk_size, self.heads,
+                      state_size // self.heads]
+        shapeC = list(shapeB)
+        shapeC[1:] = [self.ctx_blks_q, self.blk_size, self.heads,
+                      state_size // self.heads]
+        batch_size = shapeC[0]
+        B = B.reshape(shapeB)
+        C = np.zeros(shapeC, dtype=np.float32)
+        for n in range(batch_size):
+            for h in range(self.heads):
+                lut_head = h if self.lut_heads > 1 else 0
+                for x, lut in enumerate(self.nn_list[lut_head]):
+                    for b, y in lut:
+                        C[n, x, :, h, :] += np.dot(A[n, h, b],
+                                                   B[n, y, :, h, :])
+        return C.reshape([batch_size, self.ctx_blks_q * self.blk_size,
+                          state_size])
+
+    def tn_test(self, A, B):
+        shapeB = list(B.shape)
+        state_size = shapeB[2]
+        shapeB[1:] = [self.ctx_blks_q, self.blk_size, self.heads,
+                      state_size // self.heads]
+        shapeC = list(shapeB)
+        shapeC[1:] = [self.ctx_blks_k, self.blk_size, self.heads,
+                      state_size // self.heads]
+        batch_size = shapeC[0]
+        B = B.reshape(shapeB)
+        C = np.zeros(shapeC, dtype=np.float32)
+        for n in range(batch_size):
+            for h in range(self.heads):
+                lut_head = h if self.lut_heads > 1 else 0
+                for x, lut in enumerate(self.tn_list[lut_head]):
+                    for b, y in lut:
+                        C[n, x, :, h, :] += np.dot(A[n, h, b].T,
+                                                   B[n, y, :, h, :])
+        return C.reshape([batch_size, self.ctx_blks_k * self.blk_size,
+                          state_size])
+
+    def masked_softmax_test(self, x, scale=1.0, autoregress_at_key=None):
+        y = np.empty_like(x)
+        m = self.softmax_mask_np
+        bsize = self.blk_size
+        ones = (1 << bsize) - 1
+        for n in range(x.shape[0]):
+            for h in range(x.shape[1]):
+                hl = h if self.lut_heads > 1 else 0
+                for lut in self.nn_list[hl]:
+                    xm = np.full((len(lut), bsize * bsize), _NEG_MAX,
+                                 dtype=np.float32)
+                    for i, (b, k) in enumerate(lut):
+                        xb = x[n, h, b].reshape(-1)
+                        if m is None:
+                            xm[i, :] = xb * scale
+                        else:
+                            mask = m[hl, b, :]
+                            if autoregress_at_key is not None:
+                                Q = self.nt_list[hl][b][0] * bsize
+                                K = k * bsize
+                                new_mask = np.empty(bsize, dtype=mask.dtype)
+                                for q in range(bsize):
+                                    shift_a = bsize - min(max(
+                                        autoregress_at_key - K, 0), bsize)
+                                    shift_b = min(max(
+                                        bsize - 1 + K - (Q + q), 0), bsize)
+                                    shift_c = int(min(shift_a, shift_b))
+                                    new_mask[q] = int(mask[q]) \
+                                        & (ones >> shift_c)
+                                mask = new_mask
+                            mask = np.unpackbits(
+                                mask.view(np.uint8)).reshape(-1, 8)[:, ::-1] \
+                                .reshape(-1)
+                            nzIdx = np.nonzero(mask)
+                            xm[i, nzIdx] = xb[nzIdx] * scale
+                    xm = xm.reshape((len(lut), bsize, bsize))
+                    xm = np.exp(xm - np.max(xm, axis=(0, 2), keepdims=True))
+                    ym = xm / np.sum(xm, axis=(0, 2), keepdims=True)
+                    for i, (b, k) in enumerate(lut):
+                        y[n, h, b] = ym[i]
+        return y
+
+    def masked_softmax_grad_test(self, dy, y, scale=1.0):
+        dx = np.empty_like(dy)
+        for n in range(dy.shape[0]):
+            for h in range(dy.shape[1]):
+                hl = h if self.lut_heads > 1 else 0
+                for lut in self.nn_list[hl]:
+                    bs = [b for b, k in lut]
+                    dyb = dy[n, h, bs]
+                    yb = y[n, h, bs]
+                    dxb = (dyb - np.sum(dyb * yb, axis=(0, 2),
+                                        keepdims=True)) * yb * scale
+                    for i, (b, k) in enumerate(lut):
+                        dx[n, h, b] = dxb[i]
+        return dx
 
     # ------------- attention ----------------
 
@@ -220,34 +483,51 @@ class BlocksparseTransformer:
         """softmax(scale·QKᵀ + mask)·V over this object's layout.
 
         q: (batch, ctx_q, heads·hs); k, v: (batch, ctx_k, heads·hs).
-        Unless use_fused=False, the fused kernels' route runs: on CUDA
-        tensors the kernels, on CPU tensors their plain versions, both on
-        the kernels' view of the layout (block size 8 seen at 16) with hs
-        zero-padded to a size the kernels take (``_kernel_fwd``).  A head
-        size past 128 raises there on the card (the reference's unfused
-        ops are not ported) and takes the plain versions on the CPU.
-        use_fused=False selects the plain versions at this op's own block
-        size, on any device.  Differentiable in q, k and v: with a
-        gradient to take, the training forward (which keeps the lse) runs,
-        else the serving forward.  A query row that sees no key gives
-        zeros, and zero gradients.  The backward is always the flash one:
-        ``flash_bwd=False`` (the reference's unfused backward) is not
-        ported and raises."""
-        if not flash_bwd:
-            raise NotImplementedError("flash_bwd=False (the unfused "
-                                      "attention backward) is not ported "
-                                      "yet")
-        fused = use_fused is not False and (
-            q.is_cuda or q.shape[-1] // self.heads <= bst_attn.HEAD_SIZES[-1])
+        use_fused=None takes the fused route where hs <= 128 and the
+        unfused ops past it, as the JAX package does; True and False pin
+        a route.  The fused route runs the fused kernels on CUDA tensors
+        and their plain versions on CPU tensors, both on the kernels' view
+        of the layout (block size 8 seen at 16) with hs zero-padded to a
+        size the kernels take (``_kernel_fwd``); past hs 128 it raises on
+        the card and runs the plain version at the op's own block size on
+        the CPU.  With ``impl="xla"`` the fused route runs that plain
+        version on every device.  On the fused route a query row that
+        sees no key gives zeros; on the unfused route it gives the mean of
+        v over its blocks' keys (the reference's -finfo(f32).max fill).
+        Differentiable in q, k and v: with a gradient to take, the
+        training forward (which keeps the lse) runs, else the serving
+        forward; ``flash_bwd=False`` takes the backward of the unfused
+        ops, nn(masked_softmax(nt(q, k)), v), instead of the fused one."""
+        hs = q.shape[-1] // self.heads
+        if use_fused is None:
+            use_fused = _can_fuse(hs)
+        if not use_fused:
+            return self._unfused(q, k, v, scale)
+        kernels = self.impl != "xla" and (q.is_cuda or _can_fuse(hs))
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in (q, k, v)):
-            return _AttentionFunction.apply(q, k, v, self, scale, fused)
-        if fused:
-            return self._kernel_fwd(q, k, v, scale, with_lse=False)[0]
+            return _AttentionFunction.apply(q, k, v, self, scale, kernels,
+                                            flash_bwd)
+        return self._fused_fwd(q, k, v, scale, kernels, with_lse=False)[0]
+
+    def _unfused(self, q, k, v, scale):
+        """nn(masked_softmax(nt(q, k), scale), v): the JAX package's
+        unfused attention."""
+        w = self.nt_op(q, k)
+        p = self.masked_softmax(w, scale=scale)
+        return self.nn_op(p, v)
+
+    def _fused_fwd(self, q, k, v, scale, kernels, with_lse):
+        """The fused forward, (out, lse or None): on the kernels' route
+        (``_kernel_fwd``) or, without ``kernels``, the plain version at
+        this op's own block size."""
+        if kernels:
+            return self._kernel_fwd(q, k, v, scale, with_lse)
         tab = self._tables(q.device)
-        return bst_attn.attention_fwd_plain(
+        out, lse = bst_attn.attention_fwd_lse_plain(
             q, k, v, tab["q_blk"], tab["k_blk"], tab["mask"], self.heads,
             self.blk_size, scale)
+        return out, lse if with_lse else None
 
     def _kernel_fwd(self, q, k, v, scale, with_lse):
         """The fused forward on the kernels' view: (out, lse or None).
@@ -427,35 +707,147 @@ def _crop(a, ctx, heads, hs):
         batch, ctx, heads * hs)
 
 
-class _AttentionFunction(torch.autograd.Function):
-    """The JAX ``_attention_fused`` custom_vjp with ``flash_bwd=True``:
-    the forward keeps (q, k, v, out, lse); the backward forms
-    D = rowsum(dO·out) in plain torch and runs dq and dk/dv, casting each
-    to its input's dtype (dk and dv come out of their kernel in f32).
-    ``fused``: the kernels' route (``_kernel_fwd``/``_kernel_bwd``), else
-    the plain versions at the op's own block size."""
+def _on_kernels(bst, t):
+    """The trio's route for a tensor: the CUDA kernels on a CUDA tensor
+    unless the op is ``impl="xla"``."""
+    return t.is_cuda and bst.impl != "xla"
+
+
+def _rows_contiguous(t):
+    """t, or a copy where its last dim is not contiguous (a gradient may be
+    an expanded view)."""
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def _head8(a, heads):
+    """a with each head zero-padded to a multiple of 8 columns, the head
+    size the trio's kernels take (zero columns add nothing to a score and
+    give output columns that are cropped); a itself where hs is one."""
+    hs = a.shape[-1] // heads
+    return _pad(a, a.shape[1], heads, -(-hs // 8) * 8)
+
+
+def _nt(bst, a, b):
+    """scores (batch, heads, blocks, bs, bs) = a_blk · b_blkᵀ in a's
+    dtype: ``bst_trio.bst_nt`` or its plain version."""
+    tab = bst._tables(a.device)
+    if not _on_kernels(bst, a):
+        return bst_trio.bst_nt_plain(a, b, tab["q_blk"], tab["k_blk"],
+                                     bst.heads, bst.blk_size)
+    return bst_trio.bst_nt(
+        _head8(_rows_contiguous(a), bst.heads),
+        _head8(_rows_contiguous(b.to(a.dtype)), bst.heads),
+        tab["tri_row_ptr"], tab["tri_ent_k"], bst.heads, bst.blk_size)
+
+
+def _xn(bst, w, x, trans):
+    """NN (y over the query rows, x at the key blocks) or TN (``trans``: y
+    over the key rows, x at the query blocks) of the scores w and x, in
+    x's dtype: ``bst_trio.bst_xn`` or its plain version."""
+    tab = bst._tables(x.device)
+    rows = bst.ctx_blks_k if trans else bst.ctx_blks_q
+    if not _on_kernels(bst, x):
+        seg, gather = ((tab["k_blk"], tab["q_blk"]) if trans
+                       else (tab["q_blk"], tab["k_blk"]))
+        return bst_trio.bst_xn_plain(w, x, seg, gather, rows, bst.heads,
+                                     bst.blk_size, trans)
+    csr = (("tri_row_ptr_t", "tri_ent_b", "tri_ent_q") if trans
+           else ("tri_row_ptr", "tri_ent_e", "tri_ent_k"))
+    batch, _, state = x.shape
+    y = bst_trio.bst_xn(
+        w.to(x.dtype).contiguous(), _head8(_rows_contiguous(x), bst.heads),
+        *(tab[name] for name in csr), bst.heads, bst.blk_size, rows, trans)
+    return _crop(y, rows * bst.blk_size, bst.heads, state // bst.heads)
+
+
+class _NT(torch.autograd.Function):
+    """``nt_op``: dk = tn(dw, q), dq = nn(dw, k) (the JAX ``_bst_nt``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bst, scale, fused):
-        if fused:
-            out, lse = bst._kernel_fwd(q, k, v, scale, with_lse=True)
-        else:
-            tab = bst._tables(q.device)
-            out, lse = bst_attn.attention_fwd_lse_plain(
-                q, k, v, tab["q_blk"], tab["k_blk"], tab["mask"], bst.heads,
-                bst.blk_size, scale)
+    def forward(ctx, a, b, bst):
+        ctx.save_for_backward(a, b)
+        ctx.bst = bst
+        return _nt(bst, a, b)
+
+    @staticmethod
+    def backward(ctx, dw):
+        a, b = ctx.saved_tensors
+        dw = dw.to(a.dtype)
+        da = _xn(ctx.bst, dw, b, False) if ctx.needs_input_grad[0] else None
+        db = _xn(ctx.bst, dw, a, True) if ctx.needs_input_grad[1] else None
+        return (None if da is None else da.to(a.dtype),
+                None if db is None else db.to(b.dtype), None)
+
+
+class _NN(torch.autograd.Function):
+    """``nn_op``: dv = tn(w, dy), dw = nt(dy, v) (the JAX ``_bst_nn``)."""
+
+    @staticmethod
+    def forward(ctx, w, v, bst):
+        ctx.save_for_backward(w, v)
+        ctx.bst = bst
+        return _xn(bst, w, v, False)
+
+    @staticmethod
+    def backward(ctx, dy):
+        w, v = ctx.saved_tensors
+        dy = dy.to(v.dtype)
+        dw = _nt(ctx.bst, dy, v) if ctx.needs_input_grad[0] else None
+        dv = _xn(ctx.bst, w, dy, True) if ctx.needs_input_grad[1] else None
+        return (None if dw is None else dw.to(w.dtype),
+                None if dv is None else dv.to(v.dtype), None)
+
+
+class _TN(torch.autograd.Function):
+    """``tn_op``: dq = nn(w, dy), dw = nt(q, dy) (the JAX ``_bst_tn``)."""
+
+    @staticmethod
+    def forward(ctx, w, q, bst):
+        ctx.save_for_backward(w, q)
+        ctx.bst = bst
+        return _xn(bst, w, q, True)
+
+    @staticmethod
+    def backward(ctx, dy):
+        w, q = ctx.saved_tensors
+        dy = dy.to(q.dtype)
+        dw = _nt(ctx.bst, q, dy) if ctx.needs_input_grad[0] else None
+        dq = _xn(ctx.bst, w, dy, False) if ctx.needs_input_grad[1] else None
+        return (None if dw is None else dw.to(w.dtype),
+                None if dq is None else dq.to(q.dtype), None)
+
+
+class _AttentionFunction(torch.autograd.Function):
+    """The JAX ``_attention_fused`` custom_vjp.  ``kernels``: the fused
+    kernels' route (``_kernel_fwd``/``_kernel_bwd``), else the plain
+    versions at the op's own block size.  With ``flash_bwd`` the forward
+    keeps (q, k, v, out, lse) and the backward forms D = rowsum(dO·out) in
+    plain torch and runs dq and dk/dv, casting each to its input's dtype
+    (dk and dv come out of their kernel in f32).  Without it the forward
+    is the serving one and the backward that of the unfused ops,
+    recomputed from q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bst, scale, kernels, flash_bwd):
+        out, lse = bst._fused_fwd(q, k, v, scale, kernels,
+                                  with_lse=flash_bwd)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.bst, ctx.scale, ctx.fused = bst, scale, fused
+        ctx.bst, ctx.scale, ctx.kernels = bst, scale, kernels
+        ctx.flash_bwd = flash_bwd
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         bst, scale = ctx.bst, ctx.scale
-        do = do.to(q.dtype)
-        if do.stride(-1) != 1:
-            do = do.contiguous()
-        if ctx.fused:
+        if not ctx.flash_bwd:
+            with torch.enable_grad():
+                qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+                y = bst._unfused(*qkv, scale)
+            dq, dk, dv = torch.autograd.grad(y, qkv, do.to(y.dtype))
+            return dq, dk, dv, None, None, None, None
+        do = _rows_contiguous(do.to(q.dtype))
+        if ctx.kernels:
             dq, dk, dv = bst._kernel_bwd(q, k, v, do, out, lse, scale)
         else:
             tab = bst._tables(q.device)
@@ -463,7 +855,156 @@ class _AttentionFunction(torch.autograd.Function):
                 q, k, v, do, lse, _rowsum(do, out, bst.heads), tab["q_blk"],
                 tab["k_blk"], tab["mask"], bst.heads, bst.blk_size, scale)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
-                None)
+                None, None)
+
+
+def clear_bst_constants():
+    """Parity shim: an op's tables go to each device once, at first use."""
+
+
+# ------------------------------------------------------------------
+# Dense softmax / top-k family (reference transformer.py:484-701), plain
+# torch as the JAX package leaves it to XLA.
+# ------------------------------------------------------------------
+
+def _check_k(x, k):
+    if not k <= x.shape[-1] <= 1024:
+        raise ValueError(f"k <= last dim <= 1024, got k {k} of "
+                         f"{x.shape[-1]}")
+
+
+def top_k(x, k):
+    """(values, indices) of the k largest entries of the last dim, in
+    descending order."""
+    _check_k(x, k)
+    return torch.topk(x, k, dim=-1)
+
+
+def rectified_top_k(x, k, rebase=True):
+    """x where it is among the k largest of its row, less the k-th value
+    when that is positive (``rebase``), else 0."""
+    _check_k(x, k)
+    kth = torch.topk(x, k, dim=-1).values[..., k - 1:k]
+    base = kth.clamp_min(0.0) if rebase else torch.zeros_like(kth)
+    return torch.where(x >= kth, torch.maximum(x, base) - base,
+                       torch.zeros_like(x))
+
+
+def rectified_top_k_test(x, k, rebase=True):
+    a = np.argsort(x)[:, ::-1]
+    y = np.zeros(x.shape, dtype=np.float32)
+    for i in range(x.shape[0]):
+        base = max(x[i, a[i, k - 1]], 0.0) if rebase else 0.0
+        y[i, a[i, :k]] = np.maximum(x[i, a[i, :k]], base) - base
+    return y
+
+
+def _apply_mask_scale(x, mask, scale):
+    xs = x.float()
+    if mask is None:
+        return xs * scale
+    m = mask.float()
+    return torch.where(m != 0, xs * m * scale, _NEG_MAX)
+
+
+def softmax(x, scale=1.0, bench=0):
+    return masked_softmax(x, mask=None, scale=scale)
+
+
+def masked_softmax(x, mask=None, scale=1.0, bench=0):
+    """Dense softmax over the last dim with a broadcastable
+    multiplicative/visibility mask (mask == 0 -> hidden; else the logit
+    is scaled by mask·scale), in f32, cast to x's dtype.  Its gradient is
+    the reference's masked_softmax_grad, (dy - Σ dy·y)·y·mask·scale."""
+    if mask is not None:
+        if mask.dim() != x.dim() or any(
+                m not in (1, n) for m, n in zip(mask.shape, x.shape)):
+            raise ValueError(f"mask {tuple(mask.shape)} does not broadcast "
+                             f"to x {tuple(x.shape)} dim for dim")
+    return _DenseSoftmax.apply(x, mask, scale)
+
+
+class _DenseSoftmax(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, mask, scale):
+        xs = _apply_mask_scale(x, mask, scale)
+        e = torch.exp(xs - xs.amax(-1, keepdim=True))
+        y = (e / e.sum(-1, keepdim=True)).to(x.dtype)
+        ctx.save_for_backward(y, mask)
+        ctx.scale = scale
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        y, mask = ctx.saved_tensors
+        yf, dyf = y.float(), dy.float()
+        dx = (dyf - (dyf * yf).sum(-1, keepdim=True)) * yf * ctx.scale
+        if mask is not None:
+            dx = dx * mask.float()
+        return dx.to(y.dtype), None, None
+
+
+def masked_top_k_softmax(x, k, mask=None, scale=1.0):
+    """The softmax over each row's k largest masked, scaled logits, zeros
+    elsewhere, in x's dtype."""
+    _check_k(x, k)
+    xs = _apply_mask_scale(x, mask, scale)
+    vals, idx = torch.topk(xs, k, dim=-1)
+    e = torch.exp(vals - vals[..., :1])
+    sm = e / e.sum(-1, keepdim=True)
+    return torch.zeros_like(xs).scatter(-1, idx, sm).to(x.dtype)
+
+
+def masked_softmax_test(x, mask=None, scale=1.0):
+    x_shape = x.shape
+    if mask is not None:
+        x = x.reshape(-1, mask.size)
+        y = np.empty(x.shape, dtype=np.float32)
+        y.fill(_NEG_MAX)
+        nz = np.nonzero(mask.reshape(-1))
+        y[:, nz] = x[:, nz] * mask.reshape(1, -1)[:, nz] * scale
+    else:
+        y = x * scale
+    y = y.reshape(-1, x_shape[-1])
+    m = np.max(y, axis=1, keepdims=True)
+    z = np.exp(y - m) / np.sum(np.exp(y - m), axis=1, keepdims=True)
+    return z.reshape(x_shape)
+
+
+def masked_top_k_softmax_test(x, k, mask=None, scale=1.0):
+    x_shape = x.shape
+    if mask is not None:
+        x = x.reshape(-1, mask.size)
+        y = np.empty(x.shape, dtype=np.float32)
+        y.fill(_NEG_MAX)
+        nz = np.nonzero(mask.reshape(-1))
+        y[:, nz] = x[:, nz] * mask.reshape(1, -1)[:, nz] * scale
+    else:
+        y = x * scale
+    y = y.reshape(-1, x_shape[-1])
+    a = np.argsort(y)[:, ::-1]
+    z = np.zeros(y.shape, dtype=np.float32)
+    for i in range(y.shape[0]):
+        max_val = y[i, a[i, 0]]
+        z[i, a[i, :k]] = np.exp(y[i, a[i, :k]] - max_val) \
+            / np.sum(np.exp(y[i, a[i, :k]] - max_val))
+    return z.reshape(x_shape)
+
+
+def masked_softmax_grad_test(dy, y, mask=None, scale=1.0):
+    if mask is None:
+        mask = 1.0
+    return (dy - np.sum(dy * y, axis=-1, keepdims=True)) * y * mask * scale
+
+
+def transpose_2d(x):
+    return x.t()
+
+
+def transpose_0213(x):
+    """(batch, a, b, c) -> (batch, b, a, c), the head transpose."""
+    return x.permute(0, 2, 1, 3)
 
 
 def softmax_cross_entropy(logits, labels):

@@ -120,6 +120,26 @@ regime (``bench.py``'s random 8192^2, b32, d 0.25 layout at N 256 and
 2048), window against grouped in turns, by CUDA events and by the
 profiler's device time.
 
+The unfused attention ops (``nt_op``, ``nn_op``, ``tn_op``), which the
+LM runs past a head size of 128: ``bst_nt`` and ``bst_xn`` run
+``bst_nt_mma.cu`` and ``bst_xn_mma.cu`` on the tensor cores in bf16 and
+f16 and ``bst_nt.cu`` and ``bst_xn.cu`` in f32, each held against its
+plain version (the op's ``impl="xla"`` twin) at every block size 8-64,
+on shared and per-head layouts with an empty query row and key row and
+q/k/v sliced from one packed qkv, and at the LM's shapes (batch 8 x 2048,
+blk 64, fixed layout, causal sub-block masks) with 2 heads of 256 and 8
+heads of 64, two runs equal bit for bit, timed beside their bound and a
+batched ``torch.matmul`` over the gathered blocks.  Then the enwik8 LM
+with n_head 2 (hs 256: the head count at which the JAX package takes the
+unfused ops; the published widths are kept) down its forward (8 x 2048),
+prefill (4 x 2048), ``generate_cached_scan`` (4 x 64 tokens after 1024)
+and captured train step (with falling loss over its replays), each
+counted and held against the same model on the plain versions; and the
+trio (``use_fused=False``) timed against the fused kernels at the
+flagship's 8 heads of 64, forward and forward + backward, in turns.  The
+kernels line's ``bst_xn`` row counts every launch of its wrapper (NN and
+TN) and times NN; ``bst_xn_tn`` counts and times the TN direction.
+
 Prints the card's name and power limit, the build times, every check
 with its tolerance, the timings, a ``{"kernels": [...]}`` line (each
 kernel with its bound on this card and the time of a library call that
@@ -155,7 +175,7 @@ SOURCES = ("bsmm_xprop_mma", "bsmm_fprop", "bsmm_updat_mma", "bsmm_updat",
            "bst_attn_fwd", "bst_attn_fwd_mma", "bst_attn_bwd_mma",
            "bst_attn_bwd", "im2col", "col2im_tma",
            "bsmm_fine_mma", "bsmm_fine", "bsmm_window_mma", "bsmm_window",
-           "bsmm_merge")
+           "bsmm_merge", "bst_nt_mma", "bst_nt", "bst_xn_mma", "bst_xn")
 DTYPES = (torch.bfloat16, torch.float32, torch.float16)
 # |kernel - plain| <= TOL * max(1, max|plain|); f16 held at bf16 level
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 1e-2}
@@ -329,14 +349,13 @@ def serving_kernel_checks(model, plain, dev, g, rows):
         err = compare_fwd(f"bst_attn_fwd batch {BATCH} ctx {c.ctx} heads "
                           f"{c.n_head} hs {model.hs} {dtype}",
                           bst.attention(q, k, v, scale=scale),
-                          bst.attention(q, k, v, scale=scale,
-                                        use_fused=False), dtype)
+                          plain.bst.attention(q, k, v, scale=scale), dtype)
         if dtype != torch.float32:
             same_bits(f"bst_attn_fwd batch {BATCH} ctx {c.ctx} {dtype}",
                       lambda: bst.attention(q, k, v, scale=scale))
         timed(rows, ("attn_fwd", dtype), err,
               lambda: bst.attention(q, k, v, scale=scale),
-              lambda: bst.attention(q, k, v, scale=scale, use_fused=False), 20)
+              lambda: plain.bst.attention(q, k, v, scale=scale), 20)
         del qkv, q, k, v
 
 
@@ -1411,7 +1430,7 @@ def conv_bsmm_checks(conv, plain, x, dev, g, rows):
 
 
 def counters():
-    from blocksparse_tpu_torch.kernels import bsmm, bst_attn, im2col
+    from blocksparse_tpu_torch.kernels import bsmm, bst_attn, bst_trio, im2col
     return {"bsmm_fprop": bsmm.bsmm_fprop, "bsmm_bprop": bsmm.bsmm_bprop,
             "bsmm_updat": bsmm.bsmm_updat,
             "bsmm_updat_reduce": bsmm.bsmm_updat_reduce,
@@ -1422,16 +1441,22 @@ def counters():
             "bst_attn_fwd_lse": bst_attn.attention_fwd_lse,
             "bst_attn_dq": bst_attn.attention_dq,
             "bst_attn_dkv": bst_attn.attention_dkv,
-            "im2col": im2col.im2col, "col2im": im2col.col2im}
+            "im2col": im2col.im2col, "col2im": im2col.col2im,
+            "bst_nt": bst_trio.bst_nt, "bst_xn": bst_trio.bst_xn}
 
 
 def reset_counts():
     for fn in counters().values():
         fn.launches = 0
+    counters()["bst_xn"].launches_tn = 0
 
 
 def read_counts():
-    return {name: fn.launches for name, fn in counters().items()}
+    """Each wrapper's launches, and "bst_xn_tn": the TN direction's share
+    of bst_xn's."""
+    out = {name: fn.launches for name, fn in counters().items()}
+    out["bst_xn_tn"] = counters()["bst_xn"].launches_tn
+    return out
 
 
 def serving_path(bt, model, plain, cfg, dev, card_line):
@@ -2217,14 +2242,15 @@ def restore(m, saved):
 # bsmm_updat_nc_kernel (f32) and the split's bsmm_updat_reduce_kernel
 # "bst_attn_fwd", "bst_attn_dq" and "bst_attn_dkv" match the attention
 # kernels of both sources (bst_attn_*_mma_kernel in bf16/f16,
-# bst_attn_*_kernel in f32)
+# bst_attn_*_kernel in f32); "bst_nt" and "bst_xn" the unfused ops' (the
+# same names without "_mma" in f32)
 # the spin kernels (torch.cuda._sleep) that open a profiled window
 PROFILE_SPINS, PROFILE_SPIN_CYCLES = 8, 100000
 # windows a profiled measurement takes before it gives up on CUPTI
 PROFILE_TRIES = 6
 PORT_KERNELS = ("bsmm_xprop", "bsmm_updat_mma", "bsmm_updat_nc",
                 "bsmm_updat_reduce", "bst_attn_fwd", "bst_attn_dq",
-                "bst_attn_dkv")
+                "bst_attn_dkv", "bst_nt", "bst_xn")
 
 
 def device_events(fn, need=bool):
@@ -2335,7 +2361,7 @@ def route_launches(op, N, sms, times, dtype=torch.bfloat16):
     on the routes op takes for N rows in ``dtype``, with one updat a bprop
     (with its reduce where it splits).  The split route is one fused
     bsmm_split in bf16/f16, partial tiles and a merge in f32."""
-    want = dict.fromkeys(counters(), 0)
+    want = dict.fromkeys(read_counts(), 0)
     for d, n in zip("fb", times):
         direct = "bsmm_fprop" if d == "f" else "bsmm_bprop"
         split = ("bsmm_split",) if dtype != torch.float32 else \
@@ -2819,6 +2845,376 @@ def mode_yardsticks(rows_in, win, dev, g, card_line, rows):
     return out
 
 
+# The unfused attention ops (kernels/bst_trio.py): their kernels against
+# their plain versions at small shapes (every block size, per-head and
+# shared layouts, an empty query row and key row, strided q/k/v) and at the
+# LM's (batch 8 x 2048, blk 64, fixed layout, causal sub-block masks) with
+# 2 heads of 256 and 8 heads of 64, then the enwik8 LM at 2 heads of 256
+# (the head count at which the JAX package takes the unfused ops; the
+# repo has no public configuration past hs 128, so the published widths
+# stay and only n_head changes) down its serving and training paths,
+# counted, against the same model on the plain versions; and the trio
+# against the fused kernels at the flagship's 8 heads of 64.
+WIDE_HEADS = 2
+WIDE_STEPS = 4           # captured train steps of the hs-256 LM
+TRIO_HEADS = 2
+
+
+def trio_op(bt, bs, blks, heads, per_head, seed):
+    """A random layout (one a head with ``per_head``, the same block count
+    in each) whose query row 1 and key row 2 hold no block and whose
+    query row 0 holds blks - 1 entries (more than the xn kernels' ring of
+    three stages at every block size), under causal sub-block masks."""
+    from blocksparse_tpu_torch.models.sparse_transformer import (
+        causal_subblock_mask)
+    rng = np.random.RandomState(seed)
+    lays = []
+    for _ in range(heads if per_head else 1):
+        lay = (rng.rand(blks, blks) < 0.4).astype(np.int32)
+        lay[0, :] = 1
+        lay[1, :] = 0
+        lay[:, 2] = 0
+        lays.append(lay)
+    want = min(int(lay.sum()) for lay in lays)
+    for lay in lays:
+        on = np.argwhere(lay[2:])[:int(lay.sum()) - want] + [2, 0]
+        lay[on[:, 0], on[:, 1]] = 0
+    return bt.BlocksparseTransformer(
+        np.array(lays) if per_head else lays[0], block_size=bs, heads=heads,
+        mask_callback=causal_subblock_mask)
+
+
+def plain_twin(op):
+    """The same attention op on the plain versions (impl="xla")."""
+    import copy
+    twin = copy.copy(op)
+    twin.impl = "xla"
+    return twin
+
+
+def trio_cases(op, dtype, hs, batch, g, dev):
+    """(name, fn(op) -> tensor) of nt, nn and tn on q, k, v sliced from one
+    packed qkv and random scores w."""
+    H, ctx = op.heads, op.ctx_blks_q * op.blk_size
+    qkv = torch.randn((batch, ctx, 3 * H * hs), device=dev,
+                      generator=g).to(dtype)
+    q, k, v = qkv.split(H * hs, dim=-1)
+    w = (torch.randn((batch, H, op.blocks, op.blk_size, op.blk_size),
+                     device=dev, generator=g) * 0.1).to(dtype)
+    return [("bst_nt", lambda o: o.nt_op(q, k)),
+            ("bst_xn", lambda o: o.nn_op(w, v)),
+            ("bst_xn_tn", lambda o: o.tn_op(w, q))], (q, k, v, w)
+
+
+def trio_kernel_checks(bt, dev, g, card_line, rows):
+    """(a) nt, nn and tn on their kernels against the plain twin: every
+    block size, shared and per-head layouts, f32, bf16 and f16, at hs 64;
+    then at the LM's shapes at hs 256 (2 heads) and hs 64 (8 heads), two
+    runs equal bit for bit, timed (bf16 at hs 256: the kernels line's
+    rows) beside the library yardstick (a batched torch.matmul over the
+    blocks gathered beforehand, the gather timed separately)."""
+    from blocksparse_tpu_torch.models.sparse_transformer import (
+        causal_subblock_mask, fixed_layout)
+    for dtype in DTYPES:
+        for bs in (8, 16, 32, 64):
+            for per_head in (False, True):
+                op = trio_op(bt, bs, 4 + 3 * 64 // bs, TRIO_HEADS, per_head,
+                             SEED + bs)
+                cases, _ = trio_cases(op, dtype, 64, 2, g, dev)
+                twin = plain_twin(op)
+                for name, fn in cases:
+                    what = (f"{name} b{bs} hs 64 "
+                            f"{'per-head' if per_head else 'shared'} layout "
+                            f"(empty query row 1, key row 2) {dtype}")
+                    compare(what, fn(op), fn(twin), TOL[dtype])
+                    same_bits(what, lambda: fn(op))
+    blks = 2048 // 64
+    layout = fixed_layout(blks, local_blocks=8)
+    for heads, hs in ((WIDE_HEADS, 512 // WIDE_HEADS), (8, 64)):
+        op = bt.BlocksparseTransformer(layout, block_size=64, heads=heads,
+                                       mask_callback=causal_subblock_mask)
+        twin = plain_twin(op)
+        for dtype in DTYPES:
+            cases, (q, k, v, w) = trio_cases(op, dtype, hs, BATCH, g, dev)
+            for name, fn in cases:
+                what = (f"{name} batch {BATCH} ctx 2048 b64 {heads} heads of "
+                        f"{hs} (the LM's layout) {dtype}")
+                err = compare(what, fn(op), fn(twin), TOL[dtype])
+                same_bits(what, lambda: fn(op))
+                if dtype == torch.bfloat16 and hs == 256:
+                    timed(rows, (name, "wide"), err, lambda: fn(op),
+                          lambda: fn(twin), 20, card_line,
+                          flops=2 * op.blocks * BATCH * heads * 64 ** 2 * hs)
+            if dtype == torch.bfloat16 and hs == 256:
+                rows["trio_marks"] = trio_marks(op, q, k, v, w, hs)
+            del cases, q, k, v, w
+        torch.cuda.empty_cache()
+
+
+def trio_marks(op, q, k, v, w, hs):
+    """Bound and library yardstick of nt, nn and tn at the LM's hs-256
+    shape (bf16): bytes = each input read once, each output written once;
+    operations 2·batch·heads·blocks·bs²·hs.  The yardstick is one batched
+    torch.matmul over the layout's blocks gathered beforehand (the gather
+    timed and printed beside it)."""
+    bs, H, B = op.blk_size, op.heads, q.shape[0]
+    tab = op._tables(q.device)
+    hidx = torch.arange(H, device=q.device)[:, None]
+
+    def gather(a, blk):
+        return a.reshape(B, -1, bs, H, hs).permute(0, 3, 1, 2, 4)[
+            :, hidx, blk.expand(H, -1)]
+    gather_ms = time_ms(lambda: gather(q, tab["q_blk"]), 20)
+    qg, kg, vg = gather(q, tab["q_blk"]), gather(k, tab["k_blk"]), \
+        gather(v, tab["k_blk"])
+    lib = {"bst_nt": time_ms(lambda: torch.matmul(qg, kg.transpose(-1, -2)),
+                             20),
+           "bst_xn": time_ms(lambda: torch.matmul(w, vg), 20),
+           "bst_xn_tn": time_ms(lambda: torch.matmul(w.transpose(-1, -2), qg),
+                                20)}
+    act, scores = B * q.shape[1] * H * hs * 2, w.numel() * 2
+    flops = 2 * w.numel() * hs
+    out = {name: (*bound(flops, scores + 2 * act), lib[name])
+           for name in lib}
+    print(f"trio library yardstick: batched torch.matmul over the gathered "
+          f"blocks nt {lib['bst_nt']:.4f} ms, nn {lib['bst_xn']:.4f} ms, tn "
+          f"{lib['bst_xn_tn']:.4f} ms; one gather of q's blocks "
+          f"{gather_ms:.4f} ms (not in those)", flush=True)
+    for name, (ms, by, lb) in out.items():
+        print(f"{name}: bound {ms:.4f} ms ({by}); library call {lb:.4f} ms",
+              flush=True)
+    return out
+
+
+def wide_lm(bt, dev):
+    """The enwik8 LM with n_head WIDE_HEADS (hs 256) and the same on the
+    plain versions, weights from seed 0."""
+    cfg = bt.TransformerConfig(
+        n_vocab=256, n_embd=512, n_layer=6, n_head=WIDE_HEADS, ctx=2048,
+        blk_size=64, attn_layout="fixed", local_blocks=8, mlp_ratio=4,
+        mlp_block_size=32, mlp_density=0.5, dtype="bfloat16", recompute=True)
+    model = bt.SparseTransformerLM(cfg, device=dev)
+    plain = bt.SparseTransformerLM(cfg, device=dev, impl="xla")
+    sd = bt.params_from_jax(bt.random_jax_params(model, seed=SEED), model)
+    model.load_state_dict(sd)
+    plain.load_state_dict(sd)
+    return cfg, model, plain
+
+
+def wide_lm_path(bt, dev, card_line):
+    """(b) The hs-256 LM at full width down its paths, each counted: the
+    forward (8 x 2048) and the prefill (4 x 2048), nt and nn once a layer
+    and no fused kernel, logits against the plain model;
+    generate_cached_scan (4 prompts x 64 tokens after 1024) equal to
+    generate_cached's tokens, its decode logits held step by step against
+    the plain model fed the same tokens; the captured train step (its
+    first call: the warm-up's eager step and the captured step, each nt 3L
+    and nn/tn 5L with recompute) against the eager step and the plain
+    model, then WIDE_STEPS - 1 replays with falling loss.  Returns the
+    launches summed over the counted runs."""
+    cfg, model, plain = wide_lm(bt, dev)
+    L = cfg.n_layer
+    rng = np.random.RandomState(SEED)
+    seq = torch.from_numpy(rng.randint(0, cfg.n_vocab,
+                                       (BATCH, cfg.ctx + 1))).to(dev)
+    tokens, targets = seq[:, :-1], seq[:, 1:]
+    prompts = tokens[:PROMPTS, :PROMPT_LEN]
+    full = torch.zeros((PROMPTS, cfg.ctx), dtype=torch.int64, device=dev)
+    full[:, :PROMPT_LEN] = prompts
+    what = (f"LM {WIDE_HEADS} heads of {model.hs} ({L} layers, ctx "
+            f"{cfg.ctx}, bf16)")
+    print(f"{what}: attention blocks {model.bst.blocks}; "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f} M params",
+          flush=True)
+    model(tokens[:1])                              # warm-up: tables
+    torch.cuda.synchronize()
+    total = dict.fromkeys(read_counts(), 0)
+
+    reset_counts()
+    t = time.perf_counter()
+    logits = model(tokens)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t
+    fwd = read_counts()
+    add_counts(total, fwd)
+    fused = [k for k in fwd if k.startswith("bst_attn")]
+    check(fwd["bst_nt"] == L and fwd["bst_xn"] == L and fwd["bst_xn_tn"] == 0
+          and not any(fwd[k] for k in fused),
+          f"{what}: forward {BATCH} x {cfg.ctx} launches bst_nt and bst_xn "
+          f"L = {L} each, no fused attention kernel ({fwd}); "
+          f"{fwd_s * 1e3:.1f} ms on the host clock")
+    compare(f"{what}: forward logits against the plain model", logits,
+            plain(tokens), MODEL_TOL)
+    del logits
+
+    reset_counts()
+    lg, caches = model.prefill(full)
+    torch.cuda.synchronize()
+    pre = read_counts()
+    add_counts(total, pre)
+    check(pre["bst_nt"] == L and pre["bst_xn"] == L,
+          f"{what}: prefill {PROMPTS} x {cfg.ctx} launches bst_nt and bst_xn "
+          f"L each ({pre})")
+    lg1, caches1 = plain.prefill(full)
+    compare(f"{what}: prefill logits against the plain model", lg, lg1,
+            MODEL_TOL)
+    compare(f"{what}: prefill K/V caches against the plain model",
+            torch.stack([c["v"] for c in caches]),
+            torch.stack([c["v"] for c in caches1]), MODEL_TOL)
+    del lg, lg1, caches, caches1
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    reset_counts()
+    t = time.perf_counter()
+    scan = bt.generate_cached_scan(model, prompts, NEW_TOKENS, generator=gen)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t
+    scanned = read_counts()
+    add_counts(total, scanned)
+    check(scanned["bst_nt"] == L and scanned["bst_xn"] == L,
+          f"{what}: generate_cached_scan ({PROMPTS} prompts x {NEW_TOKENS} "
+          f"tokens after {PROMPT_LEN}) launches bst_nt and bst_xn L each in "
+          f"its prefill, none in the decode ({scanned}); first call "
+          f"{scan_s:.3f} s with the capture")
+    out = bt.generate_cached(model, prompts, NEW_TOKENS,
+                             generator=torch.Generator(
+                                 device=dev).manual_seed(SEED))
+    check(torch.equal(scan, out),
+          f"{what}: generate_cached_scan tokens equal generate_cached's for "
+          f"seed {SEED}")
+    (_, c0), (_, c1) = model.prefill(full), plain.prefill(full)
+    worst = 0.0
+    for i in range(NEW_TOKENS):
+        tok = scan[:, PROMPT_LEN + i]
+        got, _ = model.decode_forward(tok, c0, PROMPT_LEN + i)
+        ref, _ = plain.decode_forward(tok, c1, PROMPT_LEN + i)
+        worst = max(worst, (got - ref).abs().max().item()
+                    / (MODEL_TOL * max(1.0, ref.abs().max().item())))
+    check(worst <= 1.0,
+          f"{what}: decode logits against the plain model fed the scan's "
+          f"tokens, {NEW_TOKENS} steps: worst step at {worst:.3f} of its "
+          f"tolerance ({MODEL_TOL:g} x max(1, max|plain|))")
+    del c0, c1
+    model._decode_graphs.clear()
+    torch.cuda.empty_cache()
+
+    ls = torch.tensor(LOSS_SCALE, device=dev)
+    opt = bt.AdamOptimizer(learning_rate=LR, zero_nans=True, zero_infs=True)
+    step = model.make_train_step(opt, clip_norm=CLIP)
+    before = snapshot(model)
+    _, m_eager, _ = step._eager(opt.init(dict(model.named_parameters())),
+                                tokens, targets, ls)
+    restore(model, before)
+    del before
+    state = opt.init(dict(model.named_parameters()))
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.perf_counter()
+    state, m0, scale = step(state, tokens, targets, ls)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    train = read_counts()
+    add_counts(total, train)
+    check(train["bst_nt"] == 2 * 3 * L and train["bst_xn"] == 2 * 5 * L
+          and train["bst_xn_tn"] == 2 * 2 * L
+          and not any(train[k] for k in fused),
+          f"{what}: captured train step's first call launches {train} "
+          f"(the warm-up's eager step and the captured step, each: bst_nt "
+          f"3L = forward, recompute, nn's backward; bst_xn 5L of which tn "
+          f"2L; no fused attention kernel; L = {L})")
+    _, m1, _ = plain.make_train_step(opt, clip_norm=CLIP)._eager(
+        opt.init(dict(plain.named_parameters())), tokens, targets, ls)
+    for k in ("loss", "grad_norm"):
+        for other, side in ((m_eager, "the eager step"),
+                            (m1, "the plain model")):
+            a, b = m0[k].item(), other[k].item()
+            check(np.isfinite(a) and abs(a - b) <= STEP_LOSS_TOL * abs(b),
+                  f"{what}: train step 1 {k} {a:.6f} (captured) vs {b:.6f} "
+                  f"({side}; tol {STEP_LOSS_TOL:g} relative)")
+    losses = [m0["loss"].item()]
+    reset_counts()
+    for _ in range(WIDE_STEPS - 1):
+        state, metrics, scale = step(state, tokens, targets, scale)
+        losses.append(metrics["loss"].item())
+    check(not any(read_counts().values()) and losses[-1] < losses[0]
+          and bool(np.isfinite(losses).all()),
+          f"{what}: {WIDE_STEPS} train steps (replays launch through no "
+          f"wrapper): loss {' '.join(f'{x:.4f}' for x in losses)} (finite, "
+          f"falling)")
+    holder = {"state": state, "scale": scale}
+
+    def one_step():
+        holder["state"], _, holder["scale"] = step(
+            holder["state"], tokens, targets, holder["scale"])
+    ms = time_ms(one_step, TIMED_STEPS)
+    print(f"{what}: train step [{card_line}]: batch {BATCH} x {cfg.ctx}, "
+          f"captured {ms:.2f} ms (mean of {TIMED_STEPS}, CUDA events) = "
+          f"{BATCH * cfg.ctx / ms * 1e3:.0f} tokens/s; first call "
+          f"{first_s:.3f} s with warm-up and capture", flush=True)
+    profile_port_kernels(f"{what} train step (graph replay)", one_step, ms)
+    del model, plain, step, state, holder
+    torch.cuda.empty_cache()
+    return total
+
+
+def route_compare(bt, dev, g, card_line):
+    """(c) The trio (use_fused=False: nt, the blocked masked softmax, nn)
+    against the fused kernels at the flagship's 8 heads of 64, batch 8 x
+    2048, bf16, on the same inputs: forward, and forward + backward, timed
+    in turns; outputs held together (the trio rounds the scores and the
+    probabilities to bf16 before the next product: ||trio - fused|| /
+    ||fused|| <= ATTN_NORM_TOL)."""
+    from blocksparse_tpu_torch.models.sparse_transformer import (
+        causal_subblock_mask, fixed_layout)
+    op = bt.BlocksparseTransformer(fixed_layout(2048 // 64, local_blocks=8),
+                                   block_size=64, heads=8,
+                                   mask_callback=causal_subblock_mask)
+    qkv = torch.randn((BATCH, 2048, 3 * 512), device=dev,
+                      generator=g).to(torch.bfloat16)
+    q, k, v = qkv.split(512, dim=-1)
+    do = torch.randn((BATCH, 2048, 512), device=dev,
+                     generator=g).to(torch.bfloat16)
+    scale = 64 ** -0.5
+    fused = op.attention(q, k, v, scale=scale)
+    trio = op.attention(q, k, v, scale=scale, use_fused=False)
+    diff = (trio.float() - fused.float())
+    rel = diff.norm().item() / fused.float().norm().item()
+    check(bool(torch.isfinite(trio).all()) and rel <= ATTN_NORM_TOL,
+          f"attention 8 heads of 64: the trio against the fused kernels: "
+          f"||diff|| / ||fused|| {rel:.3e} (tol {ATTN_NORM_TOL:g}), max "
+          f"{diff.abs().max().item():.3e}")
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def fwd(use_fused):
+        return lambda: op.attention(q, k, v, scale=scale, use_fused=use_fused)
+
+    def fwd_bwd(use_fused):
+        def run():
+            out = op.attention(qr, kr, vr, scale=scale, use_fused=use_fused)
+            torch.autograd.grad(out, (qr, kr, vr), do)
+        return run
+    times = {"fused fwd": [], "trio fwd": [], "fused fwd+bwd": [],
+             "trio fwd+bwd": []}
+    for _ in range(2):
+        for key, fn in (("fused fwd", fwd(True)), ("trio fwd", fwd(False)),
+                        ("trio fwd", fwd(False)), ("fused fwd", fwd(True)),
+                        ("fused fwd+bwd", fwd_bwd(True)),
+                        ("trio fwd+bwd", fwd_bwd(False)),
+                        ("trio fwd+bwd", fwd_bwd(False)),
+                        ("fused fwd+bwd", fwd_bwd(True))):
+            times[key].append(time_ms(fn, 10))
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    print(f"route comparison [{card_line}]: attention batch {BATCH} x 2048, "
+          f"8 heads of 64, bf16 (CUDA events, mean of 10, median of 4 "
+          f"turns): fused forward {med['fused fwd']:.4f} ms, trio forward "
+          f"{med['trio fwd']:.4f} ms ({med['trio fwd'] / med['fused fwd']:.2f}"
+          f"x); fused forward + backward {med['fused fwd+bwd']:.4f} ms, trio "
+          f"{med['trio fwd+bwd']:.4f} ms "
+          f"({med['trio fwd+bwd'] / med['fused fwd+bwd']:.2f}x)", flush=True)
+    del qkv, q, k, v, do, qr, kr, vr
+    torch.cuda.empty_cache()
+
+
 def build_all():
     from blocksparse_tpu_torch.kernels import _build
 
@@ -2884,6 +3280,7 @@ def main():
     mode_block_size_checks(bt, dev, g)
     attn_block_size_checks(bt, dev, g)
     pad_cost(bt, dev, g, card_line)
+    trio_kernel_checks(bt, dev, g, card_line, rows)
 
     # 4. the serving path, counted
     serve_launches = serving_path(bt, model, plain, cfg, dev, card_line)
@@ -2900,6 +3297,15 @@ def main():
     for what, (serve, train) in view_lm_paths(bt, dev).items():
         print(f"launches: {what}: serving {serve}; train step {train}",
               flush=True)
+
+    # 5c. the LM at 2 heads of 256 on the unfused ops: forward, prefill,
+    # scan decode and the captured train step, counted; then the trio
+    # against the fused kernels at 8 heads of 64
+    wide_launches = wide_lm_path(bt, dev, card_line)
+    print(f"launches: LM {WIDE_HEADS} heads of {512 // WIDE_HEADS} (forward, "
+          f"prefill, scan decode, train step's first call) {wide_launches}",
+          flush=True)
+    route_compare(bt, dev, g, card_line)
 
     # 6. the block-sparse conv: kernels against plain versions, then the
     # conv path, counted
@@ -2928,6 +3334,7 @@ def main():
     marks["im2col"] = (*bound(0, im2col_bytes), rows["unfold"])
     marks["col2im"] = (*bound(0, im2col_bytes), rows["fold"])
     marks["bsmm_split"] = rows[("split_mark", "bsmm2")]
+    marks.update(rows["trio_marks"])
     attn_report(model, rows, marks, card_line)
     ptxas_report("bsmm_xprop_mma", "the fused split (OUT_SPLIT)",
                  SPLIT_MANGLED)
@@ -2973,6 +3380,12 @@ def main():
          rows[("split", "bsmm2")]),
         ("bsmm_merge", "bsmm_merge.cu", "bsmm.py:1562",
          mode_launches["bsmm_merge"], rows[("merge", torch.float32)]),
+        ("bst_nt", "bst_nt_mma.cu", "bsmm.py:1972", wide_launches["bst_nt"],
+         rows[("bst_nt", "wide")]),
+        ("bst_xn", "bst_xn_mma.cu", "bsmm.py:1422", wide_launches["bst_xn"],
+         rows[("bst_xn", "wide")]),
+        ("bst_xn_tn", "bst_xn_mma.cu", "bsmm.py:1422",
+         wide_launches["bst_xn_tn"], rows[("bst_xn_tn", "wide")]),
     ]
     check(all(n > 0 for _, _, _, n, _ in kernels),
           f"every kernel launched on its path ({len(kernels)} kernels)")

@@ -31,7 +31,7 @@ from blocksparse_tpu.models.sparse_transformer import (
     causal_subblock_mask, fixed_layout, strided_layout)
 
 from blocksparse_tpu_torch import BlocksparseTransformer
-from blocksparse_tpu_torch.kernels import bst_attn
+from blocksparse_tpu_torch.kernels import bst_attn, bst_trio
 
 torch.set_num_threads(2)
 F32_TOL = 1e-5
@@ -140,14 +140,23 @@ def test_kernel_head_size():
 
 
 def test_head_size_past_128_takes_the_plain_versions_on_the_cpu():
+    """Past hs 128 the op takes the unfused ops, as the reference does:
+    on the CPU their plain versions (nt, the blocked masked softmax, nn);
+    the fused route, pinned with use_fused=True, takes its plain version
+    at the op's own block size."""
     port = BlocksparseTransformer(fixed_layout(2, local_blocks=2),
                                   block_size=16, heads=1,
                                   mask_callback=causal_subblock_mask)
     q, k, v = (torch.from_numpy(a) for a in _arrays(3, (1, 32, 136), 5))
     tab = port._tables(torch.device("cpu"))
-    want = bst_attn.attention_fwd_plain(q, k, v, tab["q_blk"], tab["k_blk"],
-                                        tab["mask"], 1, 16, 0.1)
+    w = bst_trio.bst_nt_plain(q, k, tab["q_blk"], tab["k_blk"], 1, 16)
+    want = bst_trio.bst_xn_plain(port.masked_softmax(w, scale=0.1), v,
+                                 tab["q_blk"], tab["k_blk"], 2, 1, 16, False)
     assert torch.equal(port.attention(q, k, v, scale=0.1), want)
+    fused = bst_attn.attention_fwd_plain(q, k, v, tab["q_blk"], tab["k_blk"],
+                                         tab["mask"], 1, 16, 0.1)
+    assert torch.equal(port.attention(q, k, v, scale=0.1, use_fused=True),
+                       fused)
 
 
 def _to_flat(a, heads, bs):

@@ -37,6 +37,7 @@ The LM's CUDA graphs replay the launches of the eager step they captured,
 in the same order on the same buffers: a replayed decode token or train
 step equals the eager one bit for bit.
 """
+import copy
 import ctypes
 
 import numpy as np
@@ -50,7 +51,7 @@ from blocksparse_tpu_torch import (AdamOptimizer, BlocksparseConv,
                                    params_from_jax, random_jax_conv_filter,
                                    random_jax_params)
 from blocksparse_tpu_torch.kernels import bsmm as bsmm_kernels
-from blocksparse_tpu_torch.kernels import bst_attn
+from blocksparse_tpu_torch.kernels import bst_attn, bst_trio
 from blocksparse_tpu_torch.kernels import im2col as im2col_kernels
 from blocksparse_tpu_torch.models import sparse_transformer as lm
 from blocksparse_tpu_torch.models.sparse_transformer import (
@@ -239,7 +240,7 @@ def test_attention_kernel_matches_plain(cuda, bs, hs, blocks, local, dtype):
     y = port.attention(q, k, v, scale=1.0 / np.sqrt(hs))   # strided q/k/v
     torch.cuda.synchronize()
     assert bst_attn.attention_fwd.launches == before + 1
-    ref = port.attention(q, k, v, scale=1.0 / np.sqrt(hs), use_fused=False)
+    ref = _plain_twin(port).attention(q, k, v, scale=1.0 / np.sqrt(hs))
     tol = F32_TOL if dtype == torch.float32 else ATTN_BF16_TOL
     torch.testing.assert_close(y.float(), ref.float(), rtol=0, atol=tol)
 
@@ -272,7 +273,7 @@ def test_attention_kernel_fully_masked_row_is_zero(cuda, dtype):
     q, k, v = (torch.randn((2, 64, heads * 16), device=cuda,
                            generator=g).to(dtype) for _ in range(3))
     y = port.attention(q, k, v, scale=0.25)
-    ref = port.attention(q, k, v, scale=0.25, use_fused=False)
+    ref = _plain_twin(port).attention(q, k, v, scale=0.25)
     dead = 16 + 3
     assert (y[:, dead] == 0).all() and (ref[:, dead] == 0).all()
     assert bool(torch.isfinite(y).all())
@@ -290,7 +291,7 @@ def test_attention_kernel_per_head_layouts(cuda, dtype):
     g = torch.Generator(device=cuda).manual_seed(2)
     q, k, v = (torch.randn((3, 64, 4 * 32), device=cuda,
                            generator=g).to(dtype) for _ in range(3))
-    ref = port.attention(q, k, v, scale=0.3, use_fused=False)
+    ref = _plain_twin(port).attention(q, k, v, scale=0.3)
     torch.testing.assert_close(port.attention(q, k, v, scale=0.3).float(),
                                ref.float(), rtol=0, atol=_fwd_tol(dtype, ref))
 
@@ -780,13 +781,13 @@ def test_attention_autograd_runs_train_kernels(cuda):
     counters = (bst_attn.attention_fwd, bst_attn.attention_fwd_lse,
                 bst_attn.attention_dq, bst_attn.attention_dkv)
     grads = []
-    for fused in (None, False):
+    for op in (port, _plain_twin(port)):
         q, k, v = (t.detach().clone().requires_grad_() for t in (q0, k0, v0))
         before = [c.launches for c in counters]
-        port.attention(q, k, v, scale=0.125, use_fused=fused).backward(do)
+        op.attention(q, k, v, scale=0.125).backward(do)
         torch.cuda.synchronize()
         moved = [c.launches - b for c, b in zip(counters, before)]
-        assert moved == ([0, 1, 1, 1] if fused is None else [0, 0, 0, 0])
+        assert moved == ([0, 1, 1, 1] if op is port else [0, 0, 0, 0])
         grads.append((q.grad, k.grad, v.grad))
     for got, ref in zip(*grads):
         assert got.dtype == torch.bfloat16
@@ -832,13 +833,13 @@ def test_attention_every_fused_size_runs_the_kernels(cuda, ctx, bs, hs, kind,
     counters = (bst_attn.attention_fwd, bst_attn.attention_fwd_lse,
                 bst_attn.attention_dq, bst_attn.attention_dkv)
 
-    def run(fused):
+    def run(op):
         qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
-        out = port.attention(qr, kr, vr, scale=scale, use_fused=fused)
+        out = op.attention(qr, kr, vr, scale=scale)
         out.backward(do)
         with torch.no_grad():
-            serve = port.attention(q, k, v, scale=scale, use_fused=fused)
-        if fused is None:
+            serve = op.attention(q, k, v, scale=scale)
+        if op is port:
             lse = port._kernel_fwd(q, k, v, scale, with_lse=True)[1]
         else:
             lse = bst_attn.attention_fwd_lse_plain(
@@ -847,14 +848,14 @@ def test_attention_every_fused_size_runs_the_kernels(cuda, ctx, bs, hs, kind,
         return [serve, out.detach(), lse, qr.grad, kr.grad, vr.grad]
 
     before = [c.launches for c in counters]
-    got = run(None)
+    got = run(port)
     torch.cuda.synchronize()
     assert [c.launches - b for c, b in zip(counters, before)] == [1, 2, 1, 1]
-    again = run(None)
+    again = run(port)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
     before = [c.launches for c in counters]
-    ref = run(False)
+    ref = run(_plain_twin(port))
     assert [c.launches for c in counters] == before
     tol = F32_TOL if dtype == torch.float32 else ATTN_BF16_TOL
     for name, a, r in zip(("serve", "out", "lse", "dq", "dk", "dv"), got, ref):
@@ -877,17 +878,22 @@ def test_attention_every_fused_size_runs_the_kernels(cuda, ctx, bs, hs, kind,
 
 @pytest.mark.cuda
 def test_attention_head_size_past_128_raises_on_the_card(cuda):
-    """hs > 128: the reference runs its unfused ops, which the port has
-    not got; the card raises rather than run the plain versions."""
+    """hs > 128: the fused route (use_fused=True) raises on the card, where
+    its kernels stop, rather than run the plain versions; by default the
+    op runs the unfused ops on their kernels, as the reference does."""
     port = BlocksparseTransformer(fixed_layout(2, local_blocks=2),
                                   block_size=16, heads=1,
                                   mask_callback=causal_subblock_mask)
     q = torch.randn((1, 32, 136), device=cuda)
     before = bst_attn.attention_fwd.launches
     with pytest.raises(NotImplementedError, match="unfused"):
-        port.attention(q, q, q)
+        port.attention(q, q, q, use_fused=True)
     assert bst_attn.attention_fwd.launches == before
-    assert port.attention(q, q, q, use_fused=False).shape == q.shape
+    trio = _trio_counts()
+    y = port.attention(q, q, q)
+    assert _trio_counts() == (trio[0] + 1, trio[1] + 1, trio[2])
+    torch.testing.assert_close(y, _plain_twin(port).attention(q, q, q),
+                               rtol=0, atol=F32_TOL)
 
 
 @pytest.mark.cuda
@@ -1763,3 +1769,228 @@ def test_a_failed_capture_raises_and_keeps_no_graph(cuda, monkeypatch):
     assert not step._graphs
     torch.cuda.synchronize()
     assert all(torch.equal(v, before[k]) for k, v in port.state_dict().items())
+
+
+# ---------------- the unfused attention ops (kernels/bst_trio.py) ----------
+
+def _trio_op(bs, ctx_blks, heads, per_head, seed, impl=None):
+    """An op over a random layout, per head or shared, with the same block
+    count in every head, whose query row 1 and key row 2 hold no block
+    and whose query row 0 holds ctx_blks - 1 entries."""
+    rng = np.random.RandomState(seed)
+    lays = []
+    for _ in range(heads if per_head else 1):
+        lay = (rng.rand(ctx_blks, ctx_blks) < 0.4).astype(np.int32)
+        lay[0, :] = 1
+        lay[1, :] = 0
+        lay[:, 2] = 0
+        lays.append(lay)
+    want = min(int(lay.sum()) for lay in lays)
+    for lay in lays:                     # trim each head to `want` blocks
+        on = np.flatnonzero(lay[2:].ravel())
+        flat = lay[2:].ravel()
+        flat[on[:int(lay.sum()) - want]] = 0
+        lay[2:] = flat.reshape(lay[2:].shape)
+    layout = np.array(lays) if per_head else lays[0]
+    return BlocksparseTransformer(layout, block_size=bs, heads=heads,
+                                  mask_callback=causal_subblock_mask,
+                                  impl=impl)
+
+
+def _plain_twin(port):
+    """The same op on the plain versions (impl="xla"), by pickling."""
+    twin = copy.copy(port)
+    twin.impl = "xla"
+    return twin
+
+
+def _trio_tol(dtype, ref):
+    tol = F32_TOL if dtype == torch.float32 else BSMM_BF16_TOL
+    return tol * max(1.0, ref.float().abs().max().item())
+
+
+def _trio_counts():
+    return (bst_trio.bst_nt.launches, bst_trio.bst_xn.launches,
+            bst_trio.bst_xn.launches_tn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["shared", "per_head"])
+@pytest.mark.parametrize("hs", [16, 64, 136, 256])
+@pytest.mark.parametrize("bs", [8, 16, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, *HALF])
+def test_trio_kernels_match_plain(cuda, dtype, bs, hs, layout):
+    """nt, nn and tn on the kernels against their plain versions, on q, k
+    and v sliced from one packed qkv (strided rows) over a layout with an
+    empty query row and an empty key row (zeros there), each launching
+    its kernel once, two runs equal bit for bit."""
+    # query row 0 spans more than the three slots of the xn kernels' ring
+    heads, blks = 2, 4 + 3 * 64 // bs
+    port = _trio_op(bs, blks, heads, layout == "per_head", seed=bs + hs)
+    plain = _plain_twin(port)
+    g = torch.Generator(device=cuda).manual_seed(bs * hs)
+    ctx = blks * bs
+    qkv = torch.randn((2, ctx, 3 * heads * hs), device=cuda,
+                      generator=g).to(dtype)
+    q, k, v = qkv.split(heads * hs, dim=-1)
+    w = torch.randn((2, heads, port.blocks, bs, bs), device=cuda,
+                    generator=g).to(dtype)
+    with torch.no_grad():
+        for name, fn, moved in (
+                ("nt", lambda op: op.nt_op(q, k), (1, 0, 0)),
+                ("nn", lambda op: op.nn_op(w, v), (0, 1, 0)),
+                ("tn", lambda op: op.tn_op(w, q), (0, 1, 1))):
+            before = _trio_counts()
+            got = fn(port)
+            torch.cuda.synchronize()
+            assert tuple(a - b for a, b in zip(_trio_counts(), before)) \
+                == moved, name
+            ref = fn(plain)
+            assert got.shape == ref.shape and got.dtype == dtype, name
+            torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                                       atol=_trio_tol(dtype, ref), msg=name)
+            assert torch.equal(fn(port), got), name
+    y = port.nn_op(w, v)
+    assert (y[:, bs:2 * bs] == 0).all()                 # query row 1
+    assert (port.tn_op(w, q)[:, 2 * bs:3 * bs] == 0).all()   # key row 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, *HALF])
+def test_trio_autograd_runs_kernels(cuda, dtype):
+    """The gradients of nt, nn and tn (each one's backward is the other
+    two) on the kernels against the plain twin's."""
+    heads, bs, hs = 2, 32, 72
+    port = _trio_op(bs, 6, heads, True, seed=7)
+    plain = _plain_twin(port)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    ctx = 6 * bs
+    a0, b0, dy = (torch.randn((2, ctx, heads * hs), device=cuda,
+                              generator=g).to(dtype) for _ in range(3))
+    w0, dw = (torch.randn((2, heads, port.blocks, bs, bs), device=cuda,
+                          generator=g).to(dtype) for _ in range(2))
+    for name, fn, d in (("nt", lambda op, w, a, b: op.nt_op(a, b), dw),
+                        ("nn", lambda op, w, a, b: op.nn_op(w, b), dy),
+                        ("tn", lambda op, w, a, b: op.tn_op(w, a), dy)):
+        grads = []
+        for op in (port, plain):
+            w, a, b = (t.detach().clone().requires_grad_()
+                       for t in (w0, a0, b0))
+            before = _trio_counts()
+            fn(op, w, a, b).backward(d)
+            torch.cuda.synchronize()
+            moved = sum(x - y for x, y in zip(_trio_counts()[:2], before))
+            assert moved == (3 if op is port else 0), name
+            grads.append([t.grad for t in (w, a, b)])
+        for got, ref in zip(*grads):
+            assert (got is None) == (ref is None), name
+            if ref is not None:
+                assert got.dtype == dtype
+                torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                                           atol=_trio_tol(dtype, ref),
+                                           msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, *HALF])
+@pytest.mark.parametrize("hs,use_fused,flash_bwd", [
+    (64, False, True), (64, None, False), (256, None, True)])
+def test_unfused_attention_on_the_card(cuda, dtype, hs, use_fused,
+                                       flash_bwd):
+    """use_fused=False, flash_bwd=False and a head size past 128 (the
+    unfused ops by default) on the card: the trio's kernels run (the
+    fused backward's do not) and forward and gradients match the plain
+    twin's."""
+    heads, bs, blks = 2, 32, 6
+    port = BlocksparseTransformer(fixed_layout(blks, local_blocks=2),
+                                  block_size=bs, heads=heads,
+                                  mask_callback=causal_subblock_mask)
+    plain = _plain_twin(port)
+    g = torch.Generator(device=cuda).manual_seed(hs)
+    qkv = torch.randn((2, blks * bs, 3 * heads * hs), device=cuda,
+                      generator=g).to(dtype)
+    do = torch.randn((2, blks * bs, heads * hs), device=cuda,
+                     generator=g).to(dtype)
+    outs = []
+    for op in (port, plain):
+        q, k, v = (t.detach().requires_grad_()
+                   for t in qkv.split(heads * hs, dim=-1))
+        before = _trio_counts() + (bst_attn.attention_dq.launches,)
+        out = op.attention(q, k, v, scale=hs ** -0.5, use_fused=use_fused,
+                           flash_bwd=flash_bwd)
+        out.backward(do)
+        torch.cuda.synchronize()
+        moved = [a - b for a, b in zip(
+            _trio_counts() + (bst_attn.attention_dq.launches,), before)]
+        if op is port:
+            # nt and nn forward (recomputed without flash_bwd), nn's
+            # backward (nt, tn) and nt's (nn, tn)
+            assert moved == [2, 4, 2, 0]
+        else:
+            assert not any(moved)
+        outs.append([out, q.grad, k.grad, v.grad])
+    for name, got, ref in zip(("y", "dq", "dk", "dv"), *outs):
+        tol = F32_TOL if dtype == torch.float32 else ATTN_BF16_TOL
+        torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                                   atol=tol * max(1.0, ref.float().abs()
+                                                  .max().item()), msg=name)
+
+
+@pytest.mark.cuda
+def test_trio_raises_and_never_falls_back(cuda):
+    """The wrappers raise on CPU tensors, on a head size that is not a
+    multiple of 8 and on mismatched weights; nothing counts."""
+    port = _trio_op(16, 4, 2, False, seed=1)
+    tab = port._tables(cuda)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q = torch.randn((1, 64, 2 * 16), device=cuda, generator=g)
+    before = _trio_counts()
+    with pytest.raises(ValueError):
+        bst_trio.bst_nt(q.cpu(), q.cpu(), tab["tri_row_ptr"],
+                        tab["tri_ent_k"], 2, 16)
+    with pytest.raises(ValueError):
+        bst_trio.bst_nt(q[..., :20], q[..., :20], tab["tri_row_ptr"],
+                        tab["tri_ent_k"], 2, 16)
+    w = torch.randn((1, 2, port.blocks + 1, 16, 16), device=cuda,
+                    generator=g)
+    with pytest.raises(ValueError):
+        bst_trio.bst_xn(w, q, tab["tri_row_ptr"], tab["tri_ent_e"],
+                        tab["tri_ent_k"], 2, 16, 4, False)
+    assert _trio_counts() == before
+
+
+@pytest.mark.cuda
+def test_lm_past_head_size_128_matches_plain_model(cuda):
+    """The LM at 2 heads of 256 takes the unfused ops on the card: its
+    forward launches nt and nn once a layer and no fused kernel, and its
+    logits and one train step match the impl="xla" model's."""
+    cfg = TransformerConfig(
+        n_vocab=64, n_embd=512, n_layer=2, n_head=2, ctx=128, blk_size=32,
+        attn_layout="fixed", local_blocks=2, mlp_ratio=2, mlp_block_size=32,
+        mlp_density=0.5, dtype="bfloat16", recompute=True)
+    models = [SparseTransformerLM(cfg, device=cuda),
+              SparseTransformerLM(cfg, device=cuda, impl="xla")]
+    sd = params_from_jax(random_jax_params(models[0], seed=3), models[0])
+    for m in models:
+        m.load_state_dict(sd)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    seq = torch.randint(0, 64, (2, 129), device=cuda, generator=g)
+    before = _trio_counts() + (bst_attn.attention_fwd.launches,)
+    logits = models[0](seq[:, :-1])
+    torch.cuda.synchronize()
+    moved = [a - b for a, b in zip(
+        _trio_counts() + (bst_attn.attention_fwd.launches,), before)]
+    assert moved == [2, 2, 0, 0]
+    ref = models[1](seq[:, :-1])
+    torch.testing.assert_close(logits, ref, rtol=0, atol=2e-2 * max(
+        1.0, ref.abs().max().item()))
+    adam = AdamOptimizer(learning_rate=1e-3)
+    metrics = []
+    for m in models:
+        step = m.make_train_step(adam)
+        _, met, _ = step._eager(adam.init(dict(m.named_parameters())),
+                                seq[:, :-1], seq[:, 1:], 1024.0)
+        metrics.append(met)
+    for key in ("loss", "grad_norm"):
+        a, b = metrics[0][key].item(), metrics[1][key].item()
+        assert np.isfinite(a) and abs(a - b) <= 1e-2 * abs(b), key

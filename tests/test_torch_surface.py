@@ -5,7 +5,8 @@ Each callable below takes the JAX one's parameters, by name, in order,
 with the same defaults, so a call written for the JAX package binds the
 same way.  Knobs that do nothing on the card are accepted and ignored;
 values the port has not ported (a gate, the unfused attention backward,
-a mesh) raise ``NotImplementedError``.
+a mesh) raise ``NotImplementedError``; ``flash_bwd=False`` runs and
+matches the JAX package's.
 
 The embedding gradient sums each id's rows in a fixed order (stable sort,
 then a segment sum in f32, rounded once), against ``jax.grad`` of the JAX
@@ -46,6 +47,28 @@ PAIRS = {
     "BlocksparseTransformer.attention": (
         bt.BlocksparseTransformer.attention,
         jax_bs.BlocksparseTransformer.attention),
+    "BlocksparseTransformer.__init__": (
+        bt.BlocksparseTransformer.__init__,
+        jax_bs.BlocksparseTransformer.__init__),
+    "BlocksparseTransformer.nt_op": (bt.BlocksparseTransformer.nt_op,
+                                     jax_bs.BlocksparseTransformer.nt_op),
+    "BlocksparseTransformer.nn_op": (bt.BlocksparseTransformer.nn_op,
+                                     jax_bs.BlocksparseTransformer.nn_op),
+    "BlocksparseTransformer.tn_op": (bt.BlocksparseTransformer.tn_op,
+                                     jax_bs.BlocksparseTransformer.tn_op),
+    "BlocksparseTransformer.masked_softmax": (
+        bt.BlocksparseTransformer.masked_softmax,
+        jax_bs.BlocksparseTransformer.masked_softmax),
+    "BlocksparseTransformer.softmax": (
+        bt.BlocksparseTransformer.softmax,
+        jax_bs.BlocksparseTransformer.softmax),
+    "softmax": (bt.softmax, jax_bs.softmax),
+    "masked_softmax": (bt.masked_softmax, jax_bs.masked_softmax),
+    "masked_top_k_softmax": (bt.masked_top_k_softmax,
+                             jax_bs.masked_top_k_softmax),
+    "top_k": (bt.top_k, jax_bs.top_k),
+    "rectified_top_k": (bt.rectified_top_k, jax_bs.rectified_top_k),
+    "transpose_0213": (bt.transpose_0213, jax_bs.transpose_0213),
     "adam_apply": (port_opt.adam_apply, jax_opt.adam_apply),
     "make_train_step": (port_st.SparseTransformerLM.make_train_step,
                         jax_st.SparseTransformerLM.make_train_step),
@@ -73,9 +96,20 @@ def test_unported_values_raise():
     assert op(x, w, name="fc", bench=1).shape == (4, op.K)   # ignored
     bst = bt.BlocksparseTransformer(np.ones((1, 2, 2), np.int32),
                                     block_size=16, heads=1)
-    q = torch.ones(1, 32, 16)
-    with pytest.raises(NotImplementedError):
-        bst.attention(q, q, q, flash_bwd=False)
+    ref = jax_bs.BlocksparseTransformer(np.ones((1, 2, 2), np.int32),
+                                        block_size=16, heads=1)
+    qn = np.random.RandomState(1).standard_normal((1, 32, 16)).astype(
+        np.float32)
+    y, vjp = jax.vjp(lambda a: ref.attention(a, a, a, flash_bwd=False),
+                     jnp.asarray(qn))
+    q = torch.from_numpy(qn).requires_grad_()
+    got = bst.attention(q, q, q, flash_bwd=False)      # runs: no raise
+    got.backward(torch.ones_like(got))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(y),
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(q.grad.numpy(),
+                               np.asarray(vjp(jnp.ones_like(y))[0]),
+                               rtol=0, atol=1e-5)
     p = torch.ones(3)
     with pytest.raises(NotImplementedError):
         port_opt.adam_apply(p, p, p, p, 1e-3, gate=torch.ones(()))
