@@ -12,164 +12,210 @@
 // (blocksparse_tpu/ops/transformer.py), vmapped there over batch*heads with
 // q as x and k as dy.  f32 inputs run bst_nt.cu, exact on the CUDA cores.
 //
-// Design: one thread block per (query block-row r, batch*head).  The nt
-// list is row-sorted, so row r's blocks are the entries row_ptr[r] ..
-// row_ptr[r+1] of its layout head.  The block stages its query block (B
-// rows of hs, b8 padded to one m16 of zero rows) once, then walks the row
-// in stages of KN = 64 key rows: E = 64 / B entries' key blocks stacked, so
-// one stage is a (B x hs) . (hs x 64) product whatever the block size,
-// E score blocks side by side.  A stage is one 16-byte cp.async a thread
-// and row chunk, zero-filled past the row's last entry and past hs (hs a
-// multiple of 8, padded to k16); a two-slot ring loads the next stage while
-// the warps run this one's hs/16 k16 steps.  Four warps split the (max(B,
-// 16) x 64) tile: B/16 strips of 16 rows, the rest of the warps along the
-// 64 columns; mma.sync m16n8k16 with f32 accumulators, q's fragments by
-// ldmatrix, k's by plain ldmatrix (k rows are the product's n).  Each score
-// is one sum over hs in k16 order, rounded once: two runs give equal bits.
-//
 // Bound on the H100: at the LM's check shape (batch 8, ctx 2048, B 64, 312
 // blocks, 2 heads of 256) a call writes 8 * 2 * 312 * 64^2 * 2 B = 40.9 MB
 // of scores and reads q and k (2 x 16.8 MB): 74.4 MB, 22 us at 3.35 TB/s,
-// against 10.5 GFLOP, 11 us of bf16 tensor-core work: bound by bytes.  The
-// design reads each key block once per entry (from L2: k is 16.8 MB) and
-// writes each score once; the 4-byte fragment stores are what it spends
-// beyond the bound.
+// against 10.5 GFLOP, 11 us of bf16 tensor-core work: bound by bytes.
+// Beyond that, each entry reads its key block (64 x hs) once from L2: 164
+// MB through L2 at the check shape, the design's floor.
+//
+// Design: one thread block (one warpgroup) per (plan item, batch*head).
+// The launch plan (trio_tables' plan: the CSR's row pointers, then each
+// layout head's items) lists the query rows longest first, a row far
+// longer than the mean cut into two halves (items row*4 + part: part 0
+// the whole row, 1 its first ceil(count/2) entries, 2 the rest; -1 no
+// item).  No sum crosses entries, so each half writes its own score
+// blocks.  The block keeps its query block (B rows of hs) resident in
+// shared memory and walks its entries in tiles of KN = 64 key rows: E = 64
+// / B entries' key blocks stacked.  A tile is one wgmma product with the
+// keys as A and the queries as B, both K-major (hs contiguous), so
+// neither is transposed: D (64 key rows x B query rows, f32 in registers)
+// = keys . q^T over hs in k16 steps, m64nBk16 at every block size.  q and
+// k are read in place by TMA: boxes of B rows x 64 head columns (columns
+// past hs arrive as zeros) land in wgmma's 128-byte swizzled layout, one
+// mbarrier a slot.  The keys stream in stages of 64 key rows x KC = 64
+// head columns through a four-slot ring, two stages in flight while one
+// is multiplied and the one before may still be read by its last wgmma
+// group; one thread issues the copies.  A finished tile is rounded once
+// and transposed into a staging tile in shared memory by stmatrix.trans,
+// then written as whole 16-byte runs of its contiguous score blocks.
+// Each score is one sum over hs in k16 order: two runs give equal bits.
 #include "mma_sm90.cuh"
+#include "wgmma_sm90.cuh"
 
 namespace {
 
-constexpr int WARPS = 4, THREADS = 32 * WARPS, STAGES = 2;
-constexpr int KN = 64;          // key rows a stage: E = KN / B entries
-constexpr int MAX_HS = 512;     // the wrapper's NT_MAX_HEAD_SIZE
+constexpr int THREADS = 128, STAGES = 4;
+constexpr int KN = 64;                   // key rows a tile: E = KN / B entries
+constexpr int KC = 64;                   // head columns a stage (128 bytes a row)
+constexpr int SLOT = KN * KC * 2;        // bytes of a ring slot
+constexpr int OLD = KN + 8;              // staging row stride (elements)
+constexpr int MAX_HS = 512;              // the wrapper's NT_MAX_HEAD_SIZE
 
-__host__ __device__ constexpr int row_ld(int hs) { return ((hs + 15) & ~15) + 8; }
+// the epilogue's transposing stores: four (two) 8 x 8 b16 matrices of mma
+// fragments, each written transposed at the eight row addresses its lanes
+// give (lanes 8q .. 8q + 7 for matrix q)
+__device__ __forceinline__ void stsm_x4_t(uint32_t addr, uint32_t r0, uint32_t r1, uint32_t r2,
+                                          uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n"
+               ::"r"(addr), "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
+}
+__device__ __forceinline__ void stsm_x2_t(uint32_t addr, uint32_t r0, uint32_t r1) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x2.trans.shared.b16 [%0], {%1, %2};\n"
+               ::"r"(addr), "r"(r0), "r"(r1)
+               : "memory");
+}
 
-template <int B> struct NtShape {
-  static constexpr int E = KN / B;          // entries a stage
-  static constexpr int MP = B < 16 ? 16 : B;  // query rows staged (b8: one m16)
-  static constexpr int WM = MP / 16;        // warps along the rows
-  static constexpr int WN = WARPS / WM;     // warps along the 64 columns
-  static constexpr int NT = KN / 8 / WN;    // a warp's n8 tiles
-};
-
-template <typename T, int B>
+template <int B>
 size_t smem_bytes(int hs) {
-  return static_cast<size_t>(NtShape<B>::MP + STAGES * KN) * row_ld(hs) * sizeof(T);
+  const size_t chunks = (hs + KC - 1) / KC;
+  // 1 KB to align the tiles to 1024 bytes; the resident q sub-tiles (B
+  // rows x 128 bytes each), the ring, the staging tile, the mbarriers (a
+  // slot each and the query block's)
+  return 1024 + chunks * B * 128 + STAGES * SLOT + static_cast<size_t>(B) * OLD * 2 +
+         (STAGES + 1) * sizeof(uint64_t);
 }
 
 template <typename T, int B>
 __global__ void __launch_bounds__(THREADS)
-bst_nt_mma_kernel(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ w,
-                  long long sa_b, long long sa_r, long long sb_b, long long sb_r,
-                  const int* __restrict__ row_ptr, const int* __restrict__ ent_k, int hs,
-                  int heads, int lut_heads, int rows, int blocks) {
-  using S = NtShape<B>;
-  static_assert(S::NT % 2 == 0, "n8 tiles are loaded in pairs");
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ld = row_ld(hs), hsp = ld - 8, chunks = hsp / 8;
-  T* qs = reinterpret_cast<T*>(smem);
-  T* ring = qs + S::MP * ld;
+bst_nt_mma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                  T* __restrict__ w, const int* __restrict__ plan, const int* __restrict__ ent_k,
+                  int hs, int heads, int lut_heads, int rows, int blocks, int items) {
+  constexpr int E = KN / B, R = B / 2;  // entries a tile; accumulators a thread
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const int chunks = (hs + KC - 1) / KC;
+  unsigned char* qs = smem;                     // chunk kc: B rows x 128 B
+  unsigned char* ring = qs + chunks * B * 128;  // STAGES slots of 64 rows x 128 B
+  T* os = reinterpret_cast<T*>(ring + STAGES * SLOT);  // B query rows x OLD
+  uint64_t* full = reinterpret_cast<uint64_t*>(os + B * OLD);  // a slot each, then q's
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp % S::WM, wn = warp / S::WM;
-  const int r = blockIdx.x, nh = blockIdx.y;
-  const int n = nh / heads, h = nh % heads;
+  const int nh = blockIdx.x, n = nh / heads, h = nh % heads;
   const int lh = lut_heads == 1 ? 0 : h;
-  const int e0 = row_ptr[lh * (rows + 1) + r];
-  const int cnt = row_ptr[lh * (rows + 1) + r + 1] - e0;
-  if (cnt == 0) return;
-  const int* ek = ent_k + static_cast<size_t>(lh) * blocks + e0;
-  const T* abase = a + n * sa_b + static_cast<size_t>(h) * hs;
-  const T* bbase = b + n * sb_b + static_cast<size_t>(h) * hs;
-  const int stages = (cnt + S::E - 1) / S::E;
+  const int* rp = plan + lh * (rows + 1);
+  const int item = plan[lut_heads * (rows + 1) + lh * items + blockIdx.y];
+  if (item < 0) return;
+  const int r = item >> 2, part = item & 3;
+  int eb = rp[r], ee = rp[r + 1];
+  const int mid = eb + (ee - eb + 1) / 2;
+  if (part == 1) ee = mid;
+  if (part == 2) eb = mid;
+  const int cnt = ee - eb;
+  if (cnt <= 0) return;
+  const int tiles = (cnt + E - 1) / E, steps = tiles * chunks;
+  const int* ek = ent_k + static_cast<size_t>(lh) * blocks + eb;
 
-  // the query block: rows past B and columns past hs zero
-  for (int c = tid; c < S::MP * chunks; c += THREADS) {
-    const int m = c / chunks, kc = c % chunks;
-    const bool v = m < B && kc * 8 < hs;
-    cp_async16(smem_addr(qs + m * ld + kc * 8),
-               v ? abase + static_cast<size_t>(r * B + m) * sa_r + kc * 8 : a, v);
-  }
-  // stage s: the key blocks of entries s*E .. s*E + E - 1, stacked
-  auto load = [&](int s, int slot) {
-    T* dst = ring + slot * KN * ld;
-    for (int c = tid; c < KN * chunks; c += THREADS) {
-      const int row = c / chunks, kc = c % chunks;
-      const int e = s * S::E + row / B;
-      const bool v = e < cnt && kc * 8 < hs;
-      const T* src = a;
-      if (v) src = bbase + (static_cast<size_t>(__ldg(ek + e)) * B + row % B) * sb_r + kc * 8;
-      cp_async16(smem_addr(dst + row * ld + kc * 8), src, v);
-    }
+  // stage s (one thread): head columns (s % chunks) * KC .. + KC of tile
+  // s / chunks's key blocks, each a B-row box, stacked; columns past hs
+  // arrive as zeros, rows of entries past the item's last are not loaded
+  // (their scores are not stored)
+  auto load = [&](int s) {
+    const int slot = s % STAGES, e0 = s / chunks * E, col0 = s % chunks * KC;
+    const int boxes = min(E, cnt - e0);
+    mbar_expect_tx(full + slot, boxes * B * 128);
+    for (int j = 0; j < boxes; ++j)
+      tma_load_4d(ring + slot * SLOT + j * B * 128, &kmap, full + slot, col0, h,
+                  __ldg(ek + e0 + j) * B, n);
   };
+  if (tid == 0) {
+    for (int i = 0; i <= STAGES; ++i) mbar_init(full + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    // the query block, resident
+    mbar_expect_tx(full + STAGES, chunks * B * 128);
+    for (int kc = 0; kc < chunks; ++kc)
+      tma_load_4d(qs + kc * B * 128, &qmap, full + STAGES, kc * KC, h, r * B, n);
+    for (int s = 0; s < STAGES - 2 && s < steps; ++s) load(s);
+  }
 
-  load(0, 0);
-  cp_async_commit();
-  const int g = lane >> 2, tg = lane & 3;
-  for (int s = 0; s < stages; ++s) {
-    cp_async_wait<0>();
-    __syncthreads();  // stage s (and the query block) landed; slot (s+1)%2 is free
-    if (s + 1 < stages) load(s + 1, (s + 1) % STAGES);
-    cp_async_commit();
-
-    const T* ks = ring + (s % STAGES) * KN * ld;
-    float acc[S::NT][4];
+  float acc[R];
 #pragma unroll
-    for (int nt = 0; nt < S::NT; ++nt)
+  for (int i = 0; i < R; ++i) acc[i] = 0.f;
+  mbar_wait(full + STAGES, 0);
+  for (int t = 0, s = 0; t < tiles; ++t) {
+    for (int kc = 0; kc < chunks; ++kc, ++s) {
+      // every warp's products of stage s - 2 are done (each waited for all
+      // but its last group before this barrier): its slot takes stage s +
+      // STAGES - 2
+      __syncthreads();
+      if (tid == 0 && s + STAGES - 2 < steps) load(s + STAGES - 2);
+      mbar_wait(full + s % STAGES, s / STAGES & 1);
+      const uint64_t da = sw128_desc(smem_addr(ring + (s % STAGES) * SLOT), false);
+      const uint64_t db = sw128_desc(smem_addr(qs + kc * B * 128), false);
+      // the last chunk's columns past hs are zeros on both sides
+      wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
-    const int nbase = wn * S::NT * 8;
-    for (int kk = 0; kk < hsp; kk += 16) {
-      uint32_t af[4];
-      ldsm_x4(af, smem_addr(qs + (wm * 16 + (lane & 15)) * ld + kk + (lane >> 4) * 8));
-#pragma unroll
-      for (int np = 0; np < S::NT; np += 2) {
-        // matrices: (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7), (n 8-15, k 8-15)
-        uint32_t rr[4];
-        ldsm_x4(rr, smem_addr(ks + (nbase + np * 8 + (lane >> 4) * 8 + (lane & 7)) * ld + kk +
-                              ((lane >> 3) & 1) * 8));
-        const uint32_t b0[2] = {rr[0], rr[1]}, b1[2] = {rr[2], rr[3]};
-        mma(acc[np], af, b0, T());
-        mma(acc[np + 1], af, b1, T());
-      }
+      for (int kk = 0; kk < KC / 16; ++kk)
+        wgmma<0, 0>(acc, da + 2 * kk, db + 2 * kk, kc > 0 || kk > 0, T());
+      wgmma_commit();
+      wgmma_wait<1>();
     }
-    // each n8 tile lies in one entry's score block
+    // tile t is done: round it once and transpose it into the staging tile
+    // (os[query row][key row]), then write its score blocks as 16-byte runs
+    // (each block is B x B contiguous).  The previous tile's reads of the
+    // staging tile ended before this tile's first barrier.
+    wgmma_wait<0>();
+    fence_regs(acc);
+    const int q = lane >> 3, rr = lane & 7;
+    if constexpr (B == 8) {
+      stsm_x2_t(smem_addr(os + rr * OLD + warp * 16 + (q & 1) * 8), pack2(acc[0], acc[1], T()),
+                pack2(acc[2], acc[3], T()));
+    } else {
 #pragma unroll
-    for (int nt = 0; nt < S::NT; ++nt) {
-      const int col = nbase + nt * 8 + tg * 2;
-      const int e = s * S::E + col / B, jc = col % B;
-      if (e >= cnt) continue;
-      T* dst = w + (static_cast<size_t>(nh) * blocks + e0 + e) * B * B + jc;
-      const int i0 = wm * 16 + g;
-      if (i0 < B) store2(dst + i0 * B, acc[nt][0], acc[nt][1]);
-      if (i0 + 8 < B) store2(dst + (i0 + 8) * B, acc[nt][2], acc[nt][3]);
+      for (int j = 0; j < B / 8; j += 2)
+        stsm_x4_t(smem_addr(os + (8 * (j + (q >> 1)) + rr) * OLD + warp * 16 + (q & 1) * 8),
+                  pack2(acc[4 * j], acc[4 * j + 1], T()),
+                  pack2(acc[4 * j + 2], acc[4 * j + 3], T()),
+                  pack2(acc[4 * j + 4], acc[4 * j + 5], T()),
+                  pack2(acc[4 * j + 6], acc[4 * j + 7], T()));
+    }
+    __syncthreads();
+    constexpr int BCH = B / 8;  // 16-byte chunks of a block row
+    for (int c = tid; c < E * B * BCH; c += THREADS) {
+      const int j = c / (B * BCH), i = c / BCH % B, cc = c % BCH;
+      const int e = t * E + j;
+      if (e < cnt)
+        *reinterpret_cast<uint4*>(w + ((static_cast<size_t>(nh) * blocks + eb + e) * B + i) * B +
+                                  cc * 8) = *reinterpret_cast<const uint4*>(os + i * OLD + j * B +
+                                                                            cc * 8);
     }
   }
-  cp_async_wait<0>();
 }
 
 template <typename T, int B>
-cudaError_t launch(const void* a, const void* b, void* w, const long long* st,
-                   const int* row_ptr, const int* ent_k, int hs, int batch, int heads,
-                   int lut_heads, int rows, int blocks, cudaStream_t stream) {
+cudaError_t launch(const void* a, const void* b, void* w, const long long* st, const int* plan,
+                   const int* ent_k, int hs, int batch, int heads, int lut_heads, int rows,
+                   int blocks, int items, int ctx_k, cudaStream_t stream) {
   auto kernel = bst_nt_mma_kernel<T, B>;
   static unsigned ready = 0;
   // opted in once at the largest head size the kernel takes
-  cudaError_t err = opt_in_smem(kernel, smem_bytes<T, B>(MAX_HS), ready);
+  cudaError_t err = opt_in_smem(kernel, smem_bytes<B>(MAX_HS), ready);
   if (err != cudaSuccess) return err;
-  const dim3 grid(rows, batch * heads);
-  kernel<<<grid, THREADS, smem_bytes<T, B>(hs), stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(w), st[0], st[1],
-      st[2], st[3], row_ptr, ent_k, hs, heads, lut_heads, rows, blocks);
+  // q and k read in place by TMA boxes of B rows x 64 head columns
+  CUtensorMap qmap, kmap;
+  err = head_rows_map<T>(&qmap, a, hs, heads, rows * B, batch, st[1], st[0], B);
+  if (err != cudaSuccess) return err;
+  err = head_rows_map<T>(&kmap, b, hs, heads, ctx_k, batch, st[3], st[2], B);
+  if (err != cudaSuccess) return err;
+  // batch*heads runs fastest: every instance's longest items start first
+  const dim3 grid(batch * heads, items);
+  kernel<<<grid, THREADS, smem_bytes<B>(hs), stream>>>(qmap, kmap, static_cast<T*>(w), plan,
+                                                         ent_k, hs, heads, lut_heads, rows,
+                                                         blocks, items);
   return cudaGetLastError();
 }
 
-#define NT_ARGS a, b, w, strides, row_ptr, ent_k, hs, batch, heads, lut_heads, rows, blocks, s
+#define NT_ARGS \
+  a, b, w, strides, plan, ent_k, hs, batch, heads, lut_heads, rows, blocks, items, ctx_k, s
 
 template <typename T>
 cudaError_t dispatch(int bsize, const void* a, const void* b, void* w, const long long* strides,
-                     const int* row_ptr, const int* ent_k, int hs, int batch, int heads,
-                     int lut_heads, int rows, int blocks, cudaStream_t s) {
+                     const int* plan, const int* ent_k, int hs, int batch, int heads,
+                     int lut_heads, int rows, int blocks, int items, int ctx_k, cudaStream_t s) {
   switch (bsize) {
     case 8: return launch<T, 8>(NT_ARGS);
     case 16: return launch<T, 16>(NT_ARGS);
@@ -182,18 +228,22 @@ cudaError_t dispatch(int bsize, const void* a, const void* b, void* w, const lon
 }  // namespace
 
 // w (batch, heads, blocks, bsize, bsize) = the scores of a and b over the
-// query-row CSR (row_ptr (lut_heads, rows + 1), ent_k (lut_heads, blocks):
-// entry e of a layout head is its block e, ent_k[e] its key block), bf16
-// (dtype 1) or f16 (dtype 2); any other dtype, block size or a head size
-// that is not a multiple of 8 up to 512 returns cudaErrorInvalidValue.
-// strides: a's batch and row strides, then b's, in elements; a, b 16-byte
-// aligned with strides multiples of 8.  Returns a cudaError_t (0 = launched).
+// query-row CSR and its launch plan: plan (lut_heads * (rows + 1 + items))
+// = every layout head's row pointers, then every head's `items` plan items
+// (trio_tables' plan); ent_k (lut_heads, blocks): entry e of a layout head
+// is its block e, ent_k[e] its key block.  a holds rows * bsize query rows,
+// b ctx_k key rows.  bf16 (dtype 1) or f16 (dtype 2); any other dtype,
+// block size, a head size that is not a multiple of 8 up to 512, or more
+// than 65535 items returns cudaErrorInvalidValue.  strides: a's batch and
+// row strides, then b's, in elements; a, b 16-byte aligned with strides
+// multiples of 8 (TMA reads them).  Returns a cudaError_t (0 = launched).
 extern "C" int bst_nt_mma(int dtype, int bsize, int hs, const void* a, const void* b, void* w,
-                          const long long* strides, const int* row_ptr, const int* ent_k,
-                          int batch, int heads, int lut_heads, int rows, int blocks,
-                          void* stream) {
+                          const long long* strides, const int* plan, const int* ent_k,
+                          int batch, int heads, int lut_heads, int rows, int blocks, int items,
+                          int ctx_k, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hs <= 0 || hs % 8 || hs > MAX_HS) return cudaErrorInvalidValue;
+  if (hs <= 0 || hs % 8 || hs > MAX_HS || items <= 0 || items > 65535)
+    return cudaErrorInvalidValue;
   if (dtype == 1) return dispatch<__nv_bfloat16>(bsize, NT_ARGS);
   if (dtype == 2) return dispatch<__half>(bsize, NT_ARGS);
   return cudaErrorInvalidValue;

@@ -13,15 +13,33 @@ are three products over the layout's blocks with per-instance weights:
 (``blocksparse_tpu/kernels/bsmm.py``) in its ``_nt_impl_pallas`` use, and
 ``bst_xn`` replaces ``xprop_pallas_dense_tile`` in its ``_xn_impl_pallas``
 use (NN, and TN with transposed cells), both vmapped over batch·heads on
-the TPU.  Here one launch covers every instance: a thread block per
-(query block-row, batch·head) for NT and per (output block-row, 64-column
-chunk of the head, batch·head) for NN/TN.  bf16 and f16 run
-``csrc/bst_nt_mma.cu`` and ``csrc/bst_xn_mma.cu`` on the tensor cores
-(``mma.sync`` m16n8k16, f32 accumulators, a ``cp.async`` ring); f32 runs
-``csrc/bst_nt.cu`` and ``csrc/bst_xn.cu`` in full fp32 on the CUDA cores
-(no TF32: the reference's f32 dots are exact).  Every sum runs in a
-fixed order in f32, with no atomics, and is rounded once to the input
-dtype; an NN/TN row with no entries writes zeros.
+the TPU.  Here one launch covers every instance.  bf16 and f16 run
+``csrc/bst_nt_mma.cu`` and ``csrc/bst_xn_mma.cu`` on the tensor cores,
+outputs staged in shared memory and written in 16-byte runs.  NT is a
+thread block per (plan item, batch·head): its query block resident, the
+key blocks streamed by TMA in 64-column chunks of the head through a
+four-stage ring, each 64-key tile one ``wgmma`` product (keys . qᵀ, both
+K-major).  NN/TN are a cluster of two thread blocks per (plan pair,
+batch·head, column group: the whole head up to 64 columns, else groups of
+128), each owning its row's whole column group, so a score block is read
+once a group (twice at hs 256): at
+block size 64 ``wgmma`` on TMA-fed tiles (TN's weights read MN-major,
+transposed by the tensor cores), at 8-32 ``mma.sync`` m16n8k16 on a
+``cp.async`` ring.  f32 runs ``csrc/bst_nt.cu`` and ``csrc/bst_xn.cu``
+in full fp32 on the CUDA cores (no TF32: the reference's f32 dots are
+exact).  Every sum runs in a fixed order in f32, with no atomics, and is
+rounded once to the input dtype; an NN/TN row with no entries writes
+zeros.
+
+The launch plan (``launch_plan``) walks each layout head's rows longest
+first; a row holding more than ``SPLIT_FACTOR`` times the mean entry
+count is cut into two halves.  NT writes each half's score blocks on its
+own; NN/TN run the halves on the two thread blocks of one cluster, and
+the first adds the second's f32 sums through distributed shared memory
+(first half + second half, rounded once).  The plan travels after the
+CSR's row pointers in one table (``trio_tables``' ``plan`` and
+``plan_t``), which the wrappers take as their ``row_ptr``: a caller
+cannot launch without it.
 
 The activations are read in place from the public (batch, ctx, heads·hs)
 layout through their batch and row strides, so the column slices of a
@@ -44,13 +62,61 @@ import numpy as np
 import torch
 
 from blocksparse_tpu_torch.kernels import _build
-from blocksparse_tpu_torch.kernels.bst_attn import _aligned16
+from blocksparse_tpu_torch.kernels.bst_attn import _aligned16, launch_order
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 BLOCK_SIZES = (8, 16, 32, 64)
-# bst_nt_mma.cu stages a query block and two stages of 64 key rows of the
-# whole head in shared memory: head sizes up to NT_MAX_HEAD_SIZE
+# bst_nt_mma.cu keeps the query block's whole head in shared memory beside
+# its ring: head sizes up to NT_MAX_HEAD_SIZE
 NT_MAX_HEAD_SIZE = 512
+# the launch plan cuts a row in two where it holds more than this many
+# times the mean entry count of its layout head's rows (the rows that
+# would set the tail of the grid)
+SPLIT_FACTOR = 2
+# a plan item is row * 4 + part: the whole row, or its first or second
+# half (the first ceil(count / 2) entries, then the rest); -1 is no item
+WHOLE, FIRST, SECOND = 0, 1, 2
+
+
+def launch_plan(row_ptr, rows):
+    """The kernels' launch plan of a CSR: a (lut_heads, items) int32 array
+    of items ``row * 4 + part`` (``WHOLE``, ``FIRST``, ``SECOND``) in
+    pairs, -1 where a pair has no second item.
+
+    Each layout head's rows go longest first (``bst_attn.launch_order``);
+    a row of at least two entries holding more than ``SPLIT_FACTOR``
+    times the head's mean count becomes its two halves, the first
+    ceil(count / 2) entries and the rest, side by side in one pair (the
+    xn kernel's cluster: the FIRST half's block adds the SECOND's sums).
+    The units (a split row's pair, a whole row) are sorted by their
+    largest item, stably, and whole rows fill the pairs two by two.
+    Heads are padded with -1 to one length."""
+    row_ptr = np.asarray(row_ptr).reshape(-1, rows + 1)
+    counts = np.diff(row_ptr, axis=1)
+    plans = []
+    for c, order in zip(counts, launch_order(row_ptr, rows)):
+        units = []
+        for r in order.tolist():
+            if c[r] >= 2 and c[r] > SPLIT_FACTOR * c.mean():
+                halves = [4 * r + FIRST, 4 * r + SECOND]
+                units.append(((c[r] + 1) // 2, halves))
+            else:
+                units.append((c[r], [4 * r + WHOLE]))
+        units.sort(key=lambda u: -u[0])
+        items, pending = [], None
+        for _, unit in units:
+            if len(unit) == 2:
+                items += unit
+            elif pending is None:
+                pending = unit[0]
+            else:
+                items += [pending, unit[0]]
+                pending = None
+        if pending is not None:
+            items += [pending, -1]
+        plans.append(items)
+    n = max(len(p) for p in plans)
+    return np.array([p + [-1] * (n - len(p)) for p in plans], np.int32)
 
 
 def trio_tables(nt_lists, ctx_blks_q, ctx_blks_k):
@@ -64,7 +130,13 @@ def trio_tables(nt_lists, ctx_blks_q, ctx_blks_k):
       it; NN's weight block of entry e is e itself (``ent_e``).
     - ``row_ptr_t`` (lut_heads, ctx_blks_k + 1), ``ent_b``, ``ent_q``
       (lut_heads, blocks): the key-row CSR TN walks, each key row's
-      blocks in ascending block order, their query blocks."""
+      blocks in ascending block order, their query blocks.
+    - ``order`` (lut_heads, ctx_blks_q), ``order_t`` (lut_heads,
+      ctx_blks_k): each CSR's rows by entry count, most first, stable.
+    - ``plan``, ``plan_t``: each CSR's row pointers, all heads, followed
+      by its ``launch_plan``, all heads, flat: (lut_heads · (rows + 1 +
+      items),).  The wrappers take these as ``row_ptr`` (the f32
+      kernels read the leading row pointers alone)."""
     lh, blocks = len(nt_lists), len(nt_lists[0])
     out = {k: np.zeros((lh, n), np.int32) for k, n in (
         ("row_ptr", ctx_blks_q + 1), ("ent_k", blocks), ("ent_e", blocks),
@@ -81,6 +153,11 @@ def trio_tables(nt_lists, ctx_blks_q, ctx_blks_k):
                                                         minlength=ctx_blks_k))
         out["ent_b"][h] = order
         out["ent_q"][h] = qb[order]
+    for sfx, rows in (("", ctx_blks_q), ("_t", ctx_blks_k)):
+        rp = out["row_ptr" + sfx]
+        out["order" + sfx] = launch_order(rp, rows)
+        out["plan" + sfx] = np.concatenate(
+            [rp.ravel(), launch_plan(rp, rows).ravel()]).astype(np.int32)
     return out
 
 
@@ -137,6 +214,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _NT_ARGS = [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 _XN_ARGS = [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
             _P]
+# the tensor-core kernels also take the plan's item count and the rows of
+# their streamed input (b's ctx for NT, x's for NN/TN), before the stream
+_NT_MMA_ARGS = _NT_ARGS[:-1] + [_I, _I, _P]
+_XN_MMA_ARGS = _XN_ARGS[:-1] + [_I, _I, _P]
 
 
 def _check_acts(fn, acts, bs, heads):
@@ -169,32 +250,57 @@ def _check_acts(fn, acts, bs, heads):
 
 
 def _check_tables(fn, device, rows, tables):
-    """The int32 CSR tables: contiguous, on ``device``, row pointers of
-    lut_heads·(rows + 1) entries.  Returns (lut_heads, blocks)."""
+    """The int32 tables: contiguous, on ``device``; the entry tables
+    (lut_heads, blocks); the first a CSR's row pointers followed by its
+    launch plan (``trio_tables``' plan or plan_t).  Returns (lut_heads,
+    blocks, items)."""
     for name, t in tables:
         if t.device != device or t.dtype != torch.int32 \
                 or not t.is_contiguous():
             raise TypeError(f"{fn}: {name} must be a contiguous int32 tensor "
                             f"on {device}")
-    row_ptr = tables[0][1]
-    if row_ptr.numel() % (rows + 1):
-        raise ValueError(f"{fn}: row_ptr does not match {rows} rows")
-    lut_heads = row_ptr.numel() // (rows + 1)
-    blocks = tables[1][1].numel() // max(lut_heads, 1)
-    if any(t.numel() != lut_heads * blocks for _, t in tables[1:]):
+    ents = [t for _, t in tables[1:]]
+    if any(t.dim() != 2 or t.shape != ents[0].shape for t in ents):
         raise ValueError(f"{fn}: entry tables must be (lut_heads, blocks)")
-    return lut_heads, blocks
+    lut_heads, blocks = ents[0].shape
+    plan = tables[0][1].numel()
+    items = plan // max(lut_heads, 1) - rows - 1
+    if plan % max(lut_heads, 1) or items < 2 or items % 2:
+        raise ValueError(f"{fn}: row_ptr must hold {rows} rows' pointers "
+                         f"followed by their launch plan (trio_tables' "
+                         f"plan or plan_t) for {lut_heads} layout heads")
+    return lut_heads, blocks, items
 
 
 def _source(name, dtype):
     return name if dtype == torch.float32 else f"{name}_mma"
 
 
+def _launch(fn, dtype, extra, device, *args):
+    """Calls the C function of ``fn`` for ``dtype`` (the tensor-core
+    kernels also take ``extra``: the plan's item count and the rows of
+    the streamed input) on ``device``'s current stream; raises on a
+    failed launch."""
+    source = _source(fn, dtype)
+    mma = dtype != torch.float32
+    argtypes = {("bst_nt", False): _NT_ARGS, ("bst_nt", True): _NT_MMA_ARGS,
+                ("bst_xn", False): _XN_ARGS,
+                ("bst_xn", True): _XN_MMA_ARGS}[fn, mma]
+    with torch.cuda.device(device):
+        err = _build.function(source, source, argtypes)(
+            _DTYPE_CODE[dtype], *args, *(extra if mma else ()),
+            torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} launch failed: cudaError {err}")
+
+
 def bst_nt(a, b, row_ptr, ent_k, heads, bs):
     """w (batch, heads, blocks, bs, bs) of a's dtype: w[n, h, e] = a_blk(q)
     · b_blk(ent_k[e])ᵀ over the head size, for each entry e of query row
-    q of the query-row CSR (``trio_tables``' row_ptr, ent_k: int32, one
-    row per layout head, 1 or ``heads``), on the card.
+    q of the query-row CSR, on the card.  ``row_ptr`` is the CSR's row
+    pointers followed by its launch plan and ``ent_k`` its key blocks
+    (``trio_tables``' plan and ent_k: int32, one layout head or
+    ``heads``).
 
     a: (batch, ctx_q, heads·hs), b: (batch, ctx_k, heads·hs), one dtype
     (f32, bf16 or f16), last dim contiguous, other strides free; hs a
@@ -203,9 +309,8 @@ def bst_nt(a, b, row_ptr, ent_k, heads, bs):
     hs = _check_acts("bst_nt", (("a", a), ("b", b)), bs, heads)
     batch, ctx_q, _ = a.shape
     rows = ctx_q // bs
-    lut_heads, blocks = _check_tables("bst_nt", a.device, rows,
-                                      (("row_ptr", row_ptr),
-                                       ("ent_k", ent_k)))
+    lut_heads, blocks, items = _check_tables(
+        "bst_nt", a.device, rows, (("row_ptr", row_ptr), ("ent_k", ent_k)))
     if lut_heads not in (1, heads):
         raise ValueError(f"{lut_heads} layout heads for {heads} heads")
     if a.dtype != torch.float32:
@@ -218,15 +323,10 @@ def bst_nt(a, b, row_ptr, ent_k, heads, bs):
     if batch and blocks:
         strides = (ctypes.c_longlong * 4)(a.stride(0), a.stride(1),
                                           b.stride(0), b.stride(1))
-        source = _source("bst_nt", a.dtype)
-        with torch.cuda.device(a.device):
-            err = _build.function(source, source, _NT_ARGS)(
-                _DTYPE_CODE[a.dtype], bs, hs, a.data_ptr(), b.data_ptr(),
-                w.data_ptr(), ctypes.addressof(strides), row_ptr.data_ptr(),
-                ent_k.data_ptr(), batch, heads, lut_heads, rows, blocks,
-                torch.cuda.current_stream(a.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"bst_nt launch failed: cudaError {err}")
+        _launch("bst_nt", a.dtype, (items, b.shape[1]), a.device, bs, hs,
+                a.data_ptr(), b.data_ptr(), w.data_ptr(),
+                ctypes.addressof(strides), row_ptr.data_ptr(),
+                ent_k.data_ptr(), batch, heads, lut_heads, rows, blocks)
         bst_nt.launches += 1
     return w
 
@@ -235,9 +335,11 @@ def bst_xn(w, x, row_ptr, ent_w, ent_x, heads, bs, n_rows, trans):
     """y (batch, n_rows·bs, heads·hs) of x's dtype, on the card: output
     block-row r of head h is Σ w[n, h, ent_w[e]] · x_blk(ent_x[e]) (NN),
     or w[...]ᵀ · x_blk(ent_x[e]) with ``trans`` (TN), over the entries e
-    of row r of the CSR (row_ptr, ent_w, ent_x: int32, one row per layout
-    head, 1 or ``heads``), summed in order in f32 and rounded once; a row
-    with no entries is zeros.
+    of row r of the CSR, summed in f32 in a fixed order and rounded once;
+    a row with no entries is zeros.  ``row_ptr`` is the CSR's row
+    pointers followed by its launch plan, ``ent_w``, ``ent_x`` its
+    entries (``trio_tables``' plan, ent_e, ent_k for NN; plan_t, ent_b,
+    ent_q for TN: int32, one layout head or ``heads``).
 
     w: (batch, heads, blocks, bs, bs) contiguous, x's dtype; x: (batch,
     ctx_in, heads·hs), f32, bf16 or f16, last dim contiguous, other
@@ -246,9 +348,9 @@ def bst_xn(w, x, row_ptr, ent_w, ent_x, heads, bs, n_rows, trans):
     ``bst_xn.launches_tn``."""
     hs = _check_acts("bst_xn", (("x", x),), bs, heads)
     batch = x.shape[0]
-    lut_heads, blocks = _check_tables("bst_xn", x.device, n_rows,
-                                      (("row_ptr", row_ptr),
-                                       ("ent_w", ent_w), ("ent_x", ent_x)))
+    lut_heads, blocks, items = _check_tables(
+        "bst_xn", x.device, n_rows,
+        (("row_ptr", row_ptr), ("ent_w", ent_w), ("ent_x", ent_x)))
     if lut_heads not in (1, heads):
         raise ValueError(f"{lut_heads} layout heads for {heads} heads")
     if w.dtype != x.dtype or w.device != x.device or not w.is_contiguous() \
@@ -262,16 +364,12 @@ def bst_xn(w, x, row_ptr, ent_w, ent_x, heads, bs, n_rows, trans):
                     device=x.device)
     if batch and n_rows:
         strides = (ctypes.c_longlong * 2)(x.stride(0), x.stride(1))
-        source = _source("bst_xn", x.dtype)
-        with torch.cuda.device(x.device):
-            err = _build.function(source, source, _XN_ARGS)(
-                _DTYPE_CODE[x.dtype], bs, hs, int(trans), w.data_ptr(),
-                x.data_ptr(), y.data_ptr(), ctypes.addressof(strides),
-                row_ptr.data_ptr(), ent_w.data_ptr(), ent_x.data_ptr(),
-                batch, heads, lut_heads, n_rows, blocks,
-                torch.cuda.current_stream(x.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"bst_xn launch failed: cudaError {err}")
+        _launch("bst_xn", x.dtype, (items, x.shape[1]), x.device, bs, hs,
+                int(trans),
+                w.data_ptr(), x.data_ptr(), y.data_ptr(),
+                ctypes.addressof(strides), row_ptr.data_ptr(),
+                ent_w.data_ptr(), ent_x.data_ptr(), batch, heads, lut_heads,
+                n_rows, blocks)
         bst_xn.launches += 1
         bst_xn.launches_tn += int(bool(trans))
     return y

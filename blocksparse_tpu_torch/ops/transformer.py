@@ -237,7 +237,9 @@ class BlocksparseTransformer:
         indices and masks as ``kq_blk``, ``kk_blk``, ``kmask``); the plain
         versions' block indices and dense masks at this op's own block
         size; the unfused ops' CSRs (``bst_trio.trio_tables``, as
-        ``tri_<name>``); and the decode tables (so a decode step copies
+        ``tri_<name>``) and each query row's blocks padded to one length
+        (``row_blocks``, for the blocked softmax's row sums); and the
+        decode tables (so a decode step copies
         nothing from the host, which would stall the stream, and a CUDA
         graph can capture the ops)."""
         tab = self._dev_tables.get(device)
@@ -272,6 +274,8 @@ class BlocksparseTransformer:
             tri = bst_trio.trio_tables(self.nt_list, self.ctx_blks_q,
                                        self.ctx_blks_k)
             tab.update({f"tri_{name}": t(a, i32) for name, a in tri.items()})
+            tab["row_blocks"] = t(_row_blocks(self._q_blk, self.ctx_blks_q),
+                                  i64)
             self._dev_tables[device] = tab
         return tab
 
@@ -310,7 +314,9 @@ class BlocksparseTransformer:
         in f32, cast to x's dtype.  Hidden scores take -finfo(f32).max, so
         a row that sees no key spreads evenly over its blocks.  Plain
         torch, differentiable through autograd; the row max is a constant
-        of the gradient, as the shift cancels."""
+        of the gradient, as the shift cancels.  The row sums, forward and
+        backward, add each row's blocks in block order (``_RowSum``): no
+        atomics, so a step gives the same bits eager and captured."""
         tab = self._tables(x.device)
         batch, heads, blocks, bs, _ = x.shape
         xs = x.float() * scale
@@ -322,8 +328,9 @@ class BlocksparseTransformer:
         m = torch.full(rows, float("-inf"), device=x.device).scatter_reduce(
             2, idx, xs.detach().amax(-1), "amax")
         e = torch.exp(xs - m.gather(2, idx)[..., None])
-        s = torch.zeros(rows, device=x.device).scatter_add(2, idx, e.sum(-1))
-        return (e / s.gather(2, idx)[..., None]).to(x.dtype)
+        s = _RowSum.apply(e.sum(-1), tab["row_blocks"], tab["q_blk"])
+        s = _RowBroadcast.apply(s, tab["row_blocks"], tab["q_blk"])
+        return (e / s[..., None]).to(x.dtype)
 
     def masked_softmax(self, x, scale=1.0, autoregress_at_key=None,
                        dtype=None):
@@ -707,6 +714,61 @@ def _crop(a, ctx, heads, hs):
         batch, ctx, heads * hs)
 
 
+def _row_blocks(q_blk, rows):
+    """Each query block-row's blocks (a (lut_heads, blocks) q_blk in row
+    order), padded with ``blocks`` to the longest row: (lut_heads, rows,
+    most), int64."""
+    lh, blocks = q_blk.shape
+    counts = np.stack([np.bincount(q, minlength=rows) for q in q_blk])
+    out = np.full((lh, rows, max(int(counts.max()), 1)), blocks, np.int64)
+    for h in range(lh):
+        for r in range(rows):
+            out[h, r, :counts[h, r]] = np.flatnonzero(q_blk[h] == r)
+    return out
+
+
+class _RowSum(torch.autograd.Function):
+    """v (batch, heads, blocks, bs) summed over each query block-row's
+    blocks in block order: (batch, heads, rows, bs), from ``row_blocks``
+    (``_row_blocks``).  A padded gather and a sum, not ``scatter_add``,
+    whose atomics add in no fixed order on the card; its adjoint is
+    ``_RowBroadcast`` (each block its row's value, a gather), and the
+    other way round."""
+
+    @staticmethod
+    def forward(ctx, v, row_blocks, q_blk):
+        ctx.save_for_backward(row_blocks, q_blk)
+        return _row_sum(v, row_blocks)
+
+    @staticmethod
+    def backward(ctx, g):
+        row_blocks, q_blk = ctx.saved_tensors
+        return _RowBroadcast.apply(g, row_blocks, q_blk), None, None
+
+
+class _RowBroadcast(torch.autograd.Function):
+    """s (batch, heads, rows, bs) at each block's row: (batch, heads,
+    blocks, bs); the adjoint of ``_RowSum``."""
+
+    @staticmethod
+    def forward(ctx, s, row_blocks, q_blk):
+        ctx.save_for_backward(row_blocks, q_blk)
+        idx = q_blk.expand(s.shape[1], -1)[None, :, :, None].expand(
+            s.shape[0], s.shape[1], q_blk.shape[1], s.shape[3])
+        return s.gather(2, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        row_blocks, q_blk = ctx.saved_tensors
+        return _RowSum.apply(g, row_blocks, q_blk), None, None
+
+
+def _row_sum(v, row_blocks):
+    pad = torch.cat([v, v.new_zeros(v.shape[:2] + (1,) + v.shape[3:])], 2)
+    hidx = torch.arange(v.shape[1], device=v.device)[:, None, None]
+    return pad[:, hidx, row_blocks.expand(v.shape[1], -1, -1)].sum(3)
+
+
 def _on_kernels(bst, t):
     """The trio's route for a tensor: the CUDA kernels on a CUDA tensor
     unless the op is ``impl="xla"``."""
@@ -737,7 +799,7 @@ def _nt(bst, a, b):
     return bst_trio.bst_nt(
         _head8(_rows_contiguous(a), bst.heads),
         _head8(_rows_contiguous(b.to(a.dtype)), bst.heads),
-        tab["tri_row_ptr"], tab["tri_ent_k"], bst.heads, bst.blk_size)
+        tab["tri_plan"], tab["tri_ent_k"], bst.heads, bst.blk_size)
 
 
 def _xn(bst, w, x, trans):
@@ -751,8 +813,8 @@ def _xn(bst, w, x, trans):
                        else (tab["q_blk"], tab["k_blk"]))
         return bst_trio.bst_xn_plain(w, x, seg, gather, rows, bst.heads,
                                      bst.blk_size, trans)
-    csr = (("tri_row_ptr_t", "tri_ent_b", "tri_ent_q") if trans
-           else ("tri_row_ptr", "tri_ent_e", "tri_ent_k"))
+    csr = (("tri_plan_t", "tri_ent_b", "tri_ent_q") if trans
+           else ("tri_plan", "tri_ent_e", "tri_ent_k"))
     batch, _, state = x.shape
     y = bst_trio.bst_xn(
         w.to(x.dtype).contiguous(), _head8(_rows_contiguous(x), bst.heads),

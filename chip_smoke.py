@@ -129,7 +129,14 @@ on shared and per-head layouts with an empty query row and key row and
 q/k/v sliced from one packed qkv, and at the LM's shapes (batch 8 x 2048,
 blk 64, fixed layout, causal sub-block masks) with 2 heads of 256 and 8
 heads of 64, two runs equal bit for bit, timed beside their bound and a
-batched ``torch.matmul`` over the gathered blocks.  Then the enwik8 LM
+batched ``torch.matmul`` over the gathered blocks; NT also at head sizes
+8, 72, 136, 264 and 512, NN/TN at 320 (two column groups), and all three
+on layouts whose longest query and key rows the launch plan cuts in two
+(35 entries at b64, 67 at b8).  At the LM's hs-256 shape their times
+are device times (20 calls captured as one CUDA graph, its replay between
+CUDA events: a call's host work outlasts these kernels) beside the
+eager calls' and the first tensor-core kernels' record, and the bf16/f16
+kernels' registers and spills (ptxas) are printed.  Then the enwik8 LM
 with n_head 2 (hs 256: the head count at which the JAX package takes the
 unfused ops; the published widths are kept) down its forward (8 x 2048),
 prefill (4 x 2048), ``generate_cached_scan`` (4 x 64 tokens after 1024)
@@ -276,6 +283,30 @@ def time_ms(fn, iters):
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters):
+    """Mean device time of fn(): iters calls captured as one CUDA graph,
+    its replay timed by CUDA events (for kernels that run shorter than a
+    call's host work, where events around the calls time the host)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(end) / iters
 
 
@@ -2858,6 +2889,17 @@ def mode_yardsticks(rows_in, win, dev, g, card_line, rows):
 WIDE_HEADS = 2
 WIDE_STEPS = 4           # captured train steps of the hs-256 LM
 TRIO_HEADS = 2
+# The redesigned kernels' edges: NT's head sizes around its 64-column
+# chunks of the head and at its limit; NN/TN past one 256-column group;
+# (block size, blocks) of layouts whose query row 0 and key row 0 hold
+# every block, cut in two by the launch plan.
+TRIO_NT_HS, TRIO_XN_HS = (8, 72, 136, 264, 512), 320
+TRIO_LONG = ((64, 36), (8, 68))
+# The first tensor-core trio kernels' times at the LM's hs-256 shape
+# (bf16, CUDA events around eager calls, mean of 20; the low ends of three
+# runs of this script with those kernels), and the card they ran on
+TRIO_PREV_MS = {"bst_nt": 0.1208, "bst_xn": 0.0987, "bst_xn_tn": 0.1140}
+TRIO_PREV_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 
 
 def trio_op(bt, bs, blks, heads, per_head, seed):
@@ -2882,6 +2924,40 @@ def trio_op(bt, bs, blks, heads, per_head, seed):
     return bt.BlocksparseTransformer(
         np.array(lays) if per_head else lays[0], block_size=bs, heads=heads,
         mask_callback=causal_subblock_mask)
+
+
+def long_row_op(bt, bs, blks, per_head, seed):
+    """A sparse random layout (the same block count in each head) whose
+    query row 0 and key row 0 hold every block but one, far past twice
+    the mean (the launch plan cuts both in two); query row 1 and key row
+    2 hold none."""
+    from blocksparse_tpu_torch.models.sparse_transformer import (
+        causal_subblock_mask)
+    rng = np.random.RandomState(seed)
+    lays = []
+    for _ in range(TRIO_HEADS if per_head else 1):
+        lay = (rng.rand(blks, blks) < 0.1).astype(np.int32)
+        lay[1, :] = 0
+        lay[:, 2] = 0
+        lay[0, :] = 1
+        lay[:, 0] = 1
+        lay[1, 0] = lay[0, 2] = 0
+        lays.append(lay)
+    want = min(int(lay.sum()) for lay in lays)
+    for lay in lays:
+        on = np.argwhere(lay[3:, 3:])[:int(lay.sum()) - want] + 3
+        lay[on[:, 0], on[:, 1]] = 0
+    op = bt.BlocksparseTransformer(
+        np.array(lays) if per_head else lays[0], block_size=bs,
+        heads=TRIO_HEADS, mask_callback=causal_subblock_mask)
+    from blocksparse_tpu_torch.kernels import bst_trio
+    tri = bst_trio.trio_tables(op.nt_list, blks, blks)
+    for name in ("plan", "plan_t"):
+        items = tri[name][op.lut_heads * (blks + 1):]
+        check(bool((items[items >= 0] % 4 == bst_trio.FIRST).any()),
+              f"b{bs} {blks} blocks: the launch plan ({name}) cuts the "
+              f"longest row in two")
+    return op
 
 
 def plain_twin(op):
@@ -2928,6 +3004,7 @@ def trio_kernel_checks(bt, dev, g, card_line, rows):
                             f"(empty query row 1, key row 2) {dtype}")
                     compare(what, fn(op), fn(twin), TOL[dtype])
                     same_bits(what, lambda: fn(op))
+    trio_edge_checks(bt, dev, g)
     blks = 2048 // 64
     layout = fixed_layout(blks, local_blocks=8)
     for heads, hs in ((WIDE_HEADS, 512 // WIDE_HEADS), (8, 64)):
@@ -2942,21 +3019,106 @@ def trio_kernel_checks(bt, dev, g, card_line, rows):
                 err = compare(what, fn(op), fn(twin), TOL[dtype])
                 same_bits(what, lambda: fn(op))
                 if dtype == torch.bfloat16 and hs == 256:
-                    timed(rows, (name, "wide"), err, lambda: fn(op),
-                          lambda: fn(twin), 20, card_line,
-                          flops=2 * op.blocks * BATCH * heads * 64 ** 2 * hs)
+                    ms = graph_ms(lambda: fn(op), 20)
+                    eager = time_ms(lambda: fn(op), 20)
+                    plain_ms = time_ms(lambda: fn(twin), 5)
+                    flops = 2 * op.blocks * BATCH * heads * 64 ** 2 * hs
+                    print(f"      kernel {ms:.4f} ms of device time (20 "
+                          f"calls as one CUDA graph between CUDA events; "
+                          f"{flops / ms / 1e9:.2f} TFLOP/s), {eager:.4f} ms "
+                          f"a call enqueued eagerly (the host's), plain "
+                          f"{plain_ms:.4f} ms [{card_line}]", flush=True)
+                    rows[(name, "wide")] = (err, ms, plain_ms)
+                    rows[(name, "wide_eager")] = eager
             if dtype == torch.bfloat16 and hs == 256:
                 rows["trio_marks"] = trio_marks(op, q, k, v, w, hs)
             del cases, q, k, v, w
         torch.cuda.empty_cache()
+    for name, prev in TRIO_PREV_MS.items():
+        _, ms, _ = rows[(name, "wide")]
+        b, by, lib = rows["trio_marks"][name]
+        print(f"{name} (redesigned) at the LM's hs-256 shape, bf16: {ms:.4f} "
+              f"ms of device time, {rows[(name, 'wide_eager')]:.4f} ms a call "
+              f"enqueued eagerly [{card_line}]; the first kernel's record "
+              f"{prev:.4f} ms (eager calls) [{TRIO_PREV_CARD}]; "
+              f"{b / ms:.0%} of its bound {b:.4f} ms ({by}); library "
+              f"yardstick {lib:.4f} ms (one CUDA graph likewise)", flush=True)
+
+
+def trio_edge_checks(bt, dev, g):
+    """The redesigned kernels' edges against the plain twin, two runs equal
+    bit for bit, f32, bf16 and f16: NT at TRIO_NT_HS (b16, per-head
+    layout with an empty row); NN and TN at TRIO_XN_HS at every block
+    size; all three on TRIO_LONG's layouts, shared and per head."""
+    for dtype in DTYPES:
+        cases = []
+        for hs in TRIO_NT_HS:
+            op = trio_op(bt, 16, 6, TRIO_HEADS, True, SEED + hs)
+            (nt, _, _), _ = trio_cases(op, dtype, hs, 2, g, dev)
+            cases.append((f"b16 hs {hs} per-head layout", op, [nt]))
+        for bs in (8, 16, 32, 64):
+            op = trio_op(bt, bs, 5, TRIO_HEADS, True, SEED + bs)
+            (_, nn, tn), _ = trio_cases(op, dtype, TRIO_XN_HS, 2, g, dev)
+            cases.append((f"b{bs} hs {TRIO_XN_HS} per-head layout", op,
+                          [nn, tn]))
+        for bs, blks in TRIO_LONG:
+            for per_head in (False, True):
+                op = long_row_op(bt, bs, blks, per_head, SEED + blks)
+                fns, _ = trio_cases(op, dtype, 64, 2, g, dev)
+                cases.append((f"b{bs} hs 64 rows of {blks - 1} entries cut "
+                              f"in two, {'per-head' if per_head else 'shared'}"
+                              f" layout", op, fns))
+        for what, op, fns in cases:
+            twin = plain_twin(op)
+            for name, fn in fns:
+                label = f"{name} {what} {dtype}"
+                compare(label, fn(op), fn(twin), TOL[dtype])
+                same_bits(label, lambda: fn(op))
+    torch.cuda.empty_cache()
+
+
+# the trio's tensor-core kernels' mangled names: kernel, dtype, B (none for
+# the b64 wgmma kernel bst_xn_wg_kernel), and for xn TRANS and the column
+# group
+_TRIO_PTXAS = re.compile(r"(bst_(?:nt|xn)_(?:mma|wg)_kernel)I"
+                         r"(13__nv_bfloat16|6__half)(?:Li(\d+)E)?"
+                         r"(?:Lb([01])ELi(\d+)E)?")
+
+
+def trio_ptxas_report():
+    """Registers and spills of the redesigned kernels' instantiations
+    (ptxas): every b64 one by name, the rest summed; fails if none was
+    built."""
+    for source in ("bst_nt_mma", "bst_xn_mma"):
+        found = []
+        for entry, (regs, st, ld) in ptxas_entries(source).items():
+            m = _TRIO_PTXAS.search(entry)
+            if m:
+                kernel, dt, bs, trans, cw = m.groups()
+                dt = "bf16" if dt.startswith("13") else "f16"
+                bs = bs or "64"
+                name = (f"{dt} b{bs}" + ("" if trans is None else
+                                         f" {'TN' if trans == '1' else 'NN'}"
+                                         f" CW {cw}"))
+                found.append((int(bs), name, regs, st, ld))
+        check(bool(found), f"{source}.cu: its kernels built")
+        for bs, name, regs, st, ld in sorted(found):
+            if bs == 64:
+                print(f"{source}.cu {name}: {regs} registers, spill stores "
+                      f"{st} B, spill loads {ld} B", flush=True)
+        spilled = [n for _, n, _, st, ld in found if st or ld]
+        print(f"{source}.cu: {len(found)} instantiations, "
+              f"{min(f[2] for f in found)}-{max(f[2] for f in found)} "
+              f"registers, spills in {len(spilled)} {spilled}", flush=True)
 
 
 def trio_marks(op, q, k, v, w, hs):
     """Bound and library yardstick of nt, nn and tn at the LM's hs-256
     shape (bf16): bytes = each input read once, each output written once;
     operations 2·batch·heads·blocks·bs²·hs.  The yardstick is one batched
-    torch.matmul over the layout's blocks gathered beforehand (the gather
-    timed and printed beside it)."""
+    torch.matmul over the layout's blocks gathered beforehand, timed as
+    the kernels are (20 calls as one CUDA graph; the gather timed and
+    printed beside it)."""
     bs, H, B = op.blk_size, op.heads, q.shape[0]
     tab = op._tables(q.device)
     hidx = torch.arange(H, device=q.device)[:, None]
@@ -2967,11 +3129,11 @@ def trio_marks(op, q, k, v, w, hs):
     gather_ms = time_ms(lambda: gather(q, tab["q_blk"]), 20)
     qg, kg, vg = gather(q, tab["q_blk"]), gather(k, tab["k_blk"]), \
         gather(v, tab["k_blk"])
-    lib = {"bst_nt": time_ms(lambda: torch.matmul(qg, kg.transpose(-1, -2)),
-                             20),
-           "bst_xn": time_ms(lambda: torch.matmul(w, vg), 20),
-           "bst_xn_tn": time_ms(lambda: torch.matmul(w.transpose(-1, -2), qg),
-                                20)}
+    lib = {"bst_nt": graph_ms(lambda: torch.matmul(qg, kg.transpose(-1, -2)),
+                              20),
+           "bst_xn": graph_ms(lambda: torch.matmul(w, vg), 20),
+           "bst_xn_tn": graph_ms(lambda: torch.matmul(w.transpose(-1, -2),
+                                                      qg), 20)}
     act, scores = B * q.shape[1] * H * hs * 2, w.numel() * 2
     flops = 2 * w.numel() * hs
     out = {name: (*bound(flops, scores + 2 * act), lib[name])
@@ -3009,8 +3171,9 @@ def wide_lm_path(bt, dev, card_line):
     generate_cached's tokens, its decode logits held step by step against
     the plain model fed the same tokens; the captured train step (its
     first call: the warm-up's eager step and the captured step, each nt 3L
-    and nn/tn 5L with recompute) against the eager step and the plain
-    model, then WIDE_STEPS - 1 replays with falling loss.  Returns the
+    and nn/tn 5L with recompute) against the eager step (bit for bit)
+    and the plain model, then WIDE_STEPS - 1 replays with falling loss.
+    Returns the
     launches summed over the counted runs."""
     cfg, model, plain = wide_lm(bt, dev)
     L = cfg.n_layer
@@ -3102,10 +3265,10 @@ def wide_lm_path(bt, dev, card_line):
     opt = bt.AdamOptimizer(learning_rate=LR, zero_nans=True, zero_infs=True)
     step = model.make_train_step(opt, clip_norm=CLIP)
     before = snapshot(model)
-    _, m_eager, _ = step._eager(opt.init(dict(model.named_parameters())),
-                                tokens, targets, ls)
+    _, m_eager, sc_eager = step._eager(
+        opt.init(dict(model.named_parameters())), tokens, targets, ls)
+    d_eager = {k: v - before[k] for k, v in model.state_dict().items()}
     restore(model, before)
-    del before
     state = opt.init(dict(model.named_parameters()))
     torch.cuda.synchronize()
     reset_counts()
@@ -3115,6 +3278,14 @@ def wide_lm_path(bt, dev, card_line):
     first_s = time.perf_counter() - t
     train = read_counts()
     add_counts(total, train)
+    d0 = {k: v - before[k] for k, v in model.state_dict().items()}
+    check(all(torch.equal(m0[k], m_eager[k]) for k in m0)
+          and torch.equal(scale, sc_eager)
+          and all(torch.equal(d0[k], d_eager[k]) for k in d0),
+          f"{what}: the captured train step equals the eager step bit for "
+          f"bit (metrics, loss scale, every parameter update; the trio's "
+          f"kernels and the blocked softmax's row sums add in fixed orders)")
+    del before, d0, d_eager
     check(train["bst_nt"] == 2 * 3 * L and train["bst_xn"] == 2 * 5 * L
           and train["bst_xn_tn"] == 2 * 2 * L
           and not any(train[k] for k in fused),
@@ -3339,6 +3510,7 @@ def main():
     ptxas_report("bsmm_xprop_mma", "the fused split (OUT_SPLIT)",
                  SPLIT_MANGLED)
     ptxas_report("col2im_tma", "col2im", re.compile("col2im_tma_kernel"))
+    trio_ptxas_report()
     # the attention kernels' rows: their device time, as fine's and window's
     for key, ms in ((("attn_fwd", torch.bfloat16),
                      float(np.mean(rows["fwd_dev"]["order"]))),

@@ -1936,27 +1936,183 @@ def test_unfused_attention_on_the_card(cuda, dtype, hs, use_fused,
                                                   .max().item()), msg=name)
 
 
+def _long_row_op(bs, ctx_blks, heads, per_head, seed):
+    """An op over a sparse random layout (per head or shared, the same
+    block count in each) whose query row 0 and key row 0 hold every
+    block, far more than twice the mean: the launch plan cuts both in
+    two.  Query row 1 and key row 2 hold no block."""
+    rng = np.random.RandomState(seed)
+    lays = []
+    for _ in range(heads if per_head else 1):
+        lay = (rng.rand(ctx_blks, ctx_blks) < 0.1).astype(np.int32)
+        lay[1, :] = 0
+        lay[:, 2] = 0
+        lay[0, :] = 1
+        lay[:, 0] = 1
+        lay[1, 0] = lay[0, 2] = 0
+        lays.append(lay)
+    want = min(int(lay.sum()) for lay in lays)
+    for lay in lays:
+        on = np.argwhere(lay[3:, 3:])[:int(lay.sum()) - want] + 3
+        lay[on[:, 0], on[:, 1]] = 0
+    layout = np.array(lays) if per_head else lays[0]
+    return BlocksparseTransformer(layout, block_size=bs, heads=heads,
+                                  mask_callback=causal_subblock_mask)
+
+
+def _trio_holds(port, fns, dtype):
+    """Each (name, fn) on the kernels against the plain twin, one launch
+    of its kernel, two runs equal bit for bit."""
+    plain = _plain_twin(port)
+    with torch.no_grad():
+        for name, fn, moved in fns:
+            before = _trio_counts()
+            got = fn(port)
+            torch.cuda.synchronize()
+            assert tuple(a - b for a, b in zip(_trio_counts(), before)) \
+                == moved, name
+            ref = fn(plain)
+            assert got.shape == ref.shape and got.dtype == dtype, name
+            torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                                       atol=_trio_tol(dtype, ref), msg=name)
+            assert torch.equal(fn(port), got), name
+
+
+def _qkvw(port, hs, dtype, seed, batch=2):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    heads, bs = port.heads, port.blk_size
+    qkv = torch.randn((batch, port.ctx_blks_q * bs, 3 * heads * hs),
+                      device="cuda", generator=g).to(dtype)
+    q, k, v = qkv.split(heads * hs, dim=-1)
+    w = torch.randn((batch, heads, port.blocks, bs, bs), device="cuda",
+                    generator=g).to(dtype)
+    return q, k, v, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hs", [8, 72, 136, 264, 512])
+@pytest.mark.parametrize("bs", [16, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, *HALF])
+def test_trio_nt_head_sizes(cuda, dtype, bs, hs):
+    """NT around its 64-column chunks of the head (one k16 step at hs 8,
+    a chunk of 8 columns past 64 and past 256) and at its limit of 512,
+    per-head layouts with an empty row, against the plain version."""
+    port = _trio_op(bs, 6, 2, True, seed=hs)
+    q, k, _, _ = _qkvw(port, hs, dtype, seed=hs + bs)
+    _trio_holds(port, [("nt", lambda op: op.nt_op(q, k), (1, 0, 0))], dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["shared", "per_head"])
+@pytest.mark.parametrize("bs", [8, 16, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, *HALF])
+def test_trio_xn_past_one_column_group(cuda, dtype, bs, layout):
+    """NN and TN at hs 320: two column groups (256 and 64 columns), the
+    second's last warps idle; empty rows write zeros."""
+    hs = 320
+    port = _trio_op(bs, 5, 2, layout == "per_head", seed=bs)
+    q, _, v, w = _qkvw(port, hs, dtype, seed=bs)
+    _trio_holds(port, [("nn", lambda op: op.nn_op(w, v), (0, 1, 0)),
+                       ("tn", lambda op: op.tn_op(w, q), (0, 1, 1))], dtype)
+    assert (port.nn_op(w, v)[:, bs:2 * bs] == 0).all()
+    assert (port.tn_op(w, q)[:, 2 * bs:3 * bs] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["shared", "per_head"])
+@pytest.mark.parametrize("bs,ctx_blks", [(64, 36), (8, 68)])
+@pytest.mark.parametrize("dtype", HALF)
+def test_trio_long_rows_split(cuda, dtype, bs, ctx_blks, layout):
+    """A query row and a key row of ctx_blks - 1 entries (35 at b64, 67
+    at b8), cut in two by the launch plan: NT writes each half, NN and TN
+    sum the halves across a cluster; against the plain version, two runs
+    equal bit for bit, empty rows zeros."""
+    port = _long_row_op(bs, ctx_blks, 2, layout == "per_head", seed=bs)
+    tri = bst_trio.trio_tables(port.nt_list, ctx_blks, ctx_blks)
+    for name in ("plan", "plan_t"):
+        items = tri[name][port.lut_heads * (ctx_blks + 1):]
+        assert (items[items >= 0] % 4 == bst_trio.FIRST).any(), name
+    q, k, v, w = _qkvw(port, 64, dtype, seed=ctx_blks)
+    _trio_holds(port, [("nt", lambda op: op.nt_op(q, k), (1, 0, 0)),
+                       ("nn", lambda op: op.nn_op(w, v), (0, 1, 0)),
+                       ("tn", lambda op: op.tn_op(w, q), (0, 1, 1))], dtype)
+    assert (port.nn_op(w, v)[:, bs:2 * bs] == 0).all()
+    assert (port.tn_op(w, q)[:, 2 * bs:3 * bs] == 0).all()
+
+
 @pytest.mark.cuda
 def test_trio_raises_and_never_falls_back(cuda):
     """The wrappers raise on CPU tensors, on a head size that is not a
-    multiple of 8 and on mismatched weights; nothing counts."""
+    multiple of 8, on mismatched weights and on row pointers without
+    their launch plan; nothing counts."""
     port = _trio_op(16, 4, 2, False, seed=1)
     tab = port._tables(cuda)
     g = torch.Generator(device=cuda).manual_seed(9)
     q = torch.randn((1, 64, 2 * 16), device=cuda, generator=g)
     before = _trio_counts()
     with pytest.raises(ValueError):
-        bst_trio.bst_nt(q.cpu(), q.cpu(), tab["tri_row_ptr"],
+        bst_trio.bst_nt(q.cpu(), q.cpu(), tab["tri_plan"],
                         tab["tri_ent_k"], 2, 16)
     with pytest.raises(ValueError):
-        bst_trio.bst_nt(q[..., :20], q[..., :20], tab["tri_row_ptr"],
+        bst_trio.bst_nt(q[..., :20], q[..., :20], tab["tri_plan"],
                         tab["tri_ent_k"], 2, 16)
+    with pytest.raises(ValueError, match="launch plan"):
+        bst_trio.bst_nt(q, q, tab["tri_row_ptr"], tab["tri_ent_k"], 2, 16)
     w = torch.randn((1, 2, port.blocks + 1, 16, 16), device=cuda,
                     generator=g)
     with pytest.raises(ValueError):
-        bst_trio.bst_xn(w, q, tab["tri_row_ptr"], tab["tri_ent_e"],
+        bst_trio.bst_xn(w, q, tab["tri_plan"], tab["tri_ent_e"],
                         tab["tri_ent_k"], 2, 16, 4, False)
+    with pytest.raises(ValueError, match="launch plan"):
+        bst_trio.bst_xn(w[:, :, :-1].contiguous(), q, tab["tri_row_ptr_t"],
+                        tab["tri_ent_b"], tab["tri_ent_q"], 2, 16, 4, True)
     assert _trio_counts() == before
+
+
+@pytest.mark.cuda
+def test_captured_hs256_train_step_equals_eager_step(cuda):
+    """The LM at 2 heads of 256 (the unfused ops: nt, nn and tn on the
+    kernels) captured as one CUDA graph: two replayed steps equal two
+    eager steps of the same model bit for bit (metrics, scale, Adam's
+    slots, parameters)."""
+    kw = dict(n_vocab=64, n_embd=512, n_layer=2, n_head=2, ctx=128,
+              blk_size=32, attn_layout="fixed", local_blocks=2, mlp_ratio=2,
+              mlp_block_size=32, mlp_density=0.5, dtype="bfloat16",
+              recompute=True)
+    models = []
+    for _ in range(2):
+        m = SparseTransformerLM(TransformerConfig(**kw), device=cuda)
+        m.load_state_dict(params_from_jax(random_jax_params(m, seed=5), m))
+        models.append(m)
+    seq = torch.randint(0, 64, (2, 129), device=cuda,
+                        generator=_gen(cuda, 6))
+    adam = AdamOptimizer(learning_rate=1e-3, zero_nans=True, zero_infs=True)
+    runs = []
+    for m, graph in zip(models, (True, False)):
+        step = m.make_train_step(adam)
+        fn = step if graph else step._eager
+        state, scale, metrics = adam.init(dict(m.named_parameters())), \
+            1024.0, []
+        before = _trio_counts()
+        for _ in range(2):
+            state, mt, scale = fn(state, seq[:, :-1], seq[:, 1:], scale)
+            metrics.append(mt)
+        torch.cuda.synchronize()
+        moved = [a - b for a, b in zip(_trio_counts(), before)]
+        # per step: nt 3L (forward, recompute, nn's backward), xn 5L of
+        # which tn 2L; the graph's first call runs the warm-up's eager step
+        # and the captured one, its second call is a replay
+        L = kw["n_layer"]
+        assert moved == [6 * L, 10 * L, 4 * L], (graph, moved)
+        runs.append((state, metrics, scale, m.state_dict()))
+    (s0, m0, sc0, p0), (s1, m1, sc1, p1) = runs
+    for a, b in zip(m0, m1):
+        for k in ("loss", "grad_norm", "norm_scale"):
+            assert torch.equal(a[k], b[k]), k
+    assert torch.equal(sc0, sc1)
+    assert all(torch.equal(p0[k], p1[k]) for k in p0)
+    for slot in ("mean", "var"):
+        assert all(torch.equal(s0[slot][k], s1[slot][k]) for k in s1[slot])
 
 
 @pytest.mark.cuda
