@@ -10,33 +10,41 @@ block-sparse conv ``BlocksparseConv(impl="bsmm")``, forward and backward,
 through im2col, col2im and the same matmul kernels.  On the card the
 LM's decode step (``generate_cached_scan``) and train step each run as
 one CUDA graph, replayed a token or a step.  Each kernel has a
-plain PyTorch version beside it, which is what runs on the CPU.  The JAX
-package ``blocksparse_tpu`` is the reference it is held against; this
+plain PyTorch version beside it, which is what runs on the CPU.
+
+Around the kernels, in plain PyTorch as the JAX package leaves them to
+XLA: the elementwise ops (dropout with reusable masks among them), layer
+and batch norm, recompute and ``gradients``, the optimizers (Adam with
+f32, bfloat16 or packed 16-bit slots, gated and quantized; Adafactor;
+EMA; block pruning), the quantize ops, the layout tools (``utils``,
+``sparsity``), ``checkpoint``, ``profiling`` and the enwik8 training
+entry point (``python -m blocksparse_tpu_torch.examples.enwik8``).  The
+JAX package ``blocksparse_tpu`` is the reference it is held against; this
 package imports torch and never jax.
 """
-from blocksparse_tpu_torch.ops import (
-    BlocksparseMatMul, BlocksparseConv, BlocksparseTransformer, layer_norm,
-    swish, fast_gelu, float_cast, embedding_lookup, softmax_cross_entropy,
-    clip_by_global_norm, global_norm, AdamOptimizer, softmax, masked_softmax,
-    masked_top_k_softmax, transpose_2d, transpose_0213, top_k,
-    rectified_top_k, clear_bst_constants,
-)
+from blocksparse_tpu_torch.utils import (
+    reset_scalar_constants, get_entropy, set_entropy, entropy_size,
+    scalar_constant, ceil_div, reduce_mul, z_order_2d, z_order_3d, magic32u,
+    magic64u, bst_conv_layout, bst_deconv_layout)
+from blocksparse_tpu_torch.ops import *  # noqa: F401,F403
+from blocksparse_tpu_torch.ops import __all__ as _ops_all
+from blocksparse_tpu_torch.ops.quantize import quantize
 from blocksparse_tpu_torch.models import (
     SparseTransformerLM, TransformerConfig, generate, generate_cached,
     generate_cached_scan,
 )
 from blocksparse_tpu_torch.convert import (
-    params_from_jax, params_to_jax, opt_state_from_jax, random_jax_params,
-    conv_filter_from_jax, random_jax_conv_filter,
+    params_from_jax, params_to_jax, opt_state_from_jax, opt_state_to_jax,
+    random_jax_params, conv_filter_from_jax, random_jax_conv_filter,
 )
+from blocksparse_tpu_torch import checkpoint, profiling, sparsity
 
-__all__ = ["BlocksparseMatMul", "BlocksparseConv", "BlocksparseTransformer",
-           "layer_norm", "swish", "fast_gelu", "float_cast", "embedding_lookup",
-           "softmax_cross_entropy", "clip_by_global_norm", "global_norm",
-           "AdamOptimizer", "SparseTransformerLM", "TransformerConfig",
-           "generate", "generate_cached", "generate_cached_scan",
-           "params_from_jax", "params_to_jax",
-           "opt_state_from_jax", "random_jax_params", "conv_filter_from_jax",
-           "random_jax_conv_filter", "softmax", "masked_softmax",
-           "masked_top_k_softmax", "transpose_2d", "transpose_0213", "top_k",
-           "rectified_top_k", "clear_bst_constants"]
+__all__ = ["reset_scalar_constants", "get_entropy", "set_entropy",
+           "entropy_size", "scalar_constant", "ceil_div", "reduce_mul",
+           "z_order_2d", "z_order_3d", "magic32u", "magic64u",
+           "bst_conv_layout", "bst_deconv_layout", *_ops_all, "quantize",
+           "SparseTransformerLM", "TransformerConfig", "generate",
+           "generate_cached", "generate_cached_scan", "params_from_jax",
+           "params_to_jax", "opt_state_from_jax", "opt_state_to_jax",
+           "random_jax_params", "conv_filter_from_jax",
+           "random_jax_conv_filter", "checkpoint", "profiling", "sparsity"]

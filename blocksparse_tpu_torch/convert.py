@@ -6,8 +6,11 @@ or one stacked ``hs`` dict with a leading layer dim), with a leading
 tensor-parallel dim of size ``tp`` on block-sparse ``w_fc``/``w_proj``.
 ``params_from_jax`` turns such a dict of NumPy arrays into the port's
 ``state_dict`` and ``params_to_jax`` turns the port's parameters back;
-``opt_state_from_jax`` turns a JAX ``AdamOptimizer`` state
-(``{"mean", "var", "t"}``) into the port's.  ``random_jax_params`` makes
+``opt_state_from_jax`` turns a JAX optimizer state into the port's and
+``opt_state_to_jax`` turns one back: an ``AdamOptimizer`` state
+(``{"mean", "var", "t"}``, f32, bfloat16 or packed16 uint16 slots), an
+``AdafactorOptimizer`` state (``{"slots", "t"}``) or an ``Ema`` state (a
+param dict), each slot keeping its dtype and bits.  ``random_jax_params`` makes
 a param dict from a seed, with the JAX initialiser's shapes and scales,
 for runs that need no checkpoint.
 
@@ -24,6 +27,25 @@ _LAYER_KEYS = ("ln1_g", "ln1_b", "ln2_g", "ln2_b", "w_qkv", "b_qkv",
                "w_out", "b_out", "w_fc", "b_fc", "w_proj", "b_proj")
 
 
+def _tensor(a):
+    """A NumPy array as a CPU tensor of the same dtype and bits (JAX's
+    bfloat16, an ml_dtypes array in NumPy, as torch.bfloat16)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).bfloat16()
+    return torch.from_numpy(np.array(a))
+
+
+def _array(t):
+    """A tensor as a NumPy array of the same dtype and bits (bfloat16 as
+    ml_dtypes' bfloat16, the dtype JAX gives NumPy)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.float().numpy().astype(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
 def _layers(np_params):
     if "hs" in np_params:
         stacked = np_params["hs"]
@@ -33,48 +55,38 @@ def _layers(np_params):
     return [np_params[f"h{l}"] for l in range(n)]
 
 
-def params_from_jax(np_params, model=None):
-    """JAX param dict (NumPy arrays) -> the port's state dict (f32).
-
-    With ``model`` given, every tensor is also checked against the
-    model's own shapes."""
-    sd = {}
-    for k in ("wte", "wpe", "lnf_g", "lnf_b"):
-        sd[k] = np.asarray(np_params[k])
-    for l, layer in enumerate(_layers(np_params)):
+def _flat_from_jax(tree):
+    """A JAX param-shaped tree -> {port parameter name: leaf}, the leading
+    tp dim of 1 dropped from block-sparse ``w_fc``/``w_proj`` arrays.  A
+    leaf is an array or a dict of arrays (Adafactor's slots)."""
+    flat = {k: tree[k] for k in ("wte", "wpe", "lnf_g", "lnf_b")}
+    for l, layer in enumerate(_layers(tree)):
         if "moe" in layer:
             raise NotImplementedError("MoE layers are not ported yet")
         for k in _LAYER_KEYS:
-            a = np.asarray(layer[k])
-            if k in ("w_fc", "w_proj") and a.ndim == 4:
-                if a.shape[0] != 1:
-                    raise NotImplementedError(
-                        "tensor-parallel (tp > 1) weights are not ported yet")
-                a = a[0]
-            sd[f"h.{l}.{k}"] = a
-    sd = {k: torch.tensor(a, dtype=torch.float32) for k, a in sd.items()}
-    if model is not None:
-        own = model.state_dict()
-        if set(own) != set(sd):
-            raise ValueError(f"parameter names differ: "
-                             f"{sorted(set(own) ^ set(sd))}")
-        for k, t in sd.items():
-            if tuple(t.shape) != tuple(own[k].shape):
-                raise ValueError(f"{k}: {tuple(t.shape)} vs model "
-                                 f"{tuple(own[k].shape)}")
-    return sd
+            a = layer[k]
+            if not isinstance(a, dict):
+                a = np.asarray(a)
+                if k in ("w_fc", "w_proj") and a.ndim == 4:
+                    if a.shape[0] != 1:
+                        raise NotImplementedError(
+                            "tensor-parallel (tp > 1) weights are not "
+                            "ported yet")
+                    a = a[0]
+            flat[f"h.{l}.{k}"] = a
+    return flat
 
 
-def params_to_jax(model):
-    """The port's parameters as a JAX param dict of NumPy f32 arrays (flat
-    ``h{l}`` layers), with the leading tp dim of 1 on block-sparse
-    ``w_fc``/``w_proj``."""
+def _flat_to_jax(flat, model):
+    """{port parameter name: leaf} -> the JAX param layout (flat ``h{l}``
+    layers), with the leading tp dim of 1 on block-sparse ``w_fc`` and
+    ``w_proj`` arrays."""
     out = {}
-    for name, p in model.state_dict().items():
-        a = p.detach().float().cpu().numpy()
+    for name, a in flat.items():
         if name.startswith("h."):
             _, l, k = name.split(".")
-            if k in ("w_fc", "w_proj") and model.bsmm1 is not None:
+            if k in ("w_fc", "w_proj") and model.bsmm1 is not None \
+                    and not isinstance(a, dict):
                 a = a[None]
             out.setdefault(f"h{l}", {})[k] = a
         else:
@@ -82,18 +94,85 @@ def params_to_jax(model):
     return out
 
 
+def _check_shapes(sd, model):
+    own = model.state_dict()
+    if set(own) != set(sd):
+        raise ValueError(f"parameter names differ: "
+                         f"{sorted(set(own) ^ set(sd))}")
+    for k, t in sd.items():
+        if tuple(t.shape) != tuple(own[k].shape):
+            raise ValueError(f"{k}: {tuple(t.shape)} vs model "
+                             f"{tuple(own[k].shape)}")
+
+
+def params_from_jax(np_params, model=None):
+    """JAX param dict (NumPy arrays) -> the port's state dict (f32).
+
+    With ``model`` given, every tensor is also checked against the
+    model's own shapes."""
+    sd = {k: torch.tensor(np.asarray(a), dtype=torch.float32)
+          for k, a in _flat_from_jax(np_params).items()}
+    if model is not None:
+        _check_shapes(sd, model)
+    return sd
+
+
+def params_to_jax(model):
+    """The port's parameters as a JAX param dict of NumPy f32 arrays (flat
+    ``h{l}`` layers), with the leading tp dim of 1 on block-sparse
+    ``w_fc``/``w_proj``."""
+    return _flat_to_jax({k: p.detach().float().cpu().numpy()
+                         for k, p in model.state_dict().items()}, model)
+
+
+def _slots_from_jax(tree, model, dev):
+    sd = {k: _tensor(a) for k, a in _flat_from_jax(tree).items()}
+    _check_shapes(sd, model)
+    return {k: t.to(dev) for k, t in sd.items()}
+
+
 def opt_state_from_jax(np_state, model):
-    """A JAX ``AdamOptimizer`` state of NumPy arrays (``{"mean": params,
-    "var": params, "t": int}``, f32 slots) -> the port's optimizer state on
-    the model's device: mean and var keyed by the model's parameter
-    names, t an int32 scalar tensor."""
+    """A JAX optimizer state of NumPy arrays -> the port's, on the model's
+    device, each slot in its own dtype, keyed by the model's parameter
+    names:
+
+    - ``AdamOptimizer``: ``{"mean": params, "var": params, "t": int}``
+      (f32, bfloat16 or packed16 uint16 slots);
+    - ``AdafactorOptimizer``: ``{"slots": {param: {"cv", "rv"}}, "t"}``;
+    - ``Ema``: the averaged param dict itself (f32 or bfloat16).
+
+    t becomes an int32 scalar tensor."""
     dev = model.wte.device
-    return {"mean": {k: t.to(dev) for k, t in
-                     params_from_jax(np_state["mean"], model).items()},
-            "var": {k: t.to(dev) for k, t in
-                    params_from_jax(np_state["var"], model).items()},
-            "t": torch.tensor(int(np_state["t"]), dtype=torch.int32,
-                              device=dev)}
+
+    def step(t):
+        return torch.tensor(int(t), dtype=torch.int32, device=dev)
+    if "slots" in np_state:
+        return {"slots": {k: {s: _tensor(a).to(dev) for s, a in d.items()}
+                          for k, d in _flat_from_jax(
+                              np_state["slots"]).items()},
+                "t": step(np_state["t"])}
+    if "mean" in np_state:
+        return {"mean": _slots_from_jax(np_state["mean"], model, dev),
+                "var": _slots_from_jax(np_state["var"], model, dev),
+                "t": step(np_state["t"])}
+    return _slots_from_jax(np_state, model, dev)
+
+
+def opt_state_to_jax(state, model):
+    """The port's optimizer state (any of ``opt_state_from_jax``'s three
+    forms) as the JAX package's, NumPy arrays of the same dtypes and bits
+    (bfloat16 as ml_dtypes' bfloat16) and t an int32."""
+    def tree(flat):
+        return _flat_to_jax({k: _array(t) for k, t in flat.items()}, model)
+    if "slots" in state:
+        return {"slots": _flat_to_jax(
+            {k: {s: _array(a) for s, a in d.items()}
+             for k, d in state["slots"].items()}, model),
+                "t": np.int32(int(state["t"]))}
+    if "mean" in state:
+        return {"mean": tree(state["mean"]), "var": tree(state["var"]),
+                "t": np.int32(int(state["t"]))}
+    return tree(state)
 
 
 def random_jax_params(model, seed=0):

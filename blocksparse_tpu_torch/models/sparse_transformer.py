@@ -15,8 +15,11 @@ names and shapes (``convert.params_from_jax`` loads a JAX param dict,
 ``convert.params_to_jax`` writes one), so both packages compute the same
 thing from the same weights.
 
-Tensor, sequence and pipeline parallelism, MoE and dropout are later
-slices of the port and raise ``NotImplementedError`` here.
+Residual dropout (``resid_pdrop``) acts where the JAX package's does:
+through ``loss`` and ``forward`` given a dropout source, never in
+``make_train_step`` (the JAX train step passes no dropout key: ROADMAP
+F3).  Tensor, sequence and pipeline parallelism and MoE are later slices
+of the port and raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -30,7 +33,8 @@ from torch.utils.checkpoint import checkpoint
 
 from blocksparse_tpu_torch.ops import optimize as opt
 from blocksparse_tpu_torch.ops.embed import embedding_lookup
-from blocksparse_tpu_torch.ops.ewops import fast_gelu, float_cast
+from blocksparse_tpu_torch.ops.ewops import (dropout, fast_gelu,
+                                              float_cast, uniform)
 from blocksparse_tpu_torch.ops.matmul import BlocksparseMatMul
 from blocksparse_tpu_torch.ops.norms import layer_norm
 from blocksparse_tpu_torch.ops.transformer import (BlocksparseTransformer,
@@ -91,9 +95,12 @@ _LAYOUTS = {
 class TransformerConfig:
     """The JAX package's config, field for field.  ``recompute`` reruns
     each block's forward in the backward (``torch.utils.checkpoint``);
-    ``stack_layers`` shapes only the JAX parameter storage.  Neither
-    changes a result.  The parallel, MoE and dropout fields must stay at
-    their defaults here."""
+    ``stack_layers`` shapes only the JAX parameter storage and changes no
+    result here (the JAX stacked layers draw their dropout masks by
+    ``fold_in``, a stream the port does not reproduce).  ``resid_pdrop``
+    drops each block's two residual branches when ``loss``/``forward``
+    get a dropout source.  The parallel and MoE fields must stay at their
+    defaults here."""
     n_vocab: int = 256
     n_embd: int = 512
     n_layer: int = 6
@@ -123,11 +130,13 @@ class TransformerConfig:
 
 def _check_supported(c: TransformerConfig):
     for field, default in (("tp", 1), ("sp", 1), ("pp", 1), ("ep", 1),
-                           ("moe_experts", 0), ("resid_pdrop", 0.0)):
+                           ("moe_experts", 0)):
         if getattr(c, field) != default:
             raise NotImplementedError(
                 f"{field}={getattr(c, field)} is not ported yet (the port "
-                f"runs one device, dense or block-sparse MLP, no dropout)")
+                f"runs one device, dense or block-sparse MLP)")
+    if not 0.0 <= c.resid_pdrop < 1.0:
+        raise ValueError("resid_pdrop must lie in [0, 1)")
     if c.dtype not in _DTYPES:
         raise ValueError(f"unknown dtype {c.dtype!r}")
     if c.ctx % c.blk_size:
@@ -267,47 +276,72 @@ class SparseTransformerLM(nn.Module):
     def _embed(self, tokens, wpe):
         return (embedding_lookup(self.wte, tokens) + wpe).float()
 
-    def _block(self, layer, x, caches=None):
+    def _block(self, layer, x, caches=None, masks=None):
         """One transformer block; appends its K/V to ``caches`` when
-        given."""
+        given.  ``masks``: the (attention, MLP) residual dropout masks, or
+        None."""
+        keep = 1.0 - self.config.resid_pdrop
+
+        def drop(h, i):
+            return h if masks is None else dropout(h, keep, mask=masks[i])[0]
         q, k, v = self._qkv(layer, x)
         if caches is not None:
             caches.append({"k": k.contiguous(), "v": v.contiguous()})
-        x = x + self._out(layer, self._attend(q, k, v)).to(x.dtype)
-        return x + self._mlp(layer, x).to(x.dtype)
+        x = x + drop(self._out(layer, self._attend(q, k, v)), 0).to(x.dtype)
+        return x + drop(self._mlp(layer, x), 1).to(x.dtype)
 
-    def _full_context(self, tokens, caches=None):
+    def _dropout_masks(self, source, l, shape, device):
+        """Layer l's two residual dropout masks from ``source`` (a
+        ``torch.Generator``, or per-layer mask pairs), or None."""
+        p = self.config.resid_pdrop
+        if source is None or not p:
+            return None
+        if isinstance(source, torch.Generator):
+            return tuple(uniform(shape, device, source) < 1.0 - p
+                         for _ in range(2))
+        return tuple(m.to(device) for m in source[l])
+
+    def _full_context(self, tokens, caches=None, dropout=None):
         """Logits over all positions; appends each layer's K/V to
         ``caches`` when given.  With ``config.recompute`` and a gradient
         to take, each block's activations are recomputed in the backward
-        (the JAX ``jax.checkpoint`` per block)."""
+        (the JAX ``jax.checkpoint`` per block).  A block's dropout masks
+        are drawn before its checkpoint, so the recompute reuses them and
+        the checkpoint saves no RNG state (which a CUDA graph capture
+        forbids)."""
         x = self._embed(tokens, self.wpe[None, :tokens.shape[1]])
         recompute = self.config.recompute and torch.is_grad_enabled()
-        for layer in self.h:
+        for l, layer in enumerate(self.h):
+            masks = self._dropout_masks(dropout, l, x.shape, x.device)
             if recompute and caches is None:
-                # no randomness in a block (resid_pdrop raises): saving
-                # the CUDA RNG state, which a graph capture forbids, is
-                # not needed
-                x = checkpoint(self._block, layer, x, use_reentrant=False,
-                               preserve_rng_state=False)
+                x = checkpoint(self._block, layer, x, None, masks,
+                               use_reentrant=False, preserve_rng_state=False)
             else:
-                x = self._block(layer, x, caches)
+                x = self._block(layer, x, caches, masks)
         return self._logits(x)
 
     # ---------------- forward ----------------
 
     @torch.no_grad()
-    def forward(self, tokens):
-        """tokens (batch, L) int -> logits (batch, L, n_vocab) f32."""
-        return self._full_context(tokens)
+    def forward(self, tokens, dropout=None):
+        """tokens (batch, L) int -> logits (batch, L, n_vocab) f32.
+        ``dropout`` as in ``loss``."""
+        return self._full_context(tokens, dropout=dropout)
 
     # ---------------- training ----------------
 
-    def loss(self, tokens, targets):
+    def loss(self, tokens, targets, dropout=None):
         """Mean softmax cross entropy of the next-token logits against
-        ``targets`` (batch, L), differentiable in the parameters."""
-        return softmax_cross_entropy(self._full_context(tokens),
-                                     targets).mean()
+        ``targets`` (batch, L), differentiable in the parameters.
+
+        dropout: the counterpart of the JAX ``dropout_key``, used when
+        ``config.resid_pdrop`` > 0: a ``torch.Generator`` (on any device)
+        from which each layer draws its two masks in turn, or a list of
+        one (attention, MLP) pair of bool masks of the residual's shape a
+        layer (the masks the JAX ``_block`` draws, for parity runs).
+        None drops nothing."""
+        return softmax_cross_entropy(
+            self._full_context(tokens, dropout=dropout), targets).mean()
 
     def make_train_step(self, optimizer: opt.AdamOptimizer, mesh=None,
                         clip_norm=1.0):
@@ -328,7 +362,10 @@ class SparseTransformerLM(nn.Module):
         On the CPU the step runs eagerly.  On a CUDA model it is one CUDA
         graph (the counterpart of the JAX step's ``jax.jit``), captured
         at the first call for each batch shape and MLP route and replayed
-        afterwards; see ``_TrainStep``."""
+        afterwards; see ``_TrainStep``.
+
+        The step applies no dropout whatever ``config.resid_pdrop`` says:
+        the JAX step calls ``loss`` with no dropout key (ROADMAP F3)."""
         if mesh is not None:
             raise NotImplementedError("make_train_step(mesh=...) (the "
                                       "sharded train step) is not ported "

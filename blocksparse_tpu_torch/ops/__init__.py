@@ -4,16 +4,45 @@ from blocksparse_tpu_torch.ops.transformer import (
     BlocksparseTransformer, softmax, masked_softmax, masked_top_k_softmax,
     softmax_cross_entropy, transpose_2d, transpose_0213, top_k,
     rectified_top_k, clear_bst_constants)
-from blocksparse_tpu_torch.ops.norms import layer_norm
-from blocksparse_tpu_torch.ops.ewops import swish, fast_gelu, float_cast
+from blocksparse_tpu_torch.ops.norms import (layer_norm, batch_norm,
+                                             batch_norm_inference)
+from blocksparse_tpu_torch.ops.ewops import (
+    add, multiply, subtract, divide, maximum, minimum, negative, reciprocal,
+    square, sqrt, exp, log, sigmoid, tanh, relu, elu, gelu, swish, fast_gelu,
+    filter_tensor, filter_tensor_op, scale_tensor, float_cast, dropout,
+    concrete_gate, concrete_gate_infer, add_n8, add_n, bias_relu,
+    fancy_gather, reduce_max, assign_add, replace_add_n, restore_add_n)
 from blocksparse_tpu_torch.ops.embed import embedding_lookup
-from blocksparse_tpu_torch.ops.optimize import (AdamOptimizer,
-                                                clip_by_global_norm,
-                                                global_norm)
+from blocksparse_tpu_torch.ops.grads import gradients, recomputable
+from blocksparse_tpu_torch.ops.optimize import (
+    Ema, AdamOptimizer, AdafactorOptimizer, FusedAdam, FusedAdafactor,
+    blocksparse_l2_decay, blocksparse_norm, blocksparse_prune,
+    clip_by_global_norm, global_norm, adafactor2d_op, adafactor1d_op,
+    adam_op, adam_apply, lazy_emb_adam_op, lazy_emb_adam_apply,
+    blocksparse_adam_op, ema_op, mhalf_pack, mhalf_unpack, vhalf_pack,
+    vhalf_unpack)
+# ``quantize`` (the function) is exported by the package root: here it
+# would hide the ``ops.quantize`` module
+from blocksparse_tpu_torch.ops.quantize import (
+    QuantizeSpec, QuantizeTracker, quantize_emax_estimate, log_stats)
 
-__all__ = ["BlocksparseMatMul", "BlocksparseConv", "BlocksparseTransformer",
-           "layer_norm", "swish", "fast_gelu", "float_cast", "embedding_lookup",
-           "softmax_cross_entropy", "AdamOptimizer", "clip_by_global_norm",
-           "global_norm", "softmax", "masked_softmax", "masked_top_k_softmax",
-           "transpose_2d", "transpose_0213", "top_k", "rectified_top_k",
-           "clear_bst_constants"]
+__all__ = [
+    "BlocksparseMatMul", "BlocksparseConv", "BlocksparseTransformer",
+    "softmax", "masked_softmax", "masked_top_k_softmax",
+    "softmax_cross_entropy", "transpose_2d", "transpose_0213", "top_k",
+    "rectified_top_k", "clear_bst_constants", "layer_norm", "batch_norm",
+    "batch_norm_inference", "add", "multiply", "subtract", "divide",
+    "maximum", "minimum", "negative", "reciprocal", "square", "sqrt", "exp",
+    "log", "sigmoid", "tanh", "relu", "elu", "gelu", "swish", "fast_gelu",
+    "filter_tensor", "filter_tensor_op", "scale_tensor", "float_cast",
+    "dropout", "concrete_gate", "concrete_gate_infer", "add_n8", "add_n",
+    "bias_relu", "fancy_gather", "reduce_max", "assign_add",
+    "replace_add_n", "restore_add_n", "embedding_lookup", "gradients",
+    "recomputable", "Ema", "AdamOptimizer", "AdafactorOptimizer",
+    "FusedAdam", "FusedAdafactor", "blocksparse_l2_decay",
+    "blocksparse_norm", "blocksparse_prune", "clip_by_global_norm",
+    "global_norm", "adafactor2d_op", "adafactor1d_op", "adam_op",
+    "adam_apply", "lazy_emb_adam_op", "lazy_emb_adam_apply",
+    "blocksparse_adam_op", "ema_op", "mhalf_pack", "mhalf_unpack",
+    "vhalf_pack", "vhalf_unpack", "QuantizeSpec", "QuantizeTracker",
+    "quantize_emax_estimate", "log_stats"]

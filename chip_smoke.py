@@ -147,6 +147,24 @@ flagship's 8 heads of 64, forward and forward + backward, in turns.  The
 kernels line's ``bst_xn`` row counts every launch of its wrapper (NN and
 TN) and times NN; ``bst_xn_tn`` counts and times the TN direction.
 
+Then the training surface around the kernels: the flagship's
+captured train step with bfloat16 and packed16 Adam slots, counted, each
+equal to its eager step bit for bit and held against the plain model's
+step with the same slots at the f32-slot step's tolerances, its state's
+bytes and its step time beside the f32-slot step's, in turns; packed16 on
+the card (all 65,536 codes unpacked, and every code's value, its
+neighbours and a seeded spread packed) equal to the CPU's bits; the LM
+with residual dropout 0.1 (one generator seed gives one loss twice, the
+gradients with recompute on equal those with it off bit for bit, the
+loss and gradients given one set of masks within the train step's
+tolerances of the plain model's given the same masks, the masks keep a
+binomial share); three Adafactor and EMA updates of the
+LM's parameters on the card against the CPU; and the enwik8 entry point
+(``blocksparse_tpu_torch.examples.enwik8``) at the flagship's width for
+100 steps on the synthetic stream, counted, its loss falling, with a
+checkpoint at step 60 restored into a fresh model bit for bit and the
+restored model's next step equal to the uninterrupted run's bit for bit.
+
 Prints the card's name and power limit, the build times, every check
 with its tolerance, the timings, a ``{"kernels": [...]}`` line (each
 kernel with its bound on this card and the time of a library call that
@@ -3386,6 +3404,385 @@ def route_compare(bt, dev, g, card_line):
     torch.cuda.empty_cache()
 
 
+# ---------------- the training surface ----------------
+
+# the entry point's run: steps, the one checkpoint (it is restored and
+# its next step taken again), evaluations, and the steps the falling loss
+# is averaged over at each end
+ENTRY_STEPS, ENTRY_CKPT_AT, ENTRY_EVAL, ENTRY_WINDOW = 100, 60, 50, 10
+DROPOUT = 0.1
+ADAFACTOR_TOL = 1e-5   # Adafactor's means reduce in another order on the card
+SLOT_FORMATS = ("float32", "bfloat16", "packed16")
+
+
+def state_bytes(state):
+    return sum(t.numel() * t.element_size() for k in ("mean", "var")
+               for t in state[k].values())
+
+
+def same_tree(a, b):
+    """Every tensor of two trees of dicts equal bit for bit (packed16's
+    uint16 slots compared as int16: the same bits)."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_tree(a[k], b[k])
+                                            for k in a)
+    if a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.uint16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return torch.equal(a, b)
+
+
+def slot_steps(bt, model, plain, cfg, dev, card_line):
+    """The flagship's captured train step with bfloat16 and packed16 Adam
+    slots: each bit for bit its eager step, each against the plain
+    model's step with the same slots at the f32-slot phase's tolerances;
+    state bytes and step ms beside the f32-slot step, in turns."""
+    rng = np.random.RandomState(SEED + 15)
+    seq = torch.from_numpy(rng.randint(0, cfg.n_vocab,
+                                       (BATCH, cfg.ctx + 1))).to(dev)
+    tokens, targets = seq[:, :-1], seq[:, 1:]
+    ls = torch.tensor(LOSS_SCALE, device=dev)
+    saved = snapshot(model)
+    steps, counts = {}, {}
+    names, params = zip(*plain.named_parameters())
+    live = {n: g.abs() > GRAD_TOL * g.abs().max() for n, g in zip(
+        names, torch.autograd.grad(plain.loss(tokens, targets) * ls,
+                                   params))}
+    for fmt in SLOT_FORMATS:
+        opt = bt.AdamOptimizer(learning_rate=LR, zero_nans=True,
+                               zero_infs=True, state_format=fmt)
+        step = model.make_train_step(opt, clip_norm=CLIP)
+        restore(model, saved)
+        s_e, m_e, sc_e = step._eager(opt.init(dict(model.named_parameters())),
+                                     tokens, targets, ls)
+        d_e = {k: v - saved[k] for k, v in model.state_dict().items()}
+        restore(model, saved)
+        reset_counts()
+        s_g, m_g, sc_g = step(opt.init(dict(model.named_parameters())),
+                              tokens, targets, ls)
+        torch.cuda.synchronize()
+        counts[fmt] = read_counts()
+        d_g = {k: v - saved[k] for k, v in model.state_dict().items()}
+        restore(model, saved)
+        nbytes = state_bytes(s_g)
+        slot = s_g["mean"]["h.0.w_qkv"].dtype
+        if fmt == "float32":
+            steps[fmt] = (step, s_g, ls.clone(), nbytes)
+            continue
+        bits = same_tree(s_g, s_e) and torch.equal(sc_g, sc_e) \
+            and all(torch.equal(m_g[k], m_e[k]) for k in m_e) \
+            and all(torch.equal(d_g[k], d_e[k]) for k in d_e)
+        check(bits and slot == {"bfloat16": torch.bfloat16,
+                                "packed16": torch.uint16}[fmt],
+              f"{fmt} slots ({slot}): the captured step equals its eager "
+              f"step bit for bit (metrics, scale, every slot, every "
+              f"parameter update)")
+        pst = plain.make_train_step(opt, clip_norm=CLIP)
+        before = snapshot(plain)
+        _, m_p, _ = pst._eager(opt.init(dict(plain.named_parameters())),
+                               tokens, targets, ls)
+        d_p = {k: v - before[k] for k, v in plain.state_dict().items()}
+        restore(plain, before)
+        del before
+        for k in ("loss", "grad_norm"):
+            a, b = m_g[k].item(), m_p[k].item()
+            check(abs(a - b) <= STEP_LOSS_TOL * abs(b),
+                  f"{fmt} slots: step 1 {k} {a:.6f} vs plain {b:.6f} (tol "
+                  f"{STEP_LOSS_TOL:g} relative)")
+        compare_tensors(f"{fmt} slots: parameter updates of step 1 against "
+                        f"the plain model", d_g, d_p, GRAD_TOL, live=live,
+                        flip_bound=2 * LR + 1e-6)
+        steps[fmt] = (step, s_g, sc_g, nbytes)
+        del d_e, d_g, d_p, s_e
+        torch.cuda.empty_cache()
+    want = {"bsmm_fprop": 8 * cfg.n_layer, "bsmm_bprop": 4 * cfg.n_layer,
+            "bsmm_updat": 4 * cfg.n_layer}
+    check(all(all(c[k] == n for k, n in want.items()) for c in
+              counts.values()),
+          f"each slot format's first captured call launches the step's "
+          f"kernels twice (warm-up and capture): {want} in all three")
+
+    holder = {fmt: {"state": s, "scale": sc}
+              for fmt, (_, s, sc, _) in steps.items()}
+
+    def one_step(fmt):
+        h = holder[fmt]
+        h["state"], _, h["scale"] = steps[fmt][0](h["state"], tokens,
+                                                  targets, h["scale"])
+
+    def timing(fmt):
+        return time_ms(lambda: one_step(fmt), TIMED_STEPS)
+    turns = {fmt: [] for fmt in SLOT_FORMATS}
+    for _ in range(2):
+        for fmt, runs in in_turns({f: f for f in SLOT_FORMATS},
+                                  timing).items():
+            turns[fmt] += runs
+    restore(model, saved)
+    n_params = sum(p.numel() for p in model.parameters())
+    for fmt in SLOT_FORMATS:
+        ms = turns[fmt]
+        print(f"adam slots {fmt} [{card_line}]: state "
+              f"{steps[fmt][3] / 1e6:.2f} MB for {n_params / 1e6:.2f} M "
+              f"params; captured step {float(np.median(ms)):.2f} ms "
+              f"(median of {len(ms)} turns, each the mean of {TIMED_STEPS} "
+              f"steps by CUDA events: "
+              f"{' '.join(f'{x:.2f}' for x in ms)})", flush=True)
+        profile_port_kernels(f"train step, {fmt} slots (graph replay)",
+                             lambda: one_step(fmt), float(np.median(ms)))
+    restore(model, saved)
+    del steps, holder, saved
+    torch.cuda.empty_cache()
+    return counts
+
+
+def packed16_checks(bt):
+    """All 65,536 codes unpack on the card to the CPU's bits; every code's
+    value, its neighbours and a seeded spread with edge values pack to
+    the CPU's codes."""
+    codes = torch.arange(65536, dtype=torch.int32).to(torch.uint16)
+    g = torch.Generator().manual_seed(SEED)
+    spread = torch.randn(100000, generator=g) * torch.pow(
+        10.0, torch.rand(100000, generator=g) * 27 - 25)
+    edges = torch.tensor([0.0, -0.0, float("inf"), -float("inf"), 16.0,
+                          -16.0, 1e-40, 2.0 ** -60, 2.0 ** -61, 2.0 ** -62])
+    for fmt in ("mhalf", "vhalf"):
+        unpack, pack = getattr(bt, f"{fmt}_unpack"), getattr(bt, f"{fmt}_pack")
+        cpu = unpack(codes)
+        dev = unpack(codes.cuda()).cpu()
+        vals = cpu[torch.isfinite(cpu)]
+        x = torch.cat([vals, torch.nextafter(vals, torch.tensor(np.inf)),
+                       torch.nextafter(vals, torch.tensor(-np.inf)), spread,
+                       edges])
+        check(torch.equal(dev.view(torch.int32), cpu.view(torch.int32))
+              and torch.equal(pack(x.cuda()).cpu().view(torch.int16),
+                              pack(x).view(torch.int16)),
+              f"{fmt}: all 65536 codes unpack on the card to the CPU's "
+              f"bits; {x.numel()} values pack to the CPU's codes")
+
+
+def dropout_checks(bt, cfg, sd, dev):
+    """loss with resid_pdrop 0.1 at full width: one generator seed gives
+    the same loss twice, its gradients with recompute on equal those with
+    recompute off, the loss and gradients given one set of masks agree
+    with the plain model's given the same masks, and the masks keep a
+    binomial share."""
+    import dataclasses
+    m = bt.SparseTransformerLM(dataclasses.replace(cfg, resid_pdrop=DROPOUT),
+                               device=dev)
+    m.load_state_dict(sd)
+    rng = np.random.RandomState(SEED + 16)
+    seq = torch.from_numpy(rng.randint(0, cfg.n_vocab,
+                                       (BATCH, cfg.ctx + 1))).to(dev)
+    tokens, targets = seq[:, :-1], seq[:, 1:]
+    names, params = zip(*m.named_parameters())
+    runs = []
+    for recompute in (True, True, False):
+        m.config.recompute = recompute
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        loss = m.loss(tokens, targets, dropout=gen)
+        runs.append((loss.detach(), torch.autograd.grad(loss, params)))
+    m.config.recompute = cfg.recompute
+    (l0, g0), (l1, _), (l2, g2) = runs
+    with torch.no_grad():
+        plain_loss = m.loss(tokens, targets).item()
+    check(torch.equal(l0, l1) and bool(torch.isfinite(l0))
+          and abs(l0.item() - plain_loss) > 1e-4,
+          f"dropout {DROPOUT}: loss {l0.item():.6f} twice from one seed "
+          f"(no dropout: {plain_loss:.6f})")
+    check(torch.equal(l0, l2) and all(torch.equal(a, b)
+                                      for a, b in zip(g0, g2)),
+          f"dropout {DROPOUT}: loss and all {len(g0)} gradients with "
+          f"recompute on equal those with recompute off bit for bit")
+    del runs, g0, g2
+
+    # the kernel model against the plain model, both given the same masks
+    plain = bt.SparseTransformerLM(
+        dataclasses.replace(cfg, resid_pdrop=DROPOUT), device=dev,
+        impl="xla")
+    plain.load_state_dict(sd)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    masks = [m._dropout_masks(gen, layer, (BATCH, cfg.ctx, cfg.n_embd), dev)
+             for layer in range(cfg.n_layer)]
+    ls = torch.tensor(LOSS_SCALE, device=dev)
+    grads, losses = [], []
+    for mm in (m, plain):
+        names, params = zip(*mm.named_parameters())
+        loss = mm.loss(tokens, targets, dropout=masks)
+        grads.append(dict(zip(names, (g / ls for g in torch.autograd.grad(
+            loss * ls, params)))))
+        losses.append(loss.item())
+    rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    check(np.isfinite(losses[0]) and rel <= STEP_LOSS_TOL
+          and abs(losses[1] - plain_loss) > 1e-4,
+          f"dropout {DROPOUT}, one set of masks: loss {losses[0]:.6f} vs "
+          f"the plain model's {losses[1]:.6f} (rel diff {rel:.2e}, tol "
+          f"{STEP_LOSS_TOL:g})")
+    compare_tensors(f"dropout {DROPOUT}, one set of masks: gradients "
+                    f"against the plain model", grads[0], grads[1], GRAD_TOL)
+    del plain, grads
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    shares = []
+    for layer in range(cfg.n_layer):
+        for mask in m._dropout_masks(gen, layer, (BATCH, cfg.ctx,
+                                                  cfg.n_embd), dev):
+            shares.append(mask.float().mean().item())
+    n = BATCH * cfg.ctx * cfg.n_embd
+    bound = 5 * np.sqrt((1 - DROPOUT) * DROPOUT / n)
+    check(all(abs(s - (1 - DROPOUT)) <= bound for s in shares),
+          f"dropout masks keep {min(shares):.5f}-{max(shares):.5f} of "
+          f"{n} elements (binomial: {1 - DROPOUT} +- {bound:.5f}, 5 sigma)")
+    del m, masks
+    torch.cuda.empty_cache()
+
+
+def adafactor_ema_checks(bt, model, dev):
+    """Three Adafactor updates (the LM's 1-D and 2-D parameters: its
+    block-sparse MLP weights are 3-D, which Adafactor refuses as JAX's
+    does) and three EMA updates (f32 and bf16) of the LM's parameters,
+    on the card against the CPU."""
+    params = {k: v.detach().float().cpu() for k, v in model.state_dict()
+              .items()}
+    g = torch.Generator().manual_seed(SEED)
+    grads = [{k: torch.randn(v.shape, generator=g) for k, v in
+              params.items()} for _ in range(3)]
+    flat = {k for k, v in params.items() if v.dim() <= 2}
+    ada = bt.AdafactorOptimizer(learning_rate=1e-3)
+    out = {}
+    for where in ("cpu", dev):
+        p = {k: params[k].to(where) for k in flat}
+        s = ada.init(p)
+        for gr in grads:
+            p, s = ada.apply({k: gr[k].to(where) for k in flat}, p, s)
+        out[str(where)] = p
+    worst = max(((out[str(dev)][k].cpu() - out["cpu"][k]).abs().max()
+                 / out["cpu"][k].abs().max().clamp(min=1.0)).item()
+                for k in flat)
+    check(worst <= ADAFACTOR_TOL,
+          f"Adafactor, 3 updates of {len(flat)} LM parameters on the card "
+          f"against the CPU: worst |diff| / max(1, max|cpu|) {worst:.2e} "
+          f"(tol {ADAFACTOR_TOL:g})")
+    for fp16 in (False, True):
+        ema = bt.Ema(decay=0.99, fp16=fp16)
+        res = {}
+        for where in ("cpu", dev):
+            st = ema.init({k: v.to(where) for k, v in params.items()})
+            for gr in grads:
+                st = ema.apply({k: (params[k] + gr[k]).to(where)
+                                for k in params}, st)
+            res[str(where)] = st
+        # the same f32 elementwise ops on both sides; stored in bf16, a
+        # last-bit difference may round the other way: one bf16 ulp
+        tol = 2.0 ** -8 if fp16 else 1e-6
+        worst = max(((res[str(dev)][k].cpu().float() - res["cpu"][k].float())
+                     .abs().max() / res["cpu"][k].float().abs().max()
+                     .clamp(min=1.0)).item() for k in params)
+        check(worst <= tol,
+              f"Ema (fp16={fp16}), 3 updates of the LM's parameters on the "
+              f"card against the CPU: worst |diff| / max(1, max|cpu|) "
+              f"{worst:.2e} (tol {tol:g})")
+
+
+def entry_point_run(bt, dev, card_line):
+    """``python -m blocksparse_tpu_torch.examples.enwik8`` at the flagship's
+    width (its block-sparse MLP by flag) for ENTRY_STEPS steps on the
+    synthetic stream, counted: loss falling; a checkpoint at
+    ENTRY_CKPT_AT restored into a fresh model equals what was saved bit
+    for bit, and its next step on the same batch equals the uninterrupted
+    run's bit for bit."""
+    import shutil
+
+    from blocksparse_tpu_torch import checkpoint as ck
+    from blocksparse_tpu_torch.examples import enwik8
+    ckpt = Path("build") / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    args = enwik8.parse_args([
+        "--n_iter", str(ENTRY_STEPS), "--mlp_block_size", "32",
+        "--mlp_density", "0.5", "--ckpt_dir", str(ckpt), "--ckpt_every",
+        str(ENTRY_CKPT_AT), "--eval_every", str(ENTRY_EVAL)])
+    snaps = {}
+
+    def clone(t):
+        return {k: clone(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t.detach().clone()
+
+    def on_step(step, model, opt_state, loss_scale, metrics):
+        if step in (ENTRY_CKPT_AT - 1, ENTRY_CKPT_AT):
+            snaps[step] = (clone(model.state_dict()), clone(opt_state),
+                           loss_scale.clone(), clone(metrics))
+    reset_counts()
+    t = time.perf_counter()
+    out = enwik8.train(args, on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = read_counts()
+    losses = np.array(out["losses"])
+    first, last = losses[:ENTRY_WINDOW].mean(), losses[-ENTRY_WINDOW:].mean()
+    check(len(losses) == ENTRY_STEPS and np.isfinite(losses).all()
+          and last < first,
+          f"entry point [{card_line}]: {ENTRY_STEPS} steps in {wall:.1f} s "
+          f"(data, build and capture included); loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, mean of the first {ENTRY_WINDOW} "
+          f"{first:.4f} > of the last {last:.4f} (bits/byte "
+          f"{first / np.log(2):.3f} -> {last / np.log(2):.3f}); eval "
+          f"bits/byte {out['eval']}")
+    print("entry point losses: " + " ".join(f"{x:.4f}" for x in losses),
+          flush=True)
+    want = ("bsmm_fprop", "bsmm_bprop", "bsmm_updat", "bsmm_updat_reduce",
+            "bst_attn_fwd_lse", "bst_attn_dq", "bst_attn_dkv")
+    check(all(launches[k] > 0 for k in want),
+          f"entry point launches {launches}: every kernel of the train "
+          f"step ran")
+
+    tree, meta = ck.restore(ckpt, device=dev)
+    params_k, state_k, scale_k, _ = snaps[ENTRY_CKPT_AT - 1]
+    _, fresh, _, step_fn = enwik8.build(args)
+    fresh.load_state_dict(tree["params"])
+    check(meta["step"] == ENTRY_CKPT_AT
+          and same_tree(fresh.state_dict(), params_k)
+          and same_tree(tree["opt_state"], state_k)
+          and torch.equal(tree["loss_scale"], scale_k),
+          f"checkpoint at step {ENTRY_CKPT_AT} restored into a fresh model: "
+          f"params, Adam state, loss scale and step equal the saved ones "
+          f"bit for bit")
+    train, _ = enwik8.load_data(None, 9 * 10 ** 7, 5 * 10 ** 6)
+    it = enwik8.batch_iter(train, args.n_batch, args.n_ctx,
+                           np.random.RandomState(1))
+    for _ in range(ENTRY_CKPT_AT + 1):
+        x, y = next(it)
+    state, metrics, scale = step_fn(
+        tree["opt_state"], torch.from_numpy(x).long().to(dev),
+        torch.from_numpy(y).long().to(dev), tree["loss_scale"])
+    params_n, state_n, scale_n, metrics_n = snaps[ENTRY_CKPT_AT]
+    check(same_tree(fresh.state_dict(), params_n)
+          and same_tree(state, state_n)
+          and torch.equal(scale, scale_n)
+          and all(torch.equal(metrics[k], metrics_n[k]) for k in metrics_n),
+          f"the restored model's step {ENTRY_CKPT_AT} on the same batch "
+          f"equals the uninterrupted run's bit for bit (loss "
+          f"{metrics['loss'].item():.6f}, params, state, scale)")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    del fresh, step_fn, tree, snaps
+    torch.cuda.empty_cache()
+    return launches
+
+
+def training_surface(bt, model, plain, cfg, sd, dev, card_line):
+    """The training surface the LM's recipe needs besides the kernels:
+    16-bit Adam slots in the captured step, packed16 on the card,
+    residual dropout, Adafactor and EMA, and the enwik8 entry point with
+    its checkpoint, from the seed weights ``sd`` (the earlier phases
+    trained the model).  Returns the launch counts of the counted paths."""
+    for m in (model, plain):
+        m.load_state_dict(sd)
+    slots = slot_steps(bt, model, plain, cfg, dev, card_line)
+    packed16_checks(bt)
+    dropout_checks(bt, cfg, sd, dev)
+    adafactor_ema_checks(bt, model, dev)
+    return slots, entry_point_run(bt, dev, card_line)
+
+
 def build_all():
     from blocksparse_tpu_torch.kernels import _build
 
@@ -3477,6 +3874,15 @@ def main():
           f"prefill, scan decode, train step's first call) {wide_launches}",
           flush=True)
     route_compare(bt, dev, g, card_line)
+
+    # 5d. the training surface: the captured step with 16-bit Adam slots
+    # (counted), packed16 on the card, residual dropout, Adafactor and
+    # EMA, and the enwik8 entry point with its checkpoint (counted)
+    slot_launches, entry_launches = training_surface(bt, model, plain, cfg,
+                                                     sd, dev, card_line)
+    print(f"launches: train step's first call by slot format "
+          f"{slot_launches}; entry point ({ENTRY_STEPS} steps) "
+          f"{entry_launches}", flush=True)
 
     # 6. the block-sparse conv: kernels against plain versions, then the
     # conv path, counted

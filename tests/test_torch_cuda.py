@@ -44,6 +44,7 @@ import numpy as np
 import pytest
 import torch
 
+import blocksparse_tpu_torch as bt
 from blocksparse_tpu_torch import (AdamOptimizer, BlocksparseConv,
                                    BlocksparseMatMul, BlocksparseTransformer,
                                    SparseTransformerLM, TransformerConfig,
@@ -2150,3 +2151,195 @@ def test_lm_past_head_size_128_matches_plain_model(cuda):
     for key in ("loss", "grad_norm"):
         a, b = metrics[0][key].item(), metrics[1][key].item()
         assert np.isfinite(a) and abs(a - b) <= 1e-2 * abs(b), key
+
+
+# ---------------- the training surface: 16-bit slots, dropout, ----------
+# ---------------- quantize, Adafactor and EMA on the card ----------------
+
+def _probe16(unpacked, seed):
+    """Every code's value, its neighbours, and a seeded spread."""
+    vals = unpacked[torch.isfinite(unpacked)]
+    g = torch.Generator().manual_seed(seed)
+    spread = torch.randn(20000, generator=g) * torch.pow(
+        10.0, torch.rand(20000, generator=g) * 27 - 25)
+    return torch.cat([vals, torch.nextafter(vals, torch.tensor(np.inf)),
+                      torch.nextafter(vals, torch.tensor(-np.inf)), spread,
+                      torch.tensor([0.0, -0.0, 16.0, 2.0 ** -61])])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["mhalf", "vhalf"])
+def test_packed16_on_the_card_equals_the_cpu(cuda, fmt):
+    """All 65,536 codes unpack on the card to the CPU's f32 bits, and a
+    seeded set with every code's value, its neighbours and edge values
+    packs to the CPU's codes."""
+    from blocksparse_tpu_torch.ops import optimize as port_opt
+    unpack, pack = (getattr(port_opt, f"{fmt}_{d}")
+                    for d in ("unpack", "pack"))
+    codes = torch.arange(65536, dtype=torch.int32).to(torch.uint16)
+    cpu = unpack(codes)
+    dev = unpack(codes.to(cuda))
+    assert torch.equal(dev.cpu().view(torch.int32), cpu.view(torch.int32))
+    x = _probe16(cpu, 0)
+    assert torch.equal(pack(x.to(cuda)).cpu().view(torch.int16),
+                       pack(x).view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["bfloat16", "packed16"])
+def test_captured_train_step_with_16_bit_slots_equals_eager_step(cuda, fmt):
+    """The captured step with 16-bit Adam slots (packed16 codes unpacked,
+    updated and packed inside the graph) against the eager step, two
+    steps from the same weights: metrics, scale, every slot and every
+    parameter equal bit for bit."""
+    kw = dict(GRAPH_LM, recompute=True)
+    seq = torch.randint(0, 64, (2, 129), device=cuda,
+                        generator=_gen(cuda, 3))
+    adam = AdamOptimizer(learning_rate=1e-3, zero_nans=True,
+                         zero_infs=True, state_format=fmt)
+    runs = []
+    for graph in (True, False):
+        m = SparseTransformerLM(TransformerConfig(**kw), device=cuda)
+        m.load_state_dict(params_from_jax(random_jax_params(m, seed=7), m))
+        step = m.make_train_step(adam)
+        fn = step if graph else step._eager
+        state, scale, metrics = adam.init(dict(m.named_parameters())), \
+            1024.0, []
+        for _ in range(2):
+            state, mt, scale = fn(state, seq[:, :-1], seq[:, 1:], scale)
+            metrics.append(mt)
+        torch.cuda.synchronize()
+        runs.append((state, metrics, scale, m.state_dict()))
+    (s0, m0, sc0, p0), (s1, m1, sc1, p1) = runs
+    want = torch.uint16 if fmt == "packed16" else torch.bfloat16
+    assert s0["mean"]["h.0.w_qkv"].dtype == want
+    assert s0["mean"]["h.0.ln1_g"].dtype == torch.float32
+    for a, b in zip(m0, m1):
+        for k in ("loss", "grad_norm", "norm_scale"):
+            assert torch.equal(a[k], b[k]), k
+    assert torch.equal(sc0, sc1)
+    assert all(torch.equal(p0[k], p1[k]) for k in p0)
+    for slot in ("mean", "var"):      # uint16 slots compared as int16
+        assert all(torch.equal(s0[slot][k].view(torch.int16),
+                               s1[slot][k].view(torch.int16))
+                   if s1[slot][k].dtype == torch.uint16
+                   else torch.equal(s0[slot][k], s1[slot][k])
+                   for k in s1[slot])
+
+
+@pytest.mark.cuda
+def test_dropout_on_the_card_draws_before_each_checkpoint(cuda):
+    """loss with resid_pdrop 0.1 and a card generator: the same loss for
+    the same seed, the same gradients with recompute on and off, and a
+    kept share within binomial bounds."""
+    port = _graph_lm(cuda, resid_pdrop=0.1, dtype="float32")
+    seq = torch.randint(0, 64, (2, 129), device=cuda,
+                        generator=_gen(cuda, 3))
+    names, params = zip(*port.named_parameters())
+    runs = []
+    for recompute in (True, True, False):
+        port.config.recompute = recompute
+        loss = port.loss(seq[:, :-1], seq[:, 1:], dropout=_gen(cuda, 9))
+        runs.append((loss, torch.autograd.grad(loss, params)))
+    (l0, g0), (l1, _), (l2, g2) = runs
+    assert torch.equal(l0, l1) and torch.equal(l0, l2)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g2))
+    masks = port._dropout_masks(_gen(cuda, 9), 0, (2, 128, 256), cuda)
+    n = masks[0].numel()
+    for m in masks:
+        assert m.is_cuda
+        assert abs(m.float().mean().item() - 0.9) < 5 * np.sqrt(
+            0.9 * 0.1 / n)
+
+
+@pytest.mark.cuda
+def test_random_ops_without_a_generator_draw_on_the_card(cuda):
+    """The global entropy keeps a generator a device, each from the one
+    seed: dropout and stochastic quantize of a tensor on the card draw
+    there, and recompute replays those draws."""
+    x = torch.ones(64, 256, device=cuda)
+    bt.set_entropy(4)
+    y, m = bt.dropout(x, 0.6)
+    assert bt.get_entropy(cuda).device.type == "cuda" and m.is_cuda
+    assert bt.get_entropy().device.type == "cpu"
+    want = torch.rand(x.shape, device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(4)) < 0.6
+    assert torch.equal(m, want)
+    bt.set_entropy(4)
+    assert torch.equal(bt.dropout(x, 0.6)[1], m)
+    spec = bt.QuantizeSpec(ebits=4, fbits=3, emax=7, stochastic=1)
+
+    @bt.recomputable
+    def block(a):
+        return (bt.quantize(bt.dropout(a, 0.6)[0], spec) ** 2).sum()
+    grads = []
+    for recompute in (False, True):
+        bt.set_entropy(5)
+        a = (x * 0.37).requires_grad_()
+        grads.append(torch.autograd.grad(block(a, recompute=recompute), a))
+    assert torch.equal(grads[0][0], grads[1][0])
+
+
+@pytest.mark.cuda
+def test_quantize_adafactor_and_ema_on_the_card_match_the_cpu(cuda):
+    from blocksparse_tpu_torch import (AdafactorOptimizer, Ema,
+                                       QuantizeSpec, quantize)
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(4096, generator=g) * torch.pow(
+        2.0, torch.rand(4096, generator=g) * 60 - 40)
+    for spec in (QuantizeSpec(ebits=4, fbits=3), QuantizeSpec(ebits=5,
+                                                              fbits=10),
+                 QuantizeSpec(ebits=8, fbits=7, emax=127)):
+        assert torch.equal(quantize(x.to(cuda), spec).cpu(),
+                           quantize(x, spec))
+    params = {"w": torch.randn(64, 48, generator=g),
+              "b": torch.randn(48, generator=g)}
+    grads = [{k: torch.randn(v.shape, generator=g) for k, v in
+              params.items()} for _ in range(3)]
+    for opt in (AdafactorOptimizer(learning_rate=0.01),):
+        out = []
+        for dev in ("cpu", cuda):
+            p = {k: v.to(dev) for k, v in params.items()}
+            s = opt.init(p)
+            for gr in grads:
+                p, s = opt.apply({k: v.to(dev) for k, v in gr.items()}, p, s)
+            out.append(p)
+        for k in params:
+            torch.testing.assert_close(out[1][k].cpu(), out[0][k],
+                                       rtol=1e-5, atol=1e-6)
+    ema = Ema(decay=0.9)
+    e_cpu = ema.apply(params, ema.init(params))
+    e_dev = ema.apply({k: v.to(cuda) for k, v in params.items()},
+                      ema.init({k: v.to(cuda) for k, v in params.items()}))
+    for k in params:
+        torch.testing.assert_close(e_dev[k].cpu(), e_cpu[k], rtol=1e-6,
+                                   atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_profiling_on_the_card(cuda, tmp_path, capsys):
+    """Benchmark and bench_op time by CUDA events, trace records the
+    card's kernels, memory_analysis and live_buffers read the caching
+    allocator."""
+    from blocksparse_tpu_torch import profiling
+    g = _gen(cuda, 11)
+    x = torch.randn(1024, 1024, device=cuda, generator=g)
+    w = torch.randn(1024, 1024, device=cuda, generator=g) / 32
+    with profiling.Benchmark("mm", flops=2 * 1024 ** 3, repeat=4) as b:
+        for _ in range(4):
+            x @ w
+    assert b.ms > 0 and "GFLOPS (mm)" in capsys.readouterr().out
+    s = profiling.bench_op(lambda a, m: torch.tanh(a @ m), x, w, iters=8)
+    assert 0 < s < 1.0
+    with profiling.trace(str(tmp_path / "tr")) as logdir:
+        torch.tanh(x @ w)
+    text = open(tmp_path / "tr" / "trace.json").read()
+    assert logdir == str(tmp_path / "tr") and '"cat": "kernel"' in text
+    mem = profiling.memory_analysis(lambda a: (a @ w).relu(), x)
+    assert mem["argument_size"] == 4 * 1024 * 1024
+    assert mem["output_size"] == 4 * 1024 * 1024
+    assert mem["peak_estimate"] >= mem["argument_size"] + mem["output_size"]
+    live = profiling.live_buffers()
+    assert live["total_bytes"] >= 8 * 1024 * 1024
+    assert any(s == (1024, 1024) for s, _, _ in
+               live["per_device"][str(x.device)])

@@ -169,7 +169,14 @@ def test_cpu_path_launches_no_kernel_and_rejects_unported_options():
     port(torch.zeros((1, 64), dtype=torch.long))
     assert (bsmm_kernels.bsmm_fprop.launches,
             bst_attn.attention_fwd.launches) == before
-    for kw in (dict(tp=2), dict(moe_experts=2), dict(resid_pdrop=0.1)):
+    for kw in (dict(tp=2), dict(moe_experts=2)):
         with pytest.raises(NotImplementedError):
             SparseTransformerLM(TransformerConfig(**dict(TINY, **kw)),
                                 device="cpu")
+    # residual dropout is ported: it builds, and drops nothing unasked
+    drop = SparseTransformerLM(TransformerConfig(**dict(TINY,
+                                                        resid_pdrop=0.1)),
+                               device="cpu")
+    drop.load_state_dict(port.state_dict())
+    tokens = torch.zeros((1, 64), dtype=torch.long)
+    assert torch.equal(drop(tokens), port(tokens))

@@ -4,8 +4,8 @@ gradient.
 Each callable below takes the JAX one's parameters, by name, in order,
 with the same defaults, so a call written for the JAX package binds the
 same way.  Knobs that do nothing on the card are accepted and ignored;
-values the port has not ported (a gate, the unfused attention backward,
-a mesh) raise ``NotImplementedError``; ``flash_bwd=False`` runs and
+values the port has not ported (a matmul gate, a mesh) raise
+``NotImplementedError``; ``flash_bwd=False`` runs and
 matches the JAX package's.
 
 The embedding gradient sums each id's rows in a fixed order (stable sort,
@@ -111,8 +111,10 @@ def test_unported_values_raise():
                                np.asarray(vjp(jnp.ones_like(y))[0]),
                                rtol=0, atol=1e-5)
     p = torch.ones(3)
-    with pytest.raises(NotImplementedError):
-        port_opt.adam_apply(p, p, p, p, 1e-3, gate=torch.ones(()))
+    # gated Adam is ported: a zero gate leaves its block untouched
+    p2, _, _ = port_opt.adam_apply(p, p, p, p, 1e-3,
+                                   gate=torch.tensor([1.0, 0.0, 1.0]))
+    assert p2[1] == 1.0 and p2[0] != 1.0
     cfg = bt.TransformerConfig(n_vocab=16, n_embd=32, n_layer=1, n_head=2,
                                ctx=32, blk_size=16, mlp_block_size=16)
     model = bt.SparseTransformerLM(cfg, device="cpu")

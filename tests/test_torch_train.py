@@ -139,10 +139,14 @@ def test_adam_matches_jax(kw, norm_scale):
 
 
 def test_unported_optimizer_options_raise():
-    for kw in (dict(fp16=True), dict(state_format="packed16"),
-               dict(gated=True)):
-        with pytest.raises(NotImplementedError):
-            AdamOptimizer(**kw)
+    """Every AdamOptimizer option is ported now: 16-bit and gated
+    optimizers build, and only an unknown state format raises."""
+    for kw, fmt in ((dict(fp16=True), "bfloat16"),
+                    (dict(state_format="packed16"), "packed16"),
+                    (dict(gated=True), "float32")):
+        assert AdamOptimizer(**kw).state_format == fmt
+    with pytest.raises(ValueError):
+        AdamOptimizer(state_format="float16")
 
 
 def _jax_setup(recompute):
