@@ -7,7 +7,10 @@ attention (serving and training forward, dq, dk/dv) and the unfused
 block-sparse attention products (nt, nn/tn), which the LM runs past a
 head size of 128.  It also runs the
 block-sparse conv ``BlocksparseConv(impl="bsmm")``, forward and backward,
-through im2col, col2im and the same matmul kernels.  On the card the
+through im2col, col2im and the same matmul kernels, and the sparse LSTM
+``SparseLSTM`` (f32, feature-major) through the matmul kernels, with its
+training entry point (``python -m
+blocksparse_tpu_torch.examples.lstm_train``).  On the card the
 LM's decode step (``generate_cached_scan``) and train step each run as
 one CUDA graph, replayed a token or a step.  Each kernel has a
 plain PyTorch version beside it, which is what runs on the CPU.
@@ -31,11 +34,12 @@ from blocksparse_tpu_torch.ops import __all__ as _ops_all
 from blocksparse_tpu_torch.ops.quantize import quantize
 from blocksparse_tpu_torch.models import (
     SparseTransformerLM, TransformerConfig, generate, generate_cached,
-    generate_cached_scan,
+    generate_cached_scan, SparseLSTM, LSTMConfig,
 )
 from blocksparse_tpu_torch.convert import (
     params_from_jax, params_to_jax, opt_state_from_jax, opt_state_to_jax,
     random_jax_params, conv_filter_from_jax, random_jax_conv_filter,
+    lstm_params_from_jax, lstm_params_to_jax, random_jax_lstm_params,
 )
 from blocksparse_tpu_torch import checkpoint, profiling, sparsity
 
@@ -44,7 +48,10 @@ __all__ = ["reset_scalar_constants", "get_entropy", "set_entropy",
            "z_order_2d", "z_order_3d", "magic32u", "magic64u",
            "bst_conv_layout", "bst_deconv_layout", *_ops_all, "quantize",
            "SparseTransformerLM", "TransformerConfig", "generate",
-           "generate_cached", "generate_cached_scan", "params_from_jax",
+           "generate_cached", "generate_cached_scan", "SparseLSTM",
+           "LSTMConfig", "params_from_jax",
            "params_to_jax", "opt_state_from_jax", "opt_state_to_jax",
            "random_jax_params", "conv_filter_from_jax",
-           "random_jax_conv_filter", "checkpoint", "profiling", "sparsity"]
+           "random_jax_conv_filter", "lstm_params_from_jax",
+           "lstm_params_to_jax", "random_jax_lstm_params", "checkpoint",
+           "profiling", "sparsity"]

@@ -17,6 +17,12 @@ for runs that need no checkpoint.
 For the block-sparse conv, ``conv_filter_from_jax`` moves a JAX
 ``BlocksparseConv`` filter onto a device and ``random_jax_conv_filter``
 draws one from a seed.
+
+For the sparse LSTM (JAX tree ``wte``, ``w_in``, ``w_out``, ``b_out`` and
+a list ``layers`` of ``w_h``, ``b_h``, ``g_h``; ``w_h`` in canonical
+blocks, unchanged), ``lstm_params_from_jax`` gives the port's state dict,
+``lstm_params_to_jax`` the JAX tree, and ``random_jax_lstm_params`` a tree
+drawn from a seed with the JAX ``init``'s shapes and scales.
 """
 from __future__ import annotations
 
@@ -232,3 +238,57 @@ def random_jax_conv_filter(conv, seed=0):
     from ``seed`` (the range of the repo's conv benchmark)."""
     rng = np.random.RandomState(seed)
     return rng.uniform(-0.1, 0.1, conv.f_shape()).astype(np.float32)
+
+
+def lstm_params_from_jax(np_params, model=None):
+    """A JAX ``SparseLSTM`` param tree (NumPy arrays) -> the port's state
+    dict (f32), checked against ``model``'s shapes where given."""
+    sd = {k: torch.tensor(np.asarray(np_params[k]), dtype=torch.float32)
+          for k in ("wte", "w_in", "w_out", "b_out")}
+    for l, layer in enumerate(np_params["layers"]):
+        for k, a in layer.items():
+            sd[f"layers.{l}.{k}"] = torch.tensor(np.asarray(a),
+                                                 dtype=torch.float32)
+    if model is not None:
+        _check_shapes(sd, model)
+    return sd
+
+
+def lstm_params_to_jax(model):
+    """The port's ``SparseLSTM`` parameters as the JAX param tree of NumPy
+    f32 arrays."""
+    out = {"layers": [{} for _ in model.layers]}
+    for name, p in model.state_dict().items():
+        a = p.detach().float().cpu().numpy()
+        if name.startswith("layers."):
+            _, l, k = name.split(".")
+            out["layers"][int(l)][k] = a
+        else:
+            out[name] = a
+    return out
+
+
+def random_jax_lstm_params(model, seed=0):
+    """A JAX-layout ``SparseLSTM`` param tree of NumPy f32 arrays for
+    ``model``'s config, drawn from ``seed`` with the JAX ``init``'s shapes
+    and scales: ``wte``, ``w_in``, ``w_out`` normal with std 0.05,
+    ``b_out`` and ``b_h`` 0, ``g_h`` 1, each ``w_h`` orthogonal blocks
+    (``ortho_init``'s construction, drawn from this seed rather than the
+    global ``np.random``)."""
+    c = model.config
+    rng = np.random.RandomState(seed)
+
+    def normal(shape):
+        return (rng.standard_normal(shape) * 0.05).astype(np.float32)
+
+    params = {"wte": normal((c.n_vocab, c.nembd)),
+              "w_in": normal((c.nembd, model.proj_in.nproj)),
+              "w_out": normal((model.proj_out.nproj, c.n_vocab)),
+              "b_out": np.zeros(c.n_vocab, np.float32), "layers": []}
+    for bsmm in model.bsmm_layers:
+        layer = {"w_h": bsmm._ortho_blocks(rng.normal),
+                 "b_h": np.zeros(4 * c.nhidden, np.float32)}
+        if c.layernorm:
+            layer["g_h"] = np.ones(4 * c.nhidden, np.float32)
+        params["layers"].append(layer)
+    return params

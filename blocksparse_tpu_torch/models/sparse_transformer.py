@@ -40,6 +40,7 @@ from blocksparse_tpu_torch.ops.norms import layer_norm
 from blocksparse_tpu_torch.ops.transformer import (BlocksparseTransformer,
                                                    position_tensor,
                                                    softmax_cross_entropy)
+from blocksparse_tpu_torch.utils import default_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -224,14 +225,7 @@ class SparseTransformerLM(nn.Module):
             _Layer(c, self.hidden, w_fc_shape, w_proj_shape)
             for _ in range(c.n_layer))
         self._decode_graphs = {}      # generate_cached_scan's, by key
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "SparseTransformerLM runs on the CUDA card by default and "
-                    "this host has none: pass device=\"cpu\" to run it on "
-                    "the CPU")
-            device = torch.device("cuda")
-        self.to(device)
+        self.to(default_device(device, "SparseTransformerLM"))
 
     @property
     def nd(self):
@@ -541,9 +535,7 @@ class _TrainStep:
         del snapshot
         _copy_tree(g["state"], opt_state)
         t1 = time.perf_counter()
-        g["graph"] = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g["graph"], stream=side):
-            self._body(g)
+        g["graph"] = capture_graph(side, lambda: self._body(g))
         self.captures.append((t1 - t0, time.perf_counter() - t1))
         return g
 
@@ -558,6 +550,29 @@ def _warm_up(device, fn):
         fn()
     torch.cuda.current_stream(device).wait_stream(side)
     return side
+
+
+def capture_graph(stream, body):
+    """A new CUDA graph of body() captured on ``stream``.
+
+    A capture that raises (a host sync in the body, say) propagates its
+    error, but first leaves the process as it found it.  torch's
+    ``capture_end`` raises on an invalidated capture before it runs the
+    registered generators' capture epilogue, so the default CUDA
+    generator stays marked as capturing and every later draw outside a
+    capture (``torch.randn`` on the card) raises "Offset increment outside
+    graph capture encountered unexpectedly".  A one-op capture on the
+    same stream runs the prologue and epilogue once more and clears the
+    mark; the generator's seed and offset are left as they were."""
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, stream=stream):
+            body()
+    except BaseException:
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=stream):
+            torch.zeros((), device=stream.device)
+        raise
+    return graph
 
 
 def _clone_tree(tree):
@@ -662,9 +677,7 @@ class _DecodeGraph:
         side = _warm_up(dev, step)
         torch.cuda.synchronize(dev)
         t1 = time.perf_counter()
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, stream=side):
-            step()
+        self.graph = capture_graph(side, step)
         self.warmup_s, self.capture_s = t1 - t0, time.perf_counter() - t1
 
     def run(self, s, steps):

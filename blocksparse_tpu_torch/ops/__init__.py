@@ -1,4 +1,10 @@
-from blocksparse_tpu_torch.ops.matmul import BlocksparseMatMul
+from blocksparse_tpu_torch.ops.matmul import (
+    BlocksparseMatMul, SparseProj, block_reduced_full_dw, group_param_grads,
+    group_dg_grads, get_bsmm_dx_ops, largest_block, coarsen_layout,
+    dw_matmul_large_n)
+from blocksparse_tpu_torch.ops.lstm import (
+    fused_lstm_gates, split4, concat4, sparse_relu, FusedBasicLSTMCell,
+    grouped_lstm, grouped_lstm_init, group_lstm_grads)
 from blocksparse_tpu_torch.ops.conv import BlocksparseConv
 from blocksparse_tpu_torch.ops.transformer import (
     BlocksparseTransformer, softmax, masked_softmax, masked_top_k_softmax,
@@ -27,7 +33,12 @@ from blocksparse_tpu_torch.ops.quantize import (
     QuantizeSpec, QuantizeTracker, quantize_emax_estimate, log_stats)
 
 __all__ = [
-    "BlocksparseMatMul", "BlocksparseConv", "BlocksparseTransformer",
+    "BlocksparseMatMul", "SparseProj", "block_reduced_full_dw",
+    "group_param_grads", "group_dg_grads", "get_bsmm_dx_ops",
+    "largest_block", "coarsen_layout", "dw_matmul_large_n",
+    "fused_lstm_gates", "split4", "concat4", "sparse_relu",
+    "FusedBasicLSTMCell", "grouped_lstm", "grouped_lstm_init",
+    "group_lstm_grads", "BlocksparseConv", "BlocksparseTransformer",
     "softmax", "masked_softmax", "masked_top_k_softmax",
     "softmax_cross_entropy", "transpose_2d", "transpose_0213", "top_k",
     "rectified_top_k", "clear_bst_constants", "layer_norm", "batch_norm",

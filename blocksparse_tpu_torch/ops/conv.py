@@ -23,9 +23,9 @@ Two lowerings, chosen by ``impl`` as in the JAX package:
   channels (overlapping K sets add up).  The JAX package leaves this
   lowering to XLA's convolutions; here it is torch's.
 
-Not ported yet (ROADMAP §1 item 13): ragged blocks, ``impl="matmul"``,
-``BlocksparseDeconv``, ``l2_normalize``, ``ConvEdgeBias``,
-``cwise_linear`` and the batch norms.
+Not ported yet (ROADMAP §1, "The rest of the conv"): ragged blocks,
+``impl="matmul"``, ``BlocksparseDeconv``, ``l2_normalize``,
+``ConvEdgeBias``, ``cwise_linear`` and the batch norms.
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ from blocksparse_tpu_torch.kernels.im2col import (im2col_image,
 from blocksparse_tpu_torch.ops.matmul import BlocksparseMatMul
 from blocksparse_tpu_torch.utils import ceil_div, reduce_mul
 
-_NOT_PORTED = "is not ported yet (ROADMAP §1 item 13)"
+_NOT_PORTED = "is not ported yet (ROADMAP §1, \"The rest of the conv\")"
 
 
 # ---------------- helpers (parity: reference conv.py:1001-1094) --------

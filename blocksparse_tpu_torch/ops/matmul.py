@@ -10,6 +10,18 @@ On a CUDA tensor each direction runs a hand-written kernel
 (``kernels/bsmm.py``), chosen by ``mode`` as the JAX op chooses among its
 TPU schedules; on a CPU tensor, or with ``impl="xla"``, it runs the plain
 PyTorch version.
+
+The gates (``gate``, ``gate_grad``, ``dw_gated``) scale W by a per-block
+gate before the same kernels (a NumPy gate with ``dw_gated`` and no
+``gate_grad`` instead builds an op over the surviving blocks, so the
+kernels launch only those); the gate's scaling and its gradient's
+per-block sums are plain PyTorch, as the JAX package leaves them to XLA.
+Beside the op: its initializers (``ortho_init``, ``identity_init``,
+``checker_init``), ``prune``, ``l2_normalize`` (plain PyTorch, autograd's
+gradient) with its NumPy goldens, ``SparseProj`` (the dense <-> sparse
+feature projections of the sparse LSTM) and the free functions
+``largest_block``, ``coarsen_layout``, ``block_reduced_full_dw``,
+``dw_matmul_large_n`` and the group no-ops.
 """
 from __future__ import annotations
 
@@ -20,9 +32,17 @@ import torch
 
 from blocksparse_tpu_torch.kernels import bsmm as bsmm_kernels
 from blocksparse_tpu_torch.kernels.bsmm import device_sm_count
-from blocksparse_tpu_torch.utils import z_order_2d
+from blocksparse_tpu_torch.utils import ceil_div, z_order_2d
 
 _MODES = ("auto", "grouped", "dense_tile", "window", "resident", "fine")
+
+
+def largest_block(dim):
+    """(block, dim // block) for the largest of 32, 16, 8 dividing dim."""
+    for blk in (32, 16, 8):
+        if dim % blk == 0:
+            return (blk, dim // blk)
+    raise ValueError("dimension not multiple of 8, 16, or 32")
 
 
 class BlocksparseMatMul:
@@ -59,7 +79,20 @@ class BlocksparseMatMul:
     tile_n, dense_tile_G, dense_tile_R: TPU schedule knobs, accepted for
         the same call signature; they change nothing.
     w_layout: only "blocks" (canonical (blocks, b, b) weights).
+
+    Pickling keeps the constructor's arguments only, as the JAX op's:
+    the LUTs, plans and device tensors are built again on unpickling.
     """
+
+    def __getstate__(self):
+        return {"layout": self.layout, "block_size": self.bsize,
+                "feature_axis": self.axis, "z_order": self.z_order,
+                "name": self.name, "impl": self.impl,
+                "w_layout": self.w_layout, "mode": self.mode,
+                "dense_tile_R": self.dense_tile_R}
+
+    def __setstate__(self, state):
+        self.__init__(**state)
 
     def __init__(self, layout, block_size=32, feature_axis=0, z_order=True,
                  name=None, impl=None, tile_n=None, w_layout="blocks",
@@ -81,6 +114,9 @@ class BlocksparseMatMul:
         self.z_order = z_order
         self.impl = impl
         self.mode = mode
+        self.tile_n = tile_n
+        self.w_layout = w_layout
+        self.dense_tile_R = dense_tile_R
 
         layout = np.asarray(layout)
         if layout.ndim != 2:
@@ -131,10 +167,15 @@ class BlocksparseMatMul:
         self._plan_luts = {}      # (device, kind, d, phases) -> tensors
         self._split_runs = {}     # (N, d, SMs) -> phases of the split rule
         self._updat_runs = {}     # (N, SMs) -> runs of the updat's N split
+        self._static_gates = {}   # a NumPy gate's bytes -> _StaticGate
+
+        self._block_kb = self.updat_lut[:, 1].copy()   # for l2_normalize
 
         self.name = name or "BlocksparseMatMul"
         self.blocks = blocks
+        self.flops = blocks * block_size * block_size * 2
         self.w_shape = (blocks, block_size, block_size)
+        self.g_shape = (blocks,)
         self.CB, self.KB = CB, KB
         self.C = CB * block_size
         self.K = KB * block_size
@@ -149,7 +190,47 @@ class BlocksparseMatMul:
     def o_shape(self, N):
         return (N, self.K) if self.axis else (self.K, N)
 
-    # ---------------- initializers / golden ----------------
+    def block_coord(self, block):
+        return self.updat_list[block]
+
+    # ---------------- initializers ----------------
+
+    def _ortho_blocks(self, normal, dtype=np.float32):
+        """Orthogonal blocks: each output block-column's stacked blocks
+        (its LUT's, top to bottom) are the left singular vectors of a
+        matrix drawn by ``normal(mean, std, shape)``; with every block
+        present, the whole (C, K) matrix's."""
+        W = np.empty(self.w_shape, dtype=dtype)
+        bsize = self.bsize
+        if self.sparsity < 1.0:
+            for k, lut in self.fprop_list:
+                if not lut:
+                    continue
+                shp = (len(lut) * bsize, bsize)
+                a = normal(0.0, 1.0, shp).astype(dtype)
+                u, _, v = np.linalg.svd(a, full_matrices=False)
+                if u.shape != shp:
+                    u = v
+                for i, (c, w) in enumerate(lut):
+                    W[w, :, :] = u[i * bsize:(i + 1) * bsize, :]
+        else:
+            shp = (self.C, self.K)
+            a = normal(0.0, 1.0, shp).astype(dtype)
+            u, _, v = np.linalg.svd(a, full_matrices=False)
+            if u.shape != shp:
+                u = v
+            for w, (c, k) in enumerate(self.updat_list):
+                W[w, :, :] = u[c * bsize:(c + 1) * bsize,
+                               k * bsize:(k + 1) * bsize]
+        return W
+
+    def ortho_init(self):
+        """Initializer of orthogonal blocks drawn from the global
+        ``np.random``, as the JAX op's: after the same ``np.random.seed``
+        both give the same W bit for bit."""
+        def _initializer(shape=None, dtype=np.float32, key=None):
+            return self._ortho_blocks(np.random.normal, dtype)
+        return _initializer
 
     def identity_init(self, scale=1.0):
         def _initializer(shape=None, dtype=np.float32, key=None):
@@ -161,57 +242,152 @@ class BlocksparseMatMul:
             return W
         return _initializer
 
-    def fprop_test(self, I, W):
-        """NumPy golden of the forward (the JAX package's, ungated)."""
+    def checker_init(self):
+        """Initializer of a checkerboard gate: 1 where block row and
+        column have the same parity."""
+        def _initializer(shape=None, dtype=np.float32, key=None):
+            gate = np.empty(self.blocks, dtype=dtype)
+            for w, (c, k) in enumerate(self.updat_list):
+                gate[w] = (c & 1) ^ (k & 1) ^ 1
+            return gate
+        return _initializer
+
+    def prune(self, param, gate):
+        """Drop the blocks whose gate is zero; returns (new_param,
+        new_gate of ones).  Clears those blocks in ``self.layout`` in
+        place, as the JAX op does; the caller builds a new op from it."""
+        param = np.asarray(param)
+        gate = np.asarray(gate)
+        new_blocks = int(np.sum(gate != 0.0))
+        if new_blocks != self.blocks:
+            new_param = np.empty((new_blocks, self.bsize, self.bsize),
+                                 dtype=param.dtype)
+            new_w = 0
+            layout = self.layout
+            for w, (c, k) in enumerate(self.updat_list):
+                if gate[w] == 0.0:
+                    layout[c, k] = False
+                else:
+                    new_param[new_w] = param[w]
+                    new_w += 1
+        else:
+            new_param = param
+        return new_param, np.ones((new_blocks,), dtype=gate.dtype)
+
+    # ---------------- NumPy goldens (the JAX package's) ----------------
+
+    def fprop_test(self, I, W, gate=None):
         bsize = self.bsize
         if self.axis:
             O = np.zeros((I.shape[0], self.KB, bsize))
             I = I.reshape((-1, self.CB, bsize))
             for k, lut in self.fprop_list:
                 for c, w in lut:
-                    O[:, k, :] += np.dot(I[:, c, :], W[w])
+                    g = 1.0 if gate is None else gate[w]
+                    if g != 0.0:
+                        O[:, k, :] += np.dot(I[:, c, :], W[w]) * g
             return O.reshape(I.shape[0], -1)
         N = I[0].size
         O = np.zeros((self.KB, bsize, N))
         I = I.reshape((self.CB, bsize, N))
         for k, lut in self.fprop_list:
             for c, w in lut:
-                O[k, :, :] += np.dot(W[w].T, I[c, :, :])
+                g = 1.0 if gate is None else gate[w]
+                if g != 0.0:
+                    O[k, :, :] += np.dot(W[w].T, I[c, :, :]) * g
         return O.reshape(-1, N)
 
-    def bprop_test(self, E, W):
-        """NumPy golden of dx = E · Wᵀ (the JAX package's, ungated)."""
+    def bprop_test(self, E, W, gate=None):
         bsize = self.bsize
         if self.axis:
             B = np.zeros((E.shape[0], self.CB, bsize))
             E = E.reshape((-1, self.KB, bsize))
             for c, lut in self.bprop_list:
                 for k, w in lut:
-                    B[:, c, :] += np.dot(E[:, k, :], W[w].T)
+                    g = 1.0 if gate is None else gate[w]
+                    if g != 0.0:
+                        B[:, c, :] += np.dot(E[:, k, :], W[w].T) * g
             return B.reshape(E.shape[0], -1)
         N = E[0].size
         B = np.zeros((self.CB, bsize, N))
         E = E.reshape((self.KB, bsize, N))
         for c, lut in self.bprop_list:
             for k, w in lut:
-                B[c, :, :] += np.dot(W[w], E[k, :, :])
+                g = 1.0 if gate is None else gate[w]
+                if g != 0.0:
+                    B[c, :, :] += np.dot(W[w], E[k, :, :]) * g
         return B.reshape(-1, N)
 
-    def updat_test(self, I, E):
-        """NumPy golden of dw, canonical (blocks, b, b) (ungated)."""
+    def updat_test(self, I, E, gate=None, dw_gated=False):
+        """dw, canonical (blocks, b, b); times the gate with
+        ``dw_gated``."""
         U = np.zeros((self.blocks, self.bsize, self.bsize))
         bsize = self.bsize
         if self.axis:
             I = I.reshape((-1, self.CB, bsize))
             E = E.reshape((-1, self.KB, bsize))
             for w, (c, k) in enumerate(self.updat_list):
-                U[w] = np.dot(I[:, c, :].T, E[:, k, :])
+                g = gate[w] if (dw_gated and gate is not None) else 1.0
+                if g != 0.0:
+                    U[w] = np.dot(I[:, c, :].T, E[:, k, :]) * g
         else:
             I = I.reshape((self.CB, bsize, -1))
             E = E.reshape((self.KB, bsize, -1))
             for w, (c, k) in enumerate(self.updat_list):
-                U[w] = np.dot(I[c], E[k].T)
+                g = gate[w] if (dw_gated and gate is not None) else 1.0
+                if g != 0.0:
+                    U[w] = np.dot(I[c], E[k].T) * g
         return U
+
+    def l2_normalize_test(self, W, epsilon=1e-12):
+        W = np.array(W, copy=True)
+        for k, lut in self.fprop_list:
+            ws = [w for c, w in lut]
+            if not ws:
+                continue
+            W2 = W[ws].reshape(-1, self.bsize)
+            norm = np.sqrt(np.maximum(
+                np.sum(np.square(W2), axis=0, keepdims=True), epsilon))
+            for w in ws:
+                W[w] /= norm
+        return W
+
+    def l2_normalize_grad_test(self, W, U, epsilon=1e-12):
+        U = np.array(U, copy=True)
+        for k, lut in self.fprop_list:
+            ws = [w for c, w in lut]
+            if not ws:
+                continue
+            W2 = W[ws].reshape(-1, self.bsize)
+            U2 = U[ws].reshape(-1, self.bsize)
+            sum_sqr_w = np.sum(np.square(W2), axis=0, keepdims=True)
+            max_w = np.maximum(sum_sqr_w, epsilon)
+            norm_grad = (U2 + W2 * (sum_sqr_w >= epsilon)
+                         * np.sum(-U2 * W2 / max_w, axis=0, keepdims=True)
+                         ) / np.sqrt(max_w)
+            norm_grad = norm_grad.reshape(-1, self.bsize, self.bsize)
+            for i, w in enumerate(ws):
+                U[w] = norm_grad[i]
+        return U
+
+    def l2_normalize(self, W, gain=None, epsilon=1e-12, dtype=None):
+        """Joint L2 normalization of each layout block-column: every
+        output column of W divided by its norm over the column's blocks
+        (at least sqrt(epsilon)), times ``gain`` (K,) where given; in f32,
+        cast to ``dtype`` (default W's).  Plain PyTorch; autograd's
+        gradient is ``l2_normalize_grad_test``'s."""
+        kb = torch.as_tensor(self._block_kb, dtype=torch.int64,
+                             device=W.device)
+        w32 = W.to(torch.float32)
+        sq = w32.square().sum(dim=1)                       # (blocks, b)
+        ssq = torch.zeros((self.KB, self.bsize), dtype=torch.float32,
+                          device=W.device).index_add(0, kb, sq)
+        norm = torch.sqrt(torch.clamp(ssq, min=epsilon))
+        wn = w32 / norm[kb][:, None, :]
+        if gain is not None:
+            g = gain.reshape(self.KB, self.bsize).to(torch.float32)
+            wn = wn * g[kb][:, None, :]
+        return wn.to(dtype or W.dtype)
 
     # ---------------- device op ----------------
 
@@ -408,17 +584,25 @@ class BlocksparseMatMul:
             xn, dyn, lut["u_c32"], lut["u_k32"], self.bsize,
             self._plan_tensors(x.device, "updat", "u"), splits)
 
+    def matmul(self, I, W, **kwargs):
+        return self.__call__(I, W, **kwargs)
+
     def __call__(self, I, W, gate=None, gate_grad=False, dw_gated=False,
                  name=None, bench=0):
         """y = I · W over the layout; I is (..., C) for feature_axis=1,
-        (C, ...) for feature_axis=0.  Differentiable in I and W.  The JAX
-        op's gates (``gate``, ``gate_grad``, ``dw_gated``) are not ported
-        and raise; ``name`` and ``bench`` are accepted and change
-        nothing."""
-        if gate is not None or gate_grad or dw_gated:
-            raise NotImplementedError("gated block-sparse matmul (gate, "
-                                      "gate_grad, dw_gated) is not ported "
-                                      "yet")
+        (C, ...) for feature_axis=0.  Differentiable in I and W (and in a
+        tensor ``gate``).  ``name`` and ``bench`` are accepted and change
+        nothing.
+
+        gate: None, or a per-block gate (blocks,) that scales each block
+        of W (in f32, cast back to W's dtype) before the usual kernels.
+        ``dw_gated``: dw is the raw updat times the gate (else the raw
+        updat); ``gate_grad``: the gate's gradient is each block's sum of
+        dw_raw · W (else zero).  A NumPy gate with ``dw_gated`` and no
+        ``gate_grad`` is static: the product runs on an op over the
+        blocks whose gate is nonzero, built once for the gate's bytes, so
+        the kernels launch only those (all zero: y and the gradients are
+        zeros)."""
         if tuple(W.shape) != self.w_shape:
             raise ValueError(f"W must be {self.w_shape}, got "
                              f"{tuple(W.shape)}")
@@ -431,11 +615,37 @@ class BlocksparseMatMul:
             if shape[-1] != self.C:
                 raise ValueError(f"I must be (..., {self.C}), got {shape}")
             x, out_shape = I.reshape(-1, self.C), tuple(shape[:-1]) + (self.K,)
-        if torch.is_grad_enabled() and (I.requires_grad or W.requires_grad):
-            y = _BsmmFunction.apply(x, W, self)
+        grad = torch.is_grad_enabled() and (I.requires_grad
+                                            or W.requires_grad)
+        if gate is None:
+            y = _BsmmFunction.apply(x, W, self) if grad \
+                else self._xprop(x, W, "f")
+        elif isinstance(gate, np.ndarray) and dw_gated and not gate_grad:
+            static = self._static_gate(gate)
+            y = _StaticGatedFunction.apply(x, W, static) if grad \
+                else static.fprop(x, W)
         else:
-            y = self._xprop(x, W, "f")
+            if not isinstance(gate, torch.Tensor):
+                gate = torch.as_tensor(np.asarray(gate), device=x.device)
+            if grad or (torch.is_grad_enabled() and gate.requires_grad):
+                y = _GatedFunction.apply(x, W, gate, self, bool(dw_gated),
+                                         bool(gate_grad))
+            else:
+                y = self._xprop(x, _gated(W, gate), "f")
         return y.reshape(out_shape)
+
+    def _static_gate(self, gate):
+        """The ``_StaticGate`` of a NumPy gate, built once for its bytes."""
+        key = np.asarray(gate).tobytes()
+        if key not in self._static_gates:
+            self._static_gates[key] = _StaticGate(self, gate)
+        return self._static_gates[key]
+
+
+def _gated(w, gate):
+    """W with each block times its gate, in f32, cast back to W's dtype."""
+    return (w.to(torch.float32)
+            * gate.to(torch.float32)[:, None, None]).to(w.dtype)
 
 
 class _BsmmFunction(torch.autograd.Function):
@@ -459,3 +669,285 @@ class _BsmmFunction(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             dw = op._updat(x, dy).to(w.dtype)
         return dx, dw, None
+
+
+class _GatedFunction(torch.autograd.Function):
+    """The JAX ``_bsmm_gated(dw_gated, gate_grad)`` custom_vjp (the pair
+    passed in, where JAX caches one function a pair): fprop and bprop on
+    the gated W, updat on x and dy; dw = dw_raw · gate with ``dw_gated``,
+    dg = Σ_block dw_raw · W with ``gate_grad`` (else zeros)."""
+
+    @staticmethod
+    def forward(ctx, x, w, gate, op, dw_gated, gate_grad):
+        ctx.save_for_backward(x, w, gate)
+        ctx.op, ctx.flags = op, (dw_gated, gate_grad)
+        return op._xprop(x, _gated(w, gate), "f")
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, gate = ctx.saved_tensors
+        op, (dw_gated, gate_grad) = ctx.op, ctx.flags
+        need_x, need_w, need_g = ctx.needs_input_grad[:3]
+        dx = dw = dg = None
+        if need_x:
+            dx = op._xprop(dy, _gated(w, gate), "b").to(x.dtype)
+        if need_w or (need_g and gate_grad):
+            dw_raw = op._updat(x, dy)
+            if need_w:
+                dw = (dw_raw * gate.to(torch.float32)[:, None, None]
+                      if dw_gated else dw_raw).to(w.dtype)
+        if need_g:
+            dg = (dw_raw * w.to(torch.float32)).sum(dim=(1, 2)) \
+                .to(gate.dtype) if gate_grad else torch.zeros_like(gate)
+        return dx, dw, dg, None, None, None
+
+
+class _StaticGate:
+    """A static gate's product: ``sub``, the op over the blocks whose gate
+    is nonzero (None when none is), their ids in the gated op (``ids``)
+    and their gate values (``gv``, f32), the last two uploaded once a
+    device.  The kernels launch only the surviving blocks."""
+
+    def __init__(self, op, gate):
+        gate = np.asarray(gate)
+        keep = np.flatnonzero(gate != 0)
+        self.op, self.sub, self._tensors = op, None, {}
+        if keep.size == 0:
+            return
+        layout = np.zeros(op.layout.shape, np.int32)
+        for i in keep:
+            layout[op.updat_list[i]] = 1
+        self.sub = BlocksparseMatMul(layout, op.bsize, op.axis,
+                                     z_order=op.z_order, impl=op.impl,
+                                     mode=op.mode)
+        orig = {coord: w for w, coord in enumerate(op.updat_list)}
+        self.ids = np.array([orig[c] for c in self.sub.updat_list], np.int64)
+        self.gv = np.asarray(gate, np.float32)[self.ids]
+
+    def _on(self, device):
+        if device not in self._tensors:
+            self._tensors[device] = (
+                torch.as_tensor(self.ids, device=device),
+                torch.as_tensor(self.gv, device=device))
+        return self._tensors[device]
+
+    def weights(self, w):
+        """The surviving blocks of W, each times its gate."""
+        ids, gv = self._on(w.device)
+        return _gated(w.index_select(0, ids), gv)
+
+    def fprop(self, x, w):
+        if self.sub is None:
+            op = self.op
+            shape = (x.shape[0], op.K) if op.axis else (op.K, x.shape[1])
+            return x.new_zeros(shape)
+        return self.sub._xprop(x, self.weights(w), "f")
+
+
+class _StaticGatedFunction(torch.autograd.Function):
+    """The JAX ``_static_gated`` custom_vjp: fprop, bprop and updat on the
+    op of the surviving blocks; dw = updat · gate scattered back into the
+    gated op's blocks, zeros elsewhere."""
+
+    @staticmethod
+    def forward(ctx, x, w, static):
+        ctx.save_for_backward(x, w)
+        ctx.static = static
+        return static.fprop(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        static = ctx.static
+        sub = static.sub
+        if sub is None:
+            return torch.zeros_like(x), torch.zeros_like(w), None
+        dx = sub._xprop(dy, static.weights(w), "b").to(x.dtype)
+        ids, gv = static._on(w.device)
+        dws = sub._updat(x, dy) * gv[:, None, None]
+        dw = torch.zeros(w.shape, dtype=dws.dtype, device=w.device) \
+            .index_copy(0, ids, dws)
+        return dx, dw.to(w.dtype), None
+
+
+# ------------------------------------------------------------------
+# The JAX package's graph-rewrite shims: autograd sums the gradients of a
+# weight (or gate) shared across applications, as JAX's AD does.
+# ------------------------------------------------------------------
+
+def group_param_grads(param_grad, group_size=8):
+    """Returns its input: autograd already sums a shared weight's
+    gradients over its applications (the reference rewrote the graph to
+    chain its dw ops)."""
+    return param_grad
+
+
+def group_dg_grads(gate_grad, group_size=8):
+    """Returns its input (``group_param_grads`` for a shared gate)."""
+    return gate_grad
+
+
+def get_bsmm_dx_ops(param_grad):
+    raise NotImplementedError(
+        "graph introspection has no PyTorch equivalent; use "
+        "torch.autograd.grad directly")
+
+
+def block_reduced_full_dw(xs, gs, bsize=32, axis=0, norm="max", scale=1.0):
+    """Block-norm-reduced *full* dw, for growing a layout: the dense
+    dw = Σ_t x_t · g_tᵀ in f32 (axis 0: x (C, N), g (K, N); else (N, C),
+    (N, K)), each (bsize, bsize) block reduced to its max-abs ("max") or
+    L2 norm, times ``scale``: a (CB, KB) array."""
+    if len(xs) != len(gs):
+        raise ValueError("xs and gs must pair up")
+    f32 = torch.float32
+    acc = None
+    for x, g in zip(xs, gs):
+        eq = "cn,kn->ck" if axis == 0 else "nc,nk->ck"
+        d = torch.einsum(eq, x.to(f32), g.to(f32))
+        acc = d if acc is None else acc + d
+    C, K = acc.shape
+    blk = acc.reshape(C // bsize, bsize, K // bsize, bsize)
+    if norm.lower() == "max":
+        out = blk.abs().amax(dim=(1, 3))
+    else:
+        out = blk.square().sum(dim=(1, 3)).sqrt()
+    return out * scale
+
+
+def dw_matmul_large_n(x, dy, precision=None):
+    """Dense dw = xᵀ · dy contracting the leading (N) axis of both, in f32
+    whatever the inputs' dtype (torch's default keeps TF32 off for f32
+    products).  ``precision`` is the JAX signature's, accepted."""
+    return torch.tensordot(x.to(torch.float32), dy.to(torch.float32),
+                           dims=([0], [0]))
+
+
+def coarsen_layout(layout, bsize, target=128):
+    """Lift a fine block layout to ``target``-sized blocks.
+
+    Returns (coarse_layout, pack_w, unpack_w, fill): the (CB', KB') 0/1
+    layout at the coarse block size, converters between the fine
+    (blocks, b, b) weights (ordered as ``BlocksparseMatMul(layout,
+    bsize)``) and the coarse (blocks', target, target) ones (ordered as
+    ``BlocksparseMatMul(coarse_layout, target)``; absent fine blocks
+    zero), both NumPy, and the fill nnz_fine / (nnz_coarse ·
+    (target / bsize)²)."""
+    V = target // bsize
+    if target % bsize or V < 1:
+        raise ValueError("target must be a multiple of bsize")
+    layout = (np.asarray(layout) != 0).astype(np.int32)
+    CB, KB = layout.shape
+    CBp, KBp = ceil_div(CB, V), ceil_div(KB, V)
+    pad = np.zeros((CBp * V, KBp * V), np.int32)
+    pad[:CB, :KB] = layout
+    coarse = pad.reshape(CBp, V, KBp, V).max(axis=(1, 3))
+
+    fine = BlocksparseMatMul(layout, block_size=bsize, feature_axis=0)
+    co = BlocksparseMatMul(coarse, block_size=target, feature_axis=0)
+
+    # each fine block id -> (coarse block id, row offset, column offset)
+    coarse_id = {cc: i for i, cc in enumerate(co.updat_list)}
+    fmap = []
+    for w, (c, k) in enumerate(fine.updat_list):
+        cid = coarse_id[(c // V, k // V)]
+        fmap.append((cid, (c % V) * bsize, (k % V) * bsize))
+
+    def pack_w(w_fine):
+        w_fine = np.asarray(w_fine)
+        out = np.zeros((co.blocks, target, target), w_fine.dtype)
+        for w, (cid, ro, cv) in enumerate(fmap):
+            out[cid, ro:ro + bsize, cv:cv + bsize] = w_fine[w]
+        return out
+
+    def unpack_w(w_coarse):
+        w_coarse = np.asarray(w_coarse)
+        out = np.zeros((fine.blocks, bsize, bsize), w_coarse.dtype)
+        for w, (cid, ro, cv) in enumerate(fmap):
+            out[w] = w_coarse[cid, ro:ro + bsize, cv:cv + bsize]
+        return out
+
+    fill = fine.blocks / (co.blocks * V * V)
+    return coarse, pack_w, unpack_w, fill
+
+
+# ------------------------------------------------------------------
+# SparseProj: one-to-one dense <-> sparse feature projections, feature-
+# major (x is (nhidden, ...)).
+# ------------------------------------------------------------------
+
+class SparseProj:
+    """The features ``gather_lut`` of nhidden: ``gather`` takes them,
+    ``scatter`` places nproj features there (zeros elsewhere),
+    ``scatter_add`` and ``scatter_mul`` add into or multiply them.  The
+    LUT is strided (``proj_stride``: every stride-th feature, a multiple
+    of ``block_size`` of them), drawn (``nproj``: a sorted sample, shuffled
+    with the global ``np.random`` as the JAX class does) or given.
+    Pickled as the JAX class pickles: by its ``gather_lut``."""
+
+    def __getstate__(self):
+        return (self.nhidden, self.nproj, self.gather_lut, self.name)
+
+    def __setstate__(self, state):
+        self.__init__(state[0], nproj=None, gather_lut=state[2],
+                      name=state[3])
+
+    def __init__(self, nhidden, nproj=None, proj_stride=None, block_size=32,
+                 gather_lut=None, name=None):
+        if gather_lut is None:
+            gather_lut = np.arange(nhidden, dtype=np.int32)
+            if nproj is not None:
+                if nproj > nhidden:
+                    raise ValueError("nproj must not exceed nhidden")
+                np.random.shuffle(gather_lut)
+                gather_lut = np.sort(gather_lut[0:nproj])
+            elif proj_stride is not None:
+                if not 1 <= proj_stride <= nhidden:
+                    raise ValueError("proj_stride must lie in [1, nhidden]")
+                gather_max = ((nhidden // proj_stride) // block_size) \
+                    * block_size * proj_stride
+                gather_lut = gather_lut[:gather_max:proj_stride].copy()
+            else:
+                raise ValueError("missing nproj, proj_stride or gather_lut")
+        gather_lut = np.asarray(gather_lut, dtype=np.int32)
+        nproj = gather_lut.size
+
+        scatter_lut = np.full(nhidden, -1, dtype=np.int32)
+        scatter_lut[gather_lut] = np.arange(nproj, dtype=np.int32)
+
+        self.name = name or "SparseProj"
+        self.gather_lut = gather_lut
+        self.scatter_lut = scatter_lut
+        self.nhidden = nhidden
+        self.nproj = nproj
+        self._luts = {}
+
+    def _lut(self, device):
+        if device not in self._luts:
+            self._luts[device] = torch.as_tensor(
+                self.gather_lut, dtype=torch.int64, device=device)
+        return self._luts[device]
+
+    def gather(self, x):
+        if x.shape[0] != self.nhidden:
+            raise ValueError(f"x must be ({self.nhidden}, ...)")
+        return x.index_select(0, self._lut(x.device))
+
+    def scatter(self, x):
+        if x.shape[0] != self.nproj:
+            raise ValueError(f"x must be ({self.nproj}, ...)")
+        out = x.new_zeros((self.nhidden,) + tuple(x.shape[1:]))
+        return out.index_copy(0, self._lut(x.device), x)
+
+    def scatter_add(self, x, y):
+        if x.shape[0] != self.nhidden or y.shape[0] != self.nproj:
+            raise ValueError(f"x must be ({self.nhidden}, ...), y "
+                             f"({self.nproj}, ...)")
+        return x.index_add(0, self._lut(x.device), y)
+
+    def scatter_mul(self, x, y):
+        if x.shape[0] != self.nhidden or y.shape[0] != self.nproj:
+            raise ValueError(f"x must be ({self.nhidden}, ...), y "
+                             f"({self.nproj}, ...)")
+        lut = self._lut(x.device)
+        return x.index_copy(0, lut, x.index_select(0, lut) * y)

@@ -5,14 +5,15 @@ Counterpart of ``blocksparse_tpu/sparsity.py``: the attention patterns
 the weight patterns (Barabasi-Albert and Watts-Strogatz graphs of
 ``make_mask``, random block layouts), the causal sub-block mask and
 ``layout_stats``.  NumPy over a ``RandomState``: the same seed gives the
-JAX package's layout bit for bit.  ``coarsen_layout`` waits with the rest
-of the matmul surface.
+JAX package's layout bit for bit; ``coarsen_layout`` lifts a fine layout
+to larger blocks.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from blocksparse_tpu_torch.models.sparse_lstm import make_mask  # noqa: F401
+from blocksparse_tpu_torch.ops.matmul import coarsen_layout  # noqa: F401
 from blocksparse_tpu_torch.models.sparse_transformer import (  # noqa: F401
     causal_subblock_mask, dense_causal_layout, fixed_layout, strided_layout)
 from blocksparse_tpu_torch.utils import (  # noqa: F401

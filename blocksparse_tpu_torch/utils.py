@@ -92,6 +92,19 @@ _entropy_seed = None
 _entropy = {}       # torch.device -> torch.Generator
 
 
+def default_device(device, what):
+    """``device``, by default the CUDA card: a host without one raises
+    rather than fall back to the CPU.  ``what`` names the caller in the
+    message."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{what} runs on the CUDA card by default and this "
+                           f"host has none: pass device=\"cpu\" to run it on "
+                           f"the CPU")
+    return torch.device("cuda")
+
+
 def set_entropy(init=None):
     """Seeds the global generators (a random seed when ``init`` is
     None); every device's generator starts again from this seed."""

@@ -3783,6 +3783,438 @@ def training_surface(bt, model, plain, cfg, sd, dev, card_line):
     return slots, entry_point_run(bt, dev, card_line)
 
 
+# ---------------- F5, the gated matmul and the sparse LSTM ----------------
+
+# The gated matmul at bsmm1's shape: a random 0/1 gate of this density
+GATE_DENSITY = 0.5
+# dg = Σ_block dw_raw · W: f32 sums of the same products on both sides, in
+# other orders (dw's own tolerance)
+GATE_DG_TOL = UPDAT_TOL
+# The sparse LSTM at full width: LSTMConfig's defaults (nhidden 1120,
+# ba_10 layout, nembd 64, nproj 512/512, nsteps 64) with
+# benchmarks/lstm_bench.py:36-40's chip settings (isteps 5, batch 128),
+# f32.  At these seed params its recurrence amplifies a rounding ~1.7x a
+# token (lstm_path prints the growth): past ~30 tokens the logits of any
+# two f32 summation orders (the plain model against itself: index_add_'s
+# atomics) disagree by O(1).  So the kernel model is held to the plain
+# model where that is a test:
+# - every token's step (all isteps) and its VJP, from the same state,
+#   input and cotangents, the state carried on from the kernel model's:
+#   forward 1e-5 x max(1, max|plain|), VJP 1e-4 x max|plain|;
+# - the whole model's loss and every gradient over the first
+#   LSTM_CHECK_STEPS tokens: loss 1e-5 relative, gradients 1e-4 of each
+#   tensor's largest (f32 sums in other orders).
+LSTM_BATCH, LSTM_ISTEPS, LSTM_CHECK_STEPS = 128, 5, 4
+LSTM_LOSS_TOL, LSTM_GRAD_TOL = 1e-5, 1e-4
+# The entry point's step from the seed params: the recurrence's gradient
+# norm starts in the 1e7-1e10 (the same growth, backwards), so the clip to
+# 1.0 sets every step's size until the dynamics settle; at lr 1e-2 the
+# loss falls within 10 steps.
+LSTM_STEPS, LSTM_LR, LSTM_WINDOW = 10, 1e-2, 3
+
+
+def f5_check(dev):
+    """F5: a host sync inside a capture fails it; the LM's capture helper
+    raises the error, and afterwards the default CUDA generator draws
+    (``torch.randn``) and a good capture replays, drawing anew each
+    replay."""
+    from blocksparse_tpu_torch.models.sparse_transformer import capture_graph
+    x = torch.ones(1024, device=dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    # the cause, shown on torch's own capture (no repair): printed, not
+    # checked, as it is torch's behaviour
+    try:
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=side):
+            float((x * 2).sum())
+    except RuntimeError:
+        pass
+    try:
+        torch.randn(4, device=dev)
+        cause = "torch.randn draws"
+    except RuntimeError as e:
+        cause = f"torch.randn raises {str(e).splitlines()[0]!r}"
+    print(f"F5's cause: after torch's own failed capture, {cause}",
+          flush=True)
+    raised = None
+    try:
+        capture_graph(side, lambda: float((x * 2).sum()))
+    except RuntimeError as e:
+        raised = type(e).__name__
+    torch.cuda.current_stream(dev).wait_stream(side)
+    check(raised is not None, f"F5: a host sync inside a capture raises "
+          f"({raised})")
+    r = torch.randn(1024, device=dev)
+    check(bool(torch.isfinite(r).all()),
+          "F5: torch.randn on the card after the failed capture")
+    out = {}
+
+    def body():
+        out["y"] = x * 3 + torch.randn(1024, device=dev)
+    graph = capture_graph(side, body)
+    graph.replay()
+    first = out["y"].clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(first).all()) and not torch.equal(first,
+                                                                 out["y"]),
+          "F5: a good capture afterwards replays (two replays, two draws)")
+    del graph
+
+
+def gated_run(op, x, w, gate, e, **kw):
+    """(y, dx, dw[, dg]) of y = op(x, w, gate) for the cotangent e."""
+    x, w = x.detach().requires_grad_(), w.detach().requires_grad_()
+    args = (x, w)
+    if isinstance(gate, torch.Tensor):
+        gate = gate.detach().requires_grad_()
+        args += (gate,)
+    y = op(x, w, gate=gate, **kw)
+    return (y.detach(),) + torch.autograd.grad((y.float() * e).sum(), args)
+
+
+def gated_checks(model, plain, dev, g, card_line):
+    """The gated matmul at bsmm1's shape (N = BATCH x ctx, 512 -> 2048,
+    b32), bf16 and f32: a random 0/1 gate, dynamic, with every (dw_gated,
+    gate_grad) pair, y, dx, dw and dg of the kernels against the plain
+    op; the static gate (the op of the surviving blocks) against the
+    dynamic gate, and both forward + backward's device time."""
+    op, ref = model.bsmm1, plain.bsmm1
+    N = BATCH * model.config.ctx
+    gate_np = (np.random.RandomState(SEED).rand(op.blocks)
+               < GATE_DENSITY).astype(np.float32)
+    kept = float(gate_np.mean())
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn((N, op.C), device=dev, generator=g).to(dtype)
+        w = (torch.randn(op.w_shape, device=dev, generator=g)
+             * 0.02).to(dtype)
+        e = torch.randn((N, op.K), device=dev, generator=g)
+        gate = torch.as_tensor(gate_np, device=dev)
+        name = f"gated bsmm1 N={N} {str(dtype)[6:]}"
+        dw_tol = UPDAT_TOL if dtype == torch.float32 else TOL[dtype]
+        for dw_gated in (False, True):
+            for gate_grad in (False, True):
+                kw = dict(dw_gated=dw_gated, gate_grad=gate_grad)
+                got = gated_run(op, x, w, gate, e, **kw)
+                want = gated_run(ref, x, w, gate, e, **kw)
+                for part, a, b, tol in zip(
+                        ("y", "dx", "dw", "dg"), got, want,
+                        (TOL[dtype], TOL[dtype], dw_tol, GATE_DG_TOL)):
+                    compare(f"{name} dw_gated={dw_gated} "
+                            f"gate_grad={gate_grad}: {part}", a, b, tol)
+                check(gate_grad or not got[3].any(),
+                      f"{name} dw_gated={dw_gated} gate_grad={gate_grad}: "
+                      f"dg zero without gate_grad")
+        dyn = gated_run(op, x, w, gate, e, dw_gated=True)
+        static = gated_run(op, x, w, gate_np, e, dw_gated=True)
+        sub = op._static_gates[gate_np.tobytes()].sub
+        check(sub.blocks == int(gate_np.sum()),
+              f"{name}: the static gate's op holds the {sub.blocks} "
+              f"surviving blocks of {op.blocks}")
+        for part, a, b, tol in zip(("y", "dx", "dw"), static, dyn,
+                                   (TOL[dtype], TOL[dtype], dw_tol)):
+            compare(f"{name}: static gate against dynamic gate, {part}", a,
+                    b, tol)
+        del dyn, static
+        ms = {}
+        for what, gt in (("dynamic", gate), ("static", gate_np)):
+            ms[what] = device_ms_per_call(
+                lambda gt=gt: gated_run(op, x, w, gt, e, dw_gated=True),
+                lambda k: True, n=5)
+        print(f"{name}: forward + backward device time, gate keeping "
+              f"{kept:.3f} of the blocks: dynamic {ms['dynamic']:.4f} ms, "
+              f"static {ms['static']:.4f} ms ({ms['static'] / ms['dynamic']:.3f}"
+              f" of dynamic) [{card_line}]", flush=True)
+        del x, w, e
+        torch.cuda.empty_cache()
+
+
+def lstm_models(bt, dev):
+    """The full-width LSTM on the kernels and on the plain versions, from
+    the same seed params."""
+    cfg = bt.LSTMConfig(isteps=LSTM_ISTEPS)
+    model = bt.SparseLSTM(cfg, device=dev)
+    plain = bt.SparseLSTM(cfg, device=dev, impl="xla")
+    sd = bt.lstm_params_from_jax(bt.random_jax_lstm_params(model, SEED),
+                                 model)
+    for m in (model, plain):
+        m.load_state_dict(sd)
+    return cfg, model, plain
+
+
+def lstm_grads(m, tokens, targets):
+    names, params = zip(*m.named_parameters())
+    loss = m.loss(tokens, targets)
+    return loss.detach(), dict(zip(names, torch.autograd.grad(loss,
+                                                              params)))
+
+
+def lstm_kernel_rows(op, dev, g, card_line, rows, marks):
+    """The LSTM's three bsmm directions at its shape (C 1120 -> K 4480, N
+    128, f32, CN): each against its plain version; device time (profiler)
+    beside the bound and a dense f32 torch.matmul of the scattered
+    layout."""
+    from blocksparse_tpu_torch import BlocksparseMatMul
+    from blocksparse_tpu_torch.kernels import bsmm as bk
+    N, f32 = LSTM_BATCH, torch.float32
+    ref = BlocksparseMatMul(op.layout, op.bsize, op.axis, impl="xla")
+    sms = bk.device_sm_count(dev)
+    x = torch.randn((op.C, N), device=dev, generator=g)
+    dy = torch.randn((op.K, N), device=dev, generator=g)
+    w = torch.randn(op.w_shape, device=dev, generator=g) * 0.05
+    name = f"LSTM bsmm (C {op.C} -> K {op.K}, N {N}, f32, CN)"
+    flops = xprop_flops(op, N)
+    nb = 4 * (op.C * N + op.blocks * op.bsize ** 2 + op.K * N)
+    xprop_bound = bound(flops, nb, PEAK_F32_FLOPS)
+    updat_bound = bound(flops, 4 * (op.C * N + op.K * N
+                                    + op.blocks * op.bsize ** 2),
+                        PEAK_F32_FLOPS)
+    wd = dense_weight(op, w)                          # (C, K)
+    xn, dyn = x.t().contiguous(), dy.t().contiguous()
+    libs = {"fprop": time_ms(lambda: xn @ wd, 20),
+            "bprop": time_ms(lambda: dyn @ wd.t(), 20),
+            "updat": time_ms(lambda: x @ dyn, 20)}
+    errs = {"fprop": compare(f"{name} fprop", op._xprop(x, w, "f"),
+                             ref._xprop(x, w, "f"), TOL[f32]),
+            "bprop": compare(f"{name} bprop (route "
+                             f"{op._route(N, 'b', sms)})",
+                             op._xprop(dy, w, "b"), ref._xprop(dy, w, "b"),
+                             TOL[f32]),
+            "updat": compare(f"{name} updat", op._updat(x, dy),
+                             ref._updat(x, dy), UPDAT_TOL)}
+    dev_ms = {
+        "fprop": kernel_device_ms(lambda: op._xprop(x, w, "f"),
+                                  "bsmm_xprop_nc_kernel"),
+        "bprop": device_ms_per_call(
+            lambda: op._xprop(dy, w, "b"),
+            lambda k: "bsmm_xprop_nc_kernel" in k or "bsmm_merge" in k),
+        "merge": kernel_device_ms(lambda: op._xprop(dy, w, "b"),
+                                  "bsmm_merge_kernel"),
+        "updat": kernel_device_ms(lambda: op._updat(x, dy),
+                                  "bsmm_updat_nc_kernel")}
+    plain_ms = {"fprop": time_ms(lambda: ref._xprop(x, w, "f"), 10),
+                "bprop": time_ms(lambda: ref._xprop(dy, w, "b"), 10),
+                "updat": time_ms(lambda: ref._updat(x, dy), 10)}
+    for d in ("fprop", "bprop", "updat"):
+        b = updat_bound if d == "updat" else xprop_bound
+        print(f"{name} {d}: device {dev_ms[d]:.4f} ms"
+              + (f" (of it bsmm_merge {dev_ms['merge']:.4f})"
+                 if d == "bprop" else "")
+              + f", {flops / dev_ms[d] / 1e9:.2f} TFLOP/s; bound "
+              f"{b[0]:.4f} ms ({b[1]}); dense f32 torch.matmul, layout "
+              f"scattered, {libs[d]:.4f} ms; plain {plain_ms[d]:.4f} ms "
+              f"[{card_line}]", flush=True)
+    # the bprop route's merge alone: its f32 tiles in, y out
+    phases = op._phases(N, "b", sms)
+    tiles = op._plan("split", "b", phases)["tiles"]
+    merge_bound = bound(N * op.C * (phases - 1),
+                        4 * N * op.bsize * tiles + 4 * N * op.C,
+                        PEAK_F32_FLOPS)
+    parts = torch.randn((N, tiles * op.bsize), device=dev, generator=g)
+    idx = op._plan_tensors(dev, "split", "b", phases)["merge_idx"]
+    merge_err = compare(f"{name} bsmm_merge of the bprop's {tiles} tiles "
+                        f"(exact)", bk.bsmm_merge(parts, idx, op.bsize, f32),
+                        bk.merge_plain(parts, idx.long(), op.bsize, f32), 0.0)
+    merge_plain_ms = time_ms(lambda: bk.merge_plain(parts, idx.long(),
+                                                    op.bsize, f32), 10)
+    merge_lib = time_ms(lambda: parts.view(N, tiles, op.bsize)[:, idx.long()]
+                        .sum(2), 20)
+    rows["lstm_fprop"] = (errs["fprop"], dev_ms["fprop"], plain_ms["fprop"])
+    rows["lstm_bprop"] = (errs["bprop"], dev_ms["bprop"], plain_ms["bprop"])
+    rows["lstm_updat"] = (errs["updat"], dev_ms["updat"], plain_ms["updat"])
+    rows["lstm_merge"] = (merge_err, dev_ms["merge"], merge_plain_ms)
+    marks["bsmm_fprop_lstm"] = (*xprop_bound, libs["fprop"])
+    marks["bsmm_bprop_lstm"] = (*xprop_bound, libs["bprop"])
+    marks["bsmm_updat_lstm"] = (*updat_bound, libs["updat"])
+    marks["bsmm_merge_lstm"] = (*merge_bound, merge_lib)
+    del x, dy, w, wd, xn, dyn, parts
+    torch.cuda.empty_cache()
+
+
+def lstm_teacher_forced(model, plain, tokens, g):
+    """Each token's step on the kernel model against the plain model's from
+    the same (c, h) and input, the state carried on from the kernel
+    model's, and each step's VJP (in c, h, the input and the layers'
+    parameters) for the same random cotangents.  Returns {quantity: the
+    worst error over the tokens as a share of its tolerance}."""
+    with torch.no_grad():
+        xproj = torch.einsum("bte,ep->btp", model.wte[tokens], model.w_in)
+    cfg = model.config
+    shape = (cfg.lsteps, cfg.nhidden, tokens.shape[0])
+    c = h = torch.zeros(shape, device=tokens.device)
+    names = ["c", "h", "out", "dc", "dh", "dx"] + [
+        f"d{n}" for n, _ in model.layers.named_parameters()]
+    worst = dict.fromkeys(names, 0.0)
+    for t in range(tokens.shape[1]):
+        ins = (c, h, xproj[:, t])
+        cots = None
+        got = []
+        for m in (model, plain):
+            leaves = [a.clone().requires_grad_() for a in ins]
+            res = m._step(*leaves, None)
+            if cots is None:
+                cots = [torch.randn(r.shape, device=r.device, generator=g)
+                        for r in res]
+            grads = torch.autograd.grad(
+                res, leaves + list(m.layers.parameters()), cots)
+            got.append([r.detach() for r in res] + list(grads))
+        for i, (name, a, b) in enumerate(zip(names, *got)):
+            if i < 3:
+                tol = TOL[torch.float32] * max(1.0, b.abs().max().item())
+            else:
+                tol = LSTM_GRAD_TOL * b.abs().max().item()
+            err = (a - b).abs().max().item()
+            worst[name] = max(worst[name], err / tol if tol else
+                              (np.inf if err else 0.0))
+        c, h = got[0][0], got[0][1]
+    return worst
+
+
+def lstm_path(bt, dev, g, card_line, rows, marks):
+    """The sparse LSTM at full width, f32: its routes; the three bsmm
+    directions at its shape; the kernel model against the plain model
+    token by token over all nsteps (forward and VJP) and as a whole over
+    the first LSTM_CHECK_STEPS tokens (loss and every gradient); then
+    LSTM_STEPS steps of the entry point's step (clip, Adam, EMA) on the
+    synthetic stream, counted, with falling loss, ms a step by CUDA
+    events and kernels a step by the profiler.  Returns the launch counts
+    of the steps."""
+    from blocksparse_tpu_torch.examples import lstm_train
+    from blocksparse_tpu_torch.kernels import bsmm as bk
+    cfg, model, plain = lstm_models(bt, dev)
+    op = model.bsmm_h
+    sms = bk.device_sm_count(dev)
+    routes = {"fprop": op.dispatch_mode(LSTM_BATCH),
+              "bprop": op._route(LSTM_BATCH, "b", sms),
+              "bprop_runs": op._phases(LSTM_BATCH, "b", sms),
+              "updat_splits": op.updat_splits(LSTM_BATCH, torch.float32)}
+    print(f"LSTM: nhidden {cfg.nhidden}, {cfg.mask_kind} tiled x4: "
+          f"{op.blocks} blocks of {op.CB * op.KB} (density {op.sparsity}), "
+          f"{op.blocks * op.bsize ** 2 / 1e6:.2f} M weights; nembd "
+          f"{cfg.nembd}, nproj {cfg.nproj_in}/{cfg.nproj_out}, nsteps "
+          f"{cfg.nsteps}, isteps {cfg.isteps}, batch {LSTM_BATCH}, f32; "
+          f"routes at N={LSTM_BATCH} on {sms} SMs: {routes}", flush=True)
+    check(routes["fprop"] == "grouped" and routes["bprop"] == "phased",
+          f"LSTM routes: fprop unsplit, bprop the split route "
+          f"({routes['bprop_runs']} runs: bsmm_partials + bsmm_merge)")
+
+    lstm_kernel_rows(op, dev, g, card_line, rows, marks)
+
+    rng = np.random.RandomState(SEED)
+    tokens, targets = (torch.as_tensor(rng.randint(0, 256, (
+        LSTM_BATCH, cfg.nsteps)), device=dev) for _ in range(2))
+    worst = lstm_teacher_forced(model, plain, tokens, g)
+    for name, share in worst.items():
+        check(share <= 1.0, f"LSTM token by token ({cfg.nsteps} tokens from "
+              f"the same state), {name}: worst at {share:.3f} of its "
+              f"tolerance")
+    n = LSTM_CHECK_STEPS
+    reset_counts()
+    loss, grads = lstm_grads(model, tokens[:, :n], targets[:, :n])
+    torch.cuda.synchronize()
+    once = read_counts()
+    ploss, pgrads = lstm_grads(plain, tokens[:, :n], targets[:, :n])
+    rel = abs(loss.item() - ploss.item()) / abs(ploss.item())
+    check(rel <= LSTM_LOSS_TOL and bool(torch.isfinite(loss)),
+          f"LSTM loss over {n} tokens, kernel model {loss.item():.6f} "
+          f"against plain model {ploss.item():.6f}: rel diff {rel:.3e} "
+          f"(tol {LSTM_LOSS_TOL:g})")
+    share = 0.0
+    for k, pg in pgrads.items():
+        err = (grads[k] - pg).abs().max().item()
+        scale = pg.abs().max().item()
+        share = max(share, err / (LSTM_GRAD_TOL * scale))
+        check(err <= LSTM_GRAD_TOL * scale,
+              f"LSTM gradient {k} over {n} tokens: max_abs_err {err:.3e} "
+              f"(max|plain| {scale:.3e}, tol {LSTM_GRAD_TOL:g} x max)")
+    print(f"LSTM gradients over {n} tokens: worst at {share:.3f} of the "
+          f"tolerance; that loss + backward launched {once}", flush=True)
+    with torch.no_grad():
+        logits = [m(tokens) for m in (model, plain, plain)]
+    full = [bt.softmax_cross_entropy(lg, targets).mean().item()
+            for lg in logits]
+    at = (0, 4, 8, 16, 32, cfg.nsteps - 1)
+
+    def by_token(a, b):
+        d = (a - b).abs().amax(dim=(0, 2))
+        return d, " ".join(f"{t}: {d[t].item():.2e}" for t in at)
+    d_pp, pp = by_token(logits[2], logits[1])
+    _, kp = by_token(logits[0], logits[1])
+    growth = (d_pp[16] / d_pp[0]).item() ** (1 / 16)
+    print(f"LSTM over all {cfg.nsteps} tokens, no check (a rounding grows "
+          f"{growth:.2f}x a token over the first 16): max |logits| "
+          f"difference by token, the plain model against itself "
+          f"(index_add_'s atomics) {pp}; the kernel model against it {kp}; "
+          f"loss: kernel model {full[0]:.7f}, plain model {full[1]:.7f} "
+          f"and again {full[2]:.7f}", flush=True)
+    del logits
+    del grads, pgrads, plain
+    torch.cuda.empty_cache()
+
+    args = lstm_train.parse_args(["--isteps", str(LSTM_ISTEPS), "--batch",
+                                  str(LSTM_BATCH), "--lr", str(LSTM_LR)])
+    model, optm, ema, state, ema_state, _ = lstm_train.build(args)
+    step = lstm_train.make_step(model, optm, ema)
+    train, _ = lstm_train.load_data(None, cfg.nsteps, LSTM_BATCH)
+    brng = np.random.RandomState(1)
+    batches = [tuple(torch.from_numpy(a).long().to(dev) for a in
+                     lstm_train.get_batch(train, brng, LSTM_BATCH,
+                                          cfg.nsteps))
+               for _ in range(LSTM_STEPS + 1)]
+    state, ema_state, loss0, gn0 = step(state, ema_state, *batches[0])
+    torch.cuda.synchronize()                   # the warm-up, a step too
+    losses, norms, step_ms = [], [], []
+    reset_counts()
+    for x, y in batches[1:]:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        state, ema_state, loss, gn = step(state, ema_state, x, y)
+        end.record()
+        losses.append(loss)
+        norms.append(gn)
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    launches = read_counts()
+    losses = np.array([float(l) for l in losses])
+    first, last = (losses[:LSTM_WINDOW].mean(),
+                   losses[-LSTM_WINDOW:].mean())
+    check(np.isfinite(losses).all() and last < first,
+          f"LSTM entry-point step x {LSTM_STEPS} at lr {LSTM_LR:g} "
+          f"[{card_line}], after a warm-up step (loss {float(loss0):.4f}, "
+          f"grad norm {float(gn0):.3g}): loss "
+          + " ".join(f"{l:.4f}" for l in losses)
+          + f" (mean of the first {LSTM_WINDOW} {first:.4f} > of the last "
+          f"{last:.4f}); grad norm " + " ".join(f"{float(n):.3g}"
+                                                 for n in norms)
+          + "; ms a step (CUDA events) " + " ".join(f"{m:.1f}"
+                                                   for m in step_ms))
+    per = {k: v // LSTM_STEPS for k, v in launches.items() if v}
+    want = {"bsmm_fprop": cfg.nsteps * cfg.isteps,
+            "bsmm_bprop": cfg.nsteps * cfg.isteps,
+            "bsmm_merge": cfg.nsteps * cfg.isteps,
+            "bsmm_updat": cfg.nsteps * cfg.isteps}
+    check(per == want, f"LSTM launches a step {per}, expected {want}")
+    x, y = batches[-1]
+    _, kernels = device_events(lambda: step(state, ema_state, x, y))
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    count = sum(e.count for e in kernels)
+    ours = {name: (sum(e.self_device_time_total for e in kernels
+                       if name in e.key) / 1e3,
+                   sum(e.count for e in kernels if name in e.key))
+            for name in ("bsmm_xprop_nc_kernel", "bsmm_merge_kernel",
+                         "bsmm_updat_nc_kernel")}
+    print(f"LSTM step profile: {count} kernels, {total:.2f} ms of device "
+          f"time against {np.median(step_ms):.1f} ms a step (busy "
+          f"{total / np.median(step_ms):.0%}); port kernels "
+          + ", ".join(f"{k} {ms:.2f} ms ({n})" for k, (ms, n) in
+                      ours.items())
+          + f"; every kernel by name: {by_kernel(kernels, 1)} "
+          f"[{card_line}]", flush=True)
+    del model, batches, state, ema_state
+    torch.cuda.empty_cache()
+    return launches
+
+
 def build_all():
     from blocksparse_tpu_torch.kernels import _build
 
@@ -3817,8 +4249,9 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
-    # 1. build
+    # 1. build; F5: a failed capture leaves the process usable
     build_all()
+    f5_check(dev)
 
     # 2. the model, full width, and the same model on the plain versions
     cfg = bt.TransformerConfig(
@@ -3849,6 +4282,7 @@ def main():
     attn_block_size_checks(bt, dev, g)
     pad_cost(bt, dev, g, card_line)
     trio_kernel_checks(bt, dev, g, card_line, rows)
+    gated_checks(model, plain, dev, g, card_line)
 
     # 4. the serving path, counted
     serve_launches = serving_path(bt, model, plain, cfg, dev, card_line)
@@ -3884,6 +4318,14 @@ def main():
           f"{slot_launches}; entry point ({ENTRY_STEPS} steps) "
           f"{entry_launches}", flush=True)
 
+    # 5e. the sparse LSTM at full width (f32, CN): against its plain
+    # model, its bsmm directions at its shape, and the entry point's
+    # step, counted
+    lstm_marks = {}
+    lstm_launches = lstm_path(bt, dev, g, card_line, rows, lstm_marks)
+    print(f"launches: LSTM ({LSTM_STEPS} entry-point steps) "
+          f"{lstm_launches}", flush=True)
+
     # 6. the block-sparse conv: kernels against plain versions, then the
     # conv path, counted
     conv_kernel_checks(dev, g, rows)
@@ -3912,6 +4354,7 @@ def main():
     marks["col2im"] = (*bound(0, im2col_bytes), rows["fold"])
     marks["bsmm_split"] = rows[("split_mark", "bsmm2")]
     marks.update(rows["trio_marks"])
+    marks.update(lstm_marks)
     attn_report(model, rows, marks, card_line)
     ptxas_report("bsmm_xprop_mma", "the fused split (OUT_SPLIT)",
                  SPLIT_MANGLED)
@@ -3964,6 +4407,16 @@ def main():
          rows[("bst_xn", "wide")]),
         ("bst_xn_tn", "bst_xn_mma.cu", "bsmm.py:1422",
          wide_launches["bst_xn_tn"], rows[("bst_xn_tn", "wide")]),
+        # the LSTM's f32 CN products (bprop: the split route, partials +
+        # merge, its ms the route's)
+        ("bsmm_fprop_lstm", "bsmm_fprop.cu", "bsmm.py:1422",
+         lstm_launches["bsmm_fprop"], rows["lstm_fprop"]),
+        ("bsmm_bprop_lstm", "bsmm_fprop.cu", "bsmm.py:1422",
+         lstm_launches["bsmm_bprop"], rows["lstm_bprop"]),
+        ("bsmm_merge_lstm", "bsmm_merge.cu", "bsmm.py:1562",
+         lstm_launches["bsmm_merge"], rows["lstm_merge"]),
+        ("bsmm_updat_lstm", "bsmm_updat.cu", "bsmm.py:1972",
+         lstm_launches["bsmm_updat"], rows["lstm_updat"]),
     ]
     check(all(n > 0 for _, _, _, n, _ in kernels),
           f"every kernel launched on its path ({len(kernels)} kernels)")

@@ -99,9 +99,9 @@ def test_rejects_what_it_does_not_take():
     with pytest.raises(NotImplementedError):
         BlocksparseMatMul(layout, block_size=8, w_layout="fprop_packed")
     port = BlocksparseMatMul(layout, block_size=8, feature_axis=1)
-    with pytest.raises(NotImplementedError):
-        port(torch.ones(4, port.C), torch.ones(port.w_shape),
-             gate=np.ones(port.blocks))
+    ones = (torch.ones(4, port.C), torch.ones(port.w_shape))
+    assert torch.equal(port(*ones, gate=np.ones(port.blocks)),  # gates run
+                       port(*ones))
     with pytest.raises(ValueError):           # a CPU tensor launches nothing
         bsmm_kernels.bsmm_bprop(torch.ones(4, 16), torch.ones(port.w_shape),
                                 None, None, None, 8, 2)

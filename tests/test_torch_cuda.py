@@ -47,9 +47,11 @@ import torch
 import blocksparse_tpu_torch as bt
 from blocksparse_tpu_torch import (AdamOptimizer, BlocksparseConv,
                                    BlocksparseMatMul, BlocksparseTransformer,
+                                   LSTMConfig, SparseLSTM,
                                    SparseTransformerLM, TransformerConfig,
                                    generate_cached, generate_cached_scan,
-                                   params_from_jax, random_jax_conv_filter,
+                                   lstm_params_from_jax, params_from_jax,
+                                   random_jax_conv_filter, random_jax_lstm_params,
                                    random_jax_params)
 from blocksparse_tpu_torch.kernels import bsmm as bsmm_kernels
 from blocksparse_tpu_torch.kernels import bst_attn, bst_trio
@@ -1746,8 +1748,8 @@ def test_eager_decode_and_train_step_make_no_host_sync(cuda):
 @pytest.mark.cuda
 def test_a_failed_capture_raises_and_keeps_no_graph(cuda, monkeypatch):
     """A step that reads a value back to the host cannot be captured: the
-    capture raises, no graph is kept, and nothing runs the loop or the
-    step eagerly instead."""
+    capture raises, no graph is kept, nothing runs the loop or the step
+    eagerly instead, and the default generator still draws (F5)."""
     port = _graph_lm(cuda)
     logits = port._logits
 
@@ -1770,6 +1772,7 @@ def test_a_failed_capture_raises_and_keeps_no_graph(cuda, monkeypatch):
     assert not step._graphs
     torch.cuda.synchronize()
     assert all(torch.equal(v, before[k]) for k, v in port.state_dict().items())
+    assert torch.randn(4, device=cuda).isfinite().all()   # F5
 
 
 # ---------------- the unfused attention ops (kernels/bst_trio.py) ----------
@@ -2343,3 +2346,157 @@ def test_profiling_on_the_card(cuda, tmp_path, capsys):
     assert live["total_bytes"] >= 8 * 1024 * 1024
     assert any(s == (1024, 1024) for s, _, _ in
                live["per_device"][str(x.device)])
+
+
+# ---------------- F5: a failed capture leaves the process usable ----------
+
+@pytest.mark.cuda
+def test_a_failed_capture_keeps_the_default_generator_drawing(cuda):
+    """A host sync inside a capture fails it; ``capture_graph`` raises the
+    error, and afterwards the default CUDA generator draws
+    (``torch.randn``) and a good capture replays (F5: torch's
+    ``capture_end`` raises before the generator's capture epilogue)."""
+    x = torch.ones(8, device=cuda)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+
+    def syncs():
+        float((x * 2).sum())
+    with pytest.raises(RuntimeError):
+        lm.capture_graph(side, syncs)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    assert torch.randn(16, device=cuda).isfinite().all()
+    out = {}
+
+    def body():
+        out["y"] = x * 3 + torch.randn(8, device=cuda)
+    graph = lm.capture_graph(side, body)
+    graph.replay()
+    first = out["y"].clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert first.isfinite().all() and not torch.equal(first, out["y"])
+    assert torch.randn(16, device=cuda).isfinite().all()
+
+
+# ---------------- the gated matmul on the kernels ----------------
+
+GATE_PAIRS = [(False, False), (False, True), (True, False), (True, True)]
+
+
+def _gated_run(op, x, w, gate, e, **kw):
+    x, w = x.clone().requires_grad_(), w.clone().requires_grad_()
+    g = gate.clone().requires_grad_(isinstance(gate, torch.Tensor)) \
+        if isinstance(gate, torch.Tensor) else gate
+    y = op(x, w, gate=g, **kw)
+    args = (x, w, g) if isinstance(g, torch.Tensor) else (x, w)
+    grads = torch.autograd.grad((y.float() * e).sum(), args)
+    return (y,) + grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dw_gated,gate_grad", GATE_PAIRS)
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gated_kernels_match_plain(cuda, dtype, axis, dw_gated, gate_grad):
+    """y, dx, dw and dg of the dynamic gate on the kernels against the
+    plain op: y and dx at the matmul's tolerance, dw and dg (f32 sums of
+    the same products) at the updat's (bf16 dw one rounding more)."""
+    g = _gen(cuda, 31)
+    layout = random_layout(12, 20, 0.4, seed=5)
+    ops = [BlocksparseMatMul(layout, block_size=32, feature_axis=axis,
+                             impl=impl) for impl in (None, "xla")]
+    N = 384
+    x = torch.randn(ops[0].i_shape(N), device=cuda, generator=g).to(dtype)
+    w = (torch.randn(ops[0].w_shape, device=cuda, generator=g)
+         * 0.1).to(dtype)
+    e = torch.randn(ops[0].o_shape(N), device=cuda, generator=g)
+    gate = (torch.rand(ops[0].blocks, device=cuda, generator=g) > 0.4) \
+        .float()
+    got, want = (_gated_run(op, x, w, gate, e, dw_gated=dw_gated,
+                            gate_grad=gate_grad) for op in ops)
+    tol = F32_TOL if dtype == torch.float32 else BSMM_BF16_TOL
+    dw_tol = UPDAT_TOL if dtype == torch.float32 else BSMM_BF16_TOL
+    for a, b, t in zip(got, want, (tol, tol, dw_tol, UPDAT_TOL)):
+        assert a.dtype == b.dtype
+        scale = max(1.0, b.float().abs().max().item())
+        assert (a.float() - b.float()).abs().max().item() <= t * scale
+    if not gate_grad:
+        assert not got[3].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_static_gate_on_the_kernels(cuda, dtype):
+    """A NumPy gate runs the kernels over the surviving blocks only: y, dx
+    and dw against the dynamic gate's on the kernels, at the matmul's
+    tolerances; launches of the sub-op's LUT; the all-zero gate gives
+    zeros and launches nothing."""
+    g = _gen(cuda, 32)
+    op = BlocksparseMatMul(random_layout(16, 16, 0.5, seed=6),
+                           block_size=32, feature_axis=1)
+    N = 512
+    x = torch.randn(op.i_shape(N), device=cuda, generator=g).to(dtype)
+    w = (torch.randn(op.w_shape, device=cuda, generator=g) * 0.1).to(dtype)
+    e = torch.randn(op.o_shape(N), device=cuda, generator=g)
+    gate = (np.random.RandomState(3).rand(op.blocks) > 0.5) \
+        .astype(np.float32)
+    dyn = _gated_run(op, x, w, torch.as_tensor(gate, device=cuda), e,
+                     dw_gated=True)[:3]
+    static = _gated_run(op, x, w, gate, e, dw_gated=True)
+    sub = op._static_gates[gate.tobytes()].sub
+    assert sub.blocks == int(gate.sum())
+    tol = F32_TOL if dtype == torch.float32 else BSMM_BF16_TOL
+    for a, b in zip(static, dyn):
+        scale = max(1.0, b.float().abs().max().item())
+        assert (a.float() - b.float()).abs().max().item() <= tol * scale
+    before = bsmm_kernels.bsmm_fprop.launches + \
+        bsmm_kernels.bsmm_split.launches + bsmm_kernels.bsmm_updat.launches
+    zero = np.zeros(op.blocks, np.float32)
+    y, dx, dw = _gated_run(op, x, w, zero, e, dw_gated=True)
+    assert not y.any() and not dx.any() and not dw.any()
+    assert before == bsmm_kernels.bsmm_fprop.launches + \
+        bsmm_kernels.bsmm_split.launches + bsmm_kernels.bsmm_updat.launches
+
+
+# ---------------- the sparse LSTM on the kernels ----------------
+
+LSTM_SMALL = dict(nhidden=256, nembd=32, nproj_in=128, nproj_out=128,
+                  nsteps=6, block_size=32, mask_kind="ba_2", isteps=2,
+                  lsteps=2, share_masks=False, n_vocab=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("recompute", [False, True])
+def test_sparse_lstm_on_the_kernels_matches_the_plain_model(cuda,
+                                                             recompute):
+    """The model's loss and every gradient on the f32 CN kernels against
+    the plain-version model from the same params: 1e-5 relative on the
+    loss, 1e-4 of each gradient's largest (f32 sums in other orders over
+    every application of the shared w_h); the kernels launched."""
+    models = []
+    for impl in (None, "xla"):
+        m = SparseLSTM(LSTMConfig(**LSTM_SMALL, recompute=recompute),
+                       device=cuda, impl=impl)
+        m.load_state_dict(lstm_params_from_jax(
+            random_jax_lstm_params(m, seed=3), m))
+        models.append(m)
+    tokens = torch.randint(0, 64, (16, 6), device=cuda,
+                           generator=_gen(cuda, 9))
+    targets = torch.randint(0, 64, (16, 6), device=cuda,
+                            generator=_gen(cuda, 10))
+    before = (bsmm_kernels.bsmm_fprop.launches,
+              bsmm_kernels.bsmm_updat.launches)
+    out = []
+    for m in models:
+        names, params = zip(*m.named_parameters())
+        loss = m.loss(tokens, targets)
+        out.append((loss, dict(zip(names,
+                                   torch.autograd.grad(loss, params)))))
+    (l0, g0), (l1, g1) = out
+    assert bsmm_kernels.bsmm_fprop.launches > before[0]
+    assert bsmm_kernels.bsmm_updat.launches > before[1]
+    assert abs(l0.item() - l1.item()) <= 1e-5 * abs(l1.item())
+    for k, g in g1.items():
+        assert (g0[k] - g).abs().max().item() <= \
+            UPDAT_TOL * g.abs().max().item(), k

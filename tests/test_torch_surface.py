@@ -87,12 +87,13 @@ def test_signature_matches_jax(name):
 
 def test_unported_values_raise():
     layout = np.eye(2, dtype=np.int32)
+    with pytest.raises(NotImplementedError):      # the TPU schedule's order
+        bt.BlocksparseMatMul(layout, block_size=8, w_layout="fprop_packed")
     op = bt.BlocksparseMatMul(layout, block_size=8, feature_axis=1)
     x, w = torch.ones(4, op.C), torch.ones(op.w_shape)
     for kw in (dict(gate=np.ones(op.blocks)), dict(gate_grad=True),
-               dict(dw_gated=True)):
-        with pytest.raises(NotImplementedError):
-            op(x, w, **kw)
+               dict(dw_gated=True)):                  # the gates: ported
+        assert torch.equal(op(x, w, **kw), op(x, w))
     assert op(x, w, name="fc", bench=1).shape == (4, op.K)   # ignored
     bst = bt.BlocksparseTransformer(np.ones((1, 2, 2), np.int32),
                                     block_size=16, heads=1)
