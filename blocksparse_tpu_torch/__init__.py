@@ -7,7 +7,11 @@ attention (serving and training forward, dq, dk/dv) and the unfused
 block-sparse attention products (nt, nn/tn), which the LM runs past a
 head size of 128.  It also runs the
 block-sparse conv ``BlocksparseConv(impl="bsmm")``, forward and backward,
-through im2col, col2im and the same matmul kernels, and the sparse LSTM
+through im2col, col2im and the same matmul kernels (the conv's other
+lowerings, ragged blocks, ``BlocksparseDeconv``, the edge bias and
+``cwise_linear`` in plain torch, as the JAX package leaves them to XLA),
+the LM with Mixture-of-Experts MLPs (``BlocksparseMoE``, its experts'
+products on the matmul kernels), and the sparse LSTM
 ``SparseLSTM`` (f32, feature-major) through the matmul kernels, with its
 training entry point (``python -m
 blocksparse_tpu_torch.examples.lstm_train``).  On the card the

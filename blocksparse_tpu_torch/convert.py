@@ -3,7 +3,9 @@
 The JAX ``SparseTransformerLM`` keeps its parameters in a flat dict
 (``wte``, ``wpe``, ``lnf_g``, ``lnf_b`` and one ``h{l}`` dict per layer,
 or one stacked ``hs`` dict with a leading layer dim), with a leading
-tensor-parallel dim of size ``tp`` on block-sparse ``w_fc``/``w_proj``.
+tensor-parallel dim of size ``tp`` on block-sparse ``w_fc``/``w_proj``;
+an MoE layer holds a ``moe`` dict (``wg``, ``w1``, ``b1``, ``w2``, ``b2``)
+in place of the MLP's four, the port's ``h.{l}.moe.*``.
 ``params_from_jax`` turns such a dict of NumPy arrays into the port's
 ``state_dict`` and ``params_to_jax`` turns the port's parameters back;
 ``opt_state_from_jax`` turns a JAX optimizer state into the port's and
@@ -29,8 +31,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-_LAYER_KEYS = ("ln1_g", "ln1_b", "ln2_g", "ln2_b", "w_qkv", "b_qkv",
-               "w_out", "b_out", "w_fc", "b_fc", "w_proj", "b_proj")
+_ATTN_KEYS = ("ln1_g", "ln1_b", "ln2_g", "ln2_b", "w_qkv", "b_qkv",
+              "w_out", "b_out")
+_MLP_KEYS = ("w_fc", "b_fc", "w_proj", "b_proj")
+_MOE_KEYS = ("wg", "w1", "b1", "w2", "b2")
 
 
 def _tensor(a):
@@ -52,11 +56,18 @@ def _array(t):
     return t.numpy()
 
 
+def _at(tree, l):
+    """Layer l of a stacked tree (every array indexed on its first dim)."""
+    if isinstance(tree, dict):
+        return {k: _at(a, l) for k, a in tree.items()}
+    return tree[l]
+
+
 def _layers(np_params):
     if "hs" in np_params:
         stacked = np_params["hs"]
-        n = len(next(iter(stacked.values())))
-        return [{k: a[l] for k, a in stacked.items()} for l in range(n)]
+        n = len(stacked["ln1_g"])
+        return [_at(stacked, l) for l in range(n)]
     n = sum(1 for k in np_params if k.startswith("h") and k[1:].isdigit())
     return [np_params[f"h{l}"] for l in range(n)]
 
@@ -68,8 +79,9 @@ def _flat_from_jax(tree):
     flat = {k: tree[k] for k in ("wte", "wpe", "lnf_g", "lnf_b")}
     for l, layer in enumerate(_layers(tree)):
         if "moe" in layer:
-            raise NotImplementedError("MoE layers are not ported yet")
-        for k in _LAYER_KEYS:
+            for k in _MOE_KEYS:
+                flat[f"h.{l}.moe.{k}"] = layer["moe"][k]
+        for k in _ATTN_KEYS + (() if "moe" in layer else _MLP_KEYS):
             a = layer[k]
             if not isinstance(a, dict):
                 a = np.asarray(a)
@@ -90,11 +102,16 @@ def _flat_to_jax(flat, model):
     out = {}
     for name, a in flat.items():
         if name.startswith("h."):
-            _, l, k = name.split(".")
+            _, l, *path = name.split(".")
+            layer = out.setdefault(f"h{l}", {})
+            if path[0] == "moe":
+                layer.setdefault("moe", {})[path[1]] = a
+                continue
+            k, = path
             if k in ("w_fc", "w_proj") and model.bsmm1 is not None \
                     and not isinstance(a, dict):
                 a = a[None]
-            out.setdefault(f"h{l}", {})[k] = a
+            layer[k] = a
         else:
             out[name] = a
     return out
@@ -184,7 +201,8 @@ def opt_state_to_jax(state, model):
 def random_jax_params(model, seed=0):
     """A JAX-layout param dict of NumPy f32 arrays for ``model``'s config,
     drawn from ``seed`` with the JAX initialiser's scales (normal, std
-    0.02, output projections 0.02/sqrt(2·n_layer); gains 1, biases 0)."""
+    0.02, output projections 0.02/sqrt(2·n_layer); gains 1, biases 0; an
+    MoE layer's ``wg``, ``w1`` and ``w2`` std 0.02)."""
     c = model.config
     rng = np.random.RandomState(seed)
     std = 0.02
@@ -198,12 +216,14 @@ def random_jax_params(model, seed=0):
               "lnf_g": np.ones(c.n_embd, np.float32),
               "lnf_b": np.zeros(c.n_embd, np.float32)}
     for l, layer in enumerate(model.h):
-        if model.bsmm1 is not None:
-            w_fc = normal((1,) + model.bsmm1.w_shape, std)
-            w_proj = normal((1,) + model.bsmm2.w_shape, proj_std)
+        if model.moe is not None:
+            mlp = {}
+        elif model.bsmm1 is not None:
+            mlp = {"w_fc": normal((1,) + model.bsmm1.w_shape, std),
+                   "w_proj": normal((1,) + model.bsmm2.w_shape, proj_std)}
         else:
-            w_fc = normal(tuple(layer.w_fc.shape), std)
-            w_proj = normal(tuple(layer.w_proj.shape), proj_std)
+            mlp = {"w_fc": normal(tuple(layer.w_fc.shape), std),
+                   "w_proj": normal(tuple(layer.w_proj.shape), proj_std)}
         params[f"h{l}"] = {
             "ln1_g": np.ones(c.n_embd, np.float32),
             "ln1_b": np.zeros(c.n_embd, np.float32),
@@ -212,12 +232,16 @@ def random_jax_params(model, seed=0):
             "w_qkv": normal((c.n_embd, 3 * c.n_embd), std),
             "b_qkv": np.zeros(3 * c.n_embd, np.float32),
             "w_out": normal((c.n_embd, c.n_embd), proj_std),
-            "b_out": np.zeros(c.n_embd, np.float32),
-            "w_fc": w_fc,
-            "b_fc": np.zeros(model.hidden, np.float32),
-            "w_proj": w_proj,
-            "b_proj": np.zeros(c.n_embd, np.float32),
-        }
+            "b_out": np.zeros(c.n_embd, np.float32)}
+        if model.moe is not None:
+            params[f"h{l}"]["moe"] = {
+                k: (np.zeros(shape, np.float32) if k.startswith("b")
+                    else normal(shape, std))
+                for k, shape in model.moe.shapes().items()}
+        else:
+            params[f"h{l}"].update(
+                w_fc=mlp["w_fc"], b_fc=np.zeros(model.hidden, np.float32),
+                w_proj=mlp["w_proj"], b_proj=np.zeros(c.n_embd, np.float32))
     return params
 
 

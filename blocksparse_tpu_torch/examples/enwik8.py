@@ -16,8 +16,10 @@ synthetic byte stream (``load_data``, ``batch_iter``: the same bytes and
 batches for the same sizes and seeds).  The weights are drawn from seed 0
 with the JAX initialiser's shapes and scales (``random_jax_params``), not
 from JAX's PRNG.  Flags are the JAX example's; ``--tp``, ``--sp``,
-``--pp``, ``--ep`` and ``--moe_experts`` other than their defaults raise
-``NotImplementedError`` (not ported).  Added: ``--device`` (default the
+``--pp`` and ``--ep`` other than 1 raise ``NotImplementedError`` (not
+ported).  ``--moe_experts`` > 0 (with ``--moe_k``) makes each MLP a
+block-sparse Mixture-of-Experts and, as in the JAX example, forces
+``--mlp_block_size`` 32.  Added: ``--device`` (default the
 card), ``--mlp_block_size``/``--mlp_density`` (a block-sparse MLP, the
 flagship's b32 d0.5; default the example's dense MLP) and
 ``--trace_dir`` (``--profile``'s output).  ``--resume`` restores params, optimizer state, loss scale and
@@ -40,7 +42,7 @@ from blocksparse_tpu_torch.models import SparseTransformerLM, TransformerConfig
 from blocksparse_tpu_torch.ops.optimize import AdamOptimizer
 from blocksparse_tpu_torch.profiling import trace
 
-_UNPORTED = (("tp", 1), ("sp", 1), ("pp", 1), ("ep", 1), ("moe_experts", 0))
+_UNPORTED = ("tp", "sp", "pp", "ep")
 
 
 def load_data(path, n_train, n_valid):
@@ -106,18 +108,20 @@ def parse_args(argv=None):
 def build(args):
     """(config, model with seed-0 weights, optimizer, train step) for the
     parsed flags."""
-    for flag, default in _UNPORTED:
-        if getattr(args, flag) != default:
+    for flag in _UNPORTED:
+        if getattr(args, flag) != 1:
             raise NotImplementedError(
                 f"--{flag} {getattr(args, flag)} is not ported (the port "
-                f"trains on one device, without MoE)")
+                f"trains on one device)")
     dev = torch.device(args.device)
     dtype = args.dtype or ("bfloat16" if dev.type == "cuda" else "float32")
     cfg = TransformerConfig(
         n_vocab=256, n_embd=args.n_embd, n_layer=args.n_layer,
         n_head=args.n_head, ctx=args.n_ctx, blk_size=args.blk_size,
         attn_layout=args.attn_layout, local_blocks=8, mlp_ratio=4,
-        dtype=dtype, recompute=True, mlp_block_size=args.mlp_block_size,
+        dtype=dtype, recompute=True, moe_experts=args.moe_experts,
+        moe_k=args.moe_k,
+        mlp_block_size=32 if args.moe_experts else args.mlp_block_size,
         mlp_density=args.mlp_density)
     model = SparseTransformerLM(cfg, device=dev)
     model.load_state_dict(params_from_jax(random_jax_params(model, seed=0),

@@ -2,8 +2,9 @@
 
 Counterpart of ``blocksparse_tpu/models/sparse_transformer.py`` for a
 single device: layout-driven block-sparse attention (fixed/strided/dense
-patterns with a causal sub-block mask), an optionally block-sparse MLP,
-layer norm and fast-gelu, with ``forward``, ``prefill``,
+patterns with a causal sub-block mask), an optionally block-sparse MLP or
+a top-k Mixture-of-Experts MLP (``moe_experts``, ``ops/moe.py``), layer
+norm and fast-gelu, with ``forward``, ``prefill``,
 ``decode_forward``, ``generate``, ``generate_cached`` and
 ``generate_cached_scan`` for serving and ``loss`` and ``make_train_step``
 (clip by global norm, Adam, dynamic loss scaling, per-block recompute)
@@ -18,8 +19,11 @@ thing from the same weights.
 Residual dropout (``resid_pdrop``) acts where the JAX package's does:
 through ``loss`` and ``forward`` given a dropout source, never in
 ``make_train_step`` (the JAX train step passes no dropout key: ROADMAP
-F3).  Tensor, sequence and pipeline parallelism and MoE are later slices
-of the port and raise ``NotImplementedError`` here.
+F3).  With MoE the loss adds ``moe_aux_coef`` times the layers' summed
+load-balance loss, and the KV-cached decode raises as the JAX package's
+asserts (``generate``, a full forward a token, works).  Tensor, sequence,
+pipeline and expert parallelism are later slices of the port and raise
+``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ from blocksparse_tpu_torch.ops.embed import embedding_lookup
 from blocksparse_tpu_torch.ops.ewops import (dropout, fast_gelu,
                                               float_cast, uniform)
 from blocksparse_tpu_torch.ops.matmul import BlocksparseMatMul
+from blocksparse_tpu_torch.ops.moe import BlocksparseMoE
 from blocksparse_tpu_torch.ops.norms import layer_norm
 from blocksparse_tpu_torch.ops.transformer import (BlocksparseTransformer,
                                                    position_tensor,
@@ -100,8 +105,9 @@ class TransformerConfig:
     result here (the JAX stacked layers draw their dropout masks by
     ``fold_in``, a stream the port does not reproduce).  ``resid_pdrop``
     drops each block's two residual branches when ``loss``/``forward``
-    get a dropout source.  The parallel and MoE fields must stay at their
-    defaults here."""
+    get a dropout source.  ``moe_experts`` > 0 replaces each MLP by a
+    ``BlocksparseMoE`` (block-sparse experts at ``mlp_block_size``).  The
+    parallel fields (tp, sp, pp, ep) must stay at 1 here."""
     n_vocab: int = 256
     n_embd: int = 512
     n_layer: int = 6
@@ -130,12 +136,14 @@ class TransformerConfig:
 
 
 def _check_supported(c: TransformerConfig):
-    for field, default in (("tp", 1), ("sp", 1), ("pp", 1), ("ep", 1),
-                           ("moe_experts", 0)):
-        if getattr(c, field) != default:
+    if c.ep != 1 and not c.moe_experts:
+        raise ValueError("ep needs moe_experts > 0")
+    for field in ("tp", "sp", "pp", "ep"):
+        if getattr(c, field) != 1:
             raise NotImplementedError(
                 f"{field}={getattr(c, field)} is not ported yet (the port "
-                f"runs one device, dense or block-sparse MLP)")
+                f"runs one device: ROADMAP §1, \"Parallelism on "
+                f"torch.distributed\")")
     if not 0.0 <= c.resid_pdrop < 1.0:
         raise ValueError("resid_pdrop must lie in [0, 1)")
     if c.dtype not in _DTYPES:
@@ -150,10 +158,12 @@ def _param(*shape, fill=0.0):
 
 
 class _Layer(nn.Module):
-    """One transformer block's parameters (the JAX ``h{l}`` dict)."""
+    """One transformer block's parameters (the JAX ``h{l}`` dict): with
+    ``moe`` (a ``BlocksparseMoE``) a ``moe`` dict of its parameters in
+    place of the MLP's four."""
 
     def __init__(self, c: TransformerConfig, hidden, w_fc_shape,
-                 w_proj_shape):
+                 w_proj_shape, moe=None):
         super().__init__()
         self.ln1_g = _param(c.n_embd, fill=1.0)
         self.ln1_b = _param(c.n_embd)
@@ -163,6 +173,10 @@ class _Layer(nn.Module):
         self.b_qkv = _param(3 * c.n_embd)
         self.w_out = _param(c.n_embd, c.n_embd)
         self.b_out = _param(c.n_embd)
+        if moe is not None:
+            self.moe = nn.ParameterDict({
+                k: _param(*shape) for k, shape in moe.shapes().items()})
+            return
         self.w_fc = _param(*w_fc_shape)
         self.b_fc = _param(hidden)
         self.w_proj = _param(*w_proj_shape)
@@ -199,7 +213,14 @@ class SparseTransformerLM(nn.Module):
             mask_callback=causal_subblock_mask, impl=impl)
 
         self.hidden = c.mlp_ratio * c.n_embd
-        if c.mlp_block_size:
+        self.moe = None
+        if c.moe_experts:
+            self.moe = BlocksparseMoE(
+                c.moe_experts, c.n_embd, self.hidden,
+                block_size=c.mlp_block_size, density=c.mlp_density,
+                capacity_factor=c.moe_capacity_factor, k=c.moe_k, ep=c.ep,
+                impl=impl)
+        if c.mlp_block_size and not c.moe_experts:
             bs = c.mlp_block_size
             CB = c.n_embd // bs
             KB = self.hidden // bs
@@ -222,7 +243,7 @@ class SparseTransformerLM(nn.Module):
         self.lnf_g = _param(c.n_embd, fill=1.0)
         self.lnf_b = _param(c.n_embd)
         self.h = nn.ModuleList(
-            _Layer(c, self.hidden, w_fc_shape, w_proj_shape)
+            _Layer(c, self.hidden, w_fc_shape, w_proj_shape, self.moe)
             for _ in range(c.n_layer))
         self._decode_graphs = {}      # generate_cached_scan's, by key
         self.to(default_device(device, "SparseTransformerLM"))
@@ -245,8 +266,15 @@ class SparseTransformerLM(nn.Module):
         return self.bst.attention(q, k, v, scale=1.0 / np.sqrt(self.hs))
 
     def _mlp(self, layer, x):
+        """(y, aux): the MLP's output and its load-balance loss (None
+        without MoE).  The MoE's y is f32 (its f32 expert weights, ROADMAP
+        F6), the other MLPs' of the compute dtype."""
         nd = self.nd
         h = float_cast(layer_norm(x, layer.ln2_g, layer.ln2_b, axis=-1), nd)
+        if self.moe is not None:
+            B, L, D = h.shape
+            y, aux = self.moe(layer.moe, h.reshape(B * L, D))
+            return y.reshape(B, L, D), aux
         if self.bsmm1 is not None:
             h = self.bsmm1(h, float_cast(layer.w_fc, nd))
         else:
@@ -256,7 +284,7 @@ class SparseTransformerLM(nn.Module):
             h = self.bsmm2(h, float_cast(layer.w_proj, nd))
         else:
             h = h @ float_cast(layer.w_proj, nd)
-        return h + layer.b_proj.to(nd)
+        return h + layer.b_proj.to(nd), None
 
     def _out(self, layer, a):
         nd = self.nd
@@ -271,9 +299,10 @@ class SparseTransformerLM(nn.Module):
         return (embedding_lookup(self.wte, tokens) + wpe).float()
 
     def _block(self, layer, x, caches=None, masks=None):
-        """One transformer block; appends its K/V to ``caches`` when
-        given.  ``masks``: the (attention, MLP) residual dropout masks, or
-        None."""
+        """One transformer block: (x, the MLP's load-balance loss or None);
+        appends
+        its K/V to ``caches`` when given.  ``masks``: the (attention, MLP)
+        residual dropout masks, or None."""
         keep = 1.0 - self.config.resid_pdrop
 
         def drop(h, i):
@@ -282,7 +311,8 @@ class SparseTransformerLM(nn.Module):
         if caches is not None:
             caches.append({"k": k.contiguous(), "v": v.contiguous()})
         x = x + drop(self._out(layer, self._attend(q, k, v)), 0).to(x.dtype)
-        return x + drop(self._mlp(layer, x), 1).to(x.dtype)
+        m, aux = self._mlp(layer, x)
+        return x + drop(m, 1).to(x.dtype), aux
 
     def _dropout_masks(self, source, l, shape, device):
         """Layer l's two residual dropout masks from ``source`` (a
@@ -296,31 +326,42 @@ class SparseTransformerLM(nn.Module):
         return tuple(m.to(device) for m in source[l])
 
     def _full_context(self, tokens, caches=None, dropout=None):
-        """Logits over all positions; appends each layer's K/V to
-        ``caches`` when given.  With ``config.recompute`` and a gradient
+        """(logits over all positions, the layers' summed load-balance loss
+        or None without MoE); appends each layer's K/V to ``caches`` when
+        given.  With ``config.recompute`` and a gradient
         to take, each block's activations are recomputed in the backward
         (the JAX ``jax.checkpoint`` per block).  A block's dropout masks
         are drawn before its checkpoint, so the recompute reuses them and
         the checkpoint saves no RNG state (which a CUDA graph capture
-        forbids)."""
+        forbids).  The MoE's routing is a function of the block's input,
+        so the recompute routes every token as the forward did."""
         x = self._embed(tokens, self.wpe[None, :tokens.shape[1]])
         recompute = self.config.recompute and torch.is_grad_enabled()
+        aux = None
         for l, layer in enumerate(self.h):
             masks = self._dropout_masks(dropout, l, x.shape, x.device)
             if recompute and caches is None:
-                x = checkpoint(self._block, layer, x, None, masks,
-                               use_reentrant=False, preserve_rng_state=False)
+                x, a = checkpoint(self._block, layer, x, None, masks,
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
             else:
-                x = self._block(layer, x, caches, masks)
-        return self._logits(x)
+                x, a = self._block(layer, x, caches, masks)
+            if a is not None:
+                aux = a if aux is None else aux + a
+        return self._logits(x), aux
 
     # ---------------- forward ----------------
 
     @torch.no_grad()
-    def forward(self, tokens, dropout=None):
-        """tokens (batch, L) int -> logits (batch, L, n_vocab) f32.
-        ``dropout`` as in ``loss``."""
-        return self._full_context(tokens, dropout=dropout)
+    def forward(self, tokens, dropout=None, return_aux=False):
+        """tokens (batch, L) int -> logits (batch, L, n_vocab) f32, and with
+        ``return_aux`` the layers' summed MoE load-balance loss (zero
+        without MoE).  ``dropout`` as in ``loss``."""
+        logits, aux = self._full_context(tokens, dropout=dropout)
+        if not return_aux:
+            return logits
+        return logits, aux if aux is not None else torch.zeros(
+            (), device=logits.device)
 
     # ---------------- training ----------------
 
@@ -333,9 +374,13 @@ class SparseTransformerLM(nn.Module):
         from which each layer draws its two masks in turn, or a list of
         one (attention, MLP) pair of bool masks of the residual's shape a
         layer (the masks the JAX ``_block`` draws, for parity runs).
-        None drops nothing."""
-        return softmax_cross_entropy(
-            self._full_context(tokens, dropout=dropout), targets).mean()
+        None drops nothing.  With MoE, plus ``moe_aux_coef`` times the
+        layers' summed load-balance loss."""
+        logits, aux = self._full_context(tokens, dropout=dropout)
+        loss = softmax_cross_entropy(logits, targets).mean()
+        if self.moe is None:
+            return loss
+        return loss + self.config.moe_aux_coef * aux
 
     def make_train_step(self, optimizer: opt.AdamOptimizer, mesh=None,
                         clip_norm=1.0):
@@ -367,18 +412,28 @@ class SparseTransformerLM(nn.Module):
         return _TrainStep(self, optimizer, clip_norm)
 
     def _mlp_routes(self, N):
-        """What the MLP's products launch for N rows: each op's ``mode``
-        and route (``dispatch_mode``).  A graph captured under one replays
-        only that one, so the graphs are keyed on it."""
-        if self.bsmm1 is None:
+        """What the MLP's products launch for N tokens: each op's ``mode``
+        and route (``dispatch_mode``), with MoE at the experts' N, the
+        capacity.  A graph captured under one replays only that one, so
+        the graphs are keyed on it."""
+        ops = (self.bsmm1, self.bsmm2)
+        if self.moe is not None:
+            ops, N = (self.moe.bsmm1, self.moe.bsmm2), self.moe.capacity(N)
+        if ops[0] is None:
             return ()
-        return tuple((op.mode, op.dispatch_mode(N))
-                     for op in (self.bsmm1, self.bsmm2))
+        return tuple((op.mode, op.dispatch_mode(N)) for op in ops)
+
+    def _no_moe_decode(self):
+        if self.moe is not None:
+            raise NotImplementedError(
+                "KV-cached decode with MoE MLPs is not implemented (as in "
+                "the JAX package); generate runs a full forward a token")
 
     # ---------------- KV-cached decode ----------------
 
     def init_kv_cache(self, batch):
         """Per-layer K/V caches over the full layout context."""
+        self._no_moe_decode()
         c = self.config
         dev = self.wte.device
         return [{"k": torch.zeros((batch, c.ctx, c.n_embd), dtype=self.nd,
@@ -394,8 +449,9 @@ class SparseTransformerLM(nn.Module):
         tokens: (batch, ctx) int (positions past the prompt may be padding:
         causal masking keeps them out of earlier logits).
         Returns (logits, caches)."""
+        self._no_moe_decode()
         caches = []
-        return self._full_context(tokens, caches), caches
+        return self._full_context(tokens, caches)[0], caches
 
     @torch.no_grad()
     def decode_forward(self, tok, caches, pos):
@@ -407,6 +463,7 @@ class SparseTransformerLM(nn.Module):
         position's K/V into the caches in place (saving a copy of every
         cache per token) and returns (logits (batch, n_vocab) f32,
         caches)."""
+        self._no_moe_decode()
         pos = position_tensor(pos, self.wte.device)
         x = self._embed(tok[:, None], self.wpe.index_select(0, pos)[None])
         for layer, cache in zip(self.h, caches):
@@ -416,7 +473,7 @@ class SparseTransformerLM(nn.Module):
             a = self.bst.decode_step(q, cache["k"], cache["v"], pos,
                                      scale=1.0 / np.sqrt(self.hs))
             x = x + self._out(layer, a).to(x.dtype)
-            x = x + self._mlp(layer, x).to(x.dtype)
+            x = x + self._mlp(layer, x)[0].to(x.dtype)
         return self._logits(x)[:, 0], caches
 
     def _decode_graph(self, batch, temperature):

@@ -5,7 +5,10 @@ from blocksparse_tpu_torch.ops.matmul import (
 from blocksparse_tpu_torch.ops.lstm import (
     fused_lstm_gates, split4, concat4, sparse_relu, FusedBasicLSTMCell,
     grouped_lstm, grouped_lstm_init, group_lstm_grads)
-from blocksparse_tpu_torch.ops.conv import BlocksparseConv
+from blocksparse_tpu_torch.ops.conv import (
+    BlocksparseConv, BlocksparseDeconv, ConvEdgeBias, conv_edge_bias_init,
+    deconv_edge_bias_init, cwise_linear)
+from blocksparse_tpu_torch.ops.moe import BlocksparseMoE, route_topk
 from blocksparse_tpu_torch.ops.transformer import (
     BlocksparseTransformer, softmax, masked_softmax, masked_top_k_softmax,
     softmax_cross_entropy, transpose_2d, transpose_0213, top_k,
@@ -38,7 +41,9 @@ __all__ = [
     "largest_block", "coarsen_layout", "dw_matmul_large_n",
     "fused_lstm_gates", "split4", "concat4", "sparse_relu",
     "FusedBasicLSTMCell", "grouped_lstm", "grouped_lstm_init",
-    "group_lstm_grads", "BlocksparseConv", "BlocksparseTransformer",
+    "group_lstm_grads", "BlocksparseConv", "BlocksparseDeconv",
+    "ConvEdgeBias", "conv_edge_bias_init", "deconv_edge_bias_init",
+    "cwise_linear", "BlocksparseMoE", "route_topk", "BlocksparseTransformer",
     "softmax", "masked_softmax", "masked_top_k_softmax",
     "softmax_cross_entropy", "transpose_2d", "transpose_0213", "top_k",
     "rectified_top_k", "clear_bst_constants", "layer_norm", "batch_norm",

@@ -532,13 +532,20 @@ class BlocksparseMatMul:
         return (a if self.axis else a.t()).contiguous()
 
     def _xprop(self, x, w, d):
-        """fprop (d="f") or bprop (d="b") of a 2-D activation."""
+        """fprop (d="f") or bprop (d="b") of a 2-D activation, of x's
+        dtype; x and w of two dtypes multiply in their promoted one."""
         lut = self._lut(x.device)
         n_out = self.KB if d == "f" else self.CB
         if self._plain(x):
             return bsmm_kernels.xprop_plain(
                 x, w, lut[f"{d}_in"], lut[f"{d}_w"], lut[f"{d}_out"], n_out,
                 self.bsize, self.axis, trans_w=d == "b", out_dtype=x.dtype)
+        out_dtype = x.dtype
+        if w.dtype != x.dtype:
+            # the JAX product of mixed operands: both in the promoted
+            # dtype (f32 for bf16 x and f32 w), rounded to x's on output
+            dt = torch.promote_types(x.dtype, w.dtype)
+            x, w = x.to(dt), w.to(dt)
         xn, wc, b, trans = self._nc(x), w.contiguous(), self.bsize, d == "b"
         sms = device_sm_count(x.device)
         route = self._route(xn.shape[0], d, sms)
@@ -567,6 +574,7 @@ class BlocksparseMatMul:
                 else bsmm_kernels.bsmm_fprop
             y = kernel(xn, wc, lut[f"{d}_row_ptr"], lut[f"{d}_ent_in"],
                        lut[f"{d}_ent_w"], b, n_out)
+        y = y.to(out_dtype)
         # feature_axis 0: the (features, N) view of the kernel's (N,
         # features) output; a consumer in that orientation copies nothing
         return y if self.axis else y.t()
@@ -577,6 +585,9 @@ class BlocksparseMatMul:
         if self._plain(x):
             return bsmm_kernels.updat_plain(x, dy, lut["u_c"], lut["u_k"],
                                             self.bsize, self.axis)
+        if dy.dtype != x.dtype:
+            dt = torch.promote_types(x.dtype, dy.dtype)
+            x, dy = x.to(dt), dy.to(dt)
         xn, dyn = self._nc(x), self._nc(dy)
         splits = self.updat_splits(xn.shape[0], x.dtype,
                                    device_sm_count(x.device))

@@ -165,6 +165,30 @@ LM's parameters on the card against the CPU; and the enwik8 entry point
 checkpoint at step 60 restored into a fresh model bit for bit and the
 restored model's next step equal to the uninterrupted run's bit for bit.
 
+Then the LM with Mixture-of-Experts MLPs at full width (the enwik8 LM
+with ``--moe_experts 8 --moe_k 1``: 8 experts of 512 -> 2048 -> 512 at
+b32, density 1.0, top-1, capacity factor 1.25, C = 2,560 slots an expert
+at 8 x 2048 tokens; bf16 compute with the experts' products in f32, as
+the JAX layer leaves its expert weights): one layer against the plain
+layer at 16,384 tokens (forward, VJP and the dtypes), the experts'
+products at N = C against their plain versions with device time, bound
+and a dense f32 ``torch.matmul``; the forward, counted, against the plain
+model on the kernel model's routing (a token whose top expert or drop the
+two models' roundings would choose otherwise changes by O(1): the plain
+model takes the kernel model's routing tables, and the flips without
+them are printed); ``generate``, counted, each token the sample of its
+step's forward and each step's logits against the plain model; the train
+step's first call, counted, then three captured steps, each equal to the
+eager step bit for bit and within tolerance of the plain model's step
+(loss and grad norm; the gradients and the first update), with falling
+loss; ms and kernels a step, the graph's memory.  After the conv path,
+the rest of the conv (plain torch, as the JAX package's XLA lowerings) at
+C = 512, f32 and bf16: a ragged BCK, ``impl="matmul"`` and the deconv,
+forward and both gradients against the dense cuDNN ``conv2d`` /
+``conv_transpose2d`` of the scattered filter, timed beside it; the edge
+bias and both l2 norms against the CPU; the ragged conv and deconv
+against the NumPy goldens at a small size.
+
 Prints the card's name and power limit, the build times, every check
 with its tolerance, the timings, a ``{"kernels": [...]}`` line (each
 kernel with its bound on this card and the time of a library call that
@@ -4215,6 +4239,634 @@ def lstm_path(bt, dev, g, card_line, rows, marks):
     return launches
 
 
+# ---------------- the MoE LM and the rest of the conv ----------------
+
+# The enwik8 LM with Mixture-of-Experts MLPs (the JAX example's
+# --moe_experts, examples/enwik8.py:86-91,124-126): 8 experts of 512 ->
+# 2048 -> 512 at b32, density 1.0, top-1, capacity factor 1.25
+# (Switch-Base-8's routing), so C = 2,560 slots an expert at 8 x 2048
+# tokens; bf16 compute with the experts' products in f32 (ROADMAP F6).
+MOE_EXPERTS, MOE_K, MOE_CF = 8, 1, 1.25
+MOE_STEPS = 3
+
+
+class RouteTap:
+    """Routing tables of a model's MoE calls, kept or imposed.  ``record``
+    appends each call's (topi, src, dst) to its layer's list; ``forced``
+    (another tap's lists) makes each call take the next tables of its
+    layer instead of routing (the gates recomputed from this model's own
+    probs).  A kernel model and its plain model then compute the same
+    function on the same routing: a token whose top expert or whose drop
+    differs between the two (their router inputs differ by roundings) would
+    otherwise change its output by O(1).  A tap that neither records nor is
+    forced routes as the layer does."""
+
+    def __init__(self, bt, model):
+        base = type(model.moe)
+        tap = self
+
+        class Tapped(base):
+            def __call__(self, params, x, ep_axis=None):
+                tap.layer = tap.layers[id(params)]
+                return base.__call__(self, params, x, ep_axis)
+
+            def _route(self, probs, C):
+                if tap.forced is not None:
+                    topi, src, dst = tap.forced[tap.layer].pop(0)
+                    hit = nnf.one_hot(topi, self.E).to(probs.dtype)
+                    topv = (probs[:, None, :] * hit).sum(-1)
+                    gates = topv / torch.clamp(topv.sum(-1, keepdim=True),
+                                               min=1e-9)
+                    return gates, topi, src, dst
+                out = base._route(self, probs, C)
+                if tap.record:
+                    tap.tables[tap.layer].append(
+                        tuple(t.clone() for t in out[1:]))
+                return out
+        model.moe.__class__ = Tapped
+        self.layers = {id(layer.moe): i for i, layer in enumerate(model.h)}
+        self.tables = {i: [] for i in self.layers.values()}
+        self.record, self.forced, self.layer = False, None, None
+
+    def clear(self):
+        for v in self.tables.values():
+            v.clear()
+
+
+def run_tapped(kernel_tap, plain_tap, kernel_fn, plain_fn):
+    """kernel_fn() recording its routing, then plain_fn() on it: both
+    results.  Every recorded table must be used."""
+    kernel_tap.clear()
+    kernel_tap.record = True
+    try:
+        a = kernel_fn()
+    finally:
+        kernel_tap.record = False
+    plain_tap.forced = {k: list(v) for k, v in kernel_tap.tables.items()}
+    try:
+        b = plain_fn()
+        left = sum(len(v) for v in plain_tap.forced.values())
+    finally:
+        plain_tap.forced = None
+    check(left == 0, f"the plain model took every routing table the kernel "
+                     f"model recorded ({left} left)")
+    return a, b
+
+
+def routing_flips(kernel_tap, plain_tap, kernel_fn, plain_fn):
+    """Tokens whose top experts or drops differ between the two models'
+    own routing in one call each: (per layer, any layer)."""
+    taps = (kernel_tap, plain_tap)
+    for t in taps:
+        t.clear()
+        t.record = True
+    try:
+        kernel_fn()
+        plain_fn()
+    finally:
+        for t in taps:
+            t.record = False
+    per, union = [], None
+    for l in sorted(kernel_tap.tables):
+        (ki, ks, kd), (pi, _, pd) = (t.tables[l][0] for t in taps)
+        dropped = ks.numel()                 # dst's sentinel: E * C
+        diff = (ki != pi).any(1) | ((kd == dropped) != (pd == dropped)) \
+            .any(1)
+        per.append(int(diff.sum()))
+        union = diff if union is None else union | diff
+    for t in taps:
+        t.clear()
+    return per, int(union.sum())
+
+
+def moe_models(bt, dev):
+    cfg = bt.TransformerConfig(
+        n_vocab=256, n_embd=512, n_layer=6, n_head=8, ctx=2048, blk_size=64,
+        attn_layout="fixed", local_blocks=8, mlp_ratio=4, mlp_block_size=32,
+        mlp_density=1.0, dtype="bfloat16", recompute=True,
+        moe_experts=MOE_EXPERTS, moe_k=MOE_K, moe_capacity_factor=MOE_CF)
+    model = bt.SparseTransformerLM(cfg, device=dev)
+    plain = bt.SparseTransformerLM(cfg, device=dev, impl="xla")
+    sd = bt.params_from_jax(bt.random_jax_params(model, seed=SEED), model)
+    model.load_state_dict(sd)
+    plain.load_state_dict(sd)
+    return cfg, model, plain, RouteTap(bt, model), RouteTap(bt, plain)
+
+
+def moe_layer_checks(model, plain, dev, g, card_line, rows, marks):
+    """One MoE layer at the LM's shape (16,384 bf16 tokens): the kernel
+    layer against the plain one on the same input (the router is plain
+    torch in both: one routing), forward and VJP, F6's dtypes; then the
+    experts' products at N = C against their plain versions, timed beside
+    their bound and a dense f32 torch.matmul."""
+    from blocksparse_tpu_torch.kernels import bsmm as bk
+    moe, pmoe_, f32, bf = model.moe, plain.moe, torch.float32, torch.bfloat16
+    T, C = BATCH * model.config.ctx, moe.capacity(BATCH * model.config.ctx)
+    x = (torch.randn((T, moe.d), device=dev, generator=g)).to(bf)
+    dy = torch.randn((T, moe.d), device=dev, generator=g)
+    res = []
+    for m, lm in ((moe, model), (pmoe_, plain)):
+        params = dict(lm.h[0].moe.items())
+        xr = x.detach().requires_grad_()
+        y, aux = m(lm.h[0].moe, xr)
+        grads = torch.autograd.grad((y, aux), [xr] + list(params.values()),
+                                    (dy, torch.tensor(1.0, device=dev)))
+        res.append((y.detach(), aux.detach(), grads))
+    (y, aux, gk), (yp, auxp, gp) = res
+    check(y.dtype == f32 and gk[0].dtype == bf
+          and all(t.dtype == f32 for t in gk[1:]),
+          "MoE layer dtypes (ROADMAP F6): y f32 from bf16 tokens, dx bf16, "
+          "the expert weights' gradients f32")
+    compare(f"MoE layer (T {T}, E {moe.E}, C {C}) y against the plain "
+            f"layer", y, yp, TOL[bf])
+    check(abs(aux.item() - auxp.item()) <= 1e-6,
+          f"MoE layer aux {aux.item():.7f} against the plain layer's "
+          f"{auxp.item():.7f}")
+    names = ["dx"] + [f"d{k}" for k in dict(model.h[0].moe.items())]
+    compare_tensors("MoE layer VJP against the plain layer",
+                    dict(zip(names, gk)), dict(zip(names, gp)), GRAD_TOL)
+    del res, gk, gp, y, yp
+    torch.cuda.empty_cache()
+
+    # the experts' products at N = C, f32 (bsmm1's input upcast, F6)
+    op1, op2 = moe.bsmm1, moe.bsmm2
+    ref1, ref2 = bt_ops(op1), bt_ops(op2)
+    sms = bk.device_sm_count(dev)
+    xe = torch.randn((C, op1.C), device=dev, generator=g)
+    du = torch.randn((C, op1.K), device=dev, generator=g)
+    w = torch.randn(op1.w_shape, device=dev, generator=g) * 0.02
+    flops = xprop_flops(op1, C)
+    nb = 4 * (op1.C * C + op1.blocks * op1.bsize ** 2 + op1.K * C)
+    b_x = bound(flops, nb, PEAK_F32_FLOPS)
+    wd = dense_weight(op1, w)
+    name = (f"MoE bsmm1 (C {op1.C} -> K {op1.K}, N {C}, b{op1.bsize}, "
+            f"{op1.blocks} blocks, f32)")
+    routes = {"fprop": op1._route(C, "f", sms), "bprop":
+              op1._route(C, "b", sms), "bsmm2 fprop": op2._route(C, "f", sms),
+              "bsmm2 bprop": op2._route(C, "b", sms),
+              "bsmm1 updat runs (bf16 x, du)": op1.updat_splits(C, bf),
+              "bsmm2 updat runs (f32)": op2.updat_splits(C, f32)}
+    print(f"MoE routes at N = C = {C} on {sms} SMs: {routes}", flush=True)
+    errs = {"fprop": compare(f"{name} fprop", op1._xprop(xe, w, "f"),
+                             ref1._xprop(xe, w, "f"), TOL[f32]),
+            "bprop": compare(f"{name} bprop", op1._xprop(du, w, "b"),
+                             ref1._xprop(du, w, "b"), TOL[f32]),
+            "updat": compare(f"{name} updat (bsmm2's: h (C, {op2.C}), "
+                             f"dy (C, {op2.K}))", op2._updat(du, xe),
+                             ref2._updat(du, xe), UPDAT_TOL)}
+    dev_ms = {
+        "fprop": kernel_device_ms(lambda: op1._xprop(xe, w, "f"),
+                                  "bsmm_xprop_nc_kernel"),
+        "bprop": device_ms_per_call(
+            lambda: op1._xprop(du, w, "b"),
+            lambda k: "bsmm_xprop_nc_kernel" in k or "bsmm_merge" in k),
+        "updat": kernel_device_ms(lambda: op2._updat(du, xe),
+                                  "bsmm_updat_nc_kernel")}
+    plain_ms = {"fprop": time_ms(lambda: ref1._xprop(xe, w, "f"), 5),
+                "bprop": time_ms(lambda: ref1._xprop(du, w, "b"), 5),
+                "updat": time_ms(lambda: ref2._updat(du, xe), 5)}
+    libs = {"fprop": time_ms(lambda: xe @ wd, 20),
+            "bprop": time_ms(lambda: du @ wd.t(), 20),
+            "updat": time_ms(lambda: du.t() @ xe, 20)}
+    # the bf16 tensor-core updat bsmm1 runs in the step (bf16 x and du)
+    xb, dub = xe.to(bf), du.to(bf)
+    errs["updat_bf16"] = compare(f"{name} updat in bf16 (the step's bsmm1)",
+                                 op1._updat(xb, dub), ref1._updat(xb, dub),
+                                 UPDAT_TOL)
+    bf_ms = kernel_device_ms(lambda: op1._updat(xb, dub),
+                             "bsmm_updat_mma_kernel")
+    for d in ("fprop", "bprop", "updat"):
+        print(f"{name} {d}: device {dev_ms[d]:.4f} ms, "
+              f"{flops / dev_ms[d] / 1e9:.2f} TFLOP/s; bound {b_x[0]:.4f} ms "
+              f"({b_x[1]}); dense f32 torch.matmul {libs[d]:.4f} ms; plain "
+              f"{plain_ms[d]:.4f} ms [{card_line}]", flush=True)
+    print(f"{name} updat in bf16 (tensor cores): device {bf_ms:.4f} ms, "
+          f"{flops / bf_ms / 1e9:.2f} TFLOP/s [{card_line}]", flush=True)
+    for d in ("fprop", "bprop", "updat"):
+        rows[f"moe_{d}"] = (errs[d], dev_ms[d], plain_ms[d])
+        marks[f"bsmm_{d}_moe"] = (*b_x, libs[d])
+    del xe, du, w, wd, xb, dub
+    torch.cuda.empty_cache()
+    return routes
+
+
+def bt_ops(op):
+    """The plain twin of a BlocksparseMatMul."""
+    from blocksparse_tpu_torch import BlocksparseMatMul
+    return BlocksparseMatMul(op.layout, op.bsize, op.axis, impl="xla")
+
+
+def moe_generate(bt, model, plain, ktap, ptap, cfg, dev, prompts):
+    """``generate`` on the kernel model, counted; each token is the sample
+    of its step's forward (the step replayed: the logits that token was
+    drawn from, at the same noise), and each step's logits agree with the
+    plain model's on the same tokens and routing."""
+    n, steps = prompts.shape[1], GENERATE_TOKENS
+    reset_counts()
+    out = bt.generate(model, prompts, steps,
+                      generator=torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check(tuple(out.shape) == (prompts.shape[0], n + steps)
+          and torch.equal(out[:, :n], prompts)
+          and bool(((out >= 0) & (out < cfg.n_vocab)).all()),
+          f"MoE generate: {steps} tokens after {tuple(prompts.shape)}, in "
+          f"range")
+    noise = bt.models.sparse_transformer.sample_noise(
+        (steps, prompts.shape[0], cfg.n_vocab),
+        torch.Generator(device=dev).manual_seed(SEED), dev)
+    worst = 0.0
+    for i in range(steps):
+        buf = torch.zeros((prompts.shape[0], cfg.ctx), dtype=torch.int64,
+                          device=dev)
+        buf[:, :n + i] = out[:, :n + i]
+        lk, lp = run_tapped(ktap, ptap, lambda: model(buf)[:, n + i - 1],
+                            lambda: plain(buf)[:, n + i - 1])
+        tok = bt.models.sparse_transformer.sample_tokens(lk, 1.0, noise[i])
+        check(torch.equal(tok, out[:, n + i]),
+              f"MoE generate step {i}: its tokens are the samples of the "
+              f"step's forward logits at the same noise")
+        err = (lk - lp).abs().max().item()
+        scale = max(1.0, lp.abs().max().item())
+        worst = max(worst, err / (MODEL_TOL * scale))
+    check(worst <= 1.0, f"MoE generate: each step's logits against the plain "
+                        f"model's (same tokens, same routing), worst at "
+                        f"{worst:.3f} of the tolerance {MODEL_TOL:g} x "
+                        f"max(1, max|plain|)")
+    return launches
+
+
+def moe_step_expect(model, L, N):
+    """A train step's launches: per layer and expert, two products forward,
+    two in the recompute, two bprops and two updats (bsmm1's in bf16, its
+    runs summed by the reduce when split; bsmm2's in f32 unsplit); f32
+    products on the split route add a merge each; the attention's as the
+    flagship's."""
+    from blocksparse_tpu_torch.kernels.bsmm import device_sm_count
+    moe, C, sms = model.moe, model.moe.capacity(N), device_sm_count()
+    E = moe.E
+    merges = sum(op._route(C, d, sms) == "phased"
+                 for op in (moe.bsmm1, moe.bsmm2) for d in ("f", "f", "b"))
+    return {"bsmm_fprop": 4 * E * L, "bsmm_bprop": 2 * E * L,
+            "bsmm_updat": 2 * E * L, "bsmm_merge": merges * E * L,
+            "bsmm_updat_reduce": E * L * int(
+                moe.bsmm1.updat_splits(C, torch.bfloat16) > 1),
+            "bst_attn_fwd_lse": 2 * L, "bst_attn_dq": L, "bst_attn_dkv": L}
+
+
+def moe_path(bt, dev, g, card_line, rows, marks):
+    """The MoE LM at full width: its layer and products at the path's
+    shapes; the forward against the plain model (same routing) and the
+    routing flips without it; ``generate``; the train step: its first call
+    counted, MOE_STEPS captured steps each equal to the eager step bit for
+    bit and within tolerance of the plain model's step (same routing), the
+    loss falling; ms a step, kernels a step, the graph's memory.  Returns
+    the counted step's launches."""
+    cfg, model, plain, ktap, ptap = moe_models(bt, dev)
+    L, N = cfg.n_layer, BATCH * cfg.ctx
+    moe = model.moe
+    n_params = sum(p.numel() for p in model.parameters())
+    n_expert = sum(p.numel() for n, p in model.named_parameters()
+                   if ".moe.w" in n and not n.endswith("wg"))
+    print(f"MoE LM: {L} layers x {cfg.n_embd}d, {cfg.n_head} heads, ctx "
+          f"{cfg.ctx}; {moe.E} experts of {moe.d} -> {moe.h} -> {moe.d} at "
+          f"b{moe.bsmm1.bsize} ({moe.bsmm1.blocks} blocks each), top-{moe.k},"
+          f" capacity factor {moe.cf}: C = {moe.capacity(N)} slots an expert "
+          f"at {N} tokens; {n_params / 1e6:.2f} M params, {n_expert / 1e6:.2f}"
+          f" M expert weights; routes {model._mlp_routes(N)}", flush=True)
+    routes = moe_layer_checks(model, plain, dev, g, card_line, rows, marks)
+
+    rng = np.random.RandomState(SEED + 7)
+    seq = torch.from_numpy(rng.randint(0, cfg.n_vocab,
+                                       (BATCH, cfg.ctx + 1))).to(dev)
+    tokens, targets = seq[:, :-1], seq[:, 1:]
+    model(tokens[:1])
+    torch.cuda.synchronize()
+    reset_counts()
+    logits = model(tokens)
+    torch.cuda.synchronize()
+    fwd_launches = read_counts()
+    want = dict.fromkeys(fwd_launches, 0)
+    want.update({"bsmm_fprop": 2 * moe.E * L, "bst_attn_fwd": L})
+    for op in (moe.bsmm1, moe.bsmm2):
+        if op.dispatch_mode(moe.capacity(N)) == "phased":
+            want["bsmm_merge"] += moe.E * L
+    check(fwd_launches == want, f"MoE forward launches {fwd_launches}, "
+                                f"expected {want}")
+    logits, ref = run_tapped(ktap, ptap, lambda: model(tokens),
+                             lambda: plain(tokens))
+    compare(f"MoE forward logits ({BATCH} x {cfg.ctx}) against the plain "
+            f"model, same routing", logits, ref, MODEL_TOL)
+    per, total = routing_flips(ktap, ptap, lambda: model(tokens),
+                               lambda: plain(tokens))
+    print(f"      without shared routing, tokens routed otherwise (top "
+          f"expert or drop) by layer {per}, in any layer {total} of {N}",
+          flush=True)
+    fwd_ms = time_ms(lambda: model(tokens), 3)
+    print(f"MoE forward batch {BATCH} x {cfg.ctx}: {fwd_ms:.2f} ms (mean of "
+          f"3, CUDA events) [{card_line}]", flush=True)
+    del logits, ref
+    torch.cuda.empty_cache()
+    gen_launches = moe_generate(bt, model, plain, ktap, ptap, cfg, dev,
+                                seq[:2, :PROMPT_LEN])
+    print(f"launches: MoE generate ({GENERATE_TOKENS} tokens, a full forward "
+          f"each) {gen_launches}", flush=True)
+
+    # the train step
+    ls = torch.tensor(LOSS_SCALE, device=dev)
+    opt = bt.AdamOptimizer(learning_rate=LR, zero_nans=True, zero_infs=True)
+    step = model.make_train_step(opt, clip_norm=CLIP)
+    eager = step._eager
+    pstep = plain.make_train_step(opt, clip_norm=CLIP)._eager
+    state = opt.init(dict(model.named_parameters()))
+    want = dict.fromkeys(read_counts(), 0)
+    want.update(moe_step_expect(model, L, N))
+    def grads(m):
+        names, params = zip(*m.named_parameters())
+        loss = m.loss(tokens, targets)
+        return loss.detach(), dict(zip(names, (g / ls for g in torch.autograd
+                                               .grad(loss * ls, params))))
+    (lk, gk), (lp, gp) = run_tapped(ktap, ptap, lambda: grads(model),
+                                    lambda: grads(plain))
+    rel = abs(lk.item() - lp.item()) / abs(lp.item())
+    check(rel <= STEP_LOSS_TOL, f"MoE train loss {lk.item():.6f} against the "
+                                f"plain model's {lp.item():.6f}, same routing"
+                                f" (rel diff {rel:.2e}, tol {STEP_LOSS_TOL:g})")
+    compare_tensors("MoE gradients against the plain model, same routing",
+                    gk, gp, GRAD_TOL)
+    live = {k: v.abs() > GRAD_TOL * v.abs().max() for k, v in gp.items()}
+    del gk, gp
+    torch.cuda.empty_cache()
+    losses = []
+    for i in range(MOE_STEPS):
+        start = snapshot(model)
+        s_in = {k: (v.clone() if torch.is_tensor(v) else
+                    {n: t.clone() for n, t in v.items()})
+                for k, v in state.items()}
+        plain.load_state_dict(start)
+
+        def kernel_eager():
+            return eager({k: (v.clone() if torch.is_tensor(v) else
+                              {n: t.clone() for n, t in v.items()})
+                          for k, v in s_in.items()}, tokens, targets, ls)
+
+        def plain_eager():
+            return pstep({k: (v.clone() if torch.is_tensor(v) else
+                              {n: t.clone() for n, t in v.items()})
+                          for k, v in s_in.items()}, tokens, targets, ls)
+        (_, m_e, sc_e), (_, m_p, _) = run_tapped(ktap, ptap, kernel_eager,
+                                                 plain_eager)
+        d_e = {k: v - start[k] for k, v in model.state_dict().items()}
+        d_p = {k: v - start[k] for k, v in plain.state_dict().items()}
+        restore(model, start)
+        torch.cuda.synchronize()
+        if i == 0:
+            torch.cuda.empty_cache()
+            held0 = torch.cuda.memory_reserved()
+            reset_counts()
+            t = time.perf_counter()
+        state, m_c, scale = step(state, tokens, targets, ls)
+        torch.cuda.synchronize()
+        if i == 0:
+            first_s = time.perf_counter() - t
+            launches = read_counts()
+            torch.cuda.empty_cache()
+            held = (torch.cuda.memory_reserved() - held0) / 2 ** 30
+            want2 = {k: 2 * n for k, n in want.items()}
+            check(launches == want2,
+                  f"MoE train step's first call launches {launches}, "
+                  f"expected {want2} (the warm-up's eager step and the "
+                  f"captured step, each {want})")
+            warm_s, capture_s = step.captures[0]
+            print(f"MoE train step graph [{card_line}]: first call "
+                  f"{first_s:.3f} s (warm-up {warm_s:.3f} s, capture "
+                  f"{capture_s:.3f} s); the graph holds {held:.2f} GiB",
+                  flush=True)
+        d_c = {k: v - start[k] for k, v in model.state_dict().items()}
+        bits = all(torch.equal(m_c[k], m_e[k]) for k in m_c) and \
+            torch.equal(scale, sc_e) and \
+            all(torch.equal(d_c[k], d_e[k]) for k in d_c)
+        check(bits, f"MoE step {i + 1}: the captured step equals the eager "
+                    f"step bit for bit (metrics, scale, every update)")
+        for k in ("loss", "grad_norm"):
+            a, b = m_c[k].item(), m_p[k].item()
+            check(abs(a - b) <= STEP_LOSS_TOL * abs(b),
+                  f"MoE step {i + 1} {k} {a:.6f} against the plain model's "
+                  f"{b:.6f}, same routing (tol {STEP_LOSS_TOL:g} relative)")
+        if i == 0:
+            compare_tensors("MoE step 1 parameter updates against the plain "
+                            "model's", d_c, d_p, GRAD_TOL, live=live,
+                            flip_bound=2 * LR + 1e-6)
+        losses.append(m_c["loss"].item())
+        ls = scale
+        del d_e, d_p, d_c, start, s_in
+        torch.cuda.empty_cache()
+    check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+          f"MoE LM: {MOE_STEPS} captured steps on one batch, loss "
+          f"{' '.join(f'{x:.4f}' for x in losses)} (finite, falling)")
+    reset_counts()
+    holder = {"state": state, "scale": ls}
+
+    def one_step():
+        holder["state"], _, holder["scale"] = step(
+            holder["state"], tokens, targets, holder["scale"])
+    step_ms = time_ms(one_step, TIMED_STEPS)
+    replayed = read_counts()
+    check(not any(replayed.values()),
+          f"MoE train step replays launch through no wrapper ({replayed})")
+    _, kernels = device_events(one_step)
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    count = sum(e.count for e in kernels)
+    ours = {name: (sum(e.self_device_time_total for e in kernels
+                       if name in e.key) / 1e3,
+                   sum(e.count for e in kernels if name in e.key))
+            for name in ("bsmm_xprop_nc_kernel", "bsmm_updat_nc_kernel",
+                         "bsmm_updat_mma_kernel", "bsmm_updat_reduce_kernel",
+                         "bsmm_merge_kernel", "bst_attn")}
+    print(f"MoE train step [{card_line}]: batch {BATCH} x {cfg.ctx}, "
+          f"captured {step_ms:.2f} ms (mean of {TIMED_STEPS} replays, CUDA "
+          f"events) = {N / step_ms * 1e3:.0f} tokens/s; one replay profiled: "
+          f"{count} kernels, {total:.2f} ms of device time (busy "
+          f"{total / step_ms:.0%}); port kernels "
+          + ", ".join(f"{k} {ms:.2f} ms ({n})" for k, (ms, n) in ours.items())
+          + f"; every kernel by name: {by_kernel(kernels, 1)}", flush=True)
+    del model, plain, step, holder, state
+    torch.cuda.empty_cache()
+    return launches
+
+
+# The rest of the conv at the bench's C = 512 shape (batch 32, 32 x 32,
+# 3 x 3 SAME): a ragged BCK (channel blocks of 16, 32 and 48 over the
+# bench's 32-blocks' rows), impl="matmul" and the deconv on the bench's
+# d 0.25 BCK; the goldens at a small size.
+CONV_RAGGED_SIZES = (16, 32, 48)
+# f32 against the dense cuDNN call or impl="conv" (TF32 off): sums of C*9
+# (y, dI) or N*H*W (dF) products in other orders; bf16 at DENSE_TOL (each
+# side rounds its bf16 operands and outputs on its own path)
+CONV_F32_TOL = 1e-4
+
+
+def ragged_bck(C, rng):
+    """Blocks of CONV_RAGGED_SIZES channels: the C channels cut into runs
+    of random sizes on each side, each input run joined to the output run
+    of its index and, at the bench's density, to others."""
+    def cuts(n):
+        out, at = [], 0
+        while at < n:
+            s = min(int(rng.choice(CONV_RAGGED_SIZES)), n - at)
+            out.append(tuple(range(at, at + s)))
+            at += s
+        return out
+    cs, ks = cuts(C), cuts(C)
+    return [(c, k) for i, c in enumerate(cs) for j, k in enumerate(ks)
+            if j == i % len(ks) or i == j % len(cs)
+            or rng.rand() < CONV_DENSITIES[0]]
+
+
+def dense_of(conv, F):
+    """Any conv's filter scattered into the dense (K, C, R, S) weight of
+    the same map (overlapping blocks add)."""
+    R, S = conv.TRS[1:]
+    wd = torch.zeros((conv.K, conv.C, R, S), dtype=torch.float32,
+                     device=F.device)
+    blocks = conv.expand_filter(F.reshape(-1).float())
+    for (cs, ks), f in zip(conv.BCK, blocks):
+        k = torch.as_tensor(ks, device=F.device)[:, None]
+        c = torch.as_tensor(cs, device=F.device)[None, :]
+        wd[k, c] += f.reshape(len(ks), len(cs), R, S)
+    return wd
+
+
+def conv_rest_path(bt, dev, g, card_line):
+    """Ragged, impl="matmul" and the deconv at C = 512, bf16 and f32:
+    forward and both gradients against the dense cuDNN conv (or its
+    transpose) of the scattered filter and impl="conv", timed beside the
+    dense call; the edge bias and the l2 norms against the CPU; the
+    goldens at a small size.  Plain torch throughout: no kernel
+    launches."""
+    C, hw, N = CONV_CHANNELS[0], CONV_HW, CONV_BATCH
+    rng = np.random.RandomState(SEED + 3)
+    _, d, BCK = conv_configs()[0]
+    ops = {"ragged": bt.BlocksparseConv(ragged_bck(C, rng), (3, 3),
+                                        (hw, hw), padding="SAME"),
+           "matmul": bt.BlocksparseConv(BCK, (3, 3), (hw, hw),
+                                        padding="SAME", impl="matmul"),
+           "deconv": bt.BlocksparseDeconv(BCK, (3, 3), (hw, hw))}
+    conv_ref = bt.BlocksparseConv(BCK, (3, 3), (hw, hw), padding="SAME")
+    reset_counts()
+    for name, op in ops.items():
+        for dt in (torch.float32, torch.bfloat16):
+            F = bt.conv_filter_from_jax(bt.random_jax_conv_filter(op, SEED),
+                                        op, dev).to(dt)
+            x = (torch.rand(op.i_shape(N), device=dev, generator=g) * 2 - 1
+                 ).to(dt).reshape([N, -1, hw, hw])
+            wd = dense_of(op, F).to(dt)
+            if name == "deconv":
+                # y = A(F)^T x: the transposed dense conv of the conv's
+                # filter, (K, C) in the conv's terms
+                def dense(x, w):
+                    return nnf.conv_transpose2d(x, w, padding=1)
+            else:
+                def dense(x, w):
+                    return nnf.conv2d(x, w, padding=1)
+            tol = DENSE_TOL if dt == torch.bfloat16 else CONV_F32_TOL
+            got = conv_fwd_bwd(op, F, x)
+            xr, wr = x.detach().requires_grad_(), wd.detach().requires_grad_()
+            y = dense(xr, wr)
+            gx, gw = torch.autograd.grad(y.float().square().sum(), (xr, wr))
+            what = (f"{name} C={C} ({op.blocks} blocks"
+                    + ("" if op.fixed_block_size else
+                       f", sizes {sorted({len(c) for c, _ in op.BCK})}")
+                    + f") N={N} {hw}x{hw} {str(dt)[6:]}")
+            compare(f"{what}: y against the dense cuDNN "
+                    f"{'conv_transpose2d' if name == 'deconv' else 'conv2d'}"
+                    f" of the scattered filter", got[0].reshape(y.shape), y,
+                    tol)
+            compare(f"{what}: dI against the dense call's", got[1].reshape(
+                gx.shape), gx, tol)
+            support = dense_of(op, torch.ones_like(got[2])) != 0
+            compare(f"{what}: dF against the dense call's on the blocks",
+                    dense_of(op, got[2]), gw * support, tol)
+            if name == "matmul":
+                for n_, a, b in zip(("y", "dI", "dF"), got,
+                                    conv_fwd_bwd(conv_ref, F, x)):
+                    compare(f"{what}: {n_} against impl=\"conv\"", a, b,
+                            tol)
+            ms = time_ms(lambda: conv_fwd_bwd(op, F, x), 3)
+            with torch.no_grad():
+                fwd_ms = time_ms(lambda: op(F, x), 3)
+                dense_fwd = time_ms(lambda: dense(x, wd), 5)
+
+            def dense_fb():
+                xr, wr = x.detach().requires_grad_(), \
+                    wd.detach().requires_grad_()
+                return torch.autograd.grad(
+                    dense(xr, wr).float().square().sum(), (xr, wr))
+            dense_ms = time_ms(dense_fb, 5)
+            print(f"{what} [{card_line}]: forward {fwd_ms:.3f} ms, forward +"
+                  f" backward {ms:.3f} ms; dense cuDNN forward "
+                  f"{dense_fwd:.3f} ms, forward + backward {dense_ms:.3f} ms "
+                  f"(CUDA events)", flush=True)
+            del F, x, wd, got, y, gx, gw
+            torch.cuda.empty_cache()
+    # the edge bias on the conv's output (NCHW) and the l2 norms, against
+    # the same ops on the CPU
+    eb = bt.conv_edge_bias_init([N, C, hw, hw], [N, C, hw, hw],
+                                [3, 3, C, C], data_format="NCHW")
+    xg = torch.randn((N, C, hw, hw), device=dev, generator=g)
+    gb = [torch.rand(eb.shape, device=dev, generator=g) + 0.5
+          for _ in range(2)]
+    outs = []
+    for t in (xg, *gb), tuple(a.cpu() for a in (xg, *gb)):
+        leaves = [a.detach().requires_grad_() for a in t]
+        y = eb(*leaves)
+        outs.append([y.detach()] + list(torch.autograd.grad(
+            y.square().sum(), leaves)))
+    for n_, a, b in zip(("y", "dx", "dg", "db"), *outs):
+        compare(f"edge bias NCHW ({eb.edgeBiasDim} patterns, {C} channels, "
+                f"{hw}x{hw}) {n_} on the card against the CPU", a.cpu(), b,
+                TOL[torch.float32])
+    for name, op in (("conv ragged", ops["ragged"]),
+                     ("deconv", ops["deconv"])):
+        F = torch.tensor(bt.random_jax_conv_filter(op, SEED), device=dev)
+        n = op._n_ccols if name == "deconv" else op._n_krows
+        gain = torch.rand(n, device=dev, generator=g) + 0.5
+        res = []
+        for Fd, gd in ((F, gain), (F.cpu(), gain.cpu())):
+            Fr = Fd.detach().requires_grad_()
+            out = op.l2_normalize(Fr, gain=gd)
+            res.append((out.detach().cpu(), torch.autograd.grad(
+                out.square().sum() + out.sum(), Fr)[0].cpu()))
+        for n_, a, b in zip(("value", "gradient"), *res):
+            compare(f"{name} l2_normalize (C={C}) {n_} on the card against "
+                    f"the CPU", a, b, TOL[torch.float32])
+    # the goldens at a small size, on the card
+    small = [((0, 1, 2, 3, 4), (0, 1, 2)), ((2, 3, 5, 6, 7), (2, 3, 4, 5)),
+             ((1, 6), (4, 5, 6, 7)), ((0, 7), (0, 7))]
+    gr = np.random.RandomState(SEED)
+    for cls in ("BlocksparseConv", "BlocksparseDeconv"):
+        op = getattr(bt, cls)(small, (3, 3), (6, 6))
+        blocks = [gr.uniform(-1, 1, op.f_shape(b)[:2] + op.TRS)
+                  .astype(np.float32) for b in range(op.blocks)]
+        F = torch.tensor(op.collapse_filter(blocks, np.float32), device=dev,
+                         requires_grad=True)
+        I = gr.uniform(-1, 1, op.i_shape(2)).astype(np.float32)
+        E = gr.uniform(-1, 1, op.o_shape(2)).astype(np.float32)
+        Ir = torch.tensor(I, device=dev, requires_grad=True)
+        y = op(F, Ir)
+        dF, dI = torch.autograd.grad((y * torch.tensor(E, device=dev)).sum(),
+                                     (F, Ir))
+        for n_, a, b in (("fprop", y, op.fprop_test(blocks, I)),
+                         ("bprop", dI, op.bprop_test(blocks, E)),
+                         ("updat", dF, op.updat_test(E, I))):
+            compare(f"{cls} ragged (4 blocks, 6x6) {n_} on the card against "
+                    f"the NumPy golden", a.cpu().reshape(b.shape),
+                    torch.as_tensor(b), 1e-4)
+    launched = {k: v for k, v in read_counts().items() if v}
+    check(not launched, f"the rest of the conv launches no kernel (plain "
+                        f"torch, as JAX's XLA lowerings): {launched}")
+
+
 def build_all():
     from blocksparse_tpu_torch.kernels import _build
 
@@ -4326,12 +4978,22 @@ def main():
     print(f"launches: LSTM ({LSTM_STEPS} entry-point steps) "
           f"{lstm_launches}", flush=True)
 
+    # 5f. the LM with MoE MLPs at full width: its layer and products, the
+    # forward and generate against its plain model, the captured train
+    # step (counted) against the eager step and the plain model
+    moe_launches = moe_path(bt, dev, g, card_line, rows, lstm_marks)
+    print(f"launches: MoE LM train step's first call {moe_launches}",
+          flush=True)
+
     # 6. the block-sparse conv: kernels against plain versions, then the
     # conv path, counted
     conv_kernel_checks(dev, g, rows)
     conv_launches = conv_path(bt, dev, g, card_line, rows)
     print(f"launches: conv path (one forward + backward) {conv_launches}",
           flush=True)
+    # 6b. the rest of the conv (plain torch): ragged, impl="matmul", the
+    # deconv, the edge bias and the l2 norms at C=512
+    conv_rest_path(bt, dev, g, card_line)
 
     # 7. BlocksparseMatMul's schedule modes: the three mode kernels against
     # their plain versions, then the canonical bench rows in each mode and
@@ -4417,6 +5079,15 @@ def main():
          lstm_launches["bsmm_merge"], rows["lstm_merge"]),
         ("bsmm_updat_lstm", "bsmm_updat.cu", "bsmm.py:1972",
          lstm_launches["bsmm_updat"], rows["lstm_updat"]),
+        # the MoE LM's expert products at N = C, f32 (F6); the updat row
+        # counts both experts' products (bsmm1's on bsmm_updat_mma.cu, its
+        # bf16 inputs) and times bsmm2's f32 one
+        ("bsmm_fprop_moe", "bsmm_fprop.cu", "bsmm.py:1422",
+         moe_launches["bsmm_fprop"], rows["moe_fprop"]),
+        ("bsmm_bprop_moe", "bsmm_fprop.cu", "bsmm.py:1422",
+         moe_launches["bsmm_bprop"], rows["moe_bprop"]),
+        ("bsmm_updat_moe", "bsmm_updat.cu", "bsmm.py:1972",
+         moe_launches["bsmm_updat"], rows["moe_updat"]),
     ]
     check(all(n > 0 for _, _, _, n, _ in kernels),
           f"every kernel launched on its path ({len(kernels)} kernels)")

@@ -253,12 +253,19 @@ def test_build_bsmm_errors_match_jax(name):
 
 
 def test_conv_rejects_unported_options():
+    """What the conv still refuses: an unknown impl or bsmm_impl,
+    impl="bsmm" on ragged blocks (JAX's ValueError) and a filter of another
+    shape.  impl="matmul" and ragged blocks build (their parity:
+    tests/test_torch_conv_rest.py)."""
     BCK = _blocks([(0, 0), (1, 1)], 8)
-    with pytest.raises(NotImplementedError, match="matmul"):
-        BlocksparseConv(BCK, (3, 3), (8, 8), impl="matmul")
+    assert BlocksparseConv(BCK, (3, 3), (8, 8), impl="matmul").impl == \
+        "matmul"
+    with pytest.raises(ValueError, match="unknown impl"):
+        BlocksparseConv(BCK, (3, 3), (8, 8), impl="xla")
     ragged = [((0, 1, 2, 3), (0, 1)), ((4, 5), (2, 3, 4))]
-    with pytest.raises(NotImplementedError, match="ragged"):
-        BlocksparseConv(ragged, (3,), (8,))
+    assert not BlocksparseConv(ragged, (3,), (8,)).fixed_block_size
+    with pytest.raises(ValueError, match="fixed square channel blocks"):
+        BlocksparseConv(ragged, (3,), (8,), impl="bsmm")
     with pytest.raises(ValueError, match="bsmm_impl"):
         BlocksparseConv(BCK, (3, 3), (8, 8), bsmm_impl="pallas")
     conv = BlocksparseConv(BCK, (3, 3), (8, 8))

@@ -207,11 +207,19 @@ def test_bsmm_kernel_feature_axis_0(cuda):
 
 @pytest.mark.cuda
 def test_bsmm_kernel_rejects_cpu_and_mixed_dtypes(cuda):
+    """The kernel wrappers refuse mixed dtypes, f64 and a CPU tensor; the
+    op multiplies mixed operands in their promoted dtype (the JAX product
+    of a bf16 and an f32 operand, ROADMAP F6), rounded to x's dtype."""
     layout = random_layout(2, 2, 1.0, seed=0)
     port = BlocksparseMatMul(layout, block_size=16, feature_axis=1)
     x = torch.randn((4, port.C), device=cuda)
+    w16 = torch.randn(port.w_shape, device=cuda).bfloat16()
+    lut = port._lut(cuda)
     with pytest.raises(TypeError):
-        port(x, torch.randn(port.w_shape, device=cuda).bfloat16())
+        bsmm_kernels.bsmm_fprop(x, w16, lut["f_row_ptr"], lut["f_ent_in"],
+                                lut["f_ent_w"], 16, port.KB)
+    y = port(x, w16)
+    assert y.dtype == torch.float32 and torch.equal(y, port(x, w16.float()))
     with pytest.raises(TypeError):
         port(x.double(), torch.randn(port.w_shape, device=cuda).double())
     with pytest.raises(ValueError):
@@ -2500,3 +2508,97 @@ def test_sparse_lstm_on_the_kernels_matches_the_plain_model(cuda,
     for k, g in g1.items():
         assert (g0[k] - g).abs().max().item() <= \
             UPDAT_TOL * g.abs().max().item(), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", [0, 1])
+def test_mixed_dtype_bsmm_runs_the_f32_kernels(cuda, axis):
+    """bf16 x with f32 W (the MoE's experts, ROADMAP F6): fprop and bprop
+    run the f32 kernel on the upcast operand and round to x's dtype, dw is
+    f32; against the plain op's (the JAX product) within one bf16
+    rounding, dw within the updat's tolerance."""
+    layout = random_layout(4, 8, 0.5, seed=7)
+    op = BlocksparseMatMul(layout, block_size=32, feature_axis=axis)
+    ref = BlocksparseMatMul(layout, block_size=32, feature_axis=axis,
+                            impl="xla")
+    g = _gen(cuda, 21)
+    shape = (300, op.C) if axis else (op.C, 300)
+    x = torch.randn(shape, device=cuda, generator=g).to(torch.bfloat16)
+    w = torch.randn(op.w_shape, device=cuda, generator=g) * 0.1
+    outs = []
+    before = bsmm_kernels.bsmm_fprop.launches
+    for o in (op, ref):
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = o(xr, wr)
+        dy = torch.ones_like(y)
+        outs.append((y, *torch.autograd.grad(y, (xr, wr), dy)))
+    assert bsmm_kernels.bsmm_fprop.launches == before + 1
+    (y, dx, dw), (ry, rdx, rdw) = outs
+    assert y.dtype == dx.dtype == torch.bfloat16 and dw.dtype == torch.float32
+    for a, b in ((y, ry), (dx, rdx)):
+        assert (a.float() - b.float()).abs().max().item() <= \
+            1e-2 * max(1.0, b.float().abs().max().item())
+    assert (dw - rdw).abs().max().item() <= UPDAT_TOL * rdw.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2])
+def test_moe_layer_on_the_card_matches_the_plain_layer(cuda, k):
+    """BlocksparseMoE on the kernels against impl="xla" from the same
+    params and bf16 tokens (one routing: the router is plain torch in
+    both): y, aux and every gradient within the matmul's tolerances,
+    F6's dtypes, two runs equal bit for bit (no float atomics)."""
+    from blocksparse_tpu_torch.ops.moe import BlocksparseMoE
+    kw = dict(block_size=32, density=0.5, capacity_factor=1.0, k=k)
+    moe, plain = BlocksparseMoE(4, 64, 128, **kw), \
+        BlocksparseMoE(4, 64, 128, impl="xla", **kw)
+    params = moe.init(_gen(cuda, 22), device=cuda)
+    x = torch.randn((512, 64), device=cuda,
+                    generator=_gen(cuda, 23)).to(torch.bfloat16)
+    dy = torch.randn((512, 64), device=cuda, generator=_gen(cuda, 24))
+    runs = []
+    for m in (moe, moe, plain):
+        p = {n: t.clone().requires_grad_() for n, t in params.items()}
+        xr = x.clone().requires_grad_()
+        y, aux = m(p, xr)
+        runs.append([y, aux] + list(torch.autograd.grad(
+            (y, aux), [xr] + list(p.values()),
+            (dy, torch.tensor(1.0, device=cuda)))))
+    a, b, ref = runs
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    assert a[0].dtype == torch.float32 and a[2].dtype == torch.bfloat16
+    assert all(t.dtype == torch.float32 for t in a[3:])
+    assert abs(a[1].item() - ref[1].item()) <= 1e-6
+    for got, want in zip(a[:1] + a[2:], ref[:1] + ref[2:]):
+        assert (got.float() - want.float()).abs().max().item() <= \
+            1e-2 * max(1.0, want.float().abs().max().item())
+
+
+@pytest.mark.cuda
+def test_moe_lm_captured_step_equals_the_eager_step(cuda):
+    """A small MoE LM's train step, one CUDA graph, equals its eager step
+    bit for bit (metrics, scale, every parameter), and its replays launch
+    through no wrapper."""
+    cfg = TransformerConfig(**dict(GRAPH_LM, mlp_block_size=32,
+                                   mlp_density=1.0, moe_experts=4, moe_k=2))
+    model = SparseTransformerLM(cfg, device=cuda)
+    model.load_state_dict(params_from_jax(random_jax_params(model, 5),
+                                          model))
+    tokens = torch.randint(0, cfg.n_vocab, (2, cfg.ctx), device=cuda,
+                           generator=_gen(cuda, 25))
+    opt = AdamOptimizer(learning_rate=1e-3)
+    step = model.make_train_step(opt)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    _, m_e, sc_e = step._eager(opt.init(dict(model.named_parameters())),
+                               tokens, tokens, 1024.0)
+    after_e = {k: v.clone() for k, v in model.state_dict().items()}
+    model.load_state_dict(start)
+    state, m_c, sc_c = step(opt.init(dict(model.named_parameters())),
+                            tokens, tokens, 1024.0)
+    assert all(torch.equal(m_c[k], m_e[k]) for k in m_c)
+    assert torch.equal(sc_c, sc_e)
+    assert all(torch.equal(v, after_e[k])
+               for k, v in model.state_dict().items())
+    before = bsmm_kernels.bsmm_fprop.launches
+    step(state, tokens, tokens, sc_c)
+    assert bsmm_kernels.bsmm_fprop.launches == before

@@ -169,10 +169,18 @@ def test_cpu_path_launches_no_kernel_and_rejects_unported_options():
     port(torch.zeros((1, 64), dtype=torch.long))
     assert (bsmm_kernels.bsmm_fprop.launches,
             bst_attn.attention_fwd.launches) == before
-    for kw in (dict(tp=2), dict(moe_experts=2)):
+    for kw in (dict(tp=2), dict(moe_experts=2, ep=2)):
         with pytest.raises(NotImplementedError):
             SparseTransformerLM(TransformerConfig(**dict(TINY, **kw)),
                                 device="cpu")
+    with pytest.raises(ValueError, match="ep needs moe_experts"):
+        SparseTransformerLM(TransformerConfig(**dict(TINY, ep=2)),
+                            device="cpu")
+    # MoE builds; its KV-cached decode raises, as the JAX asserts
+    moe = SparseTransformerLM(TransformerConfig(**dict(TINY, moe_experts=2)),
+                              device="cpu")
+    with pytest.raises(NotImplementedError, match="KV-cached decode"):
+        moe.prefill(torch.zeros((1, 64), dtype=torch.long))
     # residual dropout is ported: it builds, and drops nothing unasked
     drop = SparseTransformerLM(TransformerConfig(**dict(TINY,
                                                         resid_pdrop=0.1)),

@@ -308,9 +308,15 @@ def test_entry_point_trains_checkpoints_and_resumes_on_the_cpu(tmp_path,
         "--n_iter", "5", "--profile", "1", "--trace_dir", trace_dir]))
     assert len(prof["losses"]) == 2
     assert os.path.exists(os.path.join(trace_dir, "trace.json"))
-    for flag in ("--tp", "--sp", "--pp", "--ep", "--moe_experts"):
+    for flag in ("--tp", "--sp", "--pp", "--ep"):
         with pytest.raises(NotImplementedError):
-            port_enwik8.build(port_enwik8.parse_args(SMALL + [flag, "2"]))
+            port_enwik8.build(port_enwik8.parse_args(SMALL + [
+                flag, "2", "--moe_experts", "2"]))
+    # MoE builds, its experts at b32 as the JAX example forces
+    cfg, model, _, _ = port_enwik8.build(port_enwik8.parse_args(
+        SMALL + ["--moe_experts", "2"]))
+    assert (cfg.moe_experts, cfg.mlp_block_size) == (2, 32)
+    assert model.moe.bsmm1.bsize == 32
 
 
 def test_profiling_on_the_cpu_is_host_time_and_reports_no_device():
