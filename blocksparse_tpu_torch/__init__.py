@@ -16,7 +16,11 @@ products on the matmul kernels), and the sparse LSTM
 training entry point (``python -m
 blocksparse_tpu_torch.examples.lstm_train``).  On the card the
 LM's decode step (``generate_cached_scan``) and train step each run as
-one CUDA graph, replayed a token or a step.  Each kernel has a
+one CUDA graph, replayed a token or a step.  The LM also trains
+sharded over data, tensor and sequence parallel ranks on
+``torch.distributed`` (``parallel``: the mesh, the collectives of the
+reference's ``nccl`` module, gather and ring attention on shard-local
+kernel tables; NCCL on the card, gloo on the CPU).  Each kernel has a
 plain PyTorch version beside it, which is what runs on the CPU.
 
 Around the kernels, in plain PyTorch as the JAX package leaves them to
@@ -42,10 +46,12 @@ from blocksparse_tpu_torch.models import (
 )
 from blocksparse_tpu_torch.convert import (
     params_from_jax, params_to_jax, opt_state_from_jax, opt_state_to_jax,
-    random_jax_params, conv_filter_from_jax, random_jax_conv_filter,
+    random_jax_params, jax_from_shards, conv_filter_from_jax,
+    random_jax_conv_filter,
     lstm_params_from_jax, lstm_params_to_jax, random_jax_lstm_params,
 )
-from blocksparse_tpu_torch import checkpoint, profiling, sparsity
+from blocksparse_tpu_torch import (checkpoint, nccl, parallel, profiling,
+                                   sparsity)
 
 __all__ = ["reset_scalar_constants", "get_entropy", "set_entropy",
            "entropy_size", "scalar_constant", "ceil_div", "reduce_mul",
@@ -55,7 +61,7 @@ __all__ = ["reset_scalar_constants", "get_entropy", "set_entropy",
            "generate_cached", "generate_cached_scan", "SparseLSTM",
            "LSTMConfig", "params_from_jax",
            "params_to_jax", "opt_state_from_jax", "opt_state_to_jax",
-           "random_jax_params", "conv_filter_from_jax",
+           "random_jax_params", "jax_from_shards", "conv_filter_from_jax",
            "random_jax_conv_filter", "lstm_params_from_jax",
            "lstm_params_to_jax", "random_jax_lstm_params", "checkpoint",
-           "profiling", "sparsity"]
+           "nccl", "parallel", "profiling", "sparsity"]

@@ -8,6 +8,13 @@ an MoE layer holds a ``moe`` dict (``wg``, ``w1``, ``b1``, ``w2``, ``b2``)
 in place of the MLP's four, the port's ``h.{l}.moe.*``.
 ``params_from_jax`` turns such a dict of NumPy arrays into the port's
 ``state_dict`` and ``params_to_jax`` turns the port's parameters back;
+with tensor parallelism (tp > 1) the JAX dict holds the global arrays in
+the JAX tp layout, ``params_from_jax`` slices the model's tp rank out of
+it (``w_qkv``/``b_qkv`` columns [r·3D/tp, (r+1)·3D/tp), ``w_out`` rows
+[r·D/tp, ...), the block-sparse ``w_fc``/``w_proj`` at [r] or the dense
+ones' column/row slice, ``b_fc`` by hidden/tp), ``params_to_jax`` gives
+the rank's shard in the JAX layout and ``jax_from_shards`` assembles the
+ranks' shards into the global dict;
 ``opt_state_from_jax`` turns a JAX optimizer state into the port's and
 ``opt_state_to_jax`` turns one back: an ``AdamOptimizer`` state
 (``{"mean", "var", "t"}``, f32, bfloat16 or packed16 uint16 slots), an
@@ -72,10 +79,46 @@ def _layers(np_params):
     return [np_params[f"h{l}"] for l in range(n)]
 
 
-def _flat_from_jax(tree):
-    """A JAX param-shaped tree -> {port parameter name: leaf}, the leading
-    tp dim of 1 dropped from block-sparse ``w_fc``/``w_proj`` arrays.  A
-    leaf is an array or a dict of arrays (Adafactor's slots)."""
+# The dim each tp-sharded array of the JAX layout is split along (the
+# block-sparse w_fc/w_proj: their leading tp dim, 0).
+_TP_DIM = {"w_qkv": 1, "b_qkv": 0, "w_out": 0, "b_fc": 0, "w_fc": 1,
+           "w_proj": 0}
+
+
+def _tp_slice(k, a, tp, rank):
+    """Rank ``rank``'s piece of the JAX global array ``a`` of key ``k``
+    (tp ranks): a slice, never a reordering; the block-sparse MLP weights'
+    leading tp dim indexed."""
+    if k in ("w_fc", "w_proj") and a.ndim == 4:
+        if a.shape[0] != tp:
+            raise ValueError(f"{k}: leading tp dim {a.shape[0]}, model tp "
+                             f"{tp}")
+        return a[rank]
+    if k not in _TP_DIM or tp == 1:
+        return a
+    d = _TP_DIM[k]
+    n = a.shape[d] // tp
+    return np.take(a, np.arange(rank * n, (rank + 1) * n), axis=d)
+
+
+def _tp(model, tp_rank):
+    """(tp, the tp rank to load): ``tp_rank``, else the model mesh's."""
+    tp = 1 if model is None else model.config.tp
+    if tp_rank is not None or tp == 1:
+        return tp, tp_rank or 0
+    if model.mesh is None:
+        raise ValueError(f"tp={tp}: pass tp_rank, or bind the model to a "
+                         f"mesh, to say which shard to load")
+    from blocksparse_tpu_torch.parallel.mesh import mpi_rank
+    return tp, mpi_rank("tp", model.mesh)
+
+
+def _flat_from_jax(tree, tp=1, rank=0):
+    """A JAX param-shaped tree -> {port parameter name: leaf}: the tp
+    rank's piece of each tp-sharded array (``_tp_slice``; at tp 1 the
+    leading tp dim of 1 dropped from block-sparse ``w_fc``/``w_proj``).
+    A leaf is an array or a dict of arrays (Adafactor's slots, tp 1
+    only)."""
     flat = {k: tree[k] for k in ("wte", "wpe", "lnf_g", "lnf_b")}
     for l, layer in enumerate(_layers(tree)):
         if "moe" in layer:
@@ -83,14 +126,13 @@ def _flat_from_jax(tree):
                 flat[f"h.{l}.moe.{k}"] = layer["moe"][k]
         for k in _ATTN_KEYS + (() if "moe" in layer else _MLP_KEYS):
             a = layer[k]
-            if not isinstance(a, dict):
-                a = np.asarray(a)
-                if k in ("w_fc", "w_proj") and a.ndim == 4:
-                    if a.shape[0] != 1:
-                        raise NotImplementedError(
-                            "tensor-parallel (tp > 1) weights are not "
-                            "ported yet")
-                    a = a[0]
+            if isinstance(a, dict):
+                if tp > 1:
+                    raise NotImplementedError(
+                        "factored (Adafactor) slots of tp-sharded "
+                        "parameters: the JAX sharded step takes Adam only")
+            else:
+                a = _tp_slice(k, np.asarray(a), tp, rank)
             flat[f"h.{l}.{k}"] = a
     return flat
 
@@ -128,13 +170,15 @@ def _check_shapes(sd, model):
                              f"{tuple(own[k].shape)}")
 
 
-def params_from_jax(np_params, model=None):
+def params_from_jax(np_params, model=None, tp_rank=None):
     """JAX param dict (NumPy arrays) -> the port's state dict (f32).
 
     With ``model`` given, every tensor is also checked against the
-    model's own shapes."""
+    model's own shapes.  A model with tp > 1 gets its tp rank's shard of
+    the JAX global dict: ``tp_rank``, or by default its mesh's."""
     sd = {k: torch.tensor(np.asarray(a), dtype=torch.float32)
-          for k, a in _flat_from_jax(np_params).items()}
+          for k, a in _flat_from_jax(np_params,
+                                     *_tp(model, tp_rank)).items()}
     if model is not None:
         _check_shapes(sd, model)
     return sd
@@ -143,21 +187,42 @@ def params_from_jax(np_params, model=None):
 def params_to_jax(model):
     """The port's parameters as a JAX param dict of NumPy f32 arrays (flat
     ``h{l}`` layers), with the leading tp dim of 1 on block-sparse
-    ``w_fc``/``w_proj``."""
+    ``w_fc``/``w_proj``; with tp > 1 the rank's shard of the JAX global
+    dict (``jax_from_shards`` joins the ranks')."""
     return _flat_to_jax({k: p.detach().float().cpu().numpy()
                          for k, p in model.state_dict().items()}, model)
 
 
-def _slots_from_jax(tree, model, dev):
-    sd = {k: _tensor(a) for k, a in _flat_from_jax(tree).items()}
+def jax_from_shards(shards):
+    """The JAX global tree from its tp ranks' shards, in rank order (each
+    a ``params_to_jax`` dict or an ``opt_state_to_jax`` Adam state or EMA
+    dict): each tp-sharded array concatenated along its split dim, the
+    rest taken from rank 0."""
+    def join(k, leaves):
+        a = leaves[0]
+        if k not in _TP_DIM or not isinstance(a, np.ndarray) or a.ndim == 0:
+            return a
+        d = 0 if (k in ("w_fc", "w_proj") and a.ndim == 4) else _TP_DIM[k]
+        return np.concatenate(leaves, axis=d)
+
+    def walk(k, nodes):
+        if isinstance(nodes[0], dict):
+            return {kk: walk(kk, [n[kk] for n in nodes]) for kk in nodes[0]}
+        return join(k, nodes)
+    return walk(None, list(shards))
+
+
+def _slots_from_jax(tree, model, dev, tp_rank=None):
+    sd = {k: _tensor(a) for k, a in _flat_from_jax(
+        tree, *_tp(model, tp_rank)).items()}
     _check_shapes(sd, model)
     return {k: t.to(dev) for k, t in sd.items()}
 
 
-def opt_state_from_jax(np_state, model):
+def opt_state_from_jax(np_state, model, tp_rank=None):
     """A JAX optimizer state of NumPy arrays -> the port's, on the model's
     device, each slot in its own dtype, keyed by the model's parameter
-    names:
+    names (with tp > 1 the tp rank's shard, as ``params_from_jax``):
 
     - ``AdamOptimizer``: ``{"mean": params, "var": params, "t": int}``
       (f32, bfloat16 or packed16 uint16 slots);
@@ -172,13 +237,15 @@ def opt_state_from_jax(np_state, model):
     if "slots" in np_state:
         return {"slots": {k: {s: _tensor(a).to(dev) for s, a in d.items()}
                           for k, d in _flat_from_jax(
-                              np_state["slots"]).items()},
+                              np_state["slots"],
+                              *_tp(model, tp_rank)).items()},
                 "t": step(np_state["t"])}
     if "mean" in np_state:
-        return {"mean": _slots_from_jax(np_state["mean"], model, dev),
-                "var": _slots_from_jax(np_state["var"], model, dev),
+        return {"mean": _slots_from_jax(np_state["mean"], model, dev,
+                                        tp_rank),
+                "var": _slots_from_jax(np_state["var"], model, dev, tp_rank),
                 "t": step(np_state["t"])}
-    return _slots_from_jax(np_state, model, dev)
+    return _slots_from_jax(np_state, model, dev, tp_rank)
 
 
 def opt_state_to_jax(state, model):
@@ -202,7 +269,9 @@ def random_jax_params(model, seed=0):
     """A JAX-layout param dict of NumPy f32 arrays for ``model``'s config,
     drawn from ``seed`` with the JAX initialiser's scales (normal, std
     0.02, output projections 0.02/sqrt(2·n_layer); gains 1, biases 0; an
-    MoE layer's ``wg``, ``w1`` and ``w2`` std 0.02)."""
+    MoE layer's ``wg``, ``w1`` and ``w2`` std 0.02).  With tp > 1 the
+    global arrays of the JAX init's shapes (a block-sparse MLP weight with
+    a leading tp dim), of which each rank loads its shard."""
     c = model.config
     rng = np.random.RandomState(seed)
     std = 0.02
@@ -219,11 +288,11 @@ def random_jax_params(model, seed=0):
         if model.moe is not None:
             mlp = {}
         elif model.bsmm1 is not None:
-            mlp = {"w_fc": normal((1,) + model.bsmm1.w_shape, std),
-                   "w_proj": normal((1,) + model.bsmm2.w_shape, proj_std)}
+            mlp = {"w_fc": normal((c.tp,) + model.bsmm1.w_shape, std),
+                   "w_proj": normal((c.tp,) + model.bsmm2.w_shape, proj_std)}
         else:
-            mlp = {"w_fc": normal(tuple(layer.w_fc.shape), std),
-                   "w_proj": normal(tuple(layer.w_proj.shape), proj_std)}
+            mlp = {"w_fc": normal((c.n_embd, model.hidden), std),
+                   "w_proj": normal((model.hidden, c.n_embd), proj_std)}
         params[f"h{l}"] = {
             "ln1_g": np.ones(c.n_embd, np.float32),
             "ln1_b": np.zeros(c.n_embd, np.float32),

@@ -338,10 +338,11 @@ cudaError_t launch_dkv(const Args& a, float* dk, float* dv, cudaStream_t stream)
   return cudaGetLastError();
 }
 
-// which = 0: dq into out0; which = 1: dk, dv into out0, out1.
+// which = 0 or 2: dq into out0 (T is float here, so both store f32); which
+// = 1: dk, dv into out0, out1.
 template <typename T, int BS, int HS>
 cudaError_t launch(int which, const Args& a, void* out0, void* out1, cudaStream_t s) {
-  if (which == 0) return launch_dq<T, BS, HS>(a, out0, s);
+  if (which != 1) return launch_dq<T, BS, HS>(a, out0, s);
   return launch_dkv<T, BS, HS>(a, static_cast<float*>(out0), static_cast<float*>(out1), s);
 }
 
@@ -373,8 +374,9 @@ cudaError_t dispatch(int bs, int hs, int which, const Args& a, void* o0, void* o
 // dtype: 0 = float32 (bf16 and f16 run bst_attn_bwd_mma.cu, with this
 // interface; here they return cudaErrorInvalidValue).
 // which: 0 = dq (row_ptr/ent/ent_code: the nn CSR over query block-rows;
-// out0: dq, input type); 1 = dk/dv (the tn CSR over key block-rows with
-// transposed mask codes and table; out0, out1: dk, dv in f32).
+// out0: dq, input type); 2 = dq in f32 (as 0 here, where the input type
+// is f32); 1 = dk/dv (the tn CSR over key block-rows with transposed mask
+// codes and table; out0, out1: dk, dv in f32).
 // strides: batch and row strides, in elements, of q, k, v and dO.
 // order: null (CSR order) or, for dk/dv, (lut_heads, ctx_blks_k) int32, the
 // key block-rows in launch order (launch_block).
@@ -386,7 +388,7 @@ extern "C" int bst_attn_bwd(int dtype, int which, int bs, int hs, const void* q,
                             const int* ent_code, const signed char* uniq,
                             const int* order, int batch, int heads, int lut_heads,
                             int ctx_blks_q, int ctx_blks_k, float scale, void* stream) {
-  if (dtype != 0 || (which != 0 && which != 1)) return cudaErrorInvalidValue;
+  if (dtype != 0 || which < 0 || which > 2) return cudaErrorInvalidValue;
   const Args a = make_args(q, k, v, dout, lse, dvec, strides, row_ptr, ent, ent_code,
                            order, uniq, batch, heads, lut_heads, ctx_blks_q, ctx_blks_k,
                            scale);

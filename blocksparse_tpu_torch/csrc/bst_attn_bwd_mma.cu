@@ -29,7 +29,9 @@
 // pair a slot, one barrier a slot.  Per entry, in chunks of CW key columns:
 // S = q k^T and dP = dO v^T (k and v by plain ldmatrix), P and dS on the
 // accumulator fragments, dS packed into A fragments in place, and
-// dq += dS k (k by ldmatrix.trans).  dq is rounded once to the input type.
+// dq += dS k (k by ldmatrix.trans).  dq is rounded once to the input type,
+// or stored in f32 (which 2: ring attention sums a row's dq over the
+// launches of its key chunks, as fused_attention_dq(out_dtype=f32) does).
 //
 // dk/dv: one thread block per (key block-row, batch*head), over the tn CSR
 // whose mask codes were classified on the transposed blocks.  k and v are
@@ -74,9 +76,11 @@ __host__ __device__ constexpr size_t dq_smem() {
   return (size_t)(2 + 2 * stages<HS>()) * BS * (HS + 8) * sizeof(T);
 }
 
-template <typename T, int BS, int HS>
+// O: dq's type, T (which 0) or float (which 2, for a caller that sums dq
+// over several launches).
+template <typename T, int BS, int HS, typename O>
 __global__ void __launch_bounds__(Cfg<BS>::THREADS)
-bst_attn_dq_mma_kernel(const Args a, T* __restrict__ dq) {
+bst_attn_dq_mma_kernel(const Args a, O* __restrict__ dq) {
   constexpr int TILE = BS * (HS + 8), ST = stages<HS>(), CW = Cfg<BS>::CW;
   extern __shared__ __align__(16) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem);
@@ -173,7 +177,7 @@ bst_attn_dq_mma_kernel(const Args a, T* __restrict__ dq) {
   }
 
   const size_t state = (size_t)a.heads * HS;
-  T* out = dq + ((size_t)b * ctx_q + (size_t)row * BS + r) * state + h * HS + 2 * tg;
+  O* out = dq + ((size_t)b * ctx_q + (size_t)row * BS + r) * state + h * HS + 2 * tg;
 #pragma unroll
   for (int nt = 0; nt < HS / 8; ++nt) {
     store2(out + nt * 8, acc[nt][0], acc[nt][1]);
@@ -327,15 +331,15 @@ bst_attn_dkv_mma_kernel(const Args a, float* __restrict__ dk, float* __restrict_
   }
 }
 
-template <typename T, int BS, int HS>
+template <typename T, int BS, int HS, typename O>
 cudaError_t launch_dq(const Args& a, void* dq, cudaStream_t stream) {
-  auto kernel = bst_attn_dq_mma_kernel<T, BS, HS>;
+  auto kernel = bst_attn_dq_mma_kernel<T, BS, HS, O>;
   constexpr size_t bytes = dq_smem<T, BS, HS>();
   static unsigned ready = 0;
   cudaError_t err = opt_in_smem(kernel, bytes, ready);
   if (err != cudaSuccess) return err;
   const unsigned grid = static_cast<unsigned>((long long)a.batch * a.heads * a.ctx_blks_q);
-  kernel<<<grid, Cfg<BS>::THREADS, bytes, stream>>>(a, static_cast<T*>(dq));
+  kernel<<<grid, Cfg<BS>::THREADS, bytes, stream>>>(a, static_cast<O*>(dq));
   return cudaGetLastError();
 }
 
@@ -355,9 +359,11 @@ cudaError_t launch_dkv(const Args& a, void* dk, void* dv, cudaStream_t stream) {
 template <typename T, int BS>
 cudaError_t dispatch_hs(int hs, int which, const Args& a, void* o0, void* o1,
                         cudaStream_t s) {
-#define BWD_HS(HS)                                                                       \
-  case HS:                                                                               \
-    return which == 0 ? launch_dq<T, BS, HS>(a, o0, s) : launch_dkv<T, BS, HS>(a, o0, o1, s);
+#define BWD_HS(HS)                                                   \
+  case HS:                                                           \
+    return which == 0   ? launch_dq<T, BS, HS, T>(a, o0, s)          \
+           : which == 2 ? launch_dq<T, BS, HS, float>(a, o0, s)      \
+                        : launch_dkv<T, BS, HS>(a, o0, o1, s);
   switch (hs) {
     BWD_HS(16)
     BWD_HS(32)
@@ -382,9 +388,9 @@ cudaError_t dispatch(int bs, int hs, int which, const Args& a, void* o0, void* o
 }  // namespace
 
 // bst_attn_bwd.cu's interface for bf16 (dtype 1) and f16 (dtype 2); any
-// other dtype returns cudaErrorInvalidValue.  q, k, v and dO must start on
-// 16 bytes with batch and row strides that are multiples of 16 bytes, lse
-// and D on 16 bytes.  Returns a cudaError_t (0 = launched).
+// other dtype returns cudaErrorInvalidValue; which 2 is dq stored in f32.
+// q, k, v and dO must start on 16 bytes with batch and row strides that are
+// multiples of 16 bytes, lse and D on 16 bytes.  Returns a cudaError_t (0 = launched).
 extern "C" int bst_attn_bwd_mma(int dtype, int which, int bs, int hs, const void* q,
                                 const void* k, const void* v, const void* dout,
                                 const void* lse, const void* dvec, void* out0, void* out1,
@@ -392,7 +398,7 @@ extern "C" int bst_attn_bwd_mma(int dtype, int which, int bs, int hs, const void
                                 const int* ent_code, const signed char* uniq,
                                 const int* order, int batch, int heads, int lut_heads,
                                 int ctx_blks_q, int ctx_blks_k, float scale, void* stream) {
-  if (which != 0 && which != 1) return cudaErrorInvalidValue;
+  if (which < 0 || which > 2) return cudaErrorInvalidValue;
   const Args a = make_args(q, k, v, dout, lse, dvec, strides, row_ptr, ent, ent_code,
                            order, uniq, batch, heads, lut_heads, ctx_blks_q, ctx_blks_k,
                            scale);

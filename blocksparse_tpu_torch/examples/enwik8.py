@@ -10,14 +10,24 @@ per byte.
     python -m blocksparse_tpu_torch.examples.enwik8 [--n_iter 100] ...
     python -m blocksparse_tpu_torch.examples.enwik8 --device cpu \\
         --n_ctx 64 --n_embd 64 --n_layer 2 --n_head 4 --blk_size 16
+    torchrun --nproc_per_node 4 -m blocksparse_tpu_torch.examples.enwik8 \\
+        --device cpu --tp 2 --sp 2 ...      # 4 gloo ranks (nccl on cuda)
 
 Data: ``--data_file`` with the enwik8 bytes; without it the JAX example's
 synthetic byte stream (``load_data``, ``batch_iter``: the same bytes and
 batches for the same sizes and seeds).  The weights are drawn from seed 0
 with the JAX initialiser's shapes and scales (``random_jax_params``), not
-from JAX's PRNG.  Flags are the JAX example's; ``--tp``, ``--sp``,
-``--pp`` and ``--ep`` other than 1 raise ``NotImplementedError`` (not
-ported).  ``--moe_experts`` > 0 (with ``--moe_k``) makes each MLP a
+from JAX's PRNG.  Flags are the JAX example's.  ``--tp``, ``--sp`` and
+``--sp_mode`` shard the model over the ranks of a torchrun (or of a
+process group the caller initialised): dp is the world size over tp·sp,
+and every rank draws the same global batch and takes its (batch/dp,
+ctx/sp) piece, as the JAX example's mesh splits it; a batch that does not
+divide by dp raises (the JAX example leaves devices idle instead).  One
+process with tp = sp = 1 runs the single-device step, as the JAX
+example's ``use_mesh`` rule; with a mesh only rank 0 prints, and
+checkpoints go to a ``rank{r}`` directory each.  ``--pp`` and ``--ep``
+other than 1 raise ``NotImplementedError`` (not ported).
+``--moe_experts`` > 0 (with ``--moe_k``) makes each MLP a
 block-sparse Mixture-of-Experts and, as in the JAX example, forces
 ``--mlp_block_size`` 32.  Added: ``--device`` (default the
 card), ``--mlp_block_size``/``--mlp_density`` (a block-sparse MLP, the
@@ -40,9 +50,11 @@ from blocksparse_tpu_torch import checkpoint as ck
 from blocksparse_tpu_torch.convert import params_from_jax, random_jax_params
 from blocksparse_tpu_torch.models import SparseTransformerLM, TransformerConfig
 from blocksparse_tpu_torch.ops.optimize import AdamOptimizer
+from blocksparse_tpu_torch.parallel import (allreduce, data_sharding,
+                                            make_mesh, mpi_size)
 from blocksparse_tpu_torch.profiling import trace
 
-_UNPORTED = ("tp", "sp", "pp", "ep")
+_UNPORTED = ("pp", "ep")
 
 
 def load_data(path, n_train, n_valid):
@@ -105,30 +117,54 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def _mesh(args, dev):
+    """The mesh of a sharded run (None for one process at tp = sp = 1):
+    dp = world size / (tp·sp), initialising the process group from the
+    environment if the caller has not."""
+    world = (torch.distributed.get_world_size()
+             if torch.distributed.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    if world == 1 and args.tp == 1 and args.sp == 1:
+        return None
+    if world % (args.tp * args.sp):
+        raise SystemExit(f"--tp {args.tp} x --sp {args.sp} must divide the "
+                         f"world size ({world})")
+    dp = world // (args.tp * args.sp)
+    if args.n_batch % dp:
+        raise SystemExit(f"--n_batch {args.n_batch} must divide by dp = "
+                         f"{dp}")
+    return make_mesh(dp=dp, tp=args.tp, sp=args.sp, device=dev.type)
+
+
 def build(args):
     """(config, model with seed-0 weights, optimizer, train step) for the
-    parsed flags."""
+    parsed flags; with --tp/--sp (or several ranks) the model is this
+    rank's shard and the step the sharded one."""
     for flag in _UNPORTED:
         if getattr(args, flag) != 1:
             raise NotImplementedError(
-                f"--{flag} {getattr(args, flag)} is not ported (the port "
-                f"trains on one device)")
+                f"--{flag} {getattr(args, flag)} is not ported (pipeline "
+                f"and expert parallelism come later)")
     dev = torch.device(args.device)
+    mesh = _mesh(args, dev)
+    if mesh is not None and dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
     dtype = args.dtype or ("bfloat16" if dev.type == "cuda" else "float32")
     cfg = TransformerConfig(
         n_vocab=256, n_embd=args.n_embd, n_layer=args.n_layer,
         n_head=args.n_head, ctx=args.n_ctx, blk_size=args.blk_size,
         attn_layout=args.attn_layout, local_blocks=8, mlp_ratio=4,
-        dtype=dtype, recompute=True, moe_experts=args.moe_experts,
+        dtype=dtype, recompute=True, tp=args.tp, sp=args.sp,
+        sp_mode=args.sp_mode, moe_experts=args.moe_experts,
         moe_k=args.moe_k,
         mlp_block_size=32 if args.moe_experts else args.mlp_block_size,
         mlp_density=args.mlp_density)
-    model = SparseTransformerLM(cfg, device=dev)
+    model = SparseTransformerLM(cfg, device=dev, mesh=mesh)
     model.load_state_dict(params_from_jax(random_jax_params(model, seed=0),
                                           model))
     optm = AdamOptimizer(learning_rate=args.lr, zero_nans=True,
                          zero_infs=True)
-    return cfg, model, optm, model.make_train_step(optm)
+    return cfg, model, optm, model.make_train_step(optm, mesh=mesh)
 
 
 def train(args, on_step=None):
@@ -138,26 +174,38 @@ def train(args, on_step=None):
     "start": start step, "eval": [(step, bits/byte)]}."""
     cfg, model, optm, step_fn = build(args)
     dev = model.wte.device
-    print(f"model: {cfg.n_layer}L x {cfg.n_embd}d ctx {cfg.ctx} "
-          f"attn blocks {model.bst.blocks} | device "
-          f"{torch.cuda.get_device_name(dev) if dev.type == 'cuda' else dev}")
+    mesh = model.mesh
+    say = print if mesh is None or torch.distributed.get_rank() == 0 \
+        else (lambda *a, **k: None)
+    shard = (data_sharding(mesh, "dp", "sp") if mesh is not None
+             else None)
+    ckpt_dir = args.ckpt_dir
+    if mesh is not None and ckpt_dir:
+        ckpt_dir = os.path.join(ckpt_dir,
+                                f"rank{torch.distributed.get_rank()}")
+    say(f"model: {cfg.n_layer}L x {cfg.n_embd}d ctx {cfg.ctx} "
+        f"attn blocks {model.bst.blocks} | device "
+        f"{torch.cuda.get_device_name(dev) if dev.type == 'cuda' else dev}"
+        + ("" if mesh is None else f" | mesh {tuple(mesh.mesh.shape)}"))
     opt_state = optm.init(dict(model.named_parameters()))
     train_data, valid = load_data(args.data_file, 9 * 10 ** 7, 5 * 10 ** 6)
     it = batch_iter(train_data, args.n_batch, args.n_ctx,
                     np.random.RandomState(1))
 
     def on_dev(a):
-        return torch.from_numpy(a).long().to(dev)
+        if shard is not None:
+            a = shard.shard(a)
+        return torch.from_numpy(np.ascontiguousarray(a)).long().to(dev)
     loss_scale = torch.tensor(args.loss_scale if cfg.dtype != "float32"
                               else 1.0, device=dev)
     start = 0
-    if args.resume and args.ckpt_dir:
-        tree, meta = ck.restore(args.ckpt_dir, device=dev)
+    if args.resume and ckpt_dir:
+        tree, meta = ck.restore(ckpt_dir, device=dev)
         model.load_state_dict(tree["params"])
         opt_state = tree["opt_state"]
         loss_scale = tree.get("loss_scale", loss_scale)
         start = meta["step"]
-        print(f"resumed from step {start}")
+        say(f"resumed from step {start}")
 
     losses, evals = [], []
     t0 = time.time()
@@ -168,14 +216,14 @@ def train(args, on_step=None):
         losses.append(metrics["loss"])
         if step % 10 == 0 or step == args.n_iter - 1:
             loss = float(metrics["loss"])
-            print(f"step {step:5d} loss {loss:7.4f} bits/byte "
-                  f"{loss / np.log(2):6.3f} gnorm "
-                  f"{float(metrics['grad_norm']):8.2f} scale "
-                  f"{float(loss_scale):9.1f} ({time.time() - t0:5.1f}s)",
-                  flush=True)
-        if args.ckpt_every and args.ckpt_dir \
+            say(f"step {step:5d} loss {loss:7.4f} bits/byte "
+                f"{loss / np.log(2):6.3f} gnorm "
+                f"{float(metrics['grad_norm']):8.2f} scale "
+                f"{float(loss_scale):9.1f} ({time.time() - t0:5.1f}s)",
+                flush=True)
+        if args.ckpt_every and ckpt_dir \
                 and (step + 1) % args.ckpt_every == 0:
-            ck.save(args.ckpt_dir, model.state_dict(), opt_state=opt_state,
+            ck.save(ckpt_dir, model.state_dict(), opt_state=opt_state,
                     step=step + 1, loss_scale=loss_scale, config=vars(args))
         if on_step is not None:
             on_step(step, model, opt_state, loss_scale, metrics)
@@ -183,14 +231,18 @@ def train(args, on_step=None):
             vx, vy = next(batch_iter(valid, args.n_batch, args.n_ctx,
                                      np.random.RandomState(9)))
             with torch.no_grad():
-                vl = float(model.loss(on_dev(vx), on_dev(vy)))
+                vl = model.loss(on_dev(vx), on_dev(vy))
+                if mesh is not None:              # the shards' mean
+                    vl = allreduce(vl, axis=("dp", "sp"), mesh=mesh) \
+                        / mpi_size(mesh, ("dp", "sp"))
+            vl = float(vl)
             evals.append((step + 1, vl / np.log(2)))
-            print(f"  eval bits/byte {vl / np.log(2):6.3f}", flush=True)
+            say(f"  eval bits/byte {vl / np.log(2):6.3f}", flush=True)
         if args.profile and step == args.profile:
             with trace(args.trace_dir) as logdir:
                 opt_state, metrics, loss_scale = step_fn(
                     opt_state, on_dev(x), on_dev(y), loss_scale)
-            print(f"profiler trace written to {logdir}")
+            say(f"profiler trace written to {logdir}")
             break
     return {"losses": [float(l) for l in losses], "start": start,
             "eval": evals}

@@ -21,8 +21,13 @@ the CUDA cores; both have one C interface.  dq walks the query-row (nn)
 CSR of the forward; dk/dv walk the key-row (tn) CSR whose mask codes are
 classified on the transposed mask blocks, and come out in f32, their key
 rows launched in CSR order or in a given order (``launch_order``: the
-rows with the most entries first).  D = rowsum(dO∘O) is plain torch, as
-in ``fused_attention_bwd``.
+rows with the most entries first).  dq comes out in q's dtype or, with
+``out_dtype=torch.float32``, unrounded in f32 (ring attention sums a
+row's dq over several launches).  D = rowsum(dO∘O) is plain torch, as
+in ``fused_attention_bwd``.  The kernels take tables whose query and key
+contexts differ and whose rows may be empty (a sequence-parallel shard's,
+``parallel.sequence.shard_tables``): an empty row stores zeros (and lse
+-inf forward).
 
 All kernels read q/k/v/dO in the public (batch, ctx, heads·hs) layout
 through their strides, so the column slices of a packed qkv tensor go in
@@ -90,7 +95,9 @@ def kernel_view(nt_lists, mask_blocks, bs, ctx_blks_q, ctx_blks_k):
     ctx_blks_k) at a block size the kernels take.
 
     nt_lists: per layout head, the (q_blk, k_blk) blocks in row order;
-    mask_blocks: (lut_heads, blocks, bs, bs) bool in that order, or None.
+    mask_blocks: (lut_heads, blocks, bs, bs) bool in that order (or a
+    list of each head's (blocks, bs, bs), where the heads' counts
+    differ), or None.
     From block size 16 up the layout is returned as it is (masks a
     list of each head's (blocks, bs, bs) array, or None).  At block size 8
     a 16 x 16 block is present where any of its four 8 x 8 sub-blocks is,
@@ -111,7 +118,7 @@ def kernel_view(nt_lists, mask_blocks, bs, ctx_blks_q, ctx_blks_k):
                                   np.zeros((kbs, kbs), bool))
             r, c = qb % f * bs, kb % f * bs
             m[r:r + bs, c:c + bs] = (True if mask_blocks is None
-                                     else mask_blocks[h, b])
+                                     else mask_blocks[h][b])
         keys = sorted(blocks)
         lists.append(keys)
         masks.append(np.array([blocks[key] for key in keys], bool)
@@ -300,7 +307,7 @@ def attention_fwd_plain(q, k, v, q_blk, k_blk, mask, heads, bs, scale):
 
 
 def attention_bwd_plain(q, k, v, do, lse, dvec, q_blk, k_blk, mask, heads,
-                        bs, scale):
+                        bs, scale, dq_dtype=None):
     """Masked per-block reference of the fused backward.
 
     q, k, v as in ``attention_fwd_lse_plain``; do: the output's gradient,
@@ -308,7 +315,8 @@ def attention_bwd_plain(q, k, v, do, lse, dvec, q_blk, k_blk, mask, heads,
     and D = rowsum(do·out).  P = exp(scale·qkᵀ - lse) (0 where masked);
     dS = P·(do·vᵀ - D)·scale.  dq = round(dS)·k (dS rounded to k's dtype),
     dv = round(P)ᵀ·do, dk = round(dS)ᵀ·q, as the fused kernels round.
-    Returns dq in q's dtype and dk, dv in f32."""
+    Returns dq in q's dtype (or ``dq_dtype``: f32 keeps the sum unrounded,
+    as ``attention_dq(out_dtype=torch.float32)``) and dk, dv in f32."""
     f32 = torch.float32
     batch, ctx_q, state = q.shape
     hs = state // heads
@@ -334,7 +342,7 @@ def attention_bwd_plain(q, k, v, do, lse, dvec, q_blk, k_blk, mask, heads,
                        kb, ck)
     dv = _scatter_rows(torch.einsum("nhbqk,nhbqd->nhbkd", rnd(p, do), dog),
                        kb, ck)
-    return _merge(dq).to(q.dtype), _merge(dk), _merge(dv)
+    return _merge(dq).to(dq_dtype or q.dtype), _merge(dk), _merge(dv)
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -482,9 +490,10 @@ def attention_fwd_lse(q, k, v, row_ptr, ent_k, ent_code, uniq, heads, bs,
 
 def _bwd(fn, which, q, k, v, do, lse, dvec, tables, heads, bs, scale,
          order=None):
-    """Checks and launches dq (which 0) or dk/dv (1): bf16 and f16 on
-    ``csrc/bst_attn_bwd_mma.cu`` (16-byte aligned views, ``_aligned16``),
-    f32 on ``csrc/bst_attn_bwd.cu``; one C signature."""
+    """Checks and launches dq (which 0; which 2 stores it in f32) or
+    dk/dv (1): bf16 and f16 on ``csrc/bst_attn_bwd_mma.cu`` (16-byte
+    aligned views, ``_aligned16``), f32 on ``csrc/bst_attn_bwd.cu``; one C
+    signature."""
     batch, ctx_q, state, hs, lut_heads = _check(
         fn, q, k, v, tables, heads, bs, do=do, key_rows=which == 1)
     for name, t in (("lse", lse), ("dvec", dvec)):
@@ -500,9 +509,9 @@ def _bwd(fn, which, q, k, v, do, lse, dvec, tables, heads, bs, scale,
     else:
         source = "bst_attn_bwd_mma"
         q, k, v, do, lse, dvec = map(_aligned16, (q, k, v, do, lse, dvec))
-    if which == 0:
-        outs = (torch.empty((batch, ctx_q, state), dtype=q.dtype,
-                            device=q.device),)
+    if which != 1:
+        outs = (torch.empty((batch, ctx_q, state), dtype=torch.float32
+                            if which == 2 else q.dtype, device=q.device),)
     else:
         outs = tuple(torch.empty((batch, ctx_k, state), dtype=torch.float32,
                                  device=q.device) for _ in range(2))
@@ -528,11 +537,19 @@ def _bwd(fn, which, q, k, v, do, lse, dvec, tables, heads, bs, scale,
 
 
 def attention_dq(q, k, v, do, lse, dvec, row_ptr, ent_k, ent_code, uniq,
-                 heads, bs, scale):
+                 heads, bs, scale, out_dtype=None):
     """dq on the card, over the forward's nn CSR.  q, k, v, do: as for
     ``attention_fwd`` (do shaped and typed like q); lse, dvec: contiguous
-    (batch, heads, ctx_q) f32.  Returns dq, contiguous, in q's dtype."""
-    dq, = _bwd("attention_dq", 0, q, k, v, do, lse, dvec,
+    (batch, heads, ctx_q) f32.  Returns dq, contiguous, in q's dtype, or
+    with ``out_dtype=torch.float32`` in f32 (the epilogue stores the f32
+    accumulator unrounded: the counterpart of
+    ``fused_attention_dq(out_dtype=jnp.float32)``, for ring attention,
+    which sums a row's dq over several launches)."""
+    if out_dtype not in (None, q.dtype, torch.float32):
+        raise TypeError(f"attention_dq stores dq in q's dtype or f32, not "
+                        f"{out_dtype}")
+    which = 2 if out_dtype == torch.float32 else 0
+    dq, = _bwd("attention_dq", which, q, k, v, do, lse, dvec,
                (row_ptr, ent_k, ent_code, uniq), heads, bs, scale)
     attention_dq.launches += 1
     return dq

@@ -1,7 +1,8 @@
-"""Sparse Transformer language model: serving and single-device training.
+"""Sparse Transformer language model: serving, and training on one device or
+sharded over data, tensor and sequence parallel ranks.
 
-Counterpart of ``blocksparse_tpu/models/sparse_transformer.py`` for a
-single device: layout-driven block-sparse attention (fixed/strided/dense
+Counterpart of ``blocksparse_tpu/models/sparse_transformer.py``:
+layout-driven block-sparse attention (fixed/strided/dense
 patterns with a causal sub-block mask), an optionally block-sparse MLP or
 a top-k Mixture-of-Experts MLP (``moe_experts``, ``ops/moe.py``), layer
 norm and fast-gelu, with ``forward``, ``prefill``,
@@ -21,9 +22,24 @@ through ``loss`` and ``forward`` given a dropout source, never in
 ``make_train_step`` (the JAX train step passes no dropout key: ROADMAP
 F3).  With MoE the loss adds ``moe_aux_coef`` times the layers' summed
 load-balance loss, and the KV-cached decode raises as the JAX package's
-asserts (``generate``, a full forward a token, works).  Tensor, sequence,
-pipeline and expert parallelism are later slices of the port and raise
-``NotImplementedError`` here.
+asserts (``generate``, a full forward a token, works).
+
+Parallelism (``config.tp``, ``sp``, ``sp_mode``; a ``DeviceMesh`` from
+``parallel.make_mesh``, one process a rank): the model holds its rank's
+shard, as the JAX ``shard_map`` hands each device its piece.  dp splits
+the batch and sums the gradients.  tp is Megatron's: each rank holds
+n_head/tp heads (``w_qkv``/``b_qkv`` in the JAX per-shard column layout:
+rank r's columns [r·3D/tp, (r+1)·3D/tp), split into its q|k|v) and
+hidden/tp of the MLP (the block-sparse MLP's layout drawn at
+``hidden_local``, the same on every rank), and the output projection and
+the MLP end in an all-reduce over "tp" whose gradient is an all-reduce of
+dy, as JAX's transpose of ``psum`` under ``check_vma=False``: so the
+sharded step's gradients, and its grad_norm, are tp times the true ones
+(ROADMAP F8, carried over and pinned).  sp splits the context: the
+forward offsets ``wpe`` by the rank's shard and the attention runs
+``parallel.sequence``'s gather or ring mode.  ``convert.params_from_jax``
+loads the rank's shard of a JAX param dict.  Pipeline (``pp``) and expert
+(``ep`` > 1) parallelism are not ported and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -33,6 +49,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.device_mesh import DeviceMesh
 from torch.utils.checkpoint import checkpoint
 
 from blocksparse_tpu_torch.ops import optimize as opt
@@ -45,6 +62,10 @@ from blocksparse_tpu_torch.ops.norms import layer_norm
 from blocksparse_tpu_torch.ops.transformer import (BlocksparseTransformer,
                                                    position_tensor,
                                                    softmax_cross_entropy)
+from blocksparse_tpu_torch.parallel import collectives as col
+from blocksparse_tpu_torch.parallel import sequence as seq
+from blocksparse_tpu_torch.parallel.mesh import axis_group, mpi_rank, \
+    mpi_size
 from blocksparse_tpu_torch.utils import default_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -106,8 +127,9 @@ class TransformerConfig:
     ``fold_in``, a stream the port does not reproduce).  ``resid_pdrop``
     drops each block's two residual branches when ``loss``/``forward``
     get a dropout source.  ``moe_experts`` > 0 replaces each MLP by a
-    ``BlocksparseMoE`` (block-sparse experts at ``mlp_block_size``).  The
-    parallel fields (tp, sp, pp, ep) must stay at 1 here."""
+    ``BlocksparseMoE`` (block-sparse experts at ``mlp_block_size``).  tp,
+    sp and sp_mode shard the model over a mesh (the module's docstring);
+    pp and ep must stay at 1."""
     n_vocab: int = 256
     n_embd: int = 512
     n_layer: int = 6
@@ -136,14 +158,27 @@ class TransformerConfig:
 
 
 def _check_supported(c: TransformerConfig):
+    """The JAX constructor's asserts, as ValueErrors, and the refusals of
+    what is not ported."""
     if c.ep != 1 and not c.moe_experts:
         raise ValueError("ep needs moe_experts > 0")
-    for field in ("tp", "sp", "pp", "ep"):
-        if getattr(c, field) != 1:
-            raise NotImplementedError(
-                f"{field}={getattr(c, field)} is not ported yet (the port "
-                f"runs one device: ROADMAP §1, \"Parallelism on "
-                f"torch.distributed\")")
+    if c.pp != 1:
+        raise NotImplementedError(
+            f"pp={c.pp}: pipeline parallelism (GPipe) is not ported yet "
+            f"(ROADMAP §1, item 6)")
+    if c.ep != 1:
+        raise NotImplementedError(
+            f"ep={c.ep}: expert parallelism is not ported yet (ROADMAP §1, "
+            f"item 6)")
+    if c.tp < 1 or c.sp < 1 or c.n_head % c.tp:
+        raise ValueError(f"n_head {c.n_head} must divide by tp {c.tp}")
+    if (c.ctx // c.blk_size) % c.sp:
+        raise ValueError("ctx block-rows must divide by sp shards")
+    if c.sp_mode not in ("gather", "ring"):
+        raise ValueError(f"sp_mode is gather or ring, not {c.sp_mode!r}")
+    if c.moe_experts and (c.tp > 1 or c.sp > 1):
+        raise ValueError("MoE composes with dp x ep x pp (tp/sp + MoE: "
+                         "future), as in the JAX package")
     if not 0.0 <= c.resid_pdrop < 1.0:
         raise ValueError("resid_pdrop must lie in [0, 1)")
     if c.dtype not in _DTYPES:
@@ -158,20 +193,22 @@ def _param(*shape, fill=0.0):
 
 
 class _Layer(nn.Module):
-    """One transformer block's parameters (the JAX ``h{l}`` dict): with
-    ``moe`` (a ``BlocksparseMoE``) a ``moe`` dict of its parameters in
-    place of the MLP's four."""
+    """One transformer block's parameters (the JAX ``h{l}`` dict, the
+    rank's shard of it: ``d_local`` = n_embd/tp columns of each of q, k
+    and v, ``hidden`` the MLP's hidden/tp): with ``moe`` (a
+    ``BlocksparseMoE``) a ``moe`` dict of its parameters in place of the
+    MLP's four."""
 
-    def __init__(self, c: TransformerConfig, hidden, w_fc_shape,
+    def __init__(self, c: TransformerConfig, d_local, hidden, w_fc_shape,
                  w_proj_shape, moe=None):
         super().__init__()
         self.ln1_g = _param(c.n_embd, fill=1.0)
         self.ln1_b = _param(c.n_embd)
         self.ln2_g = _param(c.n_embd, fill=1.0)
         self.ln2_b = _param(c.n_embd)
-        self.w_qkv = _param(c.n_embd, 3 * c.n_embd)
-        self.b_qkv = _param(3 * c.n_embd)
-        self.w_out = _param(c.n_embd, c.n_embd)
+        self.w_qkv = _param(c.n_embd, 3 * d_local)
+        self.b_qkv = _param(3 * d_local)
+        self.w_out = _param(d_local, c.n_embd)
         self.b_out = _param(c.n_embd)
         if moe is not None:
             self.moe = nn.ParameterDict({
@@ -184,8 +221,8 @@ class _Layer(nn.Module):
 
 
 class SparseTransformerLM(nn.Module):
-    """The flagship LM on one device: forward, KV-cached decode, loss and
-    the train step.
+    """The flagship LM: forward, KV-cached decode, loss and the train step,
+    on one device or, with tp/sp > 1 or a ``mesh``, as one rank's shard.
 
     Parameters start as zeros (gains as ones); load real ones with
     ``load_state_dict(convert.params_from_jax(...))``.  They hold f32
@@ -194,25 +231,35 @@ class SparseTransformerLM(nn.Module):
     (a host without one raises), ``device="cpu"`` for the CPU.
     impl=None runs the CUDA kernels on a CUDA device (the plain versions
     on the CPU); impl="xla" runs the plain versions everywhere, the
-    reference the kernels are held against on the card."""
+    reference the kernels are held against on the card.
 
-    def __init__(self, config: TransformerConfig, device=None, impl=None):
+    ``mesh``: the ``DeviceMesh`` (``parallel.make_mesh``) this rank's
+    shard lives on, needed where tp or sp > 1 (``make_train_step(mesh=)``
+    sets it too); its shapes come from the config alone (n_head/tp heads,
+    ``hidden_local``), as the JAX constructor's."""
+
+    def __init__(self, config: TransformerConfig, device=None, impl=None,
+                 mesh=None):
         super().__init__()
         c = self.config = config
         _check_supported(c)
         if impl not in (None, "xla"):
             raise ValueError(f"unknown impl {impl!r}")
         self.impl = impl
+        self.mesh = None
         self.hs = c.n_embd // c.n_head
+        self.heads_local = c.n_head // c.tp
+        self.d_local = self.heads_local * self.hs
         ctx_blks = c.ctx // c.blk_size
         layout = _LAYOUTS[c.attn_layout](
             ctx_blks, **({} if c.attn_layout == "dense"
                          else {"local_blocks": c.local_blocks}))
         self.bst = BlocksparseTransformer(
-            layout, block_size=c.blk_size, heads=c.n_head,
+            layout, block_size=c.blk_size, heads=self.heads_local,
             mask_callback=causal_subblock_mask, impl=impl)
 
         self.hidden = c.mlp_ratio * c.n_embd
+        self.hidden_local = self.hidden // c.tp
         self.moe = None
         if c.moe_experts:
             self.moe = BlocksparseMoE(
@@ -223,7 +270,7 @@ class SparseTransformerLM(nn.Module):
         if c.mlp_block_size and not c.moe_experts:
             bs = c.mlp_block_size
             CB = c.n_embd // bs
-            KB = self.hidden // bs
+            KB = self.hidden_local // bs
             rng = np.random.RandomState(0)
             lay1 = (rng.rand(CB, KB) < c.mlp_density).astype(np.int32)
             lay1[np.arange(CB), np.arange(CB) % KB] = 1   # no empty rows
@@ -235,18 +282,88 @@ class SparseTransformerLM(nn.Module):
             w_fc_shape, w_proj_shape = self.bsmm1.w_shape, self.bsmm2.w_shape
         else:
             self.bsmm1 = self.bsmm2 = None
-            w_fc_shape = (c.n_embd, self.hidden)
-            w_proj_shape = (self.hidden, c.n_embd)
+            w_fc_shape = (c.n_embd, self.hidden_local)
+            w_proj_shape = (self.hidden_local, c.n_embd)
 
         self.wte = _param(c.n_vocab, c.n_embd)
         self.wpe = _param(c.ctx, c.n_embd)
         self.lnf_g = _param(c.n_embd, fill=1.0)
         self.lnf_b = _param(c.n_embd)
         self.h = nn.ModuleList(
-            _Layer(c, self.hidden, w_fc_shape, w_proj_shape, self.moe)
+            _Layer(c, self.d_local, self.hidden_local, w_fc_shape,
+                   w_proj_shape, self.moe)
             for _ in range(c.n_layer))
         self._decode_graphs = {}      # generate_cached_scan's, by key
         self.to(default_device(device, "SparseTransformerLM"))
+        if mesh is not None:
+            self._use_mesh(mesh)
+
+    # ---------------- the mesh ----------------
+
+    def _use_mesh(self, mesh):
+        """Binds this rank's shard to ``mesh``, checking its tp and sp
+        sizes against the config."""
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a DeviceMesh (make_mesh), not "
+                            f"{type(mesh).__name__}")
+        if self.mesh is not None and mesh is not self.mesh:
+            raise ValueError("the model is bound to another mesh")
+        for axis in ("tp", "sp", "pp", "ep"):
+            want = getattr(self.config, axis)
+            if mpi_size(mesh, axis) != want:
+                raise ValueError(f"config.{axis} = {want} needs a mesh whose "
+                                 f"{axis!r} axis has {want} ranks "
+                                 f"(make_mesh({axis}={want}))")
+        self.mesh = mesh
+
+    def _sharded(self):
+        """The mesh, or None on one device; raises where the config shards
+        the model and no mesh is bound."""
+        c = self.config
+        if self.mesh is None and (c.tp > 1 or c.sp > 1):
+            raise ValueError(f"tp={c.tp}, sp={c.sp}: the model is one "
+                             f"rank's shard; bind it to a mesh "
+                             f"(SparseTransformerLM(mesh=) or "
+                             f"make_train_step(mesh=))")
+        return self.mesh
+
+    def _tp_sum(self, y):
+        """The JAX ``psum`` over "tp" that ends the attention and the MLP:
+        an all-reduce whose gradient is an all-reduce of dy (F8)."""
+        if self._sharded() is None:
+            return y
+        return col.allreduce(y, axis="tp", mesh=self.mesh)
+
+    def param_specs(self):
+        """Per parameter name, the mesh axes its dims are split over (the
+        JAX ``PartitionSpec`` tree, as tuples): the tp-sharded qkv,
+        output projection and MLP; the block-sparse MLP weights, whose
+        JAX leading tp dim the port drops, name "tp" on their block dim."""
+        specs = {}
+        for name, p in self.named_parameters():
+            key = name.split(".")[-1]
+            spec = {"w_qkv": (None, "tp"), "b_qkv": ("tp",),
+                    "w_out": ("tp", None), "b_fc": ("tp",),
+                    "w_fc": (None, "tp"), "w_proj": ("tp", None)}.get(key)
+            if key in ("w_fc", "w_proj") and self.bsmm1 is not None:
+                spec = ("tp", None, None)
+            specs[name] = spec or (None,) * p.dim()
+        return specs
+
+    def grad_reduce_axes(self, include_sp=False):
+        """Per parameter name, the mesh axes its gradient is summed over:
+        dp, and tp where the parameter is replicated over it (its tp
+        ranks hold partial sums), and sp with sequence parallelism."""
+        sp = ("sp",) if include_sp else ()
+        return {name: tuple(a for a in ("dp", "tp") if a not in spec) + sp
+                for name, spec in self.param_specs().items()}
+
+    def param_shard_axes(self):
+        """Per parameter name, the mesh axes it is split over: the global
+        grad norm sums each such parameter's squares over them, so every
+        rank computes one norm_scale."""
+        return {name: tuple(dict.fromkeys(a for a in spec if a))
+                for name, spec in self.param_specs().items()}
 
     @property
     def nd(self):
@@ -258,12 +375,20 @@ class SparseTransformerLM(nn.Module):
         nd = self.nd
         h = float_cast(layer_norm(x, layer.ln1_g, layer.ln1_b, axis=-1), nd)
         qkv = h @ float_cast(layer.w_qkv, nd) + layer.b_qkv.to(nd)
-        return qkv.split(self.config.n_embd, dim=-1)
+        return qkv.split(self.d_local, dim=-1)
 
     def _attend(self, q, k, v):
         # the fused kernels up to hs 128, the unfused ops past it, as the
-        # JAX model; impl="xla" keeps both routes on their plain versions
-        return self.bst.attention(q, k, v, scale=1.0 / np.sqrt(self.hs))
+        # JAX model; impl="xla" keeps both routes on their plain versions.
+        # With sp the context-sharded attention (fused kernels only).
+        c = self.config
+        scale = 1.0 / np.sqrt(self.hs)
+        if c.sp > 1 and self._sharded() is not None:
+            fn = (seq.ring_attention if c.sp_mode == "ring"
+                  else seq.sequence_parallel_attention)
+            return fn(self.bst, q, k, v, axis="sp", n_shards=c.sp,
+                      scale=scale, mesh=self.mesh)
+        return self.bst.attention(q, k, v, scale=scale)
 
     def _mlp(self, layer, x):
         """(y, aux): the MLP's output and its load-balance loss (None
@@ -284,11 +409,12 @@ class SparseTransformerLM(nn.Module):
             h = self.bsmm2(h, float_cast(layer.w_proj, nd))
         else:
             h = h @ float_cast(layer.w_proj, nd)
-        return h + layer.b_proj.to(nd), None
+        return self._tp_sum(h) + layer.b_proj.to(nd), None
 
     def _out(self, layer, a):
         nd = self.nd
-        return a.to(nd) @ float_cast(layer.w_out, nd) + layer.b_out.to(nd)
+        return self._tp_sum(a.to(nd) @ float_cast(layer.w_out, nd)) \
+            + layer.b_out.to(nd)
 
     def _logits(self, x):
         nd = self.nd
@@ -334,8 +460,14 @@ class SparseTransformerLM(nn.Module):
         are drawn before its checkpoint, so the recompute reuses them and
         the checkpoint saves no RNG state (which a CUDA graph capture
         forbids).  The MoE's routing is a function of the block's input,
-        so the recompute routes every token as the forward did."""
-        x = self._embed(tokens, self.wpe[None, :tokens.shape[1]])
+        so the recompute routes every token as the forward did.  With sp,
+        ``tokens`` are the rank's context shard, at its offset into
+        ``wpe``."""
+        L = tokens.shape[1]
+        off = 0
+        if self.config.sp > 1 and self._sharded() is not None:
+            off = mpi_rank("sp", self.mesh) * L
+        x = self._embed(tokens, self.wpe[None, off:off + L])
         recompute = self.config.recompute and torch.is_grad_enabled()
         aux = None
         for l, layer in enumerate(self.h):
@@ -385,9 +517,9 @@ class SparseTransformerLM(nn.Module):
     def make_train_step(self, optimizer: opt.AdamOptimizer, mesh=None,
                         clip_norm=1.0):
         """Returns train_step(opt_state, tokens, targets, loss_scale) ->
-        (opt_state, metrics, loss_scale), the single-device branch of the
-        JAX ``make_train_step``: a ``mesh`` other than None (its sharded
-        branch) is not ported and raises.
+        (opt_state, metrics, loss_scale), the JAX ``make_train_step``:
+        without a ``mesh`` its single-device branch, with one its sharded
+        branch (below).
 
         It takes the gradient of loss·loss_scale, clips by the global norm
         of the unscaled gradient, applies ``optimizer`` and writes the new
@@ -404,12 +536,24 @@ class SparseTransformerLM(nn.Module):
         afterwards; see ``_TrainStep``.
 
         The step applies no dropout whatever ``config.resid_pdrop`` says:
-        the JAX step calls ``loss`` with no dropout key (ROADMAP F3)."""
-        if mesh is not None:
-            raise NotImplementedError("make_train_step(mesh=...) (the "
-                                      "sharded train step) is not ported "
-                                      "yet")
-        return _TrainStep(self, optimizer, clip_norm)
+        the JAX step calls ``loss`` with no dropout key (ROADMAP F3).
+
+        With ``mesh`` (``parallel.make_mesh``; its tp and sp sizes the
+        config's) this module is the rank's shard and tokens and targets
+        are its (batch/dp, ctx/sp) piece.  The step is the JAX
+        ``local_step`` under ``shard_map``: each gradient summed over its
+        ``grad_reduce_axes`` and divided by dp·sp, the loss averaged over
+        sp and dp, the global norm from each parameter's squares summed
+        over its ``param_shard_axes``; the tp all-reduces' gradient is an
+        all-reduce (F8: gradients and grad_norm tp times the true ones, as
+        JAX's).  On the card the step, collectives included, is one CUDA
+        graph as without a mesh.  A model bound to a mesh trains on it
+        when ``mesh`` is None."""
+        if mesh is None:
+            mesh = self._sharded()
+        else:
+            self._use_mesh(mesh)
+        return _TrainStep(self, optimizer, clip_norm, mesh)
 
     def _mlp_routes(self, N):
         """What the MLP's products launch for N tokens: each op's ``mode``
@@ -428,6 +572,10 @@ class SparseTransformerLM(nn.Module):
             raise NotImplementedError(
                 "KV-cached decode with MoE MLPs is not implemented (as in "
                 "the JAX package); generate runs a full forward a token")
+        if self.config.tp > 1 or self.config.sp > 1:
+            raise NotImplementedError(
+                "the KV-cached decode runs unsharded (tp = sp = 1), as in "
+                "the JAX package")
 
     # ---------------- KV-cached decode ----------------
 
@@ -505,11 +653,15 @@ class _TrainStep:
     - a capture that fails raises: nothing falls back to the eager step
       on the card.
 
-    ``captures`` holds each graph's warm-up and capture seconds."""
+    ``captures`` holds each graph's warm-up and capture seconds.
 
-    def __init__(self, model, optimizer, clip_norm):
+    With a ``mesh`` the step is the sharded one (``_sharded_grads``), its
+    collectives captured in the graph like any other launch."""
+
+    def __init__(self, model, optimizer, clip_norm, mesh=None):
         self.model, self.optimizer, self.clip_norm = model, optimizer, \
             clip_norm
+        self.mesh = mesh
         self.names, self.params = zip(*model.named_parameters())
         self._graphs = {}
         self.captures = []
@@ -540,9 +692,14 @@ class _TrainStep:
         scaled = self.model.loss(tokens, targets) * ls
         grads = dict(zip(names, torch.autograd.grad(scaled, params)))
         gs = 1.0 / ls
-        gn, norm_scale = opt.clip_by_global_norm(
-            grads, clip_norm=self.clip_norm, grad_scale=gs, zero_infs=False,
-            zero_nans=False)
+        if self.mesh is None:
+            loss = scaled.detach()
+            gn, norm_scale = opt.clip_by_global_norm(
+                grads, clip_norm=self.clip_norm, grad_scale=gs,
+                zero_infs=False, zero_nans=False)
+        else:
+            grads, loss, gn, norm_scale = self._sharded_grads(
+                grads, scaled.detach(), gs)
         new, opt_state = self.optimizer.apply(
             grads, {n: p.detach() for n, p in zip(names, params)},
             opt_state, norm_scale=norm_scale, grad_scale=gs)
@@ -553,9 +710,39 @@ class _TrainStep:
             norm_scale > 0.0,
             torch.clamp(ls * 2.0 ** (1 / 2000), max=2.0 ** 24),
             torch.clamp(ls * 0.5, min=1.0))
-        metrics = {"loss": scaled.detach() / ls, "grad_norm": gn,
+        metrics = {"loss": loss / ls, "grad_norm": gn,
                    "norm_scale": norm_scale}
         return opt_state, metrics, new_scale
+
+    def _sharded_grads(self, grads, loss, gs):
+        """The JAX sharded step between the gradient and the optimizer:
+        (grads, loss, grad_norm, norm_scale).  Each gradient summed over
+        its ``grad_reduce_axes`` (one all-reduce for the gradients of one
+        set of axes) and divided by dp·sp; the scaled loss averaged over sp
+        and dp; the norm of the unscaled gradients from each parameter's
+        squares, summed over its ``param_shard_axes``."""
+        model, mesh = self.model, self.mesh
+        use_sp = model.config.sp > 1
+        nshards = mpi_size(mesh, "dp") * (mpi_size(mesh, "sp") if use_sp
+                                          else 1)
+        grads = _sum_over(grads, model.grad_reduce_axes(include_sp=use_sp),
+                          mesh)
+        grads = {n: g / nshards for n, g in grads.items()}
+        for axis in (("sp",) if use_sp else ()) + ("dp",):
+            loss = col.all_reduce_(loss.clone(), axis_group(mesh, axis)) \
+                / mpi_size(mesh, axis)
+        sqs = {n: (g.float() * gs).square().sum() for n, g in grads.items()}
+        sqs = _sum_over(sqs, model.param_shard_axes(), mesh)
+        total = torch.zeros((), dtype=torch.float32, device=loss.device)
+        for sq in sqs.values():          # in order, as JAX's sum(leaves)
+            total = total + sq
+        gn = torch.sqrt(total)
+        clip = torch.full((), self.clip_norm, dtype=torch.float32,
+                          device=gn.device)
+        norm_scale = clip / torch.maximum(gn, clip)
+        norm_scale = torch.where(torch.isfinite(gn), norm_scale,
+                                 torch.zeros_like(norm_scale))
+        return grads, loss, gn, norm_scale
 
     def _body(self, g):
         """The eager step on the graph's static buffers; its new state is
@@ -595,6 +782,24 @@ class _TrainStep:
         g["graph"] = capture_graph(side, lambda: self._body(g))
         self.captures.append((t1 - t0, time.perf_counter() - t1))
         return g
+
+
+def _sum_over(tensors, axes, mesh):
+    """{name: tensor} with each tensor summed over its ``axes[name]`` (a
+    tuple of mesh axes; () leaves it as it is): one all-reduce of the
+    flattened tensors that share a tuple."""
+    out = dict(tensors)
+    buckets = {}
+    for name, ax in axes.items():
+        if ax:
+            buckets.setdefault(ax, []).append(name)
+    for ax, names in buckets.items():
+        flat = torch.cat([tensors[n].reshape(-1) for n in names])
+        col.all_reduce_(flat, axis_group(mesh, ax))
+        for n, piece in zip(names, flat.split(
+                [tensors[n].numel() for n in names])):
+            out[n] = piece.view_as(tensors[n])
+    return out
 
 
 def _warm_up(device, fn):

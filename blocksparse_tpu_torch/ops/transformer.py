@@ -244,28 +244,16 @@ class BlocksparseTransformer:
         graph can capture the ops)."""
         tab = self._dev_tables.get(device)
         if tab is None:
-            nt, masks, kbs, kcq, kck = bst_attn.kernel_view(
-                self.nt_list, self._mask_blocks, self.blk_size,
-                self.ctx_blks_q, self.ctx_blks_k)
-            kt = bst_attn.kernel_tables(nt, masks, kbs, kcq, kck)
+            tab = fused_tables(self.nt_list, self._mask_blocks,
+                               self.blk_size, self.ctx_blks_q,
+                               self.ctx_blks_k, device)
             kblk, bid, cnt = self.decode_tables
             in_row = np.arange(kblk.shape[2])[None, None] < cnt[:, :, None]
 
             def t(a, dt):
-                return None if a is None else torch.as_tensor(
-                    a, dtype=dt, device=device)
-            i32, i8, i64 = torch.int32, torch.int8, torch.int64
-            tab = {name: t(kt[name], dt) for name, dt in (
-                ("row_ptr", i32), ("ent_k", i32), ("ent_code", i32),
-                ("uniq", i8), ("order", i32), ("row_ptr_t", i32),
-                ("ent_q", i32), ("ent_code_t", i32), ("uniq_t", i8),
-                ("order_t", i32))}
+                return torch.as_tensor(a, dtype=dt, device=device)
+            i32, i64 = torch.int32, torch.int64
             tab.update({
-                "kbs": kbs, "kctx_q": kcq * kbs, "kctx_k": kck * kbs,
-                "kq_blk": t(kt["q_blk"], i64), "kk_blk": t(kt["k_blk"], i64),
-                "kmask": t(kt["mask"], torch.bool),
-                "q_blk": t(self._q_blk, i64), "k_blk": t(self._k_blk, i64),
-                "mask": t(self._mask_blocks, torch.bool),
                 "dec_kblk": t(kblk, i64),
                 "dec_bid": t(bid, i64),
                 "dec_in_row": t(in_row, torch.bool),
@@ -524,25 +512,28 @@ class BlocksparseTransformer:
         p = self.masked_softmax(w, scale=scale)
         return self.nn_op(p, v)
 
-    def _fused_fwd(self, q, k, v, scale, kernels, with_lse):
+    def _fused_fwd(self, q, k, v, scale, kernels, with_lse, tab=None):
         """The fused forward, (out, lse or None): on the kernels' route
         (``_kernel_fwd``) or, without ``kernels``, the plain version at
-        this op's own block size."""
+        this op's own block size.  ``tab``: the tables to run on, by
+        default the layout's (``_tables``); the sequence-parallel
+        attention passes a shard's (``parallel.sequence.shard_tables``)."""
         if kernels:
-            return self._kernel_fwd(q, k, v, scale, with_lse)
-        tab = self._tables(q.device)
+            return self._kernel_fwd(q, k, v, scale, with_lse, tab)
+        tab = tab or self._tables(q.device)
         out, lse = bst_attn.attention_fwd_lse_plain(
             q, k, v, tab["q_blk"], tab["k_blk"], tab["mask"], self.heads,
             self.blk_size, scale)
         return out, lse if with_lse else None
 
-    def _kernel_fwd(self, q, k, v, scale, with_lse):
+    def _kernel_fwd(self, q, k, v, scale, with_lse, tab=None):
         """The fused forward on the kernels' view: (out, lse or None).
         q, k and v are zero-padded to the view's contexts and to
         ``kernel_head_size`` (no copy where nothing is padded), run
         through the kernels on a CUDA tensor or their plain versions on a
-        CPU one, and out and lse are cropped back."""
-        tab = self._tables(q.device)
+        CPU one, and out and lse are cropped back.  ``tab`` as in
+        ``_fused_fwd``."""
+        tab = tab or self._tables(q.device)
         heads, kbs = self.heads, tab["kbs"]
         _, ctx_q, state = q.shape
         hs = state // heads
@@ -567,19 +558,23 @@ class BlocksparseTransformer:
             lse = lse[..., :ctx_q].contiguous()
         return _crop(out, ctx_q, heads, hs), lse if with_lse else None
 
-    def _kernel_bwd(self, q, k, v, do, out, lse, scale):
+    def _kernel_bwd(self, q, k, v, do, out, lse, scale, tab=None,
+                    dvec=None, dq_dtype=None):
         """dq, dk, dv of the fused attention on the kernels' view: D =
-        rowsum(dO·out) from the unpadded dO and out; q, k, v and dO padded
-        as in ``_kernel_fwd``, lse padded with -inf and D with 0 (the
-        padded query rows see no key); dq and dk/dv by the kernels on a
-        CUDA tensor or the plain backward on a CPU one, cropped back.  dq
-        in q's dtype, dk and dv in f32."""
-        tab = self._tables(q.device)
+        rowsum(dO·out) from the unpadded dO and out (or ``dvec`` as
+        given, out unused); q, k, v and dO padded as in ``_kernel_fwd``,
+        lse padded with -inf and D with 0 (the padded query rows see no
+        key); dq and dk/dv by the kernels on a CUDA tensor or the plain
+        backward on a CPU one, cropped back.  dq in q's dtype (or
+        ``dq_dtype``, f32 for a caller that sums it), dk and dv in f32.
+        ``tab`` as in ``_fused_fwd``."""
+        tab = tab or self._tables(q.device)
         heads, kbs = self.heads, tab["kbs"]
         _, ctx_q, state = q.shape
         hs = state // heads
         khs = bst_attn.kernel_head_size(hs)
-        dvec = _rowsum(do, out, heads)
+        if dvec is None:
+            dvec = _rowsum(do, out, heads)
         pad_q = tab["kctx_q"] - ctx_q
         if pad_q:
             lse = torch.nn.functional.pad(lse, (0, pad_q),
@@ -592,7 +587,8 @@ class BlocksparseTransformer:
         if q.is_cuda:
             dq = bst_attn.attention_dq(
                 qp, kp, vp, dop, lse, dvec, tab["row_ptr"], tab["ent_k"],
-                tab["ent_code"], tab["uniq"], heads, kbs, scale)
+                tab["ent_code"], tab["uniq"], heads, kbs, scale,
+                out_dtype=dq_dtype)
             dk, dv = bst_attn.attention_dkv(
                 qp, kp, vp, dop, lse, dvec, tab["row_ptr_t"], tab["ent_q"],
                 tab["ent_code_t"], tab["uniq_t"], heads, kbs, scale,
@@ -600,10 +596,25 @@ class BlocksparseTransformer:
         else:
             dq, dk, dv = bst_attn.attention_bwd_plain(
                 qp, kp, vp, dop, lse, dvec, tab["kq_blk"], tab["kk_blk"],
-                tab["kmask"], heads, kbs, scale)
+                tab["kmask"], heads, kbs, scale, dq_dtype=dq_dtype)
         ctx_k = k.shape[1]
         return (_crop(dq, ctx_q, heads, hs), _crop(dk, ctx_k, heads, hs),
                 _crop(dv, ctx_k, heads, hs))
+
+    def _fused_bwd(self, q, k, v, do, out, lse, scale, kernels, tab=None,
+                   dvec=None, dq_dtype=None):
+        """dq, dk, dv of the fused attention: on the kernels' route
+        (``_kernel_bwd``, whose arguments these are) or, without
+        ``kernels``, the plain backward at this op's own block size."""
+        if kernels:
+            return self._kernel_bwd(q, k, v, do, out, lse, scale, tab, dvec,
+                                    dq_dtype)
+        tab = tab or self._tables(q.device)
+        if dvec is None:
+            dvec = _rowsum(do, out, self.heads)
+        return bst_attn.attention_bwd_plain(
+            q, k, v, do, lse, dvec, tab["q_blk"], tab["k_blk"], tab["mask"],
+            self.heads, self.blk_size, scale, dq_dtype=dq_dtype)
 
     # ------------- KV-cached decode ----------------
 
@@ -670,6 +681,40 @@ class BlocksparseTransformer:
         out = torch.einsum("nhk,nhkc->nhc", p,
                            vg.reshape(batch, self.heads, E * bs, hs))
         return out.reshape(batch, 1, state).to(q.dtype)
+
+
+def fused_tables(nt_lists, mask_blocks, bs, ctx_blks_q, ctx_blks_k, device):
+    """The fused attention's tables of a layout on ``device``: those of
+    the kernels' view (``bst_attn.kernel_view``, ``kernel_tables``: the
+    CSRs, their mask codes and launch orders), its block size and padded
+    contexts (``kbs``, ``kctx_q``, ``kctx_k``), the view's plain-version
+    block indices and masks (``kq_blk``, ``kk_blk``, ``kmask``), and the
+    plain versions' at the layout's own block size (``q_blk``, ``k_blk``,
+    ``mask``).  nt_lists: per layout head, the (q_blk, k_blk) blocks in
+    row order (the heads' counts may differ); mask_blocks: per head, the
+    blocks' (bs, bs) bool masks in that order, or None."""
+    nt, masks, kbs, kcq, kck = bst_attn.kernel_view(
+        nt_lists, mask_blocks, bs, ctx_blks_q, ctx_blks_k)
+    kt = bst_attn.kernel_tables(nt, masks, kbs, kcq, kck)
+    own = kt if kbs == bs else bst_attn.kernel_tables(
+        nt_lists, None if mask_blocks is None else list(mask_blocks), bs,
+        ctx_blks_q, ctx_blks_k)
+
+    def t(a, dt):
+        return None if a is None else torch.as_tensor(a, dtype=dt,
+                                                      device=device)
+    i32, i8, i64 = torch.int32, torch.int8, torch.int64
+    tab = {name: t(kt[name], dt) for name, dt in (
+        ("row_ptr", i32), ("ent_k", i32), ("ent_code", i32), ("uniq", i8),
+        ("order", i32), ("row_ptr_t", i32), ("ent_q", i32),
+        ("ent_code_t", i32), ("uniq_t", i8), ("order_t", i32))}
+    tab.update({
+        "kbs": kbs, "kctx_q": kcq * kbs, "kctx_k": kck * kbs,
+        "kq_blk": t(kt["q_blk"], i64), "kk_blk": t(kt["k_blk"], i64),
+        "kmask": t(kt["mask"], torch.bool),
+        "q_blk": t(own["q_blk"], i64), "k_blk": t(own["k_blk"], i64),
+        "mask": t(own["mask"], torch.bool)})
+    return tab
 
 
 def position_tensor(pos, device):
@@ -909,13 +954,8 @@ class _AttentionFunction(torch.autograd.Function):
             dq, dk, dv = torch.autograd.grad(y, qkv, do.to(y.dtype))
             return dq, dk, dv, None, None, None, None
         do = _rows_contiguous(do.to(q.dtype))
-        if ctx.kernels:
-            dq, dk, dv = bst._kernel_bwd(q, k, v, do, out, lse, scale)
-        else:
-            tab = bst._tables(q.device)
-            dq, dk, dv = bst_attn.attention_bwd_plain(
-                q, k, v, do, lse, _rowsum(do, out, bst.heads), tab["q_blk"],
-                tab["k_blk"], tab["mask"], bst.heads, bst.blk_size, scale)
+        dq, dk, dv = bst._fused_bwd(q, k, v, do, out, lse, scale,
+                                    ctx.kernels)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
                 None, None)
 

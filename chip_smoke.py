@@ -189,6 +189,22 @@ forward and both gradients against the dense cuDNN ``conv2d`` /
 bias and both l2 norms against the CPU; the ragged conv and deconv
 against the NumPy goldens at a small size.
 
+Then parallelism (after the MoE LM): the flagship attention (8 x 2048,
+bf16, b64, 8 heads of 64, the fixed layout) cut into sp 2 and 4 context
+shards in one process, through ``parallel.sequence``'s functions on each
+shard's tables: gather mode (a shard's fwd_lse, dq and dk/dv, q sliced
+and K/V whole) and the ring (n² pair launches merged by (out, lse), dq
+stored in f32), counted; the gather shards' y, lse and dq equal the
+unsharded kernels' bit for bit and their summed dk/dv within f32
+rounding, the ring within the bf16 tolerance, each also against its
+plain version on the same tables; a shard launch's device time beside
+the unsharded launch's, its bound and a shard's SDPA.  Then the
+flagship's sharded train step (``make_train_step(mesh=)``) on an NCCL
+process group of world size 1 (``make_mesh(dp=1)``, a FileStore in a
+temporary directory), captured as one CUDA graph with its all-reduces,
+three steps against the single-device captured step from the same
+params, its ms beside that step's in turns.
+
 Prints the card's name and power limit, the build times, every check
 with its tolerance, the timings, a ``{"kernels": [...]}`` line (each
 kernel with its bound on this card and the time of a library call that
@@ -4867,6 +4883,436 @@ def conv_rest_path(bt, dev, g, card_line):
                         f"torch, as JAX's XLA lowerings): {launched}")
 
 
+# ---------------- the parallel phase: sequence-parallel shard kernels at
+# full width in one process, and the sharded train step on NCCL
+
+SP_SHARDS = (2, 4)
+SP_STEPS = 3
+
+
+def sp_inputs(model, dev, g):
+    """The flagship attention's training inputs, bf16, batch 8 x 2048: q, k,
+    v sliced from one packed qkv (as the LM's), and dO."""
+    c, bf = model.config, torch.bfloat16
+    qkv = torch.randn((BATCH, c.ctx, 3 * c.n_embd), device=dev,
+                      generator=g).to(bf)
+    do = torch.randn((BATCH, c.ctx, c.n_embd), device=dev,
+                     generator=g).to(bf)
+    return (*qkv.split(c.n_embd, dim=-1), do)
+
+
+def sp_gather(bst, n, q, k, v, do, scale, kernels=True):
+    """Gather mode over n shards in one process, each shard's launches on
+    its tables (q sliced, K/V whole), as ``sequence_parallel_attention``
+    makes them on its rank: per shard (y, lse, dq, dk, dv)."""
+    from blocksparse_tpu_torch.ops.transformer import _rowsum
+    from blocksparse_tpu_torch.parallel import sequence as seq
+    L, out = q.shape[1] // n, []
+    for r in range(n):
+        tab = seq.shard_tables(bst, n, r, None, q.device)
+        qr, dor = q[:, r * L:(r + 1) * L], do[:, r * L:(r + 1) * L]
+        y, lse = seq.shard_forward(bst, qr, k, v, scale, tab, kernels)
+        out.append((y, lse) + tuple(seq.shard_backward(
+            bst, qr, k, v, dor, _rowsum(dor, y, bst.heads), lse, scale, tab,
+            kernels)))
+    return out
+
+
+def sp_ring(bst, n, q, k, v, do, scale, kernels=True):
+    """Ring mode over n shards in one process, as ``ring_attention`` makes
+    its n² pair launches: per query shard the (out, lse) merged over the
+    key chunks from -1e30, then per pair dq (f32) and dk/dv summed.
+    Returns (y f32, lse, dq f32, dk, dv), whole."""
+    from blocksparse_tpu_torch.ops.transformer import _rowsum
+    from blocksparse_tpu_torch.parallel import sequence as seq
+    L = q.shape[1] // n
+
+    def cut(a, i):
+        return a[:, i * L:(i + 1) * L]
+    merged = []
+    for r in range(n):
+        out = torch.zeros(cut(q, r).shape, device=q.device)
+        lse = torch.full((q.shape[0], bst.heads, L), -1e30, device=q.device)
+        for j in range(n):
+            o_t, l_t = seq.shard_forward(
+                bst, cut(q, r), cut(k, j), cut(v, j), scale,
+                seq.shard_tables(bst, n, r, j, q.device), kernels)
+            out, lse = seq.merge(out, lse, o_t, l_t, bst.heads)
+        merged.append((out, lse))
+    dq = torch.zeros(q.shape, device=q.device)
+    dk = torch.zeros(k.shape, device=q.device)
+    dv = torch.zeros(v.shape, device=q.device)
+    for r in range(n):
+        out, lse = merged[r]
+        dvec = _rowsum(cut(do, r), out, bst.heads)
+        for j in range(n):
+            dq_t, dk_t, dv_t = seq.shard_backward(
+                bst, cut(q, r), cut(k, j), cut(v, j), cut(do, r), dvec, lse,
+                scale, seq.shard_tables(bst, n, r, j, q.device), kernels,
+                dq_dtype=torch.float32)
+            dq[:, r * L:(r + 1) * L] += dq_t
+            dk[:, j * L:(j + 1) * L] += dk_t
+            dv[:, j * L:(j + 1) * L] += dv_t
+    return (torch.cat([o for o, _ in merged], 1),
+            torch.cat([l for _, l in merged], 2), dq, dk, dv)
+
+
+def gathered(shards):
+    """Gather mode's per-shard results joined: (y, lse, dq) concatenated,
+    dk and dv summed."""
+    return (torch.cat([s[0] for s in shards], 1),
+            torch.cat([s[1] for s in shards], 2),
+            torch.cat([s[2] for s in shards], 1),
+            sum(s[3] for s in shards), sum(s[4] for s in shards))
+
+
+def profiled_launches(fn, keys, n=5):
+    """{key: (mean device ms a launch, launches recorded)} of the port
+    kernels whose names hold each key, over n calls of fn() in one
+    profiled window (a window may miss its first kernel's record, so a
+    key is never timed by one launch alone)."""
+    _, kernels = device_events(lambda: [fn() for _ in range(n)],
+                               lambda ks: all(any(key in e.key for e in ks)
+                                              for key in keys))
+    out = {}
+    for key in keys:
+        hits = [e for e in kernels if key in e.key]
+        count = sum(e.count for e in hits)
+        out[key] = (sum(e.self_device_time_total for e in hits)
+                    / max(count, 1) / 1e3, count)
+    return out
+
+
+def shard_work(bst, n, r, j, B, T, H, hs):
+    """One shard's (or pair's) attention work for its bound: (e, the
+    product a block's q·k^T takes summed over its blocks, in multiply-adds;
+    q rows, k rows touched) at the op's block size (its layout shared)."""
+    bs, L = bst.blk_size, T // n
+    qlo, klo = r * L // bs, 0 if j is None else j * L // bs
+    klen = T // bs if j is None else L // bs
+    blocks = [(q, k) for q, k in bst.nt_list[0]
+              if qlo <= q < qlo + L // bs and klo <= k < klo + klen]
+    qrows = len({q for q, _ in blocks}) * bs
+    krows = len({k for _, k in blocks}) * bs
+    return len(blocks) * B * H * bs * bs * hs, qrows, krows
+
+
+def shard_marks(bst, n, mode, B, T, H, hs):
+    """The mean bound a launch of a shard's fwd_lse, dq and dk/dv (gather:
+    n launches; ring: n² pairs, dq in f32): the larger of its operations
+    (4e, 6e and 8e flops: two, three and four products of e multiply-adds)
+    over the bf16 peak and its bytes
+    (the q/dO rows and k/v rows its blocks touch, read once; lse and D f32;
+    out and dq written whole, dk/dv whole in f32) over the memory rate."""
+    pairs = [(r, None) for r in range(n)] if mode == "gather" else \
+        [(r, j) for r in range(n) for j in range(n)]
+    L = T // n
+    kl = T if mode == "gather" else L
+    row = H * hs * 2                           # a bf16 position of q/k/v
+    fwd, dq, dkv = [], [], []
+    for r, j in pairs:
+        e, qr, kr = shard_work(bst, n, r, j, B, T, H, hs)
+        lse = B * H * L * 4
+        fwd.append(bound(4 * e, B * (qr + 2 * kr) * row + B * L * row + lse))
+        dq.append(bound(6 * e, B * (2 * qr + 2 * kr) * row + 2 * lse
+                        + B * L * row * (2 if mode == "ring" else 1)))
+        dkv.append(bound(8 * e, B * (2 * qr + 2 * kr) * row + 2 * lse
+                         + 2 * B * kl * row * 2))
+
+    def mean(bs_):
+        ms = float(np.mean([b[0] for b in bs_]))
+        by = max(("bytes", "operations"),
+                 key=lambda w: sum(b[1] == w for b in bs_))
+        return ms, by
+    return mean(fwd), mean(dq), mean(dkv)
+
+
+def sp_library(bst, n, q, k, v, do, scale, dev):
+    """Mean time a shard's ``scaled_dot_product_attention`` (q shard against
+    the whole K/V, the layout's rows as an element mask) forward and
+    backward take: the one PyTorch call that computes a gather shard's
+    fwd_lse (out) and dq/dk/dv."""
+    mask = dense_attention_mask(bst, dev)
+    B, T, _ = q.shape
+    H, L = bst.heads, T // n
+
+    def heads(a):
+        return a.reshape(B, a.shape[1], H, -1).transpose(1, 2)
+    f, b = [], []
+    for r in range(n):
+        qr = heads(q[:, r * L:(r + 1) * L]).detach().requires_grad_()
+        kk, vv = (heads(a).detach().requires_grad_() for a in (k, v))
+        m = mask[r * L:(r + 1) * L]
+        f.append(time_ms(lambda: nnf.scaled_dot_product_attention(
+            qr, kk, vv, attn_mask=m, scale=scale), 10))
+        o = nnf.scaled_dot_product_attention(qr, kk, vv, attn_mask=m,
+                                             scale=scale)
+        dor = heads(do[:, r * L:(r + 1) * L])
+        b.append(time_ms(lambda: torch.autograd.grad(
+            o, (qr, kk, vv), dor, retain_graph=True), 10))
+    return float(np.mean(f)), float(np.mean(b))
+
+
+def sp_kernel_checks(bst, q, k, v, do, scale, card_line, rows, marks):
+    """(a) The flagship attention's shard kernels at full width in one
+    process, at sp 2 and 4: gather mode (each shard's fwd_lse, dq and
+    dk/dv on its tables) and the ring (n² pair launches, merged; dq in
+    f32), counted; each against the unsharded kernels (gather's y, lse and
+    dq bit for bit, its summed dk/dv within f32 rounding; the ring within
+    the bf16 tolerance) and against its plain version on the same tables;
+    the shards' device time beside the unsharded launch's."""
+    bf = torch.bfloat16
+    y0, lse0 = bst._kernel_fwd(q, k, v, scale, True)
+    dq0, dk0, dv0 = bst._kernel_bwd(q, k, v, do, y0, lse0, scale)
+    n_all = sum(n + n * n for n in SP_SHARDS)
+    reset_counts()
+    runs = {}
+    for n in SP_SHARDS:
+        runs[("gather", n)] = gathered(sp_gather(bst, n, q, k, v, do, scale))
+        runs[("ring", n)] = sp_ring(bst, n, q, k, v, do, scale)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    want = dict.fromkeys(launches, 0)
+    want.update({"bst_attn_fwd_lse": n_all, "bst_attn_dq": n_all,
+                 "bst_attn_dkv": n_all})
+    check(launches == want,
+          f"sequence-parallel shards at sp {SP_SHARDS}, gather and ring: "
+          f"launches {launches}, expected {want} (gather n of each, the "
+          f"ring n² pairs of each)")
+    for n in SP_SHARDS:
+        y, lse, dq, dk, dv = runs[("gather", n)]
+        check(torch.equal(y, y0) and torch.equal(lse, lse0)
+              and torch.equal(dq, dq0),
+              f"gather sp {n}: the shards' y, lse and dq concatenated equal "
+              f"the unsharded kernels' bit for bit (each row walks its "
+              f"entries in the same order)")
+        for name, got, ref in (("dk", dk, dk0), ("dv", dv, dv0)):
+            compare(f"gather sp {n}: {name} summed over the shards against "
+                    f"the unsharded kernel (f32)", got, ref,
+                    TOL[torch.float32])
+        y, lse, dq, dk, dv = runs[("ring", n)]
+        compare_fwd(f"ring sp {n}: y merged over {n * n} pair launches "
+                    f"against the unsharded kernel", y, y0, bf)
+        compare(f"ring sp {n}: lse merged", lse, lse0, LSE_TOL)
+        for name, got, ref in (("dq (f32)", dq, dq0), ("dk", dk, dk0),
+                               ("dv", dv, dv0)):
+            compare(f"ring sp {n}: {name} summed over the pairs against "
+                    f"the unsharded kernel", got, ref, ATTN_TOL[bf])
+    # each against its plain version on the same tables
+    errs = {}
+    for n in SP_SHARDS:
+        kern = runs[("gather", n)]
+        ref = gathered(sp_gather(bst, n, q, k, v, do, scale, False))
+        errs[("gather", n)] = (
+            compare_fwd(f"gather sp {n}: y against the plain version on "
+                        f"the shard tables", kern[0], ref[0], bf),
+            compare(f"gather sp {n}: lse against the plain version",
+                    kern[1], ref[1], LSE_TOL),
+            compare(f"gather sp {n}: dq against the plain version",
+                    kern[2], ref[2], ATTN_TOL[bf]),
+            max(compare(f"gather sp {n}: {nm} against the plain version",
+                        kern[i], ref[i], ATTN_TOL[bf])
+                for nm, i in (("dk", 3), ("dv", 4))))
+        kern = runs[("ring", n)]
+        ref = sp_ring(bst, n, q, k, v, do, scale, False)
+        errs[("ring", n)] = (
+            compare_fwd(f"ring sp {n}: y against the plain version on the "
+                        f"pair tables", kern[0], ref[0], bf),
+            compare(f"ring sp {n}: lse against the plain version", kern[1],
+                    ref[1], LSE_TOL),
+            compare(f"ring sp {n}: dq (f32) against the plain version",
+                    kern[2], ref[2], ATTN_TOL[bf]),
+            max(compare(f"ring sp {n}: {nm} against the plain version",
+                        kern[i], ref[i], ATTN_TOL[bf])
+                for nm, i in (("dk", 3), ("dv", 4))))
+        del ref
+    del runs
+    torch.cuda.empty_cache()
+
+    # device time: the unsharded launches beside each shard's, one
+    # profiled window each (the forward and the backward, all shards)
+    keys = ("bst_attn_fwd_mma_kernel", "bst_attn_dq_mma_kernel",
+            "bst_attn_dkv_mma_kernel")
+    one = profiled_launches(lambda: bst._kernel_bwd(
+        q, k, v, do, *bst._kernel_fwd(q, k, v, scale, True), scale), keys)
+    B, T, _ = q.shape
+    H, hs = bst.heads, q.shape[-1] // bst.heads
+    lib = {n: sp_library(bst, n, q, k, v, do, scale, q.device)
+           for n in SP_SHARDS}
+    for n in SP_SHARDS:
+        for mode, fn in (("gather", sp_gather), ("ring", sp_ring)):
+            got = profiled_launches(
+                lambda: fn(bst, n, q, k, v, do, scale), keys)
+            mk = shard_marks(bst, n, mode, B, T, H, hs)
+            per = n if mode == "gather" else n * n
+            print(f"{mode} sp {n} [{card_line}], device ms a launch (its "
+                  f"{per} launches' sum; launches recorded over 5 passes) "
+                  f"against the unsharded launch: " + "; ".join(
+                      f"{key[9:-11]} {got[key][0]:.4f} ("
+                      f"{got[key][0] * per:.4f}; {got[key][1]}) vs "
+                      f"{one[key][0]:.4f}, bound a launch {b[0]:.4f} "
+                      f"({b[1]})" for key, b in zip(keys, mk)),
+                  flush=True)
+            if n != SP_SHARDS[-1]:
+                continue
+            # the kernels line's rows: the sp-4 launches beside their plain
+            # versions' time a launch (the plain backward computes dq, dk
+            # and dv in one call: its time stands beside both)
+            pf, pb = sp_plain_ms(bst, n, mode, q, k, v, do, scale)
+            names = (("attn_fwd_lse_sp4", "attn_dq_sp4", "attn_dkv_sp4")
+                     if mode == "gather" else
+                     ("attn_fwd_lse_ring4", "attn_dq_ring_f32",
+                      "attn_dkv_ring4"))
+            e = errs[(mode, n)]
+            libs = ((lib[n][0], lib[n][1], lib[n][1]) if mode == "gather"
+                    else (None, None, None))
+            for name, key, err, b, plain_ms, lib_ms in zip(
+                    names, keys, (max(e[0], e[1]), e[2], e[3]), mk,
+                    (pf, pb, pb), libs):
+                rows[name] = (err, got[key][0], plain_ms)
+                marks[name] = (b[0], b[1], lib_ms)
+    print(f"unsharded launches at batch {B} x {T} [{card_line}]: "
+          + ", ".join(f"{key[9:-11]} {one[key][0]:.4f} ms"
+                      for key in keys)
+          + "; a gather shard's SDPA forward / backward (sp "
+          + ", ".join(str(n) for n in SP_SHARDS) + "): "
+          + ", ".join(f"{lib[n][0]:.4f} / {lib[n][1]:.4f} ms"
+                      for n in SP_SHARDS), flush=True)
+    return launches
+
+
+def sp_plain_ms(bst, n, mode, q, k, v, do, scale):
+    """The plain versions' mean time a launch of a shard's (gather) or a
+    pair's (ring) forward and backward, on their tables."""
+    from blocksparse_tpu_torch.ops.transformer import _rowsum
+    from blocksparse_tpu_torch.parallel import sequence as seq
+    L = q.shape[1] // n
+
+    def cut(a, i):
+        return a[:, i * L:(i + 1) * L]
+    pairs = [(r, None) for r in range(n)] if mode == "gather" else \
+        [(r, j) for r in range(n) for j in range(n)]
+    args = []
+    for r, j in pairs:
+        tab = seq.shard_tables(bst, n, r, j, q.device)
+        kk, vv = (k, v) if j is None else (cut(k, j), cut(v, j))
+        y, lse = seq.shard_forward(bst, cut(q, r), kk, vv, scale, tab, False)
+        args.append((cut(q, r), kk, vv, cut(do, r), tab, y, lse))
+
+    def fwd():
+        for qr, kk, vv, _, tab, _, _ in args:
+            seq.shard_forward(bst, qr, kk, vv, scale, tab, False)
+
+    def bwd():
+        for qr, kk, vv, dor, tab, y, lse in args:
+            seq.shard_backward(bst, qr, kk, vv, dor,
+                               _rowsum(dor, y, bst.heads), lse, scale, tab,
+                               False, dq_dtype=torch.float32)
+    return time_ms(fwd, 2) / len(pairs), time_ms(bwd, 2) / len(pairs)
+
+
+def nccl_train_step(bt, model, sd, cfg, dev, card_line):
+    """(b) The flagship's sharded train step through NCCL at world size 1
+    (``make_mesh(dp=1)`` on cuda, a FileStore in a temporary directory):
+    SP_STEPS steps against the single-device captured step from the same
+    params: loss and grad_norm each step within the train step's
+    tolerance, and metrics and parameters bit for bit; whether it was
+    captured as a CUDA graph, its first call counted, its ms a step beside
+    the single-device step's, in turns."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    from blocksparse_tpu_torch.parallel import make_mesh
+    rng = np.random.RandomState(SEED + 18)
+    seq = torch.from_numpy(rng.randint(0, cfg.n_vocab,
+                                       (BATCH, cfg.ctx + 1))).to(dev)
+    tokens, targets = seq[:, :-1], seq[:, 1:]
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(d, "store"), 1), rank=0, world_size=1)
+        try:
+            mesh = make_mesh(dp=1, device="cuda")
+            sharded = bt.SparseTransformerLM(cfg, device=dev, mesh=mesh)
+            opt = bt.AdamOptimizer(learning_rate=LR, zero_nans=True,
+                                   zero_infs=True)
+            runs, launches, steps = {}, None, {}
+            for label, m, mesh_ in (("single", model, None),
+                                    ("sharded", sharded, mesh)):
+                m.load_state_dict(sd)
+                step = m.make_train_step(opt, mesh=mesh_, clip_norm=CLIP)
+                state = opt.init(dict(m.named_parameters()))
+                scale = torch.tensor(LOSS_SCALE, device=dev)
+                metrics = []
+                reset_counts()
+                for i in range(SP_STEPS):
+                    state, met, scale = step(state, tokens, targets, scale)
+                    metrics.append({k: v.item() for k, v in met.items()})
+                    if i == 0 and label == "sharded":
+                        torch.cuda.synchronize()
+                        launches = read_counts()
+                runs[label] = (metrics, snapshot(m))
+                steps[label] = (step, state, scale)
+            graphs = len(steps["sharded"][0]._graphs)
+            check(graphs == 1 and len(steps["sharded"][0].captures) == 1,
+                  f"sharded step on an NCCL group of world size 1 "
+                  f"[{card_line}]: captured as one CUDA graph (the "
+                  f"gradient and norm all-reduces inside it); its first "
+                  f"call launched {launches}")
+            for i, (a, b) in enumerate(zip(runs["sharded"][0],
+                                           runs["single"][0])):
+                for key in ("loss", "grad_norm"):
+                    check(abs(a[key] - b[key]) <= STEP_LOSS_TOL * abs(b[key]),
+                          f"sharded step {i + 1} {key} {a[key]:.6f} vs the "
+                          f"single-device step's {b[key]:.6f} (tol "
+                          f"{STEP_LOSS_TOL:g} relative)")
+            same = all(a == b for a, b in zip(runs["sharded"][0],
+                                              runs["single"][0])) and all(
+                torch.equal(v, runs["single"][1][k])
+                for k, v in runs["sharded"][1].items())
+            check(same, f"sharded step (world 1) equals the single-device "
+                        f"step bit for bit over {SP_STEPS} steps (metrics and "
+                        f"every parameter): a one-rank all-reduce is a copy "
+                        f"and the norm sums its squares in the same order")
+
+            def timing(label):
+                step, state, scale = steps[label]
+
+                def one():
+                    nonlocal state, scale
+                    state, _, scale = step(state, tokens, targets, scale)
+                return time_ms(one, TIMED_STEPS)
+            turns = in_turns({"single": "single", "sharded": "sharded"},
+                             timing)
+            print(f"train step [{card_line}]: sharded on NCCL (world 1, "
+                  f"captured) " + " / ".join(f"{x:.2f}" for x in
+                                             turns["sharded"])
+                  + " ms, single-device (captured) "
+                  + " / ".join(f"{x:.2f}" for x in turns["single"])
+                  + f" ms (in turns, each the mean of {TIMED_STEPS} steps "
+                  f"by CUDA events)", flush=True)
+        finally:
+            dist.destroy_process_group()
+    model.load_state_dict(sd)
+    del sharded, steps, runs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def parallel_path(bt, model, sd, cfg, dev, g, card_line, rows, marks):
+    """The parallel phase: (a) the shard kernels at full width, (b) the
+    sharded train step on NCCL at world size 1.  Returns the counted
+    launches of (a)."""
+    q, k, v, do = sp_inputs(model, dev, g)
+    launches = sp_kernel_checks(model.bst, q, k, v, do,
+                                1.0 / np.sqrt(model.hs), card_line, rows,
+                                marks)
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    nccl_train_step(bt, model, sd, cfg, dev, card_line)
+    return launches
+
+
 def build_all():
     from blocksparse_tpu_torch.kernels import _build
 
@@ -4985,6 +5431,15 @@ def main():
     print(f"launches: MoE LM train step's first call {moe_launches}",
           flush=True)
 
+    # 5g. parallelism: the flagship attention's sequence-parallel shard
+    # kernels at full width in one process (gather and ring, sp 2 and 4,
+    # counted), then the sharded train step on an NCCL group of world
+    # size 1 against the single-device step
+    sp_launches = parallel_path(bt, model, sd, cfg, dev, g, card_line, rows,
+                                lstm_marks)
+    print(f"launches: sequence-parallel shards (sp {SP_SHARDS}, gather and "
+          f"ring) {sp_launches}", flush=True)
+
     # 6. the block-sparse conv: kernels against plain versions, then the
     # conv path, counted
     conv_kernel_checks(dev, g, rows)
@@ -5088,6 +5543,22 @@ def main():
          moe_launches["bsmm_bprop"], rows["moe_bprop"]),
         ("bsmm_updat_moe", "bsmm_updat.cu", "bsmm.py:1972",
          moe_launches["bsmm_updat"], rows["moe_updat"]),
+        # the flagship attention's shards at sp 4 (a launch's mean device
+        # time): gather mode on each shard's tables, and the ring's 16
+        # pair launches (dq stored in f32); launches: those of the
+        # parallel phase's counted run at sp 2 and 4, gather and ring
+        ("attn_fwd_lse_sp4", "bst_attn_fwd_mma.cu", "bst_attn.py:832",
+         sp_launches["bst_attn_fwd_lse"], rows["attn_fwd_lse_sp4"]),
+        ("attn_dq_sp4", "bst_attn_bwd_mma.cu", "bst_attn.py:1084",
+         sp_launches["bst_attn_dq"], rows["attn_dq_sp4"]),
+        ("attn_dkv_sp4", "bst_attn_bwd_mma.cu", "bst_attn.py:1141",
+         sp_launches["bst_attn_dkv"], rows["attn_dkv_sp4"]),
+        ("attn_fwd_lse_ring4", "bst_attn_fwd_mma.cu", "bst_attn.py:832",
+         sp_launches["bst_attn_fwd_lse"], rows["attn_fwd_lse_ring4"]),
+        ("attn_dq_ring_f32", "bst_attn_bwd_mma.cu", "bst_attn.py:1084",
+         sp_launches["bst_attn_dq"], rows["attn_dq_ring_f32"]),
+        ("attn_dkv_ring4", "bst_attn_bwd_mma.cu", "bst_attn.py:1141",
+         sp_launches["bst_attn_dkv"], rows["attn_dkv_ring4"]),
     ]
     check(all(n > 0 for _, _, _, n, _ in kernels),
           f"every kernel launched on its path ({len(kernels)} kernels)")

@@ -2602,3 +2602,172 @@ def test_moe_lm_captured_step_equals_the_eager_step(cuda):
     before = bsmm_kernels.bsmm_fprop.launches
     step(state, tokens, tokens, sc_c)
     assert bsmm_kernels.bsmm_fprop.launches == before
+
+
+# ---------------- sequence parallelism: shard tables on the card
+
+def _seq_case(device, dtype, bs, ctx_blks, heads=2, hs=64, batch=2):
+    from blocksparse_tpu_torch.ops.transformer import _rowsum
+    port, (q, k, v) = _fixed_case(device, dtype, batch=batch,
+                                  ctx=ctx_blks * bs, bs=bs, heads=heads,
+                                  hs=hs, local=3)
+    g = torch.Generator(device=device).manual_seed(1)
+    do = torch.randn(q.shape, device=device, generator=g).to(dtype)
+    scale = 1.0 / np.sqrt(hs)
+    y, lse = port._kernel_fwd(q, k, v, scale, True)
+    dq, dk, dv = port._kernel_bwd(q, k, v, do, y, lse, scale)
+    return port, (q, k, v, do), scale, (y, lse, dq, dk, dv), _rowsum
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, *HALF])
+def test_attention_dq_f32_output(cuda, dtype):
+    """``attention_dq(out_dtype=torch.float32)``: the epilogue stores the
+    f32 accumulator, which rounds to the default output bit for bit, and
+    matches the plain version's unrounded dq."""
+    from blocksparse_tpu_torch.ops.transformer import _rowsum
+    port, (q, k, v) = _fixed_case(cuda, dtype, ctx=512, bs=64)
+    do = torch.randn(q.shape, device=cuda,
+                     generator=_gen(cuda, 3)).to(dtype)
+    y, lse = port._kernel_fwd(q, k, v, 0.125, True)
+    tab = port._tables(cuda)
+    dvec = _rowsum(do, y, port.heads)
+    args = (q, k, v, do, lse, dvec, tab["row_ptr"], tab["ent_k"],
+            tab["ent_code"], tab["uniq"], port.heads, 64, 0.125)
+    before = bst_attn.attention_dq.launches
+    dq = bst_attn.attention_dq(*args)
+    dq32 = bst_attn.attention_dq(*args, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert bst_attn.attention_dq.launches == before + 2
+    assert dq.dtype == dtype and dq32.dtype == torch.float32
+    assert torch.equal(dq32.to(dtype), dq)
+    ref = bst_attn.attention_bwd_plain(
+        q, k, v, do, lse, dvec, tab["q_blk"], tab["k_blk"], tab["mask"],
+        port.heads, 64, 0.125, dq_dtype=torch.float32)[0]
+    tol = F32_TOL if dtype == torch.float32 else ATTN_BF16_TOL
+    torch.testing.assert_close(dq32, ref, rtol=0,
+                               atol=tol * max(1.0, ref.abs().max().item()))
+    with pytest.raises(TypeError):
+        bst_attn.attention_dq(*args, out_dtype=torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [2, 4])
+def test_gather_shard_kernels_match_the_unsharded_launch(cuda, n, dtype):
+    """Each shard's fwd_lse, dq and dk/dv on its tables (q sliced, K/V
+    whole): y, lse and dq equal the unsharded kernels' bit for bit (each
+    row walks its entries in the same order); dk/dv, summed over the
+    shards, within f32 rounding of the sums."""
+    from blocksparse_tpu_torch.parallel import sequence as seq
+    port, (q, k, v, do), scale, (y, lse, dq, dk, dv), rowsum = _seq_case(
+        cuda, dtype, 64, 8)
+    L = q.shape[1] // n
+    ys, ls, dqs = [], [], []
+    dks, dvs = torch.zeros_like(dk), torch.zeros_like(dv)
+    before = (bst_attn.attention_fwd_lse.launches,
+              bst_attn.attention_dq.launches,
+              bst_attn.attention_dkv.launches)
+    for r in range(n):
+        tab = seq.shard_tables(port, n, r, None, cuda)
+        sl = slice(r * L, (r + 1) * L)
+        yr, lr = seq.shard_forward(port, q[:, sl], k, v, scale, tab)
+        dqr, dkr, dvr = seq.shard_backward(
+            port, q[:, sl], k, v, do[:, sl], rowsum(do[:, sl], yr,
+                                                    port.heads),
+            lr, scale, tab)
+        ys.append(yr), ls.append(lr), dqs.append(dqr)
+        dks += dkr
+        dvs += dvr
+    torch.cuda.synchronize()
+    assert (bst_attn.attention_fwd_lse.launches,
+            bst_attn.attention_dq.launches,
+            bst_attn.attention_dkv.launches) == tuple(b + n for b in before)
+    assert torch.equal(torch.cat(ys, 1), y)
+    assert torch.equal(torch.cat(ls, 2), lse)
+    assert torch.equal(torch.cat(dqs, 1), dq)
+    for got, want in ((dks, dk), (dvs, dv)):
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=F32_TOL * want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [2, 4])
+def test_ring_shard_kernels_match_the_unsharded_launch(cuda, n, dtype):
+    """The ring's n² pair launches merged by (out, lse), and its backward
+    with dq in f32 summed over the key chunks, against the unsharded
+    kernels: the merge and the sums add in other orders (f32, then one
+    rounding to the dtype for y)."""
+    from blocksparse_tpu_torch.parallel import sequence as seq
+    port, (q, k, v, do), scale, (y, lse, dq, dk, dv), rowsum = _seq_case(
+        cuda, dtype, 64, 8)
+    L = q.shape[1] // n
+
+    def cut(a, i):
+        return a[:, i * L:(i + 1) * L]
+    outs = []
+    for r in range(n):
+        out = torch.zeros(cut(q, r).shape, device=cuda)
+        l = torch.full((q.shape[0], port.heads, L), -1e30, device=cuda)
+        for j in range(n):
+            o_t, l_t = seq.shard_forward(
+                port, cut(q, r), cut(k, j), cut(v, j), scale,
+                seq.shard_tables(port, n, r, j, cuda))
+            out, l = seq.merge(out, l, o_t, l_t, port.heads)
+        outs.append((out, l))
+    dqs = [torch.zeros(cut(q, r).shape, device=cuda) for r in range(n)]
+    dks, dvs = torch.zeros_like(dk), torch.zeros_like(dv)
+    for j in range(n):                                   # key chunk j
+        for r in range(n):                               # query shard r
+            out, l = outs[r]
+            dq_t, dk_t, dv_t = seq.shard_backward(
+                port, cut(q, r), cut(k, j), cut(v, j), cut(do, r),
+                rowsum(cut(do, r), out, port.heads), l, scale,
+                seq.shard_tables(port, n, r, j, cuda),
+                dq_dtype=torch.float32)
+            assert dq_t.dtype == torch.float32
+            dqs[r] += dq_t
+            dks[:, j * L:(j + 1) * L] += dk_t
+            dvs[:, j * L:(j + 1) * L] += dv_t
+    torch.cuda.synchronize()
+    tol = F32_TOL if dtype == torch.float32 else ATTN_BF16_TOL
+    torch.testing.assert_close(torch.cat([o for o, _ in outs], 1),
+                               y.float(), rtol=0, atol=tol)
+    torch.testing.assert_close(torch.cat([l for _, l in outs], 2), lse,
+                               rtol=0, atol=1e-5)
+    for got, want in ((torch.cat(dqs, 1), dq.float()), (dks, dk),
+                      (dvs, dv)):
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=tol * max(1.0,
+                                                  want.abs().max().item()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_shard_kernels_store_zeros_for_empty_rows(cuda, dtype):
+    """Gather shard 0 of 4: the key rows past its queries have no entry and
+    get zero dk/dv; the ring pair (0, 3), above the diagonal, has no block
+    at all: zeros and lse -inf forward, zero dq/dk/dv."""
+    from blocksparse_tpu_torch.parallel import sequence as seq
+    port, (q, k, v, do), scale, _, rowsum = _seq_case(cuda, dtype, 64, 8)
+    L = q.shape[1] // 4
+    tab = seq.shard_tables(port, 4, 0, None, cuda)
+    y0, l0 = seq.shard_forward(port, q[:, :L], k, v, scale, tab)
+    _, dk0, dv0 = seq.shard_backward(port, q[:, :L], k, v, do[:, :L],
+                                     rowsum(do[:, :L], y0, port.heads), l0,
+                                     scale, tab)
+    torch.cuda.synchronize()
+    assert not dk0[:, L:].any() and not dv0[:, L:].any()
+    assert dk0[:, :L].abs().max() > 0
+    pair = seq.shard_tables(port, 4, 0, 3, cuda)
+    assert int(pair["row_ptr"].sum()) == 0
+    o, l = seq.shard_forward(port, q[:, :L], k[:, 3 * L:], v[:, 3 * L:],
+                             scale, pair)
+    dq, dk, dv = seq.shard_backward(
+        port, q[:, :L], k[:, 3 * L:], v[:, 3 * L:], do[:, :L],
+        rowsum(do[:, :L], y0, port.heads), l0, scale, pair,
+        dq_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert not o.any() and bool(torch.isneginf(l).all())
+    assert not dq.any() and not dk.any() and not dv.any()

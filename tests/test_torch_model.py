@@ -169,10 +169,18 @@ def test_cpu_path_launches_no_kernel_and_rejects_unported_options():
     port(torch.zeros((1, 64), dtype=torch.long))
     assert (bsmm_kernels.bsmm_fprop.launches,
             bst_attn.attention_fwd.launches) == before
-    for kw in (dict(tp=2), dict(moe_experts=2, ep=2)):
+    for kw in (dict(pp=2), dict(moe_experts=2, ep=2)):
         with pytest.raises(NotImplementedError):
             SparseTransformerLM(TransformerConfig(**dict(TINY, **kw)),
                                 device="cpu")
+    # tp builds one rank's shard (n_head/tp heads, the MLP at hidden/tp);
+    # it runs only bound to a mesh
+    tp2 = SparseTransformerLM(TransformerConfig(**dict(TINY, tp=2)),
+                              device="cpu")
+    assert tuple(tp2.h[0].w_qkv.shape) == (64, 96)
+    assert tp2.bst.heads == 2 and tp2.hidden_local == 128
+    with pytest.raises(ValueError, match="mesh"):
+        tp2(torch.zeros((1, 64), dtype=torch.long))
     with pytest.raises(ValueError, match="ep needs moe_experts"):
         SparseTransformerLM(TransformerConfig(**dict(TINY, ep=2)),
                             device="cpu")

@@ -345,17 +345,27 @@ def test_moe_convert_round_trips(stacked):
     for a, b in zip(jax.tree_util.tree_leaves(rnd),
                     jax.tree_util.tree_leaves(unstacked)):
         assert a.shape == b.shape
-    with pytest.raises(NotImplementedError, match="tp > 1"):
-        _tp2()
+    loaded, tree = _tp2()
+    np.testing.assert_array_equal(loaded["h.0.w_fc"].numpy(),
+                                  tree["h0"]["w_fc"][1])
+    np.testing.assert_array_equal(loaded["h.1.w_proj"].numpy(),
+                                  tree["h1"]["w_proj"][1])
 
 
 def _tp2():
-    """A block-sparse MLP weight with a tp dim of 2: still refused."""
-    bs = bt.SparseTransformerLM(bt.TransformerConfig(**dict(
+    """A block-sparse MLP weight with a tp dim of 2: a tp-2 model's rank 1
+    loads its slice [1]; a tp-1 model refuses it."""
+    tp2 = bt.SparseTransformerLM(bt.TransformerConfig(**dict(
+        MOE_LM, moe_experts=0, tp=2)), device="cpu")
+    tree = bt.random_jax_params(tp2, seed=0)
+    assert tree["h0"]["w_fc"].shape[0] == 2
+    tp1 = bt.SparseTransformerLM(bt.TransformerConfig(**dict(
         MOE_LM, moe_experts=0)), device="cpu")
-    tree = bt.params_to_jax(bs)
-    tree["h0"]["w_fc"] = np.concatenate([tree["h0"]["w_fc"]] * 2)
-    return bt.params_from_jax(tree, bs)
+    one = bt.params_to_jax(tp1)
+    one["h0"]["w_fc"] = np.concatenate([one["h0"]["w_fc"]] * 2)
+    with pytest.raises(ValueError, match="tp dim 2"):
+        bt.params_from_jax(one, tp1)
+    return bt.params_from_jax(tree, tp2, tp_rank=1), tree
 
 
 def test_moe_entry_point_trains_checkpoints_and_resumes(tmp_path):
