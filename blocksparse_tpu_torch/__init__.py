@@ -17,10 +17,11 @@ training entry point (``python -m
 blocksparse_tpu_torch.examples.lstm_train``).  On the card the
 LM's decode step (``generate_cached_scan``) and train step each run as
 one CUDA graph, replayed a token or a step.  The LM also trains
-sharded over data, tensor and sequence parallel ranks on
-``torch.distributed`` (``parallel``: the mesh, the collectives of the
+sharded over data, tensor, sequence, pipeline and expert parallel ranks
+on ``torch.distributed`` (``parallel``: the mesh, the collectives of the
 reference's ``nccl`` module, gather and ring attention on shard-local
-kernel tables; NCCL on the card, gloo on the CPU).  Each kernel has a
+kernel tables, the GPipe schedule, the experts' all-to-all; NCCL on the
+card, gloo on the CPU).  Each kernel has a
 plain PyTorch version beside it, which is what runs on the CPU.
 
 Around the kernels, in plain PyTorch as the JAX package leaves them to

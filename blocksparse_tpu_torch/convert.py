@@ -14,7 +14,14 @@ it (``w_qkv``/``b_qkv`` columns [r·3D/tp, (r+1)·3D/tp), ``w_out`` rows
 [r·D/tp, ...), the block-sparse ``w_fc``/``w_proj`` at [r] or the dense
 ones' column/row slice, ``b_fc`` by hidden/tp), ``params_to_jax`` gives
 the rank's shard in the JAX layout and ``jax_from_shards`` assembles the
-ranks' shards into the global dict;
+ranks' shards into the global dict.  With pipeline parallelism (pp > 1)
+the JAX dict holds every layer, stacked in ``hs``, and a rank loads its
+stage's layers [layer0, layer0 + n_layer/pp) (``pp_rank``, or its mesh's)
+and writes them back as ``h{layer0 + l}``; with expert parallelism (ep >
+1) a rank loads experts [r·E/ep, (r+1)·E/ep) of each ``moe.w1``, ``b1``,
+``w2``, ``b2`` (``ep_rank``, or its mesh's).  Slices only, never a
+reorder; ``jax_from_shards(shards, axis)`` joins one axis's shards at a
+time (innermost first: tp or ep, then pp);
 ``opt_state_from_jax`` turns a JAX optimizer state into the port's and
 ``opt_state_to_jax`` turns one back: an ``AdamOptimizer`` state
 (``{"mean", "var", "t"}``, f32, bfloat16 or packed16 uint16 slots), an
@@ -101,51 +108,81 @@ def _tp_slice(k, a, tp, rank):
     return np.take(a, np.arange(rank * n, (rank + 1) * n), axis=d)
 
 
-def _tp(model, tp_rank):
-    """(tp, the tp rank to load): ``tp_rank``, else the model mesh's."""
-    tp = 1 if model is None else model.config.tp
-    if tp_rank is not None or tp == 1:
-        return tp, tp_rank or 0
+def _rank(model, axis, rank):
+    """(size, the rank to load) along ``axis`` ("tp", "pp" or "ep"):
+    ``rank``, else the model mesh's."""
+    n = 1 if model is None else getattr(model.config, axis)
+    if rank is not None or n == 1:
+        return n, rank or 0
     if model.mesh is None:
-        raise ValueError(f"tp={tp}: pass tp_rank, or bind the model to a "
-                         f"mesh, to say which shard to load")
+        raise ValueError(f"{axis}={n}: pass {axis}_rank, or bind the model "
+                         f"to a mesh, to say which shard to load")
     from blocksparse_tpu_torch.parallel.mesh import mpi_rank
-    return tp, mpi_rank("tp", model.mesh)
+    return n, mpi_rank(axis, model.mesh)
 
 
-def _flat_from_jax(tree, tp=1, rank=0):
-    """A JAX param-shaped tree -> {port parameter name: leaf}: the tp
-    rank's piece of each tp-sharded array (``_tp_slice``; at tp 1 the
-    leading tp dim of 1 dropped from block-sparse ``w_fc``/``w_proj``).
-    A leaf is an array or a dict of arrays (Adafactor's slots, tp 1
-    only)."""
+def _coords(model, tp_rank=None, pp_rank=None, ep_rank=None):
+    return {"tp": _rank(model, "tp", tp_rank),
+            "pp": _rank(model, "pp", pp_rank),
+            "ep": _rank(model, "ep", ep_rank)}
+
+
+def _piece(a, n, r):
+    """Piece r of n along a's first dim (a list's items)."""
+    step = len(a) // n
+    return a[r * step:(r + 1) * step]
+
+
+def _flat_from_jax(tree, tp=(1, 0), pp=(1, 0), ep=(1, 0)):
+    """A JAX param-shaped tree -> {port parameter name: leaf} of one rank,
+    at its (size, rank) along tp, pp and ep: the tp rank's piece of each
+    tp-sharded array (``_tp_slice``; at tp 1 the leading tp dim of 1
+    dropped from block-sparse ``w_fc``/``w_proj``), the pp stage's layers
+    renumbered from 0, the ep rank's experts.  A leaf is an array or a
+    dict of arrays (Adafactor's slots, unsharded only)."""
     flat = {k: tree[k] for k in ("wte", "wpe", "lnf_g", "lnf_b")}
-    for l, layer in enumerate(_layers(tree)):
+    layers = _layers(tree)
+    if pp[0] > 1:
+        layers = _piece(layers, *pp)
+    for l, layer in enumerate(layers):
         if "moe" in layer:
             for k in _MOE_KEYS:
-                flat[f"h.{l}.moe.{k}"] = layer["moe"][k]
+                a = layer["moe"][k]
+                if ep[0] > 1 and k != "wg":
+                    if isinstance(a, dict):
+                        raise NotImplementedError(
+                            "factored (Adafactor) slots of ep-sharded "
+                            "experts: the JAX sharded step takes Adam only")
+                    a = _piece(np.asarray(a), *ep)
+                flat[f"h.{l}.moe.{k}"] = a
         for k in _ATTN_KEYS + (() if "moe" in layer else _MLP_KEYS):
             a = layer[k]
             if isinstance(a, dict):
-                if tp > 1:
+                if tp[0] > 1:
                     raise NotImplementedError(
                         "factored (Adafactor) slots of tp-sharded "
                         "parameters: the JAX sharded step takes Adam only")
             else:
-                a = _tp_slice(k, np.asarray(a), tp, rank)
+                a = _tp_slice(k, np.asarray(a), *tp)
             flat[f"h.{l}.{k}"] = a
     return flat
 
 
-def _flat_to_jax(flat, model):
+def _layer0(model, pp_rank):
+    """The JAX index of the model's first layer: its stage's."""
+    n, r = _rank(model, "pp", pp_rank)
+    return r * model.n_local
+
+
+def _flat_to_jax(flat, model, layer0=0):
     """{port parameter name: leaf} -> the JAX param layout (flat ``h{l}``
-    layers), with the leading tp dim of 1 on block-sparse ``w_fc`` and
-    ``w_proj`` arrays."""
+    layers, l from ``layer0``), with the leading tp dim of 1 on
+    block-sparse ``w_fc`` and ``w_proj`` arrays."""
     out = {}
     for name, a in flat.items():
         if name.startswith("h."):
             _, l, *path = name.split(".")
-            layer = out.setdefault(f"h{l}", {})
+            layer = out.setdefault(f"h{int(l) + layer0}", {})
             if path[0] == "moe":
                 layer.setdefault("moe", {})[path[1]] = a
                 continue
@@ -170,59 +207,77 @@ def _check_shapes(sd, model):
                              f"{tuple(own[k].shape)}")
 
 
-def params_from_jax(np_params, model=None, tp_rank=None):
+def params_from_jax(np_params, model=None, tp_rank=None, pp_rank=None,
+                    ep_rank=None):
     """JAX param dict (NumPy arrays) -> the port's state dict (f32).
 
     With ``model`` given, every tensor is also checked against the
-    model's own shapes.  A model with tp > 1 gets its tp rank's shard of
-    the JAX global dict: ``tp_rank``, or by default its mesh's."""
+    model's own shapes.  A model with tp, pp or ep > 1 gets its rank's
+    shard of the JAX global dict: ``tp_rank``/``pp_rank``/``ep_rank``, or
+    by default its mesh's."""
     sd = {k: torch.tensor(np.asarray(a), dtype=torch.float32)
-          for k, a in _flat_from_jax(np_params,
-                                     *_tp(model, tp_rank)).items()}
+          for k, a in _flat_from_jax(np_params, **_coords(
+              model, tp_rank, pp_rank, ep_rank)).items()}
     if model is not None:
         _check_shapes(sd, model)
     return sd
 
 
-def params_to_jax(model):
+def params_to_jax(model, pp_rank=None):
     """The port's parameters as a JAX param dict of NumPy f32 arrays (flat
     ``h{l}`` layers), with the leading tp dim of 1 on block-sparse
-    ``w_fc``/``w_proj``; with tp > 1 the rank's shard of the JAX global
-    dict (``jax_from_shards`` joins the ranks')."""
+    ``w_fc``/``w_proj``; with tp, pp or ep > 1 the rank's shard of the JAX
+    global dict (a pp stage's layers at their JAX indices: ``pp_rank``,
+    or its mesh's), which ``jax_from_shards`` joins."""
     return _flat_to_jax({k: p.detach().float().cpu().numpy()
-                         for k, p in model.state_dict().items()}, model)
+                         for k, p in model.state_dict().items()}, model,
+                        _layer0(model, pp_rank))
 
 
-def jax_from_shards(shards):
-    """The JAX global tree from its tp ranks' shards, in rank order (each
-    a ``params_to_jax`` dict or an ``opt_state_to_jax`` Adam state or EMA
-    dict): each tp-sharded array concatenated along its split dim, the
-    rest taken from rank 0."""
+def jax_from_shards(shards, axis="tp"):
+    """The JAX tree from the shards of the ranks along one mesh ``axis``,
+    in rank order (each a ``params_to_jax`` dict, an ``opt_state_to_jax``
+    Adam state or EMA dict, or an earlier join): "tp" concatenates each
+    tp-sharded array along its split dim, "ep" each expert array
+    (``moe.w1``, ``b1``, ``w2``, ``b2``) along its expert dim, and "pp"
+    takes the union of the stages' layers; the rest is rank 0's.  Over
+    several axes, join the innermost first (tp or ep, then pp)."""
+    if axis not in ("tp", "pp", "ep"):
+        raise ValueError(f"axis is tp, pp or ep, not {axis!r}")
+
     def join(k, leaves):
         a = leaves[0]
-        if k not in _TP_DIM or not isinstance(a, np.ndarray) or a.ndim == 0:
+        if not isinstance(a, np.ndarray) or a.ndim == 0:
+            return a
+        if axis == "ep":
+            return np.concatenate(leaves) if k in _MOE_KEYS[1:] else a
+        if axis == "pp" or k not in _TP_DIM:
             return a
         d = 0 if (k in ("w_fc", "w_proj") and a.ndim == 4) else _TP_DIM[k]
         return np.concatenate(leaves, axis=d)
 
     def walk(k, nodes):
         if isinstance(nodes[0], dict):
-            return {kk: walk(kk, [n[kk] for n in nodes]) for kk in nodes[0]}
+            keys = dict.fromkeys(kk for n in nodes for kk in n)
+            return {kk: walk(kk, [n[kk] for n in nodes if kk in n])
+                    for kk in keys}
         return join(k, nodes)
     return walk(None, list(shards))
 
 
-def _slots_from_jax(tree, model, dev, tp_rank=None):
+def _slots_from_jax(tree, model, dev, ranks):
     sd = {k: _tensor(a) for k, a in _flat_from_jax(
-        tree, *_tp(model, tp_rank)).items()}
+        tree, **_coords(model, *ranks)).items()}
     _check_shapes(sd, model)
     return {k: t.to(dev) for k, t in sd.items()}
 
 
-def opt_state_from_jax(np_state, model, tp_rank=None):
+def opt_state_from_jax(np_state, model, tp_rank=None, pp_rank=None,
+                       ep_rank=None):
     """A JAX optimizer state of NumPy arrays -> the port's, on the model's
     device, each slot in its own dtype, keyed by the model's parameter
-    names (with tp > 1 the tp rank's shard, as ``params_from_jax``):
+    names (with tp, pp or ep > 1 the rank's shard, as
+    ``params_from_jax``):
 
     - ``AdamOptimizer``: ``{"mean": params, "var": params, "t": int}``
       (f32, bfloat16 or packed16 uint16 slots);
@@ -231,6 +286,7 @@ def opt_state_from_jax(np_state, model, tp_rank=None):
 
     t becomes an int32 scalar tensor."""
     dev = model.wte.device
+    ranks = (tp_rank, pp_rank, ep_rank)
 
     def step(t):
         return torch.tensor(int(t), dtype=torch.int32, device=dev)
@@ -238,26 +294,29 @@ def opt_state_from_jax(np_state, model, tp_rank=None):
         return {"slots": {k: {s: _tensor(a).to(dev) for s, a in d.items()}
                           for k, d in _flat_from_jax(
                               np_state["slots"],
-                              *_tp(model, tp_rank)).items()},
+                              **_coords(model, *ranks)).items()},
                 "t": step(np_state["t"])}
     if "mean" in np_state:
-        return {"mean": _slots_from_jax(np_state["mean"], model, dev,
-                                        tp_rank),
-                "var": _slots_from_jax(np_state["var"], model, dev, tp_rank),
+        return {"mean": _slots_from_jax(np_state["mean"], model, dev, ranks),
+                "var": _slots_from_jax(np_state["var"], model, dev, ranks),
                 "t": step(np_state["t"])}
-    return _slots_from_jax(np_state, model, dev, tp_rank)
+    return _slots_from_jax(np_state, model, dev, ranks)
 
 
-def opt_state_to_jax(state, model):
+def opt_state_to_jax(state, model, pp_rank=None):
     """The port's optimizer state (any of ``opt_state_from_jax``'s three
     forms) as the JAX package's, NumPy arrays of the same dtypes and bits
-    (bfloat16 as ml_dtypes' bfloat16) and t an int32."""
+    (bfloat16 as ml_dtypes' bfloat16) and t an int32; a pp stage's layers
+    at their JAX indices, as ``params_to_jax``."""
+    layer0 = _layer0(model, pp_rank)
+
     def tree(flat):
-        return _flat_to_jax({k: _array(t) for k, t in flat.items()}, model)
+        return _flat_to_jax({k: _array(t) for k, t in flat.items()}, model,
+                            layer0)
     if "slots" in state:
         return {"slots": _flat_to_jax(
             {k: {s: _array(a) for s, a in d.items()}
-             for k, d in state["slots"].items()}, model),
+             for k, d in state["slots"].items()}, model, layer0),
                 "t": np.int32(int(state["t"]))}
     if "mean" in state:
         return {"mean": tree(state["mean"]), "var": tree(state["var"]),
@@ -269,9 +328,12 @@ def random_jax_params(model, seed=0):
     """A JAX-layout param dict of NumPy f32 arrays for ``model``'s config,
     drawn from ``seed`` with the JAX initialiser's scales (normal, std
     0.02, output projections 0.02/sqrt(2·n_layer); gains 1, biases 0; an
-    MoE layer's ``wg``, ``w1`` and ``w2`` std 0.02).  With tp > 1 the
-    global arrays of the JAX init's shapes (a block-sparse MLP weight with
-    a leading tp dim), of which each rank loads its shard."""
+    MoE layer's ``wg``, ``w1`` and ``w2`` std 0.02).  With tp, pp or ep >
+    1 the global arrays of the JAX init's shapes (a block-sparse MLP
+    weight with a leading tp dim, all n_layer layers, all E experts), of
+    which each rank loads its shard; with pp > 1 the layers stacked in
+    ``hs``, as the JAX init's (the same draws as the flat layers of the
+    pp-1 model)."""
     c = model.config
     rng = np.random.RandomState(seed)
     std = 0.02
@@ -284,7 +346,7 @@ def random_jax_params(model, seed=0):
               "wpe": normal((c.ctx, c.n_embd), std),
               "lnf_g": np.ones(c.n_embd, np.float32),
               "lnf_b": np.zeros(c.n_embd, np.float32)}
-    for l, layer in enumerate(model.h):
+    for l in range(c.n_layer):
         if model.moe is not None:
             mlp = {}
         elif model.bsmm1 is not None:
@@ -311,7 +373,17 @@ def random_jax_params(model, seed=0):
             params[f"h{l}"].update(
                 w_fc=mlp["w_fc"], b_fc=np.zeros(model.hidden, np.float32),
                 w_proj=mlp["w_proj"], b_proj=np.zeros(c.n_embd, np.float32))
+    if c.pp > 1:
+        params["hs"] = _stacked([params.pop(f"h{l}")
+                                 for l in range(c.n_layer)])
     return params
+
+
+def _stacked(layers):
+    """Per-layer trees stacked on a leading layer dim (the JAX ``hs``)."""
+    if isinstance(layers[0], dict):
+        return {k: _stacked([t[k] for t in layers]) for k in layers[0]}
+    return np.stack(layers)
 
 
 def conv_filter_from_jax(F, conv, device):

@@ -12,21 +12,23 @@ per byte.
         --n_ctx 64 --n_embd 64 --n_layer 2 --n_head 4 --blk_size 16
     torchrun --nproc_per_node 4 -m blocksparse_tpu_torch.examples.enwik8 \\
         --device cpu --tp 2 --sp 2 ...      # 4 gloo ranks (nccl on cuda)
+    torchrun --nproc_per_node 4 -m blocksparse_tpu_torch.examples.enwik8 \\
+        --device cpu --pp 2 --ep 2 --moe_experts 2 ...   # GPipe x experts
 
 Data: ``--data_file`` with the enwik8 bytes; without it the JAX example's
 synthetic byte stream (``load_data``, ``batch_iter``: the same bytes and
 batches for the same sizes and seeds).  The weights are drawn from seed 0
 with the JAX initialiser's shapes and scales (``random_jax_params``), not
 from JAX's PRNG.  Flags are the JAX example's.  ``--tp``, ``--sp`` and
-``--sp_mode`` shard the model over the ranks of a torchrun (or of a
-process group the caller initialised): dp is the world size over tp·sp,
-and every rank draws the same global batch and takes its (batch/dp,
-ctx/sp) piece, as the JAX example's mesh splits it; a batch that does not
-divide by dp raises (the JAX example leaves devices idle instead).  One
-process with tp = sp = 1 runs the single-device step, as the JAX
-example's ``use_mesh`` rule; with a mesh only rank 0 prints, and
-checkpoints go to a ``rank{r}`` directory each.  ``--pp`` and ``--ep``
-other than 1 raise ``NotImplementedError`` (not ported).
+``--sp_mode``, ``--pp`` (with ``--pp_microbatch``) and ``--ep`` shard the
+model over the ranks of a torchrun (or of a process group the caller
+initialised): dp is the world size over tp·sp·pp·ep, and every rank draws
+the same global batch and takes its (batch/(dp·ep), ctx/sp) piece, as the
+JAX example's mesh splits it; a batch that does not divide by dp·ep
+raises (the JAX example leaves devices idle instead).  One process with
+tp = sp = pp = ep = 1 runs the single-device step, as the JAX example's
+``use_mesh`` rule; with a mesh only rank 0 prints, and checkpoints go to
+a ``rank{r}`` directory each.
 ``--moe_experts`` > 0 (with ``--moe_k``) makes each MLP a
 block-sparse Mixture-of-Experts and, as in the JAX example, forces
 ``--mlp_block_size`` 32.  Added: ``--device`` (default the
@@ -53,8 +55,6 @@ from blocksparse_tpu_torch.ops.optimize import AdamOptimizer
 from blocksparse_tpu_torch.parallel import (allreduce, data_sharding,
                                             make_mesh, mpi_size)
 from blocksparse_tpu_torch.profiling import trace
-
-_UNPORTED = ("pp", "ep")
 
 
 def load_data(path, n_train, n_valid):
@@ -118,33 +118,31 @@ def parse_args(argv=None):
 
 
 def _mesh(args, dev):
-    """The mesh of a sharded run (None for one process at tp = sp = 1):
-    dp = world size / (tp·sp), initialising the process group from the
-    environment if the caller has not."""
+    """The mesh of a sharded run (None for one process at tp = sp = pp =
+    ep = 1): dp = world size / (tp·sp·pp·ep), initialising the process
+    group from the environment if the caller has not."""
     world = (torch.distributed.get_world_size()
              if torch.distributed.is_initialized()
              else int(os.environ.get("WORLD_SIZE", "1")))
-    if world == 1 and args.tp == 1 and args.sp == 1:
+    model_par = args.tp * args.sp * args.pp * args.ep
+    if world == 1 and model_par == 1:
         return None
-    if world % (args.tp * args.sp):
-        raise SystemExit(f"--tp {args.tp} x --sp {args.sp} must divide the "
-                         f"world size ({world})")
-    dp = world // (args.tp * args.sp)
-    if args.n_batch % dp:
-        raise SystemExit(f"--n_batch {args.n_batch} must divide by dp = "
-                         f"{dp}")
-    return make_mesh(dp=dp, tp=args.tp, sp=args.sp, device=dev.type)
+    if world % model_par:
+        raise SystemExit(f"--tp {args.tp} x --sp {args.sp} x --pp {args.pp} "
+                         f"x --ep {args.ep} must divide the world size "
+                         f"({world})")
+    dp = world // model_par
+    if args.n_batch % (dp * args.ep):
+        raise SystemExit(f"--n_batch {args.n_batch} must divide by dp*ep = "
+                         f"{dp * args.ep}")
+    return make_mesh(dp=dp, tp=args.tp, pp=args.pp, sp=args.sp, ep=args.ep,
+                     device=dev.type)
 
 
 def build(args):
     """(config, model with seed-0 weights, optimizer, train step) for the
-    parsed flags; with --tp/--sp (or several ranks) the model is this
-    rank's shard and the step the sharded one."""
-    for flag in _UNPORTED:
-        if getattr(args, flag) != 1:
-            raise NotImplementedError(
-                f"--{flag} {getattr(args, flag)} is not ported (pipeline "
-                f"and expert parallelism come later)")
+    parsed flags; with --tp/--sp/--pp/--ep (or several ranks) the model is
+    this rank's shard and the step the sharded one."""
     dev = torch.device(args.device)
     mesh = _mesh(args, dev)
     if mesh is not None and dev.type == "cuda":
@@ -155,8 +153,8 @@ def build(args):
         n_head=args.n_head, ctx=args.n_ctx, blk_size=args.blk_size,
         attn_layout=args.attn_layout, local_blocks=8, mlp_ratio=4,
         dtype=dtype, recompute=True, tp=args.tp, sp=args.sp,
-        sp_mode=args.sp_mode, moe_experts=args.moe_experts,
-        moe_k=args.moe_k,
+        sp_mode=args.sp_mode, pp=args.pp, pp_microbatch=args.pp_microbatch,
+        moe_experts=args.moe_experts, moe_k=args.moe_k, ep=args.ep,
         mlp_block_size=32 if args.moe_experts else args.mlp_block_size,
         mlp_density=args.mlp_density)
     model = SparseTransformerLM(cfg, device=dev, mesh=mesh)
@@ -177,7 +175,7 @@ def train(args, on_step=None):
     mesh = model.mesh
     say = print if mesh is None or torch.distributed.get_rank() == 0 \
         else (lambda *a, **k: None)
-    shard = (data_sharding(mesh, "dp", "sp") if mesh is not None
+    shard = (data_sharding(mesh, ("dp", "ep"), "sp") if mesh is not None
              else None)
     ckpt_dir = args.ckpt_dir
     if mesh is not None and ckpt_dir:
@@ -233,8 +231,11 @@ def train(args, on_step=None):
             with torch.no_grad():
                 vl = model.loss(on_dev(vx), on_dev(vy))
                 if mesh is not None:              # the shards' mean
-                    vl = allreduce(vl, axis=("dp", "sp"), mesh=mesh) \
-                        / mpi_size(mesh, ("dp", "sp"))
+                    if cfg.pp > 1:                # loss_pp: loss/pp + aux
+                        vl = allreduce(vl, axis="pp", mesh=mesh)
+                    axes = ("dp", "sp", "ep")
+                    vl = allreduce(vl, axis=axes, mesh=mesh) \
+                        / mpi_size(mesh, axes)
             vl = float(vl)
             evals.append((step + 1, vl / np.log(2)))
             say(f"  eval bits/byte {vl / np.log(2):6.3f}", flush=True)

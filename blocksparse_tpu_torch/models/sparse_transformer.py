@@ -1,5 +1,5 @@
 """Sparse Transformer language model: serving, and training on one device or
-sharded over data, tensor and sequence parallel ranks.
+sharded over data, tensor, sequence, pipeline and expert parallel ranks.
 
 Counterpart of ``blocksparse_tpu/models/sparse_transformer.py``:
 layout-driven block-sparse attention (fixed/strided/dense
@@ -37,9 +37,21 @@ dy, as JAX's transpose of ``psum`` under ``check_vma=False``: so the
 sharded step's gradients, and its grad_norm, are tp times the true ones
 (ROADMAP F8, carried over and pinned).  sp splits the context: the
 forward offsets ``wpe`` by the rank's shard and the attention runs
-``parallel.sequence``'s gather or ring mode.  ``convert.params_from_jax``
-loads the rank's shard of a JAX param dict.  Pipeline (``pp``) and expert
-(``ep`` > 1) parallelism are not ported and raise ``NotImplementedError``.
+``parallel.sequence``'s gather or ring mode.  pp is GPipe
+(``parallel.pipeline``): the rank holds its stage's n_layer/pp blocks,
+layers [layer0, layer0 + n_layer/pp) of the JAX model with layer0 = its pp
+rank · n_layer/pp, and ``loss`` runs ``loss_pp``: the embedding on every
+stage, ``pp_microbatch`` (or pp) microbatches through ``gpipe`` with each
+stage's MoE aux, ``broadcast_from_last``, and the head on every stage;
+its value is the true loss / pp plus the stage's aux term.  ep splits an
+MoE's experts (``ops/moe.py``): the rank holds E/ep of them and routes its
+own tokens (the batch splits over dp·ep).  ``convert.params_from_jax``
+loads the rank's shard of a JAX param dict.
+
+On the card a step with pp or ep > 1 runs eagerly by design: its point-
+to-point sends and all-to-alls need several ranks, which NCCL gives one
+card each, and the card's host has one; the single-device and the other
+sharded steps stay one CUDA graph.
 """
 from __future__ import annotations
 
@@ -128,8 +140,8 @@ class TransformerConfig:
     drops each block's two residual branches when ``loss``/``forward``
     get a dropout source.  ``moe_experts`` > 0 replaces each MLP by a
     ``BlocksparseMoE`` (block-sparse experts at ``mlp_block_size``).  tp,
-    sp and sp_mode shard the model over a mesh (the module's docstring);
-    pp and ep must stay at 1."""
+    sp, sp_mode, pp (with ``pp_microbatch`` microbatches, 0 for pp) and ep
+    shard the model over a mesh (the module's docstring)."""
     n_vocab: int = 256
     n_embd: int = 512
     n_layer: int = 6
@@ -158,18 +170,21 @@ class TransformerConfig:
 
 
 def _check_supported(c: TransformerConfig):
-    """The JAX constructor's asserts, as ValueErrors, and the refusals of
-    what is not ported."""
+    """The JAX constructor's asserts, as ValueErrors."""
     if c.ep != 1 and not c.moe_experts:
         raise ValueError("ep needs moe_experts > 0")
-    if c.pp != 1:
-        raise NotImplementedError(
-            f"pp={c.pp}: pipeline parallelism (GPipe) is not ported yet "
-            f"(ROADMAP §1, item 6)")
-    if c.ep != 1:
-        raise NotImplementedError(
-            f"ep={c.ep}: expert parallelism is not ported yet (ROADMAP §1, "
-            f"item 6)")
+    if c.pp < 1 or c.ep < 1 or c.pp_microbatch < 0:
+        raise ValueError(f"pp {c.pp} and ep {c.ep} must be at least 1, "
+                         f"pp_microbatch {c.pp_microbatch} at least 0")
+    if c.n_layer % c.pp:
+        raise ValueError(f"n_layer {c.n_layer} must divide by pp {c.pp}")
+    if c.pp > 1 and c.sp > 1:
+        raise ValueError("pp x sp composition not supported (pick one of "
+                         "pipeline/sequence parallelism; both compose with "
+                         "dp and tp), as in the JAX package")
+    if c.moe_experts % c.ep:
+        raise ValueError(f"moe_experts {c.moe_experts} must divide by ep "
+                         f"{c.ep}")
     if c.tp < 1 or c.sp < 1 or c.n_head % c.tp:
         raise ValueError(f"n_head {c.n_head} must divide by tp {c.tp}")
     if (c.ctx // c.blk_size) % c.sp:
@@ -196,8 +211,8 @@ class _Layer(nn.Module):
     """One transformer block's parameters (the JAX ``h{l}`` dict, the
     rank's shard of it: ``d_local`` = n_embd/tp columns of each of q, k
     and v, ``hidden`` the MLP's hidden/tp): with ``moe`` (a
-    ``BlocksparseMoE``) a ``moe`` dict of its parameters in place of the
-    MLP's four."""
+    ``BlocksparseMoE``) a ``moe`` dict of its parameters, the rank's E/ep
+    experts, in place of the MLP's four."""
 
     def __init__(self, c: TransformerConfig, d_local, hidden, w_fc_shape,
                  w_proj_shape, moe=None):
@@ -212,7 +227,8 @@ class _Layer(nn.Module):
         self.b_out = _param(c.n_embd)
         if moe is not None:
             self.moe = nn.ParameterDict({
-                k: _param(*shape) for k, shape in moe.shapes().items()})
+                k: _param(*shape)
+                for k, shape in moe.shapes(local=True).items()})
             return
         self.w_fc = _param(*w_fc_shape)
         self.b_fc = _param(hidden)
@@ -222,7 +238,8 @@ class _Layer(nn.Module):
 
 class SparseTransformerLM(nn.Module):
     """The flagship LM: forward, KV-cached decode, loss and the train step,
-    on one device or, with tp/sp > 1 or a ``mesh``, as one rank's shard.
+    on one device or, with tp/sp/pp/ep > 1 or a ``mesh``, as one rank's
+    shard (with pp its stage: ``n_local`` = n_layer/pp blocks in ``h``).
 
     Parameters start as zeros (gains as ones); load real ones with
     ``load_state_dict(convert.params_from_jax(...))``.  They hold f32
@@ -234,9 +251,10 @@ class SparseTransformerLM(nn.Module):
     reference the kernels are held against on the card.
 
     ``mesh``: the ``DeviceMesh`` (``parallel.make_mesh``) this rank's
-    shard lives on, needed where tp or sp > 1 (``make_train_step(mesh=)``
-    sets it too); its shapes come from the config alone (n_head/tp heads,
-    ``hidden_local``), as the JAX constructor's."""
+    shard lives on, needed where tp, sp, pp or ep > 1
+    (``make_train_step(mesh=)`` sets it too); its shapes come from the
+    config alone (n_head/tp heads, ``hidden_local``, n_layer/pp blocks,
+    E/ep experts), as the JAX constructor's."""
 
     def __init__(self, config: TransformerConfig, device=None, impl=None,
                  mesh=None):
@@ -248,6 +266,7 @@ class SparseTransformerLM(nn.Module):
         self.impl = impl
         self.mesh = None
         self.hs = c.n_embd // c.n_head
+        self.n_local = c.n_layer // c.pp
         self.heads_local = c.n_head // c.tp
         self.d_local = self.heads_local * self.hs
         ctx_blks = c.ctx // c.blk_size
@@ -292,7 +311,7 @@ class SparseTransformerLM(nn.Module):
         self.h = nn.ModuleList(
             _Layer(c, self.d_local, self.hidden_local, w_fc_shape,
                    w_proj_shape, self.moe)
-            for _ in range(c.n_layer))
+            for _ in range(self.n_local))
         self._decode_graphs = {}      # generate_cached_scan's, by key
         self.to(default_device(device, "SparseTransformerLM"))
         if mesh is not None:
@@ -301,8 +320,8 @@ class SparseTransformerLM(nn.Module):
     # ---------------- the mesh ----------------
 
     def _use_mesh(self, mesh):
-        """Binds this rank's shard to ``mesh``, checking its tp and sp
-        sizes against the config."""
+        """Binds this rank's shard to ``mesh``, checking its tp, sp, pp and
+        ep sizes against the config."""
         if not isinstance(mesh, DeviceMesh):
             raise TypeError(f"mesh must be a DeviceMesh (make_mesh), not "
                             f"{type(mesh).__name__}")
@@ -320,10 +339,10 @@ class SparseTransformerLM(nn.Module):
         """The mesh, or None on one device; raises where the config shards
         the model and no mesh is bound."""
         c = self.config
-        if self.mesh is None and (c.tp > 1 or c.sp > 1):
-            raise ValueError(f"tp={c.tp}, sp={c.sp}: the model is one "
-                             f"rank's shard; bind it to a mesh "
-                             f"(SparseTransformerLM(mesh=) or "
+        if self.mesh is None and max(c.tp, c.sp, c.pp, c.ep) > 1:
+            raise ValueError(f"tp={c.tp}, sp={c.sp}, pp={c.pp}, ep={c.ep}: "
+                             f"the model is one rank's shard; bind it to a "
+                             f"mesh (SparseTransformerLM(mesh=) or "
                              f"make_train_step(mesh=))")
         return self.mesh
 
@@ -338,8 +357,12 @@ class SparseTransformerLM(nn.Module):
         """Per parameter name, the mesh axes its dims are split over (the
         JAX ``PartitionSpec`` tree, as tuples): the tp-sharded qkv,
         output projection and MLP; the block-sparse MLP weights, whose
-        JAX leading tp dim the port drops, name "tp" on their block dim."""
+        JAX leading tp dim the port drops, name "tp" on their block dim;
+        the MoE's experts "ep" on their expert dim.  A pp stage's blocks,
+        whose JAX leading layer dim the port drops, are also split over
+        "pp" (``param_shard_axes``)."""
         specs = {}
+        moe = self.moe.param_specs() if self.moe is not None else {}
         for name, p in self.named_parameters():
             key = name.split(".")[-1]
             spec = {"w_qkv": (None, "tp"), "b_qkv": ("tp",),
@@ -347,23 +370,36 @@ class SparseTransformerLM(nn.Module):
                     "w_fc": (None, "tp"), "w_proj": ("tp", None)}.get(key)
             if key in ("w_fc", "w_proj") and self.bsmm1 is not None:
                 spec = ("tp", None, None)
+            if ".moe." in name:
+                spec = moe[key]
             specs[name] = spec or (None,) * p.dim()
         return specs
 
+    def param_shard_axes(self):
+        """Per parameter name, the mesh axes it is split over (pp first for
+        a stage's blocks, as JAX's stacked spec): the global grad norm sums
+        each such parameter's squares over them, so every rank computes
+        one norm_scale."""
+        stage = ("pp",) if self.config.pp > 1 else ()
+        return {name: tuple(dict.fromkeys(
+            (stage if name.startswith("h.") else ()) + tuple(
+                a for a in spec if a)))
+            for name, spec in self.param_specs().items()}
+
     def grad_reduce_axes(self, include_sp=False):
         """Per parameter name, the mesh axes its gradient is summed over:
-        dp, and tp where the parameter is replicated over it (its tp
-        ranks hold partial sums), and sp with sequence parallelism."""
+        each of dp, tp, pp (pp > 1) and ep (ep > 1) that the parameter is
+        not split over (its ranks hold partial sums: tp's of a replicated
+        parameter, pp's of the embeddings, final norm and head, where
+        ``loss_pp``'s 1/pp makes the sum exact, ep's of the gate and every
+        other parameter, since the batch splits over dp·ep), and sp with
+        sequence parallelism."""
+        c = self.config
+        active = ("dp", "tp") + (("pp",) if c.pp > 1 else ()) + (
+            ("ep",) if c.ep > 1 else ())
         sp = ("sp",) if include_sp else ()
-        return {name: tuple(a for a in ("dp", "tp") if a not in spec) + sp
-                for name, spec in self.param_specs().items()}
-
-    def param_shard_axes(self):
-        """Per parameter name, the mesh axes it is split over: the global
-        grad norm sums each such parameter's squares over them, so every
-        rank computes one norm_scale."""
-        return {name: tuple(dict.fromkeys(a for a in spec if a))
-                for name, spec in self.param_specs().items()}
+        return {name: tuple(a for a in active if a not in split) + sp
+                for name, split in self.param_shard_axes().items()}
 
     @property
     def nd(self):
@@ -398,7 +434,11 @@ class SparseTransformerLM(nn.Module):
         h = float_cast(layer_norm(x, layer.ln2_g, layer.ln2_b, axis=-1), nd)
         if self.moe is not None:
             B, L, D = h.shape
-            y, aux = self.moe(layer.moe, h.reshape(B * L, D))
+            if self.config.ep > 1:
+                y, aux = self.moe(layer.moe, h.reshape(B * L, D),
+                                  ep_axis="ep", mesh=self._sharded())
+            else:
+                y, aux = self.moe(layer.moe, h.reshape(B * L, D))
             return y.reshape(B, L, D), aux
         if self.bsmm1 is not None:
             h = self.bsmm1(h, float_cast(layer.w_fc, nd))
@@ -462,7 +502,13 @@ class SparseTransformerLM(nn.Module):
         forbids).  The MoE's routing is a function of the block's input,
         so the recompute routes every token as the forward did.  With sp,
         ``tokens`` are the rank's context shard, at its offset into
-        ``wpe``."""
+        ``wpe``.  A pipeline stage holds only its blocks: with pp > 1 this
+        raises (``loss`` runs the pipeline)."""
+        if self.config.pp > 1:
+            raise ValueError(f"pp={self.config.pp}: the model is one "
+                             f"pipeline stage ({self.n_local} of "
+                             f"{self.config.n_layer} blocks); loss runs the "
+                             f"pipeline (loss_pp)")
         L = tokens.shape[1]
         off = 0
         if self.config.sp > 1 and self._sharded() is not None:
@@ -497,6 +543,47 @@ class SparseTransformerLM(nn.Module):
 
     # ---------------- training ----------------
 
+    def _stage(self, layers, x):
+        """A pipeline stage: the blocks ``layers`` (a list or ModuleList of
+        this model's ``_Layer``s) on x, each recomputed in the backward
+        under ``config.recompute`` (the JAX ``_scan_layers``).  Returns (x,
+        the blocks' summed MoE aux, f32, zero without MoE)."""
+        recompute = self.config.recompute and torch.is_grad_enabled()
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for layer in layers:
+            if recompute:
+                x, a = checkpoint(self._block, layer, x, None, None,
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
+            else:
+                x, a = self._block(layer, x)
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
+    def loss_pp(self, tokens, targets):
+        """The pipelined loss (the JAX ``loss_pp``): the TRUE loss / pp on
+        every stage plus ``moe_aux_coef`` times this stage's aux over the
+        microbatches' mean, so a sum over "pp" gives the loss and makes a
+        plain sum over "pp" of the shared parameters' gradients exact
+        (``parallel/pipeline.py``).  Every stage embeds the tokens and
+        runs the head; the embedding's input reaches the pipeline on stage
+        0 only.  ``config.pp_microbatch`` (0: pp) microbatches; the model
+        must be bound to a mesh (its pp axis may have one rank)."""
+        from blocksparse_tpu_torch.parallel import pipeline as pl
+        c, mesh = self.config, self._sharded()
+        if mesh is None:
+            raise ValueError("loss_pp runs on a mesh: bind the model to one")
+        S = mpi_size(mesh, "pp")
+        n_micro = c.pp_microbatch or S
+        x = self._embed(tokens, self.wpe[None, :tokens.shape[1]])
+        ym, aux = pl.gpipe(self._stage, self.h, pl.microbatch(x, n_micro),
+                           axis="pp", n_stages=S, with_aux=True, mesh=mesh)
+        y = pl.unmicrobatch(pl.broadcast_from_last(ym, axis="pp",
+                                                   n_stages=S, mesh=mesh))
+        losses = softmax_cross_entropy(self._logits(y), targets)
+        return losses.mean() / S + c.moe_aux_coef * aux / n_micro
+
     def loss(self, tokens, targets, dropout=None):
         """Mean softmax cross entropy of the next-token logits against
         ``targets`` (batch, L), differentiable in the parameters.
@@ -507,7 +594,14 @@ class SparseTransformerLM(nn.Module):
         one (attention, MLP) pair of bool masks of the residual's shape a
         layer (the masks the JAX ``_block`` draws, for parity runs).
         None drops nothing.  With MoE, plus ``moe_aux_coef`` times the
-        layers' summed load-balance loss."""
+        layers' summed load-balance loss.  With pp > 1 the pipelined
+        ``loss_pp`` (dropout there is not ported and raises)."""
+        if self.config.pp > 1:
+            if dropout is not None and self.config.resid_pdrop:
+                raise NotImplementedError(
+                    "residual dropout under pipeline parallelism is not "
+                    "ported (the train step drops nothing: ROADMAP F3)")
+            return self.loss_pp(tokens, targets)
         logits, aux = self._full_context(tokens, dropout=dropout)
         loss = softmax_cross_entropy(logits, targets).mean()
         if self.moe is None:
@@ -538,17 +632,20 @@ class SparseTransformerLM(nn.Module):
         The step applies no dropout whatever ``config.resid_pdrop`` says:
         the JAX step calls ``loss`` with no dropout key (ROADMAP F3).
 
-        With ``mesh`` (``parallel.make_mesh``; its tp and sp sizes the
-        config's) this module is the rank's shard and tokens and targets
-        are its (batch/dp, ctx/sp) piece.  The step is the JAX
+        With ``mesh`` (``parallel.make_mesh``; its tp, sp, pp and ep sizes
+        the config's) this module is the rank's shard and tokens and
+        targets are its (batch/(dp·ep), ctx/sp) piece.  The step is the JAX
         ``local_step`` under ``shard_map``: each gradient summed over its
-        ``grad_reduce_axes`` and divided by dp·sp, the loss averaged over
-        sp and dp, the global norm from each parameter's squares summed
-        over its ``param_shard_axes``; the tp all-reduces' gradient is an
+        ``grad_reduce_axes`` and divided by dp·sp·ep, the loss averaged
+        over sp and ep, summed over pp (``loss_pp``'s 1/pp) and averaged
+        over dp, the global norm from each parameter's squares summed over
+        its ``param_shard_axes``; the tp all-reduces' gradient is an
         all-reduce (F8: gradients and grad_norm tp times the true ones, as
-        JAX's).  On the card the step, collectives included, is one CUDA
-        graph as without a mesh.  A model bound to a mesh trains on it
-        when ``mesh`` is None."""
+        JAX's, through the pipeline too).  On the card the step,
+        collectives included, is one CUDA graph as without a mesh, except
+        with pp or ep > 1, where it runs eagerly by design (the module's
+        docstring).  A model bound to a mesh trains on it when ``mesh`` is
+        None."""
         if mesh is None:
             mesh = self._sharded()
         else:
@@ -559,7 +656,8 @@ class SparseTransformerLM(nn.Module):
         """What the MLP's products launch for N tokens: each op's ``mode``
         and route (``dispatch_mode``), with MoE at the experts' N, the
         capacity.  A graph captured under one replays only that one, so
-        the graphs are keyed on it."""
+        the graphs are keyed on it (only steps with pp = ep = 1 are
+        captured: ``_TrainStep.graphed``)."""
         ops = (self.bsmm1, self.bsmm2)
         if self.moe is not None:
             ops, N = (self.moe.bsmm1, self.moe.bsmm2), self.moe.capacity(N)
@@ -572,10 +670,10 @@ class SparseTransformerLM(nn.Module):
             raise NotImplementedError(
                 "KV-cached decode with MoE MLPs is not implemented (as in "
                 "the JAX package); generate runs a full forward a token")
-        if self.config.tp > 1 or self.config.sp > 1:
+        if self.config.tp > 1 or self.config.sp > 1 or self.config.pp > 1:
             raise NotImplementedError(
-                "the KV-cached decode runs unsharded (tp = sp = 1), as in "
-                "the JAX package")
+                "the KV-cached decode runs unsharded (tp = sp = pp = 1), as "
+                "in the JAX package")
 
     # ---------------- KV-cached decode ----------------
 
@@ -656,7 +754,10 @@ class _TrainStep:
     ``captures`` holds each graph's warm-up and capture seconds.
 
     With a ``mesh`` the step is the sharded one (``_sharded_grads``), its
-    collectives captured in the graph like any other launch."""
+    collectives captured in the graph like any other launch.  With pp or
+    ep > 1 it is ``_eager`` on the card too, by design: those steps need
+    several NCCL ranks, one card each, which the card's host lacks, so a
+    capture of their sends and all-to-alls could not be checked."""
 
     def __init__(self, model, optimizer, clip_norm, mesh=None):
         self.model, self.optimizer, self.clip_norm = model, optimizer, \
@@ -665,9 +766,11 @@ class _TrainStep:
         self.names, self.params = zip(*model.named_parameters())
         self._graphs = {}
         self.captures = []
+        c = model.config
+        self.graphed = c.pp == 1 and c.ep == 1
 
     def __call__(self, opt_state, tokens, targets, loss_scale):
-        if not self.params[0].is_cuda:
+        if not self.params[0].is_cuda or not self.graphed:
             return self._eager(opt_state, tokens, targets, loss_scale)
         key = (tuple(tokens.shape), tuple(targets.shape),
                self.model._mlp_routes(tokens.numel()))
@@ -718,19 +821,21 @@ class _TrainStep:
         """The JAX sharded step between the gradient and the optimizer:
         (grads, loss, grad_norm, norm_scale).  Each gradient summed over
         its ``grad_reduce_axes`` (one all-reduce for the gradients of one
-        set of axes) and divided by dp·sp; the scaled loss averaged over sp
-        and dp; the norm of the unscaled gradients from each parameter's
-        squares, summed over its ``param_shard_axes``."""
-        model, mesh = self.model, self.mesh
-        use_sp = model.config.sp > 1
-        nshards = mpi_size(mesh, "dp") * (mpi_size(mesh, "sp") if use_sp
-                                          else 1)
+        set of axes) and divided by dp·sp·ep; the scaled loss averaged over
+        sp and ep, summed over pp and averaged over dp, in JAX's order; the
+        norm of the unscaled gradients from each parameter's squares,
+        summed over its ``param_shard_axes``."""
+        model, mesh, c = self.model, self.mesh, self.model.config
+        use_sp = c.sp > 1
+        means = (("sp",) if use_sp else ()) + (("ep",) if c.ep > 1 else ())
+        nshards = mpi_size(mesh, ("dp",) + means)
         grads = _sum_over(grads, model.grad_reduce_axes(include_sp=use_sp),
                           mesh)
         grads = {n: g / nshards for n, g in grads.items()}
-        for axis in (("sp",) if use_sp else ()) + ("dp",):
-            loss = col.all_reduce_(loss.clone(), axis_group(mesh, axis)) \
-                / mpi_size(mesh, axis)
+        for axis in means + (("pp",) if c.pp > 1 else ()) + ("dp",):
+            loss = col.all_reduce_(loss.clone(), axis_group(mesh, axis))
+            if axis != "pp":
+                loss = loss / mpi_size(mesh, axis)
         sqs = {n: (g.float() * gs).square().sum() for n, g in grads.items()}
         sqs = _sum_over(sqs, model.param_shard_axes(), mesh)
         total = torch.zeros((), dtype=torch.float32, device=loss.device)

@@ -1,4 +1,4 @@
-"""Block-sparse Mixture-of-Experts on one device (ep = 1).
+"""Block-sparse Mixture-of-Experts, with expert parallelism ("ep").
 
 Counterpart of ``blocksparse_tpu/ops/moe.py``: static-shape top-k routing
 with a fixed capacity per expert (``route_topk``: a choice's slots are
@@ -26,9 +26,21 @@ their own dtype (f32 masters), so under a bf16 compute dtype bsmm1 forms
 f32 products of the bf16 tokens and rounds them to bf16, the bias add
 promotes to f32, and gelu, bsmm2, the combine and the output are f32;
 the router's product is promoted to f32 and the combine's gates are
-rounded to the tokens' dtype.  Expert parallelism (ep > 1, the JAX
-``all_to_all``) is a later slice of the port (ROADMAP §1, "Parallelism on
-``torch.distributed``") and raises.
+rounded to the tokens' dtype.
+
+Expert parallelism (``ep`` > 1, called with an ``ep_axis``): the experts
+are split over the mesh axis, each rank holding E/ep of them (``w1``,
+``b1``, ``w2``, ``b2`` with E/ep leading; the gate ``wg`` whole), and each
+rank routes its own tokens at the capacity of its own T (the routing, the
+capacity and the drops are per rank, as in the JAX package).  The (E, C,
+d) buffer goes to the experts' owners by a tiled all-to-all over the axis
+(``parallel.collectives.all_to_all``: (E, C, d) -> (E/ep, ep·C, d), the
+sources concatenated in rank order), the local experts run at N = ep·C,
+and the all-to-all back returns (E, C, d) for the combine; the backward of
+each all-to-all is the other.  The tokens' buffer travels in x's dtype and
+the experts' outputs in theirs (f32 under F6).  The three steps are
+methods (``dispatch``, ``experts``, ``combine``), so one process can run
+each rank's share in turn.
 """
 from __future__ import annotations
 
@@ -37,6 +49,8 @@ import torch
 
 from blocksparse_tpu_torch.ops.ewops import fast_gelu
 from blocksparse_tpu_torch.ops.matmul import BlocksparseMatMul
+from blocksparse_tpu_torch.parallel.collectives import all_to_all
+from blocksparse_tpu_torch.parallel.mesh import current_mesh, mpi_size
 
 
 def _top_k(probs, k):
@@ -202,14 +216,16 @@ class BlocksparseMoE:
         else:
             self.bsmm1 = self.bsmm2 = None
 
-    def shapes(self):
-        """Each parameter's shape: the JAX ``init``'s tree."""
-        E, d, h = self.E, self.d, self.h
+    def shapes(self, local=False):
+        """Each parameter's shape: the JAX ``init``'s tree; ``local``: one
+        ep rank's (E/ep experts)."""
+        E, d, h = self.E // (self.ep if local else 1), self.d, self.h
         if self.bsmm1 is not None:
             w1, w2 = (E,) + self.bsmm1.w_shape, (E,) + self.bsmm2.w_shape
         else:
             w1, w2 = (E, d, h), (E, h, d)
-        return {"wg": (d, E), "w1": w1, "b1": (E, h), "w2": w2, "b2": (E, d)}
+        return {"wg": (d, self.E), "w1": w1, "b1": (E, h), "w2": w2,
+                "b2": (E, d)}
 
     def init(self, generator=None, device=None):
         """Parameters as the JAX ``init`` draws them (normal, std 0.02; the
@@ -266,14 +282,10 @@ class BlocksparseMoE:
         src.index_put_((dst.reshape(-1),), owner)
         return gates, topi, src[:E * C], dst
 
-    def __call__(self, params, x, ep_axis=None):
-        """x: (T, d) tokens -> (y (T, d), aux_loss f32).  params: a mapping
-        with the JAX ``init``'s names and shapes (a ``ParameterDict`` in
-        the LM)."""
-        if self.ep > 1 or ep_axis is not None:
-            raise NotImplementedError(
-                "expert parallelism (ep > 1) is not ported yet (ROADMAP §1, "
-                "\"Parallelism on torch.distributed\")")
+    def dispatch(self, params, x):
+        """Route x's tokens (T, d) at the capacity of T: (xe, route), xe
+        (E, C, d) each expert's slots (x's dtype, empty slots zero), route
+        what ``combine`` and ``aux`` need."""
         T, d = x.shape
         if d != self.d:
             raise ValueError(f"x must be (T, {self.d}), got {tuple(x.shape)}")
@@ -282,11 +294,51 @@ class BlocksparseMoE:
         gates, topi, src, dst = self._route(probs, C)
         xe = _Dispatch.apply(x, torch.div(src, k, rounding_mode="floor"),
                              dst).reshape(E, C, d)
-        # unbind, not indexing: its backward stacks the E gradients once
+        return xe, (probs, gates.to(x.dtype), topi, src, dst)
+
+    def experts(self, params, xe):
+        """The experts of ``params`` (n leading: E, or one rank's E/ep) on
+        their slots xe (n, N, d): ye (n, N, d), a loop over the n."""
+        if params["w1"].shape[0] != xe.shape[0]:
+            raise ValueError(f"{params['w1'].shape[0]} experts' weights for "
+                             f"{xe.shape[0]} experts' slots (one ep rank's "
+                             f"experts need the ep_axis)")
+        # unbind, not indexing: its backward stacks the n gradients once
         # (an index's backward would scatter each into zeros, then sum)
         per_expert = zip(*(params[n].unbind(0)
                            for n in ("w1", "b1", "w2", "b2")), xe.unbind(0))
-        ye = torch.stack([self._ffn(*args) for args in per_expert])
-        y = _Combine.apply(ye.reshape(E * C, d), gates.to(x.dtype), src, dst,
-                           k)
-        return y, _aux(probs, topi[:, 0], E).float()
+        return torch.stack([self._ffn(*args) for args in per_expert])
+
+    def combine(self, ye, route):
+        """Each token's output from its experts' slots ye (E, C, d): y (T,
+        d) of the promoted dtype of ye and the gates."""
+        _, gates, _, src, dst = route
+        return _Combine.apply(ye.reshape(-1, ye.shape[-1]), gates, src, dst,
+                              self.k)
+
+    def aux(self, route):
+        """The Switch load-balance loss of a routing (f32)."""
+        probs, _, topi, _, _ = route
+        return _aux(probs, topi[:, 0], self.E).float()
+
+    def __call__(self, params, x, ep_axis=None, mesh=None):
+        """x: (T, d) this rank's tokens -> (y (T, d), aux_loss f32).
+        params: a mapping with the JAX ``init``'s names and shapes (a
+        ``ParameterDict`` in the LM).
+
+        With ``ep_axis`` (and ep > 1): params' experts are this rank's
+        E/ep (``shapes(local=True)``) and the slots travel to their owners
+        and back by all-to-all over the axis of ``mesh`` (default the last
+        ``make_mesh``'s).  Without it the layer runs as ep = 1 on the
+        params it is given, as the JAX layer does."""
+        xe, route = self.dispatch(params, x)
+        if ep_axis is not None and self.ep > 1:
+            n = mpi_size(current_mesh(mesh), ep_axis)
+            if n != self.ep:
+                raise ValueError(f"ep {self.ep} is not the mesh's {ep_axis} "
+                                 f"size {n}")
+            xe = all_to_all(xe, ep_axis, 0, 1, mesh)       # (E/ep, ep·C, d)
+            ye = all_to_all(self.experts(params, xe), ep_axis, 1, 0, mesh)
+        else:
+            ye = self.experts(params, xe)
+        return self.combine(ye, route), self.aux(route)

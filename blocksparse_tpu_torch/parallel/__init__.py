@@ -1,7 +1,6 @@
-"""Data, tensor and sequence parallelism on ``torch.distributed``: the
-mesh, the collectives and the sequence-parallel attention.  GPipe
-(``gpipe``, ``broadcast_from_last``, ``microbatch``, ``unmicrobatch``)
-is not ported yet (ROADMAP §1, item 6)."""
+"""Data, tensor, sequence, pipeline and expert parallelism on
+``torch.distributed``: the mesh, the collectives (the experts' all-to-all
+among them), the sequence-parallel attention and the GPipe pipeline."""
 from blocksparse_tpu_torch.parallel.mesh import (
     make_mesh,
     mpi_size,
@@ -18,6 +17,7 @@ from blocksparse_tpu_torch.parallel.collectives import (
     sync_globals_zero_init_op,
     serialize_allreduce_ops,
     identity_sync,
+    all_to_all,
 )
 from blocksparse_tpu_torch.parallel.sequence import (
     sequence_parallel_attention,
@@ -25,4 +25,12 @@ from blocksparse_tpu_torch.parallel.sequence import (
     build_sp_schedules,
     build_ring_schedules,
     shard_tables,
+)
+from blocksparse_tpu_torch.parallel.pipeline import (
+    gpipe,
+    broadcast_from_last,
+    microbatch,
+    unmicrobatch,
+    stage_forward,
+    stage_backward,
 )

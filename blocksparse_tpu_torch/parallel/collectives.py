@@ -10,10 +10,11 @@ Gradients are those of the JAX functions under ``shard_map``: an
 all-reduce's gradient is an all-reduce of dy (the reference's
 ``nccl.py:70``, and what JAX's transpose of ``psum`` gives with
 ``check_vma=False``), a reduce-scatter's an all-gather, an all-gather's a
-reduce-scatter.  The reference's deadlock-avoidance machinery (op
-counters, ``serialize_allreduce_ops`` chains, several communicators) has
-no role: every rank issues the same collectives in the same program
-order, so those functions pass their arguments through.
+reduce-scatter, an all-to-all's the all-to-all back.  The reference's
+deadlock-avoidance machinery (op counters, ``serialize_allreduce_ops``
+chains, several communicators) has no role: every rank issues the same
+collectives in the same program order, so those functions pass their
+arguments through.
 """
 from __future__ import annotations
 
@@ -63,6 +64,23 @@ def scatter_sum_dim(x, dim, group):
     return out.movedim(0, dim)
 
 
+def all_to_all_dim(x, split_dim, concat_dim, group):
+    """The tiled all-to-all (JAX's ``lax.all_to_all(tiled=True)``): x cut
+    along ``split_dim`` into the group's n pieces, piece j sent to rank j,
+    and the pieces received concatenated along ``concat_dim`` in rank
+    order.  One ``all_to_all_single``; it moves data and adds nothing."""
+    n = dist.get_world_size(group)
+    if x.shape[split_dim] % n:
+        raise ValueError(f"dim {split_dim} of {tuple(x.shape)} does not "
+                         f"divide by {n} ranks")
+    xt = x.movedim(split_dim, 0)
+    xt = xt.reshape((n, xt.shape[0] // n) + tuple(xt.shape[1:])).contiguous()
+    out = torch.empty_like(xt)
+    dist.all_to_all_single(out, xt, group=group)
+    return torch.cat([piece.movedim(0, split_dim) for piece in out.unbind(0)],
+                     dim=concat_dim)
+
+
 class _AllReduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -96,6 +114,19 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         return scatter_sum_dim(dy, ctx.dim, ctx.group), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, group):
+        ctx.dims, ctx.group = (split_dim, concat_dim), group
+        return all_to_all_dim(x, split_dim, concat_dim, group)
+
+    @staticmethod
+    def backward(ctx, dy):
+        split_dim, concat_dim = ctx.dims
+        return all_to_all_dim(dy, concat_dim, split_dim, ctx.group), None, \
+            None, None
 
 
 def allreduce(x, op_num=None, num_comms=2, prereduce=0, mpi_ranks=None,
@@ -195,3 +226,14 @@ def all_gather(x, axis="dp", concat_dimension=0, mesh=None):
     ``concat_dimension`` in rank order; its gradient is a
     reduce-scatter."""
     return _AllGather.apply(x, concat_dimension, _group(axis, mesh))
+
+
+def all_to_all(x, axis="ep", split_dimension=0, concat_dimension=1,
+               mesh=None):
+    """The tiled all-to-all over ``axis`` (``all_to_all_dim``): this rank's
+    x cut along ``split_dimension`` (which must divide by N), piece j to
+    rank j, the pieces received concatenated along ``concat_dimension``
+    in rank order.  Its gradient is the all-to-all back (the dimensions
+    swapped)."""
+    return _AllToAll.apply(x, split_dimension, concat_dimension,
+                           _group(axis, mesh))

@@ -205,6 +205,31 @@ temporary directory), captured as one CUDA graph with its all-reduces,
 three steps against the single-device captured step from the same
 params, its ms beside that step's in turns.
 
+Then pipeline and expert parallelism: the flagship at full width with
+its six blocks cut into 2 and 3 pipeline stages, run in turn in one
+process through ``parallel.pipeline``'s ``stage_forward`` and
+``stage_backward`` (``tests/torch_one_process.py``'s drivers; 4
+microbatches of 2 x 2048, the activations handed
+over by tensor, the microbatches backwards in reverse), and ``gpipe``
+itself through the LM's ``loss_pp`` on an NCCL group of world size 1
+(``make_mesh(pp=1)``, 4 microbatches), counted; the loss, grad norm and
+every gradient against the single-device step's at the train step's
+tolerances; each stage's device time and launches beside the
+unpipelined step's; every kernel the stages launch at the microbatch's
+shapes (the attention's serving and training forwards, dq and dk/dv;
+bsmm1's and bsmm2's fprop, bprop and updat and the updat's reduce)
+against its plain version, timed.  Then the
+full-width MoE LM's layer (8 experts, top-1, capacity factor 1.25) at ep
+2 and 4, shard by shard in one process (``run_ep_shards`` of
+``tests/torch_one_process.py``, through the layer's ``dispatch``,
+``experts`` and ``combine``: each shard
+routes its own 16,384/ep tokens, the all-to-all by slicing, the local
+experts' f32 products at N = ep·C), counted, forward and gradients
+against the ep 1 layer on each shard's tokens (whether bit for bit
+printed), and the experts' products at N = ep·C (f32 fprop, bprop and
+updat; bsmm1's bf16 updat and its reduce) against their plain versions,
+timed beside their bound and a dense ``torch.matmul``.
+
 Prints the card's name and power limit, the build times, every check
 with its tolerance, the timings, a ``{"kernels": [...]}`` line (each
 kernel with its bound on this card and the time of a library call that
@@ -1041,21 +1066,31 @@ def split_checks(model, dev, g, card_line, rows):
     torch.cuda.empty_cache()
 
 
-def updat_reduce_checks(op, N, dev, g, rows):
-    """The updat split's second pass at the train step's bsmm1 split: equal
-    to its plain version bit for bit, and timed."""
+def updat_reduce_checks(op, N, dev, g, rows, key="reduce"):
+    """The updat split's second pass at ``op``'s split of N rows (the train
+    step's bsmm1 by default): equal to its plain version bit for bit, and
+    timed; rows[key], its library call's time and its partials' shape."""
     from blocksparse_tpu_torch.kernels import bsmm as bk
     runs = op.updat_splits(N)
-    check(runs > 1, f"bsmm1's updat at N={N} takes the split ({runs} runs)")
+    check(runs > 1, f"the updat at N={N} takes the split ({runs} runs)")
     parts = torch.randn((runs,) + op.w_shape, device=dev, generator=g)
     err = compare(f"bsmm_updat_reduce {runs} partials of {op.blocks} blocks "
                   f"(exact)", bk.bsmm_updat_reduce(parts),
                   bk.updat_reduce_plain(parts), 0.0)
-    timed(rows, "reduce", err, lambda: bk.bsmm_updat_reduce(parts),
+    timed(rows, key, err, lambda: bk.bsmm_updat_reduce(parts),
           lambda: bk.updat_reduce_plain(parts), 50)
-    rows["reduce_lib"] = time_ms(lambda: parts.sum(0), 50)
-    rows["reduce_shape"] = tuple(parts.shape)
+    rows[f"{key}_lib"] = time_ms(lambda: parts.sum(0), 50)
+    rows[f"{key}_shape"] = tuple(parts.shape)
     del parts
+
+
+def reduce_mark(rows, key):
+    """The bound and library call of rows[key]'s updat reduce: the runs'
+    f32 partials read once and dW written, (runs - 1) adds an element."""
+    runs = rows[f"{key}_shape"][0]
+    parts = int(np.prod(rows[f"{key}_shape"][1:]))
+    return (*bound((runs - 1) * parts, 4 * (runs + 1) * parts,
+                   PEAK_F32_FLOPS), rows[f"{key}_lib"])
 
 
 def bound(flops, nbytes, peak_flops=PEAK_FLOPS):
@@ -1120,15 +1155,11 @@ def yardsticks(model, dev, g, rows):
     del x, dy, wd, dense
     flops = 2 * N * op.blocks * b2
     xprop_bytes = 2 * (N * op.C + op.blocks * b2 + N * op.K)
-    runs = rows["reduce_shape"][0]
-    parts = int(np.prod(rows["reduce_shape"][1:]))
     out = {"bsmm_fprop": (*bound(flops, xprop_bytes), lib_f),
            "bsmm_bprop": (*bound(flops, xprop_bytes), lib_b),
            "bsmm_updat": (*bound(flops, 2 * N * (op.C + op.K)
                                  + 4 * op.blocks * b2), lib_u),
-           "bsmm_updat_reduce": (*bound((runs - 1) * parts,
-                                        4 * (runs + 1) * parts,
-                                        PEAK_F32_FLOPS), rows["reduce_lib"])}
+           "bsmm_updat_reduce": reduce_mark(rows, "reduce")}
 
     B, T, H, hs, bs = BATCH, c.ctx, c.n_head, model.hs, bst.blk_size
     mask = dense_attention_mask(bst, dev)
@@ -4282,9 +4313,9 @@ class RouteTap:
         tap = self
 
         class Tapped(base):
-            def __call__(self, params, x, ep_axis=None):
+            def __call__(self, params, x, *args, **kw):
                 tap.layer = tap.layers[id(params)]
-                return base.__call__(self, params, x, ep_axis)
+                return base.__call__(self, params, x, *args, **kw)
 
             def _route(self, probs, C):
                 if tap.forced is not None:
@@ -5313,6 +5344,494 @@ def parallel_path(bt, model, sd, cfg, dev, g, card_line, rows, marks):
     return launches
 
 
+# ---------------- pipeline and experts: GPipe stages and ep shards
+
+PP_STAGES, PP_MICRO = (2, 3), 4
+EP_SHARDS = (2, 4)
+
+
+def one_process():
+    """``tests/torch_one_process.py``: the ranks of a pipeline or of an ep
+    group driven in turn in one process, through the port's per-stage and
+    per-shard steps (the same drivers the tests hold against gloo
+    ranks)."""
+    tests = str(Path(__file__).resolve().parent / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_one_process
+    return torch_one_process
+
+
+def unpipelined_grads(model, tokens, targets, scale):
+    """The single-device step's loss and the gradients of loss·scale by
+    parameter name (as ``_TrainStep._eager`` takes them)."""
+    params = dict(model.named_parameters())
+    loss = model.loss(tokens, targets)
+    grads = torch.autograd.grad(loss * scale, list(params.values()))
+    return loss.detach(), dict(zip(params, grads))
+
+
+def grad_norm(grads, scale):
+    return float(torch.sqrt(sum((g.float() / scale).square().sum()
+                                for g in grads.values())))
+
+
+def staged_grads(model, tokens, targets, S, n_micro, scale):
+    """The flagship's pipelined loss with its S stages run in turn in one
+    process (``one_process()``'s ``run_stages``/``backprop_stages``:
+    ``stage_forward``/``stage_backward`` on ``model._stage`` over each
+    stage's blocks, n_micro microbatches, the activations handed over by
+    tensor, the microbatches backwards in reverse); the embedding and the
+    head outside the stages, as ``loss_pp`` has them.  Returns (the loss,
+    the gradients of loss·scale by parameter name, (the stages, each
+    stage's inputs, the outputs' cotangent) for ``stage_metrics``)."""
+    from blocksparse_tpu_torch.ops.transformer import softmax_cross_entropy
+    from blocksparse_tpu_torch.parallel import microbatch, unmicrobatch
+    run_stages, backprop_stages = (one_process().run_stages,
+                                   one_process().backprop_stages)
+    n = model.n_local // S
+    stages = [model.h[s * n:(s + 1) * n] for s in range(S)]
+    xm = microbatch(model._embed(tokens, model.wpe[None, :tokens.shape[1]]),
+                    n_micro)
+    recs, ym, _ = run_stages(model._stage, stages, xm, with_aux=True)
+    inputs = [[rec[0].detach() for rec in r] for r in recs]
+    ym.requires_grad_()
+    loss = softmax_cross_entropy(model._logits(unmicrobatch(ym)),
+                                 targets).mean()
+    head = [model.wte, model.lnf_g, model.lnf_b]
+    dym, *dhead = torch.autograd.grad(loss * scale, [ym] + head)
+    dx, stage_grads = backprop_stages(recs, stages, dym)
+    dwte, dwpe = torch.autograd.grad(xm, [model.wte, model.wpe], dx)
+    names = {id(p): k for k, p in model.named_parameters()}
+    grads = {names[id(p)]: gr for s in range(S)
+             for p, gr in zip(stages[s].parameters(), stage_grads[s])}
+    grads.update(wte=dhead[0] + dwte, wpe=dwpe, lnf_g=dhead[1],
+                 lnf_b=dhead[2])
+    return loss.detach(), grads, (stages, inputs, dym)
+
+
+def check_against_unpipelined(what, loss, grads, ref, scale):
+    """A pipelined loss and its gradients against the single-device
+    step's, at the train step's tolerances: the loss and the grad norm
+    STEP_LOSS_TOL relative, each gradient GRAD_TOL of its max|ref|."""
+    ref_loss, ref_grads = ref
+    gn, ref_gn = grad_norm(grads, scale), grad_norm(ref_grads, scale)
+    for key, a, b in (("loss", loss.item(), ref_loss.item()),
+                      ("grad_norm", gn, ref_gn)):
+        check(abs(a - b) <= STEP_LOSS_TOL * abs(b),
+              f"{what} {key} {a:.6f} vs the single-device step's {b:.6f} "
+              f"(tol {STEP_LOSS_TOL:g} relative)")
+    check(set(grads) == set(ref_grads),
+          f"{what}: a gradient for every parameter ({len(ref_grads)})")
+    return compare_tensors(f"{what} gradients against the single-device "
+                           f"step's", grads, ref_grads, GRAD_TOL)
+
+
+def stage_metrics(model, stages, inputs, dym):
+    """Each stage's launches by wrapper and device time (the profiler's
+    kernels, summed) over its forwards and backwards of the microbatches,
+    rerun from its logged inputs with the outputs' cotangent as dy (the
+    kernels' work does not depend on the values)."""
+    from blocksparse_tpu_torch.parallel import stage_backward, stage_forward
+    out = []
+    for layers, xs in zip(stages, inputs):
+        params = list(layers.parameters())
+
+        def run():
+            for h, d in zip(xs, dym):
+                stage_backward(stage_forward(model._stage, layers, h, True),
+                               d, params)
+        torch.cuda.synchronize()
+        reset_counts()
+        run()
+        torch.cuda.synchronize()
+        launches = read_counts()
+        _, kernels = device_events(run, lambda ks: len(ks) > 0)
+        out.append((sum(e.self_device_time_total for e in kernels) / 1e3,
+                    launches))
+    return out
+
+
+EP_ROWS = ("moe_ep_bsmm_fprop_f32", "moe_ep_bsmm_bprop_f32",
+           "moe_ep_bsmm_updat_f32", "moe_ep_bsmm_updat_bf16",
+           "moe_ep_bsmm_updat_reduce")
+PP_ROWS = ("pp_stage_attn_fwd", "pp_stage_attn_fwd_lse", "pp_stage_attn_dq",
+           "pp_stage_attn_dkv", "pp_stage_bsmm_fprop", "pp_stage_bsmm_bprop",
+           "pp_stage_bsmm_updat", "pp_stage_bsmm_updat_reduce")
+
+
+def pp_kernel_rows(model, dev, g, card_line, rows, marks):
+    """Every kernel the pipeline's stages launch, at the microbatch's
+    shapes (batch BATCH / PP_MICRO x 2048), against its plain version:
+    the attention's serving forward (gpipe's forward under no_grad), its
+    training forward (out and lse), dq and dk/dv; bsmm1's and bsmm2's
+    fprop, bprop and updat at N = 4,096 and the updat split's reduce.
+    The attention's and bsmm1's device time (profiler), bound and library
+    call for the kernels line's pp_stage_* rows."""
+    from blocksparse_tpu_torch.kernels import bsmm as bk
+    from blocksparse_tpu_torch.kernels import bst_attn
+    bf, c, bst = torch.bfloat16, model.config, model.bst
+    sms = bk.device_sm_count(dev)
+    B, T, H, hs, bs = BATCH // PP_MICRO, c.ctx, bst.heads, model.hs, \
+        bst.blk_size
+    scale = 1.0 / np.sqrt(hs)
+    tab = bst._tables(dev)
+    plain_args = (tab["q_blk"], tab["k_blk"], tab["mask"], H, bs, scale)
+    qkv = torch.randn((B, T, 3 * c.n_embd), device=dev, generator=g).to(bf)
+    q, k, v = qkv.split(c.n_embd, dim=-1)
+    do = torch.randn((B, T, c.n_embd), device=dev, generator=g).to(bf)
+    what = f"(microbatch {B} x {T})"
+
+    def fwd():
+        return bst_attn.attention_fwd(
+            q, k, v, tab["row_ptr"], tab["ent_k"], tab["ent_code"],
+            tab["uniq"], H, bs, scale, order=tab["order"])
+
+    def fwd_lse():
+        return bst_attn.attention_fwd_lse(
+            q, k, v, tab["row_ptr"], tab["ent_k"], tab["ent_code"],
+            tab["uniq"], H, bs, scale, order=tab["order"])
+
+    def fwd_plain():
+        return bst_attn.attention_fwd_plain(q, k, v, *plain_args)
+
+    def fwd_lse_plain():
+        return bst_attn.attention_fwd_lse_plain(q, k, v, *plain_args)
+    (out, lse), (out_ref, lse_ref) = fwd_lse(), fwd_lse_plain()
+    err = compare_fwd(f"pp stage bst_attn_fwd_lse out {what}", out, out_ref,
+                      bf)
+    lse_err = (lse - lse_ref).abs().max().item()
+    check(lse_err <= LSE_TOL, f"pp stage bst_attn_fwd_lse lse: max_abs_err "
+                              f"{lse_err:.3e} (tol {LSE_TOL:g})")
+    err_fwd = compare_fwd(f"pp stage bst_attn_fwd (serving) out {what}",
+                          fwd(), fwd_plain(), bf)
+    dvec = (do.float() * out_ref.float()).reshape(
+        B, T, H, -1).sum(-1).transpose(1, 2).contiguous()
+
+    def dq():
+        return bst_attn.attention_dq(
+            q, k, v, do, lse_ref, dvec, tab["row_ptr"], tab["ent_k"],
+            tab["ent_code"], tab["uniq"], H, bs, scale)
+
+    def dkv():
+        return bst_attn.attention_dkv(
+            q, k, v, do, lse_ref, dvec, tab["row_ptr_t"], tab["ent_q"],
+            tab["ent_code_t"], tab["uniq_t"], H, bs, scale,
+            order=tab["order_t"])
+
+    def bwd_plain():
+        return bst_attn.attention_bwd_plain(q, k, v, do, lse_ref, dvec,
+                                            *plain_args)
+    dq_ref, dk_ref, dv_ref = bwd_plain()
+    err_dq = compare(f"pp stage bst_attn_dq {what}", dq(), dq_ref,
+                     ATTN_TOL[bf])
+    dk, dv = dkv()
+    err_dkv = max(compare(f"pp stage bst_attn_dkv dk {what}", dk, dk_ref,
+                          ATTN_TOL[bf]),
+                  compare(f"pp stage bst_attn_dkv dv {what}", dv, dv_ref,
+                          ATTN_TOL[bf]))
+    # the plain backward computes dq, dk and dv in one call: its time
+    # stands beside both kernels
+    bwd_ms = time_ms(bwd_plain, 5)
+    rows["pp_stage_attn_fwd"] = (
+        err_fwd, kernel_device_ms(fwd, "bst_attn_fwd_mma_kernel"),
+        time_ms(fwd_plain, 5))
+    rows["pp_stage_attn_fwd_lse"] = (
+        max(err, lse_err),
+        kernel_device_ms(fwd_lse, "bst_attn_fwd_mma_kernel"),
+        time_ms(fwd_lse_plain, 5))
+    rows["pp_stage_attn_dq"] = (
+        err_dq, kernel_device_ms(dq, "bst_attn_dq_mma_kernel"), bwd_ms)
+    rows["pp_stage_attn_dkv"] = (
+        err_dkv, kernel_device_ms(dkv, "bst_attn_dkv_mma_kernel"), bwd_ms)
+    mask = dense_attention_mask(bst, dev)
+    qh, kh, vh = (a.reshape(B, T, H, hs).transpose(1, 2).detach()
+                  .requires_grad_() for a in (q, k, v))
+    lib = time_ms(lambda: nnf.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask, scale=scale), 20)
+    o = nnf.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                         scale=scale)
+    doh = do.reshape(B, T, H, hs).transpose(1, 2)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(o, (qh, kh, vh), doh,
+                                                  retain_graph=True), 20)
+    e = bst.blocks * B * H * bs * bs * hs
+    one, lse_b = B * T * H * hs * 2, B * H * T * 4
+    marks["pp_stage_attn_fwd"] = (*bound(4 * e, 4 * one), lib)
+    marks["pp_stage_attn_fwd_lse"] = (*bound(4 * e, 4 * one + lse_b), lib)
+    # q, k, v, dO, lse, D in; dq (bf16) out; dk, dv (f32) out
+    marks["pp_stage_attn_dq"] = (*bound(6 * e, 5 * one + 2 * lse_b), lib_bwd)
+    marks["pp_stage_attn_dkv"] = (*bound(8 * e, 8 * one + 2 * lse_b),
+                                  lib_bwd)
+    del qkv, q, k, v, do, out, lse, out_ref, lse_ref, dvec, dq_ref, dk_ref
+    del dv_ref, dk, dv, mask, qh, kh, vh, o, doh
+    N = B * T
+    for name, op in (("bsmm1", model.bsmm1), ("bsmm2", model.bsmm2)):
+        ref_op = bt_ops(op)
+        x = torch.randn((N, op.C), device=dev, generator=g).to(bf)
+        dy = torch.randn((N, op.K), device=dev, generator=g).to(bf)
+        w = (torch.randn(op.w_shape, device=dev, generator=g) * 0.02).to(bf)
+        calls = {"fprop": (lambda: op._xprop(x, w, "f"),
+                           lambda: ref_op._xprop(x, w, "f"), TOL[bf]),
+                 "bprop": (lambda: op._xprop(dy, w, "b"),
+                           lambda: ref_op._xprop(dy, w, "b"), TOL[bf]),
+                 "updat": (lambda: op._updat(x, dy),
+                           lambda: ref_op._updat(x, dy), UPDAT_TOL)}
+        routes = {"f": op._route(N, "f", sms), "b": op._route(N, "b", sms),
+                  "updat runs": op.updat_splits(N, bf)}
+        errs = {d: compare(f"pp stage bsmm_{d} {name} N={N} bf16 (routes "
+                           f"{routes})", fn(), ref(), tol)
+                for d, (fn, ref, tol) in calls.items()}
+        if name == "bsmm1":
+            for d, (fn, ref, _) in calls.items():
+                rows[f"pp_stage_bsmm_{d}"] = (
+                    errs[d], kernel_device_ms(
+                        fn, "bsmm_updat_mma_kernel" if d == "updat"
+                        else "bsmm_xprop"), time_ms(ref, 5))
+            wd = dense_weight(op, w)
+            b2 = op.bsize ** 2
+            xb = 2 * (N * op.C + op.blocks * b2 + N * op.K)
+            flops = xprop_flops(op, N)
+            marks["pp_stage_bsmm_fprop"] = (*bound(flops, xb),
+                                            time_ms(lambda: x @ wd, 20))
+            marks["pp_stage_bsmm_bprop"] = (*bound(flops, xb),
+                                            time_ms(lambda: dy @ wd.t(), 20))
+            marks["pp_stage_bsmm_updat"] = (
+                *bound(flops, 2 * N * (op.C + op.K) + 4 * op.blocks * b2),
+                time_ms(lambda: x.t() @ dy, 20))
+            del wd
+        del x, dy, w
+    updat_reduce_checks(model.bsmm1, N, dev, g, rows,
+                        "pp_stage_bsmm_updat_reduce")
+    marks["pp_stage_bsmm_updat_reduce"] = reduce_mark(
+        rows, "pp_stage_bsmm_updat_reduce")
+    for name in PP_ROWS:
+        err, ms, pms = rows[name]
+        print(f"{name} (microbatch {B} x {T}): device {ms:.4f} ms, plain "
+              f"{pms:.4f} ms, bound {marks[name][0]:.4f} ms "
+              f"({marks[name][1]}), library {marks[name][2]:.4f} ms "
+              f"[{card_line}]", flush=True)
+    torch.cuda.empty_cache()
+
+
+def gpipe_world1(bt, cfg, sd, tokens, targets, ref, dev, scale, card_line):
+    """``gpipe`` itself through the LM's ``loss_pp`` on an NCCL group of
+    world size 1 (``make_mesh(pp=1)``), PP_MICRO microbatches: the loss
+    and every gradient against the single-device step's; the forward
+    under no_grad gives the same loss."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    from blocksparse_tpu_torch.parallel import make_mesh
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(d, "store"), 1), rank=0, world_size=1)
+        try:
+            mesh = make_mesh(pp=1, device="cuda")
+            m = bt.SparseTransformerLM(dataclasses.replace(
+                cfg, pp_microbatch=PP_MICRO), device=dev, mesh=mesh)
+            m.load_state_dict(sd)
+            params = dict(m.named_parameters())
+            loss = m.loss_pp(tokens, targets)
+            grads = dict(zip(params, torch.autograd.grad(
+                loss * scale, list(params.values()))))
+            check_against_unpipelined(
+                f"gpipe on NCCL (world 1, {PP_MICRO} microbatches) "
+                f"[{card_line}]", loss.detach(), grads, ref, scale)
+            with torch.no_grad():
+                again = m.loss_pp(tokens, targets)
+            check(torch.equal(again, loss.detach()),
+                  "gpipe's forward under no_grad gives the same loss bit "
+                  "for bit")
+        finally:
+            dist.destroy_process_group()
+    del m, grads
+    torch.cuda.empty_cache()
+
+
+def ep_layer_checks(bt, dev, g, card_line, rows, marks):
+    """(b) The full-width MoE LM's layer (8 experts of 512 -> 2048 -> 512
+    at b32, top-1, capacity factor 1.25; 16,384 bf16 tokens) at ep 2 and
+    4, shard by shard in one process (``one_process().run_ep_shards``:
+    each shard routes its own tokens, the all-to-all by slicing, the
+    local experts' f32 products at N = ep·C), counted; forward and
+    gradients against the ep 1 layer on each shard's tokens (the same
+    per-shard routing); then the experts' products at N = ep·C against
+    their plain versions, timed.  Returns the counted launches."""
+    from blocksparse_tpu_torch.kernels import bsmm as bk
+    from blocksparse_tpu_torch.ops.moe import BlocksparseMoE
+    f32, bf = torch.float32, torch.bfloat16
+    kw = dict(block_size=32, density=1.0, capacity_factor=MOE_CF, k=MOE_K)
+    one = BlocksparseMoE(MOE_EXPERTS, 512, 2048, **kw)
+    params = one.init(g, device=dev)
+    T = BATCH * 2048
+    x = torch.randn((T, 512), device=dev, generator=g).to(bf)
+    dy = torch.randn((T, 512), device=dev, generator=g)
+    sms = bk.device_sm_count(dev)
+    launches, shapes = None, {}
+    for ep in EP_SHARDS:
+        moe = BlocksparseMoE(MOE_EXPERTS, 512, 2048, ep=ep, **kw)
+        xs, dys = x.chunk(ep), dy.chunk(ep)
+        C = moe.capacity(T // ep)
+        N = ep * C
+        shapes[ep] = (C, N)
+        # the ep 1 layer on each shard's tokens
+        p1 = {k: t.detach().requires_grad_() for k, t in params.items()}
+        x1 = [t.detach().requires_grad_() for t in xs]
+        outs1 = [one(p1, t) for t in x1]
+        loss1 = sum((y * d).sum() + a for (y, a), d in zip(outs1, dys))
+        g1 = torch.autograd.grad(loss1, x1 + list(p1.values()))
+        # the ep shards, counted
+        pe = {k: t.detach().requires_grad_() for k, t in params.items()}
+        xe = [t.detach().requires_grad_() for t in xs]
+        torch.cuda.synchronize()
+        reset_counts()
+        outs = one_process().run_ep_shards(moe, pe, xe)
+        loss = sum((y * d).sum() + a for (y, a), d in zip(outs, dys))
+        ge = torch.autograd.grad(loss, xe + list(pe.values()))
+        torch.cuda.synchronize()
+        counted = read_counts()
+        launches = counted if launches is None else {
+            k: launches[k] + v for k, v in counted.items()}
+        same_y = all(torch.equal(a[0], b[0]) for a, b in zip(outs, outs1))
+        same_g = all(torch.equal(a, b) for a, b in zip(ge, g1))
+        # bsmm1's output is rounded to the tokens' bf16 (F6): where the
+        # two N take routes that sum in other orders, a rounding may flip
+        for r, ((y, a), (y1, a1)) in enumerate(zip(outs, outs1)):
+            compare(f"MoE ep {ep} shard {r} y (T {T // ep}, C {C}, experts "
+                    f"at N {N}) against the ep 1 layer", y, y1, TOL[bf])
+            check(abs(a.item() - a1.item()) <= 1e-6,
+                  f"MoE ep {ep} shard {r} aux {a.item():.7f} vs "
+                  f"{a1.item():.7f}")
+        names = [f"dx{r}" for r in range(ep)] + [f"d{k}" for k in params]
+        compare_tensors(f"MoE ep {ep} shards' VJP against the ep 1 layer's",
+                        dict(zip(names, ge)), dict(zip(names, g1)), TOL[bf])
+        routes = {d: moe.bsmm1._route(N, d, sms) for d in ("f", "b")}
+        routes1 = {d: moe.bsmm1._route(C, d, sms) for d in ("f", "b")}
+        print(f"MoE ep {ep} [{card_line}]: shards route {T // ep} tokens "
+              f"each, C {C}; the experts' products at N = ep·C = {N} (route "
+              f"{routes}) against the ep 1 layer's at N = C (route "
+              f"{routes1}); y bit for bit: {same_y}; every gradient bit for "
+              f"bit: {same_g}; launches {counted}", flush=True)
+        del p1, x1, outs1, g1, pe, xe, outs, ge
+        torch.cuda.empty_cache()
+    # the experts' products at the ep N (ep 4): f32 (F6), and bsmm1's
+    # updat on the tensor cores (bf16 x and du) with its split's reduce
+    C, N = shapes[EP_SHARDS[-1]]
+    op1, op2 = one.bsmm1, one.bsmm2
+    ref1, ref2 = bt_ops(op1), bt_ops(op2)
+    xe = torch.randn((N, op1.C), device=dev, generator=g)
+    du = torch.randn((N, op1.K), device=dev, generator=g)
+    w = torch.randn(op1.w_shape, device=dev, generator=g) * 0.02
+    xb, dub = xe.to(bf), du.to(bf)
+    flops = xprop_flops(op1, N)
+    b2 = op1.bsize ** 2
+    nb = 4 * (op1.C * N + op1.blocks * b2 + op1.K * N)
+    wd = dense_weight(op1, w)
+    calls = {  # name: (kernel, plain, tolerance, device time, bytes, peak)
+        "moe_ep_bsmm_fprop_f32": (
+            lambda: op1._xprop(xe, w, "f"), lambda: ref1._xprop(xe, w, "f"),
+            TOL[f32], lambda fn: kernel_device_ms(fn, "bsmm_xprop_nc_kernel"),
+            nb, PEAK_F32_FLOPS, lambda: xe @ wd),
+        "moe_ep_bsmm_bprop_f32": (
+            lambda: op1._xprop(du, w, "b"), lambda: ref1._xprop(du, w, "b"),
+            TOL[f32], lambda fn: device_ms_per_call(
+                fn, lambda k: "bsmm_xprop_nc" in k or "bsmm_merge" in k),
+            nb, PEAK_F32_FLOPS, lambda: du @ wd.t()),
+        "moe_ep_bsmm_updat_f32": (
+            lambda: op2._updat(du, xe), lambda: ref2._updat(du, xe),
+            UPDAT_TOL, lambda fn: kernel_device_ms(fn, "bsmm_updat_nc_kernel"),
+            nb, PEAK_F32_FLOPS, lambda: du.t() @ xe),
+        "moe_ep_bsmm_updat_bf16": (
+            lambda: op1._updat(xb, dub), lambda: ref1._updat(xb, dub),
+            UPDAT_TOL,
+            lambda fn: kernel_device_ms(fn, "bsmm_updat_mma_kernel"),
+            2 * N * (op1.C + op1.K) + 4 * op1.blocks * b2, PEAK_FLOPS,
+            lambda: xb.t() @ dub)}
+    for name, (fn, ref, tol, dev_ms, nbytes, peak, lib) in calls.items():
+        err = compare(f"MoE ep {name[7:]} N={N}", fn(), ref(), tol)
+        rows[name] = (err, dev_ms(fn), time_ms(ref, 5))
+        marks[name] = (*bound(flops, nbytes, peak), time_ms(lib, 20))
+    updat_reduce_checks(op1, N, dev, g, rows, "moe_ep_bsmm_updat_reduce")
+    marks["moe_ep_bsmm_updat_reduce"] = reduce_mark(
+        rows, "moe_ep_bsmm_updat_reduce")
+    # the MoE LM step's expert products at N = C = 2,560, device time
+    # (PERF.md §6, rows 1 and 8)
+    step = {"moe_ep_bsmm_fprop_f32": "fprop 0.244",
+            "moe_ep_bsmm_bprop_f32": "bprop 0.334",
+            "moe_ep_bsmm_updat_f32": "updat 0.401"}
+    for name in EP_ROWS:
+        err, ms, pms = rows[name]
+        was = (f" (the MoE LM step's {step[name]} ms at N = C 2,560)"
+               if name in step else "")
+        print(f"{name} (N = ep·C = {N}, routes "
+              f"{op1._route(N, 'f', sms)}/{op1._route(N, 'b', sms)}, bsmm1 "
+              f"updat runs {op1.updat_splits(N, bf)}): device {ms:.4f} "
+              f"ms{was}, plain {pms:.4f} ms, bound {marks[name][0]:.4f} ms "
+              f"({marks[name][1]}), library {marks[name][2]:.4f} ms "
+              f"[{card_line}]", flush=True)
+    del xe, du, w, wd, xb, dub, x, dy, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def pipeline_experts_path(bt, model, sd, cfg, dev, g, card_line, rows,
+                          marks):
+    """The pipeline and experts phase: (a) the flagship at full width,
+    its stages at pp 2 and 3 run in turn in one process (n_micro
+    PP_MICRO) against the single-device step, each stage's device time
+    and launches beside the unpipelined step's, and ``gpipe`` on NCCL at
+    world size 1; the pp_stage_* kernel rows; (b) the MoE layer's ep
+    shards.  Returns (the counted launches of (a), of (b))."""
+    rng = np.random.RandomState(SEED + 19)
+    seq = torch.from_numpy(rng.randint(0, cfg.n_vocab,
+                                       (BATCH, cfg.ctx + 1))).to(dev)
+    tokens, targets = seq[:, :-1], seq[:, 1:]
+    scale = LOSS_SCALE
+    model.load_state_dict(sd)
+    ref = unpipelined_grads(model, tokens, targets, scale)
+    torch.cuda.synchronize()
+    reset_counts()
+    unpipelined_grads(model, tokens, targets, scale)
+    torch.cuda.synchronize()
+    ref_launches = read_counts()
+    _, kernels = device_events(lambda: unpipelined_grads(
+        model, tokens, targets, scale), lambda ks: len(ks) > 0)
+    ref_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    keys = ("bst_attn_fwd_lse", "bst_attn_dq", "bst_attn_dkv", "bsmm_fprop",
+            "bsmm_bprop", "bsmm_updat", "bsmm_updat_reduce")
+    print(f"unpipelined step's loss and gradients (8 x 2048) "
+          f"[{card_line}]: device {ref_ms:.2f} ms, launches "
+          f"{ {k: ref_launches[k] for k in keys} }", flush=True)
+    torch.cuda.synchronize()
+    reset_counts()
+    logs = {}
+    for S in PP_STAGES:
+        loss, grads, logs[S] = staged_grads(model, tokens, targets, S,
+                                            PP_MICRO, scale)
+        check_against_unpipelined(f"pp {S} stages in one process "
+                                  f"({PP_MICRO} microbatches)", loss, grads,
+                                  ref, scale)
+        del grads
+    gpipe_world1(bt, cfg, sd, tokens, targets, ref, dev, scale, card_line)
+    torch.cuda.synchronize()
+    pp_launches = read_counts()
+    for S in PP_STAGES:
+        for s, (ms, n) in enumerate(stage_metrics(model, *logs[S])):
+            print(f"pp {S} stage {s} ({model.n_local // S} blocks, "
+                  f"{PP_MICRO} microbatches of {BATCH // PP_MICRO} x "
+                  f"{cfg.ctx}) [{card_line}]: device {ms:.2f} ms, launches "
+                  f"{ {k: n[k] for k in keys} }; the unpipelined step's "
+                  f"{ref_ms:.2f} ms over all {cfg.n_layer} blocks and the "
+                  f"head", flush=True)
+    del logs, ref
+    torch.cuda.empty_cache()
+    pp_kernel_rows(model, dev, g, card_line, rows, marks)
+    ep_launches = ep_layer_checks(bt, dev, g, card_line, rows, marks)
+    return pp_launches, ep_launches
+
+
 def build_all():
     from blocksparse_tpu_torch.kernels import _build
 
@@ -5440,6 +5959,16 @@ def main():
     print(f"launches: sequence-parallel shards (sp {SP_SHARDS}, gather and "
           f"ring) {sp_launches}", flush=True)
 
+    # 5h. pipeline and experts: the flagship's stages at pp 2 and 3 in one
+    # process and gpipe on NCCL at world size 1 against the single-device
+    # step (counted); the MoE layer's ep 2 and 4 shards in one process
+    # against its ep 1 layer (counted)
+    pp_launches, ep_launches = pipeline_experts_path(
+        bt, model, sd, cfg, dev, g, card_line, rows, lstm_marks)
+    print(f"launches: pipeline stages (pp {PP_STAGES}, {PP_MICRO} "
+          f"microbatches) and gpipe (world 1) {pp_launches}; MoE ep shards "
+          f"(ep {EP_SHARDS}) {ep_launches}", flush=True)
+
     # 6. the block-sparse conv: kernels against plain versions, then the
     # conv path, counted
     conv_kernel_checks(dev, g, rows)
@@ -5559,6 +6088,38 @@ def main():
          sp_launches["bst_attn_dq"], rows["attn_dq_ring_f32"]),
         ("attn_dkv_ring4", "bst_attn_bwd_mma.cu", "bst_attn.py:1141",
          sp_launches["bst_attn_dkv"], rows["attn_dkv_ring4"]),
+        # the pipeline's microbatch shapes (2 x 2048; launches: the stages
+        # at pp 2 and 3 and gpipe at world size 1, whose forward under
+        # no_grad runs the serving attention) and the experts' products at
+        # N = ep·C (f32, F6, and bsmm1's bf16 updat; launches: the ep 2
+        # and 4 shards; the updat's count both products')
+        ("pp_stage_attn_fwd", "bst_attn_fwd_mma.cu", "bst_attn.py:677",
+         pp_launches["bst_attn_fwd"], rows["pp_stage_attn_fwd"]),
+        ("pp_stage_attn_fwd_lse", "bst_attn_fwd_mma.cu", "bst_attn.py:832",
+         pp_launches["bst_attn_fwd_lse"], rows["pp_stage_attn_fwd_lse"]),
+        ("pp_stage_attn_dq", "bst_attn_bwd_mma.cu", "bst_attn.py:1084",
+         pp_launches["bst_attn_dq"], rows["pp_stage_attn_dq"]),
+        ("pp_stage_attn_dkv", "bst_attn_bwd_mma.cu", "bst_attn.py:1141",
+         pp_launches["bst_attn_dkv"], rows["pp_stage_attn_dkv"]),
+        ("pp_stage_bsmm_fprop", "bsmm_xprop_mma.cu", "bsmm.py:1422",
+         pp_launches["bsmm_fprop"], rows["pp_stage_bsmm_fprop"]),
+        ("pp_stage_bsmm_bprop", "bsmm_xprop_mma.cu", "bsmm.py:1422",
+         pp_launches["bsmm_bprop"], rows["pp_stage_bsmm_bprop"]),
+        ("pp_stage_bsmm_updat", "bsmm_updat_mma.cu", "bsmm.py:1972",
+         pp_launches["bsmm_updat"], rows["pp_stage_bsmm_updat"]),
+        ("pp_stage_bsmm_updat_reduce", "bsmm_updat_mma.cu", "bsmm.py:1972",
+         pp_launches["bsmm_updat_reduce"],
+         rows["pp_stage_bsmm_updat_reduce"]),
+        ("moe_ep_bsmm_fprop_f32", "bsmm_fprop.cu", "bsmm.py:1422",
+         ep_launches["bsmm_fprop"], rows["moe_ep_bsmm_fprop_f32"]),
+        ("moe_ep_bsmm_bprop_f32", "bsmm_fprop.cu", "bsmm.py:1422",
+         ep_launches["bsmm_bprop"], rows["moe_ep_bsmm_bprop_f32"]),
+        ("moe_ep_bsmm_updat_f32", "bsmm_updat.cu", "bsmm.py:1972",
+         ep_launches["bsmm_updat"], rows["moe_ep_bsmm_updat_f32"]),
+        ("moe_ep_bsmm_updat_bf16", "bsmm_updat_mma.cu", "bsmm.py:1972",
+         ep_launches["bsmm_updat"], rows["moe_ep_bsmm_updat_bf16"]),
+        ("moe_ep_bsmm_updat_reduce", "bsmm_updat_mma.cu", "bsmm.py:1972",
+         ep_launches["bsmm_updat_reduce"], rows["moe_ep_bsmm_updat_reduce"]),
     ]
     check(all(n > 0 for _, _, _, n, _ in kernels),
           f"every kernel launched on its path ({len(kernels)} kernels)")

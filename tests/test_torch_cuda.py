@@ -2771,3 +2771,82 @@ def test_shard_kernels_store_zeros_for_empty_rows(cuda, dtype):
     torch.cuda.synchronize()
     assert not o.any() and bool(torch.isneginf(l).all())
     assert not dq.any() and not dk.any() and not dv.any()
+
+
+# ---------------- pipeline and expert parallelism in one process
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [2, 4])
+def test_pipeline_stages_on_the_card_match_the_unpipelined_step(cuda, S):
+    """A small f32 LM (4 blocks) cut into S stages, driven on the kernels
+    by ``run_stages``/``backprop_stages`` (``stage_forward`` and
+    ``stage_backward`` in turn, 4 microbatches, activations handed over
+    by tensor), the embedding and head outside as ``loss_pp`` has them:
+    the loss and every gradient against the unpipelined loss's on the same
+    card (f32 kernels at the microbatch's N: the same sums in other
+    orders, 1e-4 of each gradient's largest entry)."""
+    from blocksparse_tpu_torch.ops.transformer import softmax_cross_entropy
+    from blocksparse_tpu_torch.parallel import microbatch, unmicrobatch
+    from torch_one_process import backprop_stages, run_stages
+    cfg = TransformerConfig(**dict(GRAPH_LM, n_layer=4, dtype="float32"))
+    model = SparseTransformerLM(cfg, device=cuda)
+    model.load_state_dict(params_from_jax(random_jax_params(model, 9),
+                                          model))
+    tokens = torch.randint(0, cfg.n_vocab, (4, cfg.ctx), device=cuda,
+                           generator=_gen(cuda, 26))
+    params = dict(model.named_parameters())
+    loss = model.loss(tokens, tokens)
+    ref = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+    n = cfg.n_layer // S
+    stages = [model.h[s * n:(s + 1) * n] for s in range(S)]
+    x = model._embed(tokens, model.wpe[None, :cfg.ctx])
+    xm = microbatch(x, 4)
+    recs, ym, _ = run_stages(model._stage, stages, xm, with_aux=True)
+    ym.requires_grad_()
+    staged = softmax_cross_entropy(model._logits(unmicrobatch(ym)),
+                                   tokens).mean()
+    head = [model.wte, model.lnf_g, model.lnf_b]
+    dym, *dhead = torch.autograd.grad(staged, [ym] + head)
+    dx, stage_grads = backprop_stages(recs, stages, dym)
+    dwte, dwpe = torch.autograd.grad(xm, [model.wte, model.wpe], dx)
+    names = {id(p): k for k, p in params.items()}
+    got = {names[id(p)]: gr for s in range(S)
+           for p, gr in zip(stages[s].parameters(), stage_grads[s])}
+    got.update(wte=dhead[0] + dwte, wpe=dwpe, lnf_g=dhead[1],
+               lnf_b=dhead[2])
+    assert abs(staged.item() - loss.item()) <= 1e-5 * abs(loss.item())
+    assert set(got) == set(ref)
+    for k, want in ref.items():
+        err = (got[k] - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ep", [2, 4])
+def test_moe_ep_shards_on_the_card_match_the_ep1_layer(cuda, ep):
+    """The b32 MoE layer's ep shards in one process (``run_ep_shards`` of
+    ``tests/torch_one_process.py``:
+    each shard routes its own tokens, the all-to-all by slicing, the
+    experts' f32 products at N = ep·C) against the ep 1 layer on each
+    shard's tokens: y, aux and every gradient (f32 tokens: the same
+    products at another N, 1e-5 of the largest entry)."""
+    from blocksparse_tpu_torch.ops.moe import BlocksparseMoE
+    from torch_one_process import run_ep_shards
+    kw = dict(block_size=32, density=0.5, capacity_factor=1.25, k=1)
+    one = BlocksparseMoE(8, 64, 128, **kw)
+    moe = BlocksparseMoE(8, 64, 128, ep=ep, **kw)
+    params = one.init(_gen(cuda, 27), device=cuda)
+    x = torch.randn((1024, 64), device=cuda, generator=_gen(cuda, 28))
+    dy = torch.randn((1024, 64), device=cuda, generator=_gen(cuda, 29))
+    runs = []
+    for fn in (lambda p, xs: [one(p, t) for t in xs],
+               lambda p, xs: run_ep_shards(moe, p, xs)):
+        p = {k: t.clone().requires_grad_() for k, t in params.items()}
+        xs = [t.clone().requires_grad_() for t in x.chunk(ep)]
+        outs = fn(p, xs)
+        loss = sum((y * d).sum() + a for (y, a), d in zip(outs, dy.chunk(ep)))
+        runs.append([t for y, a in outs for t in (y, a)] + list(
+            torch.autograd.grad(loss, xs + list(p.values()))))
+    for got, want in zip(*runs[::-1]):
+        err = (got - want).abs().max().item()
+        assert err <= 1e-5 * max(1.0, want.abs().max().item())

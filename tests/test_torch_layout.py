@@ -177,7 +177,8 @@ def test_import_pulls_no_jax():
             "blocksparse_tpu_torch.ops.conv, "
             "blocksparse_tpu_torch.kernels.im2col, "
             "blocksparse_tpu_torch.models.sparse_lstm, "
-            "blocksparse_tpu_torch.parallel, blocksparse_tpu_torch.nccl; "
+            "blocksparse_tpu_torch.parallel, blocksparse_tpu_torch.nccl, "
+            "blocksparse_tpu_torch.parallel.pipeline; "
             "blocksparse_tpu_torch.models.sparse_lstm.make_mask(40, 'ba_3'); "
             "bad = [m for m, mod in sys.modules.items() if mod is not None "
             "and (m.startswith(('jax', 'blocksparse_tpu.')) "

@@ -169,10 +169,22 @@ def test_cpu_path_launches_no_kernel_and_rejects_unported_options():
     port(torch.zeros((1, 64), dtype=torch.long))
     assert (bsmm_kernels.bsmm_fprop.launches,
             bst_attn.attention_fwd.launches) == before
-    for kw in (dict(pp=2), dict(moe_experts=2, ep=2)):
-        with pytest.raises(NotImplementedError):
-            SparseTransformerLM(TransformerConfig(**dict(TINY, **kw)),
-                                device="cpu")
+    # pp builds one stage (n_layer/pp blocks) and MoE ep one rank's E/ep
+    # experts; each runs only bound to a mesh; pp x sp is refused, as JAX
+    pp2 = SparseTransformerLM(TransformerConfig(**dict(TINY, pp=2)),
+                              device="cpu")
+    assert len(pp2.h) == TINY["n_layer"] // 2 == pp2.n_local
+    ep2 = SparseTransformerLM(TransformerConfig(**dict(
+        TINY, moe_experts=2, ep=2)), device="cpu")
+    assert tuple(ep2.h[0].moe.w1.shape)[0] == 1 and \
+        tuple(ep2.h[0].moe.wg.shape) == (TINY["n_embd"], 2)
+    for m in (pp2, ep2):
+        with pytest.raises(ValueError, match="mesh"):
+            m.loss(torch.zeros((1, 64), dtype=torch.long),
+                   torch.zeros((1, 64), dtype=torch.long))
+    with pytest.raises(ValueError, match="pp x sp"):
+        SparseTransformerLM(TransformerConfig(**dict(TINY, pp=2, sp=2)),
+                            device="cpu")
     # tp builds one rank's shard (n_head/tp heads, the MLP at hidden/tp);
     # it runs only bound to a mesh
     tp2 = SparseTransformerLM(TransformerConfig(**dict(TINY, tp=2)),

@@ -158,7 +158,7 @@ def test_moe_layer_matches_jax(bs, k, dtype):
 def test_moe_layer_constructor_matches_jax():
     """The layout (seeded, no empty row or column), capacity, parameter
     shapes, specs and reduce axes as JAX's; init from a torch generator
-    with JAX's shapes and scales; the refusals."""
+    with JAX's shapes and scales; the refusals; ep 2 without an axis."""
     for bs, dens in ((16, 0.3), (32, 1.0), (0, 1.0)):
         jm = jmoe.BlocksparseMoE(8, 64, 256, block_size=bs, density=dens,
                                  capacity_factor=1.25, k=2, seed=3)
@@ -184,9 +184,20 @@ def test_moe_layer_constructor_matches_jax():
         pmoe.BlocksparseMoE(8, 64, 256, k=9)
     with pytest.raises(ValueError):
         pmoe.BlocksparseMoE(8, 64, 256, ep=3)
+    # ep 2 without an axis runs as ep 1 on the params it is given, as the
+    # JAX layer does: the same outputs as the ep 1 layer; one rank's E/ep
+    # experts alone need the axis
     ep = pmoe.BlocksparseMoE(8, 64, 256, ep=2)
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
-        ep(ep.init(), torch.zeros(4, 64))
+    one = pmoe.BlocksparseMoE(8, 64, 256)
+    assert ep.shapes(local=True)["w1"] == (4, 64, 256) and \
+        ep.shapes(local=True)["wg"] == (64, 8) and ep.shapes() == one.shapes()
+    params = one.init(torch.Generator().manual_seed(1))
+    x = torch.randn(16, 64, generator=torch.Generator().manual_seed(2))
+    for a, b in zip(ep(params, x), one(params, x)):
+        assert torch.equal(a, b)
+    local = {n: (v[:4] if n != "wg" else v) for n, v in params.items()}
+    with pytest.raises(ValueError, match="ep_axis"):
+        ep(local, x)
 
 
 def test_moe_layer_routes_and_sums_without_scatter_add():

@@ -176,9 +176,14 @@ def test_pass_throughs_and_the_nccl_module():
                  "identity_sync", "reduce_scatter", "all_gather",
                  "mpi_size", "mpi_rank"):
         assert hasattr(nccl, name), name
+    # GPipe is ported: the package exports the JAX package's four names
+    # (test_torch_pipeline holds them against JAX's)
+    from blocksparse_tpu_torch.parallel import pipeline
+    import blocksparse_tpu.parallel as jax_parallel
     for name in ("gpipe", "broadcast_from_last", "microbatch",
                  "unmicrobatch"):
-        assert not hasattr(parallel, name), name
+        assert hasattr(jax_parallel, name), name
+        assert getattr(parallel, name) is getattr(pipeline, name), name
 
 
 def test_passthroughs_hold_on_every_rank(ranks):

@@ -246,12 +246,13 @@ def test_convert_tp_round_trip_is_bit_for_bit(mlp_block_size):
 
 def test_entry_point_trains_with_tp_and_sp(ranks):
     """``--tp 2 --sp 2`` on four ranks: two steps, every rank the same
-    finite loss; ``--pp``/``--ep`` other than 1 still raise."""
+    finite loss; ``--pp``/``--ep`` 2 in one process exit for lack of
+    ranks, as ``--tp`` does (test_torch_ep trains them on four)."""
     runs = [r["entry"] for r in ranks]
     assert all(len(r["losses"]) == 2 and r["start"] == 0 for r in runs)
     assert all(r["losses"] == runs[0]["losses"] for r in runs)
     assert np.isfinite(runs[0]["losses"]).all()
-    for flag in ("--pp", "--ep"):
-        with pytest.raises(NotImplementedError):
+    for flag in ("--pp", "--ep", "--tp"):
+        with pytest.raises(SystemExit, match="world size"):
             port_enwik8.build(port_enwik8.parse_args(
                 ["--device", "cpu", flag, "2", "--moe_experts", "2"]))

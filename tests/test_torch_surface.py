@@ -120,13 +120,17 @@ def test_unported_values_raise():
                                ctx=32, blk_size=16, mlp_block_size=16)
     model = bt.SparseTransformerLM(cfg, device="cpu")
     # the sharded step is ported (test_torch_sharded_train); a mesh must be
-    # a DeviceMesh, and pipeline parallelism is not ported
+    # a DeviceMesh; pipeline parallelism is ported (test_torch_pp_train):
+    # pp 2 builds, and n_layer must divide by pp, as JAX asserts
     with pytest.raises(TypeError, match="DeviceMesh"):
         model.make_train_step(bt.AdamOptimizer(), mesh=object())
-    with pytest.raises(NotImplementedError, match="GPipe"):
-        bt.SparseTransformerLM(bt.TransformerConfig(
-            n_vocab=16, n_embd=32, n_layer=2, n_head=2, ctx=32,
-            blk_size=16, pp=2), device="cpu")
+    pp_cfg = dict(n_vocab=16, n_embd=32, n_head=2, ctx=32, blk_size=16,
+                  pp=2)
+    assert len(bt.SparseTransformerLM(bt.TransformerConfig(
+        n_layer=2, **pp_cfg), device="cpu").h) == 1
+    with pytest.raises(ValueError, match="divide by pp"):
+        bt.SparseTransformerLM(bt.TransformerConfig(n_layer=3, **pp_cfg),
+                               device="cpu")
     model.make_train_step(bt.AdamOptimizer(), None, 0.5)      # positional
     x = torch.ones(2, 32)
     assert bt.layer_norm(x, torch.ones(32), torch.zeros(32), atomics=False,

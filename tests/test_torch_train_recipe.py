@@ -308,15 +308,13 @@ def test_entry_point_trains_checkpoints_and_resumes_on_the_cpu(tmp_path,
         "--n_iter", "5", "--profile", "1", "--trace_dir", trace_dir]))
     assert len(prof["losses"]) == 2
     assert os.path.exists(os.path.join(trace_dir, "trace.json"))
-    for flag in ("--pp", "--ep"):
-        with pytest.raises(NotImplementedError):
+    # --tp/--sp/--pp/--ep shard over the ranks of a run
+    # (test_torch_sharded_train trains --tp 2 --sp 2 on four,
+    # test_torch_ep --pp 2 --ep 2): one process has too few
+    for flag in ("--tp", "--sp", "--pp", "--ep"):
+        with pytest.raises(SystemExit, match="world size"):
             port_enwik8.build(port_enwik8.parse_args(SMALL + [
                 flag, "2", "--moe_experts", "2"]))
-    # --tp/--sp shard over the ranks of a run (test_torch_sharded_train
-    # trains --tp 2 --sp 2 on four): one process has too few
-    for flag in ("--tp", "--sp"):
-        with pytest.raises(SystemExit, match="world size"):
-            port_enwik8.build(port_enwik8.parse_args(SMALL + [flag, "2"]))
     # MoE builds, its experts at b32 as the JAX example forces
     cfg, model, _, _ = port_enwik8.build(port_enwik8.parse_args(
         SMALL + ["--moe_experts", "2"]))

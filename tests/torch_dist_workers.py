@@ -1,13 +1,14 @@
 """Gloo ranks for the port's parallel tests.
 
 The parallel tests (``test_torch_parallel.py``, ``test_torch_sequence.py``,
-``test_torch_sharded_train.py``) run the port on several CPU processes, a
-``torch.distributed`` gloo group of ``world`` ranks rendezvousing through a
-``FileStore`` in a temporary directory (loopback only).  Each test file
-spawns its ranks once (``spawn``), runs one case function of this module
-on every rank, and gets back each rank's results (nested dicts of NumPy
-arrays and floats), which it holds against the JAX package's ``shard_map``
-on the simulated devices of ``tests/conftest.py``.
+``test_torch_sharded_train.py``, ``test_torch_pipeline.py``,
+``test_torch_pp_train.py``, ``test_torch_ep.py``) run the port on several
+CPU processes, a ``torch.distributed`` gloo group of ``world`` ranks
+rendezvousing through a ``FileStore`` in a temporary directory (loopback
+only).  Each test file spawns its ranks once (``spawn``), runs one case
+function of this module on every rank, and gets back each rank's results
+(nested dicts of NumPy arrays and floats), which it holds against the JAX
+package's ``shard_map`` on the simulated devices of ``tests/conftest.py``.
 
 This module imports no JAX (the spawned ranks import it), and pytest does
 not collect it.  The inputs both sides use are made here from seeds.
@@ -404,9 +405,9 @@ def world1_case(rank, world):
     return out
 
 
-def _entry_point():
-    """The enwik8 entry point with --tp 2 --sp 2 for two steps, on a small
-    data file of the JAX example's synthetic bytes."""
+def _entry_point(flags=("--tp", "2", "--sp", "2")):
+    """The enwik8 entry point with ``flags`` (--tp 2 --sp 2) for two steps,
+    on a small data file of the JAX example's synthetic bytes."""
     from blocksparse_tpu_torch.examples import enwik8
     rng = np.random.RandomState(0)
     data = rng.randint(0, 64, size=50_000).astype(np.uint8)
@@ -417,8 +418,285 @@ def _entry_point():
         args = enwik8.parse_args([
             "--device", "cpu", "--n_ctx", "64", "--n_embd", "64",
             "--n_layer", "2", "--n_head", "4", "--blk_size", "16",
-            "--n_batch", "2", "--n_iter", "2", "--tp", "2", "--sp", "2",
+            "--n_batch", "2", "--n_iter", "2", *flags,
             "--data_file", path])
         return enwik8.train(args)
 
 
+
+
+# ------------------------------------------------- GPipe (4 ranks, "pp")
+
+PIPE = dict(S=4, n_micro=8, mb=2, d=16)
+PIPE_AUX = 0.3                # the aux term's coefficient in the loss
+
+
+def pipe_inputs(S=PIPE["S"]):
+    """TestGpipe's setup (``tests/test_pipeline.py``): S tanh stages'
+    weights and biases, the microbatched input and the target."""
+    c = PIPE
+    rng = np.random.RandomState(0)
+    ws = rng.uniform(-0.5, 0.5, (S, c["d"], c["d"])).astype(np.float32)
+    bs = rng.uniform(-0.1, 0.1, (S, c["d"])).astype(np.float32)
+    x = rng.uniform(-1, 1, (c["n_micro"], c["mb"], c["d"])).astype(np.float32)
+    return ws, bs, x, np.full_like(x, 0.1)
+
+
+def pipe_stage(params, h, with_aux=False):
+    """The stage of TestGpipe: h = tanh(h @ w_l + b_l) over its layers;
+    with_aux also mean(h²) of its output, the aux of the aux cases."""
+    import torch
+    w, b = params
+    for i in range(w.shape[0]):
+        h = torch.tanh(h @ w[i] + b[i])
+    return (h, (h * h).mean()) if with_aux else h
+
+
+def pipeline_cases(rank, world):
+    """gpipe at S = world (n_micro 8) and at S 1 (a pp-1 axis), without and
+    with aux, each followed by broadcast_from_last and the loss
+    mean((y - tgt)²)/S (+ PIPE_AUX · aux); the rank's value, output and
+    the gradients of its stage's w, b and of x; broadcast_from_last's value
+    and gradient on its own."""
+    import torch
+    from blocksparse_tpu_torch.parallel import (broadcast_from_last, gpipe,
+                                                make_mesh, mpi_rank)
+    out = {}
+    for S in (world, 1):
+        mesh = make_mesh(pp=S, device="cpu")
+        r = mpi_rank("pp", mesh)
+        ws, bs, x, tgt = pipe_inputs(S)
+        for with_aux in (False, True):
+            w = torch.from_numpy(ws[r:r + 1].copy()).requires_grad_()
+            b = torch.from_numpy(bs[r:r + 1].copy()).requires_grad_()
+            xt = torch.from_numpy(x).requires_grad_()
+            res = gpipe(lambda p, h: pipe_stage(p, h, with_aux), (w, b), xt,
+                        axis="pp", n_stages=S, with_aux=with_aux, mesh=mesh)
+            y, aux = res if with_aux else (res, None)
+            y = broadcast_from_last(y, axis="pp", n_stages=S, mesh=mesh)
+            loss = ((y - torch.from_numpy(tgt)) ** 2).mean() / S
+            if with_aux:
+                loss = loss + PIPE_AUX * aux
+            gw, gb, gx = torch.autograd.grad(loss, (w, b, xt))
+            with torch.no_grad():               # the forward alone
+                res = gpipe(lambda p, h: pipe_stage(p, h, with_aux),
+                            (w, b), xt, axis="pp", n_stages=S,
+                            with_aux=with_aux, mesh=mesh)
+                y_ng = broadcast_from_last(res[0] if with_aux else res,
+                                           axis="pp", n_stages=S, mesh=mesh)
+            out[(S, with_aux)] = {
+                "pp_rank": r, "y": _np(y), "y_no_grad": _np(y_ng),
+                "loss": float(loss.detach()),
+                "aux": None if aux is None else float(aux),
+                "gw": _np(gw), "gb": _np(gb), "gx": _np(gx)}
+    mesh = make_mesh(pp=world, device="cpu")
+    r = mpi_rank("pp", mesh)
+    v = torch.full((3,), float(r + 1)).requires_grad_()
+    y = broadcast_from_last(v, mesh=mesh)
+    y.backward(torch.arange(3.0) + r)
+    out["bcast"] = {"y": _np(y), "grad": _np(v.grad)}
+    return out
+
+
+# ------------------------------------------------ the pipelined LM step
+
+PP_BASE = dict(n_vocab=64, n_embd=64, n_layer=2, n_head=4, ctx=128,
+               blk_size=32, attn_layout="fixed", local_blocks=2,
+               mlp_ratio=4, dtype="float32", recompute=False)
+PP = {
+    # name: (dp, tp, pp, config fields, params, batch).  params "P": the
+    # tp-1 draw of the dense pp-1 model (in the tp layout where tp > 1),
+    # so these runs compute one function; "own": a draw of the config's.
+    "pp2_dp2": (2, 1, 2, dict(n_layer=4, mlp_block_size=16,
+                              mlp_density=0.5), "own", 4),
+    "pp2_mb4": (2, 1, 2, dict(pp_microbatch=4), "P", 8),
+    "pp2_tp2": (1, 2, 2, {}, "P", 8),
+}
+
+
+def pp_config(name, **kw):
+    from blocksparse_tpu_torch import TransformerConfig
+    dp, tp, pp, fields, _, _ = PP[name]
+    return TransformerConfig(**dict(PP_BASE, tp=tp, pp=pp, **fields) | kw)
+
+
+def pp_params(name):
+    """The global JAX param dict (flat h{l} layers) a PP config starts
+    from."""
+    from blocksparse_tpu_torch import SparseTransformerLM, random_jax_params
+    _, tp, _, fields, which, _ = PP[name]
+    if which == "P":
+        from blocksparse_tpu_torch import TransformerConfig
+        base = SparseTransformerLM(TransformerConfig(**PP_BASE),
+                                   device="cpu")
+        return tp_layout(random_jax_params(base, seed=5), tp)
+    model = SparseTransformerLM(pp_config(name, pp=1), device="cpu")
+    return random_jax_params(model, seed=6)
+
+
+def pp_tokens(batch):
+    rng = np.random.RandomState(7)
+    c = PP_BASE
+    return (rng.randint(0, c["n_vocab"], (batch, c["ctx"])).astype(np.int64),
+            rng.randint(0, c["n_vocab"], (batch, c["ctx"])).astype(np.int64))
+
+
+def _steps(model, mesh, tokens, targets, shard=None):
+    """STEPS train steps of ``model`` from a fresh Adam state: per step
+    the metrics and the new scale; the model's params and state after."""
+    import torch
+    from blocksparse_tpu_torch import AdamOptimizer
+    optm = AdamOptimizer(learning_rate=LR)
+    state = optm.init(dict(model.named_parameters()))
+    step = model.make_train_step(optm, mesh=mesh)
+    if shard is not None:
+        tokens, targets = shard.shard(tokens), shard.shard(targets)
+    x, y = (torch.from_numpy(np.ascontiguousarray(a)) for a in
+            (tokens, targets))
+    scale, metrics = LOSS_SCALE, []
+    for _ in range(STEPS):
+        state, m, scale = step(state, x, y, scale)
+        metrics.append({k: float(v) for k, v in m.items()}
+                       | {"scale": float(scale)})
+    return metrics, state
+
+
+def _sharded_run(config, params, axes, tokens, targets, batch_axes="dp"):
+    """A sharded run on a mesh of ``axes``: the rank's coordinates, its
+    metrics, params and Adam state in the JAX layout."""
+    from blocksparse_tpu_torch import (SparseTransformerLM, opt_state_to_jax,
+                                       params_from_jax, params_to_jax)
+    from blocksparse_tpu_torch.parallel import (data_sharding, make_mesh,
+                                                mpi_rank)
+    mesh = make_mesh(device="cpu", **axes)
+    model = SparseTransformerLM(config, device="cpu", mesh=mesh)
+    model.load_state_dict(params_from_jax(params, model))
+    metrics, state = _steps(model, mesh, tokens, targets,
+                            data_sharding(mesh, batch_axes, None))
+    return {"coords": {a: mpi_rank(a, mesh)
+                       for a in ("dp", "tp", "pp", "ep")},
+            "metrics": metrics, "params": params_to_jax(model),
+            "state": opt_state_to_jax(state, model)}
+
+
+def pp_train_cases(rank, world):
+    """Two steps of each PP config's pipelined step; then, for ROADMAP F8,
+    the P function's tp 2 x dp 2 step (no pipeline) and, on rank 0, its
+    single-device step, on the pp2_tp2 batch."""
+    from blocksparse_tpu_torch import SparseTransformerLM, TransformerConfig
+    from blocksparse_tpu_torch.convert import params_from_jax
+    out = {}
+    for name, (dp, tp, pp, _, _, batch) in PP.items():
+        out[name] = _sharded_run(pp_config(name), pp_params(name),
+                                 dict(dp=dp, tp=tp, pp=pp),
+                                 *pp_tokens(batch))
+    tokens, targets = pp_tokens(PP["pp2_tp2"][5])
+    out["tp2_dp2"] = _sharded_run(TransformerConfig(**dict(PP_BASE, tp=2)),
+                                  pp_params("pp2_tp2"), dict(dp=2, tp=2),
+                                  tokens, targets)
+    if rank == 0:
+        model = SparseTransformerLM(TransformerConfig(**PP_BASE),
+                                    device="cpu")
+        model.load_state_dict(params_from_jax(pp_params("pp2_mb4"), model))
+        out["single"] = _steps(model, None, tokens, targets)[0]
+    return out
+
+
+# ------------------------------------- expert parallelism (4 ranks, "ep")
+
+EP_LAYER = dict(E=8, d=32, h=64, bs=16, density=0.6, T=32)
+EP_CASES = [  # (ep, capacity factor, k): 1.25 drops tokens, 8.0 none
+    (2, 1.25, 1), (4, 1.25, 2), (4, 8.0, 1)]
+EP_AUX = 0.01
+
+
+def ep_layer(ep, cf, k):
+    from blocksparse_tpu_torch.ops.moe import BlocksparseMoE
+    c = EP_LAYER
+    return BlocksparseMoE(c["E"], c["d"], c["h"], block_size=c["bs"],
+                          density=c["density"], capacity_factor=cf, k=k,
+                          ep=ep)
+
+
+def ep_inputs(world=4):
+    """The layer's global params (NumPy f32, all E experts), each rank's
+    tokens (world, T, d) and cotangents for y."""
+    c = EP_LAYER
+    rng = np.random.RandomState(11)
+    params = {n: (rng.standard_normal(s) * (0.3 if n == "wg" else 0.1))
+              .astype(np.float32)
+              for n, s in ep_layer(1, 1.25, 1).shapes().items()}
+    # tokens of positive mean skew the router: at capacity factor 1.25
+    # every rank drops tokens, k 1 and 2
+    x = rng.uniform(0, 2, (world, c["T"], c["d"])).astype(np.float32)
+    dy = rng.standard_normal((world, c["T"], c["d"])).astype(np.float32)
+    return params, x, dy
+
+
+EP_BASE = dict(n_vocab=64, n_embd=64, n_layer=2, n_head=4, ctx=128,
+               blk_size=32, attn_layout="fixed", local_blocks=2,
+               mlp_ratio=2, mlp_block_size=16, mlp_density=0.6,
+               dtype="float32", recompute=False, moe_experts=4, moe_k=1,
+               moe_capacity_factor=1.25)
+EP = {
+    # name: (dp, pp, ep, config fields, batch).  pp2_ep2_recompute: the
+    # path the entry point runs, each block's forward (its all-to-alls
+    # too) replayed by torch.utils.checkpoint inside stage_backward
+    "dp2_ep2": (2, 1, 2, {}, 4),
+    "pp2_ep2": (1, 2, 2, {}, 4),
+    "pp2_ep2_recompute": (1, 2, 2, dict(recompute=True), 4),
+}
+
+
+def ep_config(name, **kw):
+    from blocksparse_tpu_torch import TransformerConfig
+    dp, pp, ep, fields, _ = EP[name]
+    return TransformerConfig(**dict(EP_BASE, pp=pp, ep=ep, **fields) | kw)
+
+
+def ep_params():
+    """The global JAX param dict (flat h{l} layers, all experts) every EP
+    config starts from: one function."""
+    from blocksparse_tpu_torch import (SparseTransformerLM, TransformerConfig,
+                                       random_jax_params)
+    model = SparseTransformerLM(TransformerConfig(**EP_BASE), device="cpu")
+    return random_jax_params(model, seed=8)
+
+
+def ep_cases(rank, world):
+    """The MoE layer at each EP_CASES (tokens and experts split over ep,
+    each rank routing its own): the rank's y, aux and the gradients of its
+    loss sum(y·dy) + EP_AUX·aux in x, the gate (partial) and its experts;
+    two steps of each EP config; the dp 4 step of the same function (the
+    batch split four ways, experts whole); the entry point with --pp 2
+    --ep 2 --moe_experts 2."""
+    import torch
+    from blocksparse_tpu_torch import TransformerConfig
+    from blocksparse_tpu_torch.parallel import make_mesh, mpi_rank
+    out = {}
+    params, x, dy = ep_inputs(world)
+    for ep, cf, k in EP_CASES:
+        mesh = make_mesh(ep=ep, device="cpu")
+        r = mpi_rank("ep", mesh)
+        moe = ep_layer(ep, cf, k)
+        n = moe.E // ep
+        local = {name: torch.from_numpy(
+            (a if name == "wg" else a[r * n:(r + 1) * n]).copy())
+            .requires_grad_() for name, a in params.items()}
+        xt = torch.from_numpy(x[rank].copy()).requires_grad_()
+        y, aux = moe(local, xt, ep_axis="ep", mesh=mesh)
+        loss = (y * torch.from_numpy(dy[rank])).sum() + EP_AUX * aux
+        grads = torch.autograd.grad(loss, [xt] + list(local.values()))
+        out[("layer", ep, cf, k)] = {
+            "ep_rank": r, "y": _np(y), "aux": float(aux.detach()),
+            "grads": dict(zip(["x"] + list(local), map(_np, grads)))}
+    g = ep_params()
+    for name, (dp, pp, ep, _, batch) in EP.items():
+        out[name] = _sharded_run(ep_config(name), g, dict(dp=dp, pp=pp,
+                                                         ep=ep),
+                                 *pp_tokens(batch), batch_axes=("dp", "ep"))
+    out["dp4"] = _sharded_run(TransformerConfig(**EP_BASE), g, dict(dp=4),
+                              *pp_tokens(EP["dp2_ep2"][4]))
+    out["entry"] = _entry_point(["--pp", "2", "--ep", "2", "--moe_experts",
+                                 "2", "--n_batch", "4"])
+    return out
