@@ -20,6 +20,12 @@ def embedding_lookup(emb, idx, sort_grad=True, bench=0, use_tf=False):
     return _EmbeddingLookup.apply(emb, idx)
 
 
+def convert_gradient_to_tensor(x):
+    """Returns its input: autograd's gradients are dense tensors already
+    (the reference turned TF's sparse IndexedSlices into one)."""
+    return x
+
+
 class _EmbeddingLookup(torch.autograd.Function):
 
     @staticmethod

@@ -11,6 +11,11 @@ On a CUDA tensor each direction runs a hand-written kernel
 TPU schedules; on a CPU tensor, or with ``impl="xla"``, it runs the plain
 PyTorch version.
 
+With ``w_layout="fprop_packed"`` the weights are kept in the JAX op's TPU
+fprop schedule order (``kernels/packed_order.py`` rebuilds it): the op
+gathers the store's canonical blocks (``_Unpack``) before the same kernels,
+and dW comes back in the store, its padding zero.
+
 The gates (``gate``, ``gate_grad``, ``dw_gated``) scale W by a per-block
 gate before the same kernels (a NumPy gate with ``dw_gated`` and no
 ``gate_grad`` instead builds an op over the surviving blocks, so the
@@ -31,6 +36,7 @@ import numpy as np
 import torch
 
 from blocksparse_tpu_torch.kernels import bsmm as bsmm_kernels
+from blocksparse_tpu_torch.kernels import packed_order
 from blocksparse_tpu_torch.kernels.bsmm import device_sm_count
 from blocksparse_tpu_torch.utils import ceil_div, z_order_2d
 
@@ -76,9 +82,18 @@ class BlocksparseMatMul:
           grid), longest // 4) runs at most, each of at least 4 entries
           (``kernels.bsmm.split_phases``).  Otherwise unsplit.
         ``dispatch_mode(N)`` names the route.
-    tile_n, dense_tile_G, dense_tile_R: TPU schedule knobs, accepted for
-        the same call signature; they change nothing.
-    w_layout: only "blocks" (canonical (blocks, b, b) weights).
+    tile_n, dense_tile_G, dense_tile_R: TPU schedule knobs; the dense-tile
+        pair decides an ``fprop_packed`` store's shape and order, and
+        nothing else.
+    w_layout: "blocks", canonical (blocks, b, b) weights, or
+        "fprop_packed", the JAX op's TPU fprop schedule order
+        (``self.packed``, a ``kernels.packed_order.PackedOrder``): a panel
+        store (chunks, R·b, G·b) of transposed blocks, or a slot store
+        (packed_blocks, b, b), zero where no block lies.
+        ``pack_weights``/``unpack_weights`` convert; the call gathers the
+        canonical blocks, and dW comes back in the store.  As in the JAX
+        op, ``identity_init``/``ortho_init`` index the packed store by
+        block id (ROADMAP F9).
 
     Pickling keeps the constructor's arguments only, as the JAX op's:
     the LUTs, plans and device tensors are built again on unpickling.
@@ -99,11 +114,7 @@ class BlocksparseMatMul:
                  mode="auto", dense_tile_G=None, dense_tile_R=None):
         if block_size not in bsmm_kernels.BLOCK_SIZES:
             raise ValueError("Unsupported block size: %d" % block_size)
-        if w_layout == "fprop_packed":
-            raise NotImplementedError(
-                "w_layout='fprop_packed' follows the TPU schedule order; "
-                "the port takes canonical 'blocks' weights")
-        if w_layout != "blocks":
+        if w_layout not in ("blocks", "fprop_packed"):
             raise ValueError(f"unknown w_layout {w_layout!r}")
         if mode not in _MODES:
             raise ValueError(f"unknown mode {mode!r}")
@@ -174,7 +185,16 @@ class BlocksparseMatMul:
         self.name = name or "BlocksparseMatMul"
         self.blocks = blocks
         self.flops = blocks * block_size * block_size * 2
-        self.w_shape = (blocks, block_size, block_size)
+        self.packed = None
+        self._pack_luts = {}      # device -> the store's index tensors
+        if w_layout == "fprop_packed":
+            self.packed = packed_order.fprop_order(
+                fprop_rows, CB, blocks, block_size, mode, dense_tile_G,
+                dense_tile_R)
+            self.packed_blocks = self.packed.packed_blocks
+            self.w_shape = self.packed.w_shape
+        else:
+            self.w_shape = (blocks, block_size, block_size)
         self.g_shape = (blocks,)
         self.CB, self.KB = CB, KB
         self.C = CB * block_size
@@ -388,6 +408,83 @@ class BlocksparseMatMul:
             g = gain.reshape(self.KB, self.bsize).to(torch.float32)
             wn = wn * g[kb][:, None, :]
         return wn.to(dtype or W.dtype)
+
+    # ---------------- packed weight conversions ----------------
+
+    def _order(self):
+        if self.packed is None:
+            raise ValueError("the op keeps canonical 'blocks' weights")
+        return self.packed
+
+    def pack_weights(self, w):
+        """Canonical (blocks, b, b) weights -> the packed store, zero
+        where no block lies (a NumPy array or a tensor, as given)."""
+        order = self._order()
+        if isinstance(w, torch.Tensor):
+            return self._pack_tensor(w)
+        if order.panels:
+            b = self.bsize
+            w_ext = np.concatenate([w, np.zeros((1, b, b), w.dtype)], axis=0)
+            cells = w_ext[order.wpos].swapaxes(-1, -2)     # (S, R, G, b, b)
+            return cells.transpose(0, 1, 3, 2, 4).reshape(self.w_shape)
+        out = np.zeros(self.w_shape, w.dtype)
+        out[order.pos] = w
+        return out
+
+    def unpack_weights(self, w_packed):
+        """The packed store -> canonical (blocks, b, b) weights (a NumPy
+        array, or a tensor through ``_Unpack``, whose gradient is the
+        repacked dW)."""
+        order = self._order()
+        if isinstance(w_packed, torch.Tensor):
+            return _Unpack.apply(w_packed, self)
+        if order.panels:
+            S, R, G = order.wpos.shape
+            b = self.bsize
+            pv = w_packed.reshape(S, R, b, G, b).transpose(0, 1, 3, 2, 4) \
+                .reshape(-1, b, b)
+            return pv[order.pos].swapaxes(-1, -2)
+        return w_packed[order.pos]
+
+    def _pack_index(self, device):
+        """The store's index tensors on ``device`` (int64), uploaded once:
+        each block's chunk, lane band and slot (panel store), or its slot
+        (slot store)."""
+        idx = self._pack_luts.get(device)
+        if idx is None:
+            order = self._order()
+            pos = torch.as_tensor(order.pos, dtype=torch.int64,
+                                  device=device)
+            if order.panels:
+                _, R, G = order.wpos.shape
+                idx = (pos // (R * G), pos // G % R, pos % G)
+            else:
+                idx = (pos,)
+            self._pack_luts[device] = idx
+        return idx
+
+    def _cells(self, store):
+        """The panel store as (S, R, G, b, b), cell (s, r, i) holding its
+        block untransposed: a view, no copy."""
+        S, R, G = self.packed.wpos.shape
+        b = self.bsize
+        return store.reshape(S, R, b, G, b).permute(0, 1, 3, 4, 2)
+
+    def _unpack_tensor(self, store):
+        idx = self._pack_index(store.device)
+        if self.packed.panels:
+            return self._cells(store)[idx]
+        return store.index_select(0, idx[0])
+
+    def _pack_tensor(self, w):
+        """Canonical blocks written into a zero store; each block has its
+        own cell, so no two writes meet (no atomics, one result)."""
+        idx = self._pack_index(w.device)
+        store = w.new_zeros(self.w_shape)
+        if self.packed.panels:
+            self._cells(store).index_put_(idx, w)
+            return store
+        return store.index_copy_(0, idx[0], w)
 
     # ---------------- device op ----------------
 
@@ -617,6 +714,8 @@ class BlocksparseMatMul:
         if tuple(W.shape) != self.w_shape:
             raise ValueError(f"W must be {self.w_shape}, got "
                              f"{tuple(W.shape)}")
+        if self.packed is not None:
+            W = self.unpack_weights(W)
         shape = I.shape
         if self.axis == 0:
             if shape[0] != self.C:
@@ -680,6 +779,21 @@ class _BsmmFunction(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             dw = op._updat(x, dy).to(w.dtype)
         return dx, dw, None
+
+
+class _Unpack(torch.autograd.Function):
+    """A packed store's canonical blocks (a gather); the backward writes
+    dW's blocks into their cells of a zero store, as the JAX op's
+    ``_repack_dw``, so the store's padding gets exactly zero."""
+
+    @staticmethod
+    def forward(ctx, store, op):
+        ctx.op = op
+        return op._unpack_tensor(store)
+
+    @staticmethod
+    def backward(ctx, dw):
+        return ctx.op._pack_tensor(dw), None
 
 
 class _GatedFunction(torch.autograd.Function):

@@ -100,6 +100,9 @@ def global_norm(grads, grad_scale=1.0, saturate=0.0, zero_infs=False,
                                zero_nans=zero_nans)[0]
 
 
+ClipGlobalNorm = clip_by_global_norm
+
+
 # ------------------------------------------------------------------
 # Packed 16-bit optimizer-state formats (the reference's mhalf/vhalf):
 #   vhalf: 0s/6e/10m unsigned, value = 1.m * 2^(e-60), e in [0, 63]

@@ -230,6 +230,24 @@ printed), and the experts' products at N = ep·C (f32 fprop, bprop and
 updat; bsmm1's bf16 updat and its reduce) against their plain versions,
 timed beside their bound and a dense ``torch.matmul``.
 
+Then the ``fprop_packed`` store (after the modes): ``bench.py``'s four
+headline bsmm ops (8192², N 2048, bf16: random b32, banded b32 and b64,
+the R-aligned band at b64 with ``dense_tile_R=4``; ``make_layout`` and
+``aligned_band_layout`` copied, as ``bench.py`` imports JAX), each built
+with ``w_layout="fprop_packed"`` from one canonical weight draw that the
+port packs (on the card, equal to the NumPy pack), its forward counted
+and bit for bit the canonical op's, and within TOL of the plain op's;
+random b32's backward too (dX bit for bit, dW unpacked bit for bit the
+canonical dW, the store's padding exactly zero); each store's shape, and
+the device time of the store's gather and dW's repack beside the fprop
+and updat kernels'.  The canonical row's layouts (hidden 7680 at 11.25%,
+b8/b16/b32): the host library ``csrc/bs_host.cpp`` loaded, the packed
+op's host build time, at b32 the order by the NumPy builders equal to the
+library's, and the depth-8 chains in modes auto and window on packed
+stores, counted, bit for bit the canonical chains.  Then the examples at
+full size: ``simple.py`` (counted, against the plain op) and ``mnist.py``
+at its defaults, then with ``--quantize`` (falling loss, the accuracy).
+
 Prints the card's name and power limit, the build times, every check
 with its tolerance, the timings, a ``{"kernels": [...]}`` line (each
 kernel with its bound on this card and the time of a library call that
@@ -5832,6 +5850,311 @@ def pipeline_experts_path(bt, model, sd, cfg, dev, g, card_line, rows,
     return pp_launches, ep_launches
 
 
+# The fprop_packed store (kernels/packed_order.py: the JAX op's TPU fprop
+# schedule order, rebuilt in NumPy): bench.py's four headline bsmm ops at
+# 8192^2, N 2048, bf16, built as bench.py builds them (bench.py:249-291,
+# from one RandomState(0): each layout, its canonical weight draw; then x),
+# and the canonical bench row's layouts (hidden 7680 at 11.25%).
+PACKED_HIDDEN, PACKED_N, PACKED_DENSITY = 8192, 2048, 0.25
+PACKED_LAYOUTS = (("random", 32), ("banded", 32), ("banded", 64),
+                  ("aligned", 64))
+PACKED_TIMED = 10
+# the TPU kernel each store feeds, by the JAX op's fprop schedule (mode
+# "auto": a panel store or a slot store)
+PACKED_TPU = {"dense_tile": "bsmm.py:1422", "grouped": "bsmm.py:674"}
+# each route's wrapper and source (bf16, mode "auto")
+ROUTE_KERNEL = {"grouped": ("bsmm_fprop", "bsmm_xprop_mma.cu"),
+                "phased": ("bsmm_split", "bsmm_xprop_mma.cu")}
+
+
+def make_layout(kind, nb, density, rng):
+    """bench.py:221-233 (bench.py imports JAX): a random layout with its
+    diagonal set, or a band of half-width density * nb / 2."""
+    if kind == "random":
+        lay = (rng.rand(nb, nb) < density).astype(np.int32)
+        lay[np.arange(nb), np.arange(nb)] = 1
+        return lay
+    if kind == "banded":
+        m = max(int(round(density * nb / 2)), 1)
+        lay = np.zeros((nb, nb), np.int32)
+        for q in range(nb):
+            lay[q, max(0, q - m + 1):q + 1] = 1
+            lay[q, q:min(nb, q + m)] = 1
+        return lay
+    raise ValueError(kind)
+
+
+def aligned_band_layout(nb, width, R):
+    """bench.py:236-245: rows R*i..R*i+R-1 share one band of width
+    blocks."""
+    lay = np.zeros((nb, nb), np.int32)
+    for g in range(-(-nb // R)):
+        r0, r1 = g * R, min((g + 1) * R, nb)
+        lo = max(0, min(nb - width, g * R - width // 2))
+        lay[r0:r1, lo:lo + width] = 1
+    return lay
+
+
+def packed_bench_ops(bt):
+    """bench.py's four ops: {(kind, b): (canonical op, packed op, plain
+    op, canonical W)} and x, the packed op's host build time printed."""
+    rng = np.random.RandomState(0)
+    hidden, out = PACKED_HIDDEN, {}
+    for kind, b in PACKED_LAYOUTS:
+        kw = {}
+        if kind == "aligned":
+            lay = aligned_band_layout(hidden // b, hidden // b // 4, 4)
+            kw = dict(dense_tile_R=4)
+        else:
+            lay = make_layout(kind, hidden // b, PACKED_DENSITY, rng)
+        t = time.perf_counter()
+        pk = bt.BlocksparseMatMul(lay, block_size=b, feature_axis=0,
+                                  w_layout="fprop_packed", **kw)
+        build_s = time.perf_counter() - t
+        can = bt.BlocksparseMatMul(lay, block_size=b, feature_axis=0, **kw)
+        plain = bt.BlocksparseMatMul(lay, block_size=b, feature_axis=0,
+                                     impl="xla")
+        W = rng.uniform(-0.1, 0.1, (pk.blocks, b, b)).astype(np.float32)
+        o = pk.packed
+        print(f"packed {kind} b{b}{' R4' if kw else ''}: {pk.blocks} blocks, "
+              f"store {pk.w_shape} ({'panels' if o.panels else 'slots'}, "
+              f"{o.mode_f}{', phased' if o.phased else ''}), "
+              f"{100 * pk.blocks * b * b / np.prod(pk.w_shape):.1f}% of its "
+              f"cells blocks; host build {build_s:.2f} s", flush=True)
+        out[(kind, b)] = (can, pk, plain, W)
+    x = rng.uniform(-1, 1, (hidden, PACKED_N)).astype(np.float32)
+    return out, x
+
+
+def packed_bench_checks(ops, X, dev, g, card_line, rows, marks):
+    """Each bench.py op on its packed store against its canonical op:
+    the store packed on the card equal to the NumPy pack, unpacking to
+    the draw; the forward bit for bit the canonical op's and within TOL
+    of the plain op's; for random b32 the backward too (dX bit for bit,
+    dW unpacked bit for bit the canonical dW, the padding zero).  Each
+    forward (and random b32's backward) counted; device time of the
+    kernels beside the store's gather and repack.  Returns {row name:
+    (launches, source, TPU kernel)}."""
+    bf = torch.bfloat16
+    x = torch.as_tensor(X, device=dev).to(bf)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    launches = {}
+    for (kind, b), (can, pk, plain, W) in ops.items():
+        name = f"{kind}{b}"
+        w = torch.as_tensor(W, device=dev).to(bf)
+        wp = pk.pack_weights(w)
+        check(torch.equal(wp.cpu(), torch.from_numpy(pk.pack_weights(W))
+                          .to(bf)), f"packed {name}: the store packed on "
+              f"the card equals the NumPy pack of the draw")
+        check(torch.equal(pk.unpack_weights(wp), w),
+              f"packed {name}: the store unpacks to the draw bit for bit")
+        can(x, w)                                          # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        y = pk(x, wp)
+        torch.cuda.synchronize()
+        counted = read_counts()
+        ran = {k: v for k, v in counted.items() if v}
+        check(torch.equal(y, can(x, w)),
+              f"packed {name}: y equals the canonical op's bit for bit "
+              f"(fprop launches {ran})")
+        err_f = compare(f"packed {name} fprop against impl=xla", y,
+                        plain(x, w), TOL[bf])
+        key = f"bsmm_fprop_packed_{name}"
+        wrapper, src = ROUTE_KERNEL[pk._route(PACKED_N, "f", sms)]
+        launches[key] = (counted[wrapper], src,
+                         PACKED_TPU[pk.packed.mode_f])
+        fprop = (lambda: pk._xprop(x, w, "f"))
+        ms_f = device_ms_per_call(fprop, lambda k: "bsmm_" in k,
+                                  PACKED_TIMED)
+        gather_ms = device_ms_per_call(lambda: pk.unpack_weights(wp),
+                                       lambda k: True, PACKED_TIMED)
+        rows[key] = (err_f, ms_f, time_ms(lambda: plain(x, w), 3))
+        b2, N = b * b, PACKED_N
+        flops = 2 * N * pk.blocks * b2
+        xb = 2 * (N * pk.C + pk.blocks * b2 + N * pk.K)
+        wd = dense_weight(can, w)
+        lib_f = time_ms(lambda: wd.t() @ x, 20)
+        marks[key] = (*bound(flops, xb), lib_f)
+        store_mb = np.prod(pk.w_shape) * 2 / 1e6
+        print(f"packed {name} N={N} bf16 [{card_line}]: fprop kernels "
+              f"{ms_f:.4f} ms ({flops / ms_f / 1e9:.2f} TFLOP/s; bound "
+              f"{marks[key][0]:.4f} ms, dense matmul {lib_f:.4f} ms); the "
+              f"store's gather {gather_ms:.4f} ms ({store_mb:.1f} MB store, "
+              f"{pk.blocks * b2 * 2 / 1e6:.1f} MB of blocks; "
+              f"{gather_ms / ms_f:.2f}x the fprop)", flush=True)
+        if kind != "random":
+            del wd
+            continue
+        e = (torch.rand((pk.K, N), device=dev, generator=g) * 2 - 1).to(bf)
+
+        def grads(op, weights):
+            xi, wi = x.clone().requires_grad_(), \
+                weights.clone().requires_grad_()
+            out = op(xi, wi)
+            out.backward(e)
+            return out.detach(), xi.grad, wi.grad
+        grads(can, w)
+        torch.cuda.synchronize()
+        reset_counts()
+        y1, dx1, dw1 = grads(pk, wp)
+        torch.cuda.synchronize()
+        counted = read_counts()
+        y0, dx0, dw0 = grads(can, w)
+        check(torch.equal(y1, y0) and torch.equal(dx1, dx0),
+              f"packed {name} forward + backward: y and dX equal the "
+              f"canonical op's bit for bit")
+        check(torch.equal(pk.unpack_weights(dw1), dw0),
+              f"packed {name}: dW unpacked equals the canonical dW bit "
+              f"for bit")
+        check(torch.equal(pk.pack_weights(pk.unpack_weights(dw1)), dw1),
+              f"packed {name}: dW's padding cells exactly zero "
+              f"({pk.packed_blocks - pk.blocks} of {pk.packed_blocks} cells)")
+        err_b = compare(f"packed {name} bprop against impl=xla", dx1,
+                        plain._xprop(e, w, "b"), TOL[bf])
+        dw_ref = plain._updat(x, e)
+        err_u = compare(f"packed {name} updat (f32) against impl=xla",
+                        pk._updat(x, e), dw_ref, UPDAT_TOL)
+        repack_ms = device_ms_per_call(lambda: pk.pack_weights(dw0),
+                                       lambda k: True, PACKED_TIMED)
+        ms_b = device_ms_per_call(lambda: pk._xprop(e, w, "b"),
+                                  lambda k: "bsmm_" in k, PACKED_TIMED)
+        ms_u = kernel_device_ms(lambda: pk._updat(x, e),
+                                "bsmm_updat_mma_kernel", PACKED_TIMED)
+        wrapper, src = ROUTE_KERNEL[pk._route(PACKED_N, "b", sms)]
+        wrapper = "bsmm_bprop" if wrapper == "bsmm_fprop" else wrapper
+        for d, err, ms, plain_fn, n, src, tpu in (
+                ("bprop", err_b, ms_b, lambda: plain._xprop(e, w, "b"),
+                 counted[wrapper], src, "bsmm.py:1422"),
+                ("updat", err_u, ms_u, lambda: plain._updat(x, e),
+                 counted["bsmm_updat"], "bsmm_updat_mma.cu",
+                 "bsmm.py:1972")):
+            k = f"bsmm_{d}_packed_{name}"
+            rows[k] = (err, ms, time_ms(plain_fn, 3))
+            launches[k] = (n, src, tpu)
+        marks[f"bsmm_bprop_packed_{name}"] = (
+            *bound(flops, xb), time_ms(lambda: wd @ e, 20))
+        marks[f"bsmm_updat_packed_{name}"] = (
+            *bound(flops, 2 * N * (pk.C + pk.K) + 4 * pk.blocks * b2),
+            time_ms(lambda: x @ e.t(), 20))
+        check(counted["bsmm_updat_reduce"] == 0,
+              f"packed {name}: the updat at N={N} runs unsplit")
+        print(f"packed {name} backward [{card_line}]: bprop kernels "
+              f"{ms_b:.4f} ms, updat kernel {ms_u:.4f} ms, dW's repack into "
+              f"the store {repack_ms:.4f} ms ({repack_ms / ms_u:.2f}x the "
+              f"updat); launches {({k: v for k, v in counted.items() if v})}",
+              flush=True)
+        del wd, e, y1, dx1, dw1, y0, dx0, dw0, dw_ref
+    torch.cuda.empty_cache()
+    return launches
+
+
+def packed_canonical(bt, dev, g, card_line):
+    """The canonical bench row's layouts (hidden 7680 at 11.25%, the
+    port's make_mask, b8/b16/b32): the packed op's host build time on the
+    host library, which must have loaded; at b32 the order built once more
+    by the NumPy builders alone, equal (never at b16 or b8: minutes); the
+    depth-8 forward chain (N 64, bf16) on the packed store in modes auto
+    and window (the window schedule's store), counted, equal to the
+    canonical chain bit for bit.  Returns the chains' launches."""
+    from blocksparse_tpu_torch import native
+    from blocksparse_tpu_torch.kernels import packed_order
+    from blocksparse_tpu_torch.models.sparse_lstm import make_mask
+    t = time.perf_counter()
+    check(native.available(), f"the host library csrc/bs_host.cpp built "
+          f"(g++) and loaded ({time.perf_counter() - t:.2f} s)")
+    k, target, bsizes = CANON_ROWS[0]
+    hidden, bf = k * CANON_UNIT, torch.bfloat16
+    total = {}
+    for b in bsizes:
+        n = hidden // b
+        lay = make_mask(n, f"ba_{pick_m(n, target)}", seed=SEED)
+        can, pk, secs = {}, {}, {}
+        for mode in ("auto", "window"):
+            t = time.perf_counter()
+            can[mode] = bt.BlocksparseMatMul(lay, block_size=b,
+                                             feature_axis=0, mode=mode)
+            secs[f"canonical {mode}"] = time.perf_counter() - t
+            t = time.perf_counter()
+            pk[mode] = bt.BlocksparseMatMul(lay, block_size=b,
+                                            feature_axis=0, mode=mode,
+                                            w_layout="fprop_packed")
+            secs[f"packed {mode}"] = time.perf_counter() - t
+        op = can["auto"]
+        line = (f"packed canonical hidden {hidden} b{b}: {op.blocks} blocks, "
+                f"store {pk['auto'].w_shape} (window's "
+                f"{pk['window'].w_shape}); host build with the library: "
+                + ", ".join(f"{k} op {s:.2f} s" for k, s in secs.items()))
+        if b == 32:
+            t = time.perf_counter()
+            py = packed_order.fprop_order(
+                [lut for _, lut in op.fprop_list], n, op.blocks, b,
+                native=False)
+            line += (f"; the order by the NumPy builders "
+                     f"{time.perf_counter() - t:.2f} s")
+            check(py.w_shape == pk["auto"].w_shape
+                  and np.array_equal(py.pos, pk["auto"].packed.pos),
+                  f"packed canonical b{b}: the NumPy builders' order equals "
+                  f"the library's")
+        print(line, flush=True)
+        scale = float(np.sqrt(3.0 / (b * op.blocks / n)))
+        w = ((torch.rand(op.w_shape, device=dev, generator=g) * 2 - 1)
+             * scale).to(bf)
+        x = (torch.rand((op.C, CANON_N), device=dev, generator=g) * 2
+             - 1).to(bf)
+        for mode in ("auto", "window"):
+            wp = pk[mode].pack_weights(w)
+            torch.cuda.synchronize()
+            reset_counts()
+            y = chain(pk[mode], x, wp)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in read_counts().items() if v}
+            check(torch.equal(y, chain(can[mode], x, w)),
+                  f"packed canonical b{b} mode {mode}: the depth-"
+                  f"{CANON_DEPTH} chain on the packed store equals the "
+                  f"canonical chain bit for bit (launches {launches})")
+            add_counts(total, launches)
+        del w, x, wp, y
+    torch.cuda.empty_cache()
+    return total
+
+
+def examples_path(bt, dev, card_line):
+    """The port's two examples at full size: simple.py (4096^2, b32,
+    N 64, identity weights) counted and against the plain op; mnist.py at
+    its defaults (200 steps, batch 128), then with --quantize: the loss
+    falls, the accuracy printed.  Returns simple's launches."""
+    from blocksparse_tpu_torch.examples import mnist, simple
+    np.random.seed(SEED)
+    torch.cuda.synchronize()
+    reset_counts()
+    op, x, w, y = simple.run(dev)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in read_counts().items() if v}
+    check(launches and y.shape == (simple.HIDDEN_SIZE,
+                                   simple.MINIBATCH_SIZE),
+          f"simple.py on the card: launches {launches}")
+    plain = bt.BlocksparseMatMul(op.layout, block_size=op.bsize,
+                                 feature_axis=0, impl="xla")
+    compare("simple.py y against impl=xla", y, plain(x, w),
+            TOL[torch.float32])
+    for flags in ([], ["--quantize"]):
+        t = time.perf_counter()
+        out = mnist.train(mnist.parse_args(flags),
+                          mnist.init_params(torch.Generator()
+                                            .manual_seed(SEED), device=dev),
+                          dev)
+        s = time.perf_counter() - t
+        losses = [float(v) for v in out["losses"]]
+        check(all(np.isfinite(losses)) and np.mean(losses[-20:]) < losses[0],
+              f"mnist.py {' '.join(flags) or '(defaults)'}: loss "
+              f"{losses[0]:.4f} -> {np.mean(losses[-20:]):.4f} (mean of the "
+              f"last 20) over {len(losses)} steps, accuracy "
+              f"{out['accuracy']:.3f}, {s:.1f} s ({1e3 * s / len(losses):.2f} "
+              f"ms a step with the eval) [{card_line}]")
+    return launches
+
+
 def build_all():
     from blocksparse_tpu_torch.kernels import _build
 
@@ -5990,6 +6313,23 @@ def main():
     print(f"launches: modes path (canonical chains, window regime) "
           f"{mode_launches}", flush=True)
 
+    # 7b. the fprop_packed store: bench.py's four headline ops on their
+    # packed stores (counted) against their canonical ops, the canonical
+    # row's layouts on the host library, and the two examples (counted)
+    t_packed = time.perf_counter()
+    packed_ops, packed_x = packed_bench_ops(bt)
+    packed_marks = {}
+    packed_launches = packed_bench_checks(packed_ops, packed_x, dev, g,
+                                          card_line, rows, packed_marks)
+    del packed_ops, packed_x
+    chain_launches = packed_canonical(bt, dev, g, card_line)
+    simple_launches = examples_path(bt, dev, card_line)
+    print(f"launches: packed bench ops "
+          f"{dict((k, v[0]) for k, v in packed_launches.items())}; "
+          f"packed canonical chains {chain_launches}; "
+          f"simple.py {simple_launches}; packed phase "
+          f"{time.perf_counter() - t_packed:.1f} s", flush=True)
+
     # 8. each kernel's bound and library call
     marks = yardsticks(model, dev, g, rows)
     marks.update(mode_yardsticks(canon, win_ops["plain"], dev, g, card_line,
@@ -6001,6 +6341,7 @@ def main():
     marks["bsmm_split"] = rows[("split_mark", "bsmm2")]
     marks.update(rows["trio_marks"])
     marks.update(lstm_marks)
+    marks.update(packed_marks)
     attn_report(model, rows, marks, card_line)
     ptxas_report("bsmm_xprop_mma", "the fused split (OUT_SPLIT)",
                  SPLIT_MANGLED)
@@ -6121,6 +6462,10 @@ def main():
         ("moe_ep_bsmm_updat_reduce", "bsmm_updat_mma.cu", "bsmm.py:1972",
          ep_launches["bsmm_updat_reduce"], rows["moe_ep_bsmm_updat_reduce"]),
     ]
+    # the fprop_packed store's launches at bench.py's shapes (8192^2, N
+    # 2048, bf16): each headline op's forward, random b32's backward
+    kernels += [(key, src, tpu, n, rows[key])
+                for key, (n, src, tpu) in packed_launches.items()]
     check(all(n > 0 for _, _, _, n, _ in kernels),
           f"every kernel launched on its path ({len(kernels)} kernels)")
     print(json.dumps({"kernels": [

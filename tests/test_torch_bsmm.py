@@ -96,8 +96,11 @@ def test_empty_output_block_column_is_zero():
 
 def test_rejects_what_it_does_not_take():
     layout = random_layout(2, 2, 1.0, seed=0)
-    with pytest.raises(NotImplementedError):
-        BlocksparseMatMul(layout, block_size=8, w_layout="fprop_packed")
+    packed = BlocksparseMatMul(layout, block_size=8, w_layout="fprop_packed")
+    assert packed.w_shape == tuple(JaxBSMM(layout, block_size=8,
+                                           w_layout="fprop_packed").w_shape)
+    with pytest.raises(ValueError):
+        BlocksparseMatMul(layout, block_size=8, w_layout="panels")
     port = BlocksparseMatMul(layout, block_size=8, feature_axis=1)
     ones = (torch.ones(4, port.C), torch.ones(port.w_shape))
     assert torch.equal(port(*ones, gate=np.ones(port.blocks)),  # gates run

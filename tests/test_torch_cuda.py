@@ -2850,3 +2850,47 @@ def test_moe_ep_shards_on_the_card_match_the_ep1_layer(cuda, ep):
     for got, want in zip(*runs[::-1]):
         err = (got - want).abs().max().item()
         assert err <= 1e-5 * max(1.0, want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode,bsize", [("auto", 32), ("grouped", 16),
+                                        ("window", 32)])
+def test_packed_op_matches_its_canonical_op(cuda, mode, bsize, dtype):
+    """``w_layout="fprop_packed"`` on the card: the store's gather feeds
+    the canonical op's kernels, so y and dx equal the canonical op's bit
+    for bit, dW its dW repacked bit for bit, the padding zero; the unpack
+    and the repack are exact, and the launches are the canonical op's."""
+    layout = random_layout(16, 12, 0.35, seed=bsize)
+    can = BlocksparseMatMul(layout, block_size=bsize, feature_axis=0,
+                            mode=mode)
+    pk = BlocksparseMatMul(layout, block_size=bsize, feature_axis=0,
+                           mode=mode, w_layout="fprop_packed")
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(can.i_shape(200), generator=g, device=cuda).to(dtype)
+    e = torch.randn(can.o_shape(200), generator=g, device=cuda).to(dtype)
+    w = (torch.rand(can.w_shape, generator=g, device=cuda) - 0.5).to(dtype)
+    wp = pk.pack_weights(w)
+    assert wp.shape == pk.w_shape
+    assert torch.equal(pk.unpack_weights(wp), w)
+    assert torch.equal(wp.cpu(), torch.from_numpy(
+        pk.pack_weights(w.float().cpu().numpy())).to(dtype))
+
+    def run(op, weights):
+        xi, wi = x.clone().requires_grad_(), weights.clone().requires_grad_()
+        y = op(xi, wi)
+        y.backward(e)
+        return y.detach(), xi.grad, wi.grad
+    def counts():
+        return np.array([getattr(bsmm_kernels, n).launches for n in (
+            "bsmm_fprop", "bsmm_bprop", "bsmm_updat", "bsmm_updat_reduce",
+            "bsmm_fine", "bsmm_window", "bsmm_merge", "bsmm_split")])
+    before = counts()
+    y0, dx0, dw0 = run(can, w)
+    mid = counts()
+    y1, dx1, dw1 = run(pk, wp)
+    torch.cuda.synchronize()
+    assert (counts() - mid == mid - before).all() and (mid > before).any()
+    assert torch.equal(y1, y0) and torch.equal(dx1, dx0)
+    assert torch.equal(dw1, pk.pack_weights(dw0))
+    assert torch.equal(pk.pack_weights(pk.unpack_weights(dw1)), dw1)

@@ -87,8 +87,10 @@ def test_signature_matches_jax(name):
 
 def test_unported_values_raise():
     layout = np.eye(2, dtype=np.int32)
-    with pytest.raises(NotImplementedError):      # the TPU schedule's order
-        bt.BlocksparseMatMul(layout, block_size=8, w_layout="fprop_packed")
+    packed = bt.BlocksparseMatMul(layout, block_size=8,  # the TPU order
+                                  w_layout="fprop_packed")
+    assert packed.w_shape == tuple(jax_bs.BlocksparseMatMul(
+        layout, block_size=8, w_layout="fprop_packed").w_shape)
     op = bt.BlocksparseMatMul(layout, block_size=8, feature_axis=1)
     x, w = torch.ones(4, op.C), torch.ones(op.w_shape)
     for kw in (dict(gate=np.ones(op.blocks)), dict(gate_grad=True),
