@@ -6,21 +6,25 @@ directions of the TPU kernels ``xprop_pallas_dense_tile``,
 ``xprop_pallas`` (``blocksparse_tpu/kernels/bsmm.py``), which all compute
 the product over the layout's LUT and differ only in how they tile the
 TPU's MXU.  Both are written natively for the NC orientation
-(``feature_axis=1``, x of shape (N, C)): one thread block per (N-tile,
-output block-column), a fixed-order f32 sum over the block-column's LUT
-entries, no atomics; bprop reads each W block transposed and walks the
-CSR of input block-columns.  bf16 and f16 run ``csrc/bsmm_xprop_mma.cu``
-on the tensor cores (``mma.sync`` fed by ``ldmatrix`` from a ``cp.async``
-ring); f32 runs ``csrc/bsmm_fprop.cu`` in full fp32 on the CUDA cores (no
-TF32: the reference's f32 dots are exact).  ``bsmm_updat``
-(dw[e] = x_cᵀ·dy_k summed over N, in f32) replaces
-``updat_pallas_dense_tile`` and, for canonical weights,
-``updat_pallas_grouped`` and ``updat_pallas``.  bf16 and f16 run
-``csrc/bsmm_updat_mma.cu`` on the tensor cores: the layout's blocks in
-groups that share one staged x (or dy) tile (``updat_plan``), N cut into
-runs where the groups alone would leave SMs idle (``updat_splits``), the
-runs' f32 partials summed in order by ``bsmm_updat_reduce``.  f32 runs
-``csrc/bsmm_updat.cu`` on the CUDA cores.  See the sources for what
+(``feature_axis=1``, x of shape (N, C)): thread blocks over (N-tile,
+output block-columns), a fixed-order f32 sum over each block-column's
+LUT entries, no atomics; bprop reads each W block transposed and walks
+the CSR of input block-columns.  bf16 and f16 run
+``csrc/bsmm_xprop_mma.cu`` on the tensor cores (``mma.sync`` fed by
+``ldmatrix`` from a ``cp.async`` ring); f32 runs ``csrc/bsmm_fprop.cu``
+in full fp32 on the CUDA cores (no TF32: the reference's f32 dots are
+exact), an SGEMM-style kernel whose thread blocks own the output columns
+that share their entry lists (``xprop_groups``), or one column, at an
+N-tile chosen by N (``xprop_tile``), through a ``cp.async`` ring, each
+output one fmaf chain in LUT order.  ``bsmm_updat`` (dw[e] = x_cᵀ·dy_k summed over N, in f32)
+replaces ``updat_pallas_dense_tile`` and, for canonical weights,
+``updat_pallas_grouped`` and ``updat_pallas``.  Both of its kernels run
+over the layout's blocks in groups that share one staged x (or dy) tile
+(``updat_plan``).  bf16 and f16 run ``csrc/bsmm_updat_mma.cu`` on the
+tensor cores, N cut into runs where the groups alone would leave SMs idle
+(``updat_splits``), the runs' f32 partials summed in order by
+``bsmm_updat_reduce``.  f32 runs ``csrc/bsmm_updat.cu`` on the CUDA
+cores, one fmaf chain over all of N an output.  See the sources for what
 bounds each on the H100 and what the designs do about it.
 
 ``xprop_plain`` and ``updat_plain`` are the plain PyTorch versions, the
@@ -65,9 +69,23 @@ from blocksparse_tpu_torch.kernels import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 BLOCK_SIZES = (8, 16, 32, 64, 128)
-# rows of N a thread block of the unsplit kernel owns (Tile<B>::TM of both
-# bsmm_fprop.cu and bsmm_xprop_mma.cu)
+# rows of N a thread block of the unsplit tensor-core kernel owns
+# (Tile<B>::TM of bsmm_xprop_mma.cu), which the split rule reads for every
+# dtype: bsmm_fprop.cu's one-column blocks (TM 32, 64 threads) hold a
+# quarter of the work of a tensor-core block, so its own grid would
+# undercount the split's gain (at the sparse LSTM's bprop, N 128 on 35
+# columns, the split route took 0.038 ms and the unsplit TM-32 kernel
+# 0.081 on the H100: tools/bsmm_f32_bench.py)
 XPROP_TM = {8: 64, 16: 128, 32: 128, 64: 128, 128: 64}
+# bsmm_fprop.cu (f32): the columns of a full column group (its thread
+# blocks own XPROP_F32_COLS // b block-columns that share their entry
+# lists, 8 x 8 outputs a thread, at an N-tile of XPROP_F32_GROUP_TM rows),
+# the N-tile of its one-column thread blocks, and the share of empty slots
+# above which a plan does not group
+XPROP_F32_COLS = 128
+XPROP_F32_GROUP_TM = 64
+XPROP_F32_TM = 32
+XPROP_F32_WASTE = 0.25
 # bsmm_fine.cu: block sizes, and contraction rows a chunk stages
 FINE_BLOCK_SIZES = (8, 16, 32)
 FINE_DEPTH = 128
@@ -263,6 +281,77 @@ def split_plan(row_ptr, phases):
             "merge_idx": idx.astype(np.int32), "tiles": T + 1}
 
 
+def xprop_groups(row_ptr, ent_in, bsize):
+    """``csrc/bsmm_fprop.cu``'s column groups over a CSR (the LUT's, or the
+    split plan's tile_ptr): output columns whose entry lists name the same
+    input blocks in the same order, up to gn = XPROP_F32_COLS // bsize of
+    them a group, so that a thread block stages x once for all of them.
+    Columns group in ascending order; gn is 1 (no grouping) where more
+    than XPROP_F32_WASTE of the slots would stay empty.  grp_col (groups,
+    gn) int32: each group's columns, -1 after its last; groups by
+    descending entry count (the longest launched first), then by first
+    column.  order (columns, 1) int32: the columns one a thread block, in
+    the same order.  Each column in exactly one group."""
+    gmax = max(1, XPROP_F32_COLS // bsize)
+    row_ptr = np.asarray(row_ptr, np.int64)
+    ent_in = np.asarray(ent_in, np.int64)
+    lens = np.diff(row_ptr)
+    n = len(lens)
+    lists = {}
+    for o in range(n):
+        lists.setdefault(ent_in[row_ptr[o]:row_ptr[o + 1]].tobytes(),
+                         []).append(o)
+    groups = [cols[i:i + gmax] for cols in lists.values()
+              for i in range(0, len(cols), gmax)]
+    gn = gmax
+    if gmax == 1 or n < (1 - XPROP_F32_WASTE) * len(groups) * gmax:
+        gn, groups = 1, [[o] for o in range(n)]
+    groups.sort(key=lambda g: (-lens[g[0]], g[0]))
+    grp_col = np.full((len(groups), gn), -1, np.int32)
+    for i, cols in enumerate(groups):
+        grp_col[i, :len(cols)] = cols
+    order = np.lexsort((np.arange(n), -lens)).astype(np.int32)[:, None]
+    return {"grp_col": grp_col, "gn": gn, "order": order}
+
+
+def xprop_f32_tiles(bsize):
+    """The (gn, tm) configurations ``csrc/bsmm_fprop.cu`` is built for at
+    block size ``bsize``: full column groups at XPROP_F32_GROUP_TM rows,
+    and one column a thread block at XPROP_F32_TM."""
+    return ((max(1, XPROP_F32_COLS // bsize), XPROP_F32_GROUP_TM),
+            (1, XPROP_F32_TM))
+
+
+_F32_TILES = {b: xprop_f32_tiles(b) for b in BLOCK_SIZES}
+
+
+def xprop_tile(N, bsize, plan, sm_count):
+    """``csrc/bsmm_fprop.cu``'s configuration (gn, tm) for a product of N
+    rows over ``plan`` (``xprop_groups``) on a card of ``sm_count`` SMs:
+    full column groups (8 x 8 outputs a thread, x staged once a group)
+    where the plan groups the columns gn = XPROP_F32_COLS // bsize to a
+    group (at b128 one: every column) and their grid, ceil(N / 64) ·
+    groups, puts two thread blocks on each SM; else one column a thread
+    block at 32 rows (4 x 4 a thread), so a small N or few columns still
+    fill the card.  Shapes, the plan's counts and the SM count only."""
+    gmax = max(1, XPROP_F32_COLS // bsize)
+    if plan["gn"] == gmax and -(-N // XPROP_F32_GROUP_TM) * \
+            len(plan["grp_col"]) >= 2 * sm_count:
+        return gmax, XPROP_F32_GROUP_TM
+    return 1, XPROP_F32_TM
+
+
+def xprop_launch(plan, tile):
+    """``csrc/bsmm_fprop.cu``'s launch in configuration ``tile`` = (gn, tm)
+    over ``plan`` (``xprop_groups``): {"grp_col": the plan's groups where
+    gn is their width, else its columns one a thread block ("order"),
+    "gn", "tm"}, the ``plan`` that ``bsmm_fprop``, ``bsmm_bprop`` and
+    ``bsmm_partials`` take in f32."""
+    gn, tm = tile
+    return {"grp_col": plan["grp_col"] if gn == plan["gn"] else
+            plan["order"], "gn": gn, "tm": tm}
+
+
 def updat_plan(ent_c, ent_k, bsize):
     """The tensor-core updat's plan: the layout's blocks (the updat list
     ent_c, ent_k) cut into groups of at most G = UPDAT_ROWS // bsize that
@@ -334,7 +423,7 @@ def _xprop_args(n_ints, n_extra=0):
 
 
 _XPROP_ARGS = _xprop_args(3)
-_UPDAT_ARGS = [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+_UPDAT_ARGS = [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
 _MERGE_ARGS = [_I, _I, _P, _P, _P, _I, _I, _I, _I, _P]
 _UPDAT_MMA_ARGS = [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                    _I, _I, _P]
@@ -347,9 +436,10 @@ def _check_common(fn, x, others, bsize, ints=()):
     if not x.is_cuda:
         raise ValueError(f"{fn} launches a CUDA kernel: its input must be on "
                          f"a CUDA device")
+    dev = x.device
     for name, t in (*others, *ints):
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, input on {x.device}")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, input on {dev}")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"{fn} takes f32, bf16 or f16, got {x.dtype}")
     if bsize not in BLOCK_SIZES:
@@ -372,14 +462,16 @@ def device_sm_count(device=None):
 
 
 def _stream(x):
-    return torch.cuda.current_stream(x.device).cuda_stream
+    """The raw handle of the current stream of x's CUDA device (the
+    handle alone: no Stream object a call)."""
+    return torch._C._cuda_getCurrentRawStream(x.get_device())
 
 
 def _aligned(t):
     """t, or a fresh (16-byte aligned) copy of a contiguous view that starts
     off a 16-byte boundary: the tensor-core kernels copy 16 bytes a
     thread."""
-    return t.clone() if t.is_contiguous() and t.data_ptr() % 16 else t
+    return t.clone() if t.data_ptr() % 16 and t.is_contiguous() else t
 
 
 def _xprop(fn, source, cfn, x, w, ints, n_ptr, bsize, n_out_blocks, trans_w,
@@ -410,70 +502,95 @@ def _xprop(fn, source, cfn, x, w, ints, n_ptr, bsize, n_out_blocks, trans_w,
     y = torch.empty((N, K), dtype=out_dtype or x.dtype, device=x.device)
     if N == 0:
         return y
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.get_device()):
         err = _build.function(source, cfn,
                               _xprop_args(len(ints), len(extra)))(
             _DTYPE_CODE[x.dtype], bsize, int(trans_w), x.data_ptr(),
-            w.data_ptr(), *(t.data_ptr() for _, t in ints), y.data_ptr(), N,
-            C, K, *extra, _stream(x))
+            w.data_ptr(), *(t.data_ptr() for _, t in ints),
+            y.data_ptr(), N, C, K, *extra, _stream(x))
     if err != 0:
         raise RuntimeError(f"{fn} launch failed: cudaError {err}")
     return y
 
 
 def _unsplit(fn, x, w, ints, n_ptr, bsize, n_out_blocks, trans_w,
-             partial=False):
-    """The unsplit xprop kernel for x's dtype: ``csrc/bsmm_fprop.cu`` (fp32
-    on the CUDA cores) for f32, ``csrc/bsmm_xprop_mma.cu`` (tensor cores)
-    for bf16 and f16 (x and w 16-byte aligned, ``_aligned``)."""
+             partial=False, plan=None):
+    """The unsplit xprop kernel for x's dtype, x and w 16-byte aligned
+    (``_aligned``): ``csrc/bsmm_fprop.cu`` (fp32 on the CUDA cores) for
+    f32, over ``plan`` (``xprop_launch``: grp_col an int32 tensor on x's
+    device, gn and tm); ``csrc/bsmm_xprop_mma.cu`` (tensor cores) for bf16
+    and f16, which reads no plan."""
     suffix = "_partials" if partial else ""
+    x, w = _aligned(x), _aligned(w)
+    extra = ()
     if x.dtype == torch.float32:
         source, cfn = "bsmm_fprop", "bsmm_xprop_nc" + suffix
+        if plan is None:
+            raise ValueError(f"{fn} in f32 runs over xprop_launch's plan: "
+                             f"pass plan")
+        grp, gn, tm = plan["grp_col"], plan["gn"], plan["tm"]
+        if (gn, tm) not in _F32_TILES.get(bsize, ()):
+            raise ValueError(f"bsmm_fprop.cu is built for (gn, tm) in "
+                             f"{_F32_TILES.get(bsize)} at b{bsize}, got "
+                             f"{(gn, tm)}")
+        shape = grp.shape
+        if len(shape) != 2 or shape[1] != gn or shape[0] > 65535:
+            raise ValueError(f"the plan's grp_col must be (groups <= 65535, "
+                             f"{gn}), got {tuple(shape)}")
+        ints = (*ints, ("grp_col", grp))
+        extra = (shape[0], gn, tm)
     else:
         source, cfn = "bsmm_xprop_mma", "bsmm_xprop_mma_nc" + suffix
-        x, w = _aligned(x), _aligned(w)
     return _xprop(fn, source, cfn, x, w, ints, n_ptr, bsize, n_out_blocks,
-                  trans_w, out_dtype=torch.float32 if partial else None)
+                  trans_w, out_dtype=torch.float32 if partial else None,
+                  extra=extra)
 
 
-def bsmm_fprop(x, w, row_ptr, ent_c, ent_w, bsize, n_out_blocks):
+def bsmm_fprop(x, w, row_ptr, ent_c, ent_w, bsize, n_out_blocks, plan=None):
     """y (N, n_out_blocks*bsize) = x (N, C) · W over a CSR LUT, on the card.
 
     row_ptr (n_out_blocks+1,), ent_c, ent_w (nnz,): int32 CUDA tensors, the
     LUT entries of each output block-column in accumulation order.
     w: (blocks, bsize, bsize).  x and w: f32, bf16 or f16, same dtype,
-    contiguous, on one CUDA device.  Raises on anything else."""
+    contiguous, on one CUDA device.  f32 also takes ``plan``, the launch
+    (``xprop_launch`` over ``xprop_groups`` of row_ptr, its grp_col on
+    x's device).  Raises on anything else."""
     y = _unsplit("bsmm_fprop", x, w,
                  (("row_ptr", row_ptr), ("ent_c", ent_c), ("ent_w", ent_w)),
-                 n_out_blocks + 1, bsize, n_out_blocks, trans_w=False)
+                 n_out_blocks + 1, bsize, n_out_blocks, trans_w=False,
+                 plan=plan)
     bsmm_fprop.launches += 1
     return y
 
 
-def bsmm_bprop(dy, w, row_ptr, ent_k, ent_w, bsize, n_out_blocks):
+def bsmm_bprop(dy, w, row_ptr, ent_k, ent_w, bsize, n_out_blocks, plan=None):
     """dx (N, n_out_blocks*bsize) = dy (N, K) · Wᵀ over the bprop CSR (one
     row per input block-column c, entries (k, w) in accumulation order),
-    on the card.  Same types and checks as ``bsmm_fprop``."""
+    on the card.  Same types, plan and checks as ``bsmm_fprop``."""
     dx = _unsplit("bsmm_bprop", dy, w,
                   (("row_ptr", row_ptr), ("ent_k", ent_k), ("ent_w", ent_w)),
-                  n_out_blocks + 1, bsize, n_out_blocks, trans_w=True)
+                  n_out_blocks + 1, bsize, n_out_blocks, trans_w=True,
+                  plan=plan)
     bsmm_bprop.launches += 1
     return dx
 
 
 def bsmm_partials(x, w, tile_ptr, ent_in, ent_w, bsize, n_tiles,
-                  trans_w=False):
+                  trans_w=False, plan=None):
     """The split route's partial tiles, on the card: (N, n_tiles·bsize) f32,
     tile t the unrounded f32 sum of x · W (Wᵀ with ``trans_w``) over the
     entries tile_ptr[t]..tile_ptr[t+1] (``split_plan``), by the unsplit
-    kernel with its partials flag.  A launch counts as one of
-    ``bsmm_fprop`` (or of ``bsmm_bprop`` with ``trans_w``), whose kernel it
-    is.  Same types and checks as ``bsmm_fprop``."""
+    kernel over the tile CSR (its partials entry point).  A launch counts
+    as one of ``bsmm_fprop`` (or of ``bsmm_bprop`` with ``trans_w``),
+    whose kernel it is.  Same types and checks as ``bsmm_fprop``; in f32
+    ``plan`` is the launch over the tiles (``xprop_groups`` of
+    tile_ptr)."""
     fn = bsmm_bprop if trans_w else bsmm_fprop
     parts = _unsplit("bsmm_partials", x, w,
                      (("tile_ptr", tile_ptr), ("ent_in", ent_in),
                       ("ent_w", ent_w)),
-                     n_tiles + 1, bsize, n_tiles, trans_w, partial=True)
+                     n_tiles + 1, bsize, n_tiles, trans_w, partial=True,
+                     plan=plan)
     fn.launches += 1
     return parts
 
@@ -586,7 +703,7 @@ def bsmm_merge(tiles, idx, bsize, out_dtype):
     y = torch.empty((N, n_out * bsize), dtype=out_dtype, device=tiles.device)
     if N == 0:
         return y
-    with torch.cuda.device(tiles.device):
+    with torch.cuda.device(tiles.get_device()):
         err = _build.function("bsmm_merge", "bsmm_merge_nc", _MERGE_ARGS)(
             _DTYPE_CODE[out_dtype], bsize, tiles.data_ptr(), idx.data_ptr(),
             y.data_ptr(), N, n_out, P, n_all, _stream(tiles))
@@ -599,18 +716,22 @@ def bsmm_merge(tiles, idx, bsize, out_dtype):
 def bsmm_updat(x, dy, ent_c, ent_k, bsize, plan=None, splits=1):
     """dw (blocks, bsize, bsize) f32 = x_cᵀ · dy_k per layout block, summed
     over N, on the card.  x (N, C), dy (N, K): contiguous, one dtype (f32,
-    bf16 or f16); ent_c, ent_k: (blocks,) int32, the updat list.
+    bf16 or f16); ent_c, ent_k: (blocks,) int32, the updat list; ``plan``:
+    ``updat_plan``'s groups (grp_q, slot_p, slot_e as int32 tensors on x's
+    device, and by_c).
 
-    f32 runs ``csrc/bsmm_updat.cu`` (one thread block per layout block
-    sums all of N; ``plan`` and ``splits`` are not read).  bf16 and f16
-    run ``csrc/bsmm_updat_mma.cu`` on the tensor cores over ``plan``
-    (``updat_plan``: grp_q, slot_p, slot_e as int32 tensors on x's
-    device, and by_c); with ``splits`` > 1 in runs of
-    ``updat_run_rows(N, splits)`` rows, whose f32 partials
-    ``bsmm_updat_reduce`` sums in order.  Each sum runs in a fixed
-    order."""
+    f32 runs ``csrc/bsmm_updat.cu`` on the CUDA cores over the plan's
+    groups, each output one chain over all of N (``splits`` is not read).
+    bf16 and f16 run ``csrc/bsmm_updat_mma.cu`` on the tensor cores over
+    the plan; with ``splits`` > 1 in runs of ``updat_run_rows(N, splits)``
+    rows, whose f32 partials ``bsmm_updat_reduce`` sums in order.  Each
+    sum runs in a fixed order."""
+    if plan is None:
+        raise ValueError("bsmm_updat runs over updat_plan's groups: pass plan")
+    grp_q, slot_p, slot_e = plan["grp_q"], plan["slot_p"], plan["slot_e"]
     _check_common("bsmm_updat", x, (("dy", dy),), bsize,
-                  (("ent_c", ent_c), ("ent_k", ent_k)))
+                  (("ent_c", ent_c), ("ent_k", ent_k), ("grp_q", grp_q),
+                   ("slot_p", slot_p), ("slot_e", slot_e)))
     if dy.dtype != x.dtype:
         raise TypeError(f"bsmm_updat takes x and dy of one dtype, got "
                         f"{x.dtype} and {dy.dtype}")
@@ -623,44 +744,35 @@ def bsmm_updat(x, dy, ent_c, ent_k, bsize, plan=None, splits=1):
         raise ValueError("x and dy must be contiguous")
     if ent_c.numel() != ent_k.numel():
         raise ValueError("ent_c and ent_k must have one entry per block")
+    groups, G = grp_q.numel(), UPDAT_ROWS // bsize
+    if slot_p.shape != (groups, G) or slot_e.shape != (groups, G):
+        raise ValueError(f"slot_p and slot_e must be ({groups}, {G})")
     (N, C), K, blocks = x.shape, dy.shape[1], ent_c.numel()
-    if x.dtype == torch.float32:
-        dw = torch.empty((blocks, bsize, bsize), dtype=torch.float32,
-                         device=x.device)
-        with torch.cuda.device(x.device):
+    x, dy = _aligned(x), _aligned(dy)
+    p, q, ldp, ldq = (dy, x, K, C) if plan["by_c"] else (x, dy, C, K)
+    ptrs = (p.data_ptr(), q.data_ptr(), grp_q.data_ptr(), slot_p.data_ptr(),
+            slot_e.data_ptr())
+    f32 = x.dtype == torch.float32
+    rows = N if f32 else updat_run_rows(N, splits)
+    runs = -(-N // rows) if splits > 1 and not f32 else 1
+    out = torch.empty((runs, blocks, bsize, bsize) if runs > 1 else
+                      (blocks, bsize, bsize), dtype=torch.float32,
+                      device=x.device)
+    with torch.cuda.device(x.get_device()):
+        if f32:
             err = _build.function("bsmm_updat", "bsmm_updat_nc", _UPDAT_ARGS)(
-                _DTYPE_CODE[x.dtype], bsize, x.data_ptr(), dy.data_ptr(),
-                ent_c.data_ptr(), ent_k.data_ptr(), dw.data_ptr(), N, C, K,
-                blocks, _stream(x))
-    else:
-        if plan is None:
-            raise ValueError("bsmm_updat in bf16/f16 runs over updat_plan's "
-                             "groups: pass plan")
-        ints = tuple((k, plan[k]) for k in ("grp_q", "slot_p", "slot_e"))
-        _check_common("bsmm_updat", x, (), bsize, ints)
-        groups, G = plan["grp_q"].numel(), UPDAT_ROWS // bsize
-        if tuple(plan["slot_p"].shape) != (groups, G) or \
-                tuple(plan["slot_e"].shape) != (groups, G):
-            raise ValueError(f"slot_p and slot_e must be ({groups}, {G})")
-        rows = updat_run_rows(N, splits)
-        runs = -(-N // rows) if splits > 1 else 1
-        x, dy = _aligned(x), _aligned(dy)
-        p, q, ldp, ldq = (dy, x, K, C) if plan["by_c"] else (x, dy, C, K)
-        out = torch.empty((runs, blocks, bsize, bsize), dtype=torch.float32,
-                          device=x.device)
-        with torch.cuda.device(x.device):
+                0, bsize, int(plan["by_c"]), *ptrs, out.data_ptr(), N, ldp,
+                ldq, groups, _stream(x))
+        else:
             err = _build.function("bsmm_updat_mma", "bsmm_updat_mma_nc",
                                   _UPDAT_MMA_ARGS)(
-                _DTYPE_CODE[x.dtype], bsize, int(plan["by_c"]), p.data_ptr(),
-                q.data_ptr(), *(t.data_ptr() for _, t in ints),
+                _DTYPE_CODE[x.dtype], bsize, int(plan["by_c"]), *ptrs,
                 out.data_ptr(), N, ldp, ldq, groups, runs, rows, blocks,
                 _stream(x))
     if err != 0:
         raise RuntimeError(f"bsmm_updat launch failed: cudaError {err}")
     bsmm_updat.launches += 1
-    if x.dtype == torch.float32:
-        return dw
-    return out[0] if runs == 1 else bsmm_updat_reduce(out)
+    return out if runs == 1 else bsmm_updat_reduce(out)
 
 
 def bsmm_updat_reduce(parts):
@@ -678,7 +790,7 @@ def bsmm_updat_reduce(parts):
                          f"{parts.dtype} {tuple(parts.shape)}")
     dw = torch.empty(parts.shape[1:], dtype=torch.float32,
                      device=parts.device)
-    with torch.cuda.device(parts.device):
+    with torch.cuda.device(parts.get_device()):
         err = _build.function("bsmm_updat_mma", "bsmm_updat_reduce_nc",
                               _REDUCE_ARGS)(
             parts.data_ptr(), dw.data_ptr(), parts.shape[0],

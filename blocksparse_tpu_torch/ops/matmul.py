@@ -62,8 +62,8 @@ class BlocksparseMatMul:
         runs the plain PyTorch version on any device.  Tensors on the CPU
         always take the plain version.
     mode: which kernel fprop and bprop run on a CUDA tensor (the
-        function is the same; updat always runs ``bsmm_updat``, in bf16
-        and f16 over ``updat_plan``'s groups, N split by
+        function is the same; updat always runs ``bsmm_updat`` over
+        ``updat_plan``'s groups, in bf16 and f16 with N split by
         ``updat_splits``):
         - "fine" with block_size <= 32: ``bsmm_fine`` (the JAX fine
           schedule), 128-deep chunks of each output column's entries;
@@ -177,6 +177,7 @@ class BlocksparseMatMul:
         self._plans = {}          # (kind, d, phases) -> NumPy plan
         self._plan_luts = {}      # (device, kind, d, phases) -> tensors
         self._split_runs = {}     # (N, d, SMs) -> phases of the split rule
+        self._xlaunches = {}      # (device, d, N, phases) -> f32 xprop launch
         self._updat_runs = {}     # (N, SMs) -> runs of the updat's N split
         self._static_gates = {}   # a NumPy gate's bytes -> _StaticGate
 
@@ -570,7 +571,9 @@ class BlocksparseMatMul:
 
     def _plan(self, kind, d, phases=0):
         """The host-side plan (NumPy) of a route, built once (kind "updat":
-        the tensor-core updat's groups, d "u")."""
+        the updat's groups, d "u"; kind "xgroup": ``bsmm_fprop.cu``'s
+        column groups over direction d's CSR, or with ``phases`` over the
+        split plan's tiles)."""
         key = (kind, d, phases)
         plan = self._plans.get(key)
         if plan is None:
@@ -578,6 +581,10 @@ class BlocksparseMatMul:
             if kind == "updat":
                 plan = bsmm_kernels.updat_plan(
                     self.updat_lut[:, 0], self.updat_lut[:, 1], self.bsize)
+            elif kind == "xgroup":
+                if phases:
+                    row_ptr = self._plan("split", d, phases)["tile_ptr"]
+                plan = bsmm_kernels.xprop_groups(row_ptr, ib, self.bsize)
             elif kind == "fine":
                 plan = bsmm_kernels.fine_plan(row_ptr, ib, wb, self.bsize)
             elif kind == "window":
@@ -598,6 +605,20 @@ class BlocksparseMatMul:
                    if isinstance(v, np.ndarray) else v
                    for k, v in self._plan(kind, d, phases).items()}
             self._plan_luts[key] = out
+        return out
+
+    def _xlaunch(self, device, d, N, phases=0):
+        """``bsmm_fprop.cu``'s launch (``xprop_launch``) for direction d at
+        N rows on ``device``, over the columns or, with ``phases``, the
+        split plan's tiles, in the configuration ``xprop_tile`` picks:
+        resolved once, so a call reads it from one dict."""
+        key = (device, d, N, phases)
+        out = self._xlaunches.get(key)
+        if out is None:
+            plan = self._plan_tensors(device, "xgroup", d, phases)
+            out = bsmm_kernels.xprop_launch(plan, bsmm_kernels.xprop_tile(
+                N, self.bsize, plan, device_sm_count(device)))
+            self._xlaunches[key] = out
         return out
 
     def xprop_split_plain(self, x, w, d, sm_count):
@@ -661,7 +682,8 @@ class BlocksparseMatMul:
             if x.dtype == torch.float32:
                 parts = bsmm_kernels.bsmm_partials(
                     xn, wc, p["tile_ptr"], *ents, b,
-                    p["tile_ptr"].numel() - 1, trans)
+                    p["tile_ptr"].numel() - 1, trans,
+                    plan=self._xlaunch(x.device, d, xn.shape[0], phases))
                 y = bsmm_kernels.bsmm_merge(parts, p["merge_idx"], b, x.dtype)
             else:
                 y = bsmm_kernels.bsmm_split(xn, wc, p["tile_ptr"], *ents,
@@ -669,8 +691,10 @@ class BlocksparseMatMul:
         else:
             kernel = bsmm_kernels.bsmm_bprop if trans \
                 else bsmm_kernels.bsmm_fprop
+            plan = self._xlaunch(x.device, d, xn.shape[0]) \
+                if x.dtype == torch.float32 else None
             y = kernel(xn, wc, lut[f"{d}_row_ptr"], lut[f"{d}_ent_in"],
-                       lut[f"{d}_ent_w"], b, n_out)
+                       lut[f"{d}_ent_w"], b, n_out, plan=plan)
         y = y.to(out_dtype)
         # feature_axis 0: the (features, N) view of the kernel's (N,
         # features) output; a consumer in that orientation copies nothing

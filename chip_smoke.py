@@ -18,8 +18,19 @@ layout's blocks in groups that share a staged tile, with N split into
 runs where the groups alone would leave SMs idle and the runs' partials
 summed in order by its second kernel (``bsmm_updat_reduce``); it is held
 against its plain version at every block size 8-128, split and unsplit,
-two runs equal bit for bit, and ``bsmm_updat.cu`` in f32.  The
-attention forward (serving, and training with the lse) runs
+two runs equal bit for bit, and ``bsmm_updat.cu`` in f32.  The f32
+kernels (``bsmm_fprop.cu``: an SGEMM-style kernel over the op's column
+groups at an N-tile chosen by N, each output one fmaf chain in LUT
+order; ``bsmm_updat.cu`` over ``updat_plan``'s groups, one chain over N)
+are held at every block size 8-128, on a random layout with an empty
+output column, a full one whose columns group and one a block wide, at
+N 1, 4 and 1000: fprop, bprop and the split route's partials against
+their plain versions, the same bits in every configuration built (full
+column groups, one column a thread block at each N-tile), and twice; the updat on each layout and its transpose, twice equal,
+against its plain version; at the MoE and LSTM shapes each direction
+twice equal; and each configuration's registers, spilled bytes, shared
+memory a block and blocks an SM are printed, the MoE's and LSTM's
+marked.  The attention forward (serving, and training with the lse) runs
 ``bst_attn_fwd_mma.cu`` on the tensor cores in bf16 and f16 (two runs
 equal bit for bit at the LM's shape, the query rows launched by entry
 count and in CSR order with equal bits; held against its plain version
@@ -262,6 +273,8 @@ replayed train step's full table is written to PATH.
 from __future__ import annotations
 
 import argparse
+import ctypes
+import functools
 import json
 import re
 import subprocess
@@ -937,6 +950,158 @@ def updat_block_size_checks(bt, dev, g):
                             UPDAT_TOL)
                     del x, dy
     torch.cuda.empty_cache()
+
+
+def f32_layouts(b, rng):
+    """The f32 kernels' layouts at block size b: the xprop sweep's random
+    hidden² layout with an empty output column; a full one whose output
+    columns share their entry lists (3 · gn + 1 of them, gn = 128 / b the
+    columns of a group of bsmm_fprop.cu), but for an empty block-row and
+    block-column; and one block wide."""
+    n = XPROP_HIDDEN // b
+    lay = (rng.rand(n, n) < XPROP_DENSITY).astype(np.int32)
+    lay[np.arange(n), np.arange(n)] = 1
+    lay[:, 1] = 0
+    m = 3 * max(1, 128 // b) + 1
+    full = np.ones((m, m), np.int32)
+    full[2, :] = full[:, 2] = 0
+    return {"random": lay, "grouped": full,
+            "one block wide": np.ones((n, 1), np.int32)}
+
+
+def f32_block_size_checks(bt, dev, g):
+    """bsmm_fprop.cu and bsmm_updat.cu (f32, CUDA cores) at every block
+    size on f32_layouts' three layouts and at N = 1, 4 and XPROP_N: fprop,
+    bprop (TRANS) and the split route's partials (PARTIAL, merged by
+    merge_plain) against their plain versions, in the configuration
+    xprop_tile picks; the same bits in both configurations the kernel is
+    built for and with one column a thread block in index order; two runs
+    equal bit for bit; the updat on each
+    layout and its transpose, twice equal, against its plain version."""
+    from blocksparse_tpu_torch.kernels import bsmm as bk
+    rng = np.random.RandomState(SEED + 3)
+    f32 = torch.float32
+    for b in bk.BLOCK_SIZES:
+        for kind, lay in f32_layouts(b, rng).items():
+            op = bt.BlocksparseMatMul(lay, block_size=b, feature_axis=1,
+                                      mode="grouped")
+            plain = bt.BlocksparseMatMul(lay, block_size=b, feature_axis=1,
+                                         impl="xla")
+            lut = op._lut(dev)
+            w = torch.randn(op.w_shape, device=dev, generator=g) * 0.1
+            for d, route in (("f", "fprop"), ("b", "bprop"),
+                             ("f", "partials"), ("b", "partials")):
+                trans = d == "b"
+                ents = (lut[f"{d}_ent_in"], lut[f"{d}_ent_w"])
+                phases = bk.SPLIT_MAX_PHASES if route == "partials" else 0
+                if route == "partials":
+                    split = op._plan_tensors(dev, "split", d, phases)
+                    ptr = split["tile_ptr"]
+                    n_out = ptr.numel() - 1
+                    fn = functools.partial(bk.bsmm_partials, trans_w=trans)
+                else:
+                    ptr, n_out = lut[f"{d}_row_ptr"], (op.KB, op.CB)[trans]
+                    fn = bk.bsmm_bprop if trans else bk.bsmm_fprop
+                plan = op._plan_tensors(dev, "xgroup", d, phases)
+                launches = [bk.xprop_launch(plan, t)
+                            for t in bk.xprop_f32_tiles(b)
+                            if t[0] == 1 or t[0] == plan["gn"]]
+                launches.append({"grp_col": torch.arange(
+                    n_out, dtype=torch.int32, device=dev)[:, None],
+                    "gn": 1, "tm": bk.XPROP_F32_TM})
+                for N in (1, 4, XPROP_N):
+                    x = torch.randn((N, op.C if d == "f" else op.K),
+                                    device=dev, generator=g)
+
+                    def run(pl=op._xlaunch(dev, d, N, phases)):
+                        return fn(x, w, ptr, *ents, b, n_out, plan=pl)
+                    what = (f"bsmm_fprop.cu b{b} {kind} {d}prop {route} N={N}"
+                            f" {op.blocks} blocks, {plan['grp_col'].shape[0]}"
+                            f" groups of {plan['gn']}")
+                    same_bits(what, run)
+                    y = run()
+                    check(all(torch.equal(run(pl), y) for pl in launches),
+                          f"{what}: every configuration ({len(launches)}: "
+                          f"grouped, one column a thread block, in plan and "
+                          f"index order) equal bit for bit")
+                    if route == "partials":
+                        y = bk.merge_plain(y, split["merge_idx"].long(), b)
+                    compare(what, y, plain._xprop(x, w, d), TOL[f32])
+                    del x
+            for layout in (lay, lay.T.copy()):
+                op = bt.BlocksparseMatMul(layout, block_size=b,
+                                          feature_axis=1)
+                plain = bt.BlocksparseMatMul(layout, block_size=b,
+                                             feature_axis=1, impl="xla")
+                plan = op._plan("updat", "u")
+                for N in (1, 4, XPROP_N):
+                    x = torch.randn((N, op.C), device=dev, generator=g)
+                    dy = torch.randn((N, op.K), device=dev, generator=g)
+                    what = (f"bsmm_updat.cu b{b} {kind} {op.C} -> {op.K} "
+                            f"{op.blocks} blocks, {len(plan['grp_q'])} groups"
+                            f" by {'x' if plan['by_c'] else 'dy'} block, "
+                            f"N={N}")
+                    same_bits(what, lambda: op._updat(x, dy))
+                    compare(what, op._updat(x, dy), plain._updat(x, dy),
+                            UPDAT_TOL)
+                    del x, dy
+    torch.cuda.empty_cache()
+
+
+def f32_configs(op, N, label, sms):
+    """{label: (source, args of its info function)}: the f32 kernel
+    configurations an op's fprop, bprop and updat of N rows take on a card
+    of ``sms`` SMs."""
+    from blocksparse_tpu_torch.kernels import bsmm as bk
+    out = {}
+    for d in "fb":
+        route = op._route(N, d, sms)
+        phases = op._phases(N, d, sms) if route == "phased" else 0
+        gn, tm = bk.xprop_tile(N, op.bsize, op._plan("xgroup", d, phases),
+                               sms)
+        out[f"{label} {d}prop (route {route})"] = (
+            "bsmm_fprop", (op.bsize, int(d == "b"), gn, tm))
+    out[f"{label} updat"] = ("bsmm_updat", (
+        op.bsize, int(op._plan("updat", "u")["by_c"])))
+    return out
+
+
+def f32_kernel_report(shapes):
+    """Each f32 kernel configuration's registers, spilled bytes, shared
+    memory a thread block and thread blocks an SM holds (the CUDA runtime's
+    function attributes and occupancy), the configurations the MoE and
+    LSTM shapes take (``shapes``: {label: (source, args)}) marked."""
+    from blocksparse_tpu_torch.kernels import _build
+    from blocksparse_tpu_torch.kernels import bsmm as bk
+    out = (ctypes.c_int * 5)()
+    ptr = ctypes.cast(out, ctypes.c_void_p)
+    xinfo = _build.function("bsmm_fprop", "bsmm_xprop_nc_info",
+                            [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    uinfo = _build.function("bsmm_updat", "bsmm_updat_nc_info",
+                            [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    used = {}
+    for label, config in shapes.items():
+        used[config] = f"{used[config]}; {label}" if config in used else label
+    spills = 0
+    for b in bk.BLOCK_SIZES:
+        configs = [("bsmm_fprop", (b, t, gn, tm)) for t in (0, 1)
+                   for gn, tm in bk.xprop_f32_tiles(b)]
+        configs += [("bsmm_updat", (b, by_c)) for by_c in (0, 1)]
+        for source, args in configs:
+            fn = xinfo if source == "bsmm_fprop" else uinfo
+            check(fn(*args, ptr) == 0 and out[4] >= 1,
+                  f"{source}.cu {args}: fits on the card")
+            spills += out[3] > 0
+            names = ("b", "trans", "gn", "tm") if source == "bsmm_fprop" \
+                else ("b", "by_c")
+            mark = used.get((source, args))
+            print(f"{source}.cu " + ", ".join(
+                f"{k} {v}" for k, v in zip(names, args))
+                + f": {out[0]} threads, {out[2]} registers, {out[3]} bytes "
+                f"spilled a thread, {out[1]} bytes of shared memory a block,"
+                f" {out[4]} blocks an SM" + (f"  <- {mark}" if mark else ""),
+                flush=True)
+    print(f"f32 kernels: {spills} configurations spill", flush=True)
 
 
 def mode_block_size_checks(bt, dev, g):
@@ -2645,7 +2810,8 @@ def mode_kernel_checks(rows_in, win_op, dev, g, card_line, rows):
                 err = compare(what, y, plain(), TOL[dtype])
                 same = torch.equal(y, unsplit(
                     x, w, lut[f"{d}_row_ptr"], lut[f"{d}_ent_in"],
-                    lut[f"{d}_ent_w"], op.bsize, n_out))
+                    lut[f"{d}_ent_w"], op.bsize, n_out,
+                    plan=op._xlaunch(dev, d, N)))
                 if dtype == torch.float32:
                     check(same, f"{what}: equal to the unsplit kernel bit "
                                 f"for bit")
@@ -2661,7 +2827,8 @@ def mode_kernel_checks(rows_in, win_op, dev, g, card_line, rows):
                     ms = kernel_device_ms(run, f"bsmm_{kind}_mma_kernel")
                     grp = kernel_device_ms(lambda: unsplit(
                         x, w, lut[f"{d}_row_ptr"], lut[f"{d}_ent_in"],
-                        lut[f"{d}_ent_w"], op.bsize, n_out),
+                        lut[f"{d}_ent_w"], op.bsize, n_out,
+                        plan=op._xlaunch(dev, d, N)),
                         "bsmm_xprop_mma_kernel")
                     key = (kind, op.bsize, N, dtype)
                     rows[key] = (rows[key][0], ms, rows[key][2])
@@ -2690,7 +2857,8 @@ def mode_kernel_checks(rows_in, win_op, dev, g, card_line, rows):
         x = torch.randn((CANON_N, op.C), device=dev, generator=g).to(dtype)
         w = (torch.randn(op.w_shape, device=dev, generator=g) * 0.1).to(dtype)
         tiles = bk.bsmm_partials(x, w, p["tile_ptr"], lut["f_ent_in"],
-                                 lut["f_ent_w"], 32, n_tiles)
+                                 lut["f_ent_w"], 32, n_tiles,
+                                 plan=op._xlaunch(dev, "f", CANON_N, phases))
         if dtype != torch.float32:
             canonical_split_checks(op, x, w, dev, g, card_line, rows)
         what = (f"bsmm_merge hidden {dense} b32 N={CANON_N}, {n_tiles - 1} "
@@ -4071,6 +4239,10 @@ def lstm_kernel_rows(op, dev, g, card_line, rows, marks):
                              TOL[f32]),
             "updat": compare(f"{name} updat", op._updat(x, dy),
                              ref._updat(x, dy), UPDAT_TOL)}
+    same_bits(f"{name} fprop", lambda: op._xprop(x, w, "f"))
+    same_bits(f"{name} bprop", lambda: op._xprop(dy, w, "b"))
+    same_bits(f"{name} updat", lambda: op._updat(x, dy))
+    rows.setdefault("f32_configs", {}).update(f32_configs(op, N, "LSTM", sms))
     dev_ms = {
         "fprop": kernel_device_ms(lambda: op._xprop(x, w, "f"),
                                   "bsmm_xprop_nc_kernel"),
@@ -4479,6 +4651,12 @@ def moe_layer_checks(model, plain, dev, g, card_line, rows, marks):
             "updat": compare(f"{name} updat (bsmm2's: h (C, {op2.C}), "
                              f"dy (C, {op2.K}))", op2._updat(du, xe),
                              ref2._updat(du, xe), UPDAT_TOL)}
+    same_bits(f"{name} fprop", lambda: op1._xprop(xe, w, "f"))
+    same_bits(f"{name} bprop", lambda: op1._xprop(du, w, "b"))
+    same_bits(f"{name} updat (bsmm2's)", lambda: op2._updat(du, xe))
+    rows.setdefault("f32_configs", {}).update(
+        {**f32_configs(op1, C, "MoE bsmm1", sms),
+         **f32_configs(op2, C, "MoE bsmm2", sms)})
     dev_ms = {
         "fprop": kernel_device_ms(lambda: op1._xprop(xe, w, "f"),
                                   "bsmm_xprop_nc_kernel"),
@@ -6218,6 +6396,7 @@ def main():
     xprop_block_size_checks(bt, dev, g)
     split_checks(model, dev, g, card_line, rows)
     updat_block_size_checks(bt, dev, g)
+    f32_block_size_checks(bt, dev, g)
     mode_block_size_checks(bt, dev, g)
     attn_block_size_checks(bt, dev, g)
     pad_cost(bt, dev, g, card_line)
@@ -6272,6 +6451,7 @@ def main():
     moe_launches = moe_path(bt, dev, g, card_line, rows, lstm_marks)
     print(f"launches: MoE LM train step's first call {moe_launches}",
           flush=True)
+    f32_kernel_report(rows["f32_configs"])
 
     # 5g. parallelism: the flagship attention's sequence-parallel shard
     # kernels at full width in one process (gather and ring, sp 2 and 4,

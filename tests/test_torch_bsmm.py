@@ -228,3 +228,197 @@ def test_empty_input_block_row_gets_zero_gradient():
     E = 2 * port.fprop_test(X, W)
     np.testing.assert_allclose(w.grad.numpy(), port.updat_test(X, E),
                                rtol=1e-5, atol=1e-5)
+
+
+def _grouped_layout(n, empty=2):
+    layout = np.ones((n, n), np.int32)
+    layout[empty, :] = 0
+    layout[:, empty] = 0
+    return layout
+
+
+def _xprop_group_cases(bsize):
+    """(name, row_ptr, ent_in) CSRs: both directions of a full layout with
+    an empty row and column (its columns group), of a random one, of a
+    layout tiled four times along K (the LSTM's gates) and one block wide,
+    and the split plan's tile CSR of the full and the tiled layouts."""
+    gmax = max(1, bsmm_kernels.XPROP_F32_COLS // bsize)
+    layouts = {"full": _grouped_layout(3 * gmax + 1),
+               "random": random_layout(7, 9, 0.4, seed=bsize),
+               "tiled": np.tile(random_layout(5, 5, 0.5, seed=bsize + 1),
+                                (1, 4)),
+               "one block wide": np.ones((6, 1), np.int32)}
+    for name, layout in layouts.items():
+        op = BlocksparseMatMul(layout, block_size=bsize, feature_axis=1)
+        for d in "fb":
+            row_ptr, (ib, _, _), _, _ = op._csr(d)
+            yield f"{name} {d}", row_ptr, ib
+            if name in ("full", "tiled"):
+                tiles = bsmm_kernels.split_plan(row_ptr, 4)["tile_ptr"]
+                yield f"{name} {d} tiles", tiles, ib
+
+
+@pytest.mark.parametrize("bsize", [8, 16, 32, 64, 128])
+def test_xprop_groups_cover_every_entry_once_in_order(bsize):
+    """xprop_groups (bsmm_fprop.cu's column groups): every column in one
+    slot; a group's slots filled from 0 with ascending columns whose entry
+    lists name the same input blocks in the same order; the entries the
+    kernel walks for a slot (its column's base + t, t = 0 .. L-1, x staged
+    from slot 0's) are each LUT entry once, in order; groups longest
+    first; gn = 128 / b unless more than a quarter of the slots would be
+    empty, where it is 1; order, the columns one a thread block, each
+    once, longest first."""
+    gmax = max(1, bsmm_kernels.XPROP_F32_COLS // bsize)
+    for name, row_ptr, ib in _xprop_group_cases(bsize):
+        row_ptr = np.asarray(row_ptr, np.int64)
+        lens = np.diff(row_ptr)
+        plan = bsmm_kernels.xprop_groups(row_ptr, ib, bsize)
+        grp, gn = plan["grp_col"], plan["gn"]
+        assert grp.dtype == np.int32 and grp.shape[1] == gn, name
+        live = grp >= 0
+        assert (live[:, 0]).all() and not (np.diff(live.astype(int), axis=1)
+                                           > 0).any(), name
+        cols = grp[live]
+        assert sorted(cols.tolist()) == list(range(len(lens))), name
+        walked = []
+        for row in grp:
+            row = row[row >= 0]
+            assert (np.diff(row) > 0).all(), name
+            L = lens[row[0]]
+            for o in row:
+                assert lens[o] == L, name
+                for t in range(L):
+                    assert ib[row_ptr[row[0]] + t] == ib[row_ptr[o] + t]
+                walked.append(row_ptr[o] + np.arange(L))
+        walked = np.concatenate(walked) if walked else np.zeros(0, int)
+        assert np.array_equal(np.sort(walked), np.arange(row_ptr[-1])), name
+        firsts = lens[grp[:, 0]]
+        assert (np.diff(firsts) <= 0).all(), name
+        assert plan["order"].shape == (len(lens), 1), name
+        order = plan["order"][:, 0]
+        assert order.dtype == np.int32, name
+        assert sorted(order.tolist()) == list(range(len(lens))), name
+        assert (np.diff(lens[order]) <= 0).all(), name
+        lists = {}
+        for o in range(len(lens)):
+            lists.setdefault(np.asarray(ib[row_ptr[o]:row_ptr[o + 1]])
+                             .tobytes(), []).append(o)
+        whole = sum(-(-len(v) // gmax) for v in lists.values())
+        want = gmax if gmax > 1 and len(lens) >= 0.75 * whole * gmax else 1
+        assert gn == want, (name, gn, want)
+        if name.startswith("full") and gmax > 1:
+            assert gn == gmax, name
+
+
+@pytest.mark.parametrize("bsize", [8, 16, 32, 64])
+def test_xprop_groups_replayed_match_jax(bsize):
+    """bsmm_fprop.cu's decomposition replayed on the CPU in f32: each group
+    stages x's input block from slot 0's entry list, each slot multiplies
+    it by its own entry's W (Wᵀ in bprop) and writes its column; at gn > 1
+    (the full layout with an empty column) and gn 1 (a random one) against
+    JAX's impl="xla" within 1e-5 of the largest output."""
+    rng = np.random.RandomState(bsize)
+    gmax = max(1, bsmm_kernels.XPROP_F32_COLS // bsize)
+    for layout in (_grouped_layout(3 * gmax + 1),
+                   random_layout(5, 7, 0.4, seed=bsize)):
+        op = BlocksparseMatMul(layout, block_size=bsize, feature_axis=1)
+        jop = JaxBSMM(layout, block_size=bsize, feature_axis=1, impl="xla")
+        w = rng.randn(*op.w_shape).astype(np.float32)
+        for d in "fb":
+            row_ptr, (ib, wb, _), n_out, n_in = op._csr(d)
+            plan = op._plan("xgroup", d)
+            x = rng.randn(13, n_in * bsize).astype(np.float32)
+            xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+            y = torch.full((13, n_out * bsize), float("nan"))
+            for row in plan["grp_col"]:
+                row = row[row >= 0]
+                for o in row:
+                    acc = torch.zeros((13, bsize))
+                    for t in range(row_ptr[row[0] + 1] - row_ptr[row[0]]):
+                        xin = ib[row_ptr[row[0]] + t]
+                        wblk = wt[wb[row_ptr[o] + t]]
+                        acc += xt[:, xin * bsize:(xin + 1) * bsize] @ (
+                            wblk.t() if d == "b" else wblk)
+                    y[:, o * bsize:(o + 1) * bsize] = acc
+            if d == "f":
+                ref = np.asarray(jop(jnp.asarray(x), jnp.asarray(w)))
+            else:
+                _, vjp = jax.vjp(lambda a: jop(a, jnp.asarray(w)),
+                                 jnp.zeros((13, op.C), jnp.float32))
+                ref = np.asarray(vjp(jnp.asarray(x))[0])
+            scale = max(1.0, np.abs(ref).max())
+            np.testing.assert_allclose(y.numpy(), ref, rtol=0,
+                                       atol=F32_TOL * scale)
+        if layout.shape[0] > 5:
+            assert op._plan("xgroup", "f")["gn"] == gmax
+
+
+def test_xprop_groups_take_the_lstm_gates_four_to_a_group():
+    """The sparse LSTM's gate layout (its hidden layout tiled over the four
+    gates) at b32: the four gates of a hidden block share their fprop
+    entry lists, so each group holds four columns; the bprop's rows all
+    differ, one to a group; the split plan's tiles of the bprop group
+    again by run where their lists agree."""
+    base = random_layout(6, 6, 0.5, seed=3)
+    op = BlocksparseMatMul(np.tile(base, (1, 4)), block_size=32,
+                           feature_axis=0)
+    plan = op._plan("xgroup", "f")
+    assert plan["gn"] == 4 and plan["grp_col"].shape == (6, 4)
+    for row in plan["grp_col"]:
+        assert sorted(row % 6) == [row[0] % 6] * 4
+    assert op._plan("xgroup", "b")["gn"] == 1
+
+
+def _groups(gn, groups):
+    """An xprop_groups plan's shape: ``groups`` groups of ``gn`` columns."""
+    return {"gn": gn, "grp_col": np.zeros((groups, gn), np.int32),
+            "order": np.zeros((groups * gn, 1), np.int32)}
+
+
+def test_xprop_tile_by_n_and_plan():
+    """bsmm_fprop.cu's configuration rule, pinned by value on a 132-SM card:
+    full column groups at TM 64 where the plan groups 128 / b columns to a
+    group and their grid puts two thread blocks on each SM (the MoE LM's
+    512 -> 2048 fprop and 2048 -> 512 bprop at N 2,560: 16 groups of 4),
+    else one column a thread block at TM 32 (the MoE's 16-column
+    products, the LSTM's N 128, decode, a plan that does not group); at
+    b128 every column is a full group."""
+    tile = bsmm_kernels.xprop_tile
+    assert tile(2560, 32, _groups(4, 16), 132) == (4, 64)
+    assert tile(2560, 32, _groups(4, 4), 132) == (1, 32)
+    assert tile(2560, 32, _groups(1, 64), 132) == (1, 32)
+    assert tile(128, 32, _groups(4, 35), 132) == (1, 32)
+    assert tile(128, 32, _groups(1, 141), 132) == (1, 32)
+    assert tile(2112, 32, _groups(4, 8), 132) == (4, 64)     # 33 x 8 = 264
+    assert tile(2048, 32, _groups(4, 8), 132) == (1, 32)     # 32 x 8 < 264
+    assert tile(16384, 32, _groups(1, 33), 132) == (1, 32)
+    assert tile(1, 8, _groups(16, 10), 132) == (1, 32)
+    assert tile(16384, 128, _groups(1, 16), 132) == (1, 64)  # 256 x 16
+    assert tile(1024, 128, _groups(1, 16), 132) == (1, 32)   # 16 x 16 < 264
+    for b in (8, 16, 32, 64, 128):
+        tiles = bsmm_kernels.xprop_f32_tiles(b)
+        assert len(tiles) == 2
+        gmax = max(1, 128 // b)
+        assert tile(16384, b, _groups(gmax, 100), 132) == tiles[0]
+        assert tile(3, b, _groups(1, 2), 132) == tiles[1] == (1, 32)
+
+
+@pytest.mark.parametrize("bsize", [8, 32, 128])
+def test_xprop_launch_takes_groups_or_columns(bsize):
+    """xprop_launch: the plan's groups where the configuration's group width
+    is theirs, its one-column order otherwise; on the LSTM-like tiled
+    layout's fprop (groups of four at b32) and a random layout's."""
+    gmax = max(1, bsmm_kernels.XPROP_F32_COLS // bsize)
+    for layout in (np.tile(random_layout(5, 5, 0.5, seed=bsize), (1, 4)),
+                   random_layout(7, 9, 0.4, seed=bsize)):
+        op = BlocksparseMatMul(layout, block_size=bsize, feature_axis=1)
+        plan = op._plan("xgroup", "f")
+        for gn, tm in bsmm_kernels.xprop_f32_tiles(bsize):
+            got = bsmm_kernels.xprop_launch(plan, (gn, tm))
+            assert (got["gn"], got["tm"]) == (gn, tm)
+            want = plan["grp_col"] if gn == plan["gn"] else plan["order"]
+            assert got["grp_col"] is want
+            if gn == gmax and plan["gn"] == gmax:
+                assert got["grp_col"].shape[1] == gmax
+            if gn == 1:
+                assert got["grp_col"].shape == (op.KB, 1)

@@ -123,7 +123,7 @@ def _check_xprop_kernel(device, bsize, dtype, d, route):
                 return op._xprop(x, w, d)
             return bsmm_kernels.bsmm_partials(
                 x, w, split["tile_ptr"], lut[f"{d}_ent_in"], lut[f"{d}_ent_w"],
-                bsize, n_tiles, d == "b")
+                bsize, n_tiles, d == "b", plan=op._xlaunch(device, d, N, 8))
         before = counter.launches
         y, again = run(), run()
         torch.cuda.synchronize()
@@ -178,7 +178,8 @@ def test_xprop_kernel_by_dtype(cuda, monkeypatch):
                   w, "b")
         bsmm_kernels.bsmm_partials(x, w, split["tile_ptr"], lut["f_ent_in"],
                                    lut["f_ent_w"], 16,
-                                   split["tile_ptr"].numel() - 1)
+                                   split["tile_ptr"].numel() - 1,
+                                   plan=op._xlaunch(cuda, "f", 40, 2))
         lib, fn = ("bsmm_fprop", "bsmm_xprop_nc") if dtype == torch.float32 \
             else ("bsmm_xprop_mma", "bsmm_xprop_mma_nc")
         assert used == [(lib, fn), (lib, fn), (lib, fn + "_partials")]
@@ -217,7 +218,8 @@ def test_bsmm_kernel_rejects_cpu_and_mixed_dtypes(cuda):
     lut = port._lut(cuda)
     with pytest.raises(TypeError):
         bsmm_kernels.bsmm_fprop(x, w16, lut["f_row_ptr"], lut["f_ent_in"],
-                                lut["f_ent_w"], 16, port.KB)
+                                lut["f_ent_w"], 16, port.KB,
+                                plan=port._xlaunch(cuda, "f", 4))
     y = port(x, w16)
     assert y.dtype == torch.float32 and torch.equal(y, port(x, w16.float()))
     with pytest.raises(TypeError):
@@ -567,6 +569,168 @@ def test_bsmm_autograd_runs_the_three_kernels(cuda, axis):
     for got, ref in zip(*grads):
         torch.testing.assert_close(got, ref, rtol=0,
                                    atol=1e-4 * ref.abs().max().item())
+
+
+def _grouped_layout(bsize):
+    """An n x n layout, n = 3·gn + 1 (gn = 128 / b columns a group of
+    bsmm_fprop.cu), full but for an empty block-row 2 and block-column 2:
+    every other output column, fprop and bprop, holds the same entry list,
+    so xprop_groups fills three whole groups and puts the empty column in a
+    fourth."""
+    n = 3 * max(1, bsmm_kernels.XPROP_F32_COLS // bsize) + 1
+    layout = np.ones((n, n), np.int32)
+    layout[2, :] = 0
+    layout[:, 2] = 0
+    return layout
+
+
+F32_LAYOUTS = {
+    "grouped": _grouped_layout,
+    "sparse": lambda b: random_layout(6, 5, 0.4, seed=b),
+    "one block wide": lambda b: np.ones((5, 1), np.int32),
+    "one block tall": lambda b: np.ones((1, 5), np.int32)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["fprop", "bprop", "partials"])
+@pytest.mark.parametrize("bsize", [8, 16, 32, 64, 128])
+def test_f32_xprop_every_tile_and_grouping_agrees(cuda, bsize, route):
+    """bsmm_fprop.cu in f32 at N 1, 4, 77 and 300 (none a multiple of an
+    N-tile) on a layout whose columns group, a sparse one, and layouts one
+    block wide and one block tall: in both configurations the kernel is
+    built for (full column groups, one column a thread block), the one the
+    op picks, and one column a thread block in index order, the same bits,
+    twice; within 1e-5 of the plain version; an empty column exactly zero;
+    no plan raises.  partials: the split route's tiles (8 runs at most),
+    merged by merge_plain (fprop and bprop)."""
+    g = torch.Generator(device=cuda).manual_seed(bsize)
+    for kind, make in F32_LAYOUTS.items():
+        layout = make(bsize)
+        op = BlocksparseMatMul(layout, block_size=bsize, feature_axis=1)
+        plain = BlocksparseMatMul(layout, block_size=bsize, feature_axis=1,
+                                  impl="xla")
+        lut = op._lut(cuda)
+        w = torch.randn(op.w_shape, device=cuda, generator=g)
+        for d in ("fb" if route == "partials" else route[0]):
+            trans = d == "b"
+            ents = (lut[f"{d}_ent_in"], lut[f"{d}_ent_w"])
+            phases = 8 if route == "partials" else 0
+            if route == "partials":
+                split = op._plan_tensors(cuda, "split", d, 8)
+                ptr = split["tile_ptr"]
+                n_out = ptr.numel() - 1
+            else:
+                ptr, n_out = lut[f"{d}_row_ptr"], (op.KB, op.CB)[trans]
+            plan = op._plan_tensors(cuda, "xgroup", d, phases)
+            if kind == "grouped":
+                assert plan["gn"] == max(1, 128 // bsize)
+            launches = [bsmm_kernels.xprop_launch(plan, t)
+                        for t in bsmm_kernels.xprop_f32_tiles(bsize)
+                        if t[0] == 1 or t[0] == plan["gn"]]
+            launches.append({"grp_col": torch.arange(
+                n_out, dtype=torch.int32, device=cuda)[:, None],
+                "gn": 1, "tm": bsmm_kernels.XPROP_F32_TM})
+            width = op.C if d == "f" else op.K
+            for N in (1, 4, 77, 300):
+                x = torch.randn((N, width), device=cuda, generator=g)
+
+                def run(pl):
+                    if route == "partials":
+                        return bsmm_kernels.bsmm_partials(
+                            x, w, ptr, *ents, bsize, n_out, trans, plan=pl)
+                    kernel = bsmm_kernels.bsmm_bprop if trans \
+                        else bsmm_kernels.bsmm_fprop
+                    return kernel(x, w, ptr, *ents, bsize, n_out, plan=pl)
+                y = run(op._xlaunch(cuda, d, N, phases))
+                for pl in launches:
+                    assert torch.equal(run(pl), y), \
+                        (kind, d, N, pl["gn"], pl["tm"])
+                assert torch.equal(run(launches[0]), y)
+                with pytest.raises(ValueError):
+                    run(None)
+                if route == "partials":
+                    y = bsmm_kernels.merge_plain(y, split["merge_idx"].long(),
+                                                 bsize)
+                ref = plain._xprop(x, w, d)
+                torch.testing.assert_close(
+                    y, ref, rtol=0,
+                    atol=F32_TOL * max(1.0, ref.abs().max().item()))
+                if kind == "grouped":
+                    assert (y[:, 2 * bsize:3 * bsize] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsize", [8, 16, 32, 64, 128])
+def test_f32_updat_tails_and_narrow_layouts(cuda, bsize):
+    """bsmm_updat.cu at N 1, 4 and 77 on the layouts of the xprop test
+    above and their transposes (groups by x block-row and by dy
+    block-column, a group of one or two blocks): two runs equal bit for
+    bit, within 1e-4 of the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(bsize)
+    for kind, make in F32_LAYOUTS.items():
+        for layout in (make(bsize), make(bsize).T.copy()):
+            op = BlocksparseMatMul(layout, block_size=bsize, feature_axis=1)
+            plain = BlocksparseMatMul(layout, block_size=bsize,
+                                      feature_axis=1, impl="xla")
+            for N in (1, 4, 77):
+                x = torch.randn((N, op.C), device=cuda, generator=g)
+                dy = torch.randn((N, op.K), device=cuda, generator=g)
+                dw = op._updat(x, dy)
+                assert torch.equal(op._updat(x, dy), dw), (kind, N)
+                ref = plain._updat(x, dy)
+                torch.testing.assert_close(
+                    dw, ref, rtol=0,
+                    atol=UPDAT_TOL * max(1.0, ref.abs().max().item()))
+
+
+@pytest.mark.cuda
+def test_f32_sources_refuse_half_and_report_their_tiles(cuda):
+    """bsmm_fprop.cu and bsmm_updat.cu take f32 only (bf16 and f16:
+    cudaErrorInvalidValue), and neither a (group width, N-tile) they are
+    not built for nor a null column list; every configuration they are
+    built for fits on the card (one thread block an SM at least), as their
+    info functions report."""
+    from blocksparse_tpu_torch.kernels import _build
+    layout = random_layout(4, 4, 1.0, seed=0)
+    op = BlocksparseMatMul(layout, block_size=16, feature_axis=1)
+    lut = op._lut(cuda)
+    up = op._plan_tensors(cuda, "updat", "u")
+    x = torch.randn((4, op.C), device=cuda)
+    y = torch.empty((4, op.K), device=cuda)
+    xprop = _build.function("bsmm_fprop", "bsmm_xprop_nc",
+                            bsmm_kernels._xprop_args(4, 3))
+    cols = torch.arange(op.KB, dtype=torch.int32, device=cuda)
+    args = (x.data_ptr(), x.data_ptr(), lut["f_row_ptr"].data_ptr(),
+            lut["f_ent_in"].data_ptr(), lut["f_ent_w"].data_ptr(),
+            cols.data_ptr(), y.data_ptr(), 4, op.C, op.K, op.KB)
+    s = bsmm_kernels._stream(x)
+    for code, gn, tm in ((1, 1, 32), (2, 1, 32), (0, 1, 16), (0, 2, 32),
+                         (0, 1, 64), (0, 1, 128), (0, 8, 32)):
+        assert xprop(code, 16, 0, *args, gn, tm, s) == 1, (code, gn, tm)
+    null = args[:5] + (0,) + args[6:]
+    assert xprop(0, 16, 0, *null, 1, 32, s) == 1
+    assert xprop(0, 16, 0, *args, 1, 32, s) == 0
+    updat = _build.function("bsmm_updat", "bsmm_updat_nc",
+                            bsmm_kernels._UPDAT_ARGS)
+    for code in (1, 2):
+        assert updat(code, 16, int(up["by_c"]), x.data_ptr(), x.data_ptr(),
+                     up["grp_q"].data_ptr(), up["slot_p"].data_ptr(),
+                     up["slot_e"].data_ptr(), y.data_ptr(), 4, op.C, op.C,
+                     up["grp_q"].numel(), s) == 1
+    torch.cuda.synchronize()
+    info = (ctypes.c_int * 5)()
+    ptr = ctypes.cast(info, ctypes.c_void_p)
+    xinfo = _build.function("bsmm_fprop", "bsmm_xprop_nc_info",
+                            [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    uinfo = _build.function("bsmm_updat", "bsmm_updat_nc_info",
+                            [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    for b in bsmm_kernels.BLOCK_SIZES:
+        for trans in (0, 1):
+            for gn, tm in bsmm_kernels.xprop_f32_tiles(b):
+                assert xinfo(b, trans, gn, tm, ptr) == 0
+                assert info[0] > 0 and info[4] >= 1, (b, trans, gn, tm)
+            assert uinfo(b, trans, ptr) == 0
+            assert info[0] > 0 and info[4] >= 1, (b, trans)
 
 
 def _case(device, dtype, bs, hs, layout=None, mask_callback=None, heads=2,
@@ -1530,7 +1694,7 @@ def test_mode_kernels_raise_on_cpu_and_wrong_types(cuda):
             a, b, win["ptr"], win["ent_slot"], win["ent_w"], 16, 4),
         "partials": lambda a, b: bsmm_kernels.bsmm_partials(
             a, b, split["tile_ptr"], lut["f_ent_in"], lut["f_ent_w"], 16,
-            split["tile_ptr"].numel() - 1)}
+            split["tile_ptr"].numel() - 1, plan=op._xlaunch(cuda, "f", 4, 2))}
     for name, call in calls.items():
         with pytest.raises(ValueError):
             call(x.cpu(), w.cpu())
