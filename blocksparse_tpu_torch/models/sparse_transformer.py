@@ -18,11 +18,19 @@ names and shapes (``convert.params_from_jax`` loads a JAX param dict,
 thing from the same weights.
 
 Residual dropout (``resid_pdrop``) acts where the JAX package's does:
-through ``loss`` and ``forward`` given a dropout source, never in
-``make_train_step`` (the JAX train step passes no dropout key: ROADMAP
-F3).  With MoE the loss adds ``moe_aux_coef`` times the layers' summed
-load-balance loss, and the KV-cached decode raises as the JAX package's
-asserts (``generate``, a full forward a token, works).
+through ``loss`` (``loss_pp`` with pp > 1) and ``forward`` given a dropout
+source, never in ``make_train_step`` (the JAX train step passes no dropout
+key: ROADMAP F3).  Sharded, the ranks draw from a ``torch.Generator`` as
+JAX's ranks draw from its key: tp ranks alike (the residual is
+replicated), from the caller's seed; sp shards each their own masks, which
+the model makes so by drawing the full context and keeping the shard's
+slice (JAX folds the sp index into the key), so they are the unsharded
+model's masks from the same seed; dp ranks as the caller's generators
+give them (JAX leaves the key to its caller); pp stages each their own
+layers' masks of one draw of all n_layer layers (``loss_pp``).  With MoE
+the loss adds ``moe_aux_coef`` times the layers' summed load-balance
+loss, and the KV-cached decode raises as the JAX package's asserts
+(``generate``, a full forward a token, works).
 
 Parallelism (``config.tp``, ``sp``, ``sp_mode``; a ``DeviceMesh`` from
 ``parallel.make_mesh``, one process a rank): the model holds its rank's
@@ -135,10 +143,12 @@ class TransformerConfig:
     """The JAX package's config, field for field.  ``recompute`` reruns
     each block's forward in the backward (``torch.utils.checkpoint``);
     ``stack_layers`` shapes only the JAX parameter storage and changes no
-    result here (the JAX stacked layers draw their dropout masks by
-    ``fold_in``, a stream the port does not reproduce).  ``resid_pdrop``
-    drops each block's two residual branches when ``loss``/``forward``
-    get a dropout source.  ``moe_experts`` > 0 replaces each MLP by a
+    result here (the JAX stacked layers, which its pipelined loss needs,
+    key their dropout masks by ``fold_in``, the unstacked by ``split``: a
+    generator's stream is the port's own, and JAX's masks of either kind
+    go in as ``loss``'s list form).  ``resid_pdrop`` drops each block's
+    two residual branches when ``loss``/``forward`` get a dropout source,
+    at any tp, sp and pp.  ``moe_experts`` > 0 replaces each MLP by a
     ``BlocksparseMoE`` (block-sparse experts at ``mlp_block_size``).  tp,
     sp, sp_mode, pp (with ``pp_microbatch`` microbatches, 0 for pp) and ep
     shard the model over a mesh (the module's docstring)."""
@@ -480,15 +490,25 @@ class SparseTransformerLM(nn.Module):
         m, aux = self._mlp(layer, x)
         return x + drop(m, 1).to(x.dtype), aux
 
-    def _dropout_masks(self, source, l, shape, device):
-        """Layer l's two residual dropout masks from ``source`` (a
-        ``torch.Generator``, or per-layer mask pairs), or None."""
+    def _dropout_masks(self, source, l, shape, device, off=0, ctx=None):
+        """Layer l's two residual dropout masks of the residual's
+        ``shape`` (batch, L, d) from ``source``, or None.
+
+        A ``torch.Generator`` draws each mask at (batch, ``ctx``, d), ctx
+        the full context (default L), and keeps positions [off, off + L):
+        so every sp shard keeps its own slice of one draw, the unsharded
+        model's masks from the same seed, where JAX folds the sp index
+        into its key; tp ranks, whose residual is replicated, draw alike
+        from generators seeded alike.  Per-layer mask pairs (JAX's masks)
+        give ``source[l]``, already at ``shape``."""
         p = self.config.resid_pdrop
         if source is None or not p:
             return None
         if isinstance(source, torch.Generator):
-            return tuple(uniform(shape, device, source) < 1.0 - p
-                         for _ in range(2))
+            B, L, d = shape
+            full = (B, L if ctx is None else ctx, d)
+            return tuple((uniform(full, device, source) < 1.0 - p)
+                         [:, off:off + L].contiguous() for _ in range(2))
         return tuple(m.to(device) for m in source[l])
 
     def _full_context(self, tokens, caches=None, dropout=None):
@@ -502,22 +522,24 @@ class SparseTransformerLM(nn.Module):
         forbids).  The MoE's routing is a function of the block's input,
         so the recompute routes every token as the forward did.  With sp,
         ``tokens`` are the rank's context shard, at its offset into
-        ``wpe``.  A pipeline stage holds only its blocks: with pp > 1 this
-        raises (``loss`` runs the pipeline)."""
+        ``wpe`` and into the full context's dropout masks.  A pipeline
+        stage holds only its blocks: with pp > 1 this raises (``loss``
+        runs the pipeline)."""
         if self.config.pp > 1:
             raise ValueError(f"pp={self.config.pp}: the model is one "
                              f"pipeline stage ({self.n_local} of "
                              f"{self.config.n_layer} blocks); loss runs the "
                              f"pipeline (loss_pp)")
-        L = tokens.shape[1]
+        L, n_sp = tokens.shape[1], 1
         off = 0
         if self.config.sp > 1 and self._sharded() is not None:
-            off = mpi_rank("sp", self.mesh) * L
+            n_sp, off = self.config.sp, mpi_rank("sp", self.mesh) * L
         x = self._embed(tokens, self.wpe[None, off:off + L])
         recompute = self.config.recompute and torch.is_grad_enabled()
         aux = None
         for l, layer in enumerate(self.h):
-            masks = self._dropout_masks(dropout, l, x.shape, x.device)
+            masks = self._dropout_masks(dropout, l, x.shape, x.device, off,
+                                        n_sp * L)
             if recompute and caches is None:
                 x, a = checkpoint(self._block, layer, x, None, masks,
                                   use_reentrant=False,
@@ -546,22 +568,49 @@ class SparseTransformerLM(nn.Module):
     def _stage(self, layers, x):
         """A pipeline stage: the blocks ``layers`` (a list or ModuleList of
         this model's ``_Layer``s) on x, each recomputed in the backward
-        under ``config.recompute`` (the JAX ``_scan_layers``).  Returns (x,
-        the blocks' summed MoE aux, f32, zero without MoE)."""
+        under ``config.recompute`` (the JAX ``_scan_layers``).  With
+        residual dropout ``layers`` is the pair (blocks, masks), masks one
+        (attention, MLP) pair a block: the stage parameters ``loss_pp``
+        hands ``gpipe``, so that one function serves every stage.  The
+        masks go into each block's checkpoint as arguments, so the
+        recompute reuses them.  Returns (x, the blocks' summed MoE aux,
+        f32, zero without MoE)."""
+        masks = None
+        if isinstance(layers, tuple):
+            layers, masks = layers
         recompute = self.config.recompute and torch.is_grad_enabled()
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for layer in layers:
+        for i, layer in enumerate(layers):
+            m = None if masks is None else masks[i]
             if recompute:
-                x, a = checkpoint(self._block, layer, x, None, None,
+                x, a = checkpoint(self._block, layer, x, None, m,
                                   use_reentrant=False,
                                   preserve_rng_state=False)
             else:
-                x, a = self._block(layer, x)
+                x, a = self._block(layer, x, None, m)
             if a is not None:
                 aux = aux + a
         return x, aux
 
-    def loss_pp(self, tokens, targets):
+    def _stage_masks(self, dropout, shape, device, layer0=0):
+        """The dropout pairs of global layers [layer0, layer0 + n_local)
+        at the microbatch's residual ``shape``, or None: from a
+        ``torch.Generator``, the pairs of all n_layer layers drawn in
+        layer order (so every stage's generator stays in step and a
+        layer's masks do not depend on pp); from a list, its n_layer
+        pairs."""
+        c = self.config
+        if dropout is None or not c.resid_pdrop:
+            return None
+        if not isinstance(dropout, torch.Generator) \
+                and len(dropout) != c.n_layer:
+            raise ValueError(f"dropout: {len(dropout)} mask pairs, not one "
+                             f"a layer ({c.n_layer})")
+        pairs = [self._dropout_masks(dropout, l, shape, device)
+                 for l in range(c.n_layer)]
+        return pairs[layer0:layer0 + self.n_local]
+
+    def loss_pp(self, tokens, targets, dropout=None):
         """The pipelined loss (the JAX ``loss_pp``): the TRUE loss / pp on
         every stage plus ``moe_aux_coef`` times this stage's aux over the
         microbatches' mean, so a sum over "pp" gives the loss and makes a
@@ -569,7 +618,16 @@ class SparseTransformerLM(nn.Module):
         (``parallel/pipeline.py``).  Every stage embeds the tokens and
         runs the head; the embedding's input reaches the pipeline on stage
         0 only.  ``config.pp_microbatch`` (0: pp) microbatches; the model
-        must be bound to a mesh (its pp axis may have one rank)."""
+        must be bound to a mesh (its pp axis may have one rank).
+
+        dropout: as in ``loss``, at the microbatch's residual shape
+        (batch/n_micro, L, d): a ``torch.Generator``, from which every
+        stage draws the pairs of all n_layer layers in turn and keeps its
+        own layers' (``_stage_masks``), or a list of n_layer pairs (the
+        masks JAX's ``_scan_layers`` draws by ``fold_in`` of the global
+        layer).  Every microbatch gets its layer's one pair, as JAX's
+        ``gpipe`` hands its stage the same key at every tick (ROADMAP
+        F11)."""
         from blocksparse_tpu_torch.parallel import pipeline as pl
         c, mesh = self.config, self._sharded()
         if mesh is None:
@@ -577,8 +635,13 @@ class SparseTransformerLM(nn.Module):
         S = mpi_size(mesh, "pp")
         n_micro = c.pp_microbatch or S
         x = self._embed(tokens, self.wpe[None, :tokens.shape[1]])
-        ym, aux = pl.gpipe(self._stage, self.h, pl.microbatch(x, n_micro),
-                           axis="pp", n_stages=S, with_aux=True, mesh=mesh)
+        xm = pl.microbatch(x, n_micro)
+        masks = self._stage_masks(dropout, xm.shape[1:], x.device,
+                                 mpi_rank("pp", mesh) * self.n_local)
+        ym, aux = pl.gpipe(self._stage,
+                           self.h if masks is None else (self.h, masks),
+                           xm, axis="pp", n_stages=S, with_aux=True,
+                           mesh=mesh)
         y = pl.unmicrobatch(pl.broadcast_from_last(ym, axis="pp",
                                                    n_stages=S, mesh=mesh))
         losses = softmax_cross_entropy(self._logits(y), targets)
@@ -594,14 +657,12 @@ class SparseTransformerLM(nn.Module):
         one (attention, MLP) pair of bool masks of the residual's shape a
         layer (the masks the JAX ``_block`` draws, for parity runs).
         None drops nothing.  With MoE, plus ``moe_aux_coef`` times the
-        layers' summed load-balance loss.  With pp > 1 the pipelined
-        ``loss_pp`` (dropout there is not ported and raises)."""
+        layers' summed load-balance loss.  With sp the generator's masks
+        are the full context's, each shard keeping its slice, and the
+        list's are the rank's own shard's.  With pp > 1 the pipelined
+        ``loss_pp``, whose masks are the microbatch's."""
         if self.config.pp > 1:
-            if dropout is not None and self.config.resid_pdrop:
-                raise NotImplementedError(
-                    "residual dropout under pipeline parallelism is not "
-                    "ported (the train step drops nothing: ROADMAP F3)")
-            return self.loss_pp(tokens, targets)
+            return self.loss_pp(tokens, targets, dropout=dropout)
         logits, aux = self._full_context(tokens, dropout=dropout)
         loss = softmax_cross_entropy(logits, targets).mean()
         if self.moe is None:

@@ -33,4 +33,5 @@ from blocksparse_tpu_torch.parallel.pipeline import (
     unmicrobatch,
     stage_forward,
     stage_backward,
+    stage_parameters,
 )

@@ -49,16 +49,20 @@ from blocksparse_tpu_torch.parallel.mesh import (axis_group, current_mesh,
                                                  mpi_rank, mpi_size)
 
 
-def _flat(tree):
-    """The tensors of a tree (dict, list or tuple; a module stands for its
-    parameters), in order."""
+def stage_parameters(tree):
+    """The floating-point tensors of a stage's parameters ``tree`` (dict,
+    list or tuple; a module stands for its parameters), in order: what
+    ``stage_backward`` takes the gradients of.  Other tensors of the tree
+    (a stage's bool dropout masks) ride along to the stage function and
+    get no gradient."""
     if isinstance(tree, torch.nn.Module):
         return list(tree.parameters())
     if isinstance(tree, dict):
-        return [t for v in tree.values() for t in _flat(v)]
+        return [t for v in tree.values() for t in stage_parameters(v)]
     if isinstance(tree, (list, tuple)):
-        return [t for v in tree for t in _flat(v)]
-    return [tree] if isinstance(tree, torch.Tensor) else []
+        return [t for v in tree for t in stage_parameters(v)]
+    return [tree] if isinstance(tree, torch.Tensor) \
+        and tree.is_floating_point() else []
 
 
 def stage_forward(stage_fn, stage_params, x, with_aux=False):
@@ -200,7 +204,8 @@ def gpipe(stage_fn, stage_params, x_micro, *, axis="pp", n_stages=None,
         auxiliary loss (e.g. MoE load balance).
       stage_params: this rank's parameters (a tensor, a dict, list or
         tuple of them, or a module), passed to stage_fn as they are; the
-        gradients reach them through the pipeline.
+        gradients reach their floating-point tensors through the pipeline
+        (``stage_parameters``).
       x_micro: ``(n_micro, ...)`` microbatched input, the same on every
         rank of the axis; only stage 0 consumes it (its gradient is zero
         on the other stages).
@@ -218,7 +223,7 @@ def gpipe(stage_fn, stage_params, x_micro, *, axis="pp", n_stages=None,
       gradient) the forward runs alone and keeps no graph."""
     comm = _pp_axis(axis, n_stages, mesh)
     _join(comm[0], x_micro.device)
-    params = _flat(stage_params)
+    params = stage_parameters(stage_params)
     if torch.is_grad_enabled() and (x_micro.requires_grad or any(
             p.requires_grad for p in params)):
         out, aux = _GPipe.apply(stage_fn, stage_params, with_aux, comm,

@@ -273,7 +273,9 @@ replayed train step's full table is written to PATH.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
+import dataclasses
 import functools
 import json
 import re
@@ -5543,6 +5545,7 @@ def parallel_path(bt, model, sd, cfg, dev, g, card_line, rows, marks):
 # ---------------- pipeline and experts: GPipe stages and ep shards
 
 PP_STAGES, PP_MICRO = (2, 3), 4
+PP_DROP_SEED = SEED + 23    # the pipelined dropout's generator seed
 EP_SHARDS = (2, 4)
 
 
@@ -5558,11 +5561,12 @@ def one_process():
     return torch_one_process
 
 
-def unpipelined_grads(model, tokens, targets, scale):
+def unpipelined_grads(model, tokens, targets, scale, dropout=None):
     """The single-device step's loss and the gradients of loss·scale by
-    parameter name (as ``_TrainStep._eager`` takes them)."""
+    parameter name (as ``_TrainStep._eager`` takes them); ``dropout`` as
+    ``loss`` takes it."""
     params = dict(model.named_parameters())
-    loss = model.loss(tokens, targets)
+    loss = model.loss(tokens, targets, dropout=dropout)
     grads = torch.autograd.grad(loss * scale, list(params.values()))
     return loss.detach(), dict(zip(params, grads))
 
@@ -5572,23 +5576,29 @@ def grad_norm(grads, scale):
                                 for g in grads.values())))
 
 
-def staged_grads(model, tokens, targets, S, n_micro, scale):
+def staged_grads(model, tokens, targets, S, n_micro, scale, dropout=None):
     """The flagship's pipelined loss with its S stages run in turn in one
     process (``one_process()``'s ``run_stages``/``backprop_stages``:
     ``stage_forward``/``stage_backward`` on ``model._stage`` over each
     stage's blocks, n_micro microbatches, the activations handed over by
     tensor, the microbatches backwards in reverse); the embedding and the
-    head outside the stages, as ``loss_pp`` has them.  Returns (the loss,
-    the gradients of loss·scale by parameter name, (the stages, each
-    stage's inputs, the outputs' cotangent) for ``stage_metrics``)."""
+    head outside the stages, as ``loss_pp`` has them.  With ``dropout``
+    (a generator) the pairs of every layer are drawn at the microbatch's
+    shape as ``loss_pp`` draws them (``_stage_masks``), and each stage
+    carries its layers' pairs as (blocks, masks).  Returns (the loss, the
+    gradients of loss·scale by parameter name, (the stages, each stage's
+    inputs, the outputs' cotangent) for ``stage_metrics``)."""
     from blocksparse_tpu_torch.ops.transformer import softmax_cross_entropy
     from blocksparse_tpu_torch.parallel import microbatch, unmicrobatch
     run_stages, backprop_stages = (one_process().run_stages,
                                    one_process().backprop_stages)
     n = model.n_local // S
-    stages = [model.h[s * n:(s + 1) * n] for s in range(S)]
+    blocks = [model.h[s * n:(s + 1) * n] for s in range(S)]
     xm = microbatch(model._embed(tokens, model.wpe[None, :tokens.shape[1]]),
                     n_micro)
+    masks = model._stage_masks(dropout, xm.shape[1:], xm.device)
+    stages = blocks if masks is None else [
+        (b, masks[s * n:(s + 1) * n]) for s, b in enumerate(blocks)]
     recs, ym, _ = run_stages(model._stage, stages, xm, with_aux=True)
     inputs = [[rec[0].detach() for rec in r] for r in recs]
     ym.requires_grad_()
@@ -5600,7 +5610,7 @@ def staged_grads(model, tokens, targets, S, n_micro, scale):
     dwte, dwpe = torch.autograd.grad(xm, [model.wte, model.wpe], dx)
     names = {id(p): k for k, p in model.named_parameters()}
     grads = {names[id(p)]: gr for s in range(S)
-             for p, gr in zip(stages[s].parameters(), stage_grads[s])}
+             for p, gr in zip(blocks[s].parameters(), stage_grads[s])}
     grads.update(wte=dhead[0] + dwte, wpe=dwpe, lnf_g=dhead[1],
                  lnf_b=dhead[2])
     return loss.detach(), grads, (stages, inputs, dym)
@@ -5628,14 +5638,16 @@ def stage_metrics(model, stages, inputs, dym):
     kernels, summed) over its forwards and backwards of the microbatches,
     rerun from its logged inputs with the outputs' cotangent as dy (the
     kernels' work does not depend on the values)."""
-    from blocksparse_tpu_torch.parallel import stage_backward, stage_forward
+    from blocksparse_tpu_torch.parallel import (stage_backward,
+                                                stage_forward,
+                                                stage_parameters)
     out = []
-    for layers, xs in zip(stages, inputs):
-        params = list(layers.parameters())
+    for stage, xs in zip(stages, inputs):
+        params = stage_parameters(stage)
 
         def run():
             for h, d in zip(xs, dym):
-                stage_backward(stage_forward(model._stage, layers, h, True),
+                stage_backward(stage_forward(model._stage, stage, h, True),
                                d, params)
         torch.cuda.synchronize()
         reset_counts()
@@ -5809,11 +5821,16 @@ def pp_kernel_rows(model, dev, g, card_line, rows, marks):
     torch.cuda.empty_cache()
 
 
-def gpipe_world1(bt, cfg, sd, tokens, targets, ref, dev, scale, card_line):
+def gpipe_world1(bt, cfg, sd, tokens, targets, ref, dev, scale, card_line,
+                 drop_ref):
     """``gpipe`` itself through the LM's ``loss_pp`` on an NCCL group of
     world size 1 (``make_mesh(pp=1)``), PP_MICRO microbatches: the loss
     and every gradient against the single-device step's; the forward
-    under no_grad gives the same loss."""
+    under no_grad gives the same loss.  Then with resid_pdrop DROPOUT
+    and a generator seeded PP_DROP_SEED: the loss and every gradient
+    against ``drop_ref`` (the single-device step's given that seed's
+    pairs tiled over the microbatches, ROADMAP F11), and the loss given
+    the list of pairs that seed draws is the generator's bit for bit."""
     import dataclasses
     import os
     import tempfile
@@ -5840,6 +5857,25 @@ def gpipe_world1(bt, cfg, sd, tokens, targets, ref, dev, scale, card_line):
             check(torch.equal(again, loss.detach()),
                   "gpipe's forward under no_grad gives the same loss bit "
                   "for bit")
+            m.config.resid_pdrop = DROPOUT
+
+            def seeded():
+                return torch.Generator(device=dev).manual_seed(PP_DROP_SEED)
+            loss = m.loss_pp(tokens, targets, dropout=seeded())
+            grads = dict(zip(params, torch.autograd.grad(
+                loss * scale, list(params.values()))))
+            check_against_unpipelined(
+                f"gpipe on NCCL (world 1, {PP_MICRO} microbatches) with "
+                f"dropout {DROPOUT} [{card_line}]", loss.detach(), grads,
+                drop_ref, scale)
+            pairs = m._stage_masks(seeded(), (BATCH // PP_MICRO, cfg.ctx,
+                                              cfg.n_embd), dev)
+            with torch.no_grad():
+                listed = m.loss_pp(tokens, targets, dropout=pairs)
+            check(torch.equal(listed, loss.detach()),
+                  f"gpipe (world 1) with dropout: the list of pairs the "
+                  f"seed draws gives the generator's loss "
+                  f"{loss.item():.6f} bit for bit")
         finally:
             dist.destroy_process_group()
     del m, grads
@@ -5972,14 +6008,74 @@ def ep_layer_checks(bt, dev, g, card_line, rows, marks):
     return launches
 
 
+@contextlib.contextmanager
+def resid_dropout(model, p):
+    """``model`` with ``config.resid_pdrop`` p for the block."""
+    saved = model.config
+    model.config = dataclasses.replace(saved, resid_pdrop=p)
+    try:
+        yield model
+    finally:
+        model.config = saved
+
+
+def pp_dropout_stages(model, cfg, tokens, targets, scale, ref, dev,
+                      card_line):
+    """Residual dropout through the pipeline at full width (``model``
+    with resid_pdrop DROPOUT): the stages at pp 2 and 3 run in turn in
+    one process, each carrying its layers' pairs of one draw from a
+    generator seeded PP_DROP_SEED at the microbatch's shape, against the
+    single-device step given those pairs tiled over the microbatches
+    (ROADMAP F11: every microbatch gets its layer's one pair, and a
+    layer's pair does not depend on pp); the draw's device time.
+    Returns (that reference, the stages' logs by S for
+    ``stage_metrics``)."""
+    def seeded():
+        return torch.Generator(device=dev).manual_seed(PP_DROP_SEED)
+    shape = (BATCH // PP_MICRO, cfg.ctx, cfg.n_embd)
+    pairs = model._stage_masks(seeded(), shape, dev)
+    tiled = [tuple(m.repeat(PP_MICRO, 1, 1) for m in p) for p in pairs]
+    drop_ref = unpipelined_grads(model, tokens, targets, scale, tiled)
+    check(abs(drop_ref[0].item() - ref[0].item()) > 1e-4,
+          f"pipelined dropout {DROPOUT}: the tiled pairs move the "
+          f"single-device loss {ref[0].item():.6f} -> "
+          f"{drop_ref[0].item():.6f}")
+    def gap(got, want):
+        return max(((got[k].float() - w.float()).abs().max()
+                    / w.float().abs().max()).item() for k, w in want.items())
+    logs = {}
+    for S in PP_STAGES:
+        loss, grads, logs[S] = staged_grads(model, tokens, targets, S,
+                                            PP_MICRO, scale, seeded())
+        check_against_unpipelined(
+            f"pp {S} stages in one process ({PP_MICRO} microbatches) with "
+            f"dropout {DROPOUT} against the tiled pairs", loss, grads,
+            drop_ref, scale)
+        near, far = gap(grads, drop_ref[1]), gap(grads, ref[1])
+        check(2 * near < far,
+              f"pp {S} with dropout: the gradients' worst gap to the tiled "
+              f"pairs' step {near:.4f} of max|ref|, under half their gap "
+              f"to the step without dropout {far:.4f}")
+        del grads
+    draw_ms = time_ms(lambda: model._stage_masks(seeded(), shape, dev), 5)
+    print(f"pipelined dropout's masks [{card_line}]: {2 * cfg.n_layer} "
+          f"draws of {shape} a call, {draw_ms:.4f} ms (CUDA events, mean "
+          f"of 5)", flush=True)
+    del pairs, tiled
+    return drop_ref, logs
+
+
 def pipeline_experts_path(bt, model, sd, cfg, dev, g, card_line, rows,
                           marks):
     """The pipeline and experts phase: (a) the flagship at full width,
     its stages at pp 2 and 3 run in turn in one process (n_micro
-    PP_MICRO) against the single-device step, each stage's device time
-    and launches beside the unpipelined step's, and ``gpipe`` on NCCL at
-    world size 1; the pp_stage_* kernel rows; (b) the MoE layer's ep
-    shards.  Returns (the counted launches of (a), of (b))."""
+    PP_MICRO) against the single-device step, then with residual dropout
+    against the single-device step given the tiled pairs
+    (``pp_dropout_stages``), each stage's device time and launches beside
+    the unpipelined step's and with dropout beside without, and
+    ``gpipe`` on NCCL at world size 1, without and with dropout; the
+    pp_stage_* kernel rows; (b) the MoE layer's ep shards.  Returns (the
+    counted launches of (a), of (b))."""
     rng = np.random.RandomState(SEED + 19)
     seq = torch.from_numpy(rng.randint(0, cfg.n_vocab,
                                        (BATCH, cfg.ctx + 1))).to(dev)
@@ -6010,18 +6106,33 @@ def pipeline_experts_path(bt, model, sd, cfg, dev, g, card_line, rows,
                                   f"({PP_MICRO} microbatches)", loss, grads,
                                   ref, scale)
         del grads
-    gpipe_world1(bt, cfg, sd, tokens, targets, ref, dev, scale, card_line)
+    with resid_dropout(model, DROPOUT):
+        drop_ref, drop_logs = pp_dropout_stages(model, cfg, tokens, targets,
+                                                scale, ref, dev, card_line)
+    gpipe_world1(bt, cfg, sd, tokens, targets, ref, dev, scale, card_line,
+                 drop_ref)
     torch.cuda.synchronize()
     pp_launches = read_counts()
     for S in PP_STAGES:
-        for s, (ms, n) in enumerate(stage_metrics(model, *logs[S])):
+        plain_stages = stage_metrics(model, *logs[S])
+        with resid_dropout(model, DROPOUT):
+            drop_stages = stage_metrics(model, *drop_logs[S])
+        for s, ((ms, n), (dms, dn)) in enumerate(zip(plain_stages,
+                                                      drop_stages)):
             print(f"pp {S} stage {s} ({model.n_local // S} blocks, "
                   f"{PP_MICRO} microbatches of {BATCH // PP_MICRO} x "
                   f"{cfg.ctx}) [{card_line}]: device {ms:.2f} ms, launches "
                   f"{ {k: n[k] for k in keys} }; the unpipelined step's "
                   f"{ref_ms:.2f} ms over all {cfg.n_layer} blocks and the "
                   f"head", flush=True)
-    del logs, ref
+            print(f"pp {S} stage {s} with dropout {DROPOUT} [{card_line}]: "
+                  f"device {dms:.2f} ms ({100 * (dms / ms - 1):+.2f}% beside "
+                  f"{ms:.2f} ms without), launches "
+                  f"{ {k: dn[k] for k in keys} } (without: "
+                  f"{ {k: n[k] for k in keys} })", flush=True)
+            check(dn == n, f"pp {S} stage {s}: dropout launches the "
+                           f"stage's kernels as often as the stage without")
+    del logs, drop_logs, ref, drop_ref
     torch.cuda.empty_cache()
     pp_kernel_rows(model, dev, g, card_line, rows, marks)
     ep_launches = ep_layer_checks(bt, dev, g, card_line, rows, marks)

@@ -43,8 +43,13 @@ WORLD = 4
 
 
 @pytest.fixture(scope="module")
-def ranks():
-    return workers.spawn("pp_train_cases", WORLD)
+def ranks(tmp_path_factory):
+    """The ranks' results, their dropout cases included: one spawn a
+    session, shared with ``test_torch_dropout_sharded.py``, which draws
+    JAX's masks for them."""
+    import test_torch_dropout_sharded as ds
+    return workers.shared_spawn("pp_train_cases", WORLD, ds.pp_inputs(),
+                                workers.session_dir(tmp_path_factory))
 
 
 _JAX = {}

@@ -46,8 +46,13 @@ LR = workers.LR
 
 
 @pytest.fixture(scope="module")
-def ranks():
-    return workers.spawn("train_cases", WORLD)
+def ranks(tmp_path_factory):
+    """The ranks' results, their dropout cases included: one spawn a
+    session, shared with ``test_torch_dropout_sharded.py``, which draws
+    JAX's masks for them."""
+    import test_torch_dropout_sharded as ds
+    return workers.shared_spawn("train_cases", WORLD, ds.train_inputs(),
+                                workers.session_dir(tmp_path_factory))
 
 
 def _leaves(tree):

@@ -11,11 +11,16 @@ function of this module on every rank, and gets back each rank's results
 package's ``shard_map`` on the simulated devices of ``tests/conftest.py``.
 
 This module imports no JAX (the spawned ranks import it), and pytest does
-not collect it.  The inputs both sides use are made here from seeds.
+not collect it.  The inputs both sides use are made here from seeds, but
+for JAX's dropout masks, which the test process draws and hands to the
+ranks (``spawn``'s ``inputs``).  A spawn that several test files read
+(``shared_spawn``) runs once a session.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
+import fcntl
 import os
 import pickle
 import tempfile
@@ -32,14 +37,16 @@ TIMEOUT = 300           # seconds for one spawn, all cases
 
 # ---------------------------------------------------------------- spawning
 
-def spawn(case, world, timeout=TIMEOUT):
+def spawn(case, world, timeout=TIMEOUT, inputs=None):
     """Runs ``case(rank, world)`` (a function of this module, by name) on
-    ``world`` gloo ranks and returns the ranks' results in rank order.  A
-    rank that raises fails the call with its traceback; ranks that outlive
+    ``world`` gloo ranks, ``case(rank, world, inputs)`` with ``inputs``
+    (picklable), and returns the ranks' results in rank order.  A rank
+    that raises fails the call with its traceback; ranks that outlive
     ``timeout`` are killed and the call raises."""
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory() as d:
-        procs = [ctx.Process(target=_rank_main, args=(r, world, d, case))
+        procs = [ctx.Process(target=_rank_main,
+                             args=(r, world, d, case, inputs))
                  for r in range(world)]
         for p in procs:
             p.start()
@@ -68,7 +75,46 @@ def spawn(case, world, timeout=TIMEOUT):
         return out
 
 
-def _rank_main(rank, world, d, case):
+_SPAWNED = {}
+
+
+def shared_spawn(case, world, inputs=None, shared_dir=None):
+    """``spawn(case, world, inputs=inputs)`` once a test session for every
+    test file that reads it: the result is kept in this process and, with
+    ``shared_dir`` (a directory that all of the session's pytest-xdist
+    workers see, ``session_dir``), pickled there under a file lock, so
+    the first worker to ask spawns the ranks and the others wait for its
+    result.  Every caller passes the same ``inputs``."""
+    if case in _SPAWNED:
+        return _SPAWNED[case]
+    if shared_dir is None:
+        out = spawn(case, world, inputs=inputs)
+    else:
+        path = os.path.join(shared_dir, f"spawn_{case}_{world}")
+        with open(path + ".lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if os.path.exists(path + ".pkl"):
+                with open(path + ".pkl", "rb") as f:
+                    out = pickle.load(f)
+            else:
+                out = spawn(case, world, inputs=inputs)
+                with open(path + ".tmp", "wb") as f:
+                    pickle.dump(out, f)
+                os.replace(path + ".tmp", path + ".pkl")
+    _SPAWNED[case] = out
+    return out
+
+
+def session_dir(tmp_path_factory):
+    """The directory the session's pytest-xdist workers share (their base
+    temporary directories' parent, which pytest removes in time), or None
+    without xdist."""
+    if not os.environ.get("PYTEST_XDIST_WORKER"):
+        return None
+    return str(tmp_path_factory.getbasetemp().parent)
+
+
+def _rank_main(rank, world, d, case, inputs=None):
     try:
         if os.path.exists("/sys/class/net/lo"):
             os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
@@ -77,7 +123,8 @@ def _rank_main(rank, world, d, case):
             "gloo", store=dist.FileStore(os.path.join(d, "store"), world),
             rank=rank, world_size=world,
             timeout=datetime.timedelta(seconds=TIMEOUT - 30))
-        result = globals()[case](rank, world)
+        args = () if inputs is None else (inputs,)
+        result = globals()[case](rank, world, *args)
         dist.barrier()
         dist.destroy_process_group()
         with open(os.path.join(d, f"rank{rank}.pkl"), "wb") as f:
@@ -305,9 +352,9 @@ LOSS_SCALE = 128.0
 STEPS = 2
 
 
-def train_config(name):
+def train_config(name, **kw):
     from blocksparse_tpu_torch import TransformerConfig
-    return TransformerConfig(**dict(TRAIN_BASE, **TRAIN[name][3]))
+    return TransformerConfig(**dict(TRAIN_BASE, **TRAIN[name][3]) | kw)
 
 
 def tp_layout(params, tp):
@@ -347,7 +394,10 @@ def train_tokens():
             rng.randint(0, c["n_vocab"], (4, c["ctx"])).astype(np.int64))
 
 
-def train_cases(rank, world):
+def train_cases(rank, world, inputs=None):
+    """Two steps of each TRAIN config's sharded step, the entry point
+    with --tp 2 --sp 2, and with ``inputs`` (JAX's dropout masks,
+    ``DROP_TRAIN``) the dropout cases of ``train_dropout``."""
     from blocksparse_tpu_torch import (AdamOptimizer, SparseTransformerLM,
                                        opt_state_to_jax, params_from_jax,
                                        params_to_jax)
@@ -376,6 +426,8 @@ def train_cases(rank, world):
                      "metrics": metrics, "params": params_to_jax(model),
                      "state": opt_state_to_jax(state, model)}
     out["entry"] = _entry_point()
+    if inputs is not None:
+        out["dropout"] = train_dropout(inputs, tokens, targets)
     return out
 
 
@@ -579,10 +631,11 @@ def _sharded_run(config, params, axes, tokens, targets, batch_axes="dp"):
             "state": opt_state_to_jax(state, model)}
 
 
-def pp_train_cases(rank, world):
+def pp_train_cases(rank, world, inputs=None):
     """Two steps of each PP config's pipelined step; then, for ROADMAP F8,
     the P function's tp 2 x dp 2 step (no pipeline) and, on rank 0, its
-    single-device step, on the pp2_tp2 batch."""
+    single-device step, on the pp2_tp2 batch; with ``inputs`` (JAX's
+    dropout masks, ``DROP_PP``) the dropout cases of ``pp_dropout``."""
     from blocksparse_tpu_torch import SparseTransformerLM, TransformerConfig
     from blocksparse_tpu_torch.convert import params_from_jax
     out = {}
@@ -599,6 +652,223 @@ def pp_train_cases(rank, world):
                                     device="cpu")
         model.load_state_dict(params_from_jax(pp_params("pp2_mb4"), model))
         out["single"] = _steps(model, None, tokens, targets)[0]
+    if inputs is not None:
+        out["dropout"] = pp_dropout(inputs)
+    return out
+
+
+# ------------------------------------------ residual dropout, sharded
+
+DROP = 0.1                # resid_pdrop of the dropout cases
+DROP_SEED = 3             # every rank's generator seed
+DROP_TRAIN = ("tp2_sp2_gather", "tp2_sp2_ring")             # JAX's masks
+DROP_PP = ("pp2_dp2", "pp2_mb4")                            # JAX's masks
+DROP_SP = {
+    # name: (dp, tp, sp, sp_mode), generator runs of the TRAIN "P"
+    # function (in the tp layout at tp 2) against the unsharded model
+    "dp2_sp2_gather": (2, 1, 2, "gather"),
+    "dp2_sp2_ring": (2, 1, 2, "ring"),
+    "sp4_gather": (1, 1, 4, "gather"),
+    "tp2_sp2_gather": (1, 2, 2, "gather"),
+    "dp2_tp2": (2, 2, 1, "gather"),
+}
+
+
+def drop_mask_shape(name):
+    """The residual's shape on a rank of a DROP_TRAIN or DROP_PP config:
+    (batch/dp, ctx/sp, n_embd), with pp the microbatch's."""
+    if name in TRAIN:
+        dp, _, sp, _, _ = TRAIN[name]
+        c = TRAIN_BASE
+        return (len(train_tokens()[0]) // dp, c["ctx"] // sp, c["n_embd"])
+    dp, _, pp, fields, _, batch = PP[name]
+    n_micro = fields.get("pp_microbatch") or pp
+    return (batch // dp // n_micro, PP_BASE["ctx"], PP_BASE["n_embd"])
+
+
+def _torch_masks(pairs):
+    return [tuple(torch.from_numpy(np.asarray(m)) for m in p) for p in pairs]
+
+
+def _coords(mesh):
+    from blocksparse_tpu_torch.parallel import mpi_rank
+    return {a: mpi_rank(a, mesh) for a in ("dp", "tp", "sp", "pp", "ep")}
+
+
+def _local(mesh, spec, *arrays):
+    from blocksparse_tpu_torch.parallel import data_sharding
+    shard = data_sharding(mesh, *spec)
+    return [torch.from_numpy(np.ascontiguousarray(shard.shard(a)))
+            for a in arrays]
+
+
+def _loss_grads(model, x, y, dropout):
+    """(loss, {parameter name: gradient}) of ``model.loss``."""
+    names, params = zip(*model.named_parameters())
+    loss = model.loss(x, y, dropout=dropout)
+    return loss.detach(), dict(zip(names, torch.autograd.grad(loss,
+                                                              params)))
+
+
+def _reduced(model, mesh, x, y, dropout):
+    """The rank's loss and gradients with ``dropout``, reduced as the
+    sharded step reduces them (each gradient over its grad_reduce_axes,
+    over dp·sp·ep; the loss over sp, pp and dp): the loss, the grad norm
+    and the gradients as the rank's shard of a JAX dict."""
+    from blocksparse_tpu_torch import AdamOptimizer, opt_state_to_jax
+    loss, grads = _loss_grads(model, x, y, dropout)
+    step = model.make_train_step(AdamOptimizer(learning_rate=LR), mesh=mesh)
+    grads, loss, gn, _ = step._sharded_grads(grads, loss, torch.ones(()))
+    return {"coords": _coords(mesh), "loss": float(loss),
+            "grad_norm": float(gn), "grads": opt_state_to_jax(grads, model)}
+
+
+def _recorded(model):
+    """Wraps ``model._dropout_masks`` to log every pair it returns (NumPy,
+    in draw order); returns the log."""
+    seen, draw = [], model._dropout_masks
+
+    def record(*args, **kw):
+        pair = draw(*args, **kw)
+        seen.append([_np(m) for m in pair])
+        return pair
+    model._dropout_masks = record
+    return seen
+
+
+def train_dropout(inputs, tokens, targets):
+    """Residual dropout on the sharded LM.  Each DROP_TRAIN config given
+    JAX's masks (``inputs[name][sp rank]``), recompute on and off: the
+    loss and gradients reduced as the step reduces them.  Each DROP_SP
+    mesh given a generator seeded DROP_SEED on every rank: the masks the
+    rank drew, its loss averaged over sp, with tp 1 its gradients
+    averaged over sp, and the unsharded model's masks, loss and
+    gradients on the rank's batch from the same seed."""
+    from blocksparse_tpu_torch import SparseTransformerLM, params_from_jax
+    from blocksparse_tpu_torch.parallel import allreduce, make_mesh, mpi_rank
+    out = {}
+    for name in DROP_TRAIN:
+        dp, tp, sp, _, _ = TRAIN[name]
+        mesh = make_mesh(dp=dp, tp=tp, sp=sp, device="cpu")
+        model = SparseTransformerLM(train_config(name, resid_pdrop=DROP),
+                                    device="cpu", mesh=mesh)
+        model.load_state_dict(params_from_jax(train_params(name), model))
+        x, y = _local(mesh, ("dp", "sp"), tokens, targets)
+        masks = _torch_masks(inputs[name][mpi_rank("sp", mesh)])
+        for recompute in (True, False):
+            model.config.recompute = recompute
+            out[(name, recompute)] = _reduced(model, mesh, x, y, masks)
+    ref = SparseTransformerLM(train_config("dp4", resid_pdrop=DROP),
+                              device="cpu")
+    ref.load_state_dict(params_from_jax(train_params("dp4"), ref))
+    ref_seen = _recorded(ref)
+    for name, (dp, tp, sp, mode) in DROP_SP.items():
+        mesh = make_mesh(dp=dp, tp=tp, sp=sp, device="cpu")
+        model = SparseTransformerLM(
+            train_config("dp4", tp=tp, sp=sp, sp_mode=mode,
+                         resid_pdrop=DROP), device="cpu", mesh=mesh)
+        model.load_state_dict(params_from_jax(
+            train_params("dp2_tp2" if tp > 1 else "dp4"), model))
+        seen = _recorded(model)
+        x, y = _local(mesh, ("dp", "sp"), tokens, targets)
+        loss, grads = _loss_grads(model, x, y, torch.Generator()
+                                  .manual_seed(DROP_SEED))
+        bx, by = _local(mesh, ("dp", None), tokens, targets)
+        ref_seen.clear()
+        ref_loss, ref_grads = _loss_grads(ref, bx, by, torch.Generator()
+                                          .manual_seed(DROP_SEED))
+        res = {"coords": _coords(mesh), "masks": seen,
+               "ref_masks": list(ref_seen),
+               "loss": float(allreduce(loss, axis="sp", mesh=mesh)) / sp,
+               "ref_loss": float(ref_loss)}
+        if tp == 1:
+            res["grads"] = {k: _np(allreduce(g, axis="sp", mesh=mesh) / sp)
+                            for k, g in grads.items()}
+            res["ref_grads"] = {k: _np(g) for k, g in ref_grads.items()}
+        out[name] = res
+    return out
+
+
+def pp_dropout(inputs):
+    """Residual dropout through the pipeline (``loss_pp``).  Each DROP_PP
+    config given JAX's masks (``inputs[name]``, n_layer pairs at the
+    microbatch's shape), recompute on and off: the loss and gradients
+    reduced as the step reduces them.  Then generators seeded DROP_SEED:
+    pp2_mb4, recompute on and off, its loss twice, and its loss and
+    gradients (the shared ones summed over pp) beside the unpipelined
+    model's given the pairs the seed draws tiled over the microbatches
+    (ROADMAP F11); pp2_tp2's loss beside the unpipelined tp-1 model's so;
+    the MoE LM at pp 2 x ep 2 in one microbatch beside the ep-1,
+    unpipelined model on the rank's batch from the same seed."""
+    from blocksparse_tpu_torch import (SparseTransformerLM,
+                                       TransformerConfig, opt_state_to_jax,
+                                       params_from_jax)
+    from blocksparse_tpu_torch.parallel import allreduce, make_mesh
+    out = {}
+    for name in DROP_PP:
+        dp, tp, pp, _, _, batch = PP[name]
+        mesh = make_mesh(dp=dp, tp=tp, pp=pp, device="cpu")
+        model = SparseTransformerLM(pp_config(name, resid_pdrop=DROP),
+                                    device="cpu", mesh=mesh)
+        model.load_state_dict(params_from_jax(pp_params(name), model))
+        x, y = _local(mesh, ("dp", None), *pp_tokens(batch))
+        masks = _torch_masks(inputs[name])
+        for recompute in (True, False):
+            model.config.recompute = recompute
+            out[(name, recompute)] = _reduced(model, mesh, x, y, masks)
+
+    def gen():
+        return torch.Generator().manual_seed(DROP_SEED)
+
+    def tiled(model, x, n_micro):
+        shape = (x.shape[0] // n_micro, x.shape[1], model.config.n_embd)
+        return [tuple(m.repeat(n_micro, 1, 1) for m in pair)
+                for pair in model._stage_masks(gen(), shape, "cpu")]
+
+    def pp_sum(t):
+        return allreduce(t, axis="pp", mesh=mesh)
+    unpiped = SparseTransformerLM(pp_config("pp2_mb4", pp=1,
+                                            resid_pdrop=DROP), device="cpu")
+    unpiped.load_state_dict(params_from_jax(pp_params("pp2_mb4"), unpiped))
+    for name in ("pp2_mb4", "pp2_tp2"):
+        dp, tp, pp, fields, _, batch = PP[name]
+        mesh = make_mesh(dp=dp, tp=tp, pp=pp, device="cpu")
+        model = SparseTransformerLM(pp_config(name, resid_pdrop=DROP),
+                                    device="cpu", mesh=mesh)
+        model.load_state_dict(params_from_jax(pp_params(name), model))
+        x, y = _local(mesh, ("dp", None), *pp_tokens(batch))
+        n_micro = fields.get("pp_microbatch") or pp
+        ref_loss, ref_grads = _loss_grads(unpiped, x, y,
+                                          tiled(unpiped, x, n_micro))
+        for recompute in ((True, False) if tp == 1 else (True,)):
+            model.config.recompute = recompute
+            loss, grads = _loss_grads(model, x, y, gen())
+            res = {"coords": _coords(mesh), "loss": float(pp_sum(loss)),
+                   "again": float(pp_sum(model.loss(x, y, dropout=gen())
+                                         .detach())),
+                   "no_dropout": float(pp_sum(model.loss(x, y).detach())),
+                   "ref_loss": float(ref_loss)}
+            if tp == 1:
+                grads = {k: g if k.startswith("h.") else pp_sum(g)
+                         for k, g in grads.items()}
+                res["grads"] = opt_state_to_jax(grads, model)
+                res["ref_grads"] = opt_state_to_jax(ref_grads, unpiped)
+            out[("gen", name, recompute)] = res
+    mesh = make_mesh(pp=2, ep=2, device="cpu")
+    model = SparseTransformerLM(ep_config("pp2_ep2", pp_microbatch=1,
+                                          resid_pdrop=DROP), device="cpu",
+                                mesh=mesh)
+    model.load_state_dict(params_from_jax(ep_params(), model))
+    x, y = _local(mesh, (("dp", "ep"), None), *pp_tokens(EP["pp2_ep2"][4]))
+    one = SparseTransformerLM(TransformerConfig(**EP_BASE | dict(
+        resid_pdrop=DROP)), device="cpu")
+    one.load_state_dict(params_from_jax(ep_params(), one))
+    loss, grads = _loss_grads(model, x, y, gen())
+    out[("gen", "pp2_ep2")] = {
+        "coords": _coords(mesh), "loss": float(pp_sum(loss)),
+        "no_dropout": float(pp_sum(model.loss(x, y).detach())),
+        "ref_loss": float(one.loss(x, y, dropout=gen()).detach()),
+        "finite": all(bool(torch.isfinite(g).all()) for g in grads.values())}
     return out
 
 

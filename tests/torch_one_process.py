@@ -11,15 +11,8 @@ run.  Imports no JAX.
 import torch
 
 from blocksparse_tpu_torch.parallel.pipeline import (stage_backward,
-                                                     stage_forward)
-
-
-def _params(stage):
-    """A stage's parameters in order: a module's, or the tensors of a
-    list."""
-    if isinstance(stage, torch.nn.Module):
-        return list(stage.parameters())
-    return list(stage)
+                                                     stage_forward,
+                                                     stage_parameters)
 
 
 def run_stages(stage_fn, stages, x_micro, with_aux=False):
@@ -54,7 +47,8 @@ def backprop_stages(records, stages, dout, daux=None):
     for m in reversed(range(dout.shape[0])):
         d = dout[m]
         for s in reversed(range(len(stages))):
-            d, dps = stage_backward(records[s][m], d, _params(stages[s]),
+            d, dps = stage_backward(records[s][m], d,
+                                    stage_parameters(stages[s]),
                                     daux)
             records[s][m] = None
             grads[s] = dps if grads[s] is None else [
