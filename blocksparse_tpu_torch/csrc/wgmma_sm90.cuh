@@ -1,9 +1,11 @@
 // Hopper's warpgroup tensor-core products (wgmma) for the bf16/f16 kernels
-// that read both operands from shared memory (bst_nt_mma.cu, bst_xn_mma.cu):
-// the 128-byte swizzled tiles' descriptors, the group fence, commit and
-// wait, and m64nNk16 (N 8-64) with f32 accumulators; and the TMA tile
-// loads that fill such tiles (mbarriers, cp.async.bulk.tensor, the tensor
-// maps' encoder got through cudaGetDriverEntryPoint, no libcuda link).
+// that read both operands from shared memory (bst_nt_mma.cu, bst_xn_mma.cu,
+// bsmm_xprop_wgmma.cu, bsmm_updat_wgmma.cu): the 64- and 128-byte swizzled
+// tiles' descriptors, the group fence, commit and wait, and m64nNk16 (N
+// 8-64) with f32 accumulators; the TMA tile loads that fill such tiles
+// (mbarriers, cp.async.bulk.tensor, the tensor maps' encoder got through
+// cudaGetDriverEntryPoint, no libcuda link); and the warp-specialised
+// kernels' register split (setmaxnreg) and named barriers.
 #pragma once
 
 #include <cuda.h>
@@ -21,14 +23,26 @@ namespace {
 // writes them so), each tile 1024-byte aligned.  K-major operands keep 64
 // k a row; MN-major ones 64 m (or n) a row, one row a k.
 
+// The descriptor of a tile stored in SW-byte rows in wgmma's SW-byte
+// swizzle (SW 64 or 128: TMA's SWIZZLE_64B / _128B writes them so), its
+// swizzle atom aligned to 8 * SW bytes.  lbo and sbo in bytes: K-major,
+// sbo the stride of 8-row groups (lbo unused); MN-major, lbo the stride
+// of SW/2-element atoms along m (n) and sbo that of 8-k groups.
+template <int SW>
+__device__ __forceinline__ uint64_t sw_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  static_assert(SW == 64 || SW == 128, "64- or 128-byte swizzle");
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (static_cast<uint64_t>(SW == 128 ? 1 : 2) << 62);
+}
+
 // wgmma's shared-memory descriptor of a 128-byte swizzled tile at `addr`:
 // K-major (8-row groups 1024 bytes apart; the leading offset unused), or
 // MN-major with one 64-element atom along m (n), its 8-k groups 1024 bytes
 // apart (both offsets 1024: only the k-group stride is used)
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, bool mn_major) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(mn_major ? 1024 >> 4 : 1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+  return sw_desc<128>(addr, mn_major ? 1024 : 16, 1024);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -184,6 +198,11 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
                "r"(bytes)
                : "memory");
 }
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(bar)))
+               : "memory");
+}
 // waits for phase `parity` of bar; traps (a launch error, not a hang) if
 // it has not completed after some seconds
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
@@ -213,6 +232,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(
+          static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(static_cast<uint32_t>(__cvta_generic_to_shared(bar)))
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1) {
   asm volatile(
@@ -222,6 +252,20 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
       "r"(static_cast<uint32_t>(__cvta_generic_to_shared(bar)))
       : "memory");
+}
+
+// The warp-specialised kernels' register split: a producer warpgroup gives
+// registers back, the consumer warpgroups take them (all four warps of a
+// warpgroup execute it)
+template <int R> __device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R> __device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+// named barrier `id` over `count` threads (whole warps)
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 using TensorMapEncode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -249,6 +293,27 @@ inline TensorMapEncode tensor_map_encoder() {
   return fn;
 }
 
+// The tensor map of a row-major `rank`-d tensor (dims innermost first,
+// strides in bytes of dims 1..rank-1, multiples of 16; base 16-byte
+// aligned) read in boxes of `box` elements stored in SW-byte swizzled rows
+// (box[0] * sizeof(T) == SW); out-of-bounds elements read as zeros.
+template <typename T>
+cudaError_t tiled_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                      const cuuint64_t* strides, const cuuint32_t* box, int sw) {
+  TensorMapEncode encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  return encode(map, std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                rank, const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
 // The tensor map of a (batch, ctx, heads * hs) activation read in place
 // through its batch and row strides (elements, multiples of 8; base
 // 16-byte aligned) as 4-d (hs, heads, ctx, batch), boxes of `rows` rows x
@@ -257,44 +322,23 @@ inline TensorMapEncode tensor_map_encoder() {
 template <typename T>
 cudaError_t head_rows_map(CUtensorMap* map, const void* base, int hs, int heads, int ctx,
                           int batch, long long s_row, long long s_batch, int rows) {
-  TensorMapEncode encode = tensor_map_encoder();
-  if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t e = sizeof(T);
   const cuuint64_t dims[4] = {(cuuint64_t)hs, (cuuint64_t)heads, (cuuint64_t)ctx,
                               (cuuint64_t)batch};
   const cuuint64_t strides[3] = {hs * e, (cuuint64_t)s_row * e, (cuuint64_t)s_batch * e};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                4, const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
-             ? cudaSuccess
-             : cudaErrorInvalidValue;
+  return tiled_map<T>(map, base, 4, dims, strides, box, 128);
 }
-
 
 // The tensor map of `rows` contiguous rows of 64 elements (the 64 x 64
 // blocks of a (..., blocks, 64, 64) tensor, stacked), boxes of 64 x 64
 // stored 128-byte swizzled
 template <typename T>
 cudaError_t block_rows_map(CUtensorMap* map, const void* base, long long rows) {
-  TensorMapEncode encode = tensor_map_encoder();
-  if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {64, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {64 * sizeof(T)};
   const cuuint32_t box[2] = {64, 64};
-  const cuuint32_t unit[2] = {1, 1};
-  return encode(map, std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                2, const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
-             ? cudaSuccess
-             : cudaErrorInvalidValue;
+  return tiled_map<T>(map, base, 2, dims, strides, box, 128);
 }
 
 }  // namespace

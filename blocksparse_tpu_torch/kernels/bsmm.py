@@ -9,9 +9,13 @@ TPU's MXU.  Both are written natively for the NC orientation
 (``feature_axis=1``, x of shape (N, C)): thread blocks over (N-tile,
 output block-columns), a fixed-order f32 sum over each block-column's
 LUT entries, no atomics; bprop reads each W block transposed and walks
-the CSR of input block-columns.  bf16 and f16 run
-``csrc/bsmm_xprop_mma.cu`` on the tensor cores (``mma.sync`` fed by
-``ldmatrix`` from a ``cp.async`` ring); f32 runs ``csrc/bsmm_fprop.cu``
+the CSR of input block-columns.  bf16 and f16 run on the tensor cores:
+``csrc/bsmm_xprop_wgmma.cu`` (``wgmma`` fed by TMA from an ``mbarrier``
+ring, persistent thread blocks over (N-tile, group of 256 output
+features) tiles, x staged once a group: ``xprop_wgmma_plan``) where
+``xprop_kernel`` says so, else ``csrc/bsmm_xprop_mma.cu`` (``mma.sync``
+fed by ``ldmatrix`` from a ``cp.async`` ring, one output block-column a
+thread block); f32 runs ``csrc/bsmm_fprop.cu``
 in full fp32 on the CUDA cores (no TF32: the reference's f32 dots are
 exact), an SGEMM-style kernel whose thread blocks own the output columns
 that share their entry lists (``xprop_groups``), or one column, at an
@@ -20,11 +24,13 @@ output one fmaf chain in LUT order.  ``bsmm_updat`` (dw[e] = x_cᵀ·dy_k summed
 replaces ``updat_pallas_dense_tile`` and, for canonical weights,
 ``updat_pallas_grouped`` and ``updat_pallas``.  Both of its kernels run
 over the layout's blocks in groups that share one staged x (or dy) tile
-(``updat_plan``).  bf16 and f16 run ``csrc/bsmm_updat_mma.cu`` on the
-tensor cores, N cut into runs where the groups alone would leave SMs idle
-(``updat_splits``), the runs' f32 partials summed in order by
-``bsmm_updat_reduce``.  f32 runs ``csrc/bsmm_updat.cu`` on the CUDA
-cores, one fmaf chain over all of N an output.  See the sources for what
+(``updat_plan``).  bf16 and f16 run on the tensor cores,
+``csrc/bsmm_updat_wgmma.cu`` (``wgmma`` fed by TMA) or
+``csrc/bsmm_updat_mma.cu`` (``mma.sync``) as ``updat_kernel`` says, N cut
+into runs where the groups alone would leave SMs idle (``updat_splits``),
+the runs' f32 partials summed in order by ``bsmm_updat_reduce``.  f32
+runs ``csrc/bsmm_updat.cu`` on the CUDA cores, one fmaf chain over all of
+N an output.  See the sources for what
 bounds each on the H100 and what the designs do about it.
 
 ``xprop_plain`` and ``updat_plain`` are the plain PyTorch versions, the
@@ -111,6 +117,29 @@ UPDAT_RESIDENT = {8: 2, 16: 2, 32: 2, 64: 2, 128: 1}
 UPDAT_WAVES = 2
 UPDAT_MAX_SPLIT = 16
 UPDAT_MIN_RUN = 512
+# bsmm_xprop_wgmma.cu and bsmm_updat_wgmma.cu (wgmma fed by TMA): the block
+# sizes they take (b8 and b16 stay on the mma.sync kernels); the xprop's
+# N-tile and output features a column group (XPROP_WG_FEATURES // b
+# block-columns); the updat's token rows a ring stage and its thread blocks
+# resident on one SM (one: 384 threads and a ~190 KB ring)
+WGMMA_BLOCK_SIZES = (32, 64, 128)
+XPROP_WG_TM = 128
+XPROP_WG_FEATURES = 256
+UPDAT_WG_TN = 64
+UPDAT_WG_RESIDENT = 1
+# the xprop's route to the wgmma kernel (xprop_kernel): its tiles number
+# at least XPROP_WG_MIN_FILL of the SMs (one persistent thread block an SM;
+# at 64 tiles on 132 SMs the two kernels were within 4% in the H100 runs
+# of PERF.md, and at 32 the wgmma one took twice as long), and a
+# staged x tile serves at least XPROP_WG_MIN_SHARE of the group's columns
+# on average (entries / items of xprop_wgmma_plan): below it the ring's
+# per-stage cost outweighs the x reads it saves (2.3-2.5 columns a tile
+# lost 3-13% to bsmm_xprop_mma.cu there, 4.4 and more gained 27-39%)
+XPROP_WG_MIN_FILL = 0.48
+XPROP_WG_MIN_SHARE = 3.0
+# the updat's unsplit runs from which the mma.sync kernel is kept
+# (updat_kernel)
+UPDAT_WG_LONG_RUN = 8192
 
 
 def xprop_plain(x, w, in_blk, w_blk, out_blk, n_out_blocks, bsize, axis,
@@ -388,26 +417,121 @@ def updat_plan(ent_c, ent_k, bsize):
     return {**by_k, "by_c": False}
 
 
-def updat_splits(N, groups, bsize, sm_count):
+def updat_splits(N, groups, bsize, sm_count, kernel="mma"):
     """The updat's N split: the number S of runs to cut N rows into (1 =
     unsplit).  It splits when the plan's ``groups`` thread blocks are fewer
     than UPDAT_WAVES waves of the card's resident ones, target =
-    UPDAT_WAVES · UPDAT_RESIDENT[bsize] · sm_count, and N holds two runs of
-    UPDAT_MIN_RUN rows; then S = min(UPDAT_MAX_SPLIT, ceil(target /
-    groups), N // UPDAT_MIN_RUN).  Shapes and the SM count only."""
-    target = UPDAT_WAVES * UPDAT_RESIDENT[bsize] * sm_count
+    UPDAT_WAVES · resident · sm_count (resident: UPDAT_RESIDENT[bsize]
+    thread blocks an SM for ``kernel`` "mma", UPDAT_WG_RESIDENT for
+    "wgmma"), and N holds two runs of UPDAT_MIN_RUN rows; then S =
+    min(UPDAT_MAX_SPLIT, ceil(target / groups), N // UPDAT_MIN_RUN).  For
+    "wgmma" (one thread block an SM, so a last wave left part empty costs
+    a whole wave) S is then the count of S .. min(2 S, UPDAT_MAX_SPLIT,
+    N // UPDAT_MIN_RUN) runs whose groups · S thread blocks fill their
+    last wave best, the smallest on a tie.  Shapes and the SM count
+    only."""
+    resident = UPDAT_WG_RESIDENT if kernel == "wgmma" else \
+        UPDAT_RESIDENT[bsize]
+    target = UPDAT_WAVES * resident * sm_count
     if groups >= target or N < 2 * UPDAT_MIN_RUN:
         return 1
-    return min(UPDAT_MAX_SPLIT, -(-target // groups), N // UPDAT_MIN_RUN)
+    cap = min(UPDAT_MAX_SPLIT, N // UPDAT_MIN_RUN)
+    splits = min(cap, -(-target // groups))
+    if kernel != "wgmma":
+        return splits
+    wave = resident * sm_count
+    return max(range(splits, min(cap, 2 * splits) + 1),
+               key=lambda s: (groups * s / (-(-groups * s // wave) * wave),
+                              -s))
 
 
-def updat_run_rows(N, splits):
+def updat_run_rows(N, splits, kernel="mma"):
     """Token rows a run of the split holds: ceil(N / splits) rounded up to
-    a ring stage (UPDAT_TN); all of N unsplit."""
+    a ring stage of ``kernel`` (UPDAT_TN for "mma", UPDAT_WG_TN for
+    "wgmma"); all of N unsplit."""
     if splits <= 1:
         return N
+    tn = UPDAT_WG_TN if kernel == "wgmma" else UPDAT_TN
     per_run = -(-N // splits)
-    return -(-per_run // UPDAT_TN) * UPDAT_TN
+    return -(-per_run // tn) * tn
+
+
+def xprop_wgmma_plan(row_ptr, ent_in, ent_w, bsize):
+    """``csrc/bsmm_xprop_wgmma.cu``'s plan over a CSR of output
+    block-columns whose entries name their input blocks in ascending order
+    (the LUT's order; raises otherwise): the columns cut into groups of G =
+    XPROP_WG_FEATURES // bsize consecutive ones, and each group's items,
+    the union of its columns' input blocks in ascending order.  u_ptr
+    (groups + 1,): the items of group g are u_ptr[g]..u_ptr[g + 1]; u_in
+    (items,): an item's input block; u_mask (items,): bit j set where the
+    group's column slot j holds an entry for it (bit 31 at b8's G of 32:
+    a uint32 pattern); u_w (items, G): that entry's weight block, -1
+    where none; grp_col (groups, G): each slot's column, -1 past the
+    last.  A column's entries are its items' in order,
+    so the kernel sums each column in LUT order.  Arrays int32, G, and
+    share: the entries an item serves on average (entries / items)."""
+    G = max(1, XPROP_WG_FEATURES // bsize)
+    row_ptr = np.asarray(row_ptr, np.int64)
+    ent_in = np.asarray(ent_in, np.int64)[:row_ptr[-1]]
+    ent_w = np.asarray(ent_w, np.int64)[:row_ptr[-1]]
+    lens, row = _entry_rows(row_ptr)
+    n_out = len(lens)
+    groups = max(1, -(-n_out // G))
+    same_row = row[1:] == row[:-1]
+    if (np.diff(ent_in)[same_row] <= 0).any():
+        raise ValueError("xprop_wgmma_plan: a column's entries must name "
+                         "its input blocks in ascending order")
+    n_in = int(ent_in.max()) + 1 if len(ent_in) else 1
+    slot = row % G
+    keys, item = np.unique((row // G) * n_in + ent_in, return_inverse=True)
+    u_w = np.full((len(keys), G), -1, np.int32)
+    u_w[item, slot] = ent_w
+    u_mask = np.zeros(len(keys), np.int64)
+    np.add.at(u_mask, item, 1 << slot)       # one entry a (column, input)
+    u_ptr = np.concatenate([[0], np.cumsum(np.bincount(
+        keys // n_in, minlength=groups))])
+    grp_col = np.full(groups * G, -1, np.int32)
+    grp_col[:n_out] = np.arange(n_out)
+    return {"u_ptr": u_ptr.astype(np.int32),
+            "u_in": (keys % n_in).astype(np.int32),
+            "u_mask": u_mask.astype(np.uint32).view(np.int32), "u_w": u_w,
+            "grp_col": grp_col.reshape(groups, G), "G": G,
+            "share": len(ent_in) / max(1, len(keys))}
+
+
+def xprop_kernel(N, bsize, n_out, sm_count, share):
+    """The unsplit bf16/f16 xprop's kernel for a product of N rows into
+    ``n_out`` output block-columns on a card of ``sm_count`` SMs, its
+    wgmma plan's items serving ``share`` entries each on average
+    (``xprop_wgmma_plan``): "wgmma" (``csrc/bsmm_xprop_wgmma.cu``) at the
+    block sizes it takes where its tiles, ceil(N / XPROP_WG_TM) ·
+    ceil(n_out / G) (G = XPROP_WG_FEATURES // bsize), number at least
+    XPROP_WG_MIN_FILL · sm_count and share >= XPROP_WG_MIN_SHARE; else
+    "mma"
+    (``csrc/bsmm_xprop_mma.cu``).  Shapes, the plan's counts and the SM
+    count only."""
+    if bsize not in WGMMA_BLOCK_SIZES or share < XPROP_WG_MIN_SHARE:
+        return "mma"
+    groups = -(-n_out // (XPROP_WG_FEATURES // bsize))
+    tiles = -(-N // XPROP_WG_TM) * groups
+    return "wgmma" if tiles >= XPROP_WG_MIN_FILL * sm_count else "mma"
+
+
+def updat_kernel(N, bsize, groups, sm_count):
+    """The bf16/f16 updat's kernel for a product of N rows over
+    ``updat_plan``'s ``groups`` on a card of ``sm_count`` SMs: "wgmma"
+    (``csrc/bsmm_updat_wgmma.cu``, one resident thread block an SM) at
+    the block sizes it takes, but where the groups alone fill UPDAT_WAVES
+    waves of it (no N split) over runs of at least UPDAT_WG_LONG_RUN rows;
+    else "mma" (``csrc/bsmm_updat_mma.cu``, two resident thread blocks an
+    SM).  The H100 runs in PERF.md set the exception: the conv's
+    C=2048 updat, 1,251 groups over N 32,768, took 3.6% longer on the
+    wgmma kernel, and bench.py's 8192² op, ~2,300 groups over N 2,048,
+    33% less.  Shapes, the plan's count and the SM count only."""
+    if bsize not in WGMMA_BLOCK_SIZES or N < 1:
+        return "mma"
+    unsplit = groups >= UPDAT_WAVES * UPDAT_WG_RESIDENT * sm_count
+    return "mma" if unsplit and N >= UPDAT_WG_LONG_RUN else "wgmma"
 
 
 # ---------------- the kernels' wrappers ----------------
@@ -513,14 +637,49 @@ def _xprop(fn, source, cfn, x, w, ints, n_ptr, bsize, n_out_blocks, trans_w,
     return y
 
 
+def _wgmma_xprop(fn, x, w, plan, bsize, n_out_blocks, trans_w):
+    """``csrc/bsmm_xprop_wgmma.cu`` over ``plan`` (``xprop_wgmma_plan``'s
+    arrays as int32 tensors on x's device, and G), x and w 16-byte
+    aligned; bf16 or f16, the block sizes of WGMMA_BLOCK_SIZES, N >= 1."""
+    if bsize not in WGMMA_BLOCK_SIZES:
+        raise ValueError(f"{fn} on bsmm_xprop_wgmma.cu takes block sizes "
+                         f"{WGMMA_BLOCK_SIZES}, got {bsize}")
+    if x.dtype == torch.float32:
+        raise TypeError(f"{fn} on bsmm_xprop_wgmma.cu takes bf16 or f16; f32 "
+                        f"runs bsmm_fprop.cu over xprop_launch's plan")
+    G = XPROP_WG_FEATURES // bsize
+    grp = plan["grp_col"]
+    if plan["G"] != G or grp.dim() != 2 or grp.shape[1] != G or \
+            grp.shape[0] != -(-n_out_blocks // G):
+        raise ValueError(f"the plan's grp_col must be "
+                         f"({-(-n_out_blocks // G)}, {G}), got "
+                         f"{tuple(grp.shape)}")
+    if x.dim() == 2 and x.shape[0] == 0:
+        raise ValueError(f"{fn} on bsmm_xprop_wgmma.cu takes N >= 1")
+    ints = tuple((k, plan[k]) for k in ("u_ptr", "u_in", "u_mask", "u_w",
+                                        "grp_col"))
+    if plan["u_w"].shape != (plan["u_in"].numel(), G) or \
+            plan["u_mask"].numel() != plan["u_in"].numel():
+        raise ValueError("the plan's u_in, u_mask and u_w must describe one "
+                         "item a row")
+    x, w = _aligned(x), _aligned(w)
+    return _xprop(fn, "bsmm_xprop_wgmma", "bsmm_xprop_wgmma_nc", x, w, ints,
+                  grp.shape[0] + 1, bsize, n_out_blocks, trans_w,
+                  extra=(grp.shape[0], w.shape[0]))
+
+
 def _unsplit(fn, x, w, ints, n_ptr, bsize, n_out_blocks, trans_w,
              partial=False, plan=None):
     """The unsplit xprop kernel for x's dtype, x and w 16-byte aligned
     (``_aligned``): ``csrc/bsmm_fprop.cu`` (fp32 on the CUDA cores) for
     f32, over ``plan`` (``xprop_launch``: grp_col an int32 tensor on x's
-    device, gn and tm); ``csrc/bsmm_xprop_mma.cu`` (tensor cores) for bf16
-    and f16, which reads no plan."""
+    device, gn and tm); for bf16 and f16 ``csrc/bsmm_xprop_wgmma.cu`` over
+    a ``plan`` of ``xprop_wgmma_plan`` (``_wgmma_xprop``; not for the
+    partial tiles), else ``csrc/bsmm_xprop_mma.cu`` (tensor cores,
+    mma.sync), which reads no plan (an f32 launch plan is ignored)."""
     suffix = "_partials" if partial else ""
+    if plan is not None and "u_ptr" in plan and not partial:
+        return _wgmma_xprop(fn, x, w, plan, bsize, n_out_blocks, trans_w)
     x, w = _aligned(x), _aligned(w)
     extra = ()
     if x.dtype == torch.float32:
@@ -554,24 +713,33 @@ def bsmm_fprop(x, w, row_ptr, ent_c, ent_w, bsize, n_out_blocks, plan=None):
     w: (blocks, bsize, bsize).  x and w: f32, bf16 or f16, same dtype,
     contiguous, on one CUDA device.  f32 also takes ``plan``, the launch
     (``xprop_launch`` over ``xprop_groups`` of row_ptr, its grp_col on
-    x's device).  Raises on anything else."""
+    x's device).  bf16 and f16 run ``csrc/bsmm_xprop_wgmma.cu`` given
+    ``xprop_wgmma_plan``'s plan of row_ptr (its arrays on x's device;
+    row_ptr and the entries are then not read), a launch counted in
+    ``launches_wgmma`` too; else ``csrc/bsmm_xprop_mma.cu``, which reads
+    no plan.  Raises on anything else."""
     y = _unsplit("bsmm_fprop", x, w,
                  (("row_ptr", row_ptr), ("ent_c", ent_c), ("ent_w", ent_w)),
                  n_out_blocks + 1, bsize, n_out_blocks, trans_w=False,
                  plan=plan)
     bsmm_fprop.launches += 1
+    if plan is not None and "u_ptr" in plan:
+        bsmm_fprop.launches_wgmma += 1
     return y
 
 
 def bsmm_bprop(dy, w, row_ptr, ent_k, ent_w, bsize, n_out_blocks, plan=None):
     """dx (N, n_out_blocks*bsize) = dy (N, K) · Wᵀ over the bprop CSR (one
     row per input block-column c, entries (k, w) in accumulation order),
-    on the card.  Same types, plan and checks as ``bsmm_fprop``."""
+    on the card.  Same types, plans, checks and counts as
+    ``bsmm_fprop``."""
     dx = _unsplit("bsmm_bprop", dy, w,
                   (("row_ptr", row_ptr), ("ent_k", ent_k), ("ent_w", ent_w)),
                   n_out_blocks + 1, bsize, n_out_blocks, trans_w=True,
                   plan=plan)
     bsmm_bprop.launches += 1
+    if plan is not None and "u_ptr" in plan:
+        bsmm_bprop.launches_wgmma += 1
     return dx
 
 
@@ -713,7 +881,8 @@ def bsmm_merge(tiles, idx, bsize, out_dtype):
     return y
 
 
-def bsmm_updat(x, dy, ent_c, ent_k, bsize, plan=None, splits=1):
+def bsmm_updat(x, dy, ent_c, ent_k, bsize, plan=None, splits=1,
+               kernel="mma"):
     """dw (blocks, bsize, bsize) f32 = x_cᵀ · dy_k per layout block, summed
     over N, on the card.  x (N, C), dy (N, K): contiguous, one dtype (f32,
     bf16 or f16); ent_c, ent_k: (blocks,) int32, the updat list; ``plan``:
@@ -722,12 +891,18 @@ def bsmm_updat(x, dy, ent_c, ent_k, bsize, plan=None, splits=1):
 
     f32 runs ``csrc/bsmm_updat.cu`` on the CUDA cores over the plan's
     groups, each output one chain over all of N (``splits`` is not read).
-    bf16 and f16 run ``csrc/bsmm_updat_mma.cu`` on the tensor cores over
-    the plan; with ``splits`` > 1 in runs of ``updat_run_rows(N, splits)``
-    rows, whose f32 partials ``bsmm_updat_reduce`` sums in order.  Each
-    sum runs in a fixed order."""
+    bf16 and f16 run on the tensor cores over the plan, ``kernel`` "mma"
+    ``csrc/bsmm_updat_mma.cu`` (mma.sync) or "wgmma"
+    ``csrc/bsmm_updat_wgmma.cu`` (wgmma fed by TMA: block sizes of
+    WGMMA_BLOCK_SIZES, N >= 1; counted in ``launches_wgmma`` too); with
+    ``splits`` > 1 in runs of ``updat_run_rows(N, splits, kernel)`` rows,
+    whose f32 partials ``bsmm_updat_reduce`` sums in order.  Each sum runs
+    in a fixed order."""
     if plan is None:
         raise ValueError("bsmm_updat runs over updat_plan's groups: pass plan")
+    if kernel not in ("mma", "wgmma"):
+        raise ValueError(f"bsmm_updat's kernel is 'mma' or 'wgmma', got "
+                         f"{kernel!r}")
     grp_q, slot_p, slot_e = plan["grp_q"], plan["slot_p"], plan["slot_e"]
     _check_common("bsmm_updat", x, (("dy", dy),), bsize,
                   (("ent_c", ent_c), ("ent_k", ent_k), ("grp_q", grp_q),
@@ -748,12 +923,17 @@ def bsmm_updat(x, dy, ent_c, ent_k, bsize, plan=None, splits=1):
     if slot_p.shape != (groups, G) or slot_e.shape != (groups, G):
         raise ValueError(f"slot_p and slot_e must be ({groups}, {G})")
     (N, C), K, blocks = x.shape, dy.shape[1], ent_c.numel()
+    f32 = x.dtype == torch.float32
+    wgmma = kernel == "wgmma"
+    if wgmma and (f32 or bsize not in WGMMA_BLOCK_SIZES or N < 1):
+        raise ValueError(f"bsmm_updat on bsmm_updat_wgmma.cu takes bf16 or "
+                         f"f16, block sizes {WGMMA_BLOCK_SIZES} and N >= 1, "
+                         f"got {x.dtype}, {bsize}, N={N}")
     x, dy = _aligned(x), _aligned(dy)
     p, q, ldp, ldq = (dy, x, K, C) if plan["by_c"] else (x, dy, C, K)
     ptrs = (p.data_ptr(), q.data_ptr(), grp_q.data_ptr(), slot_p.data_ptr(),
             slot_e.data_ptr())
-    f32 = x.dtype == torch.float32
-    rows = N if f32 else updat_run_rows(N, splits)
+    rows = N if f32 else updat_run_rows(N, splits, kernel)
     runs = -(-N // rows) if splits > 1 and not f32 else 1
     out = torch.empty((runs, blocks, bsize, bsize) if runs > 1 else
                       (blocks, bsize, bsize), dtype=torch.float32,
@@ -764,14 +944,15 @@ def bsmm_updat(x, dy, ent_c, ent_k, bsize, plan=None, splits=1):
                 0, bsize, int(plan["by_c"]), *ptrs, out.data_ptr(), N, ldp,
                 ldq, groups, _stream(x))
         else:
-            err = _build.function("bsmm_updat_mma", "bsmm_updat_mma_nc",
-                                  _UPDAT_MMA_ARGS)(
+            source = "bsmm_updat_wgmma" if wgmma else "bsmm_updat_mma"
+            err = _build.function(source, f"{source}_nc", _UPDAT_MMA_ARGS)(
                 _DTYPE_CODE[x.dtype], bsize, int(plan["by_c"]), *ptrs,
                 out.data_ptr(), N, ldp, ldq, groups, runs, rows, blocks,
                 _stream(x))
     if err != 0:
         raise RuntimeError(f"bsmm_updat launch failed: cudaError {err}")
     bsmm_updat.launches += 1
+    bsmm_updat.launches_wgmma += wgmma
     return out if runs == 1 else bsmm_updat_reduce(out)
 
 
@@ -805,6 +986,10 @@ def bsmm_updat_reduce(parts):
 bsmm_fprop.launches = 0
 bsmm_bprop.launches = 0
 bsmm_updat.launches = 0
+# the launches of the wgmma kernels among those above
+bsmm_fprop.launches_wgmma = 0
+bsmm_bprop.launches_wgmma = 0
+bsmm_updat.launches_wgmma = 0
 bsmm_updat_reduce.launches = 0
 bsmm_fine.launches = 0
 bsmm_window.launches = 0

@@ -63,7 +63,8 @@ class BlocksparseMatMul:
         always take the plain version.
     mode: which kernel fprop and bprop run on a CUDA tensor (the
         function is the same; updat always runs ``bsmm_updat`` over
-        ``updat_plan``'s groups, in bf16 and f16 with N split by
+        ``updat_plan``'s groups, in bf16 and f16 on the kernel
+        ``kernels.bsmm.updat_kernel`` picks, N split by
         ``updat_splits``):
         - "fine" with block_size <= 32: ``bsmm_fine`` (the JAX fine
           schedule), 128-deep chunks of each output column's entries;
@@ -80,8 +81,12 @@ class BlocksparseMatMul:
           thread blocks, is smaller than the card's SM count and the
           longest column holds at least 8 entries; P = min(8, ceil(SMs /
           grid), longest // 4) runs at most, each of at least 4 entries
-          (``kernels.bsmm.split_phases``).  Otherwise unsplit.
-        ``dispatch_mode(N)`` names the route.
+          (``kernels.bsmm.split_phases``).  Otherwise unsplit, in
+          bf16/f16 on the kernel ``kernels.bsmm.xprop_kernel`` picks
+          (``bsmm_xprop_wgmma.cu`` over ``xprop_wgmma_plan``'s column
+          groups, or ``bsmm_xprop_mma.cu``).
+        ``dispatch_mode(N)`` names the route, ``kernel_of(N, d)`` the
+        kernel's source.
     tile_n, dense_tile_G, dense_tile_R: TPU schedule knobs; the dense-tile
         pair decides an ``fprop_packed`` store's shape and order, and
         nothing else.
@@ -178,7 +183,7 @@ class BlocksparseMatMul:
         self._plan_luts = {}      # (device, kind, d, phases) -> tensors
         self._split_runs = {}     # (N, d, SMs) -> phases of the split rule
         self._xlaunches = {}      # (device, d, N, phases) -> f32 xprop launch
-        self._updat_runs = {}     # (N, SMs) -> runs of the updat's N split
+        self._updat_runs = {}     # (N, SMs) -> the updat's kernel and runs
         self._static_gates = {}   # a NumPy gate's bytes -> _StaticGate
 
         self._block_kb = self.updat_lut[:, 1].copy()   # for l2_normalize
@@ -559,21 +564,62 @@ class BlocksparseMatMul:
         """Runs of N the updat of N rows takes on a card of ``sm_count`` SMs
         (default the current CUDA device's): 1 (unsplit) in f32, whose
         kernel walks all of N; in bf16 and f16 the split rule
-        (``kernels.bsmm.updat_splits``) over this layout's groups."""
+        (``kernels.bsmm.updat_splits``) over this layout's groups for the
+        kernel ``updat_kernel`` picks."""
+        return self._updat_route(N, dtype, sm_count)[1]
+
+    def _updat_route(self, N, dtype, sm_count=None):
+        """(kernel, runs of N) of the updat of N rows: ("mma", 1) in f32
+        (``bsmm_updat.cu``, which reads no kernel name); in bf16 and f16
+        ``kernels.bsmm.updat_kernel``'s kernel and its split."""
         if dtype == torch.float32:
-            return 1
+            return "mma", 1
         sms = sm_count if sm_count is not None else device_sm_count()
         key = (N, sms)
         if key not in self._updat_runs:
-            self._updat_runs[key] = bsmm_kernels.updat_splits(
-                N, len(self._plan("updat", "u")["grp_q"]), self.bsize, sms)
+            groups = len(self._plan("updat", "u")["grp_q"])
+            kernel = bsmm_kernels.updat_kernel(N, self.bsize, groups, sms)
+            self._updat_runs[key] = kernel, bsmm_kernels.updat_splits(
+                N, groups, self.bsize, sms, kernel)
         return self._updat_runs[key]
+
+    def kernel_of(self, N, d, dtype=torch.bfloat16, sm_count=None):
+        """The source (``csrc/<name>.cu``) the kernel of direction d ("f"
+        fprop, "b" bprop, "u" updat) of a CUDA tensor of N rows in
+        ``dtype`` launches on a card of ``sm_count`` SMs (default the
+        current device's).  The split route's is "bsmm_xprop_mma" in
+        bf16/f16 (the fused split) and "bsmm_fprop" in f32 (its partial
+        tiles, which ``bsmm_merge.cu`` then sums)."""
+        sms = sm_count if sm_count is not None else device_sm_count()
+        f32 = dtype == torch.float32
+        if d == "u":
+            if f32:
+                return "bsmm_updat"
+            return "bsmm_updat_" + self._updat_route(N, dtype, sms)[0]
+        route = self._route(N, d, sms)
+        if route in ("fine", "window"):
+            return f"bsmm_{route}" + ("" if f32 else "_mma")
+        if f32:
+            return "bsmm_fprop"
+        if route == "phased":
+            return "bsmm_xprop_mma"
+        return "bsmm_xprop_" + self._xkernel(N, d, sms)
+
+    def _xkernel(self, N, d, sms):
+        """The unsplit bf16/f16 xprop's kernel of direction d at N rows
+        (``kernels.bsmm.xprop_kernel`` over its wgmma plan's share):
+        "wgmma" or "mma"."""
+        share = self._plan("wgmma", d)["share"] \
+            if self.bsize in bsmm_kernels.WGMMA_BLOCK_SIZES else 0.0
+        return bsmm_kernels.xprop_kernel(N, self.bsize, self._csr(d)[2], sms,
+                                         share)
 
     def _plan(self, kind, d, phases=0):
         """The host-side plan (NumPy) of a route, built once (kind "updat":
         the updat's groups, d "u"; kind "xgroup": ``bsmm_fprop.cu``'s
         column groups over direction d's CSR, or with ``phases`` over the
-        split plan's tiles)."""
+        split plan's tiles; kind "wgmma": ``bsmm_xprop_wgmma.cu``'s column
+        groups and their items over direction d's CSR)."""
         key = (kind, d, phases)
         plan = self._plans.get(key)
         if plan is None:
@@ -581,6 +627,9 @@ class BlocksparseMatMul:
             if kind == "updat":
                 plan = bsmm_kernels.updat_plan(
                     self.updat_lut[:, 0], self.updat_lut[:, 1], self.bsize)
+            elif kind == "wgmma":
+                plan = bsmm_kernels.xprop_wgmma_plan(row_ptr, ib, wb,
+                                                     self.bsize)
             elif kind == "xgroup":
                 if phases:
                     row_ptr = self._plan("split", d, phases)["tile_ptr"]
@@ -691,8 +740,12 @@ class BlocksparseMatMul:
         else:
             kernel = bsmm_kernels.bsmm_bprop if trans \
                 else bsmm_kernels.bsmm_fprop
-            plan = self._xlaunch(x.device, d, xn.shape[0]) \
-                if x.dtype == torch.float32 else None
+            if x.dtype == torch.float32:
+                plan = self._xlaunch(x.device, d, xn.shape[0])
+            elif self._xkernel(xn.shape[0], d, sms) == "wgmma":
+                plan = self._plan_tensors(x.device, "wgmma", d)
+            else:
+                plan = None
             y = kernel(xn, wc, lut[f"{d}_row_ptr"], lut[f"{d}_ent_in"],
                        lut[f"{d}_ent_w"], b, n_out, plan=plan)
         y = y.to(out_dtype)
@@ -710,11 +763,11 @@ class BlocksparseMatMul:
             dt = torch.promote_types(x.dtype, dy.dtype)
             x, dy = x.to(dt), dy.to(dt)
         xn, dyn = self._nc(x), self._nc(dy)
-        splits = self.updat_splits(xn.shape[0], x.dtype,
-                                   device_sm_count(x.device))
+        kernel, splits = self._updat_route(xn.shape[0], x.dtype,
+                                           device_sm_count(x.device))
         return bsmm_kernels.bsmm_updat(
             xn, dyn, lut["u_c32"], lut["u_k32"], self.bsize,
-            self._plan_tensors(x.device, "updat", "u"), splits)
+            self._plan_tensors(x.device, "updat", "u"), splits, kernel)
 
     def matmul(self, I, W, **kwargs):
         return self.__call__(I, W, **kwargs)

@@ -7,18 +7,29 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` (one
 nvcc per source, all at once) and holds each against its plain PyTorch
 version in f32, bf16 and f16: the serving kernels at the serving path's
 shapes, the training kernels (block-sparse matmul bprop and updat,
-attention training forward, dq and dk/dv) at the training step's.  The
-block-sparse matmul's fprop and bprop run ``bsmm_xprop_mma.cu`` on the
-tensor cores in bf16 and f16 (two runs must agree bit for bit; it is
-also held against its plain version at every block size 8-128, for
-fprop, bprop and the split route's partial tiles) and ``bsmm_fprop.cu``
-in f32; their times come with TFLOP/s.  The weight gradient (updat) runs
-``bsmm_updat_mma.cu`` on the tensor cores in bf16 and f16, over the
-layout's blocks in groups that share a staged tile, with N split into
-runs where the groups alone would leave SMs idle and the runs' partials
-summed in order by its second kernel (``bsmm_updat_reduce``); it is held
-against its plain version at every block size 8-128, split and unsplit,
-two runs equal bit for bit, and ``bsmm_updat.cu`` in f32.  The f32
+attention training forward, dq and dk/dv) at the training step's, each
+line naming the kernel the product took.  The block-sparse matmul's
+fprop and bprop run on the tensor cores in bf16 and f16:
+``bsmm_xprop_wgmma.cu`` (``wgmma`` fed by TMA, column groups) where the
+route rule ``xprop_kernel`` picks it, ``bsmm_xprop_mma.cu`` elsewhere and
+on the split route (two runs must agree bit for bit; both are held
+against their plain version at every block size they take, for fprop,
+bprop and the split route's partial tiles and fused split, the latter
+bit for bit against the partials merged); ``bsmm_fprop.cu`` in f32;
+their times come with TFLOP/s.  The weight gradient (updat) runs
+``bsmm_updat_wgmma.cu`` or ``bsmm_updat_mma.cu`` (``updat_kernel``) on
+the tensor cores in bf16 and f16, over the layout's blocks in groups that
+share a staged tile, with N split into runs where the groups alone would
+leave SMs idle and the runs' partials summed in order by
+``bsmm_updat_mma.cu``'s second kernel (``bsmm_updat_reduce``); both are
+held against their plain version at every block size they take, split
+and unsplit, two runs equal bit for bit, and ``bsmm_updat.cu`` in f32.
+The wgmma phase then times both kernels of each direction in turns at
+the main path's shapes (the LM's products at N 1,024-16,384, the conv's
+at C 512 and 2048, the MoE's bsmm1, bench.py's random 8192² op) beside
+the bound, the library call, a call's host time and each source's
+registers and spills; the captured train step is also timed against
+the same step on the mma.sync kernels, in turns.  The f32
 kernels (``bsmm_fprop.cu``: an SGEMM-style kernel over the op's column
 groups at an N-tile chosen by N, each output one fmaf chain in LUT
 order; ``bsmm_updat.cu`` over ``updat_plan``'s groups, one chain over N)
@@ -298,7 +309,8 @@ SOURCES = ("bsmm_xprop_mma", "bsmm_fprop", "bsmm_updat_mma", "bsmm_updat",
            "bst_attn_fwd", "bst_attn_fwd_mma", "bst_attn_bwd_mma",
            "bst_attn_bwd", "im2col", "col2im_tma",
            "bsmm_fine_mma", "bsmm_fine", "bsmm_window_mma", "bsmm_window",
-           "bsmm_merge", "bst_nt_mma", "bst_nt", "bst_xn_mma", "bst_xn")
+           "bsmm_merge", "bst_nt_mma", "bst_nt", "bst_xn_mma", "bst_xn",
+           "bsmm_xprop_wgmma", "bsmm_updat_wgmma")
 DTYPES = (torch.bfloat16, torch.float32, torch.float16)
 # |kernel - plain| <= TOL * max(1, max|plain|); f16 held at bf16 level
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 1e-2}
@@ -470,6 +482,14 @@ def xprop_flops(op, N):
     return 2 * N * op.blocks * op.bsize ** 2
 
 
+def kernel_of(op, N, d, dtype=torch.bfloat16):
+    """(the profiler's name fragment, the source file) of the kernel
+    direction d ("f", "b", "u") of ``op`` launches at N rows in ``dtype``
+    (bf16 and f16: each source's kernel is named <source>_kernel)."""
+    src = op.kernel_of(N, d, dtype)
+    return f"{src}_kernel", f"{src}.cu"
+
+
 def serving_kernel_checks(model, plain, dev, g, rows):
     """The serving kernels against their plain versions at the serving
     path's shapes."""
@@ -480,7 +500,8 @@ def serving_kernel_checks(model, plain, dev, g, rows):
                 x = torch.randn((N, op.C), device=dev, generator=g).to(dtype)
                 w = (torch.randn(op.w_shape, device=dev, generator=g)
                      * 0.02).to(dtype)
-                what = f"bsmm_fprop {name} N={N} C={op.C} K={op.K} {dtype}"
+                what = (f"bsmm_fprop {name} N={N} C={op.C} K={op.K} {dtype} "
+                        f"(on {op.kernel_of(N, 'f', dtype)})")
                 err = compare(what, op(x, w), ref_op(x, w), TOL[dtype])
                 same_bits(what, lambda: op(x, w))
                 timed(rows, ("fprop", name, N, dtype), err,
@@ -519,7 +540,8 @@ def training_kernel_checks(model, plain, dev, g, rows):
             dy = torch.randn((N, op.K), device=dev, generator=g).to(dtype)
             w = (torch.randn(op.w_shape, device=dev, generator=g)
                  * 0.02).to(dtype)
-            what = f"bsmm_bprop {name} N={N} K={op.K} -> C={op.C} {dtype}"
+            what = (f"bsmm_bprop {name} N={N} K={op.K} -> C={op.C} {dtype} "
+                    f"(on {op.kernel_of(N, 'b', dtype)})")
             err = compare(what, op._xprop(dy, w, "b"),
                           ref_op._xprop(dy, w, "b"), TOL[dtype])
             same_bits(what, lambda: op._xprop(dy, w, "b"))
@@ -528,7 +550,8 @@ def training_kernel_checks(model, plain, dev, g, rows):
                   lambda: ref_op._xprop(dy, w, "b"), 20,
                   flops=xprop_flops(op, N))
             what = (f"bsmm_updat {name} N={N} {op.blocks} blocks {dtype} "
-                    f"({op.updat_splits(N, dtype)} runs of N)")
+                    f"({op.updat_splits(N, dtype)} runs of N, on "
+                    f"{op.kernel_of(N, 'u', dtype)})")
             err = compare(what, op._updat(x, dy), ref_op._updat(x, dy),
                           UPDAT_TOL)
             same_bits(what, lambda: op._updat(x, dy))
@@ -866,11 +889,13 @@ def attn_report(model, rows, marks, card_line):
 
 
 def xprop_block_size_checks(bt, dev, g):
-    """bsmm_xprop_mma.cu against its plain version at every block size,
-    in bf16 and f16, for fprop, bprop, the split route's partial tiles
-    (merged by merge_plain) and the fused split (bsmm_split, clusters of
-    8 blocks; also bit for bit against bsmm_merge over the partials), each
-    also run twice for equal bits."""
+    """The bf16/f16 xprop kernels against their plain version at every
+    block size, in bf16 and f16, for fprop and bprop: the op's unsplit
+    route, bsmm_xprop_mma.cu unsplit ("mma"), bsmm_xprop_wgmma.cu over
+    its column groups ("wgmma", the block sizes it takes), the split
+    route's partial tiles (merged by merge_plain) and the fused split
+    (bsmm_split, clusters of 8 blocks; also bit for bit against
+    bsmm_merge over the partials), each also run twice for equal bits."""
     from blocksparse_tpu_torch.kernels import bsmm as bk
     rng = np.random.RandomState(SEED)
     for b in bk.BLOCK_SIZES:
@@ -892,17 +917,26 @@ def xprop_block_size_checks(bt, dev, g):
                 split = op._plan_tensors(dev, "split", d, bk.SPLIT_MAX_PHASES)
                 ents = (lut[f"{d}_ent_in"], lut[f"{d}_ent_w"])
                 n_out = op.KB if d == "f" else op.CB
+                kern = bk.bsmm_bprop if d == "b" else bk.bsmm_fprop
+                csr = (lut[f"{d}_row_ptr"], *ents, b, n_out)
                 runs = {
                     "unsplit": lambda: op._xprop(x, w, d),
+                    "mma": lambda: kern(x, w, *csr),
+                    "wgmma": lambda: kern(
+                        x, w, *csr, plan=op._plan_tensors(dev, "wgmma", d)),
                     "partials": lambda: bk.bsmm_partials(
                         x, w, split["tile_ptr"], *ents, b,
                         split["tile_ptr"].numel() - 1, d == "b"),
                     "split": lambda: bk.bsmm_split(
                         x, w, split["tile_ptr"], *ents, split["merge_idx"], b,
                         n_out, d == "b")}
+                if b not in bk.WGMMA_BLOCK_SIZES:
+                    del runs["wgmma"]
                 for route, fn in runs.items():
-                    what = (f"bsmm_xprop_mma b{b} {d}prop {route} "
-                            f"N={XPROP_N} {op.blocks} blocks {dtype}")
+                    what = (f"bsmm_xprop b{b} {d}prop {route} "
+                            f"({op.kernel_of(XPROP_N, d, dtype)} on the "
+                            f"op's route) N={XPROP_N} {op.blocks} blocks "
+                            f"{dtype}")
                     same_bits(what, fn)
                     y = fn()
                     if route == "partials":
@@ -919,10 +953,14 @@ def xprop_block_size_checks(bt, dev, g):
 
 
 def updat_block_size_checks(bt, dev, g):
-    """bsmm_updat_mma.cu against its plain version at every block size, in
-    bf16 and f16, unsplit and split, on the layout of the xprop sweep and
-    its transpose (groups by x block-row and by dy block-column), each run
-    twice for equal bits."""
+    """The bf16/f16 updat kernels against their plain version at every
+    block size, in bf16 and f16, unsplit and split, on the layout of the
+    xprop sweep and its transpose (groups by x block-row and by dy
+    block-column), each run twice for equal bits: the op's route, and
+    bsmm_updat_mma.cu and bsmm_updat_wgmma.cu (the block sizes it takes)
+    each with its own split."""
+    from blocksparse_tpu_torch.kernels import bsmm as bk
+    sms = bk.device_sm_count(dev)
     rng = np.random.RandomState(SEED + 1)
     for b in (8, 16, 32, 64, 128):
         n = XPROP_HIDDEN // b
@@ -933,25 +971,240 @@ def updat_block_size_checks(bt, dev, g):
             plain = bt.BlocksparseMatMul(layout, block_size=b,
                                          feature_axis=1, impl="xla")
             plan = op._plan("updat", "u")
+            planned = op._plan_tensors(dev, "updat", "u")
+            lut = op._lut(dev)
+            groups = len(plan["grp_q"])
+            kernels = ("mma", "wgmma") if b in bk.WGMMA_BLOCK_SIZES \
+                else ("mma",)
             for dtype in (torch.bfloat16, torch.float16):
                 for N in (XPROP_N, UPDAT_SPLIT_N):
-                    runs = op.updat_splits(N, dtype)
-                    check((runs > 1) == (N == UPDAT_SPLIT_N),
-                          f"updat b{b} N={N}: {runs} runs of N (split only "
-                          f"at N={UPDAT_SPLIT_N})")
                     x = torch.randn((N, op.C), device=dev,
                                     generator=g).to(dtype)
                     dy = torch.randn((N, op.K), device=dev,
                                      generator=g).to(dtype)
-                    what = (f"bsmm_updat_mma b{b} {op.C} -> {op.K} "
-                            f"{op.blocks} blocks, {len(plan['grp_q'])} "
-                            f"groups by {'x' if plan['by_c'] else 'dy'} "
-                            f"block, N={N} in {runs} runs {dtype}")
-                    same_bits(what, lambda: op._updat(x, dy))
-                    compare(what, op._updat(x, dy), plain._updat(x, dy),
-                            UPDAT_TOL)
-                    del x, dy
+                    ref = plain._updat(x, dy)
+                    for kernel in (None, *kernels):
+                        if kernel is None:      # the op's route
+                            runs = op.updat_splits(N, dtype)
+                            name = op.kernel_of(N, "u", dtype)
+
+                            def fn():
+                                return op._updat(x, dy)
+                        else:
+                            runs = bk.updat_splits(N, groups, b, sms, kernel)
+                            name = f"bsmm_updat_{kernel}"
+
+                            def fn(kernel=kernel, runs=runs):
+                                return bk.bsmm_updat(
+                                    x, dy, lut["u_c32"], lut["u_k32"], b,
+                                    planned, runs, kernel)
+                        check((runs > 1) == (N == UPDAT_SPLIT_N),
+                              f"updat b{b} N={N} on {name}: {runs} runs of N "
+                              f"(split only at N={UPDAT_SPLIT_N})")
+                        what = (f"{name}{'' if kernel else ' (route)'} b{b} "
+                                f"{op.C} -> {op.K} {op.blocks} blocks, "
+                                f"{groups} groups by "
+                                f"{'x' if plan['by_c'] else 'dy'} block, "
+                                f"N={N} in {runs} runs {dtype}")
+                        same_bits(what, fn)
+                        compare(what, fn(), ref, UPDAT_TOL)
+                    del x, dy, ref
     torch.cuda.empty_cache()
+
+
+# The wgmma phase: the wgmma kernels against the mma.sync kernels they
+# replace, in turns (mma, wgmma, wgmma, mma), each a CUDA graph of WG_CALLS
+# calls timed by CUDA events (device time; a call's host time beside it,
+# eager), at the main path's shapes: the LM's two MLP products at the train
+# step's N and below (prefill 8192 (PROMPTS x PROMPT_LEN is 4096), the
+# pipeline microbatch 4096, 2048, 1024: where the route rule turns), the
+# conv's at C 512 and 2048 (d 0.25, N 32 x 32 x 32), the MoE's bsmm1 at
+# N = C = 2560 (dense b32; its updat takes bf16 inputs), bench.py's random
+# 8192^2 b32 op at N 2048.
+WG_CALLS = 20
+WG_NS = (16384, 8192, 4096, 2048, 1024)
+WG_PLAIN_BYTES = 2 ** 31
+WG_SOURCES = ("bsmm_xprop_wgmma", "bsmm_updat_wgmma")
+# the wgmma kernels' dynamic shared memory a thread block by block size,
+# as their sources' smem_bytes() count it (1 KB of alignment, the ring,
+# the xprop's staged output tile, two mbarriers a stage)
+WG_SMEM = {"bsmm_xprop_wgmma": {32: 216160, 64: 216112, 128: 216112},
+           "bsmm_updat_wgmma": {32: 185424, 64: 164928, 128: 197696}}
+
+
+def wgmma_cases(bt, model):
+    """(label, op, N, directions) of the wgmma phase; the conv's ops as
+    its BlocksparseConv builds them (feature_axis 0: the kernels see X's
+    NC transpose, as the conv hands it)."""
+    cases = [(f"{name} N={N}", op, N, "fbu")
+             for name, op in (("bsmm1", model.bsmm1), ("bsmm2", model.bsmm2))
+             for N in WG_NS]
+    for C, d, bck in conv_configs():
+        if d == 0.25 and C in (512, 2048):
+            conv = bt.BlocksparseConv(bck, (3, 3), (CONV_HW, CONV_HW),
+                                      padding="SAME", impl="bsmm")
+            cases.append((f"conv C={C}", conv._bsmm_op,
+                          CONV_BATCH * CONV_HW ** 2, "fbu"))
+    cases.append(("moe bsmm1 N=2560", bt.BlocksparseMatMul(
+        np.ones((16, 64), np.int32), block_size=32, feature_axis=1), 2560,
+        "fbu"))
+    lay = make_layout("random", PACKED_HIDDEN // 32, PACKED_DENSITY,
+                      np.random.RandomState(0))
+    cases.append(("packed random b32 N=2048", bt.BlocksparseMatMul(
+        lay, block_size=32, feature_axis=0), PACKED_N, "fbu"))
+    return cases
+
+
+def wgmma_pair(op, N, d, dev, g):
+    """{"mma": fn, "wgmma": fn} of direction d ("f", "b", "u") of ``op``
+    at N rows, bf16, on the two kernels (the updat each with its own
+    split and the reduce), the route's plain version, the bound's (flops,
+    bytes) and the library call."""
+    from blocksparse_tpu_torch.kernels import bsmm as bk
+    bf, b, sms = torch.bfloat16, op.bsize, bk.device_sm_count(dev)
+    lut = op._lut(dev)
+    cin, cout = (op.C, op.K) if d != "b" else (op.K, op.C)
+    x = torch.randn((N, cin), device=dev, generator=g).to(bf)
+    w = (torch.randn(op.w_shape, device=dev, generator=g) * 0.05).to(bf)
+    flops = 2 * N * op.blocks * b * b
+    wd = dense_weight(op, w)
+    if d == "u":
+        dy = torch.randn((N, op.K), device=dev, generator=g).to(bf)
+        plan = op._plan_tensors(dev, "updat", "u")
+        groups = plan["grp_q"].numel()
+
+        def run(kernel):
+            runs = bk.updat_splits(N, groups, b, sms, kernel)
+            return lambda: bk.bsmm_updat(x, dy, lut["u_c32"], lut["u_k32"],
+                                         b, plan, runs, kernel)
+        fns = {k: run(k) for k in ("mma", "wgmma")}
+        plain = lambda: bk.updat_plain(x, dy, lut["u_c"], lut["u_k"], b, 1)
+        nbytes = 2 * N * (op.C + op.K) + 4 * op.blocks * b * b
+        lib = lambda: x.t() @ dy
+        tol = UPDAT_TOL
+    else:
+        kern = bk.bsmm_fprop if d == "f" else bk.bsmm_bprop
+        csr = (lut[f"{d}_row_ptr"], lut[f"{d}_ent_in"], lut[f"{d}_ent_w"], b,
+               cout // b)
+        wplan = op._plan_tensors(dev, "wgmma", d)
+        fns = {"mma": lambda: kern(x, w, *csr),
+               "wgmma": lambda: kern(x, w, *csr, plan=wplan)}
+        plain = lambda: bk.xprop_plain(
+            x, w, lut[f"{d}_in"], lut[f"{d}_w"], lut[f"{d}_out"], cout // b,
+            b, 1, trans_w=d == "b")
+        nbytes = 2 * (N * (op.C + op.K) + op.blocks * b * b)
+        lib = (lambda: x @ wd) if d == "f" else (lambda: x @ wd.t())
+        tol = TOL[bf]
+    return fns, plain, (flops, nbytes), lib, tol
+
+
+def host_ms(fn, n=50):
+    """A call's host time: n eager calls back to back, the clock stopped
+    before the device is waited for (the enqueue, not the kernels)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    ms = (time.perf_counter() - t) * 1e3 / n
+    torch.cuda.synchronize()
+    return ms
+
+
+def wgmma_turns(bt, model, dev, g, card_line, rows):
+    """The wgmma phase (see WG_CALLS): at each case both kernels held
+    against the plain version (TOL, UPDAT_TOL) and each other's run
+    twice bit-equal, then timed in turns; printed beside the bound, the
+    library call (dense torch.matmul of the scattered W, or x^T . dy) and
+    the route the op takes, and at the train step's shape the profiler's
+    device time a launch; rows[("wg", label, d)] = {kernel: [device ms,
+    ...], "host": {kernel: ms}, ...}.  Then the two sources' registers,
+    spills and shared memory (ptxas)."""
+    from blocksparse_tpu_torch.kernels import bsmm as bk
+    bf, sms = torch.bfloat16, bk.device_sm_count(dev)
+    t0 = time.perf_counter()
+    for label, op, N, dirs in wgmma_cases(bt, model):
+        for d in dirs:
+            name = {"f": "fprop", "b": "bprop", "u": "updat"}[d]
+            fns, plain, (flops, nbytes), lib, tol = wgmma_pair(op, N, d, dev,
+                                                               g)
+            src = "bsmm_updat" if d == "u" else "bsmm_xprop"
+            # the plain version gathers (N, blocks, b) f32: past
+            # WG_PLAIN_BYTES the wgmma kernel is held against the mma one
+            # (itself held against the plain version at the other shapes)
+            small = N * op.blocks * op.bsize * 4 <= WG_PLAIN_BYTES
+            ref = plain() if small else fns["mma"]()
+            errs = {}
+            for k, fn in fns.items():
+                what = f"wgmma phase {label} {name} on {src}_{k}"
+                same_bits(what, fn)
+                if small or k == "wgmma":
+                    errs[k] = compare(
+                        f"{what} against "
+                        f"{'the plain version' if small else src + '_mma'}",
+                        fn(), ref, tol)
+            del ref
+            dev_ms = in_turns(fns, lambda fn: graph_ms(fn, WG_CALLS))
+            host = {k: host_ms(fn) for k, fn in fns.items()}
+            lib_ms = time_ms(lib, WG_CALLS)
+            mark = bound(flops, nbytes)
+            route = op.kernel_of(N, d, bf, sms)
+            rows[("wg", label, d)] = {**dev_ms, "host": host, "bound": mark,
+                                      "lib": lib_ms, "route": route,
+                                      "err": errs}
+            if N == BATCH * model.config.ctx and label.startswith("bsmm"):
+                # at the train step's shape also the profiler's device
+                # time a launch of each kernel (the updat's without its
+                # split's reduce), in turns
+                kern = {k: f"bsmm_{'updat' if d == 'u' else 'xprop'}_{k}_kernel"
+                        for k in fns}
+                prof = in_turns(fns, lambda fn: kernel_device_ms(
+                    fn, kern["wgmma" if fn is fns["wgmma"] else "mma"],
+                    WG_CALLS))
+                rows[("wg", label, d)]["profiler"] = prof
+                print(f"      {label} {name}: profiler device time a launch "
+                      f"mma {' / '.join(f'{v:.4f}' for v in prof['mma'])} "
+                      f"ms, wgmma "
+                      f"{' / '.join(f'{v:.4f}' for v in prof['wgmma'])} ms "
+                      f"(turns)", flush=True)
+            new, old = np.mean(dev_ms["wgmma"]), np.mean(dev_ms["mma"])
+            print(f"{label} {name} bf16 [{card_line}]: mma "
+                  f"{' / '.join(f'{v:.4f}' for v in dev_ms['mma'])} ms, wgmma "
+                  f"{' / '.join(f'{v:.4f}' for v in dev_ms['wgmma'])} ms "
+                  f"(device, in turns; wgmma/mma {new / old:.3f}; "
+                  f"{flops / new / 1e9:.1f} TFLOP/s); host a call mma "
+                  f"{host['mma']:.4f}, wgmma {host['wgmma']:.4f} ms; bound "
+                  f"{mark[0]:.4f} ms ({mark[1]}); library {lib_ms:.4f} ms; "
+                  f"the op's route: {route}", flush=True)
+            del fns, plain, lib
+        torch.cuda.empty_cache()
+    print(f"wgmma phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    wgmma_ptxas_report()
+
+
+def wgmma_ptxas_report():
+    """Registers, spills and static shared memory of the wgmma kernels,
+    from ptxas' log, their dynamic shared memory (WG_SMEM), and what
+    ptxas warned of."""
+    from blocksparse_tpu_torch.kernels import _build
+    for source in WG_SOURCES:
+        entries = ptxas_entries(source)
+        check(bool(entries), f"{source}.cu: kernels built")
+        lib = _build.library_path(source)
+        log = lib.with_name(lib.name + ".log").read_text()
+        smem = sorted(set(re.findall(r"(\d+) bytes smem", log)))
+        print(f"{source}.cu: {len(entries)} kernels, "
+              + ", ".join(f"{k.split('Li')[1] if 'Li' in k else k}"
+                          f"{'/bf16' if '13__nv_bfloat16' in k else '/f16'}"
+                          f"{'/T' if 'Lb1E' in k else ''} {v[0]} registers, "
+                          f"spills {v[1]}/{v[2]} bytes"
+                          for k, v in sorted(entries.items()))
+              + f"; static shared memory {smem} bytes, dynamic by block "
+              f"size {WG_SMEM[source]} bytes", flush=True)
+        for line in log.splitlines():
+            if "warning" in line.lower() or "serializ" in line.lower() \
+                    or "setmaxnreg" in line.lower():
+                print(f"      ptxas: {line.strip()}", flush=True)
 
 
 def f32_layouts(b, rng):
@@ -1563,14 +1816,22 @@ def dense_filter(conv, F):
     return wd.permute(0, 2, 1, 3, 4, 5).reshape(conv.K, conv.C, 3, 3)
 
 
-# bsmm_xprop_mma_kernel<T, B, TRANS, OUT, ...> (bf16, f16): fprop and
-# bprop told apart by TRANS, the rounded output by OUT = 0
-CONV_PARTS = (("im2col", ("im2col_kernel",)),
-              ("bsmm fprop", ("bsmm_xprop", ", false, 0, ")),
-              ("bsmm bprop", ("bsmm_xprop", ", true, 0, ")),
-              ("bsmm updat", ("bsmm_updat_mma_kernel",)),
-              ("updat reduce", ("bsmm_updat_reduce_kernel",)),
-              ("col2im", ("col2im_tma_kernel",)))
+def unsplit_xprop(trans):
+    """A profiler name's test for the unsplit bf16/f16 xprop of one
+    direction: bsmm_xprop_mma_kernel<T, B, TRANS, OUT = 0, ...> or
+    bsmm_xprop_wgmma_kernel<T, B, TRANS>."""
+    flag = "true" if trans else "false"
+    return lambda k: (f"bsmm_xprop_mma_kernel" in k and f", {flag}, 0, " in k) \
+        or (f"bsmm_xprop_wgmma_kernel" in k and f", {flag}>" in k)
+
+
+CONV_PARTS = (("im2col", lambda k: "im2col_kernel" in k),
+              ("bsmm fprop", unsplit_xprop(False)),
+              ("bsmm bprop", unsplit_xprop(True)),
+              ("bsmm updat", lambda k: "bsmm_updat_mma_kernel" in k
+               or "bsmm_updat_wgmma_kernel" in k),
+              ("updat reduce", lambda k: "bsmm_updat_reduce_kernel" in k),
+              ("col2im", lambda k: "col2im_tma_kernel" in k))
 
 
 def profile_conv(fn, ms, label):
@@ -1581,13 +1842,13 @@ def profile_conv(fn, ms, label):
     the kernels every forward + backward launches is profiled again, and
     a part still without a record is printed as not measured."""
     def missing(kernels):
-        return [name for name, keys in CONV_PARTS
+        return [name for name, match in CONV_PARTS
                 if name != "updat reduce" and not any(
-                    all(k in e.key for k in keys) for e in kernels)]
+                    match(e.key) for e in kernels)]
     _, kernels = device_events(fn, lambda ks: not missing(ks))
     rest, parts = list(kernels), []
-    for name, keys in CONV_PARTS:
-        hits = [e for e in rest if all(k in e.key for k in keys)]
+    for name, match in CONV_PARTS:
+        hits = [e for e in rest if match(e.key)]
         rest = [e for e in rest if e not in hits]
         n = sum(e.count for e in hits)
         parts.append(f"{name} {sum(e.self_device_time_total for e in hits) / 1e3:.3f} ms "
@@ -1754,6 +2015,18 @@ def reset_counts():
     for fn in counters().values():
         fn.launches = 0
     counters()["bst_xn"].launches_tn = 0
+    for name in WGMMA_WRAPPERS:
+        counters()[name].launches_wgmma = 0
+
+
+# the wrappers whose bf16/f16 launches go to bsmm_xprop_wgmma.cu or
+# bsmm_updat_wgmma.cu, each counting those in launches_wgmma too
+WGMMA_WRAPPERS = ("bsmm_fprop", "bsmm_bprop", "bsmm_updat")
+
+
+def read_wgmma():
+    """Of each wrapper's launches, those of the wgmma kernels."""
+    return {name: counters()[name].launches_wgmma for name in WGMMA_WRAPPERS}
 
 
 def read_counts():
@@ -2412,6 +2685,7 @@ def training_path(bt, model, plain, cfg, dev, card_line, profile_out):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t
     launches = read_counts()
+    wgmma = read_wgmma()
     peak_first = torch.cuda.max_memory_allocated() / 2 ** 30
     torch.cuda.empty_cache()
     held = (torch.cuda.memory_reserved() - held0) / 2 ** 30
@@ -2444,6 +2718,15 @@ def training_path(bt, model, plain, cfg, dev, card_line, profile_out):
           f"bsmm_updat_reduce > 0: one an updat on the split, "
           f"bst_attn_fwd_lse 2L, bst_attn_dq L, bst_attn_dkv L, L = {L}; "
           f"the replay through no wrapper)")
+    check(wgmma == {k: launches[k] for k in WGMMA_WRAPPERS},
+          f"train step's first call: every bsmm product on the wgmma "
+          f"kernels ({wgmma} of {launches}; bsmm1 and bsmm2 at N = "
+          f"{tokens.numel()}: fprop on "
+          f"{model.bsmm1.kernel_of(tokens.numel(), 'f')} and "
+          f"{model.bsmm2.kernel_of(tokens.numel(), 'f')}, bprop on "
+          f"{model.bsmm1.kernel_of(tokens.numel(), 'b')} and "
+          f"{model.bsmm2.kernel_of(tokens.numel(), 'b')}, updat on "
+          f"{model.bsmm1.kernel_of(tokens.numel(), 'u')})")
     bits = all(torch.equal(m0[k], m_eager[k]) for k in m0) and \
         torch.equal(scale, sc_eager) and \
         all(torch.equal(d0[k], d_eager[k]) for k in d0)
@@ -2528,7 +2811,53 @@ def training_path(bt, model, plain, cfg, dev, card_line, profile_out):
                          ms["graph"], profile_out)
     profile_port_kernels("train step (eager)", lambda: one_step(eager),
                          ms["eager"])
-    return launches
+
+    # the same captured step on the mma.sync kernels (the parent's route),
+    # timed against this one in turns: the step before and after
+    old, old_step, old_holder = mma_train_step(bt, model, cfg, dev, opt,
+                                               tokens, targets, scale)
+
+    def old_one():
+        old_holder["state"], _, old_holder["scale"] = old_step(
+            old_holder["state"], tokens, targets, old_holder["scale"])
+    old_one()
+    turns = in_turns({"wgmma": lambda: one_step(step), "mma": old_one},
+                     lambda fn: time_ms(fn, TIMED_STEPS))
+    print(f"train step [{card_line}]: captured on the wgmma kernels "
+          f"{' / '.join(f'{v:.2f}' for v in turns['wgmma'])} ms, on the "
+          f"mma.sync kernels {' / '.join(f'{v:.2f}' for v in turns['mma'])} "
+          f"ms (turns wgmma, mma, mma, wgmma; each the mean of "
+          f"{TIMED_STEPS} replays by CUDA events)", flush=True)
+    profile_port_kernels("train step on the mma.sync kernels (graph "
+                         "replay)", old_one, float(np.mean(turns["mma"])))
+    del old, old_step, old_holder
+    torch.cuda.empty_cache()
+    return launches, wgmma
+
+
+def mma_train_step(bt, model, cfg, dev, opt, tokens, targets, ls):
+    """The flagship's captured train step on the mma.sync kernels
+    (bsmm_xprop_mma.cu, bsmm_updat_mma.cu): a second model of ``model``'s
+    weights whose step's first call (its warm-up and its capture) routes
+    with the wgmma kernels' block sizes emptied, so that both rules
+    (xprop_kernel, updat_kernel) answer "mma"; the graph keeps those
+    launches.  (model, step, {"state", "scale"})."""
+    from blocksparse_tpu_torch.kernels import bsmm as bk
+    old = bt.SparseTransformerLM(cfg, device=dev)
+    old.load_state_dict(model.state_dict())
+    step = old.make_train_step(opt, clip_norm=CLIP)
+    sizes, bk.WGMMA_BLOCK_SIZES = bk.WGMMA_BLOCK_SIZES, ()
+    reset_counts()
+    state, _, scale = step(opt.init(dict(old.named_parameters())), tokens,
+                           targets, ls)
+    torch.cuda.synchronize()
+    bk.WGMMA_BLOCK_SIZES = sizes
+    launches, wgmma = read_counts(), read_wgmma()
+    check(not any(wgmma.values()) and launches["bsmm_fprop"] > 0,
+          f"the step on the mma.sync kernels: {launches['bsmm_fprop']} "
+          f"fprop, {launches['bsmm_bprop']} bprop, {launches['bsmm_updat']} "
+          f"updat launches, none on the wgmma kernels ({wgmma})")
+    return old, step, {"state": state, "scale": scale}
 
 
 def snapshot(m):
@@ -2541,10 +2870,11 @@ def restore(m, saved):
             v.copy_(saved[k])
 
 
-# name fragments of the port's kernels; "bsmm_xprop" matches both xprop
-# kernels (bsmm_xprop_mma_kernel in bf16/f16, bsmm_xprop_nc_kernel in f32);
-# the updat's are told apart: bsmm_updat_mma_kernel (bf16/f16),
-# bsmm_updat_nc_kernel (f32) and the split's bsmm_updat_reduce_kernel
+# name fragments of the port's kernels: the xprop's bsmm_xprop_wgmma_kernel
+# and bsmm_xprop_mma_kernel (bf16/f16, the latter also the split route's)
+# and bsmm_xprop_nc_kernel (f32); the updat's bsmm_updat_wgmma_kernel and
+# bsmm_updat_mma_kernel (bf16/f16), bsmm_updat_nc_kernel (f32) and the
+# split's bsmm_updat_reduce_kernel;
 # "bst_attn_fwd", "bst_attn_dq" and "bst_attn_dkv" match the attention
 # kernels of both sources (bst_attn_*_mma_kernel in bf16/f16,
 # bst_attn_*_kernel in f32); "bst_nt" and "bst_xn" the unfused ops' (the
@@ -2553,7 +2883,8 @@ def restore(m, saved):
 PROFILE_SPINS, PROFILE_SPIN_CYCLES = 8, 100000
 # windows a profiled measurement takes before it gives up on CUPTI
 PROFILE_TRIES = 6
-PORT_KERNELS = ("bsmm_xprop", "bsmm_updat_mma", "bsmm_updat_nc",
+PORT_KERNELS = ("bsmm_xprop_wgmma", "bsmm_xprop_mma", "bsmm_xprop_nc",
+                "bsmm_updat_wgmma", "bsmm_updat_mma", "bsmm_updat_nc",
                 "bsmm_updat_reduce", "bst_attn_fwd", "bst_attn_dq",
                 "bst_attn_dkv", "bst_nt", "bst_xn")
 
@@ -2831,7 +3162,7 @@ def mode_kernel_checks(rows_in, win_op, dev, g, card_line, rows):
                         x, w, lut[f"{d}_row_ptr"], lut[f"{d}_ent_in"],
                         lut[f"{d}_ent_w"], op.bsize, n_out,
                         plan=op._xlaunch(dev, d, N)),
-                        "bsmm_xprop_mma_kernel")
+                        "bsmm_xprop_mma_kernel")     # no wgmma plan given
                     key = (kind, op.bsize, N, dtype)
                     rows[key] = (rows[key][0], ms, rows[key][2])
                     print(f"      device time (profiler, mean of 20): "
@@ -2945,6 +3276,16 @@ def canonical_path(rows_in, dev, g, card_line, rows):
             check(launches == want, f"{what}: chain fwd + fwd/bwd launches "
                                     f"{launches}, expected {want}")
             add_counts(total, launches)
+            if mode == "grouped":
+                # the unsplit launches by kernel source (wrapper, source)
+                wg = read_wgmma()
+                for d, key in (("f", "bsmm_fprop"), ("b", "bsmm_bprop"),
+                               ("u", "bsmm_updat")):
+                    src = op.kernel_of(CANON_N, d)
+                    check((wg[key] > 0) == ("wgmma" in src),
+                          f"{what}: {key} on {src} ({wg[key]} wgmma "
+                          f"launches of {launches[key]})")
+                    add_counts(total, {(key, src): launches[key]})
             compare(f"{what}: chain output against impl=xla", y, y_ref,
                     CHAIN_TOL)
             for name, a, r in zip(("y", "dx", "dw"), got, refs):
@@ -3070,7 +3411,7 @@ def window_path(ops, W, dev, g, card_line):
                              time_ms(lambda: ops[m]._xprop(x, w, "b"), 10)))
         flops = 2 * N * ops["plain"].blocks * WIN_BSIZE ** 2
         kern = {"window": "bsmm_window_mma_kernel",
-                "grouped": "bsmm_xprop_mma_kernel"}
+                "grouped": kernel_of(ops["grouped"], N, "f")[0]}
         dev_ms = {"window": [], "grouped": []}
         for m in ("window", "grouped", "grouped", "window"):
             dev_ms[m].append(kernel_device_ms(
@@ -4679,7 +5020,7 @@ def moe_layer_checks(model, plain, dev, g, card_line, rows, marks):
                                  op1._updat(xb, dub), ref1._updat(xb, dub),
                                  UPDAT_TOL)
     bf_ms = kernel_device_ms(lambda: op1._updat(xb, dub),
-                             "bsmm_updat_mma_kernel")
+                             kernel_of(op1, C, "u")[0])
     for d in ("fprop", "bprop", "updat"):
         print(f"{name} {d}: device {dev_ms[d]:.4f} ms, "
               f"{flops / dev_ms[d] / 1e9:.2f} TFLOP/s; bound {b_x[0]:.4f} ms "
@@ -4926,8 +5267,9 @@ def moe_path(bt, dev, g, card_line, rows, marks):
                        if name in e.key) / 1e3,
                    sum(e.count for e in kernels if name in e.key))
             for name in ("bsmm_xprop_nc_kernel", "bsmm_updat_nc_kernel",
-                         "bsmm_updat_mma_kernel", "bsmm_updat_reduce_kernel",
-                         "bsmm_merge_kernel", "bst_attn")}
+                         "bsmm_updat_mma_kernel", "bsmm_updat_wgmma_kernel",
+                         "bsmm_updat_reduce_kernel", "bsmm_merge_kernel",
+                         "bst_attn")}
     print(f"MoE train step [{card_line}]: batch {BATCH} x {cfg.ctx}, "
           f"captured {step_ms:.2f} ms (mean of {TIMED_STEPS} replays, CUDA "
           f"events) = {N / step_ms * 1e3:.0f} tokens/s; one replay profiled: "
@@ -5793,8 +6135,7 @@ def pp_kernel_rows(model, dev, g, card_line, rows, marks):
             for d, (fn, ref, _) in calls.items():
                 rows[f"pp_stage_bsmm_{d}"] = (
                     errs[d], kernel_device_ms(
-                        fn, "bsmm_updat_mma_kernel" if d == "updat"
-                        else "bsmm_xprop"), time_ms(ref, 5))
+                        fn, kernel_of(op, N, d[0])[0]), time_ms(ref, 5))
             wd = dense_weight(op, w)
             b2 = op.bsize ** 2
             xb = 2 * (N * op.C + op.blocks * b2 + N * op.K)
@@ -5978,7 +6319,7 @@ def ep_layer_checks(bt, dev, g, card_line, rows, marks):
         "moe_ep_bsmm_updat_bf16": (
             lambda: op1._updat(xb, dub), lambda: ref1._updat(xb, dub),
             UPDAT_TOL,
-            lambda fn: kernel_device_ms(fn, "bsmm_updat_mma_kernel"),
+            lambda fn: kernel_device_ms(fn, kernel_of(op1, N, "u")[0]),
             2 * N * (op1.C + op1.K) + 4 * op1.blocks * b2, PEAK_FLOPS,
             lambda: xb.t() @ dub)}
     for name, (fn, ref, tol, dev_ms, nbytes, peak, lib) in calls.items():
@@ -6151,9 +6492,8 @@ PACKED_TIMED = 10
 # the TPU kernel each store feeds, by the JAX op's fprop schedule (mode
 # "auto": a panel store or a slot store)
 PACKED_TPU = {"dense_tile": "bsmm.py:1422", "grouped": "bsmm.py:674"}
-# each route's wrapper and source (bf16, mode "auto")
-ROUTE_KERNEL = {"grouped": ("bsmm_fprop", "bsmm_xprop_mma.cu"),
-                "phased": ("bsmm_split", "bsmm_xprop_mma.cu")}
+# each route's wrapper (bf16, mode "auto"; its source: kernel_of)
+ROUTE_WRAPPER = {"grouped": "bsmm_fprop", "phased": "bsmm_split"}
 
 
 def make_layout(kind, nb, density, rng):
@@ -6250,8 +6590,8 @@ def packed_bench_checks(ops, X, dev, g, card_line, rows, marks):
         err_f = compare(f"packed {name} fprop against impl=xla", y,
                         plain(x, w), TOL[bf])
         key = f"bsmm_fprop_packed_{name}"
-        wrapper, src = ROUTE_KERNEL[pk._route(PACKED_N, "f", sms)]
-        launches[key] = (counted[wrapper], src,
+        wrapper = ROUTE_WRAPPER[pk._route(PACKED_N, "f", sms)]
+        launches[key] = (counted[wrapper], kernel_of(pk, PACKED_N, "f")[1],
                          PACKED_TPU[pk.packed.mode_f])
         fprop = (lambda: pk._xprop(x, w, "f"))
         ms_f = device_ms_per_call(fprop, lambda k: "bsmm_" in k,
@@ -6309,14 +6649,15 @@ def packed_bench_checks(ops, X, dev, g, card_line, rows, marks):
         ms_b = device_ms_per_call(lambda: pk._xprop(e, w, "b"),
                                   lambda k: "bsmm_" in k, PACKED_TIMED)
         ms_u = kernel_device_ms(lambda: pk._updat(x, e),
-                                "bsmm_updat_mma_kernel", PACKED_TIMED)
-        wrapper, src = ROUTE_KERNEL[pk._route(PACKED_N, "b", sms)]
+                                kernel_of(pk, PACKED_N, "u")[0], PACKED_TIMED)
+        wrapper = ROUTE_WRAPPER[pk._route(PACKED_N, "b", sms)]
         wrapper = "bsmm_bprop" if wrapper == "bsmm_fprop" else wrapper
         for d, err, ms, plain_fn, n, src, tpu in (
                 ("bprop", err_b, ms_b, lambda: plain._xprop(e, w, "b"),
-                 counted[wrapper], src, "bsmm.py:1422"),
+                 counted[wrapper], kernel_of(pk, PACKED_N, "b")[1],
+                 "bsmm.py:1422"),
                 ("updat", err_u, ms_u, lambda: plain._updat(x, e),
-                 counted["bsmm_updat"], "bsmm_updat_mma.cu",
+                 counted["bsmm_updat"], kernel_of(pk, PACKED_N, "u")[1],
                  "bsmm.py:1972")):
             k = f"bsmm_{d}_packed_{name}"
             rows[k] = (err, ms, time_ms(plain_fn, 3))
@@ -6507,6 +6848,8 @@ def main():
     xprop_block_size_checks(bt, dev, g)
     split_checks(model, dev, g, card_line, rows)
     updat_block_size_checks(bt, dev, g)
+    # the wgmma kernels against the mma.sync ones at the main path's shapes
+    wgmma_turns(bt, model, dev, g, card_line, rows)
     f32_block_size_checks(bt, dev, g)
     mode_block_size_checks(bt, dev, g)
     attn_block_size_checks(bt, dev, g)
@@ -6518,8 +6861,8 @@ def main():
     serve_launches = serving_path(bt, model, plain, cfg, dev, card_line)
 
     # 5. the training path, counted
-    train_launches = training_path(bt, model, plain, cfg, dev, card_line,
-                                   args.profile_out)
+    train_launches, train_wgmma = training_path(
+        bt, model, plain, cfg, dev, card_line, args.profile_out)
     print(f"launches: serving path {serve_launches}; training path (one "
           f"step) {train_launches}", flush=True)
 
@@ -6649,13 +6992,37 @@ def main():
         rows[key] = (rows[key][0], ms, rows[key][2])
 
     N, bf = BATCH * cfg.ctx, torch.bfloat16
+    pp_n = BATCH // PP_MICRO * cfg.ctx       # the pipeline's microbatch
+    # the unsplit bf16 products at bsmm1's train shape on each kernel: the
+    # wgmma phase's device times (its updat with its split's reduce), the
+    # plain version's from the training checks; launches: the train step's
+    # first call on the wgmma kernels, the canonical grouped chains (b8-b32,
+    # N 64) on the mma.sync ones
+    def wg_row(d, kernel, plain_key):
+        r = rows[("wg", f"bsmm1 N={N}", d)]
+        err = r["err"].get(kernel, r["err"].get("wgmma"))
+        return (err, float(np.mean(r[kernel])), rows[plain_key][2])
+    for name in ("bsmm_fprop", "bsmm_bprop", "bsmm_updat"):
+        marks[f"{name}_wgmma"] = marks[name]
     kernels = [  # (name, source, TPU kernel, path's launches, row)
         ("bsmm_fprop", "bsmm_xprop_mma.cu", "bsmm.py:1422",
-         serve_launches["bsmm_fprop"], rows[("fprop", "bsmm1", N, bf)]),
+         mode_launches[("bsmm_fprop", "bsmm_xprop_mma")],
+         wg_row("f", "mma", ("fprop", "bsmm1", N, bf))),
         ("bsmm_bprop", "bsmm_xprop_mma.cu", "bsmm.py:1422",
-         train_launches["bsmm_bprop"], rows[("bprop", "bsmm1", bf)]),
+         mode_launches[("bsmm_bprop", "bsmm_xprop_mma")],
+         wg_row("b", "mma", ("bprop", "bsmm1", bf))),
         ("bsmm_updat", "bsmm_updat_mma.cu", "bsmm.py:1972",
-         train_launches["bsmm_updat"], rows[("updat", "bsmm1", bf)]),
+         mode_launches[("bsmm_updat", "bsmm_updat_mma")],
+         wg_row("u", "mma", ("updat", "bsmm1", bf))),
+        ("bsmm_fprop_wgmma", "bsmm_xprop_wgmma.cu", "bsmm.py:1422",
+         train_wgmma["bsmm_fprop"],
+         wg_row("f", "wgmma", ("fprop", "bsmm1", N, bf))),
+        ("bsmm_bprop_wgmma", "bsmm_xprop_wgmma.cu", "bsmm.py:1422",
+         train_wgmma["bsmm_bprop"],
+         wg_row("b", "wgmma", ("bprop", "bsmm1", bf))),
+        ("bsmm_updat_wgmma", "bsmm_updat_wgmma.cu", "bsmm.py:1972",
+         train_wgmma["bsmm_updat"],
+         wg_row("u", "wgmma", ("updat", "bsmm1", bf))),
         ("bsmm_updat_reduce", "bsmm_updat_mma.cu", "bsmm.py:1972",
          train_launches["bsmm_updat_reduce"], rows["reduce"]),
         ("bst_attn_fwd", "bst_attn_fwd_mma.cu", "bst_attn.py:677",
@@ -6696,7 +7063,7 @@ def main():
         ("bsmm_updat_lstm", "bsmm_updat.cu", "bsmm.py:1972",
          lstm_launches["bsmm_updat"], rows["lstm_updat"]),
         # the MoE LM's expert products at N = C, f32 (F6); the updat row
-        # counts both experts' products (bsmm1's on bsmm_updat_mma.cu, its
+        # counts both experts' products (bsmm1's on bsmm_updat_wgmma.cu, its
         # bf16 inputs) and times bsmm2's f32 one
         ("bsmm_fprop_moe", "bsmm_fprop.cu", "bsmm.py:1422",
          moe_launches["bsmm_fprop"], rows["moe_fprop"]),
@@ -6733,12 +7100,15 @@ def main():
          pp_launches["bst_attn_dq"], rows["pp_stage_attn_dq"]),
         ("pp_stage_attn_dkv", "bst_attn_bwd_mma.cu", "bst_attn.py:1141",
          pp_launches["bst_attn_dkv"], rows["pp_stage_attn_dkv"]),
-        ("pp_stage_bsmm_fprop", "bsmm_xprop_mma.cu", "bsmm.py:1422",
-         pp_launches["bsmm_fprop"], rows["pp_stage_bsmm_fprop"]),
-        ("pp_stage_bsmm_bprop", "bsmm_xprop_mma.cu", "bsmm.py:1422",
-         pp_launches["bsmm_bprop"], rows["pp_stage_bsmm_bprop"]),
-        ("pp_stage_bsmm_updat", "bsmm_updat_mma.cu", "bsmm.py:1972",
-         pp_launches["bsmm_updat"], rows["pp_stage_bsmm_updat"]),
+        ("pp_stage_bsmm_fprop", kernel_of(model.bsmm1, pp_n, "f")[1],
+         "bsmm.py:1422", pp_launches["bsmm_fprop"],
+         rows["pp_stage_bsmm_fprop"]),
+        ("pp_stage_bsmm_bprop", kernel_of(model.bsmm1, pp_n, "b")[1],
+         "bsmm.py:1422", pp_launches["bsmm_bprop"],
+         rows["pp_stage_bsmm_bprop"]),
+        ("pp_stage_bsmm_updat", kernel_of(model.bsmm1, pp_n, "u")[1],
+         "bsmm.py:1972", pp_launches["bsmm_updat"],
+         rows["pp_stage_bsmm_updat"]),
         ("pp_stage_bsmm_updat_reduce", "bsmm_updat_mma.cu", "bsmm.py:1972",
          pp_launches["bsmm_updat_reduce"],
          rows["pp_stage_bsmm_updat_reduce"]),
@@ -6748,7 +7118,7 @@ def main():
          ep_launches["bsmm_bprop"], rows["moe_ep_bsmm_bprop_f32"]),
         ("moe_ep_bsmm_updat_f32", "bsmm_updat.cu", "bsmm.py:1972",
          ep_launches["bsmm_updat"], rows["moe_ep_bsmm_updat_f32"]),
-        ("moe_ep_bsmm_updat_bf16", "bsmm_updat_mma.cu", "bsmm.py:1972",
+        ("moe_ep_bsmm_updat_bf16", "bsmm_updat_wgmma.cu", "bsmm.py:1972",
          ep_launches["bsmm_updat"], rows["moe_ep_bsmm_updat_bf16"]),
         ("moe_ep_bsmm_updat_reduce", "bsmm_updat_mma.cu", "bsmm.py:1972",
          ep_launches["bsmm_updat_reduce"], rows["moe_ep_bsmm_updat_reduce"]),

@@ -1,0 +1,334 @@
+"""The wgmma kernels' host side, on the CPU: ``csrc/bsmm_xprop_wgmma.cu``'s
+column-group plan (``xprop_wgmma_plan``), the route rules between the
+wgmma and mma.sync kernels (``xprop_kernel``, ``updat_kernel``) and the
+updat's N split for ``csrc/bsmm_updat_wgmma.cu`` (``updat_splits`` and
+``updat_run_rows`` with ``kernel="wgmma"``).
+
+The kernels run only on the card (``test_torch_cuda.py`` holds them
+against the plain versions there).  Here the plan's invariants are
+checked on random, banded, dense and empty-column layouts at every block
+size, in both directions; the rules are pinned by value at the main
+path's shapes; and the kernels' work decomposition is replayed in f32 —
+the xprop group by group, N-tile by N-tile, staged item by staged item
+into each column's accumulator; the updat group by group, run by run, TN
+token rows a stage, then the runs' partials in order — and held against
+``xprop_plain``/``updat_plain`` and, at b32, the JAX package's
+``xprop_xla``/``updat_xla`` (imported inside those tests, on the CPU).
+Tolerance 1e-5 of the largest |output|: the same f32 products of f32
+inputs, summed in other orders.
+"""
+import numpy as np
+import pytest
+import torch
+
+from blocksparse_tpu_torch import BlocksparseMatMul
+from blocksparse_tpu_torch.kernels import bsmm as bk
+
+torch.set_num_threads(2)
+F32_TOL = 1e-5
+KINDS = ("random", "banded", "dense", "empty_column")
+
+
+def _layout(kind, CB, KB, seed):
+    """A (CB, KB) layout: random at 0.4 (every row and column set once),
+    a band, all ones, or random with empty output columns (fprop) and
+    empty input rows (bprop)."""
+    rng = np.random.RandomState(seed)
+    if kind == "dense":
+        return np.ones((CB, KB), np.int32)
+    if kind == "banded":
+        lay = np.zeros((CB, KB), np.int32)
+        for c in range(CB):
+            k = c * KB // CB
+            lay[c, max(0, k - 1):k + 2] = 1
+        return lay
+    lay = (rng.rand(CB, KB) < 0.4).astype(np.int32)
+    lay[np.arange(CB), np.arange(CB) % KB] = 1
+    lay[np.arange(KB) % CB, np.arange(KB)] = 1
+    if kind == "empty_column":
+        lay[:, 1::3] = 0
+        lay[1::4, :] = 0
+        lay[0, 0] = 1
+    return lay
+
+
+def _csr(op, d):
+    row_ptr, (ib, wb, _), n_out, n_in = op._csr(d)
+    return row_ptr, ib, wb, n_out
+
+
+@pytest.mark.parametrize("d", ["f", "b"])
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("bsize,shape", [(8, (9, 40)), (16, (20, 3)),
+                                         (32, (6, 19)), (64, (7, 5)),
+                                         (128, (3, 5))])
+def test_xprop_wgmma_plan_invariants(bsize, shape, kind, d):
+    """Every (column, entry) in exactly one item of its group, a column's
+    entries in LUT order, each group's items ascending, the columns cut
+    into consecutive groups of 256 / b."""
+    op = BlocksparseMatMul(_layout(kind, *shape, seed=bsize), block_size=bsize,
+                           feature_axis=1)
+    row_ptr, ib, wb, n_out = _csr(op, d)
+    plan = bk.xprop_wgmma_plan(row_ptr, ib, wb, bsize)
+    G = bk.XPROP_WG_FEATURES // bsize
+    u_ptr, u_in, u_mask, u_w, grp = (plan[k] for k in (
+        "u_ptr", "u_in", "u_mask", "u_w", "grp_col"))
+    assert plan["G"] == G
+    assert all(a.dtype == np.int32 for a in (u_ptr, u_in, u_mask, u_w, grp))
+    assert grp.shape == (-(-n_out // G), G)
+    assert grp.ravel().tolist() == list(range(n_out)) + \
+        [-1] * (grp.size - n_out)
+    assert u_ptr[0] == 0 and u_ptr[-1] == len(u_in) and \
+        (np.diff(u_ptr) >= 0).all()
+    assert u_w.shape == (len(u_in), G) and u_mask.shape == (len(u_in),)
+    mask = u_mask.view(np.uint32).astype(np.int64)     # G bits (32 at b8)
+    bits = (mask[:, None] >> np.arange(G)) & 1
+    assert ((u_w >= 0) == (bits == 1)).all()
+    assert (mask > 0).all()                   # no item without an entry
+    walked = {o: [] for o in range(n_out)}
+    for g in range(len(grp)):
+        items = range(u_ptr[g], u_ptr[g + 1])
+        assert (np.diff(u_in[items.start:items.stop]) > 0).all()  # ascending
+        for t in items:
+            for j in np.flatnonzero(bits[t]):
+                assert grp[g, j] >= 0
+                walked[grp[g, j]].append((u_in[t], u_w[t, j]))
+    for o in range(n_out):                    # each entry once, in LUT order
+        lo, hi = row_ptr[o], row_ptr[o + 1]
+        assert walked[o] == list(zip(ib[lo:hi], wb[lo:hi]))
+    assert op._plan("wgmma", d)["u_in"].tolist() == u_in.tolist()
+
+
+def test_xprop_wgmma_plan_refuses_an_unordered_csr():
+    with pytest.raises(ValueError, match="ascending"):
+        bk.xprop_wgmma_plan([0, 2], [3, 1], [0, 1], 32)
+
+
+def _replay_xprop(x, w, plan, bsize, n_out, trans):
+    """What bsmm_xprop_wgmma.cu computes, in f32 on the CPU: thread block
+    (group, N-tile of 128 rows, zero past N) walks its items and adds each
+    present pair's product to its column's accumulator, then writes the
+    tile's columns."""
+    N, TM, G = x.shape[0], bk.XPROP_WG_TM, plan["G"]
+    y = torch.full((N, n_out * bsize), float("nan"))
+    for g, cols in enumerate(plan["grp_col"]):
+        for n0 in range(0, N, TM):
+            xt = torch.zeros((TM, x.shape[1]))
+            xt[:min(TM, N - n0)] = x[n0:n0 + TM]
+            acc = torch.zeros((G, TM, bsize))
+            for t in range(plan["u_ptr"][g], plan["u_ptr"][g + 1]):
+                i = plan["u_in"][t]
+                xi = xt[:, i * bsize:(i + 1) * bsize]
+                for j in range(G):
+                    if plan["u_mask"][t] >> j & 1:
+                        wb = w[plan["u_w"][t, j]]
+                        acc[j] += xi @ (wb.t() if trans else wb)
+            for j, o in enumerate(cols):
+                if o >= 0:
+                    y[n0:n0 + TM, o * bsize:(o + 1) * bsize] = \
+                        acc[j, :min(TM, N - n0)]
+    return y
+
+
+@pytest.mark.parametrize("d", ["f", "b"])
+@pytest.mark.parametrize("bsize,shape,kind,N", [
+    (32, (6, 19), "random", 300), (32, (9, 4), "empty_column", 129),
+    (64, (5, 7), "banded", 200), (128, (2, 3), "dense", 5)])
+def test_xprop_wgmma_decomposition_matches_plain(bsize, shape, kind, N, d):
+    op = BlocksparseMatMul(_layout(kind, *shape, seed=7), block_size=bsize,
+                           feature_axis=1)
+    row_ptr, ib, wb, n_out = _csr(op, d)
+    rng = np.random.RandomState(bsize + N)
+    x = torch.from_numpy(rng.uniform(-1, 1, (N, (op.C if d == "f" else op.K))
+                                     ).astype(np.float32))
+    w = torch.from_numpy(rng.uniform(-1, 1, op.w_shape).astype(np.float32))
+    y = _replay_xprop(x, w, bk.xprop_wgmma_plan(row_ptr, ib, wb, bsize),
+                      bsize, n_out, d == "b")
+    lut = op._lut(torch.device("cpu"))
+    ref = bk.xprop_plain(x, w, lut[f"{d}_in"], lut[f"{d}_w"], lut[f"{d}_out"],
+                         n_out, bsize, 1, trans_w=d == "b")
+    scale = ref.abs().max().item()
+    torch.testing.assert_close(y, ref, rtol=0, atol=F32_TOL * scale)
+    if bsize == 32:
+        import jax.numpy as jnp
+        from blocksparse_tpu.kernels import bsmm as jax_bsmm
+        jref = jax_bsmm.xprop_xla(
+            jnp.asarray(x.numpy()), jnp.asarray(w.numpy()),
+            jnp.asarray(lut[f"{d}_in"].numpy()),
+            jnp.asarray(lut[f"{d}_w"].numpy()),
+            jnp.asarray(lut[f"{d}_out"].numpy()), n_out, bsize, 1,
+            d == "b")
+        np.testing.assert_allclose(y.numpy(), np.asarray(jref), rtol=0,
+                                   atol=F32_TOL * scale)
+
+
+def _replay_updat(x, dy, plan, bsize, splits):
+    """What bsmm_updat_wgmma.cu and the reduce compute, in f32 on the CPU:
+    thread block (group, run) adds P_stageᵀ · Q_stage over its run's
+    stages of UPDAT_WG_TN token rows (zero past N) into each slot's D
+    (dw transposed when Q is x), then the runs are summed in order."""
+    N, TN = x.shape[0], bk.UPDAT_WG_TN
+    rows = bk.updat_run_rows(N, splits, "wgmma")
+    runs = -(-N // rows) if splits > 1 else 1
+    p, q = (dy, x) if plan["by_c"] else (x, dy)
+    blocks = int((plan["slot_e"] >= 0).sum())
+    out = torch.full((runs, blocks, bsize, bsize), float("nan"))
+    for grp, qb in enumerate(plan["grp_q"]):
+        for r in range(runs):
+            lo, hi = r * rows, min(N, (r + 1) * rows)
+            acc = {t: torch.zeros((bsize, bsize))
+                   for t, e in enumerate(plan["slot_e"][grp]) if e >= 0}
+            for n0 in range(lo, hi, TN):
+                qt = q[n0:min(hi, n0 + TN), qb * bsize:(qb + 1) * bsize]
+                for t in acc:
+                    pb = plan["slot_p"][grp, t]
+                    pt = p[n0:min(hi, n0 + TN), pb * bsize:(pb + 1) * bsize]
+                    acc[t] += pt.t() @ qt
+            for t, d in acc.items():
+                out[r, plan["slot_e"][grp, t]] = d.t() if plan["by_c"] else d
+    return bk.updat_reduce_plain(out), runs
+
+
+@pytest.mark.parametrize("bsize,shape,N,splits", [
+    (32, (6, 4), 1100, 2), (32, (3, 9), 200, 1), (64, (3, 2), 130, 1),
+    (128, (2, 3), 1200, 2)])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_updat_wgmma_decomposition_matches_plain(bsize, shape, N, splits,
+                                                  transpose):
+    lay = _layout("random", *shape, seed=bsize)
+    op = BlocksparseMatMul(lay.T.copy() if transpose else lay,
+                           block_size=bsize, feature_axis=1)
+    rng = np.random.RandomState(N)
+    x = torch.from_numpy(rng.uniform(-1, 1, (N, op.C)).astype(np.float32))
+    dy = torch.from_numpy(rng.uniform(-1, 1, (N, op.K)).astype(np.float32))
+    dw, runs = _replay_updat(x, dy, op._plan("updat", "u"), bsize, splits)
+    assert runs == splits
+    lut = op._lut(torch.device("cpu"))
+    ref = bk.updat_plain(x, dy, lut["u_c"], lut["u_k"], bsize, 1)
+    scale = ref.abs().max().item()
+    torch.testing.assert_close(dw, ref, rtol=0, atol=F32_TOL * scale)
+    if bsize == 32:
+        import jax.numpy as jnp
+        from blocksparse_tpu.kernels import bsmm as jax_bsmm
+        jref = jax_bsmm.updat_xla(jnp.asarray(x.numpy()),
+                                  jnp.asarray(dy.numpy()), op.updat_lut,
+                                  bsize, 1)
+        np.testing.assert_allclose(dw.numpy(), np.asarray(jref), rtol=0,
+                                   atol=F32_TOL * scale)
+
+
+def _flagship(bsize=32, density=0.5, n_embd=512, hidden=2048):
+    """The LM's MLP layouts as ``SparseTransformerLM`` draws them (bsmm1
+    512 -> 2048, bsmm2 its transpose)."""
+    CB, KB = n_embd // bsize, hidden // bsize
+    rng = np.random.RandomState(0)
+    lay = (rng.rand(CB, KB) < density).astype(np.int32)
+    lay[np.arange(CB), np.arange(CB) % KB] = 1
+    lay[np.arange(KB) % CB, np.arange(KB)] = 1
+    return (BlocksparseMatMul(lay, block_size=bsize, feature_axis=1),
+            BlocksparseMatMul(lay.T.copy(), block_size=bsize, feature_axis=1))
+
+
+# N: the train step (8 x 2048), prefill (bsmm's largest serving N), the
+# decode (4 prompts), the conv (32 x 32 x 32), the MoE's capacity (2,560),
+# the pipeline's microbatch (2 x 2048)
+PATH_NS = (16384, 8192, 4, 32768, 2560, 4096)
+
+
+def test_xprop_route_rule_at_the_path_shapes():
+    """The kernel of each unsplit bf16 product, 132 SMs: wgmma where its
+    tiles (ceil(N / 128) x groups of 8 b32 columns) number at least 0.48
+    x 132 (64) and a staged x tile serves at least 3 columns on average
+    (the LM's layouts: 4.36)."""
+    bsmm1, bsmm2 = _flagship()
+    share = bsmm1._plan("wgmma", "f")["share"]
+    assert abs(share - 4.359) < 1e-3
+    assert [bsmm2._plan("wgmma", d)["share"] for d in "fb"] == \
+        [bsmm1._plan("wgmma", d)["share"] for d in "bf"]
+    want = {  # N: (bsmm1 fprop, bsmm1 bprop = bsmm2 fprop)
+        16384: ("wgmma", "wgmma"), 8192: ("wgmma", "wgmma"),
+        4: ("mma", "mma"), 32768: ("wgmma", "wgmma"),
+        2560: ("wgmma", "mma"), 4096: ("wgmma", "wgmma")}
+    for N in PATH_NS:
+        got = (bk.xprop_kernel(N, 32, bsmm1.KB, 132, share),
+               bk.xprop_kernel(N, 32, bsmm1.CB, 132, share))
+        assert got == want[N], N
+        assert (bsmm1._xkernel(N, "f", 132), bsmm2._xkernel(N, "f", 132)) \
+            == got
+    # decode takes the split route, on bsmm_xprop_mma.cu's clusters
+    assert bsmm1.kernel_of(4, "f", sm_count=132) == "bsmm_xprop_mma"
+    assert bsmm1.kernel_of(16384, "f", sm_count=132) == "bsmm_xprop_wgmma"
+    assert bsmm1.kernel_of(16384, "b", torch.float32, 132) == "bsmm_fprop"
+    for b in (8, 16):       # on the mma.sync kernel at any N
+        assert bk.xprop_kernel(1 << 20, b, 64, 132, 8.0) == "mma"
+    assert bk.xprop_kernel(128 * 64, 64, 4, 132, 4.0) == "wgmma"  # 64 tiles
+    assert bk.xprop_kernel(128 * 63, 64, 4, 132, 4.0) == "mma"
+    assert bk.xprop_kernel(1024, 32, 64, 132, 4.4) == "wgmma"   # 8 x 8
+    assert bk.xprop_kernel(16384, 32, 64, 132, 3.0) == "wgmma"
+    assert bk.xprop_kernel(16384, 32, 64, 132, 2.99) == "mma"
+
+
+def test_xprop_route_rule_at_the_conv_and_packed_shapes():
+    """The conv's tap-tiled fprop (C=512, d 0.25: 2.45 columns an x tile)
+    and bench.py's random 8192² b32 op at d 0.25 (2.26) stay on the
+    mma.sync kernel; the conv's bprop (each input block's 9 taps in one
+    group: 5.2) goes to the wgmma kernel."""
+    rng = np.random.RandomState(0)
+    cb = 16
+    lay = (rng.rand(cb, cb) < 0.25).astype(np.int32)
+    lay[np.arange(cb), np.arange(cb)] = 1
+    conv = BlocksparseMatMul(np.repeat(lay, 9, axis=0), block_size=32,
+                             feature_axis=0)     # rows (cb, tap), as the conv
+    shares = [conv._plan("wgmma", d)["share"] for d in "fb"]
+    assert shares[0] < bk.XPROP_WG_MIN_SHARE < shares[1]
+    assert [conv._xkernel(32768, d, 132) for d in "fb"] == ["mma", "wgmma"]
+    rand = (rng.rand(256, 256) < 0.25).astype(np.int32)
+    op = BlocksparseMatMul(rand, block_size=32, feature_axis=0)
+    assert [op._xkernel(2048, d, 132) for d in "fb"] == ["mma", "mma"]
+
+
+def test_updat_route_and_split_at_the_path_shapes():
+    """The updat's kernel and its N split, 132 SMs: the wgmma kernel's one
+    resident thread block an SM sets a target of 264 thread blocks, 4
+    runs of the LM's 75 groups; of 4-8 runs 7 fill their last wave best
+    (525 of 528 thread blocks), of 4-5 at the MoE's N 5 (375 of 396).
+    Groups that fill the target alone over N >= 8192 stay on the mma.sync
+    kernel."""
+    bsmm1, bsmm2 = _flagship()
+    groups = len(bsmm1._plan("updat", "u")["grp_q"])
+    assert groups == 75 == len(bsmm2._plan("updat", "u")["grp_q"])
+    want = {16384: 7, 8192: 7, 4: 1, 32768: 7, 2560: 5, 4096: 7}
+    for N in PATH_NS:
+        assert bk.updat_kernel(N, 32, groups, 132) == "wgmma"
+        assert bk.updat_splits(N, groups, 32, 132, "wgmma") == want[N], N
+        assert bsmm1._updat_route(N, torch.bfloat16, 132) == ("wgmma",
+                                                               want[N])
+    assert bsmm1._updat_route(16384, torch.float32, 132) == ("mma", 1)
+    assert bk.updat_kernel(16384, 16, 75, 132) == "mma"
+    assert bk.updat_kernel(16384, 8, 75, 132) == "mma"
+    assert bk.updat_kernel(32768, 32, 1251, 132) == "mma"   # the conv C=2048
+    assert bk.updat_kernel(2048, 32, 2206, 132) == "wgmma"  # bench.py's op
+    assert bk.updat_kernel(8192, 64, 264, 132) == "mma"
+    assert bk.updat_kernel(8191, 64, 264, 132) == "wgmma"
+    assert bk.updat_kernel(32768, 64, 263, 132) == "wgmma"
+    assert bk.updat_splits(16384, 16, 128, 132, "wgmma") == 16   # 264 / 16
+    assert bk.updat_splits(16384, 264, 64, 132, "wgmma") == 1
+    assert bk.updat_splits(16384, 263, 64, 132, "wgmma") == 2  # 526 of 528
+    assert bk.updat_splits(1500, 4, 32, 132, "wgmma") == 2      # 1500 // 512
+    assert bk.updat_run_rows(16384, 4, "wgmma") == 4096
+    assert bk.updat_run_rows(16384, 7, "wgmma") == 2368      # 64-row stages
+    assert bk.updat_run_rows(1100, 2, "wgmma") == 576
+    assert bk.updat_run_rows(77, 1, "wgmma") == 77
+
+
+def test_kernel_of_names_every_route():
+    bsmm1, _ = _flagship()
+    assert bsmm1.kernel_of(16384, "u", sm_count=132) == "bsmm_updat_wgmma"
+    assert bsmm1.kernel_of(16384, "u", torch.float32, 132) == "bsmm_updat"
+    fine = BlocksparseMatMul(_layout("random", 6, 4, 0), block_size=16,
+                             feature_axis=1, mode="fine")
+    assert fine.kernel_of(64, "f", sm_count=132) == "bsmm_fine_mma"
+    assert fine.kernel_of(64, "u", sm_count=132) == "bsmm_updat_mma"
+    win = BlocksparseMatMul(_layout("random", 6, 4, 0), block_size=32,
+                            feature_axis=1, mode="window")
+    assert win.kernel_of(64, "b", torch.float32, 132) == "bsmm_window"

@@ -461,7 +461,9 @@ def test_bsmm_bprop_kernel_matches_plain(cuda, bsize, dtype, route):
 @pytest.mark.parametrize("bsize", [8, 16, 32, 64, 128])
 def test_bsmm_updat_kernel_matches_plain(cuda, bsize, dtype, by_c):
     """At N 1, 77, 1500 and 4096.  f32 runs bsmm_updat.cu (CUDA cores,
-    unsplit).  bf16/f16 run bsmm_updat_mma.cu over the plan's groups: a
+    unsplit).  bf16/f16 run the kernel updat_kernel picks
+    (bsmm_updat_wgmma.cu at b32-128, bsmm_updat_mma.cu at b8 and b16)
+    over the plan's groups: a
     4-row layout whose row 0 holds more than one group's G = 256 / b
     blocks, grouped by x block-row, or its transpose, grouped by dy
     block-column; N split where the rule says (1500 and 4096 here: N //
@@ -569,6 +571,224 @@ def test_bsmm_autograd_runs_the_three_kernels(cuda, axis):
     for got, ref in zip(*grads):
         torch.testing.assert_close(got, ref, rtol=0,
                                    atol=1e-4 * ref.abs().max().item())
+    # bf16 on a dense layout (every staged x tile serving all its
+    # group's columns) at an N whose tiles fill the card: the three
+    # products on the wgmma kernels (bsmm_xprop_wgmma.cu twice,
+    # bsmm_updat_wgmma.cu)
+    port = BlocksparseMatMul(np.ones((4, 6), np.int32), block_size=32,
+                             feature_axis=axis)
+    plain = BlocksparseMatMul(np.ones((4, 6), np.int32), block_size=32,
+                              feature_axis=axis, impl="xla")
+    N = 128 * bsmm_kernels.device_sm_count(cuda) + 40
+    kernels = (bsmm_kernels.bsmm_fprop, bsmm_kernels.bsmm_bprop,
+               bsmm_kernels.bsmm_updat)
+    assert [port.kernel_of(N, d) for d in "fbu"] == [
+        "bsmm_xprop_wgmma", "bsmm_xprop_wgmma", "bsmm_updat_wgmma"]
+    x0 = torch.randn(port.i_shape(N), device=cuda, generator=g).bfloat16()
+    w0 = (torch.randn(port.w_shape, device=cuda, generator=g) * 0.1).bfloat16()
+    dy = torch.randn(port.o_shape(N), device=cuda, generator=g).bfloat16()
+    grads = []
+    for op in (port, plain):
+        x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+        counts = [(k.launches, k.launches_wgmma) for k in kernels]
+        y = op(x, w)
+        y.backward(dy)
+        torch.cuda.synchronize()
+        moved = [(k.launches - c, k.launches_wgmma - cw)
+                 for k, (c, cw) in zip(kernels, counts)]
+        assert moved == ([(1, 1)] * 3 if op is port else [(0, 0)] * 3)
+        grads.append((y.detach(), x.grad, w.grad))
+    for got, ref in zip(*grads):
+        torch.testing.assert_close(
+            got.float(), ref.float(), rtol=0,
+            atol=BSMM_BF16_TOL * max(1.0, ref.float().abs().max().item()))
+
+
+WGMMA_SIZES = (32, 64, 128)
+
+
+def _wgmma_layout(bsize, seed):
+    """2G + 3 output block-columns (three groups of G = 256 / b, the last
+    short) over as many input blocks, random at 0.5, output column 2 and
+    input block-row 2 empty: every group's items, masks with gaps, an
+    empty column and an empty bprop column."""
+    n = 2 * (256 // bsize) + 3
+    layout = random_layout(n, n, 0.5, seed=seed)
+    layout[:, 2] = 0
+    layout[2, :] = 0
+    return layout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", ["f", "b"])
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("bsize", WGMMA_SIZES)
+def test_wgmma_xprop_matches_plain(cuda, bsize, dtype, d):
+    """bsmm_xprop_wgmma.cu over xprop_wgmma_plan's groups at N 1, 5, 300
+    and a tile plus one (129): against the plain version at the matmul's
+    bf16 tolerance, the empty column exactly zero, two runs equal bit for
+    bit, one launch a call counted on the direction's wgmma counter."""
+    layout = _wgmma_layout(bsize, seed=bsize)
+    op = BlocksparseMatMul(layout, block_size=bsize, feature_axis=1)
+    plain = BlocksparseMatMul(layout, block_size=bsize, feature_axis=1,
+                              impl="xla")
+    lut = op._lut(cuda)
+    plan = op._plan_tensors(cuda, "wgmma", d)
+    kern = bsmm_kernels.bsmm_bprop if d == "b" else bsmm_kernels.bsmm_fprop
+    n_out = op.KB if d == "f" else op.CB
+    g = torch.Generator(device=cuda).manual_seed(bsize)
+    w = (torch.randn(op.w_shape, device=cuda, generator=g) * 0.2).to(dtype)
+    for N in (1, 5, 300, bsmm_kernels.XPROP_WG_TM + 1):
+        x = torch.randn((N, op.C if d == "f" else op.K), device=cuda,
+                        generator=g).to(dtype)
+        before = (kern.launches, kern.launches_wgmma)
+        y, again = (kern(x, w, lut[f"{d}_row_ptr"], lut[f"{d}_ent_in"],
+                         lut[f"{d}_ent_w"], bsize, n_out, plan=plan)
+                    for _ in range(2))
+        torch.cuda.synchronize()
+        assert (kern.launches, kern.launches_wgmma) == \
+            (before[0] + 2, before[1] + 2)
+        assert torch.equal(y, again)
+        assert y.dtype == dtype and y.shape == (N, n_out * bsize)
+        ref = plain._xprop(x, w, d).float()
+        torch.testing.assert_close(
+            y.float(), ref, rtol=0,
+            atol=_tol(dtype, BSMM_BF16_TOL, ref.abs().max().item()))
+        assert (y[:, 2 * bsize:3 * bsize] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("by_c", [True, False])
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("bsize", WGMMA_SIZES)
+def test_wgmma_updat_matches_plain(cuda, bsize, dtype, by_c):
+    """bsmm_updat_wgmma.cu over updat_plan's groups (by x block-row, or
+    by dy block-column on the transpose) at N 1, 5, 129, 300 unsplit and
+    1500 and 4096 split in runs of 64-row stages (the reduce summing the
+    runs): against the plain version at UPDAT_TOL, two runs equal bit for
+    bit, counted."""
+    G = bsmm_kernels.UPDAT_ROWS // bsize
+    layout = random_layout(4, G + 3, 0.3, seed=bsize)
+    layout[0, :] = 1
+    if not by_c:
+        layout = layout.T.copy()
+    op = BlocksparseMatMul(layout, block_size=bsize, feature_axis=1)
+    plain = BlocksparseMatMul(layout, block_size=bsize, feature_axis=1,
+                              impl="xla")
+    plan = op._plan_tensors(cuda, "updat", "u")
+    assert plan["by_c"] == by_c
+    lut = op._lut(cuda)
+    sms = bsmm_kernels.device_sm_count(cuda)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for N in (1, 5, 129, 300, 1500, 4096):
+        splits = bsmm_kernels.updat_splits(N, plan["grp_q"].numel(), bsize,
+                                           sms, "wgmma")
+        assert (splits > 1) == (N >= 1024)
+        x = torch.randn((N, op.C), device=cuda, generator=g).to(dtype)
+        dy = torch.randn((N, op.K), device=cuda, generator=g).to(dtype)
+        before = (bsmm_kernels.bsmm_updat.launches_wgmma,
+                  bsmm_kernels.bsmm_updat_reduce.launches)
+        dw, again = (bsmm_kernels.bsmm_updat(x, dy, lut["u_c32"], lut["u_k32"],
+                                             bsize, plan, splits, "wgmma")
+                     for _ in range(2))
+        torch.cuda.synchronize()
+        assert (bsmm_kernels.bsmm_updat.launches_wgmma,
+                bsmm_kernels.bsmm_updat_reduce.launches) == \
+            (before[0] + 2, before[1] + (2 if splits > 1 else 0))
+        assert torch.equal(dw, again)
+        ref = plain._updat(x, dy)
+        assert dw.dtype == torch.float32 and dw.shape == op.w_shape
+        torch.testing.assert_close(
+            dw, ref, rtol=0, atol=UPDAT_TOL * max(1.0, ref.abs().max().item()))
+
+
+@pytest.mark.cuda
+def test_wgmma_kernels_feature_axis_0_and_graph_replay(cuda):
+    """The op at feature_axis 0 on the wgmma kernels (bf16, N filling the
+    card): y, dx and dw against the plain op; then the three products
+    captured into a CUDA graph (the tensor maps encoded at capture hold
+    the captured tensors' addresses) and replayed on new inputs copied
+    into those tensors, equal bit for bit to the eager calls."""
+    layout = random_layout(4, 6, 0.9, seed=8)
+    port = BlocksparseMatMul(layout, block_size=32, feature_axis=0)
+    plain = BlocksparseMatMul(layout, block_size=32, feature_axis=0,
+                              impl="xla")
+    N = 128 * bsmm_kernels.device_sm_count(cuda) + 7
+    assert [port.kernel_of(N, d) for d in "fbu"] == [
+        "bsmm_xprop_wgmma", "bsmm_xprop_wgmma", "bsmm_updat_wgmma"]
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn(port.i_shape(N), device=cuda, generator=g).bfloat16()
+    w = (torch.randn(port.w_shape, device=cuda, generator=g) * 0.1).bfloat16()
+    dy = torch.randn(port.o_shape(N), device=cuda, generator=g).bfloat16()
+
+    def products():
+        return (port._xprop(x, w, "f"), port._xprop(dy, w, "b"),
+                port._updat(x, dy))
+    eager = products()
+    for got, ref, tol in zip(eager, (plain._xprop(x, w, "f"),
+                                     plain._xprop(dy, w, "b"),
+                                     plain._updat(x, dy)),
+                             (BSMM_BF16_TOL, BSMM_BF16_TOL, UPDAT_TOL)):
+        torch.testing.assert_close(
+            got.float(), ref.float(), rtol=0,
+            atol=tol * max(1.0, ref.float().abs().max().item()))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        products()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = products()
+    for t in (x, w, dy):
+        t.copy_(torch.randn(t.shape, device=cuda, generator=g) * 0.5)
+    graph.replay()
+    torch.cuda.synchronize()
+    for got, ref in zip(captured, products()):
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_wgmma_wrappers_raise(cuda):
+    """The wgmma wrappers refuse a CPU tensor, mixed dtypes, f32, a block
+    size they are not built for and an empty N; the updat refuses an
+    unknown kernel name."""
+    layout = random_layout(4, 6, 0.5, seed=9)
+    op = BlocksparseMatMul(layout, block_size=32, feature_axis=1)
+    lut, plan = op._lut(cuda), op._plan_tensors(cuda, "wgmma", "f")
+    csr = (lut["f_row_ptr"], lut["f_ent_in"], lut["f_ent_w"], 32, op.KB)
+    x = torch.randn((64, op.C), device=cuda).bfloat16()
+    w = torch.randn(op.w_shape, device=cuda).bfloat16()
+    with pytest.raises(ValueError):
+        bsmm_kernels.bsmm_fprop(x.cpu(), w.cpu(), *csr, plan=plan)
+    with pytest.raises(TypeError):
+        bsmm_kernels.bsmm_fprop(x, w.half(), *csr, plan=plan)
+    with pytest.raises(TypeError):
+        bsmm_kernels.bsmm_fprop(x.float(), w.float(), *csr, plan=plan)
+    with pytest.raises(ValueError):
+        bsmm_kernels.bsmm_fprop(x[:0], w, *csr, plan=plan)
+    small = BlocksparseMatMul(random_layout(4, 6, 0.5, seed=9), block_size=16,
+                              feature_axis=1)
+    slut = small._lut(cuda)
+    with pytest.raises(ValueError):
+        bsmm_kernels.bsmm_fprop(
+            torch.randn((64, small.C), device=cuda).bfloat16(),
+            torch.randn(small.w_shape, device=cuda).bfloat16(),
+            slut["f_row_ptr"], slut["f_ent_in"], slut["f_ent_w"], 16,
+            small.KB, plan=small._plan_tensors(cuda, "wgmma", "f"))
+    uplan = op._plan_tensors(cuda, "updat", "u")
+    dy = torch.randn((64, op.K), device=cuda).bfloat16()
+    ents = (lut["u_c32"], lut["u_k32"], 32, uplan, 1)
+    with pytest.raises(ValueError):
+        bsmm_kernels.bsmm_updat(x.cpu(), dy.cpu(), *ents, "wgmma")
+    with pytest.raises(TypeError):
+        bsmm_kernels.bsmm_updat(x, dy.half(), *ents, "wgmma")
+    with pytest.raises(ValueError):
+        bsmm_kernels.bsmm_updat(x.float(), dy.float(), *ents, "wgmma")
+    with pytest.raises(ValueError):
+        bsmm_kernels.bsmm_updat(x, dy, *ents, "tma")
+    with pytest.raises(ValueError):
+        bsmm_kernels.bsmm_updat(x[:0], dy[:0], *ents, "wgmma")
 
 
 def _grouped_layout(bsize):

@@ -1,0 +1,63 @@
+"""The bf16/f16 block-sparse matmul kernels on wgmma against those on
+mma.sync, on one CUDA card, alone: ``chip_smoke.py``'s block-size checks of
+the xprop and updat kernels (every block size, bf16 and f16, both
+kernels, two runs bit-equal, the split route bit for bit against
+``bsmm_partials`` + ``bsmm_merge``) and its wgmma phase (both kernels in
+turns at the main path's shapes beside the bound and the library call,
+their registers and spills), without the rest of the smoke run.
+
+    python tools/bsmm_wgmma_bench.py          # from the repo root, one GPU
+
+Exits 1 without a CUDA device, and on a failed check.
+"""
+import os
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+SOURCES = ("bsmm_xprop_wgmma", "bsmm_updat_wgmma", "bsmm_xprop_mma",
+           "bsmm_updat_mma", "bsmm_merge")
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("bsmm_wgmma_bench: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    import blocksparse_tpu_torch as bt
+    from blocksparse_tpu_torch.kernels import _build
+
+    dev = torch.device("cuda", 0)
+    card_line = cs.card()
+    print(f"card: {card_line}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}", flush=True)
+    t = time.perf_counter()
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        for lib in pool.map(_build.build, SOURCES):
+            print(f"built {lib.name}", flush=True)
+    print(f"builds {time.perf_counter() - t:.1f} s", flush=True)
+    cfg = bt.TransformerConfig(
+        n_vocab=256, n_embd=512, n_layer=6, n_head=8, ctx=2048, blk_size=64,
+        attn_layout="fixed", local_blocks=8, mlp_ratio=4, mlp_block_size=32,
+        mlp_density=0.5, dtype="bfloat16", recompute=True)
+    model = bt.SparseTransformerLM(cfg, device=dev)
+    g = torch.Generator(device=dev).manual_seed(cs.SEED)
+    try:
+        cs.wgmma_ptxas_report()
+        cs.xprop_block_size_checks(bt, dev, g)
+        cs.updat_block_size_checks(bt, dev, g)
+        cs.wgmma_turns(bt, model, dev, g, card_line, {})
+    except cs.CheckFailed as e:
+        print(f"FAILED: {e}", file=sys.stderr)
+        return 1
+    print(cs.card(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
