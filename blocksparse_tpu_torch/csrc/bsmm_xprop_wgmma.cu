@@ -266,18 +266,6 @@ bsmm_xprop_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
-// the card's SMs (the grid: one resident thread block an SM), once a device
-inline int sm_count() {
-  static int count[32] = {};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (dev < 32 && count[dev]) return count[dev];
-  int n = 0;
-  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
-  if (dev < 32) count[dev] = n;
-  return n;
-}
-
 template <typename T, int B, bool TRANS>
 cudaError_t launch(const void* x, const void* w, const int* u_ptr, const int* u_in,
                    const int* u_mask, const int* u_w, const int* grp_col, void* y, int N, int C,

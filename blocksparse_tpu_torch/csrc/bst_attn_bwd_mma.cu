@@ -6,7 +6,9 @@
 //
 // Replaces, for bf16 and f16 inputs, the TPU kernels fused_attention_dq /
 // _attn_dq_kernel and fused_attention_dkv / _attn_dkv_kernel
-// (blocksparse_tpu/kernels/bst_attn.py).  f32 inputs stay on
+// (blocksparse_tpu/kernels/bst_attn.py), dk/dv at the sizes attn_kernel
+// (kernels/bst_attn.py) leaves it (bst_attn_dkv_wgmma.cu takes bs 64,
+// hs 64).  f32 inputs stay on
 // bst_attn_bwd.cu, in full fp32 on the CUDA cores (the reference's f32 dots
 // are Precision.HIGHEST, and the tensor cores would round them to TF32);
 // the C interface is that source's, tables and launch order included.  With

@@ -5,9 +5,12 @@
 // registers; optionally also the per-row log-sum-exp lse = m + log(l)
 // (f32), which the training backward reads.
 //
-// Replaces, for bf16 and f16 inputs, the TPU kernels fused_attention_fwd /
-// _attn_kernel (lse == null) and fused_attention_fwd_lse /
-// _attn_fwd_lse_kernel (blocksparse_tpu/kernels/bst_attn.py).  f32 inputs
+// Replaces, for bf16 and f16 inputs at the sizes attn_kernel
+// (kernels/bst_attn.py) leaves it (bs 16 and 32, hs 16 and 32, short key
+// contexts; bst_attn_fwd_wgmma.cu takes the rest of bs 64), the TPU
+// kernels fused_attention_fwd / _attn_kernel (lse == null) and
+// fused_attention_fwd_lse / _attn_fwd_lse_kernel
+// (blocksparse_tpu/kernels/bst_attn.py).  f32 inputs
 // stay on bst_attn_fwd.cu, in full fp32 on the CUDA cores (the
 // reference's f32 dots are Precision.HIGHEST, and the tensor cores would
 // round them to TF32); the C interface is that source's.  It computes what

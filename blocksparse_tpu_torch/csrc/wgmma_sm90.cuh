@@ -1,11 +1,13 @@
 // Hopper's warpgroup tensor-core products (wgmma) for the bf16/f16 kernels
-// that read both operands from shared memory (bst_nt_mma.cu, bst_xn_mma.cu,
-// bsmm_xprop_wgmma.cu, bsmm_updat_wgmma.cu): the 64- and 128-byte swizzled
-// tiles' descriptors, the group fence, commit and wait, and m64nNk16 (N
-// 8-64) with f32 accumulators; the TMA tile loads that fill such tiles
-// (mbarriers, cp.async.bulk.tensor, the tensor maps' encoder got through
-// cudaGetDriverEntryPoint, no libcuda link); and the warp-specialised
-// kernels' register split (setmaxnreg) and named barriers.
+// (bst_nt_mma.cu, bst_xn_mma.cu, bsmm_xprop_wgmma.cu, bsmm_updat_wgmma.cu,
+// bst_attn_fwd_wgmma.cu, bst_attn_dkv_wgmma.cu): the 64- and 128-byte
+// swizzled tiles' descriptors, the group fence, commit and wait, m64nNk16
+// (N 8-64) with f32 accumulators and both operands from shared memory, and
+// m64n64k16 with A from registers; the TMA tile loads that fill such tiles
+// (mbarriers, cp.async.bulk.tensor and the 1-d bulk copy, the tensor maps'
+// encoder got through cudaGetDriverEntryPoint, no libcuda link); and the
+// warp-specialised kernels' register split (setmaxnreg), named barriers
+// and persistent grid (sm_count).
 #pragma once
 
 #include <cuda.h>
@@ -54,10 +56,17 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N> __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
-// keeps the compiler from moving reads of the accumulators above a wait
+// keeps the compiler from moving reads of the accumulators above a wait,
+// and writes of a product's register operands (accumulators, A) below the
+// point they are made at (ptxas would otherwise fence the products on a
+// divergent path and serialize them: C7520)
 template <int R> __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int R> __device__ __forceinline__ void fence_regs(uint32_t (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // D (m64 x nN, f32) += A . B over k16, A (64 x 16) and B (16 x N) read from
@@ -186,6 +195,55 @@ __device__ __forceinline__ void wgmma(float (&d)[32], uint64_t da, uint64_t db, 
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
+// D (m64 x n64, f32) += A . B over k16 with A (64 x 16) from registers:
+// each warp of the warpgroup holds rows 16w .. 16w + 15 as an mma.sync
+// m16n8k16 A fragment (a[0] row lane/4, k 2 (lane % 4) and the next; a[1]
+// row + 8; a[2], a[3] the same at k + 8), so the accumulators of a product
+// over 16 columns, each pair rounded into one register, are the next
+// product's A (FlashAttention-3's P).  B from shared memory through its
+// descriptor; TB: 0 K-major, 1 MN-major.  D is zeroed first where scale_d
+// is 0.  A wgmma_fence() must separate the registers' last writes from it.
+template <int TB>
+__device__ __forceinline__ void wgmma_ra(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d, __nv_bfloat16) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+template <int TB>
+__device__ __forceinline__ void wgmma_ra(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d, __half) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
 // ---- TMA tile loads ----
 __device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
@@ -254,6 +312,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// `bytes` (a multiple of 16) contiguous bytes global -> shared at dst
+// (both 16-byte aligned) by the bulk copy engine, counted on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))), "l"(src), "r"(bytes),
+      "r"(static_cast<uint32_t>(__cvta_generic_to_shared(bar)))
+      : "memory");
+}
+
 // The warp-specialised kernels' register split: a producer warpgroup gives
 // registers back, the consumer warpgroups take them (all four warps of a
 // warpgroup execute it)
@@ -266,6 +335,19 @@ template <int R> __device__ __forceinline__ void setmaxnreg_inc() {
 // named barrier `id` over `count` threads (whole warps)
 __device__ __forceinline__ void bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// the card's SMs (a persistent kernel's grid: one resident thread block an
+// SM), read once a device
+inline int sm_count() {
+  static int count[32] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < 32 && count[dev]) return count[dev];
+  int n = 0;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
+  if (dev < 32) count[dev] = n;
+  return n;
 }
 
 using TensorMapEncode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

@@ -547,13 +547,10 @@ class BlocksparseTransformer:
                 qp, kp, vp, tab["kq_blk"], tab["kk_blk"], tab["kmask"], heads,
                 kbs, scale)
         elif with_lse:
-            out, lse = bst_attn.attention_fwd_lse(
-                qp, kp, vp, tab["row_ptr"], tab["ent_k"], tab["ent_code"],
-                tab["uniq"], heads, kbs, scale, order=tab["order"])
+            out, lse = bst_attn.attention_fwd_lse(qp, kp, vp, tab, heads,
+                                                  scale)
         else:
-            out = bst_attn.attention_fwd(
-                qp, kp, vp, tab["row_ptr"], tab["ent_k"], tab["ent_code"],
-                tab["uniq"], heads, kbs, scale, order=tab["order"])
+            out = bst_attn.attention_fwd(qp, kp, vp, tab, heads, scale)
         if with_lse and lse.shape[-1] != ctx_q:
             lse = lse[..., :ctx_q].contiguous()
         return _crop(out, ctx_q, heads, hs), lse if with_lse else None
@@ -585,14 +582,10 @@ class BlocksparseTransformer:
         kp = _pad(k, tab["kctx_k"], heads, khs)
         vp = _pad(v, tab["kctx_k"], heads, khs)
         if q.is_cuda:
-            dq = bst_attn.attention_dq(
-                qp, kp, vp, dop, lse, dvec, tab["row_ptr"], tab["ent_k"],
-                tab["ent_code"], tab["uniq"], heads, kbs, scale,
-                out_dtype=dq_dtype)
-            dk, dv = bst_attn.attention_dkv(
-                qp, kp, vp, dop, lse, dvec, tab["row_ptr_t"], tab["ent_q"],
-                tab["ent_code_t"], tab["uniq_t"], heads, kbs, scale,
-                order=tab["order_t"])
+            dq = bst_attn.attention_dq(qp, kp, vp, dop, lse, dvec, tab,
+                                       heads, scale, out_dtype=dq_dtype)
+            dk, dv = bst_attn.attention_dkv(qp, kp, vp, dop, lse, dvec, tab,
+                                            heads, scale)
         else:
             dq, dk, dv = bst_attn.attention_bwd_plain(
                 qp, kp, vp, dop, lse, dvec, tab["kq_blk"], tab["kk_blk"],
@@ -686,7 +679,8 @@ class BlocksparseTransformer:
 def fused_tables(nt_lists, mask_blocks, bs, ctx_blks_q, ctx_blks_k, device):
     """The fused attention's tables of a layout on ``device``: those of
     the kernels' view (``bst_attn.kernel_view``, ``kernel_tables``: the
-    CSRs, their mask codes and launch orders), its block size and padded
+    CSRs, their mask codes, launch orders and pair plans, which the
+    kernels' wrappers read from this dict), its block size and padded
     contexts (``kbs``, ``kctx_q``, ``kctx_k``), the view's plain-version
     block indices and masks (``kq_blk``, ``kk_blk``, ``kmask``), and the
     plain versions' at the layout's own block size (``q_blk``, ``k_blk``,
@@ -704,10 +698,8 @@ def fused_tables(nt_lists, mask_blocks, bs, ctx_blks_q, ctx_blks_k, device):
         return None if a is None else torch.as_tensor(a, dtype=dt,
                                                       device=device)
     i32, i8, i64 = torch.int32, torch.int8, torch.int64
-    tab = {name: t(kt[name], dt) for name, dt in (
-        ("row_ptr", i32), ("ent_k", i32), ("ent_code", i32), ("uniq", i8),
-        ("order", i32), ("row_ptr_t", i32), ("ent_q", i32),
-        ("ent_code_t", i32), ("uniq_t", i8), ("order_t", i32))}
+    tab = {name: t(kt[name], i8 if name.startswith("uniq") else i32)
+           for name in bst_attn._TABLES + bst_attn._TABLES_T}
     tab.update({
         "kbs": kbs, "kctx_q": kcq * kbs, "kctx_k": kck * kbs,
         "kq_blk": t(kt["q_blk"], i64), "kk_blk": t(kt["k_blk"], i64),

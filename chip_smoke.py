@@ -42,19 +42,22 @@ against its plain version; at the MoE and LSTM shapes each direction
 twice equal; and each configuration's registers, spilled bytes, shared
 memory a block and blocks an SM are printed, the MoE's and LSTM's
 marked.  The attention forward (serving, and training with the lse) runs
-``bst_attn_fwd_mma.cu`` on the tensor cores in bf16 and f16 (two runs
-equal bit for bit at the LM's shape, the query rows launched by entry
-count and in CSR order with equal bits; held against its plain version
-at every (bs, hs) and on a layout with a fully masked query row; its
-device time, TFLOP/s, registers and spills printed beside its bound and
-SDPA's forward, in both launch orders) and ``bst_attn_fwd.cu`` in f32.
-The attention backward (dq and dk/dv) runs ``bst_attn_bwd_mma.cu`` on
-the tensor cores in bf16 and f16 (two runs equal bit for bit at the LM's
-shape, dk/dv's key rows launched by entry count and in CSR order with
-equal bits; held against its plain version at every (bs, hs) and on a
-layout with a fully masked query row; its device time, TFLOP/s,
-registers and spills printed beside its bound and SDPA's backward, dk/dv
-in both launch orders) and ``bst_attn_bwd.cu`` in f32.  The sizes the
+``bst_attn_fwd_wgmma.cu`` at block size 64 (``wgmma`` fed by TMA, a
+thread block two query block-rows over the union of their key blocks;
+``attn_kernel`` is the rule: hs 64 and 128, at least 16 key block-rows)
+and ``bst_attn_fwd_mma.cu`` elsewhere, both on the tensor cores in bf16
+and f16 (two runs equal bit for bit at the LM's shape, the tables'
+launch order and CSR order equal; each held against its plain version at
+the LM's shape, at every (bs, hs) and on layouts with a fully masked
+query row and an odd block-row count; their device time in turns,
+TFLOP/s, a call's host time, registers, spills and shared memory beside
+the bound and SDPA's forward) and ``bst_attn_fwd.cu`` in f32.  dk/dv
+runs ``bst_attn_dkv_wgmma.cu`` at bs 64, hs 64 (the same pair plan over
+key block-rows) and ``bst_attn_bwd_mma.cu`` elsewhere, dq always the
+latter, in bf16 and f16 (held and timed as the forward), and
+``bst_attn_bwd.cu`` in f32; both wgmma kernels are also timed against the
+mma.sync ones at the pipeline's microbatch, an sp-4 gather shard and
+ring pair and 4 heads of 128 (``attn_wgmma_phase``).  The sizes the
 reference fuses beyond the kernels' own go through the op's route to the
 kernels: block size 8 as the kernels' bs-16 view of the layout, head
 sizes 8, 48 and 96 zero-padded to 16, 64 and 128; forward, lse, dq and
@@ -310,7 +313,8 @@ SOURCES = ("bsmm_xprop_mma", "bsmm_fprop", "bsmm_updat_mma", "bsmm_updat",
            "bst_attn_bwd", "im2col", "col2im_tma",
            "bsmm_fine_mma", "bsmm_fine", "bsmm_window_mma", "bsmm_window",
            "bsmm_merge", "bst_nt_mma", "bst_nt", "bst_xn_mma", "bst_xn",
-           "bsmm_xprop_wgmma", "bsmm_updat_wgmma")
+           "bsmm_xprop_wgmma", "bsmm_updat_wgmma", "bst_attn_fwd_wgmma",
+           "bst_attn_dkv_wgmma")
 DTYPES = (torch.bfloat16, torch.float32, torch.float16)
 # |kernel - plain| <= TOL * max(1, max|plain|); f16 held at bf16 level
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 1e-2}
@@ -478,6 +482,47 @@ def same_bits(what, fn):
     check(torch.equal(fn(), fn()), f"{what}: two runs equal bit for bit")
 
 
+@contextlib.contextmanager
+def attn_on_mma():
+    """The attention's route with the wgmma kernels' head sizes emptied:
+    every bf16/f16 forward and dk/dv on the mma.sync kernels
+    (bst_attn_fwd_mma.cu, bst_attn_bwd_mma.cu), as before them."""
+    from blocksparse_tpu_torch.kernels import bst_attn
+    saved = bst_attn.FWD_WGMMA_HEAD_SIZES, bst_attn.DKV_WGMMA_HEAD_SIZES
+    bst_attn.FWD_WGMMA_HEAD_SIZES = bst_attn.DKV_WGMMA_HEAD_SIZES = ()
+    try:
+        yield
+    finally:
+        bst_attn.FWD_WGMMA_HEAD_SIZES, bst_attn.DKV_WGMMA_HEAD_SIZES = saved
+
+
+@contextlib.contextmanager
+def forced_wgmma():
+    """The attention's route with the forward's key-context clause lifted
+    (FWD_WGMMA_MIN_KEY_BLOCKS 0): the forward on its wgmma kernel at every
+    bs-64 shape of its head sizes, to time it where the rule keeps
+    mma.sync."""
+    from blocksparse_tpu_torch.kernels import bst_attn
+    saved = bst_attn.FWD_WGMMA_MIN_KEY_BLOCKS
+    bst_attn.FWD_WGMMA_MIN_KEY_BLOCKS = 0
+    try:
+        yield
+    finally:
+        bst_attn.FWD_WGMMA_MIN_KEY_BLOCKS = saved
+
+
+def csr_order(tab):
+    """The attention tables with both launch orders replaced by CSR order
+    (the mma.sync kernels launch their rows in it; the wgmma kernels read
+    the pair plan, which no order changes)."""
+    out = dict(tab)
+    for name in ("order", "order_t"):
+        lh, rows = tab[name].shape
+        out[name] = torch.arange(rows, dtype=torch.int32,
+                                 device=tab[name].device).repeat(lh, 1)
+    return out
+
+
 def xprop_flops(op, N):
     return 2 * N * op.blocks * op.bsize ** 2
 
@@ -589,21 +634,18 @@ def training_kernel_checks(model, plain, dev, g, rows):
         do = torch.randn((BATCH, c.ctx, c.n_embd), device=dev,
                          generator=g).to(dtype)
 
-        def fwd_lse(order=tab["order"]):
-            return bst_attn.attention_fwd_lse(
-                q, k, v, tab["row_ptr"], tab["ent_k"], tab["ent_code"],
-                tab["uniq"], heads, bs, scale, order=order)
+        def fwd_lse(t=tab):
+            return bst_attn.attention_fwd_lse(q, k, v, t, heads, scale)
 
-        def fwd(order=tab["order"]):
-            return bst_attn.attention_fwd(
-                q, k, v, tab["row_ptr"], tab["ent_k"], tab["ent_code"],
-                tab["uniq"], heads, bs, scale, order=order)
+        def fwd(t=tab):
+            return bst_attn.attention_fwd(q, k, v, t, heads, scale)
 
         def fwd_lse_plain():
             return bst_attn.attention_fwd_lse_plain(q, k, v, *plain_args)
+        src = bst_attn.attn_kernel("fwd", dtype, bs, model.hs, c.ctx // bs)
         (out, lse), (out_ref, lse_ref) = fwd_lse(), fwd_lse_plain()
-        err = compare_fwd(f"bst_attn_fwd_lse out {what} {dtype}", out,
-                          out_ref, dtype)
+        err = compare_fwd(f"bst_attn_fwd_lse out {what} {dtype} (on {src})",
+                          out, out_ref, dtype)
         lse_err = (lse - lse_ref).abs().max().item()
         check(bool(torch.isfinite(lse).all()) and lse_err <= LSE_TOL,
               f"bst_attn_fwd_lse lse: max_abs_err {lse_err:.3e} (tol "
@@ -617,27 +659,35 @@ def training_kernel_checks(model, plain, dev, g, rows):
             check(torch.equal(torch.cat([t.float().flatten()
                                          for t in fwd_lse()]),
                               torch.cat([t.float().flatten()
-                                         for t in fwd_lse(None)]))
-                  and torch.equal(fwd(), fwd(None))
+                                         for t in fwd_lse(csr_order(tab))]))
+                  and torch.equal(fwd(), fwd(csr_order(tab)))
                   and torch.equal(fwd(), out),
-                  f"bst_attn_fwd(_lse) {what} {dtype}: query rows launched "
-                  f"by entry count and in CSR order, equal bit for bit; "
-                  f"serving out equal to training out")
+                  f"bst_attn_fwd(_lse) {what} {dtype}: the tables' launch "
+                  f"order and CSR order equal bit for bit; serving out "
+                  f"equal to training out")
+            with attn_on_mma():
+                err_mma = compare_fwd(
+                    f"bst_attn_fwd_lse out {what} {dtype} (on "
+                    f"bst_attn_fwd_mma)", fwd_lse()[0], out_ref, dtype)
+                same_bits(f"bst_attn_fwd_lse {what} {dtype} on "
+                          f"bst_attn_fwd_mma", lambda: fwd_lse()[0])
+            rows[("fwd_lse_mma_err", dtype)] = err_mma
         if dtype == torch.bfloat16:
             attn_fwd_device_times(fwd, fwd_lse, rows)
+            rows["attn_host"] = {
+                "fwd_lse": host_ms(fwd_lse)}
+            with attn_on_mma():
+                rows["attn_host"]["fwd_lse_mma"] = host_ms(fwd_lse)
         dvec = (do.float() * out_ref.float()).reshape(
             BATCH, c.ctx, heads, -1).sum(-1).transpose(1, 2).contiguous()
 
         def dq():
-            return bst_attn.attention_dq(
-                q, k, v, do, lse_ref, dvec, tab["row_ptr"], tab["ent_k"],
-                tab["ent_code"], tab["uniq"], heads, bs, scale)
+            return bst_attn.attention_dq(q, k, v, do, lse_ref, dvec, tab,
+                                         heads, scale)
 
-        def dkv(order=tab["order_t"]):
-            return bst_attn.attention_dkv(
-                q, k, v, do, lse_ref, dvec, tab["row_ptr_t"], tab["ent_q"],
-                tab["ent_code_t"], tab["uniq_t"], heads, bs, scale,
-                order=order)
+        def dkv(t=tab):
+            return bst_attn.attention_dkv(q, k, v, do, lse_ref, dvec, t,
+                                          heads, scale)
 
         def bwd_plain():
             return bst_attn.attention_bwd_plain(q, k, v, do, lse_ref, dvec,
@@ -647,51 +697,179 @@ def training_kernel_checks(model, plain, dev, g, rows):
                       ATTN_TOL[dtype])
         timed(rows, ("dq", dtype), err, dq, bwd_plain, 20)
         dk, dv = dkv()
-        err = max(compare(f"bst_attn_dkv dk {what} {dtype}", dk, dk_ref,
-                          ATTN_TOL[dtype]),
-                  compare(f"bst_attn_dkv dv {what} {dtype}", dv, dv_ref,
-                          ATTN_TOL[dtype]))
+        src = bst_attn.attn_kernel("dkv", dtype, bs, model.hs, c.ctx // bs)
+        err = max(compare(f"bst_attn_dkv dk {what} {dtype} (on {src})", dk,
+                          dk_ref, ATTN_TOL[dtype]),
+                  compare(f"bst_attn_dkv dv {what} {dtype} (on {src})", dv,
+                          dv_ref, ATTN_TOL[dtype]))
         if dtype != torch.float32:
             same_bits(f"bst_attn_dq {what} {dtype}", dq)
             same_bits(f"bst_attn_dkv {what} {dtype} (dk, dv)",
                       lambda: torch.stack(dkv()))
-            check(torch.equal(torch.stack(dkv()), torch.stack(dkv(None))),
-                  f"bst_attn_dkv {what} {dtype}: launched by entry count "
-                  f"and in CSR order, equal bit for bit")
+            check(torch.equal(torch.stack(dkv()),
+                              torch.stack(dkv(csr_order(tab)))),
+                  f"bst_attn_dkv {what} {dtype}: the tables' launch order "
+                  f"and CSR order equal bit for bit")
+            with attn_on_mma():
+                dk_m, dv_m = dkv()
+                err_mma = max(
+                    compare(f"bst_attn_dkv dk {what} {dtype} (on "
+                            f"bst_attn_bwd_mma)", dk_m, dk_ref,
+                            ATTN_TOL[dtype]),
+                    compare(f"bst_attn_dkv dv {what} {dtype} (on "
+                            f"bst_attn_bwd_mma)", dv_m, dv_ref,
+                            ATTN_TOL[dtype]))
+                same_bits(f"bst_attn_dkv {what} {dtype} on bst_attn_bwd_mma",
+                          lambda: torch.stack(dkv()))
+            rows[("dkv_mma_err", dtype)] = err_mma
         # the plain backward computes dq, dk and dv in one call: its time
         # stands beside both kernels
         timed(rows, ("dkv", dtype), err, dkv, bwd_plain, 20)
         if dtype == torch.bfloat16:
             attn_bwd_device_times(dq, dkv, rows)
+            rows["attn_host"]["dkv"] = host_ms(dkv)
+            with attn_on_mma():
+                rows["attn_host"]["dkv_mma"] = host_ms(dkv)
         del qkv, q, k, v, do, out, lse, out_ref, lse_ref, dvec
         del dq_ref, dk_ref, dv_ref, dk, dv
         torch.cuda.empty_cache()
 
 
+def attn_turns(fn, kernels, n=20):
+    """fn's device time (the profiler, mean of n launches) on the wgmma
+    kernel and on the mma.sync one, in turns: mma, wgmma, wgmma, mma.
+    kernels: (the wgmma kernel's name, the mma.sync kernel's)."""
+    out = {"wgmma": [], "mma": []}
+    for side in ("mma", "wgmma", "wgmma", "mma"):
+        if side == "mma":
+            with attn_on_mma():
+                out[side].append(kernel_device_ms(fn, kernels[1], n))
+        else:
+            out[side].append(kernel_device_ms(fn, kernels[0], n))
+    return out
+
+
+def attn_kernel_key(kind, bs=64, hs=64, key_blocks=32):
+    """The profiler's name of the kernel a bf16 attention launch of
+    ``kind`` ("fwd", "dq", "dkv") at (bs, hs) over ``key_blocks`` key
+    block-rows runs, by the route rule ``attn_kernel``:
+    bst_attn_<kind>_wgmma_kernel or _mma_kernel."""
+    from blocksparse_tpu_torch.kernels import bst_attn
+    src = bst_attn.attn_kernel(kind, torch.bfloat16, bs, hs, key_blocks)
+    return f"bst_attn_{kind}_{src.rsplit('_', 1)[1]}_kernel"
+
+
+def short_key(key):
+    """bst_attn_<kind>_<route>_kernel -> <kind>_<route>."""
+    return key[len("bst_attn_"):-len("_kernel")]
+
+
+FWD_KERNELS = ("bst_attn_fwd_wgmma_kernel", "bst_attn_fwd_mma_kernel")
+DKV_KERNELS = ("bst_attn_dkv_wgmma_kernel", "bst_attn_dkv_mma_kernel")
+
+
 def attn_fwd_device_times(fwd, fwd_lse, rows):
-    """The tensor-core forward's device time at the LM's shape (bf16; the
-    profiler, mean of 20 launches), both entry points in both launch
-    orders of the query rows, in turns: CSR order, by entry count, by
-    entry count, CSR order."""
-    for name, fn in (("fwd_dev", fwd), ("fwd_lse_dev", fwd_lse)):
-        rows[name] = {"csr": [], "order": []}
-        for key in ("csr", "order", "order", "csr"):
-            rows[name][key].append(kernel_device_ms(
-                (lambda: fn(None)) if key == "csr" else fn,
-                "bst_attn_fwd_mma_kernel"))
+    """Both forward entry points' device time at the LM's shape (bf16) on
+    bst_attn_fwd_wgmma.cu and on bst_attn_fwd_mma.cu, in turns."""
+    rows["fwd_dev"] = attn_turns(fwd, FWD_KERNELS)
+    rows["fwd_lse_dev"] = attn_turns(fwd_lse, FWD_KERNELS)
 
 
 def attn_bwd_device_times(dq, dkv, rows):
-    """The tensor-core dq and dk/dv kernels' device time at the LM's shape
-    (bf16; the profiler, mean of 20 launches), dk/dv in both launch orders
-    of its key rows, in turns: CSR order, by entry count, by entry count,
-    CSR order."""
+    """dq's device time at the LM's shape (bf16; bst_attn_bwd_mma.cu, the
+    profiler, mean of 20 launches), and dk/dv's on bst_attn_dkv_wgmma.cu
+    and on bst_attn_bwd_mma.cu, in turns."""
     rows["dq_dev"] = kernel_device_ms(dq, "bst_attn_dq_mma_kernel")
-    rows["dkv_dev"] = {"csr": [], "order": []}
-    for key in ("csr", "order", "order", "csr"):
-        rows["dkv_dev"][key].append(kernel_device_ms(
-            (lambda: dkv(None)) if key == "csr" else dkv,
-            "bst_attn_dkv_mma_kernel"))
+    rows["dkv_dev"] = attn_turns(dkv, DKV_KERNELS)
+
+
+def attn_wgmma_phase(bt, model, dev, g, card_line, rows):
+    """The wgmma attention kernels against the mma.sync ones beyond the
+    LM's shape (whose turns run in ``training_kernel_checks``), bf16: the
+    pipeline's microbatch (BATCH / PP_MICRO x 2048), the sp-4 gather shard
+    and ring pair of the last query rows (the most entries), and 4 heads
+    of 128 at BATCH x 2048 (dk/dv there runs bst_attn_bwd_mma.cu by the
+    rule, so only the forward has two kernels to time).  Each forward with
+    lse and each dk/dv held against its plain version on both kernels,
+    then timed by the profiler's device time in turns (mma, wgmma, wgmma,
+    mma), the route ``attn_kernel`` takes printed beside."""
+    from blocksparse_tpu_torch.kernels import bst_attn
+    from blocksparse_tpu_torch.models.sparse_transformer import (
+        causal_subblock_mask, fixed_layout)
+    from blocksparse_tpu_torch.parallel import sequence as seq
+    bf, c, bst = torch.bfloat16, model.config, model.bst
+    T, n = c.ctx, SP_SHARDS[-1]
+    L = T // n
+    wide = bt.BlocksparseTransformer(
+        fixed_layout(T // 64, local_blocks=8), block_size=64, heads=4,
+        mask_callback=causal_subblock_mask)
+
+    def rand(*shape):
+        return torch.randn(shape, device=dev, generator=g).to(bf)
+    cases = (  # (what, op, tables, batch, query rows, key rows)
+        (f"pipeline microbatch {BATCH // PP_MICRO} x {T}", bst,
+         bst._tables(dev), BATCH // PP_MICRO, T, T),
+        (f"sp {n} gather shard {n - 1}", bst,
+         seq.shard_tables(bst, n, n - 1, None, dev), BATCH, L, T),
+        (f"sp {n} ring pair ({n - 1}, {n - 1})", bst,
+         seq.shard_tables(bst, n, n - 1, n - 1, dev), BATCH, L, L),
+        (f"4 heads of 128, {BATCH} x {T}", wide, wide._tables(dev), BATCH, T,
+         T))
+    out_rows = {}
+    for what, op, tab, B, Tq, Tk in cases:
+        H, state = op.heads, c.n_embd
+        hs = state // H
+        scale = 1.0 / np.sqrt(hs)
+        q, do = rand(B, Tq, state), rand(B, Tq, state)
+        k, v = rand(B, Tk, state), rand(B, Tk, state)
+        args = (tab["q_blk"], tab["k_blk"], tab["mask"], H, 64, scale)
+        out_ref, lse_ref = bst_attn.attention_fwd_lse_plain(q, k, v, *args)
+        dvec = (do.float() * out_ref.float()).reshape(
+            B, Tq, H, hs).sum(-1).transpose(1, 2).contiguous()
+        _, dk_ref, dv_ref = bst_attn.attention_bwd_plain(q, k, v, do,
+                                                         lse_ref, dvec, *args)
+
+        def fwd_lse():
+            return bst_attn.attention_fwd_lse(q, k, v, tab, H, scale)
+
+        def dkv():
+            return bst_attn.attention_dkv(q, k, v, do, lse_ref, dvec, tab, H,
+                                          scale)
+        routes = (bst_attn.attn_kernel("fwd", bf, 64, hs, Tk // 64),
+                  bst_attn.attn_kernel("dkv", bf, 64, hs, Tk // 64))
+        for side in ("wgmma", "mma"):
+            with attn_on_mma() if side == "mma" else forced_wgmma():
+                out, lse = fwd_lse()
+                compare_fwd(f"{what}: fwd_lse out on the {side} kernel", out,
+                            out_ref, bf)
+                live = torch.isfinite(lse_ref)
+                check(torch.equal(live, torch.isfinite(lse)) and (
+                    not live.any() or (lse[live] - lse_ref[live]).abs().max()
+                    .item() <= LSE_TOL),
+                      f"{what}: fwd_lse lse on the {side} kernel within "
+                      f"{LSE_TOL:g}, -inf where the plain lse is")
+                dk, dv = dkv()
+                for name, a, r in (("dk", dk, dk_ref), ("dv", dv, dv_ref)):
+                    compare(f"{what}: {name} on the {side} route", a, r,
+                            ATTN_TOL[bf])
+        # both kernels timed, whichever the rule takes (bs 64: the route is
+        # the head size's and, for the forward, the key context's)
+        with forced_wgmma():
+            f = attn_turns(fwd_lse, FWD_KERNELS)
+            d = attn_turns(dkv, DKV_KERNELS) if hs in \
+                bst_attn.DKV_WGMMA_HEAD_SIZES else None
+        out_rows[what] = {"fwd_lse": f, "dkv": d, "routes": routes}
+        print(f"attention wgmma against mma.sync, {what} [{card_line}]: "
+              f"fwd_lse device ms mma / wgmma / wgmma / mma "
+              f"{f['mma'][0]:.4f} / {f['wgmma'][0]:.4f} / "
+              f"{f['wgmma'][1]:.4f} / {f['mma'][1]:.4f}"
+              + (f"; dk/dv {d['mma'][0]:.4f} / {d['wgmma'][0]:.4f} / "
+                 f"{d['wgmma'][1]:.4f} / {d['mma'][1]:.4f}" if d else
+                 "; dk/dv on bst_attn_bwd_mma.cu only")
+              + f"; the route: {routes[0]}.cu, {routes[1]}.cu", flush=True)
+        del q, k, v, do, out_ref, lse_ref, dvec, dk_ref, dv_ref
+        torch.cuda.empty_cache()
+    rows["attn_wgmma_phase"] = out_rows
 
 
 def f1_mask(blk_shape, head, qry, key, blk):
@@ -716,8 +894,12 @@ def attn_block_size_checks(bt, dev, g):
     64 and 128).  The serving forward, the training forward's out and lse,
     dq, dk and dv against the plain versions at the op's own sizes, each
     kernel launched once a run, two runs equal bit for bit; and layouts
-    with a fully masked query row (F1) at b16 and b8: zero out and dq
-    there, lse -inf, no NaN anywhere."""
+    with a fully masked query row (F1) at b64, b16 and b8: zero out and dq
+    there, lse -inf, no NaN anywhere.  At b64 the forward and dk/dv run
+    their wgmma kernels where ``attn_kernel`` sends them (the launches on
+    them counted), also at an odd number of block-rows (a pair half
+    empty), and each such case runs again with the attention on the
+    mma.sync kernels (``attn_on_mma``)."""
     from blocksparse_tpu_torch.kernels import bst_attn
     from blocksparse_tpu_torch.models.sparse_transformer import (
         causal_subblock_mask, fixed_layout)
@@ -740,14 +922,22 @@ def attn_block_size_checks(bt, dev, g):
             batch, ctx, heads, hs).sum(-1).transpose(1, 2).contiguous()
         refs = bst_attn.attention_bwd_plain(q, k, v, do, lse, dvec, *args)
 
+        khs = bst_attn.kernel_head_size(hs)
+        want_wg = {n: int(bst_attn.attn_kernel(
+            kind, dtype, tab["kbs"], khs,
+            tab["kctx_k"] // tab["kbs"]).endswith("wgmma"))
+            for n, kind in zip(ATTN_WGMMA_WRAPPERS, ("fwd", "fwd", "dkv"))}
+
         def run():
-            before = read_counts()
+            before, wg0 = read_counts(), read_attn_wgmma()
             got = (op._kernel_fwd(q, k, v, scale, with_lse=False)[0],
                    *op._kernel_fwd(q, k, v, scale, with_lse=True),
                    *op._kernel_bwd(q, k, v, do, out, lse, scale))
-            after = read_counts()
-            check(all(after[n] == before[n] + 1 for n in names),
-                  f"{what}: each attention kernel launched once")
+            after, wg1 = read_counts(), read_attn_wgmma()
+            check(all(after[n] == before[n] + 1 for n in names)
+                  and all(wg1[n] - wg0[n] == want_wg[n] for n in wg0),
+                  f"{what}: each attention kernel launched once, on the "
+                  f"wgmma kernels {dict((n, wg1[n] - wg0[n]) for n in wg0)}")
             return got
         serve, fo, flse, *grads = run()
         for name, a in (("serving out", serve), ("training out", fo)):
@@ -766,15 +956,21 @@ def attn_block_size_checks(bt, dev, g):
     built = [(bs, hs, 4) for bs in bst_attn.BLOCK_SIZES
              for hs in bst_attn.HEAD_SIZES]
     carried = [(8, 16, 5), (8, 64, 8), (16, 8, 4), (16, 48, 4), (64, 48, 4),
-               (32, 96, 4)]
+               (32, 96, 4), (64, 64, 17), (64, 128, 17)]
     for dtype in DTYPES:
         for bs, hs, blks in (carried if dtype == torch.float32
                              else built + carried):
-            case(fixed_layout(blks, local_blocks=2), bs, hs, dtype,
-                 causal_subblock_mask,
-                 f"attention b{bs} hs{hs} ctx {blks * bs} (kernels at "
-                 f"b{max(bs, 16)} hs{bst_attn.kernel_head_size(hs)}) {dtype}")
-        for bs, hs, blks in ((16, 32, 4), (8, 48, 5)):
+            for route in (("wgmma", "mma") if bs == 64 and hs > 32
+                          and dtype != torch.float32 else ("",)):
+                with attn_on_mma() if route == "mma" else \
+                        contextlib.nullcontext():
+                    case(fixed_layout(blks, local_blocks=2), bs, hs, dtype,
+                         causal_subblock_mask,
+                         f"attention b{bs} hs{hs} ctx {blks * bs} (kernels "
+                         f"at b{max(bs, 16)} "
+                         f"hs{bst_attn.kernel_head_size(hs)}"
+                         f"{', ' + route if route else ''}) {dtype}")
+        for bs, hs, blks in ((64, 64, 16), (16, 32, 4), (8, 48, 5)):
             out, lse, dq, dk, dv = case(
                 np.tril(np.ones((blks, blks), np.int32)), bs, hs, dtype,
                 f1_mask, f"attention b{bs} hs{hs} F1 layout {dtype}")
@@ -842,43 +1038,52 @@ def ptxas_report(source, label, pattern):
 
 
 def attn_report(model, rows, marks, card_line):
-    """The tensor-core attention kernels at the LM's shape (bf16): device
-    time and TFLOP/s against the bound, SDPA's forward or backward and
-    the target; the forward in both launch orders of its query rows,
-    dk/dv in both of its key rows; each instantiation's registers and
-    spills (ptxas)."""
+    """The attention kernels at the LM's shape (bf16): the forward (serving
+    and lse) and dk/dv on their wgmma kernels and on the mma.sync ones
+    (device time in turns, TFLOP/s, a call's host time) beside the bound
+    and SDPA's forward or backward; dq (mma.sync); each wgmma
+    instantiation's registers, spills, shared memory and resident blocks,
+    and each mma.sync one's registers and spills (ptxas)."""
+    from blocksparse_tpu_torch.kernels import bst_attn
     c, bst = model.config, model.bst
     e = bst.blocks * BATCH * c.n_head * bst.blk_size ** 2 * model.hs
-    by_source = {src: ptxas_resources(src)
-                 for src in ("bst_attn_fwd_mma", "bst_attn_bwd_mma")}
-    res = {k: v for mine in by_source.values() for k, v in mine.items()}
-    orders = {"bst_attn_fwd": rows["fwd_dev"],
-              "bst_attn_fwd_lse": rows["fwd_lse_dev"],
-              "bst_attn_dkv": rows["dkv_dev"]}
-    for name, src, key, ms, flops, target in (
-            ("bst_attn_fwd", "fwd", "attn_fwd",
-             float(np.mean(rows["fwd_dev"]["order"])), 4 * e, 0.20),
-            ("bst_attn_fwd_lse", "fwd", "fwd_lse",
-             float(np.mean(rows["fwd_lse_dev"]["order"])), 4 * e, 0.20),
-            ("bst_attn_dq", "dq", "dq", rows["dq_dev"], 6 * e, 0.34),
-            ("bst_attn_dkv", "dkv", "dkv",
-             float(np.mean(rows["dkv_dev"]["order"])), 8 * e, 0.49)):
-        regs, st, ld = res[(f"bst_attn_{src}_mma_kernel", "bf16",
-                            bst.blk_size, model.hs)]
-        lib = "SDPA forward" if src == "fwd" else "SDPA backward (dq, dk, dv)"
-        print(f"{name} (bst_attn_{'fwd' if src == 'fwd' else 'bwd'}_mma.cu, "
-              f"bf16, batch {BATCH} x {c.ctx}) [{card_line}]: device "
-              f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), events "
-              f"{rows[(key, torch.bfloat16)][1]:.4f} ms; bound "
+    host = rows["attn_host"]
+    for name, dev_key, host_key, flops in (
+            ("bst_attn_fwd", "fwd_dev", None, 4 * e),
+            ("bst_attn_fwd_lse", "fwd_lse_dev", "fwd_lse", 4 * e),
+            ("bst_attn_dkv", "dkv_dev", "dkv", 8 * e)):
+        t = rows[dev_key]
+        wg, mm = (float(np.mean(t[k])) for k in ("wgmma", "mma"))
+        lib = ("SDPA forward" if "fwd" in name
+               else "SDPA backward (dq, dk, dv)")
+        print(f"{name} (bf16, batch {BATCH} x {c.ctx}) [{card_line}]: "
+              f"device ms, in turns mma / wgmma / wgmma / mma: "
+              f"{t['mma'][0]:.4f} / {t['wgmma'][0]:.4f} / {t['wgmma'][1]:.4f}"
+              f" / {t['mma'][1]:.4f}: wgmma {flops / wg / 1e9:.1f} TFLOP/s, "
+              f"mma.sync {flops / mm / 1e9:.1f} ({mm / wg:.2f}x); bound "
               f"{marks[name][0]:.4f} ms ({marks[name][1]}); {lib} "
-              f"{marks[name][2]:.4f} ms; target <= {target} ms; {regs} "
-              f"registers, spills {st}/{ld} bytes", flush=True)
-    for name, dev_ms in orders.items():
-        print(f"{name} launch order (device ms, in turns): CSR "
-              f"{dev_ms['csr'][0]:.4f} / {dev_ms['csr'][1]:.4f}, by entry "
-              f"count {dev_ms['order'][0]:.4f} / {dev_ms['order'][1]:.4f}",
-              flush=True)
-    for source, mine in by_source.items():
+              f"{marks[name][2]:.4f} ms"
+              + (f"; host ms a call (eager) wgmma {host[host_key]:.4f}, "
+                 f"mma.sync {host[host_key + '_mma']:.4f}" if host_key
+                 else ""), flush=True)
+    print(f"bst_attn_dq (bst_attn_bwd_mma.cu, bf16) [{card_line}]: device "
+          f"{rows['dq_dev']:.4f} ms ({6 * e / rows['dq_dev'] / 1e9:.1f} "
+          f"TFLOP/s); bound {marks['bst_attn_dq'][0]:.4f} ms; SDPA backward "
+          f"{marks['bst_attn_dq'][2]:.4f} ms", flush=True)
+    for kind, hs in (("fwd", 64), ("fwd", 128), ("dkv", 64)):
+        for dtype in (torch.bfloat16, torch.float16):
+            i = bst_attn.wgmma_kernel_info(kind, dtype, hs)
+            print(f"bst_attn_{kind}_wgmma.cu <{str(dtype)[6:]}, hs {hs}>: "
+                  f"{i['registers']} registers at entry (consumers raised "
+                  f"by setmaxnreg), {i['local_bytes']} local bytes, "
+                  f"{i['smem_bytes']} bytes of shared memory, "
+                  f"{i['blocks_per_sm']} block(s) an SM, {i['stages']} ring "
+                  f"slots", flush=True)
+            check(i["local_bytes"] == 0 and i["blocks_per_sm"] >= 1,
+                  f"bst_attn_{kind}_wgmma.cu <{dtype}, hs {hs}>: no spill, "
+                  f"resident")
+    for source in ("bst_attn_fwd_mma", "bst_attn_bwd_mma"):
+        mine = ptxas_resources(source)
         spills = {k: v for k, v in mine.items() if v[1] or v[2]}
         regs = [v[0] for v in mine.values()]
         print(f"{source}.cu: {len(mine)} kernels, {min(regs)}-{max(regs)} "
@@ -2015,7 +2220,7 @@ def reset_counts():
     for fn in counters().values():
         fn.launches = 0
     counters()["bst_xn"].launches_tn = 0
-    for name in WGMMA_WRAPPERS:
+    for name in WGMMA_WRAPPERS + ATTN_WGMMA_WRAPPERS:
         counters()[name].launches_wgmma = 0
 
 
@@ -2024,9 +2229,20 @@ def reset_counts():
 WGMMA_WRAPPERS = ("bsmm_fprop", "bsmm_bprop", "bsmm_updat")
 
 
+# the attention wrappers whose bf16/f16 launches go to bst_attn_fwd_wgmma.cu
+# or bst_attn_dkv_wgmma.cu, each counting those in launches_wgmma too
+ATTN_WGMMA_WRAPPERS = ("bst_attn_fwd", "bst_attn_fwd_lse", "bst_attn_dkv")
+
+
 def read_wgmma():
     """Of each wrapper's launches, those of the wgmma kernels."""
     return {name: counters()[name].launches_wgmma for name in WGMMA_WRAPPERS}
+
+
+def read_attn_wgmma():
+    """Of each attention wrapper's launches, those of the wgmma kernels."""
+    return {name: counters()[name].launches_wgmma
+            for name in ATTN_WGMMA_WRAPPERS}
 
 
 def read_counts():
@@ -2061,6 +2277,10 @@ def serving_path(bt, model, plain, cfg, dev, card_line):
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t
     launches = read_counts()
+    attn_wg = read_attn_wgmma()
+    check(attn_wg["bst_attn_fwd"] == launches["bst_attn_fwd"] > 0,
+          f"serving path: every attention forward on bst_attn_fwd_wgmma.cu "
+          f"({attn_wg['bst_attn_fwd']} of {launches['bst_attn_fwd']})")
 
     print(f"forward batch {BATCH} x {cfg.ctx}, counted run: "
           f"{fwd_s * 1e3:.2f} ms", flush=True)
@@ -2469,7 +2689,8 @@ def view_lm_paths(bt, dev):
     (bst_attn_fwd once a layer) and one train step (bst_attn_fwd_lse, dq
     and dk/dv once a layer; no recompute), held against the plain-version
     model: logits within MODEL_TOL, the step's loss and grad norm within
-    STEP_LOSS_TOL.  Returns {name: (serving launches, step launches)}."""
+    STEP_LOSS_TOL.  Returns {name: (serving launches, step launches, and
+    of each the attention launches on the wgmma kernels)}."""
     out = {}
     for what, kw in VIEW_LMS:
         fields = dict(n_vocab=256, n_embd=512, n_layer=VIEW_LM_LAYERS,
@@ -2498,6 +2719,7 @@ def view_lm_paths(bt, dev):
         logits = model(tokens)
         torch.cuda.synchronize()
         serve = read_counts()
+        serve_wg = read_attn_wgmma()
         check(serve["bst_attn_fwd"] == L and serve["bst_attn_fwd_lse"] == 0
               and serve["bst_attn_dq"] == serve["bst_attn_dkv"] == 0,
               f"{what}: serving forward launches bst_attn_fwd {L} "
@@ -2519,8 +2741,8 @@ def view_lm_paths(bt, dev):
             _, metrics, _ = (step if m is model else step._eager)(
                 state, tokens, targets, ls)
             torch.cuda.synchronize()
-            steps.append((read_counts(), metrics))
-        (train, m0), (train_plain, m1) = steps
+            steps.append((read_counts(), metrics, read_attn_wgmma()))
+        (train, m0, train_wg), (train_plain, m1, _) = steps
         check(train["bst_attn_fwd_lse"] == train["bst_attn_dq"]
               == train["bst_attn_dkv"] == 2 * L and train["bst_attn_fwd"] == 0
               and not any(train_plain.values()),
@@ -2533,7 +2755,9 @@ def view_lm_paths(bt, dev):
             check(np.isfinite(a) and abs(a - b) <= STEP_LOSS_TOL * abs(b),
                   f"{what}: train step {k} {a:.6f} vs plain {b:.6f} (tol "
                   f"{STEP_LOSS_TOL:g} relative)")
-        out[what] = (serve, train)
+        print(f"{what}: attention launches on the wgmma kernels: serving "
+              f"{serve_wg}, train step {train_wg}", flush=True)
+        out[what] = (serve, train, serve_wg, train_wg)
         del model, plain, logits, steps
         torch.cuda.empty_cache()
     return out
@@ -2565,23 +2789,19 @@ def pad_cost(bt, dev, g, card_line):
     out, lse = op._kernel_fwd(q, k, v, scale, with_lse=True)
     dvec = (do.float() * out.float()).reshape(
         BATCH, ctx, heads, hs).sum(-1).transpose(1, 2).contiguous()
-    fwd_args = (tab["row_ptr"], tab["ent_k"], tab["ent_code"], tab["uniq"],
-                heads, bs, scale)
     fns = {
         "serving route": lambda: op._kernel_fwd(q, k, v, scale, False),
         "serving kernel": lambda: bst_attn.attention_fwd(
-            qp, kp, vp, *fwd_args, order=tab["order"]),
+            qp, kp, vp, tab, heads, scale),
         "training route": lambda: (
             op._kernel_fwd(q, k, v, scale, True),
             op._kernel_bwd(q, k, v, do, out, lse, scale)),
         "training kernels": lambda: (
-            bst_attn.attention_fwd_lse(qp, kp, vp, *fwd_args,
-                                       order=tab["order"]),
-            bst_attn.attention_dq(qp, kp, vp, dop, lse, dvec, *fwd_args),
-            bst_attn.attention_dkv(
-                qp, kp, vp, dop, lse, dvec, tab["row_ptr_t"], tab["ent_q"],
-                tab["ent_code_t"], tab["uniq_t"], heads, bs, scale,
-                order=tab["order_t"]))}
+            bst_attn.attention_fwd_lse(qp, kp, vp, tab, heads, scale),
+            bst_attn.attention_dq(qp, kp, vp, dop, lse, dvec, tab, heads,
+                                  scale),
+            bst_attn.attention_dkv(qp, kp, vp, dop, lse, dvec, tab, heads,
+                                   scale))}
     for route, kern in (("serving route", "serving kernel"),
                         ("training route", "training kernels")):
         t = in_turns({route: fns[route], kern: fns[kern]},
@@ -2686,6 +2906,7 @@ def training_path(bt, model, plain, cfg, dev, card_line, profile_out):
     first_s = time.perf_counter() - t
     launches = read_counts()
     wgmma = read_wgmma()
+    attn_wg = read_attn_wgmma()
     peak_first = torch.cuda.max_memory_allocated() / 2 ** 30
     torch.cuda.empty_cache()
     held = (torch.cuda.memory_reserved() - held0) / 2 ** 30
@@ -2727,6 +2948,10 @@ def training_path(bt, model, plain, cfg, dev, card_line, profile_out):
           f"{model.bsmm1.kernel_of(tokens.numel(), 'b')} and "
           f"{model.bsmm2.kernel_of(tokens.numel(), 'b')}, updat on "
           f"{model.bsmm1.kernel_of(tokens.numel(), 'u')})")
+    check(attn_wg == {k: launches[k] for k in ATTN_WGMMA_WRAPPERS},
+          f"train step's first call: every attention forward with lse on "
+          f"bst_attn_fwd_wgmma.cu and every dk/dv on bst_attn_dkv_wgmma.cu "
+          f"({attn_wg} of {launches}); dq on bst_attn_bwd_mma.cu")
     bits = all(torch.equal(m0[k], m_eager[k]) for k in m0) and \
         torch.equal(scale, sc_eager) and \
         all(torch.equal(d0[k], d_eager[k]) for k in d0)
@@ -2812,8 +3037,9 @@ def training_path(bt, model, plain, cfg, dev, card_line, profile_out):
     profile_port_kernels("train step (eager)", lambda: one_step(eager),
                          ms["eager"])
 
-    # the same captured step on the mma.sync kernels (the parent's route),
-    # timed against this one in turns: the step before and after
+    # the same captured step with the attention on the mma.sync kernels
+    # (the parent's route), timed against this one in turns: the step
+    # before and after
     old, old_step, old_holder = mma_train_step(bt, model, cfg, dev, opt,
                                                tokens, targets, scale)
 
@@ -2823,40 +3049,41 @@ def training_path(bt, model, plain, cfg, dev, card_line, profile_out):
     old_one()
     turns = in_turns({"wgmma": lambda: one_step(step), "mma": old_one},
                      lambda fn: time_ms(fn, TIMED_STEPS))
-    print(f"train step [{card_line}]: captured on the wgmma kernels "
-          f"{' / '.join(f'{v:.2f}' for v in turns['wgmma'])} ms, on the "
-          f"mma.sync kernels {' / '.join(f'{v:.2f}' for v in turns['mma'])} "
-          f"ms (turns wgmma, mma, mma, wgmma; each the mean of "
-          f"{TIMED_STEPS} replays by CUDA events)", flush=True)
-    profile_port_kernels("train step on the mma.sync kernels (graph "
-                         "replay)", old_one, float(np.mean(turns["mma"])))
+    print(f"train step [{card_line}]: captured with the attention on the "
+          f"wgmma kernels {' / '.join(f'{v:.2f}' for v in turns['wgmma'])} "
+          f"ms, on the mma.sync kernels "
+          f"{' / '.join(f'{v:.2f}' for v in turns['mma'])} ms (turns wgmma, "
+          f"mma, mma, wgmma; each the mean of {TIMED_STEPS} replays by CUDA "
+          f"events)", flush=True)
+    profile_port_kernels("train step with the attention on the mma.sync "
+                         "kernels (graph replay)", old_one,
+                         float(np.mean(turns["mma"])))
     del old, old_step, old_holder
     torch.cuda.empty_cache()
     return launches, wgmma
 
 
 def mma_train_step(bt, model, cfg, dev, opt, tokens, targets, ls):
-    """The flagship's captured train step on the mma.sync kernels
-    (bsmm_xprop_mma.cu, bsmm_updat_mma.cu): a second model of ``model``'s
-    weights whose step's first call (its warm-up and its capture) routes
-    with the wgmma kernels' block sizes emptied, so that both rules
-    (xprop_kernel, updat_kernel) answer "mma"; the graph keeps those
-    launches.  (model, step, {"state", "scale"})."""
-    from blocksparse_tpu_torch.kernels import bsmm as bk
+    """The flagship's captured train step with the attention on the
+    mma.sync kernels (bst_attn_fwd_mma.cu, bst_attn_bwd_mma.cu), as before
+    the wgmma attention kernels: a second model of ``model``'s weights
+    whose step's first call (its warm-up and its capture) routes under
+    ``attn_on_mma``; the graph keeps those launches.  (model, step,
+    {"state", "scale"})."""
     old = bt.SparseTransformerLM(cfg, device=dev)
     old.load_state_dict(model.state_dict())
     step = old.make_train_step(opt, clip_norm=CLIP)
-    sizes, bk.WGMMA_BLOCK_SIZES = bk.WGMMA_BLOCK_SIZES, ()
     reset_counts()
-    state, _, scale = step(opt.init(dict(old.named_parameters())), tokens,
-                           targets, ls)
-    torch.cuda.synchronize()
-    bk.WGMMA_BLOCK_SIZES = sizes
-    launches, wgmma = read_counts(), read_wgmma()
-    check(not any(wgmma.values()) and launches["bsmm_fprop"] > 0,
-          f"the step on the mma.sync kernels: {launches['bsmm_fprop']} "
-          f"fprop, {launches['bsmm_bprop']} bprop, {launches['bsmm_updat']} "
-          f"updat launches, none on the wgmma kernels ({wgmma})")
+    with attn_on_mma():
+        state, _, scale = step(opt.init(dict(old.named_parameters())),
+                               tokens, targets, ls)
+        torch.cuda.synchronize()
+    launches, wgmma = read_counts(), read_attn_wgmma()
+    check(not any(wgmma.values()) and launches["bst_attn_fwd_lse"] > 0,
+          f"the step with the attention on the mma.sync kernels: "
+          f"{launches['bst_attn_fwd_lse']} forward, {launches['bst_attn_dq']} "
+          f"dq, {launches['bst_attn_dkv']} dk/dv launches, none on the wgmma "
+          f"kernels ({wgmma})")
     return old, step, {"state": state, "scale": scale}
 
 
@@ -2875,18 +3102,20 @@ def restore(m, saved):
 # and bsmm_xprop_nc_kernel (f32); the updat's bsmm_updat_wgmma_kernel and
 # bsmm_updat_mma_kernel (bf16/f16), bsmm_updat_nc_kernel (f32) and the
 # split's bsmm_updat_reduce_kernel;
-# "bst_attn_fwd", "bst_attn_dq" and "bst_attn_dkv" match the attention
-# kernels of both sources (bst_attn_*_mma_kernel in bf16/f16,
-# bst_attn_*_kernel in f32); "bst_nt" and "bst_xn" the unfused ops' (the
-# same names without "_mma" in f32)
+# the attention's bf16/f16 kernels by source: bst_attn_fwd_wgmma_kernel
+# and bst_attn_dkv_wgmma_kernel, bst_attn_fwd_mma_kernel and
+# bst_attn_{dq,dkv}_mma_kernel (the f32 bst_attn_*_kernel are not on the
+# bf16 paths profiled); "bst_nt" and "bst_xn" the unfused ops' (the same
+# names without "_mma" in f32)
 # the spin kernels (torch.cuda._sleep) that open a profiled window
 PROFILE_SPINS, PROFILE_SPIN_CYCLES = 8, 100000
 # windows a profiled measurement takes before it gives up on CUPTI
 PROFILE_TRIES = 6
 PORT_KERNELS = ("bsmm_xprop_wgmma", "bsmm_xprop_mma", "bsmm_xprop_nc",
                 "bsmm_updat_wgmma", "bsmm_updat_mma", "bsmm_updat_nc",
-                "bsmm_updat_reduce", "bst_attn_fwd", "bst_attn_dq",
-                "bst_attn_dkv", "bst_nt", "bst_xn")
+                "bsmm_updat_reduce", "bst_attn_fwd_wgmma", "bst_attn_fwd_mma",
+                "bst_attn_dq_mma", "bst_attn_dkv_wgmma", "bst_attn_dkv_mma",
+                "bst_nt", "bst_xn")
 
 
 def device_events(fn, need=bool):
@@ -5702,8 +5931,7 @@ def sp_kernel_checks(bst, q, k, v, do, scale, card_line, rows, marks):
 
     # device time: the unsharded launches beside each shard's, one
     # profiled window each (the forward and the backward, all shards)
-    keys = ("bst_attn_fwd_mma_kernel", "bst_attn_dq_mma_kernel",
-            "bst_attn_dkv_mma_kernel")
+    keys = tuple(attn_kernel_key(kind) for kind in ("fwd", "dq", "dkv"))
     one = profiled_launches(lambda: bst._kernel_bwd(
         q, k, v, do, *bst._kernel_fwd(q, k, v, scale, True), scale), keys)
     B, T, _ = q.shape
@@ -5712,17 +5940,22 @@ def sp_kernel_checks(bst, q, k, v, do, scale, card_line, rows, marks):
            for n in SP_SHARDS}
     for n in SP_SHARDS:
         for mode, fn in (("gather", sp_gather), ("ring", sp_ring)):
+            # a ring pair's keys are one chunk's: the forward's route may
+            # differ from the unsharded one's
+            blocks = bst.ctx_blks_k // (n if mode == "ring" else 1)
+            mkeys = tuple(attn_kernel_key(kind, key_blocks=blocks)
+                          for kind in ("fwd", "dq", "dkv"))
             got = profiled_launches(
-                lambda: fn(bst, n, q, k, v, do, scale), keys)
+                lambda: fn(bst, n, q, k, v, do, scale), mkeys)
             mk = shard_marks(bst, n, mode, B, T, H, hs)
             per = n if mode == "gather" else n * n
             print(f"{mode} sp {n} [{card_line}], device ms a launch (its "
                   f"{per} launches' sum; launches recorded over 5 passes) "
                   f"against the unsharded launch: " + "; ".join(
-                      f"{key[9:-11]} {got[key][0]:.4f} ("
+                      f"{short_key(key)} {got[key][0]:.4f} ("
                       f"{got[key][0] * per:.4f}; {got[key][1]}) vs "
-                      f"{one[key][0]:.4f}, bound a launch {b[0]:.4f} "
-                      f"({b[1]})" for key, b in zip(keys, mk)),
+                      f"{one[ukey][0]:.4f}, bound a launch {b[0]:.4f} "
+                      f"({b[1]})" for key, ukey, b in zip(mkeys, keys, mk)),
                   flush=True)
             if n != SP_SHARDS[-1]:
                 continue
@@ -5738,12 +5971,12 @@ def sp_kernel_checks(bst, q, k, v, do, scale, card_line, rows, marks):
             libs = ((lib[n][0], lib[n][1], lib[n][1]) if mode == "gather"
                     else (None, None, None))
             for name, key, err, b, plain_ms, lib_ms in zip(
-                    names, keys, (max(e[0], e[1]), e[2], e[3]), mk,
+                    names, mkeys, (max(e[0], e[1]), e[2], e[3]), mk,
                     (pf, pb, pb), libs):
                 rows[name] = (err, got[key][0], plain_ms)
                 marks[name] = (b[0], b[1], lib_ms)
     print(f"unsharded launches at batch {B} x {T} [{card_line}]: "
-          + ", ".join(f"{key[9:-11]} {one[key][0]:.4f} ms"
+          + ", ".join(f"{short_key(key)} {one[key][0]:.4f} ms"
                       for key in keys)
           + "; a gather shard's SDPA forward / backward (sp "
           + ", ".join(str(n) for n in SP_SHARDS) + "): "
@@ -6033,14 +6266,10 @@ def pp_kernel_rows(model, dev, g, card_line, rows, marks):
     what = f"(microbatch {B} x {T})"
 
     def fwd():
-        return bst_attn.attention_fwd(
-            q, k, v, tab["row_ptr"], tab["ent_k"], tab["ent_code"],
-            tab["uniq"], H, bs, scale, order=tab["order"])
+        return bst_attn.attention_fwd(q, k, v, tab, H, scale)
 
     def fwd_lse():
-        return bst_attn.attention_fwd_lse(
-            q, k, v, tab["row_ptr"], tab["ent_k"], tab["ent_code"],
-            tab["uniq"], H, bs, scale, order=tab["order"])
+        return bst_attn.attention_fwd_lse(q, k, v, tab, H, scale)
 
     def fwd_plain():
         return bst_attn.attention_fwd_plain(q, k, v, *plain_args)
@@ -6059,15 +6288,12 @@ def pp_kernel_rows(model, dev, g, card_line, rows, marks):
         B, T, H, -1).sum(-1).transpose(1, 2).contiguous()
 
     def dq():
-        return bst_attn.attention_dq(
-            q, k, v, do, lse_ref, dvec, tab["row_ptr"], tab["ent_k"],
-            tab["ent_code"], tab["uniq"], H, bs, scale)
+        return bst_attn.attention_dq(q, k, v, do, lse_ref, dvec, tab, H,
+                                     scale)
 
     def dkv():
-        return bst_attn.attention_dkv(
-            q, k, v, do, lse_ref, dvec, tab["row_ptr_t"], tab["ent_q"],
-            tab["ent_code_t"], tab["uniq_t"], H, bs, scale,
-            order=tab["order_t"])
+        return bst_attn.attention_dkv(q, k, v, do, lse_ref, dvec, tab, H,
+                                      scale)
 
     def bwd_plain():
         return bst_attn.attention_bwd_plain(q, k, v, do, lse_ref, dvec,
@@ -6084,16 +6310,16 @@ def pp_kernel_rows(model, dev, g, card_line, rows, marks):
     # stands beside both kernels
     bwd_ms = time_ms(bwd_plain, 5)
     rows["pp_stage_attn_fwd"] = (
-        err_fwd, kernel_device_ms(fwd, "bst_attn_fwd_mma_kernel"),
+        err_fwd, kernel_device_ms(fwd, attn_kernel_key("fwd")),
         time_ms(fwd_plain, 5))
     rows["pp_stage_attn_fwd_lse"] = (
         max(err, lse_err),
-        kernel_device_ms(fwd_lse, "bst_attn_fwd_mma_kernel"),
+        kernel_device_ms(fwd_lse, attn_kernel_key("fwd")),
         time_ms(fwd_lse_plain, 5))
     rows["pp_stage_attn_dq"] = (
-        err_dq, kernel_device_ms(dq, "bst_attn_dq_mma_kernel"), bwd_ms)
+        err_dq, kernel_device_ms(dq, attn_kernel_key("dq")), bwd_ms)
     rows["pp_stage_attn_dkv"] = (
-        err_dkv, kernel_device_ms(dkv, "bst_attn_dkv_mma_kernel"), bwd_ms)
+        err_dkv, kernel_device_ms(dkv, attn_kernel_key("dkv")), bwd_ms)
     mask = dense_attention_mask(bst, dev)
     qh, kh, vh = (a.reshape(B, T, H, hs).transpose(1, 2).detach()
                   .requires_grad_() for a in (q, k, v))
@@ -6845,6 +7071,9 @@ def main():
     rows = {}
     serving_kernel_checks(model, plain, dev, g, rows)
     training_kernel_checks(model, plain, dev, g, rows)
+    # the wgmma attention kernels against the mma.sync ones beyond the
+    # LM's shape: the pipeline's microbatch, sp-4 shards, hs 128
+    attn_wgmma_phase(bt, model, dev, g, card_line, rows)
     xprop_block_size_checks(bt, dev, g)
     split_checks(model, dev, g, card_line, rows)
     updat_block_size_checks(bt, dev, g)
@@ -6869,9 +7098,16 @@ def main():
     # 5b. the LMs that reach the attention kernels through the bs-16 view
     # (blk_size 8) and the head-size padding (hs 48): serving and a train
     # step each, counted
-    for what, (serve, train) in view_lm_paths(bt, dev).items():
+    view_launches = view_lm_paths(bt, dev)
+    for what, (serve, train, _, _) in view_launches.items():
         print(f"launches: {what}: serving {serve}; train step {train}",
               flush=True)
+    # the attention's launches on the mma.sync kernels on these paths (the
+    # LM itself runs the wgmma ones)
+    view_mma = {name: sum(
+        serve[name] - swg[name] + train[name] - twg[name]
+        for serve, train, swg, twg in view_launches.values())
+        for name in ATTN_WGMMA_WRAPPERS}
 
     # 5c. the LM at 2 heads of 256 on the unfused ops: forward, prefill,
     # scan decode and the captured train step, counted; then the trio
@@ -6981,18 +7217,33 @@ def main():
                  SPLIT_MANGLED)
     ptxas_report("col2im_tma", "col2im", re.compile("col2im_tma_kernel"))
     trio_ptxas_report()
-    # the attention kernels' rows: their device time, as fine's and window's
-    for key, ms in ((("attn_fwd", torch.bfloat16),
-                     float(np.mean(rows["fwd_dev"]["order"]))),
-                    (("fwd_lse", torch.bfloat16),
-                     float(np.mean(rows["fwd_lse_dev"]["order"]))),
-                    (("dq", torch.bfloat16), rows["dq_dev"]),
-                    (("dkv", torch.bfloat16),
-                     float(np.mean(rows["dkv_dev"]["order"])))):
-        rows[key] = (rows[key][0], ms, rows[key][2])
+    # the attention kernels' rows: their device time at the LM's shape (the
+    # profiler, in turns), each kernel's error there against the plain
+    # version; the mma.sync rows' launches those of the view LMs' paths
+    bf = torch.bfloat16
+    for key, err_key, dev_key in (("attn_fwd", ("attn_fwd", bf), "fwd_dev"),
+                                  ("fwd_lse", ("fwd_lse", bf), "fwd_lse_dev"),
+                                  ("dkv", ("dkv", bf), "dkv_dev")):
+        t, plain_ms = rows[dev_key], rows[err_key][2]
+        mma_err = rows[("dkv_mma_err" if key == "dkv" else "fwd_lse_mma_err",
+                        bf)]
+        rows[(key, "wgmma")] = (rows[err_key][0], float(np.mean(t["wgmma"])),
+                                plain_ms)
+        rows[(key, "mma")] = (mma_err, float(np.mean(t["mma"])), plain_ms)
+    rows[("dq", bf)] = (rows[("dq", bf)][0], rows["dq_dev"],
+                        rows[("dq", bf)][2])
+    for name in ("bst_attn_fwd", "bst_attn_fwd_lse", "bst_attn_dkv"):
+        marks[f"{name}_wgmma"] = marks[name]
 
-    N, bf = BATCH * cfg.ctx, torch.bfloat16
+    N = BATCH * cfg.ctx
     pp_n = BATCH // PP_MICRO * cfg.ctx       # the pipeline's microbatch
+
+    def attn_source(kind, key_blocks=cfg.ctx // 64):
+        """The source a bf16 launch of ``kind`` at the LM's bs and hs over
+        ``key_blocks`` key block-rows runs."""
+        from blocksparse_tpu_torch.kernels import bst_attn
+        return bst_attn.attn_kernel(kind, bf, 64, model.hs,
+                                    key_blocks) + ".cu"
     # the unsplit bf16 products at bsmm1's train shape on each kernel: the
     # wgmma phase's device times (its updat with its split's reduce), the
     # plain version's from the training checks; launches: the train step's
@@ -7025,14 +7276,24 @@ def main():
          wg_row("u", "wgmma", ("updat", "bsmm1", bf))),
         ("bsmm_updat_reduce", "bsmm_updat_mma.cu", "bsmm.py:1972",
          train_launches["bsmm_updat_reduce"], rows["reduce"]),
+        # the attention at the LM's shape: the forward (serving and lse)
+        # and dk/dv on their wgmma kernels (the main path's launches) and
+        # on the mma.sync ones (the view LMs' launches: bs 8, and bs 16-32
+        # view), dq on bst_attn_bwd_mma.cu
+        ("bst_attn_fwd_wgmma", "bst_attn_fwd_wgmma.cu", "bst_attn.py:677",
+         serve_launches["bst_attn_fwd"], rows[("attn_fwd", "wgmma")]),
+        ("bst_attn_fwd_lse_wgmma", "bst_attn_fwd_wgmma.cu", "bst_attn.py:832",
+         train_launches["bst_attn_fwd_lse"], rows[("fwd_lse", "wgmma")]),
+        ("bst_attn_dkv_wgmma", "bst_attn_dkv_wgmma.cu", "bst_attn.py:1141",
+         train_launches["bst_attn_dkv"], rows[("dkv", "wgmma")]),
         ("bst_attn_fwd", "bst_attn_fwd_mma.cu", "bst_attn.py:677",
-         serve_launches["bst_attn_fwd"], rows[("attn_fwd", bf)]),
+         view_mma["bst_attn_fwd"], rows[("attn_fwd", "mma")]),
         ("bst_attn_fwd_lse", "bst_attn_fwd_mma.cu", "bst_attn.py:832",
-         train_launches["bst_attn_fwd_lse"], rows[("fwd_lse", bf)]),
+         view_mma["bst_attn_fwd_lse"], rows[("fwd_lse", "mma")]),
         ("bst_attn_dq", "bst_attn_bwd_mma.cu", "bst_attn.py:1084",
          train_launches["bst_attn_dq"], rows[("dq", bf)]),
         ("bst_attn_dkv", "bst_attn_bwd_mma.cu", "bst_attn.py:1141",
-         train_launches["bst_attn_dkv"], rows[("dkv", bf)]),
+         view_mma["bst_attn_dkv"], rows[("dkv", "mma")]),
         ("im2col", "im2col.cu", "im2col.py:97", conv_launches["im2col"],
          rows[("im2col", bf)]),
         ("col2im", "col2im_tma.cu", "im2col.py:125", conv_launches["col2im"],
@@ -7075,30 +7336,31 @@ def main():
         # time): gather mode on each shard's tables, and the ring's 16
         # pair launches (dq stored in f32); launches: those of the
         # parallel phase's counted run at sp 2 and 4, gather and ring
-        ("attn_fwd_lse_sp4", "bst_attn_fwd_mma.cu", "bst_attn.py:832",
+        ("attn_fwd_lse_sp4", attn_source("fwd"), "bst_attn.py:832",
          sp_launches["bst_attn_fwd_lse"], rows["attn_fwd_lse_sp4"]),
         ("attn_dq_sp4", "bst_attn_bwd_mma.cu", "bst_attn.py:1084",
          sp_launches["bst_attn_dq"], rows["attn_dq_sp4"]),
-        ("attn_dkv_sp4", "bst_attn_bwd_mma.cu", "bst_attn.py:1141",
+        ("attn_dkv_sp4", attn_source("dkv"), "bst_attn.py:1141",
          sp_launches["bst_attn_dkv"], rows["attn_dkv_sp4"]),
-        ("attn_fwd_lse_ring4", "bst_attn_fwd_mma.cu", "bst_attn.py:832",
+        ("attn_fwd_lse_ring4",
+         attn_source("fwd", cfg.ctx // 64 // SP_SHARDS[-1]), "bst_attn.py:832",
          sp_launches["bst_attn_fwd_lse"], rows["attn_fwd_lse_ring4"]),
         ("attn_dq_ring_f32", "bst_attn_bwd_mma.cu", "bst_attn.py:1084",
          sp_launches["bst_attn_dq"], rows["attn_dq_ring_f32"]),
-        ("attn_dkv_ring4", "bst_attn_bwd_mma.cu", "bst_attn.py:1141",
+        ("attn_dkv_ring4", attn_source("dkv"), "bst_attn.py:1141",
          sp_launches["bst_attn_dkv"], rows["attn_dkv_ring4"]),
         # the pipeline's microbatch shapes (2 x 2048; launches: the stages
         # at pp 2 and 3 and gpipe at world size 1, whose forward under
         # no_grad runs the serving attention) and the experts' products at
         # N = ep·C (f32, F6, and bsmm1's bf16 updat; launches: the ep 2
         # and 4 shards; the updat's count both products')
-        ("pp_stage_attn_fwd", "bst_attn_fwd_mma.cu", "bst_attn.py:677",
+        ("pp_stage_attn_fwd", attn_source("fwd"), "bst_attn.py:677",
          pp_launches["bst_attn_fwd"], rows["pp_stage_attn_fwd"]),
-        ("pp_stage_attn_fwd_lse", "bst_attn_fwd_mma.cu", "bst_attn.py:832",
+        ("pp_stage_attn_fwd_lse", attn_source("fwd"), "bst_attn.py:832",
          pp_launches["bst_attn_fwd_lse"], rows["pp_stage_attn_fwd_lse"]),
         ("pp_stage_attn_dq", "bst_attn_bwd_mma.cu", "bst_attn.py:1084",
          pp_launches["bst_attn_dq"], rows["pp_stage_attn_dq"]),
-        ("pp_stage_attn_dkv", "bst_attn_bwd_mma.cu", "bst_attn.py:1141",
+        ("pp_stage_attn_dkv", attn_source("dkv"), "bst_attn.py:1141",
          pp_launches["bst_attn_dkv"], rows["pp_stage_attn_dkv"]),
         ("pp_stage_bsmm_fprop", kernel_of(model.bsmm1, pp_n, "f")[1],
          "bsmm.py:1422", pp_launches["bsmm_fprop"],

@@ -309,15 +309,25 @@ def test_attention_kernel_per_head_layouts(cuda, dtype):
                                ref.float(), rtol=0, atol=_fwd_tol(dtype, ref))
 
 
+def _csr_order(tab):
+    """The tables with both launch orders replaced by CSR order."""
+    out = dict(tab)
+    for name in ("order", "order_t"):
+        lh, rows = tab[name].shape
+        out[name] = torch.arange(rows, dtype=torch.int32,
+                                 device=tab[name].device).repeat(lh, 1)
+    return out
+
+
 def _kernel_fwd(port, q, k, v, scale, ordered=True):
     """(out of attention_fwd, (out, lse) of attention_fwd_lse), the query
-    rows launched in the op's order or in CSR order (``ordered=False``)."""
+    rows launched in the tables' order or in CSR order (``ordered=False``;
+    the wgmma forward reads the pair plan, which no order changes)."""
     tab = port._tables(q.device)
-    args = (tab["row_ptr"], tab["ent_k"], tab["ent_code"], tab["uniq"],
-            port.heads, port.blk_size, scale)
-    order = tab["order"] if ordered else None
-    return (bst_attn.attention_fwd(q, k, v, *args, order=order),
-            *bst_attn.attention_fwd_lse(q, k, v, *args, order=order))
+    if not ordered:
+        tab = _csr_order(tab)
+    return (bst_attn.attention_fwd(q, k, v, tab, port.heads, scale),
+            *bst_attn.attention_fwd_lse(q, k, v, tab, port.heads, scale))
 
 
 @pytest.mark.cuda
@@ -980,18 +990,16 @@ def _plain_fwd_bwd(port, q, k, v, do, scale):
                                                         dvec, *args)
 
 
-def _kernel_bwd(port, q, k, v, do, lse, dvec, scale, ordered=True):
-    """dq and (dk, dv) on the kernels; dk/dv with the op's launch order of
-    the key rows, or in CSR order (``ordered=False``)."""
-    tab = port._tables(q.device)
-    dq = bst_attn.attention_dq(q, k, v, do, lse, dvec, tab["row_ptr"],
-                               tab["ent_k"], tab["ent_code"], tab["uniq"],
-                               port.heads, port.blk_size, scale)
-    dk, dv = bst_attn.attention_dkv(q, k, v, do, lse, dvec,
-                                    tab["row_ptr_t"], tab["ent_q"],
-                                    tab["ent_code_t"], tab["uniq_t"],
-                                    port.heads, port.blk_size, scale,
-                                    order=tab["order_t"] if ordered else None)
+def _kernel_bwd(port, q, k, v, do, lse, dvec, scale, ordered=True, tab=None):
+    """dq and (dk, dv) on the kernels; dk/dv with the tables' launch order
+    of the key rows, or in CSR order (``ordered=False``)."""
+    tab = port._tables(q.device) if tab is None else tab
+    if not ordered:
+        tab = _csr_order(tab)
+    dq = bst_attn.attention_dq(q, k, v, do, lse, dvec, tab, port.heads,
+                               scale)
+    dk, dv = bst_attn.attention_dkv(q, k, v, do, lse, dvec, tab, port.heads,
+                                    scale)
     return dq, dk, dv
 
 
@@ -1019,9 +1027,7 @@ def test_attention_train_kernels_match_plain(cuda, bs, hs, dtype, blocks,
     tab = port._tables(cuda)
     out_ref, lse_ref, dvec, (dq_ref, dk_ref, dv_ref) = _plain_fwd_bwd(
         port, q, k, v, do, scale)
-    out, lse = bst_attn.attention_fwd_lse(
-        q, k, v, tab["row_ptr"], tab["ent_k"], tab["ent_code"], tab["uniq"],
-        port.heads, bs, scale)
+    out, lse = bst_attn.attention_fwd_lse(q, k, v, tab, port.heads, scale)
     dq, dk, dv = _kernel_bwd(port, q, k, v, do, lse_ref, dvec, scale)
     torch.cuda.synchronize()
     assert lse.dtype == torch.float32 and dk.dtype == dv.dtype == torch.float32
@@ -1055,9 +1061,7 @@ def test_attention_train_kernels_masks(cuda, kind, dtype):
                                 mask_callback=mask, heads=heads, seed=4)
     out_ref, lse_ref, dvec, refs = _plain_fwd_bwd(port, q, k, v, do, 0.3)
     tab = port._tables(cuda)
-    out, lse = bst_attn.attention_fwd_lse(
-        q, k, v, tab["row_ptr"], tab["ent_k"], tab["ent_code"], tab["uniq"],
-        heads, 16, 0.3)
+    out, lse = bst_attn.attention_fwd_lse(q, k, v, tab, heads, 0.3)
     got = _kernel_bwd(port, q, k, v, do, lse, dvec, 0.3)
     torch.cuda.synchronize()
     torch.testing.assert_close(
@@ -1168,6 +1172,160 @@ def test_attention_bwd_unaligned_views(cuda, dtype):
         torch.cuda.synchronize()
         for a, b in zip(got, want):
             assert torch.equal(a, b), move.__name__
+
+
+# ---------------- the wgmma attention kernels (bs 64)
+
+def _wgmma_attn_layout(kind):
+    """(layout, mask callback) of a wgmma attention case, each at least
+    FWD_WGMMA_MIN_KEY_BLOCKS key block-rows (the forward's route): the
+    LM's fixed layout (query rows 1-14 entries, key rows 1-32), an odd
+    number of block-rows (one pair half empty), a fully masked query row
+    (F1), and per-head layouts."""
+    if kind == "lm":
+        return fixed_layout(32, local_blocks=8), causal_subblock_mask
+    if kind == "odd":
+        return fixed_layout(17, local_blocks=2), causal_subblock_mask
+    if kind == "f1":
+        return np.tril(np.ones((16, 16), np.int32)), _f1_mask
+    lay = fixed_layout(16, local_blocks=3)
+    return np.stack([lay, lay[:, ::-1]]), causal_subblock_mask
+
+
+def _wgmma_counts():
+    return tuple(f.launches_wgmma for f in (bst_attn.attention_fwd,
+                                            bst_attn.attention_fwd_lse,
+                                            bst_attn.attention_dkv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("hs", [64, 128])
+@pytest.mark.parametrize("kind", ["lm", "odd", "f1", "per_head"])
+def test_wgmma_attention_matches_plain(cuda, kind, hs, dtype):
+    """The forward (serving and lse) on bst_attn_fwd_wgmma.cu and dk/dv on
+    bst_attn_dkv_wgmma.cu (hs 64; hs 128 runs bst_attn_bwd_mma.cu by the
+    route rule) against the plain versions, q/k/v column slices of one
+    packed qkv; the launches counted on the wgmma kernels; two runs equal
+    bit for bit; the F1 row zero with lse -inf and zero dq."""
+    layout, cb = _wgmma_attn_layout(kind)
+    port, (q, k, v), do = _case(cuda, dtype, 64, hs, layout=layout,
+                                mask_callback=cb, seed=hs)
+    scale = 1.0 / np.sqrt(hs)
+    out_ref, lse_ref, dvec, refs = _plain_fwd_bwd(port, q, k, v, do, scale)
+    dkv_wgmma = bst_attn.attn_kernel("dkv", dtype, 64, hs,
+                                     layout.shape[-1]).endswith("wgmma")
+    before = _wgmma_counts()
+    serve, out, lse = _kernel_fwd(port, q, k, v, scale)
+    grads = _kernel_bwd(port, q, k, v, do, lse_ref, dvec, scale)
+    torch.cuda.synchronize()
+    moved = tuple(a - b for a, b in zip(_wgmma_counts(), before))
+    assert moved == (1, 1, int(dkv_wgmma))
+    assert torch.equal(serve, out)
+    tol = _fwd_tol(dtype, out_ref)
+    torch.testing.assert_close(out.float(), out_ref.float(), rtol=0, atol=tol)
+    live = torch.isfinite(lse_ref)
+    assert torch.equal(live, torch.isfinite(lse))
+    torch.testing.assert_close(lse[live], lse_ref[live], rtol=0, atol=1e-4)
+    for g, r in zip(grads, refs):
+        assert bool(torch.isfinite(g).all())
+        torch.testing.assert_close(
+            g.float(), r.float(), rtol=0,
+            atol=_tol(dtype, ATTN_BF16_TOL, r.float().abs().max().item()))
+    again = _kernel_fwd(port, q, k, v, scale)[1:] + \
+        _kernel_bwd(port, q, k, v, do, lse_ref, dvec, scale)[1:]
+    for a, b in zip((out, lse) + grads[1:], again):
+        assert torch.equal(a, b)
+    if kind == "f1":
+        dead = 64 + 3
+        assert (out[:, dead] == 0).all() and (grads[0][:, dead] == 0).all()
+        assert torch.isneginf(lse[:, :, dead]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("scale", [-0.3, 0.0])
+def test_wgmma_attention_negative_and_zero_scale(cuda, scale, dtype):
+    """A negative scale (the wgmma forward flips the scores' sign, so its
+    running max stays a max) and a zero scale (every visible key weighs
+    the same; masked keys stay out) match the plain version at bs 64."""
+    port, (q, k, v), do = _case(cuda, dtype, 64, 64,
+                                layout=fixed_layout(16, local_blocks=3))
+    out_ref, lse_ref, dvec, refs = _plain_fwd_bwd(port, q, k, v, do, scale)
+    out, lse = _kernel_fwd(port, q, k, v, scale)[1:]
+    grads = _kernel_bwd(port, q, k, v, do, lse_ref, dvec, scale)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), out_ref.float(), rtol=0,
+                               atol=_fwd_tol(dtype, out_ref))
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-4)
+    for g, r in zip(grads[1:], refs[1:]):
+        torch.testing.assert_close(
+            g.float(), r.float(), rtol=0,
+            atol=_tol(dtype, ATTN_BF16_TOL, r.float().abs().max().item()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HALF)
+def test_wgmma_attention_graph_replay(cuda, dtype):
+    """The wgmma forward and dk/dv captured into one CUDA graph: the
+    replay equals the eager launches bit for bit, and after new values
+    are copied into the captured inputs the replay equals the eager
+    launches on them (the tensor maps hold the captured tensors)."""
+    port, (q, k, v), do = _case(cuda, dtype, 64, 64,
+                                layout=fixed_layout(16, local_blocks=3))
+    tab, scale = port._tables(cuda), 0.125
+    _, lse, dvec, _ = _plain_fwd_bwd(port, q, k, v, do, scale)
+
+    def run():
+        o, l = bst_attn.attention_fwd_lse(q, k, v, tab, port.heads, scale)
+        return (o, l) + bst_attn.attention_dkv(q, k, v, do, lse, dvec, tab,
+                                               port.heads, scale)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = run()
+    for step in range(2):
+        if step:
+            with torch.no_grad():
+                for t in (q, k, v, do):
+                    t.mul_(-0.5)
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = run()
+        torch.cuda.synchronize()
+        for a, b in zip(static, eager):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_wgmma_attention_wrappers_raise(cuda):
+    """At the wgmma kernels' shape the wrappers raise on CPU tensors, mixed
+    dtypes, tables that lack the pair plan or lie on another device, and
+    never fall back."""
+    port, (q, k, v), do = _case(cuda, torch.bfloat16, 64, 64)
+    tab = port._tables(cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        bst_attn.attention_fwd_lse(q.cpu(), k.cpu(), v.cpu(),
+                                   port._tables("cpu"), port.heads, 0.125)
+    with pytest.raises(TypeError):
+        bst_attn.attention_fwd_lse(q, k.half(), v, tab, port.heads, 0.125)
+    lse = torch.zeros((2, port.heads, q.shape[1]), device=cuda)
+    with pytest.raises(TypeError):
+        bst_attn.attention_dkv(q, k, v, do.half(), lse, lse, tab, port.heads,
+                               0.125)
+    partial = {n: t for n, t in tab.items() if n != "pair_ent"}
+    with pytest.raises(KeyError, match="pair_ent"):
+        bst_attn.attention_fwd(q, k, v, partial, port.heads, 0.125)
+    cpu_plan = dict(tab, pair_ptr_t=tab["pair_ptr_t"].cpu())
+    with pytest.raises(ValueError):
+        bst_attn.attention_dkv(q, k, v, do, lse, lse, cpu_plan, port.heads,
+                               0.125)
+    info = bst_attn.wgmma_kernel_info("dkv", torch.bfloat16)
+    assert info["blocks_per_sm"] >= 1 and info["stages"] >= 2
 
 
 @pytest.mark.cuda
@@ -3016,8 +3174,7 @@ def test_attention_dq_f32_output(cuda, dtype):
     y, lse = port._kernel_fwd(q, k, v, 0.125, True)
     tab = port._tables(cuda)
     dvec = _rowsum(do, y, port.heads)
-    args = (q, k, v, do, lse, dvec, tab["row_ptr"], tab["ent_k"],
-            tab["ent_code"], tab["uniq"], port.heads, 64, 0.125)
+    args = (q, k, v, do, lse, dvec, tab, port.heads, 0.125)
     before = bst_attn.attention_dq.launches
     dq = bst_attn.attention_dq(*args)
     dq32 = bst_attn.attention_dq(*args, out_dtype=torch.float32)
