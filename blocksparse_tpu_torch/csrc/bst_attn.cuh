@@ -1,8 +1,8 @@
 // What the block-sparse attention's sources share: the forward's
 // (bst_attn_fwd.cu, f32 on the CUDA cores; bst_attn_fwd_mma.cu and
 // bst_attn_fwd_wgmma.cu, bf16/f16 on the tensor cores) and the backward's
-// (bst_attn_bwd.cu, f32; bst_attn_bwd_mma.cu and bst_attn_dkv_wgmma.cu,
-// bf16/f16): the per-entry mask codes, the backward's strides and tables
+// (bst_attn_bwd.cu, f32; bst_attn_bwd_mma.cu, bst_attn_dq_wgmma.cu and
+// bst_attn_dkv_wgmma.cu, bf16/f16): the per-entry mask codes, the backward's strides and tables
 // of the C interface, the launch order of a kernel's block-rows, and the
 // wgmma kernels' work items over the pair plan.
 #pragma once

@@ -6,9 +6,11 @@
 //
 // Replaces, for bf16 and f16 inputs, the TPU kernels fused_attention_dq /
 // _attn_dq_kernel and fused_attention_dkv / _attn_dkv_kernel
-// (blocksparse_tpu/kernels/bst_attn.py), dk/dv at the sizes attn_kernel
-// (kernels/bst_attn.py) leaves it (bst_attn_dkv_wgmma.cu takes bs 64,
-// hs 64).  f32 inputs stay on
+// (blocksparse_tpu/kernels/bst_attn.py) at the sizes attn_kernel
+// (kernels/bst_attn.py) leaves it: bst_attn_dq_wgmma.cu takes dq at bs
+// 64, hs 64 and 128, bst_attn_dkv_wgmma.cu dk/dv at bs 64, hs 64; bs 16
+// and 32 (and the bs-8 view) and hs 16 and 32 stay here, and dk/dv at hs
+// 128.  f32 inputs stay on
 // bst_attn_bwd.cu, in full fp32 on the CUDA cores (the reference's f32 dots
 // are Precision.HIGHEST, and the tensor cores would round them to TF32);
 // the C interface is that source's, tables and launch order included.  With
@@ -24,7 +26,8 @@
 // order, so every sum runs in one fixed order, with no atomics: two runs
 // give the same bits.
 //
-// dq: one thread block per (query block-row, batch*head), over the nn CSR.
+// dq (where attn_kernel leaves it here): one thread block per (query
+// block-row, batch*head), over the nn CSR.
 // q and dO come in once by cp.async, and each warp keeps the A fragments of
 // its 16 rows of both in registers, with its rows' lse and D.  The row's
 // key blocks come through a ring of stages<HS>() slots, one (k, v) block

@@ -9,8 +9,9 @@
 // Replaces, for bf16 and f16 inputs at bs 64 and hs 64, the TPU kernel
 // fused_attention_dkv / _attn_dkv_kernel
 // (blocksparse_tpu/kernels/bst_attn.py:1141), as bst_attn_bwd_mma.cu did
-// before it; every other size, and dq, stay there (attn_kernel in
-// kernels/bst_attn.py is the rule, by shape only).  hs 128 stays there
+// before it; every other size stays there (attn_kernel in
+// kernels/bst_attn.py is the rule, by shape only; dq runs
+// bst_attn_dq_wgmma.cu).  hs 128 stays there
 // too: its dk and dv accumulators (64 x 128 f32 each) and the 64 x 64 S^T
 // and dP^T would hold 192 f32 registers a consumer thread before P and dS,
 // past what two consumer warpgroups can keep.  Each key row sums its

@@ -19,9 +19,11 @@ block a block-row); ``attn_kernel`` is the rule.  f32 runs
 dk/dv walk the key-row (tn) CSR whose mask codes are classified on the
 transposed mask blocks, and come out in f32.  bf16 and f16 dk/dv run
 ``csrc/bst_attn_dkv_wgmma.cu`` at bs 64, hs 64 (two key block-rows a
-thread block over the union of their query blocks) and
-``csrc/bst_attn_bwd_mma.cu`` elsewhere; dq always runs the latter
-(``mma.sync``, P and dS in registers, a ``cp.async`` ring); f32 runs
+thread block over the union of their query blocks), dq
+``csrc/bst_attn_dq_wgmma.cu`` at bs 64 (two query block-rows a thread
+block over the union of their key blocks, the forward's pair plan), and
+both ``csrc/bst_attn_bwd_mma.cu`` elsewhere (``mma.sync``, P and dS in
+registers, a ``cp.async`` ring); ``attn_kernel`` is the rule.  f32 runs
 ``csrc/bst_attn_bwd.cu``.  dq comes out in q's dtype or, with
 ``out_dtype=torch.float32``, unrounded in f32 (ring attention sums a
 row's dq over several launches).  D = rowsum(dO∘O) is plain torch, as in
@@ -446,17 +448,22 @@ def attention_bwd_plain(q, k, v, do, lse, dvec, q_blk, k_blk, mask, heads,
 
 
 # The wgmma kernels (``csrc/bst_attn_fwd_wgmma.cu``,
-# ``csrc/bst_attn_dkv_wgmma.cu``) take block size 64 and these head sizes;
-# every other bf16/f16 size stays on the mma.sync kernels.  dk/dv at hs 128
-# would hold four 64 x 128 f32 accumulators in two consumer warpgroups and
-# stays on ``bst_attn_bwd_mma.cu``.  The forward also stays there under
+# ``csrc/bst_attn_dq_wgmma.cu``, ``csrc/bst_attn_dkv_wgmma.cu``) take block
+# size 64 and these head sizes; every other bf16/f16 size stays on the
+# mma.sync kernels.  dk/dv at hs 128 would hold four 64 x 128 f32
+# accumulators in two consumer warpgroups and stays on
+# ``bst_attn_bwd_mma.cu``.  The forward also stays on mma.sync under
 # FWD_WGMMA_MIN_KEY_BLOCKS key block-rows: its rows then hold a few
 # entries, and a thread block's start and end outweigh the loads the pair
 # shares (the H100 runs in PERF.md: at an sp-4 ring pair, 8 key blocks,
 # the mma.sync forward took 0.0185 ms against 0.0194; with 32, 0.110
-# against 0.102).
+# against 0.102).  dq has no such clause: at that ring pair its wgmma
+# kernel took 0.0155 ms against 0.0254-0.0259 on mma.sync, and at hs 128
+# (64 dq accumulators a consumer thread beside S and dP, no spill) 0.080
+# against 0.153.
 WGMMA_BLOCK_SIZE = 64
 FWD_WGMMA_HEAD_SIZES = (64, 128)
+DQ_WGMMA_HEAD_SIZES = (64, 128)
 DKV_WGMMA_HEAD_SIZES = (64,)
 FWD_WGMMA_MIN_KEY_BLOCKS = 16
 
@@ -465,20 +472,21 @@ def attn_kernel(kind, dtype, bs, hs, key_blocks):
     """The source a launch runs: ``kind`` "fwd" (serving and lse), "dq"
     or "dkv" at block size ``bs``, kernel head size ``hs`` and
     ``key_blocks`` key block-rows (ctx_k / bs) in ``dtype``.  f32:
-    ``bst_attn_fwd`` / ``bst_attn_bwd`` (CUDA cores).  bf16 and f16:
-    ``bst_attn_fwd_wgmma`` at bs 64, FWD_WGMMA_HEAD_SIZES and at least
-    FWD_WGMMA_MIN_KEY_BLOCKS key block-rows, ``bst_attn_dkv_wgmma`` at bs
-    64 and DKV_WGMMA_HEAD_SIZES, else ``bst_attn_fwd_mma`` /
-    ``bst_attn_bwd_mma`` (dq always).  Shapes only."""
+    ``bst_attn_fwd`` / ``bst_attn_bwd`` (CUDA cores).  bf16 and f16 at bs
+    64: ``bst_attn_fwd_wgmma`` at FWD_WGMMA_HEAD_SIZES and at least
+    FWD_WGMMA_MIN_KEY_BLOCKS key block-rows, ``bst_attn_dq_wgmma`` at
+    DQ_WGMMA_HEAD_SIZES, ``bst_attn_dkv_wgmma`` at DKV_WGMMA_HEAD_SIZES;
+    else
+    ``bst_attn_fwd_mma`` / ``bst_attn_bwd_mma``.  Shapes only."""
     if kind not in ("fwd", "dq", "dkv"):
         raise ValueError(f"kind is fwd, dq or dkv, not {kind!r}")
     fwd = kind == "fwd"
     if dtype == torch.float32:
         return "bst_attn_fwd" if fwd else "bst_attn_bwd"
-    if bs == WGMMA_BLOCK_SIZE and (
-            (fwd and hs in FWD_WGMMA_HEAD_SIZES
-             and key_blocks >= FWD_WGMMA_MIN_KEY_BLOCKS)
-            or (kind == "dkv" and hs in DKV_WGMMA_HEAD_SIZES)):
+    sizes, least = {"fwd": (FWD_WGMMA_HEAD_SIZES, FWD_WGMMA_MIN_KEY_BLOCKS),
+                    "dq": (DQ_WGMMA_HEAD_SIZES, 0),
+                    "dkv": (DKV_WGMMA_HEAD_SIZES, 0)}[kind]
+    if bs == WGMMA_BLOCK_SIZE and hs in sizes and key_blocks >= least:
         return f"bst_attn_{kind}_wgmma"
     return "bst_attn_fwd_mma" if fwd else "bst_attn_bwd_mma"
 
@@ -493,6 +501,9 @@ _BWD_ARGS = [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
 # heads, lut_heads, ctx_blks_q, ctx_blks_k, scale, stream
 _FWD_WG_ARGS = [_I, _I] + [_P] * 10 + [_I] * 5 + [ctypes.c_float, _P]
 _DKV_WG_ARGS = [_I, _I] + [_P] * 13 + [_I] * 5 + [ctypes.c_float, _P]
+# dq's: dtype, which, hs, q, k, v, do, lse, dvec, dq, strides, pair_rows,
+# pair_ptr, pair_ent, uniq, the same five ints, scale, stream
+_DQ_WG_ARGS = [_I, _I, _I] + [_P] * 12 + [_I] * 5 + [ctypes.c_float, _P]
 # the tables each kernel reads (``kernel_tables``' names; dk/dv's end in _t)
 _TABLES = ("row_ptr", "ent_k", "ent_code", "uniq", "order", "pair_rows",
            "pair_ptr", "pair_ent")
@@ -654,12 +665,13 @@ def attention_fwd_lse(q, k, v, tab, heads, scale):
 
 def _bwd(fn, which, q, k, v, do, lse, dvec, tab, heads, scale):
     """Checks and launches dq (which 0; which 2 stores it in f32) or
-    dk/dv (1) on ``attn_kernel``'s source: bf16 and f16 dk/dv on
-    ``csrc/bst_attn_dkv_wgmma.cu`` (over the key-row pair plan) or
-    ``csrc/bst_attn_bwd_mma.cu`` (key rows in their launch order), dq on
-    the latter, 16-byte aligned views (``_aligned16``); f32 on
-    ``csrc/bst_attn_bwd.cu`` (one C signature with the mma.sync source).
-    Returns (outputs, source)."""
+    dk/dv (1) on ``attn_kernel``'s source: bf16 and f16 dq on
+    ``csrc/bst_attn_dq_wgmma.cu`` (over the forward's query-row pair
+    plan), dk/dv on ``csrc/bst_attn_dkv_wgmma.cu`` (over the key-row pair
+    plan), or either on ``csrc/bst_attn_bwd_mma.cu`` (rows in CSR order
+    or, dk/dv's, their launch order), 16-byte aligned views
+    (``_aligned16``); f32 on ``csrc/bst_attn_bwd.cu`` (one C signature
+    with the mma.sync source).  Returns (outputs, source)."""
     batch, ctx_q, state, hs, lut_heads, bs, t = _check(
         fn, q, k, v, tab, _TABLES_T if which == 1 else _TABLES, heads,
         do=do, key_rows=which == 1)
@@ -695,6 +707,14 @@ def _bwd(fn, which, q, k, v, do, lse, dvec, tab, heads, scale):
                 t["uniq_t"].data_ptr(), batch, heads, lut_heads, ctx_q // bs,
                 ctx_k // bs, float(scale))
         _launch(fn, source, args, _DKV_WG_ARGS, q)
+    elif source == "bst_attn_dq_wgmma":
+        args = (_DTYPE_CODE[q.dtype], which, hs, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), do.data_ptr(), lse.data_ptr(), dvec.data_ptr(),
+                outs[0].data_ptr(), ctypes.addressof(strides),
+                t["pair_rows"].data_ptr(), t["pair_ptr"].data_ptr(),
+                t["pair_ent"].data_ptr(), t["uniq"].data_ptr(), batch, heads,
+                lut_heads, ctx_q // bs, ctx_k // bs, float(scale))
+        _launch(fn, source, args, _DQ_WG_ARGS, q)
     else:
         row_ptr, ent, ent_code, uniq, order = (t[n] for n in names[:5])
         args = (_DTYPE_CODE[q.dtype], which, bs, hs, q.data_ptr(),
@@ -717,14 +737,18 @@ def attention_dq(q, k, v, do, lse, dvec, tab, heads, scale, out_dtype=None):
     ``out_dtype=torch.float32`` in f32 (the epilogue stores the f32
     accumulator unrounded: the counterpart of
     ``fused_attention_dq(out_dtype=jnp.float32)``, for ring attention,
-    which sums a row's dq over several launches)."""
+    which sums a row's dq over several launches).  Neither the launch
+    order nor the pair plan changes a bit.  Counts every launch in
+    ``launches``, those on ``bst_attn_dq_wgmma.cu`` also in
+    ``launches_wgmma``."""
     if out_dtype not in (None, q.dtype, torch.float32):
         raise TypeError(f"attention_dq stores dq in q's dtype or f32, not "
                         f"{out_dtype}")
     which = 2 if out_dtype == torch.float32 else 0
-    (dq,), _ = _bwd("attention_dq", which, q, k, v, do, lse, dvec, tab,
-                    heads, scale)
+    (dq,), source = _bwd("attention_dq", which, q, k, v, do, lse, dvec, tab,
+                         heads, scale)
     attention_dq.launches += 1
+    attention_dq.launches_wgmma += source.endswith("wgmma")
     return dq
 
 
@@ -741,16 +765,21 @@ def attention_dkv(q, k, v, do, lse, dvec, tab, heads, scale):
     return dk, dv
 
 
-def wgmma_kernel_info(kind, dtype, hs=64):
+def wgmma_kernel_info(kind, dtype, hs=64, out_dtype=None):
     """Registers, local (spilled) bytes, dynamic shared memory, resident
     thread blocks an SM and ring slots of the wgmma kernel of ``kind``
-    ("fwd" at hs 64 or 128, "dkv" at hs 64) in bf16 or f16, as the
-    runtime reports them for the built library (on the card only)."""
+    ("fwd" at hs 64 or 128; "dq" at hs 64 or 128, dq stored in
+    ``out_dtype``, ``dtype`` or f32; "dkv" at hs 64) in bf16 or f16, as
+    the runtime reports them for the built library (on the card only)."""
     info = (ctypes.c_int * 5)()
     code = _DTYPE_CODE[dtype]
     if kind == "fwd":
         err = _build.function("bst_attn_fwd_wgmma", "bst_attn_fwd_wgmma_info",
                               [_I, _I, _P])(code, hs, info)
+    elif kind == "dq":
+        which = 2 if out_dtype == torch.float32 else 0
+        err = _build.function("bst_attn_dq_wgmma", "bst_attn_dq_wgmma_info",
+                              [_I, _I, _I, _P])(code, which, hs, info)
     else:
         err = _build.function("bst_attn_dkv_wgmma", "bst_attn_dkv_wgmma_info",
                               [_I, _P])(code, info)
@@ -767,4 +796,5 @@ attention_dq.launches = 0
 attention_dkv.launches = 0
 attention_fwd.launches_wgmma = 0
 attention_fwd_lse.launches_wgmma = 0
+attention_dq.launches_wgmma = 0
 attention_dkv.launches_wgmma = 0

@@ -51,13 +51,17 @@ launch order and CSR order equal; each held against its plain version at
 the LM's shape, at every (bs, hs) and on layouts with a fully masked
 query row and an odd block-row count; their device time in turns,
 TFLOP/s, a call's host time, registers, spills and shared memory beside
-the bound and SDPA's forward) and ``bst_attn_fwd.cu`` in f32.  dk/dv
-runs ``bst_attn_dkv_wgmma.cu`` at bs 64, hs 64 (the same pair plan over
-key block-rows) and ``bst_attn_bwd_mma.cu`` elsewhere, dq always the
-latter, in bf16 and f16 (held and timed as the forward), and
-``bst_attn_bwd.cu`` in f32; both wgmma kernels are also timed against the
-mma.sync ones at the pipeline's microbatch, an sp-4 gather shard and
-ring pair and 4 heads of 128 (``attn_wgmma_phase``).  The sizes the
+the bound and SDPA's forward) and ``bst_attn_fwd.cu`` in f32.  dq runs
+``bst_attn_dq_wgmma.cu`` at bs 64, hs 64 and 128 (the forward's pair
+plan; both epilogues, dq rounded to the input type and stored in f32,
+the latter rounding to the former bit for bit), dk/dv
+``bst_attn_dkv_wgmma.cu`` at bs 64, hs 64 (the same pair plan over key
+block-rows), both ``bst_attn_bwd_mma.cu`` elsewhere, in bf16 and f16
+(held and timed as the forward), and ``bst_attn_bwd.cu`` in f32; the
+three wgmma kernels are also timed against the mma.sync ones at the
+pipeline's microbatch, an sp-4 gather shard and ring pair (dq in f32)
+and 4 heads of 128, and dq is held at a ring pair whose rows see no key
+(``attn_wgmma_phase``).  The sizes the
 reference fuses beyond the kernels' own go through the op's route to the
 kernels: block size 8 as the kernels' bs-16 view of the layout, head
 sizes 8, 48 and 96 zero-padded to 16, 64 and 128; forward, lse, dq and
@@ -314,7 +318,12 @@ SOURCES = ("bsmm_xprop_mma", "bsmm_fprop", "bsmm_updat_mma", "bsmm_updat",
            "bsmm_fine_mma", "bsmm_fine", "bsmm_window_mma", "bsmm_window",
            "bsmm_merge", "bst_nt_mma", "bst_nt", "bst_xn_mma", "bst_xn",
            "bsmm_xprop_wgmma", "bsmm_updat_wgmma", "bst_attn_fwd_wgmma",
-           "bst_attn_dkv_wgmma")
+           "bst_attn_dkv_wgmma", "bst_attn_dq_wgmma")
+# the flagship LM (enwik8's widths, the repo's fixed layout at 2048 tokens)
+FLAGSHIP = dict(n_vocab=256, n_embd=512, n_layer=6, n_head=8, ctx=2048,
+                blk_size=64, attn_layout="fixed", local_blocks=8,
+                mlp_ratio=4, mlp_block_size=32, mlp_density=0.5,
+                dtype="bfloat16", recompute=True)
 DTYPES = (torch.bfloat16, torch.float32, torch.float16)
 # |kernel - plain| <= TOL * max(1, max|plain|); f16 held at bf16 level
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 1e-2}
@@ -405,6 +414,11 @@ def card():
     return out.strip().splitlines()[0]
 
 
+def flagship_config(bt, **kw):
+    """The flagship LM's TransformerConfig, ``kw`` changing its fields."""
+    return bt.TransformerConfig(**{**FLAGSHIP, **kw})
+
+
 def time_ms(fn, iters):
     """Mean device time of fn() over iters calls, after two warm-ups."""
     for _ in range(2):
@@ -442,12 +456,22 @@ def graph_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def compare(name, got, ref, tol):
-    err = (got.float() - ref.float()).abs().max().item()
-    scale = max(1.0, ref.float().abs().max().item())
-    check(bool(torch.isfinite(got).all()) and err <= tol * scale,
+def compare(name, got, ref, tol, norm_tol=None):
+    """got against ref: max|got - ref| <= tol * max(1, max|ref|) and, given
+    norm_tol, ||got - ref|| / ||ref|| <= norm_tol (the attention's
+    gradients: a typical |dq| is far below max|dq|, so the max limit alone
+    would pass a dropped entry)."""
+    diff, ref = got.float() - ref.float(), ref.float()
+    err = diff.abs().max().item()
+    scale = max(1.0, ref.abs().max().item())
+    rel = diff.norm().item() / max(ref.norm().item(), 1e-30)
+    check(bool(torch.isfinite(got).all()) and err <= tol * scale
+          and (norm_tol is None or rel <= norm_tol),
           f"{name}: max_abs_err {err:.3e} (max|plain| {scale:.3e}, "
-          f"tol {tol:g} x max(1, max|plain|))")
+          f"tol {tol:g} x max(1, max|plain|))"
+          + ("" if norm_tol is None else
+             f", ||err|| / ||plain|| {rel:.3e} (tol {norm_tol:g}); "
+             f"mean|plain| {ref.abs().mean().item():.3e}"))
     return err
 
 
@@ -483,17 +507,21 @@ def same_bits(what, fn):
 
 
 @contextlib.contextmanager
-def attn_on_mma():
-    """The attention's route with the wgmma kernels' head sizes emptied:
-    every bf16/f16 forward and dk/dv on the mma.sync kernels
-    (bst_attn_fwd_mma.cu, bst_attn_bwd_mma.cu), as before them."""
+def attn_on_mma(kinds=("FWD", "DQ", "DKV")):
+    """The attention's route with the wgmma kernels' head sizes emptied for
+    ``kinds`` (by default every bf16/f16 forward, dq and dk/dv): those on
+    the mma.sync kernels (bst_attn_fwd_mma.cu, bst_attn_bwd_mma.cu), as
+    before the wgmma ones, the others where the rule sends them."""
     from blocksparse_tpu_torch.kernels import bst_attn
-    saved = bst_attn.FWD_WGMMA_HEAD_SIZES, bst_attn.DKV_WGMMA_HEAD_SIZES
-    bst_attn.FWD_WGMMA_HEAD_SIZES = bst_attn.DKV_WGMMA_HEAD_SIZES = ()
+    names = tuple(f"{k}_WGMMA_HEAD_SIZES" for k in kinds)
+    saved = [getattr(bst_attn, n) for n in names]
+    for n in names:
+        setattr(bst_attn, n, ())
     try:
         yield
     finally:
-        bst_attn.FWD_WGMMA_HEAD_SIZES, bst_attn.DKV_WGMMA_HEAD_SIZES = saved
+        for n, v in zip(names, saved):
+            setattr(bst_attn, n, v)
 
 
 @contextlib.contextmanager
@@ -576,7 +604,6 @@ def training_kernel_checks(model, plain, dev, g, rows):
     """The training kernels against their plain versions at the train
     step's shapes: bprop and updat of both MLP layouts at N = 8 x 2048,
     the attention training forward (out and lse), dq and dk/dv."""
-    from blocksparse_tpu_torch.kernels import bst_attn
     N = BATCH * model.config.ctx
     for name, op, ref_op in (("bsmm1", model.bsmm1, plain.bsmm1),
                              ("bsmm2", model.bsmm2, plain.bsmm2)):
@@ -621,7 +648,17 @@ def training_kernel_checks(model, plain, dev, g, rows):
     same_bits(f"embedding_lookup backward, {BATCH} x {c.ctx} ids into "
               f"{c.n_vocab} x {c.n_embd} bf16", emb_grad)
     del ids, d_emb, emb
-    bst = model.bst
+    attn_training_checks(model, dev, g, rows)
+
+
+def attn_training_checks(model, dev, g, rows):
+    """The attention's training kernels at the train step's shape (batch
+    8 x 2048): the forward with lse, dq (both epilogues) and dk/dv on the
+    route's kernels and on the mma.sync ones, against the plain versions,
+    two runs equal bit for bit; in bf16 their device time in turns and a
+    call's host time."""
+    from blocksparse_tpu_torch.kernels import bst_attn
+    c, bst = model.config, model.bst
     heads, bs = bst.heads, bst.blk_size
     scale = 1.0 / np.sqrt(model.hs)
     tab = bst._tables(dev)
@@ -681,9 +718,9 @@ def training_kernel_checks(model, plain, dev, g, rows):
         dvec = (do.float() * out_ref.float()).reshape(
             BATCH, c.ctx, heads, -1).sum(-1).transpose(1, 2).contiguous()
 
-        def dq():
+        def dq(out_dtype=None):
             return bst_attn.attention_dq(q, k, v, do, lse_ref, dvec, tab,
-                                         heads, scale)
+                                         heads, scale, out_dtype=out_dtype)
 
         def dkv(t=tab):
             return bst_attn.attention_dkv(q, k, v, do, lse_ref, dvec, t,
@@ -693,15 +730,32 @@ def training_kernel_checks(model, plain, dev, g, rows):
             return bst_attn.attention_bwd_plain(q, k, v, do, lse_ref, dvec,
                                                 *plain_args)
         dq_ref, dk_ref, dv_ref = bwd_plain()
-        err = compare(f"bst_attn_dq {what} {dtype}", dq(), dq_ref,
-                      ATTN_TOL[dtype])
+        src = bst_attn.attn_kernel("dq", dtype, bs, model.hs, c.ctx // bs)
+        err = compare(f"bst_attn_dq {what} {dtype} (on {src})", dq(), dq_ref,
+                      ATTN_TOL[dtype], norm_tol=ATTN_NORM_TOL)
         timed(rows, ("dq", dtype), err, dq, bwd_plain, 20)
+        if dtype != torch.float32:
+            # the f32 epilogue (the ring's) stores the sum the default one
+            # rounds
+            dq32 = dq(torch.float32)
+            check(dq32.dtype == torch.float32
+                  and torch.equal(dq32.to(dtype), dq()),
+                  f"bst_attn_dq {what} {dtype} (on {src}): dq stored in f32 "
+                  f"rounds to the default output bit for bit")
+            compare(f"bst_attn_dq {what} {dtype} (on {src}), f32 epilogue",
+                    dq32, bst_attn.attention_bwd_plain(
+                        q, k, v, do, lse_ref, dvec, *plain_args,
+                        dq_dtype=torch.float32)[0], ATTN_TOL[dtype],
+                    norm_tol=ATTN_NORM_TOL)
+            same_bits(f"bst_attn_dq {what} {dtype} (on {src}), f32 "
+                      f"epilogue", lambda: dq(torch.float32))
+            del dq32
         dk, dv = dkv()
         src = bst_attn.attn_kernel("dkv", dtype, bs, model.hs, c.ctx // bs)
         err = max(compare(f"bst_attn_dkv dk {what} {dtype} (on {src})", dk,
-                          dk_ref, ATTN_TOL[dtype]),
+                          dk_ref, ATTN_TOL[dtype], norm_tol=ATTN_NORM_TOL),
                   compare(f"bst_attn_dkv dv {what} {dtype} (on {src})", dv,
-                          dv_ref, ATTN_TOL[dtype]))
+                          dv_ref, ATTN_TOL[dtype], norm_tol=ATTN_NORM_TOL))
         if dtype != torch.float32:
             same_bits(f"bst_attn_dq {what} {dtype}", dq)
             same_bits(f"bst_attn_dkv {what} {dtype} (dk, dv)",
@@ -711,14 +765,19 @@ def training_kernel_checks(model, plain, dev, g, rows):
                   f"bst_attn_dkv {what} {dtype}: the tables' launch order "
                   f"and CSR order equal bit for bit")
             with attn_on_mma():
+                rows[("dq_mma_err", dtype)] = compare(
+                    f"bst_attn_dq {what} {dtype} (on bst_attn_bwd_mma)", dq(),
+                    dq_ref, ATTN_TOL[dtype], norm_tol=ATTN_NORM_TOL)
+                same_bits(f"bst_attn_dq {what} {dtype} on bst_attn_bwd_mma",
+                          dq)
                 dk_m, dv_m = dkv()
                 err_mma = max(
                     compare(f"bst_attn_dkv dk {what} {dtype} (on "
                             f"bst_attn_bwd_mma)", dk_m, dk_ref,
-                            ATTN_TOL[dtype]),
+                            ATTN_TOL[dtype], norm_tol=ATTN_NORM_TOL),
                     compare(f"bst_attn_dkv dv {what} {dtype} (on "
                             f"bst_attn_bwd_mma)", dv_m, dv_ref,
-                            ATTN_TOL[dtype]))
+                            ATTN_TOL[dtype], norm_tol=ATTN_NORM_TOL))
                 same_bits(f"bst_attn_dkv {what} {dtype} on bst_attn_bwd_mma",
                           lambda: torch.stack(dkv()))
             rows[("dkv_mma_err", dtype)] = err_mma
@@ -727,8 +786,10 @@ def training_kernel_checks(model, plain, dev, g, rows):
         timed(rows, ("dkv", dtype), err, dkv, bwd_plain, 20)
         if dtype == torch.bfloat16:
             attn_bwd_device_times(dq, dkv, rows)
+            rows["attn_host"]["dq"] = host_ms(dq)
             rows["attn_host"]["dkv"] = host_ms(dkv)
             with attn_on_mma():
+                rows["attn_host"]["dq_mma"] = host_ms(dq)
                 rows["attn_host"]["dkv_mma"] = host_ms(dkv)
         del qkv, q, k, v, do, out, lse, out_ref, lse_ref, dvec
         del dq_ref, dk_ref, dv_ref, dk, dv
@@ -765,6 +826,7 @@ def short_key(key):
 
 
 FWD_KERNELS = ("bst_attn_fwd_wgmma_kernel", "bst_attn_fwd_mma_kernel")
+DQ_KERNELS = ("bst_attn_dq_wgmma_kernel", "bst_attn_dq_mma_kernel")
 DKV_KERNELS = ("bst_attn_dkv_wgmma_kernel", "bst_attn_dkv_mma_kernel")
 
 
@@ -776,10 +838,10 @@ def attn_fwd_device_times(fwd, fwd_lse, rows):
 
 
 def attn_bwd_device_times(dq, dkv, rows):
-    """dq's device time at the LM's shape (bf16; bst_attn_bwd_mma.cu, the
-    profiler, mean of 20 launches), and dk/dv's on bst_attn_dkv_wgmma.cu
-    and on bst_attn_bwd_mma.cu, in turns."""
-    rows["dq_dev"] = kernel_device_ms(dq, "bst_attn_dq_mma_kernel")
+    """dq's device time at the LM's shape (bf16) on bst_attn_dq_wgmma.cu
+    and on bst_attn_bwd_mma.cu, and dk/dv's on bst_attn_dkv_wgmma.cu and
+    on bst_attn_bwd_mma.cu, each in turns."""
+    rows["dq_dev"] = attn_turns(dq, DQ_KERNELS)
     rows["dkv_dev"] = attn_turns(dkv, DKV_KERNELS)
 
 
@@ -787,12 +849,15 @@ def attn_wgmma_phase(bt, model, dev, g, card_line, rows):
     """The wgmma attention kernels against the mma.sync ones beyond the
     LM's shape (whose turns run in ``training_kernel_checks``), bf16: the
     pipeline's microbatch (BATCH / PP_MICRO x 2048), the sp-4 gather shard
-    and ring pair of the last query rows (the most entries), and 4 heads
-    of 128 at BATCH x 2048 (dk/dv there runs bst_attn_bwd_mma.cu by the
-    rule, so only the forward has two kernels to time).  Each forward with
-    lse and each dk/dv held against its plain version on both kernels,
-    then timed by the profiler's device time in turns (mma, wgmma, wgmma,
-    mma), the route ``attn_kernel`` takes printed beside."""
+    and ring pair of the last query rows (the most entries; dq stored in
+    f32 there, as the ring stores it), and 4 heads of 128 at BATCH x 2048
+    (dk/dv there runs bst_attn_bwd_mma.cu by the rule, so only the forward
+    and dq have two kernels to time).  Each forward with lse, dq and dk/dv
+    held against its plain version on both kernels, then timed by the
+    profiler's device time in turns (mma, wgmma, wgmma, mma), the route
+    ``attn_kernel`` takes printed beside.  Last, a ring pair whose query
+    rows see no key (query chunk 0, key chunk n - 1): dq zero on both
+    kernels, in both epilogues."""
     from blocksparse_tpu_torch.kernels import bst_attn
     from blocksparse_tpu_torch.models.sparse_transformer import (
         causal_subblock_mask, fixed_layout)
@@ -806,17 +871,18 @@ def attn_wgmma_phase(bt, model, dev, g, card_line, rows):
 
     def rand(*shape):
         return torch.randn(shape, device=dev, generator=g).to(bf)
-    cases = (  # (what, op, tables, batch, query rows, key rows)
+    cases = (  # (what, op, tables, batch, query rows, key rows, dq dtype)
         (f"pipeline microbatch {BATCH // PP_MICRO} x {T}", bst,
-         bst._tables(dev), BATCH // PP_MICRO, T, T),
+         bst._tables(dev), BATCH // PP_MICRO, T, T, None),
         (f"sp {n} gather shard {n - 1}", bst,
-         seq.shard_tables(bst, n, n - 1, None, dev), BATCH, L, T),
+         seq.shard_tables(bst, n, n - 1, None, dev), BATCH, L, T, None),
         (f"sp {n} ring pair ({n - 1}, {n - 1})", bst,
-         seq.shard_tables(bst, n, n - 1, n - 1, dev), BATCH, L, L),
+         seq.shard_tables(bst, n, n - 1, n - 1, dev), BATCH, L, L,
+         torch.float32),
         (f"4 heads of 128, {BATCH} x {T}", wide, wide._tables(dev), BATCH, T,
-         T))
+         T, None))
     out_rows = {}
-    for what, op, tab, B, Tq, Tk in cases:
+    for what, op, tab, B, Tq, Tk, dq_dtype in cases:
         H, state = op.heads, c.n_embd
         hs = state // H
         scale = 1.0 / np.sqrt(hs)
@@ -826,17 +892,21 @@ def attn_wgmma_phase(bt, model, dev, g, card_line, rows):
         out_ref, lse_ref = bst_attn.attention_fwd_lse_plain(q, k, v, *args)
         dvec = (do.float() * out_ref.float()).reshape(
             B, Tq, H, hs).sum(-1).transpose(1, 2).contiguous()
-        _, dk_ref, dv_ref = bst_attn.attention_bwd_plain(q, k, v, do,
-                                                         lse_ref, dvec, *args)
+        dq_ref, dk_ref, dv_ref = bst_attn.attention_bwd_plain(
+            q, k, v, do, lse_ref, dvec, *args, dq_dtype=dq_dtype)
 
         def fwd_lse():
             return bst_attn.attention_fwd_lse(q, k, v, tab, H, scale)
 
+        def dq():
+            return bst_attn.attention_dq(q, k, v, do, lse_ref, dvec, tab, H,
+                                         scale, out_dtype=dq_dtype)
+
         def dkv():
             return bst_attn.attention_dkv(q, k, v, do, lse_ref, dvec, tab, H,
                                           scale)
-        routes = (bst_attn.attn_kernel("fwd", bf, 64, hs, Tk // 64),
-                  bst_attn.attn_kernel("dkv", bf, 64, hs, Tk // 64))
+        routes = tuple(bst_attn.attn_kernel(kind, bf, 64, hs, Tk // 64)
+                       for kind in ("fwd", "dq", "dkv"))
         for side in ("wgmma", "mma"):
             with attn_on_mma() if side == "mma" else forced_wgmma():
                 out, lse = fwd_lse()
@@ -848,28 +918,54 @@ def attn_wgmma_phase(bt, model, dev, g, card_line, rows):
                     .item() <= LSE_TOL),
                       f"{what}: fwd_lse lse on the {side} kernel within "
                       f"{LSE_TOL:g}, -inf where the plain lse is")
+                compare(f"{what}: dq{' (f32)' if dq_dtype else ''} on the "
+                        f"{side} kernel", dq(), dq_ref, ATTN_TOL[bf],
+                        norm_tol=ATTN_NORM_TOL)
+                same_bits(f"{what}: dq on the {side} kernel", dq)
                 dk, dv = dkv()
                 for name, a, r in (("dk", dk, dk_ref), ("dv", dv, dv_ref)):
                     compare(f"{what}: {name} on the {side} route", a, r,
-                            ATTN_TOL[bf])
+                            ATTN_TOL[bf], norm_tol=ATTN_NORM_TOL)
         # both kernels timed, whichever the rule takes (bs 64: the route is
         # the head size's and, for the forward, the key context's)
         with forced_wgmma():
             f = attn_turns(fwd_lse, FWD_KERNELS)
+            dqt = attn_turns(dq, DQ_KERNELS)
             d = attn_turns(dkv, DKV_KERNELS) if hs in \
                 bst_attn.DKV_WGMMA_HEAD_SIZES else None
-        out_rows[what] = {"fwd_lse": f, "dkv": d, "routes": routes}
+        out_rows[what] = {"fwd_lse": f, "dq": dqt, "dkv": d,
+                          "routes": routes}
+
+        def fmt(t):
+            return (f"{t['mma'][0]:.4f} / {t['wgmma'][0]:.4f} / "
+                    f"{t['wgmma'][1]:.4f} / {t['mma'][1]:.4f}")
         print(f"attention wgmma against mma.sync, {what} [{card_line}]: "
-              f"fwd_lse device ms mma / wgmma / wgmma / mma "
-              f"{f['mma'][0]:.4f} / {f['wgmma'][0]:.4f} / "
-              f"{f['wgmma'][1]:.4f} / {f['mma'][1]:.4f}"
-              + (f"; dk/dv {d['mma'][0]:.4f} / {d['wgmma'][0]:.4f} / "
-                 f"{d['wgmma'][1]:.4f} / {d['mma'][1]:.4f}" if d else
+              f"device ms mma / wgmma / wgmma / mma: fwd_lse {fmt(f)}; dq"
+              f"{' (f32)' if dq_dtype else ''} {fmt(dqt)}"
+              + (f"; dk/dv {fmt(d)}" if d else
                  "; dk/dv on bst_attn_bwd_mma.cu only")
-              + f"; the route: {routes[0]}.cu, {routes[1]}.cu", flush=True)
-        del q, k, v, do, out_ref, lse_ref, dvec, dk_ref, dv_ref
+              + f"; the route: {', '.join(r + '.cu' for r in routes)}",
+              flush=True)
+        del q, k, v, do, out_ref, lse_ref, dvec, dq_ref, dk_ref, dv_ref
         torch.cuda.empty_cache()
     rows["attn_wgmma_phase"] = out_rows
+    # a ring pair whose query rows see no key of the chunk: dq stores zeros
+    tab = seq.shard_tables(bst, n, 0, n - 1, dev)
+    H, hs = bst.heads, c.n_embd // bst.heads
+    q, k, v, do = (rand(BATCH, L, c.n_embd) for _ in range(4))
+    lse = torch.full((BATCH, H, L), float("-inf"), device=dev)
+    dvec = torch.zeros((BATCH, H, L), device=dev)
+    for side in ("wgmma", "mma"):
+        with attn_on_mma() if side == "mma" else forced_wgmma():
+            for dt in (None, torch.float32):
+                got = bst_attn.attention_dq(q, k, v, do, lse, dvec, tab, H,
+                                            1.0 / np.sqrt(hs), out_dtype=dt)
+                check(bool((got == 0).all()),
+                      f"sp {n} ring pair (0, {n - 1}), no key a query row "
+                      f"sees: dq{' (f32)' if dt else ''} zero on the {side} "
+                      f"kernel")
+    del q, k, v, do, lse, dvec
+    torch.cuda.empty_cache()
 
 
 def f1_mask(blk_shape, head, qry, key, blk):
@@ -895,8 +991,8 @@ def attn_block_size_checks(bt, dev, g):
     dq, dk and dv against the plain versions at the op's own sizes, each
     kernel launched once a run, two runs equal bit for bit; and layouts
     with a fully masked query row (F1) at b64, b16 and b8: zero out and dq
-    there, lse -inf, no NaN anywhere.  At b64 the forward and dk/dv run
-    their wgmma kernels where ``attn_kernel`` sends them (the launches on
+    there, lse -inf, no NaN anywhere.  At b64 the forward, dq and dk/dv
+    run their wgmma kernels where ``attn_kernel`` sends them (the launches on
     them counted), also at an odd number of block-rows (a pair half
     empty), and each such case runs again with the attention on the
     mma.sync kernels (``attn_on_mma``)."""
@@ -926,7 +1022,8 @@ def attn_block_size_checks(bt, dev, g):
         want_wg = {n: int(bst_attn.attn_kernel(
             kind, dtype, tab["kbs"], khs,
             tab["kctx_k"] // tab["kbs"]).endswith("wgmma"))
-            for n, kind in zip(ATTN_WGMMA_WRAPPERS, ("fwd", "fwd", "dkv"))}
+            for n, kind in zip(ATTN_WGMMA_WRAPPERS,
+                               ("fwd", "fwd", "dq", "dkv"))}
 
         def run():
             before, wg0 = read_counts(), read_attn_wgmma()
@@ -948,7 +1045,8 @@ def attn_block_size_checks(bt, dev, g):
               f"{what} lse: max_abs_err {lse_err:.3e} (tol {LSE_TOL:g}), "
               f"-inf where the plain lse is")
         for name, a, r in zip(("dq", "dk", "dv"), grads, refs):
-            compare(f"{what} {name}", a, r, ATTN_TOL[dtype])
+            compare(f"{what} {name}", a, r, ATTN_TOL[dtype],
+                    norm_tol=ATTN_NORM_TOL)
         same_bits(f"{what} out, lse, dq, dk, dv", lambda: torch.cat(
             [t.float().flatten() for t in run()]))
         return (fo, flse) + tuple(grads)
@@ -1037,13 +1135,14 @@ def ptxas_report(source, label, pattern):
           f"{max(regs)} registers, spills in {spills}", flush=True)
 
 
-def attn_report(model, rows, marks, card_line):
+def attn_report(model, rows, card_line, marks=None):
     """The attention kernels at the LM's shape (bf16): the forward (serving
-    and lse) and dk/dv on their wgmma kernels and on the mma.sync ones
-    (device time in turns, TFLOP/s, a call's host time) beside the bound
-    and SDPA's forward or backward; dq (mma.sync); each wgmma
-    instantiation's registers, spills, shared memory and resident blocks,
-    and each mma.sync one's registers and spills (ptxas)."""
+    and lse), dq and dk/dv on their wgmma kernels and on the mma.sync ones
+    (device time in turns, TFLOP/s, a call's host time) beside, given
+    ``marks`` (``yardsticks``), the bound and SDPA's forward or backward;
+    each wgmma instantiation's registers, spills, shared memory and
+    resident blocks and what ptxas warned of, and each mma.sync one's
+    registers and spills (ptxas)."""
     from blocksparse_tpu_torch.kernels import bst_attn
     c, bst = model.config, model.bst
     e = bst.blocks * BATCH * c.n_head * bst.blk_size ** 2 * model.hs
@@ -1051,6 +1150,7 @@ def attn_report(model, rows, marks, card_line):
     for name, dev_key, host_key, flops in (
             ("bst_attn_fwd", "fwd_dev", None, 4 * e),
             ("bst_attn_fwd_lse", "fwd_lse_dev", "fwd_lse", 4 * e),
+            ("bst_attn_dq", "dq_dev", "dq", 6 * e),
             ("bst_attn_dkv", "dkv_dev", "dkv", 8 * e)):
         t = rows[dev_key]
         wg, mm = (float(np.mean(t[k])) for k in ("wgmma", "mma"))
@@ -1060,28 +1160,29 @@ def attn_report(model, rows, marks, card_line):
               f"device ms, in turns mma / wgmma / wgmma / mma: "
               f"{t['mma'][0]:.4f} / {t['wgmma'][0]:.4f} / {t['wgmma'][1]:.4f}"
               f" / {t['mma'][1]:.4f}: wgmma {flops / wg / 1e9:.1f} TFLOP/s, "
-              f"mma.sync {flops / mm / 1e9:.1f} ({mm / wg:.2f}x); bound "
-              f"{marks[name][0]:.4f} ms ({marks[name][1]}); {lib} "
-              f"{marks[name][2]:.4f} ms"
+              f"mma.sync {flops / mm / 1e9:.1f} ({mm / wg:.2f}x)"
+              + (f"; bound {marks[name][0]:.4f} ms ({marks[name][1]}); "
+                 f"{lib} {marks[name][2]:.4f} ms" if marks else "")
               + (f"; host ms a call (eager) wgmma {host[host_key]:.4f}, "
                  f"mma.sync {host[host_key + '_mma']:.4f}" if host_key
                  else ""), flush=True)
-    print(f"bst_attn_dq (bst_attn_bwd_mma.cu, bf16) [{card_line}]: device "
-          f"{rows['dq_dev']:.4f} ms ({6 * e / rows['dq_dev'] / 1e9:.1f} "
-          f"TFLOP/s); bound {marks['bst_attn_dq'][0]:.4f} ms; SDPA backward "
-          f"{marks['bst_attn_dq'][2]:.4f} ms", flush=True)
-    for kind, hs in (("fwd", 64), ("fwd", 128), ("dkv", 64)):
+    for kind, hs, out in (("fwd", 64, None), ("fwd", 128, None),
+                          ("dq", 64, None), ("dq", 128, None),
+                          ("dq", 64, torch.float32),
+                          ("dq", 128, torch.float32), ("dkv", 64, None)):
         for dtype in (torch.bfloat16, torch.float16):
-            i = bst_attn.wgmma_kernel_info(kind, dtype, hs)
-            print(f"bst_attn_{kind}_wgmma.cu <{str(dtype)[6:]}, hs {hs}>: "
-                  f"{i['registers']} registers at entry (consumers raised "
-                  f"by setmaxnreg), {i['local_bytes']} local bytes, "
+            i = bst_attn.wgmma_kernel_info(kind, dtype, hs, out)
+            what = (f"bst_attn_{kind}_wgmma.cu <{str(dtype)[6:]}, hs {hs}"
+                    f"{', dq in f32' if out else ''}>")
+            print(f"{what}: {i['registers']} registers at entry (consumers "
+                  f"raised by setmaxnreg), {i['local_bytes']} local bytes, "
                   f"{i['smem_bytes']} bytes of shared memory, "
                   f"{i['blocks_per_sm']} block(s) an SM, {i['stages']} ring "
                   f"slots", flush=True)
             check(i["local_bytes"] == 0 and i["blocks_per_sm"] >= 1,
-                  f"bst_attn_{kind}_wgmma.cu <{dtype}, hs {hs}>: no spill, "
-                  f"resident")
+                  f"{what}: no spill, resident")
+    for kind in ("fwd", "dq", "dkv"):
+        ptxas_warnings(f"bst_attn_{kind}_wgmma")
     for source in ("bst_attn_fwd_mma", "bst_attn_bwd_mma"):
         mine = ptxas_resources(source)
         spills = {k: v for k, v in mine.items() if v[1] or v[2]}
@@ -1406,10 +1507,18 @@ def wgmma_ptxas_report():
                           for k, v in sorted(entries.items()))
               + f"; static shared memory {smem} bytes, dynamic by block "
               f"size {WG_SMEM[source]} bytes", flush=True)
-        for line in log.splitlines():
-            if "warning" in line.lower() or "serializ" in line.lower() \
-                    or "setmaxnreg" in line.lower():
-                print(f"      ptxas: {line.strip()}", flush=True)
+        ptxas_warnings(source)
+
+
+def ptxas_warnings(source):
+    """Prints what ptxas warned of building csrc/<source>.cu (a wgmma
+    serialized, setmaxnreg ignored)."""
+    from blocksparse_tpu_torch.kernels import _build
+    lib = _build.library_path(source)
+    for line in lib.with_name(lib.name + ".log").read_text().splitlines():
+        if "warning" in line.lower() or "serializ" in line.lower() \
+                or "setmaxnreg" in line.lower():
+            print(f"      ptxas ({source}.cu): {line.strip()}", flush=True)
 
 
 def f32_layouts(b, rng):
@@ -2229,9 +2338,11 @@ def reset_counts():
 WGMMA_WRAPPERS = ("bsmm_fprop", "bsmm_bprop", "bsmm_updat")
 
 
-# the attention wrappers whose bf16/f16 launches go to bst_attn_fwd_wgmma.cu
-# or bst_attn_dkv_wgmma.cu, each counting those in launches_wgmma too
-ATTN_WGMMA_WRAPPERS = ("bst_attn_fwd", "bst_attn_fwd_lse", "bst_attn_dkv")
+# the attention wrappers whose bf16/f16 launches go to bst_attn_fwd_wgmma.cu,
+# bst_attn_dq_wgmma.cu or bst_attn_dkv_wgmma.cu, each counting those in
+# launches_wgmma too
+ATTN_WGMMA_WRAPPERS = ("bst_attn_fwd", "bst_attn_fwd_lse", "bst_attn_dq",
+                       "bst_attn_dkv")
 
 
 def read_wgmma():
@@ -2693,13 +2804,8 @@ def view_lm_paths(bt, dev):
     of each the attention launches on the wgmma kernels)}."""
     out = {}
     for what, kw in VIEW_LMS:
-        fields = dict(n_vocab=256, n_embd=512, n_layer=VIEW_LM_LAYERS,
-                      n_head=8, ctx=VIEW_LM_CTX, blk_size=64,
-                      attn_layout="fixed", local_blocks=8, mlp_ratio=4,
-                      mlp_block_size=32, mlp_density=0.5, dtype="bfloat16",
-                      recompute=False)
-        fields.update(kw)
-        cfg = bt.TransformerConfig(**fields)
+        cfg = flagship_config(bt, n_layer=VIEW_LM_LAYERS, ctx=VIEW_LM_CTX,
+                              recompute=False, **kw)
         model = bt.SparseTransformerLM(cfg, device=dev)
         plain = bt.SparseTransformerLM(cfg, device=dev, impl="xla")
         sd = bt.params_from_jax(bt.random_jax_params(model, seed=SEED),
@@ -2950,8 +3056,8 @@ def training_path(bt, model, plain, cfg, dev, card_line, profile_out):
           f"{model.bsmm1.kernel_of(tokens.numel(), 'u')})")
     check(attn_wg == {k: launches[k] for k in ATTN_WGMMA_WRAPPERS},
           f"train step's first call: every attention forward with lse on "
-          f"bst_attn_fwd_wgmma.cu and every dk/dv on bst_attn_dkv_wgmma.cu "
-          f"({attn_wg} of {launches}); dq on bst_attn_bwd_mma.cu")
+          f"bst_attn_fwd_wgmma.cu, every dq on bst_attn_dq_wgmma.cu and "
+          f"every dk/dv on bst_attn_dkv_wgmma.cu ({attn_wg} of {launches})")
     bits = all(torch.equal(m0[k], m_eager[k]) for k in m0) and \
         torch.equal(scale, sc_eager) and \
         all(torch.equal(d0[k], d_eager[k]) for k in d0)
@@ -3037,9 +3143,9 @@ def training_path(bt, model, plain, cfg, dev, card_line, profile_out):
     profile_port_kernels("train step (eager)", lambda: one_step(eager),
                          ms["eager"])
 
-    # the same captured step with the attention on the mma.sync kernels
-    # (the parent's route), timed against this one in turns: the step
-    # before and after
+    # the same captured step with dq on the mma.sync kernel (the parent's
+    # route: the forward and dk/dv stay on their wgmma kernels), timed
+    # against this one in turns: the step before and after
     old, old_step, old_holder = mma_train_step(bt, model, cfg, dev, opt,
                                                tokens, targets, scale)
 
@@ -3049,41 +3155,40 @@ def training_path(bt, model, plain, cfg, dev, card_line, profile_out):
     old_one()
     turns = in_turns({"wgmma": lambda: one_step(step), "mma": old_one},
                      lambda fn: time_ms(fn, TIMED_STEPS))
-    print(f"train step [{card_line}]: captured with the attention on the "
-          f"wgmma kernels {' / '.join(f'{v:.2f}' for v in turns['wgmma'])} "
-          f"ms, on the mma.sync kernels "
-          f"{' / '.join(f'{v:.2f}' for v in turns['mma'])} ms (turns wgmma, "
-          f"mma, mma, wgmma; each the mean of {TIMED_STEPS} replays by CUDA "
-          f"events)", flush=True)
-    profile_port_kernels("train step with the attention on the mma.sync "
-                         "kernels (graph replay)", old_one,
-                         float(np.mean(turns["mma"])))
+    ms = {k: " / ".join(f"{v:.2f}" for v in t) for k, t in turns.items()}
+    print(f"train step [{card_line}]: captured with dq on "
+          f"bst_attn_dq_wgmma.cu {ms['wgmma']} ms, with dq on "
+          f"bst_attn_bwd_mma.cu {ms['mma']} ms (turns wgmma, mma, mma, "
+          f"wgmma; each the mean of {TIMED_STEPS} replays by CUDA events)",
+          flush=True)
+    profile_port_kernels("train step with dq on the mma.sync kernel (graph "
+                         "replay)", old_one, float(np.mean(turns["mma"])))
     del old, old_step, old_holder
     torch.cuda.empty_cache()
     return launches, wgmma
 
 
 def mma_train_step(bt, model, cfg, dev, opt, tokens, targets, ls):
-    """The flagship's captured train step with the attention on the
-    mma.sync kernels (bst_attn_fwd_mma.cu, bst_attn_bwd_mma.cu), as before
-    the wgmma attention kernels: a second model of ``model``'s weights
-    whose step's first call (its warm-up and its capture) routes under
-    ``attn_on_mma``; the graph keeps those launches.  (model, step,
-    {"state", "scale"})."""
+    """The flagship's captured train step with dq on the mma.sync kernel
+    (bst_attn_bwd_mma.cu), as before bst_attn_dq_wgmma.cu: a second model
+    of ``model``'s weights whose step's first call (its warm-up and its
+    capture) routes under ``attn_on_mma(("DQ",))``; the graph keeps those
+    launches.  (model, step, {"state", "scale"})."""
     old = bt.SparseTransformerLM(cfg, device=dev)
     old.load_state_dict(model.state_dict())
     step = old.make_train_step(opt, clip_norm=CLIP)
     reset_counts()
-    with attn_on_mma():
+    with attn_on_mma(("DQ",)):
         state, _, scale = step(opt.init(dict(old.named_parameters())),
                                tokens, targets, ls)
         torch.cuda.synchronize()
     launches, wgmma = read_counts(), read_attn_wgmma()
-    check(not any(wgmma.values()) and launches["bst_attn_fwd_lse"] > 0,
-          f"the step with the attention on the mma.sync kernels: "
-          f"{launches['bst_attn_fwd_lse']} forward, {launches['bst_attn_dq']} "
-          f"dq, {launches['bst_attn_dkv']} dk/dv launches, none on the wgmma "
-          f"kernels ({wgmma})")
+    check(wgmma["bst_attn_dq"] == 0 < launches["bst_attn_dq"]
+          and wgmma["bst_attn_dkv"] == launches["bst_attn_dkv"] > 0,
+          f"the step with dq on the mma.sync kernel: "
+          f"{launches['bst_attn_dq']} dq launches, none on "
+          f"bst_attn_dq_wgmma.cu; the forward and dk/dv on theirs "
+          f"({wgmma} of {launches})")
     return old, step, {"state": state, "scale": scale}
 
 
@@ -3102,8 +3207,9 @@ def restore(m, saved):
 # and bsmm_xprop_nc_kernel (f32); the updat's bsmm_updat_wgmma_kernel and
 # bsmm_updat_mma_kernel (bf16/f16), bsmm_updat_nc_kernel (f32) and the
 # split's bsmm_updat_reduce_kernel;
-# the attention's bf16/f16 kernels by source: bst_attn_fwd_wgmma_kernel
-# and bst_attn_dkv_wgmma_kernel, bst_attn_fwd_mma_kernel and
+# the attention's bf16/f16 kernels by source: bst_attn_fwd_wgmma_kernel,
+# bst_attn_dq_wgmma_kernel and bst_attn_dkv_wgmma_kernel,
+# bst_attn_fwd_mma_kernel and
 # bst_attn_{dq,dkv}_mma_kernel (the f32 bst_attn_*_kernel are not on the
 # bf16 paths profiled); "bst_nt" and "bst_xn" the unfused ops' (the same
 # names without "_mma" in f32)
@@ -3114,7 +3220,8 @@ PROFILE_TRIES = 6
 PORT_KERNELS = ("bsmm_xprop_wgmma", "bsmm_xprop_mma", "bsmm_xprop_nc",
                 "bsmm_updat_wgmma", "bsmm_updat_mma", "bsmm_updat_nc",
                 "bsmm_updat_reduce", "bst_attn_fwd_wgmma", "bst_attn_fwd_mma",
-                "bst_attn_dq_mma", "bst_attn_dkv_wgmma", "bst_attn_dkv_mma",
+                "bst_attn_dq_wgmma", "bst_attn_dq_mma", "bst_attn_dkv_wgmma",
+                "bst_attn_dkv_mma",
                 "bst_nt", "bst_xn")
 
 
@@ -3658,6 +3765,14 @@ def window_path(ops, W, dev, g, card_line):
                           + f" ms ({flops / min(f for f, _ in t) / 1e9:.2f} "
                           f"TFLOP/s fprop)" for m, t in times.items())
               + " (turns window, grouped, grouped, window)", flush=True)
+        # the bound and the dense product beside them (a generator of its
+        # own: the phases after this one draw what they drew before)
+        ms, by, lib = dense_yardstick(
+            ops["plain"], N, dev,
+            torch.Generator(device=dev).manual_seed(SEED + N))
+        print(f"window regime N={N}: bound {ms:.4f} ms ({by}); dense "
+              f"torch.matmul of the scattered layout {lib:.4f} ms "
+              f"[{card_line}]", flush=True)
         del x, outs
     torch.cuda.empty_cache()
     return total
@@ -3690,6 +3805,20 @@ def window_tile_sweep(ops, x, w, N, flops, card_line):
           + f"; window_tn picks {rule(N, n_sg, sms)}", flush=True)
 
 
+def dense_yardstick(op, N, dev, g):
+    """(bound ms, "operations" or "bytes", library ms) of ``op``'s bf16
+    product at N rows: the bound of the block-sparse product (x and y
+    read and written once, each weight block once), the library call a
+    dense torch.matmul of the layout scattered into its (C, K) matrix."""
+    bf, b2 = torch.bfloat16, op.bsize ** 2
+    x = torch.randn((N, op.C), device=dev, generator=g).to(bf)
+    wd = dense_weight(op, (torch.randn(op.w_shape, device=dev, generator=g)
+                           * 0.1).to(bf))
+    lib = time_ms(lambda: x @ wd, 20)
+    return (*bound(2 * N * op.blocks * b2,
+                   2 * (N * op.C + op.blocks * b2 + N * op.K)), lib)
+
+
 def mode_yardsticks(rows_in, win, dev, g, card_line, rows):
     """Bound and library call of the three mode kernels at their kernels-
     line shapes: fine at canonical b8 N 64, window at its regime N 256
@@ -3702,14 +3831,7 @@ def mode_yardsticks(rows_in, win, dev, g, card_line, rows):
                     * CANON_UNIT)
     for name, op, N in (("bsmm_fine", rows_in[(small, 8)][1], CANON_N),
                         ("bsmm_window", win, WIN_NS[0])):
-        b2 = op.bsize ** 2
-        x = torch.randn((N, op.C), device=dev, generator=g).to(bf)
-        wd = dense_weight(op, (torch.randn(op.w_shape, device=dev,
-                                           generator=g) * 0.1).to(bf))
-        lib = time_ms(lambda: x @ wd, 20)
-        out[name] = (*bound(2 * N * op.blocks * b2,
-                            2 * (N * op.C + op.blocks * b2 + N * op.K)), lib)
-        del x, wd
+        out[name] = dense_yardstick(op, N, dev, g)
     # the merge's row is its f32 form (the fused split took over bf16/f16)
     n_real, P = rows["merge_shape"]
     K = rows_in[(dense, 32)][1].K
@@ -3998,10 +4120,7 @@ def trio_marks(op, q, k, v, w, hs):
 def wide_lm(bt, dev):
     """The enwik8 LM with n_head WIDE_HEADS (hs 256) and the same on the
     plain versions, weights from seed 0."""
-    cfg = bt.TransformerConfig(
-        n_vocab=256, n_embd=512, n_layer=6, n_head=WIDE_HEADS, ctx=2048,
-        blk_size=64, attn_layout="fixed", local_blocks=8, mlp_ratio=4,
-        mlp_block_size=32, mlp_density=0.5, dtype="bfloat16", recompute=True)
+    cfg = flagship_config(bt, n_head=WIDE_HEADS)
     model = bt.SparseTransformerLM(cfg, device=dev)
     plain = bt.SparseTransformerLM(cfg, device=dev, impl="xla")
     sd = bt.params_from_jax(bt.random_jax_params(model, seed=SEED), model)
@@ -5149,11 +5268,8 @@ def routing_flips(kernel_tap, plain_tap, kernel_fn, plain_fn):
 
 
 def moe_models(bt, dev):
-    cfg = bt.TransformerConfig(
-        n_vocab=256, n_embd=512, n_layer=6, n_head=8, ctx=2048, blk_size=64,
-        attn_layout="fixed", local_blocks=8, mlp_ratio=4, mlp_block_size=32,
-        mlp_density=1.0, dtype="bfloat16", recompute=True,
-        moe_experts=MOE_EXPERTS, moe_k=MOE_K, moe_capacity_factor=MOE_CF)
+    cfg = flagship_config(bt, mlp_density=1.0, moe_experts=MOE_EXPERTS,
+                          moe_k=MOE_K, moe_capacity_factor=MOE_CF)
     model = bt.SparseTransformerLM(cfg, device=dev)
     plain = bt.SparseTransformerLM(cfg, device=dev, impl="xla")
     sd = bt.params_from_jax(bt.random_jax_params(model, seed=SEED), model)
@@ -5897,7 +6013,8 @@ def sp_kernel_checks(bst, q, k, v, do, scale, card_line, rows, marks):
         for name, got, ref in (("dq (f32)", dq, dq0), ("dk", dk, dk0),
                                ("dv", dv, dv0)):
             compare(f"ring sp {n}: {name} summed over the pairs against "
-                    f"the unsharded kernel", got, ref, ATTN_TOL[bf])
+                    f"the unsharded kernel", got, ref, ATTN_TOL[bf],
+                    norm_tol=ATTN_NORM_TOL)
     # each against its plain version on the same tables
     errs = {}
     for n in SP_SHARDS:
@@ -5909,9 +6026,9 @@ def sp_kernel_checks(bst, q, k, v, do, scale, card_line, rows, marks):
             compare(f"gather sp {n}: lse against the plain version",
                     kern[1], ref[1], LSE_TOL),
             compare(f"gather sp {n}: dq against the plain version",
-                    kern[2], ref[2], ATTN_TOL[bf]),
+                    kern[2], ref[2], ATTN_TOL[bf], norm_tol=ATTN_NORM_TOL),
             max(compare(f"gather sp {n}: {nm} against the plain version",
-                        kern[i], ref[i], ATTN_TOL[bf])
+                        kern[i], ref[i], ATTN_TOL[bf], norm_tol=ATTN_NORM_TOL)
                 for nm, i in (("dk", 3), ("dv", 4))))
         kern = runs[("ring", n)]
         ref = sp_ring(bst, n, q, k, v, do, scale, False)
@@ -5921,9 +6038,9 @@ def sp_kernel_checks(bst, q, k, v, do, scale, card_line, rows, marks):
             compare(f"ring sp {n}: lse against the plain version", kern[1],
                     ref[1], LSE_TOL),
             compare(f"ring sp {n}: dq (f32) against the plain version",
-                    kern[2], ref[2], ATTN_TOL[bf]),
+                    kern[2], ref[2], ATTN_TOL[bf], norm_tol=ATTN_NORM_TOL),
             max(compare(f"ring sp {n}: {nm} against the plain version",
-                        kern[i], ref[i], ATTN_TOL[bf])
+                        kern[i], ref[i], ATTN_TOL[bf], norm_tol=ATTN_NORM_TOL)
                 for nm, i in (("dk", 3), ("dv", 4))))
         del ref
     del runs
@@ -6300,12 +6417,12 @@ def pp_kernel_rows(model, dev, g, card_line, rows, marks):
                                             *plain_args)
     dq_ref, dk_ref, dv_ref = bwd_plain()
     err_dq = compare(f"pp stage bst_attn_dq {what}", dq(), dq_ref,
-                     ATTN_TOL[bf])
+                     ATTN_TOL[bf], norm_tol=ATTN_NORM_TOL)
     dk, dv = dkv()
     err_dkv = max(compare(f"pp stage bst_attn_dkv dk {what}", dk, dk_ref,
-                          ATTN_TOL[bf]),
+                          ATTN_TOL[bf], norm_tol=ATTN_NORM_TOL),
                   compare(f"pp stage bst_attn_dkv dv {what}", dv, dv_ref,
-                          ATTN_TOL[bf]))
+                          ATTN_TOL[bf], norm_tol=ATTN_NORM_TOL))
     # the plain backward computes dq, dk and dv in one call: its time
     # stands beside both kernels
     bwd_ms = time_ms(bwd_plain, 5)
@@ -6679,7 +6796,19 @@ def pipeline_experts_path(bt, model, sd, cfg, dev, g, card_line, rows,
     gpipe_world1(bt, cfg, sd, tokens, targets, ref, dev, scale, card_line,
                  drop_ref)
     torch.cuda.synchronize()
-    pp_launches = read_counts()
+    pp_launches, pp_wg = read_counts(), read_attn_wgmma()
+    from blocksparse_tpu_torch.kernels import bst_attn
+    # the microbatch's attention (bs 64, the LM's hs, ctx keys) on the
+    # kernels the route rule names: every launch on wgmma, or none
+    src = {kind: bst_attn.attn_kernel(kind, torch.bfloat16, 64, model.hs,
+                                      cfg.ctx // 64)
+           for kind in ("fwd", "dq", "dkv")}
+    want_wg = {name: pp_launches[name] * src[kind].endswith("wgmma")
+               for name, kind in zip(ATTN_WGMMA_WRAPPERS,
+                                     ("fwd", "fwd", "dq", "dkv"))}
+    check(pp_wg == want_wg and pp_launches["bst_attn_dq"] > 0,
+          f"pipeline phase: the attention's launches on the wgmma kernels "
+          f"{pp_wg}, as attn_kernel names them {want_wg} ({src})")
     for S in PP_STAGES:
         plain_stages = stage_metrics(model, *logs[S])
         with resid_dropout(model, DROPOUT):
@@ -7011,7 +7140,9 @@ def examples_path(bt, dev, card_line):
     return launches
 
 
-def build_all():
+def build_all(sources=SOURCES):
+    """Builds csrc/<name>.cu for each of ``sources``, one nvcc each, all
+    started together."""
     from blocksparse_tpu_torch.kernels import _build
 
     def one(name):
@@ -7019,8 +7150,8 @@ def build_all():
         lib = _build.build(name)
         return name, time.perf_counter() - t, lib
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
-        for name, s, lib in pool.map(one, SOURCES):
+    with ThreadPoolExecutor(len(sources)) as pool:
+        for name, s, lib in pool.map(one, sources):
             print(f"build {name}: {s:.1f} s -> {lib.name}", flush=True)
     print(f"build total (parallel): {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -7050,10 +7181,7 @@ def main():
     f5_check(dev)
 
     # 2. the model, full width, and the same model on the plain versions
-    cfg = bt.TransformerConfig(
-        n_vocab=256, n_embd=512, n_layer=6, n_head=8, ctx=2048, blk_size=64,
-        attn_layout="fixed", local_blocks=8, mlp_ratio=4, mlp_block_size=32,
-        mlp_density=0.5, dtype="bfloat16", recompute=True)
+    cfg = flagship_config(bt)
     model = bt.SparseTransformerLM(cfg, device=dev)
     plain = bt.SparseTransformerLM(cfg, device=dev, impl="xla")
     sd = bt.params_from_jax(bt.random_jax_params(model, seed=SEED), model)
@@ -7212,7 +7340,7 @@ def main():
     marks.update(rows["trio_marks"])
     marks.update(lstm_marks)
     marks.update(packed_marks)
-    attn_report(model, rows, marks, card_line)
+    attn_report(model, rows, card_line, marks)
     ptxas_report("bsmm_xprop_mma", "the fused split (OUT_SPLIT)",
                  SPLIT_MANGLED)
     ptxas_report("col2im_tma", "col2im", re.compile("col2im_tma_kernel"))
@@ -7223,16 +7351,16 @@ def main():
     bf = torch.bfloat16
     for key, err_key, dev_key in (("attn_fwd", ("attn_fwd", bf), "fwd_dev"),
                                   ("fwd_lse", ("fwd_lse", bf), "fwd_lse_dev"),
+                                  ("dq", ("dq", bf), "dq_dev"),
                                   ("dkv", ("dkv", bf), "dkv_dev")):
         t, plain_ms = rows[dev_key], rows[err_key][2]
-        mma_err = rows[("dkv_mma_err" if key == "dkv" else "fwd_lse_mma_err",
-                        bf)]
+        mma_err = rows[({"dq": "dq_mma_err", "dkv": "dkv_mma_err"}.get(
+            key, "fwd_lse_mma_err"), bf)]
         rows[(key, "wgmma")] = (rows[err_key][0], float(np.mean(t["wgmma"])),
                                 plain_ms)
         rows[(key, "mma")] = (mma_err, float(np.mean(t["mma"])), plain_ms)
-    rows[("dq", bf)] = (rows[("dq", bf)][0], rows["dq_dev"],
-                        rows[("dq", bf)][2])
-    for name in ("bst_attn_fwd", "bst_attn_fwd_lse", "bst_attn_dkv"):
+    for name in ("bst_attn_fwd", "bst_attn_fwd_lse", "bst_attn_dq",
+                 "bst_attn_dkv"):
         marks[f"{name}_wgmma"] = marks[name]
 
     N = BATCH * cfg.ctx
@@ -7276,14 +7404,16 @@ def main():
          wg_row("u", "wgmma", ("updat", "bsmm1", bf))),
         ("bsmm_updat_reduce", "bsmm_updat_mma.cu", "bsmm.py:1972",
          train_launches["bsmm_updat_reduce"], rows["reduce"]),
-        # the attention at the LM's shape: the forward (serving and lse)
-        # and dk/dv on their wgmma kernels (the main path's launches) and
-        # on the mma.sync ones (the view LMs' launches: bs 8, and bs 16-32
-        # view), dq on bst_attn_bwd_mma.cu
+        # the attention at the LM's shape: the forward (serving and lse),
+        # dq and dk/dv on their wgmma kernels (the main path's launches)
+        # and on the mma.sync ones (the view LMs' launches: bs 8, and bs
+        # 16-32 view)
         ("bst_attn_fwd_wgmma", "bst_attn_fwd_wgmma.cu", "bst_attn.py:677",
          serve_launches["bst_attn_fwd"], rows[("attn_fwd", "wgmma")]),
         ("bst_attn_fwd_lse_wgmma", "bst_attn_fwd_wgmma.cu", "bst_attn.py:832",
          train_launches["bst_attn_fwd_lse"], rows[("fwd_lse", "wgmma")]),
+        ("bst_attn_dq_wgmma", "bst_attn_dq_wgmma.cu", "bst_attn.py:1084",
+         train_launches["bst_attn_dq"], rows[("dq", "wgmma")]),
         ("bst_attn_dkv_wgmma", "bst_attn_dkv_wgmma.cu", "bst_attn.py:1141",
          train_launches["bst_attn_dkv"], rows[("dkv", "wgmma")]),
         ("bst_attn_fwd", "bst_attn_fwd_mma.cu", "bst_attn.py:677",
@@ -7291,7 +7421,7 @@ def main():
         ("bst_attn_fwd_lse", "bst_attn_fwd_mma.cu", "bst_attn.py:832",
          view_mma["bst_attn_fwd_lse"], rows[("fwd_lse", "mma")]),
         ("bst_attn_dq", "bst_attn_bwd_mma.cu", "bst_attn.py:1084",
-         train_launches["bst_attn_dq"], rows[("dq", bf)]),
+         view_mma["bst_attn_dq"], rows[("dq", "mma")]),
         ("bst_attn_dkv", "bst_attn_bwd_mma.cu", "bst_attn.py:1141",
          view_mma["bst_attn_dkv"], rows[("dkv", "mma")]),
         ("im2col", "im2col.cu", "im2col.py:97", conv_launches["im2col"],
@@ -7338,14 +7468,15 @@ def main():
         # parallel phase's counted run at sp 2 and 4, gather and ring
         ("attn_fwd_lse_sp4", attn_source("fwd"), "bst_attn.py:832",
          sp_launches["bst_attn_fwd_lse"], rows["attn_fwd_lse_sp4"]),
-        ("attn_dq_sp4", "bst_attn_bwd_mma.cu", "bst_attn.py:1084",
+        ("attn_dq_sp4", attn_source("dq"), "bst_attn.py:1084",
          sp_launches["bst_attn_dq"], rows["attn_dq_sp4"]),
         ("attn_dkv_sp4", attn_source("dkv"), "bst_attn.py:1141",
          sp_launches["bst_attn_dkv"], rows["attn_dkv_sp4"]),
         ("attn_fwd_lse_ring4",
          attn_source("fwd", cfg.ctx // 64 // SP_SHARDS[-1]), "bst_attn.py:832",
          sp_launches["bst_attn_fwd_lse"], rows["attn_fwd_lse_ring4"]),
-        ("attn_dq_ring_f32", "bst_attn_bwd_mma.cu", "bst_attn.py:1084",
+        ("attn_dq_ring_f32",
+         attn_source("dq", cfg.ctx // 64 // SP_SHARDS[-1]), "bst_attn.py:1084",
          sp_launches["bst_attn_dq"], rows["attn_dq_ring_f32"]),
         ("attn_dkv_ring4", attn_source("dkv"), "bst_attn.py:1141",
          sp_launches["bst_attn_dkv"], rows["attn_dkv_ring4"]),
@@ -7358,7 +7489,7 @@ def main():
          pp_launches["bst_attn_fwd"], rows["pp_stage_attn_fwd"]),
         ("pp_stage_attn_fwd_lse", attn_source("fwd"), "bst_attn.py:832",
          pp_launches["bst_attn_fwd_lse"], rows["pp_stage_attn_fwd_lse"]),
-        ("pp_stage_attn_dq", "bst_attn_bwd_mma.cu", "bst_attn.py:1084",
+        ("pp_stage_attn_dq", attn_source("dq"), "bst_attn.py:1084",
          pp_launches["bst_attn_dq"], rows["pp_stage_attn_dq"]),
         ("pp_stage_attn_dkv", attn_source("dkv"), "bst_attn.py:1141",
          pp_launches["bst_attn_dkv"], rows["pp_stage_attn_dkv"]),

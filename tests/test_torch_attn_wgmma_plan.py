@@ -1,7 +1,8 @@
 """The wgmma attention kernels' host side, on the CPU: the pair plan that
 ``kernel_tables`` builds for ``csrc/bst_attn_fwd_wgmma.cu`` (over the
-query-row CSR) and ``csrc/bst_attn_dkv_wgmma.cu`` (over the key-row CSR),
-the route rule ``attn_kernel``, and the two kernels' work decomposition.
+query-row CSR) and ``csrc/bst_attn_dq_wgmma.cu`` (the forward's plan) and
+``csrc/bst_attn_dkv_wgmma.cu`` (over the key-row CSR), the route rule
+``attn_kernel``, and the three kernels' work decomposition.
 
 The kernels run only on the card (``test_torch_cuda.py`` holds them
 against the plain versions there).  Here the plan's invariants are
@@ -10,15 +11,15 @@ layouts, the bs-8 view, a sequence shard's tables (query and key
 contexts differ, empty rows) and per-head layouts: every (row, entry)
 appears once, under its row's mask bit and code; each row's entries keep
 their CSR order; a union holds each block once; pairs run longest first.
-The route rule is pinned by value at the path's shapes.  Then both
+The route rule is pinned by value at the path's shapes.  Then the
 kernels' work is replayed in torch item by item and union entry by union
 entry (the forward's running max moved once an entry, P rounded to the
-input type before P·v; dk/dv's P and dS rounded before their products;
-an entry not the row's block runs as one with every key hidden) and
-held against the plain versions and, at bs 64, against the JAX
-package's ``fused_attention_fwd_lse`` and
-``fused_attention_dkv`` (imported inside those tests, run on the CPU as
-``test_torch_attn_fwd.py`` runs them).
+input type before P·v; dq's dS and dk/dv's P and dS rounded before their
+products, dq rounded once or kept in f32; an entry not the row's block
+runs as one with every key hidden) and held against the plain versions
+and, at bs 64, against the JAX package's ``fused_attention_fwd_lse``,
+``fused_attention_dq`` and ``fused_attention_dkv`` (imported inside
+that test, run on the CPU as ``test_torch_attn_fwd.py`` runs them).
 
 Tolerances: f32 1e-5 of max(1, max|ref|) (the same f32 softmax, summed
 in other orders); bf16 2e-2, as on the card (P and dS are rounded to bf16
@@ -184,7 +185,7 @@ ROUTES = [  # (dtype, bs, hs, key block-rows, kind, source)
     # pipeline microbatch (2 x 2048): 32 key block-rows
     (torch.bfloat16, 64, 64, 32, "fwd", "bst_attn_fwd_wgmma"),
     (torch.bfloat16, 64, 64, 32, "dkv", "bst_attn_dkv_wgmma"),
-    (torch.bfloat16, 64, 64, 32, "dq", "bst_attn_bwd_mma"),
+    (torch.bfloat16, 64, 64, 32, "dq", "bst_attn_dq_wgmma"),
     (torch.float16, 64, 64, 32, "fwd", "bst_attn_fwd_wgmma"),
     (torch.float16, 64, 64, 32, "dkv", "bst_attn_dkv_wgmma"),
     # sp-4 gather shards: keys whole; ring pairs at sp 4 (8 key blocks)
@@ -205,6 +206,16 @@ ROUTES = [  # (dtype, bs, hs, key block-rows, kind, source)
     # f32 on the CUDA cores
     (torch.float32, 64, 64, 32, "fwd", "bst_attn_fwd"),
     (torch.float32, 64, 64, 32, "dkv", "bst_attn_bwd"),
+    # dq: f16 at the LM's shape; an sp-4 ring pair (8 key blocks) and an
+    # sp-2 one (16); hs 128; hs 32, bs 32 and 16 on mma.sync; f32
+    (torch.float16, 64, 64, 32, "dq", "bst_attn_dq_wgmma"),
+    (torch.bfloat16, 64, 64, 8, "dq", "bst_attn_dq_wgmma"),
+    (torch.bfloat16, 64, 64, 16, "dq", "bst_attn_dq_wgmma"),
+    (torch.bfloat16, 64, 128, 32, "dq", "bst_attn_dq_wgmma"),
+    (torch.bfloat16, 64, 32, 32, "dq", "bst_attn_bwd_mma"),
+    (torch.bfloat16, 32, 64, 64, "dq", "bst_attn_bwd_mma"),
+    (torch.bfloat16, 16, 64, 128, "dq", "bst_attn_bwd_mma"),
+    (torch.float32, 64, 64, 32, "dq", "bst_attn_bwd"),
 ]
 
 
@@ -214,7 +225,8 @@ def test_route_rule_by_value(dtype, bs, hs, key_blocks, kind, source):
     block-rows), its pipeline microbatch (the same), sp-4 gather shards
     (keys whole) and ring pairs (8 key blocks: the forward on mma.sync),
     8 heads of 48 (padded to hs 64), hs 128, bs 32 and 16 (and the bs-8
-    view, run at 16), dq, and f32."""
+    view, run at 16), dq (its wgmma kernel at bs 64, hs 64 and 128), and
+    f32."""
     assert bst_attn.attn_kernel(kind, dtype, bs, hs, key_blocks) == source
     assert bst_attn.kernel_head_size(48) == 64
     with pytest.raises(ValueError):
@@ -329,6 +341,38 @@ def _replay_dkv(q, k, v, do, lse, dvec, tab, heads, scale):
     return dk, dv
 
 
+def _replay_dq(q, k, v, do, lse, dvec, tab, heads, scale, out_dtype=None):
+    """csrc/bst_attn_dq_wgmma.cu's work: item by item over the forward's
+    pair plan, each consumer warpgroup a query row of the pair, one union
+    entry a step (an entry not the row's block as one whose keys are all
+    hidden): dq (batch, ctx_q, heads·hs) rounded once to q's dtype, or in
+    f32 with ``out_dtype=torch.float32``."""
+    batch, ctx_q, state = q.shape
+    bs, hs = tab["kbs"], state // heads
+    dq = torch.zeros((batch, ctx_q, state))
+    for h, pair, union in _items(tab, "", ctx_q // bs, heads):
+        for w, r in enumerate(pair):
+            if r < 0:
+                continue
+            qb, ob = _blk(q, r, h, bs, hs), _blk(do, r, h, bs, hs)
+            rows = slice(r * bs, (r + 1) * bs)
+            acc = torch.zeros((batch, bs, hs))
+            for blk, mask, *codes in union.tolist():
+                code = codes[w] if mask >> w & 1 else 0
+                kb, vb = _blk(k, blk, h, bs, hs), _blk(v, blk, h, bs, hs)
+                s = qb @ kb.transpose(1, 2)                  # S
+                dp = ob @ vb.transpose(1, 2)                 # dP
+                # the exp on every element, then the mask's select (with
+                # lse = -inf the exp is +inf)
+                p = torch.exp(s * scale - lse[:, h, rows, None])
+                p = torch.where(_visible(code, tab["uniq"], bs), p,
+                                torch.zeros_like(p))
+                ds = p * (dp - dvec[:, h, rows, None]) * scale
+                acc += ds.to(q.dtype).float() @ kb
+            dq[:, rows, h * hs:(h + 1) * hs] = acc
+    return dq.to(out_dtype or q.dtype)
+
+
 def _close(got, want, tol, what):
     scale = max(1.0, float(want.abs().max()))
     err = float((got.float() - want.float()).abs().max())
@@ -364,6 +408,12 @@ REPLAY_CASES = [
      causal_subblock_mask, (4, 3, None)),
     ("ring_pair", fixed_layout(8, local_blocks=3), 16, 16,
      causal_subblock_mask, (4, 2, 1)),
+    # the wgmma kernels' block size at both dq head sizes; a ring pair
+    # whose query rows see no key of the chunk
+    ("b64_hs64", fixed_layout(3, local_blocks=2), 64, 64, _f1_mask, None),
+    ("b64_hs128_random", _random_layout(3, 9), 64, 128, None, None),
+    ("ring_pair_empty", fixed_layout(8, local_blocks=3), 16, 16,
+     causal_subblock_mask, (4, 0, 3)),
 ]
 
 
@@ -372,8 +422,10 @@ REPLAY_CASES = [
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("scale", [0.3, -0.2])
 def test_replay_matches_plain(name, lay, bs, hs, cb, shard, dtype, scale):
-    """Both replays against the plain versions on odd, random, strided
-    layouts, an F1 row and a shard's tables (empty rows, ctx_q != ctx_k)."""
+    """The three replays against the plain versions on odd, random,
+    strided layouts, F1 rows, bs 64 at hs 64 and 128, and a shard's tables
+    (empty rows, ctx_q != ctx_k; a ring pair whose rows see no key, whose
+    dq is zero); dq in q's dtype and, in bf16, stored in f32."""
     op = BlocksparseTransformer(lay, block_size=bs, heads=2, mask_callback=cb)
     if shard is None:
         tab = _np_tables(op._tables("cpu"))
@@ -395,16 +447,30 @@ def test_replay_matches_plain(name, lay, bs, hs, cb, shard, dtype, scale):
     live = torch.isfinite(lse_p)
     if live.any():
         _close(lse[live], lse_p[live], LSE_TOL, "lse")
-    if name == "fixed":
-        dead = bs + 3
+    dead = bs + 3
+    if cb is _f1_mask:
         assert (out[:, dead] == 0).all()
         assert torch.isneginf(lse[:, :, dead]).all()
     dvec = _dvec(do, out_p, 2)
     dk, dv = _replay_dkv(q, k, v, do, lse_p, dvec, tab, 2, scale)
-    _, dk_p, dv_p = bst_attn.attention_bwd_plain(q, k, v, do, lse_p, dvec,
-                                                 *plain)
+    dq_p, dk_p, dv_p = bst_attn.attention_bwd_plain(q, k, v, do, lse_p, dvec,
+                                                    *plain)
     _close(dk, dk_p, TOL[dtype], "dk")
     _close(dv, dv_p, TOL[dtype], "dv")
+    dq = _replay_dq(q, k, v, do, lse_p, dvec, tab, 2, scale)
+    assert dq.dtype == dtype
+    _close(dq, dq_p, TOL[dtype], "dq")
+    if cb is _f1_mask:
+        assert (dq[:, dead] == 0).all()
+    if name == "ring_pair_empty":
+        assert torch.isneginf(lse_p).all() and (dq == 0).all()
+    if dtype != torch.float32:
+        dq32 = _replay_dq(q, k, v, do, lse_p, dvec, tab, 2, scale,
+                          out_dtype=torch.float32)
+        assert torch.equal(dq32.to(dtype), dq)
+        _close(dq32, bst_attn.attention_bwd_plain(
+            q, k, v, do, lse_p, dvec, *plain, dq_dtype=torch.float32)[0],
+            TOL[dtype], "dq (f32)")
 
 
 def _to_flat(a, heads):
@@ -418,10 +484,11 @@ def _to_flat(a, heads):
 def test_replay_matches_jax_at_block_size_64(dtype):
     """ctx 256 at bs 64, a fixed layout with the causal sub-block mask and
     an F1 row, 2 heads of 32: the forward replay's out and lse against JAX
-    ``fused_attention_fwd_lse`` and the dk/dv replay against JAX
-    ``fused_attention_dkv`` (the F1 row left out of the forward's
-    comparison; its key rows' sums include no term of it on either
-    side)."""
+    ``fused_attention_fwd_lse``, the dq replay (in q's dtype and in f32)
+    against JAX ``fused_attention_dq`` and the dk/dv replay against JAX
+    ``fused_attention_dkv`` (the F1 row left out of the forward's and dq's
+    comparisons, its replayed dq zero; its key rows' sums include no term
+    of it on either side)."""
     import jax.numpy as jnp
     from blocksparse_tpu import BlocksparseTransformer as JaxBST
     from blocksparse_tpu.kernels import bst_attn as jax_bst_attn
@@ -461,3 +528,18 @@ def test_replay_matches_jax_at_block_size_64(dtype):
         b = torch.from_numpy(np.array(b)).reshape(batch, heads, ctx, hs)
         a = torch.from_numpy(_to_flat(a.numpy(), heads)).reshape(b.shape)
         _close(a, b, TOL[dtype], f"{name} vs JAX")
+    # in f32 the two epilogues store the same values
+    for out_dtype in (None,) if dtype == torch.float32 else (None,
+                                                             jnp.float32):
+        dq = _replay_dq(q, k, v, do, lse, dvec, tab, heads, scale,
+                        out_dtype=out_dtype and torch.float32)
+        assert (dq[:, bs + 3] == 0).all()
+        dq_j = jax_bst_attn.fused_attention_dq(
+            flat(q), flat(k), flat(v), flat(do), lse_j, dvec_j,
+            ref.attn_schedule, heads, scale, out_dtype=out_dtype)
+        b = torch.from_numpy(np.array(dq_j.astype(jnp.float32))).reshape(
+            batch, heads, ctx, hs)
+        a = torch.from_numpy(_to_flat(dq.float().numpy(), heads)).reshape(
+            b.shape)
+        _close(a[:, :, live], b[:, :, live], TOL[dtype],
+               f"dq{' (f32)' if out_dtype else ''} vs JAX")

@@ -63,6 +63,10 @@ from blocksparse_tpu_torch.models.sparse_transformer import (
 F32_TOL = 1e-5
 BSMM_BF16_TOL = 1e-2
 ATTN_BF16_TOL = 2e-2
+# the attention's dq beside its max limit: ||got - ref|| / ||ref|| (a
+# typical |dq| is far below max|dq|, so the max limit alone would pass a
+# dropped entry)
+ATTN_NORM_TOL = 1e-2
 UPDAT_TOL = 1e-4
 HALF = (torch.bfloat16, torch.float16)
 
@@ -1326,6 +1330,127 @@ def test_wgmma_attention_wrappers_raise(cuda):
                                0.125)
     info = bst_attn.wgmma_kernel_info("dkv", torch.bfloat16)
     assert info["blocks_per_sm"] >= 1 and info["stages"] >= 2
+
+
+def _assert_dq_close(got, ref, atol):
+    """got within atol of ref everywhere and within ATTN_NORM_TOL of it in
+    norm."""
+    got, ref = got.float(), ref.float()
+    torch.testing.assert_close(got, ref, rtol=0, atol=atol)
+    rel = (got - ref).norm().item() / max(ref.norm().item(), 1e-30)
+    assert rel <= ATTN_NORM_TOL, rel
+
+
+def _dq_pair(q, k, v, do, lse, dvec, tab, heads, scale, monkeypatch,
+             out_dtype=None):
+    """dq on bst_attn_dq_wgmma.cu and on bst_attn_bwd_mma.cu (dq's wgmma
+    head sizes emptied), each launch counted: (wgmma dq, mma.sync dq)."""
+    def run():
+        return bst_attn.attention_dq(q, k, v, do, lse, dvec, tab, heads,
+                                     scale, out_dtype=out_dtype)
+    f = bst_attn.attention_dq
+    before = (f.launches, f.launches_wgmma)
+    wg = run()
+    with monkeypatch.context() as m:
+        m.setattr(bst_attn, "DQ_WGMMA_HEAD_SIZES", ())
+        mma = run()
+    torch.cuda.synchronize()
+    assert (f.launches, f.launches_wgmma) == (before[0] + 2, before[1] + 1)
+    return wg, mma
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("hs", [64, 128])
+@pytest.mark.parametrize("kind", ["lm", "odd", "f1", "per_head"])
+def test_wgmma_dq_matches_plain_and_mma(cuda, kind, hs, dtype, monkeypatch):
+    """dq on bst_attn_dq_wgmma.cu (the route at bs 64, hs 64 and 128)
+    against the plain version and against bst_attn_bwd_mma.cu's dq, in
+    q's dtype and stored in f32 (which rounds to the former bit for bit),
+    two runs equal bit for bit, the launches counted; the F1 row's dq
+    zero."""
+    layout, cb = _wgmma_attn_layout(kind)
+    port, (q, k, v), do = _case(cuda, dtype, 64, hs, layout=layout,
+                                mask_callback=cb, seed=hs + 1)
+    scale = 1.0 / np.sqrt(hs)
+    _, lse, dvec, refs = _plain_fwd_bwd(port, q, k, v, do, scale)
+    tab = port._tables(cuda)
+    assert bst_attn.attn_kernel("dq", dtype, 64, hs, layout.shape[-1]) == \
+        "bst_attn_dq_wgmma"
+    args = (q, k, v, do, lse, dvec, tab, port.heads, scale, monkeypatch)
+    wg, mma = _dq_pair(*args)
+    wg32, mma32 = _dq_pair(*args, out_dtype=torch.float32)
+    ref32 = bst_attn.attention_bwd_plain(
+        q, k, v, do, lse, dvec, tab["q_blk"], tab["k_blk"], tab["mask"],
+        port.heads, 64, scale, dq_dtype=torch.float32)[0]
+    atol = _tol(dtype, ATTN_BF16_TOL, refs[0].float().abs().max().item())
+    assert wg.dtype == dtype and wg32.dtype == torch.float32
+    assert torch.equal(wg32.to(dtype), wg)
+    for got in (wg, mma):
+        _assert_dq_close(got, refs[0], atol)
+    for got in (wg32, mma32):
+        _assert_dq_close(got, ref32, atol)
+    _assert_dq_close(wg, mma, atol)
+    assert torch.equal(wg, _dq_pair(*args)[0])
+    if kind == "f1":
+        assert (wg[:, 64 + 3] == 0).all() and (wg32[:, 64 + 3] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("pair", [(3, None), (3, 3), (3, 0), (0, 3)])
+def test_wgmma_dq_on_shard_tables(cuda, pair, dtype, monkeypatch):
+    """dq on bst_attn_dq_wgmma.cu over sp-4 shard tables of the LM's layout
+    at 16 block-rows (a gather shard: keys whole; ring pairs: one key
+    chunk, (0, 3) with query rows that see no key) against the
+    plain version and the mma.sync dq on the same tables, in q's dtype and
+    in f32 (the ring's); rows that see no key store zeros."""
+    from blocksparse_tpu_torch.parallel import sequence as seq
+    n, (r, j) = 4, pair
+    port = BlocksparseTransformer(fixed_layout(16, local_blocks=8),
+                                  block_size=64, heads=2,
+                                  mask_callback=causal_subblock_mask)
+    tab = seq.shard_tables(port, n, r, j, cuda)
+    L = 16 * 64 // n
+    g = torch.Generator(device=cuda).manual_seed(r + 7)
+    q, do = (torch.randn((2, L, 128), device=cuda, generator=g).to(dtype)
+             for _ in range(2))
+    ctx_k = 16 * 64 if j is None else L
+    k, v = (torch.randn((2, ctx_k, 128), device=cuda, generator=g).to(dtype)
+            for _ in range(2))
+    scale = 0.125
+    plain = (tab["q_blk"], tab["k_blk"], tab["mask"], 2, 64, scale)
+    out, lse = bst_attn.attention_fwd_lse_plain(q, k, v, *plain)
+    dvec = (do.float() * out.float()).reshape(2, L, 2, 64).sum(-1) \
+        .transpose(1, 2).contiguous()
+    dead = torch.isneginf(lse)                     # (batch, heads, L)
+    assert dead.all() if pair == (0, 3) else not dead.any()
+    for out_dtype in (None, torch.float32):
+        ref = bst_attn.attention_bwd_plain(q, k, v, do, lse, dvec, *plain,
+                                           dq_dtype=out_dtype)[0]
+        wg, mma = _dq_pair(q, k, v, do, lse, dvec, tab, 2, scale,
+                           monkeypatch, out_dtype=out_dtype)
+        atol = _tol(dtype, ATTN_BF16_TOL, ref.float().abs().max().item())
+        for got in (wg, mma):
+            assert bool(torch.isfinite(got).all())
+            _assert_dq_close(got, ref, atol)
+        rows = dead.transpose(1, 2)[..., None].expand(2, L, 2, 64) \
+            .reshape(2, L, 128)
+        assert (wg[rows] == 0).all()
+
+
+@pytest.mark.cuda
+def test_wgmma_dq_kernel_info_shows_no_local_memory(cuda):
+    """Every instantiation of bst_attn_dq_wgmma.cu (bf16 and f16, hs 64
+    and 128, dq in the input type and in f32) holds its registers without
+    spilling and is resident, one thread block an SM."""
+    for dtype in HALF:
+        for hs in (64, 128):
+            for out in (None, torch.float32):
+                info = bst_attn.wgmma_kernel_info("dq", dtype, hs, out)
+                assert info["local_bytes"] == 0, (dtype, hs, out, info)
+                assert info["blocks_per_sm"] == 1 and info["stages"] >= 2
+                assert info["smem_bytes"] <= 232448
 
 
 @pytest.mark.cuda

@@ -12,8 +12,6 @@ Exits 1 without a CUDA device, and on a failed check.
 """
 import os
 import sys
-import time
-from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -30,22 +28,13 @@ def main():
         return 1
     import chip_smoke as cs
     import blocksparse_tpu_torch as bt
-    from blocksparse_tpu_torch.kernels import _build
 
     dev = torch.device("cuda", 0)
     card_line = cs.card()
     print(f"card: {card_line}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
-    t = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
-        for lib in pool.map(_build.build, SOURCES):
-            print(f"built {lib.name}", flush=True)
-    print(f"builds {time.perf_counter() - t:.1f} s", flush=True)
-    cfg = bt.TransformerConfig(
-        n_vocab=256, n_embd=512, n_layer=6, n_head=8, ctx=2048, blk_size=64,
-        attn_layout="fixed", local_blocks=8, mlp_ratio=4, mlp_block_size=32,
-        mlp_density=0.5, dtype="bfloat16", recompute=True)
-    model = bt.SparseTransformerLM(cfg, device=dev)
+    cs.build_all(SOURCES)
+    model = bt.SparseTransformerLM(cs.flagship_config(bt), device=dev)
     g = torch.Generator(device=dev).manual_seed(cs.SEED)
     try:
         cs.wgmma_ptxas_report()
