@@ -8,8 +8,12 @@
 //
 // Replaces, for bf16 and f16 inputs, the TPU kernels xprop_pallas_dense_tile,
 // xprop_pallas_grouped(_panels) and xprop_pallas
-// (blocksparse_tpu/kernels/bsmm.py).  f32 inputs stay on bsmm_fprop.cu, in
-// full fp32 on the CUDA cores: the reference's f32 dots are
+// (blocksparse_tpu/kernels/bsmm.py).  On the unsplit route the rule
+// (xprop_kernel in kernels/bsmm.py) keeps it for b8 and b16, for products
+// whose tiles fill under half the card, and for b128 groups whose staged x
+// tile serves under 3 columns; b32 goes to bsmm_xprop_sparse.cu, b64 and
+// the other b128 products to bsmm_xprop_wgmma.cu.  f32 inputs stay on
+// bsmm_fprop.cu, in full fp32 on the CUDA cores: the reference's f32 dots are
 // Precision.HIGHEST, and the tensor cores would round them to TF32.  The C
 // interface is bsmm_fprop.cu's: the same CSR LUT (row_ptr, ent_in, ent_w) in
 // the same order, the same trans_w flag, the same partial tiles for

@@ -10,9 +10,12 @@
 // Replaces, for bf16 and f16 inputs on the unsplit route, the TPU kernels
 // xprop_pallas_dense_tile, xprop_pallas_grouped(_panels) and xprop_pallas
 // (blocksparse_tpu/kernels/bsmm.py:1422, :507, :674, :158), as
-// bsmm_xprop_mma.cu did before it; the route between the two
-// (xprop_kernel in kernels/bsmm.py) is a rule of shapes, the plan's counts
-// and the SM count: this kernel where its tiles fill half the card and a
+// bsmm_xprop_mma.cu did before it; the route between the three unsplit
+// kernels (xprop_kernel in kernels/bsmm.py) is a rule of shapes, the
+// plan's counts and the SM count: where the tiles fill half the card, b32
+// goes to bsmm_xprop_sparse.cu (faster here at every b32 shape measured,
+// its x tile two input blocks of 128-byte rows and its weights one bulk
+// copy a stage), b64 to this kernel, and b128 to this kernel where a
 // staged x tile serves 3 or more columns on average.
 // The split route (partial tiles, and the split fused over a cluster) stays
 // on bsmm_xprop_mma.cu, so that its result stays bsmm_merge's over the
@@ -61,12 +64,14 @@
 // tile in its own shared memory (the ring holds the next tile's stages by
 // then) and writes y with 16-byte stores.
 //
-// What still bounds it: at the LM's shape it runs at ~4x the bound (the
-// H100 runs in PERF.md).  The stages are short (a 128 x 32 x box and ~4
-// weight boxes of 32 x 32, two k16 steps), so the ring's handshakes and the
-// loads' latency, not the bytes, set the pace; where a staged x tile serves fewer than ~3
-// columns on average (sparse layouts) bsmm_xprop_mma.cu is faster, and the
-// route rule keeps those products there.
+// What still bounds it: at the LM's shape it ran at ~4x the bound (the
+// H100 runs in PERF.md).  At b32 each stage is a 128 x 32 x box and ~2-4
+// weight boxes of 32 x 32: a 2 KB weight box cost an SM about what an
+// 8 KB one did, and the m64n32k16 products ran well under the tensor
+// cores' rate; bsmm_xprop_sparse.cu, which stages two input blocks a stage,
+// its weights in one bulk copy and transposes the product (m64n64k16 a
+// pair of columns), took 0.43-0.79x this kernel's time at every b32 shape
+// measured, and the route rule sends b32 there.
 #include "mma_sm90.cuh"
 #include "wgmma_sm90.cuh"
 

@@ -1,13 +1,14 @@
 // Hopper's warpgroup tensor-core products (wgmma) for the bf16/f16 kernels
-// (bst_nt_mma.cu, bst_xn_mma.cu, bsmm_xprop_wgmma.cu, bsmm_updat_wgmma.cu,
-// bst_attn_fwd_wgmma.cu, bst_attn_dq_wgmma.cu, bst_attn_dkv_wgmma.cu): the
-// 64- and 128-byte swizzled tiles' descriptors, the group fence, commit
-// and wait, m64nNk16 (N 8-64) with f32 accumulators and both operands from
-// shared memory, and m64n64k16 with A from registers; the TMA tile loads
-// that fill such tiles (mbarriers, cp.async.bulk.tensor and the 1-d bulk
-// copy, the tensor maps' encoder got through cudaGetDriverEntryPoint, no
-// libcuda link); and the warp-specialised kernels' register split
-// (setmaxnreg), named barriers and persistent grid (sm_count).
+// (bst_nt_mma.cu, bst_xn_mma.cu, bsmm_xprop_wgmma.cu, bsmm_xprop_sparse.cu,
+// bsmm_updat_wgmma.cu, bst_attn_fwd_wgmma.cu, bst_attn_dq_wgmma.cu,
+// bst_attn_dkv_wgmma.cu): the 64- and 128-byte swizzled tiles'
+// descriptors, the group fence, commit and wait, m64nNk16 (N 8-64) with
+// f32 accumulators and both operands from shared memory, and m64n64k16
+// with A from registers; the TMA tile loads that fill such tiles
+// (mbarriers, cp.async.bulk.tensor and the 1-d bulk copy, the tensor
+// maps' encoder got through cudaGetDriverEntryPoint, no libcuda link); and
+// the warp-specialised kernels' register split (setmaxnreg), named
+// barriers and persistent grid (sm_count).
 #pragma once
 
 #include <cuda.h>

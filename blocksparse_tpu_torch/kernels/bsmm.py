@@ -9,13 +9,17 @@ TPU's MXU.  Both are written natively for the NC orientation
 (``feature_axis=1``, x of shape (N, C)): thread blocks over (N-tile,
 output block-columns), a fixed-order f32 sum over each block-column's
 LUT entries, no atomics; bprop reads each W block transposed and walks
-the CSR of input block-columns.  bf16 and f16 run on the tensor cores:
-``csrc/bsmm_xprop_wgmma.cu`` (``wgmma`` fed by TMA from an ``mbarrier``
-ring, persistent thread blocks over (N-tile, group of 256 output
-features) tiles, x staged once a group: ``xprop_wgmma_plan``) where
-``xprop_kernel`` says so, else ``csrc/bsmm_xprop_mma.cu`` (``mma.sync``
-fed by ``ldmatrix`` from a ``cp.async`` ring, one output block-column a
-thread block); f32 runs ``csrc/bsmm_fprop.cu``
+the CSR of input block-columns.  bf16 and f16 run on the tensor cores,
+on the kernel ``xprop_kernel`` picks: ``csrc/bsmm_xprop_sparse.cu`` at
+b32 (``wgmma`` fed by a TMA x box of two input blocks and one bulk copy
+of the stage's weight blocks, which ``xprop_sparse_pack`` lays out in the
+plan's order a call: ``xprop_sparse_plan``), ``csrc/bsmm_xprop_wgmma.cu``
+at b64 and b128 (``wgmma`` fed by TMA from an ``mbarrier`` ring,
+persistent thread blocks over (N-tile, group of 256 output features)
+tiles, x staged once a group: ``xprop_wgmma_plan``), else
+``csrc/bsmm_xprop_mma.cu`` (``mma.sync`` fed by ``ldmatrix`` from a
+``cp.async`` ring, one output block-column a thread block); f32 runs
+``csrc/bsmm_fprop.cu``
 in full fp32 on the CUDA cores (no TF32: the reference's f32 dots are
 exact), an SGEMM-style kernel whose thread blocks own the output columns
 that share their entry lists (``xprop_groups``), or one column, at an
@@ -127,19 +131,38 @@ XPROP_WG_TM = 128
 XPROP_WG_FEATURES = 256
 UPDAT_WG_TN = 64
 UPDAT_WG_RESIDENT = 1
-# the xprop's route to the wgmma kernel (xprop_kernel): its tiles number
-# at least XPROP_WG_MIN_FILL of the SMs (one persistent thread block an SM;
-# at 64 tiles on 132 SMs the two kernels were within 4% in the H100 runs
-# of PERF.md, and at 32 the wgmma one took twice as long), and a
-# staged x tile serves at least XPROP_WG_MIN_SHARE of the group's columns
-# on average (entries / items of xprop_wgmma_plan): below it the ring's
-# per-stage cost outweighs the x reads it saves (2.3-2.5 columns a tile
-# lost 3-13% to bsmm_xprop_mma.cu there, 4.4 and more gained 27-39%)
+# the xprop's route to the wgmma kernels (xprop_kernel): their tiles
+# number at least XPROP_WG_MIN_FILL of the SMs (one persistent thread
+# block an SM; at 64 tiles on 132 SMs the wgmma and mma.sync kernels were
+# within 4% in the H100 runs of PERF.md, and at 32 the wgmma one took
+# twice as long); at b32 they go to bsmm_xprop_sparse.cu (from
+# XPROP_SP_MIN_FILL), which with its packing took 0.43-0.79x
+# bsmm_xprop_wgmma.cu's time and 0.34-0.66x bsmm_xprop_mma.cu's at every
+# b32 shape measured (shares 2.3-8; PERF.md); at b64 to
+# bsmm_xprop_wgmma.cu (bench.py's random b64 op, share 1.49: wgmma 0.255
+# ms, the sparse kernel with its packing 0.262, mma.sync 0.339); at b128
+# to bsmm_xprop_wgmma.cu where a staged x tile serves at least
+# XPROP_WG_MIN_SHARE of the group's columns on average (entries / items
+# of xprop_wgmma_plan; set from b32 runs before the sparse kernel: 2.3-2.5
+# columns a tile lost 3-13% to bsmm_xprop_mma.cu, 4.4 and more gained
+# 27-39%; b128 not measured since): the share is read, and the plan built
+# for it, at XPROP_WG_SHARE_BLOCK_SIZES alone)
 XPROP_WG_MIN_FILL = 0.48
 XPROP_WG_MIN_SHARE = 3.0
+XPROP_WG_SHARE_BLOCK_SIZES = (128,)
 # the updat's unsplit runs from which the mma.sync kernel is kept
 # (updat_kernel)
 UPDAT_WG_LONG_RUN = 8192
+# bsmm_xprop_sparse.cu (wgmma fed by a TMA x box of 64 input features, a
+# pair of input blocks, and one bulk copy of the stage's packed weight
+# blocks): the block sizes it takes and the input features a stage
+XPROP_SP_BLOCK_SIZES = (32,)
+XPROP_SP_DEPTH = 64
+# its tiles (ceil(N / XPROP_WG_TM) x column groups) number at least
+# XPROP_SP_MIN_FILL of the SMs: on 132, at 40 tiles (the MoE's bsmm1 bprop,
+# N 2560) it took 0.031 ms against bsmm_xprop_mma.cu's 0.048, at 32 (the
+# LM's bsmm1 bprop at N 2048, an earlier version of it) 0.034 against 0.025
+XPROP_SP_MIN_FILL = 0.30
 
 
 def xprop_plain(x, w, in_blk, w_blk, out_blk, n_out_blocks, bsize, axis,
@@ -456,65 +479,166 @@ def updat_run_rows(N, splits, kernel="mma"):
     return -(-per_run // tn) * tn
 
 
-def xprop_wgmma_plan(row_ptr, ent_in, ent_w, bsize):
+def xprop_wgmma_plan(row_ptr, ent_in, ent_w, bsize, halves=1):
     """``csrc/bsmm_xprop_wgmma.cu``'s plan over a CSR of output
     block-columns whose entries name their input blocks in ascending order
     (the LUT's order; raises otherwise): the columns cut into groups of G =
     XPROP_WG_FEATURES // bsize consecutive ones, and each group's items,
-    the union of its columns' input blocks in ascending order.  u_ptr
-    (groups + 1,): the items of group g are u_ptr[g]..u_ptr[g + 1]; u_in
-    (items,): an item's input block; u_mask (items,): bit j set where the
-    group's column slot j holds an entry for it (bit 31 at b8's G of 32:
-    a uint32 pattern); u_w (items, G): that entry's weight block, -1
-    where none; grp_col (groups, G): each slot's column, -1 past the
-    last.  A column's entries are its items' in order,
-    so the kernel sums each column in LUT order.  Arrays int32, G, and
-    share: the entries an item serves on average (entries / items)."""
-    G = max(1, XPROP_WG_FEATURES // bsize)
+    the union of its columns' input blocks in ascending order.  With
+    ``halves`` = H > 1 (``csrc/bsmm_xprop_sparse.cu``: ``xprop_sparse_plan``)
+    an item is H neighbouring input blocks (i · H .. i · H + H - 1,
+    whichever hold entries), its slots H · G, half h's before half h + 1's.
+    u_ptr (groups + 1,): the items of group g are u_ptr[g]..u_ptr[g + 1];
+    u_in (items,): an item's input block (with halves, its first block //
+    H); u_mask (items,): bit h · G + j set where the group's column slot j
+    holds an entry for the item's half h (bit 31 where an item has 32
+    slots: a uint32 pattern); u_w (items, H · G): that entry's weight
+    block, -1 where none; grp_col (groups, G): each slot's column, -1 past
+    the last.  A column's entries are its items' in order, half by half,
+    so the kernels sum each column in LUT order.  Arrays int32, G, halves,
+    and share: the entries an item serves on average (entries / items)."""
+    W = G = max(1, XPROP_WG_FEATURES // bsize)
+    if G * halves > 32:
+        raise ValueError(f"xprop_wgmma_plan: {halves} halves of {G} "
+                         f"columns exceed a 32-bit mask")
     row_ptr = np.asarray(row_ptr, np.int64)
     ent_in = np.asarray(ent_in, np.int64)[:row_ptr[-1]]
     ent_w = np.asarray(ent_w, np.int64)[:row_ptr[-1]]
     lens, row = _entry_rows(row_ptr)
     n_out = len(lens)
-    groups = max(1, -(-n_out // G))
+    groups = max(1, -(-n_out // W))
     same_row = row[1:] == row[:-1]
     if (np.diff(ent_in)[same_row] <= 0).any():
         raise ValueError("xprop_wgmma_plan: a column's entries must name "
                          "its input blocks in ascending order")
-    n_in = int(ent_in.max()) + 1 if len(ent_in) else 1
-    slot = row % G
-    keys, item = np.unique((row // G) * n_in + ent_in, return_inverse=True)
-    u_w = np.full((len(keys), G), -1, np.int32)
+    n_in = (int(ent_in.max()) // halves + 1) if len(ent_in) else 1
+    slot = (ent_in % halves) * W + row % W
+    keys, item = np.unique((row // W) * n_in + ent_in // halves,
+                           return_inverse=True)
+    u_w = np.full((len(keys), W * halves), -1, np.int32)
     u_w[item, slot] = ent_w
     u_mask = np.zeros(len(keys), np.int64)
     np.add.at(u_mask, item, 1 << slot)       # one entry a (column, input)
     u_ptr = np.concatenate([[0], np.cumsum(np.bincount(
         keys // n_in, minlength=groups))])
-    grp_col = np.full(groups * G, -1, np.int32)
+    grp_col = np.full(groups * W, -1, np.int32)
     grp_col[:n_out] = np.arange(n_out)
     return {"u_ptr": u_ptr.astype(np.int32),
             "u_in": (keys % n_in).astype(np.int32),
             "u_mask": u_mask.astype(np.uint32).view(np.int32), "u_w": u_w,
-            "grp_col": grp_col.reshape(groups, G), "G": G,
+            "grp_col": grp_col.reshape(groups, W), "G": G, "halves": halves,
             "share": len(ent_in) / max(1, len(keys))}
+
+
+def xprop_sparse_plan(row_ptr, ent_in, ent_w, bsize):
+    """``csrc/bsmm_xprop_sparse.cu``'s plan: ``xprop_wgmma_plan``'s column
+    groups, an item the H = XPROP_SP_DEPTH // bsize input blocks (a pair
+    at b32) whose x tile a stage stages; its column slots taken in pairs
+    (2m, 2m + 1), a warpgroup's product covering both: u_pairs (items,)
+    int32, bit h · G / 2 + m set where half h holds an entry for slot 2m
+    or 2m + 1; and the order of the packed weights the kernel reads:
+    w_order (entries,) int64, the weight blocks of the items' present
+    (half, pair) slots, item by item, pair by pair, two a pair (-1 for an
+    absent one: a block of zeros), and u_woff (items,) int32, each item's
+    first in it.  Marked "sparse" (``plan_kernel``)."""
+    if bsize not in XPROP_SP_BLOCK_SIZES:
+        raise ValueError(f"xprop_sparse_plan takes block sizes "
+                         f"{XPROP_SP_BLOCK_SIZES}, got {bsize}")
+    plan = xprop_wgmma_plan(row_ptr, ent_in, ent_w, bsize,
+                            halves=XPROP_SP_DEPTH // bsize)
+    u_w = plan["u_w"]                        # (items, H · G): h · G + j
+    pairs = u_w.reshape(len(u_w), -1, 2)     # (items, H · G / 2, 2)
+    present = (pairs >= 0).any(axis=2)
+    bits = (present << np.arange(present.shape[1])).sum(axis=1)
+    count = 2 * present.sum(axis=1)
+    return {**plan, "u_pairs": bits.astype(np.int32),
+            "w_order": pairs[present].reshape(-1).astype(np.int64),
+            "u_woff": (np.cumsum(count) - count).astype(np.int32),
+            "sparse": True}
+
+
+def _swizzled_chunks(bsize):
+    """(bsize, bsize // 8): for row r of a (32, 32) block of 16-bit
+    elements (64-byte rows), the 16-byte chunk that TMA's 64-byte swizzle
+    puts at chunk position c: c ^ (r // 2 % 4)."""
+    r = np.arange(bsize)[:, None]
+    return np.arange(bsize // 8)[None, :] ^ ((r // 2) % 4)
+
+
+@functools.lru_cache(maxsize=None)
+def _swizzle_index(bsize, device):
+    """(rows, chunks) index tensors of ``_swizzled_chunks`` on ``device``,
+    made once (no copy to the device inside a captured CUDA graph)."""
+    return (torch.arange(bsize, device=device)[:, None],
+            torch.as_tensor(_swizzled_chunks(bsize), device=device))
+
+
+def xprop_sparse_pack_plain(w, w_order, bsize):
+    """Plain version of ``xprop_sparse_pack`` (advanced indexing; block -1,
+    a zero block appended after the last)."""
+    rows, chunk = _swizzle_index(bsize, w.device)
+    w = torch.cat([w.reshape(-1, bsize, bsize), w.new_zeros(1, bsize, bsize)])
+    return w.reshape(-1, bsize, bsize // 8, 8)[
+        w_order[:, None, None], rows, chunk].reshape(-1, bsize, bsize)
+
+
+def xprop_sparse_pack(w, w_order, bsize):
+    """The packed weights of ``csrc/bsmm_xprop_sparse.cu``: w[w_order]
+    (``xprop_sparse_plan``'s order, an int64 tensor on w's device; zeros
+    for -1), each block's 16-byte chunks laid out as TMA's swizzle would
+    stage the block (``_swizzled_chunks``), so one bulk copy stages a
+    stage's blocks back to back.  (entries, bsize, bsize) of w's dtype, a
+    16-bit type.  On a CUDA tensor the pack kernel of
+    ``csrc/bsmm_xprop_sparse.cu`` (one thread a 16-byte chunk), counted in
+    ``xprop_sparse_pack.launches``; on the CPU
+    ``xprop_sparse_pack_plain``."""
+    if not w.is_cuda:
+        return xprop_sparse_pack_plain(w, w_order, bsize)
+    if w.dtype not in (torch.bfloat16, torch.float16) or \
+            bsize not in XPROP_SP_BLOCK_SIZES or \
+            w_order.dtype != torch.int64 or w_order.device != w.device:
+        raise ValueError(f"xprop_sparse_pack takes bf16/f16 weights of block "
+                         f"size {XPROP_SP_BLOCK_SIZES} and int64 block ids on "
+                         f"their device, got {w.dtype}, b{bsize}, "
+                         f"{w_order.dtype} on {w_order.device}")
+    w = _aligned(w.contiguous())
+    wp = torch.empty((w_order.numel(), bsize, bsize), dtype=w.dtype,
+                     device=w.device)
+    with torch.cuda.device(w.get_device()):
+        err = _build.function("bsmm_xprop_sparse", "bsmm_xprop_sparse_pack_nc",
+                              _PACK_ARGS)(
+            bsize, w.data_ptr(), w_order.contiguous().data_ptr(),
+            wp.data_ptr(), w_order.numel(), _stream(w))
+    if err != 0:
+        raise RuntimeError(f"xprop_sparse_pack launch failed: cudaError {err}")
+    xprop_sparse_pack.launches += 1
+    return wp
 
 
 def xprop_kernel(N, bsize, n_out, sm_count, share):
     """The unsplit bf16/f16 xprop's kernel for a product of N rows into
     ``n_out`` output block-columns on a card of ``sm_count`` SMs, its
     wgmma plan's items serving ``share`` entries each on average
-    (``xprop_wgmma_plan``): "wgmma" (``csrc/bsmm_xprop_wgmma.cu``) at the
-    block sizes it takes where its tiles, ceil(N / XPROP_WG_TM) ·
-    ceil(n_out / G) (G = XPROP_WG_FEATURES // bsize), number at least
-    XPROP_WG_MIN_FILL · sm_count and share >= XPROP_WG_MIN_SHARE; else
-    "mma"
-    (``csrc/bsmm_xprop_mma.cu``).  Shapes, the plan's counts and the SM
-    count only."""
-    if bsize not in WGMMA_BLOCK_SIZES or share < XPROP_WG_MIN_SHARE:
+    (``xprop_wgmma_plan``), at the block sizes the wgmma kernels take and
+    where their tiles, ceil(N / XPROP_WG_TM) · ceil(n_out / G) (G =
+    XPROP_WG_FEATURES // bsize), number at least XPROP_WG_MIN_FILL ·
+    sm_count (at b32 XPROP_SP_MIN_FILL): "sparse"
+    (``csrc/bsmm_xprop_sparse.cu``) at b32; "wgmma"
+    (``csrc/bsmm_xprop_wgmma.cu``) at b64, and at the block sizes of
+    XPROP_WG_SHARE_BLOCK_SIZES (b128) where share >= XPROP_WG_MIN_SHARE
+    (share is read there alone).  Else "mma" (``csrc/bsmm_xprop_mma.cu``).
+    Shapes, the plan's counts and the SM count only."""
+    if bsize not in WGMMA_BLOCK_SIZES or N < 1:
         return "mma"
+    sparse = bsize in XPROP_SP_BLOCK_SIZES
     groups = -(-n_out // (XPROP_WG_FEATURES // bsize))
-    tiles = -(-N // XPROP_WG_TM) * groups
-    return "wgmma" if tiles >= XPROP_WG_MIN_FILL * sm_count else "mma"
+    fill = XPROP_SP_MIN_FILL if sparse else XPROP_WG_MIN_FILL
+    if -(-N // XPROP_WG_TM) * groups < fill * sm_count:
+        return "mma"
+    if sparse:
+        return "sparse"
+    return "wgmma" if bsize not in XPROP_WG_SHARE_BLOCK_SIZES or \
+        share >= XPROP_WG_MIN_SHARE else "mma"
 
 
 def updat_kernel(N, bsize, groups, sm_count):
@@ -552,6 +676,7 @@ _MERGE_ARGS = [_I, _I, _P, _P, _P, _I, _I, _I, _I, _P]
 _UPDAT_MMA_ARGS = [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                    _I, _I, _P]
 _REDUCE_ARGS = [_P, _P, _I, _I, _P]
+_PACK_ARGS = [_I, _P, _P, _P, ctypes.c_longlong, _P]
 
 
 def _check_common(fn, x, others, bsize, ints=()):
@@ -637,15 +762,32 @@ def _xprop(fn, source, cfn, x, w, ints, n_ptr, bsize, n_out_blocks, trans_w,
     return y
 
 
+def plan_kernel(plan):
+    """The bf16/f16 unsplit kernel a plan given to ``bsmm_fprop`` /
+    ``bsmm_bprop`` runs: "sparse" for ``xprop_sparse_plan``'s (marked
+    "sparse"), "wgmma" for ``xprop_wgmma_plan``'s, else "mma" (no plan,
+    or f32's launch)."""
+    if plan is None or "u_ptr" not in plan:
+        return "mma"
+    return "sparse" if plan.get("sparse") else "wgmma"
+
+
 def _wgmma_xprop(fn, x, w, plan, bsize, n_out_blocks, trans_w):
     """``csrc/bsmm_xprop_wgmma.cu`` over ``plan`` (``xprop_wgmma_plan``'s
-    arrays as int32 tensors on x's device, and G), x and w 16-byte
-    aligned; bf16 or f16, the block sizes of WGMMA_BLOCK_SIZES, N >= 1."""
-    if bsize not in WGMMA_BLOCK_SIZES:
-        raise ValueError(f"{fn} on bsmm_xprop_wgmma.cu takes block sizes "
-                         f"{WGMMA_BLOCK_SIZES}, got {bsize}")
+    arrays as int32 tensors on x's device, G and halves 1), or
+    ``csrc/bsmm_xprop_sparse.cu`` over a plan marked "sparse"
+    (``xprop_sparse_plan``'s, w_order int64), w packed by
+    ``xprop_sparse_pack``; x and w 16-byte aligned; bf16 or f16, the
+    block sizes of WGMMA_BLOCK_SIZES (XPROP_SP_BLOCK_SIZES), N >= 1."""
+    sparse = plan_kernel(plan) == "sparse"
+    halves = plan.get("halves", 1)
+    source = "bsmm_xprop_sparse" if sparse else "bsmm_xprop_wgmma"
+    sizes = XPROP_SP_BLOCK_SIZES if sparse else WGMMA_BLOCK_SIZES
+    if bsize not in sizes:
+        raise ValueError(f"{fn} on {source}.cu takes block sizes {sizes}, "
+                         f"got {bsize}")
     if x.dtype == torch.float32:
-        raise TypeError(f"{fn} on bsmm_xprop_wgmma.cu takes bf16 or f16; f32 "
+        raise TypeError(f"{fn} on {source}.cu takes bf16 or f16; f32 "
                         f"runs bsmm_fprop.cu over xprop_launch's plan")
     G = XPROP_WG_FEATURES // bsize
     grp = plan["grp_col"]
@@ -655,16 +797,32 @@ def _wgmma_xprop(fn, x, w, plan, bsize, n_out_blocks, trans_w):
                          f"({-(-n_out_blocks // G)}, {G}), got "
                          f"{tuple(grp.shape)}")
     if x.dim() == 2 and x.shape[0] == 0:
-        raise ValueError(f"{fn} on bsmm_xprop_wgmma.cu takes N >= 1")
-    ints = tuple((k, plan[k]) for k in ("u_ptr", "u_in", "u_mask", "u_w",
-                                        "grp_col"))
-    if plan["u_w"].shape != (plan["u_in"].numel(), G) or \
+        raise ValueError(f"{fn} on {source}.cu takes N >= 1")
+    want = XPROP_SP_DEPTH // bsize if sparse else 1
+    if halves != want:
+        raise ValueError(f"{source}.cu takes {want} halves an item, got "
+                         f"{halves}")
+    if plan["u_w"].shape != (plan["u_in"].numel(), G * halves) or \
             plan["u_mask"].numel() != plan["u_in"].numel():
         raise ValueError("the plan's u_in, u_mask and u_w must describe one "
                          "item a row")
-    x, w = _aligned(x), _aligned(w)
-    return _xprop(fn, "bsmm_xprop_wgmma", "bsmm_xprop_wgmma_nc", x, w, ints,
-                  grp.shape[0] + 1, bsize, n_out_blocks, trans_w,
+    x = _aligned(x)
+    if sparse:
+        ints = tuple((k, plan[k]) for k in ("u_ptr", "u_in", "u_pairs",
+                                            "u_woff", "grp_col"))
+        _check_common(fn, x, (("w", w),), bsize, ints)   # before packing w
+        if w.dtype != x.dtype:
+            raise TypeError(f"{fn} takes x and w of one dtype, got {x.dtype} "
+                            f"and {w.dtype}")
+        wp = xprop_sparse_pack(_aligned(w), plan["w_order"], bsize)
+        return _xprop(fn, source, f"{source}_nc", x, wp, ints,
+                      grp.shape[0] + 1, bsize, n_out_blocks, trans_w,
+                      extra=(grp.shape[0],))
+    ints = tuple((k, plan[k]) for k in ("u_ptr", "u_in", "u_mask", "u_w",
+                                        "grp_col"))
+    w = _aligned(w)
+    return _xprop(fn, source, f"{source}_nc", x, w, ints, grp.shape[0] + 1,
+                  bsize, n_out_blocks, trans_w,
                   extra=(grp.shape[0], w.shape[0]))
 
 
@@ -675,10 +833,11 @@ def _unsplit(fn, x, w, ints, n_ptr, bsize, n_out_blocks, trans_w,
     f32, over ``plan`` (``xprop_launch``: grp_col an int32 tensor on x's
     device, gn and tm); for bf16 and f16 ``csrc/bsmm_xprop_wgmma.cu`` over
     a ``plan`` of ``xprop_wgmma_plan`` (``_wgmma_xprop``; not for the
-    partial tiles), else ``csrc/bsmm_xprop_mma.cu`` (tensor cores,
-    mma.sync), which reads no plan (an f32 launch plan is ignored)."""
+    partial tiles; a plan marked "sparse": ``csrc/bsmm_xprop_sparse.cu``),
+    else ``csrc/bsmm_xprop_mma.cu`` (tensor cores, mma.sync), which reads
+    no plan (an f32 launch plan is ignored)."""
     suffix = "_partials" if partial else ""
-    if plan is not None and "u_ptr" in plan and not partial:
+    if plan_kernel(plan) != "mma" and not partial:
         return _wgmma_xprop(fn, x, w, plan, bsize, n_out_blocks, trans_w)
     x, w = _aligned(x), _aligned(w)
     extra = ()
@@ -716,15 +875,16 @@ def bsmm_fprop(x, w, row_ptr, ent_c, ent_w, bsize, n_out_blocks, plan=None):
     x's device).  bf16 and f16 run ``csrc/bsmm_xprop_wgmma.cu`` given
     ``xprop_wgmma_plan``'s plan of row_ptr (its arrays on x's device;
     row_ptr and the entries are then not read), a launch counted in
-    ``launches_wgmma`` too; else ``csrc/bsmm_xprop_mma.cu``, which reads
+    ``launches_wgmma`` too, or given ``xprop_sparse_plan``'s (marked
+    "sparse") ``csrc/bsmm_xprop_sparse.cu``, counted in
+    ``launches_sparse`` too; else ``csrc/bsmm_xprop_mma.cu``, which reads
     no plan.  Raises on anything else."""
     y = _unsplit("bsmm_fprop", x, w,
                  (("row_ptr", row_ptr), ("ent_c", ent_c), ("ent_w", ent_w)),
                  n_out_blocks + 1, bsize, n_out_blocks, trans_w=False,
                  plan=plan)
     bsmm_fprop.launches += 1
-    if plan is not None and "u_ptr" in plan:
-        bsmm_fprop.launches_wgmma += 1
+    _count_kernel(bsmm_fprop, x, plan)
     return y
 
 
@@ -738,9 +898,17 @@ def bsmm_bprop(dy, w, row_ptr, ent_k, ent_w, bsize, n_out_blocks, plan=None):
                   n_out_blocks + 1, bsize, n_out_blocks, trans_w=True,
                   plan=plan)
     bsmm_bprop.launches += 1
-    if plan is not None and "u_ptr" in plan:
-        bsmm_bprop.launches_wgmma += 1
+    _count_kernel(bsmm_bprop, dy, plan)
     return dx
+
+
+def _count_kernel(fn, x, plan):
+    """Counts a bf16/f16 launch of ``fn`` on the wgmma or the sparse
+    kernel in its ``launches_wgmma`` or ``launches_sparse``."""
+    kernel = plan_kernel(plan) if x.dtype != torch.float32 else "mma"
+    if kernel != "mma":
+        setattr(fn, f"launches_{kernel}",
+                getattr(fn, f"launches_{kernel}") + 1)
 
 
 def bsmm_partials(x, w, tile_ptr, ent_in, ent_w, bsize, n_tiles,
@@ -956,6 +1124,22 @@ def bsmm_updat(x, dy, ent_c, ent_k, bsize, plan=None, splits=1,
     return out if runs == 1 else bsmm_updat_reduce(out)
 
 
+def sparse_kernel_info(dtype, trans_w=False):
+    """Registers, local (spilled) bytes, dynamic shared memory, resident
+    thread blocks an SM and ring slots of ``csrc/bsmm_xprop_sparse.cu``'s
+    kernel in ``dtype`` (bf16 or f16), fprop or bprop (``trans_w``), as
+    the runtime reports them for the built library (on the card only)."""
+    info = (ctypes.c_int * 5)()
+    err = _build.function("bsmm_xprop_sparse", "bsmm_xprop_sparse_info",
+                          [_I, _I, _P])(_DTYPE_CODE[dtype], int(trans_w),
+                                        info)
+    if err != 0:
+        raise RuntimeError(f"sparse_kernel_info({dtype}, {trans_w}): "
+                           f"cudaError {err}")
+    return dict(zip(("registers", "local_bytes", "smem_bytes",
+                     "blocks_per_sm", "stages"), info))
+
+
 def bsmm_updat_reduce(parts):
     """The updat split's second pass on the card: parts[0] + parts[1] + ...
     in that order, in f32 (equal bit for bit to ``updat_reduce_plain``).
@@ -990,6 +1174,10 @@ bsmm_updat.launches = 0
 bsmm_fprop.launches_wgmma = 0
 bsmm_bprop.launches_wgmma = 0
 bsmm_updat.launches_wgmma = 0
+# and of the sparse column groups' kernel (bsmm_xprop_sparse.cu)
+bsmm_fprop.launches_sparse = 0
+bsmm_bprop.launches_sparse = 0
+xprop_sparse_pack.launches = 0
 bsmm_updat_reduce.launches = 0
 bsmm_fine.launches = 0
 bsmm_window.launches = 0

@@ -84,7 +84,9 @@ class BlocksparseMatMul:
           (``kernels.bsmm.split_phases``).  Otherwise unsplit, in
           bf16/f16 on the kernel ``kernels.bsmm.xprop_kernel`` picks
           (``bsmm_xprop_wgmma.cu`` over ``xprop_wgmma_plan``'s column
-          groups, or ``bsmm_xprop_mma.cu``).
+          groups, ``bsmm_xprop_sparse.cu`` over ``xprop_sparse_plan``'s
+          for sparse groups, x staged 64 input features a stage, or
+          ``bsmm_xprop_mma.cu``).
         ``dispatch_mode(N)`` names the route, ``kernel_of(N, d)`` the
         kernel's source.
     tile_n, dense_tile_G, dense_tile_R: TPU schedule knobs; the dense-tile
@@ -608,9 +610,9 @@ class BlocksparseMatMul:
     def _xkernel(self, N, d, sms):
         """The unsplit bf16/f16 xprop's kernel of direction d at N rows
         (``kernels.bsmm.xprop_kernel`` over its wgmma plan's share):
-        "wgmma" or "mma"."""
+        "wgmma", "sparse" or "mma"."""
         share = self._plan("wgmma", d)["share"] \
-            if self.bsize in bsmm_kernels.WGMMA_BLOCK_SIZES else 0.0
+            if self.bsize in bsmm_kernels.XPROP_WG_SHARE_BLOCK_SIZES else 0.0
         return bsmm_kernels.xprop_kernel(N, self.bsize, self._csr(d)[2], sms,
                                          share)
 
@@ -619,7 +621,8 @@ class BlocksparseMatMul:
         the updat's groups, d "u"; kind "xgroup": ``bsmm_fprop.cu``'s
         column groups over direction d's CSR, or with ``phases`` over the
         split plan's tiles; kind "wgmma": ``bsmm_xprop_wgmma.cu``'s column
-        groups and their items over direction d's CSR)."""
+        groups and their items over direction d's CSR; kind "sparse":
+        ``bsmm_xprop_sparse.cu``'s over direction d's CSR)."""
         key = (kind, d, phases)
         plan = self._plans.get(key)
         if plan is None:
@@ -630,6 +633,9 @@ class BlocksparseMatMul:
             elif kind == "wgmma":
                 plan = bsmm_kernels.xprop_wgmma_plan(row_ptr, ib, wb,
                                                      self.bsize)
+            elif kind == "sparse":
+                plan = bsmm_kernels.xprop_sparse_plan(row_ptr, ib, wb,
+                                                      self.bsize)
             elif kind == "xgroup":
                 if phases:
                     row_ptr = self._plan("split", d, phases)["tile_ptr"]
@@ -742,10 +748,11 @@ class BlocksparseMatMul:
                 else bsmm_kernels.bsmm_fprop
             if x.dtype == torch.float32:
                 plan = self._xlaunch(x.device, d, xn.shape[0])
-            elif self._xkernel(xn.shape[0], d, sms) == "wgmma":
-                plan = self._plan_tensors(x.device, "wgmma", d)
             else:
-                plan = None
+                # the plan of the kernel's own name ("wgmma", "sparse")
+                xkernel = self._xkernel(xn.shape[0], d, sms)
+                plan = None if xkernel == "mma" else \
+                    self._plan_tensors(x.device, xkernel, d)
             y = kernel(xn, wc, lut[f"{d}_row_ptr"], lut[f"{d}_ent_in"],
                        lut[f"{d}_ent_w"], b, n_out, plan=plan)
         y = y.to(out_dtype)

@@ -10,13 +10,18 @@ shapes, the training kernels (block-sparse matmul bprop and updat,
 attention training forward, dq and dk/dv) at the training step's, each
 line naming the kernel the product took.  The block-sparse matmul's
 fprop and bprop run on the tensor cores in bf16 and f16:
-``bsmm_xprop_wgmma.cu`` (``wgmma`` fed by TMA, column groups) where the
-route rule ``xprop_kernel`` picks it, ``bsmm_xprop_mma.cu`` elsewhere and
-on the split route (two runs must agree bit for bit; both are held
-against their plain version at every block size they take, for fprop,
-bprop and the split route's partial tiles and fused split, the latter
-bit for bit against the partials merged); ``bsmm_fprop.cu`` in f32;
-their times come with TFLOP/s.  The weight gradient (updat) runs
+``bsmm_xprop_sparse.cu`` (``wgmma`` fed by a TMA x box of two input
+blocks and one bulk copy of the stage's weight blocks, packed a call by
+its own small kernel) at b32 and ``bsmm_xprop_wgmma.cu`` (``wgmma`` fed
+by TMA, column groups) at b64/b128 where the route rule ``xprop_kernel``
+picks them, ``bsmm_xprop_mma.cu`` elsewhere and on the split route (two
+runs must agree bit for bit; all are held against their plain version
+at every block size they take, for fprop, bprop and the split route's
+partial tiles and fused split, the latter bit for bit against the
+partials merged, the sparse kernel bit for bit against the wgmma one);
+``bsmm_fprop.cu`` in f32; their times come with TFLOP/s.  The launches
+of the train step, the conv and the packed stores on the sparse kernel
+are counted against what ``kernel_of`` names.  The weight gradient (updat) runs
 ``bsmm_updat_wgmma.cu`` or ``bsmm_updat_mma.cu`` (``updat_kernel``) on
 the tensor cores in bf16 and f16, over the layout's blocks in groups that
 share a staged tile, with N split into runs where the groups alone would
@@ -24,12 +29,13 @@ leave SMs idle and the runs' partials summed in order by
 ``bsmm_updat_mma.cu``'s second kernel (``bsmm_updat_reduce``); both are
 held against their plain version at every block size they take, split
 and unsplit, two runs equal bit for bit, and ``bsmm_updat.cu`` in f32.
-The wgmma phase then times both kernels of each direction in turns at
-the main path's shapes (the LM's products at N 1,024-16,384, the conv's
-at C 512 and 2048, the MoE's bsmm1, bench.py's random 8192² op) beside
-the bound, the library call, a call's host time and each source's
-registers and spills; the captured train step is also timed against
-the same step on the mma.sync kernels, in turns.  The f32
+The wgmma phase then times the kernels of each direction in turns (the
+three xprop kernels at b32) at the main path's shapes (the LM's products
+at N 1,024-16,384, the conv's at C 512, 1024 and 2048, the MoE's bsmm1,
+bench.py's random 8192² op) beside the bound, the library call, a call's
+host time and each source's registers and spills; the captured train
+step is also timed against the same step with the xprop on
+``bsmm_xprop_wgmma.cu``, in turns.  The f32
 kernels (``bsmm_fprop.cu``: an SGEMM-style kernel over the op's column
 groups at an N-tile chosen by N, each output one fmaf chain in LUT
 order; ``bsmm_updat.cu`` over ``updat_plan``'s groups, one chain over N)
@@ -318,7 +324,7 @@ SOURCES = ("bsmm_xprop_mma", "bsmm_fprop", "bsmm_updat_mma", "bsmm_updat",
            "bsmm_fine_mma", "bsmm_fine", "bsmm_window_mma", "bsmm_window",
            "bsmm_merge", "bst_nt_mma", "bst_nt", "bst_xn_mma", "bst_xn",
            "bsmm_xprop_wgmma", "bsmm_updat_wgmma", "bst_attn_fwd_wgmma",
-           "bst_attn_dkv_wgmma", "bst_attn_dq_wgmma")
+           "bst_attn_dkv_wgmma", "bst_attn_dq_wgmma", "bsmm_xprop_sparse")
 # the flagship LM (enwik8's widths, the repo's fixed layout at 2048 tokens)
 FLAGSHIP = dict(n_vocab=256, n_embd=512, n_layer=6, n_head=8, ctx=2048,
                 blk_size=64, attn_layout="fixed", local_blocks=8,
@@ -1198,10 +1204,13 @@ def xprop_block_size_checks(bt, dev, g):
     """The bf16/f16 xprop kernels against their plain version at every
     block size, in bf16 and f16, for fprop and bprop: the op's unsplit
     route, bsmm_xprop_mma.cu unsplit ("mma"), bsmm_xprop_wgmma.cu over
-    its column groups ("wgmma", the block sizes it takes), the split
-    route's partial tiles (merged by merge_plain) and the fused split
-    (bsmm_split, clusters of 8 blocks; also bit for bit against
-    bsmm_merge over the partials), each also run twice for equal bits."""
+    its column groups ("wgmma", the block sizes it takes),
+    bsmm_xprop_sparse.cu over its pairs of input blocks ("sparse", b32;
+    also bit for bit against "wgmma", and its packing of the weights
+    against the plain packing), the split route's partial tiles (merged
+    by merge_plain) and the fused split (bsmm_split, clusters of 8
+    blocks; also bit for bit against bsmm_merge over the partials), each
+    also run twice for equal bits."""
     from blocksparse_tpu_torch.kernels import bsmm as bk
     rng = np.random.RandomState(SEED)
     for b in bk.BLOCK_SIZES:
@@ -1230,6 +1239,8 @@ def xprop_block_size_checks(bt, dev, g):
                     "mma": lambda: kern(x, w, *csr),
                     "wgmma": lambda: kern(
                         x, w, *csr, plan=op._plan_tensors(dev, "wgmma", d)),
+                    "sparse": lambda: kern(
+                        x, w, *csr, plan=op._plan_tensors(dev, "sparse", d)),
                     "partials": lambda: bk.bsmm_partials(
                         x, w, split["tile_ptr"], *ents, b,
                         split["tile_ptr"].numel() - 1, d == "b"),
@@ -1238,6 +1249,15 @@ def xprop_block_size_checks(bt, dev, g):
                         n_out, d == "b")}
                 if b not in bk.WGMMA_BLOCK_SIZES:
                     del runs["wgmma"]
+                if b not in bk.XPROP_SP_BLOCK_SIZES:
+                    del runs["sparse"]
+                else:
+                    sp = op._plan_tensors(dev, "sparse", d)
+                    check(torch.equal(
+                        bk.xprop_sparse_pack(w, sp["w_order"], b),
+                        bk.xprop_sparse_pack_plain(w, sp["w_order"], b)),
+                        f"xprop_sparse_pack b{b} {d}prop {dtype}: equal bit "
+                        f"for bit to its plain version")
                 for route, fn in runs.items():
                     what = (f"bsmm_xprop b{b} {d}prop {route} "
                             f"({op.kernel_of(XPROP_N, d, dtype)} on the "
@@ -1254,6 +1274,9 @@ def xprop_block_size_checks(bt, dev, g):
                         check(torch.equal(y, merged), f"{what}: equal bit "
                               f"for bit to bsmm_partials + bsmm_merge (P "
                               f"{split['merge_idx'].shape[1]})")
+                    if route == "sparse":
+                        check(torch.equal(y, runs["wgmma"]()), f"{what}: "
+                              f"equal bit for bit to bsmm_xprop_wgmma.cu")
                     compare(what, y, ref, TOL[dtype])
     torch.cuda.empty_cache()
 
@@ -1319,23 +1342,27 @@ def updat_block_size_checks(bt, dev, g):
 
 
 # The wgmma phase: the wgmma kernels against the mma.sync kernels they
-# replace, in turns (mma, wgmma, wgmma, mma), each a CUDA graph of WG_CALLS
-# calls timed by CUDA events (device time; a call's host time beside it,
-# eager), at the main path's shapes: the LM's two MLP products at the train
-# step's N and below (prefill 8192 (PROMPTS x PROMPT_LEN is 4096), the
-# pipeline microbatch 4096, 2048, 1024: where the route rule turns), the
-# conv's at C 512 and 2048 (d 0.25, N 32 x 32 x 32), the MoE's bsmm1 at
-# N = C = 2560 (dense b32; its updat takes bf16 inputs), bench.py's random
-# 8192^2 b32 op at N 2048.
+# replace, in turns (mma, wgmma, sparse, sparse, wgmma, mma: at b32 the
+# xprop on bsmm_xprop_sparse.cu too, its weights' packing included), each
+# a CUDA graph of WG_CALLS calls timed by CUDA events (device time; a
+# call's host time beside it, eager), at the main path's shapes: the LM's
+# two MLP products at the train step's N and below (prefill 8192
+# (PROMPTS x PROMPT_LEN is 4096), the pipeline microbatch 4096, 2048,
+# 1024: where the route rule turns), the conv's at C 512, 1024 and 2048
+# (d 0.25, N 32 x 32 x 32), the MoE's bsmm1 at N = C = 2560 (dense b32;
+# its updat takes bf16 inputs), bench.py's random 8192^2 b32 op at N
+# 2048.
 WG_CALLS = 20
 WG_NS = (16384, 8192, 4096, 2048, 1024)
 WG_PLAIN_BYTES = 2 ** 31
-WG_SOURCES = ("bsmm_xprop_wgmma", "bsmm_updat_wgmma")
+WG_SOURCES = ("bsmm_xprop_wgmma", "bsmm_updat_wgmma", "bsmm_xprop_sparse")
 # the wgmma kernels' dynamic shared memory a thread block by block size,
 # as their sources' smem_bytes() count it (1 KB of alignment, the ring,
-# the xprop's staged output tile, two mbarriers a stage)
+# the xprop's staged output tile, two mbarriers a stage, and the sparse
+# kernel's slot mask a stage)
 WG_SMEM = {"bsmm_xprop_wgmma": {32: 216160, 64: 216112, 128: 216112},
-           "bsmm_updat_wgmma": {32: 185424, 64: 164928, 128: 197696}}
+           "bsmm_updat_wgmma": {32: 185424, 64: 164928, 128: 197696},
+           "bsmm_xprop_sparse": {32: 216124}}
 
 
 def wgmma_cases(bt, model):
@@ -1346,7 +1373,7 @@ def wgmma_cases(bt, model):
              for name, op in (("bsmm1", model.bsmm1), ("bsmm2", model.bsmm2))
              for N in WG_NS]
     for C, d, bck in conv_configs():
-        if d == 0.25 and C in (512, 2048):
+        if d == 0.25:
             conv = bt.BlocksparseConv(bck, (3, 3), (CONV_HW, CONV_HW),
                                       padding="SAME", impl="bsmm")
             cases.append((f"conv C={C}", conv._bsmm_op,
@@ -1362,10 +1389,11 @@ def wgmma_cases(bt, model):
 
 
 def wgmma_pair(op, N, d, dev, g):
-    """{"mma": fn, "wgmma": fn} of direction d ("f", "b", "u") of ``op``
-    at N rows, bf16, on the two kernels (the updat each with its own
-    split and the reduce), the route's plain version, the bound's (flops,
-    bytes) and the library call."""
+    """{"mma": fn, "wgmma": fn[, "sparse": fn]} of direction d ("f", "b",
+    "u") of ``op`` at N rows, bf16, on the two kernels (the updat each
+    with its own split and the reduce) and at b32 the xprop's sparse one
+    (its weights' packing and the kernel), the route's plain version, the
+    bound's (flops, bytes) and the library call."""
     from blocksparse_tpu_torch.kernels import bsmm as bk
     bf, b, sms = torch.bfloat16, op.bsize, bk.device_sm_count(dev)
     lut = op._lut(dev)
@@ -1395,6 +1423,9 @@ def wgmma_pair(op, N, d, dev, g):
         wplan = op._plan_tensors(dev, "wgmma", d)
         fns = {"mma": lambda: kern(x, w, *csr),
                "wgmma": lambda: kern(x, w, *csr, plan=wplan)}
+        if b in bk.XPROP_SP_BLOCK_SIZES:
+            splan = op._plan_tensors(dev, "sparse", d)
+            fns["sparse"] = lambda: kern(x, w, *csr, plan=splan)
         plain = lambda: bk.xprop_plain(
             x, w, lut[f"{d}_in"], lut[f"{d}_w"], lut[f"{d}_out"], cout // b,
             b, 1, trans_w=d == "b")
@@ -1402,6 +1433,38 @@ def wgmma_pair(op, N, d, dev, g):
         lib = (lambda: x @ wd) if d == "f" else (lambda: x @ wd.t())
         tol = TOL[bf]
     return fns, plain, (flops, nbytes), lib, tol
+
+
+def pack_row(op, d, dev, g, card_line, rows, label=""):
+    """xprop_sparse_pack of direction d of ``op``'s weights (bf16; the
+    case's ``label`` printed): its
+    kernel against its plain version (bit for bit), the kernel's device
+    time (a CUDA graph of WG_CALLS calls) and the plain version's;
+    rows["sparse_pack"] = (err, ms, plain ms), rows["sparse_pack_mark"] =
+    (bound ms, "bytes", None): the bytes the kernel moves, a read of each
+    block of W it copies and a write of every packed block (a pair's
+    absent block is written as zeros and reads nothing); no PyTorch call
+    computes the packing."""
+    from blocksparse_tpu_torch.kernels import bsmm as bk
+    w = (torch.randn(op.w_shape, device=dev, generator=g) * 0.05).to(
+        torch.bfloat16)
+    order = op._plan_tensors(dev, "sparse", d)["w_order"]
+    got = bk.xprop_sparse_pack(w, order, op.bsize)
+    check(torch.equal(got, bk.xprop_sparse_pack_plain(w, order, op.bsize)),
+          f"xprop_sparse_pack at {op.blocks} blocks of b{op.bsize}: equal "
+          f"bit for bit to its plain version")
+    ms = graph_ms(lambda: bk.xprop_sparse_pack(w, order, op.bsize), WG_CALLS)
+    plain_ms = time_ms(lambda: bk.xprop_sparse_pack_plain(w, order,
+                                                          op.bsize), WG_CALLS)
+    block = op.bsize ** 2 * got.element_size()
+    mark = bound(0, (int((order >= 0).sum()) + order.numel()) * block)
+    rows["sparse_pack"] = (0.0, ms, plain_ms)
+    rows["sparse_pack_mark"] = (*mark, None)
+    print(f"xprop_sparse_pack {label} {'fprop' if d == 'f' else 'bprop'} "
+          f"{op.blocks} blocks of b{op.bsize} bf16 "
+          f"[{card_line}]: {ms:.4f} ms (device, a CUDA graph of {WG_CALLS}), "
+          f"plain {plain_ms:.4f} ms, bound {mark[0]:.4f} ms ({mark[1]})",
+          flush=True)
 
 
 def host_ms(fn, n=50):
@@ -1418,14 +1481,16 @@ def host_ms(fn, n=50):
 
 
 def wgmma_turns(bt, model, dev, g, card_line, rows):
-    """The wgmma phase (see WG_CALLS): at each case both kernels held
-    against the plain version (TOL, UPDAT_TOL) and each other's run
-    twice bit-equal, then timed in turns; printed beside the bound, the
-    library call (dense torch.matmul of the scattered W, or x^T . dy) and
-    the route the op takes, and at the train step's shape the profiler's
-    device time a launch; rows[("wg", label, d)] = {kernel: [device ms,
-    ...], "host": {kernel: ms}, ...}.  Then the two sources' registers,
-    spills and shared memory (ptxas)."""
+    """The wgmma phase (see WG_CALLS): at each case the kernels (two, or
+    at a b32 xprop three) held against the plain version (TOL, UPDAT_TOL)
+    and each run twice bit-equal, then timed in turns; printed beside the
+    bound, the library call (dense torch.matmul of the scattered W, or
+    x^T . dy) and the route the op takes, and at the train step's shape
+    the profiler's device time a launch; the sparse route also split into
+    its packing (``pack_row``) and its kernel alone (the profiler) at the
+    step's shape and the cases past the LM's; rows[("wg", label, d)] =
+    {kernel: [device ms, ...], "host": {kernel: ms}, ...}.  Then the
+    sources' registers, spills and shared memory (ptxas)."""
     from blocksparse_tpu_torch.kernels import bsmm as bk
     bf, sms = torch.bfloat16, bk.device_sm_count(dev)
     t0 = time.perf_counter()
@@ -1444,7 +1509,7 @@ def wgmma_turns(bt, model, dev, g, card_line, rows):
             for k, fn in fns.items():
                 what = f"wgmma phase {label} {name} on {src}_{k}"
                 same_bits(what, fn)
-                if small or k == "wgmma":
+                if small or k != "mma":
                     errs[k] = compare(
                         f"{what} against "
                         f"{'the plain version' if small else src + '_mma'}",
@@ -1458,30 +1523,47 @@ def wgmma_turns(bt, model, dev, g, card_line, rows):
             rows[("wg", label, d)] = {**dev_ms, "host": host, "bound": mark,
                                       "lib": lib_ms, "route": route,
                                       "err": errs}
-            if N == BATCH * model.config.ctx and label.startswith("bsmm"):
-                # at the train step's shape also the profiler's device
-                # time a launch of each kernel (the updat's without its
-                # split's reduce), in turns
-                kern = {k: f"bsmm_{'updat' if d == 'u' else 'xprop'}_{k}_kernel"
-                        for k in fns}
-                prof = in_turns(fns, lambda fn: kernel_device_ms(
-                    fn, kern["wgmma" if fn is fns["wgmma"] else "mma"],
-                    WG_CALLS))
+            at_step = N == BATCH * model.config.ctx and \
+                label.startswith("bsmm")
+            if "sparse" in fns and (at_step or not label.startswith("bsmm")):
+                # the sparse route split into its weights' packing and
+                # its kernel, at the step's shape and the other cases
+                pack_row(op, d, dev, g, card_line,
+                         rows if at_step and label.startswith("bsmm1") and
+                         d == "f" else {}, label)
+            if at_step or "sparse" in fns and not label.startswith("bsmm"):
+                # the profiler's device time a launch of each kernel (the
+                # updat's without its split's reduce, the sparse one's
+                # without its packing), in turns; at the step's shape every
+                # kernel, elsewhere the sparse one
+                kern = {id(fn): f"bsmm_{'updat' if d == 'u' else 'xprop'}_"
+                                f"{k}_kernel" for k, fn in fns.items()}
+                prof = in_turns(fns if at_step else
+                                {"sparse": fns["sparse"]},
+                                lambda fn: kernel_device_ms(
+                                    fn, kern[id(fn)], WG_CALLS))
                 rows[("wg", label, d)]["profiler"] = prof
                 print(f"      {label} {name}: profiler device time a launch "
-                      f"mma {' / '.join(f'{v:.4f}' for v in prof['mma'])} "
-                      f"ms, wgmma "
-                      f"{' / '.join(f'{v:.4f}' for v in prof['wgmma'])} ms "
-                      f"(turns)", flush=True)
-            new, old = np.mean(dev_ms["wgmma"]), np.mean(dev_ms["mma"])
-            print(f"{label} {name} bf16 [{card_line}]: mma "
-                  f"{' / '.join(f'{v:.4f}' for v in dev_ms['mma'])} ms, wgmma "
-                  f"{' / '.join(f'{v:.4f}' for v in dev_ms['wgmma'])} ms "
-                  f"(device, in turns; wgmma/mma {new / old:.3f}; "
-                  f"{flops / new / 1e9:.1f} TFLOP/s); host a call mma "
-                  f"{host['mma']:.4f}, wgmma {host['wgmma']:.4f} ms; bound "
-                  f"{mark[0]:.4f} ms ({mark[1]}); library {lib_ms:.4f} ms; "
-                  f"the op's route: {route}", flush=True)
+                      + ", ".join(f"{k} {' / '.join(f'{v:.4f}' for v in t)}"
+                                  f" ms" for k, t in prof.items())
+                      + " (turns" + ("; the sparse kernel's without its "
+                                     "packing" if "sparse" in prof else "")
+                      + ")", flush=True)
+            mean = {k: float(np.mean(t)) for k, t in dev_ms.items()}
+            best = min(mean, key=mean.get)
+            print(f"{label} {name} bf16 [{card_line}]: "
+                  + ", ".join(f"{k} {' / '.join(f'{v:.4f}' for v in t)} ms"
+                              for k, t in dev_ms.items())
+                  + f" (device, in turns; wgmma/mma "
+                  f"{mean['wgmma'] / mean['mma']:.3f}"
+                  + (f", sparse/mma {mean['sparse'] / mean['mma']:.3f}, "
+                     f"sparse/wgmma {mean['sparse'] / mean['wgmma']:.3f}"
+                     if "sparse" in mean else "")
+                  + f"; {best} {flops / mean[best] / 1e9:.1f} TFLOP/s); host "
+                  f"a call " + ", ".join(f"{k} {v:.4f}"
+                                         for k, v in host.items())
+                  + f" ms; bound {mark[0]:.4f} ms ({mark[1]}); library "
+                  f"{lib_ms:.4f} ms; the op's route: {route}", flush=True)
             del fns, plain, lib
         torch.cuda.empty_cache()
     print(f"wgmma phase: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1491,8 +1573,26 @@ def wgmma_turns(bt, model, dev, g, card_line, rows):
 def wgmma_ptxas_report():
     """Registers, spills and static shared memory of the wgmma kernels,
     from ptxas' log, their dynamic shared memory (WG_SMEM), and what
-    ptxas warned of."""
+    ptxas warned of; and the sparse kernel's as the runtime reports them."""
     from blocksparse_tpu_torch.kernels import _build
+    from blocksparse_tpu_torch.kernels import bsmm as bk
+    for dtype in (torch.bfloat16, torch.float16):
+        for trans in (False, True):
+            i = bk.sparse_kernel_info(dtype, trans)
+            what = (f"bsmm_xprop_sparse.cu {dtype} "
+                    f"{'bprop' if trans else 'fprop'}: {i['registers']} "
+                    f"registers, {i['local_bytes']} local bytes, "
+                    f"{i['smem_bytes']} bytes of shared memory, "
+                    f"{i['blocks_per_sm']} block(s) an SM, {i['stages']} "
+                    f"ring slots")
+            check(i["local_bytes"] == 0 and i["blocks_per_sm"] >= 1 and
+                  i["smem_bytes"] == WG_SMEM["bsmm_xprop_sparse"][32],
+                  f"{what}: no spill, resident")
+    lib = _build.library_path("bsmm_xprop_sparse")
+    serial = [line for line in lib.with_name(lib.name + ".log").read_text()
+              .splitlines() if "C7520" in line]
+    check(not serial, f"bsmm_xprop_sparse.cu: ptxas serializes no wgmma "
+                      f"({len(serial)} warnings)")
     for source in WG_SOURCES:
         entries = ptxas_entries(source)
         check(bool(entries), f"{source}.cu: kernels built")
@@ -2182,11 +2282,27 @@ def conv_path(bt, dev, g, card_line, rows):
     """The block-sparse conv at the bench's configurations.  C=512 d=0.25:
     kernels against plain path (forward, dI, dF), the forward + backward
     counted.  Every configuration: the forward against the dense conv of
-    the scattered filter, a counted forward, and the times.  Returns the
-    counted forward + backward's launches."""
+    the scattered filter, a counted forward, and the times.  Each counted
+    run's xprop launches on bsmm_xprop_sparse.cu are those kernel_of
+    names.  Returns the counted forward + backward's launches, and the
+    sparse kernel's (with its packings) over all the counted runs."""
     bf = torch.bfloat16
     configs = conv_configs()
     launches = None
+    sparse_total = dict.fromkeys((*SPARSE_WRAPPERS, "pack"), 0)
+
+    def sparse_as_named(conv, what, dirs):
+        """The counted run's sparse launches against kernel_of's names."""
+        got = read_sparse()
+        N = CONV_BATCH * CONV_HW ** 2
+        want = {k: int(k in dirs and conv._bsmm_op.kernel_of(N, d)
+                       == "bsmm_xprop_sparse")
+                for k, d in zip(SPARSE_WRAPPERS, "fb")}
+        want["pack"] = sum(want.values())
+        check(got == want, f"{what}: launches on bsmm_xprop_sparse.cu "
+                           f"{got}, as kernel_of names them {want}")
+        for k in got:
+            sparse_total[k] += got[k]
     for i, (ck, d, BCK) in enumerate(configs):
         torch.cuda.reset_peak_memory_stats()
         conv = bt.BlocksparseConv(BCK, (3, 3), (CONV_HW, CONV_HW),
@@ -2209,6 +2325,7 @@ def conv_path(bt, dev, g, card_line, rows):
                              CONV_BATCH * CONV_HW ** 2) > 1)})
             check(launches == want, f"{what}: forward + backward launches "
                                     f"{launches}, expected {want}")
+            sparse_as_named(conv, what, SPARSE_WRAPPERS)
             plain = bt.BlocksparseConv(BCK, (3, 3), (CONV_HW, CONV_HW),
                                        padding="SAME", impl="bsmm",
                                        bsmm_impl="xla")
@@ -2241,6 +2358,8 @@ def conv_path(bt, dev, g, card_line, rows):
             want.update({"im2col": 1, "bsmm_fprop": 1})
             check(fwd_launches == want, f"{what}: forward (no grad) "
                                         f"launches im2col 1, bsmm_fprop 1")
+            sparse_as_named(conv, f"{what}: forward (no grad)",
+                            ("bsmm_fprop",))
             wd = dense_filter(conv, F)
             ref = nnf.conv2d(x, wd, padding=1)
             check(tuple(y.shape) == (CONV_BATCH, ck, 1, CONV_HW, CONV_HW),
@@ -2271,7 +2390,7 @@ def conv_path(bt, dev, g, card_line, rows):
                          f"conv C={ck} d={d} forward + backward")
         del conv, F, x, wd
         torch.cuda.empty_cache()
-    return launches
+    return launches, sparse_total
 
 
 def conv_bsmm_checks(conv, plain, x, dev, g, rows):
@@ -2326,16 +2445,24 @@ def counters():
 
 
 def reset_counts():
+    from blocksparse_tpu_torch.kernels import bsmm
     for fn in counters().values():
         fn.launches = 0
     counters()["bst_xn"].launches_tn = 0
     for name in WGMMA_WRAPPERS + ATTN_WGMMA_WRAPPERS:
         counters()[name].launches_wgmma = 0
+    for name in SPARSE_WRAPPERS:
+        counters()[name].launches_sparse = 0
+    bsmm.xprop_sparse_pack.launches = 0
 
 
 # the wrappers whose bf16/f16 launches go to bsmm_xprop_wgmma.cu or
 # bsmm_updat_wgmma.cu, each counting those in launches_wgmma too
 WGMMA_WRAPPERS = ("bsmm_fprop", "bsmm_bprop", "bsmm_updat")
+# the wrappers whose bf16 launches go to bsmm_xprop_sparse.cu, each
+# counting those in launches_sparse too (and each launch one of the
+# weights' packing, xprop_sparse_pack)
+SPARSE_WRAPPERS = ("bsmm_fprop", "bsmm_bprop")
 
 
 # the attention wrappers whose bf16/f16 launches go to bst_attn_fwd_wgmma.cu,
@@ -2346,8 +2473,25 @@ ATTN_WGMMA_WRAPPERS = ("bst_attn_fwd", "bst_attn_fwd_lse", "bst_attn_dq",
 
 
 def read_wgmma():
-    """Of each wrapper's launches, those of the wgmma kernels."""
-    return {name: counters()[name].launches_wgmma for name in WGMMA_WRAPPERS}
+    """Of each wrapper's launches, those of the wgmma kernels (the sparse
+    xprop's among them)."""
+    return {name: counters()[name].launches_wgmma
+            + getattr(counters()[name], "launches_sparse", 0)
+            for name in WGMMA_WRAPPERS}
+
+
+def read_sparse():
+    """Of each xprop wrapper's launches, those of bsmm_xprop_sparse.cu, and
+    "pack": the launches of its weights' packing."""
+    from blocksparse_tpu_torch.kernels import bsmm
+    return {**{name: counters()[name].launches_sparse
+               for name in SPARSE_WRAPPERS},
+            "pack": bsmm.xprop_sparse_pack.launches}
+
+
+def on_wgmma(src):
+    """Whether a source (kernel_of's name) is one of the wgmma kernels."""
+    return src.endswith(("_wgmma", "_sparse"))
 
 
 def read_attn_wgmma():
@@ -3011,7 +3155,7 @@ def training_path(bt, model, plain, cfg, dev, card_line, profile_out):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t
     launches = read_counts()
-    wgmma = read_wgmma()
+    wgmma, sparse = read_wgmma(), read_sparse()
     attn_wg = read_attn_wgmma()
     peak_first = torch.cuda.max_memory_allocated() / 2 ** 30
     torch.cuda.empty_cache()
@@ -3054,6 +3198,15 @@ def training_path(bt, model, plain, cfg, dev, card_line, profile_out):
           f"{model.bsmm1.kernel_of(tokens.numel(), 'b')} and "
           f"{model.bsmm2.kernel_of(tokens.numel(), 'b')}, updat on "
           f"{model.bsmm1.kernel_of(tokens.numel(), 'u')})")
+    want_sp = {k: launches[k] * all(
+        op.kernel_of(tokens.numel(), d) == "bsmm_xprop_sparse"
+        for op in (model.bsmm1, model.bsmm2))
+        for k, d in zip(SPARSE_WRAPPERS, "fb")}
+    check({k: sparse[k] for k in SPARSE_WRAPPERS} == want_sp and
+          sparse["pack"] == sum(want_sp.values()),
+          f"train step's first call: the xprop's launches on "
+          f"bsmm_xprop_sparse.cu {sparse}, as kernel_of names them "
+          f"{want_sp}, each with one packing of its weights")
     check(attn_wg == {k: launches[k] for k in ATTN_WGMMA_WRAPPERS},
           f"train step's first call: every attention forward with lse on "
           f"bst_attn_fwd_wgmma.cu, every dq on bst_attn_dq_wgmma.cu and "
@@ -3143,52 +3296,66 @@ def training_path(bt, model, plain, cfg, dev, card_line, profile_out):
     profile_port_kernels("train step (eager)", lambda: one_step(eager),
                          ms["eager"])
 
-    # the same captured step with dq on the mma.sync kernel (the parent's
-    # route: the forward and dk/dv stay on their wgmma kernels), timed
-    # against this one in turns: the step before and after
-    old, old_step, old_holder = mma_train_step(bt, model, cfg, dev, opt,
-                                               tokens, targets, scale)
+    # the same captured step with the MLP products' xprop on
+    # bsmm_xprop_wgmma.cu (the parent's route), timed against this one in
+    # turns: the step before and after
+    old, old_step, old_holder = parent_train_step(bt, model, cfg, dev, opt,
+                                                  tokens, targets, scale)
 
     def old_one():
         old_holder["state"], _, old_holder["scale"] = old_step(
             old_holder["state"], tokens, targets, old_holder["scale"])
     old_one()
-    turns = in_turns({"wgmma": lambda: one_step(step), "mma": old_one},
+    turns = in_turns({"sparse": lambda: one_step(step), "wgmma": old_one},
                      lambda fn: time_ms(fn, TIMED_STEPS))
     ms = {k: " / ".join(f"{v:.2f}" for v in t) for k, t in turns.items()}
-    print(f"train step [{card_line}]: captured with dq on "
-          f"bst_attn_dq_wgmma.cu {ms['wgmma']} ms, with dq on "
-          f"bst_attn_bwd_mma.cu {ms['mma']} ms (turns wgmma, mma, mma, "
-          f"wgmma; each the mean of {TIMED_STEPS} replays by CUDA events)",
-          flush=True)
-    profile_port_kernels("train step with dq on the mma.sync kernel (graph "
-                         "replay)", old_one, float(np.mean(turns["mma"])))
+    print(f"train step [{card_line}]: captured with the xprop on "
+          f"bsmm_xprop_sparse.cu {ms['sparse']} ms, on bsmm_xprop_wgmma.cu "
+          f"{ms['wgmma']} ms (turns sparse, wgmma, wgmma, sparse; each the "
+          f"mean of {TIMED_STEPS} replays by CUDA events)", flush=True)
+    profile_port_kernels("train step with the xprop on bsmm_xprop_wgmma.cu "
+                         "(graph replay)", old_one,
+                         float(np.mean(turns["wgmma"])))
     del old, old_step, old_holder
     torch.cuda.empty_cache()
-    return launches, wgmma
+    return launches, wgmma, sparse
 
 
-def mma_train_step(bt, model, cfg, dev, opt, tokens, targets, ls):
-    """The flagship's captured train step with dq on the mma.sync kernel
-    (bst_attn_bwd_mma.cu), as before bst_attn_dq_wgmma.cu: a second model
-    of ``model``'s weights whose step's first call (its warm-up and its
-    capture) routes under ``attn_on_mma(("DQ",))``; the graph keeps those
+@contextlib.contextmanager
+def xprop_off_sparse():
+    """The xprop's route with bsmm_xprop_sparse.cu's block sizes emptied:
+    the bf16 products on bsmm_xprop_wgmma.cu and bsmm_xprop_mma.cu as
+    before it."""
+    from blocksparse_tpu_torch.kernels import bsmm
+    saved = bsmm.XPROP_SP_BLOCK_SIZES
+    bsmm.XPROP_SP_BLOCK_SIZES = ()
+    try:
+        yield
+    finally:
+        bsmm.XPROP_SP_BLOCK_SIZES = saved
+
+
+def parent_train_step(bt, model, cfg, dev, opt, tokens, targets, ls):
+    """The flagship's captured train step with the MLP products' xprop on
+    bsmm_xprop_wgmma.cu, as before bsmm_xprop_sparse.cu: a second model of
+    ``model``'s weights whose step's first call (its warm-up and its
+    capture) routes under ``xprop_off_sparse()``; the graph keeps those
     launches.  (model, step, {"state", "scale"})."""
     old = bt.SparseTransformerLM(cfg, device=dev)
     old.load_state_dict(model.state_dict())
     step = old.make_train_step(opt, clip_norm=CLIP)
     reset_counts()
-    with attn_on_mma(("DQ",)):
+    with xprop_off_sparse():
         state, _, scale = step(opt.init(dict(old.named_parameters())),
                                tokens, targets, ls)
         torch.cuda.synchronize()
-    launches, wgmma = read_counts(), read_attn_wgmma()
-    check(wgmma["bst_attn_dq"] == 0 < launches["bst_attn_dq"]
-          and wgmma["bst_attn_dkv"] == launches["bst_attn_dkv"] > 0,
-          f"the step with dq on the mma.sync kernel: "
-          f"{launches['bst_attn_dq']} dq launches, none on "
-          f"bst_attn_dq_wgmma.cu; the forward and dk/dv on theirs "
-          f"({wgmma} of {launches})")
+    launches, sparse = read_counts(), read_sparse()
+    wgmma = {k: counters()[k].launches_wgmma for k in SPARSE_WRAPPERS}
+    check(all(sparse[k] == 0 < wgmma[k] == launches[k]
+              for k in SPARSE_WRAPPERS),
+          f"the step with the xprop off bsmm_xprop_sparse.cu: every fprop "
+          f"and bprop on bsmm_xprop_wgmma.cu ({wgmma}, sparse {sparse} of "
+          f"{launches})")
     return old, step, {"state": state, "scale": scale}
 
 
@@ -3202,7 +3369,9 @@ def restore(m, saved):
             v.copy_(saved[k])
 
 
-# name fragments of the port's kernels: the xprop's bsmm_xprop_wgmma_kernel
+# name fragments of the port's kernels: the xprop's
+# bsmm_xprop_sparse_kernel (bf16/f16 at b32) and its weights' packing
+# (bsmm_xprop_sparse_pack_kernel), bsmm_xprop_wgmma_kernel
 # and bsmm_xprop_mma_kernel (bf16/f16, the latter also the split route's)
 # and bsmm_xprop_nc_kernel (f32); the updat's bsmm_updat_wgmma_kernel and
 # bsmm_updat_mma_kernel (bf16/f16), bsmm_updat_nc_kernel (f32) and the
@@ -3217,7 +3386,8 @@ def restore(m, saved):
 PROFILE_SPINS, PROFILE_SPIN_CYCLES = 8, 100000
 # windows a profiled measurement takes before it gives up on CUPTI
 PROFILE_TRIES = 6
-PORT_KERNELS = ("bsmm_xprop_wgmma", "bsmm_xprop_mma", "bsmm_xprop_nc",
+PORT_KERNELS = ("bsmm_xprop_sparse_kernel", "bsmm_xprop_sparse_pack",
+                "bsmm_xprop_wgmma", "bsmm_xprop_mma", "bsmm_xprop_nc",
                 "bsmm_updat_wgmma", "bsmm_updat_mma", "bsmm_updat_nc",
                 "bsmm_updat_reduce", "bst_attn_fwd_wgmma", "bst_attn_fwd_mma",
                 "bst_attn_dq_wgmma", "bst_attn_dq_mma", "bst_attn_dkv_wgmma",
@@ -3618,7 +3788,7 @@ def canonical_path(rows_in, dev, g, card_line, rows):
                 for d, key in (("f", "bsmm_fprop"), ("b", "bsmm_bprop"),
                                ("u", "bsmm_updat")):
                     src = op.kernel_of(CANON_N, d)
-                    check((wg[key] > 0) == ("wgmma" in src),
+                    check((wg[key] > 0) == on_wgmma(src),
                           f"{what}: {key} on {src} ({wg[key]} wgmma "
                           f"launches of {launches[key]})")
                     add_counts(total, {(key, src): launches[key]})
@@ -6938,7 +7108,13 @@ def packed_bench_checks(ops, X, dev, g, card_line, rows, marks):
         y = pk(x, wp)
         torch.cuda.synchronize()
         counted = read_counts()
+        sparse = read_sparse()
         ran = {k: v for k, v in counted.items() if v}
+        want_sp = int(pk.kernel_of(PACKED_N, "f") == "bsmm_xprop_sparse")
+        check(sparse == {"bsmm_fprop": want_sp, "bsmm_bprop": 0,
+                         "pack": want_sp},
+              f"packed {name}: fprop launches on bsmm_xprop_sparse.cu "
+              f"{sparse}, as kernel_of names them ({want_sp})")
         check(torch.equal(y, can(x, w)),
               f"packed {name}: y equals the canonical op's bit for bit "
               f"(fprop launches {ran})")
@@ -6984,6 +7160,13 @@ def packed_bench_checks(ops, X, dev, g, card_line, rows, marks):
         y1, dx1, dw1 = grads(pk, wp)
         torch.cuda.synchronize()
         counted = read_counts()
+        sparse = read_sparse()
+        want_sp = {k: int(pk.kernel_of(PACKED_N, d) == "bsmm_xprop_sparse")
+                   for k, d in zip(SPARSE_WRAPPERS, "fb")}
+        check(sparse == {**want_sp, "pack": sum(want_sp.values())},
+              f"packed {name} forward + backward: launches on "
+              f"bsmm_xprop_sparse.cu {sparse}, as kernel_of names them "
+              f"{want_sp}")
         y0, dx0, dw0 = grads(can, w)
         check(torch.equal(y1, y0) and torch.equal(dx1, dx0),
               f"packed {name} forward + backward: y and dX equal the "
@@ -7218,7 +7401,7 @@ def main():
     serve_launches = serving_path(bt, model, plain, cfg, dev, card_line)
 
     # 5. the training path, counted
-    train_launches, train_wgmma = training_path(
+    train_launches, train_wgmma, train_sparse = training_path(
         bt, model, plain, cfg, dev, card_line, args.profile_out)
     print(f"launches: serving path {serve_launches}; training path (one "
           f"step) {train_launches}", flush=True)
@@ -7293,7 +7476,7 @@ def main():
     # 6. the block-sparse conv: kernels against plain versions, then the
     # conv path, counted
     conv_kernel_checks(dev, g, rows)
-    conv_launches = conv_path(bt, dev, g, card_line, rows)
+    conv_launches, conv_sparse = conv_path(bt, dev, g, card_line, rows)
     print(f"launches: conv path (one forward + backward) {conv_launches}",
           flush=True)
     # 6b. the rest of the conv (plain torch): ragged, impl="matmul", the
@@ -7373,16 +7556,21 @@ def main():
         return bst_attn.attn_kernel(kind, bf, 64, model.hs,
                                     key_blocks) + ".cu"
     # the unsplit bf16 products at bsmm1's train shape on each kernel: the
-    # wgmma phase's device times (its updat with its split's reduce), the
-    # plain version's from the training checks; launches: the train step's
-    # first call on the wgmma kernels, the canonical grouped chains (b8-b32,
-    # N 64) on the mma.sync ones
+    # wgmma phase's device times (its updat with its split's reduce, the
+    # sparse xprop with its weights' packing), the plain version's from the
+    # training checks; launches: the train step's first call on the
+    # sparse and wgmma kernels, the canonical grouped chains (b8-b32, N
+    # 64) on the mma.sync ones; bsmm_xprop_wgmma.cu's on bench.py's b64
+    # stores (the packed rows)
     def wg_row(d, kernel, plain_key):
         r = rows[("wg", f"bsmm1 N={N}", d)]
         err = r["err"].get(kernel, r["err"].get("wgmma"))
         return (err, float(np.mean(r[kernel])), rows[plain_key][2])
     for name in ("bsmm_fprop", "bsmm_bprop", "bsmm_updat"):
         marks[f"{name}_wgmma"] = marks[name]
+    for name in SPARSE_WRAPPERS:
+        marks[f"{name}_sparse"] = marks[name]
+    marks["xprop_sparse_pack"] = rows["sparse_pack_mark"]
     kernels = [  # (name, source, TPU kernel, path's launches, row)
         ("bsmm_fprop", "bsmm_xprop_mma.cu", "bsmm.py:1422",
          mode_launches[("bsmm_fprop", "bsmm_xprop_mma")],
@@ -7393,12 +7581,14 @@ def main():
         ("bsmm_updat", "bsmm_updat_mma.cu", "bsmm.py:1972",
          mode_launches[("bsmm_updat", "bsmm_updat_mma")],
          wg_row("u", "mma", ("updat", "bsmm1", bf))),
-        ("bsmm_fprop_wgmma", "bsmm_xprop_wgmma.cu", "bsmm.py:1422",
-         train_wgmma["bsmm_fprop"],
-         wg_row("f", "wgmma", ("fprop", "bsmm1", N, bf))),
-        ("bsmm_bprop_wgmma", "bsmm_xprop_wgmma.cu", "bsmm.py:1422",
-         train_wgmma["bsmm_bprop"],
-         wg_row("b", "wgmma", ("bprop", "bsmm1", bf))),
+        ("bsmm_fprop_sparse", "bsmm_xprop_sparse.cu", "bsmm.py:1422",
+         train_sparse["bsmm_fprop"],
+         wg_row("f", "sparse", ("fprop", "bsmm1", N, bf))),
+        ("bsmm_bprop_sparse", "bsmm_xprop_sparse.cu", "bsmm.py:1422",
+         train_sparse["bsmm_bprop"],
+         wg_row("b", "sparse", ("bprop", "bsmm1", bf))),
+        ("xprop_sparse_pack", "bsmm_xprop_sparse.cu", "bsmm.py:1422",
+         train_sparse["pack"], rows["sparse_pack"]),
         ("bsmm_updat_wgmma", "bsmm_updat_wgmma.cu", "bsmm.py:1972",
          train_wgmma["bsmm_updat"],
          wg_row("u", "wgmma", ("updat", "bsmm1", bf))),

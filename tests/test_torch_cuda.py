@@ -587,35 +587,47 @@ def test_bsmm_autograd_runs_the_three_kernels(cuda, axis):
                                    atol=1e-4 * ref.abs().max().item())
     # bf16 on a dense layout (every staged x tile serving all its
     # group's columns) at an N whose tiles fill the card: the three
-    # products on the wgmma kernels (bsmm_xprop_wgmma.cu twice,
-    # bsmm_updat_wgmma.cu)
-    port = BlocksparseMatMul(np.ones((4, 6), np.int32), block_size=32,
-                             feature_axis=axis)
-    plain = BlocksparseMatMul(np.ones((4, 6), np.int32), block_size=32,
-                              feature_axis=axis, impl="xla")
+    # products on the wgmma kernels, at b32 bsmm_xprop_sparse.cu twice
+    # (counted in launches_sparse, each with its weights' packing) and at
+    # b64 bsmm_xprop_wgmma.cu twice, and bsmm_updat_wgmma.cu
     N = 128 * bsmm_kernels.device_sm_count(cuda) + 40
     kernels = (bsmm_kernels.bsmm_fprop, bsmm_kernels.bsmm_bprop,
                bsmm_kernels.bsmm_updat)
-    assert [port.kernel_of(N, d) for d in "fbu"] == [
-        "bsmm_xprop_wgmma", "bsmm_xprop_wgmma", "bsmm_updat_wgmma"]
-    x0 = torch.randn(port.i_shape(N), device=cuda, generator=g).bfloat16()
-    w0 = (torch.randn(port.w_shape, device=cuda, generator=g) * 0.1).bfloat16()
-    dy = torch.randn(port.o_shape(N), device=cuda, generator=g).bfloat16()
-    grads = []
-    for op in (port, plain):
-        x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
-        counts = [(k.launches, k.launches_wgmma) for k in kernels]
-        y = op(x, w)
-        y.backward(dy)
-        torch.cuda.synchronize()
-        moved = [(k.launches - c, k.launches_wgmma - cw)
-                 for k, (c, cw) in zip(kernels, counts)]
-        assert moved == ([(1, 1)] * 3 if op is port else [(0, 0)] * 3)
-        grads.append((y.detach(), x.grad, w.grad))
-    for got, ref in zip(*grads):
-        torch.testing.assert_close(
-            got.float(), ref.float(), rtol=0,
-            atol=BSMM_BF16_TOL * max(1.0, ref.float().abs().max().item()))
+    for bsize, xk in ((32, "sparse"), (64, "wgmma")):
+        lay = np.ones((128 // bsize, 192 // bsize), np.int32)
+        port = BlocksparseMatMul(lay, block_size=bsize, feature_axis=axis)
+        plain = BlocksparseMatMul(lay, block_size=bsize, feature_axis=axis,
+                                  impl="xla")
+        assert [port.kernel_of(N, d) for d in "fbu"] == [
+            f"bsmm_xprop_{xk}", f"bsmm_xprop_{xk}", "bsmm_updat_wgmma"]
+        x0 = torch.randn(port.i_shape(N), device=cuda, generator=g).bfloat16()
+        w0 = (torch.randn(port.w_shape, device=cuda, generator=g)
+              * 0.1).bfloat16()
+        dy = torch.randn(port.o_shape(N), device=cuda, generator=g).bfloat16()
+        grads = []
+        for op in (port, plain):
+            x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+            counts = [(k.launches, getattr(k, f"launches_{xk}", 0),
+                       k.launches_wgmma) for k in kernels]
+            packs = bsmm_kernels.xprop_sparse_pack.launches
+            y = op(x, w)
+            y.backward(dy)
+            torch.cuda.synchronize()
+            moved = [(k.launches - c, getattr(k, f"launches_{xk}", 0) - cx,
+                      k.launches_wgmma - cw)
+                     for k, (c, cx, cw) in zip(kernels, counts)]
+            if op is port:
+                assert moved == [(1, 1, xk == "wgmma")] * 2 + \
+                    [(1, xk == "wgmma", 1)]
+                assert bsmm_kernels.xprop_sparse_pack.launches - packs == \
+                    2 * (xk == "sparse")
+            else:
+                assert moved == [(0, 0, 0)] * 3
+            grads.append((y.detach(), x.grad, w.grad))
+        for got, ref in zip(*grads):
+            torch.testing.assert_close(
+                got.float(), ref.float(), rtol=0,
+                atol=BSMM_BF16_TOL * max(1.0, ref.float().abs().max().item()))
 
 
 WGMMA_SIZES = (32, 64, 128)
@@ -717,19 +729,22 @@ def test_wgmma_updat_matches_plain(cuda, bsize, dtype, by_c):
 
 
 @pytest.mark.cuda
-def test_wgmma_kernels_feature_axis_0_and_graph_replay(cuda):
+@pytest.mark.parametrize("bsize,xk", [(32, "sparse"), (64, "wgmma")])
+def test_wgmma_kernels_feature_axis_0_and_graph_replay(cuda, bsize, xk):
     """The op at feature_axis 0 on the wgmma kernels (bf16, N filling the
-    card): y, dx and dw against the plain op; then the three products
-    captured into a CUDA graph (the tensor maps encoded at capture hold
-    the captured tensors' addresses) and replayed on new inputs copied
-    into those tensors, equal bit for bit to the eager calls."""
-    layout = random_layout(4, 6, 0.9, seed=8)
-    port = BlocksparseMatMul(layout, block_size=32, feature_axis=0)
-    plain = BlocksparseMatMul(layout, block_size=32, feature_axis=0,
+    card; the xprop on bsmm_xprop_sparse.cu at b32, its weights packed a
+    call, on bsmm_xprop_wgmma.cu at b64): y, dx and dw against the plain
+    op; then the three products captured into a CUDA graph (the tensor
+    maps encoded at capture hold the captured tensors' addresses) and
+    replayed on new inputs copied into those tensors, equal bit for bit
+    to the eager calls."""
+    layout = random_layout(128 // bsize, 192 // bsize, 0.9, seed=8)
+    port = BlocksparseMatMul(layout, block_size=bsize, feature_axis=0)
+    plain = BlocksparseMatMul(layout, block_size=bsize, feature_axis=0,
                               impl="xla")
     N = 128 * bsmm_kernels.device_sm_count(cuda) + 7
     assert [port.kernel_of(N, d) for d in "fbu"] == [
-        "bsmm_xprop_wgmma", "bsmm_xprop_wgmma", "bsmm_updat_wgmma"]
+        f"bsmm_xprop_{xk}", f"bsmm_xprop_{xk}", "bsmm_updat_wgmma"]
     g = torch.Generator(device=cuda).manual_seed(8)
     x = torch.randn(port.i_shape(N), device=cuda, generator=g).bfloat16()
     w = (torch.randn(port.w_shape, device=cuda, generator=g) * 0.1).bfloat16()
@@ -760,6 +775,141 @@ def test_wgmma_kernels_feature_axis_0_and_graph_replay(cuda):
     torch.cuda.synchronize()
     for got, ref in zip(captured, products()):
         assert torch.equal(got, ref)
+
+
+def _sparse_layout(seed):
+    """Three b32 column groups of 8 (the last short: 19 output
+    block-columns) over 13 input blocks (an odd count: the last pair's
+    second half past C), random at 0.3, output column 2 and input
+    block-row 2 empty."""
+    layout = random_layout(13, 19, 0.3, seed=seed)
+    layout[:, 2] = 0
+    layout[2, :] = 0
+    return layout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", ["f", "b"])
+@pytest.mark.parametrize("dtype", HALF)
+def test_sparse_xprop_matches_plain_and_wgmma(cuda, dtype, d):
+    """bsmm_xprop_sparse.cu over xprop_sparse_plan's items (pairs of input
+    blocks) at N 1, 5, 300 and a tile plus one (129): against the plain
+    version at the matmul's bf16 tolerance, equal bit for bit to
+    bsmm_xprop_wgmma.cu (the same sums in the same order) and to itself
+    on a second run, the empty column exactly zero; one launch a call
+    counted on the direction's sparse counter, one packing of the
+    weights, equal bit for bit to its plain version."""
+    layout = _sparse_layout(seed=4 + (d == "b"))
+    op = BlocksparseMatMul(layout, block_size=32, feature_axis=1)
+    plain = BlocksparseMatMul(layout, block_size=32, feature_axis=1,
+                              impl="xla")
+    lut = op._lut(cuda)
+    plan = op._plan_tensors(cuda, "sparse", d)
+    wplan = op._plan_tensors(cuda, "wgmma", d)
+    kern = bsmm_kernels.bsmm_bprop if d == "b" else bsmm_kernels.bsmm_fprop
+    n_out = op.KB if d == "f" else op.CB
+    csr = (lut[f"{d}_row_ptr"], lut[f"{d}_ent_in"], lut[f"{d}_ent_w"], 32,
+           n_out)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    w = (torch.randn(op.w_shape, device=cuda, generator=g) * 0.2).to(dtype)
+    assert torch.equal(
+        bsmm_kernels.xprop_sparse_pack(w, plan["w_order"], 32),
+        bsmm_kernels.xprop_sparse_pack_plain(w, plan["w_order"], 32))
+    for N in (1, 5, 300, bsmm_kernels.XPROP_WG_TM + 1):
+        x = torch.randn((N, op.C if d == "f" else op.K), device=cuda,
+                        generator=g).to(dtype)
+        before = (kern.launches, kern.launches_sparse,
+                  bsmm_kernels.xprop_sparse_pack.launches)
+        y, again = (kern(x, w, *csr, plan=plan) for _ in range(2))
+        torch.cuda.synchronize()
+        assert (kern.launches, kern.launches_sparse,
+                bsmm_kernels.xprop_sparse_pack.launches) == \
+            (before[0] + 2, before[1] + 2, before[2] + 2)
+        assert torch.equal(y, again)
+        assert torch.equal(y, kern(x, w, *csr, plan=wplan))
+        assert y.dtype == dtype and y.shape == (N, n_out * 32)
+        ref = plain._xprop(x, w, d).float()
+        torch.testing.assert_close(
+            y.float(), ref, rtol=0,
+            atol=_tol(dtype, BSMM_BF16_TOL, ref.abs().max().item()))
+        assert (y[:, 2 * 32:3 * 32] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", ["f", "b"])
+def test_sparse_xprop_spreads_a_non_finite_input(cuda, d):
+    """An infinity in x at one input block (bf16): the plain version and
+    bsmm_xprop_wgmma.cu make its row non-finite in the output columns
+    with an entry at that block; bsmm_xprop_sparse.cu also, as NaN, in
+    the columns paired with one of those that have none (the pair's zero
+    block times the infinity: it never hides a non-finite input, it
+    spreads it); every other output equal bit for bit to the call
+    without the infinity."""
+    from test_torch_bsmm_wgmma_plan import non_finite_block, \
+        non_finite_columns
+    layout = _sparse_layout(seed=11 + (d == "b"))
+    op = BlocksparseMatMul(layout, block_size=32, feature_axis=1)
+    plain = BlocksparseMatMul(layout, block_size=32, feature_axis=1,
+                              impl="xla")
+    i, reads, partners = non_finite_block(op, d)
+    lut = op._lut(cuda)
+    kern = bsmm_kernels.bsmm_bprop if d == "b" else bsmm_kernels.bsmm_fprop
+    csr = (lut[f"{d}_row_ptr"], lut[f"{d}_ent_in"], lut[f"{d}_ent_w"], 32,
+           op.KB if d == "f" else op.CB)
+    plan, wplan = (op._plan_tensors(cuda, k, d) for k in ("sparse", "wgmma"))
+    g = torch.Generator(device=cuda).manual_seed(11)
+    w = (torch.randn(op.w_shape, device=cuda, generator=g) * 0.2).bfloat16()
+    x = torch.randn((300, op.C if d == "f" else op.K), device=cuda,
+                    generator=g).bfloat16()
+    clean = kern(x, w, *csr, plan=plan)
+    x[3, i * 32 + 5] = float("inf")
+    y = kern(x, w, *csr, plan=plan)
+    assert non_finite_columns(plain._xprop(x, w, d), 3) == reads
+    assert non_finite_columns(kern(x, w, *csr, plan=wplan), 3) == reads
+    assert non_finite_columns(y, 3) == reads | partners
+    assert torch.isnan(y[3].reshape(-1, 32)[sorted(partners)]).all()
+    keep = torch.ones_like(y, dtype=torch.bool)
+    for c in reads | partners:
+        keep[3, c * 32:(c + 1) * 32] = False
+    assert torch.equal(y[keep], clean[keep])
+
+
+@pytest.mark.cuda
+def test_sparse_kernel_info_shows_no_local_memory(cuda):
+    """Every instantiation of bsmm_xprop_sparse.cu's kernel (bf16 and f16,
+    fprop and bprop) holds its registers without spilling and is
+    resident, one thread block an SM, its ring at least 3 slots."""
+    for dtype in HALF:
+        for trans in (False, True):
+            info = bsmm_kernels.sparse_kernel_info(dtype, trans)
+            assert info["local_bytes"] == 0, (dtype, trans, info)
+            assert info["blocks_per_sm"] == 1 and info["stages"] >= 3
+            assert info["smem_bytes"] <= 232448
+
+
+@pytest.mark.cuda
+def test_sparse_wrappers_raise(cuda):
+    """The sparse kernel's wrappers refuse a CPU tensor, f32, block sizes
+    other than 32 (its plan too) and an empty N; its packing refuses f32
+    weights and block ids of another dtype."""
+    op = BlocksparseMatMul(_sparse_layout(seed=9), block_size=32,
+                           feature_axis=1)
+    lut, plan = op._lut(cuda), op._plan_tensors(cuda, "sparse", "f")
+    csr = (lut["f_row_ptr"], lut["f_ent_in"], lut["f_ent_w"], 32, op.KB)
+    x = torch.randn((64, op.C), device=cuda).bfloat16()
+    w = torch.randn(op.w_shape, device=cuda).bfloat16()
+    with pytest.raises(ValueError):
+        bsmm_kernels.bsmm_fprop(x.cpu(), w.cpu(), *csr, plan=plan)
+    with pytest.raises(TypeError):
+        bsmm_kernels.bsmm_fprop(x.float(), w.float(), *csr, plan=plan)
+    with pytest.raises(ValueError):
+        bsmm_kernels.bsmm_fprop(x[:0], w, *csr, plan=plan)
+    with pytest.raises(ValueError):
+        bsmm_kernels.xprop_sparse_plan([0, 1], [0], [0], 64)
+    with pytest.raises(ValueError):
+        bsmm_kernels.xprop_sparse_pack(w.float(), plan["w_order"], 32)
+    with pytest.raises(ValueError):
+        bsmm_kernels.xprop_sparse_pack(w, plan["w_order"].int(), 32)
 
 
 @pytest.mark.cuda

@@ -1,10 +1,11 @@
 """The bf16/f16 block-sparse matmul kernels on wgmma against those on
 mma.sync, on one CUDA card, alone: ``chip_smoke.py``'s block-size checks of
-the xprop and updat kernels (every block size, bf16 and f16, both
+the xprop and updat kernels (every block size, bf16 and f16, all the
 kernels, two runs bit-equal, the split route bit for bit against
-``bsmm_partials`` + ``bsmm_merge``) and its wgmma phase (both kernels in
-turns at the main path's shapes beside the bound and the library call,
-their registers and spills), without the rest of the smoke run.
+``bsmm_partials`` + ``bsmm_merge``, the sparse xprop against the wgmma
+one) and its wgmma phase (the kernels in turns at the main path's shapes
+beside the bound and the library call, their registers and spills),
+without the rest of the smoke run.
 
     python tools/bsmm_wgmma_bench.py          # from the repo root, one GPU
 
@@ -19,7 +20,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 SOURCES = ("bsmm_xprop_wgmma", "bsmm_updat_wgmma", "bsmm_xprop_mma",
-           "bsmm_updat_mma", "bsmm_merge")
+           "bsmm_updat_mma", "bsmm_merge", "bsmm_xprop_sparse")
 
 
 def main():
