@@ -26,9 +26,13 @@ that share their entry lists (``xprop_groups``), or one column, at an
 N-tile chosen by N (``xprop_tile``), through a ``cp.async`` ring, each
 output one fmaf chain in LUT order.  ``bsmm_updat`` (dw[e] = x_cᵀ·dy_k summed over N, in f32)
 replaces ``updat_pallas_dense_tile`` and, for canonical weights,
-``updat_pallas_grouped`` and ``updat_pallas``.  Both of its kernels run
-over the layout's blocks in groups that share one staged x (or dy) tile
+``updat_pallas_grouped`` and ``updat_pallas``.  Its kernels run over the
+layout's blocks in groups that share one staged x (or dy) tile
 (``updat_plan``).  bf16 and f16 run on the tensor cores,
+``csrc/bsmm_updat_sparse.cu`` (``wgmma`` fed by TMA over
+``updat_sparse_plan``'s groups: bundles of the wider operand's
+block-rows that name the same blocks of the other, so a slot's tile
+serves all of a bundle's; the conv's and the LM's products),
 ``csrc/bsmm_updat_wgmma.cu`` (``wgmma`` fed by TMA) or
 ``csrc/bsmm_updat_mma.cu`` (``mma.sync``) as ``updat_kernel`` says, N cut
 into runs where the groups alone would leave SMs idle (``updat_splits``),
@@ -153,6 +157,21 @@ XPROP_WG_SHARE_BLOCK_SIZES = (128,)
 # the updat's unsplit runs from which the mma.sync kernel is kept
 # (updat_kernel)
 UPDAT_WG_LONG_RUN = 8192
+# bsmm_updat_sparse.cu (wgmma fed by TMA over updat_sparse_plan's bundles):
+# the block sizes it takes and, for each, the bundle sizes R it is built
+# for (a bundle: R block-rows of the shared operand, D's n = R * b); the
+# plan's cost of a bundle size weighs a byte read against
+# UPDAT_SP_FLOPS_PER_BYTE operations (the H100's 989 TFLOP/s of bf16
+# products over the ~6 TB/s the updat kernels drew from L2: PERF.md)
+UPDAT_SP_BUNDLES = {32: (1, 2, 3, 4), 64: (1, 2)}
+UPDAT_SP_FLOPS_PER_BYTE = 165
+# the share of updat_plan's tiles (a token row) at most which the updat
+# takes bsmm_updat_sparse.cu (updat_kernel): in the H100 runs of PERF.md
+# the LM's products (0.59 of the tiles) took 0.62-0.84x
+# bsmm_updat_wgmma.cu's time at N 1,024-16,384, the MoE's dense bsmm1
+# (0.33) 0.89x, the conv's (0.43-0.48) 0.26-0.57x; bench.py's random
+# 8192² op (1.0: no two x block-rows alike) 1.05x
+UPDAT_SP_MAX_TILES = 0.8
 # bsmm_xprop_sparse.cu (wgmma fed by a TMA x box of 64 input features, a
 # pair of input blocks, and one bulk copy of the stage's packed weight
 # blocks): the block sizes it takes and the input features a stage
@@ -440,27 +459,108 @@ def updat_plan(ent_c, ent_k, bsize):
     return {**by_k, "by_c": False}
 
 
+def _bundles(q_ent, p_ent, R, G):
+    """``updat_sparse_plan``'s groups for bundles of R shared blocks (see
+    there), and the tiles (shared and slot blocks) they read a token
+    row."""
+    order = np.lexsort((p_ent, q_ent))
+    q_s, p_s = q_ent[order], p_ent[order]
+    starts = np.flatnonzero(np.r_[True, q_s[1:] != q_s[:-1]])
+    ends = np.r_[starts[1:], len(q_s)]
+    sets = {}             # a shared block's other blocks -> shared blocks
+    for a, b in zip(starts, ends):
+        sets.setdefault(p_s[a:b].tobytes(), []).append(int(q_s[a]))
+    bundles, left = [], []
+    for rows in sets.values():
+        full = len(rows) // R * R
+        bundles += [rows[i:i + R] for i in range(0, full, R)]
+        left += rows[full:]
+    left.sort()
+    bundles += [left[i:i + R] for i in range(0, len(left), R)]
+    bundles.sort()
+    block = {(int(q), int(p)): int(e)
+             for q, p, e in zip(q_s, p_s, order)}
+    grp_q, slot_p, slot_e = [], [], []
+    tiles = 0
+    for rows in bundles:
+        cols = np.unique(np.concatenate(
+            [p_s[starts[i]:ends[i]] for i in
+             np.searchsorted(q_s[starts], rows)]))
+        parts = np.array_split(cols, -(-len(cols) // G))
+        tiles += len(cols) + len(parts) * len(rows)
+        for part in parts:
+            grp_q.append(rows + [-1] * (R - len(rows)))
+            slot_p.append(list(part) + [-1] * (G - len(part)))
+            slot_e.append([[block.get((q, int(p)), -1) for q in rows]
+                           + [-1] * (R - len(rows)) for p in part]
+                          + [[-1] * R] * (G - len(part)))
+    n = len(grp_q)
+    return {"grp_q": np.array(grp_q, np.int32).reshape(n, R),
+            "slot_p": np.array(slot_p, np.int32).reshape(n, G),
+            "slot_e": np.array(slot_e, np.int32).reshape(n, G, R),
+            "R": R, "tiles": tiles}
+
+
+def updat_sparse_plan(ent_c, ent_k, bsize, widths):
+    """``csrc/bsmm_updat_sparse.cu``'s plan over the layout's blocks (the
+    updat list ent_c, ent_k) for x of C and dy of K features, ``widths`` =
+    (C, K).  The shared operand Q is the wider one (x on a tie: "by_c"),
+    so the narrower, re-read a block, is the one whose token rows the L2
+    holds; P is the other.  Q's block-rows (x block-rows by_c, else dy
+    block-columns) are cut into bundles of R: those whose P blocks are the
+    same set first (the conv's taps of one input block), R to a bundle in
+    ascending order, then the rest in ascending order, R to a bundle; the
+    union of a bundle's P blocks, ascending, is cut into near-equal groups
+    of at most G = UPDAT_ROWS // bsize slots, the larger first, so that a
+    thread block stages a slot's P tile once for all R of the bundle's Q
+    tiles.  R is the one of UPDAT_SP_BUNDLES[bsize] whose groups cost
+    least a token row: 2 · bsize bytes a tile read (a group's Q tiles and
+    slots) plus 2 · bsize² operations a (slot, Q tile) product over
+    UPDAT_SP_FLOPS_PER_BYTE; the smaller R on a tie.  Groups in bundle
+    order (a bundle's consecutive), bundles by their first Q block.
+    grp_q (groups, R): a group's Q blocks, -1 past the bundle's last;
+    slot_p (groups, G): its slots' P blocks, -1 past the last (slots fill
+    from 0); slot_e (groups, G, R): the block id of (slot, Q block), -1
+    where the layout has none.  Arrays int32; R, by_c and tiles (the
+    tiles a token row the groups read)."""
+    if bsize not in UPDAT_SP_BUNDLES:
+        raise ValueError(f"updat_sparse_plan takes block sizes "
+                         f"{tuple(UPDAT_SP_BUNDLES)}, got {bsize}")
+    ent_c, ent_k = (np.asarray(a, np.int64) for a in (ent_c, ent_k))
+    by_c = widths[0] >= widths[1]
+    q_ent, p_ent = (ent_c, ent_k) if by_c else (ent_k, ent_c)
+    G = UPDAT_ROWS // bsize
+    best, best_cost = None, None
+    for R in UPDAT_SP_BUNDLES[bsize]:
+        plan = _bundles(q_ent, p_ent, R, G)
+        cost = 2 * bsize * plan["tiles"] + 2 * bsize ** 2 * G * R * len(
+            plan["grp_q"]) / UPDAT_SP_FLOPS_PER_BYTE
+        if best is None or cost < best_cost:
+            best, best_cost = plan, cost
+    return {**best, "by_c": by_c}
+
+
 def updat_splits(N, groups, bsize, sm_count, kernel="mma"):
     """The updat's N split: the number S of runs to cut N rows into (1 =
     unsplit).  It splits when the plan's ``groups`` thread blocks are fewer
     than UPDAT_WAVES waves of the card's resident ones, target =
     UPDAT_WAVES · resident · sm_count (resident: UPDAT_RESIDENT[bsize]
     thread blocks an SM for ``kernel`` "mma", UPDAT_WG_RESIDENT for
-    "wgmma"), and N holds two runs of UPDAT_MIN_RUN rows; then S =
-    min(UPDAT_MAX_SPLIT, ceil(target / groups), N // UPDAT_MIN_RUN).  For
-    "wgmma" (one thread block an SM, so a last wave left part empty costs
-    a whole wave) S is then the count of S .. min(2 S, UPDAT_MAX_SPLIT,
-    N // UPDAT_MIN_RUN) runs whose groups · S thread blocks fill their
-    last wave best, the smallest on a tie.  Shapes and the SM count
-    only."""
-    resident = UPDAT_WG_RESIDENT if kernel == "wgmma" else \
-        UPDAT_RESIDENT[bsize]
+    "wgmma" and "sparse"), and N holds two runs of UPDAT_MIN_RUN rows; then
+    S = min(UPDAT_MAX_SPLIT, ceil(target / groups), N // UPDAT_MIN_RUN).
+    For "wgmma" and "sparse" (one thread block an SM, so a last wave left
+    part empty costs a whole wave) S is then the count of S .. min(2 S,
+    UPDAT_MAX_SPLIT, N // UPDAT_MIN_RUN) runs whose groups · S thread
+    blocks fill their last wave best, the smallest on a tie.  Shapes and
+    the SM count only."""
+    resident = UPDAT_RESIDENT[bsize] if kernel == "mma" else \
+        UPDAT_WG_RESIDENT
     target = UPDAT_WAVES * resident * sm_count
     if groups >= target or N < 2 * UPDAT_MIN_RUN:
         return 1
     cap = min(UPDAT_MAX_SPLIT, N // UPDAT_MIN_RUN)
     splits = min(cap, -(-target // groups))
-    if kernel != "wgmma":
+    if kernel == "mma":
         return splits
     wave = resident * sm_count
     return max(range(splits, min(cap, 2 * splits) + 1),
@@ -471,10 +571,10 @@ def updat_splits(N, groups, bsize, sm_count, kernel="mma"):
 def updat_run_rows(N, splits, kernel="mma"):
     """Token rows a run of the split holds: ceil(N / splits) rounded up to
     a ring stage of ``kernel`` (UPDAT_TN for "mma", UPDAT_WG_TN for
-    "wgmma"); all of N unsplit."""
+    "wgmma" and "sparse"); all of N unsplit."""
     if splits <= 1:
         return N
-    tn = UPDAT_WG_TN if kernel == "wgmma" else UPDAT_TN
+    tn = UPDAT_TN if kernel == "mma" else UPDAT_WG_TN
     per_run = -(-N // splits)
     return -(-per_run // tn) * tn
 
@@ -641,19 +741,27 @@ def xprop_kernel(N, bsize, n_out, sm_count, share):
         share >= XPROP_WG_MIN_SHARE else "mma"
 
 
-def updat_kernel(N, bsize, groups, sm_count):
+def updat_kernel(N, bsize, groups, sm_count, tiles=None):
     """The bf16/f16 updat's kernel for a product of N rows over
-    ``updat_plan``'s ``groups`` on a card of ``sm_count`` SMs: "wgmma"
-    (``csrc/bsmm_updat_wgmma.cu``, one resident thread block an SM) at
-    the block sizes it takes, but where the groups alone fill UPDAT_WAVES
-    waves of it (no N split) over runs of at least UPDAT_WG_LONG_RUN rows;
-    else "mma" (``csrc/bsmm_updat_mma.cu``, two resident thread blocks an
-    SM).  The H100 runs in PERF.md set the exception: the conv's
-    C=2048 updat, 1,251 groups over N 32,768, took 3.6% longer on the
-    wgmma kernel, and bench.py's 8192² op, ~2,300 groups over N 2,048,
-    33% less.  Shapes, the plan's count and the SM count only."""
+    ``updat_plan``'s ``groups`` on a card of ``sm_count`` SMs, ``tiles`` =
+    (the tiles a token row ``updat_sparse_plan``'s groups read, those
+    ``updat_plan``'s read: blocks + groups) where the layout's block size
+    is one ``csrc/bsmm_updat_sparse.cu`` takes: "sparse" (that kernel)
+    where its plan reads at most UPDAT_SP_MAX_TILES of the tiles; else
+    "wgmma" (``csrc/bsmm_updat_wgmma.cu``, one resident thread block an
+    SM) at the block sizes it takes, but where the groups alone fill
+    UPDAT_WAVES waves of it (no N split) over runs of at least
+    UPDAT_WG_LONG_RUN rows; else "mma" (``csrc/bsmm_updat_mma.cu``, two
+    resident thread blocks an SM).  The H100 runs in PERF.md set both
+    (UPDAT_SP_MAX_TILES; the conv's C=2048 updat, 1,251 groups over N
+    32,768, took 3.6% longer on the wgmma kernel than on the mma.sync
+    one, and bench.py's 8192² op, ~2,300 groups over N 2,048, 33% less).
+    Shapes, the plans' counts and the SM count only."""
     if bsize not in WGMMA_BLOCK_SIZES or N < 1:
         return "mma"
+    if tiles is not None and bsize in UPDAT_SP_BUNDLES and \
+            tiles[0] <= UPDAT_SP_MAX_TILES * tiles[1]:
+        return "sparse"
     unsplit = groups >= UPDAT_WAVES * UPDAT_WG_RESIDENT * sm_count
     return "mma" if unsplit and N >= UPDAT_WG_LONG_RUN else "wgmma"
 
@@ -675,6 +783,7 @@ _UPDAT_ARGS = [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
 _MERGE_ARGS = [_I, _I, _P, _P, _P, _I, _I, _I, _I, _P]
 _UPDAT_MMA_ARGS = [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                    _I, _I, _P]
+_UPDAT_SP_ARGS = [_I] * 4 + [_P] * 6 + [_I] * 7 + [_P]
 _REDUCE_ARGS = [_P, _P, _I, _I, _P]
 _PACK_ARGS = [_I, _P, _P, _P, ctypes.c_longlong, _P]
 
@@ -1055,22 +1164,26 @@ def bsmm_updat(x, dy, ent_c, ent_k, bsize, plan=None, splits=1,
     over N, on the card.  x (N, C), dy (N, K): contiguous, one dtype (f32,
     bf16 or f16); ent_c, ent_k: (blocks,) int32, the updat list; ``plan``:
     ``updat_plan``'s groups (grp_q, slot_p, slot_e as int32 tensors on x's
-    device, and by_c).
+    device, and by_c), or for ``kernel`` "sparse" ``updat_sparse_plan``'s
+    (and its R).
 
     f32 runs ``csrc/bsmm_updat.cu`` on the CUDA cores over the plan's
     groups, each output one chain over all of N (``splits`` is not read).
     bf16 and f16 run on the tensor cores over the plan, ``kernel`` "mma"
-    ``csrc/bsmm_updat_mma.cu`` (mma.sync) or "wgmma"
+    ``csrc/bsmm_updat_mma.cu`` (mma.sync), "wgmma"
     ``csrc/bsmm_updat_wgmma.cu`` (wgmma fed by TMA: block sizes of
-    WGMMA_BLOCK_SIZES, N >= 1; counted in ``launches_wgmma`` too); with
-    ``splits`` > 1 in runs of ``updat_run_rows(N, splits, kernel)`` rows,
-    whose f32 partials ``bsmm_updat_reduce`` sums in order.  Each sum runs
-    in a fixed order."""
+    WGMMA_BLOCK_SIZES, N >= 1; counted in ``launches_wgmma`` too) or
+    "sparse" ``csrc/bsmm_updat_sparse.cu`` (wgmma fed by TMA over the
+    sparse plan's bundles: block sizes of UPDAT_SP_BUNDLES, N >= 1;
+    counted in ``launches_sparse`` too); with ``splits`` > 1 in runs of
+    ``updat_run_rows(N, splits, kernel)`` rows, whose f32 partials
+    ``bsmm_updat_reduce`` sums in order.  Each sum runs in a fixed
+    order."""
     if plan is None:
         raise ValueError("bsmm_updat runs over updat_plan's groups: pass plan")
-    if kernel not in ("mma", "wgmma"):
-        raise ValueError(f"bsmm_updat's kernel is 'mma' or 'wgmma', got "
-                         f"{kernel!r}")
+    if kernel not in ("mma", "wgmma", "sparse"):
+        raise ValueError(f"bsmm_updat's kernel is 'mma', 'wgmma' or "
+                         f"'sparse', got {kernel!r}")
     grp_q, slot_p, slot_e = plan["grp_q"], plan["slot_p"], plan["slot_e"]
     _check_common("bsmm_updat", x, (("dy", dy),), bsize,
                   (("ent_c", ent_c), ("ent_k", ent_k), ("grp_q", grp_q),
@@ -1087,16 +1200,24 @@ def bsmm_updat(x, dy, ent_c, ent_k, bsize, plan=None, splits=1,
         raise ValueError("x and dy must be contiguous")
     if ent_c.numel() != ent_k.numel():
         raise ValueError("ent_c and ent_k must have one entry per block")
-    groups, G = grp_q.numel(), UPDAT_ROWS // bsize
-    if slot_p.shape != (groups, G) or slot_e.shape != (groups, G):
-        raise ValueError(f"slot_p and slot_e must be ({groups}, {G})")
+    sparse, wgmma = kernel == "sparse", kernel == "wgmma"
+    R = plan["R"] if sparse else 1
+    groups, G = grp_q.shape[0] if grp_q.dim() else 0, UPDAT_ROWS // bsize
+    shapes = ((groups, R), (groups, G), (groups, G, R)) if sparse else \
+        ((groups,), (groups, G), (groups, G))
+    if (grp_q.shape, slot_p.shape, slot_e.shape) != shapes:
+        raise ValueError(f"grp_q, slot_p and slot_e must be {shapes}, got "
+                         f"{tuple(grp_q.shape)}, {tuple(slot_p.shape)}, "
+                         f"{tuple(slot_e.shape)}")
     (N, C), K, blocks = x.shape, dy.shape[1], ent_c.numel()
     f32 = x.dtype == torch.float32
-    wgmma = kernel == "wgmma"
-    if wgmma and (f32 or bsize not in WGMMA_BLOCK_SIZES or N < 1):
-        raise ValueError(f"bsmm_updat on bsmm_updat_wgmma.cu takes bf16 or "
-                         f"f16, block sizes {WGMMA_BLOCK_SIZES} and N >= 1, "
-                         f"got {x.dtype}, {bsize}, N={N}")
+    takes = UPDAT_SP_BUNDLES if sparse else WGMMA_BLOCK_SIZES
+    if kernel != "mma" and (f32 or bsize not in takes or N < 1 or (
+            sparse and R not in UPDAT_SP_BUNDLES[bsize])):
+        raise ValueError(f"bsmm_updat on bsmm_updat_{kernel}.cu takes bf16 "
+                         f"or f16, block sizes {tuple(takes)} and N >= 1, "
+                         f"got {x.dtype}, {bsize}, N={N}"
+                         + (f", R={R}" if sparse else ""))
     x, dy = _aligned(x), _aligned(dy)
     p, q, ldp, ldq = (dy, x, K, C) if plan["by_c"] else (x, dy, C, K)
     ptrs = (p.data_ptr(), q.data_ptr(), grp_q.data_ptr(), slot_p.data_ptr(),
@@ -1111,8 +1232,14 @@ def bsmm_updat(x, dy, ent_c, ent_k, bsize, plan=None, splits=1,
             err = _build.function("bsmm_updat", "bsmm_updat_nc", _UPDAT_ARGS)(
                 0, bsize, int(plan["by_c"]), *ptrs, out.data_ptr(), N, ldp,
                 ldq, groups, _stream(x))
+        elif sparse:
+            err = _build.function(
+                "bsmm_updat_sparse", "bsmm_updat_sparse_nc", _UPDAT_SP_ARGS)(
+                _DTYPE_CODE[x.dtype], bsize, R, int(plan["by_c"]), *ptrs,
+                out.data_ptr(), N, ldp, ldq, groups, runs, rows, blocks,
+                _stream(x))
         else:
-            source = "bsmm_updat_wgmma" if wgmma else "bsmm_updat_mma"
+            source = f"bsmm_updat_{kernel}"
             err = _build.function(source, f"{source}_nc", _UPDAT_MMA_ARGS)(
                 _DTYPE_CODE[x.dtype], bsize, int(plan["by_c"]), *ptrs,
                 out.data_ptr(), N, ldp, ldq, groups, runs, rows, blocks,
@@ -1121,6 +1248,7 @@ def bsmm_updat(x, dy, ent_c, ent_k, bsize, plan=None, splits=1,
         raise RuntimeError(f"bsmm_updat launch failed: cudaError {err}")
     bsmm_updat.launches += 1
     bsmm_updat.launches_wgmma += wgmma
+    bsmm_updat.launches_sparse += sparse
     return out if runs == 1 else bsmm_updat_reduce(out)
 
 
@@ -1177,6 +1305,8 @@ bsmm_updat.launches_wgmma = 0
 # and of the sparse column groups' kernel (bsmm_xprop_sparse.cu)
 bsmm_fprop.launches_sparse = 0
 bsmm_bprop.launches_sparse = 0
+# and of the updat's on bsmm_updat_sparse.cu
+bsmm_updat.launches_sparse = 0
 xprop_sparse_pack.launches = 0
 bsmm_updat_reduce.launches = 0
 bsmm_fine.launches = 0

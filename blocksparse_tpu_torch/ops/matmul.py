@@ -64,7 +64,8 @@ class BlocksparseMatMul:
     mode: which kernel fprop and bprop run on a CUDA tensor (the
         function is the same; updat always runs ``bsmm_updat`` over
         ``updat_plan``'s groups, in bf16 and f16 on the kernel
-        ``kernels.bsmm.updat_kernel`` picks, N split by
+        ``kernels.bsmm.updat_kernel`` picks (over
+        ``updat_sparse_plan``'s bundles for "sparse"), N split by
         ``updat_splits``):
         - "fine" with block_size <= 32: ``bsmm_fine`` (the JAX fine
           schedule), 128-deep chunks of each output column's entries;
@@ -580,7 +581,14 @@ class BlocksparseMatMul:
         key = (N, sms)
         if key not in self._updat_runs:
             groups = len(self._plan("updat", "u")["grp_q"])
-            kernel = bsmm_kernels.updat_kernel(N, self.bsize, groups, sms)
+            tiles = None
+            if self.bsize in bsmm_kernels.UPDAT_SP_BUNDLES:
+                tiles = (self._plan("updat_sparse", "u")["tiles"],
+                         self.blocks + groups)
+            kernel = bsmm_kernels.updat_kernel(N, self.bsize, groups, sms,
+                                               tiles)
+            if kernel == "sparse":
+                groups = len(self._plan("updat_sparse", "u")["grp_q"])
             self._updat_runs[key] = kernel, bsmm_kernels.updat_splits(
                 N, groups, self.bsize, sms, kernel)
         return self._updat_runs[key]
@@ -618,7 +626,8 @@ class BlocksparseMatMul:
 
     def _plan(self, kind, d, phases=0):
         """The host-side plan (NumPy) of a route, built once (kind "updat":
-        the updat's groups, d "u"; kind "xgroup": ``bsmm_fprop.cu``'s
+        the updat's groups, d "u"; kind "updat_sparse": those of
+        ``bsmm_updat_sparse.cu``, d "u"; kind "xgroup": ``bsmm_fprop.cu``'s
         column groups over direction d's CSR, or with ``phases`` over the
         split plan's tiles; kind "wgmma": ``bsmm_xprop_wgmma.cu``'s column
         groups and their items over direction d's CSR; kind "sparse":
@@ -630,6 +639,10 @@ class BlocksparseMatMul:
             if kind == "updat":
                 plan = bsmm_kernels.updat_plan(
                     self.updat_lut[:, 0], self.updat_lut[:, 1], self.bsize)
+            elif kind == "updat_sparse":
+                plan = bsmm_kernels.updat_sparse_plan(
+                    self.updat_lut[:, 0], self.updat_lut[:, 1], self.bsize,
+                    (self.C, self.K))
             elif kind == "wgmma":
                 plan = bsmm_kernels.xprop_wgmma_plan(row_ptr, ib, wb,
                                                      self.bsize)
@@ -772,9 +785,10 @@ class BlocksparseMatMul:
         xn, dyn = self._nc(x), self._nc(dy)
         kernel, splits = self._updat_route(xn.shape[0], x.dtype,
                                            device_sm_count(x.device))
-        return bsmm_kernels.bsmm_updat(
-            xn, dyn, lut["u_c32"], lut["u_k32"], self.bsize,
-            self._plan_tensors(x.device, "updat", "u"), splits, kernel)
+        plan = self._plan_tensors(
+            x.device, "updat_sparse" if kernel == "sparse" else "updat", "u")
+        return bsmm_kernels.bsmm_updat(xn, dyn, lut["u_c32"], lut["u_k32"],
+                                       self.bsize, plan, splits, kernel)
 
     def matmul(self, I, W, **kwargs):
         return self.__call__(I, W, **kwargs)

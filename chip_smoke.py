@@ -21,21 +21,25 @@ partial tiles and fused split, the latter bit for bit against the
 partials merged, the sparse kernel bit for bit against the wgmma one);
 ``bsmm_fprop.cu`` in f32; their times come with TFLOP/s.  The launches
 of the train step, the conv and the packed stores on the sparse kernel
-are counted against what ``kernel_of`` names.  The weight gradient (updat) runs
-``bsmm_updat_wgmma.cu`` or ``bsmm_updat_mma.cu`` (``updat_kernel``) on
-the tensor cores in bf16 and f16, over the layout's blocks in groups that
-share a staged tile, with N split into runs where the groups alone would
-leave SMs idle and the runs' partials summed in order by
-``bsmm_updat_mma.cu``'s second kernel (``bsmm_updat_reduce``); both are
-held against their plain version at every block size they take, split
-and unsplit, two runs equal bit for bit, and ``bsmm_updat.cu`` in f32.
-The wgmma phase then times the kernels of each direction in turns (the
-three xprop kernels at b32) at the main path's shapes (the LM's products
-at N 1,024-16,384, the conv's at C 512, 1024 and 2048, the MoE's bsmm1,
-bench.py's random 8192² op) beside the bound, the library call, a call's
-host time and each source's registers and spills; the captured train
-step is also timed against the same step with the xprop on
-``bsmm_xprop_wgmma.cu``, in turns.  The f32
+are counted against what ``kernel_of`` names.  The weight gradient
+(updat) runs ``bsmm_updat_sparse.cu`` (``wgmma`` fed by TMA over bundles
+of the wider operand's block-rows that share the narrower one's tiles:
+the conv's and the LM's), ``bsmm_updat_wgmma.cu`` or ``bsmm_updat_mma.cu``
+(``updat_kernel``) on the tensor cores in bf16 and f16, over the
+layout's blocks in groups that share a staged tile, with N split into
+runs where the groups alone would leave SMs idle and the runs' partials
+summed in order by ``bsmm_updat_mma.cu``'s second kernel
+(``bsmm_updat_reduce``); all are held against their plain version at
+every block size they take, split and unsplit, two runs equal bit for
+bit, and ``bsmm_updat.cu`` in f32.  The wgmma phase then times the
+kernels of each direction in turns (the three xprop kernels at b32, the
+three updat kernels at b32 and b64) at the main path's shapes (the LM's
+products at N 1,024-16,384, the conv's at C 512, 1024 and 2048, the
+MoE's bsmm1, bench.py's random 8192² op) beside the bound, the library
+call, a call's host time and each source's registers and spills; the
+captured train step is also timed against the same step with the updat
+on ``bsmm_updat_wgmma.cu`` (the route before ``bsmm_updat_sparse.cu``),
+in turns.  The f32
 kernels (``bsmm_fprop.cu``: an SGEMM-style kernel over the op's column
 groups at an N-tile chosen by N, each output one fmaf chain in LUT
 order; ``bsmm_updat.cu`` over ``updat_plan``'s groups, one chain over N)
@@ -324,7 +328,8 @@ SOURCES = ("bsmm_xprop_mma", "bsmm_fprop", "bsmm_updat_mma", "bsmm_updat",
            "bsmm_fine_mma", "bsmm_fine", "bsmm_window_mma", "bsmm_window",
            "bsmm_merge", "bst_nt_mma", "bst_nt", "bst_xn_mma", "bst_xn",
            "bsmm_xprop_wgmma", "bsmm_updat_wgmma", "bst_attn_fwd_wgmma",
-           "bst_attn_dkv_wgmma", "bst_attn_dq_wgmma", "bsmm_xprop_sparse")
+           "bst_attn_dkv_wgmma", "bst_attn_dq_wgmma", "bsmm_xprop_sparse",
+           "bsmm_updat_sparse")
 # the flagship LM (enwik8's widths, the repo's fixed layout at 2048 tokens)
 FLAGSHIP = dict(n_vocab=256, n_embd=512, n_layer=6, n_head=8, ctx=2048,
                 blk_size=64, attn_layout="fixed", local_blocks=8,
@@ -1286,8 +1291,8 @@ def updat_block_size_checks(bt, dev, g):
     block size, in bf16 and f16, unsplit and split, on the layout of the
     xprop sweep and its transpose (groups by x block-row and by dy
     block-column), each run twice for equal bits: the op's route, and
-    bsmm_updat_mma.cu and bsmm_updat_wgmma.cu (the block sizes it takes)
-    each with its own split."""
+    bsmm_updat_mma.cu, bsmm_updat_wgmma.cu and bsmm_updat_sparse.cu (the
+    block sizes they take) each with its own plan and split."""
     from blocksparse_tpu_torch.kernels import bsmm as bk
     sms = bk.device_sm_count(dev)
     rng = np.random.RandomState(SEED + 1)
@@ -1299,12 +1304,10 @@ def updat_block_size_checks(bt, dev, g):
             op = bt.BlocksparseMatMul(layout, block_size=b, feature_axis=1)
             plain = bt.BlocksparseMatMul(layout, block_size=b,
                                          feature_axis=1, impl="xla")
-            plan = op._plan("updat", "u")
-            planned = op._plan_tensors(dev, "updat", "u")
             lut = op._lut(dev)
-            groups = len(plan["grp_q"])
             kernels = ("mma", "wgmma") if b in bk.WGMMA_BLOCK_SIZES \
                 else ("mma",)
+            kernels += ("sparse",) if b in bk.UPDAT_SP_BUNDLES else ()
             for dtype in (torch.bfloat16, torch.float16):
                 for N in (XPROP_N, UPDAT_SPLIT_N):
                     x = torch.randn((N, op.C), device=dev,
@@ -1313,15 +1316,20 @@ def updat_block_size_checks(bt, dev, g):
                                      generator=g).to(dtype)
                     ref = plain._updat(x, dy)
                     for kernel in (None, *kernels):
+                        name = op.kernel_of(N, "u", dtype) if kernel is None \
+                            else f"bsmm_updat_{kernel}"
+                        kind = "updat_sparse" if name.endswith("_sparse") \
+                            else "updat"
+                        plan = op._plan(kind, "u")
+                        planned = op._plan_tensors(dev, kind, "u")
+                        groups = len(plan["grp_q"])
                         if kernel is None:      # the op's route
                             runs = op.updat_splits(N, dtype)
-                            name = op.kernel_of(N, "u", dtype)
 
                             def fn():
                                 return op._updat(x, dy)
                         else:
                             runs = bk.updat_splits(N, groups, b, sms, kernel)
-                            name = f"bsmm_updat_{kernel}"
 
                             def fn(kernel=kernel, runs=runs):
                                 return bk.bsmm_updat(
@@ -1333,7 +1341,9 @@ def updat_block_size_checks(bt, dev, g):
                         what = (f"{name}{'' if kernel else ' (route)'} b{b} "
                                 f"{op.C} -> {op.K} {op.blocks} blocks, "
                                 f"{groups} groups by "
-                                f"{'x' if plan['by_c'] else 'dy'} block, "
+                                f"{'x' if plan['by_c'] else 'dy'} block"
+                                + (f" (bundles of {plan['R']})"
+                                   if "R" in plan else "") + ", "
                                 f"N={N} in {runs} runs {dtype}")
                         same_bits(what, fn)
                         compare(what, fn(), ref, UPDAT_TOL)
@@ -1355,14 +1365,18 @@ def updat_block_size_checks(bt, dev, g):
 WG_CALLS = 20
 WG_NS = (16384, 8192, 4096, 2048, 1024)
 WG_PLAIN_BYTES = 2 ** 31
-WG_SOURCES = ("bsmm_xprop_wgmma", "bsmm_updat_wgmma", "bsmm_xprop_sparse")
-# the wgmma kernels' dynamic shared memory a thread block by block size,
-# as their sources' smem_bytes() count it (1 KB of alignment, the ring,
-# the xprop's staged output tile, two mbarriers a stage, and the sparse
-# kernel's slot mask a stage)
+WG_SOURCES = ("bsmm_xprop_wgmma", "bsmm_updat_wgmma", "bsmm_xprop_sparse",
+              "bsmm_updat_sparse")
+# the wgmma kernels' dynamic shared memory a thread block by block size
+# (the sparse updat's by its bundle size R = 1, 2, ...), as their sources'
+# smem_bytes() count it (1 KB of alignment, the ring, the xprop's staged
+# output tile, two mbarriers a stage, and the sparse xprop's slot mask a
+# stage)
 WG_SMEM = {"bsmm_xprop_wgmma": {32: 216160, 64: 216112, 128: 216112},
            "bsmm_updat_wgmma": {32: 185424, 64: 164928, 128: 197696},
-           "bsmm_xprop_sparse": {32: 216124}}
+           "bsmm_xprop_sparse": {32: 216124},
+           "bsmm_updat_sparse": {32: (185424, 164928, 181312, 197696),
+                                 64: (164928, 197696)}}
 
 
 def wgmma_cases(bt, model):
@@ -1388,12 +1402,24 @@ def wgmma_cases(bt, model):
     return cases
 
 
+def updat_plain_chunked(x, dy, ent_c, ent_k, b):
+    """``updat_plain`` (NC orientation) over the layout's blocks in chunks
+    whose gathered (N, chunk, b) f32 x and dy take at most WG_PLAIN_BYTES
+    together: the same function, each block the same sum."""
+    from blocksparse_tpu_torch.kernels import bsmm as bk
+    step = max(1, WG_PLAIN_BYTES // (8 * x.shape[0] * b))
+    return torch.cat([bk.updat_plain(x, dy, ent_c[i:i + step],
+                                     ent_k[i:i + step], b, 1)
+                      for i in range(0, ent_c.numel(), step)])
+
+
 def wgmma_pair(op, N, d, dev, g):
     """{"mma": fn, "wgmma": fn[, "sparse": fn]} of direction d ("f", "b",
     "u") of ``op`` at N rows, bf16, on the two kernels (the updat each
-    with its own split and the reduce) and at b32 the xprop's sparse one
-    (its weights' packing and the kernel), the route's plain version, the
-    bound's (flops, bytes) and the library call."""
+    with its own split and the reduce), at b32 the xprop's sparse one
+    (its weights' packing and the kernel) and at b32 and b64 the updat's
+    (over its own plan, with its split and the reduce), the route's plain
+    version, the bound's (flops, bytes) and the library call."""
     from blocksparse_tpu_torch.kernels import bsmm as bk
     bf, b, sms = torch.bfloat16, op.bsize, bk.device_sm_count(dev)
     lut = op._lut(dev)
@@ -1404,15 +1430,17 @@ def wgmma_pair(op, N, d, dev, g):
     wd = dense_weight(op, w)
     if d == "u":
         dy = torch.randn((N, op.K), device=dev, generator=g).to(bf)
-        plan = op._plan_tensors(dev, "updat", "u")
-        groups = plan["grp_q"].numel()
 
         def run(kernel):
-            runs = bk.updat_splits(N, groups, b, sms, kernel)
+            plan = op._plan_tensors(
+                dev, "updat_sparse" if kernel == "sparse" else "updat", "u")
+            runs = bk.updat_splits(N, plan["grp_q"].shape[0], b, sms, kernel)
             return lambda: bk.bsmm_updat(x, dy, lut["u_c32"], lut["u_k32"],
                                          b, plan, runs, kernel)
-        fns = {k: run(k) for k in ("mma", "wgmma")}
-        plain = lambda: bk.updat_plain(x, dy, lut["u_c"], lut["u_k"], b, 1)
+        kernels = ("mma", "wgmma") + (
+            ("sparse",) if b in bk.UPDAT_SP_BUNDLES else ())
+        fns = {k: run(k) for k in kernels}
+        plain = lambda: updat_plain_chunked(x, dy, lut["u_c"], lut["u_k"], b)
         nbytes = 2 * N * (op.C + op.K) + 4 * op.blocks * b * b
         lib = lambda: x.t() @ dy
         tol = UPDAT_TOL
@@ -1480,30 +1508,33 @@ def host_ms(fn, n=50):
     return ms
 
 
-def wgmma_turns(bt, model, dev, g, card_line, rows):
-    """The wgmma phase (see WG_CALLS): at each case the kernels (two, or
-    at a b32 xprop three) held against the plain version (TOL, UPDAT_TOL)
+def wgmma_turns(bt, model, dev, g, card_line, rows, dirs="fbu"):
+    """The wgmma phase (see WG_CALLS) over the directions in ``dirs``: at
+    each case the kernels (two, or at a b32 xprop and a b32 or b64 updat
+    three) held against the plain version (TOL, UPDAT_TOL)
     and each run twice bit-equal, then timed in turns; printed beside the
     bound, the library call (dense torch.matmul of the scattered W, or
     x^T . dy) and the route the op takes, and at the train step's shape
     the profiler's device time a launch; the sparse route also split into
     its packing (``pack_row``) and its kernel alone (the profiler) at the
-    step's shape and the cases past the LM's; rows[("wg", label, d)] =
+    step's shape and the cases past the LM's, the sparse updat's kernel
+    alone (without its split's reduce) there too; rows[("wg", label, d)] =
     {kernel: [device ms, ...], "host": {kernel: ms}, ...}.  Then the
     sources' registers, spills and shared memory (ptxas)."""
     from blocksparse_tpu_torch.kernels import bsmm as bk
     bf, sms = torch.bfloat16, bk.device_sm_count(dev)
     t0 = time.perf_counter()
-    for label, op, N, dirs in wgmma_cases(bt, model):
-        for d in dirs:
+    for label, op, N, case_dirs in wgmma_cases(bt, model):
+        for d in (d for d in case_dirs if d in dirs):
             name = {"f": "fprop", "b": "bprop", "u": "updat"}[d]
             fns, plain, (flops, nbytes), lib, tol = wgmma_pair(op, N, d, dev,
                                                                g)
             src = "bsmm_updat" if d == "u" else "bsmm_xprop"
             # the plain version gathers (N, blocks, b) f32: past
-            # WG_PLAIN_BYTES the wgmma kernel is held against the mma one
-            # (itself held against the plain version at the other shapes)
-            small = N * op.blocks * op.bsize * 4 <= WG_PLAIN_BYTES
+            # WG_PLAIN_BYTES the xprop's wgmma kernels are held against the
+            # mma one (itself held against the plain version at the other
+            # shapes); the updat's plain version runs in block chunks
+            small = d == "u" or N * op.blocks * op.bsize * 4 <= WG_PLAIN_BYTES
             ref = plain() if small else fns["mma"]()
             errs = {}
             for k, fn in fns.items():
@@ -1525,7 +1556,8 @@ def wgmma_turns(bt, model, dev, g, card_line, rows):
                                       "err": errs}
             at_step = N == BATCH * model.config.ctx and \
                 label.startswith("bsmm")
-            if "sparse" in fns and (at_step or not label.startswith("bsmm")):
+            if "sparse" in fns and d != "u" and (
+                    at_step or not label.startswith("bsmm")):
                 # the sparse route split into its weights' packing and
                 # its kernel, at the step's shape and the other cases
                 pack_row(op, d, dev, g, card_line,
@@ -1547,7 +1579,9 @@ def wgmma_turns(bt, model, dev, g, card_line, rows):
                       + ", ".join(f"{k} {' / '.join(f'{v:.4f}' for v in t)}"
                                   f" ms" for k, t in prof.items())
                       + " (turns" + ("; the sparse kernel's without its "
-                                     "packing" if "sparse" in prof else "")
+                                     + ("split's reduce" if d == "u" else
+                                        "packing")
+                                     if "sparse" in prof else "")
                       + ")", flush=True)
             mean = {k: float(np.mean(t)) for k, t in dev_ms.items()}
             best = min(mean, key=mean.get)
@@ -1588,11 +1622,16 @@ def wgmma_ptxas_report():
             check(i["local_bytes"] == 0 and i["blocks_per_sm"] >= 1 and
                   i["smem_bytes"] == WG_SMEM["bsmm_xprop_sparse"][32],
                   f"{what}: no spill, resident")
-    lib = _build.library_path("bsmm_xprop_sparse")
-    serial = [line for line in lib.with_name(lib.name + ".log").read_text()
-              .splitlines() if "C7520" in line]
-    check(not serial, f"bsmm_xprop_sparse.cu: ptxas serializes no wgmma "
-                      f"({len(serial)} warnings)")
+    for source in ("bsmm_xprop_sparse", "bsmm_updat_sparse"):
+        lib = _build.library_path(source)
+        serial = [line for line in lib.with_name(lib.name + ".log")
+                  .read_text().splitlines() if "C7520" in line]
+        check(not serial, f"{source}.cu: ptxas serializes no wgmma "
+                          f"({len(serial)} warnings)")
+    spilled = {k: v for k, v in ptxas_entries("bsmm_updat_sparse").items()
+               if v[1] or v[2]}
+    check(not spilled, f"bsmm_updat_sparse.cu: no instantiation spills "
+                       f"({len(spilled)} do)")
     for source in WG_SOURCES:
         entries = ptxas_entries(source)
         check(bool(entries), f"{source}.cu: kernels built")
@@ -2232,18 +2271,27 @@ def dense_filter(conv, F):
 
 def unsplit_xprop(trans):
     """A profiler name's test for the unsplit bf16/f16 xprop of one
-    direction: bsmm_xprop_mma_kernel<T, B, TRANS, OUT = 0, ...> or
-    bsmm_xprop_wgmma_kernel<T, B, TRANS>."""
+    direction: bsmm_xprop_mma_kernel<T, B, TRANS, OUT = 0, ...>,
+    bsmm_xprop_wgmma_kernel<T, B, TRANS> or bsmm_xprop_sparse_kernel<T, B,
+    TRANS> and its weights' packing (one a launch, no direction in its
+    name: the packings of both directions go to the fprop's part)."""
     flag = "true" if trans else "false"
     return lambda k: (f"bsmm_xprop_mma_kernel" in k and f", {flag}, 0, " in k) \
-        or (f"bsmm_xprop_wgmma_kernel" in k and f", {flag}>" in k)
+        or (("bsmm_xprop_wgmma_kernel" in k or "bsmm_xprop_sparse_kernel"
+             in k) and f", {flag}>" in k) \
+        or (not trans and "bsmm_xprop_sparse_pack" in k)
+
+
+# a profiler name's source (csrc/<name>.cu) among the conv's matmul kernels
+CONV_SOURCE = re.compile(r"bsmm_(?:xprop|updat)_(?:mma|wgmma|sparse)")
 
 
 CONV_PARTS = (("im2col", lambda k: "im2col_kernel" in k),
               ("bsmm fprop", unsplit_xprop(False)),
               ("bsmm bprop", unsplit_xprop(True)),
               ("bsmm updat", lambda k: "bsmm_updat_mma_kernel" in k
-               or "bsmm_updat_wgmma_kernel" in k),
+               or "bsmm_updat_wgmma_kernel" in k
+               or "bsmm_updat_sparse_kernel" in k),
               ("updat reduce", lambda k: "bsmm_updat_reduce_kernel" in k),
               ("col2im", lambda k: "col2im_tma_kernel" in k))
 
@@ -2265,7 +2313,10 @@ def profile_conv(fn, ms, label):
         hits = [e for e in rest if match(e.key)]
         rest = [e for e in rest if e not in hits]
         n = sum(e.count for e in hits)
-        parts.append(f"{name} {sum(e.self_device_time_total for e in hits) / 1e3:.3f} ms "
+        srcs = sorted({m.group(0) for e in hits
+                       for m in [CONV_SOURCE.search(e.key)] if m})
+        parts.append(f"{name}{' (' + ', '.join(srcs) + ')' if srcs else ''} "
+                     f"{sum(e.self_device_time_total for e in hits) / 1e3:.3f} ms "
                      f"({n})" if n or name == "updat reduce" else
                      f"{name} not measured (no record in {PROFILE_TRIES} "
                      f"windows)")
@@ -2284,17 +2335,20 @@ def conv_path(bt, dev, g, card_line, rows):
     counted.  Every configuration: the forward against the dense conv of
     the scattered filter, a counted forward, and the times.  Each counted
     run's xprop launches on bsmm_xprop_sparse.cu are those kernel_of
-    names.  Returns the counted forward + backward's launches, and the
-    sparse kernel's (with its packings) over all the counted runs."""
+    names; so are each configuration's updat launches on
+    bsmm_updat_sparse.cu, in one more counted forward + backward.  Returns
+    the counted forward + backward's launches, and the sparse kernels'
+    (the xprop's with its packings; "bsmm_updat": the updat's) over all
+    the counted runs."""
     bf = torch.bfloat16
     configs = conv_configs()
     launches = None
-    sparse_total = dict.fromkeys((*SPARSE_WRAPPERS, "pack"), 0)
+    sparse_total = dict.fromkeys((*SPARSE_WRAPPERS, "pack", "bsmm_updat"), 0)
+    N = CONV_BATCH * CONV_HW ** 2
 
     def sparse_as_named(conv, what, dirs):
         """The counted run's sparse launches against kernel_of's names."""
         got = read_sparse()
-        N = CONV_BATCH * CONV_HW ** 2
         want = {k: int(k in dirs and conv._bsmm_op.kernel_of(N, d)
                        == "bsmm_xprop_sparse")
                 for k, d in zip(SPARSE_WRAPPERS, "fb")}
@@ -2322,7 +2376,7 @@ def conv_path(bt, dev, g, card_line, rows):
             want.update({"im2col": 1, "bsmm_fprop": 1, "bsmm_bprop": 1,
                          "bsmm_updat": 1, "col2im": 1,
                          "bsmm_updat_reduce": int(conv._bsmm_op.updat_splits(
-                             CONV_BATCH * CONV_HW ** 2) > 1)})
+                             N) > 1)})
             check(launches == want, f"{what}: forward + backward launches "
                                     f"{launches}, expected {want}")
             sparse_as_named(conv, what, SPARSE_WRAPPERS)
@@ -2377,6 +2431,17 @@ def conv_path(bt, dev, g, card_line, rows):
             y = nnf.conv2d(xr, wr, padding=1)
             return torch.autograd.grad(y.float().square().sum(), (xr, wr))
         dense_fb_ms = time_ms(dense_fb, CONV_TIMED)
+        # the updat's launches on bsmm_updat_sparse.cu, as kernel_of names
+        # them
+        reset_counts()
+        conv_fwd_bwd(conv, F, x)
+        torch.cuda.synchronize()
+        got = counters()["bsmm_updat"].launches_sparse
+        src = conv._bsmm_op.kernel_of(N, "u")
+        check(got == int(src == "bsmm_updat_sparse"),
+              f"{what}: the backward's updat launches on "
+              f"bsmm_updat_sparse.cu {got}, as kernel_of names it ({src})")
+        sparse_total["bsmm_updat"] += got
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         print(f"{what} [{card_line}]: forward {fwd_ms:.3f} ms, forward + "
               f"backward {fb_ms:.3f} ms; dense cuDNN conv forward "
@@ -2451,7 +2516,7 @@ def reset_counts():
     counters()["bst_xn"].launches_tn = 0
     for name in WGMMA_WRAPPERS + ATTN_WGMMA_WRAPPERS:
         counters()[name].launches_wgmma = 0
-    for name in SPARSE_WRAPPERS:
+    for name in (*SPARSE_WRAPPERS, "bsmm_updat"):
         counters()[name].launches_sparse = 0
     bsmm.xprop_sparse_pack.launches = 0
 
@@ -3207,6 +3272,14 @@ def training_path(bt, model, plain, cfg, dev, card_line, profile_out):
           f"train step's first call: the xprop's launches on "
           f"bsmm_xprop_sparse.cu {sparse}, as kernel_of names them "
           f"{want_sp}, each with one packing of its weights")
+    sparse["bsmm_updat"] = counters()["bsmm_updat"].launches_sparse
+    want_u = launches["bsmm_updat"] * all(
+        op.kernel_of(tokens.numel(), "u") == "bsmm_updat_sparse"
+        for op in (model.bsmm1, model.bsmm2))
+    check(sparse["bsmm_updat"] == want_u,
+          f"train step's first call: the updat's launches on "
+          f"bsmm_updat_sparse.cu {sparse['bsmm_updat']}, as kernel_of names "
+          f"them {want_u}")
     check(attn_wg == {k: launches[k] for k in ATTN_WGMMA_WRAPPERS},
           f"train step's first call: every attention forward with lse on "
           f"bst_attn_fwd_wgmma.cu, every dq on bst_attn_dq_wgmma.cu and "
@@ -3296,8 +3369,8 @@ def training_path(bt, model, plain, cfg, dev, card_line, profile_out):
     profile_port_kernels("train step (eager)", lambda: one_step(eager),
                          ms["eager"])
 
-    # the same captured step with the MLP products' xprop on
-    # bsmm_xprop_wgmma.cu (the parent's route), timed against this one in
+    # the same captured step with the MLP products' updat on
+    # bsmm_updat_wgmma.cu (the parent's route), timed against this one in
     # turns: the step before and after
     old, old_step, old_holder = parent_train_step(bt, model, cfg, dev, opt,
                                                   tokens, targets, scale)
@@ -3306,14 +3379,21 @@ def training_path(bt, model, plain, cfg, dev, card_line, profile_out):
         old_holder["state"], _, old_holder["scale"] = old_step(
             old_holder["state"], tokens, targets, old_holder["scale"])
     old_one()
-    turns = in_turns({"sparse": lambda: one_step(step), "wgmma": old_one},
-                     lambda fn: time_ms(fn, TIMED_STEPS))
+    turns = {"sparse": [], "wgmma": []}
+    for _ in range(2):
+        for k, t in in_turns({"sparse": lambda: one_step(step),
+                              "wgmma": old_one},
+                             lambda fn: time_ms(fn, TIMED_STEPS)).items():
+            turns[k] += t
     ms = {k: " / ".join(f"{v:.2f}" for v in t) for k, t in turns.items()}
-    print(f"train step [{card_line}]: captured with the xprop on "
-          f"bsmm_xprop_sparse.cu {ms['sparse']} ms, on bsmm_xprop_wgmma.cu "
-          f"{ms['wgmma']} ms (turns sparse, wgmma, wgmma, sparse; each the "
-          f"mean of {TIMED_STEPS} replays by CUDA events)", flush=True)
-    profile_port_kernels("train step with the xprop on bsmm_xprop_wgmma.cu "
+    med = {k: float(np.median(t)) for k, t in turns.items()}
+    print(f"train step [{card_line}]: captured with the updat on "
+          f"{model.bsmm1.kernel_of(tokens.numel(), 'u')}.cu {ms['sparse']} "
+          f"ms (median {med['sparse']:.2f}), on bsmm_updat_wgmma.cu "
+          f"{ms['wgmma']} ms (median {med['wgmma']:.2f}) (two rounds of "
+          f"turns new, parent, parent, new; each the mean of {TIMED_STEPS} "
+          f"replays by CUDA events)", flush=True)
+    profile_port_kernels("train step with the updat on bsmm_updat_wgmma.cu "
                          "(graph replay)", old_one,
                          float(np.mean(turns["wgmma"])))
     del old, old_step, old_holder
@@ -3322,40 +3402,38 @@ def training_path(bt, model, plain, cfg, dev, card_line, profile_out):
 
 
 @contextlib.contextmanager
-def xprop_off_sparse():
-    """The xprop's route with bsmm_xprop_sparse.cu's block sizes emptied:
-    the bf16 products on bsmm_xprop_wgmma.cu and bsmm_xprop_mma.cu as
+def updat_off_sparse():
+    """The updat's route with bsmm_updat_sparse.cu's block sizes emptied:
+    the bf16 products on bsmm_updat_wgmma.cu and bsmm_updat_mma.cu as
     before it."""
     from blocksparse_tpu_torch.kernels import bsmm
-    saved = bsmm.XPROP_SP_BLOCK_SIZES
-    bsmm.XPROP_SP_BLOCK_SIZES = ()
+    saved = bsmm.UPDAT_SP_BUNDLES
+    bsmm.UPDAT_SP_BUNDLES = {}
     try:
         yield
     finally:
-        bsmm.XPROP_SP_BLOCK_SIZES = saved
+        bsmm.UPDAT_SP_BUNDLES = saved
 
 
 def parent_train_step(bt, model, cfg, dev, opt, tokens, targets, ls):
-    """The flagship's captured train step with the MLP products' xprop on
-    bsmm_xprop_wgmma.cu, as before bsmm_xprop_sparse.cu: a second model of
+    """The flagship's captured train step with the MLP products' updat on
+    bsmm_updat_wgmma.cu, as before bsmm_updat_sparse.cu: a second model of
     ``model``'s weights whose step's first call (its warm-up and its
-    capture) routes under ``xprop_off_sparse()``; the graph keeps those
+    capture) routes under ``updat_off_sparse()``; the graph keeps those
     launches.  (model, step, {"state", "scale"})."""
     old = bt.SparseTransformerLM(cfg, device=dev)
     old.load_state_dict(model.state_dict())
     step = old.make_train_step(opt, clip_norm=CLIP)
     reset_counts()
-    with xprop_off_sparse():
+    with updat_off_sparse():
         state, _, scale = step(opt.init(dict(old.named_parameters())),
                                tokens, targets, ls)
         torch.cuda.synchronize()
-    launches, sparse = read_counts(), read_sparse()
-    wgmma = {k: counters()[k].launches_wgmma for k in SPARSE_WRAPPERS}
-    check(all(sparse[k] == 0 < wgmma[k] == launches[k]
-              for k in SPARSE_WRAPPERS),
-          f"the step with the xprop off bsmm_xprop_sparse.cu: every fprop "
-          f"and bprop on bsmm_xprop_wgmma.cu ({wgmma}, sparse {sparse} of "
-          f"{launches})")
+    u = counters()["bsmm_updat"]
+    check(u.launches_sparse == 0 < u.launches_wgmma == u.launches,
+          f"the step with the updat off bsmm_updat_sparse.cu: every updat "
+          f"on bsmm_updat_wgmma.cu ({u.launches_wgmma}, sparse "
+          f"{u.launches_sparse} of {u.launches})")
     return old, step, {"state": state, "scale": scale}
 
 
@@ -3373,9 +3451,9 @@ def restore(m, saved):
 # bsmm_xprop_sparse_kernel (bf16/f16 at b32) and its weights' packing
 # (bsmm_xprop_sparse_pack_kernel), bsmm_xprop_wgmma_kernel
 # and bsmm_xprop_mma_kernel (bf16/f16, the latter also the split route's)
-# and bsmm_xprop_nc_kernel (f32); the updat's bsmm_updat_wgmma_kernel and
-# bsmm_updat_mma_kernel (bf16/f16), bsmm_updat_nc_kernel (f32) and the
-# split's bsmm_updat_reduce_kernel;
+# and bsmm_xprop_nc_kernel (f32); the updat's bsmm_updat_sparse_kernel,
+# bsmm_updat_wgmma_kernel and bsmm_updat_mma_kernel (bf16/f16),
+# bsmm_updat_nc_kernel (f32) and the split's bsmm_updat_reduce_kernel;
 # the attention's bf16/f16 kernels by source: bst_attn_fwd_wgmma_kernel,
 # bst_attn_dq_wgmma_kernel and bst_attn_dkv_wgmma_kernel,
 # bst_attn_fwd_mma_kernel and
@@ -3388,7 +3466,8 @@ PROFILE_SPINS, PROFILE_SPIN_CYCLES = 8, 100000
 PROFILE_TRIES = 6
 PORT_KERNELS = ("bsmm_xprop_sparse_kernel", "bsmm_xprop_sparse_pack",
                 "bsmm_xprop_wgmma", "bsmm_xprop_mma", "bsmm_xprop_nc",
-                "bsmm_updat_wgmma", "bsmm_updat_mma", "bsmm_updat_nc",
+                "bsmm_updat_sparse", "bsmm_updat_wgmma", "bsmm_updat_mma",
+                "bsmm_updat_nc",
                 "bsmm_updat_reduce", "bst_attn_fwd_wgmma", "bst_attn_fwd_mma",
                 "bst_attn_dq_wgmma", "bst_attn_dq_mma", "bst_attn_dkv_wgmma",
                 "bst_attn_dkv_mma",
@@ -5783,6 +5862,7 @@ def moe_path(bt, dev, g, card_line, rows, marks):
                    sum(e.count for e in kernels if name in e.key))
             for name in ("bsmm_xprop_nc_kernel", "bsmm_updat_nc_kernel",
                          "bsmm_updat_mma_kernel", "bsmm_updat_wgmma_kernel",
+                         "bsmm_updat_sparse_kernel",
                          "bsmm_updat_reduce_kernel", "bsmm_merge_kernel",
                          "bst_attn")}
     print(f"MoE train step [{card_line}]: batch {BATCH} x {cfg.ctx}, "
@@ -6835,6 +6915,7 @@ def ep_layer_checks(bt, dev, g, card_line, rows, marks):
             lambda fn: kernel_device_ms(fn, kernel_of(op1, N, "u")[0]),
             2 * N * (op1.C + op1.K) + 4 * op1.blocks * b2, PEAK_FLOPS,
             lambda: xb.t() @ dub)}
+    rows["moe_ep_bsmm_updat_bf16_source"] = kernel_of(op1, N, "u")[1]
     for name, (fn, ref, tol, dev_ms, nbytes, peak, lib) in calls.items():
         err = compare(f"MoE ep {name[7:]} N={N}", fn(), ref(), tol)
         rows[name] = (err, dev_ms(fn), time_ms(ref, 5))
@@ -7401,7 +7482,7 @@ def main():
     serve_launches = serving_path(bt, model, plain, cfg, dev, card_line)
 
     # 5. the training path, counted
-    train_launches, train_wgmma, train_sparse = training_path(
+    train_launches, _, train_sparse = training_path(
         bt, model, plain, cfg, dev, card_line, args.profile_out)
     print(f"launches: serving path {serve_launches}; training path (one "
           f"step) {train_launches}", flush=True)
@@ -7559,9 +7640,9 @@ def main():
     # wgmma phase's device times (its updat with its split's reduce, the
     # sparse xprop with its weights' packing), the plain version's from the
     # training checks; launches: the train step's first call on the
-    # sparse and wgmma kernels, the canonical grouped chains (b8-b32, N
-    # 64) on the mma.sync ones; bsmm_xprop_wgmma.cu's on bench.py's b64
-    # stores (the packed rows)
+    # sparse kernels, the canonical grouped chains (b8-b32, N 64) on the
+    # mma.sync ones; bsmm_xprop_wgmma.cu's on bench.py's b64 stores (the
+    # packed rows)
     def wg_row(d, kernel, plain_key):
         r = rows[("wg", f"bsmm1 N={N}", d)]
         err = r["err"].get(kernel, r["err"].get("wgmma"))
@@ -7571,6 +7652,13 @@ def main():
     for name in SPARSE_WRAPPERS:
         marks[f"{name}_sparse"] = marks[name]
     marks["xprop_sparse_pack"] = rows["sparse_pack_mark"]
+    conv512 = rows[("wg", f"conv C={CONV_CHANNELS[0]}", "u")]
+    check(conv512["route"] == "bsmm_updat_sparse",
+          f"the conv's updat at C={CONV_CHANNELS[0]} runs "
+          f"bsmm_updat_sparse.cu (its row in the kernels line): "
+          f"{conv512['route']}")
+    marks["bsmm_updat_sparse"] = marks["bsmm_updat"]
+    marks["bsmm_updat_sparse_conv"] = (*conv512["bound"], conv512["lib"])
     kernels = [  # (name, source, TPU kernel, path's launches, row)
         ("bsmm_fprop", "bsmm_xprop_mma.cu", "bsmm.py:1422",
          mode_launches[("bsmm_fprop", "bsmm_xprop_mma")],
@@ -7589,9 +7677,22 @@ def main():
          wg_row("b", "sparse", ("bprop", "bsmm1", bf))),
         ("xprop_sparse_pack", "bsmm_xprop_sparse.cu", "bsmm.py:1422",
          train_sparse["pack"], rows["sparse_pack"]),
+        # the updat at bsmm1's train shape on bsmm_updat_wgmma.cu (its
+        # launches: bench.py's packed random b32 store's backward, where
+        # the route keeps it) and bsmm_updat_sparse.cu (the train step's
+        # first call); and the conv's at C=512 on the latter (launches:
+        # every configuration's counted backward; the route's time and
+        # error against the plain version at the conv's shapes, bound and
+        # x^T . dy from the wgmma phase)
         ("bsmm_updat_wgmma", "bsmm_updat_wgmma.cu", "bsmm.py:1972",
-         train_wgmma["bsmm_updat"],
+         sum(n for n, src, _ in packed_launches.values()
+             if src == "bsmm_updat_wgmma.cu"),
          wg_row("u", "wgmma", ("updat", "bsmm1", bf))),
+        ("bsmm_updat_sparse", "bsmm_updat_sparse.cu", "bsmm.py:1972",
+         train_sparse["bsmm_updat"],
+         wg_row("u", "sparse", ("updat", "bsmm1", bf))),
+        ("bsmm_updat_sparse_conv", "bsmm_updat_sparse.cu", "bsmm.py:1972",
+         conv_sparse["bsmm_updat"], rows[("conv", "bsmm_updat")]),
         ("bsmm_updat_reduce", "bsmm_updat_mma.cu", "bsmm.py:1972",
          train_launches["bsmm_updat_reduce"], rows["reduce"]),
         # the attention at the LM's shape: the forward (serving and lse),
@@ -7701,8 +7802,9 @@ def main():
          ep_launches["bsmm_bprop"], rows["moe_ep_bsmm_bprop_f32"]),
         ("moe_ep_bsmm_updat_f32", "bsmm_updat.cu", "bsmm.py:1972",
          ep_launches["bsmm_updat"], rows["moe_ep_bsmm_updat_f32"]),
-        ("moe_ep_bsmm_updat_bf16", "bsmm_updat_wgmma.cu", "bsmm.py:1972",
-         ep_launches["bsmm_updat"], rows["moe_ep_bsmm_updat_bf16"]),
+        ("moe_ep_bsmm_updat_bf16", rows["moe_ep_bsmm_updat_bf16_source"],
+         "bsmm.py:1972", ep_launches["bsmm_updat"],
+         rows["moe_ep_bsmm_updat_bf16"]),
         ("moe_ep_bsmm_updat_reduce", "bsmm_updat_mma.cu", "bsmm.py:1972",
          ep_launches["bsmm_updat_reduce"], rows["moe_ep_bsmm_updat_reduce"]),
     ]

@@ -304,21 +304,26 @@ def test_xprop_route_rule_at_the_conv_and_packed_shapes():
 
 
 def test_updat_route_and_split_at_the_path_shapes():
-    """The updat's kernel and its N split, 132 SMs: the wgmma kernel's one
-    resident thread block an SM sets a target of 264 thread blocks, 4
-    runs of the LM's 75 groups; of 4-8 runs 7 fill their last wave best
-    (525 of 528 thread blocks), of 4-5 at the MoE's N 5 (375 of 396).
-    Groups that fill the target alone over N >= 8192 stay on the mma.sync
-    kernel."""
+    """The updat's kernel and its N split, 132 SMs: without the sparse
+    plan's tiles the wgmma kernel's one resident thread block an SM sets a
+    target of 264 thread blocks, 4 runs of the LM's 75 groups; of 4-8
+    runs 7 fill their last wave best (525 of 528 thread blocks), of 4-5 at
+    the MoE's N 5 (375 of 396).  The LM's route is bsmm_updat_sparse.cu
+    (its plan's 375 tiles a token row against 633): 264 / 32 groups is 9
+    runs, of 9-16 12 fill their last wave best (384 of 396).  Groups that
+    fill the target alone over N >= 8192 stay on the mma.sync kernel."""
     bsmm1, bsmm2 = _flagship()
     groups = len(bsmm1._plan("updat", "u")["grp_q"])
     assert groups == 75 == len(bsmm2._plan("updat", "u")["grp_q"])
     want = {16384: 7, 8192: 7, 4: 1, 32768: 7, 2560: 5, 4096: 7}
+    want_sp = {16384: 12, 8192: 12, 4: 1, 32768: 12, 2560: 5, 4096: 8}
     for N in PATH_NS:
         assert bk.updat_kernel(N, 32, groups, 132) == "wgmma"
+        assert bk.updat_kernel(N, 32, groups, 132, (375, 633)) == "sparse"
         assert bk.updat_splits(N, groups, 32, 132, "wgmma") == want[N], N
-        assert bsmm1._updat_route(N, torch.bfloat16, 132) == ("wgmma",
-                                                               want[N])
+        assert bk.updat_splits(N, 32, 32, 132, "sparse") == want_sp[N], N
+        assert bsmm1._updat_route(N, torch.bfloat16, 132) == ("sparse",
+                                                               want_sp[N])
     assert bsmm1._updat_route(16384, torch.float32, 132) == ("mma", 1)
     assert bk.updat_kernel(16384, 16, 75, 132) == "mma"
     assert bk.updat_kernel(16384, 8, 75, 132) == "mma"
@@ -351,7 +356,7 @@ def test_xprop_route_builds_the_wgmma_plan_only_where_it_reads_the_share():
 
 def test_kernel_of_names_every_route():
     bsmm1, _ = _flagship()
-    assert bsmm1.kernel_of(16384, "u", sm_count=132) == "bsmm_updat_wgmma"
+    assert bsmm1.kernel_of(16384, "u", sm_count=132) == "bsmm_updat_sparse"
     assert bsmm1.kernel_of(16384, "u", torch.float32, 132) == "bsmm_updat"
     fine = BlocksparseMatMul(_layout("random", 6, 4, 0), block_size=16,
                              feature_axis=1, mode="fine")

@@ -476,8 +476,9 @@ def test_bsmm_bprop_kernel_matches_plain(cuda, bsize, dtype, route):
 def test_bsmm_updat_kernel_matches_plain(cuda, bsize, dtype, by_c):
     """At N 1, 77, 1500 and 4096.  f32 runs bsmm_updat.cu (CUDA cores,
     unsplit).  bf16/f16 run the kernel updat_kernel picks
-    (bsmm_updat_wgmma.cu at b32-128, bsmm_updat_mma.cu at b8 and b16)
-    over the plan's groups: a
+    (bsmm_updat_sparse.cu at b32 and b64, whose plan reads at most
+    UPDAT_SP_MAX_TILES of the tiles here; bsmm_updat_wgmma.cu at b128,
+    bsmm_updat_mma.cu at b8 and b16) over its plan's groups: a
     4-row layout whose row 0 holds more than one group's G = 256 / b
     blocks, grouped by x block-row, or its transpose, grouped by dy
     block-column; N split where the rule says (1500 and 4096 here: N //
@@ -588,8 +589,10 @@ def test_bsmm_autograd_runs_the_three_kernels(cuda, axis):
     # bf16 on a dense layout (every staged x tile serving all its
     # group's columns) at an N whose tiles fill the card: the three
     # products on the wgmma kernels, at b32 bsmm_xprop_sparse.cu twice
-    # (counted in launches_sparse, each with its weights' packing) and at
-    # b64 bsmm_xprop_wgmma.cu twice, and bsmm_updat_wgmma.cu
+    # (counted in launches_sparse, each with its weights' packing) and
+    # bsmm_updat_sparse.cu (the dense layout's identical x block-rows
+    # bundled: its plan reads half the tiles), and at b64
+    # bsmm_xprop_wgmma.cu twice and bsmm_updat_wgmma.cu (7 tiles of 8)
     N = 128 * bsmm_kernels.device_sm_count(cuda) + 40
     kernels = (bsmm_kernels.bsmm_fprop, bsmm_kernels.bsmm_bprop,
                bsmm_kernels.bsmm_updat)
@@ -599,7 +602,7 @@ def test_bsmm_autograd_runs_the_three_kernels(cuda, axis):
         plain = BlocksparseMatMul(lay, block_size=bsize, feature_axis=axis,
                                   impl="xla")
         assert [port.kernel_of(N, d) for d in "fbu"] == [
-            f"bsmm_xprop_{xk}", f"bsmm_xprop_{xk}", "bsmm_updat_wgmma"]
+            f"bsmm_xprop_{xk}", f"bsmm_xprop_{xk}", f"bsmm_updat_{xk}"]
         x0 = torch.randn(port.i_shape(N), device=cuda, generator=g).bfloat16()
         w0 = (torch.randn(port.w_shape, device=cuda, generator=g)
               * 0.1).bfloat16()
@@ -617,8 +620,7 @@ def test_bsmm_autograd_runs_the_three_kernels(cuda, axis):
                       k.launches_wgmma - cw)
                      for k, (c, cx, cw) in zip(kernels, counts)]
             if op is port:
-                assert moved == [(1, 1, xk == "wgmma")] * 2 + \
-                    [(1, xk == "wgmma", 1)]
+                assert moved == [(1, 1, xk == "wgmma")] * 3
                 assert bsmm_kernels.xprop_sparse_pack.launches - packs == \
                     2 * (xk == "sparse")
             else:
@@ -728,12 +730,132 @@ def test_wgmma_updat_matches_plain(cuda, bsize, dtype, by_c):
             dw, ref, rtol=0, atol=UPDAT_TOL * max(1.0, ref.abs().max().item()))
 
 
+def _tap_layout(CB, KB, density, seed, taps=9):
+    """A conv-like layout (``BlocksparseConv``'s tap-tiled one): a random
+    (CB, KB) channel connectivity, each block's row repeated for the
+    taps, so x (CB·taps·b wide) is 9x dy's width when CB == KB."""
+    rng = np.random.RandomState(seed)
+    lay = np.zeros((CB * taps, KB), np.int32)
+    for kb in range(KB):
+        for cb in range(CB):
+            if cb == kb % CB or rng.rand() < density:
+                lay[cb * taps:(cb + 1) * taps, kb] = 1
+    return lay
+
+
+def _sparse_updat(op, x, dy, dev, kernel="sparse"):
+    """bsmm_updat on ``kernel`` over its plan, at its own split."""
+    kind = "updat_sparse" if kernel == "sparse" else "updat"
+    plan = op._plan_tensors(dev, kind, "u")
+    lut = op._lut(dev)
+    splits = bsmm_kernels.updat_splits(
+        x.shape[0], plan["grp_q"].shape[0], op.bsize,
+        bsmm_kernels.device_sm_count(dev), kernel)
+    return bsmm_kernels.bsmm_updat(x, dy, lut["u_c32"], lut["u_k32"],
+                                   op.bsize, plan, splits, kernel), splits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["taps", "empty_row", "full_row"])
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("bsize", [32, 64])
+def test_sparse_updat_matches_plain(cuda, bsize, dtype, kind):
+    """bsmm_updat_sparse.cu over updat_sparse_plan's bundles on a conv-like
+    layout (x 9 times dy's width, the taps of an input block bundled), the
+    same with an x block-row emptied, and with one filled, at N 1, 77,
+    2048 unsplit or split as updat_splits says and 4096 split: against the
+    plain version at UPDAT_TOL and against bsmm_updat_mma.cu, two runs
+    equal bit for bit, one launch a call on its counter."""
+    layout = _tap_layout(4, 6, 0.3, seed=bsize)
+    if kind == "empty_row":
+        layout[5, :] = 0
+    elif kind == "full_row":
+        layout[4, :] = 1
+    op = BlocksparseMatMul(layout, block_size=bsize, feature_axis=1)
+    plain = BlocksparseMatMul(layout, block_size=bsize, feature_axis=1,
+                              impl="xla")
+    plan = op._plan("updat_sparse", "u")
+    assert plan["by_c"] and plan["R"] in bsmm_kernels.UPDAT_SP_BUNDLES[bsize]
+    g = torch.Generator(device=cuda).manual_seed(bsize)
+    for N in (1, 77, 2048, 4096):
+        x = torch.randn((N, op.C), device=cuda, generator=g).to(dtype)
+        dy = torch.randn((N, op.K), device=cuda, generator=g).to(dtype)
+        before = (bsmm_kernels.bsmm_updat.launches_sparse,
+                  bsmm_kernels.bsmm_updat.launches_wgmma)
+        (dw, splits), (again, _) = (_sparse_updat(op, x, dy, cuda)
+                                    for _ in range(2))
+        torch.cuda.synchronize()
+        assert (splits > 1) == (N >= 1024)
+        assert (bsmm_kernels.bsmm_updat.launches_sparse,
+                bsmm_kernels.bsmm_updat.launches_wgmma) == \
+            (before[0] + 2, before[1])
+        assert torch.equal(dw, again)
+        ref = plain._updat(x, dy)
+        assert dw.dtype == torch.float32 and dw.shape == op.w_shape
+        atol = UPDAT_TOL * max(1.0, ref.abs().max().item())
+        torch.testing.assert_close(dw, ref, rtol=0, atol=atol)
+        mma, _ = _sparse_updat(op, x, dy, cuda, "mma")
+        torch.testing.assert_close(dw, mma, rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+def test_sparse_updat_takes_the_narrower_operand_in_its_slots(cuda):
+    """The transposed conv-like layout (dy the wider operand): dy's
+    block-columns bundled and shared, x in the slots (dw transposed back
+    in the epilogue), against the plain version."""
+    layout = _tap_layout(3, 4, 0.4, seed=3).T.copy()
+    op = BlocksparseMatMul(layout, block_size=32, feature_axis=1)
+    plain = BlocksparseMatMul(layout, block_size=32, feature_axis=1,
+                              impl="xla")
+    assert not op._plan("updat_sparse", "u")["by_c"]
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((1000, op.C), device=cuda, generator=g).bfloat16()
+    dy = torch.randn((1000, op.K), device=cuda, generator=g).bfloat16()
+    dw, _ = _sparse_updat(op, x, dy, cuda)
+    ref = plain._updat(x, dy)
+    torch.testing.assert_close(
+        dw, ref, rtol=0, atol=UPDAT_TOL * max(1.0, ref.abs().max().item()))
+
+
+@pytest.mark.cuda
+def test_conv_backward_routes_its_updat_to_the_sparse_kernel(cuda):
+    """BlocksparseConv at C = K = 1024 (b32, d 0.25, 3x3 SAME, batch 2 of
+    32x32: N 2048): kernel_of names bsmm_updat_sparse.cu for the updat, a
+    forward + backward launches it once (and no other updat kernel), and
+    dF matches the plain conv's."""
+    C, b = 1024, 32
+    rng = np.random.RandomState(0)
+    BCK = [(tuple(range(cb * b, (cb + 1) * b)), tuple(range(kb * b,
+                                                            (kb + 1) * b)))
+           for kb in range(C // b) for cb in range(C // b)
+           if cb == kb or rng.rand() < 0.25]
+    kw = dict(padding="SAME", impl="bsmm")
+    port = BlocksparseConv(BCK, (3, 3), (32, 32), **kw)
+    plain = BlocksparseConv(BCK, (3, 3), (32, 32), bsmm_impl="xla", **kw)
+    assert port._bsmm_op.kernel_of(2 * 32 * 32, "u") == "bsmm_updat_sparse"
+    F = torch.tensor(random_jax_conv_filter(port, seed=1),
+                     device=cuda).bfloat16()
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = (torch.rand((2, C, 32, 32), device=cuda, generator=g) * 2
+         - 1).bfloat16()
+    u = bsmm_kernels.bsmm_updat
+    before = (u.launches, u.launches_sparse)
+    dF = _conv_fwd_grads(port, F, x)[2]
+    torch.cuda.synchronize()
+    assert (u.launches, u.launches_sparse) == (before[0] + 1, before[1] + 1)
+    ref = _conv_fwd_grads(plain, F, x)[2]
+    torch.testing.assert_close(
+        dF.float(), ref.float(), rtol=0,
+        atol=BSMM_BF16_TOL * max(1.0, ref.float().abs().max().item()))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bsize,xk", [(32, "sparse"), (64, "wgmma")])
 def test_wgmma_kernels_feature_axis_0_and_graph_replay(cuda, bsize, xk):
     """The op at feature_axis 0 on the wgmma kernels (bf16, N filling the
     card; the xprop on bsmm_xprop_sparse.cu at b32, its weights packed a
-    call, on bsmm_xprop_wgmma.cu at b64): y, dx and dw against the plain
+    call, on bsmm_xprop_wgmma.cu at b64; the updat on bsmm_updat_sparse.cu
+    at b32, on bsmm_updat_wgmma.cu at b64): y, dx and dw against the plain
     op; then the three products captured into a CUDA graph (the tensor
     maps encoded at capture hold the captured tensors' addresses) and
     replayed on new inputs copied into those tensors, equal bit for bit
@@ -744,7 +866,7 @@ def test_wgmma_kernels_feature_axis_0_and_graph_replay(cuda, bsize, xk):
                               impl="xla")
     N = 128 * bsmm_kernels.device_sm_count(cuda) + 7
     assert [port.kernel_of(N, d) for d in "fbu"] == [
-        f"bsmm_xprop_{xk}", f"bsmm_xprop_{xk}", "bsmm_updat_wgmma"]
+        f"bsmm_xprop_{xk}", f"bsmm_xprop_{xk}", f"bsmm_updat_{xk}"]
     g = torch.Generator(device=cuda).manual_seed(8)
     x = torch.randn(port.i_shape(N), device=cuda, generator=g).bfloat16()
     w = (torch.randn(port.w_shape, device=cuda, generator=g) * 0.1).bfloat16()

@@ -5,9 +5,10 @@ kernels, two runs bit-equal, the split route bit for bit against
 ``bsmm_partials`` + ``bsmm_merge``, the sparse xprop against the wgmma
 one) and its wgmma phase (the kernels in turns at the main path's shapes
 beside the bound and the library call, their registers and spills),
-without the rest of the smoke run.
+without the rest of the smoke run.  ``--updat``: the updat's checks and
+turns alone (its three kernels).
 
-    python tools/bsmm_wgmma_bench.py          # from the repo root, one GPU
+    python tools/bsmm_wgmma_bench.py [--updat]   # from the repo root, one GPU
 
 Exits 1 without a CUDA device, and on a failed check.
 """
@@ -20,7 +21,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 SOURCES = ("bsmm_xprop_wgmma", "bsmm_updat_wgmma", "bsmm_xprop_mma",
-           "bsmm_updat_mma", "bsmm_merge", "bsmm_xprop_sparse")
+           "bsmm_updat_mma", "bsmm_merge", "bsmm_xprop_sparse",
+           "bsmm_updat_sparse")
 
 
 def main():
@@ -37,11 +39,14 @@ def main():
     cs.build_all(SOURCES)
     model = bt.SparseTransformerLM(cs.flagship_config(bt), device=dev)
     g = torch.Generator(device=dev).manual_seed(cs.SEED)
+    updat_only = "--updat" in sys.argv[1:]
     try:
         cs.wgmma_ptxas_report()
-        cs.xprop_block_size_checks(bt, dev, g)
+        if not updat_only:
+            cs.xprop_block_size_checks(bt, dev, g)
         cs.updat_block_size_checks(bt, dev, g)
-        cs.wgmma_turns(bt, model, dev, g, card_line, {})
+        cs.wgmma_turns(bt, model, dev, g, card_line, {},
+                       "u" if updat_only else "fbu")
     except cs.CheckFailed as e:
         print(f"FAILED: {e}", file=sys.stderr)
         return 1
