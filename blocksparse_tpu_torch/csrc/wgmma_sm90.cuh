@@ -1,8 +1,9 @@
 // Hopper's warpgroup tensor-core products (wgmma) for the bf16/f16 kernels
 // (bst_nt_mma.cu, bst_xn_mma.cu, bsmm_xprop_wgmma.cu, bsmm_xprop_sparse.cu,
-// bsmm_updat_wgmma.cu, bsmm_updat_sparse.cu, bst_attn_fwd_wgmma.cu,
-// bst_attn_dq_wgmma.cu, bst_attn_dkv_wgmma.cu): the 64- and 128-byte
-// swizzled tiles' descriptors, the group fence, commit and wait,
+// bsmm_updat_wgmma.cu, bsmm_updat_sparse.cu, bsmm_window_wgmma.cu,
+// bsmm_fine_wgmma.cu, bst_attn_fwd_wgmma.cu, bst_attn_dq_wgmma.cu,
+// bst_attn_dkv_wgmma.cu): the swizzled (32-, 64- and 128-byte) and plain
+// tiles' descriptors, the group fence, commit and wait,
 // m64nNk16 (N 8-64, 96 and 128) with f32 accumulators and both operands
 // from shared memory, and m64n64k16 with A from registers; the TMA tile
 // loads that fill such tiles (mbarriers, cp.async.bulk.tensor and the 1-d
@@ -27,17 +28,20 @@ namespace {
 // k a row; MN-major ones 64 m (or n) a row, one row a k.
 
 // The descriptor of a tile stored in SW-byte rows in wgmma's SW-byte
-// swizzle (SW 64 or 128: TMA's SWIZZLE_64B / _128B writes them so), its
-// swizzle atom aligned to 8 * SW bytes.  lbo and sbo in bytes: K-major,
-// sbo the stride of 8-row groups (lbo unused); MN-major, lbo the stride
-// of SW/2-element atoms along m (n) and sbo that of 8-k groups.
+// swizzle (SW 32, 64 or 128: TMA's SWIZZLE_32B / _64B / _128B writes them
+// so), its swizzle atom aligned to 8 * SW bytes; SW 16: no swizzle, the
+// tile a grid of 8 x 16-byte core matrices of 128 contiguous bytes each.
+// lbo and sbo in bytes: K-major, sbo the stride of 8-row groups (lbo
+// unused, but without a swizzle the stride of core matrices along k);
+// MN-major, lbo the stride of SW/2-element atoms along m (n) and sbo that
+// of 8-k groups.
 template <int SW>
 __device__ __forceinline__ uint64_t sw_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  static_assert(SW == 64 || SW == 128, "64- or 128-byte swizzle");
+  static_assert(SW == 16 || SW == 32 || SW == 64 || SW == 128, "16- to 128-byte rows");
+  constexpr uint64_t mode = SW == 128 ? 1 : SW == 64 ? 2 : SW == 32 ? 3 : 0;
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
-         (static_cast<uint64_t>(SW == 128 ? 1 : 2) << 62);
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (mode << 62);
 }
 
 // wgmma's shared-memory descriptor of a 128-byte swizzled tile at `addr`:
@@ -486,7 +490,8 @@ inline TensorMapEncode tensor_map_encoder() {
 // The tensor map of a row-major `rank`-d tensor (dims innermost first,
 // strides in bytes of dims 1..rank-1, multiples of 16; base 16-byte
 // aligned) read in boxes of `box` elements stored in SW-byte swizzled rows
-// (box[0] * sizeof(T) == SW); out-of-bounds elements read as zeros.
+// (box[0] * sizeof(T) == SW; SW 16: 16-byte rows, no swizzle);
+// out-of-bounds elements read as zeros.
 template <typename T>
 cudaError_t tiled_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
                       const cuuint64_t* strides, const cuuint32_t* box, int sw) {
@@ -497,7 +502,10 @@ cudaError_t tiled_map(CUtensorMap* map, const void* base, int rank, const cuuint
                                                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                 rank, const_cast<void*>(base), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE,
-                sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                sw == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                : sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                : sw == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                           : CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
              ? cudaSuccess

@@ -51,14 +51,20 @@ built here in NumPy from the LUT's CSR:
 
 - ``bsmm_fine`` (b 8-32; replaces ``xprop_pallas_fine``): an output
   column's entries in chunks of 128/b, one 128-deep contraction a chunk
-  (``fine_plan``); bf16 and f16 on the tensor cores
-  (``csrc/bsmm_fine_mma.cu``, a ``cp.async`` ring of chunks), f32 on the
-  CUDA cores (``csrc/bsmm_fine.cu``).
+  (``fine_plan``); bf16 and f16 on the tensor cores, on the kernel
+  ``fine_kernel`` picks: ``csrc/bsmm_fine_wgmma.cu`` (``wgmma``, each
+  slot's x slice a TMA box, the chunk's weights staged by producer
+  warps, persistent) or ``csrc/bsmm_fine_mma.cu`` (a ``cp.async`` ring
+  of chunks); f32 on the CUDA cores (``csrc/bsmm_fine.cu``).
 - ``bsmm_window`` (b 8-128; replaces ``xprop_pallas_window``): x staged
   once per window slab for a super-group of output columns whose
-  accumulators stay in registers (``window_plan``); bf16 and f16 on the
-  tensor cores (``csrc/bsmm_window_mma.cu``, N-tile ``window_tn``), f32
-  on the CUDA cores (``csrc/bsmm_window.cu``).
+  accumulators stay in registers; bf16 and f16 on the tensor cores, on
+  the kernel ``window_kernel`` picks: ``csrc/bsmm_window_wgmma.cu``
+  (``wgmma`` over ``window_wgmma_plan``'s groups of 256 features and
+  windows of 64 inputs, x by TMA, each window's cells by one bulk copy
+  from the copy ``window_wgmma_pack`` lays out a call) or
+  ``csrc/bsmm_window_mma.cu`` (``window_plan``, N-tile ``window_tn``);
+  f32 on the CUDA cores (``csrc/bsmm_window.cu``).
 - the split route (``split_plan``, ``split_phases``): each column's
   entries cut into runs, whose f32 partial tiles are added in phase order
   and rounded once.  bf16 and f16 run it in one launch, ``bsmm_split``
@@ -110,6 +116,27 @@ WINDOW_SG = {8: 16, 16: 8, 32: 8, 64: 4, 128: 2}
 # bsmm_window_mma.cu: the N-tiles (rows of N a thread block owns) it is
 # built for, largest first
 WINDOW_TNS = (128, 64, 32, 16)
+# bsmm_window_wgmma.cu (wgmma fed by TMA, persistent): output features a
+# group (four m64 slots: WINDOW_WG_FEATURES // b block-columns, at b128
+# two), input features a window (one 128-byte swizzled x box), and rows of
+# N a tile (two consumer warpgroups of 64)
+WINDOW_WG_FEATURES = 256
+WINDOW_WG_SLAB = 64
+WINDOW_WG_TN = 128
+# the window mode's route to it (window_kernel): its tiles, ceil(N / 128)
+# x groups, number at least WINDOW_WG_MIN_FILL x the SMs.
+# In the H100 runs of PERF.md (with its packing, against
+# bsmm_window_mma.cu): bench.py's random 8192^2 b32 op at N 2048, 512
+# tiles, 0.33 ms against 0.54-0.58; at N 256, 64 tiles, 0.105 against
+# 0.103; the canonical b8 row at N 64, 30 tiles, 0.133 against 0.129
+WINDOW_WG_MIN_FILL = 1.0
+# bsmm_fine_wgmma.cu (wgmma fed by TMA boxes of a slot's x, persistent):
+# rows of N an item (x rows on wgmma's M), and the block sizes the fine
+# mode takes it at (fine_kernel; H100 runs of PERF.md at the canonical
+# rows, N 64: b16 0.025 ms against bsmm_fine_mma.cu's 0.037, b32 0.016
+# against 0.027; b8, whose x slices are 16-byte rows, 0.071 against 0.058)
+FINE_WG_TM = 64
+FINE_WG_BLOCK_SIZES = (16, 32)
 # split route: at most SPLIT_MAX_PHASES runs a column, each of at least
 # SPLIT_MIN_PHASE entries
 SPLIT_MAX_PHASES = 8
@@ -299,16 +326,182 @@ def window_plan(row_ptr, ent_in, ent_w, n_in_blocks, bsize):
 
 
 def window_tn(N, n_sg, sm_count):
-    """The tensor-core window kernel's N-tile for a product of N rows over
+    """The mma.sync window kernel's N-tile for a product of N rows over
     ``n_sg`` super-groups: the largest of ``WINDOW_TNS`` whose grid,
     ceil(N / TN) · n_sg thread blocks, is at least the card's
     ``sm_count`` (the smallest if none is).  A larger tile reads each W
     block fewer times; a full grid keeps every SM busy.  Shapes and the
-    SM count only."""
+    SM count only.  (The wgmma window kernel keeps WINDOW_WG_TN rows and
+    takes only the shapes whose tiles fill the card: ``window_kernel``.)"""
     for tn in WINDOW_TNS:
         if -(-N // tn) * n_sg >= sm_count:
             return tn
     return WINDOW_TNS[-1]
+
+
+def _window_wg_shape(bsize):
+    """(KD, SUBM, SUBK) of ``csrc/bsmm_window_wgmma.cu`` at a block size: a
+    cell's depth (input features; its rows KD · 2 bytes), and the
+    block-columns and input blocks a cell's (64, KD) tile spans (1 and 1
+    at b64 and b128, where a cell is a 64 x 64 part of one block)."""
+    kd = min(max(bsize, 16), WINDOW_WG_SLAB)
+    return kd, max(1, 64 // bsize), max(1, kd // bsize)
+
+
+def window_wgmma_plan(row_ptr, ent_in, ent_w, bsize):
+    """``csrc/bsmm_window_wgmma.cu``'s plan over a CSR of output
+    block-columns whose entries name their input blocks in ascending order
+    (the LUT's order; raises otherwise).  Groups of WINDOW_WG_FEATURES
+    output features (G = 256 // bsize columns, four m64 slots of 64
+    features); windows of WINDOW_WG_SLAB input features, each cut into
+    64 // KD k-blocks (``_window_wg_shape``); a cell: the (64, KD) tile of
+    one (k-block, m-slot) of a group's window, present where a block of
+    the layout meets it.  An item: a window of a group with a present
+    cell.  u_ptr (groups + 1,): the items of group g are u_ptr[g] ..
+    u_ptr[g + 1], in window order; u_in (items,): the item's window;
+    u_mask (items,): bit q · 4 + s set for its present cell of k-block q,
+    m-slot s; u_woff (items,): its first cell in the packed order (item
+    by item, bit by bit); cell_w (cells, SUBM · SUBK + 1): the weight
+    block each (column jm, input block jk) of a cell's tile holds at jm ·
+    SUBK + jk, -1 where none, and last mo << 16 | ko, the tile's offset in
+    its block at b64 and b128 (0 below).  Arrays int32; G, KD, cells."""
+    G = WINDOW_WG_FEATURES // bsize
+    kd, subm, subk = _window_wg_shape(bsize)
+    bits = (WINDOW_WG_SLAB // kd) * 4
+    row_ptr = np.asarray(row_ptr, np.int64)
+    ent_in = np.asarray(ent_in, np.int64)[:row_ptr[-1]]
+    ent_w = np.asarray(ent_w, np.int64)[:row_ptr[-1]]
+    lens, row = _entry_rows(row_ptr)
+    groups = max(1, -(-len(lens) // G))
+    same_row = row[1:] == row[:-1]
+    if (np.diff(ent_in)[same_row] <= 0).any():
+        raise ValueError("window_wgmma_plan: a column's entries must name "
+                         "its input blocks in ascending order")
+    # each entry's cells: one below b128; (m part, k part) pairs at b128
+    rep = max(1, bsize // 64)
+    e = np.repeat(np.arange(len(row)), rep * rep)
+    dm = np.tile(np.repeat(np.arange(rep), rep), len(row))
+    dk = np.tile(np.arange(rep), rep * len(row))
+    j, i = row[e] % G, ent_in[e]
+    feat, inp = j * bsize + dm * 64, i * bsize + dk * 64
+    nwin = (int(ent_in.max()) * bsize // WINDOW_WG_SLAB + rep
+            if len(ent_in) else 1)
+    item = (row[e] // G) * nwin + inp // WINDOW_WG_SLAB
+    bit = (inp % WINDOW_WG_SLAB) // kd * 4 + feat // 64 % 4
+    keys, cell = np.unique(item * bits + bit, return_inverse=True)
+    cell_w = np.full((len(keys), subm * subk + 1), -1, np.int32)
+    cell_w[:, -1] = 0
+    if bsize < 64:
+        cell_w[cell, (j % subm) * subk + i % subk] = ent_w[e]
+    else:
+        cell_w[cell, 0] = ent_w[e]
+        cell_w[cell, 1] = (dm * 64) << 16 | dk * 64
+    items, first = np.unique(keys // bits, return_index=True)
+    u_mask = np.bitwise_or.reduceat(1 << (keys % bits), first) \
+        if len(keys) else np.zeros(0, np.int64)
+    u_ptr = np.concatenate([[0], np.cumsum(np.bincount(
+        items // nwin, minlength=groups))])
+    return {"u_ptr": u_ptr.astype(np.int32),
+            "u_in": (items % nwin).astype(np.int32),
+            "u_mask": u_mask.astype(np.int32),
+            "u_woff": first.astype(np.int32), "cell_w": cell_w,
+            "G": G, "KD": kd, "cells": len(keys)}
+
+
+def _swizzle_rows(rows, row_bytes):
+    """(rows, row_bytes // 16): where wgmma's swizzle of ``row_bytes``-byte
+    rows (16: none, 32, 64 or 128) puts 16-byte chunk c of row r:
+    c ^ ((r · row_bytes >> 7) % (row_bytes // 16))."""
+    r = np.arange(rows)[:, None]
+    n = row_bytes // 16
+    return np.arange(n)[None, :] ^ ((r * row_bytes >> 7) % n)
+
+
+def window_wgmma_pack_plain(w, cell_w, bsize, trans_w):
+    """Plain version of ``window_wgmma_pack`` (advanced indexing; block -1,
+    a zero block appended after the last)."""
+    kd, subm, subk = _window_wg_shape(bsize)
+    b = bsize
+    w = torch.cat([w.reshape(-1, b, b), w.new_zeros(1, b, b)])
+    a = w if trans_w else w.transpose(1, 2)          # a[id][m][k]
+    ids = cell_w[:, :-1].long()
+    if b < 64:
+        t = a[ids.reshape(-1, subm, subk)]           # (cells, jm, jk, b, b)
+        t = t.permute(0, 1, 3, 2, 4).reshape(-1, 64, kd)
+    else:
+        p = b // 64
+        a = a.reshape(-1, p, 64, p, 64).permute(0, 1, 3, 2, 4)
+        off = cell_w[:, -1].long()
+        t = a[ids[:, 0], (off >> 16) // 64, (off & 0xffff) // 64]
+    sw = torch.as_tensor(_swizzle_rows(64, kd * 2), device=w.device)
+    t = t.reshape(-1, 64, kd // 8, 8)
+    out = torch.empty_like(t)
+    out[:, torch.arange(64, device=w.device)[:, None], sw] = t
+    return out.reshape(-1, 64, kd)
+
+
+def window_wgmma_pack(w, cell_w, bsize, trans_w):
+    """The packed cells of ``csrc/bsmm_window_wgmma.cu``: for each cell of
+    ``window_wgmma_plan`` (cell_w an int32 tensor on w's device), A =
+    (64 features) x (KD inputs) of the blocks it spans, Wᵀ's in fprop and
+    W's as stored in bprop (``trans_w``), zeros where a block is absent,
+    each row's 16-byte chunks where wgmma's swizzle of KD · 2-byte rows
+    reads them (``_swizzle_rows``).  (cells, 64, KD) of w's dtype, a
+    16-bit type.  On a CUDA tensor the pack kernel of
+    ``csrc/bsmm_window_wgmma.cu`` (one thread a 16-byte chunk), counted in
+    ``window_wgmma_pack.launches``; on the CPU
+    ``window_wgmma_pack_plain``."""
+    if not w.is_cuda:
+        return window_wgmma_pack_plain(w, cell_w, bsize, trans_w)
+    kd = _window_wg_shape(bsize)[0]
+    if w.dtype not in (torch.bfloat16, torch.float16) or \
+            bsize not in BLOCK_SIZES or cell_w.dtype != torch.int32 or \
+            cell_w.device != w.device or cell_w.dim() != 2 or \
+            not cell_w.is_contiguous():
+        raise ValueError(f"window_wgmma_pack takes bf16/f16 weights of block "
+                         f"size {BLOCK_SIZES} and a contiguous 2-d int32 "
+                         f"cell_w on their device, got {w.dtype}, b{bsize}, "
+                         f"{cell_w.dtype} {tuple(cell_w.shape)} on "
+                         f"{cell_w.device}")
+    w = _aligned(w.contiguous())
+    wp = torch.empty((cell_w.shape[0], 64, kd), dtype=w.dtype,
+                     device=w.device)
+    with torch.cuda.device(w.get_device()):
+        err = _build.function("bsmm_window_wgmma",
+                              "bsmm_window_wgmma_pack_nc", _MODE_PACK_ARGS)(
+            bsize, int(trans_w), w.data_ptr(), cell_w.data_ptr(),
+            wp.data_ptr(), cell_w.shape[0], _stream(w))
+    if err != 0:
+        raise RuntimeError(f"window_wgmma_pack launch failed: cudaError "
+                           f"{err}")
+    window_wgmma_pack.launches += 1
+    return wp
+
+
+def fine_wgmma_stage_plain(w, slot_w, bsize, trans_w):
+    """The weights of each chunk of ``fine_plan`` (slot_w (chunks,
+    128/bsize)) as ``csrc/bsmm_fine_wgmma.cu``'s producer warps stage them
+    for wgmma's B, (chunks, 128 · bsize) of w's dtype, zeros for a -1
+    slot: in fprop the chunk's blocks' rows stacked (128 rows k of bsize
+    elements, MN-major), each row's 16-byte pieces where wgmma's swizzle
+    of 2 · bsize-byte rows reads them; in bprop two panels of 64 inputs,
+    rows n of 128 bytes (K-major: row n of the blocks side by side),
+    128-byte swizzled (``_swizzle_rows``).  The kernel reads the blocks
+    where they lie; this is what it writes, for the tests' replays."""
+    b, gf = bsize, FINE_DEPTH // bsize
+    w = torch.cat([w.reshape(-1, b, b), w.new_zeros(1, b, b)])
+    t = w[slot_w.long()]                              # (chunks, gf, b, b)
+    if trans_w:
+        t = t.permute(0, 2, 1, 3).reshape(-1, b, 2, 8, 8)  # ch n panel c
+        t = t.permute(0, 2, 1, 3, 4)                  # (ch, panel, n, c, 8)
+        rows, row_bytes = b, 128
+    else:
+        t = t.reshape(-1, 1, FINE_DEPTH, b // 8, 8)   # (ch, 1, k, c, 8)
+        rows, row_bytes = FINE_DEPTH, 2 * b
+    sw = torch.as_tensor(_swizzle_rows(rows, row_bytes), device=w.device)
+    out = torch.empty_like(t)
+    out[:, :, torch.arange(rows, device=w.device)[:, None], sw] = t
+    return out.reshape(-1, FINE_DEPTH * b)
 
 
 def split_phases(N, bsize, row_ptr, sm_count):
@@ -741,6 +934,30 @@ def xprop_kernel(N, bsize, n_out, sm_count, share):
         share >= XPROP_WG_MIN_SHARE else "mma"
 
 
+def window_kernel(N, bsize, n_out, sm_count):
+    """The bf16/f16 window mode's kernel for a product of N rows into
+    ``n_out`` output block-columns on a card of ``sm_count`` SMs:
+    "wgmma" (``csrc/bsmm_window_wgmma.cu``) where its tiles,
+    ceil(N / WINDOW_WG_TN) · ceil(n_out / G) (G = WINDOW_WG_FEATURES //
+    bsize), number at least WINDOW_WG_MIN_FILL · sm_count; else "mma"
+    (``csrc/bsmm_window_mma.cu``, whose N-tile shrinks to fill the card).
+    Shapes and the SM count only."""
+    tiles = -(-N // WINDOW_WG_TN) * -(-n_out // (WINDOW_WG_FEATURES
+                                                  // bsize))
+    return "wgmma" if N >= 1 and tiles >= WINDOW_WG_MIN_FILL * sm_count \
+        else "mma"
+
+
+def fine_kernel(N, bsize, n_out, sm_count):
+    """The bf16/f16 fine mode's kernel for a product of N rows into
+    ``n_out`` output block-columns on a card of ``sm_count`` SMs:
+    "wgmma" (``csrc/bsmm_fine_wgmma.cu``) at the block sizes of
+    FINE_WG_BLOCK_SIZES, else "mma" (``csrc/bsmm_fine_mma.cu``).  The
+    block size and N only (n_out and the SM count, which
+    ``window_kernel`` reads, are taken for one signature)."""
+    return "wgmma" if N >= 1 and bsize in FINE_WG_BLOCK_SIZES else "mma"
+
+
 def updat_kernel(N, bsize, groups, sm_count, tiles=None):
     """The bf16/f16 updat's kernel for a product of N rows over
     ``updat_plan``'s ``groups`` on a card of ``sm_count`` SMs, ``tiles`` =
@@ -786,6 +1003,7 @@ _UPDAT_MMA_ARGS = [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
 _UPDAT_SP_ARGS = [_I] * 4 + [_P] * 6 + [_I] * 7 + [_P]
 _REDUCE_ARGS = [_P, _P, _I, _I, _P]
 _PACK_ARGS = [_I, _P, _P, _P, ctypes.c_longlong, _P]
+_MODE_PACK_ARGS = [_I, _I, _P, _P, _P, ctypes.c_longlong, _P]
 
 
 def _check_common(fn, x, others, bsize, ints=()):
@@ -1081,49 +1299,126 @@ def _mode_source(name, x, w):
 
 
 def bsmm_fine(x, w, chunk_ptr, slot_in, slot_w, bsize, n_out_blocks,
-              trans_w=False):
+              trans_w=False, kernel="mma"):
     """y (N, n_out_blocks·bsize) = x · W (Wᵀ with ``trans_w``) on the card,
     in 128-deep chunks of each output column's entries (``fine_plan``:
     chunk_ptr (n_out_blocks+1,), slot_in/slot_w (chunks, 128/bsize)
     int32).  bsize 8, 16 or 32; otherwise the types and checks of
-    ``bsmm_fprop``.  bf16 and f16 run ``csrc/bsmm_fine_mma.cu`` on the
-    tensor cores; f32 runs ``csrc/bsmm_fine.cu``, whose result equals
-    ``bsmm_fprop``'s bit for bit."""
+    ``bsmm_fprop``.  bf16 and f16 run ``csrc/bsmm_fine_wgmma.cu`` with
+    ``kernel`` "wgmma" (N >= 1; counted in ``launches_wgmma`` too), else
+    ``csrc/bsmm_fine_mma.cu``; ``fine_kernel`` is the op's rule.  f32 runs
+    ``csrc/bsmm_fine.cu``, whose result equals ``bsmm_fprop``'s bit for
+    bit."""
     if bsize not in FINE_BLOCK_SIZES:
         raise ValueError(f"bsmm_fine takes block sizes {FINE_BLOCK_SIZES}, "
                          f"got {bsize}")
-    source, x, w = _mode_source("bsmm_fine", x, w)
-    y = _xprop("bsmm_fine", source, f"{source}_nc", x, w,
-               (("chunk_ptr", chunk_ptr), ("slot_in", slot_in),
-                ("slot_w", slot_w)),
+    wgmma = kernel == "wgmma" and x.dtype != torch.float32
+    ints = (("chunk_ptr", chunk_ptr), ("slot_in", slot_in),
+            ("slot_w", slot_w))
+    if wgmma:
+        _check_mode_wgmma("bsmm_fine", x, w, bsize, ints)
+        source, x, w = "bsmm_fine_wgmma", _aligned(x), _aligned(w)
+    else:
+        source, x, w = _mode_source("bsmm_fine", x, w)
+    y = _xprop("bsmm_fine", source, f"{source}_nc", x, w, ints,
                n_out_blocks + 1, bsize, n_out_blocks, trans_w)
     bsmm_fine.launches += 1
+    bsmm_fine.launches_wgmma += wgmma
     return y
 
 
 def bsmm_window(x, w, ptr, ent_slot, ent_w, bsize, n_out_blocks,
-                trans_w=False):
+                trans_w=False, plan=None, packed=None):
     """y (N, n_out_blocks·bsize) = x · W (Wᵀ with ``trans_w``) on the card,
     x staged once per window slab for each super-group of output columns
     (``window_plan``: ptr, ent_slot, ent_w int32).  Types and checks of
-    ``bsmm_fprop``.  bf16 and f16 run ``csrc/bsmm_window_mma.cu`` on the
-    tensor cores, in N-tiles of ``window_tn`` rows; f32 runs
-    ``csrc/bsmm_window.cu``, whose result equals ``bsmm_fprop``'s bit for
-    bit."""
+    ``bsmm_fprop``.  bf16 and f16 run ``csrc/bsmm_window_wgmma.cu`` given
+    ``window_wgmma_plan``'s ``plan`` (its arrays as int32 tensors on x's
+    device; ptr and the entries are then not read; the cells packed a call
+    by ``window_wgmma_pack``, or given as ``packed``, its output for this
+    plan and W, where W is unchanged; N >= 1; counted in
+    ``launches_wgmma`` too), else
+    ``csrc/bsmm_window_mma.cu`` in N-tiles of ``window_tn`` rows;
+    ``window_kernel`` is the op's rule.  f32 runs ``csrc/bsmm_window.cu``,
+    whose result equals ``bsmm_fprop``'s bit for bit."""
     if bsize not in WINDOW_SG:
         raise ValueError(f"unsupported block size {bsize}")
-    sg, wb = WINDOW_SG[bsize], WINDOW_SLAB // bsize
-    n_sg = -(-n_out_blocks // sg)
-    n_ptr = n_sg * -(-(x.shape[-1] // bsize) // wb) * sg + 1
-    source, x, w = _mode_source("bsmm_window", x, w)
-    extra = ()
-    if source == "bsmm_window_mma" and x.is_cuda:
-        extra = (window_tn(x.shape[0], n_sg, device_sm_count(x.device)),)
-    y = _xprop("bsmm_window", source, f"{source}_nc", x, w,
-               (("ptr", ptr), ("ent_slot", ent_slot), ("ent_w", ent_w)),
-               n_ptr, bsize, n_out_blocks, trans_w, extra=extra)
+    wgmma = plan is not None and x.dtype != torch.float32
+    if wgmma:
+        G = WINDOW_WG_FEATURES // bsize
+        groups = plan["u_ptr"].numel() - 1
+        if plan["G"] != G or groups != max(1, -(-n_out_blocks // G)):
+            raise ValueError(f"the plan must hold {-(-n_out_blocks // G)} "
+                             f"groups of {G} columns, got {groups} of "
+                             f"{plan['G']}")
+        ints = tuple((k, plan[k]) for k in ("u_ptr", "u_in", "u_mask",
+                                            "u_woff"))
+        _check_mode_wgmma("bsmm_window", x, w, bsize, ints)
+        if packed is None:
+            wp = window_wgmma_pack(_aligned(w), plan["cell_w"], bsize,
+                                   trans_w)
+        else:
+            wp = packed
+            want = (plan["cell_w"].shape[0], 64, _window_wg_shape(bsize)[0])
+            if tuple(wp.shape) != want or wp.dtype != x.dtype or \
+                    wp.device != x.device or not wp.is_contiguous():
+                raise ValueError(f"packed must be window_wgmma_pack's "
+                                 f"contiguous {want} of {x.dtype} on "
+                                 f"{x.device}, got {tuple(wp.shape)} of "
+                                 f"{wp.dtype} on {wp.device}")
+        y = _xprop("bsmm_window", "bsmm_window_wgmma",
+                   "bsmm_window_wgmma_nc", _aligned(x),
+                   wp.view(-1, bsize, bsize) if wp.numel() else
+                   wp.new_zeros(1, bsize, bsize), ints, groups + 1, bsize,
+                   n_out_blocks, trans_w, extra=(groups,))
+    else:
+        sg, wb = WINDOW_SG[bsize], WINDOW_SLAB // bsize
+        n_sg = -(-n_out_blocks // sg)
+        n_ptr = n_sg * -(-(x.shape[-1] // bsize) // wb) * sg + 1
+        source, x, w = _mode_source("bsmm_window", x, w)
+        extra = ()
+        if source == "bsmm_window_mma" and x.is_cuda:
+            extra = (window_tn(x.shape[0], n_sg, device_sm_count(x.device)),)
+        y = _xprop("bsmm_window", source, f"{source}_nc", x, w,
+                   (("ptr", ptr), ("ent_slot", ent_slot), ("ent_w", ent_w)),
+                   n_ptr, bsize, n_out_blocks, trans_w, extra=extra)
     bsmm_window.launches += 1
+    bsmm_window.launches_wgmma += wgmma
     return y
+
+
+def _check_mode_wgmma(fn, x, w, bsize, ints):
+    """The wgmma mode kernels' checks before their weights are packed:
+    those of ``bsmm_fprop``, bf16 or f16 alone, N >= 1."""
+    _check_common(fn, x, (("w", w),), bsize, ints)
+    if w.dtype != x.dtype or x.dtype == torch.float32:
+        raise TypeError(f"{fn} on its wgmma kernel takes x and w of one "
+                        f"dtype, bf16 or f16, got {x.dtype} and {w.dtype}")
+    if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] % bsize:
+        raise ValueError(f"{fn} on its wgmma kernel takes x (N >= 1, C) "
+                         f"with C a multiple of {bsize}, got "
+                         f"{tuple(x.shape)}")
+
+
+def mode_kernel_info(source, dtype, bsize, trans_w=False):
+    """Registers, local (spilled) bytes, dynamic shared memory, resident
+    thread blocks an SM and ring slots of ``csrc/bsmm_window_wgmma.cu``'s
+    kernel or ``csrc/bsmm_fine_wgmma.cu``'s in direction ``trans_w``
+    (``source`` "bsmm_window_wgmma" or "bsmm_fine_wgmma") in ``dtype``
+    (bf16 or f16) at ``bsize``, as the runtime reports them (on the card
+    only)."""
+    info = (ctypes.c_int * 5)()
+    if source == "bsmm_window_wgmma":
+        err = _build.function(source, f"{source}_info", [_I, _I, _P])(
+            _DTYPE_CODE[dtype], bsize, info)
+    else:
+        err = _build.function(source, f"{source}_info", [_I, _I, _I, _P])(
+            _DTYPE_CODE[dtype], bsize, int(trans_w), info)
+    if err != 0:
+        raise RuntimeError(f"mode_kernel_info({source}, {dtype}, b{bsize}): "
+                           f"cudaError {err}")
+    return dict(zip(("registers", "local_bytes", "smem_bytes",
+                     "blocks_per_sm", "stages"), info))
 
 
 def bsmm_merge(tiles, idx, bsize, out_dtype):
@@ -1311,5 +1606,10 @@ xprop_sparse_pack.launches = 0
 bsmm_updat_reduce.launches = 0
 bsmm_fine.launches = 0
 bsmm_window.launches = 0
+# the launches of the wgmma mode kernels among those above, and of the
+# window kernel's packing
+bsmm_fine.launches_wgmma = 0
+bsmm_window.launches_wgmma = 0
+window_wgmma_pack.launches = 0
 bsmm_merge.launches = 0
 bsmm_split.launches = 0

@@ -69,9 +69,14 @@ class BlocksparseMatMul:
         ``updat_splits``):
         - "fine" with block_size <= 32: ``bsmm_fine`` (the JAX fine
           schedule), 128-deep chunks of each output column's entries;
-          with a larger block it acts as "auto";
+          with a larger block it acts as "auto"; in bf16/f16 on the
+          kernel ``kernels.bsmm.fine_kernel`` picks
+          (``bsmm_fine_wgmma.cu`` or ``bsmm_fine_mma.cu``);
         - "window": ``bsmm_window`` (the JAX window-slab schedule), x
-          staged once per window for a super-group of columns;
+          staged once per window for a super-group of columns; in
+          bf16/f16 on the kernel ``kernels.bsmm.window_kernel`` picks
+          (``bsmm_window_wgmma.cu`` over ``window_wgmma_plan``'s groups
+          of 256 features, or ``bsmm_window_mma.cu``);
         - "grouped": ``bsmm_fprop``/``bsmm_bprop`` unsplit, always (the
           pin for A/B runs: JAX "grouped" never takes a phased cover);
         - "auto", "dense_tile", "resident": the split route (runs of
@@ -608,7 +613,8 @@ class BlocksparseMatMul:
             return "bsmm_updat_" + self._updat_route(N, dtype, sms)[0]
         route = self._route(N, d, sms)
         if route in ("fine", "window"):
-            return f"bsmm_{route}" + ("" if f32 else "_mma")
+            return f"bsmm_{route}" + ("" if f32 else
+                                      "_" + self._mkernel(route, N, d, sms))
         if f32:
             return "bsmm_fprop"
         if route == "phased":
@@ -624,6 +630,14 @@ class BlocksparseMatMul:
         return bsmm_kernels.xprop_kernel(N, self.bsize, self._csr(d)[2], sms,
                                          share)
 
+    def _mkernel(self, route, N, d, sms):
+        """The bf16/f16 kernel of mode route "fine" or "window" in direction
+        d at N rows (``kernels.bsmm.fine_kernel`` / ``window_kernel``):
+        "wgmma" or "mma"."""
+        rule = bsmm_kernels.fine_kernel if route == "fine" \
+            else bsmm_kernels.window_kernel
+        return rule(N, self.bsize, self._csr(d)[2], sms)
+
     def _plan(self, kind, d, phases=0):
         """The host-side plan (NumPy) of a route, built once (kind "updat":
         the updat's groups, d "u"; kind "updat_sparse": those of
@@ -631,7 +645,8 @@ class BlocksparseMatMul:
         column groups over direction d's CSR, or with ``phases`` over the
         split plan's tiles; kind "wgmma": ``bsmm_xprop_wgmma.cu``'s column
         groups and their items over direction d's CSR; kind "sparse":
-        ``bsmm_xprop_sparse.cu``'s over direction d's CSR)."""
+        ``bsmm_xprop_sparse.cu``'s over direction d's CSR; kind
+        "window_wgmma": ``bsmm_window_wgmma.cu``'s)."""
         key = (kind, d, phases)
         plan = self._plans.get(key)
         if plan is None:
@@ -658,6 +673,9 @@ class BlocksparseMatMul:
             elif kind == "window":
                 plan = bsmm_kernels.window_plan(row_ptr, ib, wb, n_in,
                                                 self.bsize)
+            elif kind == "window_wgmma":
+                plan = bsmm_kernels.window_wgmma_plan(row_ptr, ib, wb,
+                                                      self.bsize)
             else:
                 plan = bsmm_kernels.split_plan(row_ptr, phases)
             self._plans[key] = plan
@@ -737,12 +755,18 @@ class BlocksparseMatMul:
         route = self._route(xn.shape[0], d, sms)
         if route == "fine":
             p = self._plan_tensors(x.device, "fine", d)
+            kernel = "mma" if x.dtype == torch.float32 else \
+                self._mkernel(route, xn.shape[0], d, sms)
             y = bsmm_kernels.bsmm_fine(xn, wc, p["chunk_ptr"], p["slot_in"],
-                                       p["slot_w"], b, n_out, trans)
+                                       p["slot_w"], b, n_out, trans, kernel)
         elif route == "window":
             p = self._plan_tensors(x.device, "window", d)
+            plan = None
+            if x.dtype != torch.float32 and \
+                    self._mkernel(route, xn.shape[0], d, sms) == "wgmma":
+                plan = self._plan_tensors(x.device, "window_wgmma", d)
             y = bsmm_kernels.bsmm_window(xn, wc, p["ptr"], p["ent_slot"],
-                                         p["ent_w"], b, n_out, trans)
+                                         p["ent_w"], b, n_out, trans, plan)
         elif route == "phased":
             phases = self._phases(xn.shape[0], d, sms)
             p = self._plan_tensors(x.device, "split", d, phases)

@@ -137,10 +137,21 @@ forward held against a dense cuDNN conv of the scattered filter and
 timed beside it.
 
 Then ``BlocksparseMatMul``'s schedule modes.  ``bsmm_fine`` and
-``bsmm_window`` run ``bsmm_fine_mma.cu`` and ``bsmm_window_mma.cu`` on
-the tensor cores in bf16 and f16 (held against their plain versions at
-every block size, fprop and bprop, two runs equal bit for bit) and
-``bsmm_fine.cu`` and ``bsmm_window.cu`` in f32.  ``bsmm_fine``,
+``bsmm_window`` run in bf16 and f16 on the tensor cores, on the kernel
+the rules ``fine_kernel`` and ``window_kernel`` pick: the wgmma ones,
+``bsmm_fine_wgmma.cu`` (b16 and b32) and ``bsmm_window_wgmma.cu`` (with
+its weights' packing, where its tiles fill the card), or the mma.sync
+ones, ``bsmm_fine_mma.cu`` and ``bsmm_window_mma.cu`` (each of the four
+pinned in turn and held against the plain version at every block size,
+fprop and bprop, two runs equal bit for bit, counted on the kernel
+pinned), and ``bsmm_fine.cu`` and ``bsmm_window.cu`` in f32.  The wgmma
+mode kernels are timed in turns (20 calls a CUDA graph) against the
+mma.sync ones, mode "grouped"'s unsplit kernel and a dense
+``torch.matmul`` at the canonical rows (fine b8-b32, window b8; N 64)
+and the window's regime (N 256 and 2048, fprop and bprop), beside their
+bound, the window's packing alone and bit for bit against its plain
+version, with their registers, spills and shared memory and ptxas'
+C7520 check.  ``bsmm_fine``,
 ``bsmm_window`` and ``bsmm_merge`` against their plain versions in f32,
 bf16 and f16 at the path's shapes (fine and window also against the
 unsplit kernel, bit for bit in f32; their device time and the unsplit
@@ -157,7 +168,7 @@ control (the hidden-2560 row's auto chains also in f32, where the
 split route is partial tiles and ``bsmm_merge``); and the window's own
 regime (``bench.py``'s random 8192^2, b32, d 0.25 layout at N 256 and
 2048), window against grouped in turns, by CUDA events and by the
-profiler's device time.
+profiler's device time, counted on the kernel the rule picks.
 
 The unfused attention ops (``nt_op``, ``nn_op``, ``tn_op``), which the
 LM runs past a head size of 128: ``bst_nt`` and ``bst_xn`` run
@@ -329,7 +340,7 @@ SOURCES = ("bsmm_xprop_mma", "bsmm_fprop", "bsmm_updat_mma", "bsmm_updat",
            "bsmm_merge", "bst_nt_mma", "bst_nt", "bst_xn_mma", "bst_xn",
            "bsmm_xprop_wgmma", "bsmm_updat_wgmma", "bst_attn_fwd_wgmma",
            "bst_attn_dkv_wgmma", "bst_attn_dq_wgmma", "bsmm_xprop_sparse",
-           "bsmm_updat_sparse")
+           "bsmm_updat_sparse", "bsmm_window_wgmma", "bsmm_fine_wgmma")
 # the flagship LM (enwik8's widths, the repo's fixed layout at 2048 tokens)
 FLAGSHIP = dict(n_vocab=256, n_embd=512, n_layer=6, n_head=8, ctx=2048,
                 blk_size=64, attn_layout="fixed", local_blocks=8,
@@ -405,6 +416,9 @@ UPDAT_SPLIT_N = 8192
 # 256, 0.25) from RandomState(0), feature_axis 0, W in +-0.1), at N 256
 # and 2048 (benchmarks/results_window.json's two shapes).
 WIN_HIDDEN, WIN_BSIZE, WIN_DENSITY, WIN_NS = 8192, 32, 0.25, (256, 2048)
+# The mode kernels at every block size also at this N (the fine wgmma
+# kernel's 66 N-tiles, the window kernels' N-tile 128)
+MODE_LONG_N = 4224
 
 
 class CheckFailed(RuntimeError):
@@ -1812,12 +1826,38 @@ def f32_kernel_report(shapes):
     print(f"f32 kernels: {spills} configurations spill", flush=True)
 
 
+@contextlib.contextmanager
+def mode_on(kernel):
+    """The fine and window modes' bf16/f16 kernel pinned to ``kernel``
+    ("wgmma" or "mma") in place of the rules fine_kernel and
+    window_kernel, which are restored after."""
+    from blocksparse_tpu_torch.kernels import bsmm as bk
+    rules = bk.fine_kernel, bk.window_kernel
+    bk.fine_kernel = bk.window_kernel = lambda *_: kernel
+    try:
+        yield
+    finally:
+        bk.fine_kernel, bk.window_kernel = rules
+
+
+def read_mode_wgmma():
+    """Of the fine and window wrappers' launches, those of the wgmma
+    kernels, and the window kernel's weights' packings."""
+    from blocksparse_tpu_torch.kernels import bsmm
+    return {"bsmm_fine": bsmm.bsmm_fine.launches_wgmma,
+            "bsmm_window": bsmm.bsmm_window.launches_wgmma,
+            "window_wgmma_pack": bsmm.window_wgmma_pack.launches}
+
+
 def mode_block_size_checks(bt, dev, g):
-    """bsmm_fine_mma.cu (b8-b32) and bsmm_window_mma.cu (b8-b128) against
+    """The fine (b8-b32) and window (b8-b128) kernels, the wgmma ones
+    (bsmm_fine_wgmma.cu, bsmm_window_wgmma.cu) and the mma.sync ones
+    (bsmm_fine_mma.cu, bsmm_window_mma.cu) each pinned in turn, against
     their plain versions at every block size, in bf16 and f16, fprop and
     bprop, on a random layout of the xprop sweep's size and density with
-    an empty output column, at N = XPROP_N and CANON_N (window_tn picks
-    another N-tile for each at b8-b64), each run twice for equal bits."""
+    an empty output column, at N = XPROP_N, CANON_N and MODE_LONG_N (the
+    mma.sync window kernel's N-tile changes), each run twice for equal
+    bits and counted on the kernel pinned."""
     from blocksparse_tpu_torch.kernels import bsmm as bk
     rng = np.random.RandomState(SEED + 2)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1837,18 +1877,198 @@ def mode_block_size_checks(bt, dev, g):
                 w = (torch.randn(op.w_shape, device=dev, generator=g)
                      * 0.1).to(dtype)
                 for d in "fb":
-                    for N in (XPROP_N, CANON_N):
+                    for N in (XPROP_N, CANON_N, MODE_LONG_N):
                         x = torch.randn((N, op.C if d == "f" else op.K),
                                         device=dev, generator=g).to(dtype)
-                        tn = bk.window_tn(N, -(-n // bk.WINDOW_SG[b]), sms)
-                        tile = f" TN {tn}" if kind == "window" else ""
-                        what = (f"bsmm_{kind}_mma b{b} {d}prop N={N}{tile} "
-                                f"{op.blocks} blocks {dtype}")
-                        same_bits(what, lambda: op._xprop(x, w, d))
-                        compare(what, op._xprop(x, w, d),
-                                plain._xprop(x, w, d), TOL[dtype])
-                        del x
+                        ref = plain._xprop(x, w, d)
+                        for kernel in ("wgmma", "mma"):
+                            tn = bk.WINDOW_WG_TN if kernel == "wgmma" else \
+                                bk.window_tn(N, -(-n // bk.WINDOW_SG[b]), sms)
+                            tile = f" TN {tn}" if kind == "window" else ""
+                            what = (f"bsmm_{kind}_{kernel} b{b} {d}prop "
+                                    f"N={N}{tile} {op.blocks} blocks {dtype}")
+                            before = read_mode_wgmma()[f"bsmm_{kind}"]
+                            with mode_on(kernel):
+                                same_bits(what, lambda: op._xprop(x, w, d))
+                                y = op._xprop(x, w, d)
+                            moved = read_mode_wgmma()[f"bsmm_{kind}"] - before
+                            check(moved == 3 * (kernel == "wgmma"),
+                                  f"{what}: {moved} of 3 launches on wgmma")
+                            compare(what, y, ref, TOL[dtype])
+                        del x, ref
     torch.cuda.empty_cache()
+
+
+def mode_fns(op, kind, xn, w, d):
+    """The bf16/f16 product of ``op``'s direction d on xn (N, C) by each
+    route, as callables: "wgmma" (the mode's wgmma kernel, the window's
+    with its weights' packing), "mma" (its mma.sync kernel), "grouped"
+    (the unsplit kernel mode "grouped" takes); for the window also
+    "kernel" (the wgmma kernel alone, on weights packed once), "pack" (the
+    packing alone), "plain_pack" (its plain version); and the weights
+    packed once (None for fine, whose kernel reads W where it lies)."""
+    from blocksparse_tpu_torch.kernels import bsmm as bk
+    dev, b, N, trans = xn.device, op.bsize, xn.shape[0], d == "b"
+    n_out = op.KB if d == "f" else op.CB
+    lut = op._lut(dev)
+    if kind == "fine":
+        p = op._plan_tensors(dev, "fine", d)
+        args = (p["chunk_ptr"], p["slot_in"], p["slot_w"], b, n_out, trans)
+        packed = None
+        fns = {"wgmma": lambda: bk.bsmm_fine(xn, w, *args, "wgmma"),
+               "mma": lambda: bk.bsmm_fine(xn, w, *args, "mma")}
+    else:
+        p = op._plan_tensors(dev, "window", d)
+        wp = op._plan_tensors(dev, "window_wgmma", d)
+        args = (p["ptr"], p["ent_slot"], p["ent_w"], b, n_out, trans)
+
+        def pack():
+            return bk.window_wgmma_pack(w, wp["cell_w"], b, trans)
+        packed = pack()
+        fns = {"wgmma": lambda: bk.bsmm_window(xn, w, *args, wp),
+               "mma": lambda: bk.bsmm_window(xn, w, *args),
+               "kernel": lambda: bk.bsmm_window(xn, w, *args, wp, packed)}
+        fns["plain_pack"] = lambda: bk.window_wgmma_pack_plain(
+            w, wp["cell_w"], b, trans)
+        fns["pack"] = pack
+    xk = op._xkernel(N, d, bk.device_sm_count(dev))
+    plan = None if xk == "mma" else op._plan_tensors(dev, xk, d)
+    unsplit = bk.bsmm_bprop if trans else bk.bsmm_fprop
+    fns["grouped"] = lambda: unsplit(
+        xn, w, lut[f"{d}_row_ptr"], lut[f"{d}_ent_in"], lut[f"{d}_ent_w"], b,
+        n_out, plan=plan)
+    return fns, packed
+
+
+def mode_turns(label, op, kind, N, dev, g, card_line, rows, d="f"):
+    """The mode's wgmma kernel at one shape (bf16): held against the plain
+    version beside the mma.sync kernel and mode "grouped"'s unsplit
+    kernel, two runs bit-equal (the window's also on weights packed once,
+    bit-equal to the route, its packing bit for bit against the plain
+    packing); then device time, 20 calls a CUDA graph, in turns: the wgmma
+    route (the window's with its packing), the mma.sync kernel, grouped's
+    kernel and a dense torch.matmul of the scattered layout; the window's
+    kernel and packing alone in turns; the bound.  rows[("mode", kind,
+    label, d)] keeps them."""
+    from blocksparse_tpu_torch.kernels import bsmm as bk
+    bf, b = torch.bfloat16, op.bsize
+    n_in, n_out = (op.C, op.KB) if d == "f" else (op.K, op.CB)
+    lut = op._lut(dev)
+    xn = (torch.rand((N, n_in), device=dev, generator=g) * 2 - 1).to(bf)
+    w = (torch.randn(op.w_shape, device=dev, generator=g) * 0.1).to(bf)
+    fns, packed = mode_fns(op, kind, xn, w, d)
+
+    def plain():
+        return bk.xprop_plain(xn, w, lut[f"{d}_in"], lut[f"{d}_w"],
+                              lut[f"{d}_out"], n_out, b, 1, trans_w=d == "b")
+    ref = plain()
+    what = f"{label} {d}prop {kind}"
+    errs = {k: compare(f"{what} on {k} against plain", fns[k](), ref,
+                       TOL[bf]) for k in ("wgmma", "mma", "grouped")}
+    same_bits(f"{what} on wgmma", fns["wgmma"])
+    alone, pack_mark, plain_pack_ms = {}, None, None
+    if packed is not None:
+        check(torch.equal(fns["kernel"](), fns["wgmma"]()),
+              f"{what}: the wgmma kernel on weights packed once, bit for "
+              f"bit the route")
+        check(torch.equal(packed, fns["plain_pack"]().reshape(packed.shape)),
+              f"{what}: the packing bit for bit its plain version "
+              f"({packed.numel() * 2 / 1e6:.2f} MB)")
+        alone = in_turns({"kernel": fns["kernel"], "pack": fns["pack"]},
+                         lambda fn: graph_ms(fn, 20))
+        pack_mark = bound(0, 2 * (op.blocks * b * b + packed.numel()))
+        plain_pack_ms = time_ms(fns["plain_pack"], 5)
+    wd = dense_weight(op, w)
+    wd = wd if d == "f" else wd.t().contiguous()
+    times = in_turns({"wgmma": fns["wgmma"], "mma": fns["mma"],
+                      "grouped": fns["grouped"], "dense": lambda: xn @ wd},
+                     lambda fn: graph_ms(fn, 20))
+    flops = 2 * N * op.blocks * b * b
+    mark = bound(flops, 2 * (N * n_in + op.blocks * b * b + N * n_out * b))
+    plain_ms = time_ms(plain, 5)
+    rows[("mode", kind, label, d)] = {
+        "err": errs, "times": times, "alone": alone, "bound": mark,
+        "plain_ms": plain_ms, "pack_bound": pack_mark,
+        "plain_pack_ms": plain_pack_ms}
+    fmt = lambda v: " / ".join(f"{t:.4f}" for t in v)   # noqa: E731
+    grouped = "bsmm_xprop_" + op._xkernel(N, d, bk.device_sm_count(dev))
+    print(f"{what}: device time, 20 calls a CUDA graph, in turns "
+          f"[{card_line}]: wgmma{' (packing + kernel)' if alone else ''} "
+          f"{fmt(times['wgmma'])} ms "
+          f"({flops / min(times['wgmma']) / 1e9:.2f} TFLOP/s), mma.sync "
+          f"{fmt(times['mma'])}, grouped ({grouped}.cu) "
+          f"{fmt(times['grouped'])}, dense torch.matmul "
+          f"{fmt(times['dense'])}"
+          + (f"; the wgmma kernel alone {fmt(alone['kernel'])}, its packing "
+             f"{fmt(alone['pack'])} (plain {plain_pack_ms:.4f}, bound "
+             f"{pack_mark[0]:.4f})" if alone else "")
+          + f"; bound {mark[0]:.4f} ms ({mark[1]}); plain {plain_ms:.4f}; "
+          f"max err wgmma {errs['wgmma']:.3g}, mma.sync {errs['mma']:.3g}; "
+          f"the rule: {op.kernel_of(N, d)}.cu", flush=True)
+    del xn, w, fns, packed, ref, wd
+    torch.cuda.empty_cache()
+
+
+def mode_wgmma_phase(bt, dev, g, card_line, rows, canon=None, win=None):
+    """The wgmma mode kernels in turns (``mode_turns``) at the main path's
+    shapes: fine at the canonical hidden-7680 rows (b8, b16, b32; N 64,
+    fprop and, at b8, bprop), window at the canonical b8 row (N 64) and
+    at its regime (N 256 and 2048, fprop and bprop); then their
+    registers, spills and shared memory."""
+    t0 = time.perf_counter()
+    canon = canon or canonical_rows(bt, dev)
+    win = win or window_op(bt)[0]
+    small = CANON_ROWS[0][0] * CANON_UNIT
+    for b in CANON_ROWS[0][2]:
+        op = canon[(small, b)][0]["fine"]
+        for d in ("fb" if b == 8 else "f"):
+            mode_turns(f"canonical hidden {small} b{b} N={CANON_N}", op,
+                       "fine", CANON_N, dev, g, card_line, rows, d)
+    mode_turns(f"canonical hidden {small} b8 N={CANON_N}",
+               canon[(small, 8)][0]["window"], "window", CANON_N, dev, g,
+               card_line, rows)
+    for N in WIN_NS:
+        for d in "fb":
+            mode_turns(f"window regime N={N}", win["window"], "window", N,
+                       dev, g, card_line, rows, d)
+    print(f"mode wgmma phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    mode_ptxas_report()
+
+
+def mode_ptxas_report():
+    """Registers, spills and shared memory of the wgmma mode kernels, from
+    ptxas' log and as the runtime reports them (no spill, resident), and
+    that ptxas serializes none of their wgmma (C7520)."""
+    from blocksparse_tpu_torch.kernels import _build
+    from blocksparse_tpu_torch.kernels import bsmm as bk
+    for source in ("bsmm_window_wgmma", "bsmm_fine_wgmma"):
+        fine = source == "bsmm_fine_wgmma"
+        # the window kernel's cell depths (16, 32, 64) and one direction
+        # for both; the fine kernel's block sizes and directions
+        sizes = bk.FINE_BLOCK_SIZES if fine else (16, 32, 64)
+        for dtype in (torch.bfloat16, torch.float16):
+            for b in sizes:
+                for v in ((False, True) if fine else (False,)):
+                    i = bk.mode_kernel_info(source, dtype, b, trans_w=v)
+                    what = (f"{source}.cu {dtype} b{b}"
+                            + ((" bprop" if v else " fprop") if fine else "")
+                            + f": {i['registers']} registers, "
+                            f"{i['local_bytes']} local bytes, "
+                            f"{i['smem_bytes']} bytes of shared memory, "
+                            f"{i['blocks_per_sm']} block(s) an SM, "
+                            f"{i['stages']} ring slots")
+                    check(i["local_bytes"] == 0 and i["blocks_per_sm"] >= 1,
+                          f"{what}: no spill, resident")
+        lib = _build.library_path(source)
+        serial = [line for line in lib.with_name(lib.name + ".log")
+                  .read_text().splitlines() if "C7520" in line]
+        check(not serial, f"{source}.cu: ptxas serializes no wgmma "
+                          f"({len(serial)} warnings)")
+        entries = ptxas_entries(source)
+        print(f"{source}.cu: {len(entries)} kernels (ptxas), "
+              + ", ".join(f"{v[0]} registers spills {v[1]}/{v[2]}"
+                          for v in entries.values()), flush=True)
+        ptxas_warnings(source)
 
 
 def kernel_device_ms(fn, key, n=20):
@@ -2519,6 +2739,9 @@ def reset_counts():
     for name in (*SPARSE_WRAPPERS, "bsmm_updat"):
         counters()[name].launches_sparse = 0
     bsmm.xprop_sparse_pack.launches = 0
+    for fn in (bsmm.bsmm_fine, bsmm.bsmm_window):
+        fn.launches_wgmma = 0
+    bsmm.window_wgmma_pack.launches = 0
 
 
 # the wrappers whose bf16/f16 launches go to bsmm_xprop_wgmma.cu or
@@ -3709,13 +3932,19 @@ def mode_kernel_checks(rows_in, win_op, dev, g, card_line, rows):
                     kind == "fine" else (p["ptr"], p["ent_slot"], p["ent_w"]))
             kern = bk.bsmm_fine if kind == "fine" else bk.bsmm_window
             unsplit = bk.bsmm_bprop if d == "b" else bk.bsmm_fprop
+            # the bf16/f16 kernel the op's rule picks (f32: bsmm_<kind>.cu)
+            src = op.kernel_of(N, d)
+            route = ({"kernel": src.rsplit("_", 1)[1]} if kind == "fine" else
+                     {"plan": op._plan_tensors(dev, "window_wgmma", d)
+                      if src.endswith("_wgmma") else None})
             for dtype in DTYPES:
                 x = torch.randn((N, n_in), device=dev, generator=g).to(dtype)
                 w = (torch.randn(op.w_shape, device=dev, generator=g)
                      * 0.1).to(dtype)
 
                 def run():
-                    return kern(x, w, *args, op.bsize, n_out, d == "b")
+                    return kern(x, w, *args, op.bsize, n_out, d == "b",
+                                **route)
 
                 def plain():
                     return bk.xprop_plain(
@@ -3723,7 +3952,8 @@ def mode_kernel_checks(rows_in, win_op, dev, g, card_line, rows):
                         n_out, op.bsize, 1, trans_w=d == "b")
                 what = (f"bsmm_{kind} {'fprop' if d == 'f' else 'bprop'} "
                         f"b{op.bsize} N={N} {n_in} -> {n_out * op.bsize} "
-                        f"{op.blocks} blocks {dtype}")
+                        f"{op.blocks} blocks {dtype} on "
+                        f"{op.kernel_of(N, d, dtype)}.cu")
                 y = run()
                 err = compare(what, y, plain(), TOL[dtype])
                 same = torch.equal(y, unsplit(
@@ -3742,7 +3972,7 @@ def mode_kernel_checks(rows_in, win_op, dev, g, card_line, rows):
                 if d == "f" and dtype == torch.bfloat16:
                     # the kernel's own time: at these shapes the host's
                     # enqueue of a launch can take longer than the kernel
-                    ms = kernel_device_ms(run, f"bsmm_{kind}_mma_kernel")
+                    ms = kernel_device_ms(run, f"{src}_kernel")
                     grp = kernel_device_ms(lambda: unsplit(
                         x, w, lut[f"{d}_row_ptr"], lut[f"{d}_ent_in"],
                         lut[f"{d}_ent_w"], op.bsize, n_out,
@@ -3751,7 +3981,7 @@ def mode_kernel_checks(rows_in, win_op, dev, g, card_line, rows):
                     key = (kind, op.bsize, N, dtype)
                     rows[key] = (rows[key][0], ms, rows[key][2])
                     print(f"      device time (profiler, mean of 20): "
-                          f"bsmm_{kind}_mma {ms:.4f} ms "
+                          f"{src} {ms:.4f} ms "
                           f"({xprop_flops(op, N) / ms / 1e9:.2f} TFLOP/s), "
                           f"unsplit (grouped) {grp:.4f} ms [{card_line}]",
                           flush=True)
@@ -3861,6 +4091,23 @@ def canonical_path(rows_in, dev, g, card_line, rows):
             check(launches == want, f"{what}: chain fwd + fwd/bwd launches "
                                     f"{launches}, expected {want}")
             add_counts(total, launches)
+            if mode in ("fine", "window") and op.dispatch_mode(CANON_N) \
+                    == mode:
+                # fprop's launches: the chain and the gradients' chain
+                wg = read_mode_wgmma()
+                want_wg = sum(n for d, n in (("f", 2 * CANON_DEPTH),
+                                             ("b", CANON_DEPTH))
+                              if op.kernel_of(CANON_N, d).endswith("_wgmma"))
+                packs = wg["window_wgmma_pack"] if mode == "window" \
+                    else want_wg
+                check(wg[f"bsmm_{mode}"] == want_wg == packs,
+                      f"{what}: {wg[f'bsmm_{mode}']} launches on "
+                      f"bsmm_{mode}_wgmma.cu, expected {want_wg} (the "
+                      f"window's packings {wg['window_wgmma_pack']})")
+                add_counts(total, {(f"bsmm_{mode}", "wgmma"):
+                                   wg[f"bsmm_{mode}"],
+                                   "window_wgmma_pack":
+                                   wg["window_wgmma_pack"]})
             if mode == "grouped":
                 # the unsplit launches by kernel source (wrapper, source)
                 wg = read_wgmma()
@@ -3982,9 +4229,18 @@ def window_path(ops, W, dev, g, card_line):
             want = route_launches(ops[m], N, sms, (1, 1))
             want["bsmm_updat"] = want["bsmm_updat_reduce"] = 0
             if m == "window":
-                check(launches == want,
-                      f"window regime N={N}: window launches {launches}")
+                wg = read_mode_wgmma()
+                on = ops[m].kernel_of(N, "f").endswith("_wgmma")
+                check(launches == want and wg["bsmm_window"] == 2 * on ==
+                      wg["window_wgmma_pack"],
+                      f"window regime N={N}: window launches {launches}, "
+                      f"{wg['bsmm_window']} on bsmm_window_wgmma.cu "
+                      f"(packings {wg['window_wgmma_pack']})")
                 add_counts(total, launches)
+                add_counts(total, {("bsmm_window", "wgmma"):
+                                   wg["bsmm_window"],
+                                   "window_wgmma_pack":
+                                   wg["window_wgmma_pack"]})
         for i, d in enumerate("fb"):
             ref = ops["plain"]._xprop(x, w, d)
             for m in ("window", "grouped"):
@@ -3995,7 +4251,7 @@ def window_path(ops, W, dev, g, card_line):
             times[m].append((time_ms(lambda: ops[m]._xprop(x, w, "f"), 10),
                              time_ms(lambda: ops[m]._xprop(x, w, "b"), 10)))
         flops = 2 * N * ops["plain"].blocks * WIN_BSIZE ** 2
-        kern = {"window": "bsmm_window_mma_kernel",
+        kern = {"window": kernel_of(ops["window"], N, "f")[0],
                 "grouped": kernel_of(ops["grouped"], N, "f")[0]}
         dev_ms = {"window": [], "grouped": []}
         for m in ("window", "grouped", "grouped", "window"):
@@ -4028,12 +4284,18 @@ def window_path(ops, W, dev, g, card_line):
 
 
 def window_tile_sweep(ops, x, w, N, flops, card_line):
-    """The tensor-core window kernel's fprop at each N-tile it is built
-    for (window_tn replaced for the sweep), each within TOL of the plain
-    op, with its device time: what the N-tile rule trades (W re-read per
-    N-tile against thread blocks to fill the SMs)."""
+    """The tensor-core window kernel the rule picks, its fprop at each
+    N-tile it is built for (window_tn replaced for the sweep), each within
+    TOL of the plain op, with its device time: what the N-tile rule trades
+    (W re-read per N-tile against thread blocks to fill the SMs)."""
     from blocksparse_tpu_torch.kernels import bsmm as bk
     bf, op = torch.bfloat16, ops["window"]
+    src = op.kernel_of(N, "f")
+    if src.endswith("_wgmma"):
+        print(f"window regime N={N}: {src}.cu keeps one N-tile, "
+              f"{bk.WINDOW_WG_TN} rows (its tiles fill the card where the "
+              f"rule takes it): no sweep", flush=True)
+        return
     n_sg = -(-op.KB // bk.WINDOW_SG[op.bsize])
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     ref = ops["plain"]._xprop(x, w, "f")
@@ -4041,10 +4303,10 @@ def window_tile_sweep(ops, x, w, N, flops, card_line):
     try:
         for tn in bk.WINDOW_TNS:
             bk.window_tn = lambda *_: tn
-            compare(f"window regime N={N} fprop, N-tile {tn}",
+            compare(f"window regime N={N} fprop on {src}.cu, N-tile {tn}",
                     op._xprop(x, w, "f"), ref, TOL[bf])
             times[tn] = kernel_device_ms(lambda: op._xprop(x, w, "f"),
-                                         "bsmm_window_mma_kernel", 10)
+                                         f"{src}_kernel", 10)
     finally:
         bk.window_tn = rule
     print(f"window regime N={N} fprop device time by N-tile [{card_line}]: "
@@ -7570,6 +7832,10 @@ def main():
     canon = canonical_rows(bt, dev)
     win_ops, win_W = window_op(bt)
     mode_kernel_checks(canon, win_ops["window"], dev, g, card_line, rows)
+    # the wgmma mode kernels in turns with the mma.sync ones, mode
+    # "grouped" and the dense product, at the canonical rows and the
+    # window's regime
+    mode_wgmma_phase(bt, dev, g, card_line, rows, canon, win_ops)
     mode_launches = canonical_path(canon, dev, g, card_line, rows)
     add_counts(mode_launches, window_path(win_ops, win_W, dev, g, card_line))
     print(f"launches: modes path (canonical chains, window regime) "
@@ -7659,6 +7925,18 @@ def main():
           f"{conv512['route']}")
     marks["bsmm_updat_sparse"] = marks["bsmm_updat"]
     marks["bsmm_updat_sparse_conv"] = (*conv512["bound"], conv512["lib"])
+    # the wgmma mode kernels' rows: fine at the canonical b16 row (b8 stays
+    # on mma.sync by the rule), window at its regime's N 2048 (N 256 on
+    # mma.sync by the rule), the kernel alone and its packing apart; times,
+    # bound and the dense product from mode_wgmma_phase's turns
+    small = CANON_ROWS[0][0] * CANON_UNIT
+    fine_wg = rows[("mode", "fine", f"canonical hidden {small} b16 "
+                                    f"N={CANON_N}", "f")]
+    win_wg = rows[("mode", "window", f"window regime N={WIN_NS[1]}", "f")]
+    for name, r in (("bsmm_fine_wgmma", fine_wg),
+                    ("bsmm_window_wgmma", win_wg)):
+        marks[name] = (*r["bound"], float(np.mean(r["times"]["dense"])))
+    marks["window_wgmma_pack"] = (*win_wg["pack_bound"], None)
     kernels = [  # (name, source, TPU kernel, path's launches, row)
         ("bsmm_fprop", "bsmm_xprop_mma.cu", "bsmm.py:1422",
          mode_launches[("bsmm_fprop", "bsmm_xprop_mma")],
@@ -7719,10 +7997,27 @@ def main():
          rows[("im2col", bf)]),
         ("col2im", "col2im_tma.cu", "im2col.py:125", conv_launches["col2im"],
          rows[("col2im", bf)]),
+        # the modes: each kernel's launches those its rule gave it on the
+        # canonical chains and the window path
         ("bsmm_fine", "bsmm_fine_mma.cu", "bsmm.py:2294",
-         mode_launches["bsmm_fine"], rows[("fine", 8, CANON_N, bf)]),
+         mode_launches["bsmm_fine"] - mode_launches[("bsmm_fine", "wgmma")],
+         rows[("fine", 8, CANON_N, bf)]),
+        ("bsmm_fine_wgmma", "bsmm_fine_wgmma.cu", "bsmm.py:2294",
+         mode_launches[("bsmm_fine", "wgmma")],
+         (fine_wg["err"]["wgmma"], float(np.mean(fine_wg["times"]["wgmma"])),
+          fine_wg["plain_ms"])),
         ("bsmm_window", "bsmm_window_mma.cu", "bsmm.py:1800",
-         mode_launches["bsmm_window"], rows[("window", 32, WIN_NS[0], bf)]),
+         mode_launches["bsmm_window"]
+         - mode_launches[("bsmm_window", "wgmma")],
+         rows[("window", 32, WIN_NS[0], bf)]),
+        ("bsmm_window_wgmma", "bsmm_window_wgmma.cu", "bsmm.py:1800",
+         mode_launches[("bsmm_window", "wgmma")],
+         (win_wg["err"]["wgmma"], float(np.mean(win_wg["alone"]["kernel"])),
+          win_wg["plain_ms"])),
+        ("window_wgmma_pack", "bsmm_window_wgmma.cu", "bsmm.py:1800",
+         mode_launches["window_wgmma_pack"],
+         (0.0, float(np.mean(win_wg["alone"]["pack"])),
+          win_wg["plain_pack_ms"])),
         ("bsmm_split", "bsmm_xprop_mma.cu", "bsmm.py:1562",
          serve_launches["bsmm_split"] + mode_launches["bsmm_split"],
          rows[("split", "bsmm2")]),

@@ -360,7 +360,7 @@ def test_kernel_of_names_every_route():
     assert bsmm1.kernel_of(16384, "u", torch.float32, 132) == "bsmm_updat"
     fine = BlocksparseMatMul(_layout("random", 6, 4, 0), block_size=16,
                              feature_axis=1, mode="fine")
-    assert fine.kernel_of(64, "f", sm_count=132) == "bsmm_fine_mma"
+    assert fine.kernel_of(64, "f", sm_count=132) == "bsmm_fine_wgmma"
     assert fine.kernel_of(64, "u", sm_count=132) == "bsmm_updat_mma"
     win = BlocksparseMatMul(_layout("random", 6, 4, 0), block_size=32,
                             feature_axis=1, mode="window")

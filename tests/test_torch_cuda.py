@@ -37,6 +37,7 @@ The LM's CUDA graphs replay the launches of the eager step they captured,
 in the same order on the same buffers: a replayed decode token or train
 step equals the eager one bit for bit.
 """
+import contextlib
 import copy
 import ctypes
 
@@ -2163,6 +2164,20 @@ def _moved(before):
     return {n: c - before[n] for n, c in _counts().items() if c != before[n]}
 
 
+@contextlib.contextmanager
+def _mode_kernel(kernel):
+    """The fine and window modes' bf16/f16 kernel pinned to ``kernel``
+    ("wgmma" or "mma"; None: the rules fine_kernel/window_kernel)."""
+    rules = bsmm_kernels.fine_kernel, bsmm_kernels.window_kernel
+    if kernel is not None:
+        bsmm_kernels.fine_kernel = bsmm_kernels.window_kernel = \
+            lambda *_: kernel
+    try:
+        yield
+    finally:
+        bsmm_kernels.fine_kernel, bsmm_kernels.window_kernel = rules
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, *HALF])
 @pytest.mark.parametrize("bsize", [8, 16, 32, 64, 128])
@@ -2172,12 +2187,17 @@ def test_fine_and_window_kernels_match_plain_and_unsplit(cuda, bsize, dtype,
     the plain version, two runs equal bit for bit, and in f32 bit for bit
     against the unsplit kernel (in bf16 and f16 that kernel sums on the
     tensor cores, in another order, and is itself held against the plain
-    version).  bf16 and f16 run the tensor-core sources
-    (bsmm_fine_mma.cu, bsmm_window_mma.cu), f32 the CUDA-core ones.  Two
+    version).  bf16 and f16 run the source the rules fine_kernel and
+    window_kernel pick, then each tensor-core source pinned in turn: the
+    wgmma ones (bsmm_fine_wgmma.cu; bsmm_window_wgmma.cu, whose packing
+    of the weights builds from the same source) and the mma.sync ones
+    (bsmm_fine_mma.cu, bsmm_window_mma.cu); f32 the CUDA-core ones.  Two
     layouts: a sparse one with an empty output column, an empty input row
     and a window count that does not divide C; a dense one whose windows
-    hold more entries than one W stage of the tensor-core window kernel.
-    N of 1, 63, 64, 65, 300 and 4224, where window_tn's N-tile changes."""
+    hold more entries than one W stage of the mma.sync window kernel.  N
+    of 1, 63, 64, 65, 300 and 4224, where window_tn's N-tile changes (the
+    wgmma window kernel's N-tile 128 runs in chip_smoke.py's block-size
+    checks)."""
     from blocksparse_tpu_torch.kernels import _build
     used = []
     build_fn = _build.function
@@ -2193,8 +2213,7 @@ def test_fine_and_window_kernels_match_plain_and_unsplit(cuda, bsize, dtype,
     sparse[1, :] = 0
     dense = np.ones((256 // bsize, 24), np.int32)
     modes = ("fine", "window") if bsize <= 32 else ("window",)
-    suffix = "" if dtype == torch.float32 else "_mma"
-    sg = bsmm_kernels.WINDOW_SG[bsize]
+    pins = (None,) if dtype == torch.float32 else (None, "wgmma", "mma")
     g = torch.Generator(device=cuda).manual_seed(bsize)
     tiles = set()
     for layout in (sparse, dense):
@@ -2211,30 +2230,105 @@ def test_fine_and_window_kernels_match_plain_and_unsplit(cuda, bsize, dtype,
                 unsplit = ops["grouped"]._xprop(x, w, d)
                 torch.testing.assert_close(unsplit.float(), ref, rtol=0,
                                            atol=atol)
-                tiles.add(bsmm_kernels.window_tn(N, -(-n_out // sg), sms))
+                tiles.add(bsmm_kernels.window_tn(
+                    N, -(-n_out // bsmm_kernels.WINDOW_SG[bsize]), sms))
                 for m in modes:
-                    before = _counts()
-                    used.clear()
-                    y, again = ops[m]._xprop(x, w, d), ops[m]._xprop(x, w, d)
-                    torch.cuda.synchronize()
-                    assert _moved(before) == {f"bsmm_{m}": 2}
-                    assert used == [f"bsmm_{m}{suffix}"] * 2
-                    assert torch.equal(y, again), (m, d, N)
-                    if dtype == torch.float32:
-                        assert torch.equal(y, unsplit), (m, d, N)
-                    torch.testing.assert_close(y.float(), ref, rtol=0,
-                                               atol=atol)
-                    if layout is sparse:
-                        empty = slice(2 * bsize, 3 * bsize) if d == "f" \
-                            else slice(bsize, 2 * bsize)
-                        assert (y[:, empty] == 0).all()
+                    for pin in pins:
+                        with _mode_kernel(pin):
+                            src = ops[m].kernel_of(N, d, dtype, sms)
+                            before = _counts()
+                            wg = getattr(bsmm_kernels, f"bsmm_{m}") \
+                                .launches_wgmma
+                            used.clear()
+                            y, again = (ops[m]._xprop(x, w, d),
+                                        ops[m]._xprop(x, w, d))
+                        torch.cuda.synchronize()
+                        on = src.endswith("_wgmma")
+                        if pin is not None:
+                            assert src == f"bsmm_{m}_{pin}"
+                        elif dtype == torch.float32:
+                            assert src == f"bsmm_{m}"
+                        assert _moved(before) == {f"bsmm_{m}": 2}
+                        assert getattr(bsmm_kernels, f"bsmm_{m}") \
+                            .launches_wgmma - wg == 2 * on
+                        # the window's wgmma route: its packing, then the
+                        # kernel, both in bsmm_window_wgmma.cu
+                        assert used == [src] * (4 if on and m == "window"
+                                                else 2), (m, pin, used)
+                        assert torch.equal(y, again), (m, pin, d, N)
+                        if dtype == torch.float32:
+                            assert torch.equal(y, unsplit), (m, d, N)
+                        torch.testing.assert_close(y.float(), ref, rtol=0,
+                                                   atol=atol)
+                        if layout is sparse:
+                            empty = slice(2 * bsize, 3 * bsize) \
+                                if d == "f" else slice(bsize, 2 * bsize)
+                            assert (y[:, empty] == 0).all()
     assert len(tiles) > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", ["f", "b"])
+def test_window_wgmma_spreads_a_non_finite_input(cuda, d):
+    """An infinity in x at one input block (bf16): the plain version and
+    bsmm_window_mma.cu make its row non-finite in the output columns with
+    an entry at that block; bsmm_window_wgmma.cu also, as NaN, in the
+    columns that share a present cell with one of those and have none
+    there (the cell's zero block times the infinity: it never hides a
+    non-finite input, it spreads it); every other output equal bit for
+    bit to the call without the infinity."""
+    from test_torch_bsmm_mode_wgmma_plan import window_non_finite_block
+    layout = random_layout(40, 24, 0.3, seed=21 + (d == "b"))
+    op = BlocksparseMatMul(layout, block_size=16, feature_axis=1,
+                           mode="window")
+    plain = BlocksparseMatMul(layout, block_size=16, feature_axis=1,
+                              impl="xla")
+    i, reads, partners = window_non_finite_block(op, d)
+    g = torch.Generator(device=cuda).manual_seed(21)
+    w = (torch.randn(op.w_shape, device=cuda, generator=g) * 0.2).bfloat16()
+    x = torch.randn((300, op.C if d == "f" else op.K), device=cuda,
+                    generator=g).bfloat16()
+    with _mode_kernel("wgmma"):
+        clean = op._xprop(x, w, d)
+        x[3, i * 16 + 5] = float("inf")
+        y = op._xprop(x, w, d)
+    with _mode_kernel("mma"):
+        y_mma = op._xprop(x, w, d)
+
+    def bad(t):
+        nf = ~torch.isfinite(t[3].float().reshape(-1, 16))
+        assert torch.equal(nf.any(1), nf.all(1))
+        return set(torch.nonzero(nf.all(1)).flatten().tolist())
+    assert bad(plain._xprop(x, w, d)) == reads
+    assert bad(y_mma) == reads
+    assert bad(y) == reads | partners
+    assert torch.isnan(y[3].reshape(-1, 16)[sorted(partners)]).all()
+    keep = torch.ones_like(y, dtype=torch.bool)
+    for c in reads | partners:
+        keep[3, c * 16:(c + 1) * 16] = False
+    assert torch.equal(y[keep], clean[keep])
+
+
+@pytest.mark.cuda
+def test_mode_wgmma_kernel_info_shows_no_local_memory(cuda):
+    """The wgmma mode kernels' instantiations spill nothing and fit on an
+    SM (the window kernel one block an SM, the fine kernel two)."""
+    for dtype in HALF:
+        for b in (16, 32, 64):
+            i = bsmm_kernels.mode_kernel_info("bsmm_window_wgmma", dtype, b)
+            assert i["local_bytes"] == 0 and i["blocks_per_sm"] == 1
+        for b in bsmm_kernels.FINE_BLOCK_SIZES:
+            for trans in (False, True):
+                i = bsmm_kernels.mode_kernel_info("bsmm_fine_wgmma", dtype, b,
+                                                  trans_w=trans)
+                assert i["local_bytes"] == 0 and i["blocks_per_sm"] == 2
 
 
 @pytest.mark.cuda
 def test_mode_sources_refuse_other_dtypes(cuda):
     """The tensor-core fine and window sources refuse f32 (dtype 0), the
-    CUDA-core ones bf16 and f16 (dtypes 1 and 2): cudaErrorInvalidValue."""
+    CUDA-core ones bf16 and f16 (dtypes 1 and 2), bsmm_fine_wgmma.cu f32
+    and an unknown dtype 3: cudaErrorInvalidValue."""
     from blocksparse_tpu_torch.kernels import _build
     layout = random_layout(4, 4, 1.0, seed=0)
     op = BlocksparseMatMul(layout, block_size=16, feature_axis=1)
@@ -2247,7 +2341,9 @@ def test_mode_sources_refuse_other_dtypes(cuda):
             "bsmm_window": (win["ptr"], win["ent_slot"], win["ent_w"])}
     for name, ints in args.items():
         ptrs = [t.data_ptr() for t in ints]
-        for source, dtypes in ((name, (1, 2)), (name + "_mma", (0,))):
+        for source, dtypes in ((name, (1, 2)), (name + "_mma", (0,)),
+                               *(((name + "_wgmma", (0, 3)),)
+                                 if name == "bsmm_fine" else ())):
             extra = [16] if source == "bsmm_window_mma" else []
             fn = _build.function(
                 source, source + "_nc",
